@@ -1,0 +1,406 @@
+// Cluster traversal kernels for Hopper (sm_90a): the block cull (K1), the
+// closest-hit sweep (K2) and the any-hit sweep (K3).
+//
+// They replace the Pallas TPU kernels of optixpathtracer_tpu/ops/
+// traverse_cluster.py: `_cull_kernel`/`_cull_math` (K1), `_closest_kernel`
+// with `_xform_ray`/`_mt_block`/`_mt_epilogue_lean` (K2) and `_any_kernel`
+// (K3). The plain PyTorch versions beside the Python wrappers
+// (`_cull_torch`, `_closest_torch`, `_any_torch` in
+// optixpathtracer_tpu_torch/ops/traverse_cluster.py) compute the same
+// values op for op.
+//
+// Exactness. Built with --fmad=false and without fast math: every product,
+// sum, `1.0f / x` and `sqrtf` rounds once, as in the PyTorch versions, so
+// the outputs are bit-equal to them. Constants are the JAX package's Python
+// doubles rounded to f32 (e.g. 0.9999996f == float32(1.0 - 4e-7)).
+// min/max propagate NaN like torch.minimum/maximum.
+//
+// What bounds them on the H100. The sweeps are bound by the FP32 issue rate
+// of Moller-Trumbore (about 30 FP32 ops and one IEEE divide per ray-triangle
+// pair that passes the edge tests); the city's triangle rows (74 supers x 16
+// x 2048 f32, 9.7 MB) sit in the 50 MB L2, so device-memory bandwidth is not
+// the limit. The design answers that with one thread per ray: a thread walks
+// its block's near-to-far entries, evaluates only the member clusters its
+// own 16-ray sub-block was culled into, skips a member once its own best hit
+// is nearer than the entry's distance bound, and divides only for pairs that
+// pass the sign tests. The 9 x C rows of a member are staged once into
+// shared memory per block (9 KiB at C = 256) and read as broadcasts. One
+// thread per ray, looping over a cluster's triangles in column order with a
+// strict `<`, reproduces both tie-breaks of the reference: the lowest
+// column wins within a cluster, the first cluster visited wins across them.
+// The cull is light (S*8 slab tests per ray); one block of 256 threads owns
+// one 128-ray block, with the 8 members of a supercluster on 8 neighbouring
+// lanes so the per-super min-key and bit packing are warp shuffles.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlock = 128;       // rays per block: the lo/hi layout is 8 sub-blocks of 16
+constexpr int kSuper = 8;         // clusters per supercluster (entry)
+constexpr int kStoreRows = 16;    // storage rows of the (S, 16, SUPER*C) triangle table
+constexpr int kCullThreads = 256; // 32 supers x 8 members per pass
+constexpr float kBig = 3.0e37f;
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+
+// Max over the 128 threads of a block; every thread gets the result.
+__device__ __forceinline__ float block_max(float v, float* s_red) {
+  for (int off = 16; off > 0; off >>= 1) v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, off));
+  __syncthreads();  // the previous call's readers are done with s_red
+  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  return max_nan(max_nan(s_red[0], s_red[1]), max_nan(s_red[2], s_red[3]));
+}
+
+// ---------------------------------------------------------------------------
+// K1: per 128-ray block, slab test of every live ray's [0, t_max] against
+// every cluster AABB; per super the near-to-far key and the per-(sub-block,
+// member) hit bits. sph_t is the (8, M) member-major table: cluster k of
+// super sid at column k*S + sid, rows [cx cy cz r hx hy hz .].
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kCullThreads)
+cull_kernel(const float* __restrict__ rays8, const float* __restrict__ sph_t, int m, int s,
+            float* __restrict__ key_out, uint32_t* __restrict__ lo_out,
+            uint32_t* __restrict__ hi_out, int* __restrict__ count_out) {
+  __shared__ float s_o[3][kBlock];
+  __shared__ float s_iv[3][kBlock];
+  __shared__ float s_tmax[kBlock];
+  __shared__ int s_alive[kBlock];
+  __shared__ float s_box[6][kCullThreads / 32];
+  __shared__ int s_count;
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  float blo[3] = {kBig, kBig, kBig};
+  float bhi[3] = {-kBig, -kBig, -kBig};
+  int alive = 0;
+  if (tid < kBlock) {
+    const float* r = rays8 + ((size_t)b * kBlock + tid) * 8;
+    alive = r[7] > r[6];
+    for (int a = 0; a < 3; ++a) {
+      const float o = r[a];
+      const float d = r[3 + a];
+      s_o[a][tid] = o;
+      s_iv[a][tid] = 1.0f / (fabsf(d) > 1e-30f ? d : 1e-30f);
+      blo[a] = alive ? o : kBig;
+      bhi[a] = alive ? o : -kBig;
+    }
+    s_tmax[tid] = r[7];
+    s_alive[tid] = alive;
+  }
+  if (tid == 0) s_count = 0;
+  for (int a = 0; a < 3; ++a) {
+    for (int off = 16; off > 0; off >>= 1) {
+      blo[a] = min_nan(blo[a], __shfl_xor_sync(0xffffffffu, blo[a], off));
+      bhi[a] = max_nan(bhi[a], __shfl_xor_sync(0xffffffffu, bhi[a], off));
+    }
+    if (lane == 0) {
+      s_box[a][warp] = blo[a];
+      s_box[3 + a][warp] = bhi[a];
+    }
+  }
+  const int alive_any = __syncthreads_or(alive);
+  float ob[3], hb[3];
+  for (int a = 0; a < 3; ++a) {
+    float lo = s_box[a][0], hi = s_box[3 + a][0];
+    for (int w = 1; w < kCullThreads / 32; ++w) {
+      lo = min_nan(lo, s_box[a][w]);
+      hi = max_nan(hi, s_box[3 + a][w]);
+    }
+    lo = alive_any ? lo : 0.0f;
+    hi = alive_any ? hi : 0.0f;
+    ob[a] = 0.5f * (lo + hi);
+    hb[a] = 0.5f * (hi - lo);
+  }
+
+  const int k = tid & (kSuper - 1);
+  int count = 0;
+  for (int sbase = 0; sbase < s; sbase += kCullThreads / kSuper) {
+    const int sid = sbase + (tid >> 3);
+    uint32_t lo = 0, hi = 0;
+    float ckey = kBig;
+    if (sid < s) {
+      const int col = k * s + sid;
+      const float q[3] = {sph_t[col], sph_t[m + col], sph_t[2 * m + col]};
+      const float h[3] = {sph_t[4 * m + col], sph_t[5 * m + col], sph_t[6 * m + col]};
+      uint32_t bits = 0;  // bit s8: some live ray of sub-block s8 hits the box
+      for (int r = 0; r < kBlock; ++r) {
+        if (!s_alive[r]) continue;
+        float t0[3], t1[3];
+        for (int a = 0; a < 3; ++a) {
+          const float iv = s_iv[a][r];
+          const float mid = (q[a] - s_o[a][r]) * iv;
+          const float rad = h[a] * fabsf(iv);
+          t0[a] = mid - rad;
+          t1[a] = mid + rad;
+        }
+        const float tn = max_nan(max_nan(t0[0], t0[1]), max_nan(t0[2], 0.0f));
+        const float tf = min_nan(min_nan(t1[0], t1[1]), min_nan(t1[2], s_tmax[r]));
+        if (tn <= tf + fabsf(tf) * 4e-7f + 1e-30f) bits |= 1u << (r >> 4);
+      }
+      float sep[3];
+      for (int a = 0; a < 3; ++a) sep[a] = max_nan(fabsf(q[a] - ob[a]) - (h[a] + hb[a]), 0.0f);
+      const float dist = sqrtf(sep[0] * sep[0] + sep[1] * sep[1] + sep[2] * sep[2]) * 0.9999996f;
+      ckey = bits ? dist : kBig;
+      for (int s8 = 0; s8 < 8; ++s8) {
+        if ((bits >> s8) & 1u) {
+          if (s8 < 4) lo |= 1u << (s8 * 8 + k);
+          else hi |= 1u << ((s8 - 4) * 8 + k);
+        }
+      }
+    }
+    // the super's 8 members sit on 8 neighbouring lanes
+    for (int off = 1; off < kSuper; off <<= 1) {
+      lo |= __shfl_xor_sync(0xffffffffu, lo, off);
+      hi |= __shfl_xor_sync(0xffffffffu, hi, off);
+      ckey = min_nan(ckey, __shfl_xor_sync(0xffffffffu, ckey, off));
+    }
+    if (k == 0 && sid < s) {
+      const bool any = (lo | hi) != 0;
+      const size_t o = (size_t)b * s + sid;
+      key_out[o] = any ? ckey : kBig;
+      lo_out[o] = lo;
+      hi_out[o] = hi;
+      count += any;
+    }
+  }
+  if (count) atomicAdd(&s_count, count);
+  __syncthreads();
+  if (tid == 0) count_out[b] = s_count;
+}
+
+// ---------------------------------------------------------------------------
+// Shared walk of K2 / K3: ray setup and the affine world->instance map.
+// ---------------------------------------------------------------------------
+struct Ray {
+  float o[3], d[3], tmin, tmax, dlen;
+};
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays8, size_t ray) {
+  const float* r = rays8 + ray * 8;
+  Ray R;
+  for (int a = 0; a < 3; ++a) {
+    R.o[a] = r[a];
+    R.d[a] = r[3 + a];
+  }
+  R.tmin = r[6];
+  R.tmax = r[7];
+  R.dlen = sqrtf(R.d[0] * R.d[0] + R.d[1] * R.d[1] + R.d[2] * R.d[2]);
+  return R;
+}
+
+// xf: [A row-major 9 | b 3 | pad]; t is invariant under the map.
+__device__ __forceinline__ void xform(const Ray& R, const float* __restrict__ a, float lo[3], float ld[3]) {
+  lo[0] = a[0] * R.o[0] + a[1] * R.o[1] + a[2] * R.o[2] + a[9];
+  lo[1] = a[3] * R.o[0] + a[4] * R.o[1] + a[5] * R.o[2] + a[10];
+  lo[2] = a[6] * R.o[0] + a[7] * R.o[1] + a[8] * R.o[2] + a[11];
+  ld[0] = a[0] * R.d[0] + a[1] * R.d[1] + a[2] * R.d[2];
+  ld[1] = a[3] * R.d[0] + a[4] * R.d[1] + a[5] * R.d[2];
+  ld[2] = a[6] * R.d[0] + a[7] * R.d[1] + a[8] * R.d[2];
+}
+
+// Stage member k's 9 x C rows of one super into shared memory.
+__device__ __forceinline__ void stage_member(float* __restrict__ s_tri, const float* __restrict__ super_rows,
+                                             int k, int c) {
+  for (int idx = threadIdx.x; idx < 9 * c; idx += kBlock) {
+    const int row = idx / c;
+    s_tri[idx] = super_rows[(size_t)row * kSuper * c + k * c + (idx - row * c)];
+  }
+}
+
+// Moller-Trumbore for one ray and triangle column j of the staged member.
+// Returns true and sets t when the pair passes the edge tests; t is then
+// ts * (1/ad) exactly as `_mt_epilogue_lean` computes it.
+__device__ __forceinline__ bool mt(const float* __restrict__ s_tri, int c, int j, const float lo[3],
+                                   const float ld[3], float& t) {
+  const float v0x = s_tri[j], v0y = s_tri[c + j], v0z = s_tri[2 * c + j];
+  const float e1x = s_tri[3 * c + j], e1y = s_tri[4 * c + j], e1z = s_tri[5 * c + j];
+  const float e2x = s_tri[6 * c + j], e2y = s_tri[7 * c + j], e2z = s_tri[8 * c + j];
+  const float px = ld[1] * e2z - ld[2] * e2y;
+  const float py = ld[2] * e2x - ld[0] * e2z;
+  const float pz = ld[0] * e2y - ld[1] * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const float tx = lo[0] - v0x, ty = lo[1] - v0y, tz = lo[2] - v0z;
+  const float up = tx * px + ty * py + tz * pz;
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  const float vp = ld[0] * qx + ld[1] * qy + ld[2] * qz;
+  const float tp = e2x * qx + e2y * qy + e2z * qz;
+  const float sg = det >= 0.0f ? 1.0f : -1.0f;
+  const float ad = det * sg;
+  const float us = up * sg;
+  const float vs = vp * sg;
+  if (!(ad > 0.0f && us >= 0.0f && vs >= 0.0f && us + vs <= ad)) return false;
+  t = (tp * sg) * (1.0f / ad);
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// K2: closest hit. One block per 128-ray block, one thread per ray.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kBlock)
+closest_kernel(const float* __restrict__ rays8, const int* __restrict__ ids,
+               const float* __restrict__ keys, const uint32_t* __restrict__ bits_lo,
+               const uint32_t* __restrict__ bits_hi, const int* __restrict__ rowix,
+               const int* __restrict__ xfix, const int* __restrict__ count,
+               const float* __restrict__ xf_inv, const float* __restrict__ rows, int e, int c,
+               float* __restrict__ t_out, int* __restrict__ tri_out, int* __restrict__ vis_out) {
+  extern __shared__ float s_tri[];  // [9][c]
+  __shared__ float s_red[kBlock / 32];
+  __shared__ int s_vis;
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const size_t ray = (size_t)b * kBlock + tid;
+  const Ray R = load_ray(rays8, ray);
+  const int sub = tid >> 4;  // 16-ray sub-block
+  const int shift = (sub & 3) * 8;
+  float best = R.tmax;
+  int btri = -1;
+  int vis = 0;
+  if (tid == 0) s_vis = 0;
+  __syncthreads();
+
+  const int n_entries = count[b];
+  for (int i = 0; i < n_entries; ++i) {
+    const size_t ei = (size_t)b * e + i;
+    const float key = keys[ei];
+    // early exit: every ray's best hit is nearer than the entry's provable
+    // distance lower bound (keys ascend)
+    if (!(key <= block_max(min_nan(best * R.dlen, kBig), s_red))) break;
+    const uint32_t lw = bits_lo[ei], hw = bits_hi[ei];
+    const uint32_t word = sub < 4 ? lw : hw;
+    const int eid = ids[ei];
+    float lo[3], ld[3];
+    xform(R, xf_inv + (size_t)xfix[ei] * 16, lo, ld);
+    const float* super_rows = rows + (size_t)rowix[ei] * kStoreRows * kSuper * c;
+    for (int k = 0; k < kSuper; ++k) {
+      if (!(((lw | hw) >> k) & 0x01010101u)) continue;  // no sub-block needs member k
+      __syncthreads();
+      stage_member(s_tri, super_rows, k, c);
+      __syncthreads();
+      const bool go = ((word >> (shift + k)) & 1u) && key <= min_nan(best * R.dlen, kBig);
+      const unsigned bal = __ballot_sync(0xffffffffu, go);
+      if (lane == 0) vis += ((bal & 0xffffu) != 0) + ((bal >> 16) != 0);
+      if (go) {
+        const int base = (eid * kSuper + k) * c;
+        for (int j = 0; j < c; ++j) {
+          float t;
+          if (mt(s_tri, c, j, lo, ld, t) && t > R.tmin && t < best) {
+            best = t;
+            btri = base + j;
+          }
+        }
+      }
+    }
+  }
+  t_out[ray] = best;
+  tri_out[ray] = btri;
+  if (lane == 0 && vis) atomicAdd(&s_vis, vis);
+  __syncthreads();
+  if (tid == 0) vis_out[b] = s_vis;
+}
+
+// ---------------------------------------------------------------------------
+// K3: any hit (occlusion), terminating each ray on its first hit.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kBlock)
+any_kernel(const float* __restrict__ rays8, const float* __restrict__ keys,
+           const uint32_t* __restrict__ bits_lo, const uint32_t* __restrict__ bits_hi,
+           const int* __restrict__ rowix, const int* __restrict__ xfix, const int* __restrict__ count,
+           const float* __restrict__ xf_inv, const float* __restrict__ rows, int e, int c,
+           int* __restrict__ occ_out) {
+  extern __shared__ float s_tri[];
+  __shared__ float s_red[kBlock / 32];
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const size_t ray = (size_t)b * kBlock + tid;
+  const Ray R = load_ray(rays8, ray);
+  const int sub = tid >> 4;
+  const int shift = (sub & 3) * 8;
+  const float reach = min_nan(R.tmax * R.dlen, kBig);
+  bool occ = false;
+
+  const int n_entries = count[b];
+  for (int i = 0; i < n_entries; ++i) {
+    const size_t ei = (size_t)b * e + i;
+    const float key = keys[ei];
+    // occluded rays leave the bound
+    if (!(key <= block_max(occ ? 0.0f : reach, s_red))) break;
+    const uint32_t lw = bits_lo[ei], hw = bits_hi[ei];
+    const uint32_t word = sub < 4 ? lw : hw;
+    float lo[3], ld[3];
+    xform(R, xf_inv + (size_t)xfix[ei] * 16, lo, ld);
+    const float* super_rows = rows + (size_t)rowix[ei] * kStoreRows * kSuper * c;
+    for (int k = 0; k < kSuper; ++k) {
+      if (!(((lw | hw) >> k) & 0x01010101u)) continue;
+      __syncthreads();
+      stage_member(s_tri, super_rows, k, c);
+      __syncthreads();
+      if (!occ && ((word >> (shift + k)) & 1u) && key <= reach) {
+        for (int j = 0; j < c; ++j) {
+          float t;
+          if (mt(s_tri, c, j, lo, ld, t) && t > R.tmin && t < R.tmax) {
+            occ = true;
+            break;
+          }
+        }
+      }
+    }
+  }
+  occ_out[ray] = occ ? 1 : 0;
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// C entry points (loaded with ctypes). Pointers are device pointers of
+// contiguous tensors checked by the Python wrappers; `stream` is the
+// caller's cudaStream_t. Each returns cudaGetLastError() after its launch.
+// ---------------------------------------------------------------------------
+extern "C" int cull_launch(int device, const void* rays8, const void* sph_t, int nr, int m,
+                           void* key, void* lo, void* hi, void* count, void* stream) {
+  cudaSetDevice(device);
+  cull_kernel<<<nr, kCullThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)rays8, (const float*)sph_t, m, m / kSuper, (float*)key, (uint32_t*)lo,
+      (uint32_t*)hi, (int*)count);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int closest_launch(int device, const void* rays8, const void* ids, const void* keys,
+                              const void* lo, const void* hi, const void* rowix, const void* xfix,
+                              const void* count, const void* xf_inv, const void* rows, int nr, int e,
+                              int c, void* t_out, void* tri_out, void* vis_out, void* stream) {
+  cudaSetDevice(device);
+  closest_kernel<<<nr, kBlock, 9 * c * sizeof(float), (cudaStream_t)stream>>>(
+      (const float*)rays8, (const int*)ids, (const float*)keys, (const uint32_t*)lo,
+      (const uint32_t*)hi, (const int*)rowix, (const int*)xfix, (const int*)count,
+      (const float*)xf_inv, (const float*)rows, e, c, (float*)t_out, (int*)tri_out, (int*)vis_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int any_launch(int device, const void* rays8, const void* keys, const void* lo,
+                          const void* hi, const void* rowix, const void* xfix, const void* count,
+                          const void* xf_inv, const void* rows, int nr, int e, int c, void* occ_out,
+                          void* stream) {
+  cudaSetDevice(device);
+  any_kernel<<<nr, kBlock, 9 * c * sizeof(float), (cudaStream_t)stream>>>(
+      (const float*)rays8, (const float*)keys, (const uint32_t*)lo, (const uint32_t*)hi,
+      (const int*)rowix, (const int*)xfix, (const int*)count, (const float*)xf_inv,
+      (const float*)rows, e, c, (int*)occ_out);
+  return (int)cudaGetLastError();
+}

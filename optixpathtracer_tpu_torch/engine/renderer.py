@@ -1,0 +1,136 @@
+"""Progressive renderer: owns the framebuffer state and runs one wavefront
+launch per `render()` (port of optixpathtracer_tpu/engine/renderer.py;
+AOVs and checkpoints are ROADMAP A.5).
+
+Pixels are traced in 16x8 tiles, not scanlines: the cluster traversal culls
+per 128-ray block, and a tile's rays form a far tighter bundle. The tile
+permutation is static; image outputs are unpermuted on read.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..builder import CompiledScene
+from ..core.camera import Camera
+from ..core.math import Vec3
+from ..lights.probe import Probe
+from ..ops import tonemap
+from .wavefront import CameraParams, RenderConfig, SampleOutput, accumulate, trace_wavefront
+
+
+def _render_step(cs, probe, cfg, cam, pixel_x, pixel_y, accum: Vec3, subframe: int):
+    """One progressive launch over a pixel chunk (the optixLaunch unit)."""
+    out = trace_wavefront(cs, probe, cfg, cam, pixel_x, pixel_y, subframe)
+    new_accum = accumulate(accum, out.color, subframe, cfg.samples_per_launch, cfg.clamp_radiance)
+    frame = tonemap.pack_rgba8(tonemap.finalize(new_accum, mode=tonemap.TONEMAP_NONE, srgb=True))
+    return new_accum, frame, out
+
+
+class Renderer:
+    """Progressive path-tracing renderer over a compiled scene; renders on
+    the compiled scene's device."""
+
+    TILE_W, TILE_H = 16, 8  # pixel-tile shape for ray-block coherence
+
+    def __init__(self, compiled_scene: CompiledScene, probe: Probe,
+                 config: RenderConfig | None = None, camera: Camera | None = None):
+        self.cs = compiled_scene
+        self.device = compiled_scene.device
+        self.probe = probe
+        self.config = config or RenderConfig()
+        self.camera = camera or Camera()
+        self.subframe_index = 0
+        self.resize(self.config.width, self.config.height)
+
+    def resize(self, width: int, height: int) -> None:
+        """Reallocate framebuffers in 16x8-tile pixel order."""
+        self.config = dataclasses.replace(self.config, width=width, height=height)
+        n = width * height
+        ys, xs = np.divmod(np.arange(n, dtype=np.int32), width)
+        tw, th = self.TILE_W, self.TILE_H
+        tiles_x = -(-width // tw)
+        tile_id = (ys // th) * tiles_x + (xs // tw)
+        within = (ys % th) * tw + (xs % tw)
+        perm = np.argsort(tile_id * (tw * th) + within, kind="stable")
+        self._perm = perm
+        self._inv_perm = np.argsort(perm, kind="stable")
+        self._px = torch.as_tensor(xs[perm], device=self.device)
+        self._py = torch.as_tensor(ys[perm], device=self.device)
+        self.accum = Vec3.zeros((n,), self.device)
+        self.subframe_index = 0
+        self._last: SampleOutput | None = None
+        self._frame_u8 = None
+
+    def render(self, download: bool = True) -> np.ndarray | None:
+        """One progressive launch; returns the (H, W, 4) uint8 frame (or
+        None with download=False, leaving the frame on the device)."""
+        cam = CameraParams.from_camera(self.camera, self.device)
+        tiles = max(1, self.config.dispatch_tiles)
+        n = self._px.shape[0]
+        chunk = -(-n // tiles)
+        sub = self.subframe_index
+        parts = []
+        for s in range(0, n, chunk):
+            e = min(n, s + chunk)
+            a_chunk = Vec3(*(c[s:e] for c in self.accum))
+            parts.append(_render_step(self.cs, self.probe, self.config, cam,
+                                      self._px[s:e], self._py[s:e], a_chunk, sub))
+        if len(parts) == 1:
+            self.accum, frame, self._last = parts[0]
+        else:
+            self.accum = Vec3(*(torch.cat([p[0][k] for p in parts]) for k in range(3)))
+            frame = torch.cat([p[1] for p in parts])
+            self._last = _merge_outputs([p[2] for p in parts])
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.subframe_index += 1
+        self._frame_u8 = frame
+        return self.download_pixels() if download else None
+
+    def render_n(self, n: int) -> np.ndarray:
+        for _ in range(n):
+            out = self.render()
+        return out
+
+    @property
+    def last_output(self) -> SampleOutput | None:
+        return self._last
+
+    @property
+    def pixels(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(pixel_x, pixel_y) of one launch, in 16x8-tile lane order."""
+        return self._px, self._py
+
+    def _to_image(self, v: Vec3) -> np.ndarray:
+        h, w = self.config.height, self.config.width
+        img = np.stack([c.cpu().numpy()[self._inv_perm] for c in v], axis=-1)
+        return img.reshape(h, w, 3)[::-1]  # row 0 is bottom (GL convention)
+
+    def download_pixels(self) -> np.ndarray:
+        """(H, W, 4) uint8, top row first (SampleRenderer::downloadPixels)."""
+        h, w = self.config.height, self.config.width
+        u8 = self._frame_u8.cpu().numpy()[self._inv_perm]
+        return u8.reshape(h, w, 4)[::-1]
+
+    def accum_image(self) -> np.ndarray:
+        return self._to_image(self.accum)
+
+
+def _merge_outputs(outs: list[SampleOutput]) -> SampleOutput:
+    """Concatenate per-pixel fields of chunked launches; sum the scalars."""
+
+    def cat(*xs):
+        return torch.cat(xs)
+
+    return SampleOutput(
+        color=Vec3(*(cat(*(o.color[k] for o in outs)) for k in range(3))),
+        alpha=Vec3(*(cat(*(o.alpha[k] for o in outs)) for k in range(3))),
+        normal=Vec3(*(cat(*(o.normal[k] for o in outs)) for k in range(3))),
+        albedo=Vec3(*(cat(*(o.albedo[k] for o in outs)) for k in range(3))),
+        depth=cat(*(o.depth for o in outs)),
+        rays_traced=sum(o.rays_traced for o in outs),
+        bfs_overflow=sum(o.bfs_overflow for o in outs),
+    )

@@ -1,0 +1,547 @@
+"""The wavefront path-trace engine (port of
+optixpathtracer_tpu/engine/wavefront.py).
+
+One SoA wavefront per launch: raygen with jittered AA, then per bounce an
+optional coherence sort of the path state, one closest-hit sweep, hit
+geometry, probe next-event estimation with balance-heuristic MIS and its
+any-hit shadow sweep, and a Disney BSDF continuation. The RNG is the
+reference's counter-based tea/xorshift stream (core/rng.py), so every lane
+draws the same numbers as the JAX engine.
+
+The options off the main path raise NotImplementedError naming the ROADMAP
+item that ports them (see `_check_supported`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..builder import CompiledScene
+from ..core.materials import MATERIAL_FLAG_SHADOW_CATCHER
+from ..core.math import (
+    Vec3,
+    basis_from_vector,
+    cross,
+    dot,
+    faceforward,
+    luminance,
+    normalize,
+    where,
+)
+from ..core.rng import M32, RngState, as_i32_bits, randf, tea
+from ..lights.probe import Probe, dir_to_uv, probe_eval, probe_sample
+from ..ops.traverse_cluster import any_hit_cluster, closest_hit_cluster
+from ..shade import disney
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Launch knobs; the same fields and defaults as the JAX RenderConfig.
+    The port implements traversal="cluster" only."""
+
+    width: int = 1200
+    height: int = 1024
+    samples_per_launch: int = 32
+    max_depth: int = 8
+    t_min: float = 1e-3
+    t_max: float = 1e16
+    shadow_t_min: float = 0.01
+    probe_samples: float = 1.0
+    bsdf_samples: float = 1.0
+    use_shading_normals: bool = False
+    antialias: bool = True
+    clamp_radiance: float = 10.0
+    traversal: str = "lockstep"
+    bfs_cap_factor: int = 4
+    dispatch_tiles: int = 1  # sequential pixel chunks per launch
+    batch_spp: bool = False  # all samples in ONE expanded wavefront
+    fused_shadows: bool = False
+    env_via_bsdf: bool = False
+    emission_all_bounces: bool = False
+    unroll: bool = False  # no effect here: loops are Python loops
+    nee_final_bounce: bool = True  # False peels the last bounce without NEE
+    nee_rr: float = 0.0
+    sampling: str = "random"
+    sampling_strata: int = 64
+    russian_roulette: bool = False
+    rr_start_depth: int = 2
+    rr_min_prob: float = 0.05
+    sort_rays: bool = False  # coherence-sort the path state every bounce
+
+
+def _check_supported(cfg: RenderConfig, **extras) -> None:
+    """Raise for options whose port is a later ROADMAP item."""
+    off = {
+        "fused_shadows": (cfg.fused_shadows, "A.5"),
+        "env_via_bsdf": (cfg.env_via_bsdf, "A.5"),
+        "nee_rr": (cfg.nee_rr > 0.0, "A.5"),
+        f"sampling={cfg.sampling!r}": (cfg.sampling != "random", "A.5"),
+        f"traversal={cfg.traversal!r}": (cfg.traversal != "cluster", "A 'not to port'"),
+        "area_light": (extras.get("area_light") is not None, "A.11"),
+        "demand_pool": (extras.get("demand_pool") is not None, "A.11"),
+        "sample_lanes": (extras.get("sample_lanes") is not None, "A.8"),
+        "active_mask": (extras.get("active_mask") is not None, "A.8"),
+    }
+    for name, (on, item) in off.items():
+        if on:
+            raise NotImplementedError(f"{name} is not ported yet (ROADMAP {item})")
+
+
+class CameraParams(NamedTuple):
+    """Raygen uniforms: 0-dim float32 tensors on the render device."""
+
+    eye: Vec3
+    u: Vec3
+    v: Vec3
+    w: Vec3
+
+    @staticmethod
+    def from_camera(cam, device) -> "CameraParams":
+        uu, vv, ww = cam.uvw_frame()
+        return CameraParams(*(
+            Vec3.of(*(float(np.float32(c)) for c in vec), device=device)
+            for vec in (cam.eye, uu, vv, ww)
+        ))
+
+
+class SampleOutput(NamedTuple):
+    """Per-pixel sums over samples_per_launch (all shapes (N,))."""
+
+    color: Vec3  # backplate-composited radiance sum (pre 1/spp)
+    alpha: Vec3
+    normal: Vec3  # first-bounce AOV mean
+    albedo: Vec3
+    depth: Tensor
+    rays_traced: Tensor  # int64 scalar: radiance + shadow rays traced
+    bfs_overflow: Tensor  # scalar, always 0 (the cluster backend is exact)
+
+
+def _hit_geometry(cs: CompiledScene, rec, ray_dir: Vec3, use_shading: bool):
+    """Per-hit normal, material and albedo (the SBT-record stage)."""
+    if cs.clusters is not None and cs.clusters.instanced:
+        raise NotImplementedError("instanced scenes are ROADMAP A.9")
+    tri = torch.clamp(rec.tri, min=0).to(torch.int64)
+    v0, v1, v2, sn0, sn1, sn2, _uv6, mat_id, has = cs.scene.take_shade(tri)
+    n_geom = normalize(cross(v1 - v0, v2 - v0))
+    if use_shading:
+        w0 = 1.0 - rec.u - rec.v
+        ns = sn0 * w0 + sn1 * rec.u + sn2 * rec.v
+        n = normalize(where(has, ns, n_geom))
+    else:
+        n = n_geom
+    # faceforward against the incoming ray (deviceProgram.cu:492)
+    n = faceforward(n, -ray_dir, n)
+    mat = cs.scene.materials.take(mat_id.to(torch.int64))
+    # untextured scenes only (textures raise at upload): albedo = color
+    return n, mat, mat.color
+
+
+def _spread3(x: Tensor) -> Tensor:
+    """Spread the low 10 bits of x so consecutive bits land 3 apart."""
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def _coherence_key(o: Vec3, d: Vec3, done: Tensor, aabb: Tensor) -> Tensor:
+    """Spatial sort key (uint32 value held in int64, ascending = good block
+    order): dead(1) | direction octant(3) | origin Morton 18 | direction
+    magnitude Morton (top 10). Dead rays set bit 31; the key is a
+    non-negative int64, so they sort last."""
+
+    def q6(a, lo, hi):
+        s = 64.0 / torch.clamp(hi - lo, min=1e-6)
+        return torch.clamp((a - lo) * s, 0.0, 63.0).to(torch.int64)
+
+    om = (
+        _spread3(q6(o.x, aabb[0], aabb[3]))
+        | (_spread3(q6(o.y, aabb[1], aabb[4])) << 1)
+        | (_spread3(q6(o.z, aabb[2], aabb[5])) << 2)
+    )
+    oct_ = (d.x < 0).to(torch.int64) * 4 + (d.y < 0).to(torch.int64) * 2 + (d.z < 0).to(torch.int64)
+
+    def qd(a):
+        return torch.clamp(a.abs() * 16.0, 0.0, 15.0).to(torch.int64)
+
+    dm = _spread3(qd(d.x)) | (_spread3(qd(d.y)) << 1) | (_spread3(qd(d.z)) << 2)
+    return (done.to(torch.int64) << 31) | (oct_ << 28) | (om << 10) | (dm >> 2)
+
+
+def _stable_argsort(key: Tensor) -> Tensor:
+    """Permutation sorting `key` ascending, ties in lane order (lax.sort)."""
+    return torch.sort(key, stable=True).indices
+
+
+def _pack_i32(leaves: list[Tensor]) -> Tensor:
+    """Bit-pack same-length (N,) leaves into one (N, F) int32 matrix: bools
+    widen, int32 moves as is, float32 as its bit pattern, int64 as the low
+    32 bits (the RNG words are uint32 values held in int64)."""
+    cols = []
+    for x in leaves:
+        if x.dtype == torch.bool or x.dtype == torch.int32:
+            cols.append(x.to(torch.int32))
+        elif x.dtype == torch.int64:
+            cols.append(as_i32_bits(x))
+        elif x.dtype == torch.float32:
+            cols.append(x.view(torch.int32))
+        else:
+            raise TypeError(f"cannot pack {x.dtype}")
+    return torch.stack(cols, dim=1)
+
+
+def _unpack_i32(packed: Tensor, protos: list[Tensor]) -> list[Tensor]:
+    out = []
+    for i, p in enumerate(protos):
+        col = packed[:, i].contiguous()
+        if p.dtype == torch.bool:
+            out.append(col != 0)
+        elif p.dtype == torch.int32:
+            out.append(col)
+        elif p.dtype == torch.int64:
+            out.append(col.to(torch.int64) & M32)
+        else:
+            out.append(col.view(torch.float32))
+    return out
+
+
+def permute_packed(leaves: list[Tensor], perm: Tensor) -> list[Tensor]:
+    """Apply one permutation to many (N,) tensors with one (N, F) int32
+    row gather of their bit-packed columns (bit-exact for every dtype)."""
+    return _unpack_i32(_pack_i32(leaves)[perm], leaves)
+
+
+def _flatten_path(path: dict):
+    """(names, leaves) of the per-lane tensors of a path dict."""
+    names, leaves = [], []
+    for k in sorted(path):
+        v = path[k]
+        if isinstance(v, tuple):  # Vec3 / RngState
+            for j, c in enumerate(v):
+                names.append((k, j))
+                leaves.append(c)
+        elif isinstance(v, Tensor) and v.dim() == 1:
+            names.append((k, None))
+            leaves.append(v)
+    return names, leaves
+
+
+def _sort_path(path: dict, key: Tensor) -> dict:
+    """Reorder every per-lane leaf of the path state by ascending key."""
+    names, leaves = _flatten_path(path)
+    moved = permute_packed(leaves, _stable_argsort(key))
+    out = dict(path)
+    groups: dict = {}
+    for (k, j), v in zip(names, moved):
+        if j is None:
+            out[k] = v
+        else:
+            groups.setdefault(k, []).append(v)
+    for k, comps in groups.items():
+        out[k] = type(path[k])(*comps)
+    return out
+
+
+def _nee_sample(probe, cfg, n, wo, mat, albedo, eta_i, eta_o, state):
+    """Draw the probe NEE sample and its MIS-weighted contribution without
+    tracing visibility (SampleLights math, deviceProgram.cu:252-292)."""
+    state, wi, sky_color, sky_pdf = probe_sample(probe, state)
+    b_pdf = disney.bsdf_pdf(mat, eta_i, eta_o, n, wo, wi)
+    f = disney.bsdf_eval(mat, albedo, eta_i, eta_o, n, wo, wi)
+
+    n_total = cfg.probe_samples + cfg.bsdf_samples
+    c_bsdf = cfg.bsdf_samples / n_total
+    c_sky = cfg.probe_samples / n_total
+    weight = c_sky * sky_pdf / torch.clamp(c_bsdf * b_pdf + c_sky * sky_pdf, min=1e-12)
+
+    valid = (b_pdf > 0.0) & (weight > 0.0) & (sky_pdf > 0.0)
+    scale = weight * dot(wi, n).abs() / torch.clamp(sky_pdf, min=1e-12) / cfg.probe_samples
+    contrib = sky_color * f * scale
+    return state, wi, contrib, valid
+
+
+def _any_hit_sorted(cs: CompiledScene, cfg: RenderConfig, o: Vec3, d: Vec3, t_min, t_max: Tensor):
+    """Occlusion sweep with its own coherence sort (shadow rays inherit the
+    radiance order but point anywhere), scattered back to lane order.
+    Results are identical to the unsorted sweep (occlusion is per ray)."""
+    if not cfg.sort_rays:
+        return any_hit_cluster(cs.clusters, o, d, t_min, t_max)
+    n = o.x.shape[0]
+    dead = t_max <= t_min
+    perm = _stable_argsort(_coherence_key(o, d, dead, cs.clusters.scene_aabb))
+    sx, sy, sz, sdx, sdy, sdz, stm = permute_packed([*o, *d, t_max], perm)
+    occ, ovf = any_hit_cluster(cs.clusters, Vec3(sx, sy, sz), Vec3(sdx, sdy, sdz), t_min, stm)
+    occ_u = torch.empty((n,), dtype=torch.bool, device=occ.device)
+    occ_u[perm] = occ  # boolean scatter back to lane order (perm is unique)
+    return occ_u, ovf
+
+
+def _nee(cs, probe, cfg, p, n, wo, mat, albedo, eta_i, eta_o, active, state):
+    """NEE with immediate visibility. Returns (state, lit, shadowed, traced):
+    every shaded hit traces its shadow ray, even an invalid sample
+    (deviceProgram.cu:264-277 traces before checking pdfs)."""
+    state, wi, contrib, valid = _nee_sample(probe, cfg, n, wo, mat, albedo, eta_i, eta_o, state)
+    t_max = torch.where(active, cfg.t_max, 0.0)
+    occluded, _ = _any_hit_sorted(cs, cfg, p, wi, cfg.shadow_t_min, t_max)
+    zero = Vec3(*(torch.zeros_like(valid, dtype=torch.float32),) * 3)
+    lit = where(valid & ~occluded, contrib, zero)
+    shadowed = where(valid & occluded, contrib, zero)
+    return state, lit, shadowed, active
+
+
+def _raygen(cfg: RenderConfig, cam: CameraParams, pixel_x: Tensor, pixel_y: Tensor,
+            pix_index: Tensor, seed_ctr):
+    """Seed each lane's stream with tea(pixel, sample counter) and shoot its
+    jittered camera ray. Returns (state, o, d)."""
+    dev = pixel_x.device
+    state = RngState.seed(tea(pix_index, seed_ctr))
+    if cfg.antialias:
+        state, jx = randf(state)
+        state, jy = randf(state)
+    else:
+        jx = torch.full(pixel_x.shape, 0.5, dtype=torch.float32, device=dev)
+        jy = jx
+    w = torch.tensor(float(cfg.width), dtype=torch.float32, device=dev)
+    h = torch.tensor(float(cfg.height), dtype=torch.float32, device=dev)
+    dx = 2.0 * (pixel_x.to(torch.float32) + jx) / w - 1.0
+    dy = 2.0 * (pixel_y.to(torch.float32) + jy) / h - 1.0
+    d = normalize(cam.u * dx + cam.v * dy + cam.w * 1.0)
+    zf = torch.zeros(pixel_x.shape, dtype=torch.float32, device=dev)
+    return state, Vec3(cam.eye.x + zf, cam.eye.y + zf, cam.eye.z + zf), d
+
+
+def first_bounce_rays(cfg: RenderConfig, cam: CameraParams, pixel_x: Tensor, pixel_y: Tensor,
+                      subframe: int = 0):
+    """(o, d) of a launch's first sweep: the camera rays of sample 0, or of
+    every sample when batch_spp expands the wavefront."""
+    spp = cfg.samples_per_launch
+    s = 0
+    if cfg.batch_spp and spp > 1:
+        s = torch.arange(spp, dtype=torch.int64, device=pixel_x.device).repeat_interleave(
+            pixel_x.shape[0])
+        pixel_x, pixel_y = pixel_x.repeat(spp), pixel_y.repeat(spp)
+    pix_index = (pixel_y.to(torch.int64) * cfg.width + pixel_x.to(torch.int64)) & M32
+    _, o, d = _raygen(cfg, cam, pixel_x, pixel_y, pix_index, (subframe * spp + s) & M32)
+    return o, d
+
+
+def trace_wavefront(
+    cs: CompiledScene,
+    probe: Probe,
+    cfg: RenderConfig,
+    cam: CameraParams,
+    pixel_x: Tensor,
+    pixel_y: Tensor,
+    subframe: int,
+    active_mask: Tensor | None = None,
+    area_light=None,
+    sample_lanes: Tensor | None = None,
+    demand_pool=None,
+) -> SampleOutput:
+    """Render cfg.samples_per_launch paths for each pixel in the wavefront.
+
+    pixel_x/pixel_y: (N,) int32 pixel coordinates on the render device."""
+    _check_supported(cfg, active_mask=active_mask, area_light=area_light,
+                     sample_lanes=sample_lanes, demand_pool=demand_pool)
+    dev = pixel_x.device
+    n_pix = pixel_x.shape[0]
+    spp = cfg.samples_per_launch
+    batch = cfg.batch_spp and spp > 1
+    if batch:
+        pixel_x = pixel_x.repeat(spp)
+        pixel_y = pixel_y.repeat(spp)
+        s_lanes = torch.arange(spp, dtype=torch.int64, device=dev).repeat_interleave(n_pix)
+        loop_spp = 1
+    else:
+        s_lanes = None
+        loop_spp = spp
+
+    n = pixel_x.shape[0]
+    pix_index = (pixel_y.to(torch.int64) * cfg.width + pixel_x.to(torch.int64)) & M32
+    zf = torch.zeros((n,), dtype=torch.float32, device=dev)
+    zero = Vec3(zf, zf, zf)
+    no = torch.zeros((n,), dtype=torch.bool, device=dev)
+    sorting = cfg.sort_rays and cs.clusters is not None
+
+    def bounce_body(depth: int, path: dict, skip_nee: bool = False) -> dict:
+        if sorting:
+            key = _coherence_key(path["o"], path["d"], path["done"], cs.clusters.scene_aabb)
+            path = _sort_path(path, key)
+        active = ~path["done"]  # depth <= max_depth on every iteration here
+        t_max = torch.where(active, cfg.t_max, 0.0)
+        rec = closest_hit_cluster(cs.clusters, path["o"], path["d"], cfg.t_min, t_max)
+        hit = rec.hit & active
+
+        n_hit, mat, albedo = _hit_geometry(cs, rec, path["d"], cfg.use_shading_normals)
+        p_hit = path["o"] + path["d"] * rec.t
+
+        is_catcher = (mat.flags & MATERIAL_FLAG_SHADOW_CATCHER) != 0
+        catcher_pass = hit & is_catcher & path["secondary"]
+        shaded = hit & ~catcher_pass
+
+        # first-bounce AOVs (deviceProgram.cu:424-427; miss zeroes them)
+        if depth == 0:
+            normal_aov = where(active, where(hit, n_hit, zero), path["normal"])
+            albedo_aov = where(active, where(hit, albedo, zero), path["albedo"])
+            depth_aov = torch.where(active, torch.where(hit, rec.t, 0.0), path["depth_aov"])
+        else:
+            normal_aov, albedo_aov, depth_aov = path["normal"], path["albedo"], path["depth_aov"]
+
+        # ---- NEE ----
+        eta_o = torch.where(path["eta"] == 1.0, mat.index_of_refraction(), 1.0)
+        wo = -path["d"]
+        plain = shaded & ~is_catcher
+        catcher_primary = shaded & is_catcher
+        ones = Vec3(*(torch.ones_like(zf),) * 3)
+        if skip_nee:
+            # peeled final bounce (nee_final_bounce=False): the reference
+            # discards this sweep's NEE anyway, so neither sample nor trace
+            state = path["state"]
+            shadow_traced = no
+            radiance = path["radiance"]
+            alpha = where(plain, ones, path["alpha"])
+        else:
+            state, lit, shadowed, shadow_traced = _nee(
+                cs, probe, cfg, p_hit, n_hit, wo, mat, albedo,
+                path["eta"], eta_o, shaded, path["state"],
+            )
+            radiance = path["radiance"] + where(plain, path["throughput"] * lit, zero)
+            alpha = where(plain, ones, path["alpha"])
+            alpha = alpha + where(catcher_primary, path["throughput"] * shadowed, zero)
+
+        # emission on primary hits (:558-560), or on every bounce
+        if cfg.emission_all_bounces:
+            radiance = radiance + where(plain, path["throughput"] * mat.emission, zero)
+        else:
+            radiance = radiance + where(plain & ~path["secondary"], mat.emission, zero)
+
+        rays = path["rays"] + active.sum() + shadow_traced.sum()
+        if skip_nee:
+            # the continuation state is never consumed again
+            return dict(path, radiance=radiance, alpha=alpha, normal=normal_aov,
+                        albedo=albedo_aov, depth_aov=depth_aov, state=state, rays=rays)
+
+        # ---- BSDF continuation ----
+        tb, bb = basis_from_vector(n_hit)
+        state, res = disney.bsdf_sample(mat, path["eta"], eta_o, tb, bb, n_hit, wo, state)
+        f = disney.bsdf_eval(mat, albedo, path["eta"], eta_o, n_hit, wo, res.light)
+        cos_term = dot(n_hit, res.light).abs()
+        new_tp = path["throughput"] * f * (cos_term / torch.clamp(res.pdf, min=1e-12))
+        transmit = dot(res.light, n_hit) <= 0.0
+        new_eta = torch.where(transmit, eta_o, path["eta"])
+
+        bsdf_dead = shaded & (res.pdf <= 0.0)
+        cont = shaded & ~bsdf_dead
+
+        rr_kill = no
+        if cfg.russian_roulette:
+            # the draw is unconditional so the stream stays lane-uniform
+            state, u_rr = randf(state)
+            p_surv = torch.clamp(luminance(new_tp), cfg.rr_min_prob, 1.0)
+            do_rr = cont & (depth >= cfg.rr_start_depth)
+            rr_kill = do_rr & (u_rr >= p_surv)
+            boost = torch.where(do_rr & ~rr_kill, 1.0 / p_surv, 1.0)
+            new_tp = new_tp * boost
+            cont = cont & ~rr_kill
+
+        # shadow-catcher passthrough: continue straight through (:503-508)
+        return dict(
+            path,
+            o=where(catcher_pass, p_hit, where(cont, p_hit, path["o"])),
+            d=where(cont, res.light, path["d"]),
+            throughput=where(cont, new_tp, path["throughput"]),
+            eta=torch.where(cont, new_eta, path["eta"]),
+            radiance=radiance,
+            alpha=alpha,
+            normal=normal_aov,
+            albedo=albedo_aov,
+            depth_aov=depth_aov,
+            done=path["done"] | (active & ~rec.hit) | bsdf_dead | rr_kill,
+            secondary=path["secondary"] | cont,
+            state=state,
+            rays=rays,
+            bsdf_pdf=torch.where(cont, res.pdf, path["bsdf_pdf"]),
+            prev_delta=torch.where(cont, res.event == disney.SPECULAR, path["prev_delta"]),
+        )
+
+    acc = None
+    rays_total = torch.zeros((), dtype=torch.int64, device=dev)
+    backplate = zero
+    for s in range(loop_spp):
+        s_eff = s_lanes if s_lanes is not None else s
+        state, o, d = _raygen(cfg, cam, pixel_x, pixel_y, pix_index, (subframe * spp + s_eff) & M32)
+        backplate = probe_eval(probe, *dir_to_uv(d))
+
+        path = dict(
+            o=o, d=d, throughput=Vec3(zf + 1.0, zf + 1.0, zf + 1.0), eta=zf + 1.0,
+            radiance=zero, alpha=zero, normal=zero, albedo=zero,
+            done=no, secondary=no, state=state,
+            rays=torch.zeros((), dtype=torch.int64, device=dev),
+            depth_aov=zf, bsdf_pdf=zf + 1.0, prev_delta=no,
+        )
+        if sorting:
+            # original lane, to restore caller order after the bounce sorts
+            path["idx"] = torch.arange(n, dtype=torch.int64, device=dev)
+
+        if cfg.nee_final_bounce:
+            for depth in range(cfg.max_depth + 1):
+                path = bounce_body(depth, path)
+        else:
+            for depth in range(cfg.max_depth):
+                path = bounce_body(depth, path)
+            path = bounce_body(cfg.max_depth, path, skip_nee=True)
+
+        if sorting:
+            outs = [*path["radiance"], *path["alpha"], *path["normal"], *path["albedo"],
+                    path["depth_aov"]]
+            r = permute_packed(outs, _stable_argsort(path["idx"]))
+            path = dict(path, radiance=Vec3(*r[0:3]), alpha=Vec3(*r[3:6]),
+                        normal=Vec3(*r[6:9]), albedo=Vec3(*r[9:12]), depth_aov=r[12])
+
+        cur = (path["radiance"], path["alpha"], path["normal"], path["albedo"], path["depth_aov"])
+        acc = cur if acc is None else tuple(a + c for a, c in zip(acc, cur))
+        rays_total = rays_total + path["rays"]
+
+    color, alpha, normal, albedo, depth = acc
+    if batch:
+        def fold(a: Tensor, mean: bool = False) -> Tensor:
+            r = a.reshape(spp, n_pix)
+            return r.mean(0) if mean else r.sum(0)
+
+        color = Vec3(*(fold(c) for c in color))
+        alpha = Vec3(*(fold(c) for c in alpha))
+        normal = Vec3(*(fold(c) for c in normal))
+        albedo = Vec3(*(fold(c) for c in albedo))
+        depth = fold(depth)
+        backplate = Vec3(*(fold(c, mean=True) for c in backplate))
+
+    sppf = float(spp)
+    alpha = alpha / sppf
+    normal = normal / sppf
+    albedo = albedo / sppf
+    depth = depth / sppf
+    # composite over the backplate (deviceProgram.cu:454)
+    color = backplate * sppf * (1.0 - alpha) + color
+    return SampleOutput(
+        color=color, alpha=alpha, normal=normal, albedo=albedo, depth=depth,
+        rays_traced=rays_total,
+        bfs_overflow=torch.zeros((), dtype=torch.float32, device=dev),
+    )
+
+
+def accumulate(prev: Vec3, new_color: Vec3, subframe: int, spp: int, clamp_val: float) -> Vec3:
+    """Progressive accumulation (deviceProgram.cu:458-467):
+    accum = lerp(prev, clamp(new/spp, 0, clamp), 1/(subframe+1))."""
+    cur = new_color * (1.0 / spp)
+    if subframe == 0:
+        return cur
+    cur_clamped = Vec3(*(torch.clamp(c, 0.0, clamp_val) for c in cur))
+    a = float(np.float32(1.0) / (np.float32(subframe) + np.float32(1.0)))
+    return prev + (cur_clamped - prev) * a

@@ -1,0 +1,133 @@
+"""Procedural scenes and render setups of the main path, rebuilt without jax.
+
+`build_city_scene` is the bench's 150k-triangle city (bench.py
+`build_city_scene`, `_unit_box`), made from the same seed with the same
+numpy calls, so it is the same triangle soup. The `open_*` functions are
+the golden setups of tests/golden_scenes.py (`_open_scene`, `_sky_probe`,
+`_cam`/`_cam_s`, `render_disney_open`, `render_disney_open_small`) with the
+cluster traversal in place of the reference's CPU lockstep backend (both
+are exact).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .builder import compile_scene
+from .core.camera import Camera
+from .core.materials import make_material
+from .core.scene import HostScene, Mesh
+from .engine.renderer import Renderer
+from .engine.wavefront import RenderConfig
+from .lights.probe import build_probe
+
+
+def _unit_box():
+    v = np.array(
+        [[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1],
+         [-1, -1, 1], [1, -1, 1], [1, 1, 1], [-1, 1, 1]],
+        np.float32,
+    )
+    f = np.array(
+        [[0, 1, 2], [0, 2, 3], [4, 6, 5], [4, 7, 6], [0, 4, 5], [0, 5, 1],
+         [3, 2, 6], [3, 6, 7], [0, 3, 7], [0, 7, 4], [1, 5, 6], [1, 6, 2]],
+        np.int32,
+    )
+    return v, f
+
+
+def build_city_scene(n_boxes=12500, seed=0) -> HostScene:
+    """~12.5k boxes x 12 tris = 150k triangles, lost_empire scale."""
+    rng = np.random.default_rng(seed)
+    hs = HostScene()
+    hs.add_box(make_material(color=(0.75, 0.75, 0.75)), pos=(0, -0.5, 0), extent=(60, 0.5, 60))
+
+    centers = rng.uniform(-50, 50, size=(n_boxes, 2)).astype(np.float32)
+    heights = rng.gamma(2.0, 1.2, size=n_boxes).astype(np.float32) + 0.3
+    widths = rng.uniform(0.2, 0.9, size=(n_boxes, 2)).astype(np.float32)
+
+    n_buckets = 8
+    bucket = rng.integers(0, n_buckets, n_boxes)
+    base = np.array(
+        [[0.8, 0.3, 0.2], [0.2, 0.7, 0.3], [0.25, 0.35, 0.8], [0.8, 0.75, 0.3],
+         [0.6, 0.6, 0.6], [0.8, 0.5, 0.2], [0.4, 0.2, 0.6], [0.7, 0.7, 0.9]],
+        np.float32,
+    )
+    unit_v, unit_f = _unit_box()
+    for b in range(n_buckets):
+        idx = np.nonzero(bucket == b)[0]
+        if len(idx) == 0:
+            continue
+        k = len(idx)
+        scale = np.stack([widths[idx, 0], heights[idx] * 0.5, widths[idx, 1]], -1)
+        offset = np.stack([centers[idx, 0], heights[idx] * 0.5, centers[idx, 1]], -1)
+        verts = unit_v[None] * scale[:, None, :] + offset[:, None, :]
+        faces = unit_f[None] + (np.arange(k)[:, None, None] * len(unit_v))
+        mat = make_material(color=tuple(base[b]), roughness=float(rng.uniform(0.3, 0.9)))
+        hs.add_mesh(Mesh(
+            vertices=verts.reshape(-1, 3).astype(np.float32),
+            indices=faces.reshape(-1, 3).astype(np.int32),
+            material=mat,
+        ))
+    return hs
+
+
+def city_camera(width: int, height: int) -> Camera:
+    """The bench's city camera (bench.py main)."""
+    return Camera(eye=(55.0, 18.0, 55.0), lookat=(0.0, 2.0, 0.0), up=(0, 1, 0),
+                  fov_y=45, aspect_ratio=width / height)
+
+
+def city_sky(device):
+    """The bench's sky probe with a sun."""
+    sky = np.full((64, 128, 3), 0.4, np.float32)
+    sky[8:12, 30:34] = (60.0, 55.0, 45.0)
+    return build_probe(sky, device)
+
+
+def sky_probe(device):
+    """tests/golden_scenes.py `_sky_probe`."""
+    sky = np.full((32, 64, 3), 0.35, np.float32)
+    sky[4:7, 12:16] = (40.0, 36.0, 30.0)  # sun block
+    sky[20:, :] = 0.08  # dark ground hemisphere
+    return build_probe(sky, device)
+
+
+def open_scene() -> HostScene:
+    """tests/golden_scenes.py `_open_scene`: ground, three boxes, one glass."""
+    hs = HostScene()
+    hs.add_box(make_material(color=(0.75, 0.75, 0.75)), pos=(0, -0.1, 0), extent=(8, 0.1, 8))
+    hs.add_box(make_material(color=(0.7, 0.25, 0.2), roughness=0.4), pos=(-0.9, 0.5, 0), extent=(0.5, 0.5, 0.5))
+    hs.add_box(make_material(color=(0.9, 0.8, 0.25), metallic=1.0, roughness=0.15), pos=(0.9, 0.4, 0.3), extent=(0.4, 0.4, 0.4))
+    hs.add_box(make_material(color=(0.9, 0.9, 0.9), transmission=1.0, eta=1.5), pos=(0.0, 0.45, 1.3), extent=(0.35, 0.45, 0.35))
+    return hs
+
+
+def open_camera(width: int, height: int) -> Camera:
+    """tests/golden_scenes.py `_cam`/`_cam_s` for the open scene."""
+    return Camera(eye=(3.2, 2.2, 4.0), lookat=(0, 0.4, 0), up=(0, 1, 0), fov_y=45,
+                  aspect_ratio=width / height)
+
+
+# golden name -> (width, height, spp, max_depth, frames)
+OPEN_GOLDENS = {
+    "disney_open_s": (48, 32, 2, 2, 1),
+    "disney_open": (96, 64, 4, 3, 2),
+}
+
+
+def render_open_golden(name: str, device) -> np.ndarray:
+    """Render a `disney_open*` golden setup; returns the (H, W, 3) accum image."""
+    w, h, spp, depth, frames = OPEN_GOLDENS[name]
+    cs = compile_scene(open_scene(), device)
+    cfg = RenderConfig(width=w, height=h, samples_per_launch=spp, max_depth=depth,
+                       traversal="cluster")
+    r = Renderer(cs, sky_probe(device), cfg, open_camera(w, h))
+    r.render_n(frames)
+    return r.accum_image()
+
+
+def golden_rmse(got: np.ndarray, want: np.ndarray) -> float:
+    """tests/test_goldens.py metric: RMSE in sqrt (tone-mapped) space."""
+    a = np.sqrt(np.clip(np.asarray(got, np.float32), 0, None))
+    b = np.sqrt(np.clip(np.asarray(want, np.float32), 0, None))
+    return float(np.sqrt(np.mean((a - b) ** 2)))

@@ -1,0 +1,85 @@
+"""The CUDA kernels K1-K3 against their plain PyTorch versions, on the card.
+
+A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU and skip
+elsewhere. On the card (no jax there, hence no conftest):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+Outputs must be bit-equal: the kernels are built with --fmad=false and no
+fast math, and compute op for op what the plain versions compute.
+"""
+import numpy as np
+import pytest
+import torch
+
+from optixpathtracer_tpu_torch.bvh.clusters import build_clusters
+from optixpathtracer_tpu_torch.core.math import Vec3
+from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _scene_and_rays(device, cluster_size, n=4096, seed=0):
+    rng = np.random.default_rng(seed)
+    t = 3000
+    ctr = rng.uniform(-4, 4, (t, 3)).astype(np.float32)
+    v = [ctr + rng.normal(0, 0.3, (t, 3)).astype(np.float32) for _ in range(3)]
+    order = np.argsort(ctr[:, 0], kind="stable")
+    cs = build_clusters(*(a[order] for a in v), t, device, cluster_size=cluster_size)
+    o = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = np.where(rng.random(n) < 0.2, 0.0, rng.uniform(1, 20, n)).astype(np.float32)
+
+    def v3(a):
+        return Vec3(*(torch.as_tensor(np.ascontiguousarray(a[:, i]), device=device) for i in range(3)))
+
+    return cs, v3(o), v3(d), torch.as_tensor(t_max, device=device)
+
+
+@pytest.mark.parametrize("cluster_size", [64, 256])
+def test_kernels_bit_equal_to_plain(cuda, cluster_size):
+    cs, o, d, t_max = _scene_and_rays(cuda, cluster_size)
+    rays8 = tc._pack_rays8(cs, o, d, 1e-3, t_max)
+    sph_t = tc.sphere_table(cs)
+    before = dict(tc.launch_counts)
+    for k, p in zip(tc.cull_blocks(rays8, sph_t), tc._cull_torch(rays8, sph_t)):
+        assert torch.equal(k, p)
+    cr = tc.block_cull(cs, o, d, 1e-3, t_max)
+    t_k, tri_k, vis = tc.closest_sweep(cs.rows, cs.xf_inv, cr, cluster_size)
+    t_p, tri_p = tc._closest_torch(cs.rows, cs.xf_inv, cr, cluster_size)
+    assert torch.equal(t_k, t_p) and torch.equal(tri_k, tri_p)
+    assert int(vis.sum()) > 0
+    occ_k = tc.any_sweep(cs.rows, cs.xf_inv, cr, cluster_size)
+    assert torch.equal(occ_k, tc._any_torch(cs.rows, cs.xf_inv, cr, cluster_size))
+    after = dict(tc.launch_counts)
+    assert after["cull"] - before.get("cull", 0) == 2  # cull_blocks + block_cull
+    assert after["closest"] - before.get("closest", 0) == 1
+    assert after["any"] - before.get("any", 0) == 1
+
+
+def test_closest_hit_matches_oracle(cuda):
+    cs, o, d, t_max = _scene_and_rays(cuda, 128, seed=1)
+    got = tc.closest_hit_cluster(cs, o, d, 1e-3, t_max)
+    want = tc.reference_closest(cs, o, d, 1e-3, t_max)
+    assert torch.equal(got.tri, want.tri)
+    occ, _ = tc.any_hit_cluster(cs, o, d, 1e-3, t_max)
+    assert torch.equal(occ, want.tri >= 0)
+
+
+def test_wrappers_check_their_inputs(cuda):
+    cs, o, d, t_max = _scene_and_rays(cuda, 64, n=256)
+    rays8 = tc._pack_rays8(cs, o, d, 1e-3, t_max)
+    with pytest.raises(TypeError):
+        tc.cull_blocks(rays8.double(), tc.sphere_table(cs))
+    with pytest.raises(ValueError):
+        tc.cull_blocks(rays8.t().contiguous().t(), tc.sphere_table(cs))
+    with pytest.raises(ValueError):  # not a whole number of 128-ray blocks
+        tc.cull_blocks(rays8[:100], tc.sphere_table(cs))

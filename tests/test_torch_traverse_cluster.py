@@ -1,0 +1,244 @@
+"""Port parity, ops/traverse_cluster: the cull, the closest-hit and any-hit
+sweeps (plain PyTorch versions of kernels K1-K3) against the JAX package —
+its XLA cull twin, its Pallas kernels in interpret mode and its dense
+oracle — on identical cluster sets (carried across with `interop`).
+
+Tolerances: cull bits, counts, entry order, winning triangles and occlusion
+are bit-exact. Keys and t within 1e-6 relative to max(1, |x|), u/v within
+1e-5 absolute, as tests/test_traverse_cluster.py allows (XLA may contract
+differently).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bench import build_hostile_scene
+from optixpathtracer_tpu.builder import compile_scene as jax_compile
+from optixpathtracer_tpu.bvh.clusters import build_clusters as jax_build_clusters
+from optixpathtracer_tpu.core.math import Vec3 as JVec3
+from optixpathtracer_tpu.ops import traverse_cluster as jtc
+from optixpathtracer_tpu_torch import interop
+from optixpathtracer_tpu_torch.bvh.clusters import build_clusters
+from optixpathtracer_tpu_torch.core.math import Vec3
+from optixpathtracer_tpu_torch.lights.probe import build_probe
+from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+from tests.golden_scenes import _open_scene, _sky_probe
+
+torch.set_num_threads(1)
+CPU = torch.device("cpu")
+
+
+def _random_tris(rng, t, extent=2.0, size=0.3):
+    ctr = rng.uniform(-extent, extent, (t, 3)).astype(np.float32)
+    v = [ctr + rng.normal(0, size, (t, 3)).astype(np.float32) for _ in range(3)]
+    order = np.argsort(ctr[:, 0], kind="stable")
+    return [a[order] for a in v]
+
+
+def _rays(o, d):
+    return (JVec3(*(jnp.asarray(o[:, i]) for i in range(3))),
+            JVec3(*(jnp.asarray(d[:, i]) for i in range(3))),
+            Vec3(*(torch.as_tensor(np.ascontiguousarray(o[:, i])) for i in range(3))),
+            Vec3(*(torch.as_tensor(np.ascontiguousarray(d[:, i])) for i in range(3))))
+
+
+def _random_rays(rng, n, extent=4.0):
+    o = rng.uniform(-extent, extent, (n, 3)).astype(np.float32)
+    d = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return _rays(o, d)
+
+
+def _hostile_rays(rng, n=512):
+    half = n // 2
+    o1 = rng.uniform(-40, 40, (half, 3)).astype(np.float32)
+    o1[:, 1] = rng.uniform(0.5, 6.0, half)
+    d1 = rng.normal(0, 1, (half, 3)).astype(np.float32)
+    o2 = rng.uniform(-40, 40, (half, 3)).astype(np.float32)
+    o2[:, 1] = rng.uniform(-1.0, 3.0, half)
+    d2 = rng.normal(0, 1, (half, 3)).astype(np.float32)
+    d2[:, 1] *= 0.05  # grazing: the slab test's worst case on slivers
+    o, d = np.concatenate([o1, o2]), np.concatenate([d1, d2])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return _rays(o, d)
+
+
+def _port(jcs):
+    """The reference ClusterSet carried across into the port."""
+    return interop.compiled_scene_from_arrays(
+        interop.compiled_scene_arrays(_Compiled(jcs)), CPU).clusters
+
+
+class _Compiled:
+    """Minimal CompiledScene view around a bare reference ClusterSet."""
+
+    def __init__(self, clusters):
+        from optixpathtracer_tpu.core.materials import build_table
+
+        n = clusters.num_slots
+        self.clusters = clusters
+        self.scene = type("S", (), {"shade_rows": np.zeros((n, 32), np.float32),
+                                    "materials": build_table([])})()
+        self.num_triangles = n
+
+
+@pytest.fixture(scope="module")
+def random_scene():
+    rng = np.random.default_rng(0)
+    v0, v1, v2 = _random_tris(rng, 300)
+    jcs = jax_build_clusters(v0, v1, v2, 300, cluster_size=64)
+    return jcs, _port(jcs)
+
+
+@pytest.fixture(scope="module")
+def hostile_scene():
+    jcs = jax_compile(build_hostile_scene(n_boxes=60, terrain_grid=(32, 16)),
+                      build_wide_bvh=False, cluster_size=64).clusters
+    return jcs, _port(jcs)
+
+
+def _rel_close(got, want, tol=1e-6):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert (np.abs(got - want) / np.maximum(1.0, np.abs(want))).max() <= tol
+
+
+def test_key_constant_matches_cuda_literal():
+    # _cull_math's (1.0 - 4e-7) is a Python double rounded to f32; the CUDA
+    # source writes it as the literal 0.9999996f
+    assert np.float32(1.0 - 4e-7) == np.float32("0.9999996")
+
+
+def test_port_cluster_build_equals_reference_build():
+    rng = np.random.default_rng(1)
+    v0, v1, v2 = _random_tris(rng, 500)
+    jcs = jax_build_clusters(v0, v1, v2, 500, cluster_size=64)
+    pcs = build_clusters(v0, v1, v2, 500, CPU, cluster_size=64)
+    for f in ("rows", "spheres", "super_spheres", "scene_aabb", "entry_row", "xf_inv"):
+        np.testing.assert_array_equal(getattr(pcs, f).numpy(), np.asarray(getattr(jcs, f)))
+
+
+@pytest.mark.parametrize("dead_frac", [0.0, 0.4])
+def test_cull_vs_xla_and_pallas_interpret(random_scene, dead_frac):
+    jcs, pcs = random_scene
+    rng = np.random.default_rng(2)
+    jo, jd, to, td = _random_rays(rng, 1024)
+    t_max = np.where(rng.random(1024) < dead_frac, 0.0, rng.uniform(0.5, 8, 1024)).astype(np.float32)
+    rays8 = tc._pack_rays8(pcs, to, td, 1e-3, torch.as_tensor(t_max))
+    jrays8 = jtc._pack_rays8(jcs, jo, jd, 1e-3, jnp.asarray(t_max), 128)
+    _rel_close(rays8.numpy(), np.asarray(jrays8))
+    sph_t = tc.sphere_table(pcs)
+    jsph = jnp.asarray(sph_t.numpy())
+    jr8 = jnp.asarray(rays8.numpy())  # identical inputs for the three culls
+    key, lo, hi, count = tc._cull_torch(rays8, sph_t)
+    for jkey, jlo, jhi, jcount in (jtc._cull_xla(jr8, jsph, block=128),
+                                   jtc._cull_pallas(jr8, jsph, block=128, interpret=True)):
+        np.testing.assert_array_equal(lo.numpy().view(np.uint32), np.asarray(jlo))
+        np.testing.assert_array_equal(hi.numpy().view(np.uint32), np.asarray(jhi))
+        np.testing.assert_array_equal(count.numpy(), np.asarray(jcount))
+        _rel_close(key.numpy(), np.asarray(jkey))
+    assert int(count.sum()) > 0
+
+
+def test_block_cull_outputs(hostile_scene):
+    jcs, pcs = hostile_scene
+    jo, jd, to, td = _hostile_rays(np.random.default_rng(3), 1024)
+    got = tc.block_cull(pcs, to, td, 1e-3, 1e16)
+    want = jtc.block_cull(jcs, jo, jd, 1e-3, 1e16, 128, pallas_cull=False)
+    np.testing.assert_array_equal(got.count.numpy(), np.asarray(want.count))
+    for f in ("ids", "rowix", "xfix"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)))
+    for f in ("bits_lo", "bits_hi"):
+        np.testing.assert_array_equal(getattr(got, f).numpy().view(np.uint32),
+                                      np.asarray(getattr(want, f)))
+    _rel_close(got.keys.numpy(), np.asarray(want.keys))
+    _rel_close(got.rays8.numpy(), np.asarray(want.rays8))
+
+
+def _check_hits(got, want, uv=True):
+    np.testing.assert_array_equal(got.tri.numpy(), np.asarray(want.tri))
+    _rel_close(got.t.numpy(), np.asarray(want.t))
+    if uv:
+        np.testing.assert_allclose(got.u.numpy(), np.asarray(want.u), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got.v.numpy(), np.asarray(want.v), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["random", "dead_and_per_ray_tmax", "ragged_n"])
+def test_closest_vs_pallas_interpret_and_oracle(random_scene, case):
+    jcs, pcs = random_scene
+    rng = np.random.default_rng(4)
+    n = 177 if case == "ragged_n" else 300
+    jo, jd, to, td = _random_rays(rng, n)
+    t_max = 1e16
+    if case == "dead_and_per_ray_tmax":
+        t_max = np.where(rng.random(n) < 0.33, 0.0, rng.uniform(1, 8, n)).astype(np.float32)
+    tmax_j = jnp.asarray(t_max) if case == "dead_and_per_ray_tmax" else t_max
+    tmax_t = torch.as_tensor(t_max) if case == "dead_and_per_ray_tmax" else t_max
+    got = tc.closest_hit_cluster(pcs, to, td, 1e-3, tmax_t)
+    _check_hits(got, jtc.closest_hit_cluster(jcs, jo, jd, 1e-3, tmax_j, interpret=True))
+    _check_hits(got, jtc.reference_closest(jcs, jo, jd, 1e-3, tmax_j))
+    _check_hits(tc.reference_closest(pcs, to, td, 1e-3, tmax_t),
+                jtc.reference_closest(jcs, jo, jd, 1e-3, tmax_j))
+    assert (got.tri.numpy() >= 0).sum() > 8  # the rays actually hit geometry
+    if case == "dead_and_per_ray_tmax":
+        dead = t_max == 0.0
+        assert (got.tri.numpy()[dead] == -1).all() and (got.t.numpy()[dead] == tc.BIG_T).all()
+
+
+def test_closest_exact_on_hostile_geometry(hostile_scene):
+    jcs, pcs = hostile_scene
+    jo, jd, to, td = _hostile_rays(np.random.default_rng(5))
+    got = tc.closest_hit_cluster(pcs, to, td, 1e-3, 1e16)
+    _check_hits(got, jtc.closest_hit_cluster(jcs, jo, jd, 1e-3, 1e16, interpret=True))
+    want = jtc.reference_closest(jcs, jo, jd, 1e-3, 1e16)
+    np.testing.assert_array_equal(got.tri.numpy(), np.asarray(want.tri))
+    hits = np.asarray(want.tri) >= 0
+    assert hits.sum() > 512 // 4
+    np.testing.assert_allclose(got.t.numpy()[hits], np.asarray(want.t)[hits], rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("scene", ["random", "hostile"])
+def test_any_hit_vs_pallas_interpret_and_oracle(random_scene, hostile_scene, scene):
+    jcs, pcs = random_scene if scene == "random" else hostile_scene
+    rng = np.random.default_rng(6)
+    jo, jd, to, td = _random_rays(rng, 256) if scene == "random" else _hostile_rays(rng, 256)
+    t_max = 10.0 if scene == "random" else 1e16
+    occ, ovf = tc.any_hit_cluster(pcs, to, td, 1e-2, t_max)
+    assert float(ovf) == 0.0
+    ref = jtc.reference_closest(jcs, jo, jd, 1e-2, t_max)
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(ref.tri) >= 0)
+    if scene == "random":
+        jocc, _ = jtc.any_hit_cluster(jcs, jo, jd, 1e-2, t_max, interpret=True)
+        np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc))
+    assert 0 < int(occ.sum()) < 256
+
+
+def test_interop_round_trip():
+    jcs = jax_compile(_open_scene(), cluster_size=128, build_wide_bvh=False)
+    arrays = interop.compiled_scene_arrays(jcs)
+    pcs = interop.compiled_scene_from_arrays(arrays, CPU)
+    back = interop.compiled_scene_arrays(pcs)
+    assert arrays.keys() == back.keys()
+    for k in arrays:
+        np.testing.assert_array_equal(back[k], arrays[k], err_msg=k)
+    jp = _sky_probe()
+    parr = interop.probe_arrays(jp)
+    pp = interop.probe_from_arrays(parr, CPU)
+    for k, v in interop.probe_arrays(pp).items():
+        np.testing.assert_array_equal(v, parr[k], err_msg=k)
+    # a probe built by the port carries across the same way
+    mine = build_probe(np.full((4, 8, 3), 0.5, np.float32), CPU)
+    assert interop.probe_arrays(mine)["rgbp"].shape == (32, 4)
+
+
+def test_kernel_dispatch_has_no_fallback(random_scene):
+    _, pcs = random_scene
+    _, _, to, td = _random_rays(np.random.default_rng(7), 64)
+    rays8 = tc._pack_rays8(pcs, to, td, 1e-3, 1e16)
+    # CPU tensors take the plain version; any other device launches or raises
+    with pytest.raises(ValueError, match="no kernel"):
+        tc.cull_blocks(rays8.to("meta"), tc.sphere_table(pcs).to("meta"))
+    with pytest.raises(NotImplementedError, match="A.12"):
+        tc.closest_hit_cluster(pcs, to, td, hier=True)
+    with pytest.raises(NotImplementedError, match="A.12"):
+        tc.any_hit_cluster(pcs, to, td, hier=True)
