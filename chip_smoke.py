@@ -5,14 +5,23 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the three hand-written cluster-traversal kernels
-(optixpathtracer_tpu_torch/csrc/traverse_cluster.cu), holds each against its
-plain PyTorch version on the card, runs the bench's exactness gate and the
-`disney_open*` golden renders on the card, then drives the main path — the
-`disney_pt` preset on the 150k-triangle city at 1200x800, 2 spp, depth 4,
-with the bench's flags — and checks that it went through the kernels.
-Every phase prints one JSON line; any failure exits non-zero. The last
-line is the device contract:
+It builds the five hand-written cluster-traversal kernels
+(optixpathtracer_tpu_torch/csrc/traverse_cluster.cu: cull, closest, any,
+closest_hier, any_hier) and holds each against its plain PyTorch version on
+the card. Then it drives two paths through the `disney_pt` preset at
+1200x800, 2 spp, depth 4, with the bench's flags, and checks that each went
+through its kernels:
+
+  1. the 150k-triangle city (flat cluster walk: cull, closest, any), with
+     the bench's exactness gate and the `disney_open*` golden renders;
+  2. the ~8.68M-triangle terrain-apron scene (`build_big_scene` at
+     BIG8X_TERRAIN_GRID, 4239 entries: hier=None routes it to the node
+     walk: cull, closest_hier, any_hier), with the exactness gate against
+     the dense oracle, a golden through the node walk, the node kernels'
+     and the flat kernels' times on the same rays.
+
+Every phase prints one JSON line with its seconds; any failure exits
+non-zero. The last line is the device contract:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 It exits non-zero without a CUDA device, and outside the repository (the
@@ -33,18 +42,26 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
 RMSE_TOL = 2e-3  # tests/test_goldens.py
 PLAIN_BUDGET_S = 60.0  # time a plain version at the slice shape within this
+HIER_PLAIN_BUDGET_S = 30.0  # the same for the node walk's plain versions
 WIDTH, HEIGHT, SPP, DEPTH = 1200, 800, 2, 4
 BENCH_FLAGS = dict(sort_rays=True, batch_spp=True, nee_final_bounce=False)
+TPU_FILE = "optixpathtracer_tpu/ops/traverse_cluster.py"
 KERNELS = {  # name -> the TPU kernel it replaces
-    "cull": "optixpathtracer_tpu/ops/traverse_cluster.py:226",
-    "closest": "optixpathtracer_tpu/ops/traverse_cluster.py:482",
-    "any": "optixpathtracer_tpu/ops/traverse_cluster.py:622",
+    "cull": f"{TPU_FILE}:226",
+    "closest": f"{TPU_FILE}:482",
+    "any": f"{TPU_FILE}:622",
+    "closest_hier": f"{TPU_FILE}:1289",
+    "any_hier": f"{TPU_FILE}:1334",
 }
 SOURCE = "optixpathtracer_tpu_torch/csrc/traverse_cluster.cu"
+_last_emit = [time.perf_counter()]
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line per phase, with the seconds since the previous line."""
+    now = time.perf_counter()
+    print(json.dumps({"phase": phase, "phase_s": now - _last_emit[0], **fields}), flush=True)
+    _last_emit[0] = now
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -61,6 +78,20 @@ def cuda_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def timed(fn):
+    """(device milliseconds, result) of one call of fn, without a warm-up."""
+    import torch
+
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1), out
 
 
 def _device_us(e) -> float:
@@ -97,7 +128,7 @@ def mixed_rays(cs, hs, cam, n, seed, device):
 
 
 def sub_cull(cr, nr):
-    """The first nr ray blocks of a CullResult."""
+    """The first nr ray blocks of a CullResult or NodeCullResult."""
     from optixpathtracer_tpu_torch.ops.traverse_cluster import BLOCK
 
     return cr._replace(**{k: getattr(cr, k)[:nr] for k in cr._fields if k != "rays8"},
@@ -119,6 +150,111 @@ def compare(name, kernel_out, plain_out):
     return err
 
 
+def check_vs_plain(name, kern, plain, nr_full, budget_s):
+    """Hold kern(nr) bit for bit against plain(nr) on the first nr ray blocks,
+    nr cut so that the plain version runs within about budget_s (estimated
+    from a run on 1/32 of the blocks). kern/plain map a block count to a
+    tuple of outputs. Returns (plain ms, nr, max_abs_err)."""
+    probe_nr = min(nr_full, max(8, nr_full // 32))
+    probe_ms, out_p = timed(lambda: plain(probe_nr))
+    est_s = probe_ms / 1e3 * nr_full / probe_nr
+    nr = nr_full if est_s <= budget_s else max(probe_nr, int(nr_full * budget_s / est_s))
+    plain_ms = probe_ms
+    if nr != probe_nr:
+        plain_ms, out_p = timed(lambda: plain(nr))
+    return plain_ms, nr, compare(name, kern(nr), out_p)
+
+
+def time_vs_plain(name, kern, plain, nr_full, budget_s, **fields):
+    """Kernel ms on all nr_full blocks (mean of 5), then `check_vs_plain`."""
+    from optixpathtracer_tpu_torch.ops.traverse_cluster import BLOCK
+
+    ms = cuda_ms(lambda: kern(nr_full), reps=5)
+    plain_ms, nr, err = check_vs_plain(name, kern, plain, nr_full, budget_s)
+    out = dict(ms=ms, plain_ms=plain_ms, rays=nr_full * BLOCK, plain_rays=nr * BLOCK,
+               max_abs_err=err)
+    emit("kernel_time", kernel=name, **out, **fields)
+    return out
+
+
+def first_bounce_and_shadows(renderer, cl, probe, dev):
+    """The slice's first-bounce wavefront, coherence-sorted as the engine
+    sorts it, and its NEE shadow rays, sorted the same way:
+    ((o, d), (p_hit, wi, t_sh))."""
+    import torch
+
+    from optixpathtracer_tpu_torch.core.math import Vec3
+    from optixpathtracer_tpu_torch.core.rng import RngState, tea
+    from optixpathtracer_tpu_torch.engine import wavefront
+    from optixpathtracer_tpu_torch.lights.probe import probe_sample
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
+    cfg = renderer.config
+    cam_p = wavefront.CameraParams.from_camera(renderer.camera, dev)
+    o1, d1 = wavefront.first_bounce_rays(cfg, cam_p, *renderer.pixels)
+    n1 = o1.x.shape[0]
+    no = torch.zeros(n1, dtype=torch.bool, device=dev)
+    perm = wavefront._stable_argsort(wavefront._coherence_key(o1, d1, no, cl.scene_aabb))
+    o1, d1 = Vec3(*(a[perm] for a in o1)), Vec3(*(a[perm] for a in d1))
+    rec = tc.closest_hit_cluster(cl, o1, d1, cfg.t_min, cfg.t_max)
+    p_hit = o1 + d1 * rec.t
+    _, wi, _, _ = probe_sample(probe, RngState.seed(tea(torch.arange(n1, device=dev), 7)))
+    t_sh = torch.where(rec.hit, cfg.t_max, 0.0)
+    perm = wavefront._stable_argsort(
+        wavefront._coherence_key(p_hit, wi, t_sh <= cfg.shadow_t_min, cl.scene_aabb))
+    p_hit, wi, t_sh = Vec3(*(a[perm] for a in p_hit)), Vec3(*(a[perm] for a in wi)), t_sh[perm]
+    return (o1, d1), (p_hit, wi, t_sh)
+
+
+def drive_slice(phase, renderer, card, counts):
+    """The main path: one warm-up frame and 3 timed frames, with the kernel
+    launch counts set to 0 just before and read just after."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts.clear()
+    renderer.render(download=False)  # warm-up
+    times, rays = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        renderer.render(download=False)  # ends in torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        rays.append(int(renderer.last_output.rays_traced))
+    launches = dict(counts)
+    img = renderer.accum_image()
+    frame_s = float(np.median(times))
+    emit(phase, width=WIDTH, height=HEIGHT, spp=SPP, max_depth=DEPTH, flags=BENCH_FLAGS,
+         frame_s=frame_s, frame_times_s=times, rays_traced=rays[-1],
+         mrays_per_s=rays[-1] / frame_s / 1e6, max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=launches, image_mean=float(img.mean()), card=card)
+    if img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all() or not img.max() > 0:
+        raise AssertionError(f"{phase}: the frame is not a finite, non-black 1200x800 image")
+    return launches
+
+
+def profile_frame(phase, renderer):
+    """One more frame under the profiler (not timed above): device busy time
+    by kernel, and the device's idle share of the frame."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        renderer.render(download=False)
+        wall = time.perf_counter() - t0
+    # device-side entries only: the CPU-side op entries repeat their kernels'
+    # device time
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+    busy = sum(_device_us(e) for e in events) / 1e6
+    if busy <= 0:
+        raise AssertionError(f"{phase}: the profiler recorded no device time: no idle share")
+    top = sorted(events, key=_device_us, reverse=True)[:15]
+    emit(phase, wall_s=wall, device_busy_s=busy, idle_share=1.0 - busy / wall,
+         top=[{"name": e.key[:80], "ms": _device_us(e) / 1e3, "calls": e.count} for e in top])
+
+
 def main() -> int:
     import torch
 
@@ -135,10 +271,6 @@ def main() -> int:
 
     from optixpathtracer_tpu_torch import scenes
     from optixpathtracer_tpu_torch.builder import compile_scene
-    from optixpathtracer_tpu_torch.core.math import Vec3
-    from optixpathtracer_tpu_torch.core.rng import RngState, tea
-    from optixpathtracer_tpu_torch.engine import wavefront
-    from optixpathtracer_tpu_torch.lights.probe import probe_sample
     from optixpathtracer_tpu_torch.models import make_disney_pt_renderer
     from optixpathtracer_tpu_torch.ops import cuda_build
     from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
@@ -156,7 +288,8 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_build.load("traverse_cluster")
     info = cuda_build.build_info["traverse_cluster"]
-    ptxas = [ln.strip() for ln in info["ptxas"].splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = [ln.strip() for ln in info["ptxas"].splitlines()
+             if "registers" in ln or "spill" in ln or "entry function" in ln]
     emit("build", source=SOURCE, seconds=time.perf_counter() - t0, nvcc_seconds=info["seconds"],
          ptxas=ptxas)
 
@@ -189,49 +322,26 @@ def main() -> int:
     emit("kernels_vs_plain", rays=65536, max_abs_err=errs, bit_equal=True)
 
     # ---- times at the slice's shapes: the first-bounce wavefront ----------
-    cam_p = wavefront.CameraParams.from_camera(cam, dev)
-    o1, d1 = wavefront.first_bounce_rays(cfg, cam_p, *renderer.pixels)
-    n1 = o1.x.shape[0]
-    no = torch.zeros(n1, dtype=torch.bool, device=dev)
-    perm = wavefront._stable_argsort(wavefront._coherence_key(o1, d1, no, cl.scene_aabb))
-    o1, d1 = Vec3(*(a[perm] for a in o1)), Vec3(*(a[perm] for a in d1))
+    (o1, d1), (p_hit, wi, t_sh) = first_bounce_and_shadows(renderer, cl, probe, dev)
     rays8_1 = tc._pack_rays8(cl, o1, d1, cfg.t_min, cfg.t_max)
     cr1 = tc.block_cull(cl, o1, d1, cfg.t_min, cfg.t_max)
-    # the NEE shadow rays of that bounce, coherence-sorted as the engine does
-    rec = tc.closest_hit_cluster(cl, o1, d1, cfg.t_min, cfg.t_max)
-    p_hit = o1 + d1 * rec.t
-    _, wi, _, _ = probe_sample(probe, RngState.seed(tea(torch.arange(n1, device=dev), 7)))
-    t_sh = torch.where(rec.hit, cfg.t_max, 0.0)
-    perm = wavefront._stable_argsort(
-        wavefront._coherence_key(p_hit, wi, t_sh <= cfg.shadow_t_min, cl.scene_aabb))
-    p_hit, wi, t_sh = Vec3(*(a[perm] for a in p_hit)), Vec3(*(a[perm] for a in wi)), t_sh[perm]
     cr_sh = tc.block_cull(cl, p_hit, wi, cfg.shadow_t_min, t_sh)
-
     nr_full = cr1.ids.shape[0]
     timing = {}
     cases = {
-        "cull": (lambda: tc.cull_blocks(rays8_1, sph_t),
+        "cull": (lambda nr: tc.cull_blocks(rays8_1[: nr * tc.BLOCK], sph_t),
                  lambda nr: tc._cull_torch(rays8_1[: nr * tc.BLOCK], sph_t)),
-        "closest": (lambda: tc.closest_sweep(cl.rows, cl.xf_inv, cr1, c),
+        "closest": (lambda nr: tc.closest_sweep(cl.rows, cl.xf_inv, sub_cull(cr1, nr), c)[:2],
                     lambda nr: tc._closest_torch(cl.rows, cl.xf_inv, sub_cull(cr1, nr), c)),
-        "any": (lambda: tc.any_sweep(cl.rows, cl.xf_inv, cr_sh, c),
-                lambda nr: tc._any_torch(cl.rows, cl.xf_inv, sub_cull(cr_sh, nr), c)),
+        "any": (lambda nr: (tc.any_sweep(cl.rows, cl.xf_inv, sub_cull(cr_sh, nr), c),),
+                lambda nr: (tc._any_torch(cl.rows, cl.xf_inv, sub_cull(cr_sh, nr), c),)),
     }
     for name, (kern, plain) in cases.items():
-        ms = cuda_ms(kern, reps=5)
-        probe_nr = max(8, nr_full // 32)
-        est_s = cuda_ms(lambda: plain(probe_nr), reps=1) / 1e3 * nr_full / probe_nr
-        nr = nr_full if est_s <= PLAIN_BUDGET_S else max(8, int(nr_full * PLAIN_BUDGET_S / est_s))
-        plain_ms = cuda_ms(lambda: plain(nr), reps=1)
-        if nr == nr_full:  # the whole wavefront: hold the kernel to it here too
-            out_k = kern()
-            out_k = out_k[:2] if name == "closest" else (out_k if name == "cull" else (out_k,))
-            out_p = plain(nr)
-            out_p = (out_p,) if name == "any" else out_p
-            compare(name, out_k, out_p)
-        timing[name] = dict(ms=ms, plain_ms=plain_ms, rays=n1, plain_rays=nr * tc.BLOCK)
-        emit("kernel_time", kernel=name, wavefront="first bounce, 1200x800x2spp", **timing[name],
-             card=card)
+        timing[name] = time_vs_plain(name, kern, plain, nr_full, PLAIN_BUDGET_S,
+                                     wavefront="first bounce, 1200x800x2spp", card=card)
+        errs[name] = max(errs[name], timing[name]["max_abs_err"])
+    del cr1, cr_sh, rays8_1
+
     # ---- exactness gate (bench.py:1302-1340) ------------------------------
     og, dg = mixed_rays(cs, hs, cam, 8192, 42, dev)
     fast = tc.closest_hit_cluster(cl, og, dg, 1e-3, 1e16)
@@ -250,52 +360,144 @@ def main() -> int:
         if not (got.shape == want.shape and rmse <= RMSE_TOL):
             raise AssertionError(f"golden {name}: RMSE {rmse} > {RMSE_TOL}")
 
-    # ---- the slice --------------------------------------------------------
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    tc.launch_counts.clear()
-    renderer.render(download=False)  # warm-up
-    times, rays = [], []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        renderer.render(download=False)  # ends in torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        rays.append(int(renderer.last_output.rays_traced))
-    launches = dict(tc.launch_counts)
-    img = renderer.accum_image()
-    frame_s = float(np.median(times))
-    emit("slice", width=WIDTH, height=HEIGHT, spp=SPP, max_depth=DEPTH, flags=BENCH_FLAGS,
-         frame_s=frame_s, frame_times_s=times, rays_traced=rays[-1],
-         mrays_per_s=rays[-1] / frame_s / 1e6, max_memory_allocated=torch.cuda.max_memory_allocated(),
-         launches=launches, image_mean=float(img.mean()), card=card)
-    if img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all() or not img.max() > 0:
-        raise AssertionError("the slice's frame is not a finite, non-black 1200x800 image")
-    for name in KERNELS:
+    # ---- the city slice: main path 1 --------------------------------------
+    launches = drive_slice("slice", renderer, card, tc.launch_counts)
+    for name in ("cull", "closest", "any"):
         if launches.get(name, 0) <= 0:
-            raise AssertionError(f"the main path never launched kernel {name}")
+            raise AssertionError(f"the city slice never launched kernel {name}")
+    profile_frame("profile", renderer)
+    del renderer, cs, cl, hs, o, d, og, dg, cr, cr_s, fast, exact
+    torch.cuda.empty_cache()
 
-    # one more frame under the profiler (not timed above): device busy time
-    # by kernel, and the device's idle share of the frame
-    from torch.profiler import ProfilerActivity, profile
+    # ---- the 8.7M-triangle scene (node walk) -------------------------------
+    t0 = time.perf_counter()
+    hs = scenes.build_big_scene(terrain_grid=scenes.BIG8X_TERRAIN_GRID)
+    host_s = time.perf_counter() - t0
+    cs = compile_scene(hs, dev, leaf_size=8, cluster_size=256)
+    cl = cs.clusters
+    nt = cl.node_tables
+    torch.cuda.synchronize()
+    emit("big_scene", triangles=cs.num_triangles, entries=cl.num_entries,
+         nodes=nt.csph.shape[0], cluster_size=cl.cluster_size, scene_host_s=host_s,
+         build_s=time.perf_counter() - t0, routes_to_node_walk=cl.num_entries >= tc.HIER_MIN_ENTRIES)
+    if cl.num_entries < tc.HIER_MIN_ENTRIES:
+        raise AssertionError(f"the big scene has {cl.num_entries} entries: it would not take the node walk")
+    renderer = make_disney_pt_renderer(cs, probe, cam, width=WIDTH, height=HEIGHT, spp=SPP,
+                                       max_depth=DEPTH, **BENCH_FLAGS)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        renderer.render(download=False)
-        wall = time.perf_counter() - t0
-    # device-side entries only: the CPU-side op entries repeat their kernels'
-    # device time
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
-    busy = sum(_device_us(e) for e in events) / 1e6
-    if busy <= 0:
-        raise AssertionError("the profiler recorded no device time: no idle share")
-    top = sorted(events, key=_device_us, reverse=True)[:15]
-    emit("profile", wall_s=wall, device_busy_s=busy, idle_share=1.0 - busy / wall,
-         top=[{"name": e.key[:80], "ms": _device_us(e) / 1e3, "calls": e.count} for e in top])
+    # ---- K4a/K4b vs plain, bit for bit, on mixed rays ----------------------
+    o, d = mixed_rays(cs, hs, cam, 16384, 7, dev)
+    cr = tc.block_cull_nodes(cl, o, d, 1e-3, 1e16)
+    cr_s = tc.block_cull_nodes(cl, o, d, 0.01, 1e16)
+    rays8 = tc._pack_rays8(cl, o, d, 1e-3, 1e16)
+    node_err = compare("cull (node table)", tc.cull_blocks(rays8, nt.node_sph_t),
+                       tc._cull_torch(rays8, nt.node_sph_t))
+    errs["cull"] = max(errs["cull"], node_err)
+    nr_mixed = cr.ids.shape[0]
+    checks = {}
+    for name, kern, plain, crx in (
+        ("closest_hier", lambda nr: tc.closest_hier_sweep(cl.rows, cl.xf_inv, nt, sub_cull(cr, nr), c)[:2],
+         lambda nr: tc._closest_hier_torch(cl.rows, cl.xf_inv, nt, sub_cull(cr, nr), c), cr),
+        ("any_hier", lambda nr: (tc.any_hier_sweep(cl.rows, cl.xf_inv, nt, sub_cull(cr_s, nr), c),),
+         lambda nr: (tc._any_hier_torch(cl.rows, cl.xf_inv, nt, sub_cull(cr_s, nr), c),), cr_s),
+    ):
+        plain_ms, nr, err = check_vs_plain(name, kern, plain, nr_mixed, HIER_PLAIN_BUDGET_S)
+        errs[name] = err
+        checks[name] = dict(rays=nr * tc.BLOCK, plain_ms=plain_ms, max_abs_err=err,
+                            max_nodes_per_block=int(crx.count.max()))
+    emit("hier_kernels_vs_plain", node_cull_max_abs_err=node_err, bit_equal=True, **checks)
+    del cr, cr_s, rays8
+
+    # ---- times on the big slice's first bounce: node walk vs flat walk -----
+    (o1, d1), (p_hit, wi, t_sh) = first_bounce_and_shadows(renderer, cl, probe, dev)
+    rays8_1 = tc._pack_rays8(cl, o1, d1, cfg.t_min, cfg.t_max)
+    cr1 = tc.block_cull_nodes(cl, o1, d1, cfg.t_min, cfg.t_max)
+    cr_sh = tc.block_cull_nodes(cl, p_hit, wi, cfg.shadow_t_min, t_sh)
+    nr_full = cr1.ids.shape[0]
+    wf = "big scene first bounce, 1200x800x2spp"
+    hier_cases = {
+        "cull (node table)": (lambda nr: tc.cull_blocks(rays8_1[: nr * tc.BLOCK], nt.node_sph_t),
+                              lambda nr: tc._cull_torch(rays8_1[: nr * tc.BLOCK], nt.node_sph_t)),
+        "closest_hier": (lambda nr: tc.closest_hier_sweep(cl.rows, cl.xf_inv, nt, sub_cull(cr1, nr), c)[:2],
+                         lambda nr: tc._closest_hier_torch(cl.rows, cl.xf_inv, nt, sub_cull(cr1, nr), c)),
+        "any_hier": (lambda nr: (tc.any_hier_sweep(cl.rows, cl.xf_inv, nt, sub_cull(cr_sh, nr), c),),
+                     lambda nr: (tc._any_hier_torch(cl.rows, cl.xf_inv, nt, sub_cull(cr_sh, nr), c),)),
+    }
+    for name, (kern, plain) in hier_cases.items():
+        timing[name] = time_vs_plain(name, kern, plain, nr_full, HIER_PLAIN_BUDGET_S,
+                                     wavefront=wf, card=card)
+        if name in errs:
+            errs[name] = max(errs[name], timing[name]["max_abs_err"])
+    # the flat walk on the same rays, kernels and entry points: the data a
+    # measured routing threshold needs
+    sph_big = tc.sphere_table(cl)
+    fcr1 = tc.block_cull(cl, o1, d1, cfg.t_min, cfg.t_max)
+    fcr_sh = tc.block_cull(cl, p_hit, wi, cfg.shadow_t_min, t_sh)
+    flat = dict(
+        cull_ms=cuda_ms(lambda: tc.cull_blocks(rays8_1, sph_big), reps=3),
+        closest_ms=cuda_ms(lambda: tc.closest_sweep(cl.rows, cl.xf_inv, fcr1, c), reps=3),
+        any_ms=cuda_ms(lambda: tc.any_sweep(cl.rows, cl.xf_inv, fcr_sh, c), reps=3),
+        max_entries_per_block=int(fcr1.count.max()),
+    )
+    del fcr1, fcr_sh
+    entry = {}
+    for walk, hier in (("hier", True), ("flat", False)):
+        entry[f"closest_hit_cluster_{walk}_ms"] = cuda_ms(
+            lambda: tc.closest_hit_cluster(cl, o1, d1, cfg.t_min, cfg.t_max, hier=hier), reps=3)
+        entry[f"any_hit_cluster_{walk}_ms"] = cuda_ms(
+            lambda: tc.any_hit_cluster(cl, p_hit, wi, cfg.shadow_t_min, t_sh, hier=hier), reps=3)
+    emit("flat_vs_hier_time", wavefront=wf, rays=nr_full * tc.BLOCK, flat_kernels=flat,
+         hier_kernels={k: timing[k]["ms"] for k in hier_cases}, entry_points=entry,
+         max_nodes_per_block=int(cr1.count.max()), threshold=tc.HIER_MIN_ENTRIES, card=card)
+    del cr1, cr_sh, rays8_1, o1, d1, p_hit, wi, t_sh
+    torch.cuda.empty_cache()
+
+    # ---- exactness gate on the big scene (flat_scale_probe.py gate_n) ------
+    og, dg = mixed_rays(cs, hs, cam, 4096, 42, dev)
+    fast = tc.closest_hit_cluster(cl, og, dg, 1e-3, 1e16)  # hier=None: the node walk
+    flat_rec = tc.closest_hit_cluster(cl, og, dg, 1e-3, 1e16, hier=False)
+    t0 = time.perf_counter()
+    exact = tc.reference_closest(cl, og, dg, 1e-3, 1e16)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    mismatch = int((fast.tri != exact.tri).sum())
+    flat_mismatch = int((fast.tri != flat_rec.tri).sum())
+    emit("hier_exactness_gate", rays=4096, mismatch=mismatch, flat_vs_hier_mismatch=flat_mismatch,
+         hits=int((exact.tri >= 0).sum()), oracle_s=oracle_s)
+    if mismatch or flat_mismatch:
+        raise AssertionError(f"hier exactness gate: {mismatch} rays disagree with reference_closest, "
+                             f"{flat_mismatch} with the flat walk")
+    del og, dg, fast, flat_rec, exact
+
+    # ---- a golden through the node walk -----------------------------------
+    saved = tc.HIER_MIN_ENTRIES
+    tc.HIER_MIN_ENTRIES = 0
+    try:
+        before = dict(tc.launch_counts)
+        got = scenes.render_open_golden("disney_open_s", dev)
+        hier_launches = tc.launch_counts["closest_hier"] - before.get("closest_hier", 0)
+    finally:
+        tc.HIER_MIN_ENTRIES = saved
+    want = np.load(os.path.join(GOLDEN_DIR, "disney_open_s.npz"))["image"]
+    rmse = scenes.golden_rmse(got, want)
+    emit("hier_golden", name="disney_open_s", rmse=rmse, tol=RMSE_TOL, closest_hier_launches=hier_launches)
+    if not (got.shape == want.shape and rmse <= RMSE_TOL and hier_launches > 0):
+        raise AssertionError(f"hier golden disney_open_s: RMSE {rmse} (limit {RMSE_TOL}), "
+                             f"{hier_launches} node-walk launches")
+
+    # ---- the big slice: main path 2 ---------------------------------------
+    big_launches = drive_slice("big_slice", renderer, card, tc.launch_counts)
+    for name in ("cull", "closest_hier", "any_hier"):
+        if big_launches.get(name, 0) <= 0:
+            raise AssertionError(f"the big slice never launched kernel {name}")
+    for name in ("closest", "any"):
+        if big_launches.get(name, 0):
+            raise AssertionError(f"the big slice launched the flat kernel {name}")
+    profile_frame("big_profile", renderer)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
-         "launches": launches[name], "max_abs_err": errs[name],
+         "launches": launches.get(name, 0) + big_launches.get(name, 0), "max_abs_err": errs[name],
          "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"]}
         for name in KERNELS
     ]}), flush=True)

@@ -11,6 +11,7 @@ numpy path. Instancing and the TLAS wait for ROADMAP A.9.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -49,6 +50,13 @@ class ClusterSet:
     @property
     def num_slots(self) -> int:
         return self.num_clusters * self.cluster_size
+
+    @functools.cached_property
+    def node_tables(self):
+        """The hierarchical walk's `NodeTables`, built once per set."""
+        from ..ops.traverse_cluster import _node_tables
+
+        return _node_tables(self)
 
 
 def treelet_order(centroids: np.ndarray, cluster_size: int, group: int = SUPER) -> np.ndarray:

@@ -1,13 +1,15 @@
 // Cluster traversal kernels for Hopper (sm_90a): the block cull (K1), the
-// closest-hit sweep (K2) and the any-hit sweep (K3).
+// closest-hit sweep (K2), the any-hit sweep (K3) and the hierarchical node
+// sweeps (K4a closest, K4b any-hit).
 //
 // They replace the Pallas TPU kernels of optixpathtracer_tpu/ops/
 // traverse_cluster.py: `_cull_kernel`/`_cull_math` (K1), `_closest_kernel`
-// with `_xform_ray`/`_mt_block`/`_mt_epilogue_lean` (K2) and `_any_kernel`
-// (K3). The plain PyTorch versions beside the Python wrappers
-// (`_cull_torch`, `_closest_torch`, `_any_torch` in
-// optixpathtracer_tpu_torch/ops/traverse_cluster.py) compute the same
-// values op for op.
+// with `_xform_ray`/`_mt_block`/`_mt_epilogue_lean` (K2), `_any_kernel`
+// (K3), and `_closest_kernel_hier`/`_any_kernel_hier` on `_hier_kernel_body`
+// (K4a/K4b). The plain PyTorch versions beside the Python wrappers
+// (`_cull_torch`, `_closest_torch`, `_any_torch`, `_closest_hier_torch`,
+// `_any_hier_torch` in optixpathtracer_tpu_torch/ops/traverse_cluster.py)
+// compute the same values op for op.
 //
 // Exactness. Built with --fmad=false and without fast math: every product,
 // sum, `1.0f / x` and `sqrtf` rounds once, as in the PyTorch versions, so
@@ -365,6 +367,200 @@ any_kernel(const float* __restrict__ rays8, const float* __restrict__ keys,
   occ_out[ray] = occ ? 1 : 0;
 }
 
+// ---------------------------------------------------------------------------
+// K4a / K4b: the hierarchical (node) walk. Replaces `_hier_kernel_body` with
+// `_closest_kernel_hier` / `_any_kernel_hier` and `_node_recull` of the
+// reference. A node is kNode entries of kSuper clusters (64 cluster boxes,
+// csph (N2, 8, 64)). One block of 128 threads per 128-ray block, one thread
+// per ray; the block walks its sorted nodes near to far. At each node every
+// thread re-culls its own ray against the node's 64 cluster boxes (staged in
+// shared memory, 2 KiB) on its current [t_min, t] into a 64-bit mask; the
+// block ORs the masks, and each cluster some ray still reaches has its 9 x C
+// rows staged once (entry k2 = 0..7, member k = 0..7: the reference's visit
+// order) and evaluated by the threads whose own bit is set. The TPU's
+// whole-node DMA ring (2 x 8 x 16 x 8C f32, 2 MiB at C = 256) and its
+// per-group packed gate bits are gone: the per-ray mask is finer than any
+// group gate and changes no result, since the slab test is conservative.
+// Bound by the FP32 issue rate of M-T, as K2/K3; at 8.7M triangles the rows
+// table is 556 MB, beyond the 50 MB L2, so each staged member is a 9 KiB
+// read from device memory shared by the block's 128 rays.
+// ---------------------------------------------------------------------------
+constexpr int kNode = 8;                  // entries per node
+constexpr int kNodeCols = kNode * kSuper;  // cluster boxes per node
+
+// Stage csph[nid] (8 rows x 64 cluster columns) into shared memory.
+__device__ __forceinline__ void stage_node(float* __restrict__ s_box, const float* __restrict__ csph,
+                                           int nid) {
+  const float* src = csph + (size_t)nid * 8 * kNodeCols;
+  for (int idx = threadIdx.x; idx < 8 * kNodeCols; idx += kBlock) s_box[idx] = src[idx];
+}
+
+// Slab test of the ray's [0, tcur] against the node's 64 cluster boxes
+// (`_node_recull`): bit col of the result = the ray may hit cluster col.
+__device__ __forceinline__ unsigned long long node_recull(const Ray& R, const float iv[3], float tcur,
+                                                          const float* __restrict__ s_box) {
+  unsigned long long mask = 0ull;
+  if (!(tcur > R.tmin)) return mask;
+  for (int col = 0; col < kNodeCols; ++col) {
+    float t0[3], t1[3];
+    for (int a = 0; a < 3; ++a) {
+      const float mid = (s_box[a * kNodeCols + col] - R.o[a]) * iv[a];
+      const float rad = s_box[(4 + a) * kNodeCols + col] * fabsf(iv[a]);
+      t0[a] = mid - rad;
+      t1[a] = mid + rad;
+    }
+    const float tn = max_nan(max_nan(t0[0], t0[1]), max_nan(t0[2], 0.0f));
+    const float tf = min_nan(min_nan(t1[0], t1[1]), min_nan(t1[2], tcur));
+    if (tn <= tf + fabsf(tf) * 4e-7f + 1e-30f) mask |= 1ull << col;
+  }
+  return mask;
+}
+
+// OR of the 128 threads' masks; every thread gets the result.
+__device__ __forceinline__ unsigned long long block_or(unsigned long long m,
+                                                       unsigned long long* s_or) {
+  unsigned lo = __reduce_or_sync(0xffffffffu, (unsigned)m);
+  unsigned hi = __reduce_or_sync(0xffffffffu, (unsigned)(m >> 32));
+  __syncthreads();  // the previous call's readers are done with s_or
+  if ((threadIdx.x & 31) == 0) s_or[threadIdx.x >> 5] = ((unsigned long long)hi << 32) | lo;
+  __syncthreads();
+  return s_or[0] | s_or[1] | s_or[2] | s_or[3];
+}
+
+__device__ __forceinline__ void load_iv(const Ray& R, float iv[3]) {
+  for (int a = 0; a < 3; ++a) iv[a] = 1.0f / (fabsf(R.d[a]) > 1e-30f ? R.d[a] : 1e-30f);
+}
+
+__global__ void __launch_bounds__(kBlock)
+closest_hier_kernel(const float* __restrict__ rays8, const int* __restrict__ ids,
+                    const float* __restrict__ keys, const int* __restrict__ count,
+                    const int* __restrict__ erow2, const int* __restrict__ exf2,
+                    const float* __restrict__ csph, const float* __restrict__ xf_inv,
+                    const float* __restrict__ rows, int n2, int c, float* __restrict__ t_out,
+                    int* __restrict__ tri_out, int* __restrict__ vis_out) {
+  extern __shared__ float s_tri[];  // [9][c]
+  __shared__ float s_box[8 * kNodeCols];
+  __shared__ float s_red[kBlock / 32];
+  __shared__ unsigned long long s_or[kBlock / 32];
+  __shared__ int s_vis;
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const size_t ray = (size_t)b * kBlock + tid;
+  const Ray R = load_ray(rays8, ray);
+  float iv[3];
+  load_iv(R, iv);
+  float best = R.tmax;
+  int btri = -1;
+  int vis = 0;
+  if (tid == 0) s_vis = 0;
+  __syncthreads();
+
+  const int n_nodes = count[b];
+  for (int i = 0; i < n_nodes; ++i) {
+    const size_t ni = (size_t)b * n2 + i;
+    // early exit: every ray's best hit is nearer than the node's provable
+    // distance lower bound (keys ascend)
+    if (!(keys[ni] <= block_max(min_nan(best * R.dlen, kBig), s_red))) break;
+    const int nid = ids[ni];
+    stage_node(s_box, csph, nid);  // block_max synchronised the previous readers
+    __syncthreads();
+    const unsigned long long mine = node_recull(R, iv, best, s_box);
+    const unsigned long long any = block_or(mine, s_or);
+    for (int k2 = 0; k2 < kNode; ++k2) {
+      const unsigned eany = (unsigned)(any >> (k2 * kSuper)) & 0xffu;
+      if (!eany) continue;
+      const int e = nid * kNode + k2;
+      float lo[3], ld[3];
+      xform(R, xf_inv + (size_t)exf2[e] * 16, lo, ld);
+      const float* super_rows = rows + (size_t)erow2[e] * kStoreRows * kSuper * c;
+      for (int k = 0; k < kSuper; ++k) {
+        if (!((eany >> k) & 1u)) continue;
+        __syncthreads();
+        stage_member(s_tri, super_rows, k, c);
+        __syncthreads();
+        const bool go = (mine >> (k2 * kSuper + k)) & 1ull;
+        const unsigned bal = __ballot_sync(0xffffffffu, go);
+        if (lane == 0) vis += ((bal & 0xffffu) != 0) + ((bal >> 16) != 0);
+        if (go) {
+          const int base = (e * kSuper + k) * c;
+          for (int j = 0; j < c; ++j) {
+            float t;
+            if (mt(s_tri, c, j, lo, ld, t) && t > R.tmin && t < best) {
+              best = t;
+              btri = base + j;
+            }
+          }
+        }
+      }
+    }
+  }
+  t_out[ray] = best;
+  tri_out[ray] = btri;
+  if (lane == 0 && vis) atomicAdd(&s_vis, vis);
+  __syncthreads();
+  if (tid == 0) vis_out[b] = s_vis;
+}
+
+__global__ void __launch_bounds__(kBlock)
+any_hier_kernel(const float* __restrict__ rays8, const int* __restrict__ ids,
+                const float* __restrict__ keys, const int* __restrict__ count,
+                const int* __restrict__ erow2, const int* __restrict__ exf2,
+                const float* __restrict__ csph, const float* __restrict__ xf_inv,
+                const float* __restrict__ rows, int n2, int c, int* __restrict__ occ_out) {
+  extern __shared__ float s_tri[];
+  __shared__ float s_box[8 * kNodeCols];
+  __shared__ float s_red[kBlock / 32];
+  __shared__ unsigned long long s_or[kBlock / 32];
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const size_t ray = (size_t)b * kBlock + tid;
+  const Ray R = load_ray(rays8, ray);
+  float iv[3];
+  load_iv(R, iv);
+  const float reach = min_nan(R.tmax * R.dlen, kBig);
+  bool occ = false;
+
+  const int n_nodes = count[b];
+  for (int i = 0; i < n_nodes; ++i) {
+    const size_t ni = (size_t)b * n2 + i;
+    // occluded rays leave the bound
+    if (!(keys[ni] <= block_max(occ ? 0.0f : reach, s_red))) break;
+    const int nid = ids[ni];
+    stage_node(s_box, csph, nid);
+    __syncthreads();
+    // an occluded ray's interval is closed (tcur = t_min): it drops out
+    const unsigned long long mine = node_recull(R, iv, occ ? R.tmin : R.tmax, s_box);
+    const unsigned long long any = block_or(mine, s_or);
+    for (int k2 = 0; k2 < kNode; ++k2) {
+      const unsigned eany = (unsigned)(any >> (k2 * kSuper)) & 0xffu;
+      if (!eany) continue;
+      const int e = nid * kNode + k2;
+      float lo[3], ld[3];
+      xform(R, xf_inv + (size_t)exf2[e] * 16, lo, ld);
+      const float* super_rows = rows + (size_t)erow2[e] * kStoreRows * kSuper * c;
+      for (int k = 0; k < kSuper; ++k) {
+        if (!((eany >> k) & 1u)) continue;
+        __syncthreads();
+        stage_member(s_tri, super_rows, k, c);
+        __syncthreads();
+        if (!occ && ((mine >> (k2 * kSuper + k)) & 1ull)) {
+          for (int j = 0; j < c; ++j) {
+            float t;
+            if (mt(s_tri, c, j, lo, ld, t) && t > R.tmin && t < R.tmax) {
+              occ = true;
+              break;
+            }
+          }
+        }
+      }
+    }
+  }
+  occ_out[ray] = occ ? 1 : 0;
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -402,5 +598,30 @@ extern "C" int any_launch(int device, const void* rays8, const void* keys, const
       (const float*)rays8, (const float*)keys, (const uint32_t*)lo, (const uint32_t*)hi,
       (const int*)rowix, (const int*)xfix, (const int*)count, (const float*)xf_inv,
       (const float*)rows, e, c, (int*)occ_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int closest_hier_launch(int device, const void* rays8, const void* ids, const void* keys,
+                                   const void* count, const void* erow2, const void* exf2,
+                                   const void* csph, const void* xf_inv, const void* rows, int nr,
+                                   int n2, int c, void* t_out, void* tri_out, void* vis_out,
+                                   void* stream) {
+  cudaSetDevice(device);
+  closest_hier_kernel<<<nr, kBlock, 9 * c * sizeof(float), (cudaStream_t)stream>>>(
+      (const float*)rays8, (const int*)ids, (const float*)keys, (const int*)count,
+      (const int*)erow2, (const int*)exf2, (const float*)csph, (const float*)xf_inv,
+      (const float*)rows, n2, c, (float*)t_out, (int*)tri_out, (int*)vis_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int any_hier_launch(int device, const void* rays8, const void* ids, const void* keys,
+                               const void* count, const void* erow2, const void* exf2,
+                               const void* csph, const void* xf_inv, const void* rows, int nr,
+                               int n2, int c, void* occ_out, void* stream) {
+  cudaSetDevice(device);
+  any_hier_kernel<<<nr, kBlock, 9 * c * sizeof(float), (cudaStream_t)stream>>>(
+      (const float*)rays8, (const int*)ids, (const float*)keys, (const int*)count,
+      (const int*)erow2, (const int*)exf2, (const float*)csph, (const float*)xf_inv,
+      (const float*)rows, n2, c, (int*)occ_out);
   return (int)cudaGetLastError();
 }

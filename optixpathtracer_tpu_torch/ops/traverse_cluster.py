@@ -1,7 +1,9 @@
 """Cluster traversal — exact closest-hit and any-hit for ray wavefronts
-(port of optixpathtracer_tpu/ops/traverse_cluster.py, flat path).
+(port of optixpathtracer_tpu/ops/traverse_cluster.py).
 
-Rays go in blocks of 128 through two stages:
+Rays go in blocks of 128 through two stages, on one of two paths.
+
+Flat path (scenes below HIER_MIN_ENTRIES entries):
 
   1. CULL (kernel K1, `cull_blocks`): per block, an exact slab test of each
      live ray's [0, t_max] against every cluster AABB; per supercluster
@@ -12,14 +14,22 @@ Rays go in blocks of 128 through two stages:
      surviving entries near to far, evaluating exact f32 Moller-Trumbore for
      the (sub-block, member) pairs the cull allowed.
 
-Each kernel has a plain PyTorch version here (`_cull_torch`,
-`_closest_torch`, `_any_torch`) with the same arithmetic, op for op. A
-wrapper takes the plain version for CPU tensors and launches its CUDA
-kernel (csrc/traverse_cluster.cu) for CUDA tensors, or raises; there is no
-fallback from one to the other. `launch_counts` counts kernel launches.
+Hierarchical (node) path (K4): NODE entries form a node.
 
-The hierarchical (node) walk of the reference (kernel K4) is ROADMAP A.12;
-`hier=True` raises NotImplementedError.
+  1. NODE CULL (`block_cull_nodes`): kernel K1 again, with nodes as the
+     groups and entries as the members, then the same stable sort.
+  2. NODE SWEEP (kernels K4a `closest_hier_sweep`, K4b `any_hier_sweep`):
+     per block, walk the surviving nodes near to far; at each node re-cull
+     every ray against the node's 64 cluster boxes on its current
+     [t_min, t] interval, then run M-T on the clusters each ray still
+     reaches, entry k2 = 0..7 and within it member k = 0..7.
+
+Each kernel has a plain PyTorch version here (`_cull_torch`,
+`_closest_torch`, `_any_torch`, `_closest_hier_torch`, `_any_hier_torch`)
+with the same arithmetic, op for op. A wrapper takes the plain version for
+CPU tensors and launches its CUDA kernel (csrc/traverse_cluster.cu) for
+CUDA tensors, or raises; there is no fallback from one to the other.
+`launch_counts` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -38,6 +48,10 @@ Tensor = torch.Tensor
 
 BIG_T = 1e30  # miss sentinel of HitRecord.t (ops/intersect.py)
 BLOCK = 128  # rays per block: the lo/hi layout is 8 sub-blocks of 16 (kBlock)
+NODE = 8  # entries per node of the hierarchical walk (kNode)
+assert NODE == SUPER  # the node cull is K1, whose layout packs groups of 8
+HIER_MIN_ENTRIES = 3072  # hier=None takes the node walk from this many
+#   entries on (the reference's value; read at call time)
 _BIG = 3.0e37
 _MT_ELEMS = 1 << 21  # ray-triangle pairs per plain-sweep chunk (memory bound)
 
@@ -214,7 +228,10 @@ def _lib():
     lib.cull_launch.argtypes = [i, p, p, i, i, p, p, p, p, p]
     lib.closest_launch.argtypes = [i] + [p] * 10 + [i, i, i] + [p] * 4
     lib.any_launch.argtypes = [i] + [p] * 9 + [i, i, i] + [p] * 2
-    for fn in (lib.cull_launch, lib.closest_launch, lib.any_launch):
+    lib.closest_hier_launch.argtypes = [i] + [p] * 9 + [i, i, i] + [p] * 4
+    lib.any_hier_launch.argtypes = [i] + [p] * 9 + [i, i, i] + [p] * 2
+    for fn in (lib.cull_launch, lib.closest_launch, lib.any_launch,
+               lib.closest_hier_launch, lib.any_hier_launch):
         fn.restype = ctypes.c_int
     return lib
 
@@ -462,19 +479,257 @@ def any_sweep(rows: Tensor, xf_inv: Tensor, cr: CullResult, c: int) -> Tensor:
     return occ
 
 
-def _no_hier(hier: bool) -> None:
-    if hier:
-        raise NotImplementedError(
-            "the hierarchical (node) cluster walk, kernel K4, is ROADMAP A.12")
+# --------------------------------------------------------------------------
+# Hierarchical (node) path: node cull, then the node sweep with its inline
+# cluster re-cull (reference :1030-1576)
+# --------------------------------------------------------------------------
+
+class NodeTables(NamedTuple):
+    """Node-granularity tables of a ClusterSet (`ClusterSet.node_tables`)."""
+
+    node_sph_t: Tensor  # (8, E8) f32 member-major entry boxes: entry k2 of
+    #   node j at column k2*N2 + j (the node cull's `sph_t`)
+    csph: Tensor  # (N2, 8, NODE*SUPER) f32 per-node cluster boxes, cluster
+    #   (k2, k) at column k2*SUPER + k, rows [cx cy cz r hx hy hz .]
+    erow2: Tensor  # (1, E8) int32 entry -> triangle-rows index
+    exf2: Tensor  # (1, E8) int32 entry -> transform id
 
 
-def closest_hit_cluster(cs: ClusterSet, o: Vec3, d: Vec3, t_min=0.001, t_max=1e16,
-                        hier: bool = False) -> HitRecord:
-    """Exact closest hit for a ray wavefront (cluster backend)."""
-    _no_hier(hier)
+class NodeCullResult(NamedTuple):
+    ids: Tensor  # (NR, N2) int32 node ids, survivors first, near-to-far
+    keys: Tensor  # (NR, N2) f32 sorted node distance lower bounds
+    bits_lo: Tensor  # (NR, N2) int32 bit pattern of the uint32 entry masks of
+    #   sub-blocks 0-3: entry k2 of sub-block s at bit (s%4)*8 + k2
+    bits_hi: Tensor  # (NR, N2) same for sub-blocks 4-7
+    count: Tensor  # (NR, 1) int32 number of surviving nodes
+    rays8: Tensor  # (NR*B, 8) f32 [o(3), d(3), t_min, t_max]
+
+
+def _node_tables(cs: ClusterSet) -> NodeTables:
+    """Entries padded to whole nodes with far-sentinel boxes (center _BIG/2,
+    zero extent: the slab test's tf is capped at the ray's reach, so tn > tf
+    and a sentinel is never visited)."""
+    e = cs.num_entries
+    n2 = -(-e // NODE)
+    e8 = n2 * NODE
+    ss, sp, erow, exf = cs.super_spheres, cs.spheres, cs.entry_row, cs.entry_xf
+    if e8 > e:
+        sent = torch.zeros(((e8 - e) * SUPER, 8), dtype=torch.float32, device=ss.device)
+        sent[:, 0] = _BIG / 2
+        ss = torch.cat([ss, sent[: e8 - e]])
+        sp = torch.cat([sp, sent])
+        zi = torch.zeros((e8 - e,), dtype=torch.int32, device=ss.device)
+        erow, exf = torch.cat([erow, zi]), torch.cat([exf, zi])
+    return NodeTables(
+        node_sph_t=ss.reshape(n2, NODE, 8).transpose(0, 1).reshape(e8, 8).T.contiguous(),
+        csph=sp.reshape(n2, NODE * SUPER, 8).transpose(1, 2).contiguous(),
+        erow2=erow[None].contiguous(),
+        exf2=exf[None].contiguous(),
+    )
+
+
+def block_cull_nodes(cs: ClusterSet, o: Vec3, d: Vec3, t_min, t_max) -> NodeCullResult:
+    """Stage 1 of the node walk: kernel K1 with nodes as the groups and
+    entries as the members (64x fewer columns than the flat cull), then a
+    stable sort of each block's nodes near-to-far."""
+    rays8 = _pack_rays8(cs, o, d, t_min, t_max)
+    key, lo, hi, count = cull_blocks(rays8, cs.node_tables.node_sph_t)
+    keys, order = torch.sort(key, dim=1, stable=True)
+    return NodeCullResult(
+        ids=order.to(torch.int32),
+        keys=keys,
+        bits_lo=torch.gather(lo, 1, order),
+        bits_hi=torch.gather(hi, 1, order),
+        count=count,
+        rays8=rays8,
+    )
+
+
+def _node_recull(r: Tensor, tcur: Tensor, nsph: Tensor) -> Tensor:
+    """Exact slab test of each ray's current [0, tcur] (live while
+    tcur > t_min) against one node's cluster boxes. r: (nl, B, 8) rays,
+    tcur: (nl, B), nsph: (nl, 8, 64). Returns (nl, B, 64) bool."""
+    alive = (tcur > r[:, :, 6])[..., None]
+    t0, t1 = [], []
+    for a in range(3):
+        iv = _safe_recip(r[:, :, 3 + a : 4 + a])
+        mid = (nsph[:, a : a + 1] - r[:, :, a : a + 1]) * iv
+        rad = nsph[:, 4 + a : 5 + a] * iv.abs()
+        t0.append(mid - rad)
+        t1.append(mid + rad)
+    tn = torch.maximum(torch.maximum(t0[0], t0[1]), torch.clamp(t0[2], min=0.0))
+    tf = torch.minimum(torch.minimum(t1[0], t1[1]), torch.minimum(t1[2], tcur[..., None]))
+    return alive & (tn <= tf + tf.abs() * 4e-7 + 1e-30)
+
+
+def _walk_hier(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullResult, c: int,
+               tcur_of, bound_of, visit):
+    """Shared plain walk of `_closest_hier_torch` / `_any_hier_torch`.
+
+    For each sorted node position i, the blocks still walking (i < count and
+    key <= the block's bound, as the kernels' early exit) re-cull their rays
+    against the node's 64 cluster boxes on [t_min, tcur_of()]. Then for each
+    cluster column j = k2*SUPER + k in order, every (block, 16-ray
+    sub-block) pair holding a ray whose bit j is set gets M-T against the
+    member's C triangles, and `visit(ray_idx, gate, tm, tM, det, up, vp, tp,
+    cid)` applies the epilogue to the rays with `gate` set."""
+    sb = BLOCK // 8
+    nr, n2 = cr.ids.shape
+    dev = cr.rays8.device
+    rays = cr.rays8.reshape(nr, BLOCK, 8)
+    lane = torch.arange(sb, device=dev)
+    pair_chunk = max(1, _MT_ELEMS // (sb * c))
+    recull_chunk = max(1, (1 << 22) // (BLOCK * NODE * SUPER))  # blocks per re-cull
+    walking = torch.ones(nr, dtype=torch.bool, device=dev)
+    for i in range(n2):
+        walking &= (cr.count[:, 0] > i) & (cr.keys[:, i] <= bound_of())
+        live = torch.nonzero(walking)[:, 0]
+        if live.numel() == 0:
+            break
+        nid = cr.ids[live, i].to(torch.int64)
+        tcur = tcur_of().reshape(nr, BLOCK)
+        hit = torch.cat([
+            _node_recull(rays[live[b0 : b0 + recull_chunk]], tcur[live[b0 : b0 + recull_chunk]],
+                         nt.csph[nid[b0 : b0 + recull_chunk]])
+            for b0 in range(0, live.numel(), recull_chunk)
+        ])  # (nl, B, 64)
+        sub_hit = hit.reshape(-1, 8, sb, NODE * SUPER).any(dim=2)  # (nl, 8, 64)
+        for j in torch.nonzero(sub_hit.any(dim=(0, 1)))[:, 0].tolist():
+            k2, k = divmod(j, SUPER)
+            bi_all, sub_all = torch.nonzero(sub_hit[:, :, j], as_tuple=True)
+            tri_rows = rows[:, :9, k * c : (k + 1) * c]
+            for p0 in range(0, bi_all.numel(), pair_chunk):
+                bi = bi_all[p0 : p0 + pair_chunk]
+                sub = sub_all[p0 : p0 + pair_chunk]
+                ray_idx = live[bi][:, None] * BLOCK + sub[:, None] * sb + lane  # (P, 16)
+                gate = hit[bi[:, None], sub[:, None] * sb + lane, j]  # (P, 16)
+                r = cr.rays8[ray_idx]  # (P, 16, 8)
+                e = nid[bi] * NODE + k2
+                oc, dc = _xform_ray(
+                    (r[..., 0], r[..., 1], r[..., 2]), (r[..., 3], r[..., 4], r[..., 5]),
+                    xf_inv[nt.exf2[0, e]],
+                )
+                det, up, vp, tp = _mt_block(
+                    tuple(x[..., None] for x in oc), tuple(x[..., None] for x in dc),
+                    tri_rows[nt.erow2[0, e]],
+                )
+                visit(ray_idx, gate, r[..., 6:7], r[..., 7:8], det, up, vp, tp,
+                      (e * SUPER + k).to(torch.int32))
+
+
+def _dlen(rays8: Tensor) -> Tensor:
+    d = rays8[:, 3:6]
+    return torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2])
+
+
+def _closest_hier_torch(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullResult,
+                        c: int):
+    """Plain PyTorch version of kernel K4a. Returns (t (NB,), tri (NB,) slot
+    ids, -1 on miss). Visit order: node key (stable), entry k2, member k,
+    column; strict < across members, lowest column within one."""
+    best = cr.rays8[:, 7].clone()
+    tri = torch.full_like(best, -1, dtype=torch.int32)
+    iota = torch.arange(c, device=best.device, dtype=torch.int32)
+    dlen = _dlen(cr.rays8)
+
+    def bound():
+        return torch.clamp(best * dlen, max=_BIG).reshape(-1, BLOCK).amax(dim=1)
+
+    def visit(ray_idx, gate, tm, tM, det, up, vp, tp, cid):
+        ok, t = _mt_t(det, up, vp, tp)
+        cur = best[ray_idx]  # (P, 16)
+        tcand = torch.where(ok & (t > tm) & (t < cur[..., None]), t, BIG_T)
+        tbest = tcand.amin(dim=-1)
+        jbest = torch.where(tcand == tbest[..., None], iota, c).amin(dim=-1)
+        better = gate & (tbest < cur)
+        best[ray_idx] = torch.where(better, tbest, cur)
+        tri[ray_idx] = torch.where(better, cid[:, None] * c + jbest, tri[ray_idx])
+
+    _walk_hier(rows, xf_inv, nt, cr, c, lambda: best, bound, visit)
+    return best, tri
+
+
+def _any_hier_torch(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullResult,
+                    c: int):
+    """Plain PyTorch version of kernel K4b. Returns occ (NB,) int32. An
+    occluded ray's interval closes (tcur = t_min), so it drops out of the
+    re-cull and of the early-exit bound."""
+    occ = torch.zeros(cr.rays8.shape[0], dtype=torch.bool, device=cr.rays8.device)
+    tm_all, tM_all = cr.rays8[:, 6], cr.rays8[:, 7]
+    reach = torch.clamp(tM_all * _dlen(cr.rays8), max=_BIG)
+
+    def bound():
+        return torch.where(occ, 0.0, reach).reshape(-1, BLOCK).amax(dim=1)
+
+    def visit(ray_idx, gate, tm, tM, det, up, vp, tp, cid):
+        ok, t = _mt_t(det, up, vp, tp)
+        hit = (ok & (t > tm) & (t < tM)).any(dim=-1)
+        occ[ray_idx] = occ[ray_idx] | (gate & hit)
+
+    _walk_hier(rows, xf_inv, nt, cr, c, lambda: torch.where(occ, tm_all, tM_all), bound, visit)
+    return occ.to(torch.int32)
+
+
+def _check_hier_sweep(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullResult, c: int):
+    dev = cr.rays8.device
+    nr, n2 = cr.ids.shape
+    if c > 1024:
+        raise ValueError(f"cluster_size {c} exceeds the sweep kernels' 1024 (shared memory)")
+    _check(cr.rays8, "rays8", torch.float32, dev, (nr * BLOCK, 8))
+    _check(cr.ids, "ids", torch.int32, dev, (nr, n2))
+    _check(cr.keys, "keys", torch.float32, dev, (nr, n2))
+    _check(cr.count, "count", torch.int32, dev, (nr, 1))
+    _check(nt.erow2, "erow2", torch.int32, dev, (1, n2 * NODE))
+    _check(nt.exf2, "exf2", torch.int32, dev, (1, n2 * NODE))
+    _check(nt.csph, "csph", torch.float32, dev, (n2, 8, NODE * SUPER))
+    _check(xf_inv, "xf_inv", torch.float32, dev, (xf_inv.shape[0], 16))
+    _check(rows, "rows", torch.float32, dev, (rows.shape[0], STORE_ROWS, SUPER * c))
+    return nr, n2
+
+
+def closest_hier_sweep(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullResult, c: int):
+    """Kernel K4a. Returns (t (NB,) f32, tri (NB,) int32 slot, vis (NR,) int32
+    executed (sub-block, member) visits; vis is None on the CPU)."""
+    if cr.rays8.device.type == "cpu":
+        t, tri = _closest_hier_torch(rows, xf_inv, nt, cr, c)
+        return t, tri, None
+    dev_idx, stream = _launch_env(cr.rays8)
+    nr, n2 = _check_hier_sweep(rows, xf_inv, nt, cr, c)
+    t = torch.empty((nr * BLOCK,), dtype=torch.float32, device=rows.device)
+    tri = torch.empty((nr * BLOCK,), dtype=torch.int32, device=rows.device)
+    vis = torch.empty((nr,), dtype=torch.int32, device=rows.device)
+    _raise_on(_lib().closest_hier_launch(
+        dev_idx, cr.rays8.data_ptr(), cr.ids.data_ptr(), cr.keys.data_ptr(),
+        cr.count.data_ptr(), nt.erow2.data_ptr(), nt.exf2.data_ptr(), nt.csph.data_ptr(),
+        xf_inv.data_ptr(), rows.data_ptr(), nr, n2, c, t.data_ptr(), tri.data_ptr(),
+        vis.data_ptr(), stream), "closest_hier")
+    launch_counts["closest_hier"] += 1
+    return t, tri, vis
+
+
+def any_hier_sweep(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullResult,
+                   c: int) -> Tensor:
+    """Kernel K4b. Returns occ (NB,) int32 (1 = occluded)."""
+    if cr.rays8.device.type == "cpu":
+        return _any_hier_torch(rows, xf_inv, nt, cr, c)
+    dev_idx, stream = _launch_env(cr.rays8)
+    nr, n2 = _check_hier_sweep(rows, xf_inv, nt, cr, c)
+    occ = torch.empty((nr * BLOCK,), dtype=torch.int32, device=rows.device)
+    _raise_on(_lib().any_hier_launch(
+        dev_idx, cr.rays8.data_ptr(), cr.ids.data_ptr(), cr.keys.data_ptr(),
+        cr.count.data_ptr(), nt.erow2.data_ptr(), nt.exf2.data_ptr(), nt.csph.data_ptr(),
+        xf_inv.data_ptr(), rows.data_ptr(), nr, n2, c, occ.data_ptr(), stream), "any_hier")
+    launch_counts["any_hier"] += 1
+    return occ
+
+
+# --------------------------------------------------------------------------
+# Entry points
+# --------------------------------------------------------------------------
+
+def _hit_record(cs: ClusterSet, o: Vec3, d: Vec3, t: Tensor, tri: Tensor) -> HitRecord:
+    """HitRecord from a sweep's padded (t, tri slot) outputs."""
     n = o.x.shape[0]
-    cr = block_cull(cs, o, d, t_min, t_max)
-    t, tri, _ = closest_sweep(cs.rows, cs.xf_inv, cr, cs.cluster_size)
     t = t[:n]
     tri = tri[:n]
     miss = tri < 0
@@ -484,14 +739,49 @@ def closest_hit_cluster(cs: ClusterSet, o: Vec3, d: Vec3, t_min=0.001, t_max=1e1
     return HitRecord(t=torch.where(miss, BIG_T, t), tri=torch.where(miss, -1, tri), u=u, v=v)
 
 
+def _no_overflow(occ: Tensor) -> Tensor:
+    return torch.zeros((), dtype=torch.float32, device=occ.device)
+
+
+def closest_hit_cluster_hier(cs: ClusterSet, o: Vec3, d: Vec3, t_min=0.001,
+                             t_max=1e16) -> HitRecord:
+    """Exact closest hit, hierarchical (node) walk."""
+    cr = block_cull_nodes(cs, o, d, t_min, t_max)
+    t, tri, _ = closest_hier_sweep(cs.rows, cs.xf_inv, cs.node_tables, cr, cs.cluster_size)
+    return _hit_record(cs, o, d, t, tri)
+
+
+def any_hit_cluster_hier(cs: ClusterSet, o: Vec3, d: Vec3, t_min=0.01, t_max=1e16):
+    """Occlusion query, hierarchical (node) walk: (occluded (N,), 0)."""
+    cr = block_cull_nodes(cs, o, d, t_min, t_max)
+    occ = any_hier_sweep(cs.rows, cs.xf_inv, cs.node_tables, cr, cs.cluster_size)
+    return occ[: o.x.shape[0]] > 0, _no_overflow(occ)
+
+
+def closest_hit_cluster(cs: ClusterSet, o: Vec3, d: Vec3, t_min=0.001, t_max=1e16,
+                        hier: bool | None = None) -> HitRecord:
+    """Exact closest hit for a ray wavefront (cluster backend). hier=None
+    takes the node walk for scenes of >= HIER_MIN_ENTRIES entries."""
+    if hier is None:
+        hier = cs.num_entries >= HIER_MIN_ENTRIES
+    if hier:
+        return closest_hit_cluster_hier(cs, o, d, t_min, t_max)
+    cr = block_cull(cs, o, d, t_min, t_max)
+    t, tri, _ = closest_sweep(cs.rows, cs.xf_inv, cr, cs.cluster_size)
+    return _hit_record(cs, o, d, t, tri)
+
+
 def any_hit_cluster(cs: ClusterSet, o: Vec3, d: Vec3, t_min=0.01, t_max=1e16,
-                    hier: bool = False):
-    """Occlusion query: (occluded (N,) bool, overflow scalar == 0 always)."""
-    _no_hier(hier)
-    n = o.x.shape[0]
+                    hier: bool | None = None):
+    """Occlusion query: (occluded (N,) bool, overflow scalar == 0 always).
+    hier=None routes as `closest_hit_cluster` does."""
+    if hier is None:
+        hier = cs.num_entries >= HIER_MIN_ENTRIES
+    if hier:
+        return any_hit_cluster_hier(cs, o, d, t_min, t_max)
     cr = block_cull(cs, o, d, t_min, t_max)
     occ = any_sweep(cs.rows, cs.xf_inv, cr, cs.cluster_size)
-    return occ[:n] > 0, torch.zeros((), dtype=torch.float32, device=occ.device)
+    return occ[: o.x.shape[0]] > 0, _no_overflow(occ)
 
 
 def _recover_uv(cs: ClusterSet, o: Vec3, d: Vec3, tri_slot: Tensor, miss: Tensor):

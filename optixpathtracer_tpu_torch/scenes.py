@@ -1,8 +1,9 @@
 """Procedural scenes and render setups of the main path, rebuilt without jax.
 
 `build_city_scene` is the bench's 150k-triangle city (bench.py
-`build_city_scene`, `_unit_box`), made from the same seed with the same
-numpy calls, so it is the same triangle soup. The `open_*` functions are
+`build_city_scene`, `_unit_box`) and `build_big_scene` its terrain-apron
+scale scene (bench.py `build_big_scene`), made from the same seeds with the
+same numpy calls, so they are the same triangle soups. The `open_*` functions are
 the golden setups of tests/golden_scenes.py (`_open_scene`, `_sky_probe`,
 `_cam`/`_cam_s`, `render_disney_open`, `render_disney_open_small`) with the
 cluster traversal in place of the reference's CPU lockstep backend (both
@@ -67,6 +68,68 @@ def build_city_scene(n_boxes=12500, seed=0) -> HostScene:
             vertices=verts.reshape(-1, 3).astype(np.float32),
             indices=faces.reshape(-1, 3).astype(np.int32),
             material=mat,
+        ))
+    return hs
+
+
+BIG8X_TERRAIN_GRID = (2048, 2048)  # build_big_scene at ~8.68M triangles,
+#   4239 entries at cluster_size 256: the scale point where hier=None takes
+#   the node walk (experiments/flat_scale_probe.py "big8x-8.7M")
+
+
+def build_big_scene(n_boxes=12500, seed=0, terrain_grid=(1024, 512), extra_rings=2) -> HostScene:
+    """bench.py `build_big_scene`: the city plus a finely tessellated
+    multi-octave terrain apron (unique geometry, no instancing) and
+    `extra_rings` suburb rings of smaller boxes. Default ~1.35M triangles;
+    BIG8X_TERRAIN_GRID gives ~8.68M."""
+    rng = np.random.default_rng(seed + 100)
+    hs = build_city_scene(n_boxes=n_boxes, seed=seed)
+
+    # fine terrain apron around the city (which sits on its own ground slab)
+    gx, gz = terrain_grid
+    xs = np.linspace(-220, 220, gx, dtype=np.float32)
+    zs = np.linspace(-220, 220, gz, dtype=np.float32)
+    xg, zg = np.meshgrid(xs, zs, indexing="ij")
+    h = np.zeros_like(xg)
+    for octave in range(5):
+        f = 0.012 * (2 ** octave)
+        px = rng.uniform(0, 100)
+        pz = rng.uniform(0, 100)
+        h += (np.sin(xg * f + px) * np.cos(zg * f * 1.6 + pz)) * (3.0 / (octave + 1))
+    # depress the terrain under the city footprint (|x|, |z| < 62)
+    inside = (np.abs(xg) < 62) & (np.abs(zg) < 62)
+    h = np.where(inside, -2.5, h - 3.0).astype(np.float32)
+    verts = np.stack([xg, h, zg], -1).reshape(-1, 3).astype(np.float32)
+    ii, jj = np.meshgrid(np.arange(gx - 1), np.arange(gz - 1), indexing="ij")
+    q = (ii * gz + jj).ravel()
+    quads = np.stack([q, q + 1, q + gz, q + gz + 1], -1)
+    tris = np.concatenate([quads[:, [0, 1, 2]], quads[:, [2, 1, 3]]], 0).astype(np.int32)
+    hs.add_mesh(Mesh(vertices=verts, indices=tris,
+                     material=make_material(color=(0.4, 0.45, 0.3), roughness=0.85)))
+
+    # suburb rings: unique small boxes on the terrain apron
+    unit_v, unit_f = _unit_box()
+    for ring in range(extra_rings):
+        k = n_boxes // 2
+        r0, r1 = 70 + 60 * ring, 120 + 60 * ring
+        rad = rng.uniform(r0, r1, k).astype(np.float32)
+        ang = rng.uniform(0, 2 * np.pi, k).astype(np.float32)
+        cx = rad * np.cos(ang)
+        cz = rad * np.sin(ang)
+        hh = rng.gamma(2.0, 0.6, k).astype(np.float32) + 0.2
+        ww = rng.uniform(0.15, 0.6, (k, 2)).astype(np.float32)
+        # ground height via nearest grid sample
+        gix = np.clip(np.rint((cx - xs[0]) / (xs[1] - xs[0])).astype(np.int64), 0, gx - 1)
+        giz = np.clip(np.rint((cz - zs[0]) / (zs[1] - zs[0])).astype(np.int64), 0, gz - 1)
+        base_y = h[gix, giz]
+        scale = np.stack([ww[:, 0], hh * 0.5, ww[:, 1]], -1)
+        offset = np.stack([cx, base_y + hh * 0.5, cz], -1)
+        verts = unit_v[None] * scale[:, None, :] + offset[:, None, :]
+        faces = unit_f[None] + (np.arange(k)[:, None, None] * len(unit_v))
+        hs.add_mesh(Mesh(
+            vertices=verts.reshape(-1, 3).astype(np.float32),
+            indices=faces.reshape(-1, 3).astype(np.int32),
+            material=make_material(color=(0.55 + 0.1 * ring, 0.5, 0.45), roughness=0.7),
         ))
     return hs
 

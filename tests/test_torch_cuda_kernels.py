@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K3 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K4 against their plain PyTorch versions, on the card.
 
 A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU and skip
 elsewhere. On the card (no jax there, hence no conftest):
@@ -26,9 +26,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _scene_and_rays(device, cluster_size, n=4096, seed=0):
+def _scene_and_rays(device, cluster_size, n=4096, seed=0, t=3000):
     rng = np.random.default_rng(seed)
-    t = 3000
     ctr = rng.uniform(-4, 4, (t, 3)).astype(np.float32)
     v = [ctr + rng.normal(0, 0.3, (t, 3)).astype(np.float32) for _ in range(3)]
     order = np.argsort(ctr[:, 0], kind="stable")
@@ -83,3 +82,38 @@ def test_wrappers_check_their_inputs(cuda):
         tc.cull_blocks(rays8.t().contiguous().t(), tc.sphere_table(cs))
     with pytest.raises(ValueError):  # not a whole number of 128-ray blocks
         tc.cull_blocks(rays8[:100], tc.sphere_table(cs))
+
+
+@pytest.mark.parametrize("cluster_size,n_tris", [(8, 3000), (32, 3000), (256, 20000)])
+def test_hier_kernels_bit_equal_to_plain(cuda, cluster_size, n_tris):
+    # several nodes, the last one padded with sentinel entries; 20 % dead rays
+    cs, o, d, t_max = _scene_and_rays(cuda, cluster_size, seed=2, t=n_tris)
+    assert cs.num_entries > tc.NODE and cs.num_entries % tc.NODE != 0
+    nt = cs.node_tables
+    before = dict(tc.launch_counts)
+    cr = tc.block_cull_nodes(cs, o, d, 1e-3, t_max)
+    t_k, tri_k, vis = tc.closest_hier_sweep(cs.rows, cs.xf_inv, nt, cr, cluster_size)
+    t_p, tri_p = tc._closest_hier_torch(cs.rows, cs.xf_inv, nt, cr, cluster_size)
+    assert torch.equal(t_k, t_p) and torch.equal(tri_k, tri_p)
+    assert int(vis.sum()) > 0 and int((tri_k >= 0).sum()) > 0
+    occ_k = tc.any_hier_sweep(cs.rows, cs.xf_inv, nt, cr, cluster_size)
+    assert torch.equal(occ_k, tc._any_hier_torch(cs.rows, cs.xf_inv, nt, cr, cluster_size))
+    assert int(occ_k.sum()) > 0
+    after = dict(tc.launch_counts)
+    for name in ("cull", "closest_hier", "any_hier"):
+        assert after[name] - before.get(name, 0) == 1
+
+
+def test_hier_none_takes_the_node_kernels(cuda, monkeypatch):
+    cs, o, d, t_max = _scene_and_rays(cuda, 32, seed=3)
+    monkeypatch.setattr(tc, "HIER_MIN_ENTRIES", cs.num_entries)
+    before = dict(tc.launch_counts)
+    got = tc.closest_hit_cluster(cs, o, d, 1e-3, t_max)
+    occ, _ = tc.any_hit_cluster(cs, o, d, 1e-3, t_max)
+    want = tc.reference_closest(cs, o, d, 1e-3, t_max)
+    assert torch.equal(got.tri, want.tri)
+    assert torch.equal(occ, want.tri >= 0)
+    after = dict(tc.launch_counts)
+    assert after["closest_hier"] - before.get("closest_hier", 0) == 1
+    assert after["any_hier"] - before.get("any_hier", 0) == 1
+    assert after.get("closest", 0) == before.get("closest", 0)
