@@ -5,20 +5,29 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the five hand-written cluster-traversal kernels
-(optixpathtracer_tpu_torch/csrc/traverse_cluster.cu: cull, closest, any,
-closest_hier, any_hier) and holds each against its plain PyTorch version on
-the card. Then it drives two paths through the `disney_pt` preset at
-1200x800, 2 spp, depth 4, with the bench's flags, and checks that each went
-through its kernels:
+It builds the port's eight hand-written CUDA kernels, one nvcc per source,
+all started together (optixpathtracer_tpu_torch/csrc/: traverse_cluster.cu
+with cull, closest, any, closest_hier and any_hier; worklist.cu with
+compact and pair_worklist; gather.cu with gather), and holds each against
+its plain PyTorch version on the card, bit for bit. Then it drives the
+port's paths and checks that each went through its kernels:
 
-  1. the 150k-triangle city (flat cluster walk: cull, closest, any), with
-     the bench's exactness gate and the `disney_open*` golden renders;
-  2. the ~8.68M-triangle terrain-apron scene (`build_big_scene` at
-     BIG8X_TERRAIN_GRID, 4239 entries: hier=None routes it to the node
-     walk: cull, closest_hier, any_hier), with the exactness gate against
-     the dense oracle, a golden through the node walk, the node kernels'
-     and the flat kernels' times on the same rays.
+  1. `disney_pt` on the 150k-triangle city at 1200x800, 2 spp, depth 4,
+     with the bench's flags (flat cluster walk: cull, closest, any), the
+     bench's exactness gate and the `disney_open*` golden renders;
+  2. the worklist builders (compact, pair_worklist) on the city's
+     first-bounce hit flags and cull words;
+  3. the `foveated` preset (sv4): the published 3840x2160 configuration
+     (radii 157/515, zone spp 1/2/8, three launches) and the 640x480 fused
+     configuration on the city (cull, closest, any), its goldens
+     (`foveated_s` against the port's CPU render, see `foveated_checks`)
+     and the fused launch against the three launches;
+  4. the gather probe (gather) on a (1<<20, 128) f32 table;
+  5. `disney_pt` on the ~8.68M-triangle terrain-apron scene
+     (`build_big_scene` at BIG8X_TERRAIN_GRID, 4239 entries: hier=None
+     routes it to the node walk: cull, closest_hier, any_hier), with the
+     exactness gate against the dense oracle, a golden through the node
+     walk, the node kernels' and the flat kernels' times on the same rays.
 
 Every phase prints one JSON line with its seconds; any failure exits
 non-zero. The last line is the device contract:
@@ -29,6 +38,8 @@ port package must be importable beside it).
 """
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
 import os
 import subprocess
@@ -45,6 +56,8 @@ PLAIN_BUDGET_S = 60.0  # time a plain version at the slice shape within this
 HIER_PLAIN_BUDGET_S = 30.0  # the same for the node walk's plain versions
 WIDTH, HEIGHT, SPP, DEPTH = 1200, 800, 2, 4
 BENCH_FLAGS = dict(sort_rays=True, batch_spp=True, nee_final_bounce=False)
+FOV_4K = dict(width=3840, height=2160)  # the sv4 preset's defaults: depth 4, radii 157/515
+FOV_FUSED = dict(width=640, height=480)  # bench.py:948-962, interactive size
 TPU_FILE = "optixpathtracer_tpu/ops/traverse_cluster.py"
 KERNELS = {  # name -> the TPU kernel it replaces
     "cull": f"{TPU_FILE}:226",
@@ -52,8 +65,17 @@ KERNELS = {  # name -> the TPU kernel it replaces
     "any": f"{TPU_FILE}:622",
     "closest_hier": f"{TPU_FILE}:1289",
     "any_hier": f"{TPU_FILE}:1334",
+    "compact": "optixpathtracer_tpu/ops/sc_worklist.py:100",
+    "pair_worklist": "optixpathtracer_tpu/ops/sc_worklist.py:190",
+    "gather": "experiments/sparsecore_probe.py:87",
 }
-SOURCE = "optixpathtracer_tpu_torch/csrc/traverse_cluster.cu"
+CSRC = "optixpathtracer_tpu_torch/csrc"
+SOURCES = {  # name -> the CUDA source it is built from
+    **{k: f"{CSRC}/traverse_cluster.cu" for k in ("cull", "closest", "any", "closest_hier", "any_hier")},
+    "compact": f"{CSRC}/worklist.cu",
+    "pair_worklist": f"{CSRC}/worklist.cu",
+    "gather": f"{CSRC}/gather.cu",
+}
 _last_emit = [time.perf_counter()]
 
 
@@ -179,8 +201,8 @@ def time_vs_plain(name, kern, plain, nr_full, budget_s, **fields):
 
 def first_bounce_and_shadows(renderer, cl, probe, dev):
     """The slice's first-bounce wavefront, coherence-sorted as the engine
-    sorts it, and its NEE shadow rays, sorted the same way:
-    ((o, d), (p_hit, wi, t_sh))."""
+    sorts it, its NEE shadow rays, sorted the same way, and its hit flags:
+    ((o, d), (p_hit, wi, t_sh), hit)."""
     import torch
 
     from optixpathtracer_tpu_torch.core.math import Vec3
@@ -202,15 +224,18 @@ def first_bounce_and_shadows(renderer, cl, probe, dev):
     t_sh = torch.where(rec.hit, cfg.t_max, 0.0)
     perm = wavefront._stable_argsort(
         wavefront._coherence_key(p_hit, wi, t_sh <= cfg.shadow_t_min, cl.scene_aabb))
+    hit = rec.hit
     p_hit, wi, t_sh = Vec3(*(a[perm] for a in p_hit)), Vec3(*(a[perm] for a in wi)), t_sh[perm]
-    return (o1, d1), (p_hit, wi, t_sh)
+    return (o1, d1), (p_hit, wi, t_sh), hit
 
 
-def drive_slice(phase, renderer, card, counts):
+def drive_slice(phase, renderer, card, counts, **fields):
     """The main path: one warm-up frame and 3 timed frames, with the kernel
-    launch counts set to 0 just before and read just after."""
+    launch counts set to 0 just before and read just after. Works for the
+    `Renderer` and the `FoveatedRenderer` alike."""
     import torch
 
+    cfg = renderer.config
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counts.clear()
@@ -220,16 +245,19 @@ def drive_slice(phase, renderer, card, counts):
         t0 = time.perf_counter()
         renderer.render(download=False)  # ends in torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        rays.append(int(renderer.last_output.rays_traced))
+        rays.append(int(renderer.last_rays if hasattr(renderer, "last_rays")
+                        else renderer.last_output.rays_traced))
     launches = dict(counts)
     img = renderer.accum_image()
     frame_s = float(np.median(times))
-    emit(phase, width=WIDTH, height=HEIGHT, spp=SPP, max_depth=DEPTH, flags=BENCH_FLAGS,
+    emit(phase, width=cfg.width, height=cfg.height, max_depth=cfg.max_depth, flags=BENCH_FLAGS,
+         **fields,
          frame_s=frame_s, frame_times_s=times, rays_traced=rays[-1],
          mrays_per_s=rays[-1] / frame_s / 1e6, max_memory_allocated=torch.cuda.max_memory_allocated(),
          launches=launches, image_mean=float(img.mean()), card=card)
-    if img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all() or not img.max() > 0:
-        raise AssertionError(f"{phase}: the frame is not a finite, non-black 1200x800 image")
+    if img.shape != (cfg.height, cfg.width, 3) or not np.isfinite(img).all() or not img.max() > 0:
+        raise AssertionError(f"{phase}: the frame is not a finite, non-black "
+                             f"{cfg.width}x{cfg.height} image")
     return launches
 
 
@@ -255,6 +283,136 @@ def profile_frame(phase, renderer):
          top=[{"name": e.key[:80], "ms": _device_us(e) / 1e3, "calls": e.count} for e in top])
 
 
+def worklist_vs_plain(hit, cull_lo, card):
+    """K5a on the first bounce's hit flags and K5b on its cull words, each
+    at a capacity above its count and one below: the entry points' launches
+    (counted), then bit-equality with the plain versions and both times.
+    Returns ({name: launches}, {name: timing})."""
+    import torch
+
+    from optixpathtracer_tpu_torch.ops import sc_worklist as sw
+
+    flags = hit.contiguous()
+    words = cull_lo.reshape(-1).contiguous()
+    n_set = int(flags.sum())
+    n_bits = int(sum(int(torch.bitwise_and(words >> b, 1).sum()) for b in range(32)))
+    cases = {
+        "compact": (sw.compact_indices, sw.compact_indices_torch, flags, n_set),
+        "pair_worklist": (sw.pair_worklist, sw.pair_worklist_torch, words, n_bits),
+    }
+    caps = {name: (count + 1000, max(1, count // 2)) for name, (_, _, _, count) in cases.items()}
+    sw.launch_counts.clear()
+    outs = {name: [kern(x, cap) for cap in caps[name]] for name, (kern, _, x, _) in cases.items()}
+    torch.cuda.synchronize()
+    launches = dict(sw.launch_counts)
+    timing = {}
+    for name, (kern, plain, x, count) in cases.items():
+        err = 0.0
+        for cap, got in zip(caps[name], outs[name]):
+            err = max(err, compare(f"{name} (capacity {cap})", got, plain(x, cap)))
+            if int(got[-1]) != count:
+                raise AssertionError(f"{name}: count {int(got[-1])}, expected {count}")
+        cap = caps[name][0]
+        timing[name] = dict(ms=cuda_ms(lambda: kern(x, cap), reps=5),
+                            plain_ms=cuda_ms(lambda: plain(x, cap), reps=5), max_abs_err=err)
+        emit("worklist_vs_plain", kernel=name, input=("first-bounce hit flags" if name == "compact"
+                                                      else "first-bounce cull lo words"),
+             n=x.shape[0], count=count, capacities=list(caps[name]), bit_equal=True,
+             launches=launches.get(name, 0), **timing[name], card=card)
+    return launches, timing
+
+
+def gather_probe_phase(dev, card):
+    """K6 through the gather probe's entry point (counted), then bit-equal
+    to index_select on the probe's 1M indices, and its time at 1M."""
+    from optixpathtracer_tpu_torch.experiments import gather_probe
+    from optixpathtracer_tpu_torch.ops import gather
+
+    gather.launch_counts.clear()
+    rates = gather_probe.measure(dev)
+    launches = dict(gather.launch_counts)
+    table = gather_probe.probe_table(dev)
+    idx = gather_probe.probe_indices(dev, gather_probe.SIZES["1m"])
+    err = compare("gather", (gather.gather_rows(table, idx),), (gather.gather_rows_torch(table, idx),))
+    timing = dict(ms=cuda_ms(lambda: gather.gather_rows(table, idx), reps=5),
+                  plain_ms=cuda_ms(lambda: gather.gather_rows_torch(table, idx), reps=5),
+                  max_abs_err=err)
+    emit("gather_probe", table=[gather_probe.N_ROWS, gather_probe.ROW_WIDTH], bit_equal=True,
+         launches=launches.get("gather", 0), **rates, **timing, card=card)
+    del table, idx
+    return launches, timing
+
+
+def foveated_checks(dev):
+    """The `foveated*` goldens on the card, and the fused launch against the
+    three launches on tests/test_foveated_fused.py's 48x32 setup.
+
+    `foveated` must hold its golden. `foveated_s` is held against the
+    port's own render of it on the CPU (its plain versions): the golden was
+    rendered by jitted JAX, which fuses a*b+c into FMAs, and one fovea
+    sample of it takes another path there than in the eager JAX renderer
+    (and in the port, which rounds every op), which puts both at RMSE
+    2.38e-3 (tests/test_torch_foveated.py)."""
+    import torch
+
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.builder import compile_scene
+    from optixpathtracer_tpu_torch.core.camera import Camera
+    from optixpathtracer_tpu_torch.core.materials import make_material
+    from optixpathtracer_tpu_torch.core.scene import HostScene
+    from optixpathtracer_tpu_torch.engine.foveated import FoveatedRenderer, FoveationConfig
+    from optixpathtracer_tpu_torch.engine.wavefront import RenderConfig
+    from optixpathtracer_tpu_torch.lights.probe import build_probe
+
+    for name in scenes.FOVEATED_GOLDENS:
+        got = scenes.render_foveated_golden(name, dev)
+        want = np.load(os.path.join(GOLDEN_DIR, f"{name}.npz"))["image"]
+        rmse = scenes.golden_rmse(got, want)
+        fields = dict(name=name, rmse=rmse, tol=RMSE_TOL)
+        if name == "foveated_s":
+            want = scenes.render_foveated_golden(name, torch.device("cpu"))
+            fields.update(rmse_vs_cpu_port=scenes.golden_rmse(got, want))
+        emit("foveated_golden", **fields)
+        if not (got.shape == want.shape and scenes.golden_rmse(got, want) <= RMSE_TOL):
+            raise AssertionError(f"foveated golden {name}: {fields}")
+
+    hs = HostScene()
+    hs.add_box(make_material(color=(0.8, 0.8, 0.8)), pos=(0, -0.1, 0), extent=(6, 0.1, 6))
+    hs.add_box(make_material(color=(0.7, 0.3, 0.2)), pos=(0, 0.5, 0), extent=(0.5, 0.5, 0.5))
+    cs = compile_scene(hs, dev)
+    probe = build_probe(np.full((8, 16, 3), 0.5, np.float32), dev)
+    cfg = RenderConfig(width=48, height=32, max_depth=1, antialias=False, batch_spp=True,
+                       traversal="cluster")
+    cam = Camera(eye=(3, 2, 4), lookat=(0, 0.4, 0), up=(0, 1, 0), fov_y=45, aspect_ratio=48 / 32)
+    imgs, rays = [], []
+    for fused in (False, True):
+        r = FoveatedRenderer(cs, probe, cfg, cam, FoveationConfig(inner_radius=8, outer_radius=16),
+                             fused=fused)
+        r.set_gaze(24, 16)
+        r.render(download=False)
+        imgs.append(r.accum_image())
+        rays.append(r.last_rays)
+    diff = float(np.abs(imgs[1] - imgs[0]).max())
+    emit("fov_fused_eq", max_abs_diff=diff, tol=1e-5, rays=rays)
+    if not (np.allclose(imgs[1], imgs[0], rtol=1e-5, atol=1e-5) and rays[0] == rays[1]):
+        raise AssertionError(f"fused foveation differs from three launches: {diff}, rays {rays}")
+
+
+def zone_lanes(renderer):
+    """Lanes per zone of a FoveatedRenderer's frame: launched, live, traced
+    (live x spp)."""
+    from optixpathtracer_tpu_torch.engine.foveated import _zone_pixels
+
+    gaze = (renderer.gaze[0], renderer.config.height - 1 - renderer.gaze[1])
+    out = {}
+    for z in renderer.zones:
+        _, _, active = _zone_pixels(renderer.config, z, gaze, renderer.device)
+        live = int(active.sum())
+        out[z.name] = dict(factor=z.factor, spp=z.spp, lanes=int(active.numel()), live=live,
+                           sample_lanes=live * z.spp)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -271,7 +429,8 @@ def main() -> int:
 
     from optixpathtracer_tpu_torch import scenes
     from optixpathtracer_tpu_torch.builder import compile_scene
-    from optixpathtracer_tpu_torch.models import make_disney_pt_renderer
+    from optixpathtracer_tpu_torch.engine.foveated import FoveationConfig
+    from optixpathtracer_tpu_torch.models import make_disney_pt_renderer, make_foveated_renderer
     from optixpathtracer_tpu_torch.ops import cuda_build
     from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
 
@@ -284,14 +443,18 @@ def main() -> int:
     emit("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
-    # ---- build ------------------------------------------------------------
+    # ---- build: one nvcc per source, all started together ------------------
     t0 = time.perf_counter()
-    cuda_build.load("traverse_cluster")
-    info = cuda_build.build_info["traverse_cluster"]
-    ptxas = [ln.strip() for ln in info["ptxas"].splitlines()
-             if "registers" in ln or "spill" in ln or "entry function" in ln]
-    emit("build", source=SOURCE, seconds=time.perf_counter() - t0, nvcc_seconds=info["seconds"],
-         ptxas=ptxas)
+    names = sorted({os.path.splitext(os.path.basename(src))[0] for src in SOURCES.values()})
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(cuda_build.load, names))
+    builds = {}
+    for name in names:
+        info = cuda_build.build_info[name]
+        builds[name] = dict(nvcc_seconds=info["seconds"], ptxas=[
+            ln.strip() for ln in info["ptxas"].splitlines()
+            if "registers" in ln or "spill" in ln or "entry function" in ln])
+    emit("build", seconds=time.perf_counter() - t0, sources=builds)
 
     # ---- the city, and the slice's renderer ------------------------------
     t0 = time.perf_counter()
@@ -306,6 +469,7 @@ def main() -> int:
                                        max_depth=DEPTH, **BENCH_FLAGS)
     cfg = renderer.config
     cl = cs.clusters
+    launches = {}  # kernel -> launches over every main path
     c = cl.cluster_size
     sph_t = tc.sphere_table(cl)
 
@@ -322,7 +486,7 @@ def main() -> int:
     emit("kernels_vs_plain", rays=65536, max_abs_err=errs, bit_equal=True)
 
     # ---- times at the slice's shapes: the first-bounce wavefront ----------
-    (o1, d1), (p_hit, wi, t_sh) = first_bounce_and_shadows(renderer, cl, probe, dev)
+    (o1, d1), (p_hit, wi, t_sh), hit1 = first_bounce_and_shadows(renderer, cl, probe, dev)
     rays8_1 = tc._pack_rays8(cl, o1, d1, cfg.t_min, cfg.t_max)
     cr1 = tc.block_cull(cl, o1, d1, cfg.t_min, cfg.t_max)
     cr_sh = tc.block_cull(cl, p_hit, wi, cfg.shadow_t_min, t_sh)
@@ -340,7 +504,13 @@ def main() -> int:
         timing[name] = time_vs_plain(name, kern, plain, nr_full, PLAIN_BUDGET_S,
                                      wavefront="first bounce, 1200x800x2spp", card=card)
         errs[name] = max(errs[name], timing[name]["max_abs_err"])
-    del cr1, cr_sh, rays8_1
+
+    # ---- the worklist builders (K5a, K5b) on the first bounce --------------
+    wl_launches, wl_timing = worklist_vs_plain(hit1, cr1.bits_lo, card)
+    launches.update(wl_launches)
+    timing.update(wl_timing)
+    errs.update({k: v["max_abs_err"] for k, v in wl_timing.items()})
+    del cr1, cr_sh, rays8_1, hit1
 
     # ---- exactness gate (bench.py:1302-1340) ------------------------------
     og, dg = mixed_rays(cs, hs, cam, 8192, 42, dev)
@@ -361,12 +531,42 @@ def main() -> int:
             raise AssertionError(f"golden {name}: RMSE {rmse} > {RMSE_TOL}")
 
     # ---- the city slice: main path 1 --------------------------------------
-    launches = drive_slice("slice", renderer, card, tc.launch_counts)
+    city = drive_slice("slice", renderer, card, tc.launch_counts, spp=SPP)
     for name in ("cull", "closest", "any"):
-        if launches.get(name, 0) <= 0:
+        if city.get(name, 0) <= 0:
             raise AssertionError(f"the city slice never launched kernel {name}")
     profile_frame("profile", renderer)
-    del renderer, cs, cl, hs, o, d, og, dg, cr, cr_s, fast, exact
+    del renderer, o, d, og, dg, cr, cr_s, fast, exact
+    torch.cuda.empty_cache()
+
+    # ---- sv4 at 3840x2160 (three launches) and 640x480 (fused) on the city -
+    fov_runs = {}
+    for phase, size, kw in (
+        ("fov_slice", FOV_4K, {}),
+        ("fov_fused_slice", FOV_FUSED, dict(fused=True, foveation=FoveationConfig(
+            inner_radius=max(8, 157 * 480 // 2160), outer_radius=max(24, 515 * 480 // 2160),
+            fovea_spp=4))),
+    ):
+        fov = make_foveated_renderer(cs, probe, scenes.city_camera(size["width"], size["height"]),
+                                     **size, **kw, **BENCH_FLAGS)
+        fov_runs[phase] = drive_slice(
+            phase, fov, card, tc.launch_counts, fused=fov.fused, foveation=dataclasses.asdict(fov.fov),
+            zones=zone_lanes(fov))
+        for name in ("cull", "closest", "any"):
+            if fov_runs[phase].get(name, 0) <= 0:
+                raise AssertionError(f"{phase} never launched kernel {name}")
+        profile_frame(phase.replace("slice", "profile"), fov)
+        del fov
+        torch.cuda.empty_cache()
+    del cs, cl, hs
+    foveated_checks(dev)  # the goldens, and fused == three launches
+    torch.cuda.empty_cache()
+
+    # ---- the gather probe (K6) -------------------------------------------
+    g_launches, g_timing = gather_probe_phase(dev, card)
+    launches.update(g_launches)
+    timing["gather"] = g_timing
+    errs["gather"] = g_timing["max_abs_err"]
     torch.cuda.empty_cache()
 
     # ---- the 8.7M-triangle scene (node walk) -------------------------------
@@ -409,7 +609,7 @@ def main() -> int:
     del cr, cr_s, rays8
 
     # ---- times on the big slice's first bounce: node walk vs flat walk -----
-    (o1, d1), (p_hit, wi, t_sh) = first_bounce_and_shadows(renderer, cl, probe, dev)
+    (o1, d1), (p_hit, wi, t_sh), _ = first_bounce_and_shadows(renderer, cl, probe, dev)
     rays8_1 = tc._pack_rays8(cl, o1, d1, cfg.t_min, cfg.t_max)
     cr1 = tc.block_cull_nodes(cl, o1, d1, cfg.t_min, cfg.t_max)
     cr_sh = tc.block_cull_nodes(cl, p_hit, wi, cfg.shadow_t_min, t_sh)
@@ -486,7 +686,7 @@ def main() -> int:
                              f"{hier_launches} node-walk launches")
 
     # ---- the big slice: main path 2 ---------------------------------------
-    big_launches = drive_slice("big_slice", renderer, card, tc.launch_counts)
+    big_launches = drive_slice("big_slice", renderer, card, tc.launch_counts, spp=SPP)
     for name in ("cull", "closest_hier", "any_hier"):
         if big_launches.get(name, 0) <= 0:
             raise AssertionError(f"the big slice never launched kernel {name}")
@@ -495,9 +695,12 @@ def main() -> int:
             raise AssertionError(f"the big slice launched the flat kernel {name}")
     profile_frame("big_profile", renderer)
 
+    for run in (city, *fov_runs.values(), big_launches):
+        for name, k in run.items():
+            launches[name] = launches.get(name, 0) + k
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
-         "launches": launches.get(name, 0) + big_launches.get(name, 0), "max_abs_err": errs[name],
+        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": KERNELS[name],
+         "launches": launches.get(name, 0), "max_abs_err": errs[name],
          "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"]}
         for name in KERNELS
     ]}), flush=True)

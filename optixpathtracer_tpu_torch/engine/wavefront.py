@@ -8,7 +8,7 @@ any-hit shadow sweep, and a Disney BSDF continuation. The RNG is the
 reference's counter-based tea/xorshift stream (core/rng.py), so every lane
 draws the same numbers as the JAX engine.
 
-The options off the main path raise NotImplementedError naming the ROADMAP
+The options not ported yet raise NotImplementedError naming the ROADMAP
 item that ports them (see `_check_supported`).
 """
 from __future__ import annotations
@@ -84,8 +84,6 @@ def _check_supported(cfg: RenderConfig, **extras) -> None:
         f"traversal={cfg.traversal!r}": (cfg.traversal != "cluster", "A 'not to port'"),
         "area_light": (extras.get("area_light") is not None, "A.11"),
         "demand_pool": (extras.get("demand_pool") is not None, "A.11"),
-        "sample_lanes": (extras.get("sample_lanes") is not None, "A.8"),
-        "active_mask": (extras.get("active_mask") is not None, "A.8"),
     }
     for name, (on, item) in off.items():
         if on:
@@ -347,21 +345,32 @@ def trace_wavefront(
 ) -> SampleOutput:
     """Render cfg.samples_per_launch paths for each pixel in the wavefront.
 
-    pixel_x/pixel_y: (N,) int32 pixel coordinates on the render device."""
-    _check_supported(cfg, active_mask=active_mask, area_light=area_light,
-                     sample_lanes=sample_lanes, demand_pool=demand_pool)
+    pixel_x/pixel_y: (N,) int32 pixel coordinates on the render device.
+    active_mask (optional (N,) bool) culls lanes up front (the foveation
+    annulus test): culled lanes trace nothing, add no rays to
+    `rays_traced`, and output the backplate alone.
+
+    sample_lanes (optional (N,) int64 holding uint32 values) is each lane's
+    RNG sample counter, replacing `subframe * spp + sample`: each lane is
+    ONE sample the caller expanded itself (the fused foveation launch), so
+    there is no spp loop and no fold, outputs are per lane (composited at
+    spp 1), and the caller folds lanes back to pixels."""
+    _check_supported(cfg, area_light=area_light, demand_pool=demand_pool)
     dev = pixel_x.device
     n_pix = pixel_x.shape[0]
     spp = cfg.samples_per_launch
-    batch = cfg.batch_spp and spp > 1
+    fused_lanes = sample_lanes is not None
+    batch = cfg.batch_spp and spp > 1 and not fused_lanes
     if batch:
         pixel_x = pixel_x.repeat(spp)
         pixel_y = pixel_y.repeat(spp)
+        if active_mask is not None:
+            active_mask = active_mask.repeat(spp)
         s_lanes = torch.arange(spp, dtype=torch.int64, device=dev).repeat_interleave(n_pix)
         loop_spp = 1
     else:
         s_lanes = None
-        loop_spp = spp
+        loop_spp = 1 if fused_lanes else spp
 
     n = pixel_x.shape[0]
     pix_index = (pixel_y.to(torch.int64) * cfg.width + pixel_x.to(torch.int64)) & M32
@@ -475,14 +484,18 @@ def trace_wavefront(
     rays_total = torch.zeros((), dtype=torch.int64, device=dev)
     backplate = zero
     for s in range(loop_spp):
-        s_eff = s_lanes if s_lanes is not None else s
-        state, o, d = _raygen(cfg, cam, pixel_x, pixel_y, pix_index, (subframe * spp + s_eff) & M32)
+        if fused_lanes:
+            seed_ctr = sample_lanes & M32
+        else:
+            s_eff = s_lanes if s_lanes is not None else s
+            seed_ctr = (subframe * spp + s_eff) & M32
+        state, o, d = _raygen(cfg, cam, pixel_x, pixel_y, pix_index, seed_ctr)
         backplate = probe_eval(probe, *dir_to_uv(d))
 
         path = dict(
             o=o, d=d, throughput=Vec3(zf + 1.0, zf + 1.0, zf + 1.0), eta=zf + 1.0,
             radiance=zero, alpha=zero, normal=zero, albedo=zero,
-            done=no, secondary=no, state=state,
+            done=no if active_mask is None else ~active_mask, secondary=no, state=state,
             rays=torch.zeros((), dtype=torch.int64, device=dev),
             depth_aov=zf, bsdf_pdf=zf + 1.0, prev_delta=no,
         )
@@ -522,7 +535,8 @@ def trace_wavefront(
         depth = fold(depth)
         backplate = Vec3(*(fold(c, mean=True) for c in backplate))
 
-    sppf = float(spp)
+    # fused-lane launches are per-lane single samples: no spp normalisation
+    sppf = 1.0 if fused_lanes else float(spp)
     alpha = alpha / sppf
     normal = normal / sppf
     albedo = albedo / sppf

@@ -1,14 +1,15 @@
 """Model presets over the engine (port of optixpathtracer_tpu/models; the
-`disney_pt` preset only — the others are ROADMAP A.10)."""
+`disney_pt` and `foveated` presets — the others are ROADMAP A.10)."""
 from __future__ import annotations
 
 from ..builder import CompiledScene
 from ..core.camera import Camera
+from ..engine.foveated import FoveatedRenderer, FoveationConfig
 from ..engine.renderer import Renderer
 from ..engine.wavefront import RenderConfig
 from ..lights.probe import Probe
 
-__all__ = ["make_disney_pt_renderer"]
+__all__ = ["make_disney_pt_renderer", "make_foveated_renderer", "PRESETS"]
 
 
 def make_disney_pt_renderer(
@@ -23,3 +24,26 @@ def make_disney_pt_renderer(
     cfg = RenderConfig(width=width, height=height, samples_per_launch=spp,
                        max_depth=max_depth, **overrides)
     return Renderer(cs, probe, cfg, camera)
+
+
+def make_foveated_renderer(
+    cs: CompiledScene, probe: Probe, camera: Camera,
+    width=3840, height=2160, max_depth=4, foveation: FoveationConfig | None = None,
+    fused: bool | None = None, **overrides,
+) -> FoveatedRenderer:
+    """Config 5: sv4 VMV'23 — 3-zone foveation at 3840x2160, depth 4,
+    radii 157/515, zone spp 1/2/8 (SimplePathtracer.cpp:20-21,135-215).
+    fused=True traces all zones in one wavefront launch; None = fused at
+    interactive sizes (width*height <= 1024*768), three launches above. The
+    traversal is "cluster" unless overridden."""
+    if fused is None:
+        fused = width * height <= 1024 * 768
+    overrides.setdefault("traversal", "cluster")
+    cfg = RenderConfig(width=width, height=height, max_depth=max_depth, **overrides)
+    return FoveatedRenderer(cs, probe, cfg, camera, foveation or FoveationConfig(), fused=fused)
+
+
+PRESETS = {
+    "disney_pt": make_disney_pt_renderer,
+    "foveated": make_foveated_renderer,
+}

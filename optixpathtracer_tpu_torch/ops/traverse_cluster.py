@@ -43,6 +43,7 @@ import torch
 from ..bvh.clusters import STORE_ROWS, SUPER, ClusterSet
 from ..core.math import Vec3
 from ..core.rng import M32, as_i32_bits
+from .cuda_build import check_tensor, launch_env, load, raise_on
 
 Tensor = torch.Tensor
 
@@ -208,21 +209,8 @@ def _cull_torch(rays8: Tensor, sph_t: Tensor):
     return torch.cat(keys), torch.cat(los), torch.cat(his), torch.cat(counts)
 
 
-def _check(t: Tensor, name: str, dtype, device, shape=None) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 @functools.cache
 def _lib():
-    from .cuda_build import load
-
     lib = load("traverse_cluster")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.cull_launch.argtypes = [i, p, p, i, i, p, p, p, p, p]
@@ -236,34 +224,21 @@ def _lib():
     return lib
 
 
-def _launch_env(x: Tensor):
-    """(device index, stream handle) for a launch on x's CUDA device."""
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for tensors on {x.device}")
-    idx = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    return idx, torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed with CUDA error {rc}")
-
-
 def cull_blocks(rays8: Tensor, sph_t: Tensor):
     """Kernel K1. Returns (key (NR, S) f32, lo (NR, S) int32, hi, count (NR, 1))."""
     if rays8.device.type == "cpu":
         return _cull_torch(rays8, sph_t)
-    dev_idx, stream = _launch_env(rays8)
+    dev_idx, stream = launch_env(rays8)
     nr = rays8.shape[0] // BLOCK
     m = sph_t.shape[1]
     s = m // SUPER
-    _check(rays8, "rays8", torch.float32, rays8.device, (nr * BLOCK, 8))
-    _check(sph_t, "sph_t", torch.float32, rays8.device, (8, s * SUPER))
+    check_tensor(rays8, "rays8", torch.float32, rays8.device, (nr * BLOCK, 8))
+    check_tensor(sph_t, "sph_t", torch.float32, rays8.device, (8, s * SUPER))
     key = torch.empty((nr, s), dtype=torch.float32, device=rays8.device)
     lo = torch.empty((nr, s), dtype=torch.int32, device=rays8.device)
     hi = torch.empty_like(lo)
     count = torch.empty((nr, 1), dtype=torch.int32, device=rays8.device)
-    _raise_on(_lib().cull_launch(
+    raise_on(_lib().cull_launch(
         dev_idx, rays8.data_ptr(), sph_t.data_ptr(), nr, m, key.data_ptr(),
         lo.data_ptr(), hi.data_ptr(), count.data_ptr(), stream), "cull")
     launch_counts["cull"] += 1
@@ -433,13 +408,13 @@ def _check_sweep(rows: Tensor, xf_inv: Tensor, cr: CullResult, c: int):
     nr, e = cr.ids.shape
     if c > 1024:
         raise ValueError(f"cluster_size {c} exceeds the sweep kernels' 1024 (shared memory)")
-    _check(cr.rays8, "rays8", torch.float32, dev, (nr * BLOCK, 8))
+    check_tensor(cr.rays8, "rays8", torch.float32, dev, (nr * BLOCK, 8))
     for name in ("ids", "bits_lo", "bits_hi", "rowix", "xfix"):
-        _check(getattr(cr, name), name, torch.int32, dev, (nr, e))
-    _check(cr.keys, "keys", torch.float32, dev, (nr, e))
-    _check(cr.count, "count", torch.int32, dev, (nr, 1))
-    _check(xf_inv, "xf_inv", torch.float32, dev, (xf_inv.shape[0], 16))
-    _check(rows, "rows", torch.float32, dev, (rows.shape[0], STORE_ROWS, SUPER * c))
+        check_tensor(getattr(cr, name), name, torch.int32, dev, (nr, e))
+    check_tensor(cr.keys, "keys", torch.float32, dev, (nr, e))
+    check_tensor(cr.count, "count", torch.int32, dev, (nr, 1))
+    check_tensor(xf_inv, "xf_inv", torch.float32, dev, (xf_inv.shape[0], 16))
+    check_tensor(rows, "rows", torch.float32, dev, (rows.shape[0], STORE_ROWS, SUPER * c))
     return nr, e
 
 
@@ -449,12 +424,12 @@ def closest_sweep(rows: Tensor, xf_inv: Tensor, cr: CullResult, c: int):
     if cr.rays8.device.type == "cpu":
         t, tri = _closest_torch(rows, xf_inv, cr, c)
         return t, tri, None
-    dev_idx, stream = _launch_env(cr.rays8)
+    dev_idx, stream = launch_env(cr.rays8)
     nr, e = _check_sweep(rows, xf_inv, cr, c)
     t = torch.empty((nr * BLOCK,), dtype=torch.float32, device=rows.device)
     tri = torch.empty((nr * BLOCK,), dtype=torch.int32, device=rows.device)
     vis = torch.empty((nr,), dtype=torch.int32, device=rows.device)
-    _raise_on(_lib().closest_launch(
+    raise_on(_lib().closest_launch(
         dev_idx, cr.rays8.data_ptr(), cr.ids.data_ptr(), cr.keys.data_ptr(),
         cr.bits_lo.data_ptr(), cr.bits_hi.data_ptr(), cr.rowix.data_ptr(),
         cr.xfix.data_ptr(), cr.count.data_ptr(), xf_inv.data_ptr(), rows.data_ptr(),
@@ -467,10 +442,10 @@ def any_sweep(rows: Tensor, xf_inv: Tensor, cr: CullResult, c: int) -> Tensor:
     """Kernel K3. Returns occ (NB,) int32 (1 = occluded)."""
     if cr.rays8.device.type == "cpu":
         return _any_torch(rows, xf_inv, cr, c)
-    dev_idx, stream = _launch_env(cr.rays8)
+    dev_idx, stream = launch_env(cr.rays8)
     nr, e = _check_sweep(rows, xf_inv, cr, c)
     occ = torch.empty((nr * BLOCK,), dtype=torch.int32, device=rows.device)
-    _raise_on(_lib().any_launch(
+    raise_on(_lib().any_launch(
         dev_idx, cr.rays8.data_ptr(), cr.keys.data_ptr(), cr.bits_lo.data_ptr(),
         cr.bits_hi.data_ptr(), cr.rowix.data_ptr(), cr.xfix.data_ptr(),
         cr.count.data_ptr(), xf_inv.data_ptr(), rows.data_ptr(), nr, e, c,
@@ -675,15 +650,15 @@ def _check_hier_sweep(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCull
     nr, n2 = cr.ids.shape
     if c > 1024:
         raise ValueError(f"cluster_size {c} exceeds the sweep kernels' 1024 (shared memory)")
-    _check(cr.rays8, "rays8", torch.float32, dev, (nr * BLOCK, 8))
-    _check(cr.ids, "ids", torch.int32, dev, (nr, n2))
-    _check(cr.keys, "keys", torch.float32, dev, (nr, n2))
-    _check(cr.count, "count", torch.int32, dev, (nr, 1))
-    _check(nt.erow2, "erow2", torch.int32, dev, (1, n2 * NODE))
-    _check(nt.exf2, "exf2", torch.int32, dev, (1, n2 * NODE))
-    _check(nt.csph, "csph", torch.float32, dev, (n2, 8, NODE * SUPER))
-    _check(xf_inv, "xf_inv", torch.float32, dev, (xf_inv.shape[0], 16))
-    _check(rows, "rows", torch.float32, dev, (rows.shape[0], STORE_ROWS, SUPER * c))
+    check_tensor(cr.rays8, "rays8", torch.float32, dev, (nr * BLOCK, 8))
+    check_tensor(cr.ids, "ids", torch.int32, dev, (nr, n2))
+    check_tensor(cr.keys, "keys", torch.float32, dev, (nr, n2))
+    check_tensor(cr.count, "count", torch.int32, dev, (nr, 1))
+    check_tensor(nt.erow2, "erow2", torch.int32, dev, (1, n2 * NODE))
+    check_tensor(nt.exf2, "exf2", torch.int32, dev, (1, n2 * NODE))
+    check_tensor(nt.csph, "csph", torch.float32, dev, (n2, 8, NODE * SUPER))
+    check_tensor(xf_inv, "xf_inv", torch.float32, dev, (xf_inv.shape[0], 16))
+    check_tensor(rows, "rows", torch.float32, dev, (rows.shape[0], STORE_ROWS, SUPER * c))
     return nr, n2
 
 
@@ -693,12 +668,12 @@ def closest_hier_sweep(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCul
     if cr.rays8.device.type == "cpu":
         t, tri = _closest_hier_torch(rows, xf_inv, nt, cr, c)
         return t, tri, None
-    dev_idx, stream = _launch_env(cr.rays8)
+    dev_idx, stream = launch_env(cr.rays8)
     nr, n2 = _check_hier_sweep(rows, xf_inv, nt, cr, c)
     t = torch.empty((nr * BLOCK,), dtype=torch.float32, device=rows.device)
     tri = torch.empty((nr * BLOCK,), dtype=torch.int32, device=rows.device)
     vis = torch.empty((nr,), dtype=torch.int32, device=rows.device)
-    _raise_on(_lib().closest_hier_launch(
+    raise_on(_lib().closest_hier_launch(
         dev_idx, cr.rays8.data_ptr(), cr.ids.data_ptr(), cr.keys.data_ptr(),
         cr.count.data_ptr(), nt.erow2.data_ptr(), nt.exf2.data_ptr(), nt.csph.data_ptr(),
         xf_inv.data_ptr(), rows.data_ptr(), nr, n2, c, t.data_ptr(), tri.data_ptr(),
@@ -712,10 +687,10 @@ def any_hier_sweep(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullRes
     """Kernel K4b. Returns occ (NB,) int32 (1 = occluded)."""
     if cr.rays8.device.type == "cpu":
         return _any_hier_torch(rows, xf_inv, nt, cr, c)
-    dev_idx, stream = _launch_env(cr.rays8)
+    dev_idx, stream = launch_env(cr.rays8)
     nr, n2 = _check_hier_sweep(rows, xf_inv, nt, cr, c)
     occ = torch.empty((nr * BLOCK,), dtype=torch.int32, device=rows.device)
-    _raise_on(_lib().any_hier_launch(
+    raise_on(_lib().any_hier_launch(
         dev_idx, cr.rays8.data_ptr(), cr.ids.data_ptr(), cr.keys.data_ptr(),
         cr.count.data_ptr(), nt.erow2.data_ptr(), nt.exf2.data_ptr(), nt.csph.data_ptr(),
         xf_inv.data_ptr(), rows.data_ptr(), nr, n2, c, occ.data_ptr(), stream), "any_hier")

@@ -5,7 +5,7 @@
 scale scene (bench.py `build_big_scene`), made from the same seeds with the
 same numpy calls, so they are the same triangle soups. The `open_*` functions are
 the golden setups of tests/golden_scenes.py (`_open_scene`, `_sky_probe`,
-`_cam`/`_cam_s`, `render_disney_open`, `render_disney_open_small`) with the
+`_cam`/`_cam_s`, `render_disney_open*`, `render_foveated*`) with the
 cluster traversal in place of the reference's CPU lockstep backend (both
 are exact).
 """
@@ -17,6 +17,7 @@ from .builder import compile_scene
 from .core.camera import Camera
 from .core.materials import make_material
 from .core.scene import HostScene, Mesh
+from .engine.foveated import FoveatedRenderer, FoveationConfig
 from .engine.renderer import Renderer
 from .engine.wavefront import RenderConfig
 from .lights.probe import build_probe
@@ -186,6 +187,28 @@ def render_open_golden(name: str, device) -> np.ndarray:
                        traversal="cluster")
     r = Renderer(cs, sky_probe(device), cfg, open_camera(w, h))
     r.render_n(frames)
+    return r.accum_image()
+
+
+# golden name -> (width, height, max_depth, frames, (inner, outer) radius)
+FOVEATED_GOLDENS = {
+    "foveated_s": (48, 32, 1, 1, (8, 16)),
+    "foveated": (96, 64, 2, 2, (157, 515)),
+}
+
+
+def render_foveated_golden(name: str, device) -> np.ndarray:
+    """Render a `foveated*` golden setup (tests/golden_scenes.py
+    `render_foveated_small` / `render_foveated`: the open scene, 1 spp
+    config, gaze at the centre); returns the (H, W, 3) accum image."""
+    w, h, depth, frames, (inner, outer) = FOVEATED_GOLDENS[name]
+    cs = compile_scene(open_scene(), device)
+    cfg = RenderConfig(width=w, height=h, samples_per_launch=1, max_depth=depth,
+                       traversal="cluster")
+    r = FoveatedRenderer(cs, sky_probe(device), cfg, open_camera(w, h),
+                         FoveationConfig(inner_radius=inner, outer_radius=outer))
+    for _ in range(frames):
+        r.render()
     return r.accum_image()
 
 

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K4 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K6 against their plain PyTorch versions, on the card.
 
 A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU and skip
 elsewhere. On the card (no jax there, hence no conftest):
@@ -14,6 +14,8 @@ import torch
 
 from optixpathtracer_tpu_torch.bvh.clusters import build_clusters
 from optixpathtracer_tpu_torch.core.math import Vec3
+from optixpathtracer_tpu_torch.ops import gather
+from optixpathtracer_tpu_torch.ops import sc_worklist as sw
 from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
 
 pytestmark = pytest.mark.cuda
@@ -117,3 +119,46 @@ def test_hier_none_takes_the_node_kernels(cuda, monkeypatch):
     assert after["closest_hier"] - before.get("closest_hier", 0) == 1
     assert after["any_hier"] - before.get("any_hier", 0) == 1
     assert after.get("closest", 0) == before.get("closest", 0)
+
+
+# (n, capacity as a fraction of the count, probability of a set flag):
+# one block, several blocks with a ragged edge, and 2M flags (1954 blocks)
+WORKLIST_CASES = [(1000, 2.0, 0.3), (5000, 0.5, 0.5), (70001, 1.0, 0.0), (70001, 0.25, 1.0),
+                  (2_000_000, 1.5, 0.1), (2_000_000, 0.5, 0.6)]
+
+
+@pytest.mark.parametrize("n, cap_frac, p", WORKLIST_CASES)
+def test_compact_kernel_bit_equal_to_plain(cuda, n, cap_frac, p):
+    flags = torch.as_tensor(np.random.default_rng(n).random(n) < p, device=cuda)
+    cap = max(1, int(cap_frac * max(1, int(flags.sum()))))
+    before = sw.launch_counts["compact"]
+    idx, cnt = sw.compact_indices(flags, cap)
+    want_idx, want_cnt = sw.compact_indices_torch(flags, cap)
+    assert torch.equal(idx, want_idx) and torch.equal(cnt, want_cnt)
+    assert sw.launch_counts["compact"] == before + 1
+
+
+@pytest.mark.parametrize("n, cap_frac, p", WORKLIST_CASES)
+def test_pair_worklist_kernel_bit_equal_to_plain(cuda, n, cap_frac, p):
+    r = n // 8
+    b = np.random.default_rng(r).random((r, 32)) < p
+    bits = (b.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(1).astype(np.uint32)
+    words = torch.as_tensor(bits.view(np.int32), device=cuda)
+    cap = max(1, int(cap_frac * max(1, int(b.sum()))))
+    before = sw.launch_counts["pair_worklist"]
+    got = sw.pair_worklist(words, cap)
+    want = sw.pair_worklist_torch(words, cap)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert sw.launch_counts["pair_worklist"] == before + 1
+
+
+@pytest.mark.parametrize("rows, width, n", [(1 << 20, 128, 1 << 16), (5000, 7, 4099), (64, 4, 0)])
+def test_gather_kernel_bit_equal_to_plain(cuda, rows, width, n):
+    rng = np.random.default_rng(rows)
+    table = torch.as_tensor(rng.standard_normal((rows, width)).astype(np.float32), device=cuda)
+    idx = torch.as_tensor(rng.integers(0, rows, n).astype(np.int32), device=cuda)
+    before = gather.launch_counts["gather"]
+    got = gather.gather_rows(table, idx)
+    assert torch.equal(got, gather.gather_rows_torch(table, idx))
+    assert gather.launch_counts["gather"] == before + (n > 0)  # no launch for no rows

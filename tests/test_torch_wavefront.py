@@ -137,10 +137,7 @@ def test_off_slice_options_raise(option, item):
         twf.trace_wavefront(cs, scenes.sky_probe(CPU), cfg, cam, px, py, 0)
 
 
-@pytest.mark.parametrize("extra, item", [
-    ("area_light", "A.11"), ("demand_pool", "A.11"), ("sample_lanes", "A.8"),
-    ("active_mask", "A.8"),
-])
+@pytest.mark.parametrize("extra, item", [("area_light", "A.11"), ("demand_pool", "A.11")])
 def test_off_slice_arguments_raise(extra, item):
     cfg = twf.RenderConfig(width=16, height=8, samples_per_launch=1, max_depth=1,
                            traversal="cluster")
