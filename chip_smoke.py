@@ -29,8 +29,21 @@ port's paths and checks that each went through its kernels:
      exactness gate against the dense oracle, a golden through the node
      walk, the node kernels' and the flat kernels' times on the same rays.
 
+Every kernel timed at the slices' first bounce also gets its bound, the
+least time the card could take for the work these inputs need
+(`kernel_bound` lines): K1-K4 by FP32 operations, the ray-box slab tests
+and ray-triangle pairs `sweep_work` / `sweep_work_hier` count times their
+un-fused op counts, over SMs x 128 lanes x the SM clock's maximum; K5a,
+K5b and K6 by bytes, inputs read once and outputs written once, over
+3.35 TB/s. K5a, K5b and K6 are also timed against one PyTorch call that
+computes the same function (`torch.nonzero`, `torch.nonzero` of the
+transposed bit matrix, `index_select`), which the port never calls.
+
 Every phase prints one JSON line with its seconds; any failure exits
-non-zero. The last line is the device contract:
+non-zero. The `kernels` line gives each kernel's launches on the main
+paths, its ms, its plain version's, bound_ms with bound_by, and library_ms
+(null where no single PyTorch call computes it). The last line is the
+device contract:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 It exits non-zero without a CUDA device, and outside the repository (the
@@ -76,6 +89,8 @@ SOURCES = {  # name -> the CUDA source it is built from
     "pair_worklist": f"{CSRC}/worklist.cu",
     "gather": f"{CSRC}/gather.cu",
 }
+SM_FP32_LANES = 128  # FP32 lanes of one Hopper SM, one un-fused op each per clock
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 _last_emit = [time.perf_counter()]
 
 
@@ -114,6 +129,39 @@ def timed(fn):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1), out
+
+
+def fp32_ops_per_s() -> float:
+    """The card's FP32 issue rate without FMA (the kernels are built with
+    --fmad=false, so every mul and add is one instruction): SMs x 128 lanes
+    x the SM clock's maximum as nvidia-smi prints it."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * SM_FP32_LANES * mhz * 1e6
+
+
+def ops_bound(name, work, peak, ms, **fields):
+    """bound_ms of a kernel from its counted work (a SweepWork), with a line
+    that shows the count."""
+    bound_ms = work.ops / peak * 1e3
+    emit("kernel_bound", kernel=name, **work._asdict(), ops=work.ops, fp32_ops_per_s=peak,
+         ms=ms, bound_ms=bound_ms, share_of_bound=bound_ms / ms, **fields)
+    return dict(bound_ms=bound_ms, bound_by="operations")
+
+
+def bytes_bound(nbytes):
+    """bound_ms of a kernel that must move nbytes of device memory."""
+    return dict(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=nbytes)
+
+
+def cull_work(rays8, sph_t):
+    """K1's work: a slab test of every live ray against every box column."""
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
+    return tc.SweepWork(0, 0, int((rays8[:, 7] > rays8[:, 6]).sum()) * sph_t.shape[1])
 
 
 def _device_us(e) -> float:
@@ -301,6 +349,9 @@ def worklist_vs_plain(hit, cull_lo, card):
         "pair_worklist": (sw.pair_worklist, sw.pair_worklist_torch, words, n_bits),
     }
     caps = {name: (count + 1000, max(1, count // 2)) for name, (_, _, _, count) in cases.items()}
+    # one PyTorch call for each, timed beside the kernel and used nowhere else
+    bit_matrix = ((words.to(torch.int64)[None, :] >> torch.arange(32, device=words.device)[:, None]) & 1) != 0
+    library = {"compact": lambda: torch.nonzero(flags), "pair_worklist": lambda: torch.nonzero(bit_matrix)}
     sw.launch_counts.clear()
     outs = {name: [kern(x, cap) for cap in caps[name]] for name, (kern, _, x, _) in cases.items()}
     torch.cuda.synchronize()
@@ -313,8 +364,12 @@ def worklist_vs_plain(hit, cull_lo, card):
             if int(got[-1]) != count:
                 raise AssertionError(f"{name}: count {int(got[-1])}, expected {count}")
         cap = caps[name][0]
+        # input read once, outputs written once: flags (1 B) or words (4 B),
+        # then capacity int32 indices (K5b: rows and columns) and the count
+        nbytes = x.numel() * x.element_size() + cap * 4 * (1 if name == "compact" else 2) + 4
         timing[name] = dict(ms=cuda_ms(lambda: kern(x, cap), reps=5),
-                            plain_ms=cuda_ms(lambda: plain(x, cap), reps=5), max_abs_err=err)
+                            plain_ms=cuda_ms(lambda: plain(x, cap), reps=5), max_abs_err=err,
+                            library_ms=cuda_ms(library[name], reps=5), **bytes_bound(nbytes))
         emit("worklist_vs_plain", kernel=name, input=("first-bounce hit flags" if name == "compact"
                                                       else "first-bounce cull lo words"),
              n=x.shape[0], count=count, capacities=list(caps[name]), bit_equal=True,
@@ -325,6 +380,8 @@ def worklist_vs_plain(hit, cull_lo, card):
 def gather_probe_phase(dev, card):
     """K6 through the gather probe's entry point (counted), then bit-equal
     to index_select on the probe's 1M indices, and its time at 1M."""
+    import torch
+
     from optixpathtracer_tpu_torch.experiments import gather_probe
     from optixpathtracer_tpu_torch.ops import gather
 
@@ -334,9 +391,13 @@ def gather_probe_phase(dev, card):
     table = gather_probe.probe_table(dev)
     idx = gather_probe.probe_indices(dev, gather_probe.SIZES["1m"])
     err = compare("gather", (gather.gather_rows(table, idx),), (gather.gather_rows_torch(table, idx),))
+    # indices and the distinct rows they name read once, the rows written once
+    width = table.shape[1] * table.element_size()
+    nbytes = idx.numel() * 4 + int(torch.unique(idx).numel()) * width + idx.numel() * width
     timing = dict(ms=cuda_ms(lambda: gather.gather_rows(table, idx), reps=5),
                   plain_ms=cuda_ms(lambda: gather.gather_rows_torch(table, idx), reps=5),
-                  max_abs_err=err)
+                  library_ms=cuda_ms(lambda: torch.index_select(table, 0, idx), reps=5),
+                  max_abs_err=err, **bytes_bound(nbytes))
     emit("gather_probe", table=[gather_probe.N_ROWS, gather_probe.ROW_WIDTH], bit_equal=True,
          launches=launches.get("gather", 0), **rates, **timing, card=card)
     del table, idx
@@ -504,6 +565,12 @@ def main() -> int:
         timing[name] = time_vs_plain(name, kern, plain, nr_full, PLAIN_BUDGET_S,
                                      wavefront="first bounce, 1200x800x2spp", card=card)
         errs[name] = max(errs[name], timing[name]["max_abs_err"])
+    # ---- each kernel's bound on the same rays: the work these inputs need ---
+    peak = fp32_ops_per_s()
+    for name, work in (("cull", cull_work(rays8_1, sph_t)),
+                       ("closest", tc.sweep_work(cl.rows, cl.xf_inv, cr1, c)),
+                       ("any", tc.sweep_work(cl.rows, cl.xf_inv, cr_sh, c, any_hit=True))):
+        timing[name].update(ops_bound(name, work, peak, timing[name]["ms"], card=card), library_ms=None)
 
     # ---- the worklist builders (K5a, K5b) on the first bounce --------------
     wl_launches, wl_timing = worklist_vs_plain(hit1, cr1.bits_lo, card)
@@ -628,6 +695,11 @@ def main() -> int:
                                      wavefront=wf, card=card)
         if name in errs:
             errs[name] = max(errs[name], timing[name]["max_abs_err"])
+    for name, work in (("cull (node table)", cull_work(rays8_1, nt.node_sph_t)),
+                       ("closest_hier", tc.sweep_work_hier(cl.rows, cl.xf_inv, nt, cr1, c)),
+                       ("any_hier", tc.sweep_work_hier(cl.rows, cl.xf_inv, nt, cr_sh, c, any_hit=True))):
+        timing[name].update(ops_bound(name, work, peak, timing[name]["ms"], wavefront=wf, card=card),
+                            library_ms=None)
     # the flat walk on the same rays, kernels and entry points: the data a
     # measured routing threshold needs
     sph_big = tc.sphere_table(cl)
@@ -701,7 +773,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": KERNELS[name],
          "launches": launches.get(name, 0), "max_abs_err": errs[name],
-         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"]}
+         **{k: timing[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         for name in KERNELS
     ]}), flush=True)
     print(smi, flush=True)

@@ -18,18 +18,41 @@
 // min/max propagate NaN like torch.minimum/maximum.
 //
 // What bounds them on the H100. The sweeps are bound by the FP32 issue rate
-// of Moller-Trumbore (about 30 FP32 ops and one IEEE divide per ray-triangle
-// pair that passes the edge tests); the city's triangle rows (74 supers x 16
-// x 2048 f32, 9.7 MB) sit in the 50 MB L2, so device-memory bandwidth is not
-// the limit. The design answers that with one thread per ray: a thread walks
-// its block's near-to-far entries, evaluates only the member clusters its
-// own 16-ray sub-block was culled into, skips a member once its own best hit
-// is nearer than the entry's distance bound, and divides only for pairs that
-// pass the sign tests. The 9 x C rows of a member are staged once into
-// shared memory per block (9 KiB at C = 256) and read as broadcasts. One
-// thread per ray, looping over a cluster's triangles in column order with a
-// strict `<`, reproduces both tie-breaks of the reference: the lowest
+// of Moller-Trumbore (45 un-fused FP32 mul/add/sub before the edge tests,
+// one IEEE divide for the ~0.4 % of pairs that pass them); the city's
+// triangle rows (74 supers x 16 x 2048 f32, 9.7 MB) sit in the 50 MB L2, so
+// device-memory bandwidth is not the limit. The design answers that by
+// evaluating only what a ray needs: a ray walks its block's near-to-far
+// entries, evaluates only the member clusters its own 16-ray sub-block was
+// culled into, skips a member once its own best hit is nearer than the
+// entry's distance bound, and divides only for pairs that pass the sign
+// tests. A ray loops over a cluster's triangles in column order with a
+// strict `<`, which reproduces both tie-breaks of the reference: the lowest
 // column wins within a cluster, the first cluster visited wins across them.
+//
+// K2/K3 stage each member a block visits (9 x C f32, 9 KiB at C = 256) into
+// shared memory with 16-byte cp.async copies and read it four columns at a
+// time: each of the 9 rows as one broadcast float4 (9 LDS.128 per 4
+// triangles instead of 36 LDS.32), the columns still tested one by one in
+// order against the updated best (so C % 4 == 0). A block-wide OR vote per
+// entry (one barrier) finds the next member to stage and carries the early
+// exit: no running ray of the block passes the entry's key gate, and keys
+// ascend. With 8-10 blocks resident per SM, the other blocks' M-T hides one
+// block's copy. Beyond that the two kernels differ, each where the card
+// measured it faster (PERF.md):
+//  K2: two rays per thread (64 threads per 128-ray block), each staged read
+//      serving both, each ray in its own visit order; one staging slot; a
+//      member is staged when a sub-block's cull bit names it.
+//  K3: one ray per thread, since shadow rays stop at different first hits.
+//      A member is staged only when some ray whose sub-block's bit names it
+//      is not yet occluded and passes its key gate (each thread votes its
+//      sub-block's bits; a ray only ever leaves the vote, so a vote taken
+//      early can only add a member). The rays that run a member are packed
+//      onto the first threads (a ballot per warp, one barrier; rays and
+//      occlusion flags in shared memory), so no lane idles for a ray that
+//      is occluded or fails its gate while its warp's others run. A
+//      two-slot ring copies the next member while the block evaluates the
+//      current one.
 // The cull is light (S*8 slab tests per ray); one block of 256 threads owns
 // one 128-ray block, with the 8 members of a supercluster on 8 neighbouring
 // lanes so the per-super min-key and bit packing are warp shuffles.
@@ -44,6 +67,10 @@ constexpr int kSuper = 8;         // clusters per supercluster (entry)
 constexpr int kStoreRows = 16;    // storage rows of the (S, 16, SUPER*C) triangle table
 constexpr int kCullThreads = 256; // 32 supers x 8 members per pass
 constexpr float kBig = 3.0e37f;
+constexpr int kThreadsK2 = kBlock / 2;  // two rays per thread
+constexpr int kThreadsK3 = kBlock;
+constexpr int kSlotsK2 = 1;  // staging slots of 9 x C f32
+constexpr int kSlotsK3 = 2;
 
 __device__ __forceinline__ float max_nan(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
@@ -221,14 +248,12 @@ __device__ __forceinline__ void stage_member(float* __restrict__ s_tri, const fl
   }
 }
 
-// Moller-Trumbore for one ray and triangle column j of the staged member.
-// Returns true and sets t when the pair passes the edge tests; t is then
-// ts * (1/ad) exactly as `_mt_epilogue_lean` computes it.
-__device__ __forceinline__ bool mt(const float* __restrict__ s_tri, int c, int j, const float lo[3],
-                                   const float ld[3], float& t) {
-  const float v0x = s_tri[j], v0y = s_tri[c + j], v0z = s_tri[2 * c + j];
-  const float e1x = s_tri[3 * c + j], e1y = s_tri[4 * c + j], e1z = s_tri[5 * c + j];
-  const float e2x = s_tri[6 * c + j], e2y = s_tri[7 * c + j], e2z = s_tri[8 * c + j];
+// Moller-Trumbore for one ray and one triangle [v0 | e1 | e2]. Returns true
+// and sets t when the pair passes the edge tests; t is then ts * (1/ad)
+// exactly as `_mt_epilogue_lean` computes it.
+__device__ __forceinline__ bool mt9(float v0x, float v0y, float v0z, float e1x, float e1y, float e1z,
+                                    float e2x, float e2y, float e2z, const float lo[3],
+                                    const float ld[3], float& t) {
   const float px = ld[1] * e2z - ld[2] * e2y;
   const float py = ld[2] * e2x - ld[0] * e2z;
   const float pz = ld[0] * e2y - ld[1] * e2x;
@@ -249,122 +274,321 @@ __device__ __forceinline__ bool mt(const float* __restrict__ s_tri, int c, int j
   return true;
 }
 
+// M-T against triangle column j of a member staged as [9][c].
+__device__ __forceinline__ bool mt(const float* __restrict__ s_tri, int c, int j, const float lo[3],
+                                   const float ld[3], float& t) {
+  return mt9(s_tri[j], s_tri[c + j], s_tri[2 * c + j], s_tri[3 * c + j], s_tri[4 * c + j],
+             s_tri[5 * c + j], s_tri[6 * c + j], s_tri[7 * c + j], s_tri[8 * c + j], lo, ld, t);
+}
+
 // ---------------------------------------------------------------------------
-// K2: closest hit. One block per 128-ray block, one thread per ray.
+// The flat-walk staging of K2 / K3.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kBlock)
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// Request member k's 9 x C rows of one super into a staging slot [9][c]:
+// 16-byte copies (C % 4 == 0, so every row is 16-byte aligned), committed
+// by every thread as one group.
+template <int kThreads>
+__device__ __forceinline__ void request_member(float* __restrict__ slot, const float* __restrict__ super_rows,
+                                               int k, int c) {
+  const int c4 = c >> 2;
+  int row = 0, col = threadIdx.x;  // col in float4 units
+  while (col >= c4) col -= c4, ++row;
+  while (row < 9) {
+    cp_async16(slot + row * c + 4 * col, super_rows + (size_t)row * kSuper * c + k * c + 4 * col);
+    col += kThreads;
+    while (col >= c4) col -= c4, ++row;
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait for this thread's copies but the `pending` latest groups (0 or 1).
+__device__ __forceinline__ void wait_copies(int pending) {
+  if (pending) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// OR of the block's 3-word votes; every thread gets it. One barrier: calls
+// alternate between the two rows of s_or, and a call's write can only
+// follow the barrier of the call between it and the last reader of its row.
+template <int kThreads>
+__device__ __forceinline__ void block_or(unsigned (&v)[3], unsigned (*s_or)[3][kThreads / 32], int& row) {
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    v[q] = __reduce_or_sync(0xffffffffu, v[q]);
+    if ((threadIdx.x & 31) == 0) s_or[row][q][threadIdx.x >> 5] = v[q];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    v[q] = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) v[q] |= s_or[row][q][w];
+  }
+  row ^= 1;
+}
+
+// The next member after member k of entry i (k = -1: from the start of the
+// entry) that the block stages, as (entry, member, sub-blocks): the first
+// one the block's vote names; bit s of `sub-blocks` when the vote names the
+// member for sub-block s. vote(key, lo, hi, v) sets this thread's words:
+// v[0] / v[1] the (sub-block, member) bits it stages the entry for, in the
+// layout of lo / hi, and v[2] when one of its rays still runs and passes
+// the key gate. Returns entry n_entries when the walk is over: no ray of
+// the block can reach an entry whose key exceeds every running ray's gate,
+// nor any later one (keys ascend). Every call votes at least once, so its
+// barrier also orders the previous member's reads of a slot before the
+// next copy into it.
+template <int kThreads, class Vote>
+__device__ __forceinline__ int3 next_member(int i, int k, int n_entries, size_t row0,
+                                            const float* __restrict__ keys,
+                                            const uint32_t* __restrict__ bits_lo,
+                                            const uint32_t* __restrict__ bits_hi, Vote vote,
+                                            unsigned (*s_or)[3][kThreads / 32], int& vote_row) {
+  for (; i < n_entries; ++i, k = -1) {
+    unsigned v[3];
+    vote(keys[row0 + i], bits_lo[row0 + i], bits_hi[row0 + i], v);
+    block_or<kThreads>(v, s_or, vote_row);
+    if (!v[2]) break;
+    const uint32_t lw = v[0], hw = v[1];
+    const uint32_t w = lw | hw;
+    const uint32_t members = (w | (w >> 8) | (w >> 16) | (w >> 24)) & (0xffu << (k + 1)) & 0xffu;
+    if (members) {
+      const int m = __ffs(members) - 1;
+      unsigned subs = 0;
+#pragma unroll
+      for (int sb = 0; sb < 4; ++sb)
+        subs |= (((lw >> (sb * 8 + m)) & 1u) << sb) | (((hw >> (sb * 8 + m)) & 1u) << (sb + 4));
+      return make_int3(i, m, (int)subs);
+    }
+  }
+  return make_int3(n_entries, 0, 0);
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// Whether one ray hits a triangle of the staged member in (t_min, t_max),
+// columns in order, stopping at the first hit.
+__device__ __forceinline__ bool member_occludes(const float* __restrict__ s_tri, int c, const Ray& R,
+                                                const float lo[3], const float ld[3]) {
+  const float4* s4 = reinterpret_cast<const float4*>(s_tri);
+  for (int j4 = 0; j4 < (c >> 2); ++j4) {
+    float4 v[9];
+#pragma unroll
+    for (int row = 0; row < 9; ++row) v[row] = s4[row * (c >> 2) + j4];
+    bool hit = false;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float t;
+      hit |= mt9(lane4(v[0], q), lane4(v[1], q), lane4(v[2], q), lane4(v[3], q), lane4(v[4], q),
+                 lane4(v[5], q), lane4(v[6], q), lane4(v[7], q), lane4(v[8], q), lo, ld, t) &&
+             t > R.tmin && t < R.tmax;
+    }
+    if (hit) return true;
+  }
+  return false;
+}
+
+// The walk shared by K2 and K3: the block visits the members its votes
+// name, near to far, through kSlots staging slots, and calls eval(slot, i,
+// k, sub-blocks) for each.
+template <int kThreads, int kSlots, class Vote, class Eval>
+__device__ __forceinline__ void sweep_walk(float* __restrict__ s_tri, int c, int n_entries, size_t row0,
+                                           const float* __restrict__ keys,
+                                           const uint32_t* __restrict__ bits_lo,
+                                           const uint32_t* __restrict__ bits_hi,
+                                           const int* __restrict__ rowix, const float* __restrict__ rows,
+                                           Vote vote, Eval eval) {
+  __shared__ unsigned s_or[2][3][kThreads / 32];
+  int vote_row = 0;
+  const size_t super_stride = (size_t)kStoreRows * kSuper * c;
+  const auto next = [&](int i, int k) {
+    return next_member<kThreads>(i, k, n_entries, row0, keys, bits_lo, bits_hi, vote, s_or, vote_row);
+  };
+  const auto request = [&](float* slot, int3 m) {
+    request_member<kThreads>(slot, rows + rowix[row0 + m.x] * super_stride, m.y, c);
+  };
+  int3 cur = next(0, -1);
+  if (cur.x < n_entries) request(s_tri, cur);
+  int slot = 0;
+  while (cur.x < n_entries) {
+    int3 nxt = make_int3(n_entries, 0, 0);
+    if (kSlots == 2) {  // the ring: request the next member before evaluating this one
+      nxt = next(cur.x, cur.y);
+      if (nxt.x < n_entries) request(s_tri + (slot ^ 1) * 9 * c, nxt);
+    }
+    wait_copies(nxt.x < n_entries);
+    __syncthreads();
+    eval(s_tri + slot * 9 * c, cur.x, cur.y, (unsigned)cur.z);
+    if (kSlots == 1) {
+      nxt = next(cur.x, cur.y);
+      if (nxt.x < n_entries) request(s_tri, nxt);
+    } else {
+      slot ^= 1;
+    }
+    cur = nxt;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2: closest hit. One block of 64 threads per 128-ray block: ray r of
+// thread tid is ray tid + 64 r, so ray 0 lies in sub-blocks 0-3 (the lo
+// word of the cull bits) and ray 1 in sub-blocks 4-7 (the hi word), both at
+// bit (tid / 16) * 8 + member.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreadsK2)
 closest_kernel(const float* __restrict__ rays8, const int* __restrict__ ids,
                const float* __restrict__ keys, const uint32_t* __restrict__ bits_lo,
                const uint32_t* __restrict__ bits_hi, const int* __restrict__ rowix,
                const int* __restrict__ xfix, const int* __restrict__ count,
                const float* __restrict__ xf_inv, const float* __restrict__ rows, int e, int c,
                float* __restrict__ t_out, int* __restrict__ tri_out, int* __restrict__ vis_out) {
-  extern __shared__ float s_tri[];  // [9][c]
-  __shared__ float s_red[kBlock / 32];
+  extern __shared__ float4 s_slots[];  // [9][c]
   __shared__ int s_vis;
 
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const size_t ray = (size_t)b * kBlock + tid;
-  const Ray R = load_ray(rays8, ray);
-  const int sub = tid >> 4;  // 16-ray sub-block
-  const int shift = (sub & 3) * 8;
-  float best = R.tmax;
-  int btri = -1;
+  const int lane = threadIdx.x & 31;
+  const int bit0 = (threadIdx.x >> 4) * 8;
+  Ray R[2];
+  float best[2], lo[2][3], ld[2][3];
+  int btri[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    R[r] = load_ray(rays8, (size_t)b * kBlock + threadIdx.x + r * kThreadsK2);
+    best[r] = R[r].tmax;
+    btri[r] = -1;
+  }
   int vis = 0;
-  if (tid == 0) s_vis = 0;
+  int xf_entry = -1;  // the entry lo/ld belong to
+  if (threadIdx.x == 0) s_vis = 0;
   __syncthreads();
 
-  const int n_entries = count[b];
-  for (int i = 0; i < n_entries; ++i) {
-    const size_t ei = (size_t)b * e + i;
-    const float key = keys[ei];
-    // early exit: every ray's best hit is nearer than the entry's provable
-    // distance lower bound (keys ascend)
-    if (!(key <= block_max(min_nan(best * R.dlen, kBig), s_red))) break;
-    const uint32_t lw = bits_lo[ei], hw = bits_hi[ei];
-    const uint32_t word = sub < 4 ? lw : hw;
-    const int eid = ids[ei];
-    float lo[3], ld[3];
-    xform(R, xf_inv + (size_t)xfix[ei] * 16, lo, ld);
-    const float* super_rows = rows + (size_t)rowix[ei] * kStoreRows * kSuper * c;
-    for (int k = 0; k < kSuper; ++k) {
-      if (!(((lw | hw) >> k) & 0x01010101u)) continue;  // no sub-block needs member k
-      __syncthreads();
-      stage_member(s_tri, super_rows, k, c);
-      __syncthreads();
-      const bool go = ((word >> (shift + k)) & 1u) && key <= min_nan(best * R.dlen, kBig);
-      const unsigned bal = __ballot_sync(0xffffffffu, go);
-      if (lane == 0) vis += ((bal & 0xffffu) != 0) + ((bal >> 16) != 0);
-      if (go) {
-        const int base = (eid * kSuper + k) * c;
-        for (int j = 0; j < c; ++j) {
-          float t;
-          if (mt(s_tri, c, j, lo, ld, t) && t > R.tmin && t < best) {
-            best = t;
-            btri = base + j;
+  const auto gate = [&](int r, float key) { return key <= min_nan(best[r] * R[r].dlen, kBig); };
+  const size_t row0 = (size_t)b * e;
+  sweep_walk<kThreadsK2, kSlotsK2>(
+      reinterpret_cast<float*>(s_slots), c, count[b], row0, keys, bits_lo, bits_hi, rowix, rows,
+      // stage the members some sub-block's cull bit names while a ray runs
+      [&](float key, uint32_t lw, uint32_t hw, unsigned(&v)[3]) {
+        const bool run = gate(0, key) || gate(1, key);
+        v[0] = run ? lw : 0u;
+        v[1] = run ? hw : 0u;
+        v[2] = run;
+      },
+      [&](const float* __restrict__ s_tri, int i, int k, unsigned) {
+        const size_t ei = row0 + i;
+        const float key = keys[ei];
+        const uint32_t word[2] = {bits_lo[ei], bits_hi[ei]};
+        bool go[2], any = false;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          go[r] = ((word[r] >> (bit0 + k)) & 1u) && gate(r, key);
+          const unsigned bal = __ballot_sync(0xffffffffu, go[r]);
+          if (lane == 0) vis += ((bal & 0xffffu) != 0) + ((bal >> 16) != 0);
+          any |= go[r];
+        }
+        if (!any) return;
+        if (i != xf_entry) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) xform(R[r], xf_inv + (size_t)xfix[ei] * 16, lo[r], ld[r]);
+          xf_entry = i;
+        }
+        const int base = (ids[ei] * kSuper + k) * c;
+        const float4* s4 = reinterpret_cast<const float4*>(s_tri);
+        const int c4 = c >> 2;
+        for (int j4 = 0; j4 < c4; ++j4) {
+          float4 v[9];
+#pragma unroll
+          for (int row = 0; row < 9; ++row) v[row] = s4[row * c4 + j4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              float t;
+              if (go[r] &&
+                  mt9(lane4(v[0], q), lane4(v[1], q), lane4(v[2], q), lane4(v[3], q), lane4(v[4], q),
+                      lane4(v[5], q), lane4(v[6], q), lane4(v[7], q), lane4(v[8], q), lo[r], ld[r], t) &&
+                  t > R[r].tmin && t < best[r]) {
+                best[r] = t;
+                btri[r] = base + 4 * j4 + q;
+              }
+            }
           }
         }
-      }
-    }
+      });
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const size_t ray = (size_t)b * kBlock + threadIdx.x + r * kThreadsK2;
+    t_out[ray] = best[r];
+    tri_out[ray] = btri[r];
   }
-  t_out[ray] = best;
-  tri_out[ray] = btri;
   if (lane == 0 && vis) atomicAdd(&s_vis, vis);
   __syncthreads();
-  if (tid == 0) vis_out[b] = s_vis;
+  if (threadIdx.x == 0) vis_out[b] = s_vis;
 }
 
 // ---------------------------------------------------------------------------
-// K3: any hit (occlusion), terminating each ray on its first hit.
+// K3: any hit (occlusion), terminating each ray on its first hit. One block
+// of 128 threads per 128-ray block; a member's running rays are packed onto
+// its first threads.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kThreadsK3)
 any_kernel(const float* __restrict__ rays8, const float* __restrict__ keys,
            const uint32_t* __restrict__ bits_lo, const uint32_t* __restrict__ bits_hi,
            const int* __restrict__ rowix, const int* __restrict__ xfix, const int* __restrict__ count,
            const float* __restrict__ xf_inv, const float* __restrict__ rows, int e, int c,
            int* __restrict__ occ_out) {
-  extern __shared__ float s_tri[];
-  __shared__ float s_red[kBlock / 32];
+  extern __shared__ float4 s_slots[];  // 2 x [9][c]
+  // the block's rays and occlusion flags, for the thread a member's packed
+  // ray lands on, and which rays run the member
+  __shared__ Ray s_ray[kBlock];
+  __shared__ int s_occ[kBlock];
+  __shared__ unsigned s_run[kBlock / 32];
 
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const size_t ray = (size_t)b * kBlock + tid;
-  const Ray R = load_ray(rays8, ray);
-  const int sub = tid >> 4;
-  const int shift = (sub & 3) * 8;
+  const int sub = threadIdx.x >> 4;
+  const Ray R = load_ray(rays8, (size_t)b * kBlock + threadIdx.x);
   const float reach = min_nan(R.tmax * R.dlen, kBig);
-  bool occ = false;
+  s_ray[threadIdx.x] = R;  // the first vote's barrier publishes these before any M-T
+  s_occ[threadIdx.x] = 0;
 
-  const int n_entries = count[b];
-  for (int i = 0; i < n_entries; ++i) {
-    const size_t ei = (size_t)b * e + i;
-    const float key = keys[ei];
-    // occluded rays leave the bound
-    if (!(key <= block_max(occ ? 0.0f : reach, s_red))) break;
-    const uint32_t lw = bits_lo[ei], hw = bits_hi[ei];
-    const uint32_t word = sub < 4 ? lw : hw;
-    float lo[3], ld[3];
-    xform(R, xf_inv + (size_t)xfix[ei] * 16, lo, ld);
-    const float* super_rows = rows + (size_t)rowix[ei] * kStoreRows * kSuper * c;
-    for (int k = 0; k < kSuper; ++k) {
-      if (!(((lw | hw) >> k) & 0x01010101u)) continue;
-      __syncthreads();
-      stage_member(s_tri, super_rows, k, c);
-      __syncthreads();
-      if (!occ && ((word >> (shift + k)) & 1u) && key <= reach) {
-        for (int j = 0; j < c; ++j) {
-          float t;
-          if (mt(s_tri, c, j, lo, ld, t) && t > R.tmin && t < R.tmax) {
-            occ = true;
-            break;
-          }
-        }
-      }
-    }
-  }
-  occ_out[ray] = occ ? 1 : 0;
+  const size_t row0 = (size_t)b * e;
+  // A ray's flag is set by whichever thread ran it; a vote that reads it
+  // before the barrier that follows can only see a ray still running, which
+  // adds a member at most, and every M-T reads the flags after that barrier.
+  sweep_walk<kThreadsK3, kSlotsK3>(
+      reinterpret_cast<float*>(s_slots), c, count[b], row0, keys, bits_lo, bits_hi, rowix, rows,
+      // occluded rays leave the vote and the early exit
+      [&](float key, uint32_t lw, uint32_t hw, unsigned(&v)[3]) {
+        const bool run = !s_occ[threadIdx.x] && key <= reach;
+        const uint32_t mine = run ? (sub < 4 ? lw : hw) & (0xffu << ((sub & 3) * 8)) : 0u;
+        v[0] = sub < 4 ? mine : 0u;
+        v[1] = sub < 4 ? 0u : mine;
+        v[2] = run;
+      },
+      [&](const float* __restrict__ s_tri, int i, int k, unsigned subs) {
+        const size_t ei = row0 + i;
+        // thread t takes the t-th ray of the block that runs member k
+        const bool mine = !s_occ[threadIdx.x] && ((subs >> sub) & 1u) && keys[ei] <= reach;
+        const unsigned bal = __ballot_sync(0xffffffffu, mine);
+        if ((threadIdx.x & 31) == 0) s_run[threadIdx.x >> 5] = bal;
+        __syncthreads();
+        int rank = threadIdx.x, w = 0;
+        while (w < kBlock / 32 - 1 && rank >= __popc(s_run[w])) rank -= __popc(s_run[w++]);
+        if (rank >= __popc(s_run[w])) return;
+        const int ray = w * 32 + (int)__fns(s_run[w], 0, rank + 1);
+        const Ray Rp = s_ray[ray];
+        float lp[3], dp[3];
+        xform(Rp, xf_inv + (size_t)xfix[ei] * 16, lp, dp);
+        if (member_occludes(s_tri, c, Rp, lp, dp)) s_occ[ray] = 1;
+      });
+  __syncthreads();
+  occ_out[(size_t)b * kBlock + threadIdx.x] = s_occ[threadIdx.x];
 }
 
 // ---------------------------------------------------------------------------
@@ -577,12 +801,24 @@ extern "C" int cull_launch(int device, const void* rays8, const void* sph_t, int
   return (int)cudaGetLastError();
 }
 
+// Dynamic shared memory of K2/K3 (the staging slots), opted in to, since it
+// passes the default 48 KiB from C = 683 on (72 KiB at C = 1024). C must be
+// a multiple of 4.
+template <class Kernel>
+static int sweep_smem(Kernel kernel, int slots, int c, size_t* bytes) {
+  if (c <= 0 || c % 4) return (int)cudaErrorInvalidValue;
+  *bytes = (size_t)slots * 9 * c * sizeof(float);
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
+}
+
 extern "C" int closest_launch(int device, const void* rays8, const void* ids, const void* keys,
                               const void* lo, const void* hi, const void* rowix, const void* xfix,
                               const void* count, const void* xf_inv, const void* rows, int nr, int e,
                               int c, void* t_out, void* tri_out, void* vis_out, void* stream) {
   cudaSetDevice(device);
-  closest_kernel<<<nr, kBlock, 9 * c * sizeof(float), (cudaStream_t)stream>>>(
+  size_t smem;
+  if (const int rc = sweep_smem(closest_kernel, kSlotsK2, c, &smem)) return rc;
+  closest_kernel<<<nr, kThreadsK2, smem, (cudaStream_t)stream>>>(
       (const float*)rays8, (const int*)ids, (const float*)keys, (const uint32_t*)lo,
       (const uint32_t*)hi, (const int*)rowix, (const int*)xfix, (const int*)count,
       (const float*)xf_inv, (const float*)rows, e, c, (float*)t_out, (int*)tri_out, (int*)vis_out);
@@ -594,7 +830,9 @@ extern "C" int any_launch(int device, const void* rays8, const void* keys, const
                           const void* xf_inv, const void* rows, int nr, int e, int c, void* occ_out,
                           void* stream) {
   cudaSetDevice(device);
-  any_kernel<<<nr, kBlock, 9 * c * sizeof(float), (cudaStream_t)stream>>>(
+  size_t smem;
+  if (const int rc = sweep_smem(any_kernel, kSlotsK3, c, &smem)) return rc;
+  any_kernel<<<nr, kThreadsK3, smem, (cudaStream_t)stream>>>(
       (const float*)rays8, (const float*)keys, (const uint32_t*)lo, (const uint32_t*)hi,
       (const int*)rowix, (const int*)xfix, (const int*)count, (const float*)xf_inv,
       (const float*)rows, e, c, (int*)occ_out);

@@ -29,7 +29,9 @@ Each kernel has a plain PyTorch version here (`_cull_torch`,
 with the same arithmetic, op for op. A wrapper takes the plain version for
 CPU tensors and launches its CUDA kernel (csrc/traverse_cluster.cu) for
 CUDA tensors, or raises; there is no fallback from one to the other.
-`launch_counts` counts kernel launches.
+`launch_counts` counts kernel launches. `sweep_work` / `sweep_work_hier`
+count the ray-triangle pairs and slab tests the sweeps' inputs need, the
+operand of each kernel's compute bound.
 """
 from __future__ import annotations
 
@@ -403,11 +405,80 @@ def _any_torch(rows: Tensor, xf_inv: Tensor, cr: CullResult, c: int):
     return occ.to(torch.int32)
 
 
+class SweepWork(NamedTuple):
+    """The work a sweep's inputs need, counted by `sweep_work` /
+    `sweep_work_hier`: the operand of each kernel's compute bound."""
+
+    pairs: int  # ray-triangle pairs a running ray evaluates (any-hit: up to
+    #   and including its first hit in the member's column order)
+    visits: int  # executed (16-ray sub-block, member) visits: Σ vis of K2/K4a
+    slab_tests: int = 0  # ray-box slab tests of the node walk's re-cull
+    lane_pairs: int = 0  # pairs at sub-block granularity: per visit, 16 lanes x
+    #   the columns its longest-running ray needs (C for closest-hit)
+
+    @property
+    def ops(self) -> int:
+        return self.pairs * MT_OPS + self.slab_tests * SLAB_OPS
+
+
+MT_OPS = 45  # FP32 mul/add/sub of one M-T pair up to its edge tests (un-fused; the
+#   divide runs only for the ~0.4 % of pairs that pass them and is not counted)
+SLAB_OPS = 24  # FP32 sub/mul/add/min/max of one ray-box slab test (K1, the re-cull)
+
+
+def _run_visit(work: list, go, ok, t, tm, tM, ray_idx, best, occ, c: int, any_hit: bool):
+    """One (block, sub-block) visit of `sweep_work` / `sweep_work_hier`: the
+    closest-hit (best) or any-hit (occ) epilogue for the running rays `go`
+    (P, 16), and their work added to work = [pairs, visits, slab tests,
+    lane pairs]."""
+    if any_hit:
+        hit = ok & (t > tm) & (t < tM)
+        first = torch.where(hit, torch.arange(c, device=hit.device), c).amin(dim=-1)
+        cols = torch.where(go, torch.clamp(first + 1, max=c), 0)  # up to the first hit
+        occ[ray_idx] = occ[ray_idx] | (go & hit.any(dim=-1))
+    else:
+        cur = best[ray_idx]
+        cols = go * c
+        tbest = torch.where(ok & (t > tm) & (t < cur[..., None]), t, BIG_T).amin(dim=-1)
+        best[ray_idx] = torch.where(go & (tbest < cur), tbest, cur)
+    work[0] += int(cols.sum())
+    work[1] += int(go.any(dim=1).sum())
+    work[3] += int(cols.amax(dim=1).sum()) * (BLOCK // 8)
+
+
+def sweep_work(rows: Tensor, xf_inv: Tensor, cr: CullResult, c: int, any_hit: bool = False):
+    """SweepWork of K2 (any_hit=False) or K3 on a CullResult: `_walk` with
+    the kernels' per-ray gate applied in their visit order. A ray runs a
+    member when its sub-block's bit is set and its key gate passes (K2:
+    key <= best * |d|, with best as the member's turn finds it; K3: not yet
+    occluded and key <= t_max * |d|); a sub-block visit counts when one of
+    its 16 rays runs. Pairs of K2 are C per running ray; those of K3 stop at
+    the ray's first hit."""
+    best = cr.rays8[:, 7].clone()
+    occ = torch.zeros(best.shape, dtype=torch.bool, device=best.device)
+    dlen = _dlen(cr.rays8)
+    reach = torch.clamp(best * dlen, max=_BIG)
+    work = [0, 0, 0, 0]  # pairs, visits, slab tests, lane pairs
+
+    def visit(ray_idx, tm, tM, det, up, vp, tp, blk, i, k):
+        key = cr.keys[blk, i][:, None]
+        if any_hit:
+            go = ~occ[ray_idx] & (key <= reach[ray_idx])
+        else:
+            go = key <= torch.clamp(best[ray_idx] * dlen[ray_idx], max=_BIG)
+        _run_visit(work, go, *_mt_t(det, up, vp, tp), tm, tM, ray_idx, best, occ, c, any_hit)
+
+    _walk(rows, xf_inv, cr, c, visit)
+    return SweepWork(*work)
+
+
 def _check_sweep(rows: Tensor, xf_inv: Tensor, cr: CullResult, c: int):
     dev = cr.rays8.device
     nr, e = cr.ids.shape
     if c > 1024:
         raise ValueError(f"cluster_size {c} exceeds the sweep kernels' 1024 (shared memory)")
+    if c % 4:
+        raise ValueError(f"cluster_size {c} is not a multiple of 4 (the sweeps read 4 columns at once)")
     check_tensor(cr.rays8, "rays8", torch.float32, dev, (nr * BLOCK, 8))
     for name in ("ids", "bits_lo", "bits_hi", "rowix", "xfix"):
         check_tensor(getattr(cr, name), name, torch.int32, dev, (nr, e))
@@ -415,6 +486,8 @@ def _check_sweep(rows: Tensor, xf_inv: Tensor, cr: CullResult, c: int):
     check_tensor(cr.count, "count", torch.int32, dev, (nr, 1))
     check_tensor(xf_inv, "xf_inv", torch.float32, dev, (xf_inv.shape[0], 16))
     check_tensor(rows, "rows", torch.float32, dev, (rows.shape[0], STORE_ROWS, SUPER * c))
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must start on a 16-byte boundary (the sweeps copy 16-byte words)")
     return nr, e
 
 
@@ -538,16 +611,17 @@ def _node_recull(r: Tensor, tcur: Tensor, nsph: Tensor) -> Tensor:
 
 
 def _walk_hier(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullResult, c: int,
-               tcur_of, bound_of, visit):
+               tcur_of, bound_of, visit, on_recull=None):
     """Shared plain walk of `_closest_hier_torch` / `_any_hier_torch`.
 
     For each sorted node position i, the blocks still walking (i < count and
     key <= the block's bound, as the kernels' early exit) re-cull their rays
-    against the node's 64 cluster boxes on [t_min, tcur_of()]. Then for each
-    cluster column j = k2*SUPER + k in order, every (block, 16-ray
-    sub-block) pair holding a ray whose bit j is set gets M-T against the
-    member's C triangles, and `visit(ray_idx, gate, tm, tM, det, up, vp, tp,
-    cid)` applies the epilogue to the rays with `gate` set."""
+    against the node's 64 cluster boxes on [t_min, tcur_of()]
+    (`on_recull(rays, tcur)` sees each such (nl, B, 8) / (nl, B) batch).
+    Then for each cluster column j = k2*SUPER + k in order, every (block,
+    16-ray sub-block) pair holding a ray whose bit j is set gets M-T against
+    the member's C triangles, and `visit(ray_idx, gate, tm, tM, det, up, vp,
+    tp, cid)` applies the epilogue to the rays with `gate` set."""
     sb = BLOCK // 8
     nr, n2 = cr.ids.shape
     dev = cr.rays8.device
@@ -563,6 +637,8 @@ def _walk_hier(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullResult,
             break
         nid = cr.ids[live, i].to(torch.int64)
         tcur = tcur_of().reshape(nr, BLOCK)
+        if on_recull is not None:
+            on_recull(rays[live], tcur[live])
         hit = torch.cat([
             _node_recull(rays[live[b0 : b0 + recull_chunk]], tcur[live[b0 : b0 + recull_chunk]],
                          nt.csph[nid[b0 : b0 + recull_chunk]])
@@ -643,6 +719,35 @@ def _any_hier_torch(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullRe
 
     _walk_hier(rows, xf_inv, nt, cr, c, lambda: torch.where(occ, tm_all, tM_all), bound, visit)
     return occ.to(torch.int32)
+
+
+def sweep_work_hier(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullResult, c: int,
+                    any_hit: bool = False) -> SweepWork:
+    """SweepWork of K4a (any_hit=False) or K4b on a NodeCullResult: `_walk_hier`
+    with the kernels' gates. Each node a block visits re-culls its rays still
+    open (t_min < t) against 64 boxes; a ray runs a cluster its re-cull bit
+    names (K4b: while not occluded), with pairs counted as in `sweep_work`."""
+    best = cr.rays8[:, 7].clone()
+    occ = torch.zeros(best.shape, dtype=torch.bool, device=best.device)
+    tm_all, tM_all = cr.rays8[:, 6], cr.rays8[:, 7]
+    dlen = _dlen(cr.rays8)
+    work = [0, 0, 0, 0]  # pairs, visits, slab tests, lane pairs
+
+    def bound():
+        if any_hit:
+            return torch.where(occ, 0.0, torch.clamp(tM_all * dlen, max=_BIG)).reshape(-1, BLOCK).amax(dim=1)
+        return torch.clamp(best * dlen, max=_BIG).reshape(-1, BLOCK).amax(dim=1)
+
+    def on_recull(rays, tcur):
+        work[2] += int((tcur > rays[:, :, 6]).sum()) * NODE * SUPER
+
+    def visit(ray_idx, gate, tm, tM, det, up, vp, tp, cid):
+        go = gate & ~occ[ray_idx] if any_hit else gate
+        _run_visit(work, go, *_mt_t(det, up, vp, tp), tm, tM, ray_idx, best, occ, c, any_hit)
+
+    tcur_of = (lambda: torch.where(occ, tm_all, tM_all)) if any_hit else (lambda: best)
+    _walk_hier(rows, xf_inv, nt, cr, c, tcur_of, bound, visit, on_recull)
+    return SweepWork(*work)
 
 
 def _check_hier_sweep(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullResult, c: int):

@@ -45,7 +45,7 @@ def _scene_and_rays(device, cluster_size, n=4096, seed=0, t=3000):
     return cs, v3(o), v3(d), torch.as_tensor(t_max, device=device)
 
 
-@pytest.mark.parametrize("cluster_size", [64, 256])
+@pytest.mark.parametrize("cluster_size", [60, 64, 256, 1024])  # 1024: K2/K3's slots opt in above 48 KiB
 def test_kernels_bit_equal_to_plain(cuda, cluster_size):
     cs, o, d, t_max = _scene_and_rays(cuda, cluster_size)
     rays8 = tc._pack_rays8(cs, o, d, 1e-3, t_max)
@@ -64,6 +64,89 @@ def test_kernels_bit_equal_to_plain(cuda, cluster_size):
     assert after["cull"] - before.get("cull", 0) == 2  # cull_blocks + block_cull
     assert after["closest"] - before.get("closest", 0) == 1
     assert after["any"] - before.get("any", 0) == 1
+
+
+@pytest.mark.parametrize("cluster_size", [64, 256])
+def test_closest_visits_equal_sweep_work(cuda, cluster_size):
+    cs, o, d, t_max = _scene_and_rays(cuda, cluster_size, seed=4)
+    cr = tc.block_cull(cs, o, d, 1e-3, t_max)
+    _, _, vis = tc.closest_sweep(cs.rows, cs.xf_inv, cr, cluster_size)
+    assert int(vis.sum()) == tc.sweep_work(cs.rows, cs.xf_inv, cr, cluster_size).visits > 0
+
+
+def _v3(a, device):
+    return Vec3(*(torch.as_tensor(np.ascontiguousarray(a[:, i]), device=device) for i in range(3)))
+
+
+def _sweeps_equal_plain(cs, cr, c):
+    t_k, tri_k, vis = tc.closest_sweep(cs.rows, cs.xf_inv, cr, c)
+    t_p, tri_p = tc._closest_torch(cs.rows, cs.xf_inv, cr, c)
+    assert torch.equal(t_k, t_p) and torch.equal(tri_k, tri_p)
+    assert torch.equal(tc.any_sweep(cs.rows, cs.xf_inv, cr, c), tc._any_torch(cs.rows, cs.xf_inv, cr, c))
+    return tri_k, vis
+
+
+def test_sweeps_keep_the_tie_breaks_on_exact_t_ties(cuda):
+    # a 32 x 32 grid of unit quads at y = 0 (two triangles on a shared
+    # diagonal), laid down twice: the copy sits in other clusters and entries,
+    # so every hit ties exactly on t with its copy; rays straight down onto
+    # grid vertices and edge midpoints also tie across shared edges
+    g, c = 32, 64
+    tris = []
+    for i in range(g):
+        for j in range(g):
+            a, b, e, f = (i, 0, j), (i + 1, 0, j), (i, 0, j + 1), (i + 1, 0, j + 1)
+            tris += [(a, b, e), (b, f, e)]
+    v = np.asarray(tris + tris, np.float32)
+    cs = build_clusters(v[:, 0], v[:, 1], v[:, 2], len(v), cuda, cluster_size=c)
+    rng = np.random.default_rng(6)
+    n = 4096
+    pts = rng.integers(0, 2 * g + 1, (n, 2)) / 2.0
+    o = np.stack([pts[:, 0], np.full(n, 5.0), pts[:, 1]], 1).astype(np.float32)
+    d = np.tile(np.float32([0, -1, 0]), (n, 1))
+    tilt = n // 2  # the second half oblique
+    d[tilt:] += rng.normal(0, 0.3, (n - tilt, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    cr = tc.block_cull(cs, _v3(o, cuda), _v3(d, cuda), 1e-3, 1e16)
+    tri, _ = _sweeps_equal_plain(cs, cr, c)
+    assert int((tri[:tilt] >= 0).sum()) == tilt  # every straight ray lands on the grid
+
+
+def test_sweeps_skip_members_no_ray_can_run(cuda):
+    # three walls of 512 triangles (one entry each at c = 64) at z = 0, 10,
+    # 20; every ray meets the first, whose hit closes the key gate of the
+    # other two though their cull bits are set
+    c = 64
+    tris = []
+    for z in (0.0, 10.0, 20.0):
+        for i in range(16):
+            for j in range(16):
+                a, b, e, f = (i - 8, j - 8, z), (i - 7, j - 8, z), (i - 8, j - 7, z), (i - 7, j - 7, z)
+                tris += [(a, b, e), (b, f, e)]
+    v = np.asarray(tris, np.float32)
+    cs = build_clusters(v[:, 0], v[:, 1], v[:, 2], len(v), cuda, cluster_size=c)
+    rng = np.random.default_rng(7)
+    n = 4096
+    o = np.concatenate([rng.uniform(-2, 2, (n, 2)), np.full((n, 1), -5.0)], 1).astype(np.float32)
+    d = (np.float32([0, 0, 1]) + rng.normal(0, 0.02, (n, 3))).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    cr = tc.block_cull(cs, _v3(o, cuda), _v3(d, cuda), 1e-3, 1e16)
+    tri, vis = _sweeps_equal_plain(cs, cr, c)
+    assert bool((tri >= 0)[:n].all())
+    live = torch.arange(cr.ids.shape[1], device=cuda)[None] < cr.count
+    words = torch.stack([cr.bits_lo, cr.bits_hi]).to(torch.int64) & 0xFFFFFFFF
+    scheduled = int(sum(((words >> b) & 1)[:, live].sum() for b in range(32)))
+    work = tc.sweep_work(cs.rows, cs.xf_inv, cr, c)
+    assert int(vis.sum()) == work.visits < scheduled
+
+
+def test_sweeps_refuse_a_cluster_size_not_a_multiple_of_4(cuda):
+    cs, o, d, t_max = _scene_and_rays(cuda, 62, n=256)
+    cr = tc.block_cull(cs, o, d, 1e-3, t_max)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tc.closest_sweep(cs.rows, cs.xf_inv, cr, 62)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tc.any_sweep(cs.rows, cs.xf_inv, cr, 62)
 
 
 def test_closest_hit_matches_oracle(cuda):
@@ -98,6 +181,7 @@ def test_hier_kernels_bit_equal_to_plain(cuda, cluster_size, n_tris):
     t_p, tri_p = tc._closest_hier_torch(cs.rows, cs.xf_inv, nt, cr, cluster_size)
     assert torch.equal(t_k, t_p) and torch.equal(tri_k, tri_p)
     assert int(vis.sum()) > 0 and int((tri_k >= 0).sum()) > 0
+    assert int(vis.sum()) == tc.sweep_work_hier(cs.rows, cs.xf_inv, nt, cr, cluster_size).visits
     occ_k = tc.any_hier_sweep(cs.rows, cs.xf_inv, nt, cr, cluster_size)
     assert torch.equal(occ_k, tc._any_hier_torch(cs.rows, cs.xf_inv, nt, cr, cluster_size))
     assert int(occ_k.sum()) > 0

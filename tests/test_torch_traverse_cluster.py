@@ -231,6 +231,79 @@ def test_interop_round_trip():
     assert interop.probe_arrays(mine)["rgbp"].shape == (32, 4)
 
 
+def _two_entry_scene(c=4):
+    """Two entries of 8 clusters of c triangles. The ray from (1.5, 1.5, 0)
+    along +z meets cluster 0 (column 1 at z = 5, column 3 at z = 5.5;
+    columns 0 and 2 lie beside it) and cluster 8 (every column, z = 20);
+    clusters 1-7 and 9-15 lie far beside it."""
+    def tri(x, y, z, size=2.0):
+        return [(x, y, z), (x + size, y, z), (x, y + size, z)]
+
+    tris = []
+    for cl in range(2 * tc.SUPER):
+        for j in range(c):
+            if cl == 0:
+                tris.append(tri(1.0, 1.0, 5.0) if j == 1 else tri(1.0, 1.0, 5.5) if j == 3
+                            else tri(3.0, 3.0, 5.0))
+            elif cl == tc.SUPER:
+                tris.append(tri(1.0, 1.0, 20.0 + j))
+            else:
+                tris.append(tri(50.0 + cl, 50.0, 5.0 if cl < tc.SUPER else 20.0))
+    v = np.asarray(tris, np.float32)
+    cs = build_clusters(v[:, 0], v[:, 1], v[:, 2], len(tris), CPU, cluster_size=c)
+    o = Vec3(*(torch.tensor([x]) for x in (1.5, 1.5, 0.0)))
+    d = Vec3(*(torch.tensor([x]) for x in (0.0, 0.0, 1.0)))
+    return cs, o, d
+
+
+def _scheduled_bits(cr):
+    """(sub-block, member) cull bits of every block's surviving entries."""
+    live = torch.arange(cr.ids.shape[1])[None] < cr.count
+    words = torch.stack([cr.bits_lo, cr.bits_hi]).to(torch.int64) & 0xFFFFFFFF
+    return int(sum(((words >> b) & 1)[:, live].sum() for b in range(32)))
+
+
+def test_sweep_work_counts_a_hand_built_walk():
+    cs, o, d = _two_entry_scene()
+    cr = tc.block_cull(cs, o, d, 1e-3, 1e16)
+    assert int(cr.count[0, 0]) == 2 and int(cr.count.sum()) == 2
+    assert _scheduled_bits(cr) == 2  # sub-block 0 x clusters 0 and 8
+    t, tri = tc._closest_torch(cs.rows, cs.xf_inv, cr, 4)
+    assert float(t[0]) == 5.0 and int(tri[0]) == 1
+    # closest: cluster 0 sets best = 5, so entry 1 (key ~20) fails the gate
+    # (the visit's 16 lanes issue the 4 columns: 64 lane pairs)
+    assert tc.sweep_work(cs.rows, cs.xf_inv, cr, 4) == tc.SweepWork(4, 1, lane_pairs=64)
+    # any-hit: column 1 occludes, after 2 columns; entry 1 is never run
+    assert tc.sweep_work(cs.rows, cs.xf_inv, cr, 4, any_hit=True) == tc.SweepWork(2, 1, lane_pairs=32)
+    assert tc.SweepWork(4, 1).ops == 4 * tc.MT_OPS
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_sweep_work_within_the_cull_bits(random_scene, any_hit):
+    _, pcs = random_scene
+    _, _, to, td = _random_rays(np.random.default_rng(8), 512)
+    cr = tc.block_cull(pcs, to, td, 1e-2 if any_hit else 1e-3, 6.0)
+    work = tc.sweep_work(pcs.rows, pcs.xf_inv, cr, pcs.cluster_size, any_hit=any_hit)
+    bits = _scheduled_bits(cr)
+    assert 0 < work.visits <= bits
+    assert 0 < work.pairs <= work.lane_pairs <= work.visits * (tc.BLOCK // 8) * pcs.cluster_size
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_sweep_work_hier_within_the_node_walk(random_scene, any_hit):
+    _, pcs = random_scene
+    _, _, to, td = _random_rays(np.random.default_rng(9), 512)
+    cr = tc.block_cull_nodes(pcs, to, td, 1e-3, 6.0)
+    nt = pcs.node_tables
+    work = tc.sweep_work_hier(pcs.rows, pcs.xf_inv, nt, cr, pcs.cluster_size, any_hit=any_hit)
+    # each visited node re-culls at most its block's 128 rays against 64 boxes
+    assert 0 < work.slab_tests <= int(cr.count.sum()) * tc.BLOCK * tc.NODE * tc.SUPER
+    assert work.slab_tests % (tc.NODE * tc.SUPER) == 0
+    assert 0 < work.visits
+    assert 0 < work.pairs <= work.lane_pairs <= work.visits * (tc.BLOCK // 8) * pcs.cluster_size
+    assert work.ops == work.pairs * tc.MT_OPS + work.slab_tests * tc.SLAB_OPS
+
+
 def test_kernel_dispatch_has_no_fallback(random_scene):
     _, pcs = random_scene
     _, _, to, td = _random_rays(np.random.default_rng(7), 64)
