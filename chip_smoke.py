@@ -27,7 +27,9 @@ port's paths and checks that each went through its kernels:
      (`build_big_scene` at BIG8X_TERRAIN_GRID, 4239 entries: hier=None
      routes it to the node walk: cull, closest_hier, any_hier), with the
      exactness gate against the dense oracle, a golden through the node
-     walk, the node kernels' and the flat kernels' times on the same rays.
+     walk, the node kernels' and the flat kernels' times on the same rays,
+     and the node sweeps again on the slice's second bounce (a diffuse
+     direction from each first-bounce hit, and its shadow rays).
 
 Every kernel timed at the slices' first bounce also gets its bound, the
 least time the card could take for the work these inputs need
@@ -35,9 +37,12 @@ least time the card could take for the work these inputs need
 and ray-triangle pairs `sweep_work` / `sweep_work_hier` count times their
 un-fused op counts, over SMs x 128 lanes x the SM clock's maximum; K5a,
 K5b and K6 by bytes, inputs read once and outputs written once, over
-3.35 TB/s. K5a, K5b and K6 are also timed against one PyTorch call that
-computes the same function (`torch.nonzero`, `torch.nonzero` of the
-transposed bit matrix, `index_select`), which the port never calls.
+3.35 TB/s. The node sweeps get both: the bytes are the rays, the node
+tables and 9 x C f32 for every member a block must stage, and the larger
+time is the bound. K5a, K5b and K6 are also timed against one PyTorch call
+that computes the same function (`torch.nonzero`, `torch.nonzero` of the
+transposed bit matrix, `index_select`), which the port never calls; K5a
+and K5b in turns with it over 200 calls each, with a verdict.
 
 Every phase prints one JSON line with its seconds; any failure exits
 non-zero. The `kernels` line gives each kernel's launches on the main
@@ -67,6 +72,7 @@ GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
 RMSE_TOL = 2e-3  # tests/test_goldens.py
 PLAIN_BUDGET_S = 60.0  # time a plain version at the slice shape within this
 HIER_PLAIN_BUDGET_S = 30.0  # the same for the node walk's plain versions
+TURN_CALLS = 200  # calls of a worklist kernel and of its library call, in turns
 WIDTH, HEIGHT, SPP, DEPTH = 1200, 800, 2, 4
 BENCH_FLAGS = dict(sort_rays=True, batch_spp=True, nee_final_bounce=False)
 FOV_4K = dict(width=3840, height=2160)  # the sv4 preset's defaults: depth 4, radii 157/515
@@ -143,13 +149,33 @@ def fp32_ops_per_s() -> float:
     return torch.cuda.get_device_properties(0).multi_processor_count * SM_FP32_LANES * mhz * 1e6
 
 
-def ops_bound(name, work, peak, ms, **fields):
+def work_bound(name, work, peak, ms, nbytes=None, **fields):
     """bound_ms of a kernel from its counted work (a SweepWork), with a line
-    that shows the count."""
-    bound_ms = work.ops / peak * 1e3
+    that shows the count: its operations over the card's rate and, where
+    nbytes is given, the bytes it must move over the memory rate; the larger
+    of the two is the bound."""
+    out = dict(bound_ms=work.ops / peak * 1e3, bound_by="operations")
+    both = {}
+    if nbytes is not None:
+        both = dict(bytes=nbytes, ops_bound_ms=out["bound_ms"],
+                    bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        if both["bytes_bound_ms"] > out["bound_ms"]:
+            out = dict(bound_ms=both["bytes_bound_ms"], bound_by="bytes")
     emit("kernel_bound", kernel=name, **work._asdict(), ops=work.ops, fp32_ops_per_s=peak,
-         ms=ms, bound_ms=bound_ms, share_of_bound=bound_ms / ms, **fields)
-    return dict(bound_ms=bound_ms, bound_by="operations")
+         ms=ms, **out, **both, share_of_bound=out["bound_ms"] / ms,
+         lane_pairs_per_pair=work.lane_pairs / work.pairs if work.pairs else None, **fields)
+    return out
+
+
+def hier_bytes(work, cr, c, any_hit):
+    """Bytes a node sweep must move for the work `sweep_work_hier` counted:
+    the rays, each visited node's id, key and six box rows, 9 x C f32 per
+    member a block stages, and the outputs (t and tri per ray and vis per
+    block, or occ per ray)."""
+    nr = cr.ids.shape[0]
+    rays = cr.rays8.numel() * 4
+    out = cr.rays8.shape[0] * 4 if any_hit else cr.rays8.shape[0] * 8 + nr * 4
+    return rays + work.nodes * 8 + work.staged_bytes(c) + out
 
 
 def bytes_bound(nbytes):
@@ -162,6 +188,40 @@ def cull_work(rays8, sph_t):
     from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
 
     return tc.SweepWork(0, 0, int((rays8[:, 7] > rays8[:, 6]).sum()) * sph_t.shape[1])
+
+
+def in_turns(kern, library, calls):
+    """Device ms of kern() and library(), each call between its own events,
+    taken in turns (the order swaps every turn) after a warm-up of each:
+    median and 10-90 % range of both, and the verdict on the kernel:
+    "faster" or "slower" when its median lies outside the library call's
+    10-90 % range and the library's median outside the kernel's, else
+    "equal within spread"."""
+    import torch
+
+    fns = (kern, library)
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    spans = ([], [])
+    for turn in range(calls):
+        for which in ((0, 1) if turn % 2 == 0 else (1, 0)):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fns[which]()
+            e1.record()
+            spans[which].append((e0, e1))
+    torch.cuda.synchronize()
+    stats = []
+    for pairs in spans:
+        ms = np.asarray([e0.elapsed_time(e1) for e0, e1 in pairs])
+        stats.append(dict(median=float(np.median(ms)), p10=float(np.percentile(ms, 10)),
+                          p90=float(np.percentile(ms, 90))))
+    k, lib = stats
+    apart = not (lib["p10"] <= k["median"] <= lib["p90"]) and not (k["p10"] <= lib["median"] <= k["p90"])
+    verdict = "equal within spread" if not apart else "faster" if k["median"] < lib["median"] else "slower"
+    return dict(calls=calls, ms=k, library_ms=lib, verdict=verdict)
 
 
 def _device_us(e) -> float:
@@ -277,6 +337,43 @@ def first_bounce_and_shadows(renderer, cl, probe, dev):
     return (o1, d1), (p_hit, wi, t_sh), hit
 
 
+def second_bounce_and_shadows(renderer, cs, probe, o1, d1, dev):
+    """The slice's second-bounce wavefront, from the first bounce (o1, d1):
+    at each hit a direction drawn as the engine draws a diffuse bounce (the
+    cosine lobe of `disney.bsdf_sample` about the shading normal), the rays
+    that missed dead, coherence-sorted as the engine sorts; and its NEE
+    shadow rays, sorted the same way: ((o, d, t_max), (p_hit, wi, t_sh))."""
+    import torch
+
+    from optixpathtracer_tpu_torch.core.math import Vec3, basis_from_vector, local_to_world, where
+    from optixpathtracer_tpu_torch.core.rng import RngState, randf, tea
+    from optixpathtracer_tpu_torch.core.sampling import cosine_sample_hemisphere
+    from optixpathtracer_tpu_torch.engine import wavefront
+    from optixpathtracer_tpu_torch.lights.probe import probe_sample
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
+    cfg = renderer.config
+    cl = cs.clusters
+    n = o1.x.shape[0]
+    rec = tc.closest_hit_cluster(cl, o1, d1, cfg.t_min, cfg.t_max)
+    n_hit, _, _ = wavefront._hit_geometry(cs, rec, d1, cfg.use_shading_normals)
+    state, r1 = randf(RngState.seed(tea(torch.arange(n, device=dev), 11)))
+    _, r2 = randf(state)
+    tb, bb = basis_from_vector(n_hit)
+    o2 = where(rec.hit, o1 + d1 * rec.t, o1)
+    d2 = where(rec.hit, local_to_world(cosine_sample_hemisphere(r1, r2), tb, bb, n_hit), d1)
+    perm = wavefront._stable_argsort(wavefront._coherence_key(o2, d2, ~rec.hit, cl.scene_aabb))
+    o2, d2 = Vec3(*(a[perm] for a in o2)), Vec3(*(a[perm] for a in d2))
+    t_max2 = torch.where(rec.hit, cfg.t_max, 0.0)[perm]
+    rec2 = tc.closest_hit_cluster(cl, o2, d2, cfg.t_min, t_max2)
+    p2 = where(rec2.hit, o2 + d2 * rec2.t, o2)
+    _, wi, _, _ = probe_sample(probe, RngState.seed(tea(torch.arange(n, device=dev), 13)))
+    t_sh = torch.where(rec2.hit, cfg.t_max, 0.0)
+    perm = wavefront._stable_argsort(
+        wavefront._coherence_key(p2, wi, t_sh <= cfg.shadow_t_min, cl.scene_aabb))
+    return (o2, d2, t_max2), (Vec3(*(a[perm] for a in p2)), Vec3(*(a[perm] for a in wi)), t_sh[perm])
+
+
 def drive_slice(phase, renderer, card, counts, **fields):
     """The main path: one warm-up frame and 3 timed frames, with the kernel
     launch counts set to 0 just before and read just after. Works for the
@@ -334,7 +431,8 @@ def profile_frame(phase, renderer):
 def worklist_vs_plain(hit, cull_lo, card):
     """K5a on the first bounce's hit flags and K5b on its cull words, each
     at a capacity above its count and one below: the entry points' launches
-    (counted), then bit-equality with the plain versions and both times.
+    (counted), then bit-equality with the plain versions, the plain version's
+    time, and the kernel against its one PyTorch call in turns (`in_turns`).
     Returns ({name: launches}, {name: timing})."""
     import torch
 
@@ -367,9 +465,10 @@ def worklist_vs_plain(hit, cull_lo, card):
         # input read once, outputs written once: flags (1 B) or words (4 B),
         # then capacity int32 indices (K5b: rows and columns) and the count
         nbytes = x.numel() * x.element_size() + cap * 4 * (1 if name == "compact" else 2) + 4
-        timing[name] = dict(ms=cuda_ms(lambda: kern(x, cap), reps=5),
+        turns = in_turns(lambda: kern(x, cap), library[name], calls=TURN_CALLS)
+        timing[name] = dict(ms=turns["ms"]["median"], library_ms=turns["library_ms"]["median"],
                             plain_ms=cuda_ms(lambda: plain(x, cap), reps=5), max_abs_err=err,
-                            library_ms=cuda_ms(library[name], reps=5), **bytes_bound(nbytes))
+                            vs_library=turns, **bytes_bound(nbytes))
         emit("worklist_vs_plain", kernel=name, input=("first-bounce hit flags" if name == "compact"
                                                       else "first-bounce cull lo words"),
              n=x.shape[0], count=count, capacities=list(caps[name]), bit_equal=True,
@@ -570,7 +669,7 @@ def main() -> int:
     for name, work in (("cull", cull_work(rays8_1, sph_t)),
                        ("closest", tc.sweep_work(cl.rows, cl.xf_inv, cr1, c)),
                        ("any", tc.sweep_work(cl.rows, cl.xf_inv, cr_sh, c, any_hit=True))):
-        timing[name].update(ops_bound(name, work, peak, timing[name]["ms"], card=card), library_ms=None)
+        timing[name].update(work_bound(name, work, peak, timing[name]["ms"], card=card), library_ms=None)
 
     # ---- the worklist builders (K5a, K5b) on the first bounce --------------
     wl_launches, wl_timing = worklist_vs_plain(hit1, cr1.bits_lo, card)
@@ -675,31 +774,59 @@ def main() -> int:
     emit("hier_kernels_vs_plain", node_cull_max_abs_err=node_err, bit_equal=True, **checks)
     del cr, cr_s, rays8
 
-    # ---- times on the big slice's first bounce: node walk vs flat walk -----
+    # ---- times on the big slice's first and second bounce: node walk vs flat walk
     (o1, d1), (p_hit, wi, t_sh), _ = first_bounce_and_shadows(renderer, cl, probe, dev)
     rays8_1 = tc._pack_rays8(cl, o1, d1, cfg.t_min, cfg.t_max)
     cr1 = tc.block_cull_nodes(cl, o1, d1, cfg.t_min, cfg.t_max)
     cr_sh = tc.block_cull_nodes(cl, p_hit, wi, cfg.shadow_t_min, t_sh)
     nr_full = cr1.ids.shape[0]
     wf = "big scene first bounce, 1200x800x2spp"
-    hier_cases = {
-        "cull (node table)": (lambda nr: tc.cull_blocks(rays8_1[: nr * tc.BLOCK], nt.node_sph_t),
-                              lambda nr: tc._cull_torch(rays8_1[: nr * tc.BLOCK], nt.node_sph_t)),
-        "closest_hier": (lambda nr: tc.closest_hier_sweep(cl.rows, cl.xf_inv, nt, sub_cull(cr1, nr), c)[:2],
-                         lambda nr: tc._closest_hier_torch(cl.rows, cl.xf_inv, nt, sub_cull(cr1, nr), c)),
-        "any_hier": (lambda nr: (tc.any_hier_sweep(cl.rows, cl.xf_inv, nt, sub_cull(cr_sh, nr), c),),
-                     lambda nr: (tc._any_hier_torch(cl.rows, cl.xf_inv, nt, sub_cull(cr_sh, nr), c),)),
-    }
-    for name, (kern, plain) in hier_cases.items():
-        timing[name] = time_vs_plain(name, kern, plain, nr_full, HIER_PLAIN_BUDGET_S,
-                                     wavefront=wf, card=card)
-        if name in errs:
-            errs[name] = max(errs[name], timing[name]["max_abs_err"])
-    for name, work in (("cull (node table)", cull_work(rays8_1, nt.node_sph_t)),
-                       ("closest_hier", tc.sweep_work_hier(cl.rows, cl.xf_inv, nt, cr1, c)),
-                       ("any_hier", tc.sweep_work_hier(cl.rows, cl.xf_inv, nt, cr_sh, c, any_hit=True))):
-        timing[name].update(ops_bound(name, work, peak, timing[name]["ms"], wavefront=wf, card=card),
-                            library_ms=None)
+    timing["cull (node table)"] = time_vs_plain(
+        "cull (node table)", lambda nr: tc.cull_blocks(rays8_1[: nr * tc.BLOCK], nt.node_sph_t),
+        lambda nr: tc._cull_torch(rays8_1[: nr * tc.BLOCK], nt.node_sph_t), nr_full,
+        HIER_PLAIN_BUDGET_S, wavefront=wf, card=card)
+    timing["cull (node table)"].update(work_bound(
+        "cull (node table)", cull_work(rays8_1, nt.node_sph_t), peak,
+        timing["cull (node table)"]["ms"], wavefront=wf, card=card), library_ms=None)
+
+    def time_hier(cr_c, cr_s, wavefront):
+        """K4a on cr_c and K4b on cr_s: each kernel's time on the whole
+        wavefront, bit-equality with its plain version on the blocks that fit
+        the budget, K4a's vis against the counted visits, and both bounds."""
+        out = {}
+        for name, crx, any_hit in (("closest_hier", cr_c, False), ("any_hier", cr_s, True)):
+            sweep, plain = ((tc.any_hier_sweep, tc._any_hier_torch) if any_hit
+                            else (tc.closest_hier_sweep, tc._closest_hier_torch))
+
+            def run(fn, nr):
+                got = fn(cl.rows, cl.xf_inv, nt, sub_cull(crx, nr), c)
+                return (got,) if any_hit else got[:2]
+
+            nr = crx.ids.shape[0]
+            out[name] = time_vs_plain(name, lambda nr: run(sweep, nr), lambda nr: run(plain, nr), nr,
+                                      HIER_PLAIN_BUDGET_S, wavefront=wavefront, card=card)
+            work = tc.sweep_work_hier(cl.rows, cl.xf_inv, nt, crx, c, any_hit=any_hit)
+            if not any_hit:
+                vis = int(sweep(cl.rows, cl.xf_inv, nt, crx, c)[2].sum())
+                if vis != work.visits:
+                    raise AssertionError(f"closest_hier ({wavefront}): vis {vis} != {work.visits} counted visits")
+            out[name].update(work_bound(
+                name, work, peak, out[name]["ms"], nbytes=hier_bytes(work, crx, c, any_hit),
+                wavefront=wavefront, card=card, nodes_per_block=work.nodes / nr,
+                max_nodes_per_block=int(crx.count.max())), library_ms=None)
+        return out
+
+    first = time_hier(cr1, cr_sh, wf)
+    timing.update(first)  # the `kernels` line carries the first bounce
+    (o2, d2, t_max2), (p2, wi2, t_sh2) = second_bounce_and_shadows(renderer, cs, probe, o1, d1, dev)
+    second = time_hier(tc.block_cull_nodes(cl, o2, d2, cfg.t_min, t_max2),
+                       tc.block_cull_nodes(cl, p2, wi2, cfg.shadow_t_min, t_sh2),
+                       "big scene second bounce, 1200x800x2spp")
+    del o2, d2, t_max2, p2, wi2, t_sh2
+    for name in first:
+        errs[name] = max(errs[name], first[name]["max_abs_err"], second[name]["max_abs_err"])
+    hier_ms = {"cull (node table)": timing["cull (node table)"]["ms"],
+               **{k: v["ms"] for k, v in first.items()}}
     # the flat walk on the same rays, kernels and entry points: the data a
     # measured routing threshold needs
     sph_big = tc.sphere_table(cl)
@@ -719,7 +846,7 @@ def main() -> int:
         entry[f"any_hit_cluster_{walk}_ms"] = cuda_ms(
             lambda: tc.any_hit_cluster(cl, p_hit, wi, cfg.shadow_t_min, t_sh, hier=hier), reps=3)
     emit("flat_vs_hier_time", wavefront=wf, rays=nr_full * tc.BLOCK, flat_kernels=flat,
-         hier_kernels={k: timing[k]["ms"] for k in hier_cases}, entry_points=entry,
+         hier_kernels=hier_ms, entry_points=entry,
          max_nodes_per_block=int(cr1.count.max()), threshold=tc.HIER_MIN_ENTRIES, card=card)
     del cr1, cr_sh, rays8_1, o1, d1, p_hit, wi, t_sh
     torch.cuda.empty_cache()

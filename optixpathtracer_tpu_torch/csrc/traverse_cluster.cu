@@ -53,6 +53,10 @@
 //      is occluded or fails its gate while its warp's others run. A
 //      two-slot ring copies the next member while the block evaluates the
 //      current one.
+// K4a/K4b, the node walk, stage and read a member the same way (cp.async,
+// float4 rows) but pack every member's running rays onto the block's
+// threads and share the member's columns among the threads a ray gets; see
+// their header below.
 // The cull is light (S*8 slab tests per ray); one block of 256 threads owns
 // one 128-ray block, with the 8 members of a supercluster on 8 neighbouring
 // lanes so the per-super min-key and bit packing are warp shuffles.
@@ -78,15 +82,6 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 
 __device__ __forceinline__ float min_nan(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
-}
-
-// Max over the 128 threads of a block; every thread gets the result.
-__device__ __forceinline__ float block_max(float v, float* s_red) {
-  for (int off = 16; off > 0; off >>= 1) v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, off));
-  __syncthreads();  // the previous call's readers are done with s_red
-  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  return max_nan(max_nan(s_red[0], s_red[1]), max_nan(s_red[2], s_red[3]));
 }
 
 // ---------------------------------------------------------------------------
@@ -239,15 +234,6 @@ __device__ __forceinline__ void xform(const Ray& R, const float* __restrict__ a,
   ld[2] = a[6] * R.d[0] + a[7] * R.d[1] + a[8] * R.d[2];
 }
 
-// Stage member k's 9 x C rows of one super into shared memory.
-__device__ __forceinline__ void stage_member(float* __restrict__ s_tri, const float* __restrict__ super_rows,
-                                             int k, int c) {
-  for (int idx = threadIdx.x; idx < 9 * c; idx += kBlock) {
-    const int row = idx / c;
-    s_tri[idx] = super_rows[(size_t)row * kSuper * c + k * c + (idx - row * c)];
-  }
-}
-
 // Moller-Trumbore for one ray and one triangle [v0 | e1 | e2]. Returns true
 // and sets t when the pair passes the edge tests; t is then ts * (1/ad)
 // exactly as `_mt_epilogue_lean` computes it.
@@ -274,15 +260,8 @@ __device__ __forceinline__ bool mt9(float v0x, float v0y, float v0z, float e1x, 
   return true;
 }
 
-// M-T against triangle column j of a member staged as [9][c].
-__device__ __forceinline__ bool mt(const float* __restrict__ s_tri, int c, int j, const float lo[3],
-                                   const float ld[3], float& t) {
-  return mt9(s_tri[j], s_tri[c + j], s_tri[2 * c + j], s_tri[3 * c + j], s_tri[4 * c + j],
-             s_tri[5 * c + j], s_tri[6 * c + j], s_tri[7 * c + j], s_tri[8 * c + j], lo, ld, t);
-}
-
 // ---------------------------------------------------------------------------
-// The flat-walk staging of K2 / K3.
+// The staging of the sweeps (K2 / K3 and K4a / K4b).
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -375,10 +354,10 @@ __device__ __forceinline__ float lane4(const float4& v, int q) {
 
 // Whether one ray hits a triangle of the staged member in (t_min, t_max),
 // columns in order, stopping at the first hit.
-__device__ __forceinline__ bool member_occludes(const float* __restrict__ s_tri, int c, const Ray& R,
-                                                const float lo[3], const float ld[3]) {
+__device__ __forceinline__ bool member_occludes(const float* __restrict__ s_tri, int c, int j4_begin, int j4_end,
+                                                const Ray& R, const float lo[3], const float ld[3]) {
   const float4* s4 = reinterpret_cast<const float4*>(s_tri);
-  for (int j4 = 0; j4 < (c >> 2); ++j4) {
+  for (int j4 = j4_begin; j4 < j4_end; ++j4) {
     float4 v[9];
 #pragma unroll
     for (int row = 0; row < 9; ++row) v[row] = s4[row * (c >> 2) + j4];
@@ -393,6 +372,37 @@ __device__ __forceinline__ bool member_occludes(const float* __restrict__ s_tri,
     if (hit) return true;
   }
   return false;
+}
+
+// One staged member against kRays rays of a thread: columns in order, four per
+// step (each of the 9 rows as one broadcast float4), each tested against the
+// ray's updated best with a strict <.
+template <int kRays>
+__device__ __forceinline__ void member_closest(const float* __restrict__ s_tri, int c, int j4_begin, int j4_end, int base,
+                                               const bool (&go)[kRays], const Ray (&R)[kRays],
+                                               const float (&lo)[kRays][3], const float (&ld)[kRays][3],
+                                               float (&best)[kRays], int (&btri)[kRays]) {
+  const float4* s4 = reinterpret_cast<const float4*>(s_tri);
+  const int c4 = c >> 2;
+  for (int j4 = j4_begin; j4 < j4_end; ++j4) {
+    float4 v[9];
+#pragma unroll
+    for (int row = 0; row < 9; ++row) v[row] = s4[row * c4 + j4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int r = 0; r < kRays; ++r) {
+        float t;
+        if (go[r] &&
+            mt9(lane4(v[0], q), lane4(v[1], q), lane4(v[2], q), lane4(v[3], q), lane4(v[4], q),
+                lane4(v[5], q), lane4(v[6], q), lane4(v[7], q), lane4(v[8], q), lo[r], ld[r], t) &&
+            t > R[r].tmin && t < best[r]) {
+          best[r] = t;
+          btri[r] = base + 4 * j4 + q;
+        }
+      }
+    }
+  }
 }
 
 // The walk shared by K2 and K3: the block visits the members its votes
@@ -498,28 +508,7 @@ closest_kernel(const float* __restrict__ rays8, const int* __restrict__ ids,
           for (int r = 0; r < 2; ++r) xform(R[r], xf_inv + (size_t)xfix[ei] * 16, lo[r], ld[r]);
           xf_entry = i;
         }
-        const int base = (ids[ei] * kSuper + k) * c;
-        const float4* s4 = reinterpret_cast<const float4*>(s_tri);
-        const int c4 = c >> 2;
-        for (int j4 = 0; j4 < c4; ++j4) {
-          float4 v[9];
-#pragma unroll
-          for (int row = 0; row < 9; ++row) v[row] = s4[row * c4 + j4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              float t;
-              if (go[r] &&
-                  mt9(lane4(v[0], q), lane4(v[1], q), lane4(v[2], q), lane4(v[3], q), lane4(v[4], q),
-                      lane4(v[5], q), lane4(v[6], q), lane4(v[7], q), lane4(v[8], q), lo[r], ld[r], t) &&
-                  t > R[r].tmin && t < best[r]) {
-                best[r] = t;
-                btri[r] = base + 4 * j4 + q;
-              }
-            }
-          }
-        }
+        member_closest<2>(s_tri, c, 0, c >> 2, (ids[ei] * kSuper + k) * c, go, R, lo, ld, best, btri);
       });
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -585,7 +574,7 @@ any_kernel(const float* __restrict__ rays8, const float* __restrict__ keys,
         const Ray Rp = s_ray[ray];
         float lp[3], dp[3];
         xform(Rp, xf_inv + (size_t)xfix[ei] * 16, lp, dp);
-        if (member_occludes(s_tri, c, Rp, lp, dp)) s_occ[ray] = 1;
+        if (member_occludes(s_tri, c, 0, c >> 2, Rp, lp, dp)) s_occ[ray] = 1;
       });
   __syncthreads();
   occ_out[(size_t)b * kBlock + threadIdx.x] = s_occ[threadIdx.x];
@@ -595,194 +584,349 @@ any_kernel(const float* __restrict__ rays8, const float* __restrict__ keys,
 // K4a / K4b: the hierarchical (node) walk. Replaces `_hier_kernel_body` with
 // `_closest_kernel_hier` / `_any_kernel_hier` and `_node_recull` of the
 // reference. A node is kNode entries of kSuper clusters (64 cluster boxes,
-// csph (N2, 8, 64)). One block of 128 threads per 128-ray block, one thread
-// per ray; the block walks its sorted nodes near to far. At each node every
-// thread re-culls its own ray against the node's 64 cluster boxes (staged in
-// shared memory, 2 KiB) on its current [t_min, t] into a 64-bit mask; the
-// block ORs the masks, and each cluster some ray still reaches has its 9 x C
-// rows staged once (entry k2 = 0..7, member k = 0..7: the reference's visit
-// order) and evaluated by the threads whose own bit is set. The TPU's
-// whole-node DMA ring (2 x 8 x 16 x 8C f32, 2 MiB at C = 256) and its
-// per-group packed gate bits are gone: the per-ray mask is finer than any
-// group gate and changes no result, since the slab test is conservative.
-// Bound by the FP32 issue rate of M-T, as K2/K3; at 8.7M triangles the rows
-// table is 556 MB, beyond the 50 MB L2, so each staged member is a 9 KiB
-// read from device memory shared by the block's 128 rays.
+// csph (N2, 8, 64)). One block of 128 threads per 128-ray block walks its
+// sorted nodes near to far; thread t owns ray t for the node's re-cull.
+//
+// Per node: the six box rows the slab test reads (1.5 KiB) arrive by 16-byte
+// cp.async, requested while the previous node's members ran. After the
+// barrier that publishes them every warp reduces the rays' bounds from shared
+// memory itself (the early exit needs no barrier of its own), then each
+// thread re-culls its ray on its current [t_min, t] against the 64 boxes,
+// four columns per float4 read, into a 64-bit mask, and one block-wide OR
+// (one barrier) gives the node's member list.
+//
+// Per member (entry k2 = 0..7, member k = 0..7: the reference's visit
+// order): its 9 x C rows come by 16-byte cp.async into one staging slot (a
+// second slot holding the next member's copy measured no faster, with 5
+// blocks resident per SM to hide the copy). At 8.7M triangles the rows table
+// is 556 MB, beyond the 50 MB L2, and on incoherent rays a member is run by
+// few of the block's rays (16 of 128 on average on the big scene's second
+// bounce), so one ray per thread left three warps of four waiting at every
+// barrier for half a warp walking 256 columns. Instead the rays that run the
+// member are packed onto the block's threads (`pack_rays`: a ballot per
+// warp, one barrier), and each ray gets as many threads as fit the block and
+// divide the member's columns, a power of two: thread t of part t / g takes
+// the (t % g)-th running ray and the part's share of the columns, a warp
+// reading one part's columns as broadcast float4s. A ray's state lives in
+// shared memory for the thread it lands on.
+//  K4a: every part keeps the nearest hit of its columns (lowest column on a
+//      tie); after the next barrier the ray's own thread folds the parts in
+//      column order with a strict <, which is what a ray walking all C
+//      columns itself would keep. best / tri stay in that thread's registers,
+//      with a copy of best in shared memory for the parts' pruning.
+//  K4b: a part that hits sets the ray's occlusion flag and zeroes its bound.
+//      Before each member a block-wide vote ORs the masks of the rays not
+//      yet occluded, so members named only by rays occluded earlier in the
+//      node are neither staged nor run; a flag read before the vote's
+//      barrier can only be that of a ray still running, which adds a member
+//      at most, and every M-T reads the flags after a barrier.
+// The TPU's whole-node DMA ring (2 x 8 x 16 x 8C f32, 2 MiB at C = 256) and
+// its per-group packed gate bits are gone: the per-ray mask is finer than
+// any group gate and changes no result, since the slab test is conservative.
+// Bound by the FP32 instruction rate of M-T at the first bounce, as K2/K3
+// (the bytes a block stages come to a tenth of that time); what the design
+// buys on the deeper bounces is latency, not operations (PERF.md).
 // ---------------------------------------------------------------------------
-constexpr int kNode = 8;                  // entries per node
+constexpr int kNode = 8;                   // entries per node
 constexpr int kNodeCols = kNode * kSuper;  // cluster boxes per node
+constexpr int kBoxRows = 6;                // staged rows of a node's box table: [cx cy cz hx hy hz]
+constexpr int kSlotsK4 = 1;                // staging slots of 9 x C f32
 
-// Stage csph[nid] (8 rows x 64 cluster columns) into shared memory.
-__device__ __forceinline__ void stage_node(float* __restrict__ s_box, const float* __restrict__ csph,
-                                           int nid) {
+// Request the six rows of csph[nid] (8 rows x 64 cluster columns) that the
+// re-cull reads, as one group of 16-byte copies.
+template <int kThreads>
+__device__ __forceinline__ void request_boxes(float* __restrict__ s_box, const float* __restrict__ csph,
+                                              int nid) {
   const float* src = csph + (size_t)nid * 8 * kNodeCols;
-  for (int idx = threadIdx.x; idx < 8 * kNodeCols; idx += kBlock) s_box[idx] = src[idx];
+  for (int idx = threadIdx.x; idx < kBoxRows * (kNodeCols / 4); idx += kThreads) {
+    const int row = idx / (kNodeCols / 4), col = 4 * (idx % (kNodeCols / 4));
+    cp_async16(s_box + row * kNodeCols + col, src + (row < 3 ? row : row + 1) * kNodeCols + col);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // Slab test of the ray's [0, tcur] against the node's 64 cluster boxes
-// (`_node_recull`): bit col of the result = the ray may hit cluster col.
+// (`_node_recull`), four columns per float4 read: bit col of the result =
+// the ray may hit cluster col.
 __device__ __forceinline__ unsigned long long node_recull(const Ray& R, const float iv[3], float tcur,
                                                           const float* __restrict__ s_box) {
-  unsigned long long mask = 0ull;
-  if (!(tcur > R.tmin)) return mask;
-  for (int col = 0; col < kNodeCols; ++col) {
-    float t0[3], t1[3];
-    for (int a = 0; a < 3; ++a) {
-      const float mid = (s_box[a * kNodeCols + col] - R.o[a]) * iv[a];
-      const float rad = s_box[(4 + a) * kNodeCols + col] * fabsf(iv[a]);
-      t0[a] = mid - rad;
-      t1[a] = mid + rad;
+  if (!(tcur > R.tmin)) return 0ull;
+  const float av[3] = {fabsf(iv[0]), fabsf(iv[1]), fabsf(iv[2])};
+  const float4* b4 = reinterpret_cast<const float4*>(s_box);
+  unsigned word[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    unsigned m = 0;
+    for (int j4 = 0; j4 < kNodeCols / 8; ++j4) {
+      float4 q[3], h[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        q[a] = b4[a * (kNodeCols / 4) + half * (kNodeCols / 8) + j4];
+        h[a] = b4[(3 + a) * (kNodeCols / 4) + half * (kNodeCols / 8) + j4];
+      }
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        float t0[3], t1[3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const float mid = (lane4(q[a], l) - R.o[a]) * iv[a];
+          const float rad = lane4(h[a], l) * av[a];
+          t0[a] = mid - rad;
+          t1[a] = mid + rad;
+        }
+        const float tn = max_nan(max_nan(t0[0], t0[1]), max_nan(t0[2], 0.0f));
+        const float tf = min_nan(min_nan(t1[0], t1[1]), min_nan(t1[2], tcur));
+        if (tn <= tf + fabsf(tf) * 4e-7f + 1e-30f) m |= 1u << (4 * j4 + l);
+      }
     }
-    const float tn = max_nan(max_nan(t0[0], t0[1]), max_nan(t0[2], 0.0f));
-    const float tf = min_nan(min_nan(t1[0], t1[1]), min_nan(t1[2], tcur));
-    if (tn <= tf + fabsf(tf) * 4e-7f + 1e-30f) mask |= 1ull << col;
+    word[half] = m;
   }
-  return mask;
+  return ((unsigned long long)word[1] << 32) | word[0];
 }
 
-// OR of the 128 threads' masks; every thread gets the result.
-__device__ __forceinline__ unsigned long long block_or(unsigned long long m,
-                                                       unsigned long long* s_or) {
-  unsigned lo = __reduce_or_sync(0xffffffffu, (unsigned)m);
-  unsigned hi = __reduce_or_sync(0xffffffffu, (unsigned)(m >> 32));
-  __syncthreads();  // the previous call's readers are done with s_or
-  if ((threadIdx.x & 31) == 0) s_or[threadIdx.x >> 5] = ((unsigned long long)hi << 32) | lo;
-  __syncthreads();
-  return s_or[0] | s_or[1] | s_or[2] | s_or[3];
+// Max of the block's kBlock per-ray bounds in shared memory. Every warp
+// reduces all of them itself, so the call needs no barrier of its own: the
+// caller's last barrier made the bounds visible.
+__device__ __forceinline__ float reach_max(const float* __restrict__ s_reach) {
+  const int lane = threadIdx.x & 31;
+  float v = max_nan(max_nan(s_reach[lane], s_reach[lane + 32]), max_nan(s_reach[lane + 64], s_reach[lane + 96]));
+  for (int off = 16; off > 0; off >>= 1) v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// OR of the block's 64-bit masks through block_or; one barrier.
+template <int kThreads>
+__device__ __forceinline__ unsigned long long block_or64(unsigned long long m, unsigned (*s_or)[3][kThreads / 32],
+                                                         int& row) {
+  unsigned v[3] = {(unsigned)m, (unsigned)(m >> 32), 0u};
+  block_or<kThreads>(v, s_or, row);
+  return ((unsigned long long)v[1] << 32) | v[0];
 }
 
 __device__ __forceinline__ void load_iv(const Ray& R, float iv[3]) {
   for (int a = 0; a < 3; ++a) iv[a] = 1.0f / (fabsf(R.d[a]) > 1e-30f ? R.d[a] : 1e-30f);
 }
 
-__global__ void __launch_bounds__(kBlock)
+// Pack the block's rays for which `runs` holds onto its threads; one barrier.
+// With n such rays each gets a power of two of threads, as many as fit the
+// block and divide the member's c4 groups of four columns; thread t of part
+// t / g (g = kBlock / parts) takes the (t % g)-th ray and the part's share of
+// the columns, so a warp reads one part's columns (broadcast reads). Returns
+// (that ray or -1, first group, end group). `bal` is the warp's ballot of
+// `runs`, `rank` the rank of this thread's own ray among the running ones
+// (-1 if it does not run), `parts` the split. s_run is free again after the
+// block's next barrier.
+__device__ __forceinline__ int3 pack_rays(bool runs, int c4, unsigned* __restrict__ s_run, unsigned& bal,
+                                          int& rank, int& parts) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  bal = __ballot_sync(0xffffffffu, runs);
+  if (lane == 0) s_run[warp] = bal;
+  __syncthreads();
+  int n = 0, before = 0;
+#pragma unroll
+  for (int w = 0; w < kBlock / 32; ++w) {
+    const int cnt = __popc(s_run[w]);
+    before += w < warp ? cnt : 0;
+    n += cnt;
+  }
+  rank = runs ? before + __popc(bal & ((1u << lane) - 1u)) : -1;
+  int shift = 0;
+  while ((n << (shift + 1)) <= kBlock && (c4 & ((2 << shift) - 1)) == 0) ++shift;
+  parts = 1 << shift;
+  const int g = kBlock >> shift;
+  int r = threadIdx.x & (g - 1);
+  if (r >= n) return make_int3(-1, 0, 0);
+  const int part = threadIdx.x / g;
+  int w = 0;
+  while (r >= __popc(s_run[w])) r -= __popc(s_run[w++]);
+  const int share = c4 >> shift;
+  return make_int3(w * 32 + (int)__fns(s_run[w], 0, r + 1), part * share, (part + 1) * share);
+}
+
+// (kBlock, 1): without the second argument ptxas holds these two kernels to
+// 80 registers and spills; with it they take 96 and spill nothing.
+__global__ void __launch_bounds__(kBlock, 1)
 closest_hier_kernel(const float* __restrict__ rays8, const int* __restrict__ ids,
                     const float* __restrict__ keys, const int* __restrict__ count,
                     const int* __restrict__ erow2, const int* __restrict__ exf2,
                     const float* __restrict__ csph, const float* __restrict__ xf_inv,
                     const float* __restrict__ rows, int n2, int c, float* __restrict__ t_out,
                     int* __restrict__ tri_out, int* __restrict__ vis_out) {
-  extern __shared__ float s_tri[];  // [9][c]
-  __shared__ float s_box[8 * kNodeCols];
-  __shared__ float s_red[kBlock / 32];
-  __shared__ unsigned long long s_or[kBlock / 32];
+  extern __shared__ float4 s_slots[];  // [9][c]
+  __shared__ __align__(16) float s_box[2][kBoxRows * kNodeCols];
+  __shared__ unsigned s_or[2][3][kBlock / 32];
+  __shared__ Ray s_ray[kBlock];
+  __shared__ float s_best[kBlock];   // per ray: its best hit, as its own thread last combined it
+  __shared__ float s_reach[kBlock];  // per ray: min(best * |d|, BIG), the early exit's operand
+  __shared__ float s_pt[kBlock];     // per thread: the nearest hit of its packed ray in its share
+  __shared__ int s_ptri[kBlock];     //   of the member's columns, and its triangle (-1: none)
+  __shared__ unsigned s_run[kBlock / 32];
   __shared__ int s_vis;
 
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const size_t ray = (size_t)b * kBlock + tid;
-  const Ray R = load_ray(rays8, ray);
-  float iv[3];
-  load_iv(R, iv);
-  float best = R.tmax;
+  const int lane = threadIdx.x & 31;
+  const size_t ray = (size_t)b * kBlock + threadIdx.x;
+  s_ray[threadIdx.x] = load_ray(rays8, ray);  // the first node's barrier publishes these before any M-T
+  float best = s_ray[threadIdx.x].tmax;
   int btri = -1;
+  s_best[threadIdx.x] = best;
   int vis = 0;
-  if (tid == 0) s_vis = 0;
-  __syncthreads();
+  if (threadIdx.x == 0) s_vis = 0;
 
+  // This thread's ray ran the last member as the rank-th of the packed rays,
+  // on `parts` threads: fold their results into best in column order, with
+  // the strict < of a ray that walks the columns itself.
+  int rank = -1, parts = 1;
+  const auto combine = [&]() {
+    if (rank < 0) return;
+    for (int p = 0; p < parts; ++p) {
+      const int t = p * (kBlock / parts) + rank;
+      if (s_ptri[t] >= 0 && s_pt[t] < best) {
+        best = s_pt[t];
+        btri = s_ptri[t];
+      }
+    }
+    s_best[threadIdx.x] = best;
+    rank = -1;
+  };
+
+  float* const s_tri = reinterpret_cast<float*>(s_slots);
+  const size_t super_stride = (size_t)kStoreRows * kSuper * c;
   const int n_nodes = count[b];
+  const size_t row0 = (size_t)b * n2;
+  int orow = 0, bslot = 0;
+  if (n_nodes > 0) request_boxes<kBlock>(s_box[0], csph, ids[row0]);
   for (int i = 0; i < n_nodes; ++i) {
-    const size_t ni = (size_t)b * n2 + i;
+    const int nid = ids[row0 + i];
+    wait_copies(0);
+    __syncthreads();  // the node's boxes; the last member's results
+    if (i + 1 < n_nodes) request_boxes<kBlock>(s_box[bslot ^ 1], csph, ids[row0 + i + 1]);
+    combine();
+    // the thread's own ray, reloaded: it was not kept in registers through
+    // the members, where the thread ran other rays
+    const Ray R = s_ray[threadIdx.x];
+    float iv[3];
+    load_iv(R, iv);
+    s_reach[threadIdx.x] = min_nan(best * R.dlen, kBig);
+    __syncthreads();
     // early exit: every ray's best hit is nearer than the node's provable
     // distance lower bound (keys ascend)
-    if (!(keys[ni] <= block_max(min_nan(best * R.dlen, kBig), s_red))) break;
-    const int nid = ids[ni];
-    stage_node(s_box, csph, nid);  // block_max synchronised the previous readers
-    __syncthreads();
-    const unsigned long long mine = node_recull(R, iv, best, s_box);
-    const unsigned long long any = block_or(mine, s_or);
-    for (int k2 = 0; k2 < kNode; ++k2) {
-      const unsigned eany = (unsigned)(any >> (k2 * kSuper)) & 0xffu;
-      if (!eany) continue;
-      const int e = nid * kNode + k2;
-      float lo[3], ld[3];
-      xform(R, xf_inv + (size_t)exf2[e] * 16, lo, ld);
-      const float* super_rows = rows + (size_t)erow2[e] * kStoreRows * kSuper * c;
-      for (int k = 0; k < kSuper; ++k) {
-        if (!((eany >> k) & 1u)) continue;
-        __syncthreads();
-        stage_member(s_tri, super_rows, k, c);
-        __syncthreads();
-        const bool go = (mine >> (k2 * kSuper + k)) & 1ull;
-        const unsigned bal = __ballot_sync(0xffffffffu, go);
-        if (lane == 0) vis += ((bal & 0xffffu) != 0) + ((bal >> 16) != 0);
-        if (go) {
-          const int base = (e * kSuper + k) * c;
-          for (int j = 0; j < c; ++j) {
-            float t;
-            if (mt(s_tri, c, j, lo, ld, t) && t > R.tmin && t < best) {
-              best = t;
-              btri = base + j;
-            }
-          }
-        }
+    if (!(keys[row0 + i] <= reach_max(s_reach))) break;
+    const unsigned long long mine = node_recull(R, iv, best, s_box[bslot]);
+    unsigned long long rest = block_or64<kBlock>(mine, s_or, orow);
+    bslot ^= 1;
+
+    while (rest) {
+      const int j = __ffsll((long long)rest) - 1;
+      rest &= rest - 1;
+      __syncthreads();  // the previous member's readers are done with the slot, its results written
+      request_member<kBlock>(s_tri, rows + (size_t)erow2[nid * kNode + (j >> 3)] * super_stride, j & 7, c);
+      combine();  // while the copy is in flight
+      wait_copies(0);
+      __syncthreads();  // member j is staged
+      unsigned bal;
+      const int3 pk = pack_rays((mine >> j) & 1ull, c >> 2, s_run, bal, rank, parts);
+      if (lane == 0) vis += ((bal & 0xffffu) != 0) + ((bal >> 16) != 0);
+      if (pk.x >= 0) {
+        const int e = nid * kNode + (j >> 3);
+        const Ray Rp[1] = {s_ray[pk.x]};
+        const bool gp[1] = {true};
+        float lp[1][3], dp[1][3], bp[1] = {s_best[pk.x]};
+        int tp[1] = {-1};
+        xform(Rp[0], xf_inv + (size_t)exf2[e] * 16, lp[0], dp[0]);
+        member_closest<1>(s_tri, c, pk.y, pk.z, (e * kSuper + (j & 7)) * c, gp, Rp, lp, dp, bp, tp);
+        s_pt[threadIdx.x] = bp[0];
+        s_ptri[threadIdx.x] = tp[0];
       }
     }
   }
+  wait_copies(0);  // the boxes requested ahead of an early exit
+  __syncthreads();
+  combine();
   t_out[ray] = best;
   tri_out[ray] = btri;
   if (lane == 0 && vis) atomicAdd(&s_vis, vis);
   __syncthreads();
-  if (tid == 0) vis_out[b] = s_vis;
+  if (threadIdx.x == 0) vis_out[b] = s_vis;
 }
 
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, 1)
 any_hier_kernel(const float* __restrict__ rays8, const int* __restrict__ ids,
                 const float* __restrict__ keys, const int* __restrict__ count,
                 const int* __restrict__ erow2, const int* __restrict__ exf2,
                 const float* __restrict__ csph, const float* __restrict__ xf_inv,
                 const float* __restrict__ rows, int n2, int c, int* __restrict__ occ_out) {
-  extern __shared__ float s_tri[];
-  __shared__ float s_box[8 * kNodeCols];
-  __shared__ float s_red[kBlock / 32];
-  __shared__ unsigned long long s_or[kBlock / 32];
+  extern __shared__ float4 s_slots[];  // [9][c]
+  __shared__ __align__(16) float s_box[2][kBoxRows * kNodeCols];
+  __shared__ unsigned s_or[2][3][kBlock / 32];
+  __shared__ Ray s_ray[kBlock];
+  __shared__ int s_occ[kBlock];
+  __shared__ float s_reach[kBlock];  // per ray: its reach while it runs, 0 once occluded
+  __shared__ unsigned s_run[kBlock / 32];
 
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const size_t ray = (size_t)b * kBlock + tid;
+  const size_t ray = (size_t)b * kBlock + threadIdx.x;
   const Ray R = load_ray(rays8, ray);
   float iv[3];
   load_iv(R, iv);
-  const float reach = min_nan(R.tmax * R.dlen, kBig);
-  bool occ = false;
+  s_ray[threadIdx.x] = R;  // the first node's barrier publishes these before any M-T
+  s_occ[threadIdx.x] = 0;
+  s_reach[threadIdx.x] = min_nan(R.tmax * R.dlen, kBig);
 
+  float* const s_tri = reinterpret_cast<float*>(s_slots);
+  const size_t super_stride = (size_t)kStoreRows * kSuper * c;
   const int n_nodes = count[b];
+  const size_t row0 = (size_t)b * n2;
+  int orow = 0, bslot = 0;
+  if (n_nodes > 0) request_boxes<kBlock>(s_box[0], csph, ids[row0]);
   for (int i = 0; i < n_nodes; ++i) {
-    const size_t ni = (size_t)b * n2 + i;
-    // occluded rays leave the bound
-    if (!(keys[ni] <= block_max(occ ? 0.0f : reach, s_red))) break;
-    const int nid = ids[ni];
-    stage_node(s_box, csph, nid);
-    __syncthreads();
+    const int nid = ids[row0 + i];
+    wait_copies(0);
+    __syncthreads();  // the node's boxes; the flags and bounds the last members set
+    if (i + 1 < n_nodes) request_boxes<kBlock>(s_box[bslot ^ 1], csph, ids[row0 + i + 1]);
+    // occluded rays have left the bound
+    if (!(keys[row0 + i] <= reach_max(s_reach))) break;
     // an occluded ray's interval is closed (tcur = t_min): it drops out
-    const unsigned long long mine = node_recull(R, iv, occ ? R.tmin : R.tmax, s_box);
-    const unsigned long long any = block_or(mine, s_or);
-    for (int k2 = 0; k2 < kNode; ++k2) {
-      const unsigned eany = (unsigned)(any >> (k2 * kSuper)) & 0xffu;
-      if (!eany) continue;
-      const int e = nid * kNode + k2;
-      float lo[3], ld[3];
-      xform(R, xf_inv + (size_t)exf2[e] * 16, lo, ld);
-      const float* super_rows = rows + (size_t)erow2[e] * kStoreRows * kSuper * c;
-      for (int k = 0; k < kSuper; ++k) {
-        if (!((eany >> k) & 1u)) continue;
-        __syncthreads();
-        stage_member(s_tri, super_rows, k, c);
-        __syncthreads();
-        if (!occ && ((mine >> (k2 * kSuper + k)) & 1ull)) {
-          for (int j = 0; j < c; ++j) {
-            float t;
-            if (mt(s_tri, c, j, lo, ld, t) && t > R.tmin && t < R.tmax) {
-              occ = true;
-              break;
-            }
-          }
+    const unsigned long long mine = node_recull(R, iv, s_occ[threadIdx.x] ? R.tmin : R.tmax, s_box[bslot]);
+    const unsigned long long any = block_or64<kBlock>(mine, s_or, orow);
+    bslot ^= 1;
+
+    const auto request = [&](int j) {
+      request_member<kBlock>(s_tri, rows + (size_t)erow2[nid * kNode + (j >> 3)] * super_stride, j & 7, c);
+    };
+    // The next member after member j that a ray not yet occluded names, or
+    // -1. A flag read before the vote's barrier can only be that of a ray
+    // still running, which adds a member at most.
+    const auto next = [&](int j) {
+      const unsigned long long m =
+          (s_occ[threadIdx.x] || j >= kNodeCols - 1) ? 0ull : (mine & (~0ull << (j + 1)));
+      const unsigned long long all = block_or64<kBlock>(m, s_or, orow);
+      return all ? __ffsll((long long)all) - 1 : -1;
+    };
+    int cur = any ? __ffsll((long long)any) - 1 : -1;
+    if (cur >= 0) request(cur);
+    while (cur >= 0) {
+      wait_copies(0);
+      __syncthreads();  // member cur is staged
+      unsigned bal;
+      int rank, parts;
+      const int3 pk = pack_rays(!s_occ[threadIdx.x] && ((mine >> cur) & 1ull), c >> 2, s_run, bal, rank, parts);
+      if (pk.x >= 0) {
+        const Ray Rp = s_ray[pk.x];
+        float lp[3], dp[3];
+        xform(Rp, xf_inv + (size_t)exf2[nid * kNode + (cur >> 3)] * 16, lp, dp);
+        if (member_occludes(s_tri, c, pk.y, pk.z, Rp, lp, dp)) {
+          s_occ[pk.x] = 1;
+          s_reach[pk.x] = 0.0f;
         }
       }
+      cur = next(cur);  // its barrier: the member's readers are done with the slot
+      if (cur >= 0) request(cur);
     }
   }
-  occ_out[ray] = occ ? 1 : 0;
+  wait_copies(0);  // the boxes requested ahead of an early exit
+  __syncthreads();
+  occ_out[ray] = s_occ[threadIdx.x];
 }
 
 }  // namespace
@@ -801,9 +945,9 @@ extern "C" int cull_launch(int device, const void* rays8, const void* sph_t, int
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of K2/K3 (the staging slots), opted in to, since it
-// passes the default 48 KiB from C = 683 on (72 KiB at C = 1024). C must be
-// a multiple of 4.
+// Dynamic shared memory of the sweeps (the staging slots), opted in to, since
+// with two slots it passes the default 48 KiB from C = 683 on (72 KiB at
+// C = 1024). C must be a multiple of 4.
 template <class Kernel>
 static int sweep_smem(Kernel kernel, int slots, int c, size_t* bytes) {
   if (c <= 0 || c % 4) return (int)cudaErrorInvalidValue;
@@ -845,7 +989,9 @@ extern "C" int closest_hier_launch(int device, const void* rays8, const void* id
                                    int n2, int c, void* t_out, void* tri_out, void* vis_out,
                                    void* stream) {
   cudaSetDevice(device);
-  closest_hier_kernel<<<nr, kBlock, 9 * c * sizeof(float), (cudaStream_t)stream>>>(
+  size_t smem;
+  if (const int rc = sweep_smem(closest_hier_kernel, kSlotsK4, c, &smem)) return rc;
+  closest_hier_kernel<<<nr, kBlock, smem, (cudaStream_t)stream>>>(
       (const float*)rays8, (const int*)ids, (const float*)keys, (const int*)count,
       (const int*)erow2, (const int*)exf2, (const float*)csph, (const float*)xf_inv,
       (const float*)rows, n2, c, (float*)t_out, (int*)tri_out, (int*)vis_out);
@@ -857,7 +1003,9 @@ extern "C" int any_hier_launch(int device, const void* rays8, const void* ids, c
                                const void* csph, const void* xf_inv, const void* rows, int nr,
                                int n2, int c, void* occ_out, void* stream) {
   cudaSetDevice(device);
-  any_hier_kernel<<<nr, kBlock, 9 * c * sizeof(float), (cudaStream_t)stream>>>(
+  size_t smem;
+  if (const int rc = sweep_smem(any_hier_kernel, kSlotsK4, c, &smem)) return rc;
+  any_hier_kernel<<<nr, kBlock, smem, (cudaStream_t)stream>>>(
       (const float*)rays8, (const int*)ids, (const float*)keys, (const int*)count,
       (const int*)erow2, (const int*)exf2, (const float*)csph, (const float*)xf_inv,
       (const float*)rows, n2, c, (int*)occ_out);

@@ -22,7 +22,9 @@ Hierarchical (node) path (K4): NODE entries form a node.
      per block, walk the surviving nodes near to far; at each node re-cull
      every ray against the node's 64 cluster boxes on its current
      [t_min, t] interval, then run M-T on the clusters each ray still
-     reaches, entry k2 = 0..7 and within it member k = 0..7.
+     reaches, entry k2 = 0..7 and within it member k = 0..7. The kernels
+     read staged rows four columns at once and copy 16-byte words, so the
+     cluster size must be a multiple of 4 (`_check_hier_sweep`).
 
 Each kernel has a plain PyTorch version here (`_cull_torch`,
 `_closest_torch`, `_any_torch`, `_closest_hier_torch`, `_any_hier_torch`)
@@ -31,7 +33,8 @@ CPU tensors and launches its CUDA kernel (csrc/traverse_cluster.cu) for
 CUDA tensors, or raises; there is no fallback from one to the other.
 `launch_counts` counts kernel launches. `sweep_work` / `sweep_work_hier`
 count the ray-triangle pairs and slab tests the sweeps' inputs need, the
-operand of each kernel's compute bound.
+operand of each kernel's compute bound, and for the node walk the members a
+block must stage, the operand of its bytes bound.
 """
 from __future__ import annotations
 
@@ -407,7 +410,8 @@ def _any_torch(rows: Tensor, xf_inv: Tensor, cr: CullResult, c: int):
 
 class SweepWork(NamedTuple):
     """The work a sweep's inputs need, counted by `sweep_work` /
-    `sweep_work_hier`: the operand of each kernel's compute bound."""
+    `sweep_work_hier`: the operands of each kernel's compute bound and of
+    the node walk's bytes bound."""
 
     pairs: int  # ray-triangle pairs a running ray evaluates (any-hit: up to
     #   and including its first hit in the member's column order)
@@ -415,10 +419,18 @@ class SweepWork(NamedTuple):
     slab_tests: int = 0  # ray-box slab tests of the node walk's re-cull
     lane_pairs: int = 0  # pairs at sub-block granularity: per visit, 16 lanes x
     #   the columns its longest-running ray needs (C for closest-hit)
+    nodes: int = 0  # node walk: (block, node) visits, each staging the node's boxes
+    staged: int = 0  # node walk: members a block stages, i.e. (block, node,
+    #   cluster column) triples in which some ray of the block runs the member
 
     @property
     def ops(self) -> int:
         return self.pairs * MT_OPS + self.slab_tests * SLAB_OPS
+
+    def staged_bytes(self, c: int) -> int:
+        """Bytes the node walk's staging must move: 9 x C f32 per staged
+        member, and per node visit the six box rows the re-cull reads."""
+        return self.staged * 9 * c * 4 + self.nodes * 6 * NODE * SUPER * 4
 
 
 MT_OPS = 45  # FP32 mul/add/sub of one M-T pair up to its edge tests (un-fused; the
@@ -726,12 +738,14 @@ def sweep_work_hier(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullRe
     """SweepWork of K4a (any_hit=False) or K4b on a NodeCullResult: `_walk_hier`
     with the kernels' gates. Each node a block visits re-culls its rays still
     open (t_min < t) against 64 boxes; a ray runs a cluster its re-cull bit
-    names (K4b: while not occluded), with pairs counted as in `sweep_work`."""
+    names (K4b: while not occluded), with pairs counted as in `sweep_work`.
+    A block stages a member when one of its rays runs it."""
     best = cr.rays8[:, 7].clone()
     occ = torch.zeros(best.shape, dtype=torch.bool, device=best.device)
     tm_all, tM_all = cr.rays8[:, 6], cr.rays8[:, 7]
     dlen = _dlen(cr.rays8)
-    work = [0, 0, 0, 0]  # pairs, visits, slab tests, lane pairs
+    work = [0, 0, 0, 0, 0, 0]  # pairs, visits, slab tests, lane pairs, nodes, staged
+    last = [(-1, -1)]  # the last (block, cluster) counted as staged
 
     def bound():
         if any_hit:
@@ -740,9 +754,19 @@ def sweep_work_hier(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullRe
 
     def on_recull(rays, tcur):
         work[2] += int((tcur > rays[:, :, 6]).sum()) * NODE * SUPER
+        work[4] += rays.shape[0]
 
     def visit(ray_idx, gate, tm, tM, det, up, vp, tp, cid):
         go = gate & ~occ[ray_idx] if any_hit else gate
+        # the pairs of one cluster column come sorted by block, and a block
+        # meets a cluster once in a walk: count each (block, cluster) once,
+        # also across the chunks of one column
+        run = go.any(dim=1)
+        pairs = torch.stack([ray_idx[run, 0] // BLOCK, cid[run].to(torch.int64)], dim=1)
+        if pairs.shape[0]:
+            uniq = torch.unique_consecutive(pairs, dim=0)
+            work[5] += uniq.shape[0] - (tuple(uniq[0].tolist()) == last[0])
+            last[0] = tuple(uniq[-1].tolist())
         _run_visit(work, go, *_mt_t(det, up, vp, tp), tm, tM, ray_idx, best, occ, c, any_hit)
 
     tcur_of = (lambda: torch.where(occ, tm_all, tM_all)) if any_hit else (lambda: best)
@@ -755,6 +779,8 @@ def _check_hier_sweep(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCull
     nr, n2 = cr.ids.shape
     if c > 1024:
         raise ValueError(f"cluster_size {c} exceeds the sweep kernels' 1024 (shared memory)")
+    if c % 4:
+        raise ValueError(f"cluster_size {c} is not a multiple of 4 (the sweeps read 4 columns at once)")
     check_tensor(cr.rays8, "rays8", torch.float32, dev, (nr * BLOCK, 8))
     check_tensor(cr.ids, "ids", torch.int32, dev, (nr, n2))
     check_tensor(cr.keys, "keys", torch.float32, dev, (nr, n2))
@@ -764,6 +790,8 @@ def _check_hier_sweep(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCull
     check_tensor(nt.csph, "csph", torch.float32, dev, (n2, 8, NODE * SUPER))
     check_tensor(xf_inv, "xf_inv", torch.float32, dev, (xf_inv.shape[0], 16))
     check_tensor(rows, "rows", torch.float32, dev, (rows.shape[0], STORE_ROWS, SUPER * c))
+    if rows.data_ptr() % 16 or nt.csph.data_ptr() % 16:
+        raise ValueError("rows and csph must start on a 16-byte boundary (the sweeps copy 16-byte words)")
     return nr, n2
 
 

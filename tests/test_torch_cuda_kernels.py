@@ -86,28 +86,34 @@ def _sweeps_equal_plain(cs, cr, c):
     return tri_k, vis
 
 
-def test_sweeps_keep_the_tie_breaks_on_exact_t_ties(cuda):
-    # a 32 x 32 grid of unit quads at y = 0 (two triangles on a shared
-    # diagonal), laid down twice: the copy sits in other clusters and entries,
-    # so every hit ties exactly on t with its copy; rays straight down onto
-    # grid vertices and edge midpoints also tie across shared edges
-    g, c = 32, 64
+def _tie_grid(device, c, n=4096):
+    """A 32 x 32 grid of unit quads at y = 0 (two triangles on a shared
+    diagonal), laid down twice: the copy sits in other clusters and entries,
+    so every hit ties exactly on t with its copy; rays straight down onto
+    grid vertices and edge midpoints also tie across shared edges. The
+    second half of the rays is oblique. Returns (cs, o, d, n // 2)."""
+    g = 32
     tris = []
     for i in range(g):
         for j in range(g):
             a, b, e, f = (i, 0, j), (i + 1, 0, j), (i, 0, j + 1), (i + 1, 0, j + 1)
             tris += [(a, b, e), (b, f, e)]
     v = np.asarray(tris + tris, np.float32)
-    cs = build_clusters(v[:, 0], v[:, 1], v[:, 2], len(v), cuda, cluster_size=c)
+    cs = build_clusters(v[:, 0], v[:, 1], v[:, 2], len(v), device, cluster_size=c)
     rng = np.random.default_rng(6)
-    n = 4096
     pts = rng.integers(0, 2 * g + 1, (n, 2)) / 2.0
     o = np.stack([pts[:, 0], np.full(n, 5.0), pts[:, 1]], 1).astype(np.float32)
     d = np.tile(np.float32([0, -1, 0]), (n, 1))
-    tilt = n // 2  # the second half oblique
+    tilt = n // 2
     d[tilt:] += rng.normal(0, 0.3, (n - tilt, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    cr = tc.block_cull(cs, _v3(o, cuda), _v3(d, cuda), 1e-3, 1e16)
+    return cs, _v3(o, device), _v3(d, device), tilt
+
+
+def test_sweeps_keep_the_tie_breaks_on_exact_t_ties(cuda):
+    c = 64
+    cs, o, d, tilt = _tie_grid(cuda, c)
+    cr = tc.block_cull(cs, o, d, 1e-3, 1e16)
     tri, _ = _sweeps_equal_plain(cs, cr, c)
     assert int((tri[:tilt] >= 0).sum()) == tilt  # every straight ray lands on the grid
 
@@ -169,25 +175,110 @@ def test_wrappers_check_their_inputs(cuda):
         tc.cull_blocks(rays8[:100], tc.sphere_table(cs))
 
 
-@pytest.mark.parametrize("cluster_size,n_tris", [(8, 3000), (32, 3000), (256, 20000)])
+def _hier_sweeps_equal_plain(cs, cr, c):
+    """K4a and K4b bit-equal to their plain versions on a NodeCullResult, and
+    K4a's vis equal to the counted visits. Returns (tri, occ, SweepWork of K4a)."""
+    nt = cs.node_tables
+    t_k, tri_k, vis = tc.closest_hier_sweep(cs.rows, cs.xf_inv, nt, cr, c)
+    t_p, tri_p = tc._closest_hier_torch(cs.rows, cs.xf_inv, nt, cr, c)
+    assert torch.equal(t_k, t_p) and torch.equal(tri_k, tri_p)
+    work = tc.sweep_work_hier(cs.rows, cs.xf_inv, nt, cr, c)
+    assert int(vis.sum()) == work.visits
+    occ_k = tc.any_hier_sweep(cs.rows, cs.xf_inv, nt, cr, c)
+    assert torch.equal(occ_k, tc._any_hier_torch(cs.rows, cs.xf_inv, nt, cr, c))
+    return tri_k, occ_k, work
+
+
+# 1024: the largest cluster size (36 KiB of staged rows); 60: C % 4 == 0 but not a power of two
+@pytest.mark.parametrize("cluster_size,n_tris", [(8, 3000), (32, 3000), (256, 20000), (60, 6000),
+                                                 (64, 6000), (1024, 80000)])
 def test_hier_kernels_bit_equal_to_plain(cuda, cluster_size, n_tris):
     # several nodes, the last one padded with sentinel entries; 20 % dead rays
     cs, o, d, t_max = _scene_and_rays(cuda, cluster_size, seed=2, t=n_tris)
     assert cs.num_entries > tc.NODE and cs.num_entries % tc.NODE != 0
-    nt = cs.node_tables
     before = dict(tc.launch_counts)
     cr = tc.block_cull_nodes(cs, o, d, 1e-3, t_max)
-    t_k, tri_k, vis = tc.closest_hier_sweep(cs.rows, cs.xf_inv, nt, cr, cluster_size)
-    t_p, tri_p = tc._closest_hier_torch(cs.rows, cs.xf_inv, nt, cr, cluster_size)
-    assert torch.equal(t_k, t_p) and torch.equal(tri_k, tri_p)
-    assert int(vis.sum()) > 0 and int((tri_k >= 0).sum()) > 0
-    assert int(vis.sum()) == tc.sweep_work_hier(cs.rows, cs.xf_inv, nt, cr, cluster_size).visits
-    occ_k = tc.any_hier_sweep(cs.rows, cs.xf_inv, nt, cr, cluster_size)
-    assert torch.equal(occ_k, tc._any_hier_torch(cs.rows, cs.xf_inv, nt, cr, cluster_size))
+    tri_k, occ_k, work = _hier_sweeps_equal_plain(cs, cr, cluster_size)
+    assert work.visits > 0 and int((tri_k >= 0).sum()) > 0
     assert int(occ_k.sum()) > 0
     after = dict(tc.launch_counts)
     for name in ("cull", "closest_hier", "any_hier"):
         assert after[name] - before.get(name, 0) == 1
+
+
+def test_hier_sweeps_keep_the_tie_breaks_on_exact_t_ties(cuda):
+    c = 16  # 256 clusters, 32 entries, 4 nodes: the copy lies in other nodes
+    cs, o, d, tilt = _tie_grid(cuda, c)
+    assert cs.num_entries == 4 * tc.NODE
+    cr = tc.block_cull_nodes(cs, o, d, 1e-3, 1e16)
+    tri, occ, _ = _hier_sweeps_equal_plain(cs, cr, c)
+    assert int((tri[:tilt] >= 0).sum()) == tilt  # every straight ray lands on the grid
+    assert torch.equal(occ[:tilt], torch.ones_like(occ[:tilt]))
+
+
+def test_hier_sweeps_skip_members_no_ray_can_run(cuda):
+    # three walls of 1024 triangles (one node each at c = 16) at z = 0, 10, 20;
+    # the first spans x < 0 only. A ray at x < 0 meets it, and its hit closes
+    # the ray's interval before the second wall's node, whose cull bits are
+    # set for it; the rays at x > 0 keep every block walking to that node.
+    # Shadow rays stop in whichever member they first hit, so later members
+    # are named only by rays occluded earlier in the same node.
+    c = 16
+    tris = []
+    for z, x0, dx in ((0.0, -8.0, 0.25), (10.0, -8.0, 0.5), (20.0, -8.0, 0.5)):
+        for i in range(32):
+            for j in range(16):
+                xa, xb, ya, yb = x0 + i * dx, x0 + (i + 1) * dx, j - 8.0, j - 7.0
+                tris += [((xa, ya, z), (xb, ya, z), (xa, yb, z)), ((xb, ya, z), (xb, yb, z), (xa, yb, z))]
+    v = np.asarray(tris, np.float32)
+    cs = build_clusters(v[:, 0], v[:, 1], v[:, 2], len(v), cuda, cluster_size=c)
+    assert cs.num_entries == 3 * tc.NODE
+    rng = np.random.default_rng(7)
+    n = 4096
+    o = np.concatenate([rng.uniform(-2, 2, (n, 2)), np.full((n, 1), -5.0)], 1).astype(np.float32)
+    d = (np.float32([0, 0, 1]) + rng.normal(0, 0.02, (n, 3))).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    cr = tc.block_cull_nodes(cs, _v3(o, cuda), _v3(d, cuda), 1e-3, 1e16)
+    tri, occ, work = _hier_sweeps_equal_plain(cs, cr, c)
+    assert bool((tri >= 0)[:n].all()) and bool((occ[:n] == 1).all())
+    live_blocks = int((cr.count > 0).sum())
+    assert work.nodes >= 2 * live_blocks  # every block walks on to the second wall's node
+    # K4a runs a member for the rays its re-cull names, not for every ray of
+    # every block: fewer visits than (sub-block, member) pairs of visited nodes
+    assert 0 < work.visits < work.nodes * 8 * tc.NODE * tc.SUPER
+    shadow = tc.sweep_work_hier(cs.rows, cs.xf_inv, cs.node_tables, cr, c, any_hit=True)
+    assert 0 < shadow.staged < work.staged  # members no unoccluded ray names are not needed
+
+
+def test_hier_kernels_take_a_block_of_dead_rays(cuda):
+    cs, o, d, t_max = _scene_and_rays(cuda, 32, seed=5)
+    t_max = t_max.clone()
+    dead = slice(3 * tc.BLOCK, 5 * tc.BLOCK)  # blocks 3 and 4: t_max <= t_min for every ray
+    t_max[dead] = 0.0
+    cr = tc.block_cull_nodes(cs, o, d, 1e-3, t_max)
+    assert int(cr.count[3, 0]) == 0 and int(cr.count[4, 0]) == 0
+    tri, occ, work = _hier_sweeps_equal_plain(cs, cr, 32)
+    assert bool((tri[dead] == -1).all()) and bool((occ[dead] == 0).all())
+    assert work.visits > 0
+
+
+def test_hier_kernels_walk_a_last_node_of_one_entry(cuda):
+    # 9 entries: the second node holds one entry and 7 far-sentinel entries
+    cs, o, d, t_max = _scene_and_rays(cuda, 32, seed=8, t=2100)
+    assert cs.num_entries == tc.NODE + 1
+    cr = tc.block_cull_nodes(cs, o, d, 1e-3, t_max)
+    tri, _, _ = _hier_sweeps_equal_plain(cs, cr, 32)
+    last = tri // (tc.SUPER * 32) == tc.NODE  # winners in the last node's one entry
+    assert int(last.sum()) > 0 and int(tri.max()) < cs.num_entries * tc.SUPER * 32
+
+
+def test_hier_sweeps_refuse_a_cluster_size_not_a_multiple_of_4(cuda):
+    cs, o, d, t_max = _scene_and_rays(cuda, 62, n=256)
+    cr = tc.block_cull_nodes(cs, o, d, 1e-3, t_max)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tc.closest_hier_sweep(cs.rows, cs.xf_inv, cs.node_tables, cr, 62)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tc.any_hier_sweep(cs.rows, cs.xf_inv, cs.node_tables, cr, 62)
 
 
 def test_hier_none_takes_the_node_kernels(cuda, monkeypatch):

@@ -22,6 +22,7 @@ from optixpathtracer_tpu_torch import interop, scenes
 from optixpathtracer_tpu_torch.core.materials import build_table
 from optixpathtracer_tpu_torch.core.math import Vec3
 from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+from tests.test_torch_traverse_cluster import _two_entry_scene
 from tests.test_traverse_hier import _soup_scene
 
 torch.set_num_threads(1)
@@ -205,6 +206,76 @@ def test_hier_sweeps_have_no_fallback(soup):
         tc.closest_hier_sweep(*args)
     with pytest.raises(ValueError, match="no kernel"):
         tc.any_hier_sweep(*args)
+
+
+def test_sweep_work_hier_counts_a_hand_built_walk():
+    # one ray, one node (2 entries + 6 sentinels): the re-cull, taken once on
+    # the ray's whole reach, names cluster 0 (hits at z = 5 and 5.5) and
+    # cluster 8 (z = 20..23)
+    cs, o, d = _two_entry_scene()
+    nt = cs.node_tables
+    cr = tc.block_cull_nodes(cs, o, d, 1e-3, 1e16)
+    assert int(cr.count[0, 0]) == 1 and int(cr.count.sum()) == 1
+    t, tri = tc._closest_hier_torch(cs.rows, cs.xf_inv, nt, cr, 4)
+    assert float(t[0]) == 5.0 and int(tri[0]) == 1
+    # closest: both members run all 4 columns (no key gate within a node);
+    # the block stages both, 9 x 4 f32 each, and the node's six box rows
+    work = tc.sweep_work_hier(cs.rows, cs.xf_inv, nt, cr, 4)
+    assert work == tc.SweepWork(8, 2, slab_tests=64, lane_pairs=128, nodes=1, staged=2)
+    assert work.staged_bytes(4) == 2 * 9 * 4 * 4 + 6 * 64 * 4
+    # any-hit: column 1 of cluster 0 occludes after 2 columns, and cluster 8,
+    # named only by the ray now occluded, is neither run nor staged
+    work = tc.sweep_work_hier(cs.rows, cs.xf_inv, nt, cr, 4, any_hit=True)
+    assert work == tc.SweepWork(2, 1, slab_tests=64, lane_pairs=32, nodes=1, staged=1)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_sweep_work_hier_stages_within_the_re_cull(soup, any_hit):
+    _, pcs = soup
+    _, _, to, td = _rays(N_RAYS, 11)
+    nt = pcs.node_tables
+    cr = tc.block_cull_nodes(pcs, to, td, 1e-2, 14.0)
+    work = tc.sweep_work_hier(pcs.rows, pcs.xf_inv, nt, cr, pcs.cluster_size, any_hit=any_hit)
+    assert 0 < work.nodes <= int(cr.count.sum())
+    # a staged member has a visit, and a visit belongs to one staged member
+    assert 0 < work.staged <= work.visits <= work.staged * 8
+    assert work.staged <= work.nodes * tc.NODE * tc.SUPER
+
+
+def _hier_sweep_args(pcs, c):
+    _, _, to, td = _rays(64, 7)
+    cr = tc.block_cull_nodes(pcs, to, td, 1e-3, 1e16)
+    return pcs.rows, pcs.xf_inv, pcs.node_tables, cr, c
+
+
+def test_check_hier_sweep_refuses_a_cluster_size_not_a_multiple_of_4(soup):
+    _, pcs = soup
+    rows, xf_inv, nt, cr, _ = _hier_sweep_args(pcs, 8)
+    rows6 = torch.zeros((rows.shape[0], rows.shape[1], tc.SUPER * 6))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tc._check_hier_sweep(rows6, xf_inv, nt, cr, 6)
+    assert tc._check_hier_sweep(rows, xf_inv, nt, cr, 8) == tuple(cr.ids.shape)
+
+
+@pytest.mark.parametrize("which", ["rows", "csph"])
+def test_check_hier_sweep_refuses_tables_off_a_16_byte_boundary(soup, which):
+    _, pcs = soup
+    rows, xf_inv, nt, cr, c = _hier_sweep_args(pcs, pcs.cluster_size)
+
+    def shifted(a):  # the same values, one float past a 16-byte boundary
+        buf = torch.zeros(a.numel() + 4, dtype=a.dtype)
+        off = 1 + (-(buf.data_ptr() // 4)) % 4
+        out = buf[off : off + a.numel()].view(a.shape)
+        out.copy_(a)
+        assert out.data_ptr() % 16 == 4 and out.is_contiguous()
+        return out
+
+    if which == "rows":
+        rows = shifted(rows)
+    else:
+        nt = nt._replace(csph=shifted(nt.csph))
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tc._check_hier_sweep(rows, xf_inv, nt, cr, c)
 
 
 def test_build_big_scene_matches_bench():
