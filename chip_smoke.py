@@ -28,14 +28,23 @@ port's paths and checks that each went through its kernels:
      routes it to the node walk: cull, closest_hier, any_hier), with the
      exactness gate against the dense oracle, a golden through the node
      walk, the node kernels' and the flat kernels' times on the same rays,
-     and the node sweeps again on the slice's second bounce (a diffuse
-     direction from each first-bounce hit, and its shadow rays).
+     and the node cull and sweeps again on the slice's second bounce: the
+     rays the engine itself hands to its sweeps at depth 1 of a frame
+     (`engine_bounce`).
+
+The cull (K1) is held against its plain version and timed on both tables
+(the city's cluster boxes, the big scene's entry boxes) at the first bounce
+and at the engine's second; `block_cull` lines time the whole of
+`block_cull` / `block_cull_nodes` (pack, kernel, sort, gathers) beside the
+kernel alone.
 
 Every kernel timed at the slices' first bounce also gets its bound, the
 least time the card could take for the work these inputs need
 (`kernel_bound` lines): K1-K4 by FP32 operations, the ray-box slab tests
-and ray-triangle pairs `sweep_work` / `sweep_work_hier` count times their
-un-fused op counts, over SMs x 128 lanes x the SM clock's maximum; K5a,
+and ray-triangle pairs `cull_work` / `sweep_work` / `sweep_work_hier` count
+times their un-fused op counts (K1: the group tests and the member tests of
+the groups that pass, with the count of all ray-box pairs beside it), over
+SMs x 128 lanes x the SM clock's maximum; K5a,
 K5b and K6 by bytes, inputs read once and outputs written once, over
 3.35 TB/s. The node sweeps get both: the bytes are the rays, the node
 tables and 9 x C f32 for every member a block must stage, and the larger
@@ -183,11 +192,48 @@ def bytes_bound(nbytes):
     return dict(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=nbytes)
 
 
-def cull_work(rays8, sph_t):
-    """K1's work: a slab test of every live ray against every box column."""
+def cull_phase(name, rays8, sph_t, grp_t, peak, budget_s, wavefront, card):
+    """K1 on one table and one wavefront: its time on all blocks, bit-equality
+    with `_cull_torch` on the blocks that fit the budget, and its bound from
+    the slab tests this design must do (`cull_work`), with the count of all
+    live-ray x box pairs and their bound beside it."""
     from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
 
-    return tc.SweepWork(0, 0, int((rays8[:, 7] > rays8[:, 6]).sum()) * sph_t.shape[1])
+    out = time_vs_plain(
+        name, lambda nr: tc.cull_blocks(rays8[: nr * tc.BLOCK], sph_t, grp_t),
+        lambda nr: tc._cull_torch(rays8[: nr * tc.BLOCK], sph_t), rays8.shape[0] // tc.BLOCK,
+        budget_s, wavefront=wavefront, card=card)
+    all_pairs = int((rays8[:, 7] > rays8[:, 6]).sum()) * sph_t.shape[1]
+    out.update(work_bound(
+        name, tc.cull_work(rays8, sph_t, grp_t), peak, out["ms"], wavefront=wavefront, card=card,
+        groups=grp_t.shape[1], all_pairs_tests=all_pairs,
+        all_pairs_bound_ms=all_pairs * tc.SLAB_OPS / peak * 1e3), library_ms=None)
+    return out
+
+
+def block_cull_parts(name, cull, cs, rays, tables, wavefront, card):
+    """`block_cull` / `block_cull_nodes` whole beside its parts on one
+    wavefront: the ray pack, kernel K1 alone, the stable sort with the gather
+    of the bit words (and the sort alone), and what is left (the cast of the
+    ids, the flat walk's entry index)."""
+    import torch
+
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
+    o, d, t_min, t_max = rays
+    rays8 = tc._pack_rays8(cs, o, d, t_min, t_max)
+    key, lo, hi, _ = tc.cull_blocks(rays8, *tables)
+    parts = dict(
+        whole_ms=cuda_ms(lambda: cull(cs, o, d, t_min, t_max), reps=5),
+        pack_ms=cuda_ms(lambda: tc._pack_rays8(cs, o, d, t_min, t_max), reps=5),
+        kernel_ms=cuda_ms(lambda: tc.cull_blocks(rays8, *tables), reps=5),
+        sort_gather_ms=cuda_ms(lambda: tc._sort_cull(key, lo, hi), reps=5),
+        sort_ms=cuda_ms(lambda: torch.sort(key, dim=1, stable=True), reps=5),
+    )
+    parts["rest_ms"] = (parts["whole_ms"] - parts["pack_ms"] - parts["kernel_ms"]
+                        - parts["sort_gather_ms"])
+    emit("block_cull", entry=name, wavefront=wavefront, rays=rays8.shape[0], groups=key.shape[1],
+         **parts, card=card)
 
 
 def in_turns(kern, library, calls):
@@ -337,41 +383,34 @@ def first_bounce_and_shadows(renderer, cl, probe, dev):
     return (o1, d1), (p_hit, wi, t_sh), hit
 
 
-def second_bounce_and_shadows(renderer, cs, probe, o1, d1, dev):
-    """The slice's second-bounce wavefront, from the first bounce (o1, d1):
-    at each hit a direction drawn as the engine draws a diffuse bounce (the
-    cosine lobe of `disney.bsdf_sample` about the shading normal), the rays
-    that missed dead, coherence-sorted as the engine sorts; and its NEE
-    shadow rays, sorted the same way: ((o, d, t_max), (p_hit, wi, t_sh))."""
-    import torch
-
-    from optixpathtracer_tpu_torch.core.math import Vec3, basis_from_vector, local_to_world, where
-    from optixpathtracer_tpu_torch.core.rng import RngState, randf, tea
-    from optixpathtracer_tpu_torch.core.sampling import cosine_sample_hemisphere
+def engine_bounce(renderer, depth):
+    """The rays the engine hands to its sweeps at bounce `depth` of one frame
+    of `renderer`: ((o, d, t_min, t_max) of `closest_hit_cluster`, the same
+    of `any_hit_cluster`), coherence-sorted and with dead lanes closed
+    (t_max 0) as `trace_wavefront` passes them. The frame is rendered with
+    the engine's two sweep entry points wrapped to record their arguments;
+    the renderer's accumulation is put back afterwards."""
     from optixpathtracer_tpu_torch.engine import wavefront
-    from optixpathtracer_tpu_torch.lights.probe import probe_sample
-    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
 
-    cfg = renderer.config
-    cl = cs.clusters
-    n = o1.x.shape[0]
-    rec = tc.closest_hit_cluster(cl, o1, d1, cfg.t_min, cfg.t_max)
-    n_hit, _, _ = wavefront._hit_geometry(cs, rec, d1, cfg.use_shading_normals)
-    state, r1 = randf(RngState.seed(tea(torch.arange(n, device=dev), 11)))
-    _, r2 = randf(state)
-    tb, bb = basis_from_vector(n_hit)
-    o2 = where(rec.hit, o1 + d1 * rec.t, o1)
-    d2 = where(rec.hit, local_to_world(cosine_sample_hemisphere(r1, r2), tb, bb, n_hit), d1)
-    perm = wavefront._stable_argsort(wavefront._coherence_key(o2, d2, ~rec.hit, cl.scene_aabb))
-    o2, d2 = Vec3(*(a[perm] for a in o2)), Vec3(*(a[perm] for a in d2))
-    t_max2 = torch.where(rec.hit, cfg.t_max, 0.0)[perm]
-    rec2 = tc.closest_hit_cluster(cl, o2, d2, cfg.t_min, t_max2)
-    p2 = where(rec2.hit, o2 + d2 * rec2.t, o2)
-    _, wi, _, _ = probe_sample(probe, RngState.seed(tea(torch.arange(n, device=dev), 13)))
-    t_sh = torch.where(rec2.hit, cfg.t_max, 0.0)
-    perm = wavefront._stable_argsort(
-        wavefront._coherence_key(p2, wi, t_sh <= cfg.shadow_t_min, cl.scene_aabb))
-    return (o2, d2, t_max2), (Vec3(*(a[perm] for a in p2)), Vec3(*(a[perm] for a in wi)), t_sh[perm])
+    real = {name: getattr(wavefront, name) for name in ("closest_hit_cluster", "any_hit_cluster")}
+    calls = {name: [] for name in real}
+
+    def recording(name):
+        def sweep(cl, o, d, t_min, t_max, **kw):
+            calls[name].append((o, d, t_min, t_max))
+            return real[name](cl, o, d, t_min, t_max, **kw)
+        return sweep
+
+    state = (renderer.accum, renderer.subframe_index)
+    for name in real:
+        setattr(wavefront, name, recording(name))
+    try:
+        renderer.render(download=False)
+    finally:
+        for name, fn in real.items():
+            setattr(wavefront, name, fn)
+        renderer.accum, renderer.subframe_index = state
+    return calls["closest_hit_cluster"][depth], calls["any_hit_cluster"][depth]
 
 
 def drive_slice(phase, renderer, card, counts, **fields):
@@ -631,12 +670,12 @@ def main() -> int:
     cl = cs.clusters
     launches = {}  # kernel -> launches over every main path
     c = cl.cluster_size
-    sph_t = tc.sphere_table(cl)
+    sph_t, grp_t = cl.cull_tables
 
     # ---- kernels vs plain, bit for bit, on 64k mixed rays -----------------
     o, d = mixed_rays(cs, hs, cam, 65536, 7, dev)
     rays8 = tc._pack_rays8(cl, o, d, 1e-3, 1e16)
-    errs = {"cull": compare("cull", tc.cull_blocks(rays8, sph_t), tc._cull_torch(rays8, sph_t))}
+    errs = {"cull": compare("cull", tc.cull_blocks(rays8, sph_t, grp_t), tc._cull_torch(rays8, sph_t))}
     cr = tc.block_cull(cl, o, d, 1e-3, 1e16)
     errs["closest"] = compare("closest", tc.closest_sweep(cl.rows, cl.xf_inv, cr, c)[:2],
                               tc._closest_torch(cl.rows, cl.xf_inv, cr, c))
@@ -652,24 +691,34 @@ def main() -> int:
     cr_sh = tc.block_cull(cl, p_hit, wi, cfg.shadow_t_min, t_sh)
     nr_full = cr1.ids.shape[0]
     timing = {}
+    peak = fp32_ops_per_s()
+    wf = "first bounce, 1200x800x2spp"
+    timing["cull"] = cull_phase("cull", rays8_1, sph_t, grp_t, peak, PLAIN_BUDGET_S, wf, card)
     cases = {
-        "cull": (lambda nr: tc.cull_blocks(rays8_1[: nr * tc.BLOCK], sph_t),
-                 lambda nr: tc._cull_torch(rays8_1[: nr * tc.BLOCK], sph_t)),
         "closest": (lambda nr: tc.closest_sweep(cl.rows, cl.xf_inv, sub_cull(cr1, nr), c)[:2],
                     lambda nr: tc._closest_torch(cl.rows, cl.xf_inv, sub_cull(cr1, nr), c)),
         "any": (lambda nr: (tc.any_sweep(cl.rows, cl.xf_inv, sub_cull(cr_sh, nr), c),),
                 lambda nr: (tc._any_torch(cl.rows, cl.xf_inv, sub_cull(cr_sh, nr), c),)),
     }
     for name, (kern, plain) in cases.items():
-        timing[name] = time_vs_plain(name, kern, plain, nr_full, PLAIN_BUDGET_S,
-                                     wavefront="first bounce, 1200x800x2spp", card=card)
-        errs[name] = max(errs[name], timing[name]["max_abs_err"])
-    # ---- each kernel's bound on the same rays: the work these inputs need ---
-    peak = fp32_ops_per_s()
-    for name, work in (("cull", cull_work(rays8_1, sph_t)),
-                       ("closest", tc.sweep_work(cl.rows, cl.xf_inv, cr1, c)),
+        timing[name] = time_vs_plain(name, kern, plain, nr_full, PLAIN_BUDGET_S, wavefront=wf, card=card)
+    # ---- each sweep's bound on the same rays: the work these inputs need ----
+    for name, work in (("closest", tc.sweep_work(cl.rows, cl.xf_inv, cr1, c)),
                        ("any", tc.sweep_work(cl.rows, cl.xf_inv, cr_sh, c, any_hit=True))):
         timing[name].update(work_bound(name, work, peak, timing[name]["ms"], card=card), library_ms=None)
+    # ---- K1 again on the engine's second bounce, and block_cull whole ------
+    block_cull_parts("block_cull", tc.block_cull, cl, (o1, d1, cfg.t_min, cfg.t_max), (sph_t, grp_t), wf, card)
+    (o2, d2, tm2, tM2), (p2, wi2, tms2, tMs2) = engine_bounce(renderer, 1)
+    wf2 = "second bounce (the engine's), 1200x800x2spp"
+    second_cull = cull_phase("cull", tc._pack_rays8(cl, o2, d2, tm2, tM2), sph_t, grp_t, peak,
+                             PLAIN_BUDGET_S, wf2, card)
+    block_cull_parts("block_cull", tc.block_cull, cl, (o2, d2, tm2, tM2), (sph_t, grp_t), wf2, card)
+    block_cull_parts("block_cull", tc.block_cull, cl, (p2, wi2, tms2, tMs2), (sph_t, grp_t),
+                     wf2 + ", shadow rays", card)
+    del o2, d2, tM2, p2, wi2, tMs2
+    for name in cases:
+        errs[name] = max(errs[name], timing[name]["max_abs_err"])
+    errs["cull"] = max(errs["cull"], timing["cull"]["max_abs_err"], second_cull["max_abs_err"])
 
     # ---- the worklist builders (K5a, K5b) on the first bounce --------------
     wl_launches, wl_timing = worklist_vs_plain(hit1, cr1.bits_lo, card)
@@ -756,7 +805,7 @@ def main() -> int:
     cr = tc.block_cull_nodes(cl, o, d, 1e-3, 1e16)
     cr_s = tc.block_cull_nodes(cl, o, d, 0.01, 1e16)
     rays8 = tc._pack_rays8(cl, o, d, 1e-3, 1e16)
-    node_err = compare("cull (node table)", tc.cull_blocks(rays8, nt.node_sph_t),
+    node_err = compare("cull (node table)", tc.cull_blocks(rays8, nt.node_sph_t, nt.node_box_t),
                        tc._cull_torch(rays8, nt.node_sph_t))
     errs["cull"] = max(errs["cull"], node_err)
     nr_mixed = cr.ids.shape[0]
@@ -781,13 +830,11 @@ def main() -> int:
     cr_sh = tc.block_cull_nodes(cl, p_hit, wi, cfg.shadow_t_min, t_sh)
     nr_full = cr1.ids.shape[0]
     wf = "big scene first bounce, 1200x800x2spp"
-    timing["cull (node table)"] = time_vs_plain(
-        "cull (node table)", lambda nr: tc.cull_blocks(rays8_1[: nr * tc.BLOCK], nt.node_sph_t),
-        lambda nr: tc._cull_torch(rays8_1[: nr * tc.BLOCK], nt.node_sph_t), nr_full,
-        HIER_PLAIN_BUDGET_S, wavefront=wf, card=card)
-    timing["cull (node table)"].update(work_bound(
-        "cull (node table)", cull_work(rays8_1, nt.node_sph_t), peak,
-        timing["cull (node table)"]["ms"], wavefront=wf, card=card), library_ms=None)
+    node_tables = (nt.node_sph_t, nt.node_box_t)
+    timing["cull (node table)"] = cull_phase("cull (node table)", rays8_1, *node_tables, peak,
+                                             HIER_PLAIN_BUDGET_S, wf, card)
+    block_cull_parts("block_cull_nodes", tc.block_cull_nodes, cl, (o1, d1, cfg.t_min, cfg.t_max),
+                     node_tables, wf, card)
 
     def time_hier(cr_c, cr_s, wavefront):
         """K4a on cr_c and K4b on cr_s: each kernel's time on the whole
@@ -818,22 +865,30 @@ def main() -> int:
 
     first = time_hier(cr1, cr_sh, wf)
     timing.update(first)  # the `kernels` line carries the first bounce
-    (o2, d2, t_max2), (p2, wi2, t_sh2) = second_bounce_and_shadows(renderer, cs, probe, o1, d1, dev)
-    second = time_hier(tc.block_cull_nodes(cl, o2, d2, cfg.t_min, t_max2),
-                       tc.block_cull_nodes(cl, p2, wi2, cfg.shadow_t_min, t_sh2),
-                       "big scene second bounce, 1200x800x2spp")
-    del o2, d2, t_max2, p2, wi2, t_sh2
+    # the second bounce is the engine's own: the rays `trace_wavefront` hands
+    # to its sweeps at depth 1 of a frame of this renderer
+    (o2, d2, tm2, tM2), (p2, wi2, tms2, tMs2) = engine_bounce(renderer, 1)
+    wf2 = "big scene second bounce (the engine's), 1200x800x2spp"
+    second_cull = cull_phase("cull (node table)", tc._pack_rays8(cl, o2, d2, tm2, tM2), *node_tables,
+                             peak, HIER_PLAIN_BUDGET_S, wf2, card)
+    errs["cull"] = max(errs["cull"], timing["cull (node table)"]["max_abs_err"], second_cull["max_abs_err"])
+    block_cull_parts("block_cull_nodes", tc.block_cull_nodes, cl, (o2, d2, tm2, tM2), node_tables, wf2, card)
+    block_cull_parts("block_cull_nodes", tc.block_cull_nodes, cl, (p2, wi2, tms2, tMs2), node_tables,
+                     wf2 + ", shadow rays", card)
+    second = time_hier(tc.block_cull_nodes(cl, o2, d2, tm2, tM2),
+                       tc.block_cull_nodes(cl, p2, wi2, tms2, tMs2), wf2)
+    del o2, d2, tM2, p2, wi2, tMs2
     for name in first:
         errs[name] = max(errs[name], first[name]["max_abs_err"], second[name]["max_abs_err"])
     hier_ms = {"cull (node table)": timing["cull (node table)"]["ms"],
                **{k: v["ms"] for k, v in first.items()}}
     # the flat walk on the same rays, kernels and entry points: the data a
     # measured routing threshold needs
-    sph_big = tc.sphere_table(cl)
+    flat_tables = cl.cull_tables
     fcr1 = tc.block_cull(cl, o1, d1, cfg.t_min, cfg.t_max)
     fcr_sh = tc.block_cull(cl, p_hit, wi, cfg.shadow_t_min, t_sh)
     flat = dict(
-        cull_ms=cuda_ms(lambda: tc.cull_blocks(rays8_1, sph_big), reps=3),
+        cull_ms=cuda_ms(lambda: tc.cull_blocks(rays8_1, *flat_tables), reps=3),
         closest_ms=cuda_ms(lambda: tc.closest_sweep(cl.rows, cl.xf_inv, fcr1, c), reps=3),
         any_ms=cuda_ms(lambda: tc.any_sweep(cl.rows, cl.xf_inv, fcr_sh, c), reps=3),
         max_entries_per_block=int(fcr1.count.max()),

@@ -52,6 +52,14 @@ class ClusterSet:
         return self.num_clusters * self.cluster_size
 
     @functools.cached_property
+    def cull_tables(self):
+        """The flat cull's (member table, group boxes), built once per set."""
+        from ..ops.traverse_cluster import group_boxes, sphere_table
+
+        sph_t = sphere_table(self)
+        return sph_t, group_boxes(sph_t)
+
+    @functools.cached_property
     def node_tables(self):
         """The hierarchical walk's `NodeTables`, built once per set."""
         from ..ops.traverse_cluster import _node_tables

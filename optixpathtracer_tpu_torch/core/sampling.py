@@ -1,6 +1,9 @@
-"""Sample warps of the Disney sampler (port of the warps of
-optixpathtracer_tpu/core/sampling.py that the slice uses; the
-stratified/blue-noise strategies wait for ROADMAP A.5)."""
+"""Sample warping library (port of optixpathtracer_tpu/core/sampling.py):
+the warps of uniforms to directions, the stratified and jittered-grid draws
+and the MIS heuristics, batched over the leading shape. The host-side
+blue-noise point sets (`best_candidate_blue_noise`,
+`projective_blue_noise`) come with the `sampling=` strategies that use them
+(ROADMAP A.2 / A.5)."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -8,8 +11,16 @@ from typing import Tuple
 import torch
 
 from .math import TWO_PI, Vec3
+from .rng import RngState, randf, randf2
 
 Tensor = torch.Tensor
+
+
+def uniform_sample_sphere(u1: Tensor, u2: Tensor) -> Vec3:
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = TWO_PI * u2
+    return Vec3(r * torch.cos(phi), r * torch.sin(phi), z)
 
 
 def uniform_sample_hemisphere(u1: Tensor, u2: Tensor) -> Vec3:
@@ -26,8 +37,48 @@ def uniform_sample_disc(u1: Tensor, u2: Tensor) -> Tuple[Tensor, Tensor]:
     return r * torch.cos(theta), r * torch.sin(theta)
 
 
+def uniform_sample_triangle(u1: Tensor, u2: Tensor) -> Tuple[Tensor, Tensor]:
+    r = torch.sqrt(u1)
+    return 1.0 - r, u2 * r
+
+
 def cosine_sample_hemisphere(u1: Tensor, u2: Tensor) -> Vec3:
     """pdf = cos(theta)/pi."""
     x, y = uniform_sample_disc(u1, u2)
     z = torch.sqrt(torch.clamp(1.0 - x * x - y * y, min=0.0))
     return Vec3(x, y, z)
+
+
+def _cell(c: Tensor, dx: int, dy: int) -> Tuple[Tensor, Tensor]:
+    """Cell (x, y) of sample index c in a dx x dy grid, as float32."""
+    return (c % dx).to(torch.float32), ((c // dx) % dy).to(torch.float32)
+
+
+def stratified_sample_1d(c: Tensor, dx: int, state: RngState) -> Tuple[RngState, Tensor]:
+    state, j = randf(state)
+    return state, ((c % dx).to(torch.float32) + j) / dx
+
+
+def stratified_sample_2d(c: Tensor, dx: int, dy: int,
+                         state: RngState) -> Tuple[RngState, Tensor, Tensor]:
+    x, y = _cell(c, dx, dy)
+    state, j1, j2 = randf2(state)
+    return state, (x + j1) / dx, (y + j2) / dy
+
+
+def uniform_grid_sample_2d(c: Tensor, dx: int, dy: int) -> Tuple[Tensor, Tensor]:
+    x, y = _cell(c, dx, dy)
+    return x / dx, y / dy
+
+
+def power_heuristic(nf: Tensor, f_pdf: Tensor, ng: Tensor, g_pdf: Tensor) -> Tensor:
+    f = nf * f_pdf
+    g = ng * g_pdf
+    return (f * f) / torch.clamp(f * f + g * g, min=1e-20)
+
+
+def balance_heuristic(nf: Tensor, f_pdf: Tensor, ng: Tensor, g_pdf: Tensor) -> Tensor:
+    """The reference's MIS weight shape (deviceProgram.cu:279-287)."""
+    f = nf * f_pdf
+    g = ng * g_pdf
+    return f / torch.clamp(f + g, min=1e-20)

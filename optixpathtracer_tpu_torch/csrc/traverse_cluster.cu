@@ -57,9 +57,9 @@
 // float4 rows) but pack every member's running rays onto the block's
 // threads and share the member's columns among the threads a ray gets; see
 // their header below.
-// The cull is light (S*8 slab tests per ray); one block of 256 threads owns
-// one 128-ray block, with the 8 members of a supercluster on 8 neighbouring
-// lanes so the per-super min-key and bit packing are warp shuffles.
+// K1, the cull, tests rays against boxes in two levels: every 16-ray
+// sub-block first against each group's own box, then against the eight
+// members of the groups it may reach; see its header below.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,37 +69,174 @@ namespace {
 constexpr int kBlock = 128;       // rays per block: the lo/hi layout is 8 sub-blocks of 16
 constexpr int kSuper = 8;         // clusters per supercluster (entry)
 constexpr int kStoreRows = 16;    // storage rows of the (S, 16, SUPER*C) triangle table
-constexpr int kCullThreads = 256; // 32 supers x 8 members per pass
+constexpr int kSub = kBlock / 8;  // rays per sub-block
+constexpr int kCullThreads = 256; // 8 warps: warp w owns sub-block w
+constexpr int kCullChunk = 1024;  // groups per pass over the tables (the shared lists' length)
 constexpr float kBig = 3.0e37f;
 constexpr int kThreadsK2 = kBlock / 2;  // two rays per thread
 constexpr int kThreadsK3 = kBlock;
 constexpr int kSlotsK2 = 1;  // staging slots of 9 x C f32
 constexpr int kSlotsK3 = 2;
 
+// NaN-propagating max / min (torch.maximum / torch.minimum), one FMNMX.NAN
+// each. Which NaN comes out reaches no output but a key that is NaN anyway.
 __device__ __forceinline__ float max_nan(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 __device__ __forceinline__ float min_nan(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 // ---------------------------------------------------------------------------
 // K1: per 128-ray block, slab test of every live ray's [0, t_max] against
-// every cluster AABB; per super the near-to-far key and the per-(sub-block,
-// member) hit bits. sph_t is the (8, M) member-major table: cluster k of
-// super sid at column k*S + sid, rows [cx cy cz r hx hy hz .].
+// every member box; per group of 8 members the near-to-far key and the
+// per-(sub-block, member) hit bits. sph_t is the (8, M) member-major table:
+// member k of group g at column k*S + g, rows [cx cy cz r hx hy hz .]; grp_t
+// the (8, S) table of the groups' own boxes in the same rows, each holding
+// its eight member boxes (`group_boxes`).
+//
+// Bound by the FP32 instruction rate: a slab test is 24 operations on 6 box
+// and 7 ray values, and the tables sit in L1/L2. The design spends
+// instructions on little else and skips most tests:
+//  - a thread keeps one box in registers and reads each ray of its warp's
+//    sub-block as two broadcast float4s (o.xyz t_max | 1/d.xyz) from shared
+//    memory, 2 LDS.128 for the 8 LDS.32 of a scalar layout (more boxes per
+//    thread cut no instruction further and cost occupancy: PERF.md);
+//  - the live rays of a sub-block are packed at load, so the ray loop has
+//    the same trip count on every lane and dead rays cost nothing; a block
+//    without a live ray writes its sentinels and returns;
+//  - warp w owns sub-block w through both levels, so the levels need no
+//    block barrier between them. Level 1, lanes over groups: the sub-block's
+//    rays against each group's box with `slab_may_hit`, which passes
+//    whenever a member test could (see there); the groups that pass are
+//    compacted into the warp's list by ballot. Level 2, 8 neighbouring lanes
+//    over the members of a listed group: the exact `slab_hits`; a ballot
+//    gives the group's 8 member bits of this sub-block in one byte;
+//  - after one barrier a thread per group assembles lo / hi from the eight
+//    sub-blocks' bytes, computes the key from the members that have a bit,
+//    and writes rows of key / lo / hi coalesced.
+// A coherent block reaches few groups, so level 2 runs for a small share of
+// them (PERF.md has the counts).
 // ---------------------------------------------------------------------------
+
+// The exact member test of `_cull_math`: does the ray's [0, t_max] meet the
+// box (q, h)? A = (o.xyz, t_max), B = (1/d.xyz, .).
+__device__ __forceinline__ bool slab_hits(const float q[3], const float h[3], const float4& A,
+                                          const float4& B) {
+  const float o[3] = {A.x, A.y, A.z}, iv[3] = {B.x, B.y, B.z};
+  float t0[3], t1[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float mid = (q[a] - o[a]) * iv[a];
+    const float rad = h[a] * fabsf(iv[a]);
+    t0[a] = mid - rad;
+    t1[a] = mid + rad;
+  }
+  const float tn = max_nan(max_nan(t0[0], t0[1]), max_nan(t0[2], 0.0f));
+  const float tf = min_nan(min_nan(t1[0], t1[1]), min_nan(t1[2], A.w));
+  return tn <= tf + fabsf(tf) * 4e-7f + 1e-30f;
+}
+
+// The group pre-test: false only if no box inside (q, h) can pass
+// `slab_hits` for this ray. Why it is conservative. Let a member box lie
+// inside the group box in real arithmetic (`group_boxes` guarantees it).
+// Per axis the member's exact interval [t0m, t1m] then lies inside the
+// group's [t0, t1], and |mid_m| <= |mid| + rad, rad_m <= rad. Each computed
+// t0 / t1 is off its exact value by at most 3 ulp-halves of |mid| + rad
+// (three roundings: the difference, the product, the sum), so with
+// mag = sum over the axes of |mid| + rad of the GROUP box, and u = 2^-24:
+//   tn <= tn_m + 9u*mag,  tf >= tf_m - 9u*mag.
+// A member hit has tn_m <= tf_m + |tf_m| * (4e-7 + 2u) + 1e-30 with
+// 0 <= tf_m <= 2*mag (or |tf_m| <= 1e-30), hence
+//   tn <= tf + (18u + 2 * 5.2e-7) * mag + 1e-30 < tf + 2.2e-6 * mag + 1e-30.
+// The test allows 1e-5 * mag + 1e-29, over four times that, which also
+// covers the roundings of mag and of the right-hand side themselves (and
+// what a denormal result loses, some 1e-45 each). It is
+// written as !(tn > ...) so that a NaN or an overflow to infinity anywhere in
+// it passes the group; mag is infinite or NaN whenever a group value is.
+__device__ __forceinline__ bool slab_may_hit(const float q[3], const float h[3], const float4& A,
+                                             const float4& B) {
+  const float o[3] = {A.x, A.y, A.z}, iv[3] = {B.x, B.y, B.z};
+  float t0[3], t1[3], mg[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float mid = (q[a] - o[a]) * iv[a];
+    const float rad = h[a] * fabsf(iv[a]);
+    t0[a] = mid - rad;
+    t1[a] = mid + rad;
+    mg[a] = fabsf(mid) + rad;
+  }
+  const float tn = max_nan(max_nan(t0[0], t0[1]), max_nan(t0[2], 0.0f));
+  const float tf = min_nan(min_nan(t1[0], t1[1]), min_nan(t1[2], A.w));
+  const float mag = (mg[0] + mg[1]) + mg[2];
+  return !(tn > tf + (mag * 1e-5f + 1e-29f));
+}
+
+// Level 1 for one row of 32 groups, lane over groups: returns the list's new
+// length. Every group of the row gets its byte of `bits` zeroed; level 2
+// overwrites those of the groups listed.
+__device__ __forceinline__ int pretest_row(const float* __restrict__ grp_t, int s, int g0, int ng,
+                                           int row, const float4 (*__restrict__ rays)[2], int n,
+                                           unsigned short* __restrict__ list, int len,
+                                           unsigned char* __restrict__ bits) {
+  const int lane = threadIdx.x & 31;
+  const int g = row * 32 + lane;
+  const int col = g0 + (g < ng ? g : 0);
+  float q[3], h[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    q[a] = __ldg(grp_t + a * s + col);
+    h[a] = __ldg(grp_t + (4 + a) * s + col);
+  }
+  bool may = false;
+  for (int r = 0; r < n; ++r) may |= slab_may_hit(q, h, rays[r][0], rays[r][1]);
+  const bool pass = may && g < ng;
+  const unsigned bal = __ballot_sync(0xffffffffu, pass);
+  if (pass) list[len + __popc(bal & ((1u << lane) - 1u))] = (unsigned short)g;
+  if (g < ng) bits[g] = 0;
+  return len + __popc(bal);
+}
+
+// Level 2 for one row of 4 listed groups, 8 neighbouring lanes over a group's
+// members: writes each group's byte of member bits.
+__device__ __forceinline__ void member_row(const float* __restrict__ sph_t, int m, int s, int g0,
+                                           int i0, int len, const float4 (*__restrict__ rays)[2],
+                                           int n, const unsigned short* __restrict__ list,
+                                           unsigned char* __restrict__ bits) {
+  const int lane = threadIdx.x & 31;
+  const int k = lane & (kSuper - 1);
+  const int i = i0 + (lane >> 3);
+  const int g = i < len ? list[i] : -1;
+  const int col = k * s + g0 + (g < 0 ? 0 : g);
+  float q[3], h[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    q[a] = __ldg(sph_t + a * m + col);
+    h[a] = __ldg(sph_t + (4 + a) * m + col);
+  }
+  bool hit = false;
+  for (int r = 0; r < n; ++r) hit |= slab_hits(q, h, rays[r][0], rays[r][1]);
+  const unsigned bal = __ballot_sync(0xffffffffu, hit && g >= 0);
+  if (k == 0 && g >= 0) bits[g] = (unsigned char)(bal >> (lane & 24));
+}
+
 __global__ void __launch_bounds__(kCullThreads)
-cull_kernel(const float* __restrict__ rays8, const float* __restrict__ sph_t, int m, int s,
-            float* __restrict__ key_out, uint32_t* __restrict__ lo_out,
-            uint32_t* __restrict__ hi_out, int* __restrict__ count_out) {
-  __shared__ float s_o[3][kBlock];
-  __shared__ float s_iv[3][kBlock];
-  __shared__ float s_tmax[kBlock];
-  __shared__ int s_alive[kBlock];
+cull_kernel(const float* __restrict__ rays8, const float* __restrict__ sph_t,
+            const float* __restrict__ grp_t, int m, int s, float* __restrict__ key_out,
+            uint32_t* __restrict__ lo_out, uint32_t* __restrict__ hi_out,
+            int* __restrict__ count_out) {
+  __shared__ float4 s_ray[kBlock][2];  // a sub-block's live rays packed to its front
+  __shared__ int s_live[kBlock / kSub];
   __shared__ float s_box[6][kCullThreads / 32];
-  __shared__ int s_count;
+  __shared__ float s_ob[3], s_hb[3];   // the live origins' box: centre, half extent
+  __shared__ unsigned short s_list[kBlock / kSub][kCullChunk];
+  __shared__ unsigned char s_bits[kBlock / kSub][kCullChunk];
+  __shared__ int s_count[kCullThreads / 32];
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -109,21 +246,25 @@ cull_kernel(const float* __restrict__ rays8, const float* __restrict__ sph_t, in
   float blo[3] = {kBig, kBig, kBig};
   float bhi[3] = {-kBig, -kBig, -kBig};
   int alive = 0;
-  if (tid < kBlock) {
-    const float* r = rays8 + ((size_t)b * kBlock + tid) * 8;
-    alive = r[7] > r[6];
+  if (tid < kBlock) {  // whole warps: the ballot below is among them
+    const float4* r4 = reinterpret_cast<const float4*>(rays8) + ((size_t)b * kBlock + tid) * 2;
+    const float4 r0 = r4[0], r1 = r4[1];  // o.xyz d.x | d.yz t_min t_max
+    alive = r1.w > r1.z;
+    const float o[3] = {r0.x, r0.y, r0.z}, d[3] = {r0.w, r1.x, r1.y};
+    float iv[3];
     for (int a = 0; a < 3; ++a) {
-      const float o = r[a];
-      const float d = r[3 + a];
-      s_o[a][tid] = o;
-      s_iv[a][tid] = 1.0f / (fabsf(d) > 1e-30f ? d : 1e-30f);
-      blo[a] = alive ? o : kBig;
-      bhi[a] = alive ? o : -kBig;
+      iv[a] = 1.0f / (fabsf(d[a]) > 1e-30f ? d[a] : 1e-30f);
+      blo[a] = alive ? o[a] : kBig;
+      bhi[a] = alive ? o[a] : -kBig;
     }
-    s_tmax[tid] = r[7];
-    s_alive[tid] = alive;
+    const unsigned half = (__ballot_sync(0xffffffffu, alive) >> (lane & kSub)) & 0xffffu;
+    if (alive) {
+      float4* dst = s_ray[(tid & ~(kSub - 1)) + __popc(half & ((1u << (lane & (kSub - 1))) - 1u))];
+      dst[0] = make_float4(o[0], o[1], o[2], r1.w);
+      dst[1] = make_float4(iv[0], iv[1], iv[2], 0.0f);
+    }
+    if ((lane & (kSub - 1)) == 0) s_live[tid / kSub] = __popc(half);
   }
-  if (tid == 0) s_count = 0;
   for (int a = 0; a < 3; ++a) {
     for (int off = 16; off > 0; off >>= 1) {
       blo[a] = min_nan(blo[a], __shfl_xor_sync(0xffffffffu, blo[a], off));
@@ -134,74 +275,78 @@ cull_kernel(const float* __restrict__ rays8, const float* __restrict__ sph_t, in
       s_box[3 + a][warp] = bhi[a];
     }
   }
-  const int alive_any = __syncthreads_or(alive);
-  float ob[3], hb[3];
-  for (int a = 0; a < 3; ++a) {
-    float lo = s_box[a][0], hi = s_box[3 + a][0];
-    for (int w = 1; w < kCullThreads / 32; ++w) {
-      lo = min_nan(lo, s_box[a][w]);
-      hi = max_nan(hi, s_box[3 + a][w]);
+  if (!__syncthreads_or(alive)) {  // no live ray: no bit, every key a miss
+    for (int g = tid; g < s; g += kCullThreads) {
+      const size_t o = (size_t)b * s + g;
+      key_out[o] = kBig;
+      lo_out[o] = 0;
+      hi_out[o] = 0;
     }
-    lo = alive_any ? lo : 0.0f;
-    hi = alive_any ? hi : 0.0f;
-    ob[a] = 0.5f * (lo + hi);
-    hb[a] = 0.5f * (hi - lo);
+    if (tid == 0) count_out[b] = 0;
+    return;
+  }
+  if (tid < 3) {
+    float lo = s_box[tid][0], hi = s_box[3 + tid][0];
+    for (int w = 1; w < kCullThreads / 32; ++w) {
+      lo = min_nan(lo, s_box[tid][w]);
+      hi = max_nan(hi, s_box[3 + tid][w]);
+    }
+    s_ob[tid] = 0.5f * (lo + hi);
+    s_hb[tid] = 0.5f * (hi - lo);
   }
 
-  const int k = tid & (kSuper - 1);
+  const float4 (*rays)[2] = s_ray + warp * kSub;
+  const int n = s_live[warp];
+  unsigned short* const list = s_list[warp];
+  unsigned char* const bits = s_bits[warp];
   int count = 0;
-  for (int sbase = 0; sbase < s; sbase += kCullThreads / kSuper) {
-    const int sid = sbase + (tid >> 3);
-    uint32_t lo = 0, hi = 0;
-    float ckey = kBig;
-    if (sid < s) {
-      const int col = k * s + sid;
-      const float q[3] = {sph_t[col], sph_t[m + col], sph_t[2 * m + col]};
-      const float h[3] = {sph_t[4 * m + col], sph_t[5 * m + col], sph_t[6 * m + col]};
-      uint32_t bits = 0;  // bit s8: some live ray of sub-block s8 hits the box
-      for (int r = 0; r < kBlock; ++r) {
-        if (!s_alive[r]) continue;
-        float t0[3], t1[3];
-        for (int a = 0; a < 3; ++a) {
-          const float iv = s_iv[a][r];
-          const float mid = (q[a] - s_o[a][r]) * iv;
-          const float rad = h[a] * fabsf(iv);
-          t0[a] = mid - rad;
-          t1[a] = mid + rad;
-        }
-        const float tn = max_nan(max_nan(t0[0], t0[1]), max_nan(t0[2], 0.0f));
-        const float tf = min_nan(min_nan(t1[0], t1[1]), min_nan(t1[2], s_tmax[r]));
-        if (tn <= tf + fabsf(tf) * 4e-7f + 1e-30f) bits |= 1u << (r >> 4);
+  for (int g0 = 0; g0 < s; g0 += kCullChunk) {
+    const int ng = min(kCullChunk, s - g0);
+    // level 1: the groups this sub-block may reach
+    int len = 0;
+    for (int row = 0; row * 32 < ng; ++row)
+      len = pretest_row(grp_t, s, g0, ng, row, rays, n, list, len, bits);
+    __syncwarp();
+    // level 2: their members
+    for (int i0 = 0; i0 < len; i0 += 4) member_row(sph_t, m, s, g0, i0, len, rays, n, list, bits);
+    __syncthreads();  // every sub-block's bytes of this chunk (and s_ob / s_hb)
+    for (int g = tid; g < ng; g += kCullThreads) {
+      uint32_t lo = 0, hi = 0;
+#pragma unroll
+      for (int s8 = 0; s8 < 4; ++s8) {
+        lo |= (uint32_t)s_bits[s8][g] << (8 * s8);
+        hi |= (uint32_t)s_bits[4 + s8][g] << (8 * s8);
       }
-      float sep[3];
-      for (int a = 0; a < 3; ++a) sep[a] = max_nan(fabsf(q[a] - ob[a]) - (h[a] + hb[a]), 0.0f);
-      const float dist = sqrtf(sep[0] * sep[0] + sep[1] * sep[1] + sep[2] * sep[2]) * 0.9999996f;
-      ckey = bits ? dist : kBig;
-      for (int s8 = 0; s8 < 8; ++s8) {
-        if ((bits >> s8) & 1u) {
-          if (s8 < 4) lo |= 1u << (s8 * 8 + k);
-          else hi |= 1u << ((s8 - 4) * 8 + k);
-        }
+      uint32_t mem = lo | hi;  // members some sub-block hits
+      mem |= mem >> 16;
+      mem = (mem | (mem >> 8)) & 0xffu;
+      // the min over all 8 members of (hit ? dist : BIG)
+      float key = mem == 0xffu ? __int_as_float(0x7f800000) : kBig;
+      while (mem) {
+        const int col = (__ffs(mem) - 1) * s + g0 + g;
+        mem &= mem - 1;
+        float sep[3];
+        for (int a = 0; a < 3; ++a)
+          sep[a] = max_nan(fabsf(sph_t[a * m + col] - s_ob[a]) - (sph_t[(4 + a) * m + col] + s_hb[a]), 0.0f);
+        key = min_nan(key, sqrtf(sep[0] * sep[0] + sep[1] * sep[1] + sep[2] * sep[2]) * 0.9999996f);
       }
-    }
-    // the super's 8 members sit on 8 neighbouring lanes
-    for (int off = 1; off < kSuper; off <<= 1) {
-      lo |= __shfl_xor_sync(0xffffffffu, lo, off);
-      hi |= __shfl_xor_sync(0xffffffffu, hi, off);
-      ckey = min_nan(ckey, __shfl_xor_sync(0xffffffffu, ckey, off));
-    }
-    if (k == 0 && sid < s) {
       const bool any = (lo | hi) != 0;
-      const size_t o = (size_t)b * s + sid;
-      key_out[o] = any ? ckey : kBig;
+      const size_t o = (size_t)b * s + g0 + g;
+      key_out[o] = any ? key : kBig;
       lo_out[o] = lo;
       hi_out[o] = hi;
       count += any;
     }
+    if (g0 + kCullChunk < s) __syncthreads();  // the bytes are read before the next chunk's are written
   }
-  if (count) atomicAdd(&s_count, count);
+  for (int off = 16; off > 0; off >>= 1) count += __shfl_xor_sync(0xffffffffu, count, off);
+  if (lane == 0) s_count[warp] = count;
   __syncthreads();
-  if (tid == 0) count_out[b] = s_count;
+  if (tid == 0) {
+    int total = 0;
+    for (int w = 0; w < kCullThreads / 32; ++w) total += s_count[w];
+    count_out[b] = total;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -936,12 +1081,13 @@ any_hier_kernel(const float* __restrict__ rays8, const int* __restrict__ ids,
 // contiguous tensors checked by the Python wrappers; `stream` is the
 // caller's cudaStream_t. Each returns cudaGetLastError() after its launch.
 // ---------------------------------------------------------------------------
-extern "C" int cull_launch(int device, const void* rays8, const void* sph_t, int nr, int m,
-                           void* key, void* lo, void* hi, void* count, void* stream) {
+extern "C" int cull_launch(int device, const void* rays8, const void* sph_t, const void* grp_t,
+                           int nr, int m, void* key, void* lo, void* hi, void* count,
+                           void* stream) {
   cudaSetDevice(device);
   cull_kernel<<<nr, kCullThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)rays8, (const float*)sph_t, m, m / kSuper, (float*)key, (uint32_t*)lo,
-      (uint32_t*)hi, (int*)count);
+      (const float*)rays8, (const float*)sph_t, (const float*)grp_t, m, m / kSuper, (float*)key,
+      (uint32_t*)lo, (uint32_t*)hi, (int*)count);
   return (int)cudaGetLastError();
 }
 

@@ -27,6 +27,7 @@ from ..core.math import Vec3
 from ..core.rng import M32
 from ..lights.probe import Probe
 from ..ops import tonemap
+from .renderer import ProgressiveState, frame_stats
 from .wavefront import CameraParams, RenderConfig, trace_wavefront
 
 Tensor = torch.Tensor
@@ -235,7 +236,7 @@ def _fused_step(cs: CompiledScene, probe: Probe, cfg: RenderConfig,
     return _fold_and_splat(cfg, zones, grids, out.color, accum, subframe), out.rays_traced
 
 
-class FoveatedRenderer:
+class FoveatedRenderer(ProgressiveState):
     """Three-zone gaze-contingent progressive renderer (sv4 engine); renders
     on the compiled scene's device."""
 
@@ -252,18 +253,13 @@ class FoveatedRenderer:
         self.fused = fused
         self.zones = self.fov.zones(config.width, config.height)
         self.accum = Vec3.zeros((config.width * config.height,), self.device)
-        self.subframe_index = 0
+        super().__init__()
         self.gaze = (config.width // 2, config.height // 2)
         self.last_rays = 0.0
-        self._frame_times: list[float] = []
 
     def set_gaze(self, x: int, y: int) -> None:
         """Gaze in image coords (the reference uses the mouse cursor)."""
         self.gaze = (int(x), int(y))
-
-    def set_camera(self, camera: Camera) -> None:
-        self.camera = camera
-        self.subframe_index = 0
 
     def render(self, download: bool = True) -> np.ndarray | None:
         """One frame of all zones; returns the tone-mapped (H, W, 4) uint8
@@ -303,11 +299,7 @@ class FoveatedRenderer:
         return img.reshape(h, w, 3)[::-1]
 
     def stats(self) -> dict:
-        times = self._frame_times[-64:]
-        if not times:
-            return {"frames": 0}
-        return {
-            "frames": self.subframe_index,
-            "fps": 1.0 / max(float(np.mean(times)), 1e-9),
-            "last_rays": self.last_rays,
-        }
+        out = frame_stats(self.subframe_index, self._frame_times)
+        if not out["frames"]:
+            return out
+        return {"frames": out["frames"], "fps": out["fps"], "last_rays": self.last_rays}

@@ -1,6 +1,7 @@
 """Progressive renderer: owns the framebuffer state and runs one wavefront
 launch per `render()` (port of optixpathtracer_tpu/engine/renderer.py;
-AOVs and checkpoints are ROADMAP A.5).
+`aovs`, `save_checkpoint` / `load_checkpoint` are ROADMAP A.5,
+`denoised_image` A.7, the area light and demand-loaded textures A.11).
 
 Pixels are traced in 16x8 tiles, not scanlines: the cluster traversal culls
 per 128-ray block, and a tile's rays form a far tighter bundle. The tile
@@ -9,6 +10,7 @@ permutation is static; image outputs are unpermuted on read.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -29,7 +31,36 @@ def _render_step(cs, probe, cfg, cam, pixel_x, pixel_y, accum: Vec3, subframe: i
     return new_accum, frame, out
 
 
-class Renderer:
+def frame_stats(frames: int, frame_times: list[float]) -> dict:
+    """Frame statistics over the last 64 frame times (displayStats,
+    sutil.cpp:723-783): {"frames": 0} before the first frame."""
+    times = frame_times[-64:]
+    if not times:
+        return {"frames": 0}
+    mean = float(np.mean(times))
+    return {"frames": frames, "last_frame_s": times[-1], "mean_frame_s": mean,
+            "fps": 1.0 / max(mean, 1e-9)}
+
+
+class ProgressiveState:
+    """What the progressive renderers share: a change of view or of sky
+    restarts the accumulation, and every frame's host time is kept for
+    `stats`. Subclasses own `camera`, `probe`, `config`, `subframe_index`."""
+
+    def __init__(self):
+        self.subframe_index = 0
+        self._frame_times: list[float] = []
+
+    def set_camera(self, camera: Camera) -> None:
+        self.camera = camera
+        self.subframe_index = 0  # camera motion restarts accumulation
+
+    def set_probe(self, probe: Probe) -> None:
+        self.probe = probe
+        self.subframe_index = 0
+
+
+class Renderer(ProgressiveState):
     """Progressive path-tracing renderer over a compiled scene; renders on
     the compiled scene's device."""
 
@@ -42,7 +73,7 @@ class Renderer:
         self.probe = probe
         self.config = config or RenderConfig()
         self.camera = camera or Camera()
-        self.subframe_index = 0
+        super().__init__()
         self.resize(self.config.width, self.config.height)
 
     def resize(self, width: int, height: int) -> None:
@@ -64,9 +95,14 @@ class Renderer:
         self._last: SampleOutput | None = None
         self._frame_u8 = None
 
+    def set_camera(self, camera: Camera) -> None:
+        camera.aspect_ratio = self.config.width / self.config.height
+        super().set_camera(camera)
+
     def render(self, download: bool = True) -> np.ndarray | None:
         """One progressive launch; returns the (H, W, 4) uint8 frame (or
         None with download=False, leaving the frame on the device)."""
+        t0 = time.perf_counter()
         cam = CameraParams.from_camera(self.camera, self.device)
         tiles = max(1, self.config.dispatch_tiles)
         n = self._px.shape[0]
@@ -88,6 +124,7 @@ class Renderer:
             torch.cuda.synchronize(self.device)
         self.subframe_index += 1
         self._frame_u8 = frame
+        self._frame_times.append(time.perf_counter() - t0)
         return self.download_pixels() if download else None
 
     def render_n(self, n: int) -> np.ndarray:
@@ -117,6 +154,12 @@ class Renderer:
 
     def accum_image(self) -> np.ndarray:
         return self._to_image(self.accum)
+
+    def stats(self) -> dict:
+        out = frame_stats(self.subframe_index, self._frame_times)
+        if out["frames"]:
+            out["total_spp"] = self.subframe_index * self.config.samples_per_launch
+        return out
 
 
 def _merge_outputs(outs: list[SampleOutput]) -> SampleOutput:

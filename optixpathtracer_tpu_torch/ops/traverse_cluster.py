@@ -8,8 +8,11 @@ Flat path (scenes below HIER_MIN_ENTRIES entries):
   1. CULL (kernel K1, `cull_blocks`): per block, an exact slab test of each
      live ray's [0, t_max] against every cluster AABB; per supercluster
      ("entry") a near-to-far key (box-to-box distance lower bound) and
-     per-(16-ray sub-block, member cluster) hit bits. `block_cull` then
-     sorts each block's entries by key (stable).
+     per-(16-ray sub-block, member cluster) hit bits. The kernel tests a
+     sub-block's rays against an entry's own box first (`group_boxes`,
+     `_group_pretest_torch`) and against its members only where that may
+     hit, which changes no output. `block_cull` then sorts each block's
+     entries by key (stable).
   2. SWEEP (kernels K2 `closest_sweep`, K3 `any_sweep`): per block, walk the
      surviving entries near to far, evaluating exact f32 Moller-Trumbore for
      the (sub-block, member) pairs the cull allowed.
@@ -31,10 +34,10 @@ Each kernel has a plain PyTorch version here (`_cull_torch`,
 with the same arithmetic, op for op. A wrapper takes the plain version for
 CPU tensors and launches its CUDA kernel (csrc/traverse_cluster.cu) for
 CUDA tensors, or raises; there is no fallback from one to the other.
-`launch_counts` counts kernel launches. `sweep_work` / `sweep_work_hier`
-count the ray-triangle pairs and slab tests the sweeps' inputs need, the
-operand of each kernel's compute bound, and for the node walk the members a
-block must stage, the operand of its bytes bound.
+`launch_counts` counts kernel launches. `cull_work`, `sweep_work` and
+`sweep_work_hier` count the slab tests and ray-triangle pairs the kernels'
+inputs need, the operand of each kernel's compute bound, and for the node
+walk the members a block must stage, the operand of its bytes bound.
 """
 from __future__ import annotations
 
@@ -124,21 +127,13 @@ def _pack_rays8(cs: ClusterSet, o: Vec3, d: Vec3, t_min, t_max) -> Tensor:
     tm = _pad1(t_min, nb, 1.0)
     tM = _pad1(t_max, nb, 0.0)
     bb = cs.scene_aabb
-    ix, iy, iz = _safe_recip(dx), _safe_recip(dy), _safe_recip(dz)
-    t0x = (bb[0] - ox) * ix
-    t1x = (bb[3] - ox) * ix
-    t0y = (bb[1] - oy) * iy
-    t1y = (bb[4] - oy) * iy
-    t0z = (bb[2] - oz) * iz
-    t1z = (bb[5] - oz) * iz
-    entry = torch.maximum(
-        torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
-        torch.clamp(torch.minimum(t0z, t1z), min=0.0),
-    )
-    exit_ = torch.minimum(
-        torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
-        torch.maximum(t0z, t1z),
-    )
+    # the three axes as rows of one tensor: a third of the launches
+    o3 = torch.stack([ox, oy, oz])
+    iv = _safe_recip(torch.stack([dx, dy, dz]))
+    t0 = (bb[0:3, None] - o3) * iv
+    t1 = (bb[3:6, None] - o3) * iv
+    entry = torch.clamp(torch.minimum(t0, t1).amax(dim=0), min=0.0)
+    exit_ = torch.maximum(t0, t1).amin(dim=0)
     reach_cap = torch.where(exit_ >= entry, torch.clamp(exit_, min=0.0), 0.0)
     tM = torch.minimum(tM, reach_cap * (1.0 + 1e-5) + 1e-6)
     return torch.stack([ox, oy, oz, dx, dy, dz, tm, tM], dim=1)
@@ -150,6 +145,68 @@ def sphere_table(cs: ClusterSet) -> Tensor:
     m = cs.spheres.shape[0]
     sn = m // SUPER
     return cs.spheres.reshape(sn, SUPER, 8).transpose(0, 1).reshape(m, 8).T.contiguous()
+
+
+def group_boxes(sph_t: Tensor) -> Tensor:
+    """(8, S) boxes of the groups of a member-major (8, S*8) table, rows
+    [cx cy cz . hx hy hz .] like the table's: each contains its 8 member
+    boxes in real arithmetic, which the kernel's group pre-test builds on.
+    The union is taken in float64; the half extent takes up what rounding
+    the centre to float32 moved it, and the float64 roundings, and is
+    rounded up."""
+    m = sph_t.shape[1]
+    t = sph_t.double().reshape(8, SUPER, m // SUPER)
+    lo = (t[0:3] - t[4:7]).amin(dim=1)
+    hi = (t[0:3] + t[4:7]).amax(dim=1)
+    mid = 0.5 * (lo + hi)
+    ctr = mid.float()
+    half = 0.5 * (hi - lo) + (ctr.double() - mid).abs() + 1e-15 * (lo.abs() + hi.abs())
+    half = torch.nextafter(half.float(), torch.full_like(ctr, torch.inf))
+    out = torch.zeros((8, m // SUPER), dtype=torch.float32, device=sph_t.device)
+    out[0:3] = ctr
+    out[4:7] = half
+    return out
+
+
+def _group_pretest_torch(rays8: Tensor, grp_t: Tensor) -> Tensor:
+    """Plain PyTorch version of kernel K1's first level, op for op
+    (`slab_may_hit`): (NR, 8, S) bool, sub-block s8 of block b holds a live
+    ray that may hit a box inside group g's. Conservative: wherever
+    `_cull_torch` sets a bit of (s8, member k of g) this is true; false
+    lets the kernel skip the group's 8 member tests for the sub-block."""
+    nr = rays8.shape[0] // BLOCK
+    s = grp_t.shape[1]
+    rb = rays8.reshape(nr, BLOCK, 8)
+    out = []
+    chunk = max(1, (1 << 22) // (BLOCK * s))
+    for c0 in range(0, nr, chunk):
+        r = rb[c0 : c0 + chunk]
+        alive = r[:, :, 7:8] > r[:, :, 6:7]
+        t0, t1, mg = [], [], []
+        for a in range(3):
+            iv = _safe_recip(r[:, :, 3 + a : 4 + a])
+            mid = (grp_t[a].reshape(1, 1, s) - r[:, :, a : a + 1]) * iv
+            rad = grp_t[4 + a].reshape(1, 1, s) * iv.abs()
+            t0.append(mid - rad)
+            t1.append(mid + rad)
+            mg.append(mid.abs() + rad)
+        tn = torch.maximum(torch.maximum(t0[0], t0[1]), torch.clamp(t0[2], min=0.0))
+        tf = torch.minimum(torch.minimum(t1[0], t1[1]), torch.minimum(t1[2], r[:, :, 7:8]))
+        mag = (mg[0] + mg[1]) + mg[2]
+        may = alive & ~(tn > tf + (mag * 1e-5 + 1e-29))
+        out.append(may.reshape(-1, 8, BLOCK // 8, s).any(dim=2))
+    return torch.cat(out)
+
+
+def cull_work(rays8: Tensor, sph_t: Tensor, grp_t: Tensor) -> "SweepWork":
+    """K1's work on these rays, as slab tests: a group test of every live ray
+    against every group, and the 8 member tests of a sub-block's live rays
+    for each group its pre-test passes (`SweepWork.slab_tests`). A test of
+    every live ray against every member would be live rays x sph_t.shape[1]."""
+    nr = rays8.shape[0] // BLOCK
+    live = (rays8[:, 7] > rays8[:, 6]).reshape(nr, 8, BLOCK // 8).sum(dim=2)  # (NR, 8)
+    passed = _group_pretest_torch(rays8, grp_t).sum(dim=2)  # (NR, 8) groups per sub-block
+    return SweepWork(0, 0, int(live.sum()) * grp_t.shape[1] + int((live * passed).sum()) * SUPER)
 
 
 def _cull_torch(rays8: Tensor, sph_t: Tensor):
@@ -218,7 +275,7 @@ def _cull_torch(rays8: Tensor, sph_t: Tensor):
 def _lib():
     lib = load("traverse_cluster")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cull_launch.argtypes = [i, p, p, i, i, p, p, p, p, p]
+    lib.cull_launch.argtypes = [i, p, p, p, i, i, p, p, p, p, p]
     lib.closest_launch.argtypes = [i] + [p] * 10 + [i, i, i] + [p] * 4
     lib.any_launch.argtypes = [i] + [p] * 9 + [i, i, i] + [p] * 2
     lib.closest_hier_launch.argtypes = [i] + [p] * 9 + [i, i, i] + [p] * 4
@@ -229,38 +286,51 @@ def _lib():
     return lib
 
 
-def cull_blocks(rays8: Tensor, sph_t: Tensor):
-    """Kernel K1. Returns (key (NR, S) f32, lo (NR, S) int32, hi, count (NR, 1))."""
-    if rays8.device.type == "cpu":
-        return _cull_torch(rays8, sph_t)
-    dev_idx, stream = launch_env(rays8)
+def cull_blocks(rays8: Tensor, sph_t: Tensor, grp_t: Tensor):
+    """Kernel K1 on the member table sph_t and its groups' boxes grp_t
+    (`group_boxes(sph_t)`, which only the kernel reads). Returns (key (NR, S)
+    f32, lo (NR, S) int32, hi, count (NR, 1))."""
     nr = rays8.shape[0] // BLOCK
     m = sph_t.shape[1]
     s = m // SUPER
+    check_tensor(grp_t, "grp_t", torch.float32, rays8.device, (8, s))
+    if rays8.device.type == "cpu":
+        return _cull_torch(rays8, sph_t)
+    dev_idx, stream = launch_env(rays8)
     check_tensor(rays8, "rays8", torch.float32, rays8.device, (nr * BLOCK, 8))
     check_tensor(sph_t, "sph_t", torch.float32, rays8.device, (8, s * SUPER))
+    if rays8.data_ptr() % 16:
+        raise ValueError("rays8 must start on a 16-byte boundary (the cull reads a ray as two 16-byte words)")
     key = torch.empty((nr, s), dtype=torch.float32, device=rays8.device)
     lo = torch.empty((nr, s), dtype=torch.int32, device=rays8.device)
     hi = torch.empty_like(lo)
     count = torch.empty((nr, 1), dtype=torch.int32, device=rays8.device)
     raise_on(_lib().cull_launch(
-        dev_idx, rays8.data_ptr(), sph_t.data_ptr(), nr, m, key.data_ptr(),
+        dev_idx, rays8.data_ptr(), sph_t.data_ptr(), grp_t.data_ptr(), nr, m, key.data_ptr(),
         lo.data_ptr(), hi.data_ptr(), count.data_ptr(), stream), "cull")
     launch_counts["cull"] += 1
     return key, lo, hi, count
 
 
-def block_cull(cs: ClusterSet, o: Vec3, d: Vec3, t_min, t_max) -> CullResult:
-    """Stage 1: the per-block cull, then a stable sort of each block's
-    entries near-to-far (ties keep entry order, as lax.sort does)."""
-    rays8 = _pack_rays8(cs, o, d, t_min, t_max)
-    key, lo, hi, count = cull_blocks(rays8, sphere_table(cs))
+def _sort_cull(key: Tensor, lo: Tensor, hi: Tensor):
+    """Each block's groups near to far: a stable sort of the keys (ties keep
+    group order, as lax.sort does) and the bit words moved along. Returns
+    (order (NR, S) int64, keys, lo, hi)."""
     keys, order = torch.sort(key, dim=1, stable=True)
+    return order, keys, torch.gather(lo, 1, order), torch.gather(hi, 1, order)
+
+
+def block_cull(cs: ClusterSet, o: Vec3, d: Vec3, t_min, t_max) -> CullResult:
+    """Stage 1: the per-block cull, then each block's entries sorted
+    near-to-far (`_sort_cull`)."""
+    rays8 = _pack_rays8(cs, o, d, t_min, t_max)
+    key, lo, hi, count = cull_blocks(rays8, *cs.cull_tables)
+    order, keys, lo, hi = _sort_cull(key, lo, hi)
     return CullResult(
         ids=order.to(torch.int32),
         keys=keys,
-        bits_lo=torch.gather(lo, 1, order),
-        bits_hi=torch.gather(hi, 1, order),
+        bits_lo=lo,
+        bits_hi=hi,
         rowix=cs.entry_row[order],
         xfix=cs.entry_xf[order],
         count=count,
@@ -435,7 +505,8 @@ class SweepWork(NamedTuple):
 
 MT_OPS = 45  # FP32 mul/add/sub of one M-T pair up to its edge tests (un-fused; the
 #   divide runs only for the ~0.4 % of pairs that pass them and is not counted)
-SLAB_OPS = 24  # FP32 sub/mul/add/min/max of one ray-box slab test (K1, the re-cull)
+SLAB_OPS = 24  # FP32 sub/mul/add/min/max of one ray-box slab test (K1, the re-cull); K1's
+#   group test counts as one, its 6 operations of slack arithmetic are not counted
 
 
 def _run_visit(work: list, go, ok, t, tm, tM, ray_idx, best, occ, c: int, any_hit: bool):
@@ -553,6 +624,8 @@ class NodeTables(NamedTuple):
     #   (k2, k) at column k2*SUPER + k, rows [cx cy cz r hx hy hz .]
     erow2: Tensor  # (1, E8) int32 entry -> triangle-rows index
     exf2: Tensor  # (1, E8) int32 entry -> transform id
+    node_box_t: Tensor  # (8, N2) f32 the nodes' own boxes, `group_boxes(node_sph_t)`
+    #   (the node cull's `grp_t`)
 
 
 class NodeCullResult(NamedTuple):
@@ -580,8 +653,10 @@ def _node_tables(cs: ClusterSet) -> NodeTables:
         sp = torch.cat([sp, sent])
         zi = torch.zeros((e8 - e,), dtype=torch.int32, device=ss.device)
         erow, exf = torch.cat([erow, zi]), torch.cat([exf, zi])
+    node_sph_t = ss.reshape(n2, NODE, 8).transpose(0, 1).reshape(e8, 8).T.contiguous()
     return NodeTables(
-        node_sph_t=ss.reshape(n2, NODE, 8).transpose(0, 1).reshape(e8, 8).T.contiguous(),
+        node_sph_t=node_sph_t,
+        node_box_t=group_boxes(node_sph_t),
         csph=sp.reshape(n2, NODE * SUPER, 8).transpose(1, 2).contiguous(),
         erow2=erow[None].contiguous(),
         exf2=exf[None].contiguous(),
@@ -593,16 +668,11 @@ def block_cull_nodes(cs: ClusterSet, o: Vec3, d: Vec3, t_min, t_max) -> NodeCull
     entries as the members (64x fewer columns than the flat cull), then a
     stable sort of each block's nodes near-to-far."""
     rays8 = _pack_rays8(cs, o, d, t_min, t_max)
-    key, lo, hi, count = cull_blocks(rays8, cs.node_tables.node_sph_t)
-    keys, order = torch.sort(key, dim=1, stable=True)
-    return NodeCullResult(
-        ids=order.to(torch.int32),
-        keys=keys,
-        bits_lo=torch.gather(lo, 1, order),
-        bits_hi=torch.gather(hi, 1, order),
-        count=count,
-        rays8=rays8,
-    )
+    nt = cs.node_tables
+    key, lo, hi, count = cull_blocks(rays8, nt.node_sph_t, nt.node_box_t)
+    order, keys, lo, hi = _sort_cull(key, lo, hi)
+    return NodeCullResult(ids=order.to(torch.int32), keys=keys, bits_lo=lo, bits_hi=hi,
+                          count=count, rays8=rays8)
 
 
 def _node_recull(r: Tensor, tcur: Tensor, nsph: Tensor) -> Tensor:

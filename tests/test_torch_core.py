@@ -188,3 +188,70 @@ def test_build_table_rows_and_fields_exact():
         else:
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     _close(tg.index_of_refraction(), jg.index_of_refraction())
+
+
+# -- the rest of core/sampling: warps, stratified draws, MIS heuristics -------
+
+def _uniforms(seed, n=2048):
+    u = np.random.default_rng(seed).random((2, n)).astype(np.float32)
+    return u[0], u[1]
+
+
+@pytest.mark.parametrize("name", ["uniform_sample_sphere", "uniform_sample_triangle"])
+def test_sampling_warps_match_jax(name):
+    u1, u2 = _uniforms(31)
+    want = getattr(jsamp, name)(jnp.asarray(u1), jnp.asarray(u2))
+    got = getattr(tsamp, name)(_t(u1), _t(u2))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("name", ["power_heuristic", "balance_heuristic"])
+def test_mis_heuristics_match_jax(name):
+    rng = np.random.default_rng(32)
+    f_pdf, g_pdf = (rng.gamma(1.0, 2.0, 2048).astype(np.float32) for _ in range(2))
+    f_pdf[:8] = 0.0  # both pdfs zero: the guarded denominator
+    g_pdf[:4] = 0.0
+    nf, ng = np.float32(1.0), np.float32(2.0)
+    want = getattr(jsamp, name)(nf, jnp.asarray(f_pdf), ng, jnp.asarray(g_pdf))
+    got = getattr(tsamp, name)(float(nf), _t(f_pdf), float(ng), _t(g_pdf))
+    _close(got, want)
+    assert np.isfinite(got.numpy()).all()
+
+
+def _stratified_inputs(seed, n=2048):
+    c = np.random.default_rng(seed).integers(0, 1 << 20, n, dtype=np.int64).astype(np.int32)
+    seeds = _u32(seed + 1, n)
+    return c, jrng.RngState.seed(jnp.asarray(seeds)), trng.RngState.seed(_t(seeds.astype(np.int64)))
+
+
+def _same_state(ts, js):
+    np.testing.assert_array_equal(ts.s1.numpy().astype(np.uint32), np.asarray(js.s1))
+    np.testing.assert_array_equal(ts.s2.numpy().astype(np.uint32), np.asarray(js.s2))
+
+
+def test_stratified_sample_1d_matches_jax():
+    c, js, ts = _stratified_inputs(33)
+    js, want = jsamp.stratified_sample_1d(jnp.asarray(c), 16, js)
+    ts, got = tsamp.stratified_sample_1d(_t(c), 16, ts)
+    _same_state(ts, js)  # the same draws taken from the stream
+    _close(got, want)
+    assert (np.floor(got.numpy() * 16) == c % 16).all()  # each sample in its stratum
+
+
+def test_stratified_sample_2d_matches_jax():
+    c, js, ts = _stratified_inputs(34)
+    js, wx, wy = jsamp.stratified_sample_2d(jnp.asarray(c), 8, 4, js)
+    ts, gx, gy = tsamp.stratified_sample_2d(_t(c), 8, 4, ts)
+    _same_state(ts, js)
+    _close(gx, wx)
+    _close(gy, wy)
+
+
+def test_uniform_grid_sample_2d_matches_jax():
+    c, _, _ = _stratified_inputs(35)
+    wx, wy = jsamp.uniform_grid_sample_2d(jnp.asarray(c), 8, 4)
+    gx, gy = tsamp.uniform_grid_sample_2d(_t(c), 8, 4)
+    np.testing.assert_array_equal(gx.numpy(), np.asarray(wx))
+    np.testing.assert_array_equal(gy.numpy(), np.asarray(wy))

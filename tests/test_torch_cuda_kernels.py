@@ -17,6 +17,7 @@ from optixpathtracer_tpu_torch.core.math import Vec3
 from optixpathtracer_tpu_torch.ops import gather
 from optixpathtracer_tpu_torch.ops import sc_worklist as sw
 from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+from torch_cull_cases import hostile_rays8
 
 pytestmark = pytest.mark.cuda
 
@@ -49,9 +50,9 @@ def _scene_and_rays(device, cluster_size, n=4096, seed=0, t=3000):
 def test_kernels_bit_equal_to_plain(cuda, cluster_size):
     cs, o, d, t_max = _scene_and_rays(cuda, cluster_size)
     rays8 = tc._pack_rays8(cs, o, d, 1e-3, t_max)
-    sph_t = tc.sphere_table(cs)
+    sph_t, grp_t = cs.cull_tables
     before = dict(tc.launch_counts)
-    for k, p in zip(tc.cull_blocks(rays8, sph_t), tc._cull_torch(rays8, sph_t)):
+    for k, p in zip(tc.cull_blocks(rays8, sph_t, grp_t), tc._cull_torch(rays8, sph_t)):
         assert torch.equal(k, p)
     cr = tc.block_cull(cs, o, d, 1e-3, t_max)
     t_k, tri_k, vis = tc.closest_sweep(cs.rows, cs.xf_inv, cr, cluster_size)
@@ -168,11 +169,78 @@ def test_wrappers_check_their_inputs(cuda):
     cs, o, d, t_max = _scene_and_rays(cuda, 64, n=256)
     rays8 = tc._pack_rays8(cs, o, d, 1e-3, t_max)
     with pytest.raises(TypeError):
-        tc.cull_blocks(rays8.double(), tc.sphere_table(cs))
+        tc.cull_blocks(rays8.double(), *cs.cull_tables)
     with pytest.raises(ValueError):
-        tc.cull_blocks(rays8.t().contiguous().t(), tc.sphere_table(cs))
+        tc.cull_blocks(rays8.t().contiguous().t(), *cs.cull_tables)
     with pytest.raises(ValueError):  # not a whole number of 128-ray blocks
-        tc.cull_blocks(rays8[:100], tc.sphere_table(cs))
+        tc.cull_blocks(rays8[:100], *cs.cull_tables)
+    with pytest.raises(ValueError):  # group boxes of another table
+        tc.cull_blocks(rays8, cs.cull_tables[0], cs.cull_tables[1][:, :-1].contiguous())
+    with pytest.raises(ValueError):  # a ray must start on a 16-byte boundary
+        tc.cull_blocks(torch.cat([rays8.reshape(-1)[:1], rays8.reshape(-1)])[1:].reshape(-1, 8),
+                       *cs.cull_tables)
+
+
+def _cull_table(device, groups, seed):
+    """A member-major (8, groups*8) box table from a seed, the last group
+    padded with the node tables' far-sentinel boxes, and its group boxes."""
+    rng = np.random.default_rng(seed)
+    m = groups * 8
+    t = np.zeros((8, m), np.float32)
+    t[0:3] = rng.uniform(-4, 4, (3, m))
+    t[4:7] = rng.uniform(0.0, 0.8, (3, m)) * (rng.random((3, m)) > 0.1)  # some flat boxes
+    t[3] = np.linalg.norm(t[4:7], axis=0)
+    for k in range(5, 8):  # members 5-7 of the last group
+        t[:, k * groups + groups - 1] = 0.0
+        t[0, k * groups + groups - 1] = 1.5e37
+    sph_t = torch.as_tensor(t, device=device)
+    return sph_t, tc.group_boxes(sph_t)
+
+
+def _assert_cull_equal(rays8, sph_t, grp_t):
+    got = tc.cull_blocks(rays8, sph_t, grp_t)
+    want = tc._cull_torch(rays8, sph_t)
+    for name, k, p in zip(("key", "lo", "hi", "count"), got, want):
+        if name == "key":  # a NaN key (NaN origins) equals a NaN key
+            assert torch.equal(torch.isnan(k), torch.isnan(p))
+            k, p = torch.nan_to_num(k, nan=0.0), torch.nan_to_num(p, nan=0.0)
+        assert torch.equal(k, p), name
+    return want
+
+
+# 9, 33: one group beyond a row of 8 / 32 lanes; 74, 530: the city's supers, the big scene's nodes
+@pytest.mark.parametrize("nr", [8, 24])
+@pytest.mark.parametrize("groups", [1, 9, 32, 33, 74, 530])
+def test_cull_bit_equal_on_hostile_rays(cuda, groups, nr):
+    sph_t, grp_t = _cull_table(cuda, groups, seed=groups)
+    rays8 = torch.as_tensor(hostile_rays8(100 + groups, nr, sph_t.cpu().numpy()), device=cuda)
+    key, lo, hi, count = _assert_cull_equal(rays8, sph_t, grp_t)
+    assert int(count.sum()) > 0 and int(count[4]) == 0  # block 4: every ray dead
+    assert bool(torch.isnan(key).any()) and bool((lo != 0).any()) and bool((hi != 0).any())
+
+
+def test_cull_more_groups_than_one_chunk(cuda):
+    # 1100 groups: the kernel's shared lists hold 1024, so it takes two passes
+    sph_t, grp_t = _cull_table(cuda, 1100, seed=5)
+    rays8 = torch.as_tensor(hostile_rays8(6, 8, sph_t.cpu().numpy()), device=cuda)
+    _assert_cull_equal(rays8, sph_t, grp_t)
+
+
+@pytest.mark.parametrize("case", ["every ray dead", "one live ray per sub-block"])
+def test_cull_sparse_blocks(cuda, case):
+    sph_t, grp_t = _cull_table(cuda, 74, seed=7)
+    rays8 = torch.as_tensor(hostile_rays8(8, 8, sph_t.cpu().numpy()), device=cuda)
+    lane = torch.arange(rays8.shape[0], device=cuda) % 16
+    if case == "every ray dead":
+        rays8[:, 7] = 0.0
+    else:
+        rays8[:, 0:3] = rays8[:, 0:3].nan_to_num(0.0, 1.0, -1.0)
+        rays8[:, 7] = torch.where(lane == 5, 9.0, 0.0)
+    key, lo, hi, count = _assert_cull_equal(rays8, sph_t, grp_t)
+    if case == "every ray dead":
+        assert int(count.sum()) == 0 and bool((key == 3.0e37).all()) and not bool((lo | hi).any())
+    else:
+        assert int(count.sum()) > 0
 
 
 def _hier_sweeps_equal_plain(cs, cr, c):

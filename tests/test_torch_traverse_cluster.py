@@ -24,6 +24,7 @@ from optixpathtracer_tpu_torch.core.math import Vec3
 from optixpathtracer_tpu_torch.lights.probe import build_probe
 from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
 from tests.golden_scenes import _open_scene, _sky_probe
+from torch_cull_cases import hostile_rays8
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -310,9 +311,83 @@ def test_kernel_dispatch_has_no_fallback(random_scene):
     rays8 = tc._pack_rays8(pcs, to, td, 1e-3, 1e16)
     # CPU tensors take the plain version; any other device launches or raises
     with pytest.raises(ValueError, match="no kernel"):
-        tc.cull_blocks(rays8.to("meta"), tc.sphere_table(pcs).to("meta"))
+        tc.cull_blocks(rays8.to("meta"), *(t.to("meta") for t in pcs.cull_tables))
     # hier=True is the node walk (K4), here through its plain versions
     np.testing.assert_array_equal(tc.closest_hit_cluster(pcs, to, td, hier=True).tri.numpy(),
                                   tc.closest_hit_cluster(pcs, to, td, hier=False).tri.numpy())
     np.testing.assert_array_equal(tc.any_hit_cluster(pcs, to, td, hier=True)[0].numpy(),
                                   tc.any_hit_cluster(pcs, to, td, hier=False)[0].numpy())
+
+
+# -- kernel K1 on hostile rays, and its group pre-test -------------------------
+
+def _tables(pcs, table):
+    """(member table, group boxes) of the flat cull or of the node cull."""
+    if table == "flat":
+        return pcs.cull_tables
+    nt = pcs.node_tables
+    return nt.node_sph_t, nt.node_box_t
+
+
+@pytest.mark.parametrize("reference", ["xla", "pallas_interpret"])
+def test_cull_hostile_rays_bit_equal_to_reference(random_scene, reference):
+    """NaN and infinite origins and directions, zero direction components,
+    t_max <= t_min, a block of dead rays, boxes at ray origins: the plain
+    K1 gives the reference's key / lo / hi / count bit for bit (a NaN key
+    counts as equal to a NaN key)."""
+    _, pcs = random_scene
+    sph_t = tc.sphere_table(pcs)
+    rays8 = hostile_rays8(11, 16, sph_t.numpy())
+    key, lo, hi, count = tc._cull_torch(torch.as_tensor(rays8), sph_t)
+    jr8, jsph = jnp.asarray(rays8), jnp.asarray(sph_t.numpy())
+    if reference == "xla":
+        jkey, jlo, jhi, jcount = jtc._cull_xla(jr8, jsph, block=128)
+    else:
+        jkey, jlo, jhi, jcount = jtc._cull_pallas(jr8, jsph, block=128, interpret=True)
+    np.testing.assert_array_equal(lo.numpy().view(np.uint32), np.asarray(jlo))
+    np.testing.assert_array_equal(hi.numpy().view(np.uint32), np.asarray(jhi))
+    np.testing.assert_array_equal(count.numpy(), np.asarray(jcount))
+    np.testing.assert_array_equal(key.numpy(), np.asarray(jkey))  # NaN == NaN here
+    assert int(count[4].sum()) == 0  # the block of dead rays
+    assert int(count.sum()) > 0 and np.isnan(key.numpy()).any()
+
+
+@pytest.mark.parametrize("table", ["flat", "node"])
+@pytest.mark.parametrize("scene", ["random", "hostile"])
+def test_group_boxes_hold_their_members(random_scene, hostile_scene, scene, table):
+    _, pcs = random_scene if scene == "random" else hostile_scene
+    sph_t, grp_t = _tables(pcs, table)
+    s = grp_t.shape[1]
+    assert grp_t.shape == (8, s) and sph_t.shape == (8, s * 8)
+    mem = sph_t.double().reshape(8, 8, s)  # (row, member, group)
+    g = grp_t.double()
+    # containment in real arithmetic (float64 holds these sums exactly enough)
+    assert bool((g[0:3] - g[4:7] <= (mem[0:3] - mem[4:7]).amin(dim=1)).all())
+    assert bool((g[0:3] + g[4:7] >= (mem[0:3] + mem[4:7]).amax(dim=1)).all())
+
+
+@pytest.mark.parametrize("table", ["flat", "node"])
+@pytest.mark.parametrize("scene", ["random", "hostile"])
+def test_group_pretest_passes_every_cull_bit(random_scene, hostile_scene, scene, table):
+    """Wherever `_cull_torch` sets a bit of (sub-block, member of a group),
+    the plain version of the kernel's pre-test passes (sub-block, group):
+    skipping the groups it rejects drops no bit. Flat and node tables, the
+    node table's far-sentinel entries included."""
+    _, pcs = random_scene if scene == "random" else hostile_scene
+    sph_t, grp_t = _tables(pcs, table)
+    rng = np.random.default_rng(12)
+    _, _, to, td = _random_rays(rng, 1024) if scene == "random" else _hostile_rays(rng, 1024)
+    rays8 = torch.cat([tc._pack_rays8(pcs, to, td, 1e-3, 1e16),
+                       torch.as_tensor(hostile_rays8(13, 16, sph_t.numpy()))])
+    _, lo, hi, _ = tc._cull_torch(rays8, sph_t)
+    may = tc._group_pretest_torch(rays8, grp_t)  # (NR, 8, S)
+    words = torch.stack([lo, hi], dim=1).to(torch.int64) & 0xFFFFFFFF  # (NR, 2, S)
+    sub_bits = torch.stack([(words[:, s8 // 4] >> (8 * (s8 % 4))) & 0xFF for s8 in range(8)], dim=1)
+    assert int((sub_bits != 0).sum()) > 0
+    assert not bool(((sub_bits != 0) & ~may).any())
+    if scene == "hostile" and table == "node":
+        assert bool((~may).any())  # and it does reject something
+    # the work the kernel must do is what this counts
+    work = tc.cull_work(rays8, sph_t, grp_t)
+    live = int((rays8[:, 7] > rays8[:, 6]).sum())
+    assert live * grp_t.shape[1] <= work.slab_tests <= live * (grp_t.shape[1] + sph_t.shape[1])
