@@ -13,28 +13,36 @@ its plain PyTorch version on the card, bit for bit. Then it drives the
 port's paths and checks that each went through its kernels:
 
   1. `disney_pt` on the 150k-triangle city at 1200x800, 2 spp, depth 4,
-     with the bench's flags (flat cluster walk: cull, closest, any), the
-     bench's exactness gate and the `disney_open*` golden renders;
+     with the bench's flags: `hier=None` takes the node walk from
+     HIER_MIN_ENTRIES = 8 entries, so the city's 74 entries run cull on
+     the entry boxes, closest_hier, any_hier (`slice`); the same slice
+     through the flat walk (cull on the cluster boxes, closest, any:
+     `flat_slice`, with the threshold raised); both walks' frames in turns
+     (`city_routes`); both walks' kernels held against their plain versions
+     and timed at the city's first bounce and at the engine's second; the
+     bench's exactness gate (both walks against the oracle) and the
+     `disney_open*` golden renders;
   2. the worklist builders (compact, pair_worklist) on the city's
-     first-bounce hit flags and cull words;
-  3. the `foveated` preset (sv4): the published 3840x2160 configuration
-     (radii 157/515, zone spp 1/2/8, three launches) and the 640x480 fused
-     configuration on the city (cull, closest, any), its goldens
-     (`foveated_s` against the port's CPU render, see `foveated_checks`)
-     and the fused launch against the three launches;
+     first-bounce hit flags and cull words, each one cooperative launch;
+  3. the `foveated` preset (sv4) on the city: the published 3840x2160
+     configuration (radii 157/515, zone spp 1/2/8) in three launches, as
+     PERF.md §4 defines it, then by the preset's own default route (one
+     fused launch), held frame for frame against the three launches, and
+     the 640x480 fused configuration; its goldens (`foveated_s` against the
+     port's CPU render, see `foveated_checks`) and the fused launch against
+     the three launches on a 48x32 frame;
   4. the gather probe (gather) on a (1<<20, 128) f32 table;
   5. `disney_pt` on the ~8.68M-triangle terrain-apron scene
-     (`build_big_scene` at BIG8X_TERRAIN_GRID, 4239 entries: hier=None
-     routes it to the node walk: cull, closest_hier, any_hier), with the
-     exactness gate against the dense oracle, a golden through the node
-     walk, the node kernels' and the flat kernels' times on the same rays,
-     and the node cull and sweeps again on the slice's second bounce: the
-     rays the engine itself hands to its sweeps at depth 1 of a frame
-     (`engine_bounce`).
+     (`build_big_scene` at BIG8X_TERRAIN_GRID, 4239 entries, the node walk:
+     cull, closest_hier, any_hier), with the exactness gate against the
+     dense oracle, a golden through the node walk, the node kernels' and
+     the flat kernels' times on the same rays, and the node cull and sweeps
+     again on the slice's second bounce: the rays the engine itself hands
+     to its sweeps at depth 1 of a frame (`engine_bounce`).
 
 The cull (K1) is held against its plain version and timed on both tables
-(the city's cluster boxes, the big scene's entry boxes) at the first bounce
-and at the engine's second; `block_cull` lines time the whole of
+(cluster boxes and entry boxes on the city, entry boxes on the big scene)
+at the first bounce and at the engine's second; `block_cull` lines time the whole of
 `block_cull` / `block_cull_nodes` (pack, kernel, sort, gathers) beside the
 kernel alone.
 
@@ -50,8 +58,12 @@ K5b and K6 by bytes, inputs read once and outputs written once, over
 tables and 9 x C f32 for every member a block must stage, and the larger
 time is the bound. K5a, K5b and K6 are also timed against one PyTorch call
 that computes the same function (`torch.nonzero`, `torch.nonzero` of the
-transposed bit matrix, `index_select`), which the port never calls; K5a
-and K5b in turns with it over 200 calls each, with a verdict.
+transposed bit matrix, `index_select`), which the port never calls. K5a
+and K5b get device time per call from the profiler (`ms`, the kernels
+line's number) and wall time per call with its synchronise (`call_ms`),
+for the kernel and `torch.nonzero` alike, beside the launch floor (an empty
+kernel, and an empty cooperative wave with one grid barrier), and the
+CUDA-event verdict of `in_turns`.
 
 Every phase prints one JSON line with its seconds; any failure exits
 non-zero. The `kernels` line gives each kernel's launches on the main
@@ -59,6 +71,10 @@ paths, its ms, its plain version's, bound_ms with bound_by, and library_ms
 (null where no single PyTorch call computes it). The last line is the
 device contract:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+A kernel's `ms`, `plain_ms` and `bound_ms` there are those of the path it
+serves first (K1, K4a, K4b: the city's node walk; K2, K3: the flat city
+slice); its `paths` give each main path's launches and, where that path's
+first bounce was timed, the kernel's ms, plain ms and bound there.
 
 It exits non-zero without a CUDA device, and outside the repository (the
 port package must be importable beside it).
@@ -66,6 +82,7 @@ port package must be importable beside it).
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -81,7 +98,7 @@ GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
 RMSE_TOL = 2e-3  # tests/test_goldens.py
 PLAIN_BUDGET_S = 60.0  # time a plain version at the slice shape within this
 HIER_PLAIN_BUDGET_S = 30.0  # the same for the node walk's plain versions
-TURN_CALLS = 200  # calls of a worklist kernel and of its library call, in turns
+TURN_CALLS = 200  # calls of a worklist kernel, its library call and the launch floor per measure
 WIDTH, HEIGHT, SPP, DEPTH = 1200, 800, 2, 4
 BENCH_FLAGS = dict(sort_rays=True, batch_spp=True, nee_final_bounce=False)
 FOV_4K = dict(width=3840, height=2160)  # the sv4 preset's defaults: depth 4, radii 157/515
@@ -211,6 +228,38 @@ def cull_phase(name, rays8, sph_t, grp_t, peak, budget_s, wavefront, card):
     return out
 
 
+def time_hier(cl, cr_c, cr_s, peak, wavefront, card):
+    """K4a on cr_c and K4b on cr_s (NodeCullResults of cluster set cl):
+    each kernel's time on the whole wavefront, bit-equality with its plain
+    version on the blocks that fit HIER_PLAIN_BUDGET_S, K4a's vis against
+    the counted visits, and both bounds."""
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
+    nt, c = cl.node_tables, cl.cluster_size
+    out = {}
+    for name, crx, any_hit in (("closest_hier", cr_c, False), ("any_hier", cr_s, True)):
+        sweep, plain = ((tc.any_hier_sweep, tc._any_hier_torch) if any_hit
+                        else (tc.closest_hier_sweep, tc._closest_hier_torch))
+
+        def run(fn, nr):
+            got = fn(cl.rows, cl.xf_inv, nt, sub_cull(crx, nr), c)
+            return (got,) if any_hit else got[:2]
+
+        nr = crx.ids.shape[0]
+        out[name] = time_vs_plain(name, lambda nr: run(sweep, nr), lambda nr: run(plain, nr), nr,
+                                  HIER_PLAIN_BUDGET_S, wavefront=wavefront, card=card)
+        work = tc.sweep_work_hier(cl.rows, cl.xf_inv, nt, crx, c, any_hit=any_hit)
+        if not any_hit:
+            vis = int(sweep(cl.rows, cl.xf_inv, nt, crx, c)[2].sum())
+            if vis != work.visits:
+                raise AssertionError(f"closest_hier ({wavefront}): vis {vis} != {work.visits} counted visits")
+        out[name].update(work_bound(
+            name, work, peak, out[name]["ms"], nbytes=hier_bytes(work, crx, c, any_hit),
+            wavefront=wavefront, card=card, nodes_per_block=work.nodes / nr,
+            max_nodes_per_block=int(crx.count.max())), library_ms=None)
+    return out
+
+
 def block_cull_parts(name, cull, cs, rays, tables, wavefront, card):
     """`block_cull` / `block_cull_nodes` whole beside its parts on one
     wavefront: the ray pack, kernel K1 alone, the stable sort with the gather
@@ -273,6 +322,42 @@ def in_turns(kern, library, calls):
 def _device_us(e) -> float:
     """Self device time (us) of a profiler key-average entry."""
     return float(getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_per_call(fn, calls):
+    """Device microseconds per call of fn: the profiler's device time of
+    every kernel and copy that `calls` calls ran (after a warm-up), by name,
+    and their sum per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {e.key[:60]: _device_us(e) / calls for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0}
+    if not by_name:
+        raise AssertionError("the profiler recorded no device time")
+    return dict(us=sum(by_name.values()), by_name=by_name)
+
+
+def wall_per_call(fn, calls):
+    """Host microseconds around one call of fn and a synchronise: median and
+    10-90 % range over `calls` calls after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    us = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        us.append((time.perf_counter() - t0) * 1e6)
+    return dict(median=float(np.median(us)), p10=float(np.percentile(us, 10)), p90=float(np.percentile(us, 90)))
 
 
 def mixed_rays(cs, hs, cam, n, seed, device):
@@ -413,6 +498,18 @@ def engine_bounce(renderer, depth):
     return calls["closest_hit_cluster"][depth], calls["any_hit_cluster"][depth]
 
 
+def time_frames(renderer, frames):
+    """Seconds of `frames` frames after one warm-up; each ends in a
+    device synchronise (`render(download=False)`)."""
+    renderer.render(download=False)  # warm-up
+    times = []
+    for _ in range(frames):
+        t0 = time.perf_counter()
+        renderer.render(download=False)
+        times.append(time.perf_counter() - t0)
+    return times
+
+
 def drive_slice(phase, renderer, card, counts, **fields):
     """The main path: one warm-up frame and 3 timed frames, with the kernel
     launch counts set to 0 just before and read just after. Works for the
@@ -423,26 +520,76 @@ def drive_slice(phase, renderer, card, counts, **fields):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counts.clear()
-    renderer.render(download=False)  # warm-up
-    times, rays = [], []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        renderer.render(download=False)  # ends in torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        rays.append(int(renderer.last_rays if hasattr(renderer, "last_rays")
-                        else renderer.last_output.rays_traced))
+    times = time_frames(renderer, 3)
+    rays = int(renderer.last_rays if hasattr(renderer, "last_rays") else renderer.last_output.rays_traced)
     launches = dict(counts)
     img = renderer.accum_image()
     frame_s = float(np.median(times))
     emit(phase, width=cfg.width, height=cfg.height, max_depth=cfg.max_depth, flags=BENCH_FLAGS,
          **fields,
-         frame_s=frame_s, frame_times_s=times, rays_traced=rays[-1],
-         mrays_per_s=rays[-1] / frame_s / 1e6, max_memory_allocated=torch.cuda.max_memory_allocated(),
+         frame_s=frame_s, frame_times_s=times, rays_traced=rays,
+         mrays_per_s=rays / frame_s / 1e6, max_memory_allocated=torch.cuda.max_memory_allocated(),
          launches=launches, image_mean=float(img.mean()), card=card)
     if img.shape != (cfg.height, cfg.width, 3) or not np.isfinite(img).all() or not img.max() > 0:
         raise AssertionError(f"{phase}: the frame is not a finite, non-black "
                              f"{cfg.width}x{cfg.height} image")
     return launches
+
+
+WALK_KERNELS = {"node": ("cull", "closest_hier", "any_hier"), "flat": ("cull", "closest", "any")}
+
+
+def walk_of(cl):
+    """The walk `hier=None` takes on a cluster set: "node" or "flat"."""
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
+    return "node" if cl.num_entries >= tc.HIER_MIN_ENTRIES else "flat"
+
+
+@contextlib.contextmanager
+def walk(name):
+    """Route `hier=None` through one walk ("node" or "flat") by moving
+    `HIER_MIN_ENTRIES`, and put it back afterwards."""
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
+    saved = tc.HIER_MIN_ENTRIES
+    tc.HIER_MIN_ENTRIES = 0 if name == "node" else 1 << 30
+    try:
+        yield
+    finally:
+        tc.HIER_MIN_ENTRIES = saved
+
+
+def check_walk(path, launches, name):
+    """Raise unless a path launched every kernel of its walk and neither
+    sweep of the other."""
+    other = "flat" if name == "node" else "node"
+    for k in WALK_KERNELS[name]:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"{path} never launched kernel {k}")
+    for k in WALK_KERNELS[other][1:]:
+        if launches.get(k, 0):
+            raise AssertionError(f"{path} launched kernel {k} of the {other} walk")
+
+
+def route_turns(renderer, counts, frames=3):
+    """Frame seconds of one renderer through the node walk and through the
+    flat walk, in turns (node, flat, flat, node): one warm-up and `frames`
+    timed frames each, with each turn's launches and peak device memory."""
+    import torch
+
+    turns = []
+    for route in ("node", "flat", "flat", "node"):
+        with walk(route):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counts.clear()
+            times = time_frames(renderer, frames)
+        turns.append(dict(route=route, frame_s=float(np.median(times)), frame_times_s=times,
+                          rays=int(renderer.last_output.rays_traced), launches=dict(counts),
+                          max_memory_allocated=torch.cuda.max_memory_allocated()))
+    med = {k: float(np.median([t["frame_s"] for t in turns if t["route"] == k])) for k in ("node", "flat")}
+    return dict(turns=turns, node_s=med["node"], flat_s=med["flat"], node_wins=med["node"] < med["flat"])
 
 
 def profile_frame(phase, renderer):
@@ -470,9 +617,14 @@ def profile_frame(phase, renderer):
 def worklist_vs_plain(hit, cull_lo, card):
     """K5a on the first bounce's hit flags and K5b on its cull words, each
     at a capacity above its count and one below: the entry points' launches
-    (counted), then bit-equality with the plain versions, the plain version's
-    time, and the kernel against its one PyTorch call in turns (`in_turns`).
-    Returns ({name: launches}, {name: timing})."""
+    (counted), then bit-equality with the plain versions, the plain
+    version's time, and the kernel beside its one PyTorch call and the
+    launch floor (an empty kernel, and an empty cooperative wave with one
+    grid barrier, `sc_worklist.empty_launch`): device time per call from the
+    profiler (`device_per_call`, TURN_CALLS calls: `ms`, `library_ms`) and
+    wall time per call with its synchronise (`wall_per_call`: `call_ms`,
+    `library_call_ms`), plus the CUDA-event verdict of `in_turns`
+    (`vs_library`). Returns ({name: launches}, {name: timing})."""
     import torch
 
     from optixpathtracer_tpu_torch.ops import sc_worklist as sw
@@ -493,6 +645,12 @@ def worklist_vs_plain(hit, cull_lo, card):
     outs = {name: [kern(x, cap) for cap in caps[name]] for name, (kern, _, x, _) in cases.items()}
     torch.cuda.synchronize()
     launches = dict(sw.launch_counts)
+    floor = {}
+    for kind, cooperative in (("empty", False), ("empty_cooperative", True)):
+        floor[kind] = dict(
+            device_us=device_per_call(lambda: sw.empty_launch(flags.device, cooperative), TURN_CALLS)["us"],
+            call_us=wall_per_call(lambda: sw.empty_launch(flags.device, cooperative), TURN_CALLS)["median"])
+    emit("launch_floor", **floor, calls=TURN_CALLS, card=card)
     timing = {}
     for name, (kern, plain, x, count) in cases.items():
         err = 0.0
@@ -504,14 +662,22 @@ def worklist_vs_plain(hit, cull_lo, card):
         # input read once, outputs written once: flags (1 B) or words (4 B),
         # then capacity int32 indices (K5b: rows and columns) and the count
         nbytes = x.numel() * x.element_size() + cap * 4 * (1 if name == "compact" else 2) + 4
-        turns = in_turns(lambda: kern(x, cap), library[name], calls=TURN_CALLS)
-        timing[name] = dict(ms=turns["ms"]["median"], library_ms=turns["library_ms"]["median"],
+        dev_k = device_per_call(lambda: kern(x, cap), TURN_CALLS)
+        dev_l = device_per_call(library[name], TURN_CALLS)
+        wall_k = wall_per_call(lambda: kern(x, cap), TURN_CALLS)
+        wall_l = wall_per_call(library[name], TURN_CALLS)
+        timing[name] = dict(ms=dev_k["us"] / 1e3, call_ms=wall_k["median"] / 1e3,
+                            library_ms=dev_l["us"] / 1e3, library_call_ms=wall_l["median"] / 1e3,
                             plain_ms=cuda_ms(lambda: plain(x, cap), reps=5), max_abs_err=err,
-                            vs_library=turns, **bytes_bound(nbytes))
+                            **bytes_bound(nbytes))
         emit("worklist_vs_plain", kernel=name, input=("first-bounce hit flags" if name == "compact"
                                                       else "first-bounce cull lo words"),
              n=x.shape[0], count=count, capacities=list(caps[name]), bit_equal=True,
-             launches=launches.get(name, 0), **timing[name], card=card)
+             launches=launches.get(name, 0), **timing[name], share_of_bound=timing[name]["bound_ms"] / timing[name]["ms"],
+             device_us_by_name=dev_k["by_name"], library_device_us_by_name=dev_l["by_name"],
+             call_us_10_90=[wall_k["p10"], wall_k["p90"]], library_call_us_10_90=[wall_l["p10"], wall_l["p90"]],
+             launch_floor=floor, vs_library=in_turns(lambda: kern(x, cap), library[name], calls=TURN_CALLS),
+             card=card)
     return launches, timing
 
 
@@ -685,15 +851,17 @@ def main() -> int:
     emit("kernels_vs_plain", rays=65536, max_abs_err=errs, bit_equal=True)
 
     # ---- times at the slice's shapes: the first-bounce wavefront ----------
+    # the flat walk (`flat_slice`: K1 on the cluster boxes, K2, K3) first,
+    # then the city's own walk (`slice`: K1 on the entry boxes, K4a, K4b)
     (o1, d1), (p_hit, wi, t_sh), hit1 = first_bounce_and_shadows(renderer, cl, probe, dev)
     rays8_1 = tc._pack_rays8(cl, o1, d1, cfg.t_min, cfg.t_max)
     cr1 = tc.block_cull(cl, o1, d1, cfg.t_min, cfg.t_max)
     cr_sh = tc.block_cull(cl, p_hit, wi, cfg.shadow_t_min, t_sh)
     nr_full = cr1.ids.shape[0]
-    timing = {}
+    flat_t, city_t, big_t = {}, {}, {}  # kernel -> its times on one path's wavefronts
     peak = fp32_ops_per_s()
     wf = "first bounce, 1200x800x2spp"
-    timing["cull"] = cull_phase("cull", rays8_1, sph_t, grp_t, peak, PLAIN_BUDGET_S, wf, card)
+    flat_t["cull"] = cull_phase("cull", rays8_1, sph_t, grp_t, peak, PLAIN_BUDGET_S, wf, card)
     cases = {
         "closest": (lambda nr: tc.closest_sweep(cl.rows, cl.xf_inv, sub_cull(cr1, nr), c)[:2],
                     lambda nr: tc._closest_torch(cl.rows, cl.xf_inv, sub_cull(cr1, nr), c)),
@@ -701,11 +869,11 @@ def main() -> int:
                 lambda nr: (tc._any_torch(cl.rows, cl.xf_inv, sub_cull(cr_sh, nr), c),)),
     }
     for name, (kern, plain) in cases.items():
-        timing[name] = time_vs_plain(name, kern, plain, nr_full, PLAIN_BUDGET_S, wavefront=wf, card=card)
+        flat_t[name] = time_vs_plain(name, kern, plain, nr_full, PLAIN_BUDGET_S, wavefront=wf, card=card)
     # ---- each sweep's bound on the same rays: the work these inputs need ----
     for name, work in (("closest", tc.sweep_work(cl.rows, cl.xf_inv, cr1, c)),
                        ("any", tc.sweep_work(cl.rows, cl.xf_inv, cr_sh, c, any_hit=True))):
-        timing[name].update(work_bound(name, work, peak, timing[name]["ms"], card=card), library_ms=None)
+        flat_t[name].update(work_bound(name, work, peak, flat_t[name]["ms"], card=card), library_ms=None)
     # ---- K1 again on the engine's second bounce, and block_cull whole ------
     block_cull_parts("block_cull", tc.block_cull, cl, (o1, d1, cfg.t_min, cfg.t_max), (sph_t, grp_t), wf, card)
     (o2, d2, tm2, tM2), (p2, wi2, tms2, tMs2) = engine_bounce(renderer, 1)
@@ -715,26 +883,45 @@ def main() -> int:
     block_cull_parts("block_cull", tc.block_cull, cl, (o2, d2, tm2, tM2), (sph_t, grp_t), wf2, card)
     block_cull_parts("block_cull", tc.block_cull, cl, (p2, wi2, tms2, tMs2), (sph_t, grp_t),
                      wf2 + ", shadow rays", card)
+    # ---- the city's main path, the node walk: K1 on its entry boxes, K4a,
+    # K4b, on the same first bounce and on the engine's second
+    nt = cl.node_tables
+    node_tables = (nt.node_sph_t, nt.node_box_t)
+    city_t["cull"] = cull_phase("cull (node table)", rays8_1, *node_tables, peak, HIER_PLAIN_BUDGET_S, wf, card)
+    block_cull_parts("block_cull_nodes", tc.block_cull_nodes, cl, (o1, d1, cfg.t_min, cfg.t_max),
+                     node_tables, wf, card)
+    city_t.update(time_hier(cl, tc.block_cull_nodes(cl, o1, d1, cfg.t_min, cfg.t_max),
+                            tc.block_cull_nodes(cl, p_hit, wi, cfg.shadow_t_min, t_sh), peak, wf, card))
+    second_node_cull = cull_phase("cull (node table)", tc._pack_rays8(cl, o2, d2, tm2, tM2), *node_tables,
+                                  peak, HIER_PLAIN_BUDGET_S, wf2, card)
+    second_hier = time_hier(cl, tc.block_cull_nodes(cl, o2, d2, tm2, tM2),
+                            tc.block_cull_nodes(cl, p2, wi2, tms2, tMs2), peak, wf2, card)
     del o2, d2, tM2, p2, wi2, tMs2
     for name in cases:
-        errs[name] = max(errs[name], timing[name]["max_abs_err"])
-    errs["cull"] = max(errs["cull"], timing["cull"]["max_abs_err"], second_cull["max_abs_err"])
+        errs[name] = max(errs[name], flat_t[name]["max_abs_err"])
+    for name in second_hier:
+        errs[name] = max(city_t[name]["max_abs_err"], second_hier[name]["max_abs_err"])
+    errs["cull"] = max(errs["cull"], flat_t["cull"]["max_abs_err"], second_cull["max_abs_err"],
+                       city_t["cull"]["max_abs_err"], second_node_cull["max_abs_err"])
 
     # ---- the worklist builders (K5a, K5b) on the first bounce --------------
-    wl_launches, wl_timing = worklist_vs_plain(hit1, cr1.bits_lo, card)
+    wl_launches, timing = worklist_vs_plain(hit1, cr1.bits_lo, card)  # timing: the `kernels` line's
     launches.update(wl_launches)
-    timing.update(wl_timing)
-    errs.update({k: v["max_abs_err"] for k, v in wl_timing.items()})
+    errs.update({k: v["max_abs_err"] for k, v in timing.items()})
     del cr1, cr_sh, rays8_1, hit1
 
     # ---- exactness gate (bench.py:1302-1340) ------------------------------
     og, dg = mixed_rays(cs, hs, cam, 8192, 42, dev)
-    fast = tc.closest_hit_cluster(cl, og, dg, 1e-3, 1e16)
+    fast = tc.closest_hit_cluster(cl, og, dg, 1e-3, 1e16)  # hier=None: the city's walk
+    other = tc.closest_hit_cluster(cl, og, dg, 1e-3, 1e16, hier=walk_of(cl) == "flat")
     exact = tc.reference_closest(cl, og, dg, 1e-3, 1e16)
     mismatch = int((fast.tri != exact.tri).sum())
-    emit("exactness_gate", rays=8192, mismatch=mismatch, hits=int((exact.tri >= 0).sum()))
-    if mismatch:
-        raise AssertionError(f"exactness gate: {mismatch} rays disagree with reference_closest")
+    walk_mismatch = int((fast.tri != other.tri).sum())
+    emit("exactness_gate", rays=8192, walk=walk_of(cl), mismatch=mismatch, flat_vs_hier_mismatch=walk_mismatch,
+         hits=int((exact.tri >= 0).sum()))
+    if mismatch or walk_mismatch:
+        raise AssertionError(f"exactness gate: {mismatch} rays disagree with reference_closest, "
+                             f"{walk_mismatch} between the two walks")
 
     # ---- goldens on the card ---------------------------------------------
     for name in scenes.OPEN_GOLDENS:
@@ -745,19 +932,28 @@ def main() -> int:
         if not (got.shape == want.shape and rmse <= RMSE_TOL):
             raise AssertionError(f"golden {name}: RMSE {rmse} > {RMSE_TOL}")
 
-    # ---- the city slice: main path 1 --------------------------------------
-    city = drive_slice("slice", renderer, card, tc.launch_counts, spp=SPP)
-    for name in ("cull", "closest", "any"):
-        if city.get(name, 0) <= 0:
-            raise AssertionError(f"the city slice never launched kernel {name}")
+    # ---- the city slice: main path 1 (hier=None: the node walk from 74 entries)
+    city_walk = walk_of(cl)
+    city = drive_slice("slice", renderer, card, tc.launch_counts, spp=SPP, walk=city_walk,
+                       entries=cl.num_entries, threshold=tc.HIER_MIN_ENTRIES)
+    check_walk("the city slice", city, city_walk)
     profile_frame("profile", renderer)
-    del renderer, o, d, og, dg, cr, cr_s, fast, exact
+    # ---- the same slice through the flat walk: the path of K2 and K3 ------
+    with walk("flat"):
+        flat_city = drive_slice("flat_slice", renderer, card, tc.launch_counts, spp=SPP, walk="flat")
+    check_walk("the flat city slice", flat_city, "flat")
+    emit("city_routes", entries=cl.num_entries, threshold=tc.HIER_MIN_ENTRIES,
+         **route_turns(renderer, tc.launch_counts), card=card)
+    del renderer, o, d, og, dg, cr, cr_s, fast, other, exact
     torch.cuda.empty_cache()
 
-    # ---- sv4 at 3840x2160 (three launches) and 640x480 (fused) on the city -
-    fov_runs = {}
+    # ---- sv4 on the city: 3840x2160 in three launches (PERF.md §4's
+    # configuration), the preset's default route there (fused=None: one
+    # fused launch), 640x480 fused ----------------------------------------
+    fov_runs, fov_frames = {}, {}
     for phase, size, kw in (
-        ("fov_slice", FOV_4K, {}),
+        ("fov_slice", FOV_4K, dict(fused=False)),
+        ("fov_default_slice", FOV_4K, {}),
         ("fov_fused_slice", FOV_FUSED, dict(fused=True, foveation=FoveationConfig(
             inner_radius=max(8, 157 * 480 // 2160), outer_radius=max(24, 515 * 480 // 2160),
             fovea_spp=4))),
@@ -767,12 +963,18 @@ def main() -> int:
         fov_runs[phase] = drive_slice(
             phase, fov, card, tc.launch_counts, fused=fov.fused, foveation=dataclasses.asdict(fov.fov),
             zones=zone_lanes(fov))
-        for name in ("cull", "closest", "any"):
-            if fov_runs[phase].get(name, 0) <= 0:
-                raise AssertionError(f"{phase} never launched kernel {name}")
+        check_walk(phase, fov_runs[phase], city_walk)
         profile_frame(phase.replace("slice", "profile"), fov)
+        fov_frames[phase] = (fov.accum_image(), fov.last_rays)  # after 5 frames each
         del fov
         torch.cuda.empty_cache()
+    # the users' default 4K route against the three launches, frame for frame
+    (img3, rays3), (img1, rays1) = fov_frames.pop("fov_slice"), fov_frames.pop("fov_default_slice")
+    diff = float(np.abs(img1 - img3).max())
+    emit("fov_fused_eq", **FOV_4K, max_abs_diff=diff, tol=1e-5, rays=[rays3, rays1])
+    if not (np.allclose(img1, img3, rtol=1e-5, atol=1e-5) and rays1 == rays3):
+        raise AssertionError(f"4K: the fused launch differs from three launches: {diff}, rays {rays3}, {rays1}")
+    del fov_frames, img3, img1
     del cs, cl, hs
     foveated_checks(dev)  # the goldens, and fused == three launches
     torch.cuda.empty_cache()
@@ -817,7 +1019,7 @@ def main() -> int:
          lambda nr: (tc._any_hier_torch(cl.rows, cl.xf_inv, nt, sub_cull(cr_s, nr), c),), cr_s),
     ):
         plain_ms, nr, err = check_vs_plain(name, kern, plain, nr_mixed, HIER_PLAIN_BUDGET_S)
-        errs[name] = err
+        errs[name] = max(errs[name], err)
         checks[name] = dict(rays=nr * tc.BLOCK, plain_ms=plain_ms, max_abs_err=err,
                             max_nodes_per_block=int(crx.count.max()))
     emit("hier_kernels_vs_plain", node_cull_max_abs_err=node_err, bit_equal=True, **checks)
@@ -831,57 +1033,28 @@ def main() -> int:
     nr_full = cr1.ids.shape[0]
     wf = "big scene first bounce, 1200x800x2spp"
     node_tables = (nt.node_sph_t, nt.node_box_t)
-    timing["cull (node table)"] = cull_phase("cull (node table)", rays8_1, *node_tables, peak,
-                                             HIER_PLAIN_BUDGET_S, wf, card)
+    big_t["cull"] = cull_phase("cull (node table)", rays8_1, *node_tables, peak, HIER_PLAIN_BUDGET_S, wf, card)
     block_cull_parts("block_cull_nodes", tc.block_cull_nodes, cl, (o1, d1, cfg.t_min, cfg.t_max),
                      node_tables, wf, card)
 
-    def time_hier(cr_c, cr_s, wavefront):
-        """K4a on cr_c and K4b on cr_s: each kernel's time on the whole
-        wavefront, bit-equality with its plain version on the blocks that fit
-        the budget, K4a's vis against the counted visits, and both bounds."""
-        out = {}
-        for name, crx, any_hit in (("closest_hier", cr_c, False), ("any_hier", cr_s, True)):
-            sweep, plain = ((tc.any_hier_sweep, tc._any_hier_torch) if any_hit
-                            else (tc.closest_hier_sweep, tc._closest_hier_torch))
-
-            def run(fn, nr):
-                got = fn(cl.rows, cl.xf_inv, nt, sub_cull(crx, nr), c)
-                return (got,) if any_hit else got[:2]
-
-            nr = crx.ids.shape[0]
-            out[name] = time_vs_plain(name, lambda nr: run(sweep, nr), lambda nr: run(plain, nr), nr,
-                                      HIER_PLAIN_BUDGET_S, wavefront=wavefront, card=card)
-            work = tc.sweep_work_hier(cl.rows, cl.xf_inv, nt, crx, c, any_hit=any_hit)
-            if not any_hit:
-                vis = int(sweep(cl.rows, cl.xf_inv, nt, crx, c)[2].sum())
-                if vis != work.visits:
-                    raise AssertionError(f"closest_hier ({wavefront}): vis {vis} != {work.visits} counted visits")
-            out[name].update(work_bound(
-                name, work, peak, out[name]["ms"], nbytes=hier_bytes(work, crx, c, any_hit),
-                wavefront=wavefront, card=card, nodes_per_block=work.nodes / nr,
-                max_nodes_per_block=int(crx.count.max())), library_ms=None)
-        return out
-
-    first = time_hier(cr1, cr_sh, wf)
-    timing.update(first)  # the `kernels` line carries the first bounce
+    first = time_hier(cl, cr1, cr_sh, peak, wf, card)
+    big_t.update(first)
     # the second bounce is the engine's own: the rays `trace_wavefront` hands
     # to its sweeps at depth 1 of a frame of this renderer
     (o2, d2, tm2, tM2), (p2, wi2, tms2, tMs2) = engine_bounce(renderer, 1)
     wf2 = "big scene second bounce (the engine's), 1200x800x2spp"
     second_cull = cull_phase("cull (node table)", tc._pack_rays8(cl, o2, d2, tm2, tM2), *node_tables,
                              peak, HIER_PLAIN_BUDGET_S, wf2, card)
-    errs["cull"] = max(errs["cull"], timing["cull (node table)"]["max_abs_err"], second_cull["max_abs_err"])
+    errs["cull"] = max(errs["cull"], big_t["cull"]["max_abs_err"], second_cull["max_abs_err"])
     block_cull_parts("block_cull_nodes", tc.block_cull_nodes, cl, (o2, d2, tm2, tM2), node_tables, wf2, card)
     block_cull_parts("block_cull_nodes", tc.block_cull_nodes, cl, (p2, wi2, tms2, tMs2), node_tables,
                      wf2 + ", shadow rays", card)
-    second = time_hier(tc.block_cull_nodes(cl, o2, d2, tm2, tM2),
-                       tc.block_cull_nodes(cl, p2, wi2, tms2, tMs2), wf2)
+    second = time_hier(cl, tc.block_cull_nodes(cl, o2, d2, tm2, tM2),
+                       tc.block_cull_nodes(cl, p2, wi2, tms2, tMs2), peak, wf2, card)
     del o2, d2, tM2, p2, wi2, tMs2
     for name in first:
         errs[name] = max(errs[name], first[name]["max_abs_err"], second[name]["max_abs_err"])
-    hier_ms = {"cull (node table)": timing["cull (node table)"]["ms"],
-               **{k: v["ms"] for k, v in first.items()}}
+    hier_ms = {"cull (node table)": big_t["cull"]["ms"], **{k: v["ms"] for k, v in first.items()}}
     # the flat walk on the same rays, kernels and entry points: the data a
     # measured routing threshold needs
     flat_tables = cl.cull_tables
@@ -895,10 +1068,10 @@ def main() -> int:
     )
     del fcr1, fcr_sh
     entry = {}
-    for walk, hier in (("hier", True), ("flat", False)):
-        entry[f"closest_hit_cluster_{walk}_ms"] = cuda_ms(
+    for route, hier in (("hier", True), ("flat", False)):
+        entry[f"closest_hit_cluster_{route}_ms"] = cuda_ms(
             lambda: tc.closest_hit_cluster(cl, o1, d1, cfg.t_min, cfg.t_max, hier=hier), reps=3)
-        entry[f"any_hit_cluster_{walk}_ms"] = cuda_ms(
+        entry[f"any_hit_cluster_{route}_ms"] = cuda_ms(
             lambda: tc.any_hit_cluster(cl, p_hit, wi, cfg.shadow_t_min, t_sh, hier=hier), reps=3)
     emit("flat_vs_hier_time", wavefront=wf, rays=nr_full * tc.BLOCK, flat_kernels=flat,
          hier_kernels=hier_ms, entry_points=entry,
@@ -924,14 +1097,10 @@ def main() -> int:
     del og, dg, fast, flat_rec, exact
 
     # ---- a golden through the node walk -----------------------------------
-    saved = tc.HIER_MIN_ENTRIES
-    tc.HIER_MIN_ENTRIES = 0
-    try:
+    with walk("node"):
         before = dict(tc.launch_counts)
         got = scenes.render_open_golden("disney_open_s", dev)
         hier_launches = tc.launch_counts["closest_hier"] - before.get("closest_hier", 0)
-    finally:
-        tc.HIER_MIN_ENTRIES = saved
     want = np.load(os.path.join(GOLDEN_DIR, "disney_open_s.npz"))["image"]
     rmse = scenes.golden_rmse(got, want)
     emit("hier_golden", name="disney_open_s", rmse=rmse, tol=RMSE_TOL, closest_hier_launches=hier_launches)
@@ -941,21 +1110,28 @@ def main() -> int:
 
     # ---- the big slice: main path 2 ---------------------------------------
     big_launches = drive_slice("big_slice", renderer, card, tc.launch_counts, spp=SPP)
-    for name in ("cull", "closest_hier", "any_hier"):
-        if big_launches.get(name, 0) <= 0:
-            raise AssertionError(f"the big slice never launched kernel {name}")
-    for name in ("closest", "any"):
-        if big_launches.get(name, 0):
-            raise AssertionError(f"the big slice launched the flat kernel {name}")
+    check_walk("the big slice", big_launches, "node")
     profile_frame("big_profile", renderer)
 
-    for run in (city, *fov_runs.values(), big_launches):
+    runs = {"slice": city, "flat_slice": flat_city, **fov_runs, "big_slice": big_launches}
+    for run in runs.values():
         for name, k in run.items():
             launches[name] = launches.get(name, 0) + k
+    # each kernel's numbers on the path it serves first: K1, K4a and K4b on
+    # the city's main path (the node walk), K2 and K3 on the flat city
+    # slice; `paths` gives each path's launches and, where its first bounce
+    # was timed, the kernel's ms there
+    timed_at = {"slice": city_t, "flat_slice": flat_t, "big_slice": big_t}
+    timing.update(flat_t, **city_t)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": KERNELS[name],
          "launches": launches.get(name, 0), "max_abs_err": errs[name],
-         **{k: timing[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+         **{k: timing[name][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            if k in timing[name]},
+         "paths": {path: {"launches": run.get(name, 0),
+                          **({k: timed_at[path][name][k] for k in ("ms", "plain_ms", "bound_ms")}
+                             if name in timed_at.get(path, {}) else {})}
+                   for path, run in runs.items() if run.get(name, 0)}}
         for name in KERNELS
     ]}), flush=True)
     print(smi, flush=True)

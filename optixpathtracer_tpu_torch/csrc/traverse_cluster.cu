@@ -666,6 +666,48 @@ closest_kernel(const float* __restrict__ rays8, const int* __restrict__ ids,
   if (threadIdx.x == 0) vis_out[b] = s_vis;
 }
 
+// Pack the block's rays for which `runs` holds onto its threads; one barrier.
+// With kSplit and n such rays each gets a power of two of threads, as many
+// as fit the block and divide the member's c4 groups of four columns; thread
+// t of part t / g (g = kBlock / parts) takes the (t % g)-th ray and the
+// part's share of the columns, so a warp reads one part's columns (broadcast
+// reads). Without kSplit (K3) thread t takes the t-th ray and all columns.
+// Returns (that ray or -1, first group, end group). `bal` is the warp's
+// ballot of `runs`, `rank` the rank of this thread's own ray among the
+// running ones (-1 if it does not run; kSplit only), `parts` the split.
+// s_run is free again after the block's next barrier.
+template <bool kSplit = true>
+__device__ __forceinline__ int3 pack_rays(bool runs, int c4, unsigned* __restrict__ s_run, unsigned& bal,
+                                          int& rank, int& parts) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  bal = __ballot_sync(0xffffffffu, runs);
+  if (lane == 0) s_run[warp] = bal;
+  __syncthreads();
+  int shift = 0;
+  rank = -1;
+  if (kSplit) {
+    int n = 0, before = 0;
+#pragma unroll
+    for (int w = 0; w < kBlock / 32; ++w) {
+      const int cnt = __popc(s_run[w]);
+      before += w < warp ? cnt : 0;
+      n += cnt;
+    }
+    rank = runs ? before + __popc(bal & ((1u << lane) - 1u)) : -1;
+    while ((n << (shift + 1)) <= kBlock && (c4 & ((2 << shift) - 1)) == 0) ++shift;
+  }
+  parts = 1 << shift;
+  const int g = kBlock >> shift;
+  int r = threadIdx.x & (g - 1), w = 0;
+  while (w < kBlock / 32 - 1 && r >= __popc(s_run[w])) r -= __popc(s_run[w++]);
+  if (r >= __popc(s_run[w])) return make_int3(-1, 0, 0);
+  const int ray = w * 32 + (int)__fns(s_run[w], 0, r + 1);
+  if (!kSplit) return make_int3(ray, 0, c4);
+  const int part = threadIdx.x / g;
+  const int share = c4 >> shift;
+  return make_int3(ray, part * share, (part + 1) * share);
+}
+
 // ---------------------------------------------------------------------------
 // K3: any hit (occlusion), terminating each ray on its first hit. One block
 // of 128 threads per 128-ray block; a member's running rays are packed onto
@@ -707,19 +749,16 @@ any_kernel(const float* __restrict__ rays8, const float* __restrict__ keys,
       },
       [&](const float* __restrict__ s_tri, int i, int k, unsigned subs) {
         const size_t ei = row0 + i;
-        // thread t takes the t-th ray of the block that runs member k
-        const bool mine = !s_occ[threadIdx.x] && ((subs >> sub) & 1u) && keys[ei] <= reach;
-        const unsigned bal = __ballot_sync(0xffffffffu, mine);
-        if ((threadIdx.x & 31) == 0) s_run[threadIdx.x >> 5] = bal;
-        __syncthreads();
-        int rank = threadIdx.x, w = 0;
-        while (w < kBlock / 32 - 1 && rank >= __popc(s_run[w])) rank -= __popc(s_run[w++]);
-        if (rank >= __popc(s_run[w])) return;
-        const int ray = w * 32 + (int)__fns(s_run[w], 0, rank + 1);
-        const Ray Rp = s_ray[ray];
+        // thread t takes the t-th ray of the block that runs member k, all its columns
+        unsigned bal;
+        int rank, parts;
+        const int3 pk = pack_rays<false>(!s_occ[threadIdx.x] && ((subs >> sub) & 1u) && keys[ei] <= reach,
+                                         c >> 2, s_run, bal, rank, parts);
+        if (pk.x < 0) return;
+        const Ray Rp = s_ray[pk.x];
         float lp[3], dp[3];
         xform(Rp, xf_inv + (size_t)xfix[ei] * 16, lp, dp);
-        if (member_occludes(s_tri, c, 0, c >> 2, Rp, lp, dp)) s_occ[ray] = 1;
+        if (member_occludes(s_tri, c, 0, c >> 2, Rp, lp, dp)) s_occ[pk.x] = 1;
       });
   __syncthreads();
   occ_out[(size_t)b * kBlock + threadIdx.x] = s_occ[threadIdx.x];
@@ -850,42 +889,6 @@ __device__ __forceinline__ unsigned long long block_or64(unsigned long long m, u
 
 __device__ __forceinline__ void load_iv(const Ray& R, float iv[3]) {
   for (int a = 0; a < 3; ++a) iv[a] = 1.0f / (fabsf(R.d[a]) > 1e-30f ? R.d[a] : 1e-30f);
-}
-
-// Pack the block's rays for which `runs` holds onto its threads; one barrier.
-// With n such rays each gets a power of two of threads, as many as fit the
-// block and divide the member's c4 groups of four columns; thread t of part
-// t / g (g = kBlock / parts) takes the (t % g)-th ray and the part's share of
-// the columns, so a warp reads one part's columns (broadcast reads). Returns
-// (that ray or -1, first group, end group). `bal` is the warp's ballot of
-// `runs`, `rank` the rank of this thread's own ray among the running ones
-// (-1 if it does not run), `parts` the split. s_run is free again after the
-// block's next barrier.
-__device__ __forceinline__ int3 pack_rays(bool runs, int c4, unsigned* __restrict__ s_run, unsigned& bal,
-                                          int& rank, int& parts) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  bal = __ballot_sync(0xffffffffu, runs);
-  if (lane == 0) s_run[warp] = bal;
-  __syncthreads();
-  int n = 0, before = 0;
-#pragma unroll
-  for (int w = 0; w < kBlock / 32; ++w) {
-    const int cnt = __popc(s_run[w]);
-    before += w < warp ? cnt : 0;
-    n += cnt;
-  }
-  rank = runs ? before + __popc(bal & ((1u << lane) - 1u)) : -1;
-  int shift = 0;
-  while ((n << (shift + 1)) <= kBlock && (c4 & ((2 << shift) - 1)) == 0) ++shift;
-  parts = 1 << shift;
-  const int g = kBlock >> shift;
-  int r = threadIdx.x & (g - 1);
-  if (r >= n) return make_int3(-1, 0, 0);
-  const int part = threadIdx.x / g;
-  int w = 0;
-  while (r >= __popc(s_run[w])) r -= __popc(s_run[w++]);
-  const int share = c4 >> shift;
-  return make_int3(w * 32 + (int)__fns(s_run[w], 0, r + 1), part * share, (part + 1) * share);
 }
 
 // (kBlock, 1): without the second argument ptxas holds these two kernels to

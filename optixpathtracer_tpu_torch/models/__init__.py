@@ -33,11 +33,15 @@ def make_foveated_renderer(
 ) -> FoveatedRenderer:
     """Config 5: sv4 VMV'23 — 3-zone foveation at 3840x2160, depth 4,
     radii 157/515, zone spp 1/2/8 (SimplePathtracer.cpp:20-21,135-215).
-    fused=True traces all zones in one wavefront launch; None = fused at
-    interactive sizes (width*height <= 1024*768), three launches above. The
-    traversal is "cluster" unless overridden."""
+    fused=True traces all zones in one wavefront launch, False in three.
+    None is the port's own rule, measured on the H100: fused at every size.
+    The reference fuses only up to 1024x768, a TPU-made limit; on the card
+    one launch rendered the city 2.7-2.9x faster at 640x480, 1280x720 and
+    1920x1080 and 1.7x faster at 3840x2160, at about twice the peak device
+    memory (1.79 GB against 0.81 GB at 4K): PERF.md §6, table "C.3 (a)".
+    The traversal is "cluster" unless overridden."""
     if fused is None:
-        fused = width * height <= 1024 * 768
+        fused = True
     overrides.setdefault("traversal", "cluster")
     cfg = RenderConfig(width=width, height=height, max_depth=max_depth, **overrides)
     return FoveatedRenderer(cs, probe, cfg, camera, foveation or FoveationConfig(), fused=fused)

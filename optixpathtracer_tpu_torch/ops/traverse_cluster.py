@@ -59,8 +59,12 @@ BIG_T = 1e30  # miss sentinel of HitRecord.t (ops/intersect.py)
 BLOCK = 128  # rays per block: the lo/hi layout is 8 sub-blocks of 16 (kBlock)
 NODE = 8  # entries per node of the hierarchical walk (kNode)
 assert NODE == SUPER  # the node cull is K1, whose layout packs groups of 8
-HIER_MIN_ENTRIES = 3072  # hier=None takes the node walk from this many
-#   entries on (the reference's value; read at call time)
+HIER_MIN_ENTRIES = 8  # hier=None takes the node walk from this many entries
+#   on (read at call time). Measured on the H100 (PERF.md §6, table "C.3
+#   (b)"): the node walk rendered every scene of 8 to 4239 entries faster
+#   (0.192 against 0.213 s a frame at 8 entries, 0.227 against 0.512 s at
+#   4239); at one entry the two walks tie (0.179 against 0.178 s). The
+#   reference's 3072 is a TPU-compiler limit.
 _BIG = 3.0e37
 _MT_ELEMS = 1 << 21  # ray-triangle pairs per plain-sweep chunk (memory bound)
 

@@ -364,36 +364,120 @@ def test_hier_none_takes_the_node_kernels(cuda, monkeypatch):
     assert after.get("closest", 0) == before.get("closest", 0)
 
 
-# (n, capacity as a fraction of the count, probability of a set flag):
-# one block, several blocks with a ragged edge, and 2M flags (1954 blocks)
+# (n, capacity, probability of a set flag). n: flags (K5a; K5b takes n // 8
+# rows), or "wave-1" / "wave+1": one element either side of the kernel's
+# one-wave size (blocks per SM x SMs x 1024 threads x 16 flags or 4 words),
+# decided on the card. capacity: a fraction of the count, or ("n", k): k x n.
+# One block, several blocks with a ragged edge, 2M flags, no input, capacity
+# 0, capacity 5 n, and a wave's edge. K5b stages a vector's set bits in
+# shared memory up to 8192 of its 131,072 bits and writes denser vectors in
+# place: p = 0.01 stages every vector, p = 0.0625 about half, p >= 0.1 none.
 WORKLIST_CASES = [(1000, 2.0, 0.3), (5000, 0.5, 0.5), (70001, 1.0, 0.0), (70001, 0.25, 1.0),
-                  (2_000_000, 1.5, 0.1), (2_000_000, 0.5, 0.6)]
+                  (2_000_000, 1.5, 0.1), (2_000_000, 0.5, 0.6), (0, 1.0, 0.5), (3000, 0.0, 0.5),
+                  (3000, ("n", 5), 0.3), ("wave-1", 1.0, 0.4), ("wave+1", 0.7, 0.4),
+                  (2_000_000, 0.8, 0.01), ("wave+1", 0.9, 0.01), (400_000, 1.0, 0.0625)]
+_PER_VEC = {"compact": sw.FLAGS_PER_VEC, "pair_worklist": sw.WORDS_PER_VEC}
 
 
-@pytest.mark.parametrize("n, cap_frac, p", WORKLIST_CASES)
-def test_compact_kernel_bit_equal_to_plain(cuda, n, cap_frac, p):
-    flags = torch.as_tensor(np.random.default_rng(n).random(n) < p, device=cuda)
-    cap = max(1, int(cap_frac * max(1, int(flags.sum()))))
+def _worklist_size(kind, n, device):
+    """Flags (compact) or rows (pair_worklist) of a WORKLIST_CASES entry."""
+    if isinstance(n, str):
+        dev_idx = device.index if device.index is not None else torch.cuda.current_device()
+        wave = sw.max_blocks(dev_idx, kind) * sw.THREADS * _PER_VEC[kind]
+        return wave - 1 if n == "wave-1" else wave + 1
+    return n if kind == "compact" else n // 8
+
+
+def _capacity(cap, count, n):
+    return cap[1] * n if isinstance(cap, tuple) else int(cap * max(1, count))
+
+
+def _flags(n, p, seed, device):
+    return torch.as_tensor(np.random.default_rng(seed).random(n) < p, device=device)
+
+
+def _words(r, p, seed, device):
+    b = np.random.default_rng(seed).random((r, 32)) < p
+    bits = (b.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(1).astype(np.uint32)
+    return torch.as_tensor(bits.view(np.int32), device=device)
+
+
+def _assert_worklist_equal(kind, x, cap):
+    fn, plain = ((sw.compact_indices, sw.compact_indices_torch) if kind == "compact"
+                 else (sw.pair_worklist, sw.pair_worklist_torch))
+    got, want = fn(x, cap), plain(x, cap)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("n, cap, p", WORKLIST_CASES)
+def test_compact_kernel_bit_equal_to_plain(cuda, n, cap, p):
+    n = _worklist_size("compact", n, cuda)
+    flags = _flags(n, p, n, cuda)
+    cap = _capacity(cap, int(flags.sum()), n)
     before = sw.launch_counts["compact"]
-    idx, cnt = sw.compact_indices(flags, cap)
-    want_idx, want_cnt = sw.compact_indices_torch(flags, cap)
-    assert torch.equal(idx, want_idx) and torch.equal(cnt, want_cnt)
+    _, cnt = _assert_worklist_equal("compact", flags, cap)
+    assert int(cnt) == int(flags.sum())  # even above the capacity
     assert sw.launch_counts["compact"] == before + 1
 
 
-@pytest.mark.parametrize("n, cap_frac, p", WORKLIST_CASES)
-def test_pair_worklist_kernel_bit_equal_to_plain(cuda, n, cap_frac, p):
-    r = n // 8
-    b = np.random.default_rng(r).random((r, 32)) < p
-    bits = (b.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(1).astype(np.uint32)
-    words = torch.as_tensor(bits.view(np.int32), device=cuda)
-    cap = max(1, int(cap_frac * max(1, int(b.sum()))))
+@pytest.mark.parametrize("n, cap, p", WORKLIST_CASES)
+def test_pair_worklist_kernel_bit_equal_to_plain(cuda, n, cap, p):
+    r = _worklist_size("pair_worklist", n, cuda)
+    words = _words(r, p, r, cuda)
+    count = int(sum(int(((words >> b) & 1).sum()) for b in range(32)))
+    cap = _capacity(cap, count, r)
     before = sw.launch_counts["pair_worklist"]
-    got = sw.pair_worklist(words, cap)
-    want = sw.pair_worklist_torch(words, cap)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    got = _assert_worklist_equal("pair_worklist", words, cap)
+    assert int(got[2]) == count
     assert sw.launch_counts["pair_worklist"] == before + 1
+
+
+def test_worklist_kernels_refuse_an_input_off_16_bytes(cuda):
+    flags = _flags(1000, 0.5, 1, cuda)
+    words = _words(1000, 0.5, 1, cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        sw.compact_indices(flags[3:], 100)
+    with pytest.raises(ValueError, match="16-byte"):
+        sw.pair_worklist(words[1:], 100)
+    _assert_worklist_equal("compact", flags[16:], 700)  # a slice on a boundary is taken
+    _assert_worklist_equal("pair_worklist", words[4:], 9000)
+
+
+@pytest.mark.parametrize("kind", ["compact", "pair_worklist"])
+def test_worklist_kernels_back_to_back_and_on_two_streams(cuda, kind):
+    make = _flags if kind == "compact" else _words
+    xs = [make(300_000, p, seed, cuda) for seed, p in ((1, 0.3), (2, 0.7))]
+    for x in xs:  # back to back on one stream, each with its own buffer
+        _assert_worklist_equal(kind, x, 250_000)
+    fn = sw.compact_indices if kind == "compact" else sw.pair_worklist
+    plain = sw.compact_indices_torch if kind == "compact" else sw.pair_worklist_torch
+    streams = [torch.cuda.Stream(cuda) for _ in xs]
+    torch.cuda.synchronize()
+    outs = []
+    for x, st in zip(xs, streams):
+        with torch.cuda.stream(st):
+            outs.append(fn(x, 250_000))
+    torch.cuda.synchronize()
+    for x, got in zip(xs, outs):
+        for g, w in zip(got, plain(x, 250_000)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kind", ["compact", "pair_worklist"])
+def test_worklist_call_is_one_device_kernel(cuda, kind):
+    from torch.profiler import ProfilerActivity, profile
+
+    x = (_flags if kind == "compact" else _words)(1_000_000, 0.4, 3, cuda)
+    fn = sw.compact_indices if kind == "compact" else sw.pair_worklist
+    fn(x, 500_000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(x, 500_000)
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(on_card) == 1 and ("compact_kernel" if kind == "compact" else "pair_kernel") in on_card[0]
 
 
 @pytest.mark.parametrize("rows, width, n", [(1 << 20, 128, 1 << 16), (5000, 7, 4099), (64, 4, 0)])

@@ -298,7 +298,7 @@ def test_make_foveated_renderer_preset():
     probe = scenes.sky_probe(CPU)
     r4k = make_foveated_renderer(cs, probe, scenes.open_camera(3840, 2160))
     assert (r4k.config.width, r4k.config.height, r4k.config.max_depth) == (3840, 2160, 4)
-    assert r4k.config.traversal == "cluster" and r4k.fused is False
+    assert r4k.config.traversal == "cluster" and r4k.fused is True  # the port's measured rule
     assert r4k.fov == tfov.FoveationConfig()
     assert [(z.factor, z.spp) for z in r4k.zones] == [(4, 1), (2, 2), (1, 8)]
     small = make_foveated_renderer(cs, probe, scenes.open_camera(640, 480), width=640, height=480,

@@ -2,9 +2,11 @@
 versions against the reference's XLA contracts `compact_indices_xla` and
 `pair_worklist_xla`, bit for bit, on the same numpy inputs.
 
-The cases cover capacity above the input size, capacity below the count
-(truncation, with the count still the full popcount), all-zero and
-all-set inputs. On CPU tensors the wrappers take the plain versions; on
+The cases cover capacity above the input size (and far above it), capacity
+below the count (truncation, with the count still the full popcount),
+capacity 0, one element, all-zero and all-set inputs. The kernels' launch
+plan (`launch_plan`: grid, vectors per thread, buffer layout) is checked
+here too, as plain arithmetic. On CPU tensors the wrappers take the plain versions; on
 any other device they launch their CUDA kernel or raise.
 """
 import jax.numpy as jnp
@@ -22,6 +24,9 @@ COMPACT_CASES = {
     "all_zero": (700, 64, 0.0),
     "all_set": (700, 900, 1.0),
     "all_set_truncated": (700, 128, 1.0),
+    "capacity_zero": (300, 0, 0.4),
+    "capacity_far_above_n": (50, 5000, 0.5),
+    "one_flag": (1, 4, 1.0),
 }
 
 # name -> (rows, capacity, probability of a set bit)
@@ -32,6 +37,9 @@ PAIR_CASES = {
     "all_zero": (64, 128, 0.0),
     "all_set": (33, 33 * 32, 1.0),
     "all_set_truncated": (33, 100, 1.0),
+    "capacity_zero": (40, 0, 0.3),
+    "capacity_far_above_n": (5, 5 * 32 * 20, 0.5),
+    "one_row": (1, 40, 0.5),
 }
 
 
@@ -73,3 +81,39 @@ def test_worklist_dispatch_has_no_fallback():
         sw.compact_indices(flags, 64)
     with pytest.raises(ValueError, match="no kernel"):
         sw.pair_worklist(torch.ones(8, dtype=torch.int32, device="meta"), 64)
+
+
+# (items per 16-byte vector, outputs, counts per block): K5a, K5b
+PLAN_KINDS = {"compact": (sw.FLAGS_PER_VEC, 1, 1), "pair_worklist": (sw.WORDS_PER_VEC, 2, sw.WORD_BITS)}
+
+
+@pytest.mark.parametrize("kind", sorted(PLAN_KINDS))
+@pytest.mark.parametrize("max_blocks", [1, 7, 132, 264])
+def test_launch_plan_covers_every_element(kind, max_blocks):
+    per_vec, outputs, per_block = PLAN_KINDS[kind]
+    span = sw.THREADS * per_vec  # items of one vector step of a block
+    wave = max_blocks * span
+    sizes = sorted({0, 1, per_vec - 1, per_vec + 1, span - 1, span, span + 1, wave - 1, wave, wave + 1,
+                    2 * wave - 1, 2 * wave + 1, 3 * wave - 1, 3 * wave}
+                   | set(np.random.default_rng(max_blocks).integers(0, 3 * wave, 20).tolist()))
+    for n in sizes:
+        cap = 3 + n // 7
+        plan = sw.launch_plan(n, cap, per_vec, outputs, per_block, max_blocks)
+        assert 1 <= plan.grid <= max_blocks and plan.steps * span >= n > (plan.steps - 1) * span or n == 0
+        assert plan.grid == min(max_blocks, plan.steps)  # one block per step up to one wave
+        # the blocks' steps tile [0, steps) in block order, none empty, at most vec each
+        # the kernels' `block_steps`: block b takes [b steps / grid, (b + 1) steps / grid)
+        taken = [range(b * plan.steps // plan.grid, (b + 1) * plan.steps // plan.grid) for b in range(plan.grid)]
+        assert [s for r in taken for s in r] == list(range(plan.steps))
+        assert all(1 <= len(r) <= plan.vec for r in taken)
+        assert plan.vec == -(-plan.steps // plan.grid) and plan.items_per_thread == plan.vec * per_vec
+        # every element lies in a step some block takes, in order
+        assert (n == 0 and plan.steps == 1) or (n - 1) // span == plan.steps - 1
+        # one buffer: outputs, then the count, then the counts table
+        assert plan.count_at == outputs * cap and plan.counts_at == plan.count_at + 1
+        assert plan.buffer_ints == plan.counts_at + per_block * plan.grid
+
+
+def test_launch_plan_refuses_a_card_without_room():
+    with pytest.raises(ValueError, match="no block"):
+        sw.launch_plan(100, 10, sw.FLAGS_PER_VEC, 1, 1, 0)

@@ -157,8 +157,11 @@ def test_any_hier_vs_pallas_interpret_and_oracle(soup, t_max):
 
 
 def test_threshold_and_node_match_reference():
-    assert tc.HIER_MIN_ENTRIES == jtc.HIER_MIN_ENTRIES == 3072
+    # the node layout is the reference's; the threshold is the port's own,
+    # measured on the card (tests/test_torch_route_rules.py pins it), where
+    # the reference keeps its TPU-made 3072
     assert tc.NODE == jtc.NODE
+    assert jtc.HIER_MIN_ENTRIES == 3072 and tc.HIER_MIN_ENTRIES == 8
 
 
 def _spy(monkeypatch, name):
