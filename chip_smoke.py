@@ -31,8 +31,21 @@ port's paths and checks that each went through its kernels:
      the 640x480 fused configuration; its goldens (`foveated_s` against the
      port's CPU render, see `foveated_checks`) and the fused launch against
      the three launches on a 48x32 frame;
-  4. the gather probe (gather) on a (1<<20, 128) f32 table;
-  5. `disney_pt` on the ~8.68M-triangle terrain-apron scene
+  4. the quality pipeline, on the city's node walk: the `sampling=`
+     strategies on the card against the CPU (`sobol_card_eq`: Sobol bits,
+     `_sobol_pair` and `_ld_bases` bit for bit on 2**20 seeded words and the
+     uint32 edges; `sampling_card_vs_cpu`: the open scene per strategy);
+     bench.py's quality track at 1200x800 against
+     scenes/ref_city_1200x800.npz (`quality_pipeline`: uniform, Sobol +
+     adaptive + denoise, progressive foveation, each run to sqrt-space RMSE
+     0.03 within its budget, its spp printed beside the JAX record's); the
+     sv4 4K configuration with Sobol, Russian roulette and a denoised fovea
+     crop (`fovea4k_quality`, 0.03 within 16 frames); `Renderer.aovs`,
+     `denoised_image` and a checkpoint round trip (`aov_checkpoint`); one
+     profiled Sobol city frame and adaptive refine round with the Sobol
+     draws' share (`quality_profile`);
+  5. the gather probe (gather) on a (1<<20, 128) f32 table;
+  6. `disney_pt` on the ~8.68M-triangle terrain-apron scene
      (`build_big_scene` at BIG8X_TERRAIN_GRID, 4239 entries, the node walk:
      cull, closest_hier, any_hier), with the exactness gate against the
      dense oracle, a golden through the node walk, the node kernels' and
@@ -778,6 +791,462 @@ def zone_lanes(renderer):
     return out
 
 
+QUALITY_TARGET = 0.03  # sqrt-space RMSE the bench's quality rows run to (bench.py:508)
+JAX_RECORD = {  # BENCH_LOCAL_r5.json: the JAX package's rows (spp are the estimator's, not the chip's)
+    "uniform": dict(spp=50), "pipeline": dict(spp=2.0), "foveated": dict(spp=56),
+    "fovea4k": dict(frames=1, fovea_spp=8, rmse_denoised=0.01722, companion_rmse_q=0.18721),
+}
+SAMPLING_TOL = 1e-5  # card against the port's CPU render, sqrt-space RMSE
+
+
+def sobol_card_eq(dev, card):
+    """`core/sobol.sobol02_bits`, `_sobol_pair` and `_ld_bases` (stratified,
+    blue) on the card against the port's CPU results, bit for bit, on 2**20
+    seeded uint32 inputs and the edges 0, 1, 2**31 - 1, 2**31, 2**32 - 1."""
+    import torch
+
+    from optixpathtracer_tpu_torch.core import sobol
+    from optixpathtracer_tpu_torch.engine import wavefront as wf
+
+    rng = np.random.default_rng(8)
+    edges = np.array([0, 1, 2**31 - 1, 2**31, 2**32 - 1], np.int64)
+    words = []
+    for _ in range(4):
+        w = rng.integers(0, 2**32, 1 << 20, dtype=np.uint64).astype(np.int64)
+        w[:edges.size] = edges
+        words.append(torch.as_tensor(w))
+    mism = {}
+
+    def check(name, fn, *args):
+        want = fn(*args)
+        got = fn(*(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args))
+        bad = 0
+        for g, w in zip(got, want):
+            if not isinstance(g, torch.Tensor):
+                bad += int(g != w)
+                continue
+            g = g.cpu()
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            bad += int((g != w).sum())
+        mism[name] = bad
+
+    check("sobol02_bits", sobol.sobol02_bits, *words)
+    check("sobol02_point", sobol.sobol02_point, *words)
+    pix, ctr = words[0] % (WIDTH * HEIGHT), words[1]
+    for depth in (0, 3):
+        for salt in (wf._LD_SALT_AA, wf._LD_SALT_NEE, wf._LD_SALT_BSDF):
+            check(f"_sobol_pair depth {depth} salt {salt:#x}", wf._sobol_pair, pix, ctr, depth, salt)
+    for sampling, m in (("stratified", 9), ("stratified", 64), ("blue", 16)):
+        cfg = wf.RenderConfig(sampling=sampling, sampling_strata=m)
+        for salt in (wf._LD_SALT_AA, wf._LD_SALT_NEE):
+            check(f"_ld_bases {sampling} m={m} salt {salt:#x}", wf._ld_bases, cfg, pix, ctr, salt)
+    emit("sobol_card_eq", inputs=1 << 20, edges=edges.tolist(), mismatches=mism, card=card)
+    if any(mism.values()):
+        raise AssertionError(f"sobol_card_eq: the card differs from the CPU: {mism}")
+
+
+def sampling_card_vs_cpu(dev, card):
+    """The open golden scene (96x64, 2 spp, depth 2, the bench's flags) per
+    strategy, on the card and through the port on the CPU; both run the
+    same code, so they agree to SAMPLING_TOL in sqrt space."""
+    import torch
+
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.builder import compile_scene
+    from optixpathtracer_tpu_torch.engine.renderer import Renderer
+    from optixpathtracer_tpu_torch.engine.wavefront import RenderConfig
+
+    w, h = 96, 64
+    rmse = {}
+    for sampling in ("stratified", "blue", "sobol"):
+        imgs = []
+        for d in (dev, torch.device("cpu")):
+            cfg = RenderConfig(width=w, height=h, samples_per_launch=2, max_depth=2,
+                               traversal="cluster", sampling=sampling, sampling_strata=16,
+                               **BENCH_FLAGS)
+            r = Renderer(compile_scene(scenes.open_scene(), d), scenes.sky_probe(d), cfg,
+                         scenes.open_camera(w, h))
+            r.render_n(2)
+            imgs.append(r.accum_image())
+        rmse[sampling] = scenes.golden_rmse(*imgs)
+        if not (np.isfinite(imgs[0]).all() and imgs[0].max() > 0):
+            raise AssertionError(f"sampling_card_vs_cpu: {sampling} rendered no finite image")
+    emit("sampling_card_vs_cpu", width=w, height=h, spp=2, max_depth=2, frames=2,
+         rmse_vs_cpu_port=rmse, tol=SAMPLING_TOL, card=card)
+    if max(rmse.values()) > SAMPLING_TOL:
+        raise AssertionError(f"sampling_card_vs_cpu: {rmse} above {SAMPLING_TOL}")
+
+
+def _sqrt_img(a):
+    import torch
+
+    return torch.sqrt(torch.clamp(a, min=0.0))
+
+
+def _rmse(a, b) -> float:
+    """sqrt-space RMSE of two device tensors, one scalar to the host."""
+    import torch
+
+    return float(torch.sqrt(torch.mean((_sqrt_img(a) - b) ** 2)))
+
+
+def _row(name, label, run, card, **fields):
+    """Run a quality row to QUALITY_TARGET: run() yields (seconds so far,
+    rmse, spp) per checkpoint; returns the row, emitted."""
+    secs = spp = None
+    rmse = float("inf")
+    checkpoints = 0
+    for t, v, s in run:
+        rmse, checkpoints, spp_last = v, checkpoints + 1, s
+        if v <= QUALITY_TARGET:
+            secs, spp = t, s
+            break
+    rec = dict(row=name, label=label, reached=secs is not None, seconds=secs, spp=spp,
+               final_rmse=rmse, checkpoints=checkpoints, last_spp=spp_last,
+               jax_record=JAX_RECORD[name], target=QUALITY_TARGET, **fields, card=card)
+    emit("quality_pipeline", **rec)
+    return rec
+
+
+def quality_pipeline(cs, probe, dev, counts, card):
+    """bench.py:508-737 at 1200x800 against scenes/ref_city_1200x800.npz: a
+    uniform progressive row (random sampling, 2 spp a launch, at most 64
+    launches), the pipeline row (AdaptiveRenderer with Sobol, warm-up 2,
+    refine 4 over a quarter of the tiles, the bench's denoise, at most 24
+    rounds) and a progressive foveated row (radii 80/200, centre gaze,
+    fovea-disc RMSE, at most 40 frames, the port's default route). Every
+    RMSE is computed on the device, one scalar per checkpoint; every row
+    must reach QUALITY_TARGET. Returns {path: launches}."""
+    import torch
+
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.engine.adaptive import AdaptiveRenderer
+    from optixpathtracer_tpu_torch.engine.foveated import FoveationConfig
+    from optixpathtracer_tpu_torch.engine.wavefront import RenderConfig
+    from optixpathtracer_tpu_torch.models import make_disney_pt_renderer, make_foveated_renderer
+
+    ref_d = np.load(os.path.join(REPO, "scenes", "ref_city_1200x800.npz"))
+    w, h = int(ref_d["width"]), int(ref_d["height"])
+    ref_sqrt = _sqrt_img(torch.as_tensor(ref_d["image"].astype(np.float32), device=dev))  # canonical
+    cam = scenes.city_camera(w, h)
+    runs, rows = {}, {}
+
+    # ---- uniform progressive PT, random sampling ---------------------------
+    r = make_disney_pt_renderer(cs, probe, cam, width=w, height=h, spp=2, max_depth=4, **BENCH_FLAGS)
+    ref_tile = ref_sqrt[torch.as_tensor(r._perm, device=dev)]
+
+    def run_uniform():
+        r.render(download=False)  # warm-up, then a fresh accumulation
+        r.resize(w, h)
+        counts.clear()
+        t = 0.0
+        for i in range(64):
+            t0 = time.perf_counter()
+            r.render(download=False)
+            v = _rmse(torch.stack(list(r.accum), -1), ref_tile)
+            t += time.perf_counter() - t0
+            yield t, v, (i + 1) * r.config.samples_per_launch
+
+    rows["uniform"] = _row("uniform", "uniform PT, random sampling", run_uniform(), card,
+                           ref_spp=int(ref_d["spp"]))
+    runs["quality_uniform"] = dict(counts)
+    del r, ref_tile
+
+    # ---- Sobol + adaptive + denoise ----------------------------------------
+    acfg = RenderConfig(width=w, height=h, samples_per_launch=2, max_depth=4, traversal="cluster",
+                        sampling="sobol", **BENCH_FLAGS)
+    ref_img = ref_sqrt.reshape(h, w, 3).flip(0)  # top row first, as the renderer's images
+
+    def make_adaptive():
+        return AdaptiveRenderer(cs, probe, acfg, cam, warmup_spp=2, refine_spp=4, refine_fraction=0.25)
+
+    def run_pipeline():
+        warm = make_adaptive()  # warm both launch shapes (warm-up and refine)
+        for _ in range(2):
+            warm.render()
+            _rmse(warm.denoised_tensor(), ref_img)
+        del warm
+        ar = make_adaptive()
+        counts.clear()
+        t = 0.0
+        for _ in range(24):
+            t0 = time.perf_counter()
+            ar.render()
+            v = _rmse(ar.denoised_tensor(), ref_img)
+            t += time.perf_counter() - t0
+            yield t, v, float(ar.count.sum()) / (w * h)
+
+    rows["pipeline"] = _row("pipeline", "sobol+adaptive+denoise", run_pipeline(), card,
+                            ref_spp=int(ref_d["spp"]))
+    runs["quality_pipeline"] = dict(counts)
+
+    # ---- progressive foveation, fovea-disc RMSE ----------------------------
+    fcfg = FoveationConfig(inner_radius=80, outer_radius=200, progressive=True)
+    gx, gy = w // 2, h // 2  # the frame's centre: the y flip does not move it
+    ii = torch.arange(w * h, device=dev)
+    disc = ((ii % w - gx) ** 2 + (ii // w - gy) ** 2) <= 80 ** 2
+    ref_disc = ref_sqrt[disc]
+
+    def make_fov():
+        fr = make_foveated_renderer(cs, probe, cam, width=w, height=h, max_depth=4, foveation=fcfg,
+                                    samples_per_launch=1, sampling="sobol", **BENCH_FLAGS)
+        fr.set_gaze(gx, gy)
+        return fr
+
+    def run_fovea():
+        make_fov().render(download=False)  # warm-up
+        fr = make_fov()
+        counts.clear()
+        t = 0.0
+        for i in range(40):
+            t0 = time.perf_counter()
+            fr.render(download=False)
+            v = _rmse(torch.stack(list(fr.accum), -1)[disc], ref_disc)
+            t += time.perf_counter() - t0
+            yield t, v, (i + 1) * fcfg.fovea_spp
+
+    rows["foveated"] = _row("foveated", "progressive foveation, fovea disc", run_fovea(), card,
+                            fused=make_fov().fused, foveation=dataclasses.asdict(fcfg),
+                            ref_spp=int(ref_d["spp"]))
+    runs["quality_foveated"] = dict(counts)
+    failed = [k for k, v in rows.items() if not v["reached"]]
+    if failed:
+        raise AssertionError(f"quality_pipeline: rows {failed} did not reach RMSE {QUALITY_TARGET}")
+    return runs
+
+
+def fovea4k_quality(cs, probe, dev, counts, card):
+    """bench.py:740-913 at the published sv4 configuration: 3840x2160,
+    radii 157/515, zone spp 1/2/8, progressive, Sobol, Russian roulette, the
+    bench's flags, the port's default route (fused), the gaze of
+    scenes/ref_city_4k_fovea.npz; the 384x384 fovea crop is denoised with
+    first-hit guides (one primary-visibility pass through
+    `closest_hit_cluster` + `_hit_geometry`). Fails unless min(raw,
+    denoised) disc RMSE reaches QUALITY_TARGET within 16 frames. Returns
+    {path: launches}."""
+    import torch
+
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.core.math import Vec3
+    from optixpathtracer_tpu_torch.engine.foveated import FoveationConfig
+    from optixpathtracer_tpu_torch.engine.wavefront import _hit_geometry
+    from optixpathtracer_tpu_torch.models import make_foveated_renderer
+    from optixpathtracer_tpu_torch.ops.denoise import atrous_denoise
+    from optixpathtracer_tpu_torch.ops.traverse_cluster import closest_hit_cluster
+
+    fd = np.load(os.path.join(REPO, "scenes", "ref_city_4k_fovea.npz"))
+    qd = np.load(os.path.join(REPO, "scenes", "ref_city_4k_q.npz"))
+    w, h = int(fd["width"]), int(fd["height"])
+    cx, cy = (int(v) for v in fd["gaze"])  # buffer coordinates, bottom row first
+    idx = torch.as_tensor(fd["idx"].astype(np.int64), device=dev)
+    ref_disc = _sqrt_img(torch.as_tensor(fd["image"].astype(np.float32), device=dev))
+    ref_q = _sqrt_img(torch.as_tensor(qd["image"].astype(np.float32), device=dev))
+    cam = scenes.city_camera(w, h)
+    fov = FoveationConfig(inner_radius=157, outer_radius=515, progressive=True)
+    fr = make_foveated_renderer(cs, probe, cam, width=w, height=h, max_depth=4, foveation=fov,
+                                samples_per_launch=1, sampling="sobol", russian_roulette=True,
+                                **BENCH_FLAGS)
+    fr.set_gaze(cx, h - 1 - cy)  # image coordinates: the splat centre is the disc's centre
+
+    half = 192  # the fovea crop, 384x384 around the gaze; the r=157 disc lies inside
+    r0, c0 = cy - half, cx - half
+    disc_rows, disc_cols = idx // w - r0, idx % w - c0
+    ys, xs = np.mgrid[r0:r0 + 2 * half, c0:c0 + 2 * half]
+    uu, vv, ww = cam.uvw_frame()
+    dirs = ((2.0 * (xs.ravel() + 0.5) / w - 1.0)[:, None] * uu[None]
+            + (2.0 * (ys.ravel() + 0.5) / h - 1.0)[:, None] * vv[None] + ww[None])
+    dirs = (dirs / np.linalg.norm(dirs, axis=1, keepdims=True)).astype(np.float32)
+    d3 = Vec3(*(torch.as_tensor(np.ascontiguousarray(dirs[:, i]), device=dev) for i in range(3)))
+    o3 = Vec3(*(torch.full_like(d3.x, float(c)) for c in np.asarray(cam.eye, np.float32)))
+    rec = closest_hit_cluster(cs.clusters, o3, d3, 1e-3, 1e16)
+    nrm, _, alb = _hit_geometry(cs, rec, d3, False)
+    hit = rec.t < 1e15
+    g_nrm, g_alb = (torch.stack([torch.where(hit, c, 0.0) for c in v], -1).reshape(2 * half, 2 * half, 3)
+                    for v in (nrm, alb))
+    g_z = torch.where(hit, rec.t, 0.0).reshape(2 * half, 2 * half)
+
+    def rmses():
+        img = torch.stack(list(fr.accum), -1)  # (W*H, 3), canonical
+        raw = _rmse(img[idx], ref_disc)
+        crop = img.reshape(h, w, 3)[r0:r0 + 2 * half, c0:c0 + 2 * half]
+        dn = atrous_denoise(crop, g_nrm, g_alb, sigma_color=4.0, sigma_albedo=1.0, depth=g_z,
+                            demodulate=True)
+        return raw, _rmse(dn[disc_rows, disc_cols], ref_disc)
+
+    fr.render(download=False)  # warm-up, then a fresh accumulation
+    rmses()
+    fr.accum = Vec3.zeros((w * h,), dev)
+    fr.subframe_index = 0
+    counts.clear()
+    t = 0.0
+    secs = frames = None
+    raw = den = float("inf")
+    for i in range(16):
+        t0 = time.perf_counter()
+        fr.render(download=False)
+        raw, den = rmses()
+        t += time.perf_counter() - t0
+        if min(raw, den) <= QUALITY_TARGET:
+            secs, frames = t, i + 1
+            break
+    launches = dict(counts)
+    q = torch.stack(list(fr.accum), -1).reshape(h, w, 3).reshape(h // 4, 4, w // 4, 4, 3).mean(dim=(1, 3))
+    comp = _rmse(q, ref_q)
+    emit("fovea4k_quality", width=w, height=h, foveation=dataclasses.asdict(fov), fused=fr.fused,
+         sampling="sobol", russian_roulette=True, reached=secs is not None, seconds=secs,
+         frames=frames, fovea_spp=None if frames is None else frames * fov.fovea_spp,
+         final_rmse_raw=raw, final_rmse_denoised=den,
+         gate_variant="denoised" if den < raw else "raw", companion_fullframe_rmse_q=comp,
+         ref_spp=int(fd["spp"]), companion_ref_effective_spp=int(qd["effective_spp"]),
+         jax_record=JAX_RECORD["fovea4k"], target=QUALITY_TARGET, launches=launches, card=card)
+    if secs is None:
+        raise AssertionError(f"fovea4k_quality: disc RMSE raw {raw}, denoised {den} after 16 frames")
+    return {"fovea4k_quality": launches}
+
+
+def aov_checkpoint(cs, probe, dev, card):
+    """On the card: `Renderer.aovs()` shapes and ranges; `denoised_image()`
+    against ops/denoise on the CPU of the same inputs (rtol 1e-4, atol
+    1e-5: exp and the CUDA scalar divisions round a few ulps apart); a
+    checkpoint saved after 2 frames and loaded into a fresh renderer, whose
+    next frame equals the continuing renderer's bit for bit."""
+    import tempfile
+
+    import torch
+
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.models import make_disney_pt_renderer
+    from optixpathtracer_tpu_torch.ops.denoise import atrous_denoise
+
+    w, h = 400, 300
+    cam = scenes.city_camera(w, h)
+
+    def make():
+        return make_disney_pt_renderer(cs, probe, cam, width=w, height=h, spp=2, max_depth=4,
+                                       sampling="sobol", **BENCH_FLAGS)
+
+    r = make()
+    r.render_n(2)
+    aov = r.aovs()
+    shapes = {k: list(v.shape) for k, v in aov.items()}
+    n_len = np.linalg.norm(aov["normal"], axis=-1)
+    hit = aov["depth"] > 0
+    # AOVs are means over a pixel's samples: where they hit different faces
+    # the mean normal is shorter than 1
+    ranges = dict(
+        normal_len=[float(n_len.min()), float(n_len.max())],
+        normal_len_median_on_hits=float(np.median(n_len[hit])),
+        albedo=[float(aov["albedo"].min()), float(aov["albedo"].max())],
+        alpha=[float(aov["alpha"].min()), float(aov["alpha"].max())],
+        depth=[float(aov["depth"].min()), float(aov["depth"].max())], hit_share=float(hit.mean()))
+    ok_aov = (shapes == {"normal": [h, w, 3], "albedo": [h, w, 3], "alpha": [h, w, 3], "depth": [h, w]}
+              and all(np.isfinite(v).all() for v in aov.values())
+              and ranges["albedo"][0] >= 0 and ranges["albedo"][1] <= 1
+              and ranges["alpha"][0] >= 0 and ranges["alpha"][1] <= 1 + 1e-6
+              and ranges["depth"][0] >= 0 and 0 < ranges["hit_share"] < 1
+              and ranges["normal_len"][1] <= 1 + 1e-3
+              and abs(ranges["normal_len_median_on_hits"] - 1) < 1e-3)
+    got = r.denoised_image()
+    want = atrous_denoise(*(torch.as_tensor(np.ascontiguousarray(a)) for a in (
+        r.accum_image(), aov["normal"], aov["albedo"]))).numpy()
+    dn_err = float(np.abs(got - want).max())
+    ok_dn = np.allclose(got, want, rtol=1e-4, atol=1e-5)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "checkpoint.npz")
+        r.save_checkpoint(path)
+        r2 = make()
+        r2.load_checkpoint(path)
+    r.render(download=False)
+    r2.render(download=False)
+    ckpt_equal = bool(np.array_equal(r.accum_image(), r2.accum_image()))
+    emit("aov_checkpoint", width=w, height=h, aov_shapes=shapes, aov_ranges=ranges,
+         denoised_vs_cpu_max_abs=dn_err, denoise_tol=dict(rtol=1e-4, atol=1e-5),
+         checkpoint_next_frame_bit_equal=ckpt_equal, subframe_after_load=r2.subframe_index, card=card)
+    if not (ok_aov and ok_dn and ckpt_equal):
+        raise AssertionError(f"aov_checkpoint: aovs {ok_aov}, denoise {ok_dn} ({dn_err}), "
+                             f"checkpoint bit-equal {ckpt_equal}")
+
+
+def quality_profile(cs, probe, dev, card):
+    """The Sobol city frame (1200x800, 2 spp, depth 4, the bench's flags)
+    and an adaptive refine round: the median of 3 unprofiled steps, then one
+    profiled step: device busy, wall, idle share, peak memory, and the Sobol
+    draws' device time and share of the busy time (the draws wrapped in a
+    `record_function` for that step only). Beside it, one `_sobol_pair` on
+    the step's lane count timed by CUDA events: the stream's elapsed time,
+    the host's launch gaps included, times the draws counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.engine import wavefront
+    from optixpathtracer_tpu_torch.engine.adaptive import AdaptiveRenderer
+    from optixpathtracer_tpu_torch.engine.wavefront import RenderConfig
+    from optixpathtracer_tpu_torch.models import make_disney_pt_renderer
+
+    cam = scenes.city_camera(WIDTH, HEIGHT)
+    real = wavefront._sobol_pair
+    draws = []
+
+    def annotated(pix, ctr, depth, salt):
+        draws.append(pix.shape[0])
+        with record_function("sobol_pair"):
+            return real(pix, ctr, depth, salt)
+
+    def profiled(name, step, lanes):
+        step()  # warm-up
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        draws.clear()
+        wavefront._sobol_pair = annotated
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            wavefront._sobol_pair = real
+        events = prof.key_averages()
+        busy = sum(_device_us(e) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA and e.key != "sobol_pair") / 1e6
+        sob = [e for e in events if e.key == "sobol_pair" and e.device_type == torch.autograd.DeviceType.CPU]
+        sobol_prof_s = float(getattr(sob[0], "device_time_total", 0.0)) / 1e6 if sob else 0.0
+        pix = torch.randint(0, WIDTH * HEIGHT, (lanes,), device=dev)
+        ctr = torch.randint(0, 64, (lanes,), device=dev)
+        pair_ms = cuda_ms(lambda: real(pix, ctr, 1, wavefront._LD_SALT_NEE), reps=5)
+        if busy <= 0:
+            raise AssertionError(f"{name}: the profiler recorded no device time")
+        emit("quality_profile", frame=name, step_s=float(np.median(times)), step_times_s=times,
+             wall_s=wall, device_busy_s=busy, idle_share=1.0 - busy / wall,
+             max_memory_allocated=torch.cuda.max_memory_allocated(), sobol_draws=len(draws),
+             lanes_per_draw=sorted(set(draws)), sobol_device_s=sobol_prof_s,
+             sobol_share_of_busy=sobol_prof_s / busy, sobol_pair_stream_ms=pair_ms,
+             sobol_stream_s=pair_ms / 1e3 * len(draws),
+             top=[{"name": e.key[:60], "ms": _device_us(e) / 1e3, "calls": e.count}
+                  for e in sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                                   and e.key != "sobol_pair"), key=_device_us, reverse=True)[:8]],
+             card=card)
+
+    r = make_disney_pt_renderer(cs, probe, cam, width=WIDTH, height=HEIGHT, spp=SPP, max_depth=DEPTH,
+                                sampling="sobol", **BENCH_FLAGS)
+    profiled("sobol city frame", lambda: r.render(download=False), WIDTH * HEIGHT * SPP)
+    del r
+    ar = AdaptiveRenderer(cs, probe, RenderConfig(width=WIDTH, height=HEIGHT, samples_per_launch=SPP,
+                                                  max_depth=DEPTH, traversal="cluster", sampling="sobol",
+                                                  **BENCH_FLAGS), cam)
+    ar.render()  # the warm-up round; the profiled round refines
+    profiled("adaptive refine round", ar.render, ar.refine_tiles * 128 * ar.refine_spp)
+
+
 def main() -> int:
     import torch
 
@@ -931,6 +1400,9 @@ def main() -> int:
         emit("golden", name=name, rmse=rmse, tol=RMSE_TOL)
         if not (got.shape == want.shape and rmse <= RMSE_TOL):
             raise AssertionError(f"golden {name}: RMSE {rmse} > {RMSE_TOL}")
+    # ---- the sampling strategies: the card against the CPU -----------------
+    sobol_card_eq(dev, card)
+    sampling_card_vs_cpu(dev, card)
 
     # ---- the city slice: main path 1 (hier=None: the node walk from 74 entries)
     city_walk = walk_of(cl)
@@ -975,6 +1447,15 @@ def main() -> int:
     if not (np.allclose(img1, img3, rtol=1e-5, atol=1e-5) and rays1 == rays3):
         raise AssertionError(f"4K: the fused launch differs from three launches: {diff}, rays {rays3}, {rays1}")
     del fov_frames, img3, img1
+    torch.cuda.empty_cache()
+
+    # ---- the quality pipeline on the city (bench.py:508-913) ---------------
+    quality_runs = quality_pipeline(cs, probe, dev, tc.launch_counts, card)
+    quality_runs.update(fovea4k_quality(cs, probe, dev, tc.launch_counts, card))
+    for path, run in quality_runs.items():
+        check_walk(path, run, city_walk)
+    aov_checkpoint(cs, probe, dev, card)
+    quality_profile(cs, probe, dev, card)
     del cs, cl, hs
     foveated_checks(dev)  # the goldens, and fused == three launches
     torch.cuda.empty_cache()
@@ -1113,7 +1594,7 @@ def main() -> int:
     check_walk("the big slice", big_launches, "node")
     profile_frame("big_profile", renderer)
 
-    runs = {"slice": city, "flat_slice": flat_city, **fov_runs, "big_slice": big_launches}
+    runs = {"slice": city, "flat_slice": flat_city, **fov_runs, **quality_runs, "big_slice": big_launches}
     for run in runs.values():
         for name, k in run.items():
             launches[name] = launches.get(name, 0) + k

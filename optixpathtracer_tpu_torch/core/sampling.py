@@ -1,13 +1,13 @@
 """Sample warping library (port of optixpathtracer_tpu/core/sampling.py):
 the warps of uniforms to directions, the stratified and jittered-grid draws
-and the MIS heuristics, batched over the leading shape. The host-side
-blue-noise point sets (`best_candidate_blue_noise`,
-`projective_blue_noise`) come with the `sampling=` strategies that use them
-(ROADMAP A.2 / A.5)."""
+and the MIS heuristics, batched over the leading shape, and the host-side
+blue-noise point sets of the `sampling="blue"` strategy (numpy, the same
+table as the reference for the same seed)."""
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from .math import TWO_PI, Vec3
@@ -69,6 +69,40 @@ def stratified_sample_2d(c: Tensor, dx: int, dy: int,
 def uniform_grid_sample_2d(c: Tensor, dx: int, dy: int) -> Tuple[Tensor, Tensor]:
     x, y = _cell(c, dx, dy)
     return x / dx, y / dy
+
+
+def best_candidate_blue_noise(n_points: int, dim: int = 2, candidates: int = 16,
+                              seed: int = 0) -> np.ndarray:
+    """Host-side best-candidate blue-noise point set (sample.h BestCandidate
+    :80-131 semantics): each point is the candidate farthest (toroidal) from
+    the existing set. Returns (n_points, dim) float32 in [0, 1)."""
+    rng = np.random.default_rng(seed)
+    pts = np.empty((n_points, dim), np.float32)
+    pts[0] = rng.random(dim)
+    for i in range(1, n_points):
+        cand = rng.random((candidates, dim)).astype(np.float32)
+        delta = np.abs(cand[:, None, :] - pts[None, :i, :])
+        delta = np.minimum(delta, 1.0 - delta)  # toroidal wrap
+        d = (delta**2).sum(-1).min(axis=1)
+        pts[i] = cand[int(d.argmax())]
+    return pts
+
+
+def projective_blue_noise(n_points: int, dim: int = 2, candidates: int = 16,
+                          seed: int = 0) -> np.ndarray:
+    """Projective variant (sample.h ProjectiveBlueNoise :133-214): candidates
+    maximise the minimum over the full-D distance and each 1-D projection."""
+    rng = np.random.default_rng(seed)
+    pts = np.empty((n_points, dim), np.float32)
+    pts[0] = rng.random(dim)
+    for i in range(1, n_points):
+        cand = rng.random((candidates, dim)).astype(np.float32)
+        delta = np.abs(cand[:, None, :] - pts[None, :i, :])
+        delta = np.minimum(delta, 1.0 - delta)
+        full = (delta**2).sum(-1).min(axis=1) / dim
+        proj = (delta**2).min(axis=1).min(axis=-1)  # worst 1-D projection
+        pts[i] = cand[int(np.minimum(full, proj).argmax())]
+    return pts
 
 
 def power_heuristic(nf: Tensor, f_pdf: Tensor, ng: Tensor, g_pdf: Tensor) -> Tensor:

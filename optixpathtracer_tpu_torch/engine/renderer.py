@@ -1,7 +1,8 @@
 """Progressive renderer: owns the framebuffer state and runs one wavefront
-launch per `render()` (port of optixpathtracer_tpu/engine/renderer.py;
-`aovs`, `save_checkpoint` / `load_checkpoint` are ROADMAP A.5,
-`denoised_image` A.7, the area light and demand-loaded textures A.11).
+launch per `render()` (port of optixpathtracer_tpu/engine/renderer.py, with
+`aovs`, the AOV-guided `denoised_image` and checkpoint / resume of the
+progressive state in the reference's `.npz` layout; the area light and
+demand-loaded textures are ROADMAP A.11).
 
 Pixels are traced in 16x8 tiles, not scanlines: the cluster traversal culls
 per 128-ray block, and a tile's rays form a far tighter bundle. The tile
@@ -20,6 +21,7 @@ from ..core.camera import Camera
 from ..core.math import Vec3
 from ..lights.probe import Probe
 from ..ops import tonemap
+from ..ops.denoise import atrous_denoise
 from .wavefront import CameraParams, RenderConfig, SampleOutput, accumulate, trace_wavefront
 
 
@@ -88,6 +90,7 @@ class Renderer(ProgressiveState):
         perm = np.argsort(tile_id * (tw * th) + within, kind="stable")
         self._perm = perm
         self._inv_perm = np.argsort(perm, kind="stable")
+        self._inv_perm_t = torch.as_tensor(self._inv_perm, device=self.device)
         self._px = torch.as_tensor(xs[perm], device=self.device)
         self._py = torch.as_tensor(ys[perm], device=self.device)
         self.accum = Vec3.zeros((n,), self.device)
@@ -141,10 +144,14 @@ class Renderer(ProgressiveState):
         """(pixel_x, pixel_y) of one launch, in 16x8-tile lane order."""
         return self._px, self._py
 
-    def _to_image(self, v: Vec3) -> np.ndarray:
+    def image_tensor(self, v: Vec3) -> torch.Tensor:
+        """(H, W, 3) image of a per-lane Vec3 on the render device, top row
+        first (row 0 of the buffer is the bottom, GL convention)."""
         h, w = self.config.height, self.config.width
-        img = np.stack([c.cpu().numpy()[self._inv_perm] for c in v], axis=-1)
-        return img.reshape(h, w, 3)[::-1]  # row 0 is bottom (GL convention)
+        return torch.stack(list(v), -1)[self._inv_perm_t].reshape(h, w, 3).flip(0)
+
+    def _to_image(self, v: Vec3) -> np.ndarray:
+        return self.image_tensor(v).cpu().numpy()
 
     def download_pixels(self) -> np.ndarray:
         """(H, W, 4) uint8, top row first (SampleRenderer::downloadPixels)."""
@@ -154,6 +161,58 @@ class Renderer(ProgressiveState):
 
     def accum_image(self) -> np.ndarray:
         return self._to_image(self.accum)
+
+    def aovs(self) -> dict[str, np.ndarray]:
+        """normal / albedo / alpha / depth AOVs of the last launch (the
+        denoiser's guides; depth is (H, W), 0 on a miss)."""
+        if self._last is None:
+            raise RuntimeError("render() first")
+        h, w = self.config.height, self.config.width
+        depth = self._last.depth[self._inv_perm_t].reshape(h, w).flip(0)
+        return {
+            "normal": self._to_image(self._last.normal),
+            "albedo": self._to_image(self._last.albedo),
+            "alpha": self._to_image(self._last.alpha),
+            "depth": depth.cpu().numpy(),
+        }
+
+    def denoised_image(self, **kwargs) -> np.ndarray:
+        """AOV-guided À-Trous denoise of the current accumulation (the
+        OptixDenoiser exec() role), run on the render device; kwargs go to
+        `ops.denoise.atrous_denoise` (tensors on the render device)."""
+        if self._last is None:
+            raise RuntimeError("render() first")
+        out = atrous_denoise(self.image_tensor(self.accum), self.image_tensor(self._last.normal),
+                             self.image_tensor(self._last.albedo), **kwargs)
+        return out.cpu().numpy()
+
+    def save_checkpoint(self, path: str) -> None:
+        """Persist the progressive state (accumulation in canonical pixel
+        order, subframe index, size, camera) in the reference's `.npz`
+        layout: a checkpoint of either package loads in the other."""
+        inv = self._inv_perm
+        np.savez(
+            path,
+            accum=np.stack([c.cpu().numpy()[inv] for c in self.accum]),
+            subframe_index=self.subframe_index,
+            width=self.config.width,
+            height=self.config.height,
+            eye=self.camera.eye,
+            lookat=self.camera.lookat,
+            up=self.camera.up,
+            fov_y=self.camera.fov_y,
+        )
+
+    def load_checkpoint(self, path: str) -> None:
+        d = np.load(path if str(path).endswith(".npz") else str(path) + ".npz")
+        if int(d["width"]) != self.config.width or int(d["height"]) != self.config.height:
+            self.resize(int(d["width"]), int(d["height"]))
+        a = d["accum"][:, self._perm]  # canonical -> tile order
+        self.accum = Vec3(*(torch.as_tensor(np.ascontiguousarray(c, np.float32), device=self.device)
+                            for c in a))
+        self.subframe_index = int(d["subframe_index"])
+        self.camera = Camera(eye=d["eye"], lookat=d["lookat"], up=d["up"], fov_y=float(d["fov_y"]),
+                             aspect_ratio=self.config.width / self.config.height)
 
     def stats(self) -> dict:
         out = frame_stats(self.subframe_index, self._frame_times)

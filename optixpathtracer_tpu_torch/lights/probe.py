@@ -119,9 +119,16 @@ def probe_pdf(p: Probe, d: Vec3) -> Tensor:
     return torch.where(sin_theta.abs() < 1e-4, 0.0, pdf * scale)
 
 
-def probe_sample_texel(p: Probe, state: RngState):
-    """probe_sample that also returns the chosen (row, col) texel."""
-    state, r1, r2 = randf2(state)
+def probe_sample_texel(p: Probe, state: RngState, u12=None):
+    """probe_sample that also returns the chosen (row, col) texel.
+
+    u12 (optional (u1, u2)): caller-supplied uniforms replacing the internal
+    randf2 draw (the engine's low-discrepancy `sampling=` strategies). The
+    state is not advanced then: the caller drew from the same stream."""
+    if u12 is None:
+        state, r1, r2 = randf2(state)
+    else:
+        r1, r2 = u12
     row = torch.searchsorted(p.cdf_y, r1, side="left")
     row = torch.clamp(row, 0, p.height - 1)
     col = torch.searchsorted(p.cdf_x[row], r2[:, None], side="left")[:, 0]
@@ -139,8 +146,26 @@ def probe_sample_texel(p: Probe, state: RngState):
     return state, uv_to_dir(u, v), color, pdf, row, col
 
 
-def probe_sample(p: Probe, state: RngState):
+def probe_sample(p: Probe, state: RngState, u12=None):
     """Draw (direction, radiance, pdf) by inverse-CDF (ProbeSample,
-    Probe.cuh:138-169), batched over the RNG state's shape."""
-    state, d, color, pdf, _, _ = probe_sample_texel(p, state)
+    Probe.cuh:138-169), batched over the RNG state's shape. u12: optional
+    caller-supplied uniform pair (see probe_sample_texel)."""
+    state, d, color, pdf, _, _ = probe_sample_texel(p, state, u12=u12)
     return state, d, color, pdf
+
+
+def make_test_probe(width: int = 128, height: int = 64, axis=(0.0, 1.0, 0.0),
+                    power: float = 10.0, *, device) -> Probe:
+    """Disc-light test probe (semantics of the commented ProbeCreateTest,
+    Probe.cuh:207-242): bright disc around `axis`, black elsewhere."""
+    us, vs = np.meshgrid((np.arange(width) + 0.5) / width, (np.arange(height) + 0.5) / height)
+    theta = vs * np.pi
+    phi = us * 2 * np.pi
+    st = np.sin(theta)
+    d = np.stack([-st * np.cos(phi), np.cos(theta), -st * np.sin(phi)], -1)
+    a = np.asarray(axis, np.float32)
+    a = a / np.linalg.norm(a)
+    mask = (d @ a) >= 0.95
+    img = np.where(mask[..., None], power, 0.0).astype(np.float32)
+    img = np.repeat(img[..., :1], 3, axis=-1) + 1e-4  # tiny floor avoids 0-row cdfs
+    return build_probe(img, device)

@@ -112,12 +112,20 @@ class BSDFSampleResult(NamedTuple):
 
 
 def bsdf_sample(mat: MaterialTable, eta_i, eta_o, u: Vec3, v: Vec3, n: Vec3,
-                view: Vec3, state: RngState) -> tuple[RngState, BSDFSampleResult]:
-    """Importance-sample the BSDF (BSDFSample semantics, mask-combined)."""
+                view: Vec3, state: RngState, u12=None) -> tuple[RngState, BSDFSampleResult]:
+    """Importance-sample the BSDF (BSDFSample semantics, mask-combined).
+
+    u12 (optional (u1, u2)): caller-supplied uniforms replacing the (r1, r2)
+    lobe-direction draw (the engine's low-discrepancy `sampling=`
+    strategies); those two state advances are skipped then, the other four
+    draws keep their order."""
     state, u_lobe = randf(state)
     state, u_f = randf(state)
-    state, r1 = randf(state)
-    state, r2 = randf(state)
+    if u12 is None:
+        state, r1 = randf(state)
+        state, r2 = randf(state)
+    else:
+        r1, r2 = u12
     state, u_half = randf(state)
     state, u_ss = randf(state)
 

@@ -1,12 +1,16 @@
-"""The CUDA kernels K1-K6 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K6 against their plain PyTorch versions, on the card,
+and the quality pipeline's plain tensor code (Sobol, `_ld_bases`, the
+À-Trous denoiser) on the card against the CPU.
 
 A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU and skip
 elsewhere. On the card (no jax there, hence no conftest):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Outputs must be bit-equal: the kernels are built with --fmad=false and no
-fast math, and compute op for op what the plain versions compute.
+Kernel outputs must be bit-equal: the kernels are built with --fmad=false
+and no fast math, and compute op for op what the plain versions compute.
+The Sobol words and stratum bases are bit-equal too (integer arithmetic and
+exact float steps); the denoiser agrees to a stated tolerance.
 """
 import numpy as np
 import pytest
@@ -489,3 +493,70 @@ def test_gather_kernel_bit_equal_to_plain(cuda, rows, width, n):
     got = gather.gather_rows(table, idx)
     assert torch.equal(got, gather.gather_rows_torch(table, idx))
     assert gather.launch_counts["gather"] == before + (n > 0)  # no launch for no rows
+
+
+# ---- the quality pipeline's plain tensor code: the card against the CPU ----
+
+def _u32_words(n, seed):
+    w = np.random.default_rng(seed).integers(0, 2**32, n, dtype=np.uint64).astype(np.int64)
+    w[:5] = [0, 1, 2**31 - 1, 2**31, 2**32 - 1]
+    return torch.as_tensor(w)
+
+
+def _same_bits(got, want):
+    got = got.cpu()
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want)
+
+
+def test_sobol_bits_card_equal_cpu(cuda):
+    from optixpathtracer_tpu_torch.core import sobol
+
+    args = [_u32_words(1 << 18, s) for s in range(4)]
+    for fn in (sobol.sobol02_bits, sobol.sobol02_point):
+        for g, w in zip(fn(*(a.to(cuda) for a in args)), fn(*args)):
+            _same_bits(g, w)
+    for fn in (sobol.reverse_bits32, sobol._sobol_dim2, sobol._u32_to_unit):
+        _same_bits(fn(args[0].to(cuda)), fn(args[0]))
+
+
+@pytest.mark.parametrize("sampling, m", [("stratified", 9), ("stratified", 16), ("blue", 16), ("blue", 36)])
+def test_ld_bases_and_sobol_pair_card_equal_cpu(cuda, sampling, m):
+    from optixpathtracer_tpu_torch.engine import wavefront as wf
+
+    pix, ctr = _u32_words(1 << 16, 5) % (1200 * 800), _u32_words(1 << 16, 6)
+    cfg = wf.RenderConfig(sampling=sampling, sampling_strata=m)
+    for salt in (wf._LD_SALT_AA, wf._LD_SALT_NEE, wf._LD_SALT_BSDF):
+        got = wf._ld_bases(cfg, pix.to(cuda), ctr.to(cuda), salt)
+        want = wf._ld_bases(cfg, pix, ctr, salt)
+        _same_bits(got[0], want[0])
+        _same_bits(got[1], want[1])
+        assert got[2] == want[2]
+        for depth in (0, 4):
+            for g, w in zip(wf._sobol_pair(pix.to(cuda), ctr.to(cuda), depth, salt),
+                            wf._sobol_pair(pix, ctr, depth, salt)):
+                _same_bits(g, w)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(iterations=1, demodulate=True),
+                                dict(variance=True, sigma_color=4.0, var_boost=256.0, demodulate=True),
+                                dict(depth=True, sigma_color=4.0, sigma_albedo=1.0, demodulate=True)])
+def test_atrous_denoise_card_matches_cpu(cuda, kw):
+    """rtol 1e-4 / atol 1e-6: the card's exp and its scalar divisions (taken
+    as a product with the reciprocal) round a few ulps from the CPU's."""
+    from optixpathtracer_tpu_torch.ops.denoise import atrous_denoise
+
+    rng = np.random.default_rng(7)
+    h, w = 96, 128
+    color, normal, albedo = (torch.as_tensor(rng.random((h, w, 3)).astype(np.float32)) for _ in range(3))
+    kw = dict(kw)
+    if kw.pop("variance", False):
+        kw["variance"] = torch.as_tensor((rng.random((h, w)) * 0.02).astype(np.float32))
+    if kw.pop("depth", False):
+        kw["depth"] = torch.as_tensor(rng.uniform(0, 20, (h, w)).astype(np.float32))
+    want = atrous_denoise(color, normal, albedo, **kw)
+    got = atrous_denoise(color.to(cuda), normal.to(cuda), albedo.to(cuda),
+                         **{k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in kw.items()})
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-6)

@@ -2,7 +2,11 @@
 and `set_probe` restart the progressive accumulation and the next frame
 matches the JAX renderer's (rtol / atol 1e-5 on the linear accumulation:
 the two trace the same paths, and their f32 shading differs by a few ulps),
-and `stats` has the reference's keys.
+and `stats` has the reference's keys. `aovs` match to the same tolerance,
+`denoised_image` to rtol 1e-4 / atol 1e-5 (tests/test_torch_denoise.py),
+and a checkpoint written by either package loads in the other and in a
+fresh renderer of its own: the next frame matches the continuing renderer's
+(bit for bit within the port).
 
 Both sides render the open golden scene at 24x16, 2 spp, depth 2, the JAX
 side through its exact lockstep backend (as tests/test_torch_slice.py), the
@@ -22,6 +26,7 @@ from optixpathtracer_tpu_torch import interop
 from optixpathtracer_tpu_torch.core.camera import Camera
 from optixpathtracer_tpu_torch.engine.renderer import Renderer
 from optixpathtracer_tpu_torch.engine.wavefront import RenderConfig
+from optixpathtracer_tpu_torch.ops.denoise import atrous_denoise
 from tests.golden_scenes import _open_scene, _sky_probe
 
 torch.set_num_threads(1)
@@ -102,3 +107,76 @@ def test_stats_before_the_first_frame():
                   Camera(aspect_ratio=W / H, **VIEW_A))
     assert pr.stats() == {"frames": 0}
     assert JaxRenderer(jcs, _sky_probe(), JaxConfig(**CFG)).stats() == {"frames": 0}
+
+
+def test_aovs_match_jax(renderers):
+    jr, pr = renderers
+    got, want = pr.aovs(), jr.aovs()
+    assert list(got) == list(want) == ["normal", "albedo", "alpha", "depth"]
+    assert got["depth"].shape == (H, W) and got["normal"].shape == (H, W, 3)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5)
+    assert got["depth"].max() > 0 and (got["depth"] == 0).any()  # hits and sky
+
+
+def test_aovs_before_the_first_frame_raise():
+    _, pr = _fresh()
+    with pytest.raises(RuntimeError):
+        pr.aovs()
+
+
+def test_denoised_image_matches_jax_and_runs_the_port_denoiser(renderers):
+    jr, pr = renderers
+    np.testing.assert_allclose(pr.denoised_image(), jr.denoised_image(), rtol=1e-4, atol=1e-5)
+    depth = pr.aovs()["depth"]
+    got = pr.denoised_image(iterations=2, depth=torch.as_tensor(depth.copy()), demodulate=True)
+    want = jr.denoised_image(iterations=2, depth=jnp.asarray(depth), demodulate=True)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    aov = pr.aovs()
+    direct = atrous_denoise(*(torch.as_tensor(np.ascontiguousarray(a)) for a in (
+        pr.accum_image(), aov["normal"], aov["albedo"]))).numpy()
+    np.testing.assert_array_equal(pr.denoised_image(), direct)
+
+
+def _fresh():
+    """A (JAX, port) renderer pair at another size than CFG's, not rendered."""
+    jcs = jax_compile(_open_scene(), cluster_size=128, build_wide_bvh=False)
+    pcs = interop.compiled_scene_from_arrays(interop.compiled_scene_arrays(jcs), CPU)
+    probe = interop.probe_from_arrays(interop.probe_arrays(_sky_probe()), CPU)
+    cfg = dict(CFG, width=16, height=8)
+    return (JaxRenderer(jcs, _sky_probe(), JaxConfig(traversal="lockstep", **cfg)),
+            Renderer(pcs, probe, RenderConfig(traversal="cluster", **cfg)))
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_checkpoint_loads_across_the_packages(renderers, writer, tmp_path):
+    jr, pr = renderers
+    path = str(tmp_path / "ckpt.npz")
+    (jr if writer == "jax" else pr).save_checkpoint(path)
+    jr2, pr2 = _fresh()
+    for r in (jr2, pr2):
+        r.load_checkpoint(path)
+        assert r.subframe_index == 2 and (r.config.width, r.config.height) == (W, H)
+        np.testing.assert_allclose(r.camera.eye, VIEW_A["eye"])
+        assert r.camera.aspect_ratio == W / H
+    np.testing.assert_allclose(pr2.accum_image(), jr2.accum_image(), rtol=0, atol=0)
+    for r in (jr, pr, jr2, pr2):
+        r.render()
+    # every renderer continues to the same third frame
+    want = jr.accum_image()
+    for r in (pr, jr2, pr2):
+        np.testing.assert_allclose(r.accum_image(), want, rtol=1e-5, atol=1e-5)
+    if writer == "port":
+        np.testing.assert_array_equal(pr2.accum_image(), pr.accum_image())
+
+
+def test_checkpoint_layout_is_the_references(renderers, tmp_path):
+    jr, pr = renderers
+    jr.save_checkpoint(str(tmp_path / "j.npz"))
+    pr.save_checkpoint(str(tmp_path / "p"))  # np.savez appends .npz
+    a, b = np.load(tmp_path / "j.npz"), np.load(tmp_path / "p.npz")
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        assert a[k].shape == b[k].shape, k
+    assert b["accum"].shape == (3, W * H) and int(b["subframe_index"]) == 2
+    np.testing.assert_allclose(b["accum"], a["accum"], rtol=1e-5, atol=1e-5)
