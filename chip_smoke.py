@@ -44,8 +44,20 @@ port's paths and checks that each went through its kernels:
      `denoised_image` and a checkpoint round trip (`aov_checkpoint`); one
      profiled Sobol city frame and adaptive refine round with the Sobol
      draws' share (`quality_profile`);
-  5. the gather probe (gather) on a (1<<20, 128) f32 table;
-  6. `disney_pt` on the ~8.68M-triangle terrain-apron scene
+  5. scenes from files and their shading, through the flat walk (cull on
+     the cluster boxes, closest, any): bench.py's `--scene loft` row
+     (`loft_slice` + `loft_profile`: scenes/loft.obj, three PNG textures,
+     `disney_pt` at 1200x800, 2 spp, depth 4 with `scenes.loft_config`),
+     the three kernels held against their plain versions and timed at the
+     loft's first and second bounce (`loft_kernels`), its exactness gate,
+     the texture fetch on the card against the CPU bit for bit and the PNG
+     decoder against PIL's channel sums (`texture_card_eq`); the cornell
+     box under its parallelogram light at the same size (`cornell_slice`:
+     the quad NEE's shadow rays per frame, which `rays_traced` leaves out,
+     and K3 twice a bounce); and the `loft*`, `disney_cornell*` and `gltf`
+     goldens (`file_goldens`);
+  6. the gather probe (gather) on a (1<<20, 128) f32 table;
+  7. `disney_pt` on the ~8.68M-triangle terrain-apron scene
      (`build_big_scene` at BIG8X_TERRAIN_GRID, 4239 entries, the node walk:
      cull, closest_hier, any_hier), with the exactness gate against the
      dense oracle, a golden through the node walk, the node kernels' and
@@ -87,7 +99,8 @@ device contract:
 A kernel's `ms`, `plain_ms` and `bound_ms` there are those of the path it
 serves first (K1, K4a, K4b: the city's node walk; K2, K3: the flat city
 slice); its `paths` give each main path's launches and, where that path's
-first bounce was timed, the kernel's ms, plain ms and bound there.
+first bounce was timed (`slice`, `flat_slice`, `loft`, `big_slice`), the
+kernel's ms, plain ms and bound there.
 
 It exits non-zero without a CUDA device, and outside the repository (the
 port package must be importable beside it).
@@ -111,6 +124,7 @@ GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
 RMSE_TOL = 2e-3  # tests/test_goldens.py
 PLAIN_BUDGET_S = 60.0  # time a plain version at the slice shape within this
 HIER_PLAIN_BUDGET_S = 30.0  # the same for the node walk's plain versions
+SLICE_FRAMES = 3  # timed frames of a slice, after one warm-up
 TURN_CALLS = 200  # calls of a worklist kernel, its library call and the launch floor per measure
 WIDTH, HEIGHT, SPP, DEPTH = 1200, 800, 2, 4
 BENCH_FLAGS = dict(sort_rays=True, batch_spp=True, nee_final_bounce=False)
@@ -134,6 +148,13 @@ SOURCES = {  # name -> the CUDA source it is built from
     "pair_worklist": f"{CSRC}/worklist.cu",
     "gather": f"{CSRC}/gather.cu",
 }
+LOFT_PNG_SUMS = {  # per-channel sums of PIL's uint8 RGB decode (tests/test_torch_image_io.py checks them)
+    "loft_tex0.png": [8298370, 5432022, 3017568],
+    "loft_tex1.png": [8546510, 3753297, 2758193],
+    "loft_tex2.png": [12670996, 12346164, 11371549],
+}
+TEXTURE_LOOKUPS = 1 << 20  # `texture_card_eq`'s random texture fetches
+FILE_GOLDENS = ("loft_s", "loft", "disney_cornell_s", "disney_cornell", "gltf")
 SM_FP32_LANES = 128  # FP32 lanes of one Hopper SM, one un-fused op each per clock
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 _last_emit = [time.perf_counter()]
@@ -451,6 +472,51 @@ def time_vs_plain(name, kern, plain, nr_full, budget_s, **fields):
     return out
 
 
+def time_flat(cl, rays8, cr, cr_s, peak, wavefront, card):
+    """The flat walk's kernels on one wavefront of cluster set cl: K1 on the
+    cluster boxes (rays8), K2 on cr (the CullResult of those rays) and K3 on
+    cr_s (that of their shadow rays). Each kernel's time on all blocks,
+    bit-equality with its plain version on the blocks that fit
+    PLAIN_BUDGET_S, and its bound from the work these inputs need."""
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
+    c = cl.cluster_size
+    out = {"cull": cull_phase("cull", rays8, *cl.cull_tables, peak, PLAIN_BUDGET_S, wavefront, card)}
+    cases = {
+        "closest": (cr, lambda nr: tc.closest_sweep(cl.rows, cl.xf_inv, sub_cull(cr, nr), c)[:2],
+                    lambda nr: tc._closest_torch(cl.rows, cl.xf_inv, sub_cull(cr, nr), c)),
+        "any": (cr_s, lambda nr: (tc.any_sweep(cl.rows, cl.xf_inv, sub_cull(cr_s, nr), c),),
+                lambda nr: (tc._any_torch(cl.rows, cl.xf_inv, sub_cull(cr_s, nr), c),)),
+    }
+    for name, (crx, kern, plain) in cases.items():
+        out[name] = time_vs_plain(name, kern, plain, crx.ids.shape[0], PLAIN_BUDGET_S,
+                                  wavefront=wavefront, card=card)
+        work = tc.sweep_work(cl.rows, cl.xf_inv, crx, c, any_hit=name == "any")
+        out[name].update(work_bound(name, work, peak, out[name]["ms"], wavefront=wavefront, card=card),
+                         library_ms=None)
+    return out
+
+
+def exactness_gate(phase, cs, hs, cam, dev, n=8192):
+    """bench.py:1302-1340: the winning triangle of n mixed rays (`mixed_rays`,
+    seed 42) through the scene's own walk (hier=None) and through the other
+    walk, each equal to `reference_closest`'s; raises on any mismatch."""
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
+    cl = cs.clusters
+    og, dg = mixed_rays(cs, hs, cam, n, 42, dev)
+    fast = tc.closest_hit_cluster(cl, og, dg, 1e-3, 1e16)
+    other = tc.closest_hit_cluster(cl, og, dg, 1e-3, 1e16, hier=walk_of(cl) == "flat")
+    exact = tc.reference_closest(cl, og, dg, 1e-3, 1e16)
+    mismatch = int((fast.tri != exact.tri).sum())
+    walk_mismatch = int((fast.tri != other.tri).sum())
+    emit(phase, rays=n, walk=walk_of(cl), entries=cl.num_entries, mismatch=mismatch,
+         flat_vs_hier_mismatch=walk_mismatch, hits=int((exact.tri >= 0).sum()))
+    if mismatch or walk_mismatch:
+        raise AssertionError(f"{phase}: {mismatch} rays disagree with reference_closest, "
+                             f"{walk_mismatch} between the two walks")
+
+
 def first_bounce_and_shadows(renderer, cl, probe, dev):
     """The slice's first-bounce wavefront, coherence-sorted as the engine
     sorts it, its NEE shadow rays, sorted the same way, and its hit flags:
@@ -481,26 +547,25 @@ def first_bounce_and_shadows(renderer, cl, probe, dev):
     return (o1, d1), (p_hit, wi, t_sh), hit
 
 
-def engine_bounce(renderer, depth):
-    """The rays the engine hands to its sweeps at bounce `depth` of one frame
-    of `renderer`: ((o, d, t_min, t_max) of `closest_hit_cluster`, the same
-    of `any_hit_cluster`), coherence-sorted and with dead lanes closed
-    (t_max 0) as `trace_wavefront` passes them. The frame is rendered with
-    the engine's two sweep entry points wrapped to record their arguments;
-    the renderer's accumulation is put back afterwards."""
+def frame_calls(renderer, names):
+    """(args, result) of every call of the `engine/wavefront` functions
+    `names` in one more frame of renderer: the frame is rendered with those
+    functions wrapped to record their calls, and the renderer's
+    accumulation is put back afterwards."""
     from optixpathtracer_tpu_torch.engine import wavefront
 
-    real = {name: getattr(wavefront, name) for name in ("closest_hit_cluster", "any_hit_cluster")}
-    calls = {name: [] for name in real}
+    real = {name: getattr(wavefront, name) for name in names}
+    calls = {name: [] for name in names}
 
     def recording(name):
-        def sweep(cl, o, d, t_min, t_max, **kw):
-            calls[name].append((o, d, t_min, t_max))
-            return real[name](cl, o, d, t_min, t_max, **kw)
-        return sweep
+        def call(*args, **kw):
+            out = real[name](*args, **kw)
+            calls[name].append((args, out))
+            return out
+        return call
 
     state = (renderer.accum, renderer.subframe_index)
-    for name in real:
+    for name in names:
         setattr(wavefront, name, recording(name))
     try:
         renderer.render(download=False)
@@ -508,7 +573,16 @@ def engine_bounce(renderer, depth):
         for name, fn in real.items():
             setattr(wavefront, name, fn)
         renderer.accum, renderer.subframe_index = state
-    return calls["closest_hit_cluster"][depth], calls["any_hit_cluster"][depth]
+    return calls
+
+
+def engine_bounce(renderer, depth):
+    """The rays the engine hands to its sweeps at bounce `depth` of one frame
+    of `renderer`: ((o, d, t_min, t_max) of `closest_hit_cluster`, the same
+    of its probe NEE's `any_hit_cluster`), coherence-sorted and with dead
+    lanes closed (t_max 0) as `trace_wavefront` passes them."""
+    calls = frame_calls(renderer, ("closest_hit_cluster", "any_hit_cluster"))
+    return tuple(tuple(calls[name][depth][0][1:5]) for name in ("closest_hit_cluster", "any_hit_cluster"))
 
 
 def time_frames(renderer, frames):
@@ -523,7 +597,7 @@ def time_frames(renderer, frames):
     return times
 
 
-def drive_slice(phase, renderer, card, counts, **fields):
+def drive_slice(phase, renderer, card, counts, flags=BENCH_FLAGS, **fields):
     """The main path: one warm-up frame and 3 timed frames, with the kernel
     launch counts set to 0 just before and read just after. Works for the
     `Renderer` and the `FoveatedRenderer` alike."""
@@ -533,16 +607,17 @@ def drive_slice(phase, renderer, card, counts, **fields):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counts.clear()
-    times = time_frames(renderer, 3)
+    times = time_frames(renderer, SLICE_FRAMES)
     rays = int(renderer.last_rays if hasattr(renderer, "last_rays") else renderer.last_output.rays_traced)
     launches = dict(counts)
     img = renderer.accum_image()
     frame_s = float(np.median(times))
-    emit(phase, width=cfg.width, height=cfg.height, max_depth=cfg.max_depth, flags=BENCH_FLAGS,
+    emit(phase, width=cfg.width, height=cfg.height, max_depth=cfg.max_depth, flags=flags,
          **fields,
-         frame_s=frame_s, frame_times_s=times, rays_traced=rays,
+         frame_s=frame_s, frame_times_s=times, frame_s_range=[min(times), max(times)], rays_traced=rays,
          mrays_per_s=rays / frame_s / 1e6, max_memory_allocated=torch.cuda.max_memory_allocated(),
-         launches=launches, image_mean=float(img.mean()), card=card)
+         launches=launches, launches_per_frame={k: v / (SLICE_FRAMES + 1) for k, v in launches.items()},
+         image_mean=float(img.mean()), card=card)
     if img.shape != (cfg.height, cfg.width, 3) or not np.isfinite(img).all() or not img.max() > 0:
         raise AssertionError(f"{phase}: the frame is not a finite, non-black "
                              f"{cfg.width}x{cfg.height} image")
@@ -1247,6 +1322,138 @@ def quality_profile(cs, probe, dev, card):
     profiled("adaptive refine round", ar.render, ar.refine_tiles * 128 * ar.refine_spp)
 
 
+def check_golden(phase, name, got, **fields):
+    """Hold a render against its committed golden (sqrt-space RMSE)."""
+    from optixpathtracer_tpu_torch import scenes
+
+    want = np.load(os.path.join(GOLDEN_DIR, f"{name}.npz"))["image"]
+    rmse = scenes.golden_rmse(got, want) if got.shape == want.shape else float("inf")
+    emit(phase, name=name, rmse=rmse, tol=RMSE_TOL, **fields)
+    if not rmse <= RMSE_TOL:
+        raise AssertionError(f"golden {name}: RMSE {rmse} > {RMSE_TOL}")
+
+
+def texture_card_eq(hs, dev, card):
+    """`TexturePool.sample_bilinear` on the card against the CPU, bit for
+    bit, on TEXTURE_LOOKUPS seeded fetches over the loft's pool (tex_id -1
+    to 2, u and v uniform in [-3, 3] and a tenth of them integers); and the
+    port's PNG decoder on this machine, which has no PIL, against the
+    channel sums of PIL's decode (LOFT_PNG_SUMS)."""
+    import torch
+
+    from optixpathtracer_tpu_torch.core.scene import pack_textures
+    from optixpathtracer_tpu_torch.io.image import read_rgb8
+
+    rng = np.random.default_rng(3)
+    n = TEXTURE_LOOKUPS
+    tid = rng.choice(np.array([-1, 0, 1, 2], np.int32), n)
+    uv = rng.uniform(-3, 3, (2, n)).astype(np.float32)
+    ints = rng.random((2, n)) < 0.1
+    uv[ints] = rng.integers(-3, 4, int(ints.sum()))
+    args = (tid, uv[0], uv[1])
+    outs = [pack_textures(hs.textures, d).sample_bilinear(*(torch.as_tensor(a, device=d) for a in args))
+            for d in (dev, torch.device("cpu"))]
+    got, want = [torch.stack(list(o)).cpu() for o in outs]
+    mismatches = int((got != want).sum())
+    sums = {name: read_rgb8(os.path.join(REPO, "scenes", name)).reshape(-1, 3).sum(0, dtype=np.int64).tolist()
+            for name in LOFT_PNG_SUMS}
+    emit("texture_card_eq", lookups=n, mismatches=mismatches,
+         max_abs_diff=float((got - want).abs().max()), png_channel_sums=sums,
+         png_equal_to_pil=sums == LOFT_PNG_SUMS, card=card)
+    if mismatches or sums != LOFT_PNG_SUMS:
+        raise AssertionError(f"texture_card_eq: {mismatches} texel values differ from the CPU's, "
+                             f"PNG sums {sums} (PIL: {LOFT_PNG_SUMS})")
+
+
+def loft_slice(dev, peak, card, counts):
+    """bench.py's `--scene loft` row: scenes/loft.obj loaded and compiled,
+    `disney_pt` at 1200x800, 2 spp, depth 4 with `scenes.loft_config`; then
+    K1 (cluster boxes), K2 and K3 on its first and second bounce, its
+    exactness gate and the texture checks. Returns (launches, kernel times
+    at the first bounce)."""
+    import torch
+
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.builder import compile_scene
+    from optixpathtracer_tpu_torch.io.obj import load_obj
+    from optixpathtracer_tpu_torch.models import make_disney_pt_renderer
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
+    t0 = time.perf_counter()
+    hs = load_obj(scenes.LOFT_OBJ)
+    load_s = time.perf_counter() - t0
+    cs = compile_scene(hs, dev, leaf_size=8, cluster_size=256)
+    torch.cuda.synchronize()
+    cl = cs.clusters
+    emit("loft_scene", triangles=cs.num_triangles, meshes=len(hs.meshes),
+         textures=[list(t.shape) for t in hs.textures], entries=cl.num_entries,
+         cluster_size=cl.cluster_size, walk=walk_of(cl), load_s=load_s, build_s=time.perf_counter() - t0)
+    if walk_of(cl) != "flat":
+        raise AssertionError(f"the loft has {cl.num_entries} entries: it would not take the flat walk")
+    setup = scenes.loft_config(WIDTH, HEIGHT, dev)
+    renderer = make_disney_pt_renderer(cs, setup.probe, setup.camera, width=WIDTH, height=HEIGHT,
+                                       spp=SPP, max_depth=DEPTH, **setup.flags)
+    launches = drive_slice("loft_slice", renderer, card, counts, flags=setup.flags, spp=SPP, walk="flat",
+                           entries=cl.num_entries)
+    check_walk("the loft slice", launches, "flat")
+    profile_frame("loft_profile", renderer)
+
+    cfg = renderer.config
+    (o1, d1), (p_hit, wi, t_sh), _ = first_bounce_and_shadows(renderer, cl, setup.probe, dev)
+    waves = {"first bounce": ((o1, d1, cfg.t_min, cfg.t_max), (p_hit, wi, cfg.shadow_t_min, t_sh)),
+             "second bounce (the engine's)": engine_bounce(renderer, 1)}
+    times = {}
+    for label, ((o, d, t_min, t_max), (p, w, s_min, s_max)) in waves.items():
+        times[label] = time_flat(cl, tc._pack_rays8(cl, o, d, t_min, t_max), tc.block_cull(cl, o, d, t_min, t_max),
+                                 tc.block_cull(cl, p, w, s_min, s_max), peak, f"loft {label}, 1200x800x2spp", card)
+    emit("loft_kernels", **{label: {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+                                    for k, v in t.items()} for label, t in times.items()}, bit_equal=True, card=card)
+    exactness_gate("loft_exactness_gate", cs, hs, setup.camera, dev)
+    texture_card_eq(hs, dev, card)
+    return launches, times
+
+
+def cornell_slice(dev, card, counts):
+    """The cornell golden's scene and quad light (tests/golden_scenes.py:39)
+    at 1200x800, 2 spp, depth 4 with the bench's flags and emission on
+    every bounce, through the `Renderer`: every bounce traces the probe
+    NEE's and the quad NEE's shadow rays, so K3 runs twice a bounce.
+    Returns the launches."""
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.builder import compile_scene
+    from optixpathtracer_tpu_torch.engine.renderer import Renderer
+    from optixpathtracer_tpu_torch.engine.wavefront import RenderConfig
+
+    cs = compile_scene(scenes.cornell_scene(), dev, leaf_size=8, cluster_size=256)
+    flags = dict(BENCH_FLAGS, emission_all_bounces=True)
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, samples_per_launch=SPP, max_depth=DEPTH,
+                       traversal="cluster", **flags)
+    renderer = Renderer(cs, scenes.dark_probe(dev), cfg, scenes.cornell_camera(WIDTH, HEIGHT),
+                        area_light=scenes.cornell_light(dev))
+    quad = frame_calls(renderer, ("_quad_nee",))["_quad_nee"]
+    quad_rays = sum(int(out[2].sum()) for _, out in quad)
+    launches = drive_slice("cornell_slice", renderer, card, counts, flags=flags, spp=SPP, walk=walk_of(cs.clusters),
+                           entries=cs.clusters.num_entries, triangles=cs.num_triangles,
+                           quad_nee_calls_per_frame=len(quad), quad_shadow_rays_per_frame=quad_rays)
+    check_walk("the cornell slice", launches, "flat")
+    any_per_frame = launches["any"] / (SLICE_FRAMES + 1)
+    if any_per_frame != 2 * DEPTH or len(quad) != DEPTH:
+        raise AssertionError(f"cornell: {any_per_frame} K3 launches and {len(quad)} quad NEE calls a frame, "
+                             f"not {2 * DEPTH} and {DEPTH}")
+    return launches
+
+
+def file_goldens(dev):
+    """The goldens of scenes from files and of the area light, on the card."""
+    from optixpathtracer_tpu_torch import scenes
+
+    renders = {**{n: lambda n=n: scenes.render_loft_golden(n, dev) for n in scenes.LOFT_GOLDENS},
+               **{n: lambda n=n: scenes.render_cornell_golden(n, dev) for n in scenes.CORNELL_GOLDENS},
+               "gltf": lambda: scenes.render_gltf_golden(dev)}
+    for name in FILE_GOLDENS:
+        check_golden("file_goldens", name, renders[name]())
+
+
 def main() -> int:
     import torch
 
@@ -1326,23 +1533,10 @@ def main() -> int:
     rays8_1 = tc._pack_rays8(cl, o1, d1, cfg.t_min, cfg.t_max)
     cr1 = tc.block_cull(cl, o1, d1, cfg.t_min, cfg.t_max)
     cr_sh = tc.block_cull(cl, p_hit, wi, cfg.shadow_t_min, t_sh)
-    nr_full = cr1.ids.shape[0]
-    flat_t, city_t, big_t = {}, {}, {}  # kernel -> its times on one path's wavefronts
+    city_t, big_t = {}, {}  # kernel -> its times on one path's wavefronts
     peak = fp32_ops_per_s()
     wf = "first bounce, 1200x800x2spp"
-    flat_t["cull"] = cull_phase("cull", rays8_1, sph_t, grp_t, peak, PLAIN_BUDGET_S, wf, card)
-    cases = {
-        "closest": (lambda nr: tc.closest_sweep(cl.rows, cl.xf_inv, sub_cull(cr1, nr), c)[:2],
-                    lambda nr: tc._closest_torch(cl.rows, cl.xf_inv, sub_cull(cr1, nr), c)),
-        "any": (lambda nr: (tc.any_sweep(cl.rows, cl.xf_inv, sub_cull(cr_sh, nr), c),),
-                lambda nr: (tc._any_torch(cl.rows, cl.xf_inv, sub_cull(cr_sh, nr), c),)),
-    }
-    for name, (kern, plain) in cases.items():
-        flat_t[name] = time_vs_plain(name, kern, plain, nr_full, PLAIN_BUDGET_S, wavefront=wf, card=card)
-    # ---- each sweep's bound on the same rays: the work these inputs need ----
-    for name, work in (("closest", tc.sweep_work(cl.rows, cl.xf_inv, cr1, c)),
-                       ("any", tc.sweep_work(cl.rows, cl.xf_inv, cr_sh, c, any_hit=True))):
-        flat_t[name].update(work_bound(name, work, peak, flat_t[name]["ms"], card=card), library_ms=None)
+    flat_t = time_flat(cl, rays8_1, cr1, cr_sh, peak, wf, card)
     # ---- K1 again on the engine's second bounce, and block_cull whole ------
     block_cull_parts("block_cull", tc.block_cull, cl, (o1, d1, cfg.t_min, cfg.t_max), (sph_t, grp_t), wf, card)
     (o2, d2, tm2, tM2), (p2, wi2, tms2, tMs2) = engine_bounce(renderer, 1)
@@ -1366,7 +1560,7 @@ def main() -> int:
     second_hier = time_hier(cl, tc.block_cull_nodes(cl, o2, d2, tm2, tM2),
                             tc.block_cull_nodes(cl, p2, wi2, tms2, tMs2), peak, wf2, card)
     del o2, d2, tM2, p2, wi2, tMs2
-    for name in cases:
+    for name in ("closest", "any"):
         errs[name] = max(errs[name], flat_t[name]["max_abs_err"])
     for name in second_hier:
         errs[name] = max(city_t[name]["max_abs_err"], second_hier[name]["max_abs_err"])
@@ -1379,27 +1573,11 @@ def main() -> int:
     errs.update({k: v["max_abs_err"] for k, v in timing.items()})
     del cr1, cr_sh, rays8_1, hit1
 
-    # ---- exactness gate (bench.py:1302-1340) ------------------------------
-    og, dg = mixed_rays(cs, hs, cam, 8192, 42, dev)
-    fast = tc.closest_hit_cluster(cl, og, dg, 1e-3, 1e16)  # hier=None: the city's walk
-    other = tc.closest_hit_cluster(cl, og, dg, 1e-3, 1e16, hier=walk_of(cl) == "flat")
-    exact = tc.reference_closest(cl, og, dg, 1e-3, 1e16)
-    mismatch = int((fast.tri != exact.tri).sum())
-    walk_mismatch = int((fast.tri != other.tri).sum())
-    emit("exactness_gate", rays=8192, walk=walk_of(cl), mismatch=mismatch, flat_vs_hier_mismatch=walk_mismatch,
-         hits=int((exact.tri >= 0).sum()))
-    if mismatch or walk_mismatch:
-        raise AssertionError(f"exactness gate: {mismatch} rays disagree with reference_closest, "
-                             f"{walk_mismatch} between the two walks")
+    exactness_gate("exactness_gate", cs, hs, cam, dev)
 
     # ---- goldens on the card ---------------------------------------------
     for name in scenes.OPEN_GOLDENS:
-        got = scenes.render_open_golden(name, dev)
-        want = np.load(os.path.join(GOLDEN_DIR, f"{name}.npz"))["image"]
-        rmse = scenes.golden_rmse(got, want)
-        emit("golden", name=name, rmse=rmse, tol=RMSE_TOL)
-        if not (got.shape == want.shape and rmse <= RMSE_TOL):
-            raise AssertionError(f"golden {name}: RMSE {rmse} > {RMSE_TOL}")
+        check_golden("golden", name, scenes.render_open_golden(name, dev))
     # ---- the sampling strategies: the card against the CPU -----------------
     sobol_card_eq(dev, card)
     sampling_card_vs_cpu(dev, card)
@@ -1416,7 +1594,7 @@ def main() -> int:
     check_walk("the flat city slice", flat_city, "flat")
     emit("city_routes", entries=cl.num_entries, threshold=tc.HIER_MIN_ENTRIES,
          **route_turns(renderer, tc.launch_counts), card=card)
-    del renderer, o, d, og, dg, cr, cr_s, fast, other, exact
+    del renderer, o, d, cr, cr_s
     torch.cuda.empty_cache()
 
     # ---- sv4 on the city: 3840x2160 in three launches (PERF.md §4's
@@ -1458,6 +1636,14 @@ def main() -> int:
     quality_profile(cs, probe, dev, card)
     del cs, cl, hs
     foveated_checks(dev)  # the goldens, and fused == three launches
+    torch.cuda.empty_cache()
+
+    # ---- scenes from files and the area light: the flat walk's main paths
+    loft_launches, loft_t = loft_slice(dev, peak, card, tc.launch_counts)
+    for name in WALK_KERNELS["flat"]:
+        errs[name] = max(errs[name], *(t[name]["max_abs_err"] for t in loft_t.values()))
+    cornell_launches = cornell_slice(dev, card, tc.launch_counts)
+    file_goldens(dev)
     torch.cuda.empty_cache()
 
     # ---- the gather probe (K6) -------------------------------------------
@@ -1594,7 +1780,8 @@ def main() -> int:
     check_walk("the big slice", big_launches, "node")
     profile_frame("big_profile", renderer)
 
-    runs = {"slice": city, "flat_slice": flat_city, **fov_runs, **quality_runs, "big_slice": big_launches}
+    runs = {"slice": city, "flat_slice": flat_city, **fov_runs, **quality_runs, "loft": loft_launches,
+            "cornell": cornell_launches, "big_slice": big_launches}
     for run in runs.values():
         for name, k in run.items():
             launches[name] = launches.get(name, 0) + k
@@ -1602,7 +1789,7 @@ def main() -> int:
     # the city's main path (the node walk), K2 and K3 on the flat city
     # slice; `paths` gives each path's launches and, where its first bounce
     # was timed, the kernel's ms there
-    timed_at = {"slice": city_t, "flat_slice": flat_t, "big_slice": big_t}
+    timed_at = {"slice": city_t, "flat_slice": flat_t, "loft": loft_t["first bounce"], "big_slice": big_t}
     timing.update(flat_t, **city_t)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": KERNELS[name],

@@ -3,17 +3,14 @@ optixpathtracer_tpu/core/scene.py).
 
 The host side (`Mesh`, `HostScene`, `flatten`) is the reference's numpy code.
 The device side keeps the flat, sorted triangle soup and its (N, 32) packed
-shade rows, so hit shading is one wide-row gather (`SceneData.take_shade`).
-
-Textured albedo is not ported yet (ROADMAP A.2): untextured scenes get the
-one-texel `TexturePool.empty()` pool, and a scene that carries textures or a
-material with `texture_id >= 0` raises NotImplementedError at upload, so
-nothing samples the pool.
+shade rows, so hit shading is one wide-row gather (`SceneData.take_shade`),
+and every texture of the scene packed into one flat RGB pool
+(`TexturePool`): a texture fetch is a gather, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -41,6 +38,72 @@ class TexturePool(NamedTuple):
         one_i = torch.ones((1,), dtype=torch.int32, device=device)
         return TexturePool(one, one, one, zero_i, one_i, one_i)
 
+    def sample_bilinear(self, tex_id: Tensor, u: Tensor, v: Tensor) -> Vec3:
+        """Bilinear fetch with wrap addressing; tex_id < 0 returns white.
+        The reference's expression order: `u % 1.0` is XLA's remainder (a
+        truncated fmod moved into [0, 1)), the texel wrap a floor modulo
+        (x0 is -1 at u = 0)."""
+        tid = torch.clamp(tex_id, min=0).to(torch.int64)
+        w = self.width[tid].to(torch.float32)
+        h = self.height[tid].to(torch.float32)
+        off = self.offset[tid]
+        uu = _wrap01(u) * w - 0.5
+        vv = _wrap01(v) * h - 0.5
+        x0 = torch.floor(uu)
+        y0 = torch.floor(vv)
+        fx = uu - x0
+        fy = vv - y0
+        wi = self.width[tid]
+        hi = self.height[tid]
+
+        def fetch(xi, yi):
+            xi = torch.remainder(xi.to(torch.int32), wi)
+            yi = torch.remainder(yi.to(torch.int32), hi)
+            idx = (off + yi * wi + xi).to(torch.int64)
+            return Vec3(self.r[idx], self.g[idx], self.b[idx])
+
+        c00 = fetch(x0, y0)
+        c10 = fetch(x0 + 1, y0)
+        c01 = fetch(x0, y0 + 1)
+        c11 = fetch(x0 + 1, y0 + 1)
+        top = c00 * (1.0 - fx) + c10 * fx
+        bot = c01 * (1.0 - fx) + c11 * fx
+        out = top * (1.0 - fy) + bot * fy
+        has = tex_id >= 0
+        return Vec3(*(torch.where(has, c, 1.0) for c in out))
+
+
+def _wrap01(u: Tensor) -> Tensor:
+    """`jnp.remainder(u, 1.0)`: fmod, plus 1 where it is negative (-0.0
+    stays -0.0). One rounding, as XLA's, for negative u and integers."""
+    r = torch.fmod(u, 1.0)
+    return torch.where(r < 0.0, r + 1.0, r)
+
+
+def pack_textures(images: Sequence[np.ndarray], device) -> TexturePool:
+    """(H, W, 3) float32 images -> one flat RGB pool on `device`, each
+    texture's pixels row-major from its `offset`."""
+    if not images:
+        return TexturePool.empty(device)
+    offsets, widths, heights, chunks = [], [], [], []
+    off = 0
+    for img in images:
+        img = np.asarray(img, np.float32)
+        h, w = img.shape[:2]
+        offsets.append(off)
+        widths.append(w)
+        heights.append(h)
+        chunks.append(img.reshape(-1, img.shape[-1])[:, :3])
+        off += h * w
+    flat = np.concatenate(chunks, axis=0)
+
+    def up(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
+
+    return TexturePool(r=up(flat[:, 0], np.float32), g=up(flat[:, 1], np.float32),
+                       b=up(flat[:, 2], np.float32), offset=up(offsets, np.int32),
+                       width=up(widths, np.int32), height=up(heights, np.int32))
+
 
 class SceneData(NamedTuple):
     """Device-resident flat triangle soup in BVH-sorted order."""
@@ -63,6 +126,8 @@ class SceneData(NamedTuple):
     textures: TexturePool
     shade_rows: Tensor  # (N, 32) f32 packed per-triangle shade record:
     #   [v0|v1|v2 (9), n0|n1|n2 (9), uv0|uv1|uv2 (6), mat_id, has_sn, pad(6)]
+    textured: bool = True  # some material has texture_id >= 0: hit shading
+    #   samples the pool (where none has, the albedo is the color anyway)
 
     def take_shade(self, tri: Tensor):
         """One-gather fetch of the per-hit shade record. Returns
@@ -100,6 +165,11 @@ class HostScene:
 
     def add_mesh(self, mesh: Mesh) -> None:
         self.meshes.append(mesh)
+
+    def add_texture(self, image: np.ndarray) -> int:
+        """Register an (H, W, 3) float32 image; returns its texture id."""
+        self.textures.append(np.asarray(image, np.float32))
+        return len(self.textures) - 1
 
     def add_box(self, material: dict, pos, extent) -> None:
         """Procedural axis-aligned box (Model.cpp addBox :214-286 semantics)."""
@@ -213,9 +283,11 @@ def pack_shade_rows(flat: dict, order: np.ndarray, pad_to: int) -> np.ndarray:
     return out
 
 
-def scene_from_shade_rows(shade: np.ndarray, materials: MaterialTable, device) -> SceneData:
-    """SceneData on `device` from packed (N, 32) shade rows; the per-field
-    tensors are column views of the one uploaded row table."""
+def scene_from_shade_rows(shade: np.ndarray, materials: MaterialTable, device,
+                          textures: TexturePool | None = None) -> SceneData:
+    """SceneData on `device` from packed (N, 32) shade rows (and the texture
+    pool, empty if None); the per-field tensors are column views of the one
+    uploaded row table."""
     rows = torch.as_tensor(np.array(shade, np.float32), device=device)
 
     def v3(c):
@@ -228,14 +300,14 @@ def scene_from_shade_rows(shade: np.ndarray, materials: MaterialTable, device) -
         material_id=rows[:, 24].to(torch.int32),
         has_shading_normal=rows[:, 25] > 0.5,
         materials=materials,
-        textures=TexturePool.empty(device),
+        textures=TexturePool.empty(device) if textures is None else textures,
         shade_rows=rows,
+        textured=bool((materials.texture_id >= 0).any()),
     )
 
 
 def device_scene_from_sorted(flat: dict, order: np.ndarray, pad_to: int, device) -> SceneData:
     """Upload the flattened host scene in BVH order onto `device`."""
-    if flat["textures"] or any(m["texture_id"] >= 0 for m in flat["materials"]):
-        raise NotImplementedError("textured scenes are ROADMAP A.2 (TexturePool)")
     shade = pack_shade_rows(flat, order, pad_to)
-    return scene_from_shade_rows(shade, build_table(flat["materials"], device), device)
+    return scene_from_shade_rows(shade, build_table(flat["materials"], device), device,
+                                 pack_textures(flat["textures"], device))

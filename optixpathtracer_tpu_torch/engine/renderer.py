@@ -1,8 +1,8 @@
 """Progressive renderer: owns the framebuffer state and runs one wavefront
 launch per `render()` (port of optixpathtracer_tpu/engine/renderer.py, with
-`aovs`, the AOV-guided `denoised_image` and checkpoint / resume of the
-progressive state in the reference's `.npz` layout; the area light and
-demand-loaded textures are ROADMAP A.11).
+`aovs`, the AOV-guided `denoised_image`, checkpoint / resume of the
+progressive state in the reference's `.npz` layout and the parallelogram
+area light; demand-loaded textures are ROADMAP A.11).
 
 Pixels are traced in 16x8 tiles, not scanlines: the cluster traversal culls
 per 128-ray block, and a tile's rays form a far tighter bundle. The tile
@@ -25,9 +25,10 @@ from ..ops.denoise import atrous_denoise
 from .wavefront import CameraParams, RenderConfig, SampleOutput, accumulate, trace_wavefront
 
 
-def _render_step(cs, probe, cfg, cam, pixel_x, pixel_y, accum: Vec3, subframe: int):
+def _render_step(cs, probe, cfg, cam, pixel_x, pixel_y, accum: Vec3, subframe: int,
+                 area_light=None):
     """One progressive launch over a pixel chunk (the optixLaunch unit)."""
-    out = trace_wavefront(cs, probe, cfg, cam, pixel_x, pixel_y, subframe)
+    out = trace_wavefront(cs, probe, cfg, cam, pixel_x, pixel_y, subframe, area_light=area_light)
     new_accum = accumulate(accum, out.color, subframe, cfg.samples_per_launch, cfg.clamp_radiance)
     frame = tonemap.pack_rgba8(tonemap.finalize(new_accum, mode=tonemap.TONEMAP_NONE, srgb=True))
     return new_accum, frame, out
@@ -64,17 +65,20 @@ class ProgressiveState:
 
 class Renderer(ProgressiveState):
     """Progressive path-tracing renderer over a compiled scene; renders on
-    the compiled scene's device."""
+    the compiled scene's device. `area_light` (a `QuadLight` on that
+    device, or None) is sampled by every launch."""
 
     TILE_W, TILE_H = 16, 8  # pixel-tile shape for ray-block coherence
 
     def __init__(self, compiled_scene: CompiledScene, probe: Probe,
-                 config: RenderConfig | None = None, camera: Camera | None = None):
+                 config: RenderConfig | None = None, camera: Camera | None = None,
+                 area_light=None):
         self.cs = compiled_scene
         self.device = compiled_scene.device
         self.probe = probe
         self.config = config or RenderConfig()
         self.camera = camera or Camera()
+        self.area_light = area_light
         super().__init__()
         self.resize(self.config.width, self.config.height)
 
@@ -116,7 +120,8 @@ class Renderer(ProgressiveState):
             e = min(n, s + chunk)
             a_chunk = Vec3(*(c[s:e] for c in self.accum))
             parts.append(_render_step(self.cs, self.probe, self.config, cam,
-                                      self._px[s:e], self._py[s:e], a_chunk, sub))
+                                      self._px[s:e], self._py[s:e], a_chunk, sub,
+                                      self.area_light))
         if len(parts) == 1:
             self.accum, frame, self._last = parts[0]
         else:

@@ -38,6 +38,7 @@ from ..core.math import (
 from ..core.rng import M32, RngState, as_i32_bits, randf, randf2, tea
 from ..core.sampling import projective_blue_noise
 from ..core.sobol import _u32_to_unit, sobol02_point
+from ..lights.lights import QuadLight, sample_parallelogram
 from ..lights.probe import Probe, dir_to_uv, probe_eval, probe_sample
 from ..ops.traverse_cluster import any_hit_cluster, closest_hit_cluster
 from ..shade import disney
@@ -87,7 +88,6 @@ def _check_supported(cfg: RenderConfig, **extras) -> None:
         "env_via_bsdf": (cfg.env_via_bsdf, "A.5"),
         "nee_rr": (cfg.nee_rr > 0.0, "A.5"),
         f"traversal={cfg.traversal!r}": (cfg.traversal != "cluster", "A 'not to port'"),
-        "area_light": (extras.get("area_light") is not None, "A.11"),
         "demand_pool": (extras.get("demand_pool") is not None, "A.11"),
     }
     for name, (on, item) in off.items():
@@ -125,11 +125,14 @@ class SampleOutput(NamedTuple):
 
 
 def _hit_geometry(cs: CompiledScene, rec, ray_dir: Vec3, use_shading: bool):
-    """Per-hit normal, material and albedo (the SBT-record stage)."""
+    """Per-hit normal, material and albedo (the SBT-record stage): the
+    albedo is the bilinear texture fetch at the hit's interpolated uv where
+    the material has a texture, else its color."""
     if cs.clusters is not None and cs.clusters.instanced:
         raise NotImplementedError("instanced scenes are ROADMAP A.9")
+    scene = cs.scene
     tri = torch.clamp(rec.tri, min=0).to(torch.int64)
-    v0, v1, v2, sn0, sn1, sn2, _uv6, mat_id, has = cs.scene.take_shade(tri)
+    v0, v1, v2, sn0, sn1, sn2, uv6, mat_id, has = scene.take_shade(tri)
     n_geom = normalize(cross(v1 - v0, v2 - v0))
     if use_shading:
         w0 = 1.0 - rec.u - rec.v
@@ -139,9 +142,15 @@ def _hit_geometry(cs: CompiledScene, rec, ray_dir: Vec3, use_shading: bool):
         n = n_geom
     # faceforward against the incoming ray (deviceProgram.cu:492)
     n = faceforward(n, -ray_dir, n)
-    mat = cs.scene.materials.take(mat_id.to(torch.int64))
-    # untextured scenes only (textures raise at upload): albedo = color
-    return n, mat, mat.color
+    mat = scene.materials.take(mat_id.to(torch.int64))
+    if not scene.textured:
+        return n, mat, mat.color
+    uv0u, uv0v, uv1u, uv1v, uv2u, uv2v = uv6
+    w0 = 1.0 - rec.u - rec.v
+    tu = uv0u * w0 + uv1u * rec.u + uv2u * rec.v
+    tv = uv0v * w0 + uv1v * rec.u + uv2v * rec.v
+    tex = scene.textures.sample_bilinear(mat.texture_id, tu, tv)
+    return n, mat, where(mat.texture_id >= 0, tex, mat.color)
 
 
 def _spread3(x: Tensor) -> Tensor:
@@ -354,6 +363,62 @@ def _nee(cs, probe, cfg, p, n, wo, mat, albedo, eta_i, eta_o, active, state, u12
     return state, lit, shadowed, active
 
 
+def _quad_nee(cs, cfg, light: QuadLight, p, n, wo, mat, albedo, eta_i, eta_o, active, state):
+    """Area-light NEE against the single parallelogram light, with
+    balance-heuristic MIS against the BSDF (a two-sided emitter). Returns
+    (state, contribution where visible, traced): `traced` marks the lanes
+    that trace a shadow ray, which `rays_traced` leaves out, as the
+    reference does."""
+    state, q, ln, _area = sample_parallelogram(light.corner, light.v1, light.v2, state)
+    to_q = q - p
+    dist2 = torch.clamp(dot(to_q, to_q), min=1e-12)
+    dist = torch.sqrt(dist2)
+    wi = to_q / dist
+    cos_l = (-dot(wi, ln)).abs()
+    # the host's float32 area, as the reference uses it (not `_area`)
+    pdf_sa = dist2 / torch.clamp(light.area * cos_l, min=1e-9)
+
+    b_pdf = disney.bsdf_pdf(mat, eta_i, eta_o, n, wo, wi)
+    f = disney.bsdf_eval(mat, albedo, eta_i, eta_o, n, wo, wi)
+    weight = pdf_sa / torch.clamp(pdf_sa + b_pdf, min=1e-12)
+    valid = (b_pdf > 0.0) & (cos_l > 1e-6) & active
+
+    t_max = torch.where(valid, dist - 1e-3, 0.0)
+    occluded, _ = _any_hit_sorted(cs, cfg, p, wi, cfg.shadow_t_min, t_max)
+    contrib = light.emission * f * (weight * dot(wi, n).abs() / pdf_sa)
+    zero = Vec3(*(torch.zeros_like(dist),) * 3)
+    return state, where(valid & ~occluded, contrib, zero), valid
+
+
+def quad_light_pdf(light: QuadLight, p: Vec3, d: Vec3, t_hit: Tensor) -> Tensor:
+    """Solid-angle pdf of having NEE-sampled the point hit by (p, d, t)."""
+    cos_l = dot(d, light.normal).abs()
+    dist2 = t_hit * t_hit
+    return dist2 / torch.clamp(light.area * cos_l, min=1e-9)
+
+
+def _quad_emission_weight(light: QuadLight, path: dict, t_hit: Tensor, p_hit: Vec3) -> Tensor:
+    """MIS weight of an emissive hit against the quad NEE: only hits on the
+    quad compete with it (within the reference's slacks), and after a delta
+    (SPECULAR) bounce `bsdf_pdf` is a discrete probability, so the weight
+    is 1 there."""
+    q_pdf = quad_light_pdf(light, path["o"], path["d"], t_hit)
+    l1, l2, ln = light.v1, light.v2, light.normal
+    rel = p_hit - light.corner
+    s1 = dot(rel, l1) / torch.clamp(dot(l1, l1), min=1e-12)
+    s2 = dot(rel, l2) / torch.clamp(dot(l2, l2), min=1e-12)
+    on_quad = (
+        (dot(rel, ln).abs() <= 1e-3 * torch.sqrt(light.area))
+        & (s1 >= -1e-4) & (s1 <= 1.0 + 1e-4)
+        & (s2 >= -1e-4) & (s2 <= 1.0 + 1e-4)
+    )
+    return torch.where(
+        path["secondary"] & on_quad & ~path["prev_delta"],
+        path["bsdf_pdf"] / torch.clamp(path["bsdf_pdf"] + q_pdf, min=1e-12),
+        1.0,
+    )
+
+
 def _raygen(cfg: RenderConfig, cam: CameraParams, pixel_x: Tensor, pixel_y: Tensor,
             pix_index: Tensor, seed_ctr: Tensor):
     """Seed each lane's stream with tea(pixel, sample counter) and shoot its
@@ -414,6 +479,8 @@ def trace_wavefront(
     """Render cfg.samples_per_launch paths for each pixel in the wavefront.
 
     pixel_x/pixel_y: (N,) int32 pixel coordinates on the render device.
+    area_light (optional `QuadLight` on the render device) adds its NEE
+    after the probe's, and MIS-weights emissive hits on it.
     active_mask (optional (N,) bool) culls lanes up front (the foveation
     annulus test): culled lanes trace nothing, add no rays to
     `rays_traced`, and output the backplate alone.
@@ -511,11 +578,24 @@ def trace_wavefront(
             alpha = where(plain, ones, path["alpha"])
             alpha = alpha + where(catcher_primary, path["throughput"] * shadowed, zero)
 
-        # emission on primary hits (:558-560), or on every bounce
-        if cfg.emission_all_bounces:
+        # emission on primary hits (:558-560), or on every bounce; with an
+        # area light, MIS-weighted against its NEE
+        if cfg.emission_all_bounces and area_light is not None:
+            w_emit = _quad_emission_weight(area_light, path, rec.t, p_hit)
+            radiance = radiance + where(plain, path["throughput"] * mat.emission * w_emit, zero)
+        elif cfg.emission_all_bounces:
             radiance = radiance + where(plain, path["throughput"] * mat.emission, zero)
         else:
             radiance = radiance + where(plain & ~path["secondary"], mat.emission, zero)
+
+        # the parallelogram light's NEE, on the plain hits of non-emitters
+        if area_light is not None and not skip_nee:
+            dark = mat.emission.x + mat.emission.y + mat.emission.z == 0.0
+            state, quad_contrib, _ = _quad_nee(
+                cs, cfg, area_light, p_hit, n_hit, wo, mat, albedo, path["eta"], eta_o,
+                plain & dark, state,
+            )
+            radiance = radiance + where(plain, path["throughput"] * quad_contrib, zero)
 
         rays = path["rays"] + active.sum() + shadow_traced.sum()
         if skip_nee:

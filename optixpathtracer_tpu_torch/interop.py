@@ -1,10 +1,11 @@
-"""State carried across from the JAX package: its CompiledScene and Probe
-as plain numpy arrays, turned into the port's structures.
+"""State carried across from the JAX package: its CompiledScene (texture
+pool included), Probe and QuadLight as plain numpy arrays, turned into the
+port's structures.
 
-`compiled_scene_arrays` / `probe_arrays` read the reference's objects
-attribute by attribute with `np.asarray` (this module imports no jax; the
-caller holds the JAX objects). `compiled_scene_from_arrays` /
-`probe_from_arrays` rebuild the port's `CompiledScene` and `Probe` on a
+`compiled_scene_arrays` / `probe_arrays` / `quad_light_arrays` read the
+reference's objects attribute by attribute with `np.asarray` (this module
+imports no jax; the caller holds the JAX objects). The `*_from_arrays`
+functions rebuild the port's `CompiledScene`, `Probe` and `QuadLight` on a
 device. The round trip moves identical bits, so both packages can be fed
 the same scene state.
 """
@@ -16,12 +17,15 @@ import torch
 from .builder import CompiledScene
 from .bvh.clusters import cluster_set_from_numpy
 from .core.materials import table_from_rows
-from .core.scene import scene_from_shade_rows
+from .core.math import Vec3
+from .core.scene import TexturePool, scene_from_shade_rows
+from .lights.lights import QuadLight
 from .lights.probe import Probe, probe_from_tables
 
 _CLUSTER_FIELDS = ("rows", "spheres", "super_spheres", "scene_aabb", "entry_row",
                    "entry_xf", "xf_inv", "xf_fwd", "xf_invt")
 _PROBE_FIELDS = ("r", "g", "b", "pdf_x", "cdf_x", "pdf_y", "cdf_y", "rgbp")
+_QUAD_FIELDS = ("corner", "v1", "v2", "emission", "normal")
 
 
 def compiled_scene_arrays(cs) -> dict[str, np.ndarray]:
@@ -35,6 +39,9 @@ def compiled_scene_arrays(cs) -> dict[str, np.ndarray]:
     out["clusters.cluster_size"] = np.asarray(cl.cluster_size)
     out["scene.shade_rows"] = _np(cs.scene.shade_rows)
     out["scene.materials.rows"] = _np(cs.scene.materials.rows)
+    pool = getattr(cs.scene, "textures", None)  # a bare cluster set's view has none
+    if pool is not None:
+        out.update({f"scene.textures.{k}": _np(v) for k, v in pool._asdict().items()})
     out["num_triangles"] = np.asarray(cs.num_triangles)
     return out
 
@@ -45,7 +52,12 @@ def compiled_scene_from_arrays(arrays: dict[str, np.ndarray], device) -> Compile
     c = int(tables.pop("cluster_size"))
     clusters = cluster_set_from_numpy(tables, c, device)
     materials = table_from_rows(arrays["scene.materials.rows"], device)
-    scene = scene_from_shade_rows(arrays["scene.shade_rows"], materials, device)
+    textures = None  # arrays without a pool rebuild with the empty one
+    if "scene.textures.r" in arrays:
+        textures = TexturePool(**{
+            k: torch.as_tensor(np.array(arrays[f"scene.textures.{k}"]), device=device)
+            for k in TexturePool._fields})
+    scene = scene_from_shade_rows(arrays["scene.shade_rows"], materials, device, textures)
     return CompiledScene(scene=scene, bvh=None, num_triangles=int(arrays["num_triangles"]),
                          wide=None, clusters=clusters)
 
@@ -63,6 +75,21 @@ def probe_from_arrays(arrays: dict[str, np.ndarray], device) -> Probe:
          for k in _PROBE_FIELDS}
     return probe_from_tables(t["r"], t["g"], t["b"], t["pdf_x"], t["cdf_x"], t["pdf_y"],
                              t["cdf_y"], arrays["offset"], t["rgbp"])
+
+
+def quad_light_arrays(light) -> dict[str, np.ndarray]:
+    """A (reference or port) QuadLight as a dict of numpy arrays: (3,)
+    float32 vectors and the float32 `area`."""
+    out = {k: np.array([float(_np(c)) for c in getattr(light, k)], np.float32)
+           for k in _QUAD_FIELDS}
+    out["area"] = np.float32(_np(light.area))
+    return out
+
+
+def quad_light_from_arrays(arrays: dict[str, np.ndarray], device) -> QuadLight:
+    """The port's QuadLight on `device` from `quad_light_arrays`."""
+    return QuadLight(*(Vec3.of(*(float(c) for c in arrays[k]), device=device) for k in _QUAD_FIELDS),
+                     area=torch.tensor(float(arrays["area"]), dtype=torch.float32, device=device))
 
 
 def _np(a) -> np.ndarray:

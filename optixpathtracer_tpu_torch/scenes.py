@@ -1,15 +1,24 @@
-"""Procedural scenes and render setups of the main path, rebuilt without jax.
+"""Procedural scenes, scenes from files and render setups, rebuilt without jax.
 
 `build_city_scene` is the bench's 150k-triangle city (bench.py
 `build_city_scene`, `_unit_box`) and `build_big_scene` its terrain-apron
 scale scene (bench.py `build_big_scene`), made from the same seeds with the
-same numpy calls, so they are the same triangle soups. The `open_*` functions are
-the golden setups of tests/golden_scenes.py (`_open_scene`, `_sky_probe`,
-`_cam`/`_cam_s`, `render_disney_open*`, `render_foveated*`) with the
-cluster traversal in place of the reference's CPU lockstep backend (both
-are exact).
+same numpy calls, so they are the same triangle soups. `loft_config` is
+bench.py's `--scene loft` setup (camera, probe, flags) for the textured
+interior `scenes/loft.obj`. The `open_*`, `cornell_*`, `loft` and `gltf`
+functions are the golden setups of tests/golden_scenes.py (`_open_scene`,
+`_cornell_scene`, `_sky_probe`, `_cam`/`_cam_s`, `render_disney_open*`,
+`render_disney_cornell*`, `render_loft*`, `render_gltf`,
+`render_foveated*`) with the cluster traversal in place of the reference's
+CPU lockstep backend (both are exact).
 """
 from __future__ import annotations
+
+import json
+import os
+import struct
+import tempfile
+from typing import NamedTuple
 
 import numpy as np
 
@@ -20,7 +29,13 @@ from .core.scene import HostScene, Mesh
 from .engine.foveated import FoveatedRenderer, FoveationConfig
 from .engine.renderer import Renderer
 from .engine.wavefront import RenderConfig
-from .lights.probe import build_probe
+from .io.gltf import load_gltf
+from .io.obj import load_obj
+from .lights.lights import QuadLight
+from .lights.probe import Probe, build_probe
+
+LOFT_OBJ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "scenes", "loft.obj")
 
 
 def _unit_box():
@@ -209,6 +224,148 @@ def render_foveated_golden(name: str, device) -> np.ndarray:
                          FoveationConfig(inner_radius=inner, outer_radius=outer))
     for _ in range(frames):
         r.render()
+    return r.accum_image()
+
+
+def dark_probe(device) -> Probe:
+    """The closed rooms' 1e-6 probe: lit by their emitters, not the sky
+    (bench.py `--scene loft`, tests/golden_scenes.py)."""
+    return build_probe(np.full((8, 16, 3), 1e-6, np.float32), device)
+
+
+def cornell_scene() -> HostScene:
+    """tests/golden_scenes.py `_cornell_scene`: a closed box, two blocks and
+    an emissive slab under the ceiling (96 triangles)."""
+    hs = HostScene()
+    e = 1.5
+    hs.add_box(make_material(color=(0.73, 0.73, 0.73)), pos=(0, -0.05, 0), extent=(e, 0.05, e))  # floor
+    hs.add_box(make_material(color=(0.73, 0.73, 0.73)), pos=(0, 2 * e + 0.05, 0), extent=(e, 0.05, e))  # ceiling
+    hs.add_box(make_material(color=(0.65, 0.05, 0.05)), pos=(-e - 0.05, e, 0), extent=(0.05, e, e))  # red left
+    hs.add_box(make_material(color=(0.12, 0.45, 0.15)), pos=(e + 0.05, e, 0), extent=(0.05, e, e))  # green right
+    hs.add_box(make_material(color=(0.73, 0.73, 0.73)), pos=(0, e, -e - 0.05), extent=(e, e, 0.05))  # back
+    hs.add_box(make_material(color=(0.73, 0.73, 0.73), roughness=0.5), pos=(-0.5, 0.6, -0.4), extent=(0.35, 0.6, 0.35))
+    hs.add_box(make_material(color=(0.73, 0.73, 0.73), metallic=1.0, roughness=0.1), pos=(0.55, 0.35, 0.35), extent=(0.35, 0.35, 0.35))
+    # emissive quad light geometry near the ceiling
+    hs.add_box(make_material(color=(0, 0, 0), emission=(15.0, 13.0, 10.0)), pos=(0, 2 * e - 0.02, 0), extent=(0.5, 0.02, 0.5))
+    return hs
+
+
+def cornell_light(device) -> QuadLight:
+    """The cornell golden's parallelogram light, the slab's underside."""
+    return QuadLight.make(corner=(-0.5, 2.96, -0.5), v1=(1.0, 0, 0), v2=(0, 0, 1.0),
+                          emission=(15.0, 13.0, 10.0), device=device)
+
+
+def cornell_camera(width: int, height: int) -> Camera:
+    return Camera(eye=(0, 1.5, 5.6), lookat=(0, 1.4, 0), up=(0, 1, 0), fov_y=45,
+                  aspect_ratio=width / height)
+
+
+def loft_camera(width: int, height: int, fov_y: float = 45) -> Camera:
+    """The loft's view: fov 45 in the goldens, 55 in bench.py."""
+    return Camera(eye=(-5.2, 2.4, 3.2), lookat=(2.0, 1.2, -1.0), up=(0, 1, 0), fov_y=fov_y,
+                  aspect_ratio=width / height)
+
+
+class SceneSetup(NamedTuple):
+    camera: Camera
+    probe: Probe
+    flags: dict  # RenderConfig fields beyond size, spp and depth
+
+
+def loft_config(width: int, height: int, device) -> SceneSetup:
+    """bench.py `--scene loft` (bench.py:1258-1300): the loft camera at fov
+    55, the 1e-6 probe, and the city slice's flags plus emitter lighting
+    through BSDF paths and shading normals."""
+    return SceneSetup(loft_camera(width, height, fov_y=55), dark_probe(device),
+                      dict(sort_rays=True, batch_spp=True, nee_final_bounce=False,
+                           emission_all_bounces=True, use_shading_normals=True))
+
+
+# golden name -> (width, height, spp, max_depth, frames)
+CORNELL_GOLDENS = {
+    "disney_cornell_s": (48, 32, 2, 2, 1),
+    "disney_cornell": (96, 64, 4, 3, 2),
+}
+LOFT_GOLDENS = {
+    "loft_s": (48, 32, 2, 2, 1),
+    "loft": (96, 64, 4, 3, 2),
+}
+
+
+def render_cornell_golden(name: str, device) -> np.ndarray:
+    """Render a `disney_cornell*` golden setup: the cornell scene under its
+    quad light with emission on every bounce."""
+    w, h, spp, depth, frames = CORNELL_GOLDENS[name]
+    cfg = RenderConfig(width=w, height=h, samples_per_launch=spp, max_depth=depth,
+                       traversal="cluster", emission_all_bounces=True)
+    r = Renderer(compile_scene(cornell_scene(), device), dark_probe(device), cfg,
+                 cornell_camera(w, h), area_light=cornell_light(device))
+    r.render_n(frames)
+    return r.accum_image()
+
+
+def render_loft_golden(name: str, device) -> np.ndarray:
+    """Render a `loft*` golden setup: scenes/loft.obj, textured, lit by its
+    emissive panels, shading normals on."""
+    w, h, spp, depth, frames = LOFT_GOLDENS[name]
+    cfg = RenderConfig(width=w, height=h, samples_per_launch=spp, max_depth=depth,
+                       traversal="cluster", emission_all_bounces=True, use_shading_normals=True)
+    r = Renderer(compile_scene(load_obj(LOFT_OBJ), device), dark_probe(device), cfg,
+                 loft_camera(w, h))
+    r.render_n(frames)
+    return r.accum_image()
+
+
+def golden_glb() -> bytes:
+    """The `gltf` golden's .glb (tests/golden_scenes.py `render_gltf`): one
+    quad mesh referenced by two nodes with different transforms."""
+    pos = np.array([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]], np.float32)
+    idx = np.array([0, 1, 2, 0, 2, 3], np.uint16)
+    bin_pos = pos.tobytes()
+    blob = bin_pos + idx.tobytes() + b"\x00\x00"  # indices padded to 4
+    gltf = {
+        "asset": {"version": "2.0"},
+        "scene": 0,
+        "scenes": [{"nodes": [0, 1]}],
+        "nodes": [
+            {"mesh": 0},
+            {"mesh": 0, "translation": [0.0, 1.0, 0.0], "scale": [0.5, 0.5, 0.5]},
+        ],
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 1}, "indices": 0, "material": 0}]}],
+        "materials": [{"pbrMetallicRoughness": {
+            "baseColorFactor": [0.8, 0.3, 0.2, 1.0], "metallicFactor": 0.0, "roughnessFactor": 0.6}}],
+        "buffers": [{"byteLength": len(blob)}],
+        "bufferViews": [
+            {"buffer": 0, "byteOffset": len(bin_pos), "byteLength": 12},
+            {"buffer": 0, "byteOffset": 0, "byteLength": len(bin_pos)},
+        ],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5123, "count": 6, "type": "SCALAR"},
+            {"bufferView": 1, "componentType": 5126, "count": 4, "type": "VEC3",
+             "min": pos.min(0).tolist(), "max": pos.max(0).tolist()},
+        ],
+    }
+    js = json.dumps(gltf).encode()
+    js += b" " * (-len(js) % 4)
+    return (struct.pack("<4sII", b"glTF", 2, 12 + 8 + len(js) + 8 + len(blob))
+            + struct.pack("<I4s", len(js), b"JSON") + js
+            + struct.pack("<I4s", len(blob), b"BIN\x00") + blob)
+
+
+def render_gltf_golden(device) -> np.ndarray:
+    """Render the `gltf` golden: `golden_glb` loaded from a file, 96x64,
+    2 spp, depth 2, 2 frames under the open scene's sky."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "golden.glb")
+        with open(path, "wb") as f:
+            f.write(golden_glb())
+        hs, _lights = load_gltf(path)
+    cfg = RenderConfig(width=96, height=64, samples_per_launch=2, max_depth=2, traversal="cluster")
+    r = Renderer(compile_scene(hs, device), sky_probe(device), cfg,
+                 Camera(eye=(3.0, 2.5, 3.0), lookat=(0, 0.4, 0), up=(0, 1, 0), fov_y=45,
+                        aspect_ratio=96 / 64))
+    r.render_n(2)
     return r.accum_image()
 
 

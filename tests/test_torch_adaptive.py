@@ -11,7 +11,6 @@ the error map, a ratio of variances, and the denoised image, whose weights
 are exps of those sums); the frame is 40x20, not a multiple of the 16x8
 tile, so padded slots are part of every launch.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -137,11 +136,28 @@ def test_denoised_image_matches_jax(renderers):
 
 
 def test_area_light_is_not_ported():
-    jcs = jax_compile(_open_scene(), cluster_size=128, build_wide_bvh=False)
+    """The name dates from when the port raised for `area_light`. It now
+    holds `AdaptiveRenderer(area_light=)` against the JAX one: the cornell
+    golden scene under its quad light, three rounds, the sample map exact
+    and the image to rtol / atol 1e-5."""
+    from optixpathtracer_tpu.lights.lights import QuadLight as JaxQuadLight
+    from optixpathtracer_tpu.lights.probe import build_probe as jax_build_probe
+    from optixpathtracer_tpu_torch import scenes
+    from tests.golden_scenes import _cornell_scene
+
+    w, h = 32, 16
+    view = dict(eye=(0, 1.5, 5.6), lookat=(0, 1.4, 0), up=(0, 1, 0), fov_y=45)
+    cfg = dict(width=w, height=h, samples_per_launch=2, max_depth=2, emission_all_bounces=True,
+               sort_rays=True)
+    jcs = jax_compile(_cornell_scene(), cluster_size=128, build_wide_bvh=False)
+    jr = jad.AdaptiveRenderer(jcs, jax_build_probe(np.full((8, 16, 3), 1e-6, np.float32)),
+                              JaxConfig(traversal="lockstep", **cfg), JaxCamera(aspect_ratio=w / h, **view),
+                              area_light=JaxQuadLight.make(corner=(-0.5, 2.96, -0.5), v1=(1.0, 0, 0),
+                                                           v2=(0, 0, 1.0), emission=(15.0, 13.0, 10.0)))
     pcs = interop.compiled_scene_from_arrays(interop.compiled_scene_arrays(jcs), CPU)
-    probe = interop.probe_from_arrays(interop.probe_arrays(_sky_probe()), CPU)
-    r = tad.AdaptiveRenderer(pcs, probe, dataclasses.replace(RenderConfig(traversal="cluster"),
-                                                             width=16, height=8),
-                             area_light=object())
-    with pytest.raises(NotImplementedError, match="A.11"):
-        r.render()
+    pr = tad.AdaptiveRenderer(pcs, scenes.dark_probe(CPU), RenderConfig(traversal="cluster", **cfg),
+                              Camera(aspect_ratio=w / h, **view), area_light=scenes.cornell_light(CPU))
+    for r in (jr, pr):
+        r.render_n(3)
+    np.testing.assert_array_equal(pr.sample_map(), jr.sample_map())
+    np.testing.assert_allclose(pr.accum_image(), jr.accum_image(), rtol=1e-5, atol=1e-5)

@@ -560,3 +560,84 @@ def test_atrous_denoise_card_matches_cpu(cuda, kw):
                          **{k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in kw.items()})
     assert got.device.type == "cuda"
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-6)
+
+
+def _loft(device, c):
+    """scenes/loft.obj compiled with cluster size c, its bounding box and
+    its (3, N, 3) triangle corners."""
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.builder import compile_scene
+    from optixpathtracer_tpu_torch.io.obj import load_obj
+
+    hs = load_obj(scenes.LOFT_OBJ)
+    corners = np.stack(hs.flatten()["v"])
+    lo, hi = corners.reshape(-1, 3).min(0), corners.reshape(-1, 3).max(0)
+    return compile_scene(hs, device, leaf_size=8, cluster_size=c).clusters, lo, hi, corners
+
+
+def _room_rays(lo, hi, n, seed):
+    """n rays from inside the room (its box shrunk to 85 %) in every direction."""
+    rng = np.random.default_rng(seed)
+    c, half = (lo + hi) / 2, (hi - lo) / 2
+    o = (c + rng.uniform(-0.85, 0.85, (n, 3)) * half).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    return o, d / np.linalg.norm(d, axis=1, keepdims=True)
+
+
+def _cull_and_sweeps_equal_plain(cs, o, d, t_min, t_max, c):
+    rays8 = tc._pack_rays8(cs, o, d, t_min, t_max)
+    for k, p in zip(tc.cull_blocks(rays8, *cs.cull_tables), tc._cull_torch(rays8, cs.cull_tables[0])):
+        assert torch.equal(k, p)
+    cr = tc.block_cull(cs, o, d, t_min, t_max)
+    tri_k, _ = _sweeps_equal_plain(cs, cr, c)
+    return tri_k[: o.x.shape[0]], tc.any_sweep(cs.rows, cs.xf_inv, cr, c)[: o.x.shape[0]]
+
+
+@pytest.mark.parametrize("c", [64, 256])
+def test_loft_closed_room_rays_bit_equal_to_plain(cuda, c):
+    """K1 (cluster boxes), K2 and K3 on rays from inside the closed loft:
+    every ray hits a wall or the furniture."""
+    cs, lo, hi, _ = _loft(cuda, c)
+    o, d = _room_rays(lo, hi, 8192, seed=1)
+    tri, occ = _cull_and_sweeps_equal_plain(cs, _v3(o, cuda), _v3(d, cuda), 1e-3, 1e16, c)
+    assert bool((tri >= 0).all()) and bool((occ > 0).all())
+
+
+@pytest.mark.parametrize("c", [64, 256])
+def test_loft_shadow_rays_ending_at_a_wall(cuda, c):
+    """Shadow rays (t_min = shadow_t_min = 0.01) that end within
+    shadow_t_min of the wall they point at (t_max = t_hit + k * 0.004, k in
+    -3..3: short of it, on it, past it), and rays leaving a wall from its
+    hit point, where the wall lies inside t_min."""
+    cs, lo, hi, _ = _loft(cuda, c)
+    o, d = _room_rays(lo, hi, 4096, seed=2)
+    ov, dv = _v3(o, cuda), _v3(d, cuda)
+    rec = tc.closest_hit_cluster(cs, ov, dv, 1e-3, 1e16, hier=False)
+    t_hit = rec.t.cpu().numpy()
+    k = np.random.default_rng(3).integers(-3, 4, len(t_hit))
+    t_max = torch.as_tensor((t_hit + k * 0.004).astype(np.float32), device=cuda)
+    _, occ = _cull_and_sweeps_equal_plain(cs, ov, dv, 0.01, t_max, c)
+    occ = occ.cpu().numpy() > 0
+    far = t_hit > 0.02  # a wall closer than t_min is skipped
+    assert occ[far & (k > 0)].all() and not occ[far & (k < 0)].any()  # only a ray past the wall is occluded
+    p = (o + d * t_hit[:, None]).astype(np.float32)
+    d2 = -d + np.random.default_rng(4).normal(0, 0.5, d.shape).astype(np.float32)
+    _cull_and_sweeps_equal_plain(cs, _v3(p, cuda), _v3(d2 / np.linalg.norm(d2, axis=1, keepdims=True), cuda),
+                                 0.01, 1e16, c)
+
+
+@pytest.mark.parametrize("c", [64, 256])
+def test_loft_coplanar_walls_exact_t_ties(cuda, c):
+    """Rays aimed at the loft's triangle vertices and edge midpoints: the
+    triangles of a wall that share the point tie exactly on t, and K2 must
+    break the tie as its plain version does (lowest column, then the first
+    cluster visited)."""
+    cs, lo, hi, corners = _loft(cuda, c)
+    targets = np.concatenate([corners.reshape(-1, 3), ((corners + np.roll(corners, 1, axis=0)) / 2).reshape(-1, 3)])
+    rng = np.random.default_rng(5)
+    targets = targets[rng.choice(len(targets), 8192)]
+    o, _ = _room_rays(lo, hi, len(targets), seed=6)
+    d = targets - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tri, _ = _cull_and_sweeps_equal_plain(cs, _v3(o, cuda), _v3(d.astype(np.float32), cuda), 1e-3, 1e16, c)
+    assert bool((tri >= 0).all())

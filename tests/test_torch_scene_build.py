@@ -84,7 +84,17 @@ def test_lbvh_order_matches_reference_numpy_path(numpy_reference):
 
 
 def test_textured_build_raises():
+    """The name dates from when a textured build raised. It now holds the
+    texture pool a textured build carries against the JAX package's."""
+    from optixpathtracer_tpu.core.scene import pack_textures as jax_pack_textures
+
     hs = scenes.open_scene()
-    hs.textures.append(np.ones((2, 2, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="A.2"):
-        compile_scene(hs, CPU)
+    rng = np.random.default_rng(0)
+    images = [rng.random((2, 3, 3)).astype(np.float32), rng.random((5, 4, 3)).astype(np.float32)]
+    for img in images:
+        hs.add_texture(img)
+    hs.meshes[1].material = dict(hs.meshes[1].material, texture_id=1)
+    cs = compile_scene(hs, CPU)
+    assert cs.scene.textured
+    for got, want in zip(cs.scene.textures, jax_pack_textures(images)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -138,7 +138,7 @@ def test_off_slice_options_raise(option, item):
         twf.trace_wavefront(cs, scenes.sky_probe(CPU), cfg, cam, px, py, 0)
 
 
-@pytest.mark.parametrize("extra, item", [("area_light", "A.11"), ("demand_pool", "A.11")])
+@pytest.mark.parametrize("extra, item", [("demand_pool", "A.11")])
 def test_off_slice_arguments_raise(extra, item):
     cfg = twf.RenderConfig(width=16, height=8, samples_per_launch=1, max_depth=1,
                            traversal="cluster")
