@@ -63,7 +63,23 @@ port's paths and checks that each went through its kernels:
      dense oracle, a golden through the node walk, the node kernels' and
      the flat kernels' times on the same rays, and the node cull and sweeps
      again on the slice's second bounce: the rays the engine itself hands
-     to its sweeps at depth 1 of a frame (`engine_bounce`).
+     to its sweeps at depth 1 of a frame (`engine_bounce`);
+  8. the engine's last options (`engine_options`): the city slice with
+     `fused_shadows` off and on (equal images and rays; fused launches no
+     K4b and one K4a a bounce over 2n rays), `env_via_bsdf` and `nee_rr`
+     on the open scene against the port's CPU render;
+  9. the instanced city (`scenes.instanced_city_glb(4)`: 9 glTF meshes, 144
+     instances, 2.4M world triangles, 2416 entries) built as a TLAS and as
+     its baked twin (`instanced_scene`); `disney_pt` at 1200x800, 4 spp,
+     depth 4 through the CLI's own renderer (`cli.make_renderer`:
+     `instanced_slice`, one launch profiled in `instanced_profile`), K1,
+     K4a, K4b and, with the threshold raised, K1, K2, K3 held and timed on
+     the engine's own first and second bounce (`instanced_kernels`), the
+     flat walk's frame (`instanced_flat_slice`), the instanced-against-
+     baked gate (`instanced_exactness_gate`), a transform update against a
+     fresh build (`tlas_update`), and `python -m optixpathtracer_tpu_torch
+     render` in two child processes (`cli_render`: the instanced city and
+     the loft with --denoise; no jax, JAX package or PIL imported).
 
 The cull (K1) is held against its plain version and timed on both tables
 (cluster boxes and entry boxes on the city, entry boxes on the big scene)
@@ -114,6 +130,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -243,17 +260,19 @@ def bytes_bound(nbytes):
     return dict(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=nbytes)
 
 
-def cull_phase(name, rays8, sph_t, grp_t, peak, budget_s, wavefront, card):
+def cull_phase(name, rays8, sph_t, grp_t, peak, budget_s, wavefront, card, bound=True):
     """K1 on one table and one wavefront: its time on all blocks, bit-equality
-    with `_cull_torch` on the blocks that fit the budget, and its bound from
-    the slab tests this design must do (`cull_work`), with the count of all
-    live-ray x box pairs and their bound beside it."""
+    with `_cull_torch` on the blocks that fit the budget, and (bound=True)
+    its bound from the slab tests this design must do (`cull_work`), with
+    the count of all live-ray x box pairs and their bound beside it."""
     from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
 
     out = time_vs_plain(
         name, lambda nr: tc.cull_blocks(rays8[: nr * tc.BLOCK], sph_t, grp_t),
         lambda nr: tc._cull_torch(rays8[: nr * tc.BLOCK], sph_t), rays8.shape[0] // tc.BLOCK,
         budget_s, wavefront=wavefront, card=card)
+    if not bound:
+        return out
     all_pairs = int((rays8[:, 7] > rays8[:, 6]).sum()) * sph_t.shape[1]
     out.update(work_bound(
         name, tc.cull_work(rays8, sph_t, grp_t), peak, out["ms"], wavefront=wavefront, card=card,
@@ -262,11 +281,11 @@ def cull_phase(name, rays8, sph_t, grp_t, peak, budget_s, wavefront, card):
     return out
 
 
-def time_hier(cl, cr_c, cr_s, peak, wavefront, card):
+def time_hier(cl, cr_c, cr_s, peak, wavefront, card, budget_s=HIER_PLAIN_BUDGET_S, bound=True):
     """K4a on cr_c and K4b on cr_s (NodeCullResults of cluster set cl):
     each kernel's time on the whole wavefront, bit-equality with its plain
-    version on the blocks that fit HIER_PLAIN_BUDGET_S, K4a's vis against
-    the counted visits, and both bounds."""
+    version on the blocks that fit budget_s, and (bound=True) K4a's vis
+    against the counted visits and both bounds."""
     from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
 
     nt, c = cl.node_tables, cl.cluster_size
@@ -281,7 +300,9 @@ def time_hier(cl, cr_c, cr_s, peak, wavefront, card):
 
         nr = crx.ids.shape[0]
         out[name] = time_vs_plain(name, lambda nr: run(sweep, nr), lambda nr: run(plain, nr), nr,
-                                  HIER_PLAIN_BUDGET_S, wavefront=wavefront, card=card)
+                                  budget_s, wavefront=wavefront, card=card)
+        if not bound:
+            continue
         work = tc.sweep_work_hier(cl.rows, cl.xf_inv, nt, crx, c, any_hit=any_hit)
         if not any_hit:
             vis = int(sweep(cl.rows, cl.xf_inv, nt, crx, c)[2].sum())
@@ -445,12 +466,12 @@ def compare(name, kernel_out, plain_out):
     return err
 
 
-def check_vs_plain(name, kern, plain, nr_full, budget_s):
+def check_vs_plain(name, kern, plain, nr_full, budget_s, probe_div=32):
     """Hold kern(nr) bit for bit against plain(nr) on the first nr ray blocks,
     nr cut so that the plain version runs within about budget_s (estimated
-    from a run on 1/32 of the blocks). kern/plain map a block count to a
-    tuple of outputs. Returns (plain ms, nr, max_abs_err)."""
-    probe_nr = min(nr_full, max(8, nr_full // 32))
+    from a run on 1/probe_div of the blocks, at least 8). kern/plain map a
+    block count to a tuple of outputs. Returns (plain ms, nr, max_abs_err)."""
+    probe_nr = min(nr_full, max(8, nr_full // probe_div))
     probe_ms, out_p = timed(lambda: plain(probe_nr))
     est_s = probe_ms / 1e3 * nr_full / probe_nr
     nr = nr_full if est_s <= budget_s else max(probe_nr, int(nr_full * budget_s / est_s))
@@ -460,28 +481,29 @@ def check_vs_plain(name, kern, plain, nr_full, budget_s):
     return plain_ms, nr, compare(name, kern(nr), out_p)
 
 
-def time_vs_plain(name, kern, plain, nr_full, budget_s, **fields):
+def time_vs_plain(name, kern, plain, nr_full, budget_s, probe_div=32, **fields):
     """Kernel ms on all nr_full blocks (mean of 5), then `check_vs_plain`."""
     from optixpathtracer_tpu_torch.ops.traverse_cluster import BLOCK
 
     ms = cuda_ms(lambda: kern(nr_full), reps=5)
-    plain_ms, nr, err = check_vs_plain(name, kern, plain, nr_full, budget_s)
+    plain_ms, nr, err = check_vs_plain(name, kern, plain, nr_full, budget_s, probe_div)
     out = dict(ms=ms, plain_ms=plain_ms, rays=nr_full * BLOCK, plain_rays=nr * BLOCK,
                max_abs_err=err)
     emit("kernel_time", kernel=name, **out, **fields)
     return out
 
 
-def time_flat(cl, rays8, cr, cr_s, peak, wavefront, card):
+def time_flat(cl, rays8, cr, cr_s, peak, wavefront, card, budget_s=PLAIN_BUDGET_S, bound=True,
+              probe_div=32):
     """The flat walk's kernels on one wavefront of cluster set cl: K1 on the
     cluster boxes (rays8), K2 on cr (the CullResult of those rays) and K3 on
     cr_s (that of their shadow rays). Each kernel's time on all blocks,
-    bit-equality with its plain version on the blocks that fit
-    PLAIN_BUDGET_S, and its bound from the work these inputs need."""
+    bit-equality with its plain version on the blocks that fit budget_s,
+    and (bound=True) its bound from the work these inputs need."""
     from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
 
     c = cl.cluster_size
-    out = {"cull": cull_phase("cull", rays8, *cl.cull_tables, peak, PLAIN_BUDGET_S, wavefront, card)}
+    out = {"cull": cull_phase("cull", rays8, *cl.cull_tables, peak, budget_s, wavefront, card, bound)}
     cases = {
         "closest": (cr, lambda nr: tc.closest_sweep(cl.rows, cl.xf_inv, sub_cull(cr, nr), c)[:2],
                     lambda nr: tc._closest_torch(cl.rows, cl.xf_inv, sub_cull(cr, nr), c)),
@@ -489,8 +511,10 @@ def time_flat(cl, rays8, cr, cr_s, peak, wavefront, card):
                 lambda nr: (tc._any_torch(cl.rows, cl.xf_inv, sub_cull(cr_s, nr), c),)),
     }
     for name, (crx, kern, plain) in cases.items():
-        out[name] = time_vs_plain(name, kern, plain, crx.ids.shape[0], PLAIN_BUDGET_S,
+        out[name] = time_vs_plain(name, kern, plain, crx.ids.shape[0], budget_s, probe_div,
                                   wavefront=wavefront, card=card)
+        if not bound:
+            continue
         work = tc.sweep_work(cl.rows, cl.xf_inv, crx, c, any_hit=name == "any")
         out[name].update(work_bound(name, work, peak, out[name]["ms"], wavefront=wavefront, card=card),
                          library_ms=None)
@@ -597,26 +621,30 @@ def time_frames(renderer, frames):
     return times
 
 
-def drive_slice(phase, renderer, card, counts, flags=BENCH_FLAGS, **fields):
-    """The main path: one warm-up frame and 3 timed frames, with the kernel
-    launch counts set to 0 just before and read just after. Works for the
-    `Renderer` and the `FoveatedRenderer` alike."""
+SLICE_FRAME_S = {}  # phase -> median frame seconds of its `drive_slice`
+
+
+def drive_slice(phase, renderer, card, counts, flags=BENCH_FLAGS, frames=SLICE_FRAMES, **fields):
+    """The main path: one warm-up frame and `frames` timed frames, with the
+    kernel launch counts set to 0 just before and read just after. Works
+    for the `Renderer` and the `FoveatedRenderer` alike."""
     import torch
 
     cfg = renderer.config
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counts.clear()
-    times = time_frames(renderer, SLICE_FRAMES)
+    times = time_frames(renderer, frames)
     rays = int(renderer.last_rays if hasattr(renderer, "last_rays") else renderer.last_output.rays_traced)
     launches = dict(counts)
     img = renderer.accum_image()
     frame_s = float(np.median(times))
+    SLICE_FRAME_S[phase] = frame_s
     emit(phase, width=cfg.width, height=cfg.height, max_depth=cfg.max_depth, flags=flags,
          **fields,
          frame_s=frame_s, frame_times_s=times, frame_s_range=[min(times), max(times)], rays_traced=rays,
          mrays_per_s=rays / frame_s / 1e6, max_memory_allocated=torch.cuda.max_memory_allocated(),
-         launches=launches, launches_per_frame={k: v / (SLICE_FRAMES + 1) for k, v in launches.items()},
+         launches=launches, launches_per_frame={k: v / (frames + 1) for k, v in launches.items()},
          image_mean=float(img.mean()), card=card)
     if img.shape != (cfg.height, cfg.width, 3) or not np.isfinite(img).all() or not img.max() > 0:
         raise AssertionError(f"{phase}: the frame is not a finite, non-black "
@@ -680,15 +708,20 @@ def route_turns(renderer, counts, frames=3):
     return dict(turns=turns, node_s=med["node"], flat_s=med["flat"], node_wins=med["node"] < med["flat"])
 
 
-def profile_frame(phase, renderer):
+def profile_frame(phase, renderer, run=None, **fields):
     """One more frame under the profiler (not timed above): device busy time
-    by kernel, and the device's idle share of the frame."""
+    by kernel, and the device's idle share of the frame. `run` (default:
+    one frame of `renderer`) is what is profiled."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        renderer.render(download=False)
+        if run is None:
+            renderer.render(download=False)
+        else:
+            run()
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side entries only: the CPU-side op entries repeat their kernels'
     # device time
@@ -698,8 +731,27 @@ def profile_frame(phase, renderer):
     if busy <= 0:
         raise AssertionError(f"{phase}: the profiler recorded no device time: no idle share")
     top = sorted(events, key=_device_us, reverse=True)[:15]
-    emit(phase, wall_s=wall, device_busy_s=busy, idle_share=1.0 - busy / wall,
+    emit(phase, wall_s=wall, device_busy_s=busy, idle_share=1.0 - busy / wall, **fields,
          top=[{"name": e.key[:80], "ms": _device_us(e) / 1e3, "calls": e.count} for e in top])
+
+
+def profile_launch(phase, renderer):
+    """`profile_frame` of one launch of a `Renderer` frame: its first pixel
+    chunk of `dispatch_tiles`, all samples and bounces. A frame of seven
+    such launches is some 10^5 small device calls, whose trace alone takes
+    the profiler a minute and a half to read back."""
+    from optixpathtracer_tpu_torch.core.math import Vec3
+    from optixpathtracer_tpu_torch.engine import renderer as rmod
+    from optixpathtracer_tpu_torch.engine.wavefront import CameraParams
+
+    cfg = renderer.config
+    px, py = renderer.pixels
+    chunk = -(-px.shape[0] // max(1, cfg.dispatch_tiles))
+    acc = Vec3(*(c[:chunk] for c in renderer.accum))
+    cam = CameraParams.from_camera(renderer.camera, renderer.device)
+    profile_frame(phase, renderer, run=lambda: rmod._render_step(
+        renderer.cs, renderer.probe, cfg, cam, px[:chunk], py[:chunk], acc, renderer.subframe_index,
+        renderer.area_light), launch_pixels=chunk, launches_per_frame=cfg.dispatch_tiles)
 
 
 def worklist_vs_plain(hit, cull_lo, card):
@@ -1454,6 +1506,331 @@ def file_goldens(dev):
         check_golden("file_goldens", name, renders[name]())
 
 
+INST_GRID = 4  # `scenes.instanced_city_glb` tiles per side: 144 instances, ~2.4M world triangles
+INST_SPP = 4  # the CLI command's --spp
+INST_PLAIN_BUDGET_S = 3.0  # plain-version budget per kernel and wavefront on the instanced city
+GATE_T_TOL = 2e-4  # tests/test_tlas.py:99-101, instanced against baked
+GATE_N_TOL = 1e-4  # world normals of `_hit_geometry`, instanced against baked
+FUSED_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_fused_shadows.py:46
+CLI_TIMEOUT_S = 300
+METRIC_KEYS = {"i", "state_update_s", "render_s", "display_s", "cursor_x", "cursor_y", "t", "spp", "rays"}
+
+
+def _allocated_by(fn):
+    """(result of fn(), device bytes it left allocated)."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_allocated() - before
+
+
+def instanced_scene(tmp, dev):
+    """`scenes.instanced_city_glb(INST_GRID)` written to tmp and built twice:
+    `load_gltf_tlas` -> `compile_tlas(cluster_size=128)` (the CLI's
+    `--instanced` build, with its per-prototype tables) and `load_gltf` ->
+    `compile_scene` (the baked twin, the CLI's build without the flag)."""
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.builder import compile_scene, compile_tlas
+    from optixpathtracer_tpu_torch.io.gltf import load_gltf, load_gltf_tlas
+
+    path = os.path.join(tmp, "city_tiles.glb")
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        f.write(scenes.instanced_city_glb(INST_GRID))
+    glb_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hs_t, groups, instances, _ = load_gltf_tlas(path)
+    (cs_t, tables), tlas_bytes = _allocated_by(
+        lambda: compile_tlas(hs_t, groups, instances, dev, cluster_size=128, return_tables=True))
+    tlas_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hs_b, _ = load_gltf(path)
+    cs_b, baked_bytes = _allocated_by(lambda: compile_scene(hs_b, dev, leaf_size=8))
+    baked_s = time.perf_counter() - t0
+    cl = cs_t.clusters
+    stored = sum(len(np.asarray(m.indices).reshape(-1, 3)) for m in hs_t.meshes)
+    emit("instanced_scene", grid=INST_GRID, glb_bytes=os.path.getsize(path), glb_s=glb_s,
+         prototypes=len(groups), instances=len(instances), world_triangles=cs_t.num_triangles,
+         stored_triangles=stored, stored_slots=cl.rows.shape[0] * cl.rows.shape[2],
+         stored_superclusters=cl.rows.shape[0], entries=cl.num_entries, cluster_size=cl.cluster_size,
+         walk=walk_of(cl), tlas_build_s=tlas_s, tlas_device_bytes=tlas_bytes,
+         baked_triangles=cs_b.num_triangles, baked_entries=cs_b.clusters.num_entries,
+         baked_walk=walk_of(cs_b.clusters), baked_build_s=baked_s, baked_device_bytes=baked_bytes)
+    if walk_of(cl) != "node" or cs_b.num_triangles != cs_t.num_triangles:
+        raise AssertionError(f"instanced city: walk {walk_of(cl)}, {cs_t.num_triangles} world "
+                             f"triangles against {cs_b.num_triangles} baked")
+    return path, hs_t, groups, instances, cs_t, tables, hs_b, cs_b
+
+
+def instanced_exactness_gate(cs_t, cs_b, hs_b, cam, dev, n=8192):
+    """tests/test_tlas.py:82-101 at this scene's size: n mixed rays over the
+    grid through the instanced city (its own walk, the node walk, and the
+    flat walk) and through the baked twin; hit flags must agree on every
+    ray, t within GATE_T_TOL and the world normals `_hit_geometry` resolves
+    (shading normals on) within GATE_N_TOL. Returns the rays."""
+    import torch
+
+    from optixpathtracer_tpu_torch.engine import wavefront
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
+    og, dg = mixed_rays(cs_b, hs_b, cam, n, 42, dev)
+    ri = tc.closest_hit_cluster(cs_t.clusters, og, dg, 1e-3, 1e16)
+    rf = tc.closest_hit_cluster(cs_t.clusters, og, dg, 1e-3, 1e16, hier=False)
+    rb = tc.closest_hit_cluster(cs_b.clusters, og, dg, 1e-3, 1e16)
+    both = ri.hit & rb.hit
+    flags = int((ri.hit != rb.hit).sum())
+    t_bad = int((~torch.isclose(ri.t[both], rb.t[both], rtol=GATE_T_TOL, atol=GATE_T_TOL)).sum())
+    ni = wavefront._hit_geometry(cs_t, ri, dg, True)[0]
+    nb = wavefront._hit_geometry(cs_b, rb, dg, True)[0]
+    n_err = torch.stack([(a - b).abs() for a, b in zip(ni, nb)]).amax(0)[both]
+    n_bad = int((n_err > GATE_N_TOL).sum())
+    walks = int((ri.t != rf.t).sum())  # the walks visit in different orders: exact-t ties
+    ties = int(((ri.tri != rf.tri) & (ri.t == rf.t)).sum())  # may resolve to either triangle
+    emit("instanced_exactness_gate", rays=n, hits=int(both.sum()), hit_flag_mismatch=flags,
+         t_mismatch=t_bad, t_tol=GATE_T_TOL, max_t_rel_err=float(((ri.t[both] - rb.t[both]).abs()
+                                                               / rb.t[both].abs().clamp(min=1.0)).max()),
+         normal_mismatch=n_bad, normal_tol=GATE_N_TOL, max_normal_err=float(n_err.max()),
+         flat_vs_node_t_mismatch=walks, flat_vs_node_exact_t_ties=ties)
+    if flags or t_bad or n_bad or walks:
+        raise AssertionError(f"instanced exactness gate: {flags} hit flags, {t_bad} t, {n_bad} normals "
+                             f"differ from the baked twin; {walks} t between the walks")
+    return og, dg
+
+
+def tlas_update(cs_t, tables, hs_t, groups, instances, rays, dev):
+    """`update_tlas_transforms` to a second set of tile transforms (each tile
+    turned a further 90 degrees about y and moved by (7, 0, -5)) against a
+    fresh `compile_tlas` with those transforms: the same tri and t, bit for
+    bit, on `rays`, and the same `rows` tensor."""
+    import torch
+
+    from optixpathtracer_tpu_torch.builder import compile_tlas
+    from optixpathtracer_tpu_torch.bvh.clusters import update_tlas_transforms
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
+    turn = np.array([[0.0, 0, 1, 7], [0, 1, 0, 0], [-1, 0, 0, -5], [0, 0, 0, 1]])
+    moved_inst = [(p, turn @ m) for p, m in instances]
+    t0 = time.perf_counter()
+    moved = update_tlas_transforms(cs_t.clusters, tables, np.asarray([p for p, _ in moved_inst]),
+                                   np.stack([m for _, m in moved_inst]))
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fresh = compile_tlas(hs_t, groups, moved_inst, dev, cluster_size=128).clusters
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    og, dg = rays
+    r1 = tc.closest_hit_cluster(moved, og, dg, 1e-3, 1e16)
+    r2 = tc.closest_hit_cluster(fresh, og, dg, 1e-3, 1e16)
+    same_rows = moved.rows.data_ptr() == cs_t.clusters.rows.data_ptr()
+    tri_bad = int((r1.tri != r2.tri).sum())
+    t_bad = int((r1.t != r2.t).sum())
+    emit("tlas_update", rays=og.x.shape[0], hits=int(r1.hit.sum()), tri_mismatch=tri_bad,
+         t_mismatch=t_bad, rows_same_tensor=same_rows, update_s=update_s, rebuild_s=rebuild_s)
+    if tri_bad or t_bad or not same_rows or not int(r1.hit.sum()):
+        raise AssertionError(f"tlas_update: {tri_bad} tri and {t_bad} t differ from a fresh build; "
+                             f"rows kept: {same_rows}")
+
+
+def instanced_phases(tmp, dev, peak, card, counts):
+    """The instanced city through the CLI's own renderer (`cli.make_renderer`
+    at the CLI command's flags), its kernels against their plain versions
+    on both walks, the gates and the transform update. Returns (launches by
+    path, first-bounce kernel times by path, max_abs_err by kernel)."""
+    import torch
+
+    from optixpathtracer_tpu_torch import cli, scenes
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+    from optixpathtracer_tpu_torch.utils.config import CameraSpec, RunConfig
+
+    path, hs_t, groups, instances, cs_t, tables, hs_b, cs_b = instanced_scene(tmp, dev)
+    cl = cs_t.clusters
+    view = scenes.instanced_city_camera(WIDTH, HEIGHT, INST_GRID)
+    run = RunConfig(scene=path, instanced=True, width=WIDTH, height=HEIGHT, spp=INST_SPP,
+                    max_depth=DEPTH, camera=CameraSpec(eye=view.eye, lookat=view.lookat,
+                                                       up=view.up, fov_y=view.fov_y))
+    cam = cli.make_camera(run)
+    probe = cli._load_probe(run, dev)
+    renderer = cli.make_renderer(run, cs_t, probe, cam)
+    flags = dict(cli=True, dispatch_tiles=renderer.config.dispatch_tiles)
+    inst = drive_slice("instanced_slice", renderer, card, counts, flags=flags, spp=INST_SPP,
+                       walk=walk_of(cl), entries=cl.num_entries, instances=len(instances))
+    check_walk("the instanced slice", inst, "node")
+    profile_launch("instanced_profile", renderer)
+
+    # the rays the engine hands to its sweeps at the first and the second
+    # bounce of the first launch of a frame (one of dispatch_tiles pixel
+    # chunks, sample 0); the flat walk's bounds at the first bounce only
+    # (its counting walks over 2416 entries take tens of seconds)
+    calls = frame_calls(renderer, ("closest_hit_cluster", "any_hit_cluster"))
+    waves = {label: tuple(tuple(calls[name][depth][0][1:5]) for name in ("closest_hit_cluster", "any_hit_cluster"))
+             for depth, label in enumerate(("instanced first bounce (the engine's)",
+                                            "instanced second bounce (the engine's)"))}
+    del calls
+    nt = cl.node_tables
+    node_t, flat_t = {}, {}
+    for i, (label, ((o, d, t_min, t_max), (p, w, s_min, s_max))) in enumerate(waves.items()):
+        node_t[label] = {"cull": cull_phase("cull (node table)", tc._pack_rays8(cl, o, d, t_min, t_max),
+                                            nt.node_sph_t, nt.node_box_t, peak, INST_PLAIN_BUDGET_S,
+                                            label, card)}
+        node_t[label].update(time_hier(cl, tc.block_cull_nodes(cl, o, d, t_min, t_max),
+                                       tc.block_cull_nodes(cl, p, w, s_min, s_max), peak, label, card,
+                                       budget_s=INST_PLAIN_BUDGET_S))
+        flat_t[label] = time_flat(cl, tc._pack_rays8(cl, o, d, t_min, t_max),
+                                  tc.block_cull(cl, o, d, t_min, t_max), tc.block_cull(cl, p, w, s_min, s_max),
+                                  peak, label + ", flat walk", card, budget_s=INST_PLAIN_BUDGET_S,
+                                  bound=i == 0, probe_div=128)
+        torch.cuda.empty_cache()
+    del waves
+    pick = ("ms", "plain_ms", "bound_ms", "max_abs_err", "rays", "plain_rays")
+    emit("instanced_kernels", node_walk={lb: {k: {f: v.get(f) for f in pick} for k, v in t.items()}
+                                         for lb, t in node_t.items()},
+         flat_walk={lb: {k: {f: v.get(f) for f in pick} for k, v in t.items()} for lb, t in flat_t.items()},
+         bit_equal=True, card=card)
+    errs = {}
+    for t in (*node_t.values(), *flat_t.values()):
+        for k, v in t.items():
+            errs[k] = max(errs.get(k, 0.0), v["max_abs_err"])
+    with walk("flat"):
+        inst_flat = drive_slice("instanced_flat_slice", renderer, card, counts, flags=flags, frames=1,
+                                spp=INST_SPP, walk="flat", entries=cl.num_entries)
+    check_walk("the instanced flat slice", inst_flat, "flat")
+    del renderer
+    torch.cuda.empty_cache()
+
+    rays = instanced_exactness_gate(cs_t, cs_b, hs_b, cam, dev)
+    del cs_b, hs_b
+    torch.cuda.empty_cache()
+    tlas_update(cs_t, tables, hs_t, groups, instances, rays, dev)
+    first = next(iter(node_t))
+    return ({"instanced": inst, "instanced_flat": inst_flat},
+            {"instanced": node_t[first], "instanced_flat": flat_t[first]}, errs, path)
+
+
+def engine_options(cs, probe, dev, card, counts):
+    """The city slice (node walk, 1200x800 x 2 spp, depth 4, the bench's
+    flags) with fused_shadows off and on: images within FUSED_TOL and equal
+    `rays_traced`; fused launches no K4b and one K4a per bounce over 2n
+    rays. Then env_via_bsdf and nee_rr = 0.5 on the open scene at 96x64,
+    the card against the port's CPU render within SAMPLING_TOL. Returns the
+    fused slice's launches."""
+    import torch
+
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.builder import compile_scene
+    from optixpathtracer_tpu_torch.engine.renderer import Renderer
+    from optixpathtracer_tpu_torch.engine.wavefront import RenderConfig
+    from optixpathtracer_tpu_torch.models import make_disney_pt_renderer
+
+    out = {}
+    for fused in (False, True):
+        r = make_disney_pt_renderer(cs, probe, scenes.city_camera(WIDTH, HEIGHT), width=WIDTH,
+                                    height=HEIGHT, spp=SPP, max_depth=DEPTH, fused_shadows=fused,
+                                    **BENCH_FLAGS)
+        phase = "fused_shadows_slice" if fused else "unfused_shadows_slice"
+        launches = drive_slice(phase, r, card, counts, flags=dict(BENCH_FLAGS, fused_shadows=fused),
+                               spp=SPP, walk=walk_of(cs.clusters))
+        sweeps = [args[1].x.shape[0] for args, _ in frame_calls(r, ("closest_hit_cluster",))["closest_hit_cluster"]]
+        out[fused] = dict(launches=launches, img=r.accum_image(), rays=int(r.last_output.rays_traced),
+                          frame_s=SLICE_FRAME_S[phase], sweep_rays=sweeps,
+                          per_frame={k: v / (SLICE_FRAMES + 1) for k, v in launches.items()})
+        del r
+    off, on = out[False], out[True]
+    diff = float(np.abs(on["img"] - off["img"]).max())
+    lanes = WIDTH * HEIGHT * SPP
+    emit("engine_options", fused_frame_s=on["frame_s"], unfused_frame_s=off["frame_s"],
+         fused_launches_per_frame=on["per_frame"], unfused_launches_per_frame=off["per_frame"],
+         fused_sweep_rays=on["sweep_rays"], unfused_sweep_rays=off["sweep_rays"],
+         rays=[off["rays"], on["rays"]], max_abs_diff=diff, tol=FUSED_TOL, card=card)
+    if not (np.allclose(on["img"], off["img"], **FUSED_TOL) and on["rays"] == off["rays"]):
+        raise AssertionError(f"fused shadows differ from unfused: {diff}, rays {on['rays']} / {off['rays']}")
+    if (on["launches"].get("any_hier", 0) or not on["launches"].get("cull", 0)
+            or on["launches"].get("closest", 0) or on["per_frame"].get("closest_hier") != DEPTH + 1
+            or on["sweep_rays"] != [2 * lanes] * (DEPTH + 1)):
+        raise AssertionError(f"fused shadows: launches {on['per_frame']}, sweeps {on['sweep_rays']}")
+
+    w, h = 96, 64
+    rmse = {}
+    for name, opts in (("env_via_bsdf", dict(env_via_bsdf=True)), ("nee_rr", dict(nee_rr=0.5)),
+                       ("both_fused", dict(env_via_bsdf=True, nee_rr=0.5, fused_shadows=True))):
+        imgs = []
+        for d in (dev, torch.device("cpu")):
+            cfg = RenderConfig(width=w, height=h, samples_per_launch=2, max_depth=2,
+                               traversal="cluster", **opts, **BENCH_FLAGS)
+            r = Renderer(compile_scene(scenes.open_scene(), d), scenes.sky_probe(d), cfg,
+                         scenes.open_camera(w, h))
+            r.render_n(2)
+            imgs.append(r.accum_image())
+        rmse[name] = scenes.golden_rmse(*imgs)
+        if not (np.isfinite(imgs[0]).all() and imgs[0].max() > 0):
+            raise AssertionError(f"engine_options: {name} rendered no finite image")
+    emit("engine_options_card_vs_cpu", width=w, height=h, spp=2, max_depth=2, frames=2,
+         rmse_vs_cpu_port=rmse, tol=SAMPLING_TOL, card=card)
+    if max(rmse.values()) > SAMPLING_TOL:
+        raise AssertionError(f"engine_options: {rmse} above {SAMPLING_TOL}")
+    return on["launches"]
+
+
+_CHILD = """import json, runpy, sys
+sys.argv = ["optixpathtracer_tpu_torch"] + json.loads(sys.argv[1])
+rc = 0
+try:
+    runpy.run_module("optixpathtracer_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    rc = e.code or 0
+print("IMPORTED " + json.dumps([m for m in ("jax", "optixpathtracer_tpu", "PIL") if m in sys.modules]))
+sys.exit(rc)
+"""
+
+
+def cli_render(glb, tmp, card):
+    """`python -m optixpathtracer_tpu_torch render` as a user types it, in a
+    child process each: the instanced city (the tentpole command, 2 frames,
+    --metrics) and the loft with --denoise. Each must exit 0 and write a
+    finite, not black PNG of its size that the port's decoder reads; the
+    metrics file one row per frame with the reference's keys; and neither
+    child may import jax, the JAX package or PIL."""
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.io.image import read_rgb8
+
+    metrics = os.path.join(tmp, "m.jsonl")
+    runs = {
+        "instanced_city": (["render", "--scene", glb, "--instanced", "--width", str(WIDTH), "--height",
+                            str(HEIGHT), "--spp", str(INST_SPP), "--max-depth", str(DEPTH), "--frames", "2",
+                            "--metrics", metrics, "--out", os.path.join(tmp, "i.png")], 2),
+        "loft_denoise": (["render", "--scene", scenes.LOFT_OBJ, "--emission-all-bounces", "--spp", "2",
+                          "--denoise", "--out", os.path.join(tmp, "l.png")], None),
+    }
+    for name, (argv, frames) in runs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _CHILD, json.dumps(argv)], cwd=REPO,
+                              capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        imported = [json.loads(ln.split(" ", 1)[1]) for ln in proc.stdout.splitlines()
+                    if ln.startswith("IMPORTED ")]
+        out = argv[argv.index("--out") + 1]
+        img = read_rgb8(out) if proc.returncode == 0 and os.path.exists(out) else None
+        rows = []
+        if frames:
+            with open(metrics) as f:
+                rows = [json.loads(ln) for ln in f if ln.strip()]
+        emit("cli_render", run=name, argv=argv, returncode=proc.returncode, wall_s=wall,
+             shape=None if img is None else list(img.shape), image_mean=None if img is None else float(img.mean()),
+             metrics_rows=len(rows), imported=imported, stdout_tail=proc.stdout[-400:],
+             stderr_tail=proc.stderr[-800:], card=card)
+        if proc.returncode != 0 or img is None:
+            raise AssertionError(f"cli_render {name}: exit {proc.returncode}: {proc.stderr[-2000:]}")
+        if img.shape != (HEIGHT, WIDTH, 3) or not img.max() > 0:
+            raise AssertionError(f"cli_render {name}: image {img.shape}, max {img.max()}")
+        if imported != [[]]:
+            raise AssertionError(f"cli_render {name}: the child imported {imported}")
+        if frames and (len(rows) != frames or any(set(r) != METRIC_KEYS for r in rows)):
+            raise AssertionError(f"cli_render {name}: metrics rows {rows}")
+
+
 def main() -> int:
     import torch
 
@@ -1596,6 +1973,10 @@ def main() -> int:
          **route_turns(renderer, tc.launch_counts), card=card)
     del renderer, o, d, cr, cr_s
     torch.cuda.empty_cache()
+    # ---- the engine's last options: fused shadows on the city, env_via_bsdf
+    # and nee_rr on the open scene
+    fused_launches = engine_options(cs, probe, dev, card, tc.launch_counts)
+    torch.cuda.empty_cache()
 
     # ---- sv4 on the city: 3840x2160 in three launches (PERF.md §4's
     # configuration), the preset's default route there (fused=None: one
@@ -1645,6 +2026,14 @@ def main() -> int:
     cornell_launches = cornell_slice(dev, card, tc.launch_counts)
     file_goldens(dev)
     torch.cuda.empty_cache()
+
+    # ---- the instanced city (TLAS) through the CLI's renderer, and the CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        inst_runs, inst_t, inst_errs, glb = instanced_phases(tmp, dev, peak, card, tc.launch_counts)
+        for name, e in inst_errs.items():
+            errs[name] = max(errs[name], e)
+        torch.cuda.empty_cache()
+        cli_render(glb, tmp, card)
 
     # ---- the gather probe (K6) -------------------------------------------
     g_launches, g_timing = gather_probe_phase(dev, card)
@@ -1781,7 +2170,8 @@ def main() -> int:
     profile_frame("big_profile", renderer)
 
     runs = {"slice": city, "flat_slice": flat_city, **fov_runs, **quality_runs, "loft": loft_launches,
-            "cornell": cornell_launches, "big_slice": big_launches}
+            "cornell": cornell_launches, **inst_runs, "fused_shadows": fused_launches,
+            "big_slice": big_launches}
     for run in runs.values():
         for name, k in run.items():
             launches[name] = launches.get(name, 0) + k
@@ -1789,7 +2179,8 @@ def main() -> int:
     # the city's main path (the node walk), K2 and K3 on the flat city
     # slice; `paths` gives each path's launches and, where its first bounce
     # was timed, the kernel's ms there
-    timed_at = {"slice": city_t, "flat_slice": flat_t, "loft": loft_t["first bounce"], "big_slice": big_t}
+    timed_at = {"slice": city_t, "flat_slice": flat_t, "loft": loft_t["first bounce"], **inst_t,
+                "big_slice": big_t}
     timing.update(flat_t, **city_t)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": KERNELS[name],

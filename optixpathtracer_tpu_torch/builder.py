@@ -1,10 +1,15 @@
 """Scene compilation: host meshes -> (device SceneData, ClusterSet).
 
-Port of optixpathtracer_tpu/builder.py `compile_scene`, cluster path only:
+Port of optixpathtracer_tpu/builder.py, cluster path only. `compile_scene`:
 the LBVH Morton order orders the shading soup, a treelet repacking orders
 the clusters, and `tri_map` translates cluster slots back to scene
-triangles. `bvh` and `wide` (the lockstep and BFS backends) are None: the
-port does not carry those backends (ROADMAP "not to port").
+triangles. `compile_instanced` / `compile_tlas`: each prototype is stored
+once in local space, in treelet order and padded with its last triangle to
+the SUPER * cluster_size slot granule; the scene arrays are in slot order,
+so there is no `tri_map`, and `engine/wavefront._hit_geometry` resolves a
+hit's entry slot to (triangle, instance). `bvh` and `wide` (the lockstep and
+BFS backends) are None: the port does not carry those backends (ROADMAP
+"not to port").
 """
 from __future__ import annotations
 
@@ -13,7 +18,15 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .bvh.clusters import ClusterSet, build_clusters, treelet_order
+from .bvh.clusters import (
+    SUPER,
+    ClusterSet,
+    _cluster_tables_np,
+    build_clusters,
+    build_instanced_clusters,
+    build_tlas_clusters,
+    treelet_order,
+)
 from .bvh.lbvh import build_bvh
 from .core.scene import HostScene, SceneData, device_scene_from_sorted
 
@@ -54,3 +67,69 @@ def compile_scene(
     )
     return CompiledScene(scene=scene, bvh=None, num_triangles=len(v0),
                          wide=None, clusters=clusters)
+
+
+def _slot_order(ctr: np.ndarray, ids: np.ndarray, cluster_size: int) -> tuple[np.ndarray, int]:
+    """Treelet order of the triangles `ids` (centroids `ctr`), padded with
+    its last triangle to whole SUPER * cluster_size slot blocks (a duplicate
+    yields identical hits, never wrong ones). Returns (order, padded count)."""
+    slot = SUPER * int(cluster_size)
+    t = len(ids)
+    pad_to = max(slot, -(-t // slot) * slot)
+    order = ids[treelet_order(ctr, cluster_size)]
+    if pad_to > t:
+        order = np.concatenate([order, np.repeat(order[-1:], pad_to - t)])
+    return order, pad_to
+
+
+def compile_instanced(host: HostScene, transforms: np.ndarray, device,
+                      cluster_size: int = 128) -> CompiledScene:
+    """One prototype (all of `host`), stored once in local space, under the
+    (I, 4, 4) local->world `transforms`. Move the instances later with
+    `bvh.clusters.update_instance_transforms` (no geometry rebuild)."""
+    flat = host.flatten()
+    v0, v1, v2 = flat["v"]
+    t = len(v0)
+    ctr = (np.asarray(v0, np.float64) + v1 + v2) / 3.0
+    order, pad_to = _slot_order(ctr, np.arange(t), cluster_size)
+    scene = device_scene_from_sorted(flat, order, pad_to, device)
+    clusters = build_instanced_clusters(
+        np.asarray(v0)[order], np.asarray(v1)[order], np.asarray(v2)[order], num_real=pad_to,
+        transforms=np.asarray(transforms), device=device, cluster_size=cluster_size)
+    return CompiledScene(scene=scene, bvh=None, num_triangles=t * len(np.asarray(transforms)),
+                         wide=None, clusters=clusters)
+
+
+def compile_tlas(host: HostScene, groups: list, instances: list, device,
+                 cluster_size: int = 128, return_tables: bool = False):
+    """Several prototypes under one TLAS. `host` holds every prototype's
+    meshes (one material and texture table); `groups` lists each
+    prototype's `host.meshes` indices; `instances` are (prototype,
+    (4, 4) local->world) pairs. The scene's slots are the prototypes'
+    padded slot ranges end to end. With return_tables=True also returns
+    the prototypes' local tables, for `bvh.clusters.update_tlas_transforms`."""
+    flat = host.flatten()
+    v0, v1, v2 = (np.asarray(flat["v"][k]) for k in range(3))
+    counts = [len(np.asarray(m.indices).reshape(-1, 3)) for m in host.meshes]
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+
+    orders, tables, real_counts = [], [], []
+    for meshes in groups:
+        gids = np.concatenate([np.arange(starts[mi], starts[mi + 1]) for mi in meshes])
+        if len(gids) == 0:
+            raise ValueError("empty prototype group")
+        ctr = (v0[gids].astype(np.float64) + v1[gids] + v2[gids]) / 3.0
+        op, pad_to = _slot_order(ctr, gids, cluster_size)
+        orders.append(op)
+        real_counts.append(len(gids))
+        tables.append(_cluster_tables_np(v0[op], v1[op], v2[op], pad_to, cluster_size))
+
+    order = np.concatenate(orders)
+    scene = device_scene_from_sorted(flat, order, len(order), device)
+    inst_proto = np.asarray([p for p, _ in instances], np.int64)
+    xfs = np.stack([np.asarray(m, np.float64) for _, m in instances])
+    clusters = build_tlas_clusters(tables, inst_proto, xfs, device, cluster_size=cluster_size)
+    cs = CompiledScene(scene=scene, bvh=None,
+                       num_triangles=int(sum(real_counts[p] for p in inst_proto)),
+                       wide=None, clusters=clusters)
+    return (cs, tables) if return_tables else cs

@@ -1,12 +1,21 @@
 """Triangle clusters — the acceleration structure of the cluster traversal
-(port of optixpathtracer_tpu/bvh/clusters.py, non-instanced path).
+(port of optixpathtracer_tpu/bvh/clusters.py).
 
 CLUSTER: C consecutive triangles of the treelet order, stored pre-differenced
 as rows [v0 | e1 | e2] with an AABB (center, half extent) and a bounding
 sphere. SUPERCLUSTER: SUPER consecutive clusters, the unit the per-block
 cull sorts and the sweep walks ("entries"). The host build is the
 reference's numpy code, so every table is bit-identical to the JAX build's
-numpy path. Instancing and the TLAS wait for ROADMAP A.9.
+numpy path.
+
+INSTANCING (the original's per-mesh GAS pool plus IAS, the cluster way):
+the triangle rows of each prototype are stored once in local space; every
+(instance, prototype supercluster) pair is an ENTRY with world-space bounds,
+the row index of its supercluster and a transform id. The sweeps move each
+ray into the instance's frame per entry (`xf_inv`); shading moves vertices
+out with `xf_fwd` and normals with `xf_invt`. A non-instanced set is the
+identity special case. `update_tlas_transforms` / `update_instance_transforms`
+replace only the entry tables and the transforms, never `rows`.
 """
 from __future__ import annotations
 
@@ -182,11 +191,13 @@ def _cluster_tables_np(sorted_v0, sorted_v1, sorted_v2, num_real, cluster_size):
     # group SUPER consecutive clusters' columns into one row block
     rows = rows.reshape(s, SUPER, STORE_ROWS, c).transpose(0, 2, 1, 3)
     rows = rows.reshape(s, STORE_ROWS, SUPER * c)
+    lo6 = np.concatenate([scene_aabb[0:3], scene_aabb[3:6]])
     return dict(rows=rows, spheres=spheres, super_spheres=super_spheres,
-                scene_aabb=scene_aabb)
+                scene_aabb=scene_aabb, local_aabb=lo6)
 
 
-def cluster_set_from_numpy(tables: dict, cluster_size: int, device) -> ClusterSet:
+def cluster_set_from_numpy(tables: dict, cluster_size: int, device,
+                           instanced: bool = False) -> ClusterSet:
     """ClusterSet on `device` from host tables (`_cluster_tables_np` output,
     plus optional entry_row/entry_xf/xf_*/tri_map arrays)."""
 
@@ -210,6 +221,7 @@ def cluster_set_from_numpy(tables: dict, cluster_size: int, device) -> ClusterSe
         xf_fwd=up("xf_fwd", np.float32, ident),
         xf_invt=up("xf_invt", np.float32, ident),
         cluster_size=int(cluster_size),
+        instanced=bool(instanced),
         tri_map=None if tm is None else up("tri_map", np.int32),
     )
 
@@ -233,3 +245,175 @@ def build_clusters(
         full[: len(tri_map)] = np.asarray(tri_map, np.int32)
         tb["tri_map"] = full
     return cluster_set_from_numpy(tb, cluster_size, device)
+
+
+def _pack_xf(mat3: np.ndarray, trans: np.ndarray | None) -> np.ndarray:
+    """(I, 16) f32 transform rows [A row-major 9 | b 3 | pad 4]."""
+    i_n = mat3.shape[0]
+    out = np.zeros((i_n, 16), np.float32)
+    out[:, 0:9] = mat3.reshape(i_n, 9)
+    if trans is not None:
+        out[:, 9:12] = trans
+    return out
+
+
+def _xf_tables(a: np.ndarray, b: np.ndarray) -> dict:
+    """xf_inv / xf_fwd / xf_invt of (I, 3, 3) matrices and (I, 3) offsets."""
+    a_inv = np.linalg.inv(a)
+    b_inv = -np.einsum("iab,ib->ia", a_inv, b)
+    return dict(xf_inv=_pack_xf(a_inv, b_inv), xf_fwd=_pack_xf(a, b),
+                xf_invt=_pack_xf(np.linalg.inv(a).transpose(0, 2, 1), None))
+
+
+def _padded_aabb(wlo: np.ndarray, whi: np.ndarray) -> np.ndarray:
+    pad_abs = 1e-5 * max(1.0, float(np.abs(np.concatenate([wlo, whi])).max()))
+    aabb = np.zeros(8, np.float32)
+    aabb[0:3] = wlo - pad_abs
+    aabb[3:6] = whi + pad_abs
+    return aabb
+
+
+def _aabb_corners(local_aabb: np.ndarray) -> np.ndarray:
+    lo, hi = local_aabb[0:3], local_aabb[3:6]
+    return np.array([[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+                     for z in (lo[2], hi[2])])  # (8, 3)
+
+
+def _entry_tables(tb: dict, transforms: np.ndarray) -> dict:
+    """World-space per-instance entry tables of one prototype's local
+    tables. transforms: (I, 4, 4) local->world. Conservative world bounds:
+    sphere radius scaled by each matrix's largest singular value (and
+    1 + 1e-6), half extents by |A|. Entries are instance-major."""
+    xf = np.asarray(transforms, np.float64)
+    i_n = xf.shape[0]
+    a = xf[:, :3, :3]
+    b = xf[:, :3, 3]
+    sigma = np.linalg.svd(a, compute_uv=False)[:, 0]  # (I,)
+
+    def world_spheres(local):  # (G, 8) -> (I*G, 8), instance-major
+        ctr = local[:, 0:3]
+        cw = np.einsum("iab,gb->iga", a, ctr) + b[:, None, :]
+        rw = local[None, :, 3] * sigma[:, None] * (1.0 + 1e-6)
+        hw = np.einsum("iab,gb->iga", np.abs(a), local[:, 4:7])
+        g = local.shape[0]
+        out = np.zeros((i_n * g, 8), np.float32)
+        out[:, 0:3] = cw.reshape(-1, 3)
+        out[:, 3] = rw.reshape(-1)
+        out[:, 4:7] = hw.reshape(-1, 3)
+        return out
+
+    wc = np.einsum("iab,gb->iga", a, _aabb_corners(tb["local_aabb"])) + b[:, None, :]
+    sn = tb["super_spheres"].shape[0]
+    return dict(
+        spheres=world_spheres(tb["spheres"]),
+        super_spheres=world_spheres(tb["super_spheres"]),
+        scene_aabb=_padded_aabb(wc.reshape(-1, 3).min(axis=0), wc.reshape(-1, 3).max(axis=0)),
+        entry_row=np.tile(np.arange(sn, dtype=np.int32), i_n),
+        entry_xf=np.repeat(np.arange(i_n, dtype=np.int32), sn),
+        **_xf_tables(a, b),
+    )
+
+
+def _instance_world_tables(tbs: list, inst_proto: np.ndarray, transforms: np.ndarray) -> dict:
+    """TLAS entry tables over several prototypes: tbs are the prototypes'
+    local tables, inst_proto (I,) each instance's prototype, transforms
+    (I, 4, 4) local->world. Entries are instance-major (every supercluster
+    of instance 0, then of instance 1, ...); `_entry_tables` is the
+    one-prototype case."""
+    xf = np.asarray(transforms, np.float64)
+    i_n = xf.shape[0]
+    inst_proto = np.asarray(inst_proto, np.int64)
+    a = xf[:, :3, :3]
+    b = xf[:, :3, 3]
+    sigma = np.linalg.svd(a, compute_uv=False)[:, 0]  # (I,)
+    row_off = np.concatenate([[0], np.cumsum([tb["rows"].shape[0] for tb in tbs])]).astype(np.int64)
+
+    esph, esup, erow, exf = [], [], [], []
+    wlo = np.full(3, np.inf)
+    whi = np.full(3, -np.inf)
+    for i in range(i_n):
+        p = int(inst_proto[i])
+        tb = tbs[p]
+        ai, bi, si = a[i], b[i], sigma[i]
+
+        def ws(local, ai=ai, bi=bi, si=si):  # (G, 8) local -> (G, 8) world
+            out = np.zeros((local.shape[0], 8), np.float32)
+            out[:, 0:3] = local[:, 0:3] @ ai.T + bi
+            out[:, 3] = local[:, 3] * si * (1.0 + 1e-6)
+            out[:, 4:7] = local[:, 4:7] @ np.abs(ai).T
+            return out
+
+        esph.append(ws(tb["spheres"]))
+        esup.append(ws(tb["super_spheres"]))
+        sn = tb["super_spheres"].shape[0]
+        erow.append(row_off[p] + np.arange(sn, dtype=np.int64))
+        exf.append(np.full(sn, i, np.int32))
+        wc = _aabb_corners(tb["local_aabb"]) @ ai.T + bi
+        wlo = np.minimum(wlo, wc.min(axis=0))
+        whi = np.maximum(whi, wc.max(axis=0))
+
+    return dict(
+        spheres=np.concatenate(esph, axis=0),
+        super_spheres=np.concatenate(esup, axis=0),
+        scene_aabb=_padded_aabb(wlo, whi),
+        entry_row=np.concatenate(erow).astype(np.int32),
+        entry_xf=np.concatenate(exf),
+        **_xf_tables(a, b),
+    )
+
+
+def build_instanced_clusters(
+    sorted_v0: np.ndarray,
+    sorted_v1: np.ndarray,
+    sorted_v2: np.ndarray,
+    num_real: int,
+    transforms: np.ndarray,
+    device,
+    cluster_size: int = 128,
+) -> ClusterSet:
+    """Instanced ClusterSet on `device`: one prototype's rows stored once in
+    local space, one entry per (instance, supercluster) with world bounds
+    and a transform id. Move the instances with `update_instance_transforms`."""
+    tb = _cluster_tables_np(sorted_v0, sorted_v1, sorted_v2, num_real, cluster_size)
+    et = _entry_tables(tb, transforms)
+    return cluster_set_from_numpy(dict(et, rows=tb["rows"]), cluster_size, device, instanced=True)
+
+
+def build_tlas_clusters(
+    proto_tables: list,
+    inst_proto: np.ndarray,
+    transforms: np.ndarray,
+    device,
+    cluster_size: int = 128,
+) -> ClusterSet:
+    """TLAS ClusterSet on `device`: a pool of prototype row blocks (each
+    prototype's `_cluster_tables_np`, stored once) and one entry per
+    (instance, prototype supercluster). Move the instances with
+    `update_tlas_transforms`."""
+    rows = np.concatenate([tb["rows"] for tb in proto_tables], axis=0)
+    et = _instance_world_tables(proto_tables, inst_proto, transforms)
+    return cluster_set_from_numpy(dict(et, rows=rows), cluster_size, device, instanced=True)
+
+
+_MOVED = ("spheres", "super_spheres", "scene_aabb", "xf_inv", "xf_fwd", "xf_invt")
+
+
+def _moved(cs: ClusterSet, et: dict) -> ClusterSet:
+    """cs with new entry bounds and transforms; rows, entry_row and entry_xf
+    stay the same tensors."""
+    dev = cs.rows.device
+    return dataclasses.replace(cs, **{
+        k: torch.as_tensor(np.array(et[k], np.float32), device=dev) for k in _MOVED})
+
+
+def update_tlas_transforms(cs: ClusterSet, proto_tables: list, inst_proto: np.ndarray,
+                           transforms: np.ndarray) -> ClusterSet:
+    """New per-instance transforms over the same prototype rows."""
+    return _moved(cs, _instance_world_tables(proto_tables, inst_proto, transforms))
+
+
+def update_instance_transforms(cs: ClusterSet, local_tables: dict,
+                               transforms: np.ndarray) -> ClusterSet:
+    """New transforms of a `build_instanced_clusters` set, same geometry:
+    only the entry bounds and the transform tables are rebuilt."""
+    return _moved(cs, _entry_tables(local_tables, transforms))

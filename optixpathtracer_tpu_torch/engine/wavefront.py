@@ -11,8 +11,17 @@ and "sobol" replace the AA, NEE and BSDF pairs with low-discrepancy ones
 (`_ld_bases`, `_sobol_pair`) after the stream has drawn them, so the
 stream advances alike under every strategy.
 
-The options not ported yet raise NotImplementedError naming the ROADMAP
-item that ports them (see `_check_supported`).
+`fused_shadows` defers each bounce's NEE shadow ray to the next bounce's
+closest-hit sweep, one sweep of 2n rays (the radiance rays at `t_min`, the
+pending shadow rays at `shadow_t_min`), plus one flush iteration;
+`env_via_bsdf` adds the probe on BSDF-sampled misses, MIS-weighted against
+the probe NEE; `nee_rr` schedules shadow rays by Russian roulette on their
+potential contribution. Instanced scenes (`ClusterSet.instanced`) resolve
+each hit's entry slot to its prototype triangle and instance in
+`_hit_geometry`.
+
+The options not ported raise NotImplementedError naming their ROADMAP item
+(see `_check_supported`).
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import numpy as np
 import torch
 
 from ..builder import CompiledScene
+from ..bvh.clusters import SUPER
 from ..core.materials import MATERIAL_FLAG_SHADOW_CATCHER
 from ..core.math import (
     Vec3,
@@ -39,7 +49,7 @@ from ..core.rng import M32, RngState, as_i32_bits, randf, randf2, tea
 from ..core.sampling import projective_blue_noise
 from ..core.sobol import _u32_to_unit, sobol02_point
 from ..lights.lights import QuadLight, sample_parallelogram
-from ..lights.probe import Probe, dir_to_uv, probe_eval, probe_sample
+from ..lights.probe import Probe, dir_to_uv, probe_eval, probe_eval_dir, probe_pdf, probe_sample
 from ..ops.traverse_cluster import any_hit_cluster, closest_hit_cluster
 from ..shade import disney
 
@@ -82,11 +92,8 @@ class RenderConfig:
 
 
 def _check_supported(cfg: RenderConfig, **extras) -> None:
-    """Raise for options whose port is a later ROADMAP item."""
+    """Raise for options the port does not carry or ports later."""
     off = {
-        "fused_shadows": (cfg.fused_shadows, "A.5"),
-        "env_via_bsdf": (cfg.env_via_bsdf, "A.5"),
-        "nee_rr": (cfg.nee_rr > 0.0, "A.5"),
         f"traversal={cfg.traversal!r}": (cfg.traversal != "cluster", "A 'not to port'"),
         "demand_pool": (extras.get("demand_pool") is not None, "A.11"),
     }
@@ -124,19 +131,43 @@ class SampleOutput(NamedTuple):
     bfs_overflow: Tensor  # scalar, always 0 (the cluster backend is exact)
 
 
+def _xf_apply(xf: Tensor, p: Vec3, offset: bool) -> Vec3:
+    """Rows [A row-major 9 | b 3 | pad] applied to p, in the reference's
+    expression order; offset=False drops b (directions, normals)."""
+
+    def row(r):
+        e = xf[:, 3 * r] * p.x + xf[:, 3 * r + 1] * p.y + xf[:, 3 * r + 2] * p.z
+        return e + xf[:, 9 + r] if offset else e
+
+    return Vec3(row(0), row(1), row(2))
+
+
 def _hit_geometry(cs: CompiledScene, rec, ray_dir: Vec3, use_shading: bool):
     """Per-hit normal, material and albedo (the SBT-record stage): the
     albedo is the bilinear texture fetch at the hit's interpolated uv where
-    the material has a texture, else its color."""
-    if cs.clusters is not None and cs.clusters.instanced:
-        raise NotImplementedError("instanced scenes are ROADMAP A.9")
+    the material has a texture, else its color. On an instanced set the hit
+    is an entry slot: it resolves to its prototype's triangle, whose
+    vertices move to world space with `xf_fwd` and whose shading normal
+    with `xf_invt` (before the normalisation and the faceforward)."""
     scene = cs.scene
+    cl = cs.clusters
+    instanced = cl is not None and cl.instanced
     tri = torch.clamp(rec.tri, min=0).to(torch.int64)
+    if instanced:
+        slot_w = cl.cluster_size * SUPER
+        eid = tri // slot_w
+        tri = cl.entry_row[eid].to(torch.int64) * slot_w + tri % slot_w
+        inst = cl.entry_xf[eid].to(torch.int64)
+        fwd, invt = cl.xf_fwd[inst], cl.xf_invt[inst]
     v0, v1, v2, sn0, sn1, sn2, uv6, mat_id, has = scene.take_shade(tri)
+    if instanced:
+        v0, v1, v2 = (_xf_apply(fwd, v, True) for v in (v0, v1, v2))
     n_geom = normalize(cross(v1 - v0, v2 - v0))
     if use_shading:
         w0 = 1.0 - rec.u - rec.v
         ns = sn0 * w0 + sn1 * rec.u + sn2 * rec.v
+        if instanced:
+            ns = _xf_apply(invt, ns, False)
         n = normalize(where(has, ns, n_geom))
     else:
         n = n_geom
@@ -349,18 +380,37 @@ def _any_hit_sorted(cs: CompiledScene, cfg: RenderConfig, o: Vec3, d: Vec3, t_mi
     return occ_u, ovf
 
 
-def _nee(cs, probe, cfg, p, n, wo, mat, albedo, eta_i, eta_o, active, state, u12=None):
+def _nee_rr(cfg: RenderConfig, state, throughput: Vec3, contrib: Vec3, valid: Tensor):
+    """Russian-roulette shadow-ray scheduling (`nee_rr`, unbiased): a
+    sample survives with p = clamp(lum(throughput * contrib) / nee_rr,
+    0.05, 1) and is scaled by 1/p. One `randf` from the lane's stream.
+    Returns (state, contrib, valid)."""
+    lum = luminance(throughput * contrib)
+    # a device divisor: CUDA takes x / (Python float) as x * (1 / float)
+    p_surv = torch.clamp(lum / torch.tensor(cfg.nee_rr, dtype=torch.float32, device=lum.device),
+                         0.05, 1.0)
+    state, u = randf(state)
+    return state, contrib * (1.0 / p_surv), valid & (u < p_surv)
+
+
+def _nee(cs, probe, cfg, p, n, wo, mat, albedo, eta_i, eta_o, active, state, throughput=None,
+         u12=None):
     """NEE with immediate visibility. Returns (state, lit, shadowed, traced):
     every shaded hit traces its shadow ray, even an invalid sample
-    (deviceProgram.cu:264-277 traces before checking pdfs)."""
+    (deviceProgram.cu:264-277 traces before checking pdfs); under `nee_rr`
+    only the surviving valid samples trace."""
     state, wi, contrib, valid = _nee_sample(probe, cfg, n, wo, mat, albedo, eta_i, eta_o, state,
                                             u12=u12)
-    t_max = torch.where(active, cfg.t_max, 0.0)
+    traced = active
+    if cfg.nee_rr > 0.0:
+        state, contrib, valid = _nee_rr(cfg, state, throughput, contrib, valid)
+        traced = active & valid
+    t_max = torch.where(traced, cfg.t_max, 0.0)
     occluded, _ = _any_hit_sorted(cs, cfg, p, wi, cfg.shadow_t_min, t_max)
     zero = Vec3(*(torch.zeros_like(valid, dtype=torch.float32),) * 3)
     lit = where(valid & ~occluded, contrib, zero)
     shadowed = where(valid & occluded, contrib, zero)
-    return state, lit, shadowed, active
+    return state, lit, shadowed, traced
 
 
 def _quad_nee(cs, cfg, light: QuadLight, p, n, wo, mat, albedo, eta_i, eta_o, active, state):
@@ -529,13 +579,36 @@ def trace_wavefront(
             return state, (path[keys[0]] + j1 * ld_scale, path[keys[1]] + j2 * ld_scale)
         return state, (j1, j2)
 
+    fused = cfg.fused_shadows
+
     def bounce_body(depth: int, path: dict, skip_nee: bool = False) -> dict:
         if sorting:
             key = _coherence_key(path["o"], path["d"], path["done"], cs.clusters.scene_aabb)
             path = _sort_path(path, key)
-        active = ~path["done"]  # depth <= max_depth on every iteration here
+        # past max_depth (fused mode's flush iteration) only the pending
+        # shadow rays are traced
+        active = ~path["done"] if depth <= cfg.max_depth else no
         t_max = torch.where(active, cfg.t_max, 0.0)
-        rec = closest_hit_cluster(cs.clusters, path["o"], path["d"], cfg.t_min, t_max)
+        if fused:
+            # one sweep: this bounce's radiance rays and the previous
+            # bounce's NEE shadow rays, at their own t_min
+            sh_tmax = torch.where(path["pend_valid"], cfg.t_max, 0.0)
+            o2 = Vec3(*(torch.cat([a, b]) for a, b in zip(path["o"], path["sh_o"])))
+            d2 = Vec3(*(torch.cat([a, b]) for a, b in zip(path["d"], path["sh_d"])))
+            t_min2 = torch.cat([torch.full((n,), cfg.t_min, device=dev),
+                                torch.full((n,), cfg.shadow_t_min, device=dev)])
+            rec2 = closest_hit_cluster(cs.clusters, o2, d2, t_min2, torch.cat([t_max, sh_tmax]))
+            rec = type(rec2)(*(a[:n] for a in rec2))
+            occluded = rec2.tri[n:] >= 0
+            # the deferred NEE visibility, resolved
+            pv, pc = path["pend_valid"], path["pend_catcher"]
+            path = dict(
+                path,
+                radiance=path["radiance"] + where(pv & ~pc & ~occluded, path["pend_contrib"], zero),
+                alpha=path["alpha"] + where(pv & pc & occluded, path["pend_contrib"], zero),
+            )
+        else:
+            rec = closest_hit_cluster(cs.clusters, path["o"], path["d"], cfg.t_min, t_max)
         hit = rec.hit & active
 
         n_hit, mat, albedo = _hit_geometry(cs, rec, path["d"], cfg.use_shading_normals)
@@ -559,11 +632,32 @@ def trace_wavefront(
         plain = shaded & ~is_catcher
         catcher_primary = shaded & is_catcher
         ones = Vec3(*(torch.ones_like(zf),) * 3)
+        pend = {}
         if skip_nee:
             # peeled final bounce (nee_final_bounce=False): the reference
             # discards this sweep's NEE anyway, so neither sample nor trace
             state = path["state"]
             shadow_traced = no
+            if fused:
+                pend = dict(sh_o=p_hit, sh_d=path["d"], pend_contrib=zero, pend_valid=no,
+                            pend_catcher=no)
+            radiance = path["radiance"]
+            alpha = where(plain, ones, path["alpha"])
+        elif fused:
+            # sample the NEE now; its shadow ray rides the next sweep
+            state, u12 = path["state"], None
+            if ld:
+                state, u12 = ld_pair(depth, path, state, ("ld_n1", "ld_n2"), _LD_SALT_NEE)
+            state, wi, contrib, nee_valid = _nee_sample(
+                probe, cfg, n_hit, wo, mat, albedo, path["eta"], eta_o, state, u12=u12)
+            shadow_traced = shaded
+            if cfg.nee_rr > 0.0:
+                state, contrib, nee_valid = _nee_rr(cfg, state, path["throughput"], contrib,
+                                                    nee_valid)
+                shadow_traced = shaded & nee_valid
+            pend = dict(sh_o=p_hit, sh_d=wi,
+                        pend_contrib=where(nee_valid, path["throughput"] * contrib, zero),
+                        pend_valid=shadow_traced, pend_catcher=catcher_primary)
             radiance = path["radiance"]
             alpha = where(plain, ones, path["alpha"])
         else:
@@ -572,7 +666,7 @@ def trace_wavefront(
                 state, u12 = ld_pair(depth, path, state, ("ld_n1", "ld_n2"), _LD_SALT_NEE)
             state, lit, shadowed, shadow_traced = _nee(
                 cs, probe, cfg, p_hit, n_hit, wo, mat, albedo,
-                path["eta"], eta_o, shaded, state, u12=u12,
+                path["eta"], eta_o, shaded, state, throughput=path["throughput"], u12=u12,
             )
             radiance = path["radiance"] + where(plain, path["throughput"] * lit, zero)
             alpha = where(plain, ones, path["alpha"])
@@ -597,11 +691,24 @@ def trace_wavefront(
             )
             radiance = radiance + where(plain, path["throughput"] * quad_contrib, zero)
 
-        rays = path["rays"] + active.sum() + shadow_traced.sum()
+        # the probe on BSDF-sampled misses, MIS-weighted against the probe
+        # NEE (the reference's commented-out miss block, deviceProgram.cu:214-224)
+        if cfg.env_via_bsdf:
+            miss_sec = active & ~rec.hit & path["secondary"]
+            sky_pdf = probe_pdf(probe, path["d"])
+            nt = cfg.probe_samples + cfg.bsdf_samples
+            cb = cfg.bsdf_samples / nt
+            csk = cfg.probe_samples / nt
+            mw = cb * path["bsdf_pdf"] / torch.clamp(cb * path["bsdf_pdf"] + csk * sky_pdf, min=1e-12)
+            env = probe_eval_dir(probe, path["d"])
+            radiance = radiance + where(miss_sec, path["throughput"] * env * mw, zero)
+
+        # fused: this sweep traced the previous bounce's pending shadow rays
+        rays = path["rays"] + active.sum() + (path["pend_valid"] if fused else shadow_traced).sum()
         if skip_nee:
             # the continuation state is never consumed again
             return dict(path, radiance=radiance, alpha=alpha, normal=normal_aov,
-                        albedo=albedo_aov, depth_aov=depth_aov, state=state, rays=rays)
+                        albedo=albedo_aov, depth_aov=depth_aov, state=state, rays=rays, **pend)
 
         # ---- BSDF continuation ----
         tb, bb = basis_from_vector(n_hit)
@@ -647,6 +754,7 @@ def trace_wavefront(
             rays=rays,
             bsdf_pdf=torch.where(cont, res.pdf, path["bsdf_pdf"]),
             prev_delta=torch.where(cont, res.event == disney.SPECULAR, path["prev_delta"]),
+            **pend,
         )
 
     acc = None
@@ -681,9 +789,13 @@ def trace_wavefront(
         if sorting:
             # original lane, to restore caller order after the bounce sorts
             path["idx"] = torch.arange(n, dtype=torch.int64, device=dev)
+        if fused:
+            path.update(sh_o=o, sh_d=d, pend_contrib=zero, pend_valid=no, pend_catcher=no)
 
         if cfg.nee_final_bounce:
-            for depth in range(cfg.max_depth + 1):
+            # fused mode flushes the last pending shadow rays in one more
+            # iteration; the peeled bounce's sweep does it otherwise
+            for depth in range(cfg.max_depth + (2 if fused else 1)):
                 path = bounce_body(depth, path)
         else:
             for depth in range(cfg.max_depth):

@@ -7,7 +7,10 @@ reference's objects attribute by attribute with `np.asarray` (this module
 imports no jax; the caller holds the JAX objects). The `*_from_arrays`
 functions rebuild the port's `CompiledScene`, `Probe` and `QuadLight` on a
 device. The round trip moves identical bits, so both packages can be fed
-the same scene state.
+the same scene state. Instanced and TLAS scenes carry their `instanced`
+flag (their scene arrays are in slot order: no `tri_map`), and
+`proto_tables` carries a TLAS compile's per-prototype host tables for
+`bvh.clusters.update_tlas_transforms`.
 """
 from __future__ import annotations
 
@@ -26,17 +29,19 @@ _CLUSTER_FIELDS = ("rows", "spheres", "super_spheres", "scene_aabb", "entry_row"
                    "entry_xf", "xf_inv", "xf_fwd", "xf_invt")
 _PROBE_FIELDS = ("r", "g", "b", "pdf_x", "cdf_x", "pdf_y", "cdf_y", "rgbp")
 _QUAD_FIELDS = ("corner", "v1", "v2", "emission", "normal")
+_PROTO_FIELDS = ("rows", "spheres", "super_spheres", "scene_aabb", "local_aabb")
 
 
 def compiled_scene_arrays(cs) -> dict[str, np.ndarray]:
     """A (reference or port) CompiledScene as a dict of numpy arrays."""
     cl = cs.clusters
-    if cl is None or cl.instanced:
-        raise NotImplementedError("only non-instanced cluster scenes carry across (ROADMAP A.9)")
+    if cl is None:
+        raise ValueError("only cluster scenes carry across")
     out = {f"clusters.{k}": _np(getattr(cl, k)) for k in _CLUSTER_FIELDS}
     if cl.tri_map is not None:
         out["clusters.tri_map"] = _np(cl.tri_map)
     out["clusters.cluster_size"] = np.asarray(cl.cluster_size)
+    out["clusters.instanced"] = np.asarray(bool(cl.instanced))
     out["scene.shade_rows"] = _np(cs.scene.shade_rows)
     out["scene.materials.rows"] = _np(cs.scene.materials.rows)
     pool = getattr(cs.scene, "textures", None)  # a bare cluster set's view has none
@@ -50,7 +55,8 @@ def compiled_scene_from_arrays(arrays: dict[str, np.ndarray], device) -> Compile
     """The port's CompiledScene on `device` from `compiled_scene_arrays`."""
     tables = {k.split(".", 1)[1]: v for k, v in arrays.items() if k.startswith("clusters.")}
     c = int(tables.pop("cluster_size"))
-    clusters = cluster_set_from_numpy(tables, c, device)
+    instanced = bool(tables.pop("instanced", False))
+    clusters = cluster_set_from_numpy(tables, c, device, instanced=instanced)
     materials = table_from_rows(arrays["scene.materials.rows"], device)
     textures = None  # arrays without a pool rebuild with the empty one
     if "scene.textures.r" in arrays:
@@ -60,6 +66,13 @@ def compiled_scene_from_arrays(arrays: dict[str, np.ndarray], device) -> Compile
     scene = scene_from_shade_rows(arrays["scene.shade_rows"], materials, device, textures)
     return CompiledScene(scene=scene, bvh=None, num_triangles=int(arrays["num_triangles"]),
                          wide=None, clusters=clusters)
+
+
+def proto_tables(tables: list) -> list[dict[str, np.ndarray]]:
+    """The per-prototype host tables of a (reference or port)
+    `compile_tlas(..., return_tables=True)`, as the port's
+    `update_tlas_transforms` reads them."""
+    return [{k: np.array(tb[k]) for k in _PROTO_FIELDS} for tb in tables]
 
 
 def probe_arrays(p) -> dict[str, np.ndarray]:

@@ -4,7 +4,9 @@ sutil/Scene.cpp loadScene equivalent).
 Buffers, bufferViews and accessors are decoded, base-color textures and
 factors map onto the Disney material set (metallic / roughness kept),
 KHR_lights_punctual point lights map to the light dicts, and the node
-hierarchy's transforms are baked into world-space meshes. Supports .gltf
+hierarchy's transforms are baked into world-space meshes (`load_gltf`), or
+kept as node instancing (`load_gltf_tlas`: each referenced mesh once, in
+local space, and one transform per referencing node). Supports .gltf
 (JSON + external or base64 buffers) and .glb; triangle meshes with
 POSITION / NORMAL / TEXCOORD_0 and scalar indices.
 
@@ -13,7 +15,7 @@ the reference's PIL could not decode either (an unsupported codec, a data
 URI that is not base64, a missing file) degrades to the factor-only
 material with a warning, as in the reference; a JPEG, a 16-bit or an
 interlaced PNG is a gap of the port and raises NotImplementedError
-(ROADMAP A.1). Node instancing (`load_gltf_tlas`) is ROADMAP A.9.
+(ROADMAP A.1).
 """
 from __future__ import annotations
 
@@ -122,7 +124,23 @@ def _node_matrix(node: dict) -> np.ndarray:
 
 
 def load_gltf(path: str) -> tuple[HostScene, list[dict]]:
-    """Load a .gltf/.glb -> (HostScene, lights). Transforms baked to world."""
+    """Load a .gltf/.glb -> (HostScene, lights). Transforms baked to world.
+    For node reuse stored once use `load_gltf_tlas` + `builder.compile_tlas`."""
+    scene, _groups, _instances, lights = _load_gltf_impl(path, instanced=False)
+    return scene, lights
+
+
+def load_gltf_tlas(path: str):
+    """Load a .gltf/.glb keeping node instancing: (HostScene, groups,
+    instances, lights) for `builder.compile_tlas`. Each referenced glTF
+    mesh's triangle primitives are emitted once, in local space, as one
+    prototype group (a mesh without any is skipped); every node referencing
+    a mesh is one (prototype, float64 world matrix) instance, in node-walk
+    order."""
+    return _load_gltf_impl(path, instanced=True)
+
+
+def _load_gltf_impl(path: str, instanced: bool):
     base_dir = os.path.dirname(os.path.abspath(path))
     if path.lower().endswith(".glb"):
         gltf, glb_bin = _load_glb(path)
@@ -223,11 +241,13 @@ def load_gltf(path: str) -> tuple[HostScene, list[dict]]:
     lights: list[dict] = []
     khr = gltf.get("extensions", {}).get("KHR_lights_punctual", {}).get("lights", [])
 
+    mesh_refs: list[tuple[int, np.ndarray]] = []  # (glTF mesh index, world)
+
     def walk(node_idx: int, parent: np.ndarray) -> None:
         node = gltf["nodes"][node_idx]
         world = parent @ _node_matrix(node)
         if "mesh" in node:
-            emit_mesh(node["mesh"], world)  # transforms baked to world
+            mesh_refs.append((node["mesh"], world))
         li = node.get("extensions", {}).get("KHR_lights_punctual", {}).get("light")
         if li is not None and li < len(khr):
             spec = khr[li]
@@ -243,12 +263,25 @@ def load_gltf(path: str) -> tuple[HostScene, list[dict]]:
     for r in roots:
         walk(r, np.eye(4, dtype=np.float32))
 
+    groups: list[list[int]] = []
+    instances: list[tuple[int, np.ndarray]] = []
+    if instanced:
+        proto_of: dict[int, int] = {}  # glTF mesh -> prototype, -1 without triangles
+        for mi, world in mesh_refs:
+            if mi not in proto_of:
+                before = len(scene.meshes)
+                emit_mesh(mi, np.eye(4, dtype=np.float32))
+                if len(scene.meshes) == before:
+                    proto_of[mi] = -1
+                else:
+                    proto_of[mi] = len(groups)
+                    groups.append(list(range(before, len(scene.meshes))))
+            if proto_of[mi] >= 0:
+                instances.append((proto_of[mi], np.asarray(world, np.float64)))
+    else:
+        for mi, world in mesh_refs:
+            emit_mesh(mi, world)  # transforms baked to world
+
     if not lights:
         lights.append(make_ambient_light((1.0, 1.0, 1.0), 0.8))
-    return scene, lights
-
-
-def load_gltf_tlas(path: str):
-    """Node instancing (each glTF mesh once, in local space, with one
-    transform per referencing node) feeds `compile_tlas`: ROADMAP A.9."""
-    raise NotImplementedError("load_gltf_tlas (glTF node instancing) is not ported yet (ROADMAP A.9)")
+    return scene, groups, instances, lights

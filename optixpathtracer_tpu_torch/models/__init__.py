@@ -1,15 +1,20 @@
 """Model presets over the engine (port of optixpathtracer_tpu/models; the
-`disney_pt` and `foveated` presets — the others are ROADMAP A.10)."""
+`disney_pt`, `foveated` and adaptive presets — hello_raytracing, whitted
+and spectral are ROADMAP A.10). Every RenderConfig field passes through
+`**overrides`, the engine options (`nee_rr`, `fused_shadows`,
+`env_via_bsdf`, the sampling strategy, ...) included."""
 from __future__ import annotations
 
 from ..builder import CompiledScene
 from ..core.camera import Camera
+from ..engine.adaptive import AdaptiveRenderer
 from ..engine.foveated import FoveatedRenderer, FoveationConfig
 from ..engine.renderer import Renderer
 from ..engine.wavefront import RenderConfig
 from ..lights.probe import Probe
 
-__all__ = ["make_disney_pt_renderer", "make_foveated_renderer", "PRESETS"]
+__all__ = ["make_disney_pt_renderer", "make_foveated_renderer", "make_adaptive_renderer",
+           "PRESETS"]
 
 
 def make_disney_pt_renderer(
@@ -45,6 +50,24 @@ def make_foveated_renderer(
     overrides.setdefault("traversal", "cluster")
     cfg = RenderConfig(width=width, height=height, max_depth=max_depth, **overrides)
     return FoveatedRenderer(cs, probe, cfg, camera, foveation or FoveationConfig(), fused=fused)
+
+
+def make_adaptive_renderer(
+    cs: CompiledScene, probe: Probe, camera: Camera,
+    width=1200, height=1024, spp=4, max_depth=4,
+    refine_fraction=0.25, warmup_spp: int | None = None, area_light=None,
+    **overrides,
+) -> AdaptiveRenderer:
+    """Variance-guided adaptive sampling over the Disney PT engine: each
+    render() after the warm-up refines the top `refine_fraction` of 16x8
+    tiles by measured relative variance with `spp` fresh samples. The
+    traversal is "cluster" unless overridden."""
+    overrides.setdefault("traversal", "cluster")
+    cfg = RenderConfig(width=width, height=height, samples_per_launch=spp,
+                       max_depth=max_depth, **overrides)
+    return AdaptiveRenderer(cs, probe, cfg, camera, area_light=area_light,
+                            warmup_spp=spp if warmup_spp is None else warmup_spp,
+                            refine_spp=spp, refine_fraction=refine_fraction)
 
 
 PRESETS = {

@@ -517,7 +517,7 @@ def _run_visit(work: list, go, ok, t, tm, tM, ray_idx, best, occ, c: int, any_hi
     """One (block, sub-block) visit of `sweep_work` / `sweep_work_hier`: the
     closest-hit (best) or any-hit (occ) epilogue for the running rays `go`
     (P, 16), and their work added to work = [pairs, visits, slab tests,
-    lane pairs]."""
+    lane pairs], summed on the rays' device (no synchronise a visit)."""
     if any_hit:
         hit = ok & (t > tm) & (t < tM)
         first = torch.where(hit, torch.arange(c, device=hit.device), c).amin(dim=-1)
@@ -528,9 +528,9 @@ def _run_visit(work: list, go, ok, t, tm, tM, ray_idx, best, occ, c: int, any_hi
         cols = go * c
         tbest = torch.where(ok & (t > tm) & (t < cur[..., None]), t, BIG_T).amin(dim=-1)
         best[ray_idx] = torch.where(go & (tbest < cur), tbest, cur)
-    work[0] += int(cols.sum())
-    work[1] += int(go.any(dim=1).sum())
-    work[3] += int(cols.amax(dim=1).sum()) * (BLOCK // 8)
+    work[0] = work[0] + cols.sum()
+    work[1] = work[1] + go.any(dim=1).sum()
+    work[3] = work[3] + cols.amax(dim=1).sum() * (BLOCK // 8)
 
 
 def sweep_work(rows: Tensor, xf_inv: Tensor, cr: CullResult, c: int, any_hit: bool = False):
@@ -556,7 +556,7 @@ def sweep_work(rows: Tensor, xf_inv: Tensor, cr: CullResult, c: int, any_hit: bo
         _run_visit(work, go, *_mt_t(det, up, vp, tp), tm, tM, ray_idx, best, occ, c, any_hit)
 
     _walk(rows, xf_inv, cr, c, visit)
-    return SweepWork(*work)
+    return SweepWork(*(int(w) for w in work))
 
 
 def _check_sweep(rows: Tensor, xf_inv: Tensor, cr: CullResult, c: int):
@@ -827,7 +827,7 @@ def sweep_work_hier(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullRe
         return torch.clamp(best * dlen, max=_BIG).reshape(-1, BLOCK).amax(dim=1)
 
     def on_recull(rays, tcur):
-        work[2] += int((tcur > rays[:, :, 6]).sum()) * NODE * SUPER
+        work[2] = work[2] + (tcur > rays[:, :, 6]).sum() * (NODE * SUPER)
         work[4] += rays.shape[0]
 
     def visit(ray_idx, gate, tm, tM, det, up, vp, tp, cid):
@@ -845,7 +845,7 @@ def sweep_work_hier(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullRe
 
     tcur_of = (lambda: torch.where(occ, tm_all, tM_all)) if any_hit else (lambda: best)
     _walk_hier(rows, xf_inv, nt, cr, c, tcur_of, bound, visit, on_recull)
-    return SweepWork(*work)
+    return SweepWork(*(int(w) for w in work))
 
 
 def _check_hier_sweep(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullResult, c: int):

@@ -10,7 +10,9 @@ functions are the golden setups of tests/golden_scenes.py (`_open_scene`,
 `_cornell_scene`, `_sky_probe`, `_cam`/`_cam_s`, `render_disney_open*`,
 `render_disney_cornell*`, `render_loft*`, `render_gltf`,
 `render_foveated*`) with the cluster traversal in place of the reference's
-CPU lockstep backend (both are exact).
+CPU lockstep backend (both are exact). `instanced_city_glb` writes the city
+as reusable glTF meshes placed as a grid of rotated and scaled tiles, the
+instanced scene of `python -m optixpathtracer_tpu_torch render --instanced`.
 """
 from __future__ import annotations
 
@@ -317,6 +319,84 @@ def render_loft_golden(name: str, device) -> np.ndarray:
     return r.accum_image()
 
 
+def _pack_glb(gltf: dict, blob: bytes) -> bytes:
+    """A .glb of a glTF document and its one binary buffer (4-byte aligned,
+    its length the document's `buffers[0].byteLength`)."""
+    js = json.dumps(gltf).encode()
+    js += b" " * (-len(js) % 4)
+    return (struct.pack("<4sII", b"glTF", 2, 12 + 8 + len(js) + 8 + len(blob))
+            + struct.pack("<I4s", len(js), b"JSON") + js
+            + struct.pack("<I4s", len(blob), b"BIN\x00") + blob)
+
+
+INSTANCED_TILE_PITCH = 120.0  # tile spacing of `instanced_city_glb`: the city's ground is 120 wide
+
+
+def instanced_city_glb(grid: int = 4, n_boxes: int = 12500, seed: int = 0) -> bytes:
+    """The bench city (`build_city_scene`) as nine glTF meshes (the ground
+    box and the eight colour buckets, one primitive each with its material)
+    placed as a grid x grid array of tiles: one parent node per tile,
+    translated INSTANCED_TILE_PITCH apart about the origin and turned by
+    ((i + j) % 4) * 90 degrees about y, the odd tiles ((i + j) odd) also
+    scaled by 0.8, each with one child node per mesh. At grid=4: 9
+    prototypes, 144 instances, about 2.4M world triangles of which about
+    150k are stored once."""
+    hs = build_city_scene(n_boxes=n_boxes, seed=seed)
+    blob = bytearray()
+    views, accessors, meshes, materials = [], [], [], []
+
+    def add(arr: np.ndarray, comp: int, kind: str) -> int:
+        off = len(blob)
+        blob.extend(arr.tobytes())
+        blob.extend(b"\x00" * (-len(blob) % 4))
+        views.append({"buffer": 0, "byteOffset": off, "byteLength": arr.nbytes})
+        acc = {"bufferView": len(views) - 1, "componentType": comp, "count": int(arr.shape[0]),
+               "type": kind}
+        if kind == "VEC3" and comp == 5126:
+            acc.update(min=arr.min(0).tolist(), max=arr.max(0).tolist())
+        accessors.append(acc)
+        return len(accessors) - 1
+
+    for m in hs.meshes:
+        attrs = {"POSITION": add(np.ascontiguousarray(m.vertices, np.float32), 5126, "VEC3")}
+        if m.normals is not None:
+            attrs["NORMAL"] = add(np.ascontiguousarray(m.normals, np.float32), 5126, "VEC3")
+        idx = add(np.ascontiguousarray(np.asarray(m.indices).reshape(-1), np.uint32), 5125, "SCALAR")
+        mat = m.material
+        materials.append({"pbrMetallicRoughness": {
+            "baseColorFactor": [float(c) for c in mat["color"]] + [1.0],
+            "metallicFactor": float(mat["metallic"]), "roughnessFactor": float(mat["roughness"])},
+            "emissiveFactor": [float(c) for c in mat["emission"]]})
+        meshes.append({"primitives": [{"attributes": attrs, "indices": idx,
+                                       "material": len(materials) - 1}]})
+    nodes, roots = [], []
+    half = (grid - 1) / 2.0
+    for i in range(grid):
+        for j in range(grid):
+            ang = ((i + j) % 4) * np.pi / 2
+            tile = {"translation": [INSTANCED_TILE_PITCH * (i - half), 0.0,
+                                    INSTANCED_TILE_PITCH * (j - half)],
+                    "rotation": [0.0, float(np.sin(ang / 2)), 0.0, float(np.cos(ang / 2))],
+                    "children": list(range(len(nodes) + 1, len(nodes) + 1 + len(meshes)))}
+            if (i + j) % 2:
+                tile["scale"] = [0.8, 0.8, 0.8]
+            roots.append(len(nodes))
+            nodes.append(tile)
+            nodes.extend({"mesh": k} for k in range(len(meshes)))
+    gltf = {"asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": roots}],
+            "nodes": nodes, "meshes": meshes, "materials": materials,
+            "buffers": [{"byteLength": len(blob)}], "bufferViews": views, "accessors": accessors}
+    return _pack_glb(gltf, bytes(blob))
+
+
+def instanced_city_camera(width: int, height: int, grid: int = 4) -> Camera:
+    """Outside one corner of `instanced_city_glb(grid)`, 40 units up,
+    looking at the grid's centre (fov 45): near and far tiles in view."""
+    r = INSTANCED_TILE_PITCH * grid / 2 + 20.0
+    return Camera(eye=(r, 40.0, r), lookat=(0.0, 0.0, 0.0), up=(0, 1, 0), fov_y=45,
+                  aspect_ratio=width / height)
+
+
 def golden_glb() -> bytes:
     """The `gltf` golden's .glb (tests/golden_scenes.py `render_gltf`): one
     quad mesh referenced by two nodes with different transforms."""
@@ -324,7 +404,7 @@ def golden_glb() -> bytes:
     idx = np.array([0, 1, 2, 0, 2, 3], np.uint16)
     bin_pos = pos.tobytes()
     blob = bin_pos + idx.tobytes() + b"\x00\x00"  # indices padded to 4
-    gltf = {
+    return _pack_glb({
         "asset": {"version": "2.0"},
         "scene": 0,
         "scenes": [{"nodes": [0, 1]}],
@@ -345,12 +425,7 @@ def golden_glb() -> bytes:
             {"bufferView": 1, "componentType": 5126, "count": 4, "type": "VEC3",
              "min": pos.min(0).tolist(), "max": pos.max(0).tolist()},
         ],
-    }
-    js = json.dumps(gltf).encode()
-    js += b" " * (-len(js) % 4)
-    return (struct.pack("<4sII", b"glTF", 2, 12 + 8 + len(js) + 8 + len(blob))
-            + struct.pack("<I4s", len(js), b"JSON") + js
-            + struct.pack("<I4s", len(blob), b"BIN\x00") + blob)
+    }, blob)
 
 
 def render_gltf_golden(device) -> np.ndarray:

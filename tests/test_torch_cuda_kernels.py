@@ -641,3 +641,105 @@ def test_loft_coplanar_walls_exact_t_ties(cuda, c):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     tri, _ = _cull_and_sweeps_equal_plain(cs, _v3(o, cuda), _v3(d.astype(np.float32), cuda), 1e-3, 1e16, c)
     assert bool((tri >= 0).all())
+
+
+def _instanced_set(device, c):
+    """A TLAS of two prototypes (two boxes; a tetrahedron) under 24
+    instances: rotations about y, a non-uniform scale, a mirror (negative
+    determinant) and two instances with the same transform (exact-t ties
+    across instances). Returns (ClusterSet, instance
+    transforms)."""
+    from optixpathtracer_tpu_torch.builder import compile_tlas
+    from optixpathtracer_tpu_torch.core.materials import make_material
+    from optixpathtracer_tpu_torch.core.scene import HostScene, Mesh
+
+    hs = HostScene()
+    hs.add_box(make_material(), pos=(0, 0.5, 0), extent=(0.5, 0.5, 0.5))
+    hs.add_box(make_material(), pos=(0.9, 0.3, 0.2), extent=(0.3, 0.3, 0.3))
+    hs.add_mesh(Mesh(vertices=np.array([[0, 0, 0], [1, 0, 0], [0.5, 1, 0.5], [0.5, 0, 1]], np.float32),
+                     indices=np.array([[0, 1, 2], [0, 2, 3], [1, 3, 2], [0, 3, 1]], np.int32),
+                     material=make_material()))
+    rng = np.random.default_rng(3)
+    xfs = []
+    for i in range(24):
+        ang = rng.uniform(0, 2 * np.pi)
+        m = np.eye(4)
+        m[:3, :3] = rng.uniform(0.6, 1.6) * np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                                                      [-np.sin(ang), 0, np.cos(ang)]])
+        m[:3, 3] = (rng.uniform(-8, 8), 0.0, rng.uniform(-8, 8))
+        xfs.append(m)
+    xfs[1][:3, :3] = xfs[1][:3, :3] @ np.diag([1.7, 0.6, 1.1])  # non-uniform scale
+    xfs[2][:3, :3] = xfs[2][:3, :3] @ np.diag([-1.0, 1.0, 1.0])  # mirror
+    xfs[5] = xfs[4].copy()
+    insts = [(i % 2, m) for i, m in enumerate(xfs)]
+    return compile_tlas(hs, [[0, 1], [2]], insts, device, cluster_size=c).clusters, np.stack(xfs)
+
+
+def _aimed(xfs, n, seed, device):
+    """n rays aimed at the instances' origins (most hit, many graze)."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-10, 10, (n, 3)).astype(np.float32)
+    o[:, 1] = rng.uniform(0.1, 4.0, n)
+    tgt = xfs[rng.integers(0, len(xfs), n), :3, 3] + rng.normal(0, 0.4, (n, 3))
+    d = (tgt - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return _v3(o, device), _v3(d, device)
+
+
+@pytest.mark.parametrize("c", [16, 64])
+def test_instanced_kernels_bit_equal_to_plain(cuda, c):
+    """K1 on the entry boxes and on the cluster boxes, K2, K3, K4a and K4b on
+    a TLAS whose transforms are not the identity, against their plain
+    versions; both walks agree on every ray's t."""
+    cs, xfs = _instanced_set(cuda, c)
+    assert cs.instanced and cs.num_entries == 24
+    o, d = _aimed(xfs, 8192, 1, cuda)
+    t_max = torch.where(torch.arange(8192, device=cuda) % 7 == 0, 0.0, 1e16)
+    nt = cs.node_tables
+    rays8 = tc._pack_rays8(cs, o, d, 1e-3, t_max)
+    for sph_t, grp_t in (cs.cull_tables, (nt.node_sph_t, nt.node_box_t)):
+        for k, p in zip(tc.cull_blocks(rays8, sph_t, grp_t), tc._cull_torch(rays8, sph_t)):
+            assert torch.equal(k, p)
+    tri_flat, _ = _sweeps_equal_plain(cs, tc.block_cull(cs, o, d, 1e-3, t_max), c)
+    tri_node, occ, _ = _hier_sweeps_equal_plain(cs, tc.block_cull_nodes(cs, o, d, 1e-3, t_max), c)
+    n = o.x.shape[0]
+    assert 0.3 < float((tri_node[:n] >= 0).float().mean()) < 0.95
+    flat = tc.closest_hit_cluster(cs, o, d, 1e-3, t_max, hier=False)
+    node = tc.closest_hit_cluster(cs, o, d, 1e-3, t_max, hier=True)
+    assert torch.equal(flat.t, node.t) and torch.equal(flat.hit, node.hit)
+
+
+def test_instanced_exact_overlap_ties_bit_equal_to_plain(cuda):
+    """Instances 4 and 5 share one transform: every ray that hits one hits
+    the other at the same t, and the kernels break each tie as their plain
+    versions do (the first visited entry wins)."""
+    cs, xfs = _instanced_set(cuda, 16)
+    o, d = _aimed(xfs[4:6], 4096, 5, cuda)
+    _sweeps_equal_plain(cs, tc.block_cull(cs, o, d, 1e-3, 1e16), 16)
+    tri_node, _, _ = _hier_sweeps_equal_plain(cs, tc.block_cull_nodes(cs, o, d, 1e-3, 1e16), 16)
+    n = o.x.shape[0]
+    slot_w = 8 * 16
+    inst = cs.entry_xf[(tri_node[:n].clamp(min=0) // slot_w).long()]
+    hit = tri_node[:n] >= 0
+    assert float(((inst == 4) | (inst == 5))[hit].float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("walk", ["flat", "node"])
+def test_fused_sweep_of_2n_rays_with_mixed_t_min(cuda, walk):
+    """The fused-shadows sweep: n radiance rays at t_min 1e-3 and n shadow
+    rays at 0.01, some closed (t_max 0), in one closest-hit call; the
+    kernels equal their plain versions and each half equals its own sweep."""
+    cs, xfs = _instanced_set(cuda, 64)
+    n = 4096
+    o, d = _aimed(xfs, 2 * n, 7, cuda)
+    t_min = torch.cat([torch.full((n,), 1e-3, device=cuda), torch.full((n,), 0.01, device=cuda)])
+    t_max = torch.where(torch.arange(2 * n, device=cuda) % 5 == 0, 0.0, 1e16)
+    if walk == "flat":
+        _sweeps_equal_plain(cs, tc.block_cull(cs, o, d, t_min, t_max), 64)
+    else:
+        _hier_sweeps_equal_plain(cs, tc.block_cull_nodes(cs, o, d, t_min, t_max), 64)
+    both = tc.closest_hit_cluster(cs, o, d, t_min, t_max, hier=walk == "node")
+    for half in (slice(0, n), slice(n, 2 * n)):
+        rec = tc.closest_hit_cluster(cs, Vec3(*(a[half] for a in o)), Vec3(*(a[half] for a in d)),
+                                     t_min[half], t_max[half], hier=walk == "node")
+        assert torch.equal(rec.t, both.t[half]) and torch.equal(rec.tri, both.tri[half])

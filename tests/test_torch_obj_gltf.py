@@ -283,8 +283,13 @@ def test_gltf_jpeg_is_a_port_gap(tmp_path):
 
 
 def test_gltf_tlas_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tgltf.load_gltf_tlas(_reuse_gltf(tmp_path))
+    """The instanced loader shares the baked loader's image decoding: a JPEG
+    texture is a port gap there too (ROADMAP A.1). (load_gltf_tlas itself is
+    held against the JAX loader in tests/test_torch_gltf_tlas.py.)"""
+    px = np.random.default_rng(3).integers(0, 256, (8, 8, 3), dtype=np.uint8)
+    path = _textured_glb(tmp_path / "jpeg.glb", _png_bytes(px, format="JPEG"))
+    with pytest.raises(NotImplementedError, match="A.1"):
+        tgltf.load_gltf_tlas(path)
 
 
 def test_gltf_external_image_file(tmp_path):

@@ -123,10 +123,10 @@ def test_render_config_fields_and_defaults_match_reference():
 
 
 @pytest.mark.parametrize("option, item", [
-    (dict(fused_shadows=True), "A.5"), (dict(env_via_bsdf=True), "A.5"),
-    # the sampling strategies are ported; with an unported option they still raise
-    (dict(nee_rr=0.1), "A.5"), (dict(sampling="sobol", fused_shadows=True), "A.5"),
-    (dict(traversal="lockstep"), "not to port"),
+    (dict(traversal="lockstep"), "not to port"), (dict(traversal="bfs"), "not to port"),
+    (dict(traversal="dense"), "not to port"), (dict(traversal="oracle"), "not to port"),
+    # the engine options are ported; with a backend the port lacks they still raise
+    (dict(traversal="bfs", fused_shadows=True, env_via_bsdf=True, nee_rr=0.1), "not to port"),
 ])
 def test_off_slice_options_raise(option, item):
     cs = _open_port()
