@@ -79,7 +79,22 @@ port's paths and checks that each went through its kernels:
      baked gate (`instanced_exactness_gate`), a transform update against a
      fresh build (`tlas_update`), and `python -m optixpathtracer_tpu_torch
      render` in two child processes (`cli_render`: the instanced city and
-     the loft with --denoise; no jax, JAX package or PIL imported).
+     the loft with --denoise; no jax, JAX package or PIL imported);
+ 10. the other presets (after the city's quality pipeline): `route_ties`
+     (ROADMAP C.7: the flat and the node walk on the city's engine
+     first-bounce rays and on hello's primary rays, t gated equal, the
+     exact-t ties that resolve apart counted), `hello_slice` (bench.py's
+     hello_raytracing row: the city at 1200x800, node walk, K1 / K4a / K4b
+     then held against their plain versions on hello's own primary and
+     unnormalised shadow rays), `spectral_slice` (bench.py's spectral row:
+     the city at 1200x800, 2 spp, depth 4), `whitted_slice` (bench.py's
+     whitted row: 768x576, depth 3, its own scene through the flat walk;
+     K1 / K2 / K3 held on the deepest level's rays), `preset_goldens`
+     (`hello`, `whitted*`, `spectral_s` within RMSE_TOL; `spectral` against
+     the port's CPU render, ROADMAP C.8; a whitted frame with a curve, card
+     against CPU) and, beside `cli_render`, `render --model
+     hello_raytracing | whitted | spectral` at 96x64 in three child
+     processes (`cli_preset`).
 
 The cull (K1) is held against its plain version and timed on both tables
 (cluster boxes and entry boxes on the city, entry boxes on the big scene)
@@ -1831,6 +1846,288 @@ def cli_render(glb, tmp, card):
             raise AssertionError(f"cli_render {name}: metrics rows {rows}")
 
 
+# ---- the other presets: hello_raytracing, whitted, spectral -------------
+
+PRESET_PLAIN_BUDGET_S = 4.0  # plain-version budget per kernel and wavefront of the preset slices
+WHITTED_SIZE = dict(width=768, height=576, max_depth=3)  # bench.py:1151
+SPECTRAL_SPP, SPECTRAL_FRAMES = 2, 2  # bench.py:1156-1160 (frames=2)
+CLI_PRESETS = ("hello_raytracing", "whitted", "spectral")
+
+
+@contextlib.contextmanager
+def traced_rays(module, names, keep=False):
+    """Wrap the trace functions `names` of `module` (each called as
+    fn(scene, o, d, t_min, t_max, ...)) to count the live rays they are
+    handed (t_max > t_min, summed on the device) and, with keep=True, to
+    record each call's (name, o, d, t_min, t_max)."""
+    import torch
+
+    real = {n: getattr(module, n) for n in names}
+    out = {"rays": None, "calls": []}
+
+    def wrap(name):
+        def call(scene, o, d, t_min, t_max, *args, **kw):
+            n = o.x.shape[0]
+            dev = o.x.device
+            live = (torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n)
+                    > torch.as_tensor(t_min, dtype=torch.float32, device=dev)).sum()
+            out["rays"] = live if out["rays"] is None else out["rays"] + live
+            if keep:
+                out["calls"].append((name, o, d, t_min, t_max))
+            return real[name](scene, o, d, t_min, t_max, *args, **kw)
+        return call
+
+    for n in names:
+        setattr(module, n, wrap(n))
+    try:
+        yield out
+    finally:
+        for n, fn in real.items():
+            setattr(module, n, fn)
+
+
+def drive_preset(phase, renderer, card, counts, frames, module, names, **fields):
+    """A preset's main path: one warm-up frame and `frames` timed frames,
+    launch counts set to 0 just before and read just after, the live rays
+    its trace calls were handed counted on the device, the frame checked
+    finite, of its size and not black."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts.clear()
+    with traced_rays(module, names) as traced:
+        times = time_frames(renderer, frames)
+    launches = dict(counts)
+    rays = int(traced["rays"]) / (frames + 1)
+    img = renderer.frame if hasattr(renderer, "frame") else renderer.image_tensor()
+    img = img.float().cpu().numpy()
+    frame_s = float(np.median(times))
+    SLICE_FRAME_S[phase] = frame_s
+    per_pixel = {}
+    if "rays_per_pixel" in fields:  # bench.py's count: that many rays a pixel, live or not
+        per_pixel = dict(mrays_per_s_at_rays_per_pixel=fields["rays_per_pixel"] * fields["pixels"] / frame_s / 1e6)
+    emit(phase, **fields, frame_s=frame_s, frame_times_s=times, frame_s_range=[min(times), max(times)],
+         rays_traced_per_frame=rays, mrays_per_s=rays / frame_s / 1e6, **per_pixel,
+         max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
+         launches_per_frame={k: v / (frames + 1) for k, v in launches.items()},
+         image_mean=float(img.mean()), card=card)
+    if not np.isfinite(img).all() or not img.max() > 0:
+        raise AssertionError(f"{phase}: the frame is not finite and lit")
+    return launches
+
+
+def route_ties(cl, o1, d1, cfg, dev, card):
+    """ROADMAP C.7 on the card: the flat and the node walk on the city's
+    first-bounce rays (the engine's, sorted as it sorts them) and on
+    hello's primary rays of the city. t must agree on every ray (else a walk
+    is at fault); the exact-t ties that resolve to different triangles are
+    counted, not gated (the port's pinned departure from the reference,
+    whose rule routes the city to the flat walk)."""
+    import torch
+
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.engine.wavefront import CameraParams
+    from optixpathtracer_tpu_torch.models import hello_raytracing as hr
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
+    ys, xs = np.divmod(np.arange(WIDTH * HEIGHT, dtype=np.int32), WIDTH)
+    ho, hd = hr.camera_rays(hr.HelloConfig(width=WIDTH, height=HEIGHT),
+                            CameraParams.from_camera(scenes.city_camera(WIDTH, HEIGHT), dev),
+                            torch.as_tensor(xs, device=dev), torch.as_tensor(ys, device=dev))
+    out = {}
+    for label, (o, d, t_min, t_max) in (("city first bounce (the engine's, sorted)", (o1, d1, cfg.t_min, cfg.t_max)),
+                                        ("hello primary rays", (ho, hd, 0.0, 1e20))):
+        node = tc.closest_hit_cluster(cl, o, d, t_min, t_max, hier=True)
+        flat = tc.closest_hit_cluster(cl, o, d, t_min, t_max, hier=False)
+        out[label] = dict(rays=o.x.shape[0], hits=int(flat.hit.sum()),
+                          t_mismatch=int((node.t != flat.t).sum()),
+                          hit_mismatch=int((node.hit != flat.hit).sum()),
+                          exact_t_ties_resolved_differently=int(((node.tri != flat.tri) & (node.t == flat.t)).sum()))
+    emit("route_ties", entries=cl.num_entries, port_threshold=tc.HIER_MIN_ENTRIES, reference_threshold=3072,
+         walks=out, not_counted="loft (1 entry) and cornell (fewer than 8 entries): both packages take "
+         "the flat walk there", card=card)
+    bad = {k: v for k, v in out.items() if v["t_mismatch"] or v["hit_mismatch"]}
+    if bad:
+        raise AssertionError(f"route_ties: the walks disagree in t or hits: {bad}")
+
+
+def hello_slice(cs, dev, peak, card, counts):
+    """bench.py's hello_raytracing row (`bench.py:1144`): the preset on the
+    city at 1200x800, primary + one unnormalised shadow ray a pixel, the
+    node walk (K1 on the entry boxes, K4a, K4b). Then K1, K4a and K4b held
+    bit for bit against their plain versions on hello's own primary and
+    shadow rays (a budgeted subset of the blocks)."""
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.models import hello_raytracing as hr
+    from optixpathtracer_tpu_torch.models import make_hello_renderer
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
+    cl = cs.clusters
+    r = make_hello_renderer(cs, scenes.city_camera(WIDTH, HEIGHT), WIDTH, HEIGHT)
+    launches = drive_preset("hello_slice", r, card, counts, SLICE_FRAMES, hr, ("trace_closest", "trace_occluded"),
+                            width=WIDTH, height=HEIGHT, pixels=WIDTH * HEIGHT, rays_per_pixel=2,
+                            walk=walk_of(cl))
+    check_walk("the hello slice", launches, walk_of(cl))
+    with traced_rays(hr, ("trace_closest", "trace_occluded"), keep=True) as traced:
+        r.render(download=False)
+    (_, o, d, t_min, t_max), (_, p, l, s_min, s_max) = traced["calls"]
+    nt = cl.node_tables
+    wf = "hello primary rays"
+    out = {"cull": cull_phase("cull (node table)", tc._pack_rays8(cl, o, d, t_min, t_max), nt.node_sph_t,
+                              nt.node_box_t, peak, PRESET_PLAIN_BUDGET_S, wf, card, bound=False)}
+    shadow = cull_phase("cull (node table)", tc._pack_rays8(cl, p, l, s_min, s_max), nt.node_sph_t, nt.node_box_t,
+                        peak, PRESET_PLAIN_BUDGET_S, "hello shadow rays (unnormalised, t in (0, 1))", card, bound=False)
+    out.update(time_hier(cl, tc.block_cull_nodes(cl, o, d, t_min, t_max), tc.block_cull_nodes(cl, p, l, s_min, s_max),
+                         peak, "hello primary / shadow rays", card, budget_s=PRESET_PLAIN_BUDGET_S, bound=False))
+    dlen = float((l.x * l.x + l.y * l.y + l.z * l.z).sqrt().median())
+    emit("hello_kernels", median_shadow_dir_length=dlen, bit_equal=True,
+         kernels={k: {f: v[f] for f in ("ms", "plain_ms", "rays", "plain_rays", "max_abs_err")}
+                  for k, v in out.items()}, shadow_cull=shadow, card=card)
+    errs = {k: v["max_abs_err"] for k, v in out.items()}
+    errs["cull"] = max(errs["cull"], shadow["max_abs_err"])
+    return launches, out, errs
+
+
+def whitted_slice(dev, peak, card, counts):
+    """bench.py's whitted row (`bench.py:1151`): `make_whitted_renderer(768,
+    576, 3)` on the card: spheres (dense), the floor box through the flat
+    walk (one entry: K1, K2, and K3 for each point light's shadow rays at
+    every level), the ray tree's 2^level x N rays a level. Then K1, K2, K3
+    held against their plain versions on the deepest level's reflected and
+    refracted rays and its first light's shadow rays."""
+    import torch
+
+    from optixpathtracer_tpu_torch.engine import whitted as tw
+    from optixpathtracer_tpu_torch.models import make_whitted_renderer
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
+    r = make_whitted_renderer(**WHITTED_SIZE, device=dev)
+    cl = r.cs.clusters
+    launches = drive_preset("whitted_slice", r, card, counts, SLICE_FRAMES, tw, ("trace_closest", "trace_occluded"),
+                            **WHITTED_SIZE, chunks=r.dispatch_tiles, entries=cl.num_entries, walk=walk_of(cl),
+                            deepest_level_rays=WHITTED_SIZE["width"] * WHITTED_SIZE["height"]
+                            * 2 ** WHITTED_SIZE["max_depth"] // r.dispatch_tiles)
+    check_walk("the whitted slice", launches, walk_of(cl))
+    with traced_rays(tw, ("trace_closest", "trace_occluded"), keep=True) as traced:
+        r.render(download=False)
+    closest = [c for c in traced["calls"] if c[0] == "trace_closest"]
+    shadows = [c for c in traced["calls"] if c[0] == "trace_occluded"]
+    _, o, d, t_min, t_max = closest[WHITTED_SIZE["max_depth"]]  # the first chunk's deepest level
+    _, p, l, s_min, s_max = shadows[2 * WHITTED_SIZE["max_depth"]]  # its first point light
+    del traced, closest, shadows
+    out = time_flat(cl, tc._pack_rays8(cl, o, d, t_min, t_max), tc.block_cull(cl, o, d, t_min, t_max),
+                    tc.block_cull(cl, p, l, s_min, s_max), peak,
+                    f"whitted deepest level ({o.x.shape[0]} reflected + refracted rays)", card,
+                    budget_s=PRESET_PLAIN_BUDGET_S, bound=False)
+    errs = {k: v["max_abs_err"] for k, v in out.items()}
+    del r, o, d, p, l
+    torch.cuda.empty_cache()
+    return launches, out, errs
+
+
+def spectral_slice(cs, probe, card, counts):
+    """bench.py's spectral row (`bench.py:1156-1160`): the hero-wavelength
+    preset on the city at 1200x800, 2 spp, depth 4 (no coherence sort, as
+    in the reference): closest and any hit through the node walk, 2 frames
+    timed after a warm-up."""
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.engine import spectral as ts
+    from optixpathtracer_tpu_torch.models import make_spectral_renderer
+
+    r = make_spectral_renderer(cs, probe, scenes.city_camera(WIDTH, HEIGHT), WIDTH, HEIGHT,
+                               SPECTRAL_SPP, DEPTH)
+    launches = drive_preset("spectral_slice", r, card, counts, SPECTRAL_FRAMES, ts,
+                            ("closest_hit_cluster", "any_hit_cluster"), width=WIDTH, height=HEIGHT,
+                            spp=SPECTRAL_SPP, max_depth=DEPTH, walk=walk_of(cs.clusters))
+    check_walk("the spectral slice", launches, walk_of(cs.clusters))
+    return launches
+
+
+def preset_goldens(dev, card):
+    """The `hello`, `whitted_s`, `whitted`, `spectral_s` goldens rendered on
+    the card within RMSE_TOL; `spectral` (ROADMAP C.8: the golden's fused
+    programs flip a few paths, the port misses it by a hair on the CPU as
+    the eager reference does) held against the port's CPU render within
+    RMSE_TOL, its golden RMSE reported; and one whitted frame with a curve
+    (tests/test_curve_intersect.py's arch) on the card against the CPU."""
+    import torch
+
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.builder import compile_scene
+    from optixpathtracer_tpu_torch.core.camera import Camera
+    from optixpathtracer_tpu_torch.core.materials import make_material
+    from optixpathtracer_tpu_torch.core.scene import HostScene
+    from optixpathtracer_tpu_torch.engine.whitted import WhittedConfig
+    from optixpathtracer_tpu_torch.lights import lights
+    from optixpathtracer_tpu_torch.models.whitted import WhittedRenderer
+    from optixpathtracer_tpu_torch.ops.curve_intersect import build_curves
+
+    cpu = torch.device("cpu")
+    for name in scenes.PRESET_GOLDENS:
+        got = scenes.render_preset_golden(name, dev)
+        if name != "spectral":
+            check_golden("preset_golden", name, got, card=card)
+            continue
+        want = np.load(os.path.join(GOLDEN_DIR, f"{name}.npz"))["image"]
+        cpu_img = scenes.render_preset_golden(name, cpu)
+        rmse_cpu = scenes.golden_rmse(got, cpu_img)
+        emit("preset_golden", name=name, rmse_vs_cpu=rmse_cpu, tol=RMSE_TOL,
+             rmse_vs_golden=scenes.golden_rmse(got, want), cpu_rmse_vs_golden=scenes.golden_rmse(cpu_img, want),
+             pixels_apart_from_cpu=int((np.abs(got - cpu_img).max(-1) > 1e-3).sum()), card=card)
+        if not rmse_cpu <= RMSE_TOL:
+            raise AssertionError(f"spectral golden setup: the card is {rmse_cpu} from the CPU render")
+
+    def curve_frame(device):
+        hs = HostScene()
+        hs.add_box(make_material(color=(0.75, 0.75, 0.75), roughness=0.9), pos=(0, -0.15, 0), extent=(8, 0.15, 8))
+        arch = [[[-2.5, 0.0, 0.0, 0.45], [-1.0, 2.8, 0.0, 0.40], [1.0, 2.8, 0.0, 0.35], [2.5, 0.0, 0.0, 0.30]]]
+        lt = lights.build_lights([lights.make_point_light((0.0, 9.0, 1.0), (1.0, 1.0, 1.0), intensity=140.0),
+                                  lights.make_ambient_light((1.0, 1.0, 1.0), 0.10)], device)
+        cfg = WhittedConfig(width=96, height=72, max_depth=1, antialias=False)
+        cam = Camera(eye=(0.0, 2.2, 8.0), lookat=(0.0, 1.0, 0.0), up=(0, 1, 0), fov_y=40, aspect_ratio=96 / 72)
+        r = WhittedRenderer(None, compile_scene(hs, device), lt, cfg, cam,
+                            curves=build_curves(arch, [make_material(color=(0.9, 0.25, 0.2), roughness=0.5)], device))
+        return r.render()
+
+    got, want = curve_frame(dev), curve_frame(cpu)
+    rmse = scenes.golden_rmse(got, want)
+    red = float(((got[..., 0] > 1.5 * got[..., 1]) & (got[..., 0] > 0.05)).mean())
+    emit("curve_frame", width=96, height=72, rmse_vs_cpu=rmse, tol=RMSE_TOL,
+         max_abs_diff=float(np.abs(got - want).max()), red_share=red, card=card)
+    if not (rmse <= RMSE_TOL and red > 0.02):
+        raise AssertionError(f"curve frame: RMSE {rmse} against the CPU, red share {red}")
+
+
+def cli_presets(tmp, card):
+    """`python -m optixpathtracer_tpu_torch render --model hello_raytracing |
+    whitted | spectral` at 96x64, as a user types them, in three child
+    processes started together: each must exit 0, write a lit PNG of its
+    size, and import none of jax, the JAX package or PIL."""
+    from optixpathtracer_tpu_torch.io.image import read_rgb8
+
+    procs = {}
+    t0 = time.perf_counter()
+    for model in CLI_PRESETS:
+        out = os.path.join(tmp, f"{model}.png")
+        argv = ["render", "--model", model, "--width", "96", "--height", "64", "--spp", "1",
+                "--max-depth", "2", "--out", out]
+        procs[model] = (argv, out, subprocess.Popen([sys.executable, "-c", _CHILD, json.dumps(argv)], cwd=REPO,
+                                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    for model, (argv, out, proc) in procs.items():
+        stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
+        imported = [json.loads(ln.split(" ", 1)[1]) for ln in stdout.splitlines() if ln.startswith("IMPORTED ")]
+        img = read_rgb8(out) if proc.returncode == 0 and os.path.exists(out) else None
+        emit("cli_preset", model=model, argv=argv, returncode=proc.returncode,
+             wall_s=time.perf_counter() - t0, shape=None if img is None else list(img.shape),
+             image_mean=None if img is None else float(img.mean()), imported=imported,
+             stdout_tail=stdout[-300:], stderr_tail=stderr[-600:], card=card)
+        if proc.returncode != 0 or img is None or img.shape != (64, 96, 3) or not img.max() > 0:
+            raise AssertionError(f"cli_preset {model}: exit {proc.returncode}: {stderr[-2000:]}")
+        if imported != [[]]:
+            raise AssertionError(f"cli_preset {model}: the child imported {imported}")
+
+
 def main() -> int:
     import torch
 
@@ -1951,6 +2248,7 @@ def main() -> int:
     del cr1, cr_sh, rays8_1, hit1
 
     exactness_gate("exactness_gate", cs, hs, cam, dev)
+    route_ties(cl, o1, d1, cfg, dev, card)  # C.7: the walks' exact-t ties, counted
 
     # ---- goldens on the card ---------------------------------------------
     for name in scenes.OPEN_GOLDENS:
@@ -2015,6 +2313,17 @@ def main() -> int:
         check_walk(path, run, city_walk)
     aov_checkpoint(cs, probe, dev, card)
     quality_profile(cs, probe, dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- the other presets: hello and spectral on the city, whitted on its
+    # own scene, their goldens ----------------------------------------------
+    hello_launches, hello_t, preset_errs = hello_slice(cs, dev, peak, card, tc.launch_counts)
+    spectral_launches = spectral_slice(cs, probe, card, tc.launch_counts)
+    torch.cuda.empty_cache()
+    whitted_launches, whitted_t, whitted_errs = whitted_slice(dev, peak, card, tc.launch_counts)
+    for name, e in (*preset_errs.items(), *whitted_errs.items()):
+        errs[name] = max(errs[name], e)
+    preset_goldens(dev, card)
     del cs, cl, hs
     foveated_checks(dev)  # the goldens, and fused == three launches
     torch.cuda.empty_cache()
@@ -2034,6 +2343,7 @@ def main() -> int:
             errs[name] = max(errs[name], e)
         torch.cuda.empty_cache()
         cli_render(glb, tmp, card)
+        cli_presets(tmp, card)
 
     # ---- the gather probe (K6) -------------------------------------------
     g_launches, g_timing = gather_probe_phase(dev, card)
@@ -2171,6 +2481,7 @@ def main() -> int:
 
     runs = {"slice": city, "flat_slice": flat_city, **fov_runs, **quality_runs, "loft": loft_launches,
             "cornell": cornell_launches, **inst_runs, "fused_shadows": fused_launches,
+            "hello": hello_launches, "whitted": whitted_launches, "spectral": spectral_launches,
             "big_slice": big_launches}
     for run in runs.values():
         for name, k in run.items():
@@ -2180,7 +2491,7 @@ def main() -> int:
     # slice; `paths` gives each path's launches and, where its first bounce
     # was timed, the kernel's ms there
     timed_at = {"slice": city_t, "flat_slice": flat_t, "loft": loft_t["first bounce"], **inst_t,
-                "big_slice": big_t}
+                "hello": hello_t, "whitted": whitted_t, "big_slice": big_t}
     timing.update(flat_t, **city_t)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": KERNELS[name],
@@ -2188,8 +2499,8 @@ def main() -> int:
          **{k: timing[name][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
             if k in timing[name]},
          "paths": {path: {"launches": run.get(name, 0),
-                          **({k: timed_at[path][name][k] for k in ("ms", "plain_ms", "bound_ms")}
-                             if name in timed_at.get(path, {}) else {})}
+                          **({k: timed_at[path][name][k] for k in ("ms", "plain_ms", "bound_ms")
+                              if k in timed_at[path][name]} if name in timed_at.get(path, {}) else {})}
                    for path, run in runs.items() if run.get(name, 0)}}
         for name in KERNELS
     ]}), flush=True)

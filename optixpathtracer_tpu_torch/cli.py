@@ -4,13 +4,14 @@ optixpathtracer_tpu/cli.py).
 The flags are the reference's (`utils/config.py`) plus `--device`: the
 render runs on the card unless `--device cpu` is given, and does not fall
 back. The port's only traversal backend is the cluster walk. `render`
-covers `disney_pt` (progressive, `--checkpoint`, `--denoise`, `--metrics`),
-`foveated` (`--gaze`) and `--adaptive` on OBJ, glTF (`--instanced`: the
-multi-prototype TLAS) and the procedural boxes. What the port does not
-carry yet raises NotImplementedError naming its ROADMAP item: the
-hello_raytracing, whitted and spectral models (A.10), the demand-loaded
-texture pool (A.11), the lockstep / bfs / dense backends, `view` (A.14's
-viewer) and `bench` (A.6).
+covers every model: `disney_pt` (progressive, `--checkpoint`, `--denoise`,
+`--metrics`), `foveated` (`--gaze`), `hello_raytracing`, `whitted` (its own
+spheres scene; `--scene` is ignored, as in the reference) and `spectral`,
+and `--adaptive`, on OBJ, glTF (`--instanced`: the multi-prototype TLAS)
+and the procedural boxes. What the port does not carry yet raises
+NotImplementedError naming its ROADMAP item: the demand-loaded texture pool
+(A.11), the lockstep / bfs / dense backends, `view` (A.14's viewer) and
+`bench` (A.6).
 """
 from __future__ import annotations
 
@@ -22,8 +23,6 @@ import numpy as np
 import torch
 
 from .utils.config import RunConfig, add_config_args, config_from_args
-
-_UNPORTED_MODELS = ("hello_raytracing", "whitted", "spectral")
 
 
 def _load_scene(cfg: RunConfig):
@@ -75,8 +74,6 @@ def _load_probe(cfg: RunConfig, device):
 
 def check_supported(cfg: RunConfig, traversal_flag: str | None) -> None:
     """Raise NotImplementedError for what the port does not carry yet."""
-    if cfg.model in _UNPORTED_MODELS:
-        raise NotImplementedError(f"--model {cfg.model} is not ported yet (ROADMAP A.10)")
     if traversal_flag is not None and traversal_flag != "cluster":
         raise NotImplementedError(
             f"--traversal {traversal_flag}: the port carries only the cluster walk "
@@ -172,6 +169,9 @@ def cmd_render(args: argparse.Namespace) -> int:
         raise NotImplementedError("--demand-textures (the demand-loaded texture pool) is not "
                                   "ported yet (ROADMAP A.11)")
 
+    if cfg.model in ("hello_raytracing", "whitted", "spectral"):
+        return _render_preset(cfg, cs, probe, camera, device, log, timer, state_update)
+
     r = make_renderer(cfg, cs, probe, camera)
 
     if cfg.model == "foveated":
@@ -225,6 +225,38 @@ def cmd_render(args: argparse.Namespace) -> int:
         save_png(cfg.out, frame)
     print(f"wrote {cfg.out}")
     log.close()
+    return 0
+
+
+def _render_preset(cfg: RunConfig, cs, probe, camera, device, log, timer, state_update) -> int:
+    """`render --model hello_raytracing | whitted | spectral`, as the
+    reference CLI renders them (optixpathtracer_tpu/cli.py:119-154)."""
+    from . import models
+    from .io.image import save_png
+
+    if cfg.model == "hello_raytracing":
+        r = models.make_hello_renderer(cs, camera, cfg.width, cfg.height)
+        img = r.render()
+        save_png(cfg.out, img)
+        log.log_frame(state_update_s=state_update, render_s=timer.lap())
+        print(f"wrote {cfg.out}")
+        return 0
+    if cfg.model == "whitted":
+        r = models.make_whitted_renderer(cfg.width, cfg.height, cfg.max_depth, device=device)
+        for _ in range(cfg.frames):
+            img = r.render()
+            log.log_frame(render_s=timer.lap())
+        save_png(cfg.out, img)
+        print(f"wrote {cfg.out}")
+        return 0
+    r = models.make_spectral_renderer(cs, probe, camera, cfg.width, cfg.height, cfg.spp,
+                                      cfg.max_depth, emission_all_bounces=cfg.emission_all_bounces,
+                                      sampling=cfg.sampling, sampling_strata=cfg.sampling_strata)
+    for _ in range(cfg.frames):
+        r.render(download=False)
+        log.log_frame(render_s=timer.lap())
+    _save_tonemapped(cfg, r.image_tensor())
+    print(f"wrote {cfg.out}")
     return 0
 
 

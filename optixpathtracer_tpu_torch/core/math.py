@@ -89,6 +89,10 @@ def length_sq(a: Vec3) -> Tensor:
     return dot(a, a)
 
 
+def length(a: Vec3) -> Tensor:
+    return torch.sqrt(length_sq(a))
+
+
 def normalize(a: Vec3) -> Vec3:
     return a * torch.rsqrt(torch.clamp(length_sq(a), min=1e-30))
 
@@ -112,6 +116,26 @@ def where(mask: Tensor, a: Vec3, b: Vec3) -> Vec3:
 def lerp(a, b, t):
     """a + (b - a) * t, for tensors, scalars and Vec3 alike."""
     return a + (b - a) * t
+
+
+def clamp(a, lo, hi):
+    """Elementwise clamp of a tensor or of each component of a Vec3."""
+    if isinstance(a, Vec3):
+        return Vec3(*(torch.clamp(c, lo, hi) for c in a))
+    return torch.clamp(a, lo, hi)
+
+
+def vmin(a: Vec3, b: Vec3) -> Vec3:
+    return Vec3(torch.minimum(a.x, b.x), torch.minimum(a.y, b.y), torch.minimum(a.z, b.z))
+
+
+def vmax(a: Vec3, b: Vec3) -> Vec3:
+    return Vec3(torch.maximum(a.x, b.x), torch.maximum(a.y, b.y), torch.maximum(a.z, b.z))
+
+
+def reflect(i: Vec3, n: Vec3) -> Vec3:
+    """Mirror direction: i points *toward* the surface (GLSL convention)."""
+    return i - n * (2.0 * dot(i, n))
 
 
 def faceforward(n: Vec3, i: Vec3, nref: Vec3) -> Vec3:

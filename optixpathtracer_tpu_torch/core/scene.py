@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .materials import MaterialTable, build_table, make_material
-from .math import Vec3
+from .math import Vec3, cross, normalize
 
 Tensor = torch.Tensor
 
@@ -143,6 +143,15 @@ class SceneData(NamedTuple):
             v3(0), v3(3), v3(6), v3(9), v3(12), v3(15), uv,
             r[:, 24].to(torch.int32), r[:, 25] > 0.5,
         )
+
+    def geometric_normal(self, tri: Tensor) -> Vec3:
+        """Unit geometric normal cross(v1 - v0, v2 - v0) of triangles `tri`,
+        read from the packed shade rows."""
+        r = self.shade_rows[tri]
+        v0 = Vec3(r[:, 0], r[:, 1], r[:, 2])
+        e1 = Vec3(r[:, 3], r[:, 4], r[:, 5]) - v0
+        e2 = Vec3(r[:, 6], r[:, 7], r[:, 8]) - v0
+        return normalize(cross(e1, e2))
 
 
 @dataclasses.dataclass

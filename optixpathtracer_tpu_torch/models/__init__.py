@@ -1,8 +1,18 @@
-"""Model presets over the engine (port of optixpathtracer_tpu/models; the
-`disney_pt`, `foveated` and adaptive presets — hello_raytracing, whitted
-and spectral are ROADMAP A.10). Every RenderConfig field passes through
-`**overrides`, the engine options (`nee_rr`, `fused_shadows`,
-`env_via_bsdf`, the sampling strategy, ...) included."""
+"""Model presets over the engine (port of optixpathtracer_tpu/models): the
+five BASELINE.json configurations, each a preset over one engine:
+
+  1. 04HelloRaytracing         -> hello_raytracing (primary visibility + shadow)
+  2. cuda/whitted.cu spheres   -> whitted (recursive reflect/refract, point lights)
+  3. HelloPathtracing_original -> disney_pt (Disney BSDF PT + probe NEE + post)
+  4. HelloPathtracing_sv3      -> spectral (hero-wavelength + probe sampling)
+  5. HelloPathtracing_sv4      -> foveated (3-zone gaze-contingent PT)
+
+plus the adaptive renderer over disney_pt. Every RenderConfig field passes
+through `**overrides`, the engine options (`nee_rr`, `fused_shadows`,
+`env_via_bsdf`, the sampling strategy, ...) included; the traversal is
+"cluster" unless overridden (the reference's auto_tune platform switch does
+not apply). The presets render on the compiled scene's device; whitted,
+which builds its own scene, on `device` ("cuda" by default)."""
 from __future__ import annotations
 
 from ..builder import CompiledScene
@@ -10,11 +20,20 @@ from ..core.camera import Camera
 from ..engine.adaptive import AdaptiveRenderer
 from ..engine.foveated import FoveatedRenderer, FoveationConfig
 from ..engine.renderer import Renderer
+from ..engine.spectral import SpectralRenderer
 from ..engine.wavefront import RenderConfig
 from ..lights.probe import Probe
+from .hello_raytracing import HelloConfig, HelloRenderer
+from .whitted import make_renderer as make_whitted_renderer
 
-__all__ = ["make_disney_pt_renderer", "make_foveated_renderer", "make_adaptive_renderer",
+__all__ = ["make_hello_renderer", "make_whitted_renderer", "make_disney_pt_renderer",
+           "make_spectral_renderer", "make_foveated_renderer", "make_adaptive_renderer",
            "PRESETS"]
+
+
+def make_hello_renderer(cs: CompiledScene, camera: Camera, width=1200, height=800) -> HelloRenderer:
+    """Config 1: flat-shaded primary visibility at 1200x800 (BASELINE.json)."""
+    return HelloRenderer(cs, HelloConfig(width=width, height=height), camera)
 
 
 def make_disney_pt_renderer(
@@ -22,13 +41,23 @@ def make_disney_pt_renderer(
     width=1200, height=1024, spp=32, max_depth=8, **overrides,
 ) -> Renderer:
     """Config 3: the original pathtracer — spp 32 (main.cpp:134), depth 8
-    (deviceProgram.cu:429), 1200x1024 framebuffer (main.cpp:214). Renders on
-    the compiled scene's device; the traversal is "cluster" unless
-    overridden (the reference's auto_tune platform switch does not apply)."""
+    (deviceProgram.cu:429), 1200x1024 framebuffer (main.cpp:214)."""
     overrides.setdefault("traversal", "cluster")
     cfg = RenderConfig(width=width, height=height, samples_per_launch=spp,
                        max_depth=max_depth, **overrides)
     return Renderer(cs, probe, cfg, camera)
+
+
+def make_spectral_renderer(
+    cs: CompiledScene, probe: Probe, camera: Camera,
+    width=1200, height=1024, spp=4, max_depth=4, **overrides,
+) -> SpectralRenderer:
+    """Config 4: sv3 — spectral rendering with probe light sampling, depth 4.
+    The traversal is "cluster" unless overridden."""
+    overrides.setdefault("traversal", "cluster")
+    cfg = RenderConfig(width=width, height=height, samples_per_launch=spp,
+                       max_depth=max_depth, **overrides)
+    return SpectralRenderer(cs, probe, cfg, camera)
 
 
 def make_foveated_renderer(
@@ -71,6 +100,9 @@ def make_adaptive_renderer(
 
 
 PRESETS = {
+    "hello_raytracing": make_hello_renderer,
+    "whitted": make_whitted_renderer,
     "disney_pt": make_disney_pt_renderer,
+    "spectral": make_spectral_renderer,
     "foveated": make_foveated_renderer,
 }

@@ -229,6 +229,40 @@ def render_foveated_golden(name: str, device) -> np.ndarray:
     return r.accum_image()
 
 
+# golden name -> (width, height, spp, max_depth, frames) of
+# tests/golden_scenes.py `render_hello`, `render_whitted(_small)`,
+# `render_spectral(_small)`
+PRESET_GOLDENS = {
+    "hello": (96, 64, 1, 0, 1),
+    "whitted_s": (48, 32, 1, 2, 1),
+    "whitted": (96, 64, 1, 3, 1),
+    "spectral_s": (48, 32, 1, 2, 1),
+    "spectral": (96, 64, 2, 3, 2),
+}
+
+
+def render_preset_golden(name: str, device) -> np.ndarray:
+    """Render a `hello`, `whitted*` or `spectral*` golden setup: hello and
+    spectral on the open scene, whitted on its own; returns the (H, W, 3)
+    image (hello's in [0, 1], whitted's sRGB, spectral's linear)."""
+    from .engine.spectral import SpectralRenderer
+    from .models import make_hello_renderer, make_whitted_renderer
+
+    w, h, spp, depth, frames = PRESET_GOLDENS[name]
+    if name.startswith("whitted"):
+        return make_whitted_renderer(w, h, depth, device=device).render()
+    cs = compile_scene(open_scene(), device)
+    if name == "hello":
+        return make_hello_renderer(cs, open_camera(w, h), w, h).render()
+    cfg = RenderConfig(width=w, height=h, samples_per_launch=spp, max_depth=depth,
+                       traversal="cluster")
+    r = SpectralRenderer(cs, sky_probe(device), cfg, open_camera(w, h))
+    for _ in range(frames):
+        img = r.render()
+    return img
+
+
+
 def dark_probe(device) -> Probe:
     """The closed rooms' 1e-6 probe: lit by their emitters, not the sky
     (bench.py `--scene loft`, tests/golden_scenes.py)."""

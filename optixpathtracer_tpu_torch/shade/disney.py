@@ -161,8 +161,13 @@ def bsdf_sample(mat: MaterialTable, eta_i, eta_o, u: Vec3, v: Vec3, n: Vec3,
     return state, BSDFSampleResult(light=light, pdf=pdf, event=event)
 
 
-def bsdf_eval(mat: MaterialTable, albedo: Vec3, eta_i, eta_o, n: Vec3, v: Vec3, l: Vec3) -> Vec3:
-    """Evaluate the full principled BSDF (BSDFEval semantics)."""
+def bsdf_eval(mat: MaterialTable, albedo: Vec3, eta_i, eta_o, n: Vec3, v: Vec3, l: Vec3,
+              cspec0_override: Vec3 | None = None) -> Vec3:
+    """Evaluate the full principled BSDF (BSDFEval semantics).
+
+    cspec0_override: replaces the derived specular color. The eval is
+    jointly affine in (albedo, cspec0), so three overridden evals rebuild
+    the exact per-wavelength BSDF of the spectral engine (engine/spectral)."""
     n_dot_l = dot(n, l)
     n_dot_v = dot(n, v)
     h = safe_normalize(l + v)
@@ -179,6 +184,8 @@ def bsdf_eval(mat: MaterialTable, albedo: Vec3, eta_i, eta_o, n: Vec3, v: Vec3, 
     cd_lum = 0.3 * cd_lin.x + 0.6 * cd_lin.y + 0.1 * cd_lin.z
     ctint = where(cd_lum > 0.0, cd_lin / torch.clamp(cd_lum, min=1e-8), one)
     cspec0 = lerp(lerp(one, ctint, mat.specular_tint) * (mat.specular * 0.08), cd_lin, mat.metallic)
+    if cspec0_override is not None:
+        cspec0 = cspec0_override
 
     a = torch.clamp(mat.roughness, min=0.001)
 

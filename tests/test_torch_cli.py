@@ -1,8 +1,9 @@
 """Port parity, the command line: `utils/config` (the cases of
 tests/test_config.py, and a config file written by either package loading
 in the other), `utils/logging` (the JSONL rows' keys), `utils/validation`,
-the port of test_cli_sampling_flag_reaches_the_engine, the unported flags
-raising with their ROADMAP item, `--profile`, the device rule (no
+the port of test_cli_sampling_flag_reaches_the_engine, the hello_raytracing,
+whitted and spectral models rendering, the unported flags raising with
+their ROADMAP item, `--profile`, the device rule (no
 fallback), and `python -m optixpathtracer_tpu_torch render --device cpu` in
 a process that never imports jax, the JAX package or PIL. The images of the
 two command lines are compared in tests/test_torch_cli_parity.py.
@@ -166,10 +167,19 @@ def test_cli_sampling_flag_reaches_the_engine(tmp_path):
     assert abs(a.mean() - b.mean()) / b.mean() < 0.1
 
 
+@pytest.mark.parametrize("model", ["hello_raytracing", "whitted", "spectral"])
+def test_model_presets_render(tmp_path, model):
+    """`render --model hello_raytracing | whitted | spectral` on the CPU at
+    48x32: a PNG of that size, lit; whitted renders its own scene and
+    ignores --scene, as the reference does."""
+    extra = ["--scene", scenes.LOFT_OBJ] if model == "whitted" else []
+    img = _render(tmp_path, model, "--model", model, *extra)
+    assert img.shape == (32, 48, 3) and img.max() > 20 and img.std() > 2
+    if model == "whitted":  # the preset's scene: the miss colour (0.34, 0.55, 0.85) in sRGB at the top
+        np.testing.assert_allclose(img[0, 0], [158, 196, 238], atol=2)
+
+
 @pytest.mark.parametrize("argv, item", [
-    (["--model", "hello_raytracing"], "A.10"),
-    (["--model", "whitted"], "A.10"),
-    (["--model", "spectral"], "A.10"),
     (["--traversal", "lockstep"], "not to port"),
     (["--traversal", "bfs"], "not to port"),
     (["--traversal", "dense"], "not to port"),

@@ -743,3 +743,69 @@ def test_fused_sweep_of_2n_rays_with_mixed_t_min(cuda, walk):
         rec = tc.closest_hit_cluster(cs, Vec3(*(a[half] for a in o)), Vec3(*(a[half] for a in d)),
                                      t_min[half], t_max[half], hier=walk == "node")
         assert torch.equal(rec.t, both.t[half]) and torch.equal(rec.tri, both.tri[half])
+
+
+def _traced_calls(monkeypatch, module, names):
+    """Record (o, d, t_min, t_max) of every call of module.names (each
+    called as fn(scene, o, d, t_min, t_max))."""
+    calls = {n: [] for n in names}
+    for n in names:
+        real = getattr(module, n)
+
+        def call(scene, o, d, t_min, t_max, *a, _real=real, _n=n, **kw):
+            calls[_n].append((o, d, t_min, t_max))
+            return _real(scene, o, d, t_min, t_max, *a, **kw)
+
+        monkeypatch.setattr(module, n, call)
+    return calls
+
+
+def test_whitted_deepest_level_rays_bit_equal_to_plain(cuda, monkeypatch):
+    """K1 (cluster boxes), K2 and K3 on the whitted preset's own deepest
+    level: 2^3 x N reflected and refracted rays off the spheres and the
+    floor (mostly closed lanes), and its first point light's shadow rays."""
+    from optixpathtracer_tpu_torch.engine import whitted as tw
+    from optixpathtracer_tpu_torch.models import make_whitted_renderer
+
+    r = make_whitted_renderer(96, 72, 3, device=cuda)
+    calls = _traced_calls(monkeypatch, tw, ("trace_closest", "trace_occluded"))
+    r.render(download=False)
+    cs = r.cs.clusters
+    (o, d, t_min, t_max), (p, l, s_min, s_max) = calls["trace_closest"][3], calls["trace_occluded"][6]
+    assert o.x.shape[0] == 8 * 96 * 72 and 0 < int((t_max > 0).sum()) < o.x.shape[0]
+    _cull_and_sweeps_equal_plain(cs, o, d, t_min, t_max, cs.cluster_size)
+    cr_s = tc.block_cull(cs, p, l, s_min, s_max)
+    assert torch.equal(tc.any_sweep(cs.rows, cs.xf_inv, cr_s, cs.cluster_size),
+                       tc._any_torch(cs.rows, cs.xf_inv, cr_s, cs.cluster_size))
+
+
+def test_hello_unnormalised_shadow_rays_bit_equal_to_plain(cuda, monkeypatch):
+    """K1 (entry boxes) and K4b on hello_raytracing's shadow rays, which run
+    from the hit point to the light unnormalised (|d| ~ 2400 on the city, t
+    in (0, 0.999)), and K4a on its primary rays, on a 2000-box city (node
+    walk)."""
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.builder import compile_scene
+    from optixpathtracer_tpu_torch.models import hello_raytracing as hr
+
+    cs = compile_scene(scenes.build_city_scene(n_boxes=2000), cuda, leaf_size=8, cluster_size=256)
+    cl = cs.clusters
+    assert cl.num_entries >= tc.HIER_MIN_ENTRIES
+    calls = _traced_calls(monkeypatch, hr, ("trace_closest", "trace_occluded"))
+    hr.HelloRenderer(cs, hr.HelloConfig(width=240, height=160), scenes.city_camera(240, 160)).render(download=False)
+    (o, d, t_min, t_max), = calls["trace_closest"]
+    (p, l, s_min, s_max), = calls["trace_occluded"]
+    length = (l.x * l.x + l.y * l.y + l.z * l.z).sqrt()
+    assert float(length[t_max > 0].median()) > 100  # unnormalised
+    nt = cl.node_tables
+    for rays8 in (tc._pack_rays8(cl, o, d, t_min, t_max), tc._pack_rays8(cl, p, l, s_min, s_max)):
+        for k, q in zip(tc.cull_blocks(rays8, nt.node_sph_t, nt.node_box_t), tc._cull_torch(rays8, nt.node_sph_t)):
+            assert torch.equal(k, q)
+    cr = tc.block_cull_nodes(cl, o, d, t_min, t_max)
+    t_k, tri_k, _ = tc.closest_hier_sweep(cl.rows, cl.xf_inv, nt, cr, cl.cluster_size)
+    t_p, tri_p = tc._closest_hier_torch(cl.rows, cl.xf_inv, nt, cr, cl.cluster_size)
+    assert torch.equal(t_k, t_p) and torch.equal(tri_k, tri_p)
+    cr_s = tc.block_cull_nodes(cl, p, l, s_min, s_max)
+    occ = tc.any_hier_sweep(cl.rows, cl.xf_inv, nt, cr_s, cl.cluster_size)
+    assert torch.equal(occ, tc._any_hier_torch(cl.rows, cl.xf_inv, nt, cr_s, cl.cluster_size))
+    assert 0 < int(occ.sum()) < int((s_max > 0).sum())
