@@ -94,7 +94,23 @@ port's paths and checks that each went through its kernels:
      the port's CPU render, ROADMAP C.8; a whitted frame with a curve, card
      against CPU) and, beside `cli_render`, `render --model
      hello_raytracing | whitted | spectral` at 96x64 in three child
-     processes (`cli_preset`).
+     processes (`cli_preset`);
+ 11. demand-loaded textures and the viewer: bench.py's loft row shading
+     from a one-level demand pool of 128 tiles (`demand_loft`: frames 0
+     and 1 equal to the resident render within 1e-5, frame 1 loading no
+     page; K1 / K2 / K3, settle launches counted), a 4096x4096 texture
+     from a numpy seed on a receding plane at 1200x800 (`demand_big`:
+     levels=1 equal to the resident render, levels=4 touching coarse pages
+     with K1 / K2 / K3 held and timed on its rays and the card equal to
+     the CPU on a 160x100 window at the frame's pixel footprint, and a
+     pool below the working set ending after a bounded number of
+     launches), the viewer in
+     process (`view_slice`: `run_interactive` on a free port serving
+     `cli.make_renderer`'s disney_pt on the city at 1200x800 and the
+     foveated preset at 3840x2160 fused, driven over HTTP, with the
+     publish (JPEG encode) time and the loop's frames a second), and
+     `render --demand-textures 128` and `view --max-frames 2 --port 0` in
+     two child processes (`cli_render`, `cli_view`).
 
 The cull (K1) is held against its plain version and timed on both tables
 (cluster boxes and entry boxes on the city, entry boxes on the big scene)
@@ -143,6 +159,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1202,7 +1219,7 @@ def fovea4k_quality(cs, probe, dev, counts, card):
     d3 = Vec3(*(torch.as_tensor(np.ascontiguousarray(dirs[:, i]), device=dev) for i in range(3)))
     o3 = Vec3(*(torch.full_like(d3.x, float(c)) for c in np.asarray(cam.eye, np.float32)))
     rec = closest_hit_cluster(cs.clusters, o3, d3, 1e-3, 1e16)
-    nrm, _, alb = _hit_geometry(cs, rec, d3, False)
+    nrm, _, alb, _ = _hit_geometry(cs, rec, d3, False)
     hit = rec.t < 1e15
     g_nrm, g_alb = (torch.stack([torch.where(hit, c, 0.0) for c in v], -1).reshape(2 * half, 2 * half, 3)
                     for v in (nrm, alb))
@@ -1437,7 +1454,7 @@ def loft_slice(dev, peak, card, counts):
     `disney_pt` at 1200x800, 2 spp, depth 4 with `scenes.loft_config`; then
     K1 (cluster boxes), K2 and K3 on its first and second bounce, its
     exactness gate and the texture checks. Returns (launches, kernel times
-    at the first bounce)."""
+    at the first bounce, (compiled scene, host scene, setup))."""
     import torch
 
     from optixpathtracer_tpu_torch import scenes
@@ -1477,7 +1494,7 @@ def loft_slice(dev, peak, card, counts):
                                     for k, v in t.items()} for label, t in times.items()}, bit_equal=True, card=card)
     exactness_gate("loft_exactness_gate", cs, hs, setup.camera, dev)
     texture_card_eq(hs, dev, card)
-    return launches, times
+    return launches, times, (cs, hs, setup)
 
 
 def cornell_slice(dev, card, counts):
@@ -1519,6 +1536,416 @@ def file_goldens(dev):
                "gltf": lambda: scenes.render_gltf_golden(dev)}
     for name in FILE_GOLDENS:
         check_golden("file_goldens", name, renders[name]())
+
+
+# ---- demand-loaded textures and the viewer ---------------------------------
+
+DEMAND_TOL = 1e-5  # tests/test_demand_engine.py:57-78: settled == resident
+DEMAND_BIG = 4096  # the reference sources' default size (io/demand.py:83-84): 4489 base pages
+DEMAND_SEED = 12
+DEMAND_VIEW = dict(eye=(0, 1.5, 8), lookat=(0, 0.5, 0), up=(0, 1, 0), fov_y=50)  # the receding plane's camera
+DEMAND_WINDOW = (160, 100)  # demand_big (b)'s card-against-CPU renders
+# the window's card-against-CPU limit, sqrt-space RMSE: it reads 2.8e-5
+# sound; planted faults read 1.9e-4 to 2.2e-2 (tests/demand_fault_readings.py)
+DEMAND_WINDOW_TOL = 1e-4
+
+
+def _demand_window():
+    """The window camera of demand_big (b)'s card-against-CPU renders: a
+    DEMAND_WINDOW view of the near plane inside the 1200x800 frame, with
+    that frame's pixel angle, so that its hits take the mip levels the
+    frame's own near plane takes (levels 1-3). A 160x100 render of the
+    whole view samples every hit at the last level, where a wrong LOD
+    changes no pixel. Its paths part between card and CPU more often than
+    the whole view's, hence DEMAND_WINDOW_TOL."""
+    half = np.tan(np.radians(DEMAND_VIEW["fov_y"] / 2)) * DEMAND_WINDOW[1] / HEIGHT
+    return dict(lookat=(0.0, 0.0, 3.0), fov_y=float(np.degrees(2 * np.arctan(half))))
+
+
+def _timed_requests(mgr):
+    """Wrap mgr.process_requests to add its host seconds to a list."""
+    spent = []
+    real = mgr.process_requests
+
+    def call(requests):
+        t0 = time.perf_counter()
+        out = real(requests)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    mgr.process_requests = call
+    return spent
+
+
+def _pool_mb(mgr):
+    return sum(t.numel() * t.element_size() for t in mgr.pool) / 1e6
+
+
+def demand_loft(cs, hs, setup, dev, card, counts):
+    """bench.py's loft row (1200x800, 2 spp, depth 4, `scenes.loft_config`)
+    shading from a one-level demand pool of 128 tiles (3 textures x 25
+    pages): frames 0 and 1 against the resident-TexturePool renderer within
+    DEMAND_TOL, frame 1 loading no page. Launch counts cover the demand
+    renderer's frames, settle launches included. Returns the launches."""
+    import torch
+
+    from optixpathtracer_tpu_torch.io.demand import DemandTextureManager
+    from optixpathtracer_tpu_torch.models import make_disney_pt_renderer
+
+    def renderer(demand=None):
+        return make_disney_pt_renderer(cs, setup.probe, setup.camera, width=WIDTH, height=HEIGHT, spp=SPP,
+                                       max_depth=DEPTH, demand=demand, **setup.flags)
+
+    resident = renderer()
+    want, resident_s = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        resident.render(download=False)
+        resident_s.append(time.perf_counter() - t0)
+        want.append(resident.accum_image())
+    mgr = DemandTextureManager.from_host_scene(hs, capacity=128, levels=1, device=dev)
+    host_s = _timed_requests(mgr)
+    demand = renderer(mgr)
+    torch.cuda.synchronize()
+    counts.clear()
+    frames = []
+    for f in range(2):
+        before = mgr.pages_loaded
+        t0 = time.perf_counter()
+        demand.render(download=False)
+        frames.append(dict(frame=f, frame_s=time.perf_counter() - t0, resident_frame_s=resident_s[f],
+                           pages_loaded=mgr.pages_loaded - before, launches=demand.last_launches,
+                           max_abs_diff=float(np.abs(demand.accum_image() - want[f]).max())))
+    launches = dict(counts)
+    emit("demand_loft", width=WIDTH, height=HEIGHT, spp=SPP, max_depth=DEPTH, pages=mgr.num_pages,
+         capacity=mgr.capacity, pool_mb=_pool_mb(mgr), frames=frames,
+         process_requests_ms=[t * 1e3 for t in host_s], launches=launches,
+         launches_per_frame={k: v / 2 for k, v in launches.items()}, tol=DEMAND_TOL, card=card)
+    check_walk("demand_loft", launches, "flat")
+    if any(fr["max_abs_diff"] > DEMAND_TOL for fr in frames):
+        raise AssertionError(f"demand_loft: settled frames differ from the resident render: {frames}")
+    if frames[0]["pages_loaded"] <= 0 or frames[1]["pages_loaded"] != 0:
+        raise AssertionError(f"demand_loft: pages loaded per frame {[f['pages_loaded'] for f in frames]}")
+    return launches
+
+
+def _plane_scene(tex):
+    """tests/test_demand_engine.py:186-212's receding plane (240 units,
+    the texture repeated 40 times) under `tex`, with the box of the
+    engine test's textured scene on it."""
+    from optixpathtracer_tpu_torch.core.materials import make_material
+    from optixpathtracer_tpu_torch.core.scene import HostScene, Mesh
+
+    hs = HostScene()
+    tid = hs.add_texture(tex)
+    s = 120.0
+    hs.add_mesh(Mesh(
+        vertices=np.array([[-s, 0, -s], [s, 0, -s], [s, 0, s], [-s, 0, s]], np.float32),
+        indices=np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+        normals=np.array([[0, 1, 0]] * 4, np.float32),
+        texcoords=np.array([[0, 0], [40, 0], [40, 40], [0, 40]], np.float32),
+        material=make_material(color=(1, 1, 1), texture_id=tid)))
+    hs.add_box(make_material(color=(0.8, 0.4, 0.2), roughness=0.4), pos=(0, 0.4, 0), extent=(0.4, 0.4, 0.4))
+    return hs
+
+
+def demand_big(dev, peak, card, counts):
+    """The state size the pager exists for: one DEMAND_BIGxDEMAND_BIG
+    texture from numpy.random.default_rng(DEMAND_SEED) (201 MB) on the
+    receding plane at 1200x800, 2 spp, depth 4 with the bench's flags,
+    against the resident-TexturePool render: (a) levels=1, capacity 4608
+    (every base page): the settled frame within DEMAND_TOL; (b) levels=4
+    (the CLI render's setting), capacity 6144 (every page): level > 0
+    pages touched, the frame settles, and its mean within 10 % of the
+    resident render's; K1 / K2 / K3 held bit-equal to their plain versions
+    and timed on this frame's first-bounce rays and shadow rays and on the
+    engine's second bounce; and the card against the port's CPU render of
+    the same pool at 160x100, of the whole view and of `_demand_window`:
+    equal page tables (in the window a LOD a quarter level off moves
+    pages), the whole view within SAMPLING_TOL, sqrt-space RMSE, as every
+    card-against-CPU render here, the window within DEMAND_WINDOW_TOL;
+    (c) capacity 1024, below the working set: the first frame ends after a
+    bounded number of launches with subframe_index 1, and a second frame
+    evicts. Returns (the launches of the demand renders on the card, the
+    kernel times by wavefront)."""
+    import torch
+
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.builder import compile_scene
+    from optixpathtracer_tpu_torch.core.camera import Camera
+    from optixpathtracer_tpu_torch.engine.renderer import Renderer
+    from optixpathtracer_tpu_torch.engine.wavefront import RenderConfig
+    from optixpathtracer_tpu_torch.io.demand import DemandTextureManager
+    from optixpathtracer_tpu_torch.lights.probe import build_probe
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
+    t0 = time.perf_counter()
+    tex = np.random.default_rng(DEMAND_SEED).random((DEMAND_BIG, DEMAND_BIG, 3), dtype=np.float32)
+    hs = _plane_scene(tex)
+    texture_s = time.perf_counter() - t0
+
+    def setup(device, w, h, **view):
+        cs = compile_scene(hs, device, leaf_size=8, cluster_size=256)
+        probe = build_probe(np.full((8, 16, 3), 1.0, np.float32), device)
+        cfg = RenderConfig(width=w, height=h, samples_per_launch=SPP, max_depth=DEPTH, traversal="cluster",
+                           **BENCH_FLAGS)
+        cam = Camera(**{**DEMAND_VIEW, **view}, aspect_ratio=w / h)
+        return cs, probe, lambda demand=None: Renderer(cs, probe, cfg, cam, demand=demand)
+
+    cs, probe, make = setup(dev, WIDTH, HEIGHT)
+    resident = make()
+    t0 = time.perf_counter()
+    resident.render(download=False)
+    resident_s = time.perf_counter() - t0
+    want = resident.accum_image()
+    runs, launches, times = {}, {}, {}
+    for name, levels, capacity in (("a", 1, 4608), ("b", 4, 6144), ("c", 1, 1024)):
+        mgr = DemandTextureManager.from_host_scene(hs, capacity=capacity, levels=levels, device=dev)
+        host_s = _timed_requests(mgr)
+        r = make(mgr)
+        torch.cuda.synchronize()
+        counts.clear()
+        t0 = time.perf_counter()
+        r.render(download=False)
+        frame_s = time.perf_counter() - t0
+        usage = r.last_output.tex_usage.cpu().numpy()
+        img = r.accum_image()
+        first = dict(subframe_index=r.subframe_index, launches=r.last_launches, pages_loaded=mgr.pages_loaded)
+        if name == "c":  # a second frame: the pool turns over
+            r.render(download=False)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        runs[name] = dict(first_frame=first, frames=r.subframe_index,
+            levels=levels, capacity=capacity, pages=mgr.num_pages, pool_mb=_pool_mb(mgr),
+            pages_loaded=mgr.pages_loaded, pages_evicted=mgr.pages_evicted, launches=r.last_launches,
+            pages_touched=int(usage.sum()), pending_after=int((usage & (mgr._page_table < 0)).sum()),
+            levels_touched=sorted(set(mgr._page_lvl[np.nonzero(usage)[0]].tolist())),
+            process_requests_ms=[t * 1e3 for t in host_s], frame_s=frame_s, resident_frame_s=resident_s,
+            max_abs_diff=float(np.abs(img - want).max()),
+            mean=float(img.mean()), resident_mean=float(want.mean()))
+        if name == "b":  # the path's kernels on its own rays (launches not counted above)
+            cfg, cl = r.config, cs.clusters
+            (o1, d1), (p_hit, wi, t_sh), _ = first_bounce_and_shadows(r, cl, probe, dev)
+            waves = {"first bounce": ((o1, d1, cfg.t_min, cfg.t_max), (p_hit, wi, cfg.shadow_t_min, t_sh)),
+                     "second bounce (the engine's)": engine_bounce(r, 1)}
+            for label, ((o, d, t_min, t_max), (p, w, s_min, s_max)) in waves.items():
+                times[label] = time_flat(cl, tc._pack_rays8(cl, o, d, t_min, t_max),
+                                         tc.block_cull(cl, o, d, t_min, t_max), tc.block_cull(cl, p, w, s_min, s_max),
+                                         peak, f"demand_big {label}, 1200x800x2spp", card,
+                                         budget_s=PRESET_PLAIN_BUDGET_S)
+        del r, mgr
+        torch.cuda.empty_cache()
+    emit("demand_big_kernels", **{label: {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+                                          for k, v in t.items()} for label, t in times.items()},
+         bit_equal=True, card=card)
+    # (b) on the card against the port's CPU render at 160x100: the whole
+    # view, and a window at the 1200x800 frame's pixel footprint
+    card_vs_cpu = {}
+    for view, cam in (("view", {}), ("window", _demand_window())):
+        imgs, tables = [], []
+        for device in (dev, torch.device("cpu")):
+            _, _, make_small = setup(device, *DEMAND_WINDOW, **cam)
+            mgr = DemandTextureManager.from_host_scene(hs, capacity=6144, levels=4, device=device)
+            r = make_small(mgr)
+            r.render(download=False)
+            imgs.append(r.accum_image())
+            tables.append(mgr._page_table.copy())
+        card_vs_cpu[view] = dict(camera=cam, sqrt_rmse=scenes.golden_rmse(*imgs),
+                                 max_abs_diff=float(np.abs(imgs[0] - imgs[1]).max()),
+                                 page_tables_equal=bool(np.array_equal(*tables)),
+                                 levels_touched=sorted(set(mgr._page_lvl[tables[1] >= 0].tolist())))
+    emit("demand_big", texture=[DEMAND_BIG, DEMAND_BIG], texture_mb=tex.nbytes / 1e6, texture_s=texture_s,
+         width=WIDTH, height=HEIGHT, spp=SPP, max_depth=DEPTH, runs=runs, card_vs_cpu=card_vs_cpu,
+         launches=launches, tol=DEMAND_TOL, card_vs_cpu_tol=dict(view=SAMPLING_TOL, window=DEMAND_WINDOW_TOL),
+         card=card)
+    a, b, c = runs["a"], runs["b"], runs["c"]
+    if a["max_abs_diff"] > DEMAND_TOL or a["pending_after"]:
+        raise AssertionError(f"demand_big (a): settled frame {a['max_abs_diff']} from the resident render")
+    if (max(b["levels_touched"]) <= 0 or b["pending_after"]
+            or abs(b["mean"] - b["resident_mean"]) > 0.1 * b["resident_mean"]):
+        raise AssertionError(f"demand_big (b): {b}")
+    cv, cw = card_vs_cpu["view"], card_vs_cpu["window"]
+    if (not (cv["page_tables_equal"] and cw["page_tables_equal"]) or cv["sqrt_rmse"] > SAMPLING_TOL
+            or cw["sqrt_rmse"] > DEMAND_WINDOW_TOL or len(cw["levels_touched"]) < 2):
+        raise AssertionError(f"demand_big (b): the card against the CPU: {card_vs_cpu}")
+    if (c["first_frame"]["subframe_index"] != 1 or c["first_frame"]["launches"] > 32
+            or c["pages_touched"] <= c["capacity"] or c["pages_evicted"] <= 0):
+        raise AssertionError(f"demand_big (c): {c}")
+    check_walk("demand_big", launches, "flat")
+    return launches, times
+
+
+VIEW_FRAMES = 7  # `run_interactive`'s max_frames per renderer in `view_slice`
+
+
+def _jpeg_size(data: bytes) -> tuple[int, int]:
+    """(height, width) of a baseline JPEG's SOF0 segment."""
+    i = 2
+    while data[i + 1] != 0xC0:
+        i += 2 + int.from_bytes(data[i + 2:i + 4], "big")
+    return int.from_bytes(data[i + 5:i + 7], "big"), int.from_bytes(data[i + 7:i + 9], "big")
+
+
+def _view_session(phase, renderer, camera, card, gaze=False):
+    """`run_interactive` on `renderer` in a thread, VIEW_FRAMES frames,
+    driven over HTTP: the page, /frame.jpg (SOI / EOI, SOF0 dimensions the
+    frame's), /stats counting frames, a wheel event and a drag each moving
+    the camera and restarting the accumulation on the next frame, and with
+    gaze=True a move event setting the gaze to its pixel. The publish
+    (encode) time is the median of the loop's own publishes (from numpy, as
+    the loop sends them); then the last frame's encode from a tensor on the
+    card."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from optixpathtracer_tpu_torch.io.image import encode_jpeg
+    from optixpathtracer_tpu_torch.viewer import server as viewer_server
+
+    started = []  # subframe index at the start of each frame: 0 after a camera change
+    last = []  # the loop's last frame, as it was published
+    real_render = renderer.render
+
+    def render(*a, **kw):
+        started.append(renderer.subframe_index)
+        last[:] = [real_render(*a, **kw)]
+        return last[0]
+
+    renderer.render = render
+    publish = []  # seconds of each of the loop's publishes
+    real_publish = viewer_server.ViewerServer.publish
+
+    def timed_publish(self, frame):
+        t1 = time.perf_counter()
+        real_publish(self, frame)
+        publish.append(time.perf_counter() - t1)
+
+    viewer_server.ViewerServer.publish = timed_publish
+    with socket.socket() as s:  # a free port, known before the loop starts its server
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    failed = []
+
+    def loop():
+        try:
+            viewer_server.run_interactive(renderer, camera, port=port, max_frames=VIEW_FRAMES)
+        except Exception as e:  # noqa: BLE001 — re-raised below in the main thread
+            failed.append(e)
+
+    th = threading.Thread(target=loop)
+    t0 = time.perf_counter()
+    th.start()
+    base = None
+
+    def get(path):
+        return urllib.request.urlopen(base + path, timeout=60).read()
+
+    def frames_after(n):
+        while len(started) < n and th.is_alive():
+            th.join(0.005)
+        if len(started) < n:
+            raise AssertionError(f"{phase}: the loop ended after {len(started)} frames")
+
+    def moved_and_restarted(event_paths):
+        eye = camera.eye.copy()
+        mark = len(started)
+        for path in event_paths:
+            get(path)
+        moved = not np.allclose(camera.eye, eye)
+        frames_after(mark + 2)
+        return moved and 0 in started[mark:]
+
+    try:
+        frames_after(2)  # the first frame is published
+        base = f"http://127.0.0.1:{port}"
+        page = get("/")
+        jpg = get("/frame.jpg")
+        stats = json.loads(get("/stats"))
+        checks = dict(page=b"optixpathtracer_tpu_torch" in page, jpeg_markers=jpg[:2] == b"\xff\xd8"
+                      and jpg[-2:] == b"\xff\xd9", sof0=_jpeg_size(jpg) == (renderer.config.height,
+                                                                        renderer.config.width),
+                      stats_frames=stats.get("frames", 0) >= 1)
+        w, h = renderer.config.width, renderer.config.height
+        checks["wheel"] = moved_and_restarted(["/event?type=wheel&d=1"])
+        checks["drag"] = moved_and_restarted([f"/event?type=down&x={w // 2}&y={h // 2}&b=0",
+                                              f"/event?type=move&x={w // 2 + 40}&y={h // 2 + 25}&b=0"])
+        if gaze:
+            get(f"/event?type=move&x={w // 3}&y={h // 4}&b=-1")
+            checks["gaze"] = tuple(renderer.gaze) == (w // 3, h // 4)
+    finally:
+        th.join()
+        renderer.render = real_render
+        viewer_server.ViewerServer.publish = real_publish
+    loop_s = time.perf_counter() - t0
+    if failed:
+        raise failed[0]
+    dev_frame = torch.as_tensor(np.ascontiguousarray(last[0]), device="cuda")
+    encode_jpeg(dev_frame)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    data = encode_jpeg(dev_frame)
+    device_ms = (time.perf_counter() - t1) * 1e3
+    stats = renderer.stats()
+    out = dict(width=w, height=h, frames=len(started), loop_s=loop_s, loop_fps=len(started) / loop_s,
+               frame_s=stats.get("mean_frame_s", 1.0 / stats["fps"]), publish_ms=float(np.median(publish)) * 1e3,
+               encode_from_card_tensor_ms=device_ms, jpeg_bytes=len(data), checks=checks)
+    if not all(checks.values()) or _jpeg_size(data) != (h, w):
+        raise AssertionError(f"{phase}: {out}")
+    return out
+
+
+def view_slice(cs, probe, dev, card, counts):
+    """The viewer in process: `run_interactive` on a free port, serving
+    `cli.make_renderer`'s disney_pt on the city at 1200x800 (the CLI's
+    flags, 2 spp, depth 4) and the foveated preset at 3840x2160, fused.
+    Returns the launches of both loops."""
+    from optixpathtracer_tpu_torch import cli, scenes
+    from optixpathtracer_tpu_torch.models import make_foveated_renderer
+    from optixpathtracer_tpu_torch.utils.config import RunConfig
+
+    counts.clear()
+    cam = scenes.city_camera(WIDTH, HEIGHT)
+    rc = RunConfig(width=WIDTH, height=HEIGHT, spp=SPP, max_depth=DEPTH, traversal="cluster")
+    city = _view_session("view_slice", cli.make_renderer(rc, cs, probe, cam), cam, card)
+    cam4k = scenes.city_camera(**FOV_4K)
+    fov = _view_session("view_slice", make_foveated_renderer(cs, probe, cam4k, **FOV_4K, fused=True,
+                                                             **BENCH_FLAGS), cam4k, card, gaze=True)
+    launches = dict(counts)
+    emit("view_slice", disney_pt_city=city, foveated_4k_fused=fov, launches=launches, card=card)
+    check_walk("view_slice", launches, walk_of(cs.clusters))
+    return launches
+
+
+def cli_demand_view(tmp, card):
+    """`render --scene scenes/loft.obj --demand-textures 128` and `view
+    --max-frames 2 --port 0` in two child processes started together, at
+    320x200 (the render at 1 spp): each exits 0 and imports none of jax,
+    the JAX package or PIL; the render prints the pool's page line (117
+    pages: the loft's three 256x256 textures over 4 levels) and the viewer
+    its address."""
+    from optixpathtracer_tpu_torch import scenes
+
+    small = ["--width", "320", "--height", "200"]  # the command's path, not its frame size
+    runs = {"cli_render": ["render", "--scene", scenes.LOFT_OBJ, "--demand-textures", "128",
+                           "--emission-all-bounces", *small, "--spp", "1", "--out", os.path.join(tmp, "ld.png")],
+            "cli_view": ["view", "--max-frames", "2", "--port", "0", *small]}
+    expect = {"cli_render": "demand textures: 117 pages, pool capacity 128",
+              "cli_view": "viewer at http://127.0.0.1:"}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, "-c", _CHILD, json.dumps(argv)], cwd=REPO,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, argv in runs.items()}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
+        imported = [json.loads(ln.split(" ", 1)[1]) for ln in stdout.splitlines() if ln.startswith("IMPORTED ")]
+        emit(name, run="demand_textures" if name == "cli_render" else "view", argv=runs[name],
+             returncode=proc.returncode, wall_s=time.perf_counter() - t0, imported=imported,
+             stdout_tail=stdout[-400:], stderr_tail=stderr[-600:], card=card)
+        if proc.returncode != 0 or expect[name] not in stdout:
+            raise AssertionError(f"{name}: exit {proc.returncode}: {stdout[-800:]} {stderr[-2000:]}")
+        if imported != [[]]:
+            raise AssertionError(f"{name}: the child imported {imported}")
 
 
 INST_GRID = 4  # `scenes.instanced_city_glb` tiles per side: 144 instances, ~2.4M world triangles
@@ -2324,14 +2751,23 @@ def main() -> int:
     for name, e in (*preset_errs.items(), *whitted_errs.items()):
         errs[name] = max(errs[name], e)
     preset_goldens(dev, card)
+    # ---- the viewer on the city: disney_pt 1200x800 and foveated 4K fused --
+    view_launches = view_slice(cs, probe, dev, card, tc.launch_counts)
     del cs, cl, hs
     foveated_checks(dev)  # the goldens, and fused == three launches
     torch.cuda.empty_cache()
 
     # ---- scenes from files and the area light: the flat walk's main paths
-    loft_launches, loft_t = loft_slice(dev, peak, card, tc.launch_counts)
+    loft_launches, loft_t, loft = loft_slice(dev, peak, card, tc.launch_counts)
     for name in WALK_KERNELS["flat"]:
         errs[name] = max(errs[name], *(t[name]["max_abs_err"] for t in loft_t.values()))
+    # ---- demand-loaded textures: the loft row, then a 4096^2 texture --------
+    demand_loft_launches = demand_loft(*loft, dev, card, tc.launch_counts)
+    del loft
+    demand_big_launches, demand_big_t = demand_big(dev, peak, card, tc.launch_counts)
+    for name in WALK_KERNELS["flat"]:
+        errs[name] = max(errs[name], *(t[name]["max_abs_err"] for t in demand_big_t.values()))
+    torch.cuda.empty_cache()
     cornell_launches = cornell_slice(dev, card, tc.launch_counts)
     file_goldens(dev)
     torch.cuda.empty_cache()
@@ -2344,6 +2780,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         cli_render(glb, tmp, card)
         cli_presets(tmp, card)
+        cli_demand_view(tmp, card)
 
     # ---- the gather probe (K6) -------------------------------------------
     g_launches, g_timing = gather_probe_phase(dev, card)
@@ -2482,6 +2919,7 @@ def main() -> int:
     runs = {"slice": city, "flat_slice": flat_city, **fov_runs, **quality_runs, "loft": loft_launches,
             "cornell": cornell_launches, **inst_runs, "fused_shadows": fused_launches,
             "hello": hello_launches, "whitted": whitted_launches, "spectral": spectral_launches,
+            "demand_loft": demand_loft_launches, "demand_big": demand_big_launches, "view": view_launches,
             "big_slice": big_launches}
     for run in runs.values():
         for name, k in run.items():
@@ -2490,7 +2928,8 @@ def main() -> int:
     # the city's main path (the node walk), K2 and K3 on the flat city
     # slice; `paths` gives each path's launches and, where its first bounce
     # was timed, the kernel's ms there
-    timed_at = {"slice": city_t, "flat_slice": flat_t, "loft": loft_t["first bounce"], **inst_t,
+    timed_at = {"slice": city_t, "flat_slice": flat_t, "loft": loft_t["first bounce"],
+                "demand_big": demand_big_t["first bounce"], **inst_t,
                 "hello": hello_t, "whitted": whitted_t, "big_slice": big_t}
     timing.update(flat_t, **city_t)
     print(json.dumps({"kernels": [

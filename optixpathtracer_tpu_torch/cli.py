@@ -1,17 +1,19 @@
-"""Command line: `python -m optixpathtracer_tpu_torch render ...` (port of
-optixpathtracer_tpu/cli.py).
+"""Command line: `python -m optixpathtracer_tpu_torch render | view ...`
+(port of optixpathtracer_tpu/cli.py).
 
 The flags are the reference's (`utils/config.py`) plus `--device`: the
 render runs on the card unless `--device cpu` is given, and does not fall
 back. The port's only traversal backend is the cluster walk. `render`
 covers every model: `disney_pt` (progressive, `--checkpoint`, `--denoise`,
-`--metrics`), `foveated` (`--gaze`), `hello_raytracing`, `whitted` (its own
-spheres scene; `--scene` is ignored, as in the reference) and `spectral`,
-and `--adaptive`, on OBJ, glTF (`--instanced`: the multi-prototype TLAS)
-and the procedural boxes. What the port does not carry yet raises
-NotImplementedError naming its ROADMAP item: the demand-loaded texture pool
-(A.11), the lockstep / bfs / dense backends, `view` (A.14's viewer) and
-`bench` (A.6).
+`--metrics`, `--demand-textures N`: textures from a demand-loaded pool of
+N tiles with 4 mip levels), `foveated` (`--gaze`), `hello_raytracing`,
+`whitted` (its own spheres scene; `--scene` is ignored, as in the
+reference) and `spectral`, and `--adaptive`, on OBJ, glTF (`--instanced`:
+the multi-prototype TLAS) and the procedural boxes. `view` serves the
+progressive `disney_pt` (or `foveated`) renderer to a browser
+(`--port 0` picks a free port, `--max-frames` bounds the loop). What the
+port does not carry raises NotImplementedError naming its ROADMAP item:
+the lockstep / bfs / dense backends and `bench` (A.6).
 """
 from __future__ import annotations
 
@@ -103,10 +105,11 @@ def make_camera(cfg: RunConfig):
                   fov_y=cfg.camera.fov_y, aspect_ratio=cfg.width / cfg.height)
 
 
-def make_renderer(cfg: RunConfig, cs, probe, camera):
+def make_renderer(cfg: RunConfig, cs, probe, camera, demand=None):
     """The renderer `render` drives for cfg: foveated, adaptive or
     disney_pt, with the reference CLI's flags (disney_pt splits a launch
-    into max(1, w*h // 131072) sequential pixel chunks)."""
+    into max(1, w*h // 131072) sequential pixel chunks and shades from the
+    `demand` texture pool where one is given)."""
     from . import models
 
     engine = dict(traversal="cluster", emission_all_bounces=cfg.emission_all_bounces,
@@ -127,7 +130,19 @@ def make_renderer(cfg: RunConfig, cs, probe, camera):
                                              **engine)
     tiles = max(1, (cfg.width * cfg.height) // 131072)
     return models.make_disney_pt_renderer(cs, probe, camera, cfg.width, cfg.height, cfg.spp,
-                                          cfg.max_depth, dispatch_tiles=tiles, **engine)
+                                          cfg.max_depth, dispatch_tiles=tiles, demand=demand,
+                                          **engine)
+
+
+def make_demand(cfg: RunConfig, hs, device, levels: int):
+    """The demand-loaded texture pool of `--demand-textures N` (N tiles on
+    `device`), or None where the flag is off or the scene has no texture."""
+    if cfg.demand_textures <= 0 or not hs.textures:
+        return None
+    from .io.demand import DemandTextureManager
+
+    return DemandTextureManager.from_host_scene(hs, capacity=cfg.demand_textures, levels=levels,
+                                                device=device)
 
 
 def _save_tonemapped(cfg: RunConfig, img: np.ndarray | torch.Tensor) -> None:
@@ -165,14 +180,18 @@ def cmd_render(args: argparse.Namespace) -> int:
               f"ignored for --model {cfg.model}", file=sys.stderr)
     elif cfg.demand_textures > 0 and not hs.textures:
         print("warning: scene has no textures; --demand-textures ignored", file=sys.stderr)
-    elif cfg.demand_textures > 0 and not cfg.adaptive:
-        raise NotImplementedError("--demand-textures (the demand-loaded texture pool) is not "
-                                  "ported yet (ROADMAP A.11)")
 
     if cfg.model in ("hello_raytracing", "whitted", "spectral"):
         return _render_preset(cfg, cs, probe, camera, device, log, timer, state_update)
 
-    r = make_renderer(cfg, cs, probe, camera)
+    demand = None
+    if cfg.model == "disney_pt" and not cfg.adaptive:  # the reference's adaptive ignores the pool
+        # levels=4: a per-hit mip LOD from the path-length footprint and the
+        # triangle's texel density, sampled trilinearly
+        demand = make_demand(cfg, hs, device, levels=4)
+        if demand is not None:
+            print(f"demand textures: {demand.num_pages} pages, pool capacity {cfg.demand_textures}")
+    r = make_renderer(cfg, cs, probe, camera, demand=demand)
 
     if cfg.model == "foveated":
         from .io.image import save_png
@@ -261,8 +280,30 @@ def _render_preset(cfg: RunConfig, cs, probe, camera, device, log, timer, state_
 
 
 def cmd_view(args: argparse.Namespace) -> int:
-    raise NotImplementedError("view (the interactive browser viewer) is not ported yet "
-                              "(ROADMAP A.14)")
+    """Interactive viewer: the progressive render streamed to a browser
+    (the reference's `view`): foveated with the config's flags, else
+    disney_pt, shading from a one-level demand pool with
+    `--demand-textures`."""
+    from . import models
+    from .viewer.server import run_interactive
+
+    cfg = config_from_args(args)
+    check_supported(cfg, getattr(args, "traversal", None))
+    cfg.traversal = "cluster"
+    device = torch.device(args.device)
+    torch.empty(0, device=device)  # the device error, before any work
+    camera = make_camera(cfg)
+    cs, hs, _tlas = compile_run_scene(cfg, device)
+    probe = _load_probe(cfg, device)
+    if cfg.model == "foveated":
+        r = make_renderer(cfg, cs, probe, camera)
+    else:
+        r = models.make_disney_pt_renderer(cs, probe, camera, cfg.width, cfg.height, cfg.spp,
+                                           cfg.max_depth, demand=make_demand(cfg, hs, device, 1),
+                                           sampling=cfg.sampling,
+                                           sampling_strata=cfg.sampling_strata)
+    run_interactive(r, camera, port=args.port, max_frames=args.max_frames)
+    return 0
 
 
 def cmd_bench(args: argparse.Namespace) -> int:
@@ -280,7 +321,7 @@ def main(argv=None) -> int:
         help="write a torch.profiler trace (Chrome trace JSON) of the whole render into DIR")
     p_render.set_defaults(fn=cmd_render)
 
-    p_view = sub.add_parser("view", help="interactive browser viewer (not ported yet)")
+    p_view = sub.add_parser("view", help="interactive browser viewer")
     add_config_args(p_view)
     p_view.add_argument("--port", type=int, default=8000)
     p_view.add_argument("--max-frames", type=int, default=None, dest="max_frames")

@@ -1,8 +1,11 @@
 """Progressive renderer: owns the framebuffer state and runs one wavefront
 launch per `render()` (port of optixpathtracer_tpu/engine/renderer.py, with
 `aovs`, the AOV-guided `denoised_image`, checkpoint / resume of the
-progressive state in the reference's `.npz` layout and the parallelogram
-area light; demand-loaded textures are ROADMAP A.11).
+progressive state in the reference's `.npz` layout, the parallelogram
+area light and demand-loaded textures: with `demand=` a
+`DemandTextureManager`'s pool shades the textures, and the settle loop
+services each launch's page-usage bitmap and retries the launch until its
+working set is resident).
 
 Pixels are traced in 16x8 tiles, not scanlines: the cluster traversal culls
 per 128-ray block, and a tile's rays form a far tighter bundle. The tile
@@ -11,6 +14,7 @@ permutation is static; image outputs are unpermuted on read.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -26,9 +30,10 @@ from .wavefront import CameraParams, RenderConfig, SampleOutput, accumulate, tra
 
 
 def _render_step(cs, probe, cfg, cam, pixel_x, pixel_y, accum: Vec3, subframe: int,
-                 area_light=None):
+                 area_light=None, demand_pool=None):
     """One progressive launch over a pixel chunk (the optixLaunch unit)."""
-    out = trace_wavefront(cs, probe, cfg, cam, pixel_x, pixel_y, subframe, area_light=area_light)
+    out = trace_wavefront(cs, probe, cfg, cam, pixel_x, pixel_y, subframe, area_light=area_light,
+                          demand_pool=demand_pool)
     new_accum = accumulate(accum, out.color, subframe, cfg.samples_per_launch, cfg.clamp_radiance)
     frame = tonemap.pack_rgba8(tonemap.finalize(new_accum, mode=tonemap.TONEMAP_NONE, srgb=True))
     return new_accum, frame, out
@@ -66,19 +71,35 @@ class ProgressiveState:
 class Renderer(ProgressiveState):
     """Progressive path-tracing renderer over a compiled scene; renders on
     the compiled scene's device. `area_light` (a `QuadLight` on that
-    device, or None) is sampled by every launch."""
+    device, or None) is sampled by every launch.
+
+    `demand` (an `io.demand.DemandTextureManager` whose pool lives on the
+    render device, or None): material texture ids index the manager's
+    sources, every launch returns a page-usage bitmap and the pager
+    services it between launches; non-resident hits shade fallback colours
+    until their tiles arrive. With `demand_settle` (the default) a launch
+    that touched a non-resident page is retried with the same subframe and
+    RNG after the pager ran, until its working set is resident, so the
+    progressive mean holds no fallback-shaded sample; it stops after
+    max(2, `demand_settle_max`) launches, or when the launch touched more
+    pages than the pool holds, and keeps the last launch.
+    `last_launches` counts the launches of the last frame."""
 
     TILE_W, TILE_H = 16, 8  # pixel-tile shape for ray-block coherence
 
     def __init__(self, compiled_scene: CompiledScene, probe: Probe,
                  config: RenderConfig | None = None, camera: Camera | None = None,
-                 area_light=None):
+                 area_light=None, demand=None):
         self.cs = compiled_scene
         self.device = compiled_scene.device
         self.probe = probe
         self.config = config or RenderConfig()
         self.camera = camera or Camera()
         self.area_light = area_light
+        self.demand = demand
+        self.demand_settle = True
+        self.demand_settle_max = 32
+        self.last_launches = 0
         super().__init__()
         self.resize(self.config.width, self.config.height)
 
@@ -111,29 +132,50 @@ class Renderer(ProgressiveState):
         None with download=False, leaving the frame on the device)."""
         t0 = time.perf_counter()
         cam = CameraParams.from_camera(self.camera, self.device)
-        tiles = max(1, self.config.dispatch_tiles)
-        n = self._px.shape[0]
-        chunk = -(-n // tiles)
-        sub = self.subframe_index
-        parts = []
-        for s in range(0, n, chunk):
-            e = min(n, s + chunk)
-            a_chunk = Vec3(*(c[s:e] for c in self.accum))
-            parts.append(_render_step(self.cs, self.probe, self.config, cam,
-                                      self._px[s:e], self._py[s:e], a_chunk, sub,
-                                      self.area_light))
-        if len(parts) == 1:
-            self.accum, frame, self._last = parts[0]
+        if self.demand is None:
+            self.accum, frame, self._last = self._launch(cam)
+            self.last_launches = 1
         else:
-            self.accum = Vec3(*(torch.cat([p[0][k] for p in parts]) for k in range(3)))
-            frame = torch.cat([p[1] for p in parts])
-            self._last = _merge_outputs([p[2] for p in parts])
+            # a launch that touched a non-resident page shaded it with the
+            # fallback colour: folding it into the mean would bake that in
+            # (worst on a checkpoint resume: converged accum, empty pool)
+            for i in range(max(2, self.demand_settle_max)):
+                accum, frame, self._last = self._launch(cam)
+                usage = self._last.tex_usage.cpu().numpy()
+                n_pending = int((usage & (self.demand._page_table < 0)).sum())
+                self.demand.process_requests(usage)
+                if n_pending == 0 or not self.demand_settle:
+                    break
+                if int(usage.sum()) > self.demand.capacity:
+                    break  # never resident at once: keep the best-effort launch
+            self.accum = accum
+            self.last_launches = i + 1
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.subframe_index += 1
         self._frame_u8 = frame
         self._frame_times.append(time.perf_counter() - t0)
         return self.download_pixels() if download else None
+
+    def _launch(self, cam: CameraParams):
+        """(accum, frame, SampleOutput) of one launch of the frame, in
+        `dispatch_tiles` sequential pixel chunks; the accumulation is not
+        stored."""
+        tiles = max(1, self.config.dispatch_tiles)
+        n = self._px.shape[0]
+        chunk = -(-n // tiles)
+        dpool = self.demand.pool if self.demand is not None else None
+        parts = []
+        for s in range(0, n, chunk):
+            e = min(n, s + chunk)
+            a_chunk = Vec3(*(c[s:e] for c in self.accum))
+            parts.append(_render_step(self.cs, self.probe, self.config, cam,
+                                      self._px[s:e], self._py[s:e], a_chunk, self.subframe_index,
+                                      self.area_light, dpool))
+        if len(parts) == 1:
+            return parts[0]
+        return (Vec3(*(torch.cat([p[0][k] for p in parts]) for k in range(3))),
+                torch.cat([p[1] for p in parts]), _merge_outputs([p[2] for p in parts]))
 
     def render_n(self, n: int) -> np.ndarray:
         for _ in range(n):
@@ -227,7 +269,8 @@ class Renderer(ProgressiveState):
 
 
 def _merge_outputs(outs: list[SampleOutput]) -> SampleOutput:
-    """Concatenate per-pixel fields of chunked launches; sum the scalars."""
+    """Concatenate per-pixel fields of chunked launches; sum the scalars,
+    OR the page-usage bitmaps."""
 
     def cat(*xs):
         return torch.cat(xs)
@@ -240,4 +283,6 @@ def _merge_outputs(outs: list[SampleOutput]) -> SampleOutput:
         depth=cat(*(o.depth for o in outs)),
         rays_traced=sum(o.rays_traced for o in outs),
         bfs_overflow=sum(o.bfs_overflow for o in outs),
+        tex_usage=None if outs[0].tex_usage is None else functools.reduce(
+            torch.logical_or, (o.tex_usage for o in outs)),
     )

@@ -44,7 +44,7 @@ def _bounce(cs, probe, cfg: RenderConfig, lam: Tensor, path: dict) -> dict:
     t_max = torch.where(active, cfg.t_max, 0.0)
     rec = closest_hit_cluster(cs.clusters, path["o"], path["d"], cfg.t_min, t_max)
     hit = rec.hit & active
-    n_hit, mat, albedo = _hit_geometry(cs, rec, path["d"], cfg.use_shading_normals)
+    n_hit, mat, albedo, _ = _hit_geometry(cs, rec, path["d"], cfg.use_shading_normals)
     p_hit = path["o"] + path["d"] * rec.t
     s_alb = rgb_to_spectrum(albedo, lam)  # (N, 4)
 

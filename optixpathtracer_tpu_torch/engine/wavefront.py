@@ -18,9 +18,13 @@ pending shadow rays at `shadow_t_min`), plus one flush iteration;
 the probe NEE; `nee_rr` schedules shadow rays by Russian roulette on their
 potential contribution. Instanced scenes (`ClusterSet.instanced`) resolve
 each hit's entry slot to its prototype triangle and instance in
-`_hit_geometry`.
+`_hit_geometry`. With a `demand_pool` (io/demand) textured albedo comes
+from the sparse demand-loaded tile pool: each launch returns its page-usage
+bitmap in `SampleOutput.tex_usage` for the host pager, and with a pool of
+several mip levels each hit samples trilinearly at a LOD from the path
+length's pixel footprint and the triangle's texel density.
 
-The options not ported raise NotImplementedError naming their ROADMAP item
+The traversal backends the port does not carry raise NotImplementedError
 (see `_check_supported`).
 """
 from __future__ import annotations
@@ -41,6 +45,7 @@ from ..core.math import (
     cross,
     dot,
     faceforward,
+    length,
     luminance,
     normalize,
     where,
@@ -48,6 +53,7 @@ from ..core.math import (
 from ..core.rng import M32, RngState, as_i32_bits, randf, randf2, tea
 from ..core.sampling import projective_blue_noise
 from ..core.sobol import _u32_to_unit, sobol02_point
+from ..io.demand import sample_demand
 from ..lights.lights import QuadLight, sample_parallelogram
 from ..lights.probe import Probe, dir_to_uv, probe_eval, probe_eval_dir, probe_pdf, probe_sample
 from ..ops.traverse_cluster import any_hit_cluster, closest_hit_cluster
@@ -91,15 +97,11 @@ class RenderConfig:
     sort_rays: bool = False  # coherence-sort the path state every bounce
 
 
-def _check_supported(cfg: RenderConfig, **extras) -> None:
-    """Raise for options the port does not carry or ports later."""
-    off = {
-        f"traversal={cfg.traversal!r}": (cfg.traversal != "cluster", "A 'not to port'"),
-        "demand_pool": (extras.get("demand_pool") is not None, "A.11"),
-    }
-    for name, (on, item) in off.items():
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP {item})")
+def _check_supported(cfg: RenderConfig) -> None:
+    """Raise for the traversal backends the port does not carry."""
+    if cfg.traversal != "cluster":
+        raise NotImplementedError(f"traversal={cfg.traversal!r} is not ported yet "
+                                  "(ROADMAP A 'not to port')")
 
 
 class CameraParams(NamedTuple):
@@ -129,6 +131,8 @@ class SampleOutput(NamedTuple):
     depth: Tensor
     rays_traced: Tensor  # int64 scalar: radiance + shadow rays traced
     bfs_overflow: Tensor  # scalar, always 0 (the cluster backend is exact)
+    tex_usage: Tensor | None = None  # (num_pages,) bool page-usage bitmap
+    #   with a demand_pool (DemandTextureManager.process_requests takes it)
 
 
 def _xf_apply(xf: Tensor, p: Vec3, offset: bool) -> Vec3:
@@ -142,13 +146,22 @@ def _xf_apply(xf: Tensor, p: Vec3, offset: bool) -> Vec3:
     return Vec3(row(0), row(1), row(2))
 
 
-def _hit_geometry(cs: CompiledScene, rec, ray_dir: Vec3, use_shading: bool):
+def _hit_geometry(cs: CompiledScene, rec, ray_dir: Vec3, use_shading: bool,
+                  demand_pool=None, demand_mask=None, demand_footprint=None):
     """Per-hit normal, material and albedo (the SBT-record stage): the
     albedo is the bilinear texture fetch at the hit's interpolated uv where
     the material has a texture, else its color. On an instanced set the hit
     is an entry slot: it resolves to its prototype's triangle, whose
     vertices move to world space with `xf_fwd` and whose shading normal
-    with `xf_invt` (before the normalisation and the faceforward)."""
+    with `xf_invt` (before the normalisation and the faceforward).
+
+    Returns (normal, material, albedo, usage). With `demand_pool`
+    (io/demand) the albedo is sampled from the sparse pool (misses shade
+    the texture's fallback colour) and `usage` is its page-usage bitmap
+    (None without a pool); `demand_mask` limits the usage to real hits. `demand_footprint` ((N,) f32, world units: the ray's
+    pixel footprint at the hit) selects a mip LOD per hit from the
+    triangle's texel density (sqrt of uv area over world area) when the
+    pool has more than one level, and the sampling goes trilinear."""
     scene = cs.scene
     cl = cs.clusters
     instanced = cl is not None and cl.instanced
@@ -175,13 +188,29 @@ def _hit_geometry(cs: CompiledScene, rec, ray_dir: Vec3, use_shading: bool):
     n = faceforward(n, -ray_dir, n)
     mat = scene.materials.take(mat_id.to(torch.int64))
     if not scene.textured:
-        return n, mat, mat.color
+        if demand_pool is None:
+            return n, mat, mat.color, None
+        return n, mat, mat.color, torch.zeros((demand_pool.num_pages,), dtype=torch.bool,
+                                              device=tri.device)
     uv0u, uv0v, uv1u, uv1v, uv2u, uv2v = uv6
     w0 = 1.0 - rec.u - rec.v
     tu = uv0u * w0 + uv1u * rec.u + uv2u * rec.v
     tv = uv0v * w0 + uv1v * rec.u + uv2v * rec.v
-    tex = scene.textures.sample_bilinear(mat.texture_id, tu, tv)
-    return n, mat, where(mat.texture_id >= 0, tex, mat.color)
+    if demand_pool is None:
+        tex = scene.textures.sample_bilinear(mat.texture_id, tu, tv)
+        return n, mat, where(mat.texture_id >= 0, tex, mat.color), None
+    tex_ids = mat.texture_id if demand_mask is None else torch.where(demand_mask, mat.texture_id, -1)
+    lod = None
+    if demand_footprint is not None and demand_pool.page_offset.shape[1] > 1:
+        world_area = length(cross(v1 - v0, v2 - v0))
+        uv_area = ((uv1u - uv0u) * (uv2v - uv0v) - (uv2u - uv0u) * (uv1v - uv0v)).abs()
+        tex_w = demand_pool.width[torch.clamp(tex_ids, min=0).to(torch.int64), 0]
+        texel_per_world = (torch.sqrt(uv_area / torch.clamp(world_area, min=1e-20))
+                           * tex_w.to(torch.float32))
+        lod = torch.log2(torch.clamp(demand_footprint * texel_per_world, min=1.0))
+    tex, _resident, usage = sample_demand(demand_pool, tex_ids, tu, tv, lod=lod,
+                                          trilinear=lod is not None)
+    return n, mat, where(mat.texture_id >= 0, tex, mat.color), usage
 
 
 def _spread3(x: Tensor) -> Tensor:
@@ -262,7 +291,8 @@ def permute_packed(leaves: list[Tensor], perm: Tensor) -> list[Tensor]:
 
 
 def _flatten_path(path: dict):
-    """(names, leaves) of the per-lane tensors of a path dict."""
+    """(names, leaves) of the per-lane tensors of a path dict (the 0-dim
+    counters are not per lane)."""
     names, leaves = [], []
     for k in sorted(path):
         v = path[k]
@@ -539,8 +569,12 @@ def trace_wavefront(
     RNG sample counter, replacing `subframe * spp + sample`: each lane is
     ONE sample the caller expanded itself (the fused foveation launch), so
     there is no spp loop and no fold, outputs are per lane (composited at
-    spp 1), and the caller folds lanes back to pixels."""
-    _check_supported(cfg, area_light=area_light, demand_pool=demand_pool)
+    spp 1), and the caller folds lanes back to pixels.
+
+    demand_pool (optional io.demand.DemandTexturePool on the render
+    device): textured albedo from the sparse demand-loaded pool; the
+    launch's page-usage bitmap comes back in `SampleOutput.tex_usage`."""
+    _check_supported(cfg)
     dev = pixel_x.device
     n_pix = pixel_x.shape[0]
     spp = cfg.samples_per_launch
@@ -580,8 +614,15 @@ def trace_wavefront(
         return state, (j1, j2)
 
     fused = cfg.fused_shadows
+    pix_ang = None
+    if demand_pool is not None:
+        # the per-pixel angular footprint; times the accumulated path
+        # length it is the pixel's footprint at a hit (the mip LOD's input)
+        h = torch.tensor(float(cfg.height), dtype=torch.float32, device=dev)
+        pix_ang = 2.0 * length(cam.v) / (h * torch.clamp(length(cam.w), min=1e-9))
 
     def bounce_body(depth: int, path: dict, skip_nee: bool = False) -> dict:
+        nonlocal usage
         if sorting:
             key = _coherence_key(path["o"], path["d"], path["done"], cs.clusters.scene_aabb)
             path = _sort_path(path, key)
@@ -611,7 +652,15 @@ def trace_wavefront(
             rec = closest_hit_cluster(cs.clusters, path["o"], path["d"], cfg.t_min, t_max)
         hit = rec.hit & active
 
-        n_hit, mat, albedo = _hit_geometry(cs, rec, path["d"], cfg.use_shading_normals)
+        if demand_pool is None:
+            n_hit, mat, albedo, _ = _hit_geometry(cs, rec, path["d"], cfg.use_shading_normals)
+        else:
+            footprint = (path["plen"] + torch.where(hit, rec.t, 0.0)) * pix_ang
+            n_hit, mat, albedo, bounce_usage = _hit_geometry(
+                cs, rec, path["d"], cfg.use_shading_normals, demand_pool=demand_pool,
+                demand_mask=hit, demand_footprint=footprint)
+            usage = usage | bounce_usage
+            path = dict(path, plen=torch.where(hit, path["plen"] + rec.t, path["plen"]))
         p_hit = path["o"] + path["d"] * rec.t
 
         is_catcher = (mat.flags & MATERIAL_FLAG_SHADOW_CATCHER) != 0
@@ -759,6 +808,10 @@ def trace_wavefront(
 
     acc = None
     rays_total = torch.zeros((), dtype=torch.int64, device=dev)
+    # the launch's page-usage bitmap, ORed by every bounce (not per lane)
+    usage = None
+    if demand_pool is not None:
+        usage = torch.zeros((demand_pool.num_pages,), dtype=torch.bool, device=dev)
     backplate = zero
     for s in range(loop_spp):
         if fused_lanes:
@@ -791,6 +844,9 @@ def trace_wavefront(
             path["idx"] = torch.arange(n, dtype=torch.int64, device=dev)
         if fused:
             path.update(sh_o=o, sh_d=d, pend_contrib=zero, pend_valid=no, pend_catcher=no)
+        if demand_pool is not None:
+            # the path length drives the mip LOD's footprint
+            path.update(plen=zf)
 
         if cfg.nee_final_bounce:
             # fused mode flushes the last pending shadow rays in one more
@@ -838,6 +894,7 @@ def trace_wavefront(
         color=color, alpha=alpha, normal=normal, albedo=albedo, depth=depth,
         rays_traced=rays_total,
         bfs_overflow=torch.zeros((), dtype=torch.float32, device=dev),
+        tex_usage=usage,
     )
 
 

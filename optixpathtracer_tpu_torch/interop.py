@@ -10,7 +10,9 @@ device. The round trip moves identical bits, so both packages can be fed
 the same scene state. Instanced and TLAS scenes carry their `instanced`
 flag (their scene arrays are in slot order: no `tri_map`), and
 `proto_tables` carries a TLAS compile's per-prototype host tables for
-`bvh.clusters.update_tlas_transforms`.
+`bvh.clusters.update_tlas_transforms`. `demand_pool_arrays` /
+`demand_pool_from_arrays` carry a demand-loaded texture pool (io/demand):
+its tile rows, page table and layout tables.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from .bvh.clusters import cluster_set_from_numpy
 from .core.materials import table_from_rows
 from .core.math import Vec3
 from .core.scene import TexturePool, scene_from_shade_rows
+from .io.demand import DemandTexturePool
 from .lights.lights import QuadLight
 from .lights.probe import Probe, probe_from_tables
 
@@ -103,6 +106,17 @@ def quad_light_from_arrays(arrays: dict[str, np.ndarray], device) -> QuadLight:
     """The port's QuadLight on `device` from `quad_light_arrays`."""
     return QuadLight(*(Vec3.of(*(float(c) for c in arrays[k]), device=device) for k in _QUAD_FIELDS),
                      area=torch.tensor(float(arrays["area"]), dtype=torch.float32, device=device))
+
+
+def demand_pool_arrays(pool) -> dict[str, np.ndarray]:
+    """A (reference or port) DemandTexturePool as a dict of numpy arrays."""
+    return {k: _np(getattr(pool, k)) for k in DemandTexturePool._fields}
+
+
+def demand_pool_from_arrays(arrays: dict[str, np.ndarray], device) -> DemandTexturePool:
+    """The port's DemandTexturePool on `device` from `demand_pool_arrays`."""
+    return DemandTexturePool(**{k: torch.as_tensor(np.array(arrays[k]), device=device)
+                                for k in DemandTexturePool._fields})
 
 
 def _np(a) -> np.ndarray:

@@ -38,14 +38,18 @@ def make_hello_renderer(cs: CompiledScene, camera: Camera, width=1200, height=80
 
 def make_disney_pt_renderer(
     cs: CompiledScene, probe: Probe, camera: Camera,
-    width=1200, height=1024, spp=32, max_depth=8, **overrides,
+    width=1200, height=1024, spp=32, max_depth=8, demand=None, **overrides,
 ) -> Renderer:
     """Config 3: the original pathtracer — spp 32 (main.cpp:134), depth 8
-    (deviceProgram.cu:429), 1200x1024 framebuffer (main.cpp:214)."""
+    (deviceProgram.cu:429), 1200x1024 framebuffer (main.cpp:214).
+
+    demand: optional io.demand.DemandTextureManager, its pool on the
+    scene's device: textures shade from the sparse demand-loaded pool
+    (pages stream in between launches)."""
     overrides.setdefault("traversal", "cluster")
     cfg = RenderConfig(width=width, height=height, samples_per_launch=spp,
                        max_depth=max_depth, **overrides)
-    return Renderer(cs, probe, cfg, camera)
+    return Renderer(cs, probe, cfg, camera, demand=demand)
 
 
 def make_spectral_renderer(

@@ -57,7 +57,7 @@ class RunConfig:
     gaze: tuple = (-1, -1)  # foveated: gaze pixel (defaults to the centre)
     fused_foveation: bool | None = None  # all zones in one launch; None = preset default
     instanced: bool = False  # glTF: keep node reuse as a multi-prototype TLAS
-    demand_textures: int = 0  # >0: the demand-loaded texture pool (ROADMAP A.11)
+    demand_textures: int = 0  # >0: the demand-loaded texture pool's capacity in tiles
     adaptive: bool = False  # disney_pt: variance-guided adaptive sampling
     adaptive_fraction: float = 0.25  # fraction of tiles refined per round
     camera: CameraSpec = dataclasses.field(default_factory=CameraSpec)
@@ -161,7 +161,7 @@ def add_config_args(parser: argparse.ArgumentParser) -> None:
         "--demand-textures", type=int, default=None, dest="demand_textures",
         metavar="CAPACITY",
         help="shade textures from a demand-loaded tile pool of this capacity "
-             "(not ported yet: ROADMAP A.11)")
+             "(disney_pt; render builds 4 mip levels, view one)")
     parser.add_argument(
         "--adaptive", action="store_true", default=None,
         help="disney_pt: variance-guided adaptive sampling (frame 1 is a uniform "

@@ -140,7 +140,7 @@ def test_quad_nee_equal_to_jax(cornell):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     o = np.broadcast_to(np.asarray(cam.eye, np.float32), (n, 3)).copy()
     rec = twf.closest_hit_cluster(pcs.clusters, _tv(o), _tv(d), 1e-3, 1e16)
-    n_hit, mat, albedo = twf._hit_geometry(pcs, rec, _tv(d), False)
+    n_hit, mat, albedo, _ = twf._hit_geometry(pcs, rec, _tv(d), False)
     p_hit = _tv(o) + _tv(d) * rec.t
     mat_id = pcs.scene.take_shade(torch.clamp(rec.tri, min=0).to(torch.int64))[7]
     jmat = jcs.scene.materials.take(jnp.asarray(mat_id.numpy()))

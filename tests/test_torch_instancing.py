@@ -267,7 +267,7 @@ def test_hit_geometry_world_normals_equal_to_jax(tlas):
     hit = rec.hit.numpy()
     assert hit.mean() > 0.3
     for use_shading in (False, True):
-        n, _, albedo = twf._hit_geometry(got_cs, rec, td, use_shading)
+        n, _, albedo, _ = twf._hit_geometry(got_cs, rec, td, use_shading)
         jn, _, jalbedo, _ = jwf._hit_geometry(want_cs, jrec, jd, use_shading)
         for a, b in zip(n, jn):
             np.testing.assert_allclose(a.numpy()[hit], np.asarray(b)[hit], atol=1e-6)

@@ -121,9 +121,9 @@ def test_hit_geometry_albedo_equal_to_jax(loft_scenes, use_shading):
     d = rng.normal(size=(n, 3)).astype(np.float32)
     jn, jmat, jalb, _ = jwf._hit_geometry(jcs, JaxHit(*(jnp.asarray(a) for a in (t, tri, u, v))),
                                           JVec3(*(jnp.asarray(d[:, i]) for i in range(3))), use_shading)
-    tn, tmat, talb = twf._hit_geometry(pcs, HitRecord(*(torch.as_tensor(a) for a in (t, tri, u, v))),
-                                       Vec3(*(torch.as_tensor(np.ascontiguousarray(d[:, i])) for i in range(3))),
-                                       use_shading)
+    tn, tmat, talb, _ = twf._hit_geometry(pcs, HitRecord(*(torch.as_tensor(a) for a in (t, tri, u, v))),
+                                          Vec3(*(torch.as_tensor(np.ascontiguousarray(d[:, i])) for i in range(3))),
+                                          use_shading)
     textured = np.asarray(jmat.texture_id) >= 0
     assert textured.mean() > 0.2 and (~textured).any()
     for a, b in zip(talb, jalb):

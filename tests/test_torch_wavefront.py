@@ -138,17 +138,6 @@ def test_off_slice_options_raise(option, item):
         twf.trace_wavefront(cs, scenes.sky_probe(CPU), cfg, cam, px, py, 0)
 
 
-@pytest.mark.parametrize("extra, item", [("demand_pool", "A.11")])
-def test_off_slice_arguments_raise(extra, item):
-    cfg = twf.RenderConfig(width=16, height=8, samples_per_launch=1, max_depth=1,
-                           traversal="cluster")
-    px, py = _pixels(16, 8)
-    cam = twf.CameraParams.from_camera(scenes.open_camera(16, 8), CPU)
-    with pytest.raises(NotImplementedError, match=item):
-        twf.trace_wavefront(_open_port(), scenes.sky_probe(CPU), cfg, cam, px, py, 0,
-                            **{extra: object()})
-
-
 def _open_port():
     return compile_scene(scenes.open_scene(), CPU)
 
