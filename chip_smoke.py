@@ -110,13 +110,34 @@ port's paths and checks that each went through its kernels:
      foveated preset at 3840x2160 fused, driven over HTTP, with the
      publish (JPEG encode) time and the loop's frames a second), and
      `render --demand-textures 128` and `view --max-frames 2 --port 0` in
-     two child processes (`cli_render`, `cli_view`).
+     two child processes (`cli_render`, `cli_view`);
+ 12. strip and lane sharding over `torch.distributed` (`dist_phases`, after
+     `city_routes`): two gloo ranks sharing cuda:0 (NCCL cannot put two
+     ranks on one card), spawned once, run the city slice through
+     `DistributedRenderer` (`dist_city`: against one device at the
+     reference's 2e-4 / 2e-5, rays per rank summing to `last_rays`, strip
+     balance within 10 %, K1 / K4a / K4b launched on every rank, frame
+     seconds and gather ms per rank), the sv4 4K preset through
+     `DistributedFoveatedRenderer` over a gaze move (`dist_fov4k`: 1e-6,
+     equal rays, lane balance within 10 %) and bench.py's loft row from a
+     128-tile demand pool per rank (`dist_demand`: `pages_loaded` equal to
+     one device's, the frame equal to the resident render within 1e-5);
+     then the city slice with NCCL at world size 1 (`dist_nccl`) and
+     `python -m optixpathtracer_tpu_torch.parallel.dryrun --ranks 2
+     --device cuda:0` in a child process (`dryrun`); a rank that fails,
+     hangs or exits non-zero fails the run;
+ 13. the loft with its textures re-encoded by the port's `encode_jpeg` and
+     loaded through the new JPEG decoder (`jpeg_scene`, after the file
+     goldens): texture fetch card == CPU bit for bit, a 160x100 render on
+     the card against the port's CPU render, and one 2048x2048 JPEG
+     decoded on the host, timed.
 
 The cull (K1) is held against its plain version and timed on both tables
 (cluster boxes and entry boxes on the city, entry boxes on the big scene)
 at the first bounce and at the engine's second; `block_cull` lines time the whole of
 `block_cull` / `block_cull_nodes` (pack, kernel, sort, gathers) beside the
-kernel alone.
+kernel alone. hello's, whitted's and spectral's kernels are held and timed
+on their own rays, with their bounds.
 
 Every kernel timed at the slices' first bounce also gets its bound, the
 least time the card could take for the work these inputs need
@@ -1417,16 +1438,14 @@ def check_golden(phase, name, got, **fields):
         raise AssertionError(f"golden {name}: RMSE {rmse} > {RMSE_TOL}")
 
 
-def texture_card_eq(hs, dev, card):
-    """`TexturePool.sample_bilinear` on the card against the CPU, bit for
-    bit, on TEXTURE_LOOKUPS seeded fetches over the loft's pool (tex_id -1
-    to 2, u and v uniform in [-3, 3] and a tenth of them integers); and the
-    port's PNG decoder on this machine, which has no PIL, against the
-    channel sums of PIL's decode (LOFT_PNG_SUMS)."""
+def texture_fetch_card_eq(hs, dev):
+    """`TexturePool.sample_bilinear` over a host scene's textures on the card
+    against the CPU, on TEXTURE_LOOKUPS seeded fetches (tex_id -1 to 2, u
+    and v uniform in [-3, 3] and a tenth of them integers): (values that
+    differ, their largest difference)."""
     import torch
 
     from optixpathtracer_tpu_torch.core.scene import pack_textures
-    from optixpathtracer_tpu_torch.io.image import read_rgb8
 
     rng = np.random.default_rng(3)
     n = TEXTURE_LOOKUPS
@@ -1438,11 +1457,21 @@ def texture_card_eq(hs, dev, card):
     outs = [pack_textures(hs.textures, d).sample_bilinear(*(torch.as_tensor(a, device=d) for a in args))
             for d in (dev, torch.device("cpu"))]
     got, want = [torch.stack(list(o)).cpu() for o in outs]
-    mismatches = int((got != want).sum())
+    return int((got != want).sum()), float((got - want).abs().max())
+
+
+def texture_card_eq(hs, dev, card):
+    """The loft's texture fetches card == CPU bit for bit
+    (`texture_fetch_card_eq`), and the port's PNG decoder on this machine,
+    which has no PIL, against the channel sums of PIL's decode
+    (LOFT_PNG_SUMS)."""
+    from optixpathtracer_tpu_torch.io.image import read_rgb8
+
+    mismatches, max_diff = texture_fetch_card_eq(hs, dev)
     sums = {name: read_rgb8(os.path.join(REPO, "scenes", name)).reshape(-1, 3).sum(0, dtype=np.int64).tolist()
             for name in LOFT_PNG_SUMS}
-    emit("texture_card_eq", lookups=n, mismatches=mismatches,
-         max_abs_diff=float((got - want).abs().max()), png_channel_sums=sums,
+    emit("texture_card_eq", lookups=TEXTURE_LOOKUPS, mismatches=mismatches,
+         max_abs_diff=max_diff, png_channel_sums=sums,
          png_equal_to_pil=sums == LOFT_PNG_SUMS, card=card)
     if mismatches or sums != LOFT_PNG_SUMS:
         raise AssertionError(f"texture_card_eq: {mismatches} texel values differ from the CPU's, "
@@ -2402,14 +2431,15 @@ def hello_slice(cs, dev, peak, card, counts):
     nt = cl.node_tables
     wf = "hello primary rays"
     out = {"cull": cull_phase("cull (node table)", tc._pack_rays8(cl, o, d, t_min, t_max), nt.node_sph_t,
-                              nt.node_box_t, peak, PRESET_PLAIN_BUDGET_S, wf, card, bound=False)}
+                              nt.node_box_t, peak, PRESET_PLAIN_BUDGET_S, wf, card)}
     shadow = cull_phase("cull (node table)", tc._pack_rays8(cl, p, l, s_min, s_max), nt.node_sph_t, nt.node_box_t,
-                        peak, PRESET_PLAIN_BUDGET_S, "hello shadow rays (unnormalised, t in (0, 1))", card, bound=False)
+                        peak, PRESET_PLAIN_BUDGET_S, "hello shadow rays (unnormalised, t in (0, 1))", card)
     out.update(time_hier(cl, tc.block_cull_nodes(cl, o, d, t_min, t_max), tc.block_cull_nodes(cl, p, l, s_min, s_max),
-                         peak, "hello primary / shadow rays", card, budget_s=PRESET_PLAIN_BUDGET_S, bound=False))
+                         peak, "hello primary / shadow rays", card, budget_s=PRESET_PLAIN_BUDGET_S))
     dlen = float((l.x * l.x + l.y * l.y + l.z * l.z).sqrt().median())
     emit("hello_kernels", median_shadow_dir_length=dlen, bit_equal=True,
-         kernels={k: {f: v[f] for f in ("ms", "plain_ms", "rays", "plain_rays", "max_abs_err")}
+         kernels={k: {f: v[f] for f in ("ms", "plain_ms", "rays", "plain_rays", "max_abs_err", "bound_ms",
+                                       "bound_by")}
                   for k, v in out.items()}, shadow_cull=shadow, card=card)
     errs = {k: v["max_abs_err"] for k, v in out.items()}
     errs["cull"] = max(errs["cull"], shadow["max_abs_err"])
@@ -2446,29 +2476,44 @@ def whitted_slice(dev, peak, card, counts):
     out = time_flat(cl, tc._pack_rays8(cl, o, d, t_min, t_max), tc.block_cull(cl, o, d, t_min, t_max),
                     tc.block_cull(cl, p, l, s_min, s_max), peak,
                     f"whitted deepest level ({o.x.shape[0]} reflected + refracted rays)", card,
-                    budget_s=PRESET_PLAIN_BUDGET_S, bound=False)
+                    budget_s=PRESET_PLAIN_BUDGET_S)
     errs = {k: v["max_abs_err"] for k, v in out.items()}
     del r, o, d, p, l
     torch.cuda.empty_cache()
     return launches, out, errs
 
 
-def spectral_slice(cs, probe, card, counts):
+def spectral_slice(cs, probe, peak, card, counts):
     """bench.py's spectral row (`bench.py:1156-1160`): the hero-wavelength
     preset on the city at 1200x800, 2 spp, depth 4 (no coherence sort, as
     in the reference): closest and any hit through the node walk, 2 frames
-    timed after a warm-up."""
+    timed after a warm-up. Then K1, K4a and K4b held against their plain
+    versions, timed and bounded on the frame's first closest-hit sweep and
+    its first shadow sweep (a budgeted subset of the blocks). Returns
+    (launches, kernel numbers, max errors)."""
     from optixpathtracer_tpu_torch import scenes
     from optixpathtracer_tpu_torch.engine import spectral as ts
     from optixpathtracer_tpu_torch.models import make_spectral_renderer
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
 
     r = make_spectral_renderer(cs, probe, scenes.city_camera(WIDTH, HEIGHT), WIDTH, HEIGHT,
                                SPECTRAL_SPP, DEPTH)
-    launches = drive_preset("spectral_slice", r, card, counts, SPECTRAL_FRAMES, ts,
-                            ("closest_hit_cluster", "any_hit_cluster"), width=WIDTH, height=HEIGHT,
-                            spp=SPECTRAL_SPP, max_depth=DEPTH, walk=walk_of(cs.clusters))
+    names = ("closest_hit_cluster", "any_hit_cluster")
+    launches = drive_preset("spectral_slice", r, card, counts, SPECTRAL_FRAMES, ts, names, width=WIDTH,
+                            height=HEIGHT, spp=SPECTRAL_SPP, max_depth=DEPTH, walk=walk_of(cs.clusters))
     check_walk("the spectral slice", launches, walk_of(cs.clusters))
-    return launches
+    with traced_rays(ts, names, keep=True) as traced:
+        r.render(download=False)
+    (_, o, d, t_min, t_max), = [c for c in traced["calls"] if c[0] == names[0]][:1]
+    (_, p, l, s_min, s_max), = [c for c in traced["calls"] if c[0] == names[1]][:1]
+    del traced
+    cl = cs.clusters
+    nt = cl.node_tables
+    out = {"cull": cull_phase("cull (node table)", tc._pack_rays8(cl, o, d, t_min, t_max), nt.node_sph_t,
+                              nt.node_box_t, peak, PRESET_PLAIN_BUDGET_S, "spectral first bounce", card)}
+    out.update(time_hier(cl, tc.block_cull_nodes(cl, o, d, t_min, t_max), tc.block_cull_nodes(cl, p, l, s_min, s_max),
+                         peak, "spectral first bounce / its shadow rays", card, budget_s=PRESET_PLAIN_BUDGET_S))
+    return launches, out, {k: v["max_abs_err"] for k, v in out.items()}
 
 
 def preset_goldens(dev, card):
@@ -2553,6 +2598,325 @@ def cli_presets(tmp, card):
             raise AssertionError(f"cli_preset {model}: exit {proc.returncode}: {stderr[-2000:]}")
         if imported != [[]]:
             raise AssertionError(f"cli_preset {model}: the child imported {imported}")
+
+
+DIST_RANKS = 2  # gloo ranks sharing cuda:0: NCCL cannot put two ranks on one card
+DIST_FRAMES = 2  # frames of each distributed strip render (the first pays the ranks' warm-up)
+DIST_TOL = dict(rtol=2e-4, atol=2e-5)  # __graft_entry__.py:191, sharded against one device
+DIST_FOV_TOL = dict(rtol=1e-6, atol=1e-6)  # tests/test_parallel_foveated.py:51-52
+DIST_GAZES = ((1920, 1080), (1400, 700))  # image coordinates of the 4K frames: centre, then moved
+DIST_TIMEOUT_S = 300
+BALANCE_GATE = 0.10  # per-rank rays within 10 % of the mean (__graft_entry__.py:125-127)
+CITY_BUILD = dict(leaf_size=8, cluster_size=256)
+
+
+def dist_gloo_program(rank, world, device, programs):
+    """The gloo ranks' three paths in one spawn (each rank builds its own
+    scenes): `programs` maps a name to (rank program of parallel/dryrun,
+    args, kwargs). Ranks past 0 return their frames as digests, which the
+    parent holds equal to rank 0's frames."""
+    out = {}
+    for name, (fn, args, kwargs) in programs.items():
+        res = fn(rank, world, device, *args, **kwargs)
+        for key in ("image", "images"):
+            if key in res and rank:
+                imgs = res.pop(key)
+                res[key + "_sha256"] = [_sha(i) for i in (imgs if key == "images" else [imgs])]
+        out[name] = res
+    return out
+
+
+def _sha(img) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def _rank_checks(phase, res, walk_name):
+    """Per-rank gates every distributed path shares: the port only
+    imported, every rank launched its walk's kernels, and the rank frames
+    equal rank 0's."""
+    for r in res:
+        if r["imported"]:
+            raise AssertionError(f"{phase}: rank {r['rank']} imported {r['imported']}")
+        check_walk(f"{phase} rank {r['rank']}", r["launch_counts"], walk_name)
+    for r in res[1:]:
+        want = [_sha(i) for i in (res[0]["images"] if "images" in res[0] else [res[0]["image"]])]
+        got = r.get("images_sha256", r.get("image_sha256"))
+        if got != want:
+            raise AssertionError(f"{phase}: rank {r['rank']} gathered another frame than rank 0")
+
+
+def _summed_launches(res) -> dict:
+    total = {}
+    for r in res:
+        for k, v in r["launch_counts"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _strip_gates(phase, res, want, tol, card, **fields):
+    """Emit a strip-parallel path's line and hold it: the frame against the
+    single-device one, the ranks' rays summing to `last_rays`, the strip
+    balance within BALANCE_GATE."""
+    from optixpathtracer_tpu_torch.parallel.dryrun import imbalance
+
+    got = res[0]
+    dev_rays = np.asarray(got["rays_per_device"])
+    diff = float(np.abs(got["image"] - want).max())
+    imb = imbalance(dev_rays)
+    emit(phase, ranks=len(res), frames=len(got["frame_s"]), max_abs_diff=diff, tol=tol,
+         rays=got["rays"], rays_per_rank=dev_rays.tolist(), balance=imb, balance_gate=BALANCE_GATE,
+         frame_s_per_rank=[r["frame_s"] for r in res], gather_ms_per_rank=[r["gather_ms"] for r in res],
+         launches_per_rank=[r["launch_counts"] for r in res], card=card, **fields)
+    if not np.allclose(got["image"], want, **tol):
+        raise AssertionError(f"{phase}: the sharded frame differs from one device's by {diff}")
+    if int(dev_rays.sum()) != int(got["rays"]) or imb > BALANCE_GATE:
+        raise AssertionError(f"{phase}: rays per rank {dev_rays.tolist()} (sum {dev_rays.sum()}, "
+                             f"last_rays {got['rays']}), imbalance {imb}")
+
+
+def dist_phases(cs, probe, dev, card):
+    """Strip and lane sharding over `torch.distributed` (parallel/), each
+    path against its single-device render on this card:
+
+    - `dist_city`: the city slice (disney_pt, 1200x800, 2 spp, depth 4, the
+      bench's flags, the node walk) through `DistributedRenderer` over
+      DIST_RANKS gloo ranks on cuda:0, at DIST_TOL;
+    - `dist_fov4k`: the sv4 preset as published (3840x2160 fused) through
+      `DistributedFoveatedRenderer` over the same ranks and a gaze move, at
+      DIST_FOV_TOL;
+    - `dist_demand`: bench.py's loft row from a one-level pool of 128
+      tiles per rank: `pages_loaded` equal to one device's demand run,
+      the settled frame equal to the resident render within DEMAND_TOL;
+    - `dist_nccl`: the city slice over NCCL at world size 1;
+    - `dryrun`: `python -m optixpathtracer_tpu_torch.parallel.dryrun
+      --ranks 2 --device cuda:0` in a child process (gloo).
+
+    Launch counts are each rank's, cleared just before its distributed
+    frames and read just after. Returns ({path: launches summed over
+    ranks}, {path: each rank's launches})."""
+    import shutil
+
+    import torch
+
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.builder import compile_scene
+    from optixpathtracer_tpu_torch.io.obj import load_obj
+    from optixpathtracer_tpu_torch.models import make_disney_pt_renderer, make_foveated_renderer
+    from optixpathtracer_tpu_torch.parallel import ranks
+    from optixpathtracer_tpu_torch.parallel.dryrun import foveated_program, imbalance, strip_program
+
+    t_all = time.perf_counter()
+    # ---- the single-device references on this card
+    city = make_disney_pt_renderer(cs, probe, scenes.city_camera(WIDTH, HEIGHT), width=WIDTH, height=HEIGHT,
+                                   spp=SPP, max_depth=DEPTH, **BENCH_FLAGS)
+    for _ in range(DIST_FRAMES):
+        city.render(download=False)
+    city_img = city.accum_image()
+    fov = make_foveated_renderer(cs, probe, scenes.city_camera(FOV_4K["width"], FOV_4K["height"]),
+                                 **FOV_4K, **BENCH_FLAGS)
+    if not fov.fused:
+        raise AssertionError("the 4K preset's default route no longer fuses its zones")
+    fov_imgs, fov_rays = [], []
+    for g in DIST_GAZES:
+        fov.set_gaze(*g)
+        fov.render(download=False)
+        fov_imgs.append(fov.accum_image())
+        fov_rays.append(fov.last_rays)
+    loft_hs = load_obj(scenes.LOFT_OBJ)
+    loft_setup = scenes.loft_config(WIDTH, HEIGHT, dev)
+    resident = make_disney_pt_renderer(compile_scene(loft_hs, dev, **CITY_BUILD), loft_setup.probe,
+                                       loft_setup.camera, width=WIDTH, height=HEIGHT, spp=SPP,
+                                       max_depth=DEPTH, **loft_setup.flags)
+    resident.render(download=False)
+    loft_img = resident.accum_image()
+    programs = {
+        "city": (strip_program, (scenes.build_city_scene, scenes.city_sky, city.config, city.camera),
+                 dict(frames=DIST_FRAMES, build=CITY_BUILD)),
+        "fov": (foveated_program, (scenes.build_city_scene, scenes.city_sky, fov.config, fov.camera,
+                                   fov.fov, DIST_GAZES), dict(build=CITY_BUILD)),
+        "loft": (strip_program, (loft_hs, scenes.dark_probe, resident.config, resident.camera),
+                 dict(demand=dict(capacity=128, levels=1), build=CITY_BUILD, single=True)),
+    }
+    ref_s = time.perf_counter() - t_all
+    del city, fov, resident
+    torch.cuda.empty_cache()
+
+    # ---- DIST_RANKS gloo ranks on this card: the city, the 4K lanes, the loft's pool
+    tmp = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    try:
+        res = ranks.run_ranks(dist_gloo_program, DIST_RANKS, "gloo", "cuda:0", os.path.join(tmp, "gloo"),
+                              args=(programs,), timeout_s=DIST_TIMEOUT_S)
+        gloo_s = time.perf_counter() - t0
+        (nccl,) = ranks.run_ranks(strip_program, 1, "nccl", "cuda:0", os.path.join(tmp, "nccl"),
+                                  args=programs["city"][1], kwargs=programs["city"][2],
+                                  timeout_s=DIST_TIMEOUT_S)
+        nccl_s = time.perf_counter() - t0 - gloo_s
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {}
+    city_res = [r["city"] for r in res]
+    _rank_checks("dist_city", city_res, "node")
+    _strip_gates("dist_city", city_res, city_img, DIST_TOL, card, backend="gloo", device="cuda:0",
+                 spawn_s=gloo_s, flags=BENCH_FLAGS)
+    launches["dist_city"] = _summed_launches(city_res)
+
+    fov_res = [r["fov"] for r in res]
+    _rank_checks("dist_fov4k", fov_res, "node")
+    got = fov_res[0]
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(got["images"], fov_imgs)]
+    imbs = [imbalance(d) for d in got["rays_per_device"]]
+    emit("dist_fov4k", **FOV_4K, ranks=DIST_RANKS, backend="gloo", gazes=DIST_GAZES, max_abs_diff=diffs,
+         tol=DIST_FOV_TOL, rays=got["rays"], single_rays=fov_rays,
+         rays_per_rank=[np.asarray(d).tolist() for d in got["rays_per_device"]], balance=imbs,
+         balance_gate=BALANCE_GATE, frame_s_per_rank=[r["frame_s"] for r in fov_res],
+         launches_per_rank=[r["launch_counts"] for r in fov_res], card=card)
+    if not all(np.allclose(a, b, **DIST_FOV_TOL) for a, b in zip(got["images"], fov_imgs)):
+        raise AssertionError(f"dist_fov4k: the sharded lanes differ from the fused frame by {diffs}")
+    if got["rays"] != fov_rays or max(imbs) > BALANCE_GATE:
+        raise AssertionError(f"dist_fov4k: rays {got['rays']} against {fov_rays}, imbalance {imbs}")
+    launches["dist_fov4k"] = _summed_launches(fov_res)
+
+    loft_res = [r["loft"] for r in res]
+    _rank_checks("dist_demand", loft_res, "flat")
+    got = loft_res[0]
+    _strip_gates("dist_demand", loft_res, loft_img, dict(rtol=0.0, atol=DEMAND_TOL), card, backend="gloo",
+                 pages_loaded=got["pages_loaded"], single_pages_loaded=got["single_pages_loaded"],
+                 pages_per_rank=[r["pages_loaded"] for r in loft_res], settle_launches=got["launches"],
+                 single_frame_s=got["single_frame_s"])
+    if not (got["pages_loaded"] == got["single_pages_loaded"] > 0
+            and all(r["pages_loaded"] == got["pages_loaded"] for r in loft_res)):
+        raise AssertionError(f"dist_demand: pages loaded {[r['pages_loaded'] for r in loft_res]}, "
+                             f"one device {got['single_pages_loaded']}")
+    launches["dist_demand"] = _summed_launches(loft_res)
+
+    # ---- NCCL at world size 1 (its init and collectives) on the city slice
+    _rank_checks("dist_nccl", [nccl], "node")
+    _strip_gates("dist_nccl", [nccl], city_img, DIST_TOL, card, backend="nccl", device="cuda:0",
+                 spawn_s=nccl_s)
+    launches["dist_nccl"] = dict(nccl["launch_counts"])
+
+    # ---- the dry run, as a user runs it, on this card
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "optixpathtracer_tpu_torch.parallel.dryrun", "--ranks", "2",
+                           "--device", "cuda:0", "--timeout", str(DIST_TIMEOUT_S)], cwd=REPO,
+                          capture_output=True, text=True, timeout=DIST_TIMEOUT_S + 60)
+    lines = proc.stdout.strip().splitlines()
+    ok = proc.returncode == 0 and len(lines) >= 2 and lines[-2].startswith("dryrun_multichip(2): ok")
+    info = json.loads(lines[-1]) if ok else {}
+    emit("dryrun", returncode=proc.returncode, summary=lines[-2] if ok else None,
+         launches_per_rank=info.get("launches_per_rank"), seconds=time.perf_counter() - t0,
+         stderr_tail=None if ok else proc.stderr[-2000:], card=card)
+    if not ok:
+        raise AssertionError(f"the dry run failed (exit {proc.returncode}): {proc.stdout[-500:]} {proc.stderr[-2000:]}")
+    per_rank = {"dist_city": [r["launch_counts"] for r in city_res],
+                 "dist_fov4k": [r["launch_counts"] for r in fov_res],
+                 "dist_demand": [r["launch_counts"] for r in loft_res],
+                 "dist_nccl": [nccl["launch_counts"]], "dryrun": []}
+    for rank in info["launches_per_rank"]:
+        counts = {}
+        for mode in rank.values():
+            for k, v in mode.items():
+                counts[k] = counts.get(k, 0) + v
+        per_rank["dryrun"].append(counts)
+    launches["dryrun"] = _summed_launches([{"launch_counts": c} for c in per_rank["dryrun"]])
+    emit("dist_phases", seconds=time.perf_counter() - t_all, references_s=ref_s, gloo_spawn_s=gloo_s, card=card)
+    return launches, per_rank
+
+
+JPEG_QUALITY = 90  # the loft's textures re-encoded by the port's encode_jpeg at this quality
+JPEG_PSNR_MIN = 25.0  # dB of a decoded image against its source: the codec round trip is sane (garbage reads ~10)
+JPEG_DECODE_SIZE = 2048  # the timed host decode: one 2048x2048 JPEG
+JPEG_RENDER = dict(width=160, height=100, spp=2, max_depth=4)  # card against the CPU (~1.5 s on the CPU)
+JPEG_RENDER_TOL = 1e-4  # sqrt-space RMSE, card against CPU (DEMAND_WINDOW_TOL's textured bound)
+
+
+def _psnr(a, b) -> float:
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def jpeg_scene(dev, card, counts):
+    """The loft with its three PNG textures re-encoded as JPEG by the
+    port's own `encode_jpeg` (this machine has no PIL) and its MTL pointing
+    at them, loaded through `load_obj` (the new decoder): each texture
+    against its PNG (PSNR), the texture fetch card == CPU bit for bit, the
+    render at JPEG_RENDER on the card against the port's CPU render; and
+    one 2048x2048 JPEG decoded on this machine's host, timed. Returns the
+    card render's launches."""
+    import shutil
+
+    import torch
+
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.builder import compile_scene
+    from optixpathtracer_tpu_torch.io.image import encode_jpeg, read_rgb8, rgb8_from_bytes
+    from optixpathtracer_tpu_torch.io.obj import load_obj
+    from optixpathtracer_tpu_torch.models import make_disney_pt_renderer
+
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copy(scenes.LOFT_OBJ, tmp)
+        mtl = open(os.path.join(REPO, "scenes", "loft.mtl")).read()
+        psnr, sizes, decode_ms = {}, {}, {}
+        for name in LOFT_PNG_SUMS:
+            png = read_rgb8(os.path.join(REPO, "scenes", name))
+            data = encode_jpeg(torch.as_tensor(png, device=dev), JPEG_QUALITY)
+            jpg = name.replace(".png", ".jpg")
+            with open(os.path.join(tmp, jpg), "wb") as f:
+                f.write(data)
+            t0 = time.perf_counter()
+            back = rgb8_from_bytes(data)
+            decode_ms[jpg] = (time.perf_counter() - t0) * 1e3
+            psnr[jpg], sizes[jpg] = _psnr(back, png), len(data)
+            mtl = mtl.replace(name, jpg)
+        with open(os.path.join(tmp, "loft.mtl"), "w") as f:
+            f.write(mtl)
+        hs = load_obj(os.path.join(tmp, "loft.obj"))
+    mismatches, fetch_diff = texture_fetch_card_eq(hs, dev)
+    launches = {}
+    w, h = JPEG_RENDER["width"], JPEG_RENDER["height"]
+    imgs, frame_s = {}, {}
+    for d in (dev, torch.device("cpu")):
+        setup = scenes.loft_config(w, h, d)
+        r = make_disney_pt_renderer(compile_scene(hs, d, **CITY_BUILD), setup.probe, setup.camera,
+                                    width=w, height=h, spp=JPEG_RENDER["spp"],
+                                    max_depth=JPEG_RENDER["max_depth"], **setup.flags)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            counts.clear()
+        t0 = time.perf_counter()
+        r.render(download=False)
+        frame_s[str(d)] = time.perf_counter() - t0
+        if d.type == "cuda":
+            launches = dict(counts)
+        imgs[str(d)] = r.accum_image()
+    rmse = scenes.golden_rmse(imgs[str(dev)], imgs["cpu"])
+    # one 2048x2048 JPEG: smooth gradients and seeded noise, encoded on the card
+    rng = np.random.default_rng(JPEG_DECODE_SIZE)
+    y, x = np.mgrid[0:JPEG_DECODE_SIZE, 0:JPEG_DECODE_SIZE]
+    big = np.clip(np.stack([128 + 100 * np.sin(x / 37.0 + y / 51.0), 128 + 90 * np.cos(x / 25.0 - y / 33.0),
+                            (x + y) % 256], -1) + rng.normal(0, 8, x.shape + (3,)), 0, 255).astype(np.uint8)
+    data = encode_jpeg(torch.as_tensor(big, device=dev), JPEG_QUALITY)
+    t0 = time.perf_counter()
+    back = rgb8_from_bytes(data)
+    big_s = time.perf_counter() - t0
+    big_psnr = _psnr(back, big)
+    emit("jpeg_scene", quality=JPEG_QUALITY, texture_psnr_db=psnr, jpeg_bytes=sizes, decode_ms=decode_ms,
+         textures=[list(t.shape) for t in hs.textures], fetch_mismatches=mismatches,
+         fetch_max_abs_diff=fetch_diff, **JPEG_RENDER, frame_s=frame_s, rmse_card_vs_cpu=rmse,
+         tol=JPEG_RENDER_TOL, launches=launches, decode_2048=dict(bytes=len(data), seconds=big_s,
+                                                                   psnr_db=big_psnr),
+         seconds=time.perf_counter() - t_all, card=card)
+    check_walk("jpeg_scene", launches, "flat")
+    if len(hs.textures) != 3 or min(psnr.values()) < JPEG_PSNR_MIN or big_psnr < JPEG_PSNR_MIN:
+        raise AssertionError(f"jpeg_scene: {len(hs.textures)} textures, PSNR {psnr}, 2048^2 {big_psnr}")
+    if mismatches or not rmse <= JPEG_RENDER_TOL:
+        raise AssertionError(f"jpeg_scene: {mismatches} fetches differ card against CPU, "
+                             f"render RMSE {rmse} (limit {JPEG_RENDER_TOL})")
+    return launches
 
 
 def main() -> int:
@@ -2696,6 +3060,9 @@ def main() -> int:
     check_walk("the flat city slice", flat_city, "flat")
     emit("city_routes", entries=cl.num_entries, threshold=tc.HIER_MIN_ENTRIES,
          **route_turns(renderer, tc.launch_counts), card=card)
+    # ---- strip and lane sharding over torch.distributed, on this card -----
+    dist_runs, dist_per_rank = dist_phases(cs, probe, dev, card)
+    torch.cuda.empty_cache()
     del renderer, o, d, cr, cr_s
     torch.cuda.empty_cache()
     # ---- the engine's last options: fused shadows on the city, env_via_bsdf
@@ -2745,10 +3112,10 @@ def main() -> int:
     # ---- the other presets: hello and spectral on the city, whitted on its
     # own scene, their goldens ----------------------------------------------
     hello_launches, hello_t, preset_errs = hello_slice(cs, dev, peak, card, tc.launch_counts)
-    spectral_launches = spectral_slice(cs, probe, card, tc.launch_counts)
+    spectral_launches, spectral_t, spectral_errs = spectral_slice(cs, probe, peak, card, tc.launch_counts)
     torch.cuda.empty_cache()
     whitted_launches, whitted_t, whitted_errs = whitted_slice(dev, peak, card, tc.launch_counts)
-    for name, e in (*preset_errs.items(), *whitted_errs.items()):
+    for name, e in (*preset_errs.items(), *whitted_errs.items(), *spectral_errs.items()):
         errs[name] = max(errs[name], e)
     preset_goldens(dev, card)
     # ---- the viewer on the city: disney_pt 1200x800 and foveated 4K fused --
@@ -2770,6 +3137,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     cornell_launches = cornell_slice(dev, card, tc.launch_counts)
     file_goldens(dev)
+    jpeg_launches = jpeg_scene(dev, card, tc.launch_counts)
     torch.cuda.empty_cache()
 
     # ---- the instanced city (TLAS) through the CLI's renderer, and the CLI
@@ -2920,7 +3288,7 @@ def main() -> int:
             "cornell": cornell_launches, **inst_runs, "fused_shadows": fused_launches,
             "hello": hello_launches, "whitted": whitted_launches, "spectral": spectral_launches,
             "demand_loft": demand_loft_launches, "demand_big": demand_big_launches, "view": view_launches,
-            "big_slice": big_launches}
+            **dist_runs, "jpeg_scene": jpeg_launches, "big_slice": big_launches}
     for run in runs.values():
         for name, k in run.items():
             launches[name] = launches.get(name, 0) + k
@@ -2930,7 +3298,7 @@ def main() -> int:
     # was timed, the kernel's ms there
     timed_at = {"slice": city_t, "flat_slice": flat_t, "loft": loft_t["first bounce"],
                 "demand_big": demand_big_t["first bounce"], **inst_t,
-                "hello": hello_t, "whitted": whitted_t, "big_slice": big_t}
+                "hello": hello_t, "whitted": whitted_t, "spectral": spectral_t, "big_slice": big_t}
     timing.update(flat_t, **city_t)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": KERNELS[name],
@@ -2938,6 +3306,8 @@ def main() -> int:
          **{k: timing[name][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
             if k in timing[name]},
          "paths": {path: {"launches": run.get(name, 0),
+                          **({"launches_per_rank": [r.get(name, 0) for r in dist_per_rank[path]]}
+                             if path in dist_per_rank else {}),
                           **({k: timed_at[path][name][k] for k in ("ms", "plain_ms", "bound_ms")
                               if k in timed_at[path][name]} if name in timed_at.get(path, {}) else {})}
                    for path, run in runs.items() if run.get(name, 0)}}

@@ -10,12 +10,14 @@ local space, and one transform per referencing node). Supports .gltf
 (JSON + external or base64 buffers) and .glb; triangle meshes with
 POSITION / NORMAL / TEXCOORD_0 and scalar indices.
 
-Images decode through the port's own PNG decoder (io/image.py). An image
-the reference's PIL could not decode either (an unsupported codec, a data
-URI that is not base64, a missing file) degrades to the factor-only
-material with a warning, as in the reference; a JPEG, a 16-bit or an
-interlaced PNG is a gap of the port and raises NotImplementedError
-(ROADMAP A.1).
+Images decode through the port's own PNG and JPEG decoders
+(io/image.py `rgb8_from_bytes`: the two image formats core glTF 2.0
+allows). An image the reference's PIL could not decode either (an
+unsupported codec, a data URI that is not base64, a missing file) degrades
+to the factor-only material with a warning, as in the reference; one PIL
+decodes and the port does not (an arithmetic-coded or 12-bit JPEG, BMP,
+WebP, ...) is a gap of the port and raises NotImplementedError (ROADMAP
+A.1).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import numpy as np
 from ..core.materials import make_material
 from ..core.scene import HostScene, Mesh
 from ..lights.lights import make_ambient_light, make_point_light
-from .image import rgb8_from_png
+from .image import rgb8_from_bytes
 
 _COMPONENT_DTYPE = {
     5120: np.int8,
@@ -185,12 +187,12 @@ def _load_gltf_impl(path: str, instanced: bool):
             if ti not in tex_cache:
                 # an undecodable image degrades to the factor-only material
                 # instead of failing the whole load, as in the reference;
-                # what the port cannot decode but PIL could (JPEG, 16-bit or
-                # interlaced PNG) raises NotImplementedError (ROADMAP A.1)
+                # what the port cannot decode but PIL could raises
+                # NotImplementedError (ROADMAP A.1)
                 try:
                     raw = image_bytes(gltf["images"][gltf["textures"][ti]["source"]])
                     tex_cache[ti] = -1 if raw is None else scene.add_texture(
-                        rgb8_from_png(raw).astype(np.float32) / 255.0)
+                        rgb8_from_bytes(raw).astype(np.float32) / 255.0)
                 except NotImplementedError:
                     raise
                 except Exception as e:  # noqa: BLE001 — any decode failure, as the reference

@@ -1,22 +1,36 @@
-"""Image IO: PNG read-write, the Radiance .hdr loader and PFM (port of
-optixpathtracer_tpu/io/image.py).
+"""Image IO: PNG read-write, JPEG read (and the viewer's JPEG write), the
+Radiance .hdr loader and PFM (port of optixpathtracer_tpu/io/image.py).
 
-The reference decodes and encodes PNG through PIL. The port has its own
-PNG codec written with `zlib` and `struct`, so it needs no image library:
-8-bit, non-interlaced, colour types 0 (grey), 2 (RGB), 3 (palette),
-4 (grey + alpha) and 6 (RGBA), all five scanline filters. `read_rgb8`
-gives the uint8 values PIL's `Image.open(...).convert("RGB")` gives for
-those files: grey is replicated, palettes are looked up and alpha is
-dropped. Interlaced PNGs, other bit depths and JPEG decoding raise
-NotImplementedError naming ROADMAP A.1; they never decode to something
-else. The Radiance RGBE and PFM code is the reference's numpy.
+The reference decodes and encodes images through PIL. The port has its own
+codecs written with `zlib`, `struct` and numpy, so it needs no image
+library. `rgb8_from_bytes` (and `read_rgb8` / `load_image` on a file) tells
+the format by its first bytes and gives the uint8 values PIL's
+`Image.open(...).convert("RGB")` gives:
+
+- PNG, the whole format: colour types 0 (grey), 2 (RGB), 3 (palette),
+  4 (grey + alpha) and 6 (RGBA), every bit depth (1, 2, 4, 8, 16), all five
+  scanline filters, Adam7 interlacing. Grey is replicated (1-4 bit grey
+  scaled to 0-255), palettes are looked up, alpha is dropped, 16-bit
+  samples keep their high byte except 16-bit grey, which PIL opens as mode
+  I;16 and clamps to 255.
+- JPEG: Huffman-coded baseline, extended sequential and progressive, 8-bit,
+  grey or three components (YCbCr, or RGB by the Adobe / component-id
+  rules), any integral sampling factors, restart intervals, any size.
+  Decoded with libjpeg's integer pipeline (see `decode_jpeg`), bit for bit
+  what PIL (libjpeg-turbo) gives.
+
+Arithmetic-coded, 12-bit, lossless and hierarchical JPEG, CMYK / YCCK, and
+every other format PIL reads raise NotImplementedError naming ROADMAP A.1;
+they never decode to something else. The Radiance RGBE and PFM code is the
+reference's numpy.
 
 `encode_jpeg` is the port's own baseline JPEG encoder (the reference's
 viewer encodes with PIL): JFIF, the Annex K quantisation tables scaled by
 quality with the IJG formula, 4:2:0 chroma, the standard Huffman tables.
 The colour transform, DCT and quantisation are tensor ops on the frame's
-own device; the entropy coding is vectorised numpy. The tables and the
-zigzag order live here once, for a decoder to reuse.
+own device; the entropy coding is vectorised numpy. The tables, the zigzag
+order and the canonical Huffman codes live here once, for the encoder and
+the decoder.
 """
 from __future__ import annotations
 
@@ -91,11 +105,33 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out[1:]
 
 
-def decode_png(data: bytes) -> tuple[np.ndarray, int, np.ndarray | None]:
-    """PNG bytes -> (samples (H, W, C) uint8, colour type, palette (256, 3)
-    uint8 or None)."""
+# Adam7 passes: (x0, y0, dx, dy) of each pass's pixel grid (PNG spec 8.2)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+
+
+def _png_samples(rows: np.ndarray, width: int, ch: int, depth: int) -> np.ndarray:
+    """Unfiltered scanlines (h, stride) uint8 -> (h, width, ch) samples:
+    uint8 for depths 1-8 (unscaled values), uint16 for 16."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, width, ch)
+    if depth < 8:
+        per = 8 // depth
+        shifts = (8 - depth - depth * np.arange(per)).astype(np.uint8)
+        vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+        return vals.reshape(h, -1)[:, :width * ch].reshape(h, width, ch).astype(np.uint8)
+    return rows.reshape(h, width, ch)
+
+
+def decode_png(data: bytes) -> tuple[np.ndarray, int, np.ndarray | None, int]:
+    """PNG bytes -> (samples (H, W, C), colour type, palette (256, 3) uint8
+    or None, bit depth). Samples are uint8 for depths 1-8 (values as
+    stored: palette indices, unscaled grey), uint16 for 16; Adam7
+    interlacing is undone."""
     if data.startswith(_JPEG_MAGIC):
-        raise NotImplementedError("JPEG decoding is not ported (ROADMAP A.1)")
+        raise ValueError("a JPEG image, not a PNG: decode it with rgb8_from_bytes")
     if not data.startswith(_PNG_MAGIC):
         raise ValueError("not a PNG image")
     header, palette, idat = None, None, []
@@ -111,33 +147,83 @@ def decode_png(data: bytes) -> tuple[np.ndarray, int, np.ndarray | None]:
     if header is None:
         raise ValueError("PNG without IHDR")
     width, height, depth, color, _compression, _filter, interlace = header
-    if interlace:
-        raise NotImplementedError("interlaced PNG decoding is not ported (ROADMAP A.1)")
-    if depth != 8:
-        raise NotImplementedError(f"{depth}-bit PNG decoding is not ported (ROADMAP A.1)")
     if color not in _CHANNELS:
         raise ValueError(f"invalid PNG colour type {color}")
+    if depth not in _PNG_DEPTHS[color]:
+        raise ValueError(f"invalid PNG bit depth {depth} for colour type {color}")
+    if interlace not in (0, 1):
+        raise ValueError(f"invalid PNG interlace method {interlace}")
     if color == 3 and palette is None:
         raise ValueError("palette PNG without PLTE")
     ch = _CHANNELS[color]
+    bpp = max(1, ch * depth // 8)  # the filters' byte distance
     raw = zlib.decompress(b"".join(idat))
-    rows = _unfilter(raw, height, width * ch, ch)
-    return rows.reshape(height, width, ch), color, palette
+    dtype = np.uint16 if depth == 16 else np.uint8
+    if not interlace:
+        rows = _unfilter(raw, height, (width * ch * depth + 7) // 8, bpp)
+        return _png_samples(rows, width, ch, depth), color, palette, depth
+    out = np.zeros((height, width, ch), dtype)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue  # an empty pass has no scanlines, not even filter bytes
+        stride = (pw * ch * depth + 7) // 8
+        rows = _unfilter(raw[pos:], ph, stride, bpp)
+        pos += ph * (stride + 1)
+        out[y0::dy, x0::dx] = _png_samples(rows, pw, ch, depth)
+    return out, color, palette, depth
 
 
 def rgb8_from_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, 3) uint8, as PIL's convert("RGB") gives it."""
-    px, color, palette = decode_png(data)
+    """PNG bytes -> (H, W, 3) uint8, as PIL's convert("RGB") gives it: grey
+    of 1, 2 and 4 bits scaled to 0-255, 16-bit RGB(A) and grey + alpha
+    keeping the high byte, 16-bit grey (PIL's mode I;16) clamped to 255,
+    palettes looked up, alpha dropped."""
+    px, color, palette, depth = decode_png(data)
     if color == 3:
         return palette[px[..., 0]]
+    if depth == 16:
+        if color == 0:
+            px = np.minimum(px, 255)
+        else:
+            px = px >> 8
+        px = px.astype(np.uint8)
+    elif depth < 8:  # grey: 0..2^depth-1 onto 0..255, as PIL's unpackers do
+        px = (px * (255 // ((1 << depth) - 1))).astype(np.uint8)
     if color in (0, 4):
         return np.repeat(px[..., :1], 3, axis=-1)
     return np.ascontiguousarray(px[..., :3])
 
 
+# the first bytes of image formats PIL reads and the port does not decode
+_OTHER_MAGIC = {b"BM": "BMP", b"GIF87a": "GIF", b"GIF89a": "GIF", b"II*\x00": "TIFF",
+                b"MM\x00*": "TIFF", b"#?RADIANCE": "Radiance HDR (use load_hdr)", b"\x00\x00\x01\x00": "ICO",
+                b"8BPS": "PSD", b"qoif": "QOI", b"DDS ": "DDS"}
+
+
+def rgb8_from_bytes(data: bytes) -> np.ndarray:
+    """Encoded image bytes -> (H, W, 3) uint8, what PIL's
+    `Image.open(...).convert("RGB")` gives: PNG (every colour type, bit
+    depth and interlace) and JPEG (baseline and progressive Huffman, 8-bit,
+    1 or 3 components), told apart by their first bytes. Other formats PIL
+    reads raise NotImplementedError naming ROADMAP A.1; bytes of no known
+    format raise ValueError."""
+    if data.startswith(_PNG_MAGIC):
+        return rgb8_from_png(data)
+    if data.startswith(_JPEG_MAGIC):
+        return rgb8_from_jpeg(data)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        raise NotImplementedError("WebP decoding is not ported (ROADMAP A.1)")
+    for magic, name in _OTHER_MAGIC.items():
+        if data.startswith(magic):
+            raise NotImplementedError(f"{name} decoding is not ported (ROADMAP A.1)")
+    raise ValueError("not a PNG or JPEG image")
+
+
 def read_rgb8(path: str) -> np.ndarray:
     with open(path, "rb") as f:
-        return rgb8_from_png(f.read())
+        return rgb8_from_bytes(f.read())
 
 
 def load_image(path: str, flip_y: bool = True) -> np.ndarray:
@@ -435,6 +521,480 @@ def encode_jpeg(image, quality: int = 85) -> bytes:
             + _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
             + _segment(0xDB, dqt) + _segment(0xC0, sof) + _segment(0xC4, dht)
             + _segment(0xDA, sos) + data + b"\xff\xd9")
+
+
+# ---- JPEG decoding -------------------------------------------------------------
+#
+# libjpeg's integer pipeline (what PIL links: libjpeg-turbo), so the pixels
+# equal PIL's: the ISLOW IDCT (jidctint.c), "fancy" triangle upsampling of
+# the chroma (jdsample.c) and the fixed-point YCbCr -> RGB tables
+# (jdcolor.c). The entropy decoding is sequential host Python over 64-bit
+# windows of the scan's bytes; dequantisation, IDCT, upsampling and the
+# colour transform are numpy over every block at once.
+
+_JPEG_SOF = {0xC0: False, 0xC1: False, 0xC2: True}  # Huffman SOF marker -> progressive
+_JPEG_OTHER_SOF = {0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
+                   0xC7: "hierarchical", 0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded",
+                   0xCB: "arithmetic-coded", 0xCD: "arithmetic-coded", 0xCE: "arithmetic-coded",
+                   0xCF: "arithmetic-coded"}
+
+
+def _jpeg_unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} JPEG decoding is not ported (ROADMAP A.1)")
+
+
+def _huffman_lut(bits: bytes, vals: bytes) -> list[int]:
+    """16-bit peek -> (code length << 8 | symbol), 0 where no code starts."""
+    if sum(bits) != len(vals) or len(vals) > 256:
+        raise ValueError("corrupt JPEG Huffman table")
+    code, length = _huffman_codes(list(bits), list(vals))
+    lut = np.zeros(1 << 16, np.int64)
+    for sym in vals:
+        n = int(length[sym])
+        c = int(code[sym])
+        if c >> n:
+            raise ValueError("corrupt JPEG Huffman table")
+        lut[c << (16 - n):(c + 1) << (16 - n)] = n << 8 | sym
+    return lut.tolist()
+
+
+def _bit_windows(seg: bytes) -> list[int]:
+    """win[i]: the 64 bits from byte i on (big-endian), zeros past the end;
+    bit p of the segment is bit 63 - p % 8 of win[p >> 3]."""
+    n = len(seg) + 8
+    b = np.frombuffer(seg + bytes(16), np.uint8).astype(np.uint64)
+    win = np.zeros(n, np.uint64)
+    for i in range(8):
+        win |= b[i:i + n] << np.uint64(56 - 8 * i)
+    return win.tolist()
+
+
+def _entropy_segments(data: bytes, pos: int) -> tuple[list[bytes], int]:
+    """The entropy-coded data from `pos`: its restart intervals (stuffed
+    zero bytes removed) and the position of the marker that ends it."""
+    segs, start = [], pos
+    while True:
+        i = data.find(b"\xff", pos)
+        if i < 0:
+            raise ValueError("JPEG scan runs past the end of the data")
+        k = i
+        while k + 1 < len(data) and data[k + 1] == 0xFF:
+            k += 1  # fill bytes before a marker
+        if k + 1 >= len(data):
+            raise ValueError("JPEG scan runs past the end of the data")
+        marker = data[k + 1]
+        if marker == 0x00 and k == i:
+            pos = i + 2
+            continue
+        segs.append(data[start:i].replace(b"\xff\x00", b"\xff"))
+        if 0xD0 <= marker <= 0xD7:
+            pos = start = k + 2
+            continue
+        return segs, k
+
+
+class _Frame:
+    """SOF parameters and the coefficient store of every component."""
+
+    def __init__(self, body: bytes, progressive: bool):
+        precision, self.height, self.width, n = struct.unpack(">BHHB", body[:6])
+        if precision != 8:
+            raise _jpeg_unported(f"{precision}-bit")
+        if self.height == 0 or self.width == 0:
+            raise ValueError("JPEG frame without a size (DNL is not supported)")
+        if n not in (1, 3):
+            raise _jpeg_unported(f"{n}-component (CMYK / YCCK)" if n == 4 else f"{n}-component")
+        self.progressive = progressive
+        self.ids, self.h, self.v, self.tq = [], [], [], []
+        for c in range(n):
+            cid, hv, tq = body[6 + 3 * c:9 + 3 * c]
+            if not (1 <= hv >> 4 <= 4 and 1 <= hv & 15 <= 4):
+                raise ValueError("corrupt JPEG sampling factors")
+            self.ids.append(cid)
+            self.h.append(hv >> 4)
+            self.v.append(hv & 15)
+            self.tq.append(tq)
+        self.hmax, self.vmax = max(self.h), max(self.v)
+        self.mcus_x = -(-self.width // (8 * self.hmax))
+        self.mcus_y = -(-self.height // (8 * self.vmax))
+        # per component: samples across and down (libjpeg's downsampled
+        # width / height) and the MCU-padded block store
+        self.cw = [-(-self.width * h // self.hmax) for h in self.h]
+        self.ch = [-(-self.height * v // self.vmax) for v in self.v]
+        self.bx = [self.mcus_x * h for h in self.h]
+        self.by = [self.mcus_y * v for v in self.v]
+        self.coefs = [[0] * (bx * by * 64) for bx, by in zip(self.bx, self.by)]
+        self.quant: list[np.ndarray | None] = [None] * n
+
+    def scan_mcus(self, comps: list[int]) -> list[list[tuple[int, int]]]:
+        """Each MCU of a scan over `comps`: (index into comps, offset of the
+        block's 64 coefficients in that component's store)."""
+        if len(comps) == 1:  # non-interleaved: the component's own block grid
+            c = comps[0]
+            nbx, nby = -(-self.cw[c] // 8), -(-self.ch[c] // 8)
+            return [[(0, (y * self.bx[c] + x) * 64)] for y in range(nby) for x in range(nbx)]
+        mcus = []
+        for my in range(self.mcus_y):
+            for mx in range(self.mcus_x):
+                blocks = []
+                for i, c in enumerate(comps):
+                    for y in range(self.v[c]):
+                        for x in range(self.h[c]):
+                            blocks.append((i, ((my * self.v[c] + y) * self.bx[c] + mx * self.h[c] + x) * 64))
+                mcus.append(blocks)
+        return mcus
+
+
+def _receive(win, pos, s):
+    """(the s-bit value at bit `pos`, sign-extended as T.81 F.2.2.1, pos + s)."""
+    v = (win[pos >> 3] >> (64 - (pos & 7) - s)) & ((1 << s) - 1)
+    if v < (1 << (s - 1)):
+        v -= (1 << s) - 1
+    return v, pos + s
+
+
+def _decode_scan(frame: _Frame, comps, dc_luts, ac_luts, ss, se, ah, al, segs, restart):
+    """Decode one scan's segments into the frame's coefficient stores
+    (zigzag order): sequential, or one progressive pass (DC first or
+    refine, AC first or refine, T.81 G.1.2)."""
+    mcus = frame.scan_mcus(comps)
+    per = restart or len(mcus)
+    if -(-len(mcus) // per) > len(segs):
+        raise ValueError("JPEG scan has fewer restart intervals than MCUs need")
+    stores = [frame.coefs[c] for c in comps]
+    sequential = not frame.progressive
+    p1, m1 = 1 << al, -1 << al
+    bad = "corrupt JPEG data: invalid Huffman code"
+    for seg_i in range(-(-len(mcus) // per)):
+        win = _bit_windows(segs[seg_i])
+        pos = 0
+        pred = [0] * len(comps)
+        eobrun = 0
+        for mcu in mcus[seg_i * per:(seg_i + 1) * per]:
+            for ci, base in mcu:
+                co = stores[ci]
+                if ss == 0 and ah == 0:  # DC first, or the DC of a sequential block
+                    e = dc_luts[ci][(win[pos >> 3] >> (48 - (pos & 7))) & 0xFFFF]
+                    if not e:
+                        raise ValueError(bad)
+                    pos += e >> 8
+                    s = e & 0xFF
+                    if s:
+                        d, pos = _receive(win, pos, s)
+                        pred[ci] += d
+                    co[base] = pred[ci] << al
+                    if not sequential:
+                        continue
+                    ac = ac_luts[ci]
+                    k = 1
+                    while k < 64:
+                        e = ac[(win[pos >> 3] >> (48 - (pos & 7))) & 0xFFFF]
+                        if not e:
+                            raise ValueError(bad)
+                        pos += e >> 8
+                        rs = e & 0xFF
+                        s = rs & 15
+                        if s:
+                            k += rs >> 4
+                            if k > 63:
+                                raise ValueError("corrupt JPEG data: coefficient past 63")
+                            v = (win[pos >> 3] >> (64 - (pos & 7) - s)) & ((1 << s) - 1)
+                            pos += s
+                            if v < (1 << (s - 1)):
+                                v -= (1 << s) - 1
+                            co[base + k] = v
+                            k += 1
+                        elif rs == 0xF0:
+                            k += 16
+                        else:
+                            break
+                elif ss == 0:  # DC refine: one bit
+                    if (win[pos >> 3] >> (63 - (pos & 7))) & 1:
+                        co[base] |= p1
+                    pos += 1
+                elif ah == 0:  # AC first
+                    if eobrun:
+                        eobrun -= 1
+                        continue
+                    ac = ac_luts[ci]
+                    k = ss
+                    while k <= se:
+                        e = ac[(win[pos >> 3] >> (48 - (pos & 7))) & 0xFFFF]
+                        if not e:
+                            raise ValueError(bad)
+                        pos += e >> 8
+                        rs = e & 0xFF
+                        r, s = rs >> 4, rs & 15
+                        if s:
+                            k += r
+                            if k > se:
+                                raise ValueError("corrupt JPEG data: coefficient past the band")
+                            v, pos = _receive(win, pos, s)
+                            co[base + k] = v * p1
+                            k += 1
+                        elif r == 15:
+                            k += 16
+                        else:
+                            eobrun = 1 << r
+                            if r:
+                                eobrun += (win[pos >> 3] >> (64 - (pos & 7) - r)) & ((1 << r) - 1)
+                                pos += r
+                            eobrun -= 1
+                            break
+                else:  # AC refine (jdphuff.c decode_mcu_AC_refine)
+                    k = ss
+                    if not eobrun:
+                        ac = ac_luts[ci]
+                        while k <= se:
+                            e = ac[(win[pos >> 3] >> (48 - (pos & 7))) & 0xFFFF]
+                            if not e:
+                                raise ValueError(bad)
+                            pos += e >> 8
+                            rs = e & 0xFF
+                            r, s = rs >> 4, rs & 15
+                            if s:
+                                if s != 1:
+                                    raise ValueError("corrupt JPEG data: refinement size")
+                                s = p1 if (win[pos >> 3] >> (63 - (pos & 7))) & 1 else m1
+                                pos += 1
+                            elif r != 15:
+                                eobrun = 1 << r
+                                if r:
+                                    eobrun += (win[pos >> 3] >> (64 - (pos & 7) - r)) & ((1 << r) - 1)
+                                    pos += r
+                                break
+                            while k <= se:  # correct nonzero ones, skip r zero ones
+                                c = co[base + k]
+                                if c:
+                                    if (win[pos >> 3] >> (63 - (pos & 7))) & 1 and not c & p1:
+                                        co[base + k] = c + (p1 if c >= 0 else m1)
+                                    pos += 1
+                                elif r:
+                                    r -= 1
+                                else:
+                                    break
+                                k += 1
+                            if s:
+                                if k > se:
+                                    raise ValueError("corrupt JPEG data: coefficient past the band")
+                                co[base + k] = s
+                            k += 1
+                    if eobrun:  # the band's rest: correction bits only
+                        while k <= se:
+                            c = co[base + k]
+                            if c:
+                                if (win[pos >> 3] >> (63 - (pos & 7))) & 1 and not c & p1:
+                                    co[base + k] = c + (p1 if c >= 0 else m1)
+                                pos += 1
+                            k += 1
+                        eobrun -= 1
+        if pos > 8 * len(segs[seg_i]) + 64:
+            raise ValueError("JPEG scan data ends early")
+
+
+# jidctint.c: CONST_BITS 13, PASS1_BITS 2, the FIX_* constants
+_IDCT_LIMIT = np.array([v + 128 if v < 128 else 255 if v < 512 else 0 if v < 896 else v - 896
+                        for v in range(1024)], np.uint8)  # IDCT_range_limit, masked by 1023
+
+
+def _idct_pass(x: np.ndarray, axis: int, shift: int) -> np.ndarray:
+    """One 1-D pass of jpeg_idct_islow over `axis` of int64 blocks."""
+    c = [np.take(x, k, axis) for k in range(8)]
+    z1 = (c[2] + c[6]) * 4433
+    tmp2 = z1 - c[6] * 15137
+    tmp3 = z1 + c[2] * 6270
+    tmp0 = (c[0] + c[4]) << 13
+    tmp1 = (c[0] - c[4]) << 13
+    tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    t0, t1, t2, t3 = c[7], c[5], c[3], c[1]
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * 9633
+    t0, t1, t2, t3 = t0 * 2446, t1 * 16819, t2 * 25172, t3 * 12299
+    z1, z2 = z1 * -7373, z2 * -20995
+    z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5
+    t0 += z1 + z3
+    t1 += z2 + z4
+    t2 += z2 + z3
+    t3 += z1 + z4
+    r = 1 << (shift - 1)
+    out = [tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+           tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3]
+    return np.stack([(o + r) >> shift for o in out], axis)
+
+
+def _component_plane(frame: _Frame, c: int) -> np.ndarray:
+    """Component c's samples, (ch, cw) int32: dequantised, ISLOW IDCT."""
+    bx, by = frame.bx[c], frame.by[c]
+    zz = np.asarray(frame.coefs[c], np.int64).reshape(-1, 64)
+    nat = np.empty_like(zz)
+    nat[:, JPEG_ZIGZAG] = zz
+    z = (nat * frame.quant[c].astype(np.int64)).reshape(-1, 8, 8)
+    ws = _idct_pass(z, 1, 13 - 2)  # columns, then rows
+    px = _IDCT_LIMIT[_idct_pass(ws, 2, 13 + 2 + 3) & 1023]
+    plane = px.reshape(by, bx, 8, 8).transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)
+    return plane[:frame.ch[c], :frame.cw[c]].astype(np.int32)
+
+
+def _upsample(x: np.ndarray, fx: int, fy: int) -> np.ndarray:
+    """jdsample.c: h2v1 / h1v2 / h2v2 "fancy" (triangle) upsampling with the
+    edges replicated, plain replication for other integer factors and for
+    planes of 2 samples or fewer across (as libjpeg chooses)."""
+    w = x.shape[1]
+    if (fx, fy) == (1, 2) or ((fx, fy) in ((2, 1), (2, 2)) and w > 2):
+        if fy == 2:  # the nearer row 3/4, the farther 1/4
+            up = np.concatenate([x[:1], x[:-1]])
+            down = np.concatenate([x[1:], x[-1:]])
+            if fx == 1:
+                out = np.empty((2 * x.shape[0], w), np.int32)
+                out[0::2] = (3 * x + up + 1) >> 2
+                out[1::2] = (3 * x + down + 2) >> 2
+                return out
+            sums = np.empty((2 * x.shape[0], w), np.int32)
+            sums[0::2] = 3 * x + up
+            sums[1::2] = 3 * x + down
+            x, bias = sums, (8, 7, 4)
+        else:
+            bias = (1, 2, 2)
+        left = np.concatenate([x[:, :1], x[:, :-1]], 1)
+        right = np.concatenate([x[:, 1:], x[:, -1:]], 1)
+        out = np.empty((x.shape[0], 2 * w), np.int32)
+        out[:, 0::2] = (3 * x + left + bias[0]) >> bias[2]
+        out[:, 1::2] = (3 * x + right + bias[1]) >> bias[2]
+        return out
+    return np.repeat(np.repeat(x, fy, 0), fx, 1)
+
+
+def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """jdcolor.c ycc_rgb_convert: SCALEBITS 16, FIX(x) rounded."""
+    cb = cb - 128
+    cr = cr - 128
+    r = y + ((91881 * cr + 32768) >> 16)
+    g = y + ((-22554 * cb - 46802 * cr + 32768) >> 16)
+    b = y + ((116130 * cb + 32768) >> 16)
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> (H, W, C) uint8 in the file's colour space converted as
+    libjpeg converts it: C = 1 (grey) or 3 (RGB, from YCbCr unless the
+    file is RGB). Huffman-coded baseline, extended sequential and
+    progressive, 8-bit, 1 or 3 components, any sampling factors, restart
+    intervals. Arithmetic coding, 12-bit samples, lossless and hierarchical
+    frames and CMYK / YCCK raise NotImplementedError naming ROADMAP A.1."""
+    if not data.startswith(b"\xff\xd8"):
+        raise ValueError("not a JPEG image")
+    pos = 2
+    frame = None
+    qt: dict[int, np.ndarray] = {}
+    dht: dict[tuple[int, int], list[int]] = {}
+    restart = 0
+    jfif, adobe = False, None
+    while True:
+        while pos < len(data) and data[pos] != 0xFF:
+            pos += 1  # garbage between segments, as libjpeg skips it
+        while pos < len(data) and data[pos] == 0xFF:
+            pos += 1
+        if pos >= len(data):
+            raise ValueError("JPEG without EOI")
+        marker = data[pos]
+        pos += 1
+        if marker == 0xD9:
+            break
+        if 0xD0 <= marker <= 0xD8 or marker == 0x01:
+            continue  # parameterless markers
+        if pos + 2 > len(data):
+            raise ValueError("truncated JPEG segment")
+        (length,) = struct.unpack(">H", data[pos:pos + 2])
+        body = data[pos + 2:pos + length]
+        if len(body) != length - 2:
+            raise ValueError("truncated JPEG segment")
+        pos += length
+        if marker in _JPEG_SOF:
+            if frame is not None:
+                raise ValueError("JPEG with two frames")
+            frame = _Frame(body, _JPEG_SOF[marker])
+        elif marker in _JPEG_OTHER_SOF:
+            raise _jpeg_unported(_JPEG_OTHER_SOF[marker])
+        elif marker == 0xCC:
+            raise _jpeg_unported("arithmetic-coded")
+        elif marker == 0xDB:
+            i = 0
+            while i < len(body):
+                pq, tq = body[i] >> 4, body[i] & 15
+                n = 128 if pq else 64
+                vals = np.frombuffer(body[i + 1:i + 1 + n], ">u2" if pq else np.uint8)
+                nat = np.empty(64, np.int64)
+                nat[JPEG_ZIGZAG] = vals
+                qt[tq] = nat
+                i += 1 + n
+        elif marker == 0xC4:
+            i = 0
+            while i < len(body):
+                tc_th = body[i]
+                bits = body[i + 1:i + 17]
+                n = sum(bits)
+                dht[(tc_th >> 4, tc_th & 15)] = _huffman_lut(bits, body[i + 17:i + 17 + n])
+                i += 17 + n
+        elif marker == 0xDD:
+            (restart,) = struct.unpack(">H", body[:2])
+        elif marker == 0xE0 and body.startswith(b"JFIF\x00"):
+            jfif = True
+        elif marker == 0xEE and body.startswith(b"Adobe") and len(body) >= 12:
+            adobe = body[11]
+        elif marker == 0xDA:
+            if frame is None:
+                raise ValueError("JPEG scan before its frame")
+            ns = body[0]
+            comps, dc_luts, ac_luts = [], [], []
+            for j in range(ns):
+                cid, tables = body[1 + 2 * j], body[2 + 2 * j]
+                if cid not in frame.ids:
+                    raise ValueError(f"JPEG scan names no component {cid}")
+                c = frame.ids.index(cid)
+                comps.append(c)
+                if frame.quant[c] is None:  # latched at the component's first scan
+                    if frame.tq[c] not in qt:
+                        raise ValueError("JPEG component without a quantisation table")
+                    frame.quant[c] = qt[frame.tq[c]]
+                dc_luts.append(dht.get((0, tables >> 4)))
+                ac_luts.append(dht.get((1, tables & 15)))
+            ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
+            ah, al = a >> 4, a & 15
+            if not frame.progressive:
+                ss, se, ah, al = 0, 63, 0, 0
+            elif ss > se or se > 63 or (ss == 0 and se != 0) or (ss > 0 and ns != 1):
+                raise ValueError("corrupt JPEG progressive scan parameters")
+            if (ss == 0 and ah == 0 and None in dc_luts) or (se > 0 and None in ac_luts):
+                raise ValueError("JPEG scan without its Huffman table")
+            segs, pos = _entropy_segments(data, pos)
+            _decode_scan(frame, comps, dc_luts, ac_luts, ss, se, ah, al, segs, restart)
+    if frame is None:
+        raise ValueError("JPEG without a frame")
+    if any(q is None for q in frame.quant):
+        raise ValueError("JPEG component without a scan")
+    planes = []
+    for c in range(len(frame.ids)):
+        if frame.hmax % frame.h[c] or frame.vmax % frame.v[c]:
+            raise _jpeg_unported("non-integral sampling ratio")
+        p = _upsample(_component_plane(frame, c), frame.hmax // frame.h[c], frame.vmax // frame.v[c])
+        planes.append(p[:frame.height, :frame.width])
+    if len(planes) == 1:
+        return planes[0].astype(np.uint8)[..., None]
+    if jfif:
+        ycc = True
+    elif adobe is not None:
+        ycc = adobe != 0
+    else:
+        ycc = tuple(frame.ids) != (82, 71, 66)
+    if ycc:
+        return _ycc_to_rgb(*planes)
+    return np.stack(planes, -1).astype(np.uint8)
+
+
+def rgb8_from_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> (H, W, 3) uint8, as PIL's convert("RGB") gives it."""
+    px = decode_jpeg(data)
+    return np.repeat(px, 3, axis=-1) if px.shape[-1] == 1 else px
 
 
 # ---- Radiance .hdr (RGBE) ---------------------------------------------------

@@ -6,7 +6,7 @@ MATERIAL ID (:166-201), vertices deduplicated by (v, vn, vt) index triplet
 (addVertex :51-84); materials take only diffuse + emission from the MTL
 (:189-190, everything else keeps Disney defaults); diffuse textures loaded
 with a vertical flip (loadTexture :88-135, backslash fixing :100-103)
-through the port's own PNG decoder (io/image.py).
+through the port's own PNG and JPEG decoders (io/image.py `load_image`).
 
 Pure Python/numpy: the port parses with the reference's Python parser
 only. The reference's native C++ tokenizer (native/src/objparser.cpp),

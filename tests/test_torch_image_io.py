@@ -17,6 +17,7 @@ from PIL import Image
 import chip_smoke
 from optixpathtracer_tpu.io import image as jimg
 from optixpathtracer_tpu_torch.io import image as timg
+from test_torch_image_decode import _png as adam7_png
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOFT_PNGS = [os.path.join(REPO, "scenes", f"loft_tex{i}.png") for i in range(3)]
@@ -177,20 +178,31 @@ def test_pfm_round_trip(tmp_path):
 
 
 def test_unported_formats_raise(tmp_path):
+    """The formats this test once held unported now decode as PIL does
+    (tests/test_torch_image_decode.py covers them case by case); an
+    arithmetic-coded JPEG still raises, naming A.1."""
     rng = np.random.default_rng(5)
     px = rng.integers(0, 256, (6, 8, 3), dtype=np.uint8)
     buf16, jpg = io.BytesIO(), io.BytesIO()
     Image.fromarray(px[..., 0].astype(np.uint16) * 257).save(buf16, format="PNG")
     Image.fromarray(px).save(jpg, format="JPEG")
-    interlaced = _png(px.reshape(6, -1), 2, (0,), interlace=1)
+    interlaced = adam7_png(px.astype(np.int64), 2, 8, 1)
     assert _pil_rgb(buf16.getvalue()).shape == _pil_rgb(jpg.getvalue()).shape == (6, 8, 3)  # PIL decodes them
     for data in (buf16.getvalue(), jpg.getvalue(), interlaced):
-        with pytest.raises(NotImplementedError, match="A.1"):
-            timg.rgb8_from_png(data)
+        np.testing.assert_array_equal(timg.rgb8_from_bytes(data), _pil_rgb(data))
+    # plain scanlines under an interlaced header: PIL rejects them, and so does the port
+    malformed = _png(px.reshape(6, -1), 2, (0,), interlace=1)
+    with pytest.raises(OSError):
+        _pil_rgb(malformed)
+    with pytest.raises(ValueError):
+        timg.rgb8_from_bytes(malformed)
     path = str(tmp_path / "photo.jpg")
     with open(path, "wb") as f:
         f.write(jpg.getvalue())
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        timg.load_image(path)
+    np.testing.assert_array_equal(timg.load_image(path), jimg.load_image(path))
+    sof = jpg.getvalue().index(b"\xff\xc0")
+    arithmetic = jpg.getvalue()[:sof] + b"\xff\xc9" + jpg.getvalue()[sof + 2:]
+    with pytest.raises(NotImplementedError, match="arithmetic.*A.1"):
+        timg.rgb8_from_bytes(arithmetic)
     with pytest.raises(ValueError, match="not a PNG"):
         timg.rgb8_from_png(b"GIF89a" + bytes(40))

@@ -273,21 +273,25 @@ def test_gltf_undecodable_payloads(tmp_path):
 
 
 def test_gltf_jpeg_is_a_port_gap(tmp_path):
-    """A JPEG the reference's PIL decodes raises in the port (ROADMAP A.1)
-    rather than silently losing its texture."""
+    """A JPEG the reference's PIL decodes, which the port once lacked
+    (ROADMAP A.1), now loads to the reference's host scene."""
     px = np.random.default_rng(3).integers(0, 256, (8, 8, 3), dtype=np.uint8)
     path = _textured_glb(tmp_path / "jpeg.glb", _png_bytes(px, format="JPEG"))
-    assert len(jgltf.load_gltf(path)[0].textures) == 1
-    with pytest.raises(NotImplementedError, match="A.1"):
-        tgltf.load_gltf(path)
+    got, _ = _assert_same_gltf(path)
+    assert len(got.textures) == 1
 
 
 def test_gltf_tlas_raises(tmp_path):
     """The instanced loader shares the baked loader's image decoding: a JPEG
-    texture is a port gap there too (ROADMAP A.1). (load_gltf_tlas itself is
-    held against the JAX loader in tests/test_torch_gltf_tlas.py.)"""
+    texture loads there too, and an arithmetic-coded one is still a port
+    gap (ROADMAP A.1). (load_gltf_tlas itself is held against the JAX
+    loader in tests/test_torch_gltf_tlas.py.)"""
     px = np.random.default_rng(3).integers(0, 256, (8, 8, 3), dtype=np.uint8)
-    path = _textured_glb(tmp_path / "jpeg.glb", _png_bytes(px, format="JPEG"))
+    jpeg = _png_bytes(px, format="JPEG")
+    hs = tgltf.load_gltf_tlas(_textured_glb(tmp_path / "jpeg.glb", jpeg))[0]
+    np.testing.assert_array_equal(hs.textures[0], jgltf.load_gltf(str(tmp_path / "jpeg.glb"))[0].textures[0])
+    sof = jpeg.index(b"\xff\xc0")
+    path = _textured_glb(tmp_path / "arith.glb", jpeg[:sof] + b"\xff\xc9" + jpeg[sof + 2:])
     with pytest.raises(NotImplementedError, match="A.1"):
         tgltf.load_gltf_tlas(path)
 
