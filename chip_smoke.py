@@ -6,7 +6,8 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's eight hand-written CUDA kernels, one nvcc per source,
-all started together (optixpathtracer_tpu_torch/csrc/: traverse_cluster.cu
+and the two native host libraries (csrc/host, one g++ each), all started
+together (optixpathtracer_tpu_torch/csrc/: traverse_cluster.cu
 with cull, closest, any, closest_hier and any_hier; worklist.cu with
 compact and pair_worklist; gather.cu with gather), and holds each against
 its plain PyTorch version on the card, bit for bit. Then it drives the
@@ -131,6 +132,14 @@ port's paths and checks that each went through its kernels:
      goldens): texture fetch card == CPU bit for bit, a 160x100 render on
      the card against the port's CPU render, and one 2048x2048 JPEG
      decoded on the host, timed.
+ 14. the traversal backends without a kernel and the native host builders
+     (`backend_phases`, after `engine_options`; `--only backends` runs the
+     build, the city and these alone): `native_build` (the city's native
+     builds against numpy), `lockstep_city` (bench.py's CPU headline on the
+     card), `bfs_city`, `dense_loft`, `oracle_loft` and `lockstep_goldens`
+     (the 14 goldens through the lockstep walk on the card against the
+     port's CPU renders, which three worker processes started after the
+     build compute beside the card's phases).
 
 The cull (K1) is held against its plain version and timed on both tables
 (cluster boxes and entry boxes on the city, entry boxes on the big scene)
@@ -225,6 +234,9 @@ LOFT_PNG_SUMS = {  # per-channel sums of PIL's uint8 RGB decode (tests/test_torc
 }
 TEXTURE_LOOKUPS = 1 << 20  # `texture_card_eq`'s random texture fetches
 FILE_GOLDENS = ("loft_s", "loft", "disney_cornell_s", "disney_cornell", "gltf")
+# the bench's build of the city (bench.py:1253-1255): no wide BVH, which
+# only the BFS walk and the dense scan read
+CITY_BUILD = dict(leaf_size=8, cluster_size=256, build_wide_bvh=False)
 SM_FP32_LANES = 128  # FP32 lanes of one Hopper SM, one un-fused op each per clock
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 _last_emit = [time.perf_counter()]
@@ -1495,7 +1507,7 @@ def loft_slice(dev, peak, card, counts):
     t0 = time.perf_counter()
     hs = load_obj(scenes.LOFT_OBJ)
     load_s = time.perf_counter() - t0
-    cs = compile_scene(hs, dev, leaf_size=8, cluster_size=256)
+    cs = compile_scene(hs, dev, **CITY_BUILD)
     torch.cuda.synchronize()
     cl = cs.clusters
     emit("loft_scene", triangles=cs.num_triangles, meshes=len(hs.meshes),
@@ -1537,7 +1549,7 @@ def cornell_slice(dev, card, counts):
     from optixpathtracer_tpu_torch.engine.renderer import Renderer
     from optixpathtracer_tpu_torch.engine.wavefront import RenderConfig
 
-    cs = compile_scene(scenes.cornell_scene(), dev, leaf_size=8, cluster_size=256)
+    cs = compile_scene(scenes.cornell_scene(), dev, **CITY_BUILD)
     flags = dict(BENCH_FLAGS, emission_all_bounces=True)
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, samples_per_launch=SPP, max_depth=DEPTH,
                        traversal="cluster", **flags)
@@ -1714,7 +1726,7 @@ def demand_big(dev, peak, card, counts):
     texture_s = time.perf_counter() - t0
 
     def setup(device, w, h, **view):
-        cs = compile_scene(hs, device, leaf_size=8, cluster_size=256)
+        cs = compile_scene(hs, device, **CITY_BUILD)
         probe = build_probe(np.full((8, 16, 3), 1.0, np.float32), device)
         cfg = RenderConfig(width=w, height=h, samples_per_launch=SPP, max_depth=DEPTH, traversal="cluster",
                            **BENCH_FLAGS)
@@ -2019,7 +2031,7 @@ def instanced_scene(tmp, dev):
     tlas_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     hs_b, _ = load_gltf(path)
-    cs_b, baked_bytes = _allocated_by(lambda: compile_scene(hs_b, dev, leaf_size=8))
+    cs_b, baked_bytes = _allocated_by(lambda: compile_scene(hs_b, dev, leaf_size=8, build_wide_bvh=False))
     baked_s = time.perf_counter() - t0
     cl = cs_t.clusters
     stored = sum(len(np.asarray(m.indices).reshape(-1, 3)) for m in hs_t.meshes)
@@ -2120,8 +2132,9 @@ def instanced_phases(tmp, dev, peak, card, counts):
     path, hs_t, groups, instances, cs_t, tables, hs_b, cs_b = instanced_scene(tmp, dev)
     cl = cs_t.clusters
     view = scenes.instanced_city_camera(WIDTH, HEIGHT, INST_GRID)
+    # traversal: what `render --instanced` sets for a TLAS (cli.compile_run_scene)
     run = RunConfig(scene=path, instanced=True, width=WIDTH, height=HEIGHT, spp=INST_SPP,
-                    max_depth=DEPTH, camera=CameraSpec(eye=view.eye, lookat=view.lookat,
+                    max_depth=DEPTH, traversal="cluster", camera=CameraSpec(eye=view.eye, lookat=view.lookat,
                                                        up=view.up, fov_y=view.fov_y))
     cam = cli.make_camera(run)
     probe = cli._load_probe(run, dev)
@@ -2492,7 +2505,7 @@ def spectral_slice(cs, probe, peak, card, counts):
     its first shadow sweep (a budgeted subset of the blocks). Returns
     (launches, kernel numbers, max errors)."""
     from optixpathtracer_tpu_torch import scenes
-    from optixpathtracer_tpu_torch.engine import spectral as ts
+    from optixpathtracer_tpu_torch.engine import wavefront as ts  # the spectral engine's sweeps go through it
     from optixpathtracer_tpu_torch.models import make_spectral_renderer
     from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
 
@@ -2534,6 +2547,7 @@ def preset_goldens(dev, card):
     from optixpathtracer_tpu_torch.lights import lights
     from optixpathtracer_tpu_torch.models.whitted import WhittedRenderer
     from optixpathtracer_tpu_torch.ops.curve_intersect import build_curves
+    from optixpathtracer_tpu_torch.ops.dispatch import default_backend
 
     cpu = torch.device("cpu")
     for name in scenes.PRESET_GOLDENS:
@@ -2562,7 +2576,8 @@ def preset_goldens(dev, card):
                             curves=build_curves(arch, [make_material(color=(0.9, 0.25, 0.2), roughness=0.5)], device))
         return r.render()
 
-    got, want = curve_frame(dev), curve_frame(cpu)
+    with default_backend("cluster"):  # the same walk on the card and the CPU
+        got, want = curve_frame(dev), curve_frame(cpu)
     rmse = scenes.golden_rmse(got, want)
     red = float(((got[..., 0] > 1.5 * got[..., 1]) & (got[..., 0] > 0.05)).mean())
     emit("curve_frame", width=96, height=72, rmse_vs_cpu=rmse, tol=RMSE_TOL,
@@ -2607,7 +2622,6 @@ DIST_FOV_TOL = dict(rtol=1e-6, atol=1e-6)  # tests/test_parallel_foveated.py:51-
 DIST_GAZES = ((1920, 1080), (1400, 700))  # image coordinates of the 4K frames: centre, then moved
 DIST_TIMEOUT_S = 300
 BALANCE_GATE = 0.10  # per-rank rays within 10 % of the mean (__graft_entry__.py:125-127)
-CITY_BUILD = dict(leaf_size=8, cluster_size=256)
 
 
 def dist_gloo_program(rank, world, device, programs):
@@ -2883,7 +2897,7 @@ def jpeg_scene(dev, card, counts):
         setup = scenes.loft_config(w, h, d)
         r = make_disney_pt_renderer(compile_scene(hs, d, **CITY_BUILD), setup.probe, setup.camera,
                                     width=w, height=h, spp=JPEG_RENDER["spp"],
-                                    max_depth=JPEG_RENDER["max_depth"], **setup.flags)
+                                    max_depth=JPEG_RENDER["max_depth"], traversal="cluster", **setup.flags)
         if d.type == "cuda":
             torch.cuda.synchronize()
             counts.clear()
@@ -2919,8 +2933,411 @@ def jpeg_scene(dev, card, counts):
     return launches
 
 
-def main() -> int:
+# ---- the traversal backends without a kernel, and the native builders -----
+
+GOLDEN_NAMES = ("disney_open_s", "disney_open", "disney_cornell_s", "disney_cornell", "loft_s",
+                "loft", "gltf", "foveated_s", "foveated", "hello", "whitted_s", "whitted",
+                "spectral_s", "spectral")
+LOCKSTEP_GOLDEN_TOL = 1e-5  # sqrt-space RMSE, the card's lockstep render against the CPU's
+# ... or, where the card's shading already parts from the CPU's on the
+# cluster walk, the lockstep render parts by that much and no more
+WALK_ADDS_TOL = 1e-6
+PR13_BIG_NUMPY_BUILD_S = (33.29, 41.13)  # big_scene build_s, PR 13's runs W1 / F1 (numpy builders)
+GATE_RAYS = 8192  # bench.py's gate rays (`mixed_rays`)
+TIE_REL = 1e-5  # lockstep t against the oracle's: a few ulps (their arithmetic differs)
+
+
+def render_golden(name, device, traversal):
+    """A golden setup of tests/golden_scenes.py on `device` through `traversal`."""
+    from optixpathtracer_tpu_torch import scenes
+
+    if name in scenes.OPEN_GOLDENS:
+        return scenes.render_open_golden(name, device, traversal)
+    if name in scenes.CORNELL_GOLDENS:
+        return scenes.render_cornell_golden(name, device, traversal)
+    if name in scenes.LOFT_GOLDENS:
+        return scenes.render_loft_golden(name, device, traversal)
+    if name in scenes.FOVEATED_GOLDENS:
+        return scenes.render_foveated_golden(name, device, traversal)
+    if name == "gltf":
+        return scenes.render_gltf_golden(device, traversal)
+    return scenes.render_preset_golden(name, device, traversal)
+
+
+def cpu_lockstep_golden(name):
+    """One golden's CPU renders through the lockstep and the cluster walk,
+    in a worker process of `start_cpu_goldens` (one torch thread):
+    {walk: (image, seconds)}."""
     import torch
+
+    torch.set_num_threads(1)
+    out = {}
+    for walk_name in ("lockstep", "cluster"):
+        t0 = time.perf_counter()
+        img = render_golden(name, torch.device("cpu"), walk_name)
+        out[walk_name] = (img, time.perf_counter() - t0)
+    return out
+
+
+def start_cpu_goldens(workers=3):
+    """The 14 goldens' CPU lockstep renders, started in worker processes so
+    that they run beside the card's phases; `lockstep_goldens` collects
+    them. Returns (executor, {name: future})."""
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
+    return pool, {name: pool.submit(cpu_lockstep_golden, name) for name in GOLDEN_NAMES}
+
+
+@contextlib.contextmanager
+def numpy_builders():
+    """OPTIX_TPU_NO_NATIVE=1 within the block: the numpy builders."""
+    old = os.environ.get("OPTIX_TPU_NO_NATIVE")
+    os.environ["OPTIX_TPU_NO_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["OPTIX_TPU_NO_NATIVE"]
+        else:
+            os.environ["OPTIX_TPU_NO_NATIVE"] = old
+
+
+def _host_timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _median_cluster_radius(ctr, order, c):
+    """Median bounding radius of the aligned c-runs of `order` (the treelet
+    order's contract, bvh/clusters.py `treelet_order`)."""
+    n = len(order) // c * c
+    grouped = ctr[order[:n]].reshape(-1, c, 3)
+    half = (grouped.max(axis=1) - grouped.min(axis=1)) / 2
+    return float(np.median(np.sqrt((half * half).sum(axis=1))))
+
+
+def native_build(hs, card):
+    """On the city (leaf 8, cluster 256, as the bench builds it): the native
+    `build_binary`, `wide_collapse` and `cluster_tables` bit-equal to the
+    numpy builders (OPTIX_TPU_NO_NATIVE=1), the host seconds of each path,
+    and the median cluster radius of the native and the numpy
+    `treelet_order` (their contract)."""
+    from optixpathtracer_tpu_torch.bvh import clusters, lbvh, native, wide
+    from optixpathtracer_tpu_torch.utils import host_build
+
+    if native.get_lib() is None or "accel" not in host_build._libs:
+        raise AssertionError("native_build: the native library did not load")
+    v0, v1, v2 = hs.flatten()["v"]
+    c, k = 256, 8
+    secs = {}
+    nat, secs["build_binary_native"] = _host_timed(lambda: lbvh.build_bvh(v0, v1, v2, leaf_size=k))
+    with numpy_builders():
+        ref, secs["build_binary_numpy"] = _host_timed(lambda: lbvh.build_bvh(v0, v1, v2, leaf_size=k))
+    if nat.depth != ref.depth or not np.array_equal(nat.order, ref.order) or not all(
+            np.array_equal(nat.host[f], ref.host[f]) for f in ref.host):
+        raise AssertionError("native_build: build_binary differs from the numpy build")
+    h = nat.host
+    args = (h["left"], h["right"], h["lmin"], h["lmax"], h["rmin"], h["rmax"], nat.padded_count // k, 8)
+    wn, secs["wide_collapse_native"] = _host_timed(lambda: native.wide_collapse(*args))
+    wr, secs["wide_collapse_numpy"] = _host_timed(lambda: wide.collapse(*args))
+    if wn[2] != wr[2] or not (np.array_equal(wn[0], wr[0]) and np.array_equal(wn[1], wr[1])):
+        raise AssertionError("native_build: wide_collapse differs from the numpy collapse")
+    ctr = ((v0.astype(np.float64) + v1 + v2) / 3.0)[nat.order]
+    tn, secs["treelet_order_native"] = _host_timed(lambda: clusters.treelet_order(ctr, c))
+    with numpy_builders():
+        tr, secs["treelet_order_numpy"] = _host_timed(lambda: clusters.treelet_order(ctr, c))
+    if sorted(tn.tolist()) != list(range(len(ctr))):
+        raise AssertionError("native_build: the native treelet order is not a permutation")
+    sv = [v[nat.order[tn]] for v in (v0, v1, v2)]
+    tbn, secs["cluster_tables_native"] = _host_timed(
+        lambda: native.cluster_tables(*sv, nat.padded_count, c))
+    tbr, secs["cluster_tables_numpy"] = _host_timed(
+        lambda: clusters._cluster_tables_np(*sv, nat.padded_count, c))
+    if not all(np.array_equal(tbn[f], tbr[f]) for f in tbr):
+        raise AssertionError("native_build: cluster_tables differ from the numpy tables")
+    radius = dict(native=_median_cluster_radius(ctr, tn, c), numpy=_median_cluster_radius(ctr, tr, c))
+    emit("native_build", triangles=len(v0), leaf_size=k, cluster_size=c, bit_equal=True,
+         host_seconds=secs, gxx_seconds=dict(host_build.build_seconds),
+         median_cluster_radius=radius, card=card)
+    if radius["native"] > 1.10 * radius["numpy"]:
+        raise AssertionError(f"native_build: native clusters looser than numpy's: {radius}")
+
+
+def _ties(rec, want, rel=0.0):
+    """(rays whose triangles are apart, of them those at a tie, rays whose
+    t is apart): a tie is the same t, to `rel` relative where the two
+    walks round their Möller–Trumbore arithmetic differently (the lockstep
+    walk against the clusters' pre-differenced rows)."""
+    close = (rec.t - want.t).abs() <= rel * want.t.abs()
+    apart = rec.tri != want.tri
+    hit = want.tri >= 0  # a miss keeps t_max on one walk, BIG_T on another
+    return int(apart.sum()), int((apart & close).sum()), int((hit & ~close).sum())
+
+
+def _records_equal(a, b) -> bool:
+    return all(bool((getattr(a, f).cpu() == getattr(b, f).cpu()).all()) for f in ("t", "tri", "u", "v"))
+
+
+def _one_frame(renderer, warm=None):
+    """(seconds, rays) of one `render(download=False)`, after `warm`'s
+    frame (a renderer of 1/16 the pixels) where given."""
+    import torch
+
+    if warm is not None:
+        warm.render(download=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    renderer.render(download=False)
+    return time.perf_counter() - t0, int(renderer.last_output.rays_traced)
+
+
+def backend_slices(hs, dev, card):
+    """bench.py's CPU headline on the card (`lockstep_city`): `disney_pt` on
+    the city at 1200x800, 2 spp, depth 4, `compile_scene(leaf_size=8,
+    build_wide_bvh=False, cluster_size=256)`, `batch_spp`,
+    `nee_final_bounce=False`, no sort, through the lockstep walk: one timed
+    frame after a 1/16-frame warm-up, walk iterations per sweep, the frame
+    against the cluster walk's (sqrt RMSE); one sweep of the frame's primary
+    rays with the loop condition read every CHECK_EVERY iterations and every
+    iteration, in turns (the same records, both timed); on the 8192 gate
+    rays the lockstep `tri` against `reference_closest`'s (apart only at
+    ties, t within TIE_REL) and the card bit-equal to the CPU. `bfs_city`:
+    the same with the wide BVH and `traversal="bfs"` (cap 4), its overflow;
+    on the gate rays
+    at cap 8 the overflow and the rays apart from lockstep's (the worklist
+    truncates there, as the reference's does), the card bit-equal to the
+    CPU."""
+    import torch
+
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.builder import compile_scene
+    from optixpathtracer_tpu_torch.models import make_disney_pt_renderer
+    from optixpathtracer_tpu_torch.ops import traverse, traverse_bfs
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
+    cpu = torch.device("cpu")
+    flags = dict(batch_spp=True, nee_final_bounce=False)
+    cam = scenes.city_camera(WIDTH, HEIGHT)
+    probe = scenes.city_sky(dev)
+
+    def renderers(cs, traversal):
+        small = make_disney_pt_renderer(cs, probe, scenes.city_camera(WIDTH // 4, HEIGHT // 4),
+                                        width=WIDTH // 4, height=HEIGHT // 4, spp=SPP, max_depth=DEPTH,
+                                        traversal=traversal, **flags)
+        full = make_disney_pt_renderer(cs, probe, cam, width=WIDTH, height=HEIGHT, spp=SPP,
+                                       max_depth=DEPTH, traversal=traversal, **flags)
+        return small, full
+
+    cs, build_s = _host_timed(lambda: compile_scene(hs, dev, leaf_size=8, build_wide_bvh=False,
+                                                    cluster_size=256))
+    small, r = renderers(cs, "lockstep")
+    t0 = time.perf_counter()
+    small.render(download=False)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    traverse.walk_stats.update(sweeps=0, iterations=0)
+    frame_s, rays = _one_frame(r)
+    walk = dict(traverse.walk_stats)
+    peak = torch.cuda.max_memory_allocated()
+    img_lock = r.accum_image()
+    # the loop condition read every CHECK_EVERY iterations against every
+    # one, on the frame's primary rays, in turns: the same records
+    from optixpathtracer_tpu_torch.engine import wavefront
+
+    o1, d1 = wavefront.first_bounce_rays(r.config, wavefront.CameraParams.from_camera(cam, dev), *r.pixels)
+    sync = {}
+    every = traverse.CHECK_EVERY
+    try:
+        for k in (every, 1, 1, every):
+            traverse.CHECK_EVERY = k
+            ms, rec = timed(lambda: traverse.closest_hit(cs.bvh, cs.scene, o1, d1, 1e-3, 1e16))
+            sync.setdefault(k, []).append(ms)
+            if k == 1:
+                rec_1 = rec
+            else:
+                rec_k = rec
+    finally:
+        traverse.CHECK_EVERY = every
+    sync_equal = _records_equal(rec_1, rec_k)
+    n_primary = o1.x.shape[0]
+    del small, r, o1, d1, rec, rec_1, rec_k
+    _, rc = renderers(cs, "cluster")
+    cluster_s, cluster_rays = _one_frame(rc)
+    rmse = scenes.golden_rmse(img_lock, rc.accum_image())
+    del rc
+    og, dg = mixed_rays(cs, hs, cam, GATE_RAYS, 42, dev)
+    lock = traverse.closest_hit(cs.bvh, cs.scene, og, dg, 1e-3, 1e16)
+    exact = tc.reference_closest(cs.clusters, og, dg, 1e-3, 1e16)
+    apart, ties, t_apart = _ties(lock, exact, rel=TIE_REL)
+    ccs = compile_scene(hs, cpu, leaf_size=8, build_wide_bvh=False, build_cluster_set=False,
+                        cluster_size=256)
+    lock_cpu = traverse.closest_hit(ccs.bvh, ccs.scene, *(type(v)(*(c.cpu() for c in v)) for v in (og, dg)),
+                                    1e-3, 1e16)
+    card_eq_cpu = _records_equal(lock, lock_cpu)
+    emit("lockstep_city", width=WIDTH, height=HEIGHT, spp=SPP, max_depth=DEPTH, flags=flags,
+         build_s=build_s, warm_up_s=warm_s, warm_up_size=[WIDTH // 4, HEIGHT // 4], frame_s=frame_s,
+         rays_traced=rays, mrays_per_s=rays / frame_s / 1e6, sweeps=walk["sweeps"],
+         iterations_per_sweep=walk["iterations"] / max(1, walk["sweeps"]),
+         check_every=traverse.CHECK_EVERY, max_memory_allocated=peak,
+         primary_sweep_ms_by_check_every={str(k): v for k, v in sync.items()},
+         primary_rays=n_primary, check_every_records_equal=sync_equal,
+         cluster_frame_s=cluster_s, cluster_rays=cluster_rays, rmse_vs_cluster=rmse,
+         gate=dict(rays=GATE_RAYS, apart_from_oracle=apart, at_ties=ties, t_apart=t_apart, tie_rel=TIE_REL,
+                   hits=int((exact.tri >= 0).sum()), card_bit_equal_cpu=card_eq_cpu), card=card)
+    if apart != ties or t_apart or not card_eq_cpu or rays != cluster_rays or rmse > RMSE_TOL \
+            or not sync_equal:
+        raise AssertionError(f"lockstep_city: {apart} apart from the oracle ({ties} at ties), {t_apart} t "
+                             f"mismatches, card == CPU {card_eq_cpu}, rays {rays} / {cluster_rays}, "
+                             f"RMSE against the cluster walk {rmse}")
+    del cs, ccs, exact, lock_cpu
+    torch.cuda.empty_cache()
+
+    csw, build_s = _host_timed(lambda: compile_scene(hs, dev, leaf_size=8, build_wide_bvh=True,
+                                                     cluster_size=256))
+    small, r = renderers(csw, "bfs")
+    frame_s, rays = _one_frame(r, warm=small)
+    peak = torch.cuda.max_memory_allocated()
+    overflow = float(r.last_output.bfs_overflow)
+    cap = r.config.bfs_cap_factor
+    img_bfs = r.accum_image()
+    del small, r
+    torch.cuda.empty_cache()
+    res = traverse_bfs.closest_hit_bfs(csw.wide, og, dg, 1e-3, 1e16, cap_factor=8)
+    apart, ties, t_apart = _ties(res.record, lock)
+    ccs = compile_scene(hs, cpu, leaf_size=8, build_wide_bvh=True, build_cluster_set=False, cluster_size=256)
+    res_cpu = traverse_bfs.closest_hit_bfs(ccs.wide, *(type(v)(*(c.cpu() for c in v)) for v in (og, dg)),
+                                           1e-3, 1e16, cap_factor=8)
+    card_eq_cpu = _records_equal(res.record, res_cpu.record) and float(res.overflow) == float(res_cpu.overflow)
+    emit("bfs_city", width=WIDTH, height=HEIGHT, spp=SPP, max_depth=DEPTH, flags=flags, build_s=build_s,
+         wide_nodes=csw.wide.num_nodes, wide_depth=csw.wide.depth, cap_factor=cap, frame_s=frame_s,
+         rays_traced=rays, mrays_per_s=rays / frame_s / 1e6, bfs_overflow=overflow,
+         max_memory_allocated=peak, rmse_vs_lockstep=scenes.golden_rmse(img_bfs, img_lock),
+         gate=dict(rays=GATE_RAYS, cap_factor=8, overflow=float(res.overflow), apart_from_lockstep=apart,
+                   at_exact_t_ties=ties, t_mismatches=t_apart, card_bit_equal_cpu=card_eq_cpu), card=card)
+    # the worklist truncates on the city's gate rays at cap 8 (so does the
+    # reference's, to the same count: tests/test_torch_traverse_bfs.py), so
+    # what is held is the card against the CPU, bit for bit, overflow
+    # included; the exact-t ties apart from lockstep are printed (the BFS
+    # keeps the last pair of a tie, lockstep the first)
+    if not card_eq_cpu or not np.isfinite(img_bfs).all():
+        raise AssertionError("bfs_city: the card differs from the CPU on the gate rays")
+    del csw, ccs, res, res_cpu, og, dg, lock
+    torch.cuda.empty_cache()
+
+
+def backend_loft(dev, card):
+    """`dense_loft` and `oracle_loft`: bench.py's loft row (`loft_slice`'s
+    configuration, 1200x800, 2 spp, depth 4, `scenes.loft_config`) through
+    the dense scan and the oracle, a timed frame after a warm-up each,
+    against the cluster walk's (sqrt RMSE), the dense scan's peak device memory (rays in chunks of
+    DENSE_CHUNK_ELEMS // BLOCK), and on 8192 gate rays the card against
+    the CPU, bit for bit, and the triangles apart from the oracle's (the
+    dense scan keeps the lowest sorted index of a tie, the oracle the
+    cluster order's first), all at ties."""
+    import torch
+
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.builder import compile_scene
+    from optixpathtracer_tpu_torch.io.obj import load_obj
+    from optixpathtracer_tpu_torch.models import make_disney_pt_renderer
+    from optixpathtracer_tpu_torch.ops import dense, dispatch
+
+    cpu = torch.device("cpu")
+    hs = load_obj(scenes.LOFT_OBJ)
+    cs = compile_scene(hs, dev, leaf_size=8, cluster_size=256)
+    ccs = compile_scene(hs, cpu, leaf_size=8, cluster_size=256)
+    setup = scenes.loft_config(WIDTH, HEIGHT, dev)
+    imgs = {}
+    og, dg = mixed_rays(cs, hs, setup.camera, GATE_RAYS, 42, dev)
+    ogc, dgc = (type(v)(*(c.cpu() for c in v)) for v in (og, dg))
+    for tr in ("cluster", "dense", "oracle"):
+        r = make_disney_pt_renderer(cs, setup.probe, setup.camera, width=WIDTH, height=HEIGHT, spp=SPP,
+                                    max_depth=DEPTH, traversal=tr, **setup.flags)
+        r.render(download=False)  # warm-up: the compared images accumulate two frames
+        frame_s, rays = _one_frame(r)
+        peak = torch.cuda.max_memory_allocated()
+        imgs[tr] = r.accum_image()
+        del r
+        if tr == "cluster":
+            continue
+        card_rec = dispatch.trace_closest(cs, og, dg, 1e-3, 1e16, traversal=tr)
+        cpu_rec = dispatch.trace_closest(ccs, ogc, dgc, 1e-3, 1e16, traversal=tr)
+        apart, ties, t_apart = _ties(card_rec, dispatch.trace_closest(cs, og, dg, 1e-3, 1e16,
+                                                                      traversal="oracle"), rel=TIE_REL)
+        rmse = scenes.golden_rmse(imgs[tr], imgs["cluster"])
+        eq = _records_equal(card_rec, cpu_rec)
+        emit(f"{tr}_loft", width=WIDTH, height=HEIGHT, spp=SPP, max_depth=DEPTH, flags=setup.flags,
+             triangles=cs.num_triangles, frame_s=frame_s, rays_traced=rays, mrays_per_s=rays / frame_s / 1e6,
+             max_memory_allocated=peak, rmse_vs_cluster=rmse,
+             **({"chunk_rays": dense.DENSE_CHUNK_ELEMS // dense.BLOCK} if tr == "dense" else {}),
+             gate=dict(rays=GATE_RAYS, card_bit_equal_cpu=eq, hits=int((cpu_rec.tri >= 0).sum()),
+                       apart_from_oracle=apart, at_ties=ties, t_apart=t_apart, tie_rel=TIE_REL), card=card)
+        if not (eq and rmse <= RMSE_TOL and apart == ties and not t_apart):
+            raise AssertionError(f"{tr}_loft: card == CPU {eq}, RMSE against the cluster walk {rmse}, "
+                                 f"{apart} apart from the oracle ({ties} at ties), {t_apart} t apart")
+    del cs, ccs
+    torch.cuda.empty_cache()
+
+
+def lockstep_goldens(dev, futures, card):
+    """All 14 goldens through the lockstep walk on the card, each against
+    the port's CPU render of the same setup and walk, and reported against
+    its golden. The card's lockstep render is held to the CPU's within
+    LOCKSTEP_GOLDEN_TOL, or, where the card's shading already parts from
+    the CPU's through the cluster walk (the same setup rendered by both on
+    both devices), to that departure within WALK_ADDS_TOL: the walk adds
+    nothing of its own."""
+    from optixpathtracer_tpu_torch import scenes
+
+    out = {}
+    for name in GOLDEN_NAMES:
+        cpu = futures[name].result(timeout=600)
+        want = np.load(os.path.join(GOLDEN_DIR, f"{name}.npz"))["image"]
+        row = {}
+        for walk_name in ("lockstep", "cluster"):
+            t0 = time.perf_counter()
+            got = render_golden(name, dev, walk_name)
+            row[walk_name] = dict(rmse_vs_cpu=scenes.golden_rmse(got, cpu[walk_name][0]),
+                                  rmse_vs_golden=scenes.golden_rmse(got, want),
+                                  card_s=time.perf_counter() - t0, cpu_s=cpu[walk_name][1])
+            if walk_name == "lockstep":
+                lock_img = got
+        row["lockstep_vs_cluster_card"] = scenes.golden_rmse(lock_img, got)
+        out[name] = row
+    emit("lockstep_goldens", goldens=out, tol_vs_cpu=LOCKSTEP_GOLDEN_TOL, walk_adds_tol=WALK_ADDS_TOL,
+         card=card)
+    bad = {k: v for k, v in out.items()
+           if not (v["lockstep"]["rmse_vs_cpu"] <= LOCKSTEP_GOLDEN_TOL
+                   or abs(v["lockstep"]["rmse_vs_cpu"] - v["cluster"]["rmse_vs_cpu"]) <= WALK_ADDS_TOL)}
+    if bad:
+        raise AssertionError(f"lockstep_goldens: the card's lockstep walk parts from the CPU's: {bad}")
+
+
+def backend_phases(hs, dev, card, cpu_goldens):
+    """The phases of the backends without a kernel and the native builders,
+    in order: native_build, lockstep_city, bfs_city, dense_loft,
+    oracle_loft, lockstep_goldens. Returns their seconds."""
+    t0 = time.perf_counter()
+    native_build(hs, card)
+    backend_slices(hs, dev, card)
+    backend_loft(dev, card)
+    lockstep_goldens(dev, cpu_goldens, card)
+    return time.perf_counter() - t0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description="chip smoke test of the port on one NVIDIA GPU")
+    parser.add_argument("--only", choices=["backends"], default=None,
+                        help="backends: the build, the city and the phases of the backends "
+                             "without a kernel and the native builders, then exit")
+    args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs an NVIDIA GPU",
@@ -2933,12 +3350,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    from optixpathtracer_tpu_torch import scenes
-    from optixpathtracer_tpu_torch.builder import compile_scene
-    from optixpathtracer_tpu_torch.engine.foveated import FoveationConfig
-    from optixpathtracer_tpu_torch.models import make_disney_pt_renderer, make_foveated_renderer
     from optixpathtracer_tpu_torch.ops import cuda_build
-    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+    from optixpathtracer_tpu_torch.utils import host_build
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -2949,23 +3362,48 @@ def main() -> int:
     emit("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
-    # ---- build: one nvcc per source, all started together ------------------
+    # ---- build: one nvcc per source and one g++ per host library, all
+    # started together ------------------------------------------------------
     t0 = time.perf_counter()
     names = sorted({os.path.splitext(os.path.basename(src))[0] for src in SOURCES.values()})
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        list(pool.map(cuda_build.load, names))
+    host_libs = ("accel", "objparser")  # csrc/host: the native builders and the OBJ tokenizer
+    with concurrent.futures.ThreadPoolExecutor(len(names) + len(host_libs)) as pool:
+        list(pool.map(lambda f: f[0](f[1]), [(cuda_build.load, n) for n in names]
+                      + [(host_build.load, n) for n in host_libs]))
     builds = {}
     for name in names:
         info = cuda_build.build_info[name]
         builds[name] = dict(nvcc_seconds=info["seconds"], ptxas=[
             ln.strip() for ln in info["ptxas"].splitlines()
             if "registers" in ln or "spill" in ln or "entry function" in ln])
-    emit("build", seconds=time.perf_counter() - t0, sources=builds)
+    emit("build", seconds=time.perf_counter() - t0, sources=builds,
+         host_libraries={n: dict(gxx_seconds=host_build.build_seconds[n]) for n in host_libs})
+    # the goldens' CPU lockstep renders run beside the card's phases
+    cpu_pool, cpu_goldens = start_cpu_goldens()
+    try:
+        return _phases(args, dev, card, smi, cpu_goldens)
+    finally:
+        cpu_pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _phases(args, dev, card, smi, cpu_goldens) -> int:
+    import torch
+
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.builder import compile_scene
+    from optixpathtracer_tpu_torch.engine.foveated import FoveationConfig
+    from optixpathtracer_tpu_torch.models import make_disney_pt_renderer, make_foveated_renderer
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
 
     # ---- the city, and the slice's renderer ------------------------------
     t0 = time.perf_counter()
     hs = scenes.build_city_scene()
-    cs = compile_scene(hs, dev, leaf_size=8, cluster_size=256)
+    if args.only == "backends":
+        emit("backend_phases", seconds=backend_phases(hs, dev, card, cpu_goldens), card=card)
+        print(smi, flush=True)
+        return 0
+    cs = compile_scene(hs, dev, **CITY_BUILD)
     torch.cuda.synchronize()
     emit("scene", triangles=cs.num_triangles, entries=cs.clusters.num_entries,
          cluster_size=cs.clusters.cluster_size, build_s=time.perf_counter() - t0)
@@ -3069,6 +3507,10 @@ def main() -> int:
     # and nee_rr on the open scene
     fused_launches = engine_options(cs, probe, dev, card, tc.launch_counts)
     torch.cuda.empty_cache()
+    # ---- the backends without a kernel (lockstep, BFS, dense, oracle) and
+    # the native builders
+    emit("backend_phases", seconds=backend_phases(hs, dev, card, cpu_goldens), card=card)
+    torch.cuda.empty_cache()
 
     # ---- sv4 on the city: 3840x2160 in three launches (PERF.md §4's
     # configuration), the preset's default route there (fused=None: one
@@ -3161,13 +3603,15 @@ def main() -> int:
     t0 = time.perf_counter()
     hs = scenes.build_big_scene(terrain_grid=scenes.BIG8X_TERRAIN_GRID)
     host_s = time.perf_counter() - t0
-    cs = compile_scene(hs, dev, leaf_size=8, cluster_size=256)
+    cs = compile_scene(hs, dev, **CITY_BUILD)
     cl = cs.clusters
     nt = cl.node_tables
     torch.cuda.synchronize()
     emit("big_scene", triangles=cs.num_triangles, entries=cl.num_entries,
          nodes=nt.csph.shape[0], cluster_size=cl.cluster_size, scene_host_s=host_s,
-         build_s=time.perf_counter() - t0, routes_to_node_walk=cl.num_entries >= tc.HIER_MIN_ENTRIES)
+         build_s=time.perf_counter() - t0, builders="native",
+         pr13_numpy_build_s=PR13_BIG_NUMPY_BUILD_S,
+         routes_to_node_walk=cl.num_entries >= tc.HIER_MIN_ENTRIES)
     if cl.num_entries < tc.HIER_MIN_ENTRIES:
         raise AssertionError(f"the big scene has {cl.num_entries} entries: it would not take the node walk")
     renderer = make_disney_pt_renderer(cs, probe, cam, width=WIDTH, height=HEIGHT, spp=SPP,

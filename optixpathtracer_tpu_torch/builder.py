@@ -1,15 +1,19 @@
-"""Scene compilation: host meshes -> (device SceneData, ClusterSet).
+"""Scene compilation: host meshes -> (device SceneData, acceleration
+structures). Port of optixpathtracer_tpu/builder.py.
 
-Port of optixpathtracer_tpu/builder.py, cluster path only. `compile_scene`:
-the LBVH Morton order orders the shading soup, a treelet repacking orders
-the clusters, and `tri_map` translates cluster slots back to scene
-triangles. `compile_instanced` / `compile_tlas`: each prototype is stored
-once in local space, in treelet order and padded with its last triangle to
-the SUPER * cluster_size slot granule; the scene arrays are in slot order,
-so there is no `tri_map`, and `engine/wavefront._hit_geometry` resolves a
-hit's entry slot to (triangle, instance). `bvh` and `wide` (the lockstep and
-BFS backends) are None: the port does not carry those backends (ROADMAP
-"not to port").
+Three structures serve the traversal backends (ops/):
+  bvh      — binary LBVH for the lockstep walk (ops/traverse.py)
+  wide     — W-wide collapsed BVH for the BFS walk and the dense scan
+  clusters — treelet clusters for the cluster walk (kernels K1-K4)
+All three index the same Morton-sorted triangle order of the shading soup:
+the clusters use their own treelet order with `tri_map` translating slots
+back, so HitRecord.tri is interchangeable across backends.
+`compile_instanced` / `compile_tlas`: each prototype is stored once in
+local space, in treelet order and padded with its last triangle to the
+SUPER * cluster_size slot granule; the scene arrays are in slot order, so
+there is no `tri_map`, and `engine/wavefront._hit_geometry` resolves a
+hit's entry slot to (triangle, instance). Instanced scenes carry only the
+cluster structure (`bvh` and `wide` are None), as in the reference.
 """
 from __future__ import annotations
 
@@ -21,21 +25,22 @@ import torch
 from .bvh.clusters import (
     SUPER,
     ClusterSet,
-    _cluster_tables_np,
+    _cluster_tables,
     build_clusters,
     build_instanced_clusters,
     build_tlas_clusters,
     treelet_order,
 )
-from .bvh.lbvh import build_bvh
+from .bvh.lbvh import BVH, build_bvh
+from .bvh.wide import WideBVH, build_wide
 from .core.scene import HostScene, SceneData, device_scene_from_sorted
 
 
 class CompiledScene(NamedTuple):
     scene: SceneData
-    bvh: None  # the lockstep backend is not ported
+    bvh: Optional[BVH]  # None for instanced scenes (cluster walk only)
     num_triangles: int  # real (unpadded) triangle count
-    wide: None = None  # the BFS backend is not ported
+    wide: Optional[WideBVH] = None  # the BFS walk's and dense scan's structure
     clusters: Optional[ClusterSet] = None
 
     @property
@@ -47,26 +52,45 @@ def compile_scene(
     host: HostScene,
     device,
     leaf_size: int = 4,
+    wide_width: int = 8,
+    build_wide_bvh: bool = True,
+    compressed_nodes: bool = False,
+    build_cluster_set: bool = True,
     cluster_size: int = 128,
 ) -> CompiledScene:
-    """Build the shading soup and the cluster structure on `device`."""
+    """Build the shading soup and the acceleration structures on `device`,
+    with the reference's parameters and defaults: the LBVH always, the wide
+    BVH unless `build_wide_bvh=False`, the clusters unless
+    `build_cluster_set=False`."""
     flat = host.flatten()
     v0, v1, v2 = flat["v"]
-    res = build_bvh(v0, v1, v2, leaf_size=leaf_size)
+    res = build_bvh(v0, v1, v2, leaf_size=leaf_size, device=device)
     scene = device_scene_from_sorted(flat, res.order, res.padded_count, device)
-    # centroids are per triangle, so compute them unsorted and gather once
-    ctr = v0.astype(np.float64)
-    ctr += v1
-    ctr += v2
-    ctr /= 3.0
-    tp = treelet_order(ctr[res.order], cluster_size)
-    tri_map = res.order[tp]
-    clusters = build_clusters(
-        v0[tri_map], v1[tri_map], v2[tri_map], num_real=res.padded_count,
-        device=device, cluster_size=cluster_size, tri_map=tp,
-    )
-    return CompiledScene(scene=scene, bvh=None, num_triangles=len(v0),
-                         wide=None, clusters=clusters)
+
+    wide = None
+    if build_wide_bvh:
+        h = res.host
+        wide = build_wide(
+            h["left"], h["right"], h["lmin"], h["lmax"], h["rmin"], h["rmax"],
+            np.asarray(v0)[res.order], np.asarray(v1)[res.order], np.asarray(v2)[res.order],
+            leaf_size=leaf_size, device=device, width=wide_width, compressed=compressed_nodes,
+        )
+
+    clusters = None
+    if build_cluster_set:
+        # centroids are per triangle, so compute them unsorted and gather once
+        ctr = v0.astype(np.float64)
+        ctr += v1
+        ctr += v2
+        ctr /= 3.0
+        tp = treelet_order(ctr[res.order], cluster_size)
+        tri_map = res.order[tp]
+        clusters = build_clusters(
+            v0[tri_map], v1[tri_map], v2[tri_map], num_real=res.padded_count,
+            device=device, cluster_size=cluster_size, tri_map=tp,
+        )
+    return CompiledScene(scene=scene, bvh=res.bvh, num_triangles=len(v0), wide=wide,
+                         clusters=clusters)
 
 
 def _slot_order(ctr: np.ndarray, ids: np.ndarray, cluster_size: int) -> tuple[np.ndarray, int]:
@@ -122,7 +146,7 @@ def compile_tlas(host: HostScene, groups: list, instances: list, device,
         op, pad_to = _slot_order(ctr, gids, cluster_size)
         orders.append(op)
         real_counts.append(len(gids))
-        tables.append(_cluster_tables_np(v0[op], v1[op], v2[op], pad_to, cluster_size))
+        tables.append(_cluster_tables(v0[op], v1[op], v2[op], pad_to, cluster_size))
 
     order = np.concatenate(orders)
     scene = device_scene_from_sorted(flat, order, len(order), device)

@@ -4,9 +4,10 @@
 CLUSTER: C consecutive triangles of the treelet order, stored pre-differenced
 as rows [v0 | e1 | e2] with an AABB (center, half extent) and a bounding
 sphere. SUPERCLUSTER: SUPER consecutive clusters, the unit the per-block
-cull sorts and the sweep walks ("entries"). The host build is the
-reference's numpy code, so every table is bit-identical to the JAX build's
-numpy path.
+cull sorts and the sweep walks ("entries"). The host build is the port's
+copy of the reference's native C++ builder (bvh/native.py), or its numpy
+code under OPTIX_TPU_NO_NATIVE=1, so every table is bit-identical to the
+JAX build's on the same path.
 
 INSTANCING (the original's per-mesh GAS pool plus IAS, the cluster way):
 the triangle rows of each prototype are stored once in local space; every
@@ -79,7 +80,16 @@ class ClusterSet:
 def treelet_order(centroids: np.ndarray, cluster_size: int, group: int = SUPER) -> np.ndarray:
     """Spatial repacking permutation: every aligned `cluster_size` run is a
     spatially tight treelet (recursive longest-axis median partition with
-    cluster-aligned split points). The reference's numpy path, verbatim."""
+    cluster-aligned split points). The native C++ builder (bvh/native.py)
+    where it is on, as in the reference; it takes the same recursion and
+    split points but orders triangles within a partition its own way, so
+    the cluster order differs from the numpy path below (the reference's,
+    verbatim), which runs under OPTIX_TPU_NO_NATIVE=1."""
+    from . import native as _native
+
+    nat = _native.treelet_order(centroids, cluster_size, group)
+    if nat is not None:
+        return nat
     n = len(centroids)
     ctr = np.asarray(centroids, np.float64)
     out = np.empty(n, np.int64)
@@ -127,6 +137,20 @@ def _bounds(v0, v1, v2, real_mask):
     # dilate so float32 rounding of centers/radii stays conservative
     radius = np.where(anyreal, radius * (1.0 + 1e-5) + 1e-30, 0.0)
     return center, half, radius
+
+
+def _cluster_tables(sorted_v0, sorted_v1, sorted_v2, num_real, cluster_size):
+    """Table stage shared by the plain and instanced builders: the native
+    C++ build (bit-exact) where it is on and the vertices are float32, as
+    in the reference, else `_cluster_tables_np`."""
+    from . import native as _native
+
+    if all(np.asarray(v).dtype == np.float32 for v in (sorted_v0, sorted_v1, sorted_v2)):
+        nat = _native.cluster_tables(sorted_v0, sorted_v1, sorted_v2, int(num_real),
+                                     int(cluster_size))
+        if nat is not None:
+            return nat
+    return _cluster_tables_np(sorted_v0, sorted_v1, sorted_v2, num_real, cluster_size)
 
 
 def _cluster_tables_np(sorted_v0, sorted_v1, sorted_v2, num_real, cluster_size):
@@ -198,7 +222,7 @@ def _cluster_tables_np(sorted_v0, sorted_v1, sorted_v2, num_real, cluster_size):
 
 def cluster_set_from_numpy(tables: dict, cluster_size: int, device,
                            instanced: bool = False) -> ClusterSet:
-    """ClusterSet on `device` from host tables (`_cluster_tables_np` output,
+    """ClusterSet on `device` from host tables (`_cluster_tables` output,
     plus optional entry_row/entry_xf/xf_*/tri_map arrays)."""
 
     def up(name, dtype, default=None):
@@ -239,7 +263,7 @@ def build_clusters(
 
     Triangles at index >= num_real are padding and become degenerate
     never-hit triangles (zero edges => det == 0)."""
-    tb = _cluster_tables_np(sorted_v0, sorted_v1, sorted_v2, num_real, cluster_size)
+    tb = _cluster_tables(sorted_v0, sorted_v1, sorted_v2, num_real, cluster_size)
     if tri_map is not None:
         full = np.zeros(tb["spheres"].shape[0] * int(cluster_size), np.int32)
         full[: len(tri_map)] = np.asarray(tri_map, np.int32)
@@ -374,7 +398,7 @@ def build_instanced_clusters(
     """Instanced ClusterSet on `device`: one prototype's rows stored once in
     local space, one entry per (instance, supercluster) with world bounds
     and a transform id. Move the instances with `update_instance_transforms`."""
-    tb = _cluster_tables_np(sorted_v0, sorted_v1, sorted_v2, num_real, cluster_size)
+    tb = _cluster_tables(sorted_v0, sorted_v1, sorted_v2, num_real, cluster_size)
     et = _entry_tables(tb, transforms)
     return cluster_set_from_numpy(dict(et, rows=tb["rows"]), cluster_size, device, instanced=True)
 
@@ -387,7 +411,7 @@ def build_tlas_clusters(
     cluster_size: int = 128,
 ) -> ClusterSet:
     """TLAS ClusterSet on `device`: a pool of prototype row blocks (each
-    prototype's `_cluster_tables_np`, stored once) and one entry per
+    prototype's `_cluster_tables`, stored once) and one entry per
     (instance, prototype supercluster). Move the instances with
     `update_tlas_transforms`."""
     rows = np.concatenate([tb["rows"] for tb in proto_tables], axis=0)

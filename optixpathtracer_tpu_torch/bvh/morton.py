@@ -24,3 +24,18 @@ def np_morton_codes(centroids: np.ndarray) -> np.ndarray:
         | (spread(q[:, 1]) << np.uint32(1))
         | spread(q[:, 2])
     )
+
+
+def np_clz32(x: np.ndarray) -> np.ndarray:
+    """Count leading zeros of uint32 lanes (32 for 0), numpy."""
+    x = x.astype(np.uint32)
+    x = x | (x >> np.uint32(1))
+    x = x | (x >> np.uint32(2))
+    x = x | (x >> np.uint32(4))
+    x = x | (x >> np.uint32(8))
+    x = x | (x >> np.uint32(16))
+    y = ~x
+    y = y - ((y >> np.uint32(1)) & np.uint32(0x55555555))
+    y = (y & np.uint32(0x33333333)) + ((y >> np.uint32(2)) & np.uint32(0x33333333))
+    y = (y + (y >> np.uint32(4))) & np.uint32(0x0F0F0F0F)
+    return ((y * np.uint32(0x01010101)) >> np.uint32(24)).astype(np.int32)

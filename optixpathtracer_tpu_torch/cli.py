@@ -3,7 +3,10 @@
 
 The flags are the reference's (`utils/config.py`) plus `--device`: the
 render runs on the card unless `--device cpu` is given, and does not fall
-back. The port's only traversal backend is the cluster walk. `render`
+back. `--traversal lockstep | bfs | cluster | dense` picks the backend;
+without the flag it is the cluster walk on a CUDA device and the config's
+default, the lockstep walk, on a CPU (the reference's platform rule); a
+TLAS scene (`--instanced`) always takes the cluster walk. `render`
 covers every model: `disney_pt` (progressive, `--checkpoint`, `--denoise`,
 `--metrics`, `--demand-textures N`: textures from a demand-loaded pool of
 N tiles with 4 mip levels), `foveated` (`--gaze`), `hello_raytracing`,
@@ -11,9 +14,8 @@ N tiles with 4 mip levels), `foveated` (`--gaze`), `hello_raytracing`,
 reference) and `spectral`, and `--adaptive`, on OBJ, glTF (`--instanced`:
 the multi-prototype TLAS) and the procedural boxes. `view` serves the
 progressive `disney_pt` (or `foveated`) renderer to a browser
-(`--port 0` picks a free port, `--max-frames` bounds the loop). What the
-port does not carry raises NotImplementedError naming its ROADMAP item:
-the lockstep / bfs / dense backends and `bench` (A.6).
+(`--port 0` picks a free port, `--max-frames` bounds the loop). `bench`
+is not ported yet and raises NotImplementedError naming ROADMAP A.6.
 """
 from __future__ import annotations
 
@@ -74,27 +76,32 @@ def _load_probe(cfg: RunConfig, device):
     return build_probe(np.full((32, 64, 3), cfg.probe_level, np.float32), device)
 
 
-def check_supported(cfg: RunConfig, traversal_flag: str | None) -> None:
-    """Raise NotImplementedError for what the port does not carry yet."""
-    if traversal_flag is not None and traversal_flag != "cluster":
-        raise NotImplementedError(
-            f"--traversal {traversal_flag}: the port carries only the cluster walk "
-            "(ROADMAP §A, not to port)")
+def pick_traversal(cfg: RunConfig, traversal_flag: str | None, device) -> None:
+    """The reference CLI's rule (optixpathtracer_tpu/cli.py:80-85): without
+    `--traversal`, the cluster walk on the accelerator (here a CUDA device);
+    otherwise `cfg.traversal` (the flag, or the lockstep default)."""
+    if traversal_flag is None and torch.device(device).type == "cuda":
+        cfg.traversal = "cluster"
 
 
 def compile_run_scene(cfg: RunConfig, device):
     """Load and compile the run's scene on `device` as the reference CLI
-    does: (CompiledScene, HostScene, tlas or None)."""
+    does: (CompiledScene, HostScene, tlas or None). A TLAS is a cluster
+    structure, so it sets `cfg.traversal` to "cluster"."""
     from .builder import compile_scene, compile_tlas
 
     hs, _lights, tlas = _load_scene(cfg)
     if tlas is not None:
         groups, instances = tlas
         cs = compile_tlas(hs, groups, instances, device)
+        cfg.traversal = "cluster"
         print(f"TLAS: {len(groups)} prototype BLAS(es), {len(instances)} instances, "
               f"{cs.num_triangles} world triangles ({cs.clusters.rows.shape[0]} stored superclusters)")
     else:
-        cs = compile_scene(hs, device, leaf_size=8)
+        # the wide BVH only where its walks run (the reference CLI builds it
+        # always; on the 8.7M-triangle scene it is seconds and ~0.3 GB)
+        cs = compile_scene(hs, device, leaf_size=8,
+                           build_wide_bvh=cfg.traversal in ("bfs", "dense"))
     return cs, hs, tlas
 
 
@@ -108,11 +115,12 @@ def make_camera(cfg: RunConfig):
 def make_renderer(cfg: RunConfig, cs, probe, camera, demand=None):
     """The renderer `render` drives for cfg: foveated, adaptive or
     disney_pt, with the reference CLI's flags (disney_pt splits a launch
-    into max(1, w*h // 131072) sequential pixel chunks and shades from the
-    `demand` texture pool where one is given)."""
+    on the bfs, cluster and dense backends into max(1, w*h // 131072)
+    sequential pixel chunks, and shades from the `demand` texture pool
+    where one is given)."""
     from . import models
 
-    engine = dict(traversal="cluster", emission_all_bounces=cfg.emission_all_bounces,
+    engine = dict(traversal=cfg.traversal, emission_all_bounces=cfg.emission_all_bounces,
                   nee_final_bounce=cfg.nee_final_bounce, nee_rr=cfg.nee_rr,
                   russian_roulette=cfg.russian_roulette, rr_start_depth=cfg.rr_start_depth,
                   sampling=cfg.sampling, sampling_strata=cfg.sampling_strata)
@@ -128,7 +136,8 @@ def make_renderer(cfg: RunConfig, cs, probe, camera, demand=None):
         return models.make_adaptive_renderer(cs, probe, camera, cfg.width, cfg.height, cfg.spp,
                                              cfg.max_depth, refine_fraction=cfg.adaptive_fraction,
                                              **engine)
-    tiles = max(1, (cfg.width * cfg.height) // 131072)
+    tiles = (max(1, (cfg.width * cfg.height) // 131072)
+             if cfg.traversal in ("bfs", "cluster", "dense") else 1)
     return models.make_disney_pt_renderer(cs, probe, camera, cfg.width, cfg.height, cfg.spp,
                                           cfg.max_depth, dispatch_tiles=tiles, demand=demand,
                                           **engine)
@@ -162,10 +171,9 @@ def cmd_render(args: argparse.Namespace) -> int:
     from .utils.logging import FrameLog, Timer
 
     cfg = config_from_args(args)
-    check_supported(cfg, getattr(args, "traversal", None))
-    cfg.traversal = "cluster"
     device = torch.device(args.device)
     torch.empty(0, device=device)  # the device error, before any work
+    pick_traversal(cfg, getattr(args, "traversal", None), device)
     camera = make_camera(cfg)
     log = FrameLog(cfg.metrics or None)
     timer = Timer()
@@ -269,7 +277,8 @@ def _render_preset(cfg: RunConfig, cs, probe, camera, device, log, timer, state_
         print(f"wrote {cfg.out}")
         return 0
     r = models.make_spectral_renderer(cs, probe, camera, cfg.width, cfg.height, cfg.spp,
-                                      cfg.max_depth, emission_all_bounces=cfg.emission_all_bounces,
+                                      cfg.max_depth, traversal=cfg.traversal,
+                                      emission_all_bounces=cfg.emission_all_bounces,
                                       sampling=cfg.sampling, sampling_strata=cfg.sampling_strata)
     for _ in range(cfg.frames):
         r.render(download=False)
@@ -283,15 +292,16 @@ def cmd_view(args: argparse.Namespace) -> int:
     """Interactive viewer: the progressive render streamed to a browser
     (the reference's `view`): foveated with the config's flags, else
     disney_pt, shading from a one-level demand pool with
-    `--demand-textures`."""
+    `--demand-textures`. The traversal follows `render`'s rule (the
+    reference's `view` keeps the config's lockstep default on every
+    platform unless given the flag)."""
     from . import models
     from .viewer.server import run_interactive
 
     cfg = config_from_args(args)
-    check_supported(cfg, getattr(args, "traversal", None))
-    cfg.traversal = "cluster"
     device = torch.device(args.device)
     torch.empty(0, device=device)  # the device error, before any work
+    pick_traversal(cfg, getattr(args, "traversal", None), device)
     camera = make_camera(cfg)
     cs, hs, _tlas = compile_run_scene(cfg, device)
     probe = _load_probe(cfg, device)
@@ -300,7 +310,7 @@ def cmd_view(args: argparse.Namespace) -> int:
     else:
         r = models.make_disney_pt_renderer(cs, probe, camera, cfg.width, cfg.height, cfg.spp,
                                            cfg.max_depth, demand=make_demand(cfg, hs, device, 1),
-                                           sampling=cfg.sampling,
+                                           traversal=cfg.traversal, sampling=cfg.sampling,
                                            sampling_strata=cfg.sampling_strata)
     run_interactive(r, camera, port=args.port, max_frames=args.max_frames)
     return 0

@@ -13,7 +13,8 @@ per-wavelength BSDF:
 with f00 = f(albedo=0, cspec0=0), f10 = f(albedo=1, cspec0=0),
 f01 = f(albedo=0, cspec0=1), cspec0(lambda) the Disney specular color
 rebuilt per wavelength from the spectralised tint. No coherence sort, as in
-the reference; the sweeps are the cluster walk's (`hier=None`).
+the reference; the sweeps take `cfg.traversal`'s backend, as the RGB
+engine's do.
 """
 from __future__ import annotations
 
@@ -30,10 +31,9 @@ from ..core.spectrum import (
     spectral_to_rgb_calibrated,
 )
 from ..lights.probe import Probe, dir_to_uv, probe_eval, probe_sample
-from ..ops.traverse_cluster import any_hit_cluster, closest_hit_cluster
 from ..shade import disney
 from .renderer import ProgressiveState
-from .wavefront import CameraParams, RenderConfig, _check_supported, _hit_geometry
+from .wavefront import CameraParams, RenderConfig, _any_hit2, _closest_hit2, _hit_geometry
 
 Tensor = torch.Tensor
 
@@ -42,7 +42,7 @@ def _bounce(cs, probe, cfg: RenderConfig, lam: Tensor, path: dict) -> dict:
     """One spectral bounce of every live path."""
     active = ~path["done"]
     t_max = torch.where(active, cfg.t_max, 0.0)
-    rec = closest_hit_cluster(cs.clusters, path["o"], path["d"], cfg.t_min, t_max)
+    rec = _closest_hit2(cs, cfg, path["o"], path["d"], cfg.t_min, t_max)[0]
     hit = rec.hit & active
     n_hit, mat, albedo, _ = _hit_geometry(cs, rec, path["d"], cfg.use_shading_normals)
     p_hit = path["o"] + path["d"] * rec.t
@@ -75,7 +75,7 @@ def _bounce(cs, probe, cfg: RenderConfig, lam: Tensor, path: dict) -> dict:
     # ---- NEE with MIS (the sky spectralised through the Smits basis) ----
     state, wi, sky_rgb, sky_pdf = probe_sample(probe, path["state"])
     occ_tmax = torch.where(hit, cfg.t_max, 0.0)
-    occluded = any_hit_cluster(cs.clusters, p_hit, wi, cfg.shadow_t_min, occ_tmax)[0]
+    occluded = _any_hit2(cs, cfg, p_hit, wi, cfg.shadow_t_min, occ_tmax)[0]
     b_pdf = disney.bsdf_pdf(mat, path["eta"], eta_o, n_hit, wo, wi)
     f_l = eval_spectral(wi)
     weight = 0.5 * sky_pdf / torch.clamp(0.5 * b_pdf + 0.5 * sky_pdf, min=1e-12)
@@ -110,7 +110,6 @@ def trace_spectral(cs: CompiledScene, probe: Probe, cfg: RenderConfig, cam: Came
     """Render cfg.samples_per_launch spectral paths a pixel -> the linear RGB
     sum over them (divide by spp to average). Sample s of a pixel draws from
     tea(pixel, subframe * spp + s): jx, jy, then the hero wavelength."""
-    _check_supported(cfg)
     dev = pixel_x.device
     n = pixel_x.shape[0]
     spp = cfg.samples_per_launch
@@ -151,7 +150,6 @@ class SpectralRenderer(ProgressiveState):
     compiled scene's device; pixels in scanline order, as the reference."""
 
     def __init__(self, cs: CompiledScene, probe: Probe, config: RenderConfig, camera):
-        _check_supported(config)
         self.cs = cs
         self.device = cs.device
         self.probe = probe

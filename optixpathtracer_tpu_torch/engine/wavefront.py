@@ -24,8 +24,12 @@ bitmap in `SampleOutput.tex_usage` for the host pager, and with a pool of
 several mip levels each hit samples trilinearly at a LOD from the path
 length's pixel footprint and the triangle's texel density.
 
-The traversal backends the port does not carry raise NotImplementedError
-(see `_check_supported`).
+`cfg.traversal` picks the backend of every sweep (`_closest_hit2` /
+`_any_hit2`): "lockstep" (the default; ops/traverse.py over `cs.bvh`),
+"cluster" (kernels K1-K4 on the card), "bfs" (ops/traverse_bfs.py over
+`cs.wide`, whose dropped candidates add up in `SampleOutput.bfs_overflow`),
+"dense" (ops/dense.py over `cs.wide`) or "oracle" (the dense no-cull scan
+over the clusters, `reference_closest`).
 """
 from __future__ import annotations
 
@@ -56,7 +60,10 @@ from ..core.sobol import _u32_to_unit, sobol02_point
 from ..io.demand import sample_demand
 from ..lights.lights import QuadLight, sample_parallelogram
 from ..lights.probe import Probe, dir_to_uv, probe_eval, probe_eval_dir, probe_pdf, probe_sample
-from ..ops.traverse_cluster import any_hit_cluster, closest_hit_cluster
+from ..ops.dense import any_hit_dense, closest_hit_dense
+from ..ops.traverse import any_hit, closest_hit
+from ..ops.traverse_bfs import any_hit_bfs, closest_hit_bfs
+from ..ops.traverse_cluster import any_hit_cluster, closest_hit_cluster, reference_closest
 from ..shade import disney
 
 Tensor = torch.Tensor
@@ -64,8 +71,7 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Launch knobs; the same fields and defaults as the JAX RenderConfig.
-    The port implements traversal="cluster" only."""
+    """Launch knobs; the same fields and defaults as the JAX RenderConfig."""
 
     width: int = 1200
     height: int = 1024
@@ -97,13 +103,6 @@ class RenderConfig:
     sort_rays: bool = False  # coherence-sort the path state every bounce
 
 
-def _check_supported(cfg: RenderConfig) -> None:
-    """Raise for the traversal backends the port does not carry."""
-    if cfg.traversal != "cluster":
-        raise NotImplementedError(f"traversal={cfg.traversal!r} is not ported yet "
-                                  "(ROADMAP A 'not to port')")
-
-
 class CameraParams(NamedTuple):
     """Raygen uniforms: 0-dim float32 tensors on the render device."""
 
@@ -130,7 +129,8 @@ class SampleOutput(NamedTuple):
     albedo: Vec3
     depth: Tensor
     rays_traced: Tensor  # int64 scalar: radiance + shadow rays traced
-    bfs_overflow: Tensor  # scalar, always 0 (the cluster backend is exact)
+    bfs_overflow: Tensor  # f32 scalar: BFS worklist candidates dropped (0 ==
+    #   exact traversal; always 0 on the other backends)
     tex_usage: Tensor | None = None  # (num_pages,) bool page-usage bitmap
     #   with a demand_pool (DemandTextureManager.process_requests takes it)
 
@@ -394,12 +394,46 @@ def _nee_sample(probe, cfg, n, wo, mat, albedo, eta_i, eta_o, state, u12=None):
     return state, wi, contrib, valid
 
 
-def _any_hit_sorted(cs: CompiledScene, cfg: RenderConfig, o: Vec3, d: Vec3, t_min, t_max: Tensor):
-    """Occlusion sweep with its own coherence sort (shadow rays inherit the
-    radiance order but point anywhere), scattered back to lane order.
-    Results are identical to the unsorted sweep (occlusion is per ray)."""
-    if not cfg.sort_rays:
+def _no_overflow(like: Tensor) -> Tensor:
+    return torch.zeros((), dtype=torch.float32, device=like.device)
+
+
+def _closest_hit2(cs: CompiledScene, cfg: RenderConfig, o: Vec3, d: Vec3, t_min, t_max):
+    """Closest hit on `cfg.traversal`'s backend: (HitRecord, overflow)."""
+    tr = cfg.traversal
+    if tr == "cluster":
+        return closest_hit_cluster(cs.clusters, o, d, t_min, t_max), _no_overflow(o.x)
+    if tr == "oracle":
+        return reference_closest(cs.clusters, o, d, t_min, t_max), _no_overflow(o.x)
+    if tr == "bfs":
+        res = closest_hit_bfs(cs.wide, o, d, t_min, t_max, cap_factor=cfg.bfs_cap_factor)
+        return res.record, res.overflow
+    if tr == "dense":
+        return closest_hit_dense(cs.wide, o, d, t_min, t_max), _no_overflow(o.x)
+    return closest_hit(cs.bvh, cs.scene, o, d, t_min, t_max), _no_overflow(o.x)
+
+
+def _any_hit2(cs: CompiledScene, cfg: RenderConfig, o: Vec3, d: Vec3, t_min, t_max):
+    """Occlusion on `cfg.traversal`'s backend: ((N,) bool, overflow)."""
+    tr = cfg.traversal
+    if tr == "cluster":
         return any_hit_cluster(cs.clusters, o, d, t_min, t_max)
+    if tr == "oracle":
+        return reference_closest(cs.clusters, o, d, t_min, t_max).hit, _no_overflow(o.x)
+    if tr == "bfs":
+        return any_hit_bfs(cs.wide, o, d, t_min, t_max, cap_factor=cfg.bfs_cap_factor)
+    if tr == "dense":
+        return any_hit_dense(cs.wide, o, d, t_min, t_max), _no_overflow(o.x)
+    return any_hit(cs.bvh, cs.scene, o, d, t_min, t_max), _no_overflow(o.x)
+
+
+def _any_hit_sorted(cs: CompiledScene, cfg: RenderConfig, o: Vec3, d: Vec3, t_min, t_max: Tensor):
+    """Occlusion sweep; on the cluster walk with `sort_rays`, with its own
+    coherence sort (shadow rays inherit the radiance order but point
+    anywhere), scattered back to lane order. Results are identical to the
+    unsorted sweep (occlusion is per ray). Returns (occluded, overflow)."""
+    if not (cfg.sort_rays and cs.clusters is not None and cfg.traversal == "cluster"):
+        return _any_hit2(cs, cfg, o, d, t_min, t_max)
     n = o.x.shape[0]
     dead = t_max <= t_min
     perm = _stable_argsort(_coherence_key(o, d, dead, cs.clusters.scene_aabb))
@@ -425,8 +459,8 @@ def _nee_rr(cfg: RenderConfig, state, throughput: Vec3, contrib: Vec3, valid: Te
 
 def _nee(cs, probe, cfg, p, n, wo, mat, albedo, eta_i, eta_o, active, state, throughput=None,
          u12=None):
-    """NEE with immediate visibility. Returns (state, lit, shadowed, traced):
-    every shaded hit traces its shadow ray, even an invalid sample
+    """NEE with immediate visibility. Returns (state, lit, shadowed, traced,
+    overflow): every shaded hit traces its shadow ray, even an invalid sample
     (deviceProgram.cu:264-277 traces before checking pdfs); under `nee_rr`
     only the surviving valid samples trace."""
     state, wi, contrib, valid = _nee_sample(probe, cfg, n, wo, mat, albedo, eta_i, eta_o, state,
@@ -436,19 +470,19 @@ def _nee(cs, probe, cfg, p, n, wo, mat, albedo, eta_i, eta_o, active, state, thr
         state, contrib, valid = _nee_rr(cfg, state, throughput, contrib, valid)
         traced = active & valid
     t_max = torch.where(traced, cfg.t_max, 0.0)
-    occluded, _ = _any_hit_sorted(cs, cfg, p, wi, cfg.shadow_t_min, t_max)
+    occluded, ovf = _any_hit_sorted(cs, cfg, p, wi, cfg.shadow_t_min, t_max)
     zero = Vec3(*(torch.zeros_like(valid, dtype=torch.float32),) * 3)
     lit = where(valid & ~occluded, contrib, zero)
     shadowed = where(valid & occluded, contrib, zero)
-    return state, lit, shadowed, traced
+    return state, lit, shadowed, traced, ovf
 
 
 def _quad_nee(cs, cfg, light: QuadLight, p, n, wo, mat, albedo, eta_i, eta_o, active, state):
     """Area-light NEE against the single parallelogram light, with
     balance-heuristic MIS against the BSDF (a two-sided emitter). Returns
-    (state, contribution where visible, traced): `traced` marks the lanes
-    that trace a shadow ray, which `rays_traced` leaves out, as the
-    reference does."""
+    (state, contribution where visible, traced, overflow): `traced` marks
+    the lanes that trace a shadow ray, which `rays_traced` leaves out, as
+    the reference does."""
     state, q, ln, _area = sample_parallelogram(light.corner, light.v1, light.v2, state)
     to_q = q - p
     dist2 = torch.clamp(dot(to_q, to_q), min=1e-12)
@@ -464,10 +498,10 @@ def _quad_nee(cs, cfg, light: QuadLight, p, n, wo, mat, albedo, eta_i, eta_o, ac
     valid = (b_pdf > 0.0) & (cos_l > 1e-6) & active
 
     t_max = torch.where(valid, dist - 1e-3, 0.0)
-    occluded, _ = _any_hit_sorted(cs, cfg, p, wi, cfg.shadow_t_min, t_max)
+    occluded, ovf = _any_hit_sorted(cs, cfg, p, wi, cfg.shadow_t_min, t_max)
     contrib = light.emission * f * (weight * dot(wi, n).abs() / pdf_sa)
     zero = Vec3(*(torch.zeros_like(dist),) * 3)
-    return state, where(valid & ~occluded, contrib, zero), valid
+    return state, where(valid & ~occluded, contrib, zero), valid, ovf
 
 
 def quad_light_pdf(light: QuadLight, p: Vec3, d: Vec3, t_hit: Tensor) -> Tensor:
@@ -574,7 +608,6 @@ def trace_wavefront(
     demand_pool (optional io.demand.DemandTexturePool on the render
     device): textured albedo from the sparse demand-loaded pool; the
     launch's page-usage bitmap comes back in `SampleOutput.tex_usage`."""
-    _check_supported(cfg)
     dev = pixel_x.device
     n_pix = pixel_x.shape[0]
     spp = cfg.samples_per_launch
@@ -622,7 +655,7 @@ def trace_wavefront(
         pix_ang = 2.0 * length(cam.v) / (h * torch.clamp(length(cam.w), min=1e-9))
 
     def bounce_body(depth: int, path: dict, skip_nee: bool = False) -> dict:
-        nonlocal usage
+        nonlocal usage, overflow
         if sorting:
             key = _coherence_key(path["o"], path["d"], path["done"], cs.clusters.scene_aabb)
             path = _sort_path(path, key)
@@ -638,7 +671,7 @@ def trace_wavefront(
             d2 = Vec3(*(torch.cat([a, b]) for a, b in zip(path["d"], path["sh_d"])))
             t_min2 = torch.cat([torch.full((n,), cfg.t_min, device=dev),
                                 torch.full((n,), cfg.shadow_t_min, device=dev)])
-            rec2 = closest_hit_cluster(cs.clusters, o2, d2, t_min2, torch.cat([t_max, sh_tmax]))
+            rec2, trav_ovf = _closest_hit2(cs, cfg, o2, d2, t_min2, torch.cat([t_max, sh_tmax]))
             rec = type(rec2)(*(a[:n] for a in rec2))
             occluded = rec2.tri[n:] >= 0
             # the deferred NEE visibility, resolved
@@ -649,7 +682,8 @@ def trace_wavefront(
                 alpha=path["alpha"] + where(pv & pc & occluded, path["pend_contrib"], zero),
             )
         else:
-            rec = closest_hit_cluster(cs.clusters, path["o"], path["d"], cfg.t_min, t_max)
+            rec, trav_ovf = _closest_hit2(cs, cfg, path["o"], path["d"], cfg.t_min, t_max)
+        overflow = overflow + trav_ovf
         hit = rec.hit & active
 
         if demand_pool is None:
@@ -713,10 +747,11 @@ def trace_wavefront(
             state, u12 = path["state"], None
             if ld:
                 state, u12 = ld_pair(depth, path, state, ("ld_n1", "ld_n2"), _LD_SALT_NEE)
-            state, lit, shadowed, shadow_traced = _nee(
+            state, lit, shadowed, shadow_traced, nee_ovf = _nee(
                 cs, probe, cfg, p_hit, n_hit, wo, mat, albedo,
                 path["eta"], eta_o, shaded, state, throughput=path["throughput"], u12=u12,
             )
+            overflow = overflow + nee_ovf
             radiance = path["radiance"] + where(plain, path["throughput"] * lit, zero)
             alpha = where(plain, ones, path["alpha"])
             alpha = alpha + where(catcher_primary, path["throughput"] * shadowed, zero)
@@ -734,10 +769,11 @@ def trace_wavefront(
         # the parallelogram light's NEE, on the plain hits of non-emitters
         if area_light is not None and not skip_nee:
             dark = mat.emission.x + mat.emission.y + mat.emission.z == 0.0
-            state, quad_contrib, _ = _quad_nee(
+            state, quad_contrib, _, quad_ovf = _quad_nee(
                 cs, cfg, area_light, p_hit, n_hit, wo, mat, albedo, path["eta"], eta_o,
                 plain & dark, state,
             )
+            overflow = overflow + quad_ovf
             radiance = radiance + where(plain, path["throughput"] * quad_contrib, zero)
 
         # the probe on BSDF-sampled misses, MIS-weighted against the probe
@@ -808,6 +844,7 @@ def trace_wavefront(
 
     acc = None
     rays_total = torch.zeros((), dtype=torch.int64, device=dev)
+    overflow = torch.zeros((), dtype=torch.float32, device=dev)  # BFS candidates dropped
     # the launch's page-usage bitmap, ORed by every bounce (not per lane)
     usage = None
     if demand_pool is not None:
@@ -893,7 +930,7 @@ def trace_wavefront(
     return SampleOutput(
         color=color, alpha=alpha, normal=normal, albedo=albedo, depth=depth,
         rays_traced=rays_total,
-        bfs_overflow=torch.zeros((), dtype=torch.float32, device=dev),
+        bfs_overflow=overflow,
         tex_usage=usage,
     )
 

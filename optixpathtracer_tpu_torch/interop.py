@@ -7,7 +7,8 @@ reference's objects attribute by attribute with `np.asarray` (this module
 imports no jax; the caller holds the JAX objects). The `*_from_arrays`
 functions rebuild the port's `CompiledScene`, `Probe` and `QuadLight` on a
 device. The round trip moves identical bits, so both packages can be fed
-the same scene state. Instanced and TLAS scenes carry their `instanced`
+the same scene state; a scene's LBVH and wide BVH (the lockstep, BFS and
+dense backends' structures) carry across where it has them. Instanced and TLAS scenes carry their `instanced`
 flag (their scene arrays are in slot order: no `tri_map`), and
 `proto_tables` carries a TLAS compile's per-prototype host tables for
 `bvh.clusters.update_tlas_transforms`. `demand_pool_arrays` /
@@ -21,6 +22,8 @@ import torch
 
 from .builder import CompiledScene
 from .bvh.clusters import cluster_set_from_numpy
+from .bvh.lbvh import BVH
+from .bvh.wide import WideBVH
 from .core.materials import table_from_rows
 from .core.math import Vec3
 from .core.scene import TexturePool, scene_from_shade_rows
@@ -33,6 +36,9 @@ _CLUSTER_FIELDS = ("rows", "spheres", "super_spheres", "scene_aabb", "entry_row"
 _PROBE_FIELDS = ("r", "g", "b", "pdf_x", "cdf_x", "pdf_y", "cdf_y", "rgbp")
 _QUAD_FIELDS = ("corner", "v1", "v2", "emission", "normal")
 _PROTO_FIELDS = ("rows", "spheres", "super_spheres", "scene_aabb", "local_aabb")
+_BVH_BOXES = ("left_min", "left_max", "right_min", "right_max")
+_WIDE_FIELDS = ("table", "leaf_rows", "leaf_tri0")
+_WIDE_META = ("width", "leaf_size", "depth", "compressed")
 
 
 def compiled_scene_arrays(cs) -> dict[str, np.ndarray]:
@@ -51,6 +57,15 @@ def compiled_scene_arrays(cs) -> dict[str, np.ndarray]:
     if pool is not None:
         out.update({f"scene.textures.{k}": _np(v) for k, v in pool._asdict().items()})
     out["num_triangles"] = np.asarray(cs.num_triangles)
+    bvh, wide = getattr(cs, "bvh", None), getattr(cs, "wide", None)  # a bare cluster set has neither
+    if bvh is not None:
+        out["bvh.child_left"] = _np(bvh.child_left)
+        out["bvh.child_right"] = _np(bvh.child_right)
+        out.update({f"bvh.{k}": np.stack([_np(c) for c in getattr(bvh, k)], 1) for k in _BVH_BOXES})
+        out["bvh.leaf_size"] = np.asarray(bvh.leaf_size)
+    if wide is not None:
+        out.update({f"wide.{k}": _np(getattr(wide, k)) for k in _WIDE_FIELDS})
+        out.update({f"wide.{k}": np.asarray(getattr(wide, k)) for k in _WIDE_META})
     return out
 
 
@@ -67,8 +82,21 @@ def compiled_scene_from_arrays(arrays: dict[str, np.ndarray], device) -> Compile
             k: torch.as_tensor(np.array(arrays[f"scene.textures.{k}"]), device=device)
             for k in TexturePool._fields})
     scene = scene_from_shade_rows(arrays["scene.shade_rows"], materials, device, textures)
-    return CompiledScene(scene=scene, bvh=None, num_triangles=int(arrays["num_triangles"]),
-                         wide=None, clusters=clusters)
+
+    def up(a):
+        return torch.as_tensor(np.array(a), device=device)
+
+    bvh = wide = None
+    if "bvh.child_left" in arrays:
+        bvh = BVH(child_left=up(arrays["bvh.child_left"]), child_right=up(arrays["bvh.child_right"]),
+                  **{k: Vec3(*(up(arrays[f"bvh.{k}"][:, i]) for i in range(3))) for k in _BVH_BOXES},
+                  leaf_size=int(arrays["bvh.leaf_size"]))
+    if "wide.table" in arrays:
+        wide = WideBVH(**{k: up(arrays[f"wide.{k}"]) for k in _WIDE_FIELDS},
+                       width=int(arrays["wide.width"]), leaf_size=int(arrays["wide.leaf_size"]),
+                       depth=int(arrays["wide.depth"]), compressed=bool(arrays["wide.compressed"]))
+    return CompiledScene(scene=scene, bvh=bvh, num_triangles=int(arrays["num_triangles"]),
+                         wide=wide, clusters=clusters)
 
 
 def proto_tables(tables: list) -> list[dict[str, np.ndarray]]:

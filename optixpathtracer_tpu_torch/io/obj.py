@@ -8,9 +8,11 @@ MATERIAL ID (:166-201), vertices deduplicated by (v, vn, vt) index triplet
 with a vertical flip (loadTexture :88-135, backslash fixing :100-103)
 through the port's own PNG and JPEG decoders (io/image.py `load_image`).
 
-Pure Python/numpy: the port parses with the reference's Python parser
-only. The reference's native C++ tokenizer (native/src/objparser.cpp),
-which the reference holds to the same semantics, is ROADMAP A.1.
+`load_obj` tokenizes with the native C++ parser (io/native.py, the port's
+copy of the reference's objparser.cpp) and assembles the meshes in numpy,
+as the reference does; `_load_obj_python` is the reference's pure-Python
+parser with the same semantics, taken under OPTIX_TPU_NO_NATIVE=1, with
+`prefer_native=False`, or where the native parse fails on a file.
 """
 from __future__ import annotations
 
@@ -124,8 +126,7 @@ def save_obj(path: str, scene: HostScene) -> None:
 
 
 def _find_mtllibs(path: str) -> list[str]:
-    """Cheap byte-level scan for mtllib declarations (the reference's
-    native-tokenizer helper; ROADMAP A.1 reuses it)."""
+    """Cheap byte-level scan for mtllib declarations (native path helper)."""
     libs = []
     with open(path, "rb") as f:
         data = f.read()
@@ -142,10 +143,102 @@ def _find_mtllibs(path: str) -> list[str]:
     return libs
 
 
-def load_obj(path: str) -> HostScene:
-    """OBJ file -> HostScene with per-(shape, material) meshes: the
-    reference's Python parser (`_load_obj_python`); there is no native
-    tokenizer path and no `prefer_native` switch."""
+def _load_obj_native(path: str) -> HostScene | None:
+    """C++ tokenizer + vectorised numpy assembly (the Python parser's
+    semantics: per-(shape, material) split, triplet dedupe); None under
+    OPTIX_TPU_NO_NATIVE=1."""
+    from .native import parse_obj_native
+
+    parsed = parse_obj_native(path)
+    if parsed is None:
+        return None
+    pos, nrm, uv, tris, names = parsed
+    obj_dir = os.path.dirname(os.path.abspath(path))
+    mtl: dict[str, dict] = {}
+    for lib in _find_mtllibs(path):
+        mtl.update(_parse_mtl(os.path.join(obj_dir, lib)))
+
+    scene = HostScene()
+    known_textures: dict[str, int] = {}
+    if len(tris) == 0:
+        return scene
+
+    for g, (shape_name, mat_name) in enumerate(names):
+        sel = tris[tris[:, 9] == g]
+        if len(sel) == 0:
+            continue
+        corners = np.stack(
+            [sel[:, [0, 3, 6]], sel[:, [1, 4, 7]], sel[:, [2, 5, 8]]], axis=1
+        ).reshape(-1, 3)  # (3F, [v, vt, vn])
+        uniq, inverse = np.unique(corners, axis=0, return_inverse=True)
+        faces = inverse.reshape(-1, 3).astype(np.int32)
+        verts = pos[uniq[:, 0]]
+        any_uv = (uniq[:, 1] >= 0).any() and len(uv)
+        any_n = (uniq[:, 2] >= 0).any() and len(nrm)
+        uv_out = uv[np.maximum(uniq[:, 1], 0)] * (uniq[:, 1] >= 0)[:, None] if any_uv else None
+        n_out = nrm[np.maximum(uniq[:, 2], 0)] * (uniq[:, 2] >= 0)[:, None] if any_n else None
+        # geometric-normal fallback for corners without a vn (as the
+        # Python parser does)
+        if n_out is not None:
+            missing = uniq[:, 2] < 0
+            if missing.any():
+                gn = np.cross(
+                    verts[faces[:, 1]] - verts[faces[:, 0]],
+                    verts[faces[:, 2]] - verts[faces[:, 0]],
+                )
+                gn /= np.maximum(np.linalg.norm(gn, axis=1, keepdims=True), 1e-20)
+                for corner in range(3):
+                    idxs = faces[:, corner]
+                    fill = missing[idxs]
+                    n_out[idxs[fill]] = gn[fill]
+
+        m = mtl.get(mat_name, {"kd": (0.6, 0.6, 0.6), "ke": (0.0, 0.0, 0.0), "map_kd": ""})
+        tex_id = -1
+        tex_name = m.get("map_kd", "")
+        if tex_name:
+            if tex_name in known_textures:
+                tex_id = known_textures[tex_name]
+            else:
+                tex_path = os.path.join(obj_dir, tex_name.replace("\\", "/"))
+                if os.path.exists(tex_path):
+                    tex_id = scene.add_texture(load_image(tex_path, flip_y=True))
+                known_textures[tex_name] = tex_id
+        scene.add_mesh(
+            Mesh(
+                vertices=verts.astype(np.float32),
+                indices=faces,
+                normals=n_out.astype(np.float32) if n_out is not None else None,
+                texcoords=uv_out.astype(np.float32) if uv_out is not None else None,
+                material=make_material(color=m["kd"], emission=m["ke"], texture_id=tex_id),
+            )
+        )
+    return scene
+
+
+def load_obj(path: str, prefer_native: bool = True) -> HostScene:
+    """OBJ file -> HostScene with per-(shape, material) meshes.
+
+    Tokenizes with the native C++ parser (built at first use; a failed build
+    raises) unless OPTIX_TPU_NO_NATIVE=1 or `prefer_native=False`; a file
+    the native path cannot assemble falls back to the Python parser, as in
+    the reference."""
+    if prefer_native:
+        from .native import get_lib
+
+        get_lib()  # build outside the fallback below: a missing compiler raises
+        try:
+            scene = _load_obj_native(path)
+            if scene is not None:
+                return scene
+        except FileNotFoundError:
+            raise
+        except Exception:
+            pass  # any native-path problem falls back to the Python parser
+    return _load_obj_python(path)
+
+
+def _load_obj_python(path: str) -> HostScene:
+    """The reference's pure-Python OBJ parser."""
     obj_dir = os.path.dirname(os.path.abspath(path))
     positions: list = []
     normals: list = []

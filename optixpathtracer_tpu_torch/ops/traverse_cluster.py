@@ -67,6 +67,8 @@ HIER_MIN_ENTRIES = 8  # hier=None takes the node walk from this many entries
 #   reference's 3072 is a TPU-compiler limit.
 _BIG = 3.0e37
 _MT_ELEMS = 1 << 21  # ray-triangle pairs per plain-sweep chunk (memory bound)
+_ORACLE_ELEMS_CUDA = 1 << 24  # the same for `reference_closest` on a card: 64 MiB a
+#   temporary, 8x fewer launches (a ray's result does not depend on its chunk)
 
 # kernel name -> launches since the last clear()
 launch_counts: collections.Counter = collections.Counter()
@@ -1008,7 +1010,7 @@ def reference_closest(cs: ClusterSet, o: Vec3, d: Vec3, t_min=0.001, t_max=1e16)
     bv = torch.zeros_like(bu)
     btri = torch.full((n,), -1, dtype=torch.int32, device=dev)
     iota = torch.arange(ce, device=dev, dtype=torch.int32)
-    chunk = max(1, _MT_ELEMS // ce)
+    chunk = max(1, (_ORACLE_ELEMS_CUDA if dev.type == "cuda" else _MT_ELEMS) // ce)
     for e in range(cs.entry_row.shape[0]):
         tri9 = cs.rows[cs.entry_row[e], :9][None]  # (1, 9, ce)
         xf = cs.xf_inv[cs.entry_xf[e]][None]

@@ -9,7 +9,7 @@ one after another, the four sharding modes of the reference: strip data
 parallelism (ray balance within 10 %), fused foveated lanes (ray balance
 within 10 %), demand-loaded textures over the ranks (`pages_loaded` > 0),
 and the sharded render against the single-device `Renderer` (rtol 2e-4,
-atol 2e-5). The port has one traversal, the cluster walk, so the first
+atol 2e-5). Every mode renders with the cluster walk, so the first
 mode's render is the one held against the single device. It prints the
 reference's one-line summary, then one JSON line with the ranks' kernel
 launches per mode, and exits non-zero if a gate or a rank fails.

@@ -9,8 +9,9 @@ interior `scenes/loft.obj`. The `open_*`, `cornell_*`, `loft` and `gltf`
 functions are the golden setups of tests/golden_scenes.py (`_open_scene`,
 `_cornell_scene`, `_sky_probe`, `_cam`/`_cam_s`, `render_disney_open*`,
 `render_disney_cornell*`, `render_loft*`, `render_gltf`,
-`render_foveated*`) with the cluster traversal in place of the reference's
-CPU lockstep backend (both are exact). `instanced_city_glb` writes the city
+`render_foveated*`); each renders with the cluster walk unless given
+`traversal=` (the goldens were rendered by the reference's CPU lockstep
+walk; both are exact). `instanced_city_glb` writes the city
 as reusable glTF meshes placed as a grid of rotated and scaled tiles, the
 instanced scene of `python -m optixpathtracer_tpu_torch render --instanced`.
 """
@@ -196,12 +197,12 @@ OPEN_GOLDENS = {
 }
 
 
-def render_open_golden(name: str, device) -> np.ndarray:
+def render_open_golden(name: str, device, traversal: str = "cluster") -> np.ndarray:
     """Render a `disney_open*` golden setup; returns the (H, W, 3) accum image."""
     w, h, spp, depth, frames = OPEN_GOLDENS[name]
     cs = compile_scene(open_scene(), device)
     cfg = RenderConfig(width=w, height=h, samples_per_launch=spp, max_depth=depth,
-                       traversal="cluster")
+                       traversal=traversal)
     r = Renderer(cs, sky_probe(device), cfg, open_camera(w, h))
     r.render_n(frames)
     return r.accum_image()
@@ -214,14 +215,14 @@ FOVEATED_GOLDENS = {
 }
 
 
-def render_foveated_golden(name: str, device) -> np.ndarray:
+def render_foveated_golden(name: str, device, traversal: str = "cluster") -> np.ndarray:
     """Render a `foveated*` golden setup (tests/golden_scenes.py
     `render_foveated_small` / `render_foveated`: the open scene, 1 spp
     config, gaze at the centre); returns the (H, W, 3) accum image."""
     w, h, depth, frames, (inner, outer) = FOVEATED_GOLDENS[name]
     cs = compile_scene(open_scene(), device)
     cfg = RenderConfig(width=w, height=h, samples_per_launch=1, max_depth=depth,
-                       traversal="cluster")
+                       traversal=traversal)
     r = FoveatedRenderer(cs, sky_probe(device), cfg, open_camera(w, h),
                          FoveationConfig(inner_radius=inner, outer_radius=outer))
     for _ in range(frames):
@@ -241,21 +242,26 @@ PRESET_GOLDENS = {
 }
 
 
-def render_preset_golden(name: str, device) -> np.ndarray:
+def render_preset_golden(name: str, device, traversal: str = "cluster") -> np.ndarray:
     """Render a `hello`, `whitted*` or `spectral*` golden setup: hello and
     spectral on the open scene, whitted on its own; returns the (H, W, 3)
-    image (hello's in [0, 1], whitted's sRGB, spectral's linear)."""
+    image (hello's in [0, 1], whitted's sRGB, spectral's linear). hello
+    and whitted trace through ops/dispatch, on `traversal` as its scoped
+    default."""
     from .engine.spectral import SpectralRenderer
     from .models import make_hello_renderer, make_whitted_renderer
+    from .ops.dispatch import default_backend
 
     w, h, spp, depth, frames = PRESET_GOLDENS[name]
     if name.startswith("whitted"):
-        return make_whitted_renderer(w, h, depth, device=device).render()
+        with default_backend(traversal):
+            return make_whitted_renderer(w, h, depth, device=device).render()
     cs = compile_scene(open_scene(), device)
     if name == "hello":
-        return make_hello_renderer(cs, open_camera(w, h), w, h).render()
+        with default_backend(traversal):
+            return make_hello_renderer(cs, open_camera(w, h), w, h).render()
     cfg = RenderConfig(width=w, height=h, samples_per_launch=spp, max_depth=depth,
-                       traversal="cluster")
+                       traversal=traversal)
     r = SpectralRenderer(cs, sky_probe(device), cfg, open_camera(w, h))
     for _ in range(frames):
         img = r.render()
@@ -329,24 +335,24 @@ LOFT_GOLDENS = {
 }
 
 
-def render_cornell_golden(name: str, device) -> np.ndarray:
+def render_cornell_golden(name: str, device, traversal: str = "cluster") -> np.ndarray:
     """Render a `disney_cornell*` golden setup: the cornell scene under its
     quad light with emission on every bounce."""
     w, h, spp, depth, frames = CORNELL_GOLDENS[name]
     cfg = RenderConfig(width=w, height=h, samples_per_launch=spp, max_depth=depth,
-                       traversal="cluster", emission_all_bounces=True)
+                       traversal=traversal, emission_all_bounces=True)
     r = Renderer(compile_scene(cornell_scene(), device), dark_probe(device), cfg,
                  cornell_camera(w, h), area_light=cornell_light(device))
     r.render_n(frames)
     return r.accum_image()
 
 
-def render_loft_golden(name: str, device) -> np.ndarray:
+def render_loft_golden(name: str, device, traversal: str = "cluster") -> np.ndarray:
     """Render a `loft*` golden setup: scenes/loft.obj, textured, lit by its
     emissive panels, shading normals on."""
     w, h, spp, depth, frames = LOFT_GOLDENS[name]
     cfg = RenderConfig(width=w, height=h, samples_per_launch=spp, max_depth=depth,
-                       traversal="cluster", emission_all_bounces=True, use_shading_normals=True)
+                       traversal=traversal, emission_all_bounces=True, use_shading_normals=True)
     r = Renderer(compile_scene(load_obj(LOFT_OBJ), device), dark_probe(device), cfg,
                  loft_camera(w, h))
     r.render_n(frames)
@@ -462,7 +468,7 @@ def golden_glb() -> bytes:
     }, blob)
 
 
-def render_gltf_golden(device) -> np.ndarray:
+def render_gltf_golden(device, traversal: str = "cluster") -> np.ndarray:
     """Render the `gltf` golden: `golden_glb` loaded from a file, 96x64,
     2 spp, depth 2, 2 frames under the open scene's sky."""
     with tempfile.TemporaryDirectory() as tmp:
@@ -470,7 +476,8 @@ def render_gltf_golden(device) -> np.ndarray:
         with open(path, "wb") as f:
             f.write(golden_glb())
         hs, _lights = load_gltf(path)
-    cfg = RenderConfig(width=96, height=64, samples_per_launch=2, max_depth=2, traversal="cluster")
+    cfg = RenderConfig(width=96, height=64, samples_per_launch=2, max_depth=2,
+                       traversal=traversal)
     r = Renderer(compile_scene(hs, device), sky_probe(device), cfg,
                  Camera(eye=(3.0, 2.5, 3.0), lookat=(0, 0.4, 0), up=(0, 1, 0), fov_y=45,
                         aspect_ratio=96 / 64))

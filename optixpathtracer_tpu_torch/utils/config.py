@@ -40,7 +40,7 @@ class RunConfig:
     height: int = 800
     spp: int = 4
     max_depth: int = 4
-    traversal: str = "lockstep"  # the port renders "cluster" whatever this says
+    traversal: str = "lockstep"  # a CUDA device takes "cluster" without --traversal (cli.pick_traversal)
     emission_all_bounces: bool = False  # emissive geometry lights the scene
     #   through BSDF paths (closed interiors such as scenes/loft.obj)
     nee_final_bounce: bool = True  # False skips the last bounce's NEE sweep
@@ -111,8 +111,7 @@ def add_config_args(parser: argparse.ArgumentParser) -> None:
              "without a card pass --device cpu)")
     parser.add_argument("--model", default=None, choices=[
         "hello_raytracing", "whitted", "disney_pt", "spectral", "foveated"],
-        help="model preset; hello_raytracing, whitted and spectral are not ported "
-             "yet (ROADMAP A.10)")
+        help="model preset (default disney_pt)")
     parser.add_argument("--scene", default=None)
     parser.add_argument("--probe", default=None)
     parser.add_argument("--out", default=None)
@@ -123,9 +122,8 @@ def add_config_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--max-depth", type=int, default=None, dest="max_depth")
     parser.add_argument(
         "--traversal", default=None, choices=["lockstep", "bfs", "cluster", "dense"],
-        help="traversal backend; the port's only backend is the cluster walk "
-             "(kernels on the card, their plain versions on the CPU), which it "
-             "takes when this flag is absent; lockstep, bfs and dense are not carried")
+        help="traversal backend; without it, the cluster walk on a CUDA device "
+             "(kernels K1-K4) and the lockstep walk on a CPU")
     parser.add_argument(
         "--emission-all-bounces", action="store_true", default=None,
         dest="emission_all_bounces",

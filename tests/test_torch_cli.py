@@ -187,8 +187,18 @@ def test_model_presets_render(tmp_path, model):
     (["--traversal", "dense"], "not to port"),
 ])
 def test_unported_flags_raise(tmp_path, argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(["render", "--device", "cpu", *SMALL, *argv, "--out", str(tmp_path / "x.png")])
+    """The backends the port used to refuse (`item` names the old refusal)
+    now render: the port's PNG and the JAX command line's on the same flags
+    within 1 per 8-bit channel."""
+    from optixpathtracer_tpu import cli as jcli
+
+    del item
+    got = _render(tmp_path, "port", *argv)
+    out = tmp_path / "jax.png"
+    assert jcli.main(["render", *SMALL, *argv, "--out", str(out)]) == 0
+    want = read_rgb8(str(out)).astype(float)
+    assert got.shape == want.shape == (32, 48, 3) and want.std() > 1
+    assert np.abs(got - want).max() <= 1
 
 
 @pytest.mark.parametrize("sub, item", [(["bench"], "A.6")])

@@ -45,8 +45,8 @@ ENTRY_FIELDS = ("spheres", "super_spheres", "scene_aabb", "entry_row", "entry_xf
 
 @pytest.fixture(autouse=True)
 def numpy_reference(monkeypatch):
-    """The reference's native treelet builder orders ties its own way: its
-    numpy path is the one the port carries."""
+    """Both packages on the numpy builders (the native ones are held
+    against each other in tests/test_torch_accel_native.py)."""
     monkeypatch.setenv("OPTIX_TPU_NO_NATIVE", "1")
 
 
@@ -237,7 +237,7 @@ def tlas_instances():
 
 
 def tlas_pair(cluster_size=16):
-    """(port, JAX) compiles of `tlas_instances`, the reference's numpy path."""
+    """(port, JAX) compiles of `tlas_instances`, both on the numpy path."""
     import os
 
     hs, groups = tt._host_with_protos()
@@ -246,10 +246,11 @@ def tlas_pair(cluster_size=16):
     os.environ["OPTIX_TPU_NO_NATIVE"] = "1"
     try:
         want = jbuilder.compile_tlas(hs, groups, insts, cluster_size=cluster_size)
+        got = builder.compile_tlas(hs, groups, insts, CPU, cluster_size=cluster_size)
     finally:
         if old is None:
             del os.environ["OPTIX_TPU_NO_NATIVE"]
-    return builder.compile_tlas(hs, groups, insts, CPU, cluster_size=cluster_size), want, insts
+    return got, want, insts
 
 
 @pytest.fixture(scope="module")

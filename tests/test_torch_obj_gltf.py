@@ -1,9 +1,10 @@
 """Port parity, io/obj and io/gltf: the port's loaders give the JAX
 loaders' host scenes exactly.
 
-The OBJ side compares against the reference's Python parser
-(`load_obj(path, prefer_native=False)`; the reference holds its native
-tokenizer to the same semantics, and the port has no native path). Every
+The OBJ side compares each of the port's two parsers with the reference's
+same one: the Python parsers (`load_obj(path, prefer_native=False)`) and
+the native tokenizers (the default; both packages build the same C++
+source), whose meshes may order their vertices otherwise. Every
 mesh array, material dict and texture is compared for equality, and
 `HostScene.flatten()` array for array. The glTF cases are those of
 tests/test_gltf.py and the `gltf` golden's .glb, each against the JAX
@@ -32,6 +33,13 @@ from optixpathtracer_tpu_torch.io import obj as tobj
 from tests.test_gltf import _reuse_gltf, _tri_gltf
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    from tests.torch_backend_cases import reference_native_libs
+
+    reference_native_libs()
 
 
 def _assert_same_scene(got, want):
@@ -63,7 +71,8 @@ def _assert_same_scene(got, want):
 @pytest.mark.parametrize("name", ["loft.obj", "cornell_box.obj", "city_small.obj"])
 def test_bundled_obj_scenes_equal_to_jax(name):
     path = os.path.join(REPO, "scenes", name)
-    _assert_same_scene(tobj.load_obj(path), jobj.load_obj(path, prefer_native=False))
+    _assert_same_scene(tobj.load_obj(path, prefer_native=False), jobj.load_obj(path, prefer_native=False))
+    _assert_same_scene(tobj.load_obj(path), jobj.load_obj(path))
 
 
 def test_loft_textures_and_materials():
@@ -102,8 +111,9 @@ def test_obj_cases_equal_to_jax(case, tmp_path):
     Image.fromarray(rng.integers(0, 256, (5, 7, 3), dtype=np.uint8)).save(tmp_path / "sub" / "tex.png")
     _write(tmp_path, "m.mtl", MTL)
     path = _write(tmp_path, "s.obj", "mtllib m.mtl\n" + OBJ_CASES[case])
-    got, want = tobj.load_obj(path), jobj.load_obj(path, prefer_native=False)
+    got, want = tobj.load_obj(path, prefer_native=False), jobj.load_obj(path, prefer_native=False)
     _assert_same_scene(got, want)
+    _assert_same_scene(tobj.load_obj(path), jobj.load_obj(path))
     assert tobj._find_mtllibs(path) == jobj._find_mtllibs(path) == ["m.mtl"]
     if case == "negative_indices_and_quads":
         assert len(got.meshes[0].indices) == 2  # the quad fan-triangulated
@@ -140,8 +150,10 @@ def test_save_obj_round_trip_equal_to_jax(tmp_path):
         assert (tmp_path / "p" / name).read_text() == (tmp_path / "j" / name).read_text()
     np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "p" / "s_tex0.png")),
                                   np.asarray(Image.open(tmp_path / "j" / "s_tex0.png")))
-    _assert_same_scene(tobj.load_obj(str(tmp_path / "p" / "s.obj")),
+    _assert_same_scene(tobj.load_obj(str(tmp_path / "p" / "s.obj"), prefer_native=False),
                        jobj.load_obj(str(tmp_path / "j" / "s.obj"), prefer_native=False))
+    _assert_same_scene(tobj.load_obj(str(tmp_path / "p" / "s.obj")),
+                       jobj.load_obj(str(tmp_path / "j" / "s.obj")))
 
 
 # ---- glTF ------------------------------------------------------------------

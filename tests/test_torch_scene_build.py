@@ -1,10 +1,11 @@
-"""Port parity, scene build: `compile_scene` (cluster path) of the port vs
+"""Port parity, scene build: `compile_scene` of the port vs
 the JAX package on the same host scenes, bit for bit.
 
-Both builds are the same numpy arithmetic: the Morton order, the treelet
-repacking, the cluster tables and the shade rows. The reference may take its
-native C++ treelet builder, whose intra-partition order is unspecified, so
-its numpy path is forced here (OPTIX_TPU_NO_NATIVE=1).
+Both builds are the same arithmetic: the Morton order, the LBVH, the wide
+BVH, the treelet repacking, the cluster tables and the shade rows. Each
+case runs once on the numpy builders (OPTIX_TPU_NO_NATIVE=1, both
+packages) and once on the native ones, both packages building the same C++
+source with the same flags.
 """
 import numpy as np
 import pytest
@@ -49,11 +50,39 @@ def test_host_scenes_identical(scene):
 @pytest.mark.parametrize("cluster_size", [128, 256])
 @pytest.mark.parametrize("scene", sorted(SCENES))
 def test_compile_scene_bit_exact(scene, cluster_size, numpy_reference):
+    _assert_compile_scene_bit_exact(scene, cluster_size)
+
+
+@pytest.mark.parametrize("cluster_size", [128, 256])
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_compile_scene_bit_exact_native(scene, cluster_size):
+    """The same on both packages' default, the native builders (the same
+    C++ source and flags): the treelet order too is bit-equal."""
+    from tests.torch_backend_cases import reference_native_libs
+
+    reference_native_libs()
+    _assert_compile_scene_bit_exact(scene, cluster_size)
+
+
+def _assert_compile_scene_bit_exact(scene, cluster_size):
     mine, ref = SCENES[scene]
     got = compile_scene(mine(), CPU, cluster_size=cluster_size)
-    want = jax_compile(ref(), cluster_size=cluster_size, build_wide_bvh=False)
+    want = jax_compile(ref(), cluster_size=cluster_size)
     assert got.num_triangles == want.num_triangles
-    assert got.bvh is None and got.wide is None
+    # the LBVH and the wide BVH (the lockstep and BFS walks' structures)
+    b, jb = got.bvh, want.bvh
+    assert b.leaf_size == jb.leaf_size
+    for f in ("child_left", "child_right"):
+        np.testing.assert_array_equal(getattr(b, f).numpy(), np.asarray(getattr(jb, f)), err_msg=f)
+    for f in ("left_min", "left_max", "right_min", "right_max"):
+        for x, y in zip(getattr(b, f), getattr(jb, f)):
+            np.testing.assert_array_equal(x.numpy(), np.asarray(y), err_msg=f)
+    w, jw = got.wide, want.wide
+    assert (w.width, w.leaf_size, w.depth, w.compressed) == (jw.width, jw.leaf_size, jw.depth,
+                                                             jw.compressed)
+    np.testing.assert_array_equal(w.table.numpy().view(np.uint32), np.asarray(jw.table).view(np.uint32))
+    np.testing.assert_array_equal(w.leaf_rows.numpy(), np.asarray(jw.leaf_rows))
+    np.testing.assert_array_equal(w.leaf_tri0.numpy(), np.asarray(jw.leaf_tri0))
     gc, wc = got.clusters, want.clusters
     assert gc.cluster_size == wc.cluster_size and gc.instanced is False
     for f in CLUSTER_FIELDS:

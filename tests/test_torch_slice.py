@@ -53,7 +53,7 @@ def _check_port_render(jax_bench_render):
     pcs = interop.compiled_scene_from_arrays(interop.compiled_scene_arrays(jcs), CPU)
     probe = interop.probe_from_arrays(interop.probe_arrays(_sky_probe()), CPU)
     pr = make_disney_pt_renderer(pcs, probe, cam, width=w, height=h, spp=2, max_depth=4,
-                                 **BENCH_FLAGS)
+                                 traversal="cluster", **BENCH_FLAGS)
     assert pr.config.traversal == "cluster"
     frame = pr.render_n(2)
     assert frame.shape == (h, w, 4) and frame.dtype == np.uint8

@@ -115,7 +115,7 @@ def _spectral_and_rgb(cs):
     probe = build_probe(np.full((16, 32, 3), 0.5, np.float32), CPU)
     cfg = RenderConfig(width=48, height=36, samples_per_launch=8, max_depth=2, traversal="cluster")
     cam = Camera(eye=(3, 2, 4), lookat=(0, 0.4, 0), up=(0, 1, 0), fov_y=45, aspect_ratio=48 / 36)
-    sr = make_spectral_renderer(cs, probe, cam, 48, 36, 8, 2)
+    sr = make_spectral_renderer(cs, probe, cam, 48, 36, 8, 2, traversal="cluster")
     assert sr.config == cfg
     sr.render()
     img_s = sr.render()
@@ -150,11 +150,14 @@ def test_spectral_preset():
     assert PRESETS["spectral"] is make_spectral_renderer
     cs = compile_scene(scenes.open_scene(), CPU)
     r = make_spectral_renderer(cs, scenes.sky_probe(CPU), scenes.open_camera(32, 24), 32, 24, spp=1,
-                               max_depth=1)
+                               max_depth=1, traversal="cluster")
     assert r.config.traversal == "cluster" and r.config.samples_per_launch == 1
     img = r.render()
     assert img.shape == (24, 32, 3) and np.isfinite(img).all()
     assert r.render(download=False) is None and r.subframe_index == 2
-    with pytest.raises(NotImplementedError, match="not to port"):
-        make_spectral_renderer(cs, scenes.sky_probe(CPU), scenes.open_camera(32, 24), 32, 24,
-                               traversal="lockstep")
+    # the CPU default (auto_tune) is the lockstep walk, the reference's, and
+    # its frame is the cluster walk's (both exact)
+    r2 = make_spectral_renderer(cs, scenes.sky_probe(CPU), scenes.open_camera(32, 24), 32, 24,
+                                spp=1, max_depth=1)
+    assert r2.config.traversal == "lockstep"
+    np.testing.assert_array_equal(r2.render(), img)
