@@ -140,6 +140,17 @@ port's paths and checks that each went through its kernels:
      (the 14 goldens through the lockstep walk on the card against the
      port's CPU renders, which three worker processes started after the
      build compute beside the card's phases).
+ 15. the port's bench in child processes (after `dist_phases`; `--only
+     bench` runs the build and these alone): `bench_small` (`python -m
+     optixpathtracer_tpu_torch bench --small`: exit 0, the headline first
+     and above 0, the gate's 8192 rays equal to the oracle's, no jax, JAX
+     package or PIL imported) and `bench_hostile` (`python -m
+     optixpathtracer_tpu_torch.bench --scene hostile` at 1200x800 x 2 spp
+     with the gate and `measure_utilization`; then on the same scene and
+     rays `closest_hit_cluster_exec_stats`: t equal to
+     `closest_hit_cluster`'s, the executed pairs from the kernels' vis equal
+     to `SweepWork.lane_pairs`, to the child's and, on 2048 rays, to the
+     CPU's).
 
 The cull (K1) is held against its plain version and timed on both tables
 (cluster boxes and entry boxes on the city, entry boxes on the big scene)
@@ -198,6 +209,12 @@ import traceback
 
 import numpy as np
 
+try:  # shared with the port's bench: the gate, its rays, the walk, the card's FP32 rate, RMSE
+    from optixpathtracer_tpu_torch.bench import (exactness_gate, fp32_ops_per_s, mixed_rays, sqrt_img,
+                                                 sqrt_rmse, walk_of)
+except ImportError:  # outside the repository, or no torch: main() says so and exits non-zero
+    pass
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
 RMSE_TOL = 2e-3  # tests/test_goldens.py
@@ -237,7 +254,6 @@ FILE_GOLDENS = ("loft_s", "loft", "disney_cornell_s", "disney_cornell", "gltf")
 # the bench's build of the city (bench.py:1253-1255): no wide BVH, which
 # only the BFS walk and the dense scan read
 CITY_BUILD = dict(leaf_size=8, cluster_size=256, build_wide_bvh=False)
-SM_FP32_LANES = 128  # FP32 lanes of one Hopper SM, one un-fused op each per clock
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 _last_emit = [time.perf_counter()]
 
@@ -277,18 +293,6 @@ def timed(fn):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1), out
-
-
-def fp32_ops_per_s() -> float:
-    """The card's FP32 issue rate without FMA (the kernels are built with
-    --fmad=false, so every mul and add is one instruction): SMs x 128 lanes
-    x the SM clock's maximum as nvidia-smi prints it."""
-    import torch
-
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
-    return torch.cuda.get_device_properties(0).multi_processor_count * SM_FP32_LANES * mhz * 1e6
 
 
 def work_bound(name, work, peak, ms, nbytes=None, **fields):
@@ -480,34 +484,6 @@ def wall_per_call(fn, calls):
     return dict(median=float(np.median(us)), p10=float(np.percentile(us, 10)), p90=float(np.percentile(us, 90)))
 
 
-def mixed_rays(cs, hs, cam, n, seed, device):
-    """bench.py's gate rays: half camera rays, half scene-interior rays."""
-    import torch
-
-    from optixpathtracer_tpu_torch.core.math import Vec3
-
-    rng = np.random.default_rng(seed)
-    half = n // 2
-    uu, vv, ww = cam.uvw_frame()
-    sx = rng.uniform(-1, 1, (half, 1))
-    sy = rng.uniform(-1, 1, (half, 1))
-    dcam = sx * uu[None] + sy * vv[None] + ww[None]
-    ocam = np.broadcast_to(np.asarray(cam.eye, np.float32), (half, 3))
-    all_v = np.concatenate([m.vertices for m in hs.meshes])
-    lo, hi = all_v.min(0), all_v.max(0)
-    c, half_ext = (lo + hi) / 2, (hi - lo) / 2
-    obnc = c + rng.uniform(-0.85, 0.85, (half, 3)) * half_ext
-    dbnc = rng.normal(0, 1, (half, 3))
-    og = np.concatenate([ocam, obnc]).astype(np.float32)
-    dg = np.concatenate([dcam, dbnc]).astype(np.float32)
-    dg /= np.linalg.norm(dg, axis=1, keepdims=True)
-
-    def v3(a):
-        return Vec3(*(torch.as_tensor(np.ascontiguousarray(a[:, i]), device=device) for i in range(3)))
-
-    return v3(og), v3(dg)
-
-
 def sub_cull(cr, nr):
     """The first nr ray blocks of a CullResult or NodeCullResult."""
     from optixpathtracer_tpu_torch.ops.traverse_cluster import BLOCK
@@ -586,24 +562,15 @@ def time_flat(cl, rays8, cr, cr_s, peak, wavefront, card, budget_s=PLAIN_BUDGET_
     return out
 
 
-def exactness_gate(phase, cs, hs, cam, dev, n=8192):
-    """bench.py:1302-1340: the winning triangle of n mixed rays (`mixed_rays`,
-    seed 42) through the scene's own walk (hier=None) and through the other
-    walk, each equal to `reference_closest`'s; raises on any mismatch."""
-    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
-
-    cl = cs.clusters
-    og, dg = mixed_rays(cs, hs, cam, n, 42, dev)
-    fast = tc.closest_hit_cluster(cl, og, dg, 1e-3, 1e16)
-    other = tc.closest_hit_cluster(cl, og, dg, 1e-3, 1e16, hier=walk_of(cl) == "flat")
-    exact = tc.reference_closest(cl, og, dg, 1e-3, 1e16)
-    mismatch = int((fast.tri != exact.tri).sum())
-    walk_mismatch = int((fast.tri != other.tri).sum())
-    emit(phase, rays=n, walk=walk_of(cl), entries=cl.num_entries, mismatch=mismatch,
-         flat_vs_hier_mismatch=walk_mismatch, hits=int((exact.tri >= 0).sum()))
-    if mismatch or walk_mismatch:
-        raise AssertionError(f"{phase}: {mismatch} rays disagree with reference_closest, "
-                             f"{walk_mismatch} between the two walks")
+def gate_phase(phase, cs, hs, cam, dev, n=8192):
+    """The bench's exactness gate (`bench.exactness_gate`: n mixed rays
+    through both walks against `reference_closest`) as a phase; raises on
+    any mismatch."""
+    rec = exactness_gate(cs, hs, cam, dev, n)
+    emit(phase, **rec)
+    if rec["mismatch"] or rec["flat_vs_hier_mismatch"]:
+        raise AssertionError(f"{phase}: {rec['mismatch']} rays disagree with reference_closest, "
+                             f"{rec['flat_vs_hier_mismatch']} between the two walks")
 
 
 def first_bounce_and_shadows(renderer, cl, probe, dev):
@@ -718,13 +685,6 @@ def drive_slice(phase, renderer, card, counts, flags=BENCH_FLAGS, frames=SLICE_F
 
 
 WALK_KERNELS = {"node": ("cull", "closest_hier", "any_hier"), "flat": ("cull", "closest", "any")}
-
-
-def walk_of(cl):
-    """The walk `hier=None` takes on a cluster set: "node" or "flat"."""
-    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
-
-    return "node" if cl.num_entries >= tc.HIER_MIN_ENTRIES else "flat"
 
 
 @contextlib.contextmanager
@@ -1070,19 +1030,6 @@ def sampling_card_vs_cpu(dev, card):
         raise AssertionError(f"sampling_card_vs_cpu: {rmse} above {SAMPLING_TOL}")
 
 
-def _sqrt_img(a):
-    import torch
-
-    return torch.sqrt(torch.clamp(a, min=0.0))
-
-
-def _rmse(a, b) -> float:
-    """sqrt-space RMSE of two device tensors, one scalar to the host."""
-    import torch
-
-    return float(torch.sqrt(torch.mean((_sqrt_img(a) - b) ** 2)))
-
-
 def _row(name, label, run, card, **fields):
     """Run a quality row to QUALITY_TARGET: run() yields (seconds so far,
     rmse, spp) per checkpoint; returns the row, emitted."""
@@ -1120,7 +1067,7 @@ def quality_pipeline(cs, probe, dev, counts, card):
 
     ref_d = np.load(os.path.join(REPO, "scenes", "ref_city_1200x800.npz"))
     w, h = int(ref_d["width"]), int(ref_d["height"])
-    ref_sqrt = _sqrt_img(torch.as_tensor(ref_d["image"].astype(np.float32), device=dev))  # canonical
+    ref_sqrt = sqrt_img(torch.as_tensor(ref_d["image"].astype(np.float32), device=dev))  # canonical
     cam = scenes.city_camera(w, h)
     runs, rows = {}, {}
 
@@ -1136,7 +1083,7 @@ def quality_pipeline(cs, probe, dev, counts, card):
         for i in range(64):
             t0 = time.perf_counter()
             r.render(download=False)
-            v = _rmse(torch.stack(list(r.accum), -1), ref_tile)
+            v = sqrt_rmse(torch.stack(list(r.accum), -1), ref_tile)
             t += time.perf_counter() - t0
             yield t, v, (i + 1) * r.config.samples_per_launch
 
@@ -1157,7 +1104,7 @@ def quality_pipeline(cs, probe, dev, counts, card):
         warm = make_adaptive()  # warm both launch shapes (warm-up and refine)
         for _ in range(2):
             warm.render()
-            _rmse(warm.denoised_tensor(), ref_img)
+            sqrt_rmse(warm.denoised_tensor(), ref_img)
         del warm
         ar = make_adaptive()
         counts.clear()
@@ -1165,7 +1112,7 @@ def quality_pipeline(cs, probe, dev, counts, card):
         for _ in range(24):
             t0 = time.perf_counter()
             ar.render()
-            v = _rmse(ar.denoised_tensor(), ref_img)
+            v = sqrt_rmse(ar.denoised_tensor(), ref_img)
             t += time.perf_counter() - t0
             yield t, v, float(ar.count.sum()) / (w * h)
 
@@ -1194,7 +1141,7 @@ def quality_pipeline(cs, probe, dev, counts, card):
         for i in range(40):
             t0 = time.perf_counter()
             fr.render(download=False)
-            v = _rmse(torch.stack(list(fr.accum), -1)[disc], ref_disc)
+            v = sqrt_rmse(torch.stack(list(fr.accum), -1)[disc], ref_disc)
             t += time.perf_counter() - t0
             yield t, v, (i + 1) * fcfg.fovea_spp
 
@@ -1232,8 +1179,8 @@ def fovea4k_quality(cs, probe, dev, counts, card):
     w, h = int(fd["width"]), int(fd["height"])
     cx, cy = (int(v) for v in fd["gaze"])  # buffer coordinates, bottom row first
     idx = torch.as_tensor(fd["idx"].astype(np.int64), device=dev)
-    ref_disc = _sqrt_img(torch.as_tensor(fd["image"].astype(np.float32), device=dev))
-    ref_q = _sqrt_img(torch.as_tensor(qd["image"].astype(np.float32), device=dev))
+    ref_disc = sqrt_img(torch.as_tensor(fd["image"].astype(np.float32), device=dev))
+    ref_q = sqrt_img(torch.as_tensor(qd["image"].astype(np.float32), device=dev))
     cam = scenes.city_camera(w, h)
     fov = FoveationConfig(inner_radius=157, outer_radius=515, progressive=True)
     fr = make_foveated_renderer(cs, probe, cam, width=w, height=h, max_depth=4, foveation=fov,
@@ -1260,11 +1207,11 @@ def fovea4k_quality(cs, probe, dev, counts, card):
 
     def rmses():
         img = torch.stack(list(fr.accum), -1)  # (W*H, 3), canonical
-        raw = _rmse(img[idx], ref_disc)
+        raw = sqrt_rmse(img[idx], ref_disc)
         crop = img.reshape(h, w, 3)[r0:r0 + 2 * half, c0:c0 + 2 * half]
         dn = atrous_denoise(crop, g_nrm, g_alb, sigma_color=4.0, sigma_albedo=1.0, depth=g_z,
                             demodulate=True)
-        return raw, _rmse(dn[disc_rows, disc_cols], ref_disc)
+        return raw, sqrt_rmse(dn[disc_rows, disc_cols], ref_disc)
 
     fr.render(download=False)  # warm-up, then a fresh accumulation
     rmses()
@@ -1284,7 +1231,7 @@ def fovea4k_quality(cs, probe, dev, counts, card):
             break
     launches = dict(counts)
     q = torch.stack(list(fr.accum), -1).reshape(h, w, 3).reshape(h // 4, 4, w // 4, 4, 3).mean(dim=(1, 3))
-    comp = _rmse(q, ref_q)
+    comp = sqrt_rmse(q, ref_q)
     emit("fovea4k_quality", width=w, height=h, foveation=dataclasses.asdict(fov), fused=fr.fused,
          sampling="sobol", russian_roulette=True, reached=secs is not None, seconds=secs,
          frames=frames, fovea_spp=None if frames is None else frames * fov.fovea_spp,
@@ -1533,7 +1480,7 @@ def loft_slice(dev, peak, card, counts):
                                  tc.block_cull(cl, p, w, s_min, s_max), peak, f"loft {label}, 1200x800x2spp", card)
     emit("loft_kernels", **{label: {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
                                     for k, v in t.items()} for label, t in times.items()}, bit_equal=True, card=card)
-    exactness_gate("loft_exactness_gate", cs, hs, setup.camera, dev)
+    gate_phase("loft_exactness_gate", cs, hs, setup.camera, dev)
     texture_card_eq(hs, dev, card)
     return launches, times, (cs, hs, setup)
 
@@ -2313,6 +2260,130 @@ def cli_render(glb, tmp, card):
             raise AssertionError(f"cli_render {name}: the child imported {imported}")
         if frames and (len(rows) != frames or any(set(r) != METRIC_KEYS for r in rows)):
             raise AssertionError(f"cli_render {name}: metrics rows {rows}")
+
+
+# ---- the port's bench: its --small run and its hostile scene -------------
+
+BENCH_TIMEOUT_S = 300
+EXEC_CPU_RAYS = 2048  # rays of each utilisation set whose executed pairs are also counted on the CPU
+
+
+def run_bench(phase, argv, card):
+    """The port's bench in a child process started outside the repository
+    (the package on PYTHONPATH): argv after `python`. Returns (stdout JSON
+    rows, stderr detail, modules of jax / the JAX package / PIL imported,
+    wall seconds); raises unless it exits 0 with its headline and detail."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [REPO, os.environ.get("PYTHONPATH")])))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *argv], cwd=tmp, env=env, capture_output=True,
+                              text=True, timeout=BENCH_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    imported = [json.loads(ln.split(" ", 1)[1]) for ln in proc.stdout.splitlines()
+                if ln.startswith("IMPORTED ")]
+    details = [json.loads(ln)["detail"] for ln in proc.stderr.splitlines() if ln.startswith('{"detail"')]
+    if proc.returncode != 0 or not rows or not details:
+        emit(phase, argv=argv, returncode=proc.returncode, stdout_tail=proc.stdout[-2000:],
+             stderr_tail=proc.stderr[-4000:], card=card)
+        raise AssertionError(f"{phase}: the bench exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return rows, details[-1], imported, wall
+
+
+def check_bench_headline(phase, rows, detail, label):
+    """The headline first, under bench.py's metric string, above 0 and
+    gated by the oracle with no ray apart; the timed frames through the
+    kernels of the walk the scene takes."""
+    head = rows[0]
+    want = f"Mrays/s incoherent (Disney PT, depth 4, {label}, 1200x800)"
+    if head.get("metric") != want or not head.get("value", 0) > 0:
+        raise AssertionError(f"{phase}: headline {head}")
+    if detail["gate_mismatch_rays"] != 0 or detail["quality_gated_out"]:
+        raise AssertionError(f"{phase}: gate {detail['gate']}, overflow {detail['overflow']}")
+    check_walk(phase, detail["launches"], detail["walk"])
+
+
+def bench_small(card):
+    """`python -m optixpathtracer_tpu_torch bench --small` as a user types
+    it: exit 0, the headline first and above 0, the gate's 8192 rays equal
+    to the oracle's, no jax, JAX package or PIL imported. Returns the timed
+    frames' launches."""
+    rows, detail, imported, wall = run_bench("bench_small", ["-c", _CHILD, json.dumps(["bench", "--small"])],
+                                             card)
+    emit("bench_small", wall_s=wall, rows=rows, detail=detail, imported=imported, card=card)
+    check_bench_headline("bench_small", rows, detail, "150k-tri city")
+    if imported != [[]]:
+        raise AssertionError(f"bench_small: the child imported {imported}")
+    return detail["launches"]
+
+
+def exec_checks(cl, cl_cpu, cam, dev, util):
+    """`closest_hit_cluster_exec_stats` on `measure_utilization`'s two ray
+    sets: its t against `closest_hit_cluster`'s, its executed pairs (the
+    kernels' vis) against `SweepWork.lane_pairs` of the same rays and
+    against the bench child's number (util), and on the first
+    EXEC_CPU_RAYS rays against the same function on the CPU (SweepWork's
+    visits, no kernel)."""
+    import torch
+
+    from optixpathtracer_tpu_torch import bench
+    from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+
+    cpu = torch.device("cpu")
+    c = cl.cluster_size
+    ocam, dcam, ob, db = bench.utilization_rays(cl, cam)
+    out = {}
+    for name, o, d in (("camera", ocam, dcam), ("bounce_sorted", ob, db)):
+        ov, dv = bench.v3(o, dev), bench.v3(d, dev)
+        t_exec, pairs = tc.closest_hit_cluster_exec_stats(cl, ov, dv, 1e-3, 1e16)
+        rec = tc.closest_hit_cluster(cl, ov, dv, 1e-3, 1e16)
+        t_equal = torch.equal(torch.where(rec.tri < 0, tc.BIG_T, t_exec[: o.shape[0]]), rec.t)
+        if walk_of(cl) == "node":
+            work = tc.sweep_work_hier(cl.rows, cl.xf_inv, cl.node_tables,
+                                      tc.block_cull_nodes(cl, ov, dv, 1e-3, 1e16), c)
+        else:
+            work = tc.sweep_work(cl.rows, cl.xf_inv, tc.block_cull(cl, ov, dv, 1e-3, 1e16), c)
+        k = EXEC_CPU_RAYS
+        t_k, pairs_k = tc.closest_hit_cluster_exec_stats(cl, bench.v3(o[:k], dev), bench.v3(d[:k], dev))
+        t0 = time.perf_counter()
+        t_cpu, pairs_cpu = tc.closest_hit_cluster_exec_stats(cl_cpu, bench.v3(o[:k], cpu),
+                                                             bench.v3(d[:k], cpu))
+        out[name] = dict(rays=o.shape[0], exec_pair_evals=pairs, lane_pairs=work.lane_pairs,
+                         visits=work.visits, bench_exec_pair_evals=util[name]["exec_pair_evals"],
+                         t_equal=t_equal, cpu_rays=k, exec_pair_evals_card=pairs_k,
+                         exec_pair_evals_cpu=pairs_cpu, cpu_s=time.perf_counter() - t0,
+                         t_card_equal_cpu=torch.equal(t_k.cpu(), t_cpu))
+    return out
+
+
+def bench_hostile(dev, card):
+    """`python -m optixpathtracer_tpu_torch.bench --scene hostile` at full
+    size (the 150k-triangle terrain and rotated city, 1200x800 x 2 spp, the
+    gate and `measure_utilization`), then `exec_checks` on the same scene
+    and rays in this process: t bit for bit, the card's executed pairs
+    equal to SweepWork's count, to the child's and, on EXEC_CPU_RAYS rays,
+    to the CPU's. Returns the timed frames' launches."""
+    import torch
+
+    from optixpathtracer_tpu_torch import bench, scenes
+    from optixpathtracer_tpu_torch.builder import compile_scene
+
+    rows, detail, _, wall = run_bench(
+        "bench_hostile", ["-m", "optixpathtracer_tpu_torch.bench", "--scene", "hostile"], card)
+    t0 = time.perf_counter()
+    hs = scenes.build_hostile_scene()
+    cl = compile_scene(hs, dev, **bench.BUILD).clusters
+    cl_cpu = compile_scene(hs, torch.device("cpu"), **bench.BUILD).clusters
+    checks = exec_checks(cl, cl_cpu, scenes.city_camera(WIDTH, HEIGHT), dev, detail["utilization"])
+    emit("bench_hostile", wall_s=wall, checks_s=time.perf_counter() - t0, rows=rows, detail=detail,
+         entries=cl.num_entries, walk=walk_of(cl), exec_checks=checks, card=card)
+    check_bench_headline("bench_hostile", rows, detail, "150k-tri hostile terrain+rotated city")
+    for name, ck in checks.items():
+        if not (ck["t_equal"] and ck["t_card_equal_cpu"]
+                and ck["exec_pair_evals"] == ck["lane_pairs"] == ck["bench_exec_pair_evals"]
+                and ck["exec_pair_evals_card"] == ck["exec_pair_evals_cpu"] > 0):
+            raise AssertionError(f"bench_hostile {name}: {ck}")
+    return detail["launches"]
 
 
 # ---- the other presets: hello_raytracing, whitted, spectral -------------
@@ -3334,9 +3405,10 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description="chip smoke test of the port on one NVIDIA GPU")
-    parser.add_argument("--only", choices=["backends"], default=None,
+    parser.add_argument("--only", choices=["backends", "bench"], default=None,
                         help="backends: the build, the city and the phases of the backends "
-                             "without a kernel and the native builders, then exit")
+                             "without a kernel and the native builders, then exit; bench: "
+                             "the build and the bench's phases (bench_small, bench_hostile)")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3378,6 +3450,8 @@ def main(argv=None) -> int:
             if "registers" in ln or "spill" in ln or "entry function" in ln])
     emit("build", seconds=time.perf_counter() - t0, sources=builds,
          host_libraries={n: dict(gxx_seconds=host_build.build_seconds[n]) for n in host_libs})
+    if args.only == "bench":  # no golden is rendered
+        return _phases(args, dev, card, smi, None)
     # the goldens' CPU lockstep renders run beside the card's phases
     cpu_pool, cpu_goldens = start_cpu_goldens()
     try:
@@ -3401,6 +3475,12 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
     hs = scenes.build_city_scene()
     if args.only == "backends":
         emit("backend_phases", seconds=backend_phases(hs, dev, card, cpu_goldens), card=card)
+        print(smi, flush=True)
+        return 0
+    if args.only == "bench":
+        t1 = time.perf_counter()
+        runs = {"bench_small": bench_small(card), "bench_hostile": bench_hostile(dev, card)}
+        emit("bench_phases", seconds=time.perf_counter() - t1, launches=runs, card=card)
         print(smi, flush=True)
         return 0
     cs = compile_scene(hs, dev, **CITY_BUILD)
@@ -3476,7 +3556,7 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
     errs.update({k: v["max_abs_err"] for k, v in timing.items()})
     del cr1, cr_sh, rays8_1, hit1
 
-    exactness_gate("exactness_gate", cs, hs, cam, dev)
+    gate_phase("exactness_gate", cs, hs, cam, dev)
     route_ties(cl, o1, d1, cfg, dev, card)  # C.7: the walks' exact-t ties, counted
 
     # ---- goldens on the card ---------------------------------------------
@@ -3500,6 +3580,10 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
          **route_turns(renderer, tc.launch_counts), card=card)
     # ---- strip and lane sharding over torch.distributed, on this card -----
     dist_runs, dist_per_rank = dist_phases(cs, probe, dev, card)
+    torch.cuda.empty_cache()
+    # ---- the port's bench in child processes: --small, then the hostile
+    # scene at full size with its executed-pair counts held in this process
+    bench_runs = {"bench_small": bench_small(card), "bench_hostile": bench_hostile(dev, card)}
     torch.cuda.empty_cache()
     del renderer, o, d, cr, cr_s
     torch.cuda.empty_cache()
@@ -3732,7 +3816,7 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
             "cornell": cornell_launches, **inst_runs, "fused_shadows": fused_launches,
             "hello": hello_launches, "whitted": whitted_launches, "spectral": spectral_launches,
             "demand_loft": demand_loft_launches, "demand_big": demand_big_launches, "view": view_launches,
-            **dist_runs, "jpeg_scene": jpeg_launches, "big_slice": big_launches}
+            **dist_runs, **bench_runs, "jpeg_scene": jpeg_launches, "big_slice": big_launches}
     for run in runs.values():
         for name, k in run.items():
             launches[name] = launches.get(name, 0) + k

@@ -14,8 +14,9 @@ N tiles with 4 mip levels), `foveated` (`--gaze`), `hello_raytracing`,
 reference) and `spectral`, and `--adaptive`, on OBJ, glTF (`--instanced`:
 the multi-prototype TLAS) and the procedural boxes. `view` serves the
 progressive `disney_pt` (or `foveated`) renderer to a browser
-(`--port 0` picks a free port, `--max-frames` bounds the loop). `bench`
-is not ported yet and raises NotImplementedError naming ROADMAP A.6.
+(`--port 0` picks a free port, `--max-frames` bounds the loop). `bench
+[--small] [--cpu]` runs the port's benchmark (`optixpathtracer_tpu_torch.bench`,
+on the card unless `--cpu`) and returns its exit code.
 """
 from __future__ import annotations
 
@@ -317,7 +318,9 @@ def cmd_view(args: argparse.Namespace) -> int:
 
 
 def cmd_bench(args: argparse.Namespace) -> int:
-    raise NotImplementedError("bench (the port's benchmark) is not ported yet (ROADMAP A.6)")
+    from . import bench
+
+    return bench.main(["--small"] * args.small + ["--cpu"] * args.cpu)
 
 
 def main(argv=None) -> int:
@@ -337,8 +340,9 @@ def main(argv=None) -> int:
     p_view.add_argument("--max-frames", type=int, default=None, dest="max_frames")
     p_view.set_defaults(fn=cmd_view)
 
-    p_bench = sub.add_parser("bench", help="run the throughput benchmark (not ported yet)")
+    p_bench = sub.add_parser("bench", help="run the throughput benchmark")
     p_bench.add_argument("--small", action="store_true")
+    p_bench.add_argument("--cpu", action="store_true", help="run on the CPU (no CUDA device)")
     p_bench.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)

@@ -955,6 +955,34 @@ def closest_hit_cluster(cs: ClusterSet, o: Vec3, d: Vec3, t_min=0.001, t_max=1e1
     return _hit_record(cs, o, d, t, tri)
 
 
+def closest_hit_cluster_exec_stats(cs: ClusterSet, o: Vec3, d: Vec3, t_min=0.001, t_max=1e16,
+                                   hier: bool | None = None):
+    """Closest-hit sweep returning (t, exec_pair_evals): the sweep's padded
+    t (NB,) and the EXECUTED ray-triangle pair count, from the kernels' own
+    per-block visit counters. Same walk and routing as
+    `closest_hit_cluster` (hier=None: the node walk from HIER_MIN_ENTRIES).
+
+    On a card the count is Σ vis of K2 / K4a; on the CPU, where the plain
+    versions return no vis, it is `sweep_work` / `sweep_work_hier`'s visits,
+    which count the same visits. Unit: a visit here is one 16-ray sub-block
+    running one member, so the count is Σ vis x 16 x C (= SweepWork.lane_pairs
+    of closest-hit), where the reference counts (block // groups) x C per
+    visit of its 128-ray (or 64-ray) blocks. A Python int, exact at any size
+    (the reference's f32 sum rounds above 2**24)."""
+    if hier is None:
+        hier = cs.num_entries >= HIER_MIN_ENTRIES
+    c = cs.cluster_size
+    if hier:
+        args = (cs.rows, cs.xf_inv, cs.node_tables, block_cull_nodes(cs, o, d, t_min, t_max), c)
+        sweep, work = closest_hier_sweep, sweep_work_hier
+    else:
+        args = (cs.rows, cs.xf_inv, block_cull(cs, o, d, t_min, t_max), c)
+        sweep, work = closest_sweep, sweep_work
+    t, _, vis = sweep(*args)
+    visits = work(*args).visits if vis is None else int(vis.sum(dtype=torch.int64))
+    return t, visits * (BLOCK // 8) * c
+
+
 def any_hit_cluster(cs: ClusterSet, o: Vec3, d: Vec3, t_min=0.01, t_max=1e16,
                     hier: bool | None = None):
     """Occlusion query: (occluded (N,) bool, overflow scalar == 0 always).

@@ -1,9 +1,10 @@
 """Procedural scenes, scenes from files and render setups, rebuilt without jax.
 
 `build_city_scene` is the bench's 150k-triangle city (bench.py
-`build_city_scene`, `_unit_box`) and `build_big_scene` its terrain-apron
-scale scene (bench.py `build_big_scene`), made from the same seeds with the
-same numpy calls, so they are the same triangle soups. `loft_config` is
+`build_city_scene`, `_unit_box`), `build_big_scene` its terrain-apron
+scale scene (bench.py `build_big_scene`) and `build_hostile_scene` its
+`--scene hostile` (terrain and a rotated city), made from the same seeds
+with the same numpy calls, so they are the same triangle soups. `loft_config` is
 bench.py's `--scene loft` setup (camera, probe, flags) for the textured
 interior `scenes/loft.obj`. The `open_*`, `cornell_*`, `loft` and `gltf`
 functions are the golden setups of tests/golden_scenes.py (`_open_scene`,
@@ -55,6 +56,35 @@ def _unit_box():
     return v, f
 
 
+BUCKET_COLORS = np.array(
+    [[0.8, 0.3, 0.2], [0.2, 0.7, 0.3], [0.25, 0.35, 0.8], [0.8, 0.75, 0.3],
+     [0.6, 0.6, 0.6], [0.8, 0.5, 0.2], [0.4, 0.2, 0.6], [0.7, 0.7, 0.9]],
+    np.float32,
+)
+
+
+def _add_box_buckets(hs: HostScene, rng, centers, heights, widths, base_y, rot=None) -> None:
+    """The city's boxes as one fused mesh per colour bucket (bench.py's
+    loop, the same draws in the same order): box i of footprint widths[i]
+    stands at height base_y[i] over centers[i]; rot turns the whole set."""
+    bucket = rng.integers(0, len(BUCKET_COLORS), len(centers))
+    unit_v, unit_f = _unit_box()
+    for b in range(len(BUCKET_COLORS)):
+        idx = np.nonzero(bucket == b)[0]
+        if len(idx) == 0:
+            continue
+        k = len(idx)
+        scale = np.stack([widths[idx, 0], heights[idx] * 0.5, widths[idx, 1]], -1)
+        offset = np.stack([centers[idx, 0], base_y[idx] + heights[idx] * 0.5, centers[idx, 1]], -1)
+        verts = (unit_v[None] * scale[:, None, :] + offset[:, None, :]).reshape(-1, 3)
+        if rot is not None:
+            verts = verts @ rot.T
+        faces = unit_f[None] + (np.arange(k)[:, None, None] * len(unit_v))
+        mat = make_material(color=tuple(BUCKET_COLORS[b]), roughness=float(rng.uniform(0.3, 0.9)))
+        hs.add_mesh(Mesh(vertices=verts.astype(np.float32),
+                         indices=faces.reshape(-1, 3).astype(np.int32), material=mat))
+
+
 def build_city_scene(n_boxes=12500, seed=0) -> HostScene:
     """~12.5k boxes x 12 tris = 150k triangles, lost_empire scale."""
     rng = np.random.default_rng(seed)
@@ -64,30 +94,53 @@ def build_city_scene(n_boxes=12500, seed=0) -> HostScene:
     centers = rng.uniform(-50, 50, size=(n_boxes, 2)).astype(np.float32)
     heights = rng.gamma(2.0, 1.2, size=n_boxes).astype(np.float32) + 0.3
     widths = rng.uniform(0.2, 0.9, size=(n_boxes, 2)).astype(np.float32)
+    _add_box_buckets(hs, rng, centers, heights, widths, np.zeros(n_boxes, np.float32))
+    return hs
 
-    n_buckets = 8
-    bucket = rng.integers(0, n_buckets, n_boxes)
-    base = np.array(
-        [[0.8, 0.3, 0.2], [0.2, 0.7, 0.3], [0.25, 0.35, 0.8], [0.8, 0.75, 0.3],
-         [0.6, 0.6, 0.6], [0.8, 0.5, 0.2], [0.4, 0.2, 0.6], [0.7, 0.7, 0.9]],
-        np.float32,
-    )
-    unit_v, unit_f = _unit_box()
-    for b in range(n_buckets):
-        idx = np.nonzero(bucket == b)[0]
-        if len(idx) == 0:
-            continue
-        k = len(idx)
-        scale = np.stack([widths[idx, 0], heights[idx] * 0.5, widths[idx, 1]], -1)
-        offset = np.stack([centers[idx, 0], heights[idx] * 0.5, centers[idx, 1]], -1)
-        verts = unit_v[None] * scale[:, None, :] + offset[:, None, :]
-        faces = unit_f[None] + (np.arange(k)[:, None, None] * len(unit_v))
-        mat = make_material(color=tuple(base[b]), roughness=float(rng.uniform(0.3, 0.9)))
-        hs.add_mesh(Mesh(
-            vertices=verts.reshape(-1, 3).astype(np.float32),
-            indices=faces.reshape(-1, 3).astype(np.int32),
-            material=mat,
-        ))
+
+def build_hostile_scene(n_boxes=9800, seed=3, terrain_grid=(256, 64)) -> HostScene:
+    """bench.py `build_hostile_scene`, the bench's `--scene hostile`:
+    nothing axis-aligned. A fractal heightfield on an anisotropic grid
+    (256x64: 32,130 sliver triangles) plus the city rotated 30 degrees about
+    Y, each box standing on the terrain under its rotated centre. ~150k
+    triangles."""
+    rng = np.random.default_rng(seed)
+    hs = HostScene()
+
+    # terrain: anisotropic heightfield grid
+    gx, gz = terrain_grid
+    xs = np.linspace(-65, 65, gx, dtype=np.float32)
+    zs = np.linspace(-65, 65, gz, dtype=np.float32)
+    xg, zg = np.meshgrid(xs, zs, indexing="ij")
+    h = np.zeros_like(xg)
+    for octave in range(4):
+        f = 0.02 * (2 ** octave)
+        px = rng.uniform(0, 100)
+        pz = rng.uniform(0, 100)
+        h += (np.sin(xg * f + px) * np.cos(zg * f * 1.7 + pz)) * (2.2 / (octave + 1))
+    verts = np.stack([xg, h, zg], -1).reshape(-1, 3).astype(np.float32)
+    ii, jj = np.meshgrid(np.arange(gx - 1), np.arange(gz - 1), indexing="ij")
+    q = (ii * gz + jj).ravel()
+    quads = np.stack([q, q + 1, q + gz, q + gz + 1], -1)
+    tris = np.concatenate([quads[:, [0, 1, 2]], quads[:, [2, 1, 3]]], 0).astype(np.int32)
+    hs.add_mesh(Mesh(vertices=verts, indices=tris,
+                     material=make_material(color=(0.45, 0.5, 0.35), roughness=0.8)))
+
+    # the city rotated 30 degrees about Y, standing on the terrain
+    th = np.deg2rad(30.0)
+    rot = np.array([[np.cos(th), 0, np.sin(th)],
+                    [0, 1, 0],
+                    [-np.sin(th), 0, np.cos(th)]], np.float32)
+    centers = rng.uniform(-48, 48, size=(n_boxes, 2)).astype(np.float32)
+    heights = rng.gamma(2.0, 1.2, size=n_boxes).astype(np.float32) + 0.3
+    widths = rng.uniform(0.2, 0.9, size=(n_boxes, 2)).astype(np.float32)
+    # ground height at each box's rotated centre (nearest grid sample,
+    # clamped to the terrain's edge): the rotation keeps y and moves x, z
+    rx = centers[:, 0] * np.cos(th) + centers[:, 1] * np.sin(th)
+    rz = -centers[:, 0] * np.sin(th) + centers[:, 1] * np.cos(th)
+    cx = np.clip(np.rint((rx - xs[0]) / (xs[1] - xs[0])).astype(np.int64), 0, gx - 1)
+    cz = np.clip(np.rint((rz - zs[0]) / (zs[1] - zs[0])).astype(np.int64), 0, gz - 1)
+    _add_box_buckets(hs, rng, centers, heights, widths, h[cx, cz], rot)
     return hs
 
 
