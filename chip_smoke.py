@@ -139,7 +139,9 @@ port's paths and checks that each went through its kernels:
      card), `bfs_city`, `dense_loft`, `oracle_loft` and `lockstep_goldens`
      (the 14 goldens through the lockstep walk on the card against the
      port's CPU renders, which three worker processes started after the
-     build compute beside the card's phases).
+     build compute beside the card's phases; both walks card against CPU
+     within LOCKSTEP_GOLDEN_TOL, or the setups of ROADMAP C.9 within their
+     pinned limits, `C9_PINNED`: `c9_card_vs_cpu`).
  15. the port's bench in child processes (after `dist_phases`; `--only
      bench` runs the build and these alone): `bench_small` (`python -m
      optixpathtracer_tpu_torch bench --small`: exit 0, the headline first
@@ -151,6 +153,19 @@ port's paths and checks that each went through its kernels:
      `closest_hit_cluster`'s, the executed pairs from the kernels' vis equal
      to `SweepWork.lane_pairs`, to the child's and, on 2048 rays, to the
      CPU's).
+ 16. the scripts beside the package as the port's modules (`scripts`, after
+     the bench; `--only scripts` runs the build and this alone), each as
+     `python -m` runs it in one child process (no jax, JAX package or PIL
+     imported; each run's launches counted from 0): `tools.fps_harness` at
+     1200x800 (10 foveated, 3 uniform frames: both TSVs' columns and rows,
+     foveated frames tracing fewer rays than uniform ones, both fps and
+     their ratio), `tools.interactive_session --frames 16`,
+     `tools.make_reference` at 600x400 with 8 and 64 spp (RMSE against
+     scenes/ref_city_600x400.npz falling with spp, seconds per spp),
+     `tools.make_reference_4k --disc-spp 16 --skip-q` (the disc's pixels
+     equal to scenes/ref_city_4k_fovea.npz's, its RMSE there) and the four
+     examples at their own sizes (a PNG of its size, not black, read
+     without PIL; the demand demo's resident pages below the texture's).
 
 The cull (K1) is held against its plain version and timed on both tables
 (cluster boxes and entry boxes on the city, entry boxes on the big scene)
@@ -3004,6 +3019,198 @@ def jpeg_scene(dev, card, counts):
     return launches
 
 
+# ---- the scripts beside the package, as modules of the port ---------------
+
+SCRIPTS_TIMEOUT_S = 420
+_SCRIPT_CHILD = """import json, runpy, sys
+from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
+rc = 0
+for module, argv in json.loads(sys.argv[1]):
+    tc.launch_counts.clear()
+    sys.argv = [module] + argv
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        rc = rc or (e.code or 0)
+    print("LAUNCHES " + json.dumps([module, argv, dict(tc.launch_counts)]), flush=True)
+print("IMPORTED " + json.dumps([m for m in ("jax", "optixpathtracer_tpu", "PIL") if m in sys.modules]))
+sys.exit(rc)
+"""
+FPS_FRAMES, FPS_UNI_FRAMES = 10, 3  # tools/fps_harness.py's defaults (1200x800, depth 4)
+SESSION_FRAMES = 16
+REF_SPP = (8, 64)  # make_reference at 600x400: its RMSE must fall from the first to the second
+DISC_SPP = 16  # make_reference_4k's fovea disc
+EXAMPLE_SHAPES = {"render_loft": (320, 480), "render_cornell": (256, 256), "render_foveated": (360, 480),
+                  "demand_textures_demo": (400, 640)}  # the examples' own sizes, (H, W)
+
+
+def _npz_rmse(got, want_path):
+    """sqrt-space RMSE of an image array against a committed npz's image,
+    and the npz's keys."""
+    from optixpathtracer_tpu_torch import scenes
+
+    want = np.load(want_path)
+    return scenes.golden_rmse(got.astype(np.float32), want["image"].astype(np.float32)), set(want.files)
+
+
+def _tool_outputs(stdout):
+    """Each run's stdout lines and launches: [(module, argv, lines, launches)]."""
+    runs, lines = [], []
+    for ln in stdout.splitlines():
+        if ln.startswith("LAUNCHES "):
+            module, argv, launches = json.loads(ln.split(" ", 1)[1])
+            runs.append((module, argv, lines, launches))
+            lines = []
+        else:
+            lines.append(ln)
+    return runs
+
+
+def _seconds_per_spp(lines, prefix):
+    """Seconds per spp from a reference generator's '<prefix> N spp in X s' line."""
+    for ln in lines:
+        if ln.startswith(prefix) and " spp in " in ln:
+            n, sec = ln[len(prefix):].split(" spp in ")
+            return float(sec.rstrip("s")) / int(n.split()[-1])
+    raise AssertionError(f"no '{prefix}' timing line in {lines[-5:]}")
+
+
+def scripts_phase(card):
+    """The eight scripts beside the package as the port's modules, each as
+    `python -m` runs it, in one child process on the card (its launches
+    counted from 0 before each run and read after it; no jax, JAX package or
+    PIL imported): `tools.fps_harness` at its defaults (1200x800, 10
+    foveated and 3 uniform frames: the TSVs' columns and rows, every frame's
+    rays above 0, each foveated frame tracing fewer rays than each uniform
+    one, both modes' fps and their ratio), `tools.interactive_session
+    --frames 16`, `tools.make_reference` at 600x400 with --spp 8 and --spp 64
+    (the committed npz's keys; sqrt-space RMSE against
+    scenes/ref_city_600x400.npz, which must fall from 8 to 64 spp; seconds
+    per spp), `tools.make_reference_4k --disc-spp 16 --skip-q` (the disc's
+    pixels and RMSE against scenes/ref_city_4k_fovea.npz; its box downsample
+    checked here on a small array), and the four examples at their own
+    sizes (a PNG of its size, not black, read by the port's decoder; the
+    demand demo's resident pages below the texture's). Returns {path:
+    launches}."""
+    from optixpathtracer_tpu_torch.io.image import read_rgb8
+    from optixpathtracer_tpu_torch.tools.make_reference_4k import box_downsample
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def j(*parts):
+            return os.path.join(tmp, *parts)
+
+        plan = [
+            ("optixpathtracer_tpu_torch.tools.fps_harness", ["--out", j("fps")]),
+            ("optixpathtracer_tpu_torch.tools.interactive_session",
+             ["--frames", str(SESSION_FRAMES), "--out", j("session.tsv")]),
+            *[("optixpathtracer_tpu_torch.tools.make_reference", ["--spp", str(n), "--out-dir", j(f"ref{n}")])
+              for n in REF_SPP],
+            ("optixpathtracer_tpu_torch.tools.make_reference_4k",
+             ["--disc-spp", str(DISC_SPP), "--skip-q", "--out-dir", j("ref4k")]),
+            *[(f"optixpathtracer_tpu_torch.examples.{name}", [j(f"{name}.png")]) for name in EXAMPLE_SHAPES],
+        ]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _SCRIPT_CHILD, json.dumps(plan)], cwd=REPO,
+                              capture_output=True, text=True, timeout=SCRIPTS_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        runs = _tool_outputs(proc.stdout)
+        imported = [json.loads(ln.split(" ", 1)[1]) for ln in proc.stdout.splitlines()
+                    if ln.startswith("IMPORTED ")]
+        if proc.returncode != 0 or len(runs) != len(plan) or imported != [[]]:
+            emit("scripts", returncode=proc.returncode, imported=imported, stdout_tail=proc.stdout[-3000:],
+                 stderr_tail=proc.stderr[-3000:], card=card)
+            raise AssertionError(f"scripts: exit {proc.returncode}, {len(runs)} of {len(plan)} runs, "
+                                 f"imported {imported}: {proc.stderr[-2000:]}")
+        out, launches, lines_of = {}, {}, {}
+        for module, argv, lines, counts in runs:
+            name = module.rsplit(".", 1)[1]
+            key = name if name != "make_reference" else f"make_reference_{argv[1]}spp"
+            launches[key], lines_of[key] = counts, lines
+            if counts.get("cull", 0) <= 0 or counts.get("closest", 0) + counts.get("closest_hier", 0) <= 0:
+                raise AssertionError(f"scripts: {key} launched {counts}")
+            out[key] = dict(stdout_tail=lines[-3:])
+
+        # fps_harness: the reference's two files
+        with open(j("fps", "fps_frames.tsv")) as f:
+            frames = [ln.rstrip("\n").split("\t") for ln in f]
+        with open(j("fps", "fps_summary.tsv")) as f:
+            summary = [ln.rstrip("\n").split("\t") for ln in f]
+        fov = [r for r in frames[1:] if r[1] == "fov"]
+        uni = [r for r in frames[1:] if r[1] == "uni"]
+        fov_rays, uni_rays = [float(r[7]) for r in fov], [float(r[7]) for r in uni]
+        fov_fps = [1.0 / float(r[3]) for r in fov]
+        uni_fps = [1.0 / float(r[3]) for r in uni]
+        out["fps_harness"].update(
+            fov_fps_mean=float(np.mean(fov_fps)), uni_fps_mean=float(np.mean(uni_fps)),
+            fov_over_uni=float(np.mean(fov_fps) / np.mean(uni_fps)), fov_fps=fov_fps, uni_fps=uni_fps,
+            fov_rays=fov_rays, uni_rays=uni_rays, width=1200, height=800)
+        if (frames[0] != ["i", "mode", "state_s", "render_s", "display_s", "cursorX", "cursorY", "rays"]
+                or len(fov) != FPS_FRAMES or len(uni) != FPS_UNI_FRAMES
+                or summary[0] != ["city_fov", "city_uni"] or len(summary) != 1 + FPS_FRAMES
+                or min(fov_rays + uni_rays) <= 0 or max(fov_rays) >= min(uni_rays)):
+            raise AssertionError(f"scripts: fps_harness files {frames[:2]}, {summary[:2]}, "
+                                 f"rays {fov_rays} / {uni_rays}")
+
+        # interactive_session: the committed session's columns, one row a frame
+        with open(j("session.tsv")) as f:
+            session = [ln.rstrip("\n").split("\t") for ln in f]
+        with open(os.path.join(REPO, "docs", "sessions", "interactive_640x480.tsv")) as f:
+            header = f.readline().rstrip("\n").split("\t")
+        rec = next(json.loads(ln) for ln in lines_of["interactive_session"] if ln.startswith('{"metric"'))
+        out["interactive_session"].update(fps=rec["value"], render_ms_mean=rec["render_ms_mean"],
+                                          display_ms_mean=rec["display_ms_mean"])
+        if session[0] != header or len(session) != 1 + SESSION_FRAMES or min(float(r[6]) for r in session[1:]) <= 0:
+            raise AssertionError(f"scripts: interactive_session rows {session[:2]} ({len(session)})")
+
+        # make_reference: RMSE against the committed reference falls with spp
+        ref = os.path.join(REPO, "scenes", "ref_city_600x400.npz")
+        rmse = {}
+        for n in REF_SPP:
+            d = np.load(j(f"ref{n}", "ref_city_600x400.npz"))
+            rmse[n], keys = _npz_rmse(d["image"], ref)
+            key = f"make_reference_{n}spp"
+            out[key].update(rmse_vs_committed=rmse[n], spp=int(d["spp"]),
+                            s_per_spp=_seconds_per_spp(lines_of[key], "rendered"))
+            if set(d.files) != keys or int(d["spp"]) != n:
+                raise AssertionError(f"scripts: {key} keys {d.files} (want {sorted(keys)}), spp {d['spp']}")
+        if not rmse[REF_SPP[1]] < rmse[REF_SPP[0]]:
+            raise AssertionError(f"scripts: make_reference RMSE {rmse} does not fall with spp")
+
+        # make_reference_4k: the disc against the committed one
+        d = np.load(j("ref4k", "ref_city_4k_fovea.npz"))
+        want = np.load(os.path.join(REPO, "scenes", "ref_city_4k_fovea.npz"))
+        disc_rmse, keys = _npz_rmse(d["image"], os.path.join(REPO, "scenes", "ref_city_4k_fovea.npz"))
+        # the 4x4 box downsample on a small array, against loops
+        small = np.arange(8 * 12 * 3, dtype=np.float64).reshape(8, 12, 3) ** 1.5
+        loops = np.array([[[small[4 * y:4 * y + 4, 4 * x:4 * x + 4, c].mean() for c in range(3)]
+                           for x in range(3)] for y in range(2)])
+        out["make_reference_4k"].update(disc_rmse_vs_committed=disc_rmse, disc_pixels=int(len(d["idx"])),
+                                        s_per_spp=_seconds_per_spp(lines_of["make_reference_4k"], "disc:"),
+                                        downsample_max_err=float(np.abs(box_downsample(small) - loops).max()))
+        # equal idx: disc_pixels' selection and 16x8 tile order as the committed disc's
+        if (set(d.files) != keys or not np.array_equal(d["idx"], want["idx"])
+                or not np.allclose(box_downsample(small), loops, rtol=1e-12, atol=0)
+                or not np.isfinite(disc_rmse)):
+            raise AssertionError(f"scripts: make_reference_4k keys {d.files}, idx equal "
+                                 f"{np.array_equal(d['idx'], want['idx'])}, RMSE {disc_rmse}")
+
+        # the examples: a PNG of its size, not black, read without PIL
+        for name, shape in EXAMPLE_SHAPES.items():
+            pngs = [j(f"{name}.png")] + ([j(f"{name}_denoised.png")] if name == "render_loft" else [])
+            for png in pngs:
+                img = read_rgb8(png)
+                out[name].setdefault("png", []).append(dict(shape=list(img.shape), mean=float(img.mean())))
+                if img.shape != (*shape, 3) or not img.mean() > 1.0:
+                    raise AssertionError(f"scripts: {png} {img.shape}, mean {img.mean()}")
+        res = next(ln for ln in lines_of["demand_textures_demo"] if ln.startswith("resident "))
+        resident, total = (int(x) for x in res.split()[1:4:2])
+        out["demand_textures_demo"].update(resident_pages=resident, total_pages=total)
+        if not 0 < resident < total:
+            raise AssertionError(f"scripts: demand demo {res}")
+    emit("scripts", wall_s=wall, runs=out, launches=launches, imported=imported, card=card)
+    return launches
+
+
 # ---- the traversal backends without a kernel, and the native builders -----
 
 GOLDEN_NAMES = ("disney_open_s", "disney_open", "disney_cornell_s", "disney_cornell", "loft_s",
@@ -3013,26 +3220,23 @@ LOCKSTEP_GOLDEN_TOL = 1e-5  # sqrt-space RMSE, the card's lockstep render agains
 # ... or, where the card's shading already parts from the CPU's on the
 # cluster walk, the lockstep render parts by that much and no more
 WALK_ADDS_TOL = 1e-6
+# ROADMAP C.9: the setups whose card render parts from the CPU's by more than
+# LOCKSTEP_GOLDEN_TOL after the repairs (the probe tables built on the host,
+# the spectral band's divisor a device scalar, the hero sums in the CPU's
+# order, one writer per pixel in the foveated splat). What remains is the
+# CUDA math library's ulps against ATen's CPU kernels on identical inputs
+# (`experiments/device_parity.py`: rsqrt, sqrt, sin, cos, atan2, acos, exp,
+# pow, sigmoid), pinned by tests/test_torch_cuda_kernels.py's C.9 cases.
+# Each limit is 1.5x the gap measured on the card (sqrt-space RMSE, the
+# larger of the two walks), every other setup is held to LOCKSTEP_GOLDEN_TOL.
+C9_PINNED = {  # name -> limit; the gap measured on one H100 (both walks alike)
+    "whitted": 4.7e-4,  # 3.119e-4
+    "disney_open": 9.8e-5,  # 6.515e-5
+    "spectral": 6.3e-5,  # 4.185e-5
+}
 PR13_BIG_NUMPY_BUILD_S = (33.29, 41.13)  # big_scene build_s, PR 13's runs W1 / F1 (numpy builders)
 GATE_RAYS = 8192  # bench.py's gate rays (`mixed_rays`)
 TIE_REL = 1e-5  # lockstep t against the oracle's: a few ulps (their arithmetic differs)
-
-
-def render_golden(name, device, traversal):
-    """A golden setup of tests/golden_scenes.py on `device` through `traversal`."""
-    from optixpathtracer_tpu_torch import scenes
-
-    if name in scenes.OPEN_GOLDENS:
-        return scenes.render_open_golden(name, device, traversal)
-    if name in scenes.CORNELL_GOLDENS:
-        return scenes.render_cornell_golden(name, device, traversal)
-    if name in scenes.LOFT_GOLDENS:
-        return scenes.render_loft_golden(name, device, traversal)
-    if name in scenes.FOVEATED_GOLDENS:
-        return scenes.render_foveated_golden(name, device, traversal)
-    if name == "gltf":
-        return scenes.render_gltf_golden(device, traversal)
-    return scenes.render_preset_golden(name, device, traversal)
 
 
 def cpu_lockstep_golden(name):
@@ -3041,11 +3245,13 @@ def cpu_lockstep_golden(name):
     {walk: (image, seconds)}."""
     import torch
 
+    from optixpathtracer_tpu_torch import scenes
+
     torch.set_num_threads(1)
     out = {}
     for walk_name in ("lockstep", "cluster"):
         t0 = time.perf_counter()
-        img = render_golden(name, torch.device("cpu"), walk_name)
+        img = scenes.render_golden(name, torch.device("cpu"), walk_name)
         out[walk_name] = (img, time.perf_counter() - t0)
     return out
 
@@ -3370,7 +3576,7 @@ def lockstep_goldens(dev, futures, card):
         row = {}
         for walk_name in ("lockstep", "cluster"):
             t0 = time.perf_counter()
-            got = render_golden(name, dev, walk_name)
+            got = scenes.render_golden(name, dev, walk_name)
             row[walk_name] = dict(rmse_vs_cpu=scenes.golden_rmse(got, cpu[walk_name][0]),
                                   rmse_vs_golden=scenes.golden_rmse(got, want),
                                   card_s=time.perf_counter() - t0, cpu_s=cpu[walk_name][1])
@@ -3385,6 +3591,14 @@ def lockstep_goldens(dev, futures, card):
                    or abs(v["lockstep"]["rmse_vs_cpu"] - v["cluster"]["rmse_vs_cpu"]) <= WALK_ADDS_TOL)}
     if bad:
         raise AssertionError(f"lockstep_goldens: the card's lockstep walk parts from the CPU's: {bad}")
+    # C.9: every setup card against CPU on both walks, at 1e-5 or its pinned limit
+    apart = {k: (max(v[w]["rmse_vs_cpu"] for w in ("lockstep", "cluster")), C9_PINNED.get(k, LOCKSTEP_GOLDEN_TOL))
+             for k, v in out.items()}
+    emit("c9_card_vs_cpu", gaps={k: g for k, (g, _) in apart.items()},
+         limits={k: lim for k, (_, lim) in apart.items()}, card=card)
+    over = {k: gl for k, gl in apart.items() if not gl[0] <= gl[1]}
+    if over:
+        raise AssertionError(f"lockstep_goldens: card against CPU above the C.9 limits: {over}")
 
 
 def backend_phases(hs, dev, card, cpu_goldens):
@@ -3405,10 +3619,11 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description="chip smoke test of the port on one NVIDIA GPU")
-    parser.add_argument("--only", choices=["backends", "bench"], default=None,
+    parser.add_argument("--only", choices=["backends", "bench", "scripts"], default=None,
                         help="backends: the build, the city and the phases of the backends "
                              "without a kernel and the native builders, then exit; bench: "
-                             "the build and the bench's phases (bench_small, bench_hostile)")
+                             "the build and the bench's phases (bench_small, bench_hostile); "
+                             "scripts: the build and the `scripts` phase")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3450,7 +3665,7 @@ def main(argv=None) -> int:
             if "registers" in ln or "spill" in ln or "entry function" in ln])
     emit("build", seconds=time.perf_counter() - t0, sources=builds,
          host_libraries={n: dict(gxx_seconds=host_build.build_seconds[n]) for n in host_libs})
-    if args.only == "bench":  # no golden is rendered
+    if args.only in ("bench", "scripts"):  # no golden is rendered
         return _phases(args, dev, card, smi, None)
     # the goldens' CPU lockstep renders run beside the card's phases
     cpu_pool, cpu_goldens = start_cpu_goldens()
@@ -3481,6 +3696,12 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
         t1 = time.perf_counter()
         runs = {"bench_small": bench_small(card), "bench_hostile": bench_hostile(dev, card)}
         emit("bench_phases", seconds=time.perf_counter() - t1, launches=runs, card=card)
+        print(smi, flush=True)
+        return 0
+    if args.only == "scripts":
+        t1 = time.perf_counter()
+        runs = scripts_phase(card)
+        emit("scripts_phase", seconds=time.perf_counter() - t1, card=card)
         print(smi, flush=True)
         return 0
     cs = compile_scene(hs, dev, **CITY_BUILD)
@@ -3585,6 +3806,9 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
     # scene at full size with its executed-pair counts held in this process
     bench_runs = {"bench_small": bench_small(card), "bench_hostile": bench_hostile(dev, card)}
     torch.cuda.empty_cache()
+    # ---- the scripts beside the package (tools/, examples/) as the port's
+    # modules, in a child process
+    script_runs = scripts_phase(card)
     del renderer, o, d, cr, cr_s
     torch.cuda.empty_cache()
     # ---- the engine's last options: fused shadows on the city, env_via_bsdf
@@ -3816,7 +4040,7 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
             "cornell": cornell_launches, **inst_runs, "fused_shadows": fused_launches,
             "hello": hello_launches, "whitted": whitted_launches, "spectral": spectral_launches,
             "demand_loft": demand_loft_launches, "demand_big": demand_big_launches, "view": view_launches,
-            **dist_runs, **bench_runs, "jpeg_scene": jpeg_launches, "big_slice": big_launches}
+            **dist_runs, **bench_runs, **script_runs, "jpeg_scene": jpeg_launches, "big_slice": big_launches}
     for run in runs.values():
         for name, k in run.items():
             launches[name] = launches.get(name, 0) + k

@@ -652,19 +652,21 @@ def fovea4k_track(cs, probe, max_frames=16):
 INTERACTIVE_METRIC = "interactive foveated fps @640x480"
 
 
-def interactive_line(cs, probe, frames=16, record_path=None):
+def interactive_line(cs, probe, frames=16, record_path=None, width=640, height=480):
     """A live foveated viewer loop at 640x480 driven by a scripted circular gaze
     path: fused 3-zone foveation (the sv4 radii scaled to 480 rows), Sobol
     sampling, Russian roulette, fovea 4 spp, and as the display step a
     tone-map and an A-Trous denoise of the fovea crop on the device. Rows
     per frame: i, stateUpdate, render, display (seconds), cursorX, cursorY,
-    rays; record_path writes them as TSV."""
+    rays; record_path writes them as TSV. `width` / `height` size the loop
+    down for a test (the radii scale with the height); the row's metric
+    names 640x480 whatever they are."""
     from .engine.foveated import FoveatedRenderer, FoveationConfig
     from .ops import tonemap
     from .ops.denoise import atrous_denoise
 
     dev = cs.device
-    w, h = 640, 480
+    w, h = width, height
     cam = scenes.city_camera(w, h)
     cfg = RenderConfig(
         width=w, height=h, samples_per_launch=1, max_depth=4,
@@ -897,10 +899,12 @@ def _parse(argv):
 
 
 def _device(cpu: bool) -> torch.device:
+    """cuda:0, or the CPU when `cpu`; without a CUDA device and without
+    `cpu` it raises (the bench and the tools never fall back)."""
     if cpu:
         return torch.device("cpu")
     if not torch.cuda.is_available():
-        raise RuntimeError("bench runs on a CUDA device and none is available "
+        raise RuntimeError("this runs on a CUDA device and none is available "
                            "(pass --cpu to run on the CPU)")
     return torch.device("cuda", 0)
 

@@ -28,6 +28,7 @@ import torch
 
 Tensor = torch.Tensor
 
+NUM_ROWS = 9  # [v0x v0y v0z e1x e1y e1z e2x e2y e2z]
 STORE_ROWS = 16  # storage rows (the JAX layout pads 9 rows to 16)
 SUPER = 8  # clusters per supercluster
 

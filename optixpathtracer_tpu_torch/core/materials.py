@@ -13,6 +13,7 @@ from .math import Vec3
 
 Tensor = torch.Tensor
 
+MATERIAL_FLAG_NONE = 0
 MATERIAL_FLAG_SHADOW_CATCHER = 1 << 0
 
 _VEC3_FIELDS = ("color", "emission", "absorption")  # packed at 0/3/6

@@ -93,16 +93,19 @@ def length(a: Vec3) -> Tensor:
     return torch.sqrt(length_sq(a))
 
 
-def normalize(a: Vec3) -> Vec3:
-    return a * torch.rsqrt(torch.clamp(length_sq(a), min=1e-30))
+def normalize(a: Vec3, eps: float = 0.0) -> Vec3:
+    return a * torch.rsqrt(torch.clamp(length_sq(a), min=eps if eps else 1e-30))
 
 
-def safe_normalize(a: Vec3) -> Vec3:
-    """maths.h SafeNormalize: the zero vector for zero-length input."""
+def safe_normalize(a: Vec3, fallback: Vec3 | None = None) -> Vec3:
+    """maths.h SafeNormalize: `fallback` (default the zero vector) for
+    zero-length input."""
     m = length_sq(a)
     ok = m > 0.0
     out = a * torch.rsqrt(torch.where(ok, m, 1.0))
-    return where(ok, out, Vec3(*(torch.zeros_like(m),) * 3))
+    if fallback is None:
+        fallback = Vec3(*(torch.zeros_like(m),) * 3)
+    return where(ok, out, fallback)
 
 
 def where(mask: Tensor, a: Vec3, b: Vec3) -> Vec3:
@@ -131,6 +134,26 @@ def vmin(a: Vec3, b: Vec3) -> Vec3:
 
 def vmax(a: Vec3, b: Vec3) -> Vec3:
     return Vec3(torch.maximum(a.x, b.x), torch.maximum(a.y, b.y), torch.maximum(a.z, b.z))
+
+
+def min_component(a: Vec3) -> Tensor:
+    return torch.minimum(a.x, torch.minimum(a.y, a.z))
+
+
+def max_component(a: Vec3) -> Tensor:
+    return torch.maximum(a.x, torch.maximum(a.y, a.z))
+
+
+def vabs(a: Vec3) -> Vec3:
+    return Vec3(torch.abs(a.x), torch.abs(a.y), torch.abs(a.z))
+
+
+def vexp(a: Vec3) -> Vec3:
+    return Vec3(torch.exp(a.x), torch.exp(a.y), torch.exp(a.z))
+
+
+def vsqrt(a: Vec3) -> Vec3:
+    return Vec3(torch.sqrt(a.x), torch.sqrt(a.y), torch.sqrt(a.z))
 
 
 def reflect(i: Vec3, n: Vec3) -> Vec3:

@@ -36,6 +36,20 @@ def mul32(a: Tensor, b: Tensor) -> Tensor:
     return ((a & 0xFFFF) * b + (((a >> 16) * (b & 0xFFFF)) << 16)) & M32
 
 
+def lcg(prev: Tensor) -> Tuple[Tensor, Tensor]:
+    """LCG step (cuda/random.h:53-59): (new state, its low-24-bit value).
+    The product of a uint32 and 1664525 stays below 2**53, so int64 holds
+    it exactly before the 24-bit mask."""
+    nxt = (u32(prev) * 1664525 + 1013904223) & 0x00FFFFFF
+    return nxt, nxt
+
+
+def rnd_step(seed: Tensor) -> Tuple[Tensor, Tensor]:
+    """cuda/random.h rnd(): uniform in [0, 1) from an LCG, advancing the seed."""
+    nxt, bits = lcg(seed)
+    return nxt, bits.to(torch.float32) / float(1 << 24)  # a power of two: exact on every device
+
+
 def tea(val0: Tensor, val1: Tensor, rounds: int = 4) -> Tensor:
     """TEA hash of two uint32 streams (cuda/random.h:34-49 semantics)."""
     v0 = u32(val0)
@@ -62,6 +76,13 @@ class RngState(NamedTuple):
         """Random(seed) ctor: s1 = 315645664 + seed, s2 = s1 ^ 0x13ab45fe."""
         s1 = (u32(seed) + 315645664) & M32
         return RngState(s1, s1 ^ 0x13AB45FE)
+
+    @staticmethod
+    def for_pixels(pixel_index: Tensor, subframe) -> "RngState":
+        """Per-pixel stream: Random(tea4(pixel_index, subframe))."""
+        sub = torch.broadcast_to(u32(torch.as_tensor(subframe, device=pixel_index.device)),
+                                 pixel_index.shape)
+        return RngState.seed(tea(u32(pixel_index), sub))
 
 
 def _rotl(x: Tensor, k: int) -> Tensor:

@@ -67,8 +67,11 @@ def xyz_to_srgb_linear(x: Tensor, y: Tensor, z: Tensor) -> Vec3:
 # ---- Smits-style analytic basis ---------------------------------------------
 
 def _band(lam: Tensor, lo: float, hi: float, soft: float = 12.0) -> Tensor:
-    """Smooth box window over [lo, hi] nm."""
-    return torch.sigmoid((lam - lo) / soft) * torch.sigmoid((hi - lam) / soft)
+    """Smooth box window over [lo, hi] nm. The width divides as a 0-dim
+    tensor on lam's device: CUDA takes `x / python_float` as a product with
+    the reciprocal, one ulp from the CPU's (and XLA's) division."""
+    s = torch.tensor(soft, dtype=torch.float32, device=lam.device)
+    return torch.sigmoid((lam - lo) / s) * torch.sigmoid((hi - lam) / s)
 
 
 def _basis(lam: Tensor) -> dict[str, Tensor]:
@@ -140,10 +143,23 @@ def spectral_to_rgb(radiance: Tensor, lam: Tensor) -> Vec3:
     sRGB: divide by the uniform pdf, average the H samples, integrate
     against the CIE curves and convert (spectrum.h:236-258)."""
     w = LAMBDA_RANGE / lam.shape[-1] / CIE_Y_INTEGRAL
-    x = torch.sum(radiance * cie_x(lam), dim=-1) * w
-    y = torch.sum(radiance * cie_y(lam), dim=-1) * w
-    z = torch.sum(radiance * cie_z(lam), dim=-1) * w
+    x = _sum_last(radiance * cie_x(lam)) * w
+    y = _sum_last(radiance * cie_y(lam)) * w
+    z = _sum_last(radiance * cie_z(lam)) * w
     return xyz_to_srgb_linear(x, y, z)
+
+
+def _sum_last(a: Tensor) -> Tensor:
+    """Sum over the last axis. The hero axis (N_HERO wide) adds left to
+    right, the CPU `torch.sum`'s order at that width, which a CUDA reduction
+    does not keep; a wider axis (the white calibration below, on the CPU at
+    import) takes `torch.sum`, whose CPU order there is another."""
+    if a.shape[-1] > N_HERO:
+        return torch.sum(a, dim=-1)
+    out = a[..., 0]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., k]
+    return out
 
 
 # white-point calibration: a perfect white reflector under an equal-energy

@@ -161,9 +161,17 @@ def _splat_zone(cfg: RenderConfig, zone: FoveationZone, px: Tensor, py: Tensor, 
     # inactive lanes write into a dummy slot one past the end: a masked
     # "write the current value" would race with real writes to that pixel
     tgt = torch.where(keep, tgt, n_pix)
+    # the frame clamp sends several writes to one pixel: the last in lane
+    # order wins, as in a sequential scatter (the reference's on the CPU);
+    # a CUDA index_put_ of duplicates keeps an arbitrary one
+    pos = torch.arange(tgt.shape[0], device=tgt.device)
+    last = torch.full((n_pix + 1,), -1, dtype=pos.dtype, device=tgt.device).scatter_reduce(
+        0, tgt, pos, "amax")
+    wins = last[tgt] == pos
+    tgt = tgt[wins]
 
     def splat(channel: Tensor, vals: Tensor) -> Tensor:
-        v = vals[:, None, None].expand(-1, f, f).reshape(-1)
+        v = vals[:, None, None].expand(-1, f, f).reshape(-1)[wins]
         padded = torch.cat([channel, channel.new_zeros(1)])
         padded[tgt] = v
         return padded[:n_pix]

@@ -43,8 +43,10 @@ class Probe(NamedTuple):
 
 
 def build_probe(image, device, offset=(0.0, 0.0, 0.0), gaussian_prefilter: bool = False) -> Probe:
-    """BuildCDF equivalent: (H, W, 3) float32 HDR image -> Probe on `device`."""
-    img = torch.as_tensor(np.asarray(image, np.float32), device=device)
+    """BuildCDF equivalent: (H, W, 3) float32 HDR image -> Probe on `device`.
+    The tables are built on the CPU and moved: a CUDA sum or cumsum adds in
+    another order, and every device must sample the same CDF."""
+    img = torch.as_tensor(np.asarray(image, np.float32))
     r, g, b = img[..., 0], img[..., 1], img[..., 2]
     weight = luminance(Vec3(r, g, b))  # (H, W)
     if gaussian_prefilter:
@@ -66,7 +68,8 @@ def build_probe(image, device, offset=(0.0, 0.0, 0.0), gaussian_prefilter: bool 
 
     joint = pdf_x * pdf_y[:, None]
     rgbp = torch.stack([r.reshape(-1), g.reshape(-1), b.reshape(-1), joint.reshape(-1)], dim=1)
-    return probe_from_tables(r, g, b, pdf_x, cdf_x, pdf_y, cdf_y, offset, rgbp)
+    return probe_from_tables(*(t.to(device) for t in (r, g, b, pdf_x, cdf_x, pdf_y, cdf_y)),
+                             offset, rgbp.to(device))
 
 
 def probe_from_tables(r, g, b, pdf_x, cdf_x, pdf_y, cdf_y, offset, rgbp) -> Probe:

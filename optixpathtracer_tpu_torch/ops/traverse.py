@@ -43,6 +43,7 @@ from .traverse_cluster import HitRecord
 Tensor = torch.Tensor
 
 STACK_DEPTH = TRAVERSAL_STACK_DEPTH  # build_bvh asserts tree depth fits this
+ROOT_REF = 0  # internal node 0 is always the Karras root
 CHECK_EVERY = 8  # iterations between reads of the loop condition
 walk_stats = {"sweeps": 0, "iterations": 0}
 

@@ -538,6 +538,22 @@ def render_gltf_golden(device, traversal: str = "cluster") -> np.ndarray:
     return r.accum_image()
 
 
+def render_golden(name: str, device, traversal: str = "cluster") -> np.ndarray:
+    """Any of the 14 golden setups of tests/golden_scenes.py on `device`
+    through `traversal`."""
+    if name in OPEN_GOLDENS:
+        return render_open_golden(name, device, traversal)
+    if name in CORNELL_GOLDENS:
+        return render_cornell_golden(name, device, traversal)
+    if name in LOFT_GOLDENS:
+        return render_loft_golden(name, device, traversal)
+    if name in FOVEATED_GOLDENS:
+        return render_foveated_golden(name, device, traversal)
+    if name == "gltf":
+        return render_gltf_golden(device, traversal)
+    return render_preset_golden(name, device, traversal)
+
+
 def golden_rmse(got: np.ndarray, want: np.ndarray) -> float:
     """tests/test_goldens.py metric: RMSE in sqrt (tone-mapped) space."""
     a = np.sqrt(np.clip(np.asarray(got, np.float32), 0, None))

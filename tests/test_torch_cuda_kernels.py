@@ -809,3 +809,74 @@ def test_hello_unnormalised_shadow_rays_bit_equal_to_plain(cuda, monkeypatch):
     occ = tc.any_hier_sweep(cl.rows, cl.xf_inv, nt, cr_s, cl.cluster_size)
     assert torch.equal(occ, tc._any_hier_torch(cl.rows, cl.xf_inv, nt, cr_s, cl.cluster_size))
     assert 0 < int(occ.sum()) < int((s_max > 0).sum())
+
+
+# ROADMAP C.9, pinned: the first ops of the pinned golden setups whose card
+# result parts from the CPU's on the same input, as
+# `experiments/device_parity.py` found them on the card (PR 16): (setup, op,
+# call site, lane of the first parting call, inputs, scalar argument, the
+# card's result, the CPU's). CUDA's rsqrt, atan2, sigmoid, exp and pow are
+# approximations a few ulps from ATen's CPU kernels; ATen's vectorised CPU
+# sqrt is the one that rounds wrongly (the card's is IEEE). Each input runs
+# as 1024 copies, so the CPU takes its vectorised path, as in a render.
+C9_LANES = [
+    ("whitted", torch.rsqrt, "core/math.py normalize (camera rays)", 0, (121.91483306884766,), None,
+     0.09056735783815384, 0.09056736528873444),
+    ("whitted", torch.sqrt, "ops/spheres.py closest_hit_spheres", 7567, (0.1916961669921875,), None,
+     0.43783122301101685, 0.43783119320869446),
+    ("whitted", torch.pow, "ops/tonemap.py enc (sRGB)", 15, (0.2894494831562042,), 0.4166666666666667,
+     0.5965616106987, 0.5965616703033447),
+    ("disney_open", torch.rsqrt, "core/math.py normalize (camera rays)", 1, (44.99484634399414,), None,
+     0.14907974004745483, 0.14907972514629364),
+    ("disney_open", torch.atan2, "lights/probe.py dir_to_uv", 0, (-0.19694621860980988, -0.7966755628585815),
+     None, -2.8992416858673096, -2.8992414474487305),
+    ("spectral", torch.sigmoid, "core/spectrum.py _band", 1809, (3.4404296875,), None,
+     0.9689444899559021, 0.9689443707466125),
+    ("spectral", torch.exp, "core/spectrum.py gauss", 3, (-1.0136724710464478,), None,
+     0.36288386583328247, 0.3628838360309601),
+]
+
+
+@pytest.mark.parametrize("setup, op, site, lane, inputs, scalar, card_value, cpu_value", C9_LANES,
+                         ids=[f"{c[0]}-{c[1].__name__}" for c in C9_LANES])
+def test_c9_pinned_math_library_ulps(cuda, setup, op, site, lane, inputs, scalar, card_value, cpu_value):
+    """The named lane's op gives the card's value on the card and the CPU's
+    on the CPU, a few ulps apart: the mechanism of `setup`'s card-against-CPU
+    gap (chip_smoke.py C9_PINNED)."""
+    del site, lane
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        args = [torch.full((1024,), x, dtype=torch.float32, device=dev) for x in inputs]
+        out = op(*args) if scalar is None else op(*args, scalar)
+        assert bool((out == out[0]).all())
+        got[dev.type] = float(out[0])
+    assert (got["cuda"], got["cpu"]) == (card_value, cpu_value), (setup, got)
+    a, b = np.float32(card_value), np.float32(cpu_value)
+    assert 0 < abs(int(a.view(np.int32)) - int(b.view(np.int32))) <= 2
+
+
+def test_c9_repaired_ops_card_equal_cpu(cuda, monkeypatch):
+    """The repaired C.9 sites, card == CPU bit for bit: the probe's CDF tables
+    (built on the host), the spectral band's divisions (its width a device
+    scalar; the sigmoid around them is a pinned math-library op, so it is
+    taken out here) and the hero sums (left to right on the card, equal to
+    the CPU's `torch.sum`); and the foveated golden setup, whose splat at
+    the frame's clamped edge now keeps one writer a pixel."""
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.core import spectrum
+
+    cpu = torch.device("cpu")
+    a, b = scenes.sky_probe(cuda), scenes.sky_probe(cpu)
+    for f in ("pdf_x", "cdf_x", "pdf_y", "cdf_y", "rgbp"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+    lam = torch.linspace(380.0, 720.0, 4096)
+    with monkeypatch.context() as m:
+        m.setattr(torch, "sigmoid", lambda x: x)  # _band is then the product of its two quotients
+        assert torch.equal(spectrum._band(lam.to(cuda), 490.0, 595.0).cpu(), spectrum._band(lam, 490.0, 595.0))
+    # the hero sums (spectral_to_rgb's CIE curves around them are pinned exp)
+    rad = torch.rand(6144, spectrum.N_HERO, generator=torch.Generator().manual_seed(0)) * 50
+    assert torch.equal(spectrum._sum_last(rad.to(cuda)).cpu(), torch.sum(rad, dim=-1))
+    # the `foveated` golden setup parted by 9.6e-5 before the splat took one
+    # writer a pixel; what stays is the math library's ulps (6.5e-8, PR 16)
+    img = {dev.type: scenes.render_foveated_golden("foveated", dev) for dev in (cuda, cpu)}
+    assert scenes.golden_rmse(img["cuda"], img["cpu"]) <= 1e-5
