@@ -166,6 +166,17 @@ port's paths and checks that each went through its kernels:
      equal to scenes/ref_city_4k_fovea.npz's, its RMSE there) and the four
      examples at their own sizes (a PNG of its size, not black, read
      without PIL; the demand demo's resident pages below the texture's).
+ 17. the texture formats beyond PNG and JPEG (`codecs_scene`, after
+     `jpeg_scene`; `--only codecs` runs the build and this alone): every
+     fixture of tests/torch_fixtures/textures decoded on this machine's
+     host (no PIL) and held to its manifest (shape, channel sums, SHA-256
+     of PIL's decode), each decode timed; the loft with its textures as
+     TGA RLE, TIFF LZW and WebP lossless through `load_obj`, its texture
+     arrays equal to the PNG loft's and its card frame at JPEG_RENDER equal
+     to the PNG loft's card frame bit for bit; the loft with WebP lossy,
+     DDS BC1 and arithmetic JPEG textures, its card frame against the
+     port's CPU frame within JPEG_RENDER_TOL; K1 / K2 / K3 launched on the
+     flat walk by every card render.
 
 The cull (K1) is held against its plain version and timed on both tables
 (cluster boxes and entry boxes on the city, entry boxes on the big scene)
@@ -3019,6 +3030,118 @@ def jpeg_scene(dev, card, counts):
     return launches
 
 
+CODEC_FIXTURES = os.path.join(REPO, "tests", "torch_fixtures", "textures")
+CODEC_LOSSLESS = {"loft_tex0.png": "loft_tex0.tga", "loft_tex1.png": "loft_tex1.tif",
+                  "loft_tex2.png": "loft_tex2.webp"}  # tests/torch_fixtures/make_textures.py's sets
+CODEC_LOSSY = {"loft_tex0.png": "loft_tex0_lossy.webp", "loft_tex1.png": "loft_tex1_bc1.dds",
+               "loft_tex2.png": "loft_tex2_arith.jpg"}
+
+
+def _loft_textured(tmp, names: dict):
+    """The loft's OBJ in `tmp` with its MTL's textures renamed to `names`'
+    fixtures (copied beside it), loaded through `load_obj`."""
+    import shutil
+
+    from optixpathtracer_tpu_torch.io.obj import load_obj
+
+    shutil.copy(os.path.join(REPO, "scenes", "loft.obj"), tmp)
+    mtl = open(os.path.join(REPO, "scenes", "loft.mtl")).read()
+    for png, name in names.items():
+        shutil.copy(os.path.join(CODEC_FIXTURES, name) if name != png else os.path.join(REPO, "scenes", png), tmp)
+        mtl = mtl.replace(png, name)
+    with open(os.path.join(tmp, "loft.mtl"), "w") as f:
+        f.write(mtl)
+    return load_obj(os.path.join(tmp, "loft.obj"))
+
+
+def _loft_frame(hs, device, counts=None):
+    """The loft at JPEG_RENDER (scenes.loft_config's camera and probe,
+    the cluster traversal) -> (the accumulated image, the launches of the
+    render if `counts`, frame seconds)."""
+    import torch
+
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.builder import compile_scene
+    from optixpathtracer_tpu_torch.models import make_disney_pt_renderer
+
+    w, h = JPEG_RENDER["width"], JPEG_RENDER["height"]
+    setup = scenes.loft_config(w, h, device)
+    r = make_disney_pt_renderer(compile_scene(hs, device, **CITY_BUILD), setup.probe, setup.camera, width=w,
+                                height=h, spp=JPEG_RENDER["spp"], max_depth=JPEG_RENDER["max_depth"],
+                                traversal="cluster", **setup.flags)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        if counts is not None:
+            counts.clear()
+    t0 = time.perf_counter()
+    r.render(download=False)
+    img = r.accum_image()
+    seconds = time.perf_counter() - t0
+    return img, (dict(counts) if counts is not None else {}), seconds
+
+
+def codecs_scene(dev, card, counts):
+    """The port's own decoders of the texture formats beyond PNG and JPEG,
+    on a machine without PIL: every fixture against tests/torch_fixtures/
+    textures/manifest.json (PIL's decode: shape, channel sums, SHA-256),
+    timed on the host; the loft with a lossless set of formats (texture
+    arrays equal to the PNG loft's, the card frame equal to the PNG loft's
+    card frame bit for bit) and a lossy set (the card frame against the CPU
+    frame within JPEG_RENDER_TOL); K1 / K2 / K3 on the flat walk in every
+    card render. Returns the lossless loft render's launches."""
+    import hashlib
+
+    import torch
+
+    from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.io.image import rgb8_from_bytes
+
+    t_all = time.perf_counter()
+    with open(os.path.join(CODEC_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    decode_ms, bad = {}, []
+    for name, entry in sorted(manifest.items()):
+        with open(os.path.join(CODEC_FIXTURES, name), "rb") as f:
+            data = f.read()
+        t0 = time.perf_counter()
+        rgb = rgb8_from_bytes(data)
+        decode_ms[name] = (time.perf_counter() - t0) * 1e3
+        got = [list(rgb.shape), rgb.reshape(-1, 3).sum(0, dtype=np.int64).tolist(),
+               hashlib.sha256(np.ascontiguousarray(rgb).tobytes()).hexdigest()]
+        if got != [entry["shape"], entry["sums"], entry["sha256"]]:
+            bad.append(name)
+    scenes_by_kind, t_load = {}, {}
+    for kind, names in (("png", {png: png for png in CODEC_LOSSLESS}), ("lossless", CODEC_LOSSLESS),
+                        ("lossy", CODEC_LOSSY)):
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            scenes_by_kind[kind] = _loft_textured(tmp, names)
+            t_load[kind] = time.perf_counter() - t0
+    png_tex, lossless_tex = scenes_by_kind["png"].textures, scenes_by_kind["lossless"].textures
+    equal_textures = len(lossless_tex) == len(png_tex) == 3 and all(
+        np.array_equal(a, b) for a, b in zip(lossless_tex, png_tex))
+    frames, launches, frame_s = {}, {}, {}
+    for kind in ("lossless", "png", "lossy"):
+        frames[kind], launches[kind], frame_s[kind] = _loft_frame(scenes_by_kind[kind], dev, counts)
+        check_walk(f"codecs_scene ({kind})", launches[kind], "flat")
+    cpu, _, frame_s["lossy_cpu"] = _loft_frame(scenes_by_kind["lossy"], torch.device("cpu"))
+    card_eq = bool(np.array_equal(frames["lossless"], frames["png"]))
+    rmse = scenes.golden_rmse(frames["lossy"], cpu)
+    emit("codecs_scene", fixtures=len(manifest), mismatched=bad, decode_ms=decode_ms,
+         decode_ms_total=sum(decode_ms.values()), load_obj_s=t_load, loft_textures_equal_png=equal_textures,
+         lossless_frame_equals_png_frame=card_eq, lossy_rmse_card_vs_cpu=rmse, tol=JPEG_RENDER_TOL,
+         **JPEG_RENDER, frame_s=frame_s, launches=launches, seconds=time.perf_counter() - t_all, card=card)
+    if bad:
+        raise AssertionError(f"codecs_scene: fixtures decoded unlike PIL: {bad}")
+    if not equal_textures:
+        raise AssertionError("codecs_scene: the lossless loft's textures differ from the PNG loft's")
+    if not card_eq:
+        raise AssertionError("codecs_scene: the lossless loft's card frame differs from the PNG loft's")
+    if not rmse <= JPEG_RENDER_TOL:
+        raise AssertionError(f"codecs_scene: lossy loft card against CPU RMSE {rmse} (limit {JPEG_RENDER_TOL})")
+    return launches["lossless"]
+
+
 # ---- the scripts beside the package, as modules of the port ---------------
 
 SCRIPTS_TIMEOUT_S = 420
@@ -3619,7 +3742,7 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description="chip smoke test of the port on one NVIDIA GPU")
-    parser.add_argument("--only", choices=["backends", "bench", "scripts"], default=None,
+    parser.add_argument("--only", choices=["backends", "bench", "scripts", "codecs"], default=None,
                         help="backends: the build, the city and the phases of the backends "
                              "without a kernel and the native builders, then exit; bench: "
                              "the build and the bench's phases (bench_small, bench_hostile); "
@@ -3665,7 +3788,7 @@ def main(argv=None) -> int:
             if "registers" in ln or "spill" in ln or "entry function" in ln])
     emit("build", seconds=time.perf_counter() - t0, sources=builds,
          host_libraries={n: dict(gxx_seconds=host_build.build_seconds[n]) for n in host_libs})
-    if args.only in ("bench", "scripts"):  # no golden is rendered
+    if args.only in ("bench", "scripts", "codecs"):  # no golden is rendered
         return _phases(args, dev, card, smi, None)
     # the goldens' CPU lockstep renders run beside the card's phases
     cpu_pool, cpu_goldens = start_cpu_goldens()
@@ -3684,6 +3807,13 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
     from optixpathtracer_tpu_torch.models import make_disney_pt_renderer, make_foveated_renderer
     from optixpathtracer_tpu_torch.ops import traverse_cluster as tc
 
+
+    if args.only == "codecs":
+        t1 = time.perf_counter()
+        launches = codecs_scene(dev, card, tc.launch_counts)
+        emit("codecs_phase", seconds=time.perf_counter() - t1, launches=launches, card=card)
+        print(smi, flush=True)
+        return 0
 
     # ---- the city, and the slice's renderer ------------------------------
     t0 = time.perf_counter()
@@ -3888,6 +4018,7 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
     cornell_launches = cornell_slice(dev, card, tc.launch_counts)
     file_goldens(dev)
     jpeg_launches = jpeg_scene(dev, card, tc.launch_counts)
+    codecs_launches = codecs_scene(dev, card, tc.launch_counts)
     torch.cuda.empty_cache()
 
     # ---- the instanced city (TLAS) through the CLI's renderer, and the CLI
@@ -4040,7 +4171,8 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
             "cornell": cornell_launches, **inst_runs, "fused_shadows": fused_launches,
             "hello": hello_launches, "whitted": whitted_launches, "spectral": spectral_launches,
             "demand_loft": demand_loft_launches, "demand_big": demand_big_launches, "view": view_launches,
-            **dist_runs, **bench_runs, **script_runs, "jpeg_scene": jpeg_launches, "big_slice": big_launches}
+            **dist_runs, **bench_runs, **script_runs, "jpeg_scene": jpeg_launches, "codecs_scene": codecs_launches,
+            "big_slice": big_launches}
     for run in runs.values():
         for name, k in run.items():
             launches[name] = launches.get(name, 0) + k

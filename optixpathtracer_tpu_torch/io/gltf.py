@@ -10,13 +10,13 @@ local space, and one transform per referencing node). Supports .gltf
 (JSON + external or base64 buffers) and .glb; triangle meshes with
 POSITION / NORMAL / TEXCOORD_0 and scalar indices.
 
-Images decode through the port's own PNG and JPEG decoders
-(io/image.py `rgb8_from_bytes`: the two image formats core glTF 2.0
-allows). An image the reference's PIL could not decode either (an
-unsupported codec, a data URI that is not base64, a missing file) degrades
-to the factor-only material with a warning, as in the reference; one PIL
-decodes and the port does not (an arithmetic-coded or 12-bit JPEG, BMP,
-WebP, ...) is a gap of the port and raises NotImplementedError (ROADMAP
+Images decode through the port's own decoders (io/image.py
+`rgb8_from_bytes`: PNG and JPEG, the two formats core glTF 2.0 allows,
+WebP and every other format of io/codecs). An image the reference's PIL
+could not decode either (bytes of no format, a 12-bit or hierarchical
+JPEG, a data URI that is not base64, a missing file) degrades to the
+factor-only material with the reference's warning; one PIL decodes and the
+port does not is a gap of the port and raises NotImplementedError (ROADMAP
 A.1).
 """
 from __future__ import annotations

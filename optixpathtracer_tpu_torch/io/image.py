@@ -4,8 +4,9 @@ Radiance .hdr loader and PFM (port of optixpathtracer_tpu/io/image.py).
 The reference decodes and encodes images through PIL. The port has its own
 codecs written with `zlib`, `struct` and numpy, so it needs no image
 library. `rgb8_from_bytes` (and `read_rgb8` / `load_image` on a file) tells
-the format by its first bytes and gives the uint8 values PIL's
-`Image.open(...).convert("RGB")` gives:
+the format by its bytes, in PIL's order (io/codecs), and gives the uint8
+values PIL's `Image.open(...).convert("RGB")` gives. This module holds the
+two formats glTF allows:
 
 - PNG, the whole format: colour types 0 (grey), 2 (RGB), 3 (palette),
   4 (grey + alpha) and 6 (RGBA), every bit depth (1, 2, 4, 8, 16), all five
@@ -13,16 +14,19 @@ the format by its first bytes and gives the uint8 values PIL's
   scaled to 0-255), palettes are looked up, alpha is dropped, 16-bit
   samples keep their high byte except 16-bit grey, which PIL opens as mode
   I;16 and clamps to 255.
-- JPEG: Huffman-coded baseline, extended sequential and progressive, 8-bit,
-  grey or three components (YCbCr, or RGB by the Adobe / component-id
-  rules), any integral sampling factors, restart intervals, any size.
-  Decoded with libjpeg's integer pipeline (see `decode_jpeg`), bit for bit
-  what PIL (libjpeg-turbo) gives.
+- JPEG: Huffman or arithmetic coding (codecs/jpeg_arith.py), baseline,
+  extended sequential and progressive, and 8-bit lossless
+  (codecs/jpeg_lossless.py); grey, three components (YCbCr, or RGB by the
+  Adobe / component-id rules) or four (CMYK, or YCCK under an Adobe
+  marker, read inverted and converted as PIL converts CMYK); any integral
+  sampling factors, restart intervals, any size. Decoded with libjpeg's
+  integer pipeline (see `decode_jpeg`), bit for bit what PIL
+  (libjpeg-turbo) gives.
 
-Arithmetic-coded, 12-bit, lossless and hierarchical JPEG, CMYK / YCCK, and
-every other format PIL reads raise NotImplementedError naming ROADMAP A.1;
-they never decode to something else. The Radiance RGBE and PFM code is the
-reference's numpy.
+The other formats are io/codecs' modules. What PIL cannot read raises an
+OSError (12-bit and hierarchical JPEG, bytes of no format); what PIL reads
+and the port does not raises NotImplementedError naming ROADMAP A.1. The
+Radiance RGBE and PFM code is the reference's numpy.
 
 `encode_jpeg` is the port's own baseline JPEG encoder (the reference's
 viewer encodes with PIL): JFIF, the Annex K quantisation tables scaled by
@@ -40,6 +44,10 @@ import zlib
 import numpy as np
 import torch
 
+from . import codecs
+from .codecs import jpeg_arith, jpeg_lossless
+from .codecs._common import DecodeError, NotThisFormat, cmyk_rgb
+
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _JPEG_MAGIC = b"\xff\xd8\xff"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
@@ -52,12 +60,12 @@ def _chunks(data: bytes):
         length, kind = struct.unpack(">I4s", data[pos : pos + 8])
         body = data[pos + 8 : pos + 8 + length]
         if len(body) != length:
-            raise ValueError("truncated PNG chunk")
+            raise DecodeError("truncated PNG chunk")
         yield kind, body
         if kind == b"IEND":
             return
         pos += 12 + length  # length, type, body, CRC
-    raise ValueError("PNG without IEND")
+    raise DecodeError("PNG without IEND")
 
 
 def _paeth_row(line: bytearray, prior: bytes, bpp: int) -> None:
@@ -76,7 +84,7 @@ def _paeth_row(line: bytearray, prior: bytes, bpp: int) -> None:
 def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     """(height, stride) uint8 scanlines with every row's filter undone."""
     if len(raw) < height * (stride + 1):
-        raise ValueError("PNG image data too short")
+        raise DecodeError("PNG image data too short")
     out = np.zeros((height + 1, stride), np.uint8)  # row 0: the zero prior line
     rows = np.frombuffer(raw, np.uint8, height * (stride + 1)).reshape(height, stride + 1)
     for y in range(height):
@@ -101,7 +109,7 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
             _paeth_row(cur, prior.tobytes(), bpp)
             out[y + 1] = np.frombuffer(bytes(cur), np.uint8)
         else:
-            raise ValueError(f"unknown PNG filter type {kind}")
+            raise DecodeError(f"unknown PNG filter type {kind}")
     return out[1:]
 
 
@@ -131,9 +139,9 @@ def decode_png(data: bytes) -> tuple[np.ndarray, int, np.ndarray | None, int]:
     stored: palette indices, unscaled grey), uint16 for 16; Adam7
     interlacing is undone."""
     if data.startswith(_JPEG_MAGIC):
-        raise ValueError("a JPEG image, not a PNG: decode it with rgb8_from_bytes")
+        raise DecodeError("a JPEG image, not a PNG: decode it with rgb8_from_bytes")
     if not data.startswith(_PNG_MAGIC):
-        raise ValueError("not a PNG image")
+        raise DecodeError("not a PNG image")
     header, palette, idat = None, None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -145,16 +153,16 @@ def decode_png(data: bytes) -> tuple[np.ndarray, int, np.ndarray | None, int]:
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
-        raise ValueError("PNG without IHDR")
+        raise DecodeError("PNG without IHDR")
     width, height, depth, color, _compression, _filter, interlace = header
     if color not in _CHANNELS:
-        raise ValueError(f"invalid PNG colour type {color}")
+        raise DecodeError(f"invalid PNG colour type {color}")
     if depth not in _PNG_DEPTHS[color]:
-        raise ValueError(f"invalid PNG bit depth {depth} for colour type {color}")
+        raise DecodeError(f"invalid PNG bit depth {depth} for colour type {color}")
     if interlace not in (0, 1):
-        raise ValueError(f"invalid PNG interlace method {interlace}")
+        raise DecodeError(f"invalid PNG interlace method {interlace}")
     if color == 3 and palette is None:
-        raise ValueError("palette PNG without PLTE")
+        raise DecodeError("palette PNG without PLTE")
     ch = _CHANNELS[color]
     bpp = max(1, ch * depth // 8)  # the filters' byte distance
     raw = zlib.decompress(b"".join(idat))
@@ -196,29 +204,15 @@ def rgb8_from_png(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(px[..., :3])
 
 
-# the first bytes of image formats PIL reads and the port does not decode
-_OTHER_MAGIC = {b"BM": "BMP", b"GIF87a": "GIF", b"GIF89a": "GIF", b"II*\x00": "TIFF",
-                b"MM\x00*": "TIFF", b"#?RADIANCE": "Radiance HDR (use load_hdr)", b"\x00\x00\x01\x00": "ICO",
-                b"8BPS": "PSD", b"qoif": "QOI", b"DDS ": "DDS"}
-
-
 def rgb8_from_bytes(data: bytes) -> np.ndarray:
     """Encoded image bytes -> (H, W, 3) uint8, what PIL's
-    `Image.open(...).convert("RGB")` gives: PNG (every colour type, bit
-    depth and interlace) and JPEG (baseline and progressive Huffman, 8-bit,
-    1 or 3 components), told apart by their first bytes. Other formats PIL
-    reads raise NotImplementedError naming ROADMAP A.1; bytes of no known
-    format raise ValueError."""
-    if data.startswith(_PNG_MAGIC):
-        return rgb8_from_png(data)
-    if data.startswith(_JPEG_MAGIC):
-        return rgb8_from_jpeg(data)
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        raise NotImplementedError("WebP decoding is not ported (ROADMAP A.1)")
-    for magic, name in _OTHER_MAGIC.items():
-        if data.startswith(magic):
-            raise NotImplementedError(f"{name} decoding is not ported (ROADMAP A.1)")
-    raise ValueError("not a PNG or JPEG image")
+    `Image.open(...).convert("RGB")` gives, for every format the port
+    reads (io/codecs: the format told by its bytes in PIL's order). A format
+    PIL reads and the port does not raises NotImplementedError naming
+    ROADMAP A.1; bytes PIL cannot read raise an OSError: `codecs.
+    UnidentifiedImageError` where no format takes them, `codecs.DecodeError`
+    where the format's data does not decode."""
+    return codecs.rgb8(data)
 
 
 def read_rgb8(path: str) -> np.ndarray:
@@ -532,28 +526,26 @@ def encode_jpeg(image, quality: int = 85) -> bytes:
 # windows of the scan's bytes; dequantisation, IDCT, upsampling and the
 # colour transform are numpy over every block at once.
 
-_JPEG_SOF = {0xC0: False, 0xC1: False, 0xC2: True}  # Huffman SOF marker -> progressive
-_JPEG_OTHER_SOF = {0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
-                   0xC7: "hierarchical", 0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded",
-                   0xCB: "arithmetic-coded", 0xCD: "arithmetic-coded", 0xCE: "arithmetic-coded",
-                   0xCF: "arithmetic-coded"}
-
-
-def _jpeg_unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} JPEG decoding is not ported (ROADMAP A.1)")
+# SOF marker -> (progressive, arithmetic, lossless); the hierarchical ones
+# (C5-C7, CD-CF) and arithmetic lossless (CB) libjpeg-turbo does not decode
+_JPEG_SOF = {0xC0: (False, False, False), 0xC1: (False, False, False), 0xC2: (True, False, False),
+             0xC3: (False, False, True), 0xC9: (False, True, False), 0xCA: (True, True, False)}
+_JPEG_UNSUPPORTED_SOF = {0xC5: "hierarchical", 0xC6: "hierarchical", 0xC7: "hierarchical",
+                         0xCB: "arithmetic-coded lossless", 0xCD: "hierarchical",
+                         0xCE: "hierarchical", 0xCF: "hierarchical"}
 
 
 def _huffman_lut(bits: bytes, vals: bytes) -> list[int]:
     """16-bit peek -> (code length << 8 | symbol), 0 where no code starts."""
     if sum(bits) != len(vals) or len(vals) > 256:
-        raise ValueError("corrupt JPEG Huffman table")
+        raise DecodeError("corrupt JPEG Huffman table")
     code, length = _huffman_codes(list(bits), list(vals))
     lut = np.zeros(1 << 16, np.int64)
     for sym in vals:
         n = int(length[sym])
         c = int(code[sym])
         if c >> n:
-            raise ValueError("corrupt JPEG Huffman table")
+            raise DecodeError("corrupt JPEG Huffman table")
         lut[c << (16 - n):(c + 1) << (16 - n)] = n << 8 | sym
     return lut.tolist()
 
@@ -576,12 +568,12 @@ def _entropy_segments(data: bytes, pos: int) -> tuple[list[bytes], int]:
     while True:
         i = data.find(b"\xff", pos)
         if i < 0:
-            raise ValueError("JPEG scan runs past the end of the data")
+            raise DecodeError("JPEG scan runs past the end of the data")
         k = i
         while k + 1 < len(data) and data[k + 1] == 0xFF:
             k += 1  # fill bytes before a marker
         if k + 1 >= len(data):
-            raise ValueError("JPEG scan runs past the end of the data")
+            raise DecodeError("JPEG scan runs past the end of the data")
         marker = data[k + 1]
         if marker == 0x00 and k == i:
             pos = i + 2
@@ -596,35 +588,36 @@ def _entropy_segments(data: bytes, pos: int) -> tuple[list[bytes], int]:
 class _Frame:
     """SOF parameters and the coefficient store of every component."""
 
-    def __init__(self, body: bytes, progressive: bool):
+    def __init__(self, body: bytes, kind: tuple[bool, bool, bool]):
         precision, self.height, self.width, n = struct.unpack(">BHHB", body[:6])
-        if precision != 8:
-            raise _jpeg_unported(f"{precision}-bit")
+        if precision != 8 or n not in (1, 3, 4):
+            # PIL's JPEG plugin does not take the file: it is no format PIL reads
+            raise NotThisFormat(f"cannot handle {precision}-bit, {n}-layer JPEG")
         if self.height == 0 or self.width == 0:
-            raise ValueError("JPEG frame without a size (DNL is not supported)")
-        if n not in (1, 3):
-            raise _jpeg_unported(f"{n}-component (CMYK / YCCK)" if n == 4 else f"{n}-component")
-        self.progressive = progressive
+            raise DecodeError("JPEG frame without a size (DNL is not supported)")
+        self.progressive, self.arithmetic, self.lossless = kind
         self.ids, self.h, self.v, self.tq = [], [], [], []
         for c in range(n):
             cid, hv, tq = body[6 + 3 * c:9 + 3 * c]
             if not (1 <= hv >> 4 <= 4 and 1 <= hv & 15 <= 4):
-                raise ValueError("corrupt JPEG sampling factors")
+                raise DecodeError("corrupt JPEG sampling factors")
             self.ids.append(cid)
             self.h.append(hv >> 4)
             self.v.append(hv & 15)
             self.tq.append(tq)
         self.hmax, self.vmax = max(self.h), max(self.v)
-        self.mcus_x = -(-self.width // (8 * self.hmax))
-        self.mcus_y = -(-self.height // (8 * self.vmax))
+        unit = 1 if self.lossless else 8  # a lossless data unit is one sample
+        self.mcus_x = -(-self.width // (unit * self.hmax))
+        self.mcus_y = -(-self.height // (unit * self.vmax))
         # per component: samples across and down (libjpeg's downsampled
         # width / height) and the MCU-padded block store
         self.cw = [-(-self.width * h // self.hmax) for h in self.h]
         self.ch = [-(-self.height * v // self.vmax) for v in self.v]
         self.bx = [self.mcus_x * h for h in self.h]
         self.by = [self.mcus_y * v for v in self.v]
-        self.coefs = [[0] * (bx * by * 64) for bx, by in zip(self.bx, self.by)]
+        self.coefs = None if self.lossless else [[0] * (bx * by * 64) for bx, by in zip(self.bx, self.by)]
         self.quant: list[np.ndarray | None] = [None] * n
+        self.samples: list[np.ndarray | None] = [None] * n  # lossless: each component's samples
 
     def scan_mcus(self, comps: list[int]) -> list[list[tuple[int, int]]]:
         """Each MCU of a scan over `comps`: (index into comps, offset of the
@@ -660,7 +653,7 @@ def _decode_scan(frame: _Frame, comps, dc_luts, ac_luts, ss, se, ah, al, segs, r
     mcus = frame.scan_mcus(comps)
     per = restart or len(mcus)
     if -(-len(mcus) // per) > len(segs):
-        raise ValueError("JPEG scan has fewer restart intervals than MCUs need")
+        raise DecodeError("JPEG scan has fewer restart intervals than MCUs need")
     stores = [frame.coefs[c] for c in comps]
     sequential = not frame.progressive
     p1, m1 = 1 << al, -1 << al
@@ -676,7 +669,7 @@ def _decode_scan(frame: _Frame, comps, dc_luts, ac_luts, ss, se, ah, al, segs, r
                 if ss == 0 and ah == 0:  # DC first, or the DC of a sequential block
                     e = dc_luts[ci][(win[pos >> 3] >> (48 - (pos & 7))) & 0xFFFF]
                     if not e:
-                        raise ValueError(bad)
+                        raise DecodeError(bad)
                     pos += e >> 8
                     s = e & 0xFF
                     if s:
@@ -690,14 +683,14 @@ def _decode_scan(frame: _Frame, comps, dc_luts, ac_luts, ss, se, ah, al, segs, r
                     while k < 64:
                         e = ac[(win[pos >> 3] >> (48 - (pos & 7))) & 0xFFFF]
                         if not e:
-                            raise ValueError(bad)
+                            raise DecodeError(bad)
                         pos += e >> 8
                         rs = e & 0xFF
                         s = rs & 15
                         if s:
                             k += rs >> 4
                             if k > 63:
-                                raise ValueError("corrupt JPEG data: coefficient past 63")
+                                raise DecodeError("corrupt JPEG data: coefficient past 63")
                             v = (win[pos >> 3] >> (64 - (pos & 7) - s)) & ((1 << s) - 1)
                             pos += s
                             if v < (1 << (s - 1)):
@@ -721,14 +714,14 @@ def _decode_scan(frame: _Frame, comps, dc_luts, ac_luts, ss, se, ah, al, segs, r
                     while k <= se:
                         e = ac[(win[pos >> 3] >> (48 - (pos & 7))) & 0xFFFF]
                         if not e:
-                            raise ValueError(bad)
+                            raise DecodeError(bad)
                         pos += e >> 8
                         rs = e & 0xFF
                         r, s = rs >> 4, rs & 15
                         if s:
                             k += r
                             if k > se:
-                                raise ValueError("corrupt JPEG data: coefficient past the band")
+                                raise DecodeError("corrupt JPEG data: coefficient past the band")
                             v, pos = _receive(win, pos, s)
                             co[base + k] = v * p1
                             k += 1
@@ -748,13 +741,13 @@ def _decode_scan(frame: _Frame, comps, dc_luts, ac_luts, ss, se, ah, al, segs, r
                         while k <= se:
                             e = ac[(win[pos >> 3] >> (48 - (pos & 7))) & 0xFFFF]
                             if not e:
-                                raise ValueError(bad)
+                                raise DecodeError(bad)
                             pos += e >> 8
                             rs = e & 0xFF
                             r, s = rs >> 4, rs & 15
                             if s:
                                 if s != 1:
-                                    raise ValueError("corrupt JPEG data: refinement size")
+                                    raise DecodeError("corrupt JPEG data: refinement size")
                                 s = p1 if (win[pos >> 3] >> (63 - (pos & 7))) & 1 else m1
                                 pos += 1
                             elif r != 15:
@@ -776,7 +769,7 @@ def _decode_scan(frame: _Frame, comps, dc_luts, ac_luts, ss, se, ah, al, segs, r
                                 k += 1
                             if s:
                                 if k > se:
-                                    raise ValueError("corrupt JPEG data: coefficient past the band")
+                                    raise DecodeError("corrupt JPEG data: coefficient past the band")
                                 co[base + k] = s
                             k += 1
                     if eobrun:  # the band's rest: correction bits only
@@ -789,7 +782,7 @@ def _decode_scan(frame: _Frame, comps, dc_luts, ac_luts, ss, se, ah, al, segs, r
                             k += 1
                         eobrun -= 1
         if pos > 8 * len(segs[seg_i]) + 64:
-            raise ValueError("JPEG scan data ends early")
+            raise DecodeError("JPEG scan data ends early")
 
 
 # jidctint.c: CONST_BITS 13, PASS1_BITS 2, the FIX_* constants
@@ -874,19 +867,17 @@ def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """JPEG bytes -> (H, W, C) uint8 in the file's colour space converted as
-    libjpeg converts it: C = 1 (grey) or 3 (RGB, from YCbCr unless the
-    file is RGB). Huffman-coded baseline, extended sequential and
-    progressive, 8-bit, 1 or 3 components, any sampling factors, restart
-    intervals. Arithmetic coding, 12-bit samples, lossless and hierarchical
-    frames and CMYK / YCCK raise NotImplementedError naming ROADMAP A.1."""
+def read_jpeg(data: bytes) -> tuple[_Frame, bool, int | None]:
+    """Parse a JPEG and entropy-decode every scan: (the frame, with its
+    coefficient stores or, lossless, its samples; whether a JFIF marker was
+    seen; the Adobe transform, None without an Adobe marker)."""
     if not data.startswith(b"\xff\xd8"):
-        raise ValueError("not a JPEG image")
+        raise DecodeError("not a JPEG image")
     pos = 2
     frame = None
     qt: dict[int, np.ndarray] = {}
     dht: dict[tuple[int, int], list[int]] = {}
+    cond: dict = {}  # DAC: ("dc", t) -> (L, U), ("ac", t) -> Kx
     restart = 0
     jfif, adobe = False, None
     while True:
@@ -895,7 +886,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         while pos < len(data) and data[pos] == 0xFF:
             pos += 1
         if pos >= len(data):
-            raise ValueError("JPEG without EOI")
+            raise DecodeError("JPEG without EOI")
         marker = data[pos]
         pos += 1
         if marker == 0xD9:
@@ -903,20 +894,18 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         if 0xD0 <= marker <= 0xD8 or marker == 0x01:
             continue  # parameterless markers
         if pos + 2 > len(data):
-            raise ValueError("truncated JPEG segment")
+            raise DecodeError("truncated JPEG segment")
         (length,) = struct.unpack(">H", data[pos:pos + 2])
         body = data[pos + 2:pos + length]
         if len(body) != length - 2:
-            raise ValueError("truncated JPEG segment")
+            raise DecodeError("truncated JPEG segment")
         pos += length
-        if marker in _JPEG_SOF:
+        if marker in _JPEG_SOF or marker in _JPEG_UNSUPPORTED_SOF:
             if frame is not None:
-                raise ValueError("JPEG with two frames")
-            frame = _Frame(body, _JPEG_SOF[marker])
-        elif marker in _JPEG_OTHER_SOF:
-            raise _jpeg_unported(_JPEG_OTHER_SOF[marker])
-        elif marker == 0xCC:
-            raise _jpeg_unported("arithmetic-coded")
+                raise DecodeError("JPEG with two frames")
+            frame = _Frame(body, _JPEG_SOF.get(marker, (False, False, False)))
+            if marker in _JPEG_UNSUPPORTED_SOF:  # PIL opens it; libjpeg-turbo fails the load
+                raise DecodeError(f"{_JPEG_UNSUPPORTED_SOF[marker]} JPEG: broken data stream")
         elif marker == 0xDB:
             i = 0
             while i < len(body):
@@ -935,6 +924,17 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 n = sum(bits)
                 dht[(tc_th >> 4, tc_th & 15)] = _huffman_lut(bits, body[i + 17:i + 17 + n])
                 i += 17 + n
+        elif marker == 0xCC:
+            for i in range(0, len(body) - 1, 2):
+                t, val = body[i], body[i + 1]
+                if t >= 32:
+                    raise DecodeError("corrupt JPEG DAC table index")
+                if t >= 16:
+                    cond[("ac", t - 16)] = val
+                else:
+                    if val & 15 > val >> 4:
+                        raise DecodeError("corrupt JPEG DAC conditioning")
+                    cond[("dc", t)] = (val & 15, val >> 4)
         elif marker == 0xDD:
             (restart,) = struct.unpack(">H", body[:2])
         elif marker == 0xE0 and body.startswith(b"JFIF\x00"):
@@ -943,58 +943,110 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             adobe = body[11]
         elif marker == 0xDA:
             if frame is None:
-                raise ValueError("JPEG scan before its frame")
+                raise DecodeError("JPEG scan before its frame")
             ns = body[0]
-            comps, dc_luts, ac_luts = [], [], []
+            comps, tables = [], []
             for j in range(ns):
-                cid, tables = body[1 + 2 * j], body[2 + 2 * j]
+                cid, sel = body[1 + 2 * j], body[2 + 2 * j]
                 if cid not in frame.ids:
-                    raise ValueError(f"JPEG scan names no component {cid}")
+                    raise DecodeError(f"JPEG scan names no component {cid}")
                 c = frame.ids.index(cid)
                 comps.append(c)
-                if frame.quant[c] is None:  # latched at the component's first scan
+                tables.append((sel >> 4, sel & 15))
+                if frame.quant[c] is None and not frame.lossless:  # latched at its first scan
                     if frame.tq[c] not in qt:
-                        raise ValueError("JPEG component without a quantisation table")
+                        raise DecodeError("JPEG component without a quantisation table")
                     frame.quant[c] = qt[frame.tq[c]]
-                dc_luts.append(dht.get((0, tables >> 4)))
-                ac_luts.append(dht.get((1, tables & 15)))
             ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
             ah, al = a >> 4, a & 15
+            segs, pos = _entropy_segments(data, pos)
+            if frame.lossless:
+                luts = [dht.get((0, t)) for t, _ in tables]
+                if None in luts:
+                    raise DecodeError("JPEG scan without its Huffman table")
+                jpeg_lossless.decode_scan(frame, comps, luts, ss, al, segs, restart, _bit_windows, _receive)
+                continue
             if not frame.progressive:
                 ss, se, ah, al = 0, 63, 0, 0
             elif ss > se or se > 63 or (ss == 0 and se != 0) or (ss > 0 and ns != 1):
-                raise ValueError("corrupt JPEG progressive scan parameters")
+                raise DecodeError("corrupt JPEG progressive scan parameters")
+            if frame.arithmetic:
+                jpeg_arith.decode_scan(frame, comps, [t for t, _ in tables], [t for _, t in tables],
+                                       ss, se, ah, al, segs, restart, cond)
+                continue
+            dc_luts = [dht.get((0, t)) for t, _ in tables]
+            ac_luts = [dht.get((1, t)) for _, t in tables]
             if (ss == 0 and ah == 0 and None in dc_luts) or (se > 0 and None in ac_luts):
-                raise ValueError("JPEG scan without its Huffman table")
-            segs, pos = _entropy_segments(data, pos)
+                raise DecodeError("JPEG scan without its Huffman table")
             _decode_scan(frame, comps, dc_luts, ac_luts, ss, se, ah, al, segs, restart)
     if frame is None:
-        raise ValueError("JPEG without a frame")
-    if any(q is None for q in frame.quant):
-        raise ValueError("JPEG component without a scan")
+        raise DecodeError("JPEG without a frame")
+    if frame.lossless:
+        if any(p is None for p in frame.samples):
+            raise DecodeError("JPEG component without a scan")
+    elif any(q is None for q in frame.quant):
+        raise DecodeError("JPEG component without a scan")
+    return frame, jfif, adobe
+
+
+def decode_jpeg(data: bytes, colour: str | None = None) -> np.ndarray:
+    """JPEG bytes -> (H, W, C) uint8 in the colour space libjpeg converts
+    the file to for PIL: C = 1 (grey), 3 (RGB, from YCbCr unless the file is
+    RGB) or 4 (CMYK, from YCCK where an Adobe marker says so). Huffman or
+    arithmetic coding, baseline, extended sequential and progressive, and
+    8-bit lossless (no colour conversion: libjpeg-turbo refuses one); any
+    integral sampling factors; restart intervals. 12-bit and other
+    precisions raise NotThisFormat (no format PIL reads); hierarchical and
+    arithmetic lossless frames raise DecodeError, as libjpeg-turbo fails
+    them. `colour` overrides libjpeg's colour-space guess as libtiff does
+    for a JPEG-compressed TIFF: "ycc" converts YCbCr to RGB, "raw" keeps
+    the components as they are."""
+    frame, jfif, adobe = read_jpeg(data)
+    n = len(frame.ids)
     planes = []
-    for c in range(len(frame.ids)):
+    for c in range(n):
         if frame.hmax % frame.h[c] or frame.vmax % frame.v[c]:
-            raise _jpeg_unported("non-integral sampling ratio")
-        p = _upsample(_component_plane(frame, c), frame.hmax // frame.h[c], frame.vmax // frame.v[c])
+            raise DecodeError("JPEG with a non-integral sampling ratio: libjpeg-turbo does not decode it")
+        fx, fy = frame.hmax // frame.h[c], frame.vmax // frame.v[c]
+        if frame.lossless:  # no IDCT; libjpeg-turbo never upsamples fancily here
+            p = np.repeat(np.repeat(frame.samples[c].astype(np.int32), fy, 0), fx, 1)
+        else:
+            p = _upsample(_component_plane(frame, c), fx, fy)
         planes.append(p[:frame.height, :frame.width])
-    if len(planes) == 1:
+    if n == 1:
         return planes[0].astype(np.uint8)[..., None]
-    if jfif:
-        ycc = True
-    elif adobe is not None:
-        ycc = adobe != 0
+    # libjpeg's colour-space guess (jdapimin.c default_decompress_parms)
+    if colour is not None:
+        ycc = colour == "ycc"
+    elif n == 3:
+        if jfif:
+            ycc = True
+        elif adobe is not None:
+            ycc = adobe != 0
+        else:  # the component ids: "RGB" is RGB, anything else YCbCr (RGB if lossless)
+            ycc = tuple(frame.ids) != (82, 71, 66) and not frame.lossless
     else:
-        ycc = tuple(frame.ids) != (82, 71, 66)
-    if ycc:
-        return _ycc_to_rgb(*planes)
+        ycc = adobe is not None and adobe != 0  # YCCK; CMYK without an Adobe marker
+    if ycc and frame.lossless:
+        raise DecodeError("lossless JPEG with a colour transform: libjpeg-turbo cannot convert it")
+    if n == 3:
+        return _ycc_to_rgb(*planes) if ycc else np.stack(planes, -1).astype(np.uint8)
+    if ycc:  # jdcolor.c ycck_cmyk_convert: 255 - the YCbCr -> RGB result, K as it is
+        cmy = 255 - _ycc_to_rgb(*planes[:3]).astype(np.int32)
+        return np.concatenate([cmy, planes[3][..., None]], -1).astype(np.uint8)
     return np.stack(planes, -1).astype(np.uint8)
 
 
 def rgb8_from_jpeg(data: bytes) -> np.ndarray:
-    """JPEG bytes -> (H, W, 3) uint8, as PIL's convert("RGB") gives it."""
+    """JPEG bytes -> (H, W, 3) uint8, as PIL's convert("RGB") gives it: grey
+    replicated; CMYK read inverted (PIL's CMYK;I) and converted as PIL's
+    cmyk2rgb converts it."""
     px = decode_jpeg(data)
-    return np.repeat(px, 3, axis=-1) if px.shape[-1] == 1 else px
+    if px.shape[-1] == 1:
+        return np.repeat(px, 3, axis=-1)
+    if px.shape[-1] == 4:
+        return cmyk_rgb(255 - px)
+    return px
 
 
 # ---- Radiance .hdr (RGBE) ---------------------------------------------------

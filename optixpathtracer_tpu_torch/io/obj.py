@@ -6,7 +6,7 @@ MATERIAL ID (:166-201), vertices deduplicated by (v, vn, vt) index triplet
 (addVertex :51-84); materials take only diffuse + emission from the MTL
 (:189-190, everything else keeps Disney defaults); diffuse textures loaded
 with a vertical flip (loadTexture :88-135, backslash fixing :100-103)
-through the port's own PNG and JPEG decoders (io/image.py `load_image`).
+through the port's own image decoders (io/image.py `load_image`).
 
 `load_obj` tokenizes with the native C++ parser (io/native.py, the port's
 copy of the reference's objparser.cpp) and assembles the meshes in numpy,
@@ -143,6 +143,11 @@ def _find_mtllibs(path: str) -> list[str]:
     return libs
 
 
+class _TextureError(Exception):
+    """A map_Kd that does not decode, carried past the native path's
+    fallback (its cause is the decoder's own error)."""
+
+
 def _load_obj_native(path: str) -> HostScene | None:
     """C++ tokenizer + vectorised numpy assembly (the Python parser's
     semantics: per-(shape, material) split, triplet dedupe); None under
@@ -201,7 +206,10 @@ def _load_obj_native(path: str) -> HostScene | None:
             else:
                 tex_path = os.path.join(obj_dir, tex_name.replace("\\", "/"))
                 if os.path.exists(tex_path):
-                    tex_id = scene.add_texture(load_image(tex_path, flip_y=True))
+                    try:
+                        tex_id = scene.add_texture(load_image(tex_path, flip_y=True))
+                    except Exception as e:
+                        raise _TextureError from e
                 known_textures[tex_name] = tex_id
         scene.add_mesh(
             Mesh(
@@ -221,7 +229,8 @@ def load_obj(path: str, prefer_native: bool = True) -> HostScene:
     Tokenizes with the native C++ parser (built at first use; a failed build
     raises) unless OPTIX_TPU_NO_NATIVE=1 or `prefer_native=False`; a file
     the native path cannot assemble falls back to the Python parser, as in
-    the reference."""
+    the reference. A texture that does not decode raises the decoder's own
+    error (as the reference's PIL does) on either path, decoded once."""
     if prefer_native:
         from .native import get_lib
 
@@ -232,8 +241,10 @@ def load_obj(path: str, prefer_native: bool = True) -> HostScene:
                 return scene
         except FileNotFoundError:
             raise
+        except _TextureError as e:
+            raise e.__cause__ from None  # the decoder's error, once: no second decode in Python
         except Exception:
-            pass  # any native-path problem falls back to the Python parser
+            pass  # any other native-path problem falls back to the Python parser
     return _load_obj_python(path)
 
 

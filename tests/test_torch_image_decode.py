@@ -149,6 +149,11 @@ def test_jpeg_sampling_factors(hy, vy, size):
 
 
 def test_unported_formats_raise_naming_a1():
+    """What this test once held unported now decodes as PIL does (arithmetic
+    and CMYK JPEG, BMP, GIF, TIFF, WebP; tests/test_torch_codecs_*.py case
+    by case); a format PIL reads and the port does not still raises A.1;
+    what PIL cannot read (a 12-bit JPEG, bytes of no format) raises an
+    OSError as PIL's UnidentifiedImageError is one."""
     base = _pil_jpeg(_photo(16, 16, 7), quality=75)
     sof = base.index(b"\xff\xc0")
     arithmetic = base[:sof] + b"\xff\xc9" + base[sof + 2:]
@@ -156,17 +161,23 @@ def test_unported_formats_raise_naming_a1():
     buf = io.BytesIO()
     Image.fromarray(_photo(16, 16, 7)).convert("CMYK").save(buf, format="JPEG")
     cmyk = buf.getvalue()
-    for data, what in ((arithmetic, "arithmetic"), (twelve_bit, "12-bit"), (cmyk, "CMYK")):
-        with pytest.raises(NotImplementedError, match=f"{what}.*A.1"):
-            timg.rgb8_from_bytes(data)
+    for data in (arithmetic, cmyk):
+        _assert_decodes_like_pil(data)
     for fmt in ("BMP", "GIF", "TIFF", "WEBP"):
         buf = io.BytesIO()
         Image.fromarray(_photo(8, 8, 9)).save(buf, format=fmt)
-        assert _pil(buf.getvalue()).shape == (8, 8, 3)  # PIL reads it
-        with pytest.raises(NotImplementedError, match="A.1"):
-            timg.rgb8_from_bytes(buf.getvalue())
-    with pytest.raises(ValueError, match="not a PNG or JPEG"):
-        timg.rgb8_from_bytes(b"no image format" + bytes(20))
+        assert _pil(buf.getvalue()).shape == (8, 8, 3)  # PIL reads it, and so does the port
+        _assert_decodes_like_pil(buf.getvalue())
+    buf = io.BytesIO()
+    Image.fromarray(_photo(8, 8, 9)).convert("1").save(buf, format="MSP")
+    assert _pil(buf.getvalue()).shape == (8, 8, 3)
+    with pytest.raises(NotImplementedError, match="MSP.*A.1"):
+        timg.rgb8_from_bytes(buf.getvalue())
+    for data in (twelve_bit, b"no image format" + bytes(20)):
+        with pytest.raises(OSError, match="cannot identify"):
+            _pil(data)
+        with pytest.raises(OSError, match="cannot identify"):
+            timg.rgb8_from_bytes(data)
 
 
 # ---- PNG ----------------------------------------------------------------------
@@ -288,8 +299,16 @@ def test_obj_map_kd_jpeg_and_16_bit_png_equal_to_jax(tmp_path, ext):
 
 
 def test_gltf_arithmetic_jpeg_raises(tmp_path):
+    """An arithmetic-coded JPEG once raised A.1 here; it now loads to the JAX
+    loader's scene (its PIL decodes the texture), array for array. A
+    12-bit one, which PIL cannot read, gives both loaders' factor-only
+    material with a warning."""
     base = _pil_jpeg(_photo(8, 8, 12), quality=75)
     sof = base.index(b"\xff\xc0")
     path = _textured_glb(tmp_path / "arith.glb", base[:sof] + b"\xff\xc9" + base[sof + 2:])
-    with pytest.raises(NotImplementedError, match="A.1"):
-        tgltf.load_gltf(path)
+    got, _ = _assert_same_gltf(path)
+    assert len(got.textures) == 1
+    path = _textured_glb(tmp_path / "twelve.glb", base[:sof + 4] + b"\x0c" + base[sof + 5:])
+    with pytest.warns(UserWarning, match="undecodable"):
+        got, _ = _assert_same_gltf(path)
+    assert not got.textures and got.meshes[0].material["texture_id"] == -1

@@ -179,8 +179,10 @@ def test_pfm_round_trip(tmp_path):
 
 def test_unported_formats_raise(tmp_path):
     """The formats this test once held unported now decode as PIL does
-    (tests/test_torch_image_decode.py covers them case by case); an
-    arithmetic-coded JPEG still raises, naming A.1."""
+    (tests/test_torch_image_decode.py and tests/test_torch_codecs_*.py
+    cover them case by case), an arithmetic-coded JPEG too; a format PIL
+    reads and the port does not (XBM here) raises NotImplementedError
+    naming A.1."""
     rng = np.random.default_rng(5)
     px = rng.integers(0, 256, (6, 8, 3), dtype=np.uint8)
     buf16, jpg = io.BytesIO(), io.BytesIO()
@@ -202,7 +204,11 @@ def test_unported_formats_raise(tmp_path):
     np.testing.assert_array_equal(timg.load_image(path), jimg.load_image(path))
     sof = jpg.getvalue().index(b"\xff\xc0")
     arithmetic = jpg.getvalue()[:sof] + b"\xff\xc9" + jpg.getvalue()[sof + 2:]
-    with pytest.raises(NotImplementedError, match="arithmetic.*A.1"):
-        timg.rgb8_from_bytes(arithmetic)
+    np.testing.assert_array_equal(timg.rgb8_from_bytes(arithmetic), _pil_rgb(arithmetic))
+    xbm = io.BytesIO()
+    Image.fromarray(px).convert("1").save(xbm, format="XBM")
+    assert _pil_rgb(xbm.getvalue()).shape == (6, 8, 3)  # PIL reads it
+    with pytest.raises(NotImplementedError, match="XBM.*A.1"):
+        timg.rgb8_from_bytes(xbm.getvalue())
     with pytest.raises(ValueError, match="not a PNG"):
         timg.rgb8_from_png(b"GIF89a" + bytes(40))

@@ -1,0 +1,166 @@
+"""Write the texture fixtures of the port's codecs (tests/torch_fixtures/
+textures/) and their manifest: PIL's decode of each, as shape, per-channel
+sums and the SHA-256 of the uint8 RGB bytes.
+
+The loft's three textures (scenes/loft_tex*.png) in three lossless formats
+(TGA RLE, TIFF LZW, WebP lossless) and in a lossy set (WebP lossy, DDS BC1,
+arithmetic-coded JPEG); then one small image for each other variant the
+port decodes. PIL writes what it can write; tests/torch_codec_encoders.py
+writes the rest (arithmetic, lossless and YCCK JPEG, RLE BMP, colour-mapped
+TGA, GIF with an offset frame, PSD, RLE SGI, JPEG-in-TIFF, CUR, a WebP
+animation, BC6H, a VP8 frame with the simple filter and four partitions). chip_smoke.py's `codecs_scene` decodes every fixture on a
+machine without PIL and holds it to the manifest; the CPU tests decode the
+committed files with PIL and hold the manifest to them.
+
+Run from the repository root: python tests/torch_fixtures/make_textures.py
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(os.path.dirname(HERE))
+OUT = os.path.join(HERE, "textures")
+MANIFEST = os.path.join(OUT, "manifest.json")
+LOSSLESS = {"loft_tex0.png": "loft_tex0.tga", "loft_tex1.png": "loft_tex1.tif", "loft_tex2.png": "loft_tex2.webp"}
+LOSSY = {"loft_tex0.png": "loft_tex0_lossy.webp", "loft_tex1.png": "loft_tex1_bc1.dds",
+         "loft_tex2.png": "loft_tex2_arith.jpg"}
+
+
+def digest(rgb: np.ndarray) -> dict:
+    """What the manifest keeps of one decode."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    return {"shape": list(rgb.shape), "sums": rgb.reshape(-1, 3).sum(0, dtype=np.int64).tolist(),
+            "sha256": hashlib.sha256(rgb.tobytes()).hexdigest()}
+
+
+def _fixtures() -> dict[str, bytes]:
+    sys.path.insert(0, os.path.dirname(HERE))
+    sys.path.insert(0, REPO)
+    from PIL import Image
+
+    import torch_codec_encoders as enc
+
+    def pil(img, fmt, mode=None, **kw):
+        return enc.pil_bytes(img, fmt, mode, **kw)
+
+    out = {}
+    for png, name in LOSSLESS.items():
+        img = Image.open(os.path.join(REPO, "scenes", png)).convert("RGB")
+        kw = {"tga": dict(compression="tga_rle"), "tif": dict(compression="tiff_lzw"),
+              "webp": dict(lossless=True)}[name.rsplit(".", 1)[1]]
+        out[name] = pil(img, {"tga": "TGA", "tif": "TIFF", "webp": "WEBP"}[name.rsplit(".", 1)[1]], **kw)
+    for png, name in LOSSY.items():
+        img = Image.open(os.path.join(REPO, "scenes", png)).convert("RGB")
+        if name.endswith(".webp"):
+            out[name] = pil(img, "WEBP", quality=80)
+        elif name.endswith(".dds"):
+            out[name] = pil(img, "DDS", pixel_format="DXT1")
+        else:
+            out[name] = enc.arith_jpeg(pil(img, "JPEG", quality=90))
+    rng = np.random.default_rng(17)
+    ph = enc.photo(37, 45, 1)
+    ph4 = enc.photo(37, 45, 2, 4)
+    idx = rng.integers(0, 16, (23, 31))
+    idx[5:9] = idx[5]
+    pal = rng.integers(0, 256, (16, 3))
+    out["bmp_rle4.bmp"] = enc.bmp_file(enc.bmp_rle(idx, True), 31, 23, 4, compression=2, palette=pal)
+    out["bmp_rle8.bmp"] = enc.bmp_file(enc.bmp_rle(idx * 9, False), 31, 23, 8, compression=1,
+                                       palette=rng.integers(0, 256, (256, 3)))
+    px565 = rng.integers(0, 256, 23 * 64, dtype=np.uint8).tobytes()
+    out["bmp_565_topdown.bmp"] = enc.bmp_file(px565, 31, 23, 16, 124, 3, masks=(0xF800, 0x7E0, 0x1F, 0),
+                                              top_down=True)
+    out["bmp_os2_8.bmp"] = enc.bmp_file(rng.integers(0, 256, 32 * 5, dtype=np.uint8).tobytes(), 29, 5, 8, 12,
+                                        palette=rng.integers(0, 256, (256, 3)))
+    out["tga_cmap16_rle.tga"] = enc.tga_file((idx * 3).astype(np.uint8), 9, 8,
+                                             rng.integers(0, 256, (60, 2), dtype=np.uint8), 16, cmap_start=2,
+                                             origin=0x20, image_id=b"fixture", rng=rng)
+    out["tga_grey_mirrored.tga"] = enc.tga_file(ph[..., 0], 3, 8, origin=0x10)
+    out["gif_offset_interlaced.gif"] = enc.gif_file(idx, pal, (40, 30), at=(5, 3), local=True, interlace=True,
+                                                    transparency=2, clear_every=200)
+    out["gif_pil.gif"] = pil(ph, "GIF")
+    out["pnm_p6_maxval100.ppm"] = b"P6\n# a comment\n45 37\n100\n" + (ph.astype(np.int64) * 100 // 255).astype(
+        np.uint8).tobytes()
+    out["pnm_p2_16bit.pgm"] = b"P2 5 3 1000\n" + b" ".join(b"%d" % v for v in rng.integers(0, 1001, 15)) + b"\n"
+    out["pnm_p4.pbm"] = pil(ph, "PPM", "1")
+    out["dds_bc3.dds"] = pil(Image.fromarray(ph4, "RGBA"), "DDS", pixel_format="DXT5")
+    bc7 = rng.integers(0, 256, (12 * 10, 16), dtype=np.uint8)
+    for i in range(len(bc7)):
+        m = i % 8
+        bc7[i, 0] = (int(bc7[i, 0]) & (0xFF ^ ((1 << (m + 1)) - 1))) | (1 << m)
+    out["dds_bc7_modes.dds"] = enc.dds_file(45, 37, bc7.tobytes(), dxgi=98)
+    out["dds_bc5s.dds"] = enc.dds_file(16, 8, rng.integers(0, 256, 8 * 16, dtype=np.uint8).tobytes(), b"BC5S")
+    out["dds_rgb565.dds"] = enc.dds_file(9, 7, rng.integers(0, 256, 126, dtype=np.uint8).tobytes(), pf_flags=0x40,
+                                         bitcount=16, masks=(0xF800, 0x7E0, 0x1F, 0))
+    out["tiff_deflate_tiles_planar.tif"] = enc.tiff_file(ph, 8, 2, "<", 8, predictor=2, planar=2, tile=(16, 16))
+    out["tiff_packbits_palette_mm.tif"] = enc.tiff_file(idx[..., None], 4, 3, ">", 32773, rows_per_strip=5,
+                                                        colormap=rng.integers(0, 65536, (16, 3)))
+    out["tiff_lzw_rgba16_assoc.tif"] = enc.tiff_file(
+        np.minimum(ph4.astype(np.uint64) * 257, (ph4[..., 3:4].astype(np.uint64) * 257)), 16, 2, "<", 5,
+        predictor=2, rows_per_strip=8, extra=(1,))
+    out["tiff_cmyk.tif"] = pil(ph, "TIFF", "CMYK", compression="tiff_lzw")
+    out["tiff_float_bigtiff.tif"] = enc.tiff_file((ph[..., :1].astype(np.float32) * 1.3 - 20), 32, 1, "<", 8,
+                                                  sample_format=3, big=True)
+    strips = [pil(ph[y:y + 16], "JPEG", quality=85, subsampling=2) for y in range(0, 37, 16)]
+    out["tiff_jpeg_ycbcr.tif"] = enc.tiff_file(np.zeros((37, 45, 3), np.uint8), 8, 6, "<", 7, rows_per_strip=16,
+                                               jpeg_chunks=strips, extra_tags={530: (3, [2, 2])})
+    frames = [pil(enc.photo(10, 14, s), "WEBP", quality=70) for s in range(2)]
+    out["webp_anim_offset.webp"] = enc.webp_animation((30, 21), [(frames[0], 6, 4, 14, 10), (frames[1], 0, 0, 14, 10)])
+    out["webp_lossy_alpha.webp"] = pil(Image.fromarray(ph4, "RGBA"), "WEBP", quality=60)
+    out["webp_lossless_palette.webp"] = pil(Image.fromarray(pal.astype(np.uint8)[idx]), "WEBP", lossless=True)
+    base = pil(ph, "JPEG", quality=75, subsampling=1)
+    out["jpeg_arith_progressive_restart.jpg"] = enc.arith_jpeg(base, progressive=True, restart_mcus=2,
+                                                               dac=(1, 4, 3))
+    cmyk = pil(ph, "JPEG", "CMYK", quality=80)
+    out["jpeg_cmyk.jpg"] = cmyk
+    i = cmyk.index(b"Adobe")
+    out["jpeg_ycck.jpg"] = cmyk[:i + 11] + b"\x02" + cmyk[i + 12:]
+    out["jpeg_lossless.jpg"] = enc.lossless_jpeg(ph, 6, restart_rows=8)
+    out["psd_rgb_rle.psd"] = enc.psd_file([ph[..., c] for c in range(3)], 3, 8, 1)
+    out["psd_cmyk.psd"] = enc.psd_file([ph4[..., c] for c in range(4)], 4, 8, 0)
+    out["qoi_rgba.qoi"] = pil(Image.fromarray(ph4, "RGBA"), "QOI")
+    out["sgi_rle16.sgi"] = enc.sgi_rle(ph.astype(np.uint16) * 257 + 1, 2)
+    out["sgi_raw.sgi"] = pil(ph, "SGI")
+    out["pcx_rgb.pcx"] = pil(ph, "PCX")
+    out["pcx_palette.pcx"] = pil(ph, "PCX", "P")
+    out["ico_png_bmp.ico"] = pil(Image.fromarray(enc.photo(32, 32, 5, 4), "RGBA"), "ICO",
+                                 sizes=[(16, 16), (32, 32)], bitmap_format="bmp")
+    out["cur_two.cur"] = enc.cur_file([(8, 8, 24), (16, 16, 8)], rng)
+    rng2 = np.random.default_rng(18)
+    bc6 = rng2.integers(0, 256, (12 * 10, 16), dtype=np.uint8)
+    lows = [0, 1] + [2 + 4 * k for k in range(8)] + [3 + 4 * k for k in range(4)]
+    bc6[:, 0] = [(int(b) & (0xE0 if lows[i % 14] > 1 else 0xFC)) | lows[i % 14] for i, b in enumerate(bc6[:, 0])]
+    out["dds_bc6h_sf16.dds"] = enc.dds_file(45, 37, bc6.tobytes(), dxgi=96)
+    out["webp_vp8_simple_partitions.webp"] = enc.webp_vp8(enc.vp8_frame(
+        45, 37, rng2, simple=1, level=25, sharpness=3, log2_parts=2,
+        segments=(1, 0, [0, 12, -9, 30], [0, 6, -4, 15], [90, 160, 220]), lf_delta=([4, 0, 0, 0], [-3, 0, 0, 0]),
+        quant=(30, 2, -3, 4, -5, 6), big=0.03, big_max=40))
+    return out
+
+
+def main() -> None:
+    sys.path.insert(0, os.path.dirname(HERE))
+    sys.path.insert(0, REPO)
+    from torch_codec_encoders import pil_rgb
+
+    os.makedirs(OUT, exist_ok=True)
+    manifest = {}
+    for name, data in _fixtures().items():
+        with open(os.path.join(OUT, name), "wb") as f:
+            f.write(data)
+        group = "loft_lossless" if name in LOSSLESS.values() else "loft_lossy" if name in LOSSY.values() \
+            else "variant"
+        manifest[name] = {"group": group, "bytes": len(data), **digest(pil_rgb(data))}
+    with open(MANIFEST, "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+        f.write("\n")
+    print(f"{len(manifest)} fixtures, {sum(m['bytes'] for m in manifest.values())} bytes")
+
+
+if __name__ == "__main__":
+    main()
