@@ -170,13 +170,20 @@ port's paths and checks that each went through its kernels:
      `jpeg_scene`; `--only codecs` runs the build and this alone): every
      fixture of tests/torch_fixtures/textures decoded on this machine's
      host (no PIL) and held to its manifest (shape, channel sums, SHA-256
-     of PIL's decode), each decode timed; the loft with its textures as
-     TGA RLE, TIFF LZW and WebP lossless through `load_obj`, its texture
-     arrays equal to the PNG loft's and its card frame at JPEG_RENDER equal
-     to the PNG loft's card frame bit for bit; the loft with WebP lossy,
-     DDS BC1 and arithmetic JPEG textures, its card frame against the
-     port's CPU frame within JPEG_RENDER_TOL; K1 / K2 / K3 launched on the
-     flat walk by every card render.
+     of PIL's decode), each decode timed: the TIFF variants (CCITT,
+     ThunderScan, LZMA, old LZW, the float predictor, 12-bit, CIELAB, JPEG
+     CMYK, 16-bit planar tiles, orientations) and the raster formats (BLP,
+     FTEX, DCX, ICNS, SUN, XBM, XPM, MSP, IM, SPIDER, FITS, IPTC, PIXAR,
+     McIdas, GBR, XV thumbnails, IMT, CIELAB PSD) among them; the loft
+     with its textures as TGA RLE, TIFF LZW and WebP lossless, and again
+     as DCX, an LZMA TIFF stored transposed under orientation 5 and ICNS,
+     through `load_obj`, each set's texture arrays equal to the PNG loft's
+     and its card frame at JPEG_RENDER equal to the PNG loft's card frame
+     bit for bit; the loft with WebP lossy, DDS BC1 and arithmetic JPEG
+     textures, its card frame against the port's CPU frame within
+     JPEG_RENDER_TOL; K1 / K2 / K3 launched on the flat walk by every card
+     render (`codecs_scene` and `codecs_scene_lossless2` in the kernels
+     line's paths).
 
 The cull (K1) is held against its plain version and timed on both tables
 (cluster boxes and entry boxes on the city, entry boxes on the big scene)
@@ -3035,6 +3042,8 @@ CODEC_LOSSLESS = {"loft_tex0.png": "loft_tex0.tga", "loft_tex1.png": "loft_tex1.
                   "loft_tex2.png": "loft_tex2.webp"}  # tests/torch_fixtures/make_textures.py's sets
 CODEC_LOSSY = {"loft_tex0.png": "loft_tex0_lossy.webp", "loft_tex1.png": "loft_tex1_bc1.dds",
                "loft_tex2.png": "loft_tex2_arith.jpg"}
+CODEC_LOSSLESS2 = {"loft_tex0.png": "loft_tex0.dcx", "loft_tex1.png": "loft_tex1_orient5_lzma.tif",
+                   "loft_tex2.png": "loft_tex2.icns"}  # DCX, an LZMA TIFF stored transposed, ICNS
 
 
 def _loft_textured(tmp, names: dict):
@@ -3084,11 +3093,12 @@ def codecs_scene(dev, card, counts):
     """The port's own decoders of the texture formats beyond PNG and JPEG,
     on a machine without PIL: every fixture against tests/torch_fixtures/
     textures/manifest.json (PIL's decode: shape, channel sums, SHA-256),
-    timed on the host; the loft with a lossless set of formats (texture
-    arrays equal to the PNG loft's, the card frame equal to the PNG loft's
-    card frame bit for bit) and a lossy set (the card frame against the CPU
-    frame within JPEG_RENDER_TOL); K1 / K2 / K3 on the flat walk in every
-    card render. Returns the lossless loft render's launches."""
+    timed on the host; the loft with two lossless sets of formats (each
+    set's texture arrays equal to the PNG loft's, its card frame equal to
+    the PNG loft's card frame bit for bit) and a lossy set (the card frame
+    against the CPU frame within JPEG_RENDER_TOL); K1 / K2 / K3 on the flat
+    walk in every card render. Returns the two lossless loft renders'
+    launches."""
     import hashlib
 
     import torch
@@ -3112,20 +3122,21 @@ def codecs_scene(dev, card, counts):
             bad.append(name)
     scenes_by_kind, t_load = {}, {}
     for kind, names in (("png", {png: png for png in CODEC_LOSSLESS}), ("lossless", CODEC_LOSSLESS),
-                        ("lossy", CODEC_LOSSY)):
+                        ("lossless2", CODEC_LOSSLESS2), ("lossy", CODEC_LOSSY)):
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
             scenes_by_kind[kind] = _loft_textured(tmp, names)
             t_load[kind] = time.perf_counter() - t0
-    png_tex, lossless_tex = scenes_by_kind["png"].textures, scenes_by_kind["lossless"].textures
-    equal_textures = len(lossless_tex) == len(png_tex) == 3 and all(
-        np.array_equal(a, b) for a, b in zip(lossless_tex, png_tex))
+    png_tex = scenes_by_kind["png"].textures
+    equal_textures = {kind: len(scenes_by_kind[kind].textures) == len(png_tex) == 3 and all(
+        np.array_equal(a, b) for a, b in zip(scenes_by_kind[kind].textures, png_tex))
+        for kind in ("lossless", "lossless2")}
     frames, launches, frame_s = {}, {}, {}
-    for kind in ("lossless", "png", "lossy"):
+    for kind in ("lossless", "png", "lossless2", "lossy"):
         frames[kind], launches[kind], frame_s[kind] = _loft_frame(scenes_by_kind[kind], dev, counts)
         check_walk(f"codecs_scene ({kind})", launches[kind], "flat")
     cpu, _, frame_s["lossy_cpu"] = _loft_frame(scenes_by_kind["lossy"], torch.device("cpu"))
-    card_eq = bool(np.array_equal(frames["lossless"], frames["png"]))
+    card_eq = {kind: bool(np.array_equal(frames[kind], frames["png"])) for kind in ("lossless", "lossless2")}
     rmse = scenes.golden_rmse(frames["lossy"], cpu)
     emit("codecs_scene", fixtures=len(manifest), mismatched=bad, decode_ms=decode_ms,
          decode_ms_total=sum(decode_ms.values()), load_obj_s=t_load, loft_textures_equal_png=equal_textures,
@@ -3133,13 +3144,14 @@ def codecs_scene(dev, card, counts):
          **JPEG_RENDER, frame_s=frame_s, launches=launches, seconds=time.perf_counter() - t_all, card=card)
     if bad:
         raise AssertionError(f"codecs_scene: fixtures decoded unlike PIL: {bad}")
-    if not equal_textures:
-        raise AssertionError("codecs_scene: the lossless loft's textures differ from the PNG loft's")
-    if not card_eq:
-        raise AssertionError("codecs_scene: the lossless loft's card frame differs from the PNG loft's")
+    for kind in ("lossless", "lossless2"):
+        if not equal_textures[kind]:
+            raise AssertionError(f"codecs_scene: the {kind} loft's textures differ from the PNG loft's")
+        if not card_eq[kind]:
+            raise AssertionError(f"codecs_scene: the {kind} loft's card frame differs from the PNG loft's")
     if not rmse <= JPEG_RENDER_TOL:
         raise AssertionError(f"codecs_scene: lossy loft card against CPU RMSE {rmse} (limit {JPEG_RENDER_TOL})")
-    return launches["lossless"]
+    return launches["lossless"], launches["lossless2"]
 
 
 # ---- the scripts beside the package, as modules of the port ---------------
@@ -3810,8 +3822,9 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
 
     if args.only == "codecs":
         t1 = time.perf_counter()
-        launches = codecs_scene(dev, card, tc.launch_counts)
-        emit("codecs_phase", seconds=time.perf_counter() - t1, launches=launches, card=card)
+        launches, launches2 = codecs_scene(dev, card, tc.launch_counts)
+        emit("codecs_phase", seconds=time.perf_counter() - t1, launches=launches, launches_lossless2=launches2,
+             card=card)
         print(smi, flush=True)
         return 0
 
@@ -4018,7 +4031,7 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
     cornell_launches = cornell_slice(dev, card, tc.launch_counts)
     file_goldens(dev)
     jpeg_launches = jpeg_scene(dev, card, tc.launch_counts)
-    codecs_launches = codecs_scene(dev, card, tc.launch_counts)
+    codecs_launches, codecs2_launches = codecs_scene(dev, card, tc.launch_counts)
     torch.cuda.empty_cache()
 
     # ---- the instanced city (TLAS) through the CLI's renderer, and the CLI
@@ -4172,7 +4185,7 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
             "hello": hello_launches, "whitted": whitted_launches, "spectral": spectral_launches,
             "demand_loft": demand_loft_launches, "demand_big": demand_big_launches, "view": view_launches,
             **dist_runs, **bench_runs, **script_runs, "jpeg_scene": jpeg_launches, "codecs_scene": codecs_launches,
-            "big_slice": big_launches}
+            "codecs_scene_lossless2": codecs2_launches, "big_slice": big_launches}
     for run in runs.values():
         for name, k in run.items():
             launches[name] = launches.get(name, 0) + k

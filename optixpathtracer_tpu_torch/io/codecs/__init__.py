@@ -9,8 +9,11 @@ decoder that finds its header is not its format raises `NotThisFormat` and
 the walk goes on, as PIL goes on after a plugin's SyntaxError (TGA has no
 magic number and is told this way). A format PIL reads and the port does
 not raise NotImplementedError naming ROADMAP A.1; bytes that no format
-takes raise `UnidentifiedImageError`, an OSError as PIL's own is. Every
-decoder is host code over `bytes` and numpy: no image library."""
+takes raise `UnidentifiedImageError`, an OSError as PIL's own is. The
+formats PIL opens but cannot decode here (EPS without Ghostscript, WMF off
+Windows, the BUFR / GRIB / HDF5 stubs, MPEG) raise `DecodeError` with
+PIL's reason. Every decoder is host code over `bytes` and numpy: no image
+library."""
 from __future__ import annotations
 
 import importlib
@@ -36,6 +39,13 @@ def _image(func: str):
     """A decoder of io/image.py (PNG, JPEG), imported at its first call."""
     def call(data: bytes) -> np.ndarray:
         return getattr(importlib.import_module("..image", __package__), func)(data)
+    return call
+
+
+def _fails(reason: str):
+    """A format PIL opens and cannot decode: its decode raises PIL's reason."""
+    def call(data: bytes) -> np.ndarray:
+        raise DecodeError(reason)
     return call
 
 
@@ -78,7 +88,7 @@ def _spider(data: bytes) -> bool:
         h = (99.0,) + struct.unpack(order + "27f", data[:108])
         if not all(np.isfinite(h[i]) and float(h[i]).is_integer() for i in (1, 2, 5, 12, 13, 22, 23)):
             continue
-        if int(h[5]) in (1, 3, -11, -12, -21, -22) and int(h[22]) == int(h[13]) * int(h[23]):
+        if int(h[5]) in (1, 3, -11, -12, -21, -22) and int(h[22]) == int(h[13]) * int(h[23]) != 0:
             return int(h[5]) == 1
     return False
 
@@ -119,42 +129,44 @@ FORMATS = [
     ("PPM", lambda p: len(p) >= 2 and p[:1] == b"P" and p[1] in b"0123456fy", _codec("pnm")),
     ("PNG", _starts(b"\x89PNG\r\n\x1a\n"), _image("rgb8_from_png")),
     ("AVIF", _avif, None),
-    ("BLP", _starts(b"BLP1", b"BLP2"), None),
-    ("BUFR", _starts(b"BUFR", b"ZCZC"), None),
+    ("BLP", _starts(b"BLP1", b"BLP2"), _codec("blp")),
+    ("BUFR", _starts(b"BUFR", b"ZCZC"), _fails("cannot find loader for this BUFR file")),
     ("CUR", _starts(b"\0\0\2\0"), _codec("ico", "cur_rgb8")),
     ("PCX", lambda p: len(p) >= 2 and p[0] == 10 and p[1] in (0, 2, 3, 5), _codec("pcx")),
-    ("DCX", lambda p: _u32le(p) == 0x3ADE68B1, None),
+    ("DCX", lambda p: _u32le(p) == 0x3ADE68B1, _codec("pcx", "dcx_rgb8")),
     ("DDS", _starts(b"DDS "), _codec("dds")),
-    ("EPS", lambda p: p.startswith(b"%!PS") or _u32le(p) == 0xC6D3D0C5, None),
-    ("FITS", _starts(b"SIMPLE"), None),
-    ("FLI", _fli, None),
-    ("FTEX", _starts(b"FTEX"), None),
-    ("GBR", _gbr, None),
-    ("GRIB", lambda p: len(p) >= 8 and p.startswith(b"GRIB") and p[7] == 1, None),
-    ("HDF5", _starts(b"\x89HDF\r\n\x1a\n"), None),
+    ("EPS", lambda p: p.startswith(b"%!PS") or _u32le(p) == 0xC6D3D0C5,
+     _fails("Unable to locate Ghostscript on paths")),
+    ("FITS", _starts(b"SIMPLE"), _codec("fits")),
+    ("FLI", _fli, _codec("fli")),
+    ("FTEX", _starts(b"FTEX"), _codec("ftex")),
+    ("GBR", _gbr, _codec("gbr")),
+    ("GRIB", lambda p: len(p) >= 8 and p.startswith(b"GRIB") and p[7] == 1,
+     _fails("cannot find loader for this GRIB file")),
+    ("HDF5", _starts(b"\x89HDF\r\n\x1a\n"), _fails("cannot find loader for this HDF5 file")),
     ("JPEG2000", _starts(b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"), None),
-    ("ICNS", _starts(b"icns"), None),
+    ("ICNS", _starts(b"icns"), _codec("icns")),
     ("ICO", _starts(b"\0\0\1\0"), _codec("ico")),
-    ("IM", _im, None),
-    ("IMT", _imt, None),
-    ("IPTC", lambda p: len(p) >= 2 and p[0] == 0x1C and p[1] in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240), None),
-    ("MCIDAS", _starts(b"\x00\x00\x00\x00\x00\x00\x00\x04"), None),
-    ("MPEG", _starts(b"\x00\x00\x01\xb3"), None),
+    ("IM", _im, _codec("im")),
+    ("IMT", _imt, _codec("imt")),
+    ("IPTC", lambda p: len(p) >= 2 and p[0] == 0x1C and p[1] in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240), _codec("iptc")),
+    ("MCIDAS", _starts(b"\x00\x00\x00\x00\x00\x00\x00\x04"), _codec("mcidas")),
+    ("MPEG", _starts(b"\x00\x00\x01\xb3"), _fails("cannot load this image")),
     ("TIFF", _tiff_accept, _codec("tiff")),
-    ("MSP", _starts(b"DanM", b"LinS"), None),
-    ("PCD", lambda p: p[2048:2052] == b"PCD_", None),
-    ("PIXAR", _starts(b"\200\350\000\000"), None),
+    ("MSP", _starts(b"DanM", b"LinS"), _codec("msp")),
+    ("PCD", lambda p: p[2048:2052] == b"PCD_", _codec("pcd")),
+    ("PIXAR", _starts(b"\200\350\000\000"), _codec("pixar")),
     ("PSD", _starts(b"8BPS"), _codec("psd")),
     ("QOI", _starts(b"qoif"), _codec("qoi")),
     ("SGI", lambda p: len(p) >= 2 and p[0] == 1 and p[1] == 0xDA, _codec("sgi")),
-    ("SPIDER", _spider, None),
-    ("SUN", lambda p: _u32be(p) == 0x59A66A95, None),
+    ("SPIDER", _spider, _codec("spider")),
+    ("SUN", lambda p: _u32be(p) == 0x59A66A95, _codec("sun")),
     ("TGA", lambda p: True, _codec("tga")),
     ("WEBP", _webp_accept, _codec("webp")),
-    ("WMF", _starts(b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"), None),
-    ("XBM", lambda p: p[:16].lstrip().startswith(b"#define"), None),
-    ("XPM", _starts(b"/* XPM */"), None),
-    ("XVTHUMB", _starts(b"P7 332"), None),
+    ("WMF", _starts(b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"), _fails("cannot find loader for this WMF file")),
+    ("XBM", lambda p: p[:16].lstrip().startswith(b"#define"), _codec("xbm")),
+    ("XPM", _starts(b"/* XPM */"), _codec("xpm")),
+    ("XVTHUMB", _starts(b"P7 332"), _codec("xvthumb")),
 ]
 
 

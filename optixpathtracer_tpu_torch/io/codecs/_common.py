@@ -94,3 +94,34 @@ def cmyk_rgb(cmyk: np.ndarray) -> np.ndarray:
 def need(data: bytes, end: int, what: str) -> None:
     if len(data) < end:
         raise DecodeError(f"truncated {what} image")
+
+
+def raw_rows(data: bytes, pos: int, height: int, row_bytes: int, stride: int | None = None,
+             what: str = "image") -> np.ndarray:
+    """`height` rows of `row_bytes` bytes from data[pos], each `stride`
+    bytes apart (default: packed), as PIL's raw decoder reads them: the
+    last row needs no padding after it; fewer bytes raise DecodeError, as
+    PIL's "image file is truncated"."""
+    stride = row_bytes if stride is None else stride
+    end = pos + (height - 1) * stride + row_bytes if height else pos
+    if len(data) < end or pos < 0:
+        raise DecodeError(f"truncated {what} image data")
+    buf = np.frombuffer(data[pos:pos + height * stride].ljust(height * stride, b"\0"), np.uint8)
+    return buf.reshape(height, stride)[:, :row_bytes]
+
+
+def pil_palette(colours: np.ndarray) -> np.ndarray:
+    """A palette of n <= 256 RGB entries as PIL converts it to RGB: the
+    entries past n black."""
+    pal = np.zeros((256, 3), np.uint8)
+    colours = np.asarray(colours, np.uint8).reshape(-1, 3)[:256]
+    pal[:len(colours)] = colours
+    return pal
+
+
+def float_l(f: np.ndarray) -> np.ndarray:
+    """PIL's F -> L (then RGB): clipped into 0-255, then truncated toward
+    zero (Convert.c f2l via CLIP8); NaN 0."""
+    with np.errstate(invalid="ignore"):
+        g = np.where(f <= 0, 0, np.where(f >= 255, 255, f))
+    return np.nan_to_num(g, nan=0).astype(np.int64).astype(np.uint8)

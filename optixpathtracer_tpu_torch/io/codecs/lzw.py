@@ -1,10 +1,11 @@
-"""LZW, the two variants the ported formats use.
+"""LZW, the variants the ported formats use.
 
 GIF: codes LSB first, starting at min_code_size + 1 bits, clear = 2^min and
 end = clear + 1, the width growing once the next free code reaches 2^width
 (up to 12 bits, then no new entries until a clear). TIFF: codes MSB first
 from 9 bits, clear 256, end 257, the width growing one code early (the
-"early change" libtiff and every TIFF writer use). Both are sequential:
+"early change" libtiff and every TIFF writer use); the old-style TIFF
+codes LSB first, growing as GIF's do. All are sequential:
 a Python loop over 24-bit windows of the code stream, strings built by
 concatenation."""
 from __future__ import annotations
@@ -72,3 +73,10 @@ def gif_decode(data: bytes, min_size: int, limit: int) -> bytes:
 def tiff_decode(data: bytes, limit: int) -> bytes:
     """TIFF LZW (compression 5) -> the strip's bytes (at most about `limit`)."""
     return _run(data, 8, limit, msb=True, early=1)
+
+
+def tiff_old_decode(data: bytes, limit: int) -> bytes:
+    """Old-style TIFF LZW (libtiff's LZWDecodeCompat, told by a first code
+    of 256 written LSB first): codes LSB first from 9 bits, the width
+    growing as GIF's does."""
+    return _run(data, 8, limit, msb=False, early=0)

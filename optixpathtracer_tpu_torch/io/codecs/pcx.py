@@ -2,12 +2,12 @@
 4 bit planes of an EGA palette, 8-bit grey or palette (the 256-colour
 table at the end of the file, a grey ramp read as grey) and 24-bit
 (three planes a line); PCX's RLE per line, padded lines compacted as PIL
-compacts them."""
+compacts them. DCX: the first frame of the container."""
 from __future__ import annotations
 
 import numpy as np
 
-from ._common import DecodeError, NotThisFormat, grey_rgb, u16le
+from ._common import DecodeError, NotThisFormat, grey_rgb, u16le, u32le
 
 
 def _lines(data: bytes, pos: int, line: int, width: int, height: int) -> list[bytes]:
@@ -40,21 +40,23 @@ def _lines(data: bytes, pos: int, line: int, width: int, height: int) -> list[by
     return out
 
 
-def rgb8(data: bytes) -> np.ndarray:
-    if len(data) < 68:  # PIL's header read runs short: no PCX, the search goes on
+def rgb8(data: bytes, base: int = 0) -> np.ndarray:
+    """The PCX image whose header starts at data[base] (0, or a DCX
+    frame's offset); the 256-colour table is the file's last 769 bytes."""
+    if len(data) < base + 68:  # PIL's header read runs short: no PCX, the search goes on
         raise NotThisFormat("short PCX header")
-    x0, y0, x1, y1 = (u16le(data, 4 + 2 * i) for i in range(4))
+    x0, y0, x1, y1 = (u16le(data, base + 4 + 2 * i) for i in range(4))
     if x1 + 1 <= x0 or y1 + 1 <= y0:
         raise NotThisFormat("bad PCX image size")
     width, height = x1 + 1 - x0, y1 + 1 - y0
-    version, bits, planes, given = data[1], data[3], data[65], u16le(data, 66)
+    version, bits, planes, given = data[base + 1], data[base + 3], data[base + 65], u16le(data, base + 66)
     palette = None
     if bits == 1 and planes == 1:
         mode = "1"
     elif bits == 1 and planes in (2, 4):
         mode = "P;L"
         palette = np.zeros((256, 3), np.uint8)
-        palette[:16] = np.frombuffer(data[16:64], np.uint8).reshape(16, 3)
+        palette[:16] = np.frombuffer(data[base + 16:base + 64], np.uint8).reshape(16, 3)
     elif version == 5 and bits == 8 and planes == 1:
         mode = "L"
         tail = data[-769:]
@@ -69,7 +71,7 @@ def rgb8(data: bytes) -> np.ndarray:
     stride = (width * bits + 7) // 8
     if given != stride:
         stride += stride % 2
-    lines = _lines(data, 128, planes * stride, width, height)
+    lines = _lines(data, base + 128, planes * stride, width, height)
     rows = np.frombuffer(b"".join(lines), np.uint8).reshape(height, -1)
     if mode == "1":
         return grey_rgb(np.unpackbits(rows, axis=1)[:, :width] * np.uint8(255))
@@ -84,3 +86,11 @@ def rgb8(data: bytes) -> np.ndarray:
     if mode == "P":
         return palette[rows[:, :width]]
     return np.stack([rows[:, c * width:(c + 1) * width] for c in range(3)], -1)
+
+
+def dcx_rgb8(data: bytes) -> np.ndarray:
+    """Intel DCX, as PIL's DcxImagePlugin reads it: the first of up to 1024
+    frame offsets (a zero ends the table), a PCX image there."""
+    if len(data) < 8 or not u32le(data, 4):
+        raise DecodeError("DCX without frames")
+    return rgb8(data, u32le(data, 4))

@@ -4,14 +4,16 @@ Header comments, any whitespace, maxval 1-65535: samples are scaled by
 round(v / maxval * 255) (Python's rounding, half to even), 16-bit grey
 opens as PIL's mode I (scaled to 65535, or raw at maxval 65535) and clamps
 to 255 on the way to RGB; plain (ASCII) forms as PIL's plain decoder reads
-them. P7 (PAM) is not a format PIL reads."""
+them; PIL's own test modes P0CMYK / PyCMYK (CMYK), PyRGBA and PyP (a
+palette image without a palette: black). P7 (PAM) is not a format PIL
+reads."""
 from __future__ import annotations
 
 import re
 
 import numpy as np
 
-from ._common import DecodeError, NotThisFormat, grey_rgb, unported
+from ._common import DecodeError, NotThisFormat, cmyk_rgb, float_l, grey_rgb
 
 _WS = b"\x20\x09\x0a\x0b\x0c\x0d"
 _MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB",
@@ -101,8 +103,6 @@ def rgb8(data: bytes) -> np.ndarray:
         raise NotThisFormat("not a PPM file")
     mode = _MODES[magic]
     width, height = int(r.token()), int(r.token())
-    if mode in ("CMYK", "P", "RGBA"):
-        raise unported(f"PIL's test-only {magic.decode()} Netpbm")
     if mode == "F":
         scale = float(r.token())
         if scale == 0.0 or not np.isfinite(scale):
@@ -112,12 +112,9 @@ def rgb8(data: bytes) -> np.ndarray:
         if len(raw) < 4 * n:
             raise DecodeError("truncated PFM image")
         f = np.frombuffer(raw, "<f4" if scale < 0 else ">f4").reshape(height, width)[::-1]
-        # F -> L: clip, then truncate toward zero (Convert.c f2l via CLIP8)
-        with np.errstate(invalid="ignore"):
-            g = np.where(f <= 0, 0, np.where(f >= 255, 255, f))
-        return grey_rgb(np.nan_to_num(g, nan=0).astype(np.int64).astype(np.uint8))
+        return grey_rgb(float_l(f))
     plain = magic in (b"P1", b"P2", b"P3")
-    bands = 3 if mode == "RGB" else 1
+    bands = {"RGB": 3, "CMYK": 4, "RGBA": 4}.get(mode, 1)
     n = width * height * bands
     if mode == "1":
         if plain:
@@ -154,4 +151,7 @@ def rgb8(data: bytes) -> np.ndarray:
     px = np.minimum(v, 255).astype(np.uint8)  # mode I clamps on the way to RGB
     if mode == "L":
         return grey_rgb(px.reshape(height, width))
-    return px.reshape(height, width, 3)
+    if mode == "P":  # PIL's test mode PyP: a palette image without a palette, black
+        return np.zeros((height, width, 3), np.uint8)
+    px = px.reshape(height, width, bands)
+    return cmyk_rgb(px) if mode == "CMYK" else np.ascontiguousarray(px[..., :3])

@@ -1,6 +1,7 @@
 """Adobe Photoshop PSD, the composite image, as PIL's PsdImagePlugin reads
 it: version 1, 8-bit grey, indexed (the 768-byte colour mode data as its
-palette), RGB (RGBA with a fourth channel), CMYK (stored inverted) and
+palette), RGB (RGBA with a fourth channel), CMYK (stored inverted), CIELAB
+(converted as PIL converts its LAB mode: codecs/lab.py) and
 1-bit bitmap, duotone and multichannel (the first channel, as grey); the
 composite raw or PackBits-compressed (per-row byte counts, then each
 channel's rows). The layers are skipped."""
@@ -8,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ._common import DecodeError, NotThisFormat, cmyk_rgb, grey_rgb, need, packbits, u16be, u32be, unported
+from ._common import DecodeError, NotThisFormat, cmyk_rgb, grey_rgb, need, packbits, u16be, u32be
 
 _MODES = {(0, 1): ("1", 1), (0, 8): ("L", 1), (1, 8): ("L", 1), (2, 8): ("P", 1), (3, 8): ("RGB", 3),
           (4, 8): ("CMYK", 4), (7, 8): ("L", 1), (8, 8): ("L", 1), (9, 8): ("LAB", 3)}
@@ -24,8 +25,6 @@ def rgb8(data: bytes) -> np.ndarray:
     mode, n = _MODES[(mode_id, bits)]
     if n > channels:
         raise DecodeError("not enough PSD channels")
-    if mode == "LAB":
-        raise unported("CIELAB PSD")
     pos = 26
     need(data, pos + 4, "PSD")
     size = u32be(data, pos)
@@ -73,4 +72,8 @@ def rgb8(data: bytes) -> np.ndarray:
     px = np.stack(planes, -1)
     if mode == "CMYK":
         return cmyk_rgb(255 - px.astype(np.int64))
+    if mode == "LAB":  # each channel's bytes as they are: a* and b* offset by 128
+        from .lab import lab_rgb
+
+        return lab_rgb(px[..., :3])
     return np.ascontiguousarray(px[..., :3])

@@ -588,9 +588,9 @@ def _entropy_segments(data: bytes, pos: int) -> tuple[list[bytes], int]:
 class _Frame:
     """SOF parameters and the coefficient store of every component."""
 
-    def __init__(self, body: bytes, kind: tuple[bool, bool, bool]):
+    def __init__(self, body: bytes, kind: tuple[bool, bool, bool], layers: tuple = (1, 3, 4)):
         precision, self.height, self.width, n = struct.unpack(">BHHB", body[:6])
-        if precision != 8 or n not in (1, 3, 4):
+        if precision != 8 or n not in layers:
             # PIL's JPEG plugin does not take the file: it is no format PIL reads
             raise NotThisFormat(f"cannot handle {precision}-bit, {n}-layer JPEG")
         if self.height == 0 or self.width == 0:
@@ -867,7 +867,7 @@ def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
-def read_jpeg(data: bytes) -> tuple[_Frame, bool, int | None]:
+def read_jpeg(data: bytes, layers: tuple = (1, 3, 4)) -> tuple[_Frame, bool, int | None]:
     """Parse a JPEG and entropy-decode every scan: (the frame, with its
     coefficient stores or, lossless, its samples; whether a JFIF marker was
     seen; the Adobe transform, None without an Adobe marker)."""
@@ -903,7 +903,7 @@ def read_jpeg(data: bytes) -> tuple[_Frame, bool, int | None]:
         if marker in _JPEG_SOF or marker in _JPEG_UNSUPPORTED_SOF:
             if frame is not None:
                 raise DecodeError("JPEG with two frames")
-            frame = _Frame(body, _JPEG_SOF.get(marker, (False, False, False)))
+            frame = _Frame(body, _JPEG_SOF.get(marker, (False, False, False)), layers)
             if marker in _JPEG_UNSUPPORTED_SOF:  # PIL opens it; libjpeg-turbo fails the load
                 raise DecodeError(f"{_JPEG_UNSUPPORTED_SOF[marker]} JPEG: broken data stream")
         elif marker == 0xDB:
@@ -989,7 +989,7 @@ def read_jpeg(data: bytes) -> tuple[_Frame, bool, int | None]:
     return frame, jfif, adobe
 
 
-def decode_jpeg(data: bytes, colour: str | None = None) -> np.ndarray:
+def decode_jpeg(data: bytes, colour: str | None = None, layers: tuple = (1, 3, 4)) -> np.ndarray:
     """JPEG bytes -> (H, W, C) uint8 in the colour space libjpeg converts
     the file to for PIL: C = 1 (grey), 3 (RGB, from YCbCr unless the file is
     RGB) or 4 (CMYK, from YCCK where an Adobe marker says so). Huffman or
@@ -1000,8 +1000,9 @@ def decode_jpeg(data: bytes, colour: str | None = None) -> np.ndarray:
     arithmetic lossless frames raise DecodeError, as libjpeg-turbo fails
     them. `colour` overrides libjpeg's colour-space guess as libtiff does
     for a JPEG-compressed TIFF: "ycc" converts YCbCr to RGB, "raw" keeps
-    the components as they are."""
-    frame, jfif, adobe = read_jpeg(data)
+    the components as they are; `layers` are the component counts taken
+    (a TIFF's grey + alpha stream has two)."""
+    frame, jfif, adobe = read_jpeg(data, layers)
     n = len(frame.ids)
     planes = []
     for c in range(n):

@@ -2,7 +2,13 @@
 io/gltf.py, io/obj.py) against PIL and the JAX package's loaders.
 
 - NotImplementedError naming ROADMAP A.1 only for bytes PIL reads: one
-  case per format PIL reads here and the port does not.
+  case per format PIL reads here and the port does not (JPEG 2000, AVIF);
+  the cases of the formats once unported here (BLP, IM, MSP, SPIDER, XBM,
+  ICNS, SUN, XPM, FITS) now hold the port's decode to PIL's.
+- The formats PIL opens but cannot decode (EPS without Ghostscript, MPEG,
+  HDF5, BUFR, GRIB, WMF) raise an OSError that is no NotImplementedError,
+  and a glTF embedding one keeps the factor-only material in both
+  packages (ROADMAP C.12).
 - What PIL cannot read raises an OSError in both packages: bytes of no
   format, a Radiance .hdr through `load_image`, a 12-bit or hierarchical
   JPEG; the glTF loaders then both keep the factor-only material with a
@@ -58,16 +64,70 @@ UNPORTED = {
 }
 
 
+STILL_UNPORTED = ("JPEG2000", "AVIF")
+
+
 @pytest.mark.parametrize("name", list(UNPORTED))
 def test_unported_format_pil_reads_raises_a1(tmp_path, name):
+    """A.1 for the formats still unported; each format once unported here
+    decodes as PIL does, and its file loads as the JAX package loads it."""
     data = UNPORTED[name]()
     assert pil_rgb(data).ndim == 3  # PIL reads it
+    if name not in STILL_UNPORTED:
+        assert_like_pil(data, tmp_path, "x.img")
+        return
     with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP A.1"):
         timg.rgb8_from_bytes(data)
     path = tmp_path / "x.img"
     path.write_bytes(data)
     with pytest.raises(NotImplementedError, match="A.1"):
         timg.load_image(str(path))
+
+
+def _eps() -> bytes:
+    return b"%!PS-Adobe-3.0 EPSF-3.0\n%%BoundingBox: 0 0 4 4\n%%EndComments\nshowpage\n%%EOF\n"
+
+
+# formats PIL opens and cannot decode here: (bytes, PIL's reason)
+STUBS = {
+    "EPS": (_eps, "Ghostscript"),
+    "MPEG": (lambda: b"\x00\x00\x01\xb3\x01\x00\x10\x14" + bytes(40), "cannot load this image"),
+    "HDF5": (lambda: b"\x89HDF\r\n\x1a\n" + bytes(40), "HDF5"),
+    "BUFR": (lambda: b"BUFR" + bytes(40), "BUFR"),
+    "GRIB": (lambda: b"GRIB\x00\x00\x00\x01" + bytes(40), "GRIB"),
+    "WMF": (lambda: b"\xd7\xcd\xc6\x9a\x00\x00" + bytes(8) + b"\x60\x00" + bytes(28), "WMF"),
+}
+
+
+@pytest.mark.parametrize("name", list(STUBS))
+def test_stub_formats_fail_like_pil(tmp_path, name):
+    """C.12: an OSError with PIL's reason, never A.1, from the decoder and
+    from load_image, as the JAX package's load_image fails."""
+    make, reason = STUBS[name]
+    data = make()
+    assert_fails_like_pil(data)
+    with pytest.raises(codecs.DecodeError, match=reason):
+        timg.rgb8_from_bytes(data)
+    path = tmp_path / "x.img"
+    path.write_bytes(data)
+    with pytest.raises(Exception):
+        jimg.load_image(str(path))
+    with pytest.raises(OSError) as e:
+        timg.load_image(str(path))
+    assert not isinstance(e.value, NotImplementedError)
+
+
+@pytest.mark.parametrize("name", list(STUBS))
+def test_gltf_stub_format_keeps_the_factor_only_material(tmp_path, name):
+    """C.12: a glTF embedding bytes of a format PIL opens and cannot decode
+    loads in both packages with the factor-only material (tex_id -1) and
+    a warning; the port once raised NotImplementedError here."""
+    path = _textured_glb(tmp_path / "stub.glb", STUBS[name][0]())
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got, _ = _assert_same_gltf(path)
+    assert sum("undecodable, using material factors only" in str(w.message) for w in caught) == 2
+    assert not got.textures and all(m.material["texture_id"] == -1 for m in got.meshes)
 
 
 def _twelve_bit() -> bytes:
@@ -117,7 +177,7 @@ def test_gltf_keeps_the_factor_only_material(tmp_path, name):
 
 
 def test_gltf_with_unported_format_raises_a1(tmp_path):
-    path = _textured_glb(tmp_path / "msp.glb", UNPORTED["MSP"]())
+    path = _textured_glb(tmp_path / "j2k.glb", UNPORTED["JPEG2000"]())
     with pytest.raises(NotImplementedError, match="A.1"):
         from optixpathtracer_tpu_torch.io import gltf as tgltf
 

@@ -7,8 +7,7 @@ whole mode space: BC1 (both colour modes), BC2, BC3, BC4, BC5 (unsigned and
 signed), BC7 with each of its eight modes forced in turn, by FourCC and by
 the DX10 header, at sizes that are not multiples of 4. Then the
 uncompressed layouts (bit masks, luminance, palettes, R8G8B8A8) and PIL's
-own DDS writer. BC6H, which PIL reads, raises NotImplementedError naming
-A.1.
+own DDS writer. BC6H (UF16 and SF16) decodes as PIL decodes it.
 """
 import numpy as np
 import pytest

@@ -170,8 +170,12 @@ def test_unported_formats_raise_naming_a1():
         _assert_decodes_like_pil(buf.getvalue())
     buf = io.BytesIO()
     Image.fromarray(_photo(8, 8, 9)).convert("1").save(buf, format="MSP")
+    assert _pil(buf.getvalue()).shape == (8, 8, 3)  # once unported here, now decoded as PIL decodes it
+    _assert_decodes_like_pil(buf.getvalue())
+    buf = io.BytesIO()
+    Image.fromarray(_photo(8, 8, 9)).save(buf, format="JPEG2000")
     assert _pil(buf.getvalue()).shape == (8, 8, 3)
-    with pytest.raises(NotImplementedError, match="MSP.*A.1"):
+    with pytest.raises(NotImplementedError, match="JPEG2000.*A.1"):
         timg.rgb8_from_bytes(buf.getvalue())
     for data in (twelve_bit, b"no image format" + bytes(20)):
         with pytest.raises(OSError, match="cannot identify"):

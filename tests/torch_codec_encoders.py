@@ -450,13 +450,17 @@ def tiff_file(samples: np.ndarray, bits: int = 8, photometric: int = 2, order: s
               compression: int = 1, predictor: int = 1, planar: int = 1, rows_per_strip: int | None = None,
               tile: tuple[int, int] | None = None, extra: tuple = (), sample_format: int = 1,
               colormap: np.ndarray | None = None, fill_order: int = 1, big: bool = False,
-              jpeg_chunks=None, jpeg_tables: bytes | None = None, extra_tags: dict | None = None) -> bytes:
+              jpeg_chunks=None, jpeg_tables: bytes | None = None, extra_tags: dict | None = None,
+              old_lzw: bool = False) -> bytes:
     """A TIFF of (H, W, S) integer samples at `bits` per sample (MSB-first
     packing below 8, the byte order's words above), in strips or tiles,
-    planar configuration 1 or 2, compressed with none (1), LZW (5),
-    Deflate (8), PackBits (32773) or, given `jpeg_chunks` (one JPEG stream
-    per strip or tile), JPEG (7); horizontal differencing when predictor 2;
-    each stored byte's bits reversed for fill order 2."""
+    planar configuration 1 or 2, compressed with none (1), LZW (5; the
+    old LSB-first codes when `old_lzw`), Deflate (8), PackBits (32773),
+    LZMA (34925), ThunderScan (32809, 4-bit grey) or, given `jpeg_chunks`
+    (one JPEG stream per strip or tile), JPEG (7); horizontal differencing
+    when predictor 2;
+    each stored byte's bits reversed for fill order 2; libtiff's
+    floating-point predictor when predictor 3."""
     import zlib
 
     h, w, spp = samples.shape
@@ -479,6 +483,13 @@ def tiff_file(samples: np.ndarray, bits: int = 8, photometric: int = 2, order: s
             return np.packbits(bitsarr, axis=1).tobytes()
         dt = np.dtype(f"{kind}{bits // 8}").newbyteorder(order)
         v = px.astype(dt)
+        if predictor == 3:  # libtiff's float predictor: byte planes (most significant first), bytes differenced
+            nb = bits // 8
+            be = px.astype(np.dtype(f"{kind}{nb}").newbyteorder(">")).view(np.uint8).reshape(rows, cols * n, nb)
+            planes = be.transpose(0, 2, 1).reshape(rows, -1).astype(np.int64)
+            d = planes.copy()
+            d[:, n:] = planes[:, n:] - planes[:, :-n]
+            return (d % 256).astype(np.uint8).tobytes()
         if predictor == 2:
             u = v.view(np.dtype(f"u{bits // 8}").newbyteorder(order)).astype(np.int64)
             d = u.copy()
@@ -497,7 +508,13 @@ def tiff_file(samples: np.ndarray, bits: int = 8, photometric: int = 2, order: s
                     px = np.pad(px, ((0, th - px.shape[0]), (0, tw - px.shape[1]), (0, 0)))
                 raw = chunk_bytes(px)
                 if compression == 5:
-                    raw = lzw_encode(raw, 8, msb=True, early=True)
+                    raw = lzw_encode(raw, 8, msb=not old_lzw, early=not old_lzw)
+                elif compression == 34925:
+                    import lzma
+
+                    raw = lzma.compress(raw)
+                elif compression == 32809:
+                    raw = thunderscan(px[..., 0])
                 elif compression in (8, 32946):
                     raw = zlib.compress(raw)
                 elif compression == 32773:
@@ -536,8 +553,8 @@ def tiff_file(samples: np.ndarray, bits: int = 8, photometric: int = 2, order: s
             data += b"\0"
     tags[off_tag] = (16 if big else 4, offsets)
     tags[cnt_tag] = (16 if big else 4, [len(c) for c in chunks])
-    fmt = {1: "B", 3: "H", 4: "I", 7: "B", 16: "Q"}
-    size = {1: 1, 3: 2, 4: 4, 7: 1, 16: 8}
+    fmt = {1: "B", 3: "H", 4: "I", 5: "I", 7: "B", 16: "Q"}  # 5: rationals, given as numerator, denominator, ...
+    size = {1: 1, 3: 2, 4: 4, 5: 4, 7: 1, 16: 8}
     inline = 8 if big else 4
     blobs = {}
     for tag, (typ, vals) in tags.items():
@@ -551,7 +568,7 @@ def tiff_file(samples: np.ndarray, bits: int = 8, photometric: int = 2, order: s
         typ, vals = tags[tag]
         raw = struct.pack(order + fmt[typ] * len(vals), *vals)
         val = struct.pack(order + ("Q" if big else "I"), blobs[tag]) if tag in blobs else raw.ljust(inline, b"\0")
-        entries += struct.pack(order + ("HHQ" if big else "HHI"), tag, typ, len(vals)) + val
+        entries += struct.pack(order + ("HHQ" if big else "HHI"), tag, typ, len(vals) // (2 if typ == 5 else 1)) + val
     data += struct.pack(order + ("Q" if big else "H"), len(tags)) + entries + bytes(8 if big else 4)
     mark = b"II" if order == "<" else b"MM"
     if big:
@@ -1131,3 +1148,634 @@ def webp_vp8(frame: bytes) -> bytes:
     """A simple lossy WebP around one VP8 key frame."""
     body = riff_chunk(b"VP8 ", frame)
     return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+# ---- the small raster formats -------------------------------------------------------
+
+
+def sun_file(rows: np.ndarray, depth: int, kind: int = 1, cmap: np.ndarray | None = None) -> bytes:
+    """A Sun raster file of (H, W) samples (depth 1, 4, 8) or (H, W, C)
+    pixels in file order (depth 24: BGR, or RGB for type 3; 32: with a
+    pad byte), rows padded to 16 bits; type 2 run-length encodes the
+    unpadded rows' bytes (0x80 n v: n + 1 copies of v, 0x80 0: 0x80)."""
+    h, w = rows.shape[:2]
+    if depth < 8:
+        bits = ((rows[..., None].astype(np.uint8) >> np.arange(depth - 1, -1, -1)) & 1).reshape(h, -1)
+        packed = np.packbits(bits, axis=1)
+    else:
+        packed = rows.reshape(h, -1).astype(np.uint8)
+    stride = (w * depth + 15) // 16 * 2
+    if kind == 2:
+        flat = packed[:, :(w * depth + 7) // 8].tobytes()
+        body = bytearray()
+        i = 0
+        while i < len(flat):
+            j = i
+            while j < len(flat) and flat[j] == flat[i] and j - i < 256:
+                j += 1
+            n = j - i
+            if n >= 3 or flat[i] == 0x80:
+                if n == 1:
+                    body += b"\x80\x00"
+                else:
+                    body += bytes([0x80, n - 1, flat[i]])
+            else:
+                body += flat[i:j]
+            i = j
+        body = bytes(body)
+    else:
+        body = np.pad(packed, ((0, 0), (0, stride - packed.shape[1]))).tobytes()
+    pal = b"" if cmap is None else np.asarray(cmap, np.uint8).T.tobytes()
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), kind, 1 if cmap is not None else 0,
+                       len(pal)) + pal + body
+
+
+def msp_rle(bits: np.ndarray) -> bytes:
+    """A Paint v2 ("LinS") file of (H, W) 0/1 pixels: each row's packed bytes
+    as runs (0 n v) and literals (n bytes), an all-white row empty."""
+    h, w = bits.shape
+    rows = np.packbits(bits.astype(np.uint8), axis=1)
+    enc = []
+    for r in rows:
+        r = r.tobytes()
+        if r == b"\xff" * len(r):
+            enc.append(b"")
+            continue
+        out = bytearray()
+        i = 0
+        while i < len(r):
+            j = i
+            while j < len(r) and r[j] == r[i] and j - i < 255:
+                j += 1
+            if j - i >= 3:
+                out += bytes([0, j - i, r[i]])
+            else:
+                k = i
+                while k < len(r) and k - i < 255 and not (k + 2 < len(r) and r[k] == r[k + 1] == r[k + 2]):
+                    k += 1
+                j = max(k, i + 1)
+                out += bytes([j - i]) + r[i:j]
+            i = j
+        enc.append(bytes(out))
+    head = bytearray(struct.pack("<4s10H", b"LinS", w, h, 1, 1, 1, 1, w, h, 0, 0) + bytes(8))
+    check = 0
+    for i in range(0, 32, 2):
+        check ^= struct.unpack("<H", head[i:i + 2])[0]
+    head[24:26] = struct.pack("<H", check)
+    return bytes(head) + b"".join(struct.pack("<H", len(e)) for e in enc) + b"".join(enc)
+
+
+def xpm_file(idx: np.ndarray, colours: list[bytes], chars: int, none: int | None = None) -> bytes:
+    """An XPM of (H, W) indices into `colours` ("#RRGGBB"), `chars`
+    characters a pixel; entry `none` is the transparent colour."""
+    alphabet = b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789.#"
+    keys = []
+    for i in range(len(colours)):
+        k, n = b"", i
+        for _ in range(chars):
+            k, n = alphabet[n % len(alphabet):n % len(alphabet) + 1] + k, n // len(alphabet)
+        keys.append(k)
+    h, w = idx.shape
+    out = [b"/* XPM */", b"static char *x[] = {", b'"%d %d %d %d",' % (w, h, len(colours), chars)]
+    for i, (k, c) in enumerate(zip(keys, colours)):
+        out.append(b'"%s c %s",' % (k, b"None" if i == none else c))
+    out.append(b"/* pixels */")
+    out += [b'"' + b"".join(keys[v] for v in row) + b'",' for row in idx]
+    out[-1] = out[-1][:-1]
+    return b"\n".join(out + [b"};", b""])
+
+
+def ftex_file(width: int, height: int, fmt: int, body: bytes) -> bytes:
+    """An FTEX texture: one format entry (0 DXT1, 1 RGB) and one mip level."""
+    head = b"FTEX" + struct.pack("<i2i2i2i", 1, width, height, 1, 1, fmt, 40)
+    return head.ljust(40, b"\0") + struct.pack("<i", len(body)) + body
+
+
+def dcx_file(frames: list[bytes]) -> bytes:
+    """An Intel DCX container of PCX files."""
+    offsets, pos = [], 4 + 4 * (len(frames) + 1)
+    for f in frames:
+        offsets.append(pos)
+        pos += len(f)
+    return struct.pack("<I", 0x3ADE68B1) + struct.pack(f"<{len(frames) + 1}I", *offsets, 0) + b"".join(frames)
+
+
+def blp1_jpeg(jpeg: bytes, width: int, height: int, split: int = 0, alpha: int = 0) -> bytes:
+    """A BLP1 texture with JPEG content: the first `split` bytes of the
+    stream as the shared header, the rest as mip 0."""
+    head_len = split or jpeg.index(b"\xff\xda")
+    body_at = 156 + 4 + head_len
+    offsets = [body_at] + [0] * 15
+    lengths = [len(jpeg) - head_len] + [0] * 15
+    return (b"BLP1" + struct.pack("<iIIIii", 0, alpha, width, height, 5, 0) + struct.pack("<16I", *offsets)
+            + struct.pack("<16I", *lengths) + struct.pack("<I", head_len) + jpeg)
+
+
+def blp2_file(width: int, height: int, body: bytes, encoding: int = 2, alpha_encoding: int = 0, alpha: int = 0,
+              palette: np.ndarray | None = None) -> bytes:
+    """A BLP2 texture: a 256-entry BGRA palette, then mip 0 (DXT blocks or
+    palette indices)."""
+    pal = np.zeros((256, 4), np.uint8) if palette is None else np.asarray(palette, np.uint8)
+    at = 148 + 1024
+    return (b"BLP2" + struct.pack("<ibbbbII", 1, encoding, alpha, alpha_encoding, 0, width, height)
+            + struct.pack("<16I", at, *[0] * 15) + struct.pack("<16I", len(body), *[0] * 15) + pal.tobytes() + body)
+
+
+def icns_rle24(img: np.ndarray) -> bytes:
+    """ICNS 24-bit RLE of an (N, N, 3) image: the planes one after another,
+    runs of 3-130 bytes as (n + 125, v), literals as (n - 1, bytes)."""
+    out = bytearray()
+    for c in range(3):
+        p = img[..., c].tobytes()
+        i = 0
+        while i < len(p):
+            j = i
+            while j < len(p) and p[j] == p[i] and j - i < 130:
+                j += 1
+            if j - i >= 3:
+                out += bytes([j - i + 125, p[i]])
+                i = j
+                continue
+            k = i
+            while k < len(p) and k - i < 128 and not (k + 2 < len(p) and p[k] == p[k + 1] == p[k + 2]):
+                k += 1
+            out += bytes([k - i - 1]) + p[i:k]
+            i = k
+    return bytes(out)
+
+
+def icns_file(entries: list[tuple[bytes, bytes]]) -> bytes:
+    body = b"".join(sig + struct.pack(">I", 8 + len(d)) + d for sig, d in entries)
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body
+
+
+def fits_file(data: np.ndarray, bitpix: int, extra_cards: list[bytes] = ()) -> bytes:
+    """A FITS primary HDU of (H, W) samples, big-endian as FITS stores them
+    (rows as given)."""
+    h, w = data.shape
+    cards = [b"SIMPLE  =                    T", b"BITPIX  = %20d" % bitpix, b"NAXIS   =                    2",
+             b"NAXIS1  = %20d" % w, b"NAXIS2  = %20d" % h, *extra_cards, b"END"]
+    head = b"".join(c.ljust(80) for c in cards)
+    head = head.ljust(-(-len(head) // 2880) * 2880)
+    dt = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}[bitpix]
+    body = data.astype(dt).tobytes()
+    return head + body.ljust(-(-len(body) // 2880) * 2880, b"\0")
+
+
+def fits_gzip(data: np.ndarray, bitpix: int) -> bytes:
+    """A tile-compressed FITS (an empty primary HDU, then a BINTABLE with
+    ZIMAGE and GZIP_1) whose heap is one gzip stream of 4-byte big-endian
+    words, as PIL's reader takes it."""
+    import gzip
+
+    h, w = data.shape
+    primary = b"".join(c.ljust(80) for c in [b"SIMPLE  =                    T", b"BITPIX  =                    8",
+                                             b"NAXIS   =                    0", b"END"]).ljust(2880)
+    stream = gzip.compress(data.astype(">i4").tobytes(), mtime=0)
+    cards = [b"XTENSION= 'BINTABLE'", b"BITPIX  =                    8", b"NAXIS   =                    2",
+             b"NAXIS1  =                    8", b"NAXIS2  =                    1", b"ZIMAGE  =                    T",
+             b"ZCMPTYPE= 'GZIP_1  '", b"ZBITPIX = %20d" % bitpix, b"ZNAXIS  =                    2",
+             b"ZNAXIS1 = %20d" % w, b"ZNAXIS2 = %20d" % h, b"END"]
+    head = b"".join(c.ljust(80) for c in cards).ljust(2880)
+    table = struct.pack(">ii", len(stream), 0)
+    return primary + head + table + stream
+
+
+def iptc_file(img: np.ndarray, layers: int = 1, component: int = 0, band: int | None = None,
+              jpeg: bytes | None = None, split: int = 1) -> bytes:
+    """An IPTC/NAA record: 3:60 layers and component flag, 3:20 / 3:30 the
+    size, 3:120 compression (1 raw, 5 JPEG), 3:65 the band, then the image
+    data in `split` 8:10 fields (the last with an extended size: PIL takes
+    the count of size bytes from the header's fourth byte and reads them
+    after its fifth)."""
+    def field(rec: int, ds: int, value: bytes, extended: bool = False) -> bytes:
+        if extended:
+            return bytes([0x1C, rec, ds, 0x84, 0]) + struct.pack(">I", len(value)) + value
+        return bytes([0x1C, rec, ds]) + struct.pack(">H", len(value)) + value
+
+    h, w = img.shape[:2]
+    out = field(2, 0, b"\x00\x04") + field(3, 60, bytes([layers, component])) + field(3, 20, struct.pack(">H", w))
+    out += field(3, 30, struct.pack(">H", h)) + field(3, 120, bytes([5 if jpeg else 1]))
+    if band is not None:
+        out += field(3, 65, bytes([band + 1]))
+    body = jpeg if jpeg else img.astype(np.uint8).tobytes()
+    cuts = np.linspace(0, len(body), split + 1).astype(int)
+    for i in range(split):
+        out += field(8, 10, body[cuts[i]:cuts[i + 1]], extended=i == split - 1)
+    return out + bytes(5)
+
+
+def thunderscan(px: np.ndarray) -> bytes:
+    """ThunderScan 4-bit codes for (rows, width) pixels, each row from 0:
+    runs of the last pixel, three 2-bit deltas (-1..1, 2 skips), two 3-bit
+    deltas (-3..3, 4 skips), else the raw pixel."""
+    out = bytearray()
+    for row in px.astype(int):
+        last, i, n = 0, 0, len(row)
+        while i < n:
+            k = 0
+            while i + k < n and row[i + k] == last and k < 63:
+                k += 1
+            if k >= 2:
+                out.append(k)
+                i += k
+                continue
+            d = [row[j] - prev for j, prev in zip(range(i, min(i + 3, n)), [last, *row[i:i + 2]])]
+            if len(d) >= 1 and all(-1 <= x <= 1 for x in d[:3]) and len(d) == 3:
+                codes = [{0: 0, 1: 1, -1: 3}[x] for x in d]
+                out.append(0x40 | codes[0] << 4 | codes[1] << 2 | codes[2])
+                last, i = row[i + 2], i + 3
+            elif all(-3 <= x <= 3 for x in d[:2]) and len(d) >= 2:
+                codes = [x & 7 for x in d[:2]]
+                out.append(0x80 | codes[0] << 3 | codes[1])
+                last, i = row[i + 1], i + 2
+            elif abs(d[0]) <= 3 and i == n - 1:
+                out.append(0x80 | (d[0] & 7) << 3 | 4)
+                last, i = row[i], i + 1
+            else:
+                out.append(0xC0 | row[i])
+                last, i = row[i], i + 1
+    return bytes(out)
+
+
+def pixar_file(img: np.ndarray) -> bytes:
+    """A PIXAR raster: the size at bytes 416 / 418, mode (14, 2), RGB from 1024."""
+    h, w, _ = img.shape
+    head = bytearray(1024)
+    head[:4] = b"\200\350\000\000"
+    head[416:420] = struct.pack("<HH", h, w)
+    head[424:428] = struct.pack("<HH", 14, 2)
+    return bytes(head) + img.astype(np.uint8).tobytes()
+
+
+def mcidas_file(v: np.ndarray, size: int, prefix: int = 0) -> bytes:
+    """A McIdas area: the 64-word descriptor, then rows of `size`-byte
+    big-endian samples, each after `prefix` bytes."""
+    h, w = v.shape
+    d = [0] * 64
+    d[1] = 4
+    d[8], d[9], d[10], d[13], d[14], d[33] = h, w, size, 1, prefix, 256  # w[9..] in PIL's 1-based terms
+    head = struct.pack("!64i", *d)
+    dt = {1: ">u1", 2: ">u2", 4: ">i4"}[size]
+    rows = b"".join(bytes(prefix) + r.astype(dt).tobytes() for r in v)
+    return head + rows
+
+
+def gbr_file(px: np.ndarray, version: int = 2) -> bytes:
+    """A GIMP brush of (H, W) grey or (H, W, 4) RGBA pixels."""
+    h, w = px.shape[:2]
+    depth = 1 if px.ndim == 2 else 4
+    name = b"brush\0"
+    if version == 1:
+        head = struct.pack(">5I", 20 + len(name), 1, w, h, depth) + name
+    else:
+        head = struct.pack(">5I", 28 + len(name), 2, w, h, depth) + b"GIMP" + struct.pack(">I", 10) + name
+    return head + px.astype(np.uint8).tobytes()
+
+
+def xvthumb_file(idx: np.ndarray) -> bytes:
+    h, w = idx.shape
+    return b"P7 332\n#XVVERSION:Version 2.28\n#END_OF_COMMENTS\n%d %d 255\n" % (w, h) + idx.astype(np.uint8).tobytes()
+
+
+def imt_file(px: np.ndarray) -> bytes:
+    h, w = px.shape
+    return b"* a comment\nwidth %d\nheight %d\npixel n8\n\x0c" % (w, h) + px.astype(np.uint8).tobytes()
+
+
+def tiff_raw_strip(strip: bytes, width: int, height: int, bits: int, photometric: int, order: str = "<",
+                   compression: int = 1, spp: int = 1) -> bytes:
+    """A one-strip TIFF around bytes already packed or compressed (12-bit
+    grey, say, which tiff_file does not pack, or a hand-made zstd frame)."""
+    base = tiff_file(np.zeros((height, 1, spp), np.uint8), 8, photometric, order, 1)
+    data = bytearray(base)
+    off = 8
+    ifd = struct.unpack(order + "I", data[4:8])[0]
+    n = struct.unpack(order + "H", data[ifd:ifd + 2])[0]
+    out = bytearray(data[:8]) + strip + (b"\0" if len(strip) % 2 else b"")
+    new_ifd = len(out)
+    entries = b""
+    for i in range(n):
+        e = bytes(data[ifd + 2 + 12 * i:ifd + 14 + 12 * i])
+        tag = struct.unpack(order + "H", e[:2])[0]
+        if tag == 256:
+            e = e[:8] + struct.pack(order + "I", width)
+        elif tag == 258 and spp == 1:
+            e = e[:8] + struct.pack(order + "HH", bits, 0)
+        elif tag == 259:
+            e = e[:8] + struct.pack(order + "HH", compression, 0)
+        elif tag == 273:
+            e = e[:8] + struct.pack(order + "I", off)
+        elif tag == 279:
+            e = e[:8] + struct.pack(order + "I", len(strip))
+        entries += e
+    out += struct.pack(order + "H", n) + entries + bytes(4)
+    out[4:8] = struct.pack(order + "I", new_ifd)
+    return bytes(out)
+
+
+# ---- FLI / FLC ------------------------------------------------------------------
+
+
+def fli_file(width: int, height: int, chunks: list[tuple[int, bytes]], magic: int = 0xAF12,
+             prefix: bytes | None = None) -> bytes:
+    """An FLI (0xAF11) or FLC (0xAF12) file of one frame of `chunks` (type,
+    body), after an optional prefix chunk (0xF100)."""
+    subs = b""
+    for kind, body in chunks:
+        if len(body) % 2:
+            body += b"\0"
+        subs += struct.pack("<IH", 6 + len(body), kind) + body
+    frame = struct.pack("<IHH", 16 + len(subs), 0xF1FA, len(chunks)) + bytes(8) + subs
+    pre = b"" if prefix is None else struct.pack("<IH", 6 + len(prefix), 0xF100) + prefix
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHH", head, 0, 128 + len(pre) + len(frame), magic, 1, width, height, 8, 3)
+    struct.pack_into("<I", head, 16, 70)
+    return bytes(head) + pre + frame
+
+
+def fli_color(pal: np.ndarray, six_bit: bool = False, skip: int = 0) -> tuple[int, bytes]:
+    """A COLOR_256 (4) or COLOR_64 (11) chunk: one packet of the entries
+    after `skip`."""
+    p = np.asarray(pal, np.uint8)
+    n = len(p)
+    return (11 if six_bit else 4), struct.pack("<H", 1) + bytes([skip, n % 256]) + p.tobytes()
+
+
+def fli_brun(img: np.ndarray) -> tuple[int, bytes]:
+    out = bytearray()
+    for row in img.astype(np.uint8):
+        out.append(0)
+        x, w = 0, len(row)
+        while x < w:
+            j = x
+            while j < w and row[j] == row[x] and j - x < 127:
+                j += 1
+            if j - x >= 3:
+                out += bytes([j - x, row[x]])
+                x = j
+                continue
+            j = x
+            while j < w and j - x < 127 and not (j + 2 < w and row[j] == row[j + 1] == row[j + 2]):
+                j += 1
+            out += bytes([256 - (j - x)]) + row[x:j].tobytes()
+            x = j
+    return 15, bytes(out)
+
+
+def fli_copy(img: np.ndarray) -> tuple[int, bytes]:
+    return 16, img.astype(np.uint8).tobytes()
+
+
+def fli_lc(img: np.ndarray, y0: int = 0) -> tuple[int, bytes]:
+    """Byte deltas over a black frame: each line's non-zero spans as runs
+    or literals."""
+    rows = img.astype(np.uint8)[y0:]
+    out = bytearray(struct.pack("<HH", y0, len(rows)))
+    for row in rows:
+        packets, x, w = bytearray(), 0, len(row)
+        n = 0
+        while x < w:
+            skip = 0
+            while x < w and row[x] == 0 and skip < 255:
+                x += 1
+                skip += 1
+            if x >= w:
+                break
+            j = x
+            while j < w and row[j] == row[x] and j - x < 127:
+                j += 1
+            if j - x >= 3:
+                packets += bytes([skip, 256 - (j - x), row[x]])
+            else:
+                j = min(x + 1 + int(row[x] % 5), w)
+                packets += bytes([skip, j - x]) + row[x:j].tobytes()
+            x = j
+            n += 1
+        out += bytes([n]) + packets
+    return 12, bytes(out)
+
+
+def fli_ss2(img: np.ndarray) -> tuple[int, bytes]:
+    """Word deltas over a black frame (even width): one line skip word for
+    an all-black line, word runs and literals, the last byte of an odd
+    width in a flag word."""
+    h, w = img.shape
+    rows = img.astype(np.uint8)
+    out = bytearray()
+    lines = 0
+    y = 0
+    while y < h:
+        words = bytearray()
+        skip = 0
+        while y < h and not rows[y].any():
+            skip += 1
+            y += 1
+        if y >= h:
+            break
+        if skip:
+            words += struct.pack("<H", 65536 - skip)
+        row = rows[y]
+        even = w - w % 2
+        if w % 2:
+            words += struct.pack("<H", 0x8000 | int(row[-1]))
+        packets, x, n = bytearray(), 0, 0
+        while x < even:
+            s = 0
+            while x < even and row[x] == 0 and row[x + 1] == 0 and s < 254:
+                x += 2
+                s += 2
+            if x >= even:
+                break
+            j = x
+            while j + 1 < even and row[j] == row[x] and row[j + 1] == row[x + 1] and (j - x) // 2 < 127:
+                j += 2
+            if (j - x) // 2 >= 2:
+                packets += bytes([s, 256 - (j - x) // 2]) + row[x:x + 2].tobytes()
+            else:
+                j = min(x + 2 * (1 + int(row[x] % 3)), even)
+                packets += bytes([s, (j - x) // 2]) + row[x:j].tobytes()
+            x = j
+            n += 1
+        words += struct.pack("<H", n) + packets
+        out += words
+        lines += 1
+        y += 1
+    return 7, struct.pack("<H", lines) + bytes(out)
+
+
+def pcd_file(y: np.ndarray, c1: np.ndarray, c2: np.ndarray, orientation: int = 0) -> bytes:
+    """A PhotoCD base image: (512, 768) luma, (256, 384) C1 and C2, from
+    byte 96 * 2048, after the "PCD_" header and its orientation byte."""
+    head = bytearray(96 * 2048)
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation
+    rows = [y[2 * k].tobytes() + y[2 * k + 1].tobytes() + c1[k].tobytes() + c2[k].tobytes() for k in range(256)]
+    return bytes(head) + b"".join(rows)
+
+
+def ycbcr_tiff(ycc: np.ndarray, sub: tuple[int, int] = (2, 2), compression: int = 5, rows_per_strip: int = 4,
+               order: str = "<", extra_tags: dict | None = None) -> bytes:
+    """A YCbCr TIFF (photometric 6) without JPEG: (H, W, 3) samples stored
+    as data units (`sub` = (h, v): h * v luma samples of a block, row by
+    row, then its Cb and Cr, the block's first pixel's), blocks past the
+    image's edge padded with its edge pixels."""
+    import lzma
+    import zlib
+
+    h, w, _ = ycc.shape
+    hs, vs = sub
+    chunks = []
+    for y0 in range(0, h, rows_per_strip):
+        units = bytearray()
+        for by in range(y0, min(y0 + rows_per_strip, h), vs):
+            for bx in range(0, w, hs):
+                ys = [ycc[min(by + j, h - 1), min(bx + i, w - 1), 0] for j in range(vs) for i in range(hs)]
+                units += bytes(ys) + bytes([ycc[by, bx, 1], ycc[by, bx, 2]])
+        raw = bytes(units)
+        if compression == 5:
+            raw = lzw_encode(raw, 8, msb=True, early=True)
+        elif compression in (8, 32946):
+            raw = zlib.compress(raw)
+        elif compression == 32773:
+            raw = packbits(raw)
+        elif compression == 34925:
+            raw = lzma.compress(raw)
+        chunks.append(raw)
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8, 8, 8]), 259: (3, [compression]), 262: (3, [6]),
+            277: (3, [3]), 278: (3, [rows_per_strip]), 284: (3, [1]), 530: (3, [hs, vs])}
+    tags.update(extra_tags or {})
+    data = bytearray(8)
+    offsets = []
+    for c in chunks:
+        offsets.append(len(data))
+        data += c + (b"\0" if len(c) % 2 else b"")
+    tags[273] = (4, offsets)
+    tags[279] = (4, [len(c) for c in chunks])
+    fmt = {3: "H", 4: "I", 5: "II"}
+    blobs = {}
+    for tag, (typ, vals) in tags.items():
+        raw = struct.pack(order + fmt[typ] * (len(vals) // (2 if typ == 5 else 1)), *vals)
+        if len(raw) > 4:
+            blobs[tag] = len(data)
+            data += raw
+    ifd = len(data)
+    entries = b""
+    for tag in sorted(tags):
+        typ, vals = tags[tag]
+        n = len(vals) // (2 if typ == 5 else 1)
+        raw = struct.pack(order + fmt[typ] * n, *vals)
+        val = struct.pack(order + "I", blobs[tag]) if tag in blobs else raw.ljust(4, b"\0")
+        entries += struct.pack(order + "HHI", tag, typ, n) + val
+    data += struct.pack(order + "H", len(tags)) + entries + bytes(4)
+    data[:8] = (b"II" if order == "<" else b"MM") + struct.pack(order + "HI", 42, ifd)
+    return bytes(data)
+
+
+def zstd_simple_frame(data: bytes, rle_at: int) -> bytes:
+    """A Zstandard frame of three blocks: data[:rle_at] raw, a run of its
+    next byte as an RLE block, then the rest as a compressed block of RLE
+    literals without sequences (the rest must be one repeated byte)."""
+    run = data[rle_at]
+    n = len(data) - rle_at
+    k = next(i for i in range(n) if i == n - 1 or data[rle_at + i + 1] != run) + 1
+    rest = data[rle_at + k:]
+    assert rest == rest[:1] * len(rest) and 0 < len(rest) < 4096
+    frame = b"\x28\xb5\x2f\xfd" + bytes([0x00, 0x58])  # no content size; a window descriptor
+    frame += (rle_at << 3 | 0).to_bytes(3, "little") + data[:rle_at]
+    frame += (k << 3 | 2).to_bytes(3, "little") + bytes([run])
+    lit = (1 | 1 << 2 | len(rest) << 4).to_bytes(2, "little") + rest[:1] + b"\x00"  # RLE literals, no sequences
+    frame += (len(lit) << 3 | 4 | 1).to_bytes(3, "little") + lit
+    return frame
+
+
+def ojpeg_tiff(jpeg: bytes, height: int, width: int, split: bool = False, order: str = "<",
+               extra_tags: dict | None = None) -> bytes:
+    """An old-style JPEG TIFF (compression 6): JPEGInterchangeFormat at the
+    JPEG stream; one strip, the whole stream, or with `split` the stream's
+    header alone at JPEGInterchangeFormat (its length stopping before the
+    scan) and the scan (from its SOS) as the strip."""
+    sos = jpeg.index(b"\xff\xda")
+    head_len = sos if split else len(jpeg)
+    probe = tiff_file(np.zeros((height, width, 3), np.uint8), 8, 6, order, 6, jpeg_chunks=[jpeg],
+                      rows_per_strip=height, extra_tags={513: (4, [0]), 514: (4, [0])})
+    at = struct.unpack(order + "I", probe[4:8])[0] and 8  # tiff_file puts the first chunk at byte 8
+    tags = {513: (4, [at]), 514: (4, [head_len]), 530: (3, [2, 2])}
+    tags.update(extra_tags or {})
+    data = bytearray(tiff_file(np.zeros((height, width, 3), np.uint8), 8, 6, order, 6, jpeg_chunks=[jpeg],
+                               rows_per_strip=height, extra_tags=tags))
+    if split:  # the strip starts at the scan
+        from_ifd = struct.unpack(order + "I", data[4:8])[0]
+        n = struct.unpack(order + "H", data[from_ifd:from_ifd + 2])[0]
+        for i in range(n):
+            e = from_ifd + 2 + 12 * i
+            tag = struct.unpack(order + "H", data[e:e + 2])[0]
+            if tag == 273:
+                data[e + 8:e + 12] = struct.pack(order + "I", at + sos)
+            elif tag == 279:
+                data[e + 8:e + 12] = struct.pack(order + "I", len(jpeg) - sos)
+    return bytes(data)
+
+
+def jpeg_segments(jpeg: bytes) -> tuple[dict, bytes]:
+    """A baseline JPEG's tables and scan: ({"dqt": {id: 64 zigzag bytes},
+    "dht": {(class, id): counts + values}}, the entropy-coded data)."""
+    tables = {"dqt": {}, "dht": {}}
+    pos = 2
+    while True:
+        marker, length = jpeg[pos + 1], int.from_bytes(jpeg[pos + 2:pos + 4], "big")
+        body = jpeg[pos + 4:pos + 2 + length]
+        if marker == 0xDB:
+            i = 0
+            while i < len(body):
+                tables["dqt"][body[i] & 15] = body[i + 1:i + 65]
+                i += 65
+        elif marker == 0xC4:
+            i = 0
+            while i < len(body):
+                n = sum(body[i + 1:i + 17])
+                tables["dht"][(body[i] >> 4, body[i] & 15)] = body[i + 1:i + 17 + n]
+                i += 17 + n
+        elif marker == 0xDA:
+            scan = jpeg[pos + 2 + length:]
+            return tables, scan[:scan.rindex(b"\xff\xd9")]
+        pos += 2 + length
+
+
+def ojpeg_tables_tiff(jpeg: bytes, height: int, width: int, order: str = "<") -> bytes:
+    """An old-style JPEG TIFF of the TIFF 6.0 kind: JPEGProc 1, the
+    quantisation and Huffman tables at JPEGQTables / JPEGDCTables /
+    JPEGACTables (one per component: luma's, then chroma's twice), one
+    strip of the scan's entropy-coded data; 4:2:0 YCbCr."""
+    tables, scan = jpeg_segments(jpeg)
+    q = [tables["dqt"][0], tables["dqt"].get(1, tables["dqt"][0])]
+    dc = [tables["dht"][(0, 0)], tables["dht"].get((0, 1), tables["dht"][(0, 0)])]
+    ac = [tables["dht"][(1, 0)], tables["dht"].get((1, 1), tables["dht"][(1, 0)])]
+    blobs = [scan] + q + dc + ac
+    base = bytearray(8)
+    offsets = []
+    for b in blobs:
+        offsets.append(len(base))
+        base += b + (b"\0" if len(b) % 2 else b"")
+    so, qo, do, ao = offsets[0], offsets[1:3], offsets[3:5], offsets[5:7]
+    tags = {256: (4, [width]), 257: (4, [height]), 258: (3, [8, 8, 8]), 259: (3, [6]), 262: (3, [6]),
+            273: (4, [so]), 277: (3, [3]), 278: (4, [height]), 279: (4, [len(scan)]), 284: (3, [1]),
+            512: (3, [1]), 519: (4, [qo[0], qo[1], qo[1]]), 520: (4, [do[0], do[1], do[1]]),
+            521: (4, [ao[0], ao[1], ao[1]]), 530: (3, [2, 2])}
+    fmt = {3: "H", 4: "I"}
+    blob_at = {}
+    for tag, (typ, vals) in tags.items():
+        raw = struct.pack(order + fmt[typ] * len(vals), *vals)
+        if len(raw) > 4:
+            blob_at[tag] = len(base)
+            base += raw
+    ifd = len(base)
+    entries = b""
+    for tag in sorted(tags):
+        typ, vals = tags[tag]
+        raw = struct.pack(order + fmt[typ] * len(vals), *vals)
+        val = struct.pack(order + "I", blob_at[tag]) if tag in blob_at else raw.ljust(4, b"\0")
+        entries += struct.pack(order + "HHI", tag, typ, len(vals)) + val
+    base += struct.pack(order + "H", len(tags)) + entries + bytes(4)
+    base[:8] = (b"II" if order == "<" else b"MM") + struct.pack(order + "HI", 42, ifd)
+    return bytes(base)

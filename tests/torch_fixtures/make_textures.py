@@ -3,7 +3,8 @@ textures/) and their manifest: PIL's decode of each, as shape, per-channel
 sums and the SHA-256 of the uint8 RGB bytes.
 
 The loft's three textures (scenes/loft_tex*.png) in three lossless formats
-(TGA RLE, TIFF LZW, WebP lossless) and in a lossy set (WebP lossy, DDS BC1,
+(TGA RLE, TIFF LZW, WebP lossless), in three more (DCX, an orientation-
+tagged LZMA TIFF, ICNS) and in a lossy set (WebP lossy, DDS BC1,
 arithmetic-coded JPEG); then one small image for each other variant the
 port decodes. PIL writes what it can write; tests/torch_codec_encoders.py
 writes the rest (arithmetic, lossless and YCCK JPEG, RLE BMP, colour-mapped
@@ -30,6 +31,10 @@ MANIFEST = os.path.join(OUT, "manifest.json")
 LOSSLESS = {"loft_tex0.png": "loft_tex0.tga", "loft_tex1.png": "loft_tex1.tif", "loft_tex2.png": "loft_tex2.webp"}
 LOSSY = {"loft_tex0.png": "loft_tex0_lossy.webp", "loft_tex1.png": "loft_tex1_bc1.dds",
          "loft_tex2.png": "loft_tex2_arith.jpg"}
+# three more lossless forms: a DCX (PCX RLE), an LZMA TIFF storing the
+# texture transposed under orientation 5, an ICNS with a 256x256 PNG entry
+LOSSLESS2 = {"loft_tex0.png": "loft_tex0.dcx", "loft_tex1.png": "loft_tex1_orient5_lzma.tif",
+             "loft_tex2.png": "loft_tex2.icns"}
 
 
 def digest(rgb: np.ndarray) -> dict:
@@ -63,6 +68,16 @@ def _fixtures() -> dict[str, bytes]:
             out[name] = pil(img, "DDS", pixel_format="DXT1")
         else:
             out[name] = enc.arith_jpeg(pil(img, "JPEG", quality=90))
+    for png, name in LOSSLESS2.items():
+        img = np.asarray(Image.open(os.path.join(REPO, "scenes", png)).convert("RGB"))
+        if name.endswith(".dcx"):
+            out[name] = enc.dcx_file([pil(img, "PCX")])
+        elif name.endswith(".tif"):
+            out[name] = enc.tiff_file(img.transpose(1, 0, 2), 8, 2, "<", 34925, predictor=2, rows_per_strip=64,
+                                      extra_tags={274: (3, [5])})
+        else:
+            with open(os.path.join(REPO, "scenes", png), "rb") as f:
+                out[name] = enc.icns_file([(b"ic08", f.read())])
     rng = np.random.default_rng(17)
     ph = enc.photo(37, 45, 1)
     ph4 = enc.photo(37, 45, 2, 4)
@@ -140,6 +155,84 @@ def _fixtures() -> dict[str, bytes]:
         45, 37, rng2, simple=1, level=25, sharpness=3, log2_parts=2,
         segments=(1, 0, [0, 12, -9, 30], [0, 6, -4, 15], [90, 160, 220]), lf_delta=([4, 0, 0, 0], [-3, 0, 0, 0]),
         quant=(30, 2, -3, 4, -5, 6), big=0.03, big_max=40))
+    out.update(_fixtures_raster(enc, pil, Image))
+    return out
+
+
+def _fixtures_raster(enc, pil, Image) -> dict[str, bytes]:
+    """One small file for each TIFF variant and raster format ported after
+    the first set: ThunderScan, CCITT, old-style LZW, LZMA, ZSTD, old-style
+    JPEG, YCbCr without JPEG, the float
+    predictor, 12-bit grey, CIELAB, JPEG CMYK, tiled 16-bit planes and an
+    orientation; BLP, FTEX, DCX, ICNS, SUN, XBM, XPM, MSP, IM, SPIDER,
+    FITS, IPTC, PIXAR, McIdas, GBR, FLI / FLC, XV thumbnails, IMT, PIL's
+    Netpbm test modes and a CIELAB PSD (PhotoCD's 0.8 MB base image is
+    generated in the tests instead)."""
+    rng = np.random.default_rng(19)
+    out = {}
+    ph = enc.photo(23, 29, 3)
+    ph4 = enc.photo(23, 29, 4, 4)
+    grey = ph[..., 0]
+    idx = rng.integers(0, 16, (23, 29))
+    idx[6:9] = idx[6]
+    ink = Image.fromarray(enc.photo(37, 45, 5)).convert("1")
+    out["tiff_g3_2d.tif"] = pil(ink, "TIFF", compression="group3", tiffinfo={292: 1})
+    out["tiff_g4_fill2.tif"] = pil(ink, "TIFF", compression="group4", tiffinfo={266: 2})
+    out["tiff_ccitt_rle.tif"] = pil(ink, "TIFF", compression="tiff_ccitt")
+    out["tiff_rlew.tif"] = pil(ink, "TIFF", compression="tiff_raw_16")
+    out["tiff_thunderscan.tif"] = enc.tiff_file((grey[..., None] // 16).astype(np.uint8), 4, 1, ">", 32809,
+                                                rows_per_strip=8)
+    out["tiff_old_lzw.tif"] = enc.tiff_file(ph, 8, 2, "<", 5, old_lzw=True, rows_per_strip=8)
+    f = grey[..., None].astype(np.float32) * 1.4 - 40
+    f[0, :3, 0] = [np.nan, np.inf, -np.inf]
+    out["tiff_float_pred3_mm.tif"] = enc.tiff_file(f, 32, 1, ">", 8, predictor=3, sample_format=3, rows_per_strip=8)
+    v12 = rng.integers(0, 300, (23, 29)).astype(np.int64)
+    bits12 = ((v12[..., None] >> np.arange(11, -1, -1)) & 1).reshape(23, -1).astype(np.uint8)
+    out["tiff_i12.tif"] = enc.tiff_raw_strip(np.packbits(bits12, axis=1).tobytes(), 29, 23, 12, 1)
+    lab = rng.integers(0, 256, (23, 29, 3), dtype=np.uint8)
+    lab[8:12] = lab[8]
+    out["tiff_lab_lzw.tif"] = enc.tiff_file(lab, 8, 8, "<", 5, predictor=2, rows_per_strip=8)
+    out["tiff_cmyk_jpeg.tif"] = pil(Image.fromarray(ph4, "CMYK"), "TIFF", compression="jpeg", quality=80)
+    s16 = ph.astype(np.uint16) * 251 + rng.integers(0, 251, ph.shape).astype(np.uint16)
+    out["tiff_tiles16_planar_mm.tif"] = enc.tiff_file(s16, 16, 2, ">", 1, planar=2, tile=(16, 16))
+    out["tiff_orient7_lzma.tif"] = enc.tiff_file(ph, 8, 2, "<", 34925, rows_per_strip=8, extra_tags={274: (3, [7])})
+    out["tiff_zstd_predictor.tif"] = pil(ph, "TIFF", compression="zstd", tiffinfo={317: 2, 278: 8})
+    out["tiff_ojpeg_split.tif"] = enc.ojpeg_tiff(pil(ph, "JPEG", quality=85), 23, 29, split=True)
+    out["tiff_ojpeg_tables_mm.tif"] = enc.ojpeg_tables_tiff(pil(ph, "JPEG", quality=70, subsampling=2), 23, 29, ">")
+    out["tiff_ycbcr22_deflate.tif"] = enc.ycbcr_tiff(lab, (2, 2), 8, 8)
+    out["psd_lab_rle.psd"] = enc.psd_file([lab[..., c] for c in range(3)], 9, 8, 1)
+    jp = pil(ph, "JPEG", quality=85)
+    out["blp1_jpeg.blp"] = enc.blp1_jpeg(jp, 29, 23)
+    out["blp2_dxt5.blp"] = enc.blp2_file(29, 23, rng.integers(0, 256, 6 * 8 * 16, dtype=np.uint8).tobytes(), 2, 7, 1)
+    out["blp2_palette.blp"] = pil(Image.fromarray(ph).convert("P"), "BLP")
+    out["ftex_dxt1.ftc"] = enc.ftex_file(29, 23, 0, rng.integers(0, 256, 6 * 8 * 8, dtype=np.uint8).tobytes())
+    out["dcx_two.dcx"] = enc.dcx_file([pil(ph, "PCX", "P"), pil(enc.photo(5, 7, 6), "PCX")])
+    sq = enc.photo(16, 16, 7)
+    out["icns_rle24.icns"] = enc.icns_file([(b"is32", enc.icns_rle24(sq)), (b"s8mk", bytes(range(256)))])
+    out["sun_rle_palette.ras"] = enc.sun_file(idx.astype(np.uint8), 8, 2, cmap=rng.integers(0, 256, (12, 3)))
+    out["sun_rgbx_type3.ras"] = enc.sun_file(ph4, 32, 3)
+    out["xbm_pil.xbm"] = pil(ink, "XBM")
+    out["xpm_two_chars.xpm"] = enc.xpm_file(rng.integers(0, 69, (11, 13)),
+                                            [b"#%06X" % rng.integers(0, 1 << 24) for _ in range(70)], 2, none=69)
+    out["msp_v2_rle.msp"] = enc.msp_rle(np.asarray(ink).astype(np.uint8))
+    out["im_palette.im"] = pil(Image.fromarray(ph).convert("P"), "IM")
+    out["im_ycc.im"] = pil(Image.fromarray(ph).convert("YCbCr"), "IM")
+    out["spider_float.spi"] = pil(Image.fromarray(grey.astype(np.float32) * 1.3 - 25), "SPIDER")
+    out["fits_bitpix16.fits"] = enc.fits_file(grey.astype(np.int64) * 3 - 60, 16)
+    out["fits_gzip8.fits"] = enc.fits_gzip(grey.astype(np.int64), 8)
+    out["iptc_rgb_band.iim"] = enc.iptc_file(grey, 3, 1, band=2, split=2)
+    out["pixar.pxr"] = enc.pixar_file(ph)
+    out["mcidas_16bit.area"] = enc.mcidas_file(grey.astype(np.int64) * 2, 2, 4)
+    out["gbr_v2_rgba.gbr"] = enc.gbr_file(ph4)
+    out["xvthumb.xv"] = enc.xvthumb_file(rng.integers(0, 256, (23, 29)))
+    out["imt_grey.imt"] = enc.imt_file(grey)
+    fimg = (idx * 15).astype(np.uint8)
+    fimg[:, 20:] = 0
+    out["fli_lc_color64.flc"] = enc.fli_file(29, 23, [enc.fli_color(rng.integers(0, 64, (256, 3)), True),
+                                                      enc.fli_lc(fimg, 3)])
+    out["fli_brun.fli"] = enc.fli_file(29, 23, [enc.fli_color(rng.integers(0, 256, (256, 3))), enc.fli_brun(fimg)],
+                                       magic=0xAF11)
+    out["pnm_pycmyk.pnm"] = b"PyCMYK 29 23 200\n" + rng.integers(0, 201, 23 * 29 * 4, dtype=np.uint8).tobytes()
     return out
 
 
@@ -154,7 +247,7 @@ def main() -> None:
         with open(os.path.join(OUT, name), "wb") as f:
             f.write(data)
         group = "loft_lossless" if name in LOSSLESS.values() else "loft_lossy" if name in LOSSY.values() \
-            else "variant"
+            else "loft_lossless2" if name in LOSSLESS2.values() else "variant"
         manifest[name] = {"group": group, "bytes": len(data), **digest(pil_rgb(data))}
     with open(MANIFEST, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
