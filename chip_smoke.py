@@ -177,13 +177,20 @@ port's paths and checks that each went through its kernels:
      McIdas, GBR, XV thumbnails, IMT, CIELAB PSD) among them; the loft
      with its textures as TGA RLE, TIFF LZW and WebP lossless, and again
      as DCX, an LZMA TIFF stored transposed under orientation 5 and ICNS,
+     and again in JPEG 2000 (a 5/3 JP2, a tiled RPCL codestream with
+     precincts and three layers, an ICNS whose 256x256 entry is JPEG 2000,
+     each tier-1 code-block through the native csrc/host/j2k_t1.cpp),
      through `load_obj`, each set's texture arrays equal to the PNG loft's
      and its card frame at JPEG_RENDER equal to the PNG loft's card frame
-     bit for bit; the loft with WebP lossy, DDS BC1 and arithmetic JPEG
-     textures, its card frame against the port's CPU frame within
-     JPEG_RENDER_TOL; K1 / K2 / K3 launched on the flat walk by every card
-     render (`codecs_scene` and `codecs_scene_lossless2` in the kernels
-     line's paths).
+     bit for bit, its launches the PNG loft's; the loft with WebP lossy,
+     DDS BC1 and arithmetic JPEG textures, its card frame against the
+     port's CPU frame within JPEG_RENDER_TOL; K1 / K2 / K3 launched on the
+     flat walk by every card render (`codecs_scene`,
+     `codecs_scene_lossless2` and `codecs_scene_lossless3` in the kernels
+     line's paths). The JPEG 2000 fixtures (every progression, POC, tiles
+     and tile-parts, precincts, layers, each code-block style, SOP / EPH,
+     ROI, PPT / PPM, precisions, subsampling, L / LA / RGBA / I;16 / CMYK /
+     P / sYCC) are among the fixtures held to the manifest.
 
 The cull (K1) is held against its plain version and timed on both tables
 (cluster boxes and entry boxes on the city, entry boxes on the big scene)
@@ -3044,6 +3051,9 @@ CODEC_LOSSY = {"loft_tex0.png": "loft_tex0_lossy.webp", "loft_tex1.png": "loft_t
                "loft_tex2.png": "loft_tex2_arith.jpg"}
 CODEC_LOSSLESS2 = {"loft_tex0.png": "loft_tex0.dcx", "loft_tex1.png": "loft_tex1_orient5_lzma.tif",
                    "loft_tex2.png": "loft_tex2.icns"}  # DCX, an LZMA TIFF stored transposed, ICNS
+CODEC_LOSSLESS3 = {"loft_tex0.png": "loft_tex0_53.jp2", "loft_tex1.png": "loft_tex1_rpcl_tiles.j2k",
+                   "loft_tex2.png": "loft_tex2_j2k.icns"}  # JPEG 2000: 5/3 JP2, tiled RPCL, an ICNS entry
+CODEC_LOSSLESS_SETS = ("lossless", "lossless2", "lossless3")
 
 
 def _loft_textured(tmp, names: dict):
@@ -3093,12 +3103,12 @@ def codecs_scene(dev, card, counts):
     """The port's own decoders of the texture formats beyond PNG and JPEG,
     on a machine without PIL: every fixture against tests/torch_fixtures/
     textures/manifest.json (PIL's decode: shape, channel sums, SHA-256),
-    timed on the host; the loft with two lossless sets of formats (each
+    timed on the host; the loft with three lossless sets of formats (each
     set's texture arrays equal to the PNG loft's, its card frame equal to
-    the PNG loft's card frame bit for bit) and a lossy set (the card frame
-    against the CPU frame within JPEG_RENDER_TOL); K1 / K2 / K3 on the flat
-    walk in every card render. Returns the two lossless loft renders'
-    launches."""
+    the PNG loft's card frame bit for bit, its launches the PNG loft's) and
+    a lossy set (the card frame against the CPU frame within
+    JPEG_RENDER_TOL); K1 / K2 / K3 on the flat walk in every card render.
+    Returns the three lossless loft renders' launches."""
     import hashlib
 
     import torch
@@ -3122,7 +3132,7 @@ def codecs_scene(dev, card, counts):
             bad.append(name)
     scenes_by_kind, t_load = {}, {}
     for kind, names in (("png", {png: png for png in CODEC_LOSSLESS}), ("lossless", CODEC_LOSSLESS),
-                        ("lossless2", CODEC_LOSSLESS2), ("lossy", CODEC_LOSSY)):
+                        ("lossless2", CODEC_LOSSLESS2), ("lossless3", CODEC_LOSSLESS3), ("lossy", CODEC_LOSSY)):
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
             scenes_by_kind[kind] = _loft_textured(tmp, names)
@@ -3130,13 +3140,13 @@ def codecs_scene(dev, card, counts):
     png_tex = scenes_by_kind["png"].textures
     equal_textures = {kind: len(scenes_by_kind[kind].textures) == len(png_tex) == 3 and all(
         np.array_equal(a, b) for a, b in zip(scenes_by_kind[kind].textures, png_tex))
-        for kind in ("lossless", "lossless2")}
+        for kind in CODEC_LOSSLESS_SETS}
     frames, launches, frame_s = {}, {}, {}
-    for kind in ("lossless", "png", "lossless2", "lossy"):
+    for kind in ("lossless", "png", "lossless2", "lossless3", "lossy"):
         frames[kind], launches[kind], frame_s[kind] = _loft_frame(scenes_by_kind[kind], dev, counts)
         check_walk(f"codecs_scene ({kind})", launches[kind], "flat")
     cpu, _, frame_s["lossy_cpu"] = _loft_frame(scenes_by_kind["lossy"], torch.device("cpu"))
-    card_eq = {kind: bool(np.array_equal(frames[kind], frames["png"])) for kind in ("lossless", "lossless2")}
+    card_eq = {kind: bool(np.array_equal(frames[kind], frames["png"])) for kind in CODEC_LOSSLESS_SETS}
     rmse = scenes.golden_rmse(frames["lossy"], cpu)
     emit("codecs_scene", fixtures=len(manifest), mismatched=bad, decode_ms=decode_ms,
          decode_ms_total=sum(decode_ms.values()), load_obj_s=t_load, loft_textures_equal_png=equal_textures,
@@ -3144,14 +3154,17 @@ def codecs_scene(dev, card, counts):
          **JPEG_RENDER, frame_s=frame_s, launches=launches, seconds=time.perf_counter() - t_all, card=card)
     if bad:
         raise AssertionError(f"codecs_scene: fixtures decoded unlike PIL: {bad}")
-    for kind in ("lossless", "lossless2"):
+    for kind in CODEC_LOSSLESS_SETS:
         if not equal_textures[kind]:
             raise AssertionError(f"codecs_scene: the {kind} loft's textures differ from the PNG loft's")
         if not card_eq[kind]:
             raise AssertionError(f"codecs_scene: the {kind} loft's card frame differs from the PNG loft's")
+        if launches[kind] != launches["png"]:
+            raise AssertionError(f"codecs_scene: the {kind} loft's launches {launches[kind]} are not the PNG "
+                                 f"loft's {launches['png']}")
     if not rmse <= JPEG_RENDER_TOL:
         raise AssertionError(f"codecs_scene: lossy loft card against CPU RMSE {rmse} (limit {JPEG_RENDER_TOL})")
-    return launches["lossless"], launches["lossless2"]
+    return tuple(launches[kind] for kind in CODEC_LOSSLESS_SETS)
 
 
 # ---- the scripts beside the package, as modules of the port ---------------
@@ -3788,7 +3801,8 @@ def main(argv=None) -> int:
     # started together ------------------------------------------------------
     t0 = time.perf_counter()
     names = sorted({os.path.splitext(os.path.basename(src))[0] for src in SOURCES.values()})
-    host_libs = ("accel", "objparser")  # csrc/host: the native builders and the OBJ tokenizer
+    # csrc/host: the native builders, the OBJ tokenizer, JPEG 2000's tier 1
+    host_libs = ("accel", "objparser", "j2k_t1")
     with concurrent.futures.ThreadPoolExecutor(len(names) + len(host_libs)) as pool:
         list(pool.map(lambda f: f[0](f[1]), [(cuda_build.load, n) for n in names]
                       + [(host_build.load, n) for n in host_libs]))
@@ -3822,9 +3836,9 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
 
     if args.only == "codecs":
         t1 = time.perf_counter()
-        launches, launches2 = codecs_scene(dev, card, tc.launch_counts)
+        launches, launches2, launches3 = codecs_scene(dev, card, tc.launch_counts)
         emit("codecs_phase", seconds=time.perf_counter() - t1, launches=launches, launches_lossless2=launches2,
-             card=card)
+             launches_lossless3=launches3, card=card)
         print(smi, flush=True)
         return 0
 
@@ -4031,7 +4045,7 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
     cornell_launches = cornell_slice(dev, card, tc.launch_counts)
     file_goldens(dev)
     jpeg_launches = jpeg_scene(dev, card, tc.launch_counts)
-    codecs_launches, codecs2_launches = codecs_scene(dev, card, tc.launch_counts)
+    codecs_launches, codecs2_launches, codecs3_launches = codecs_scene(dev, card, tc.launch_counts)
     torch.cuda.empty_cache()
 
     # ---- the instanced city (TLAS) through the CLI's renderer, and the CLI
@@ -4185,7 +4199,8 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
             "hello": hello_launches, "whitted": whitted_launches, "spectral": spectral_launches,
             "demand_loft": demand_loft_launches, "demand_big": demand_big_launches, "view": view_launches,
             **dist_runs, **bench_runs, **script_runs, "jpeg_scene": jpeg_launches, "codecs_scene": codecs_launches,
-            "codecs_scene_lossless2": codecs2_launches, "big_slice": big_launches}
+            "codecs_scene_lossless2": codecs2_launches, "codecs_scene_lossless3": codecs3_launches,
+            "big_slice": big_launches}
     for run in runs.values():
         for name, k in run.items():
             launches[name] = launches.get(name, 0) + k

@@ -144,7 +144,7 @@ FORMATS = [
     ("GRIB", lambda p: len(p) >= 8 and p.startswith(b"GRIB") and p[7] == 1,
      _fails("cannot find loader for this GRIB file")),
     ("HDF5", _starts(b"\x89HDF\r\n\x1a\n"), _fails("cannot find loader for this HDF5 file")),
-    ("JPEG2000", _starts(b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"), None),
+    ("JPEG2000", _starts(b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"), _codec("jp2")),
     ("ICNS", _starts(b"icns"), _codec("icns")),
     ("ICO", _starts(b"\0\0\1\0"), _codec("ico")),
     ("IM", _im, _codec("im")),

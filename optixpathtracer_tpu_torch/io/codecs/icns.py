@@ -3,12 +3,12 @@ largest (width, height, scale) any entry gives; its PNG entry (decoded by
 io/image.py), or else its 24-bit entry, raw or in the icon RLE (n < 128:
 n + 1 literal bytes; n >= 128: n - 125 copies of the next byte, the red,
 green and blue planes one after the other; it32 after four zero bytes).
-A JPEG 2000 entry raises NotImplementedError (ROADMAP A.1, JPEG2000)."""
+A JPEG 2000 entry decodes through codecs/jp2.py, its bytes read alone."""
 from __future__ import annotations
 
 import numpy as np
 
-from ._common import DecodeError, NotThisFormat, need, u32be, unported
+from ._common import DecodeError, NotThisFormat, need, u32be
 
 # PIL's IcnsFile.SIZES: (width, height, scale) -> its entries in reading order
 _SIZES = {
@@ -93,7 +93,12 @@ def rgb8(data: bytes) -> np.ndarray:
 
             return rgb8_from_png(data[start:])  # PIL reads the PNG from the entry on, to its IEND
         if sig.startswith((b"\xff\x4f\xff\x51", b"\x0d\x0a\x87\x0a")) or sig == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a":
-            raise unported("JPEG2000 (an ICNS entry)")
+            from . import jp2
+
+            try:  # PIL reads the entry's bytes as a JPEG 2000 file of their own
+                return jp2.rgb8(data[start:start + length])
+            except NotThisFormat as e:
+                raise DecodeError(f"ICNS JPEG 2000 entry PIL cannot open: {e}") from e
         raise DecodeError("Unsupported icon subimage format")
     if rgb is None:
         raise DecodeError("ICNS size with a mask and no colour")

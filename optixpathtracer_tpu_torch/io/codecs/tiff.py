@@ -323,18 +323,22 @@ def _ycbcr(data, tags, offsets, counts, compression, width, height, tw, th, acro
     return out
 
 
-def _ojpeg(data: bytes, tags: dict, width: int, height: int) -> np.ndarray:
+def _ojpeg(data: bytes, tags: dict, width: int, height: int, spp: int, order: str) -> np.ndarray:
     """Old-style JPEG (compression 6) as libtiff's OJPEG codec and RGBA
     reader give it to PIL: the stream at JPEGInterchangeFormat (its scan
     from the strips where the stream stops before one), its components
     decoded without upsampling or colour conversion (libjpeg's raw data),
-    each chroma sample spread over its block, then TIFFYCbCrtoRGB."""
+    each chroma sample spread over its block, then TIFFYCbCrtoRGB; one
+    sample is its one component, grey, whatever the photometric tag says
+    (PIL reads compression 6 as YCbCr)."""
     from ..image import _component_plane, read_jpeg
 
     strips = [data[o:o + n] for o, n in zip(tags.get(273, ()), tags.get(279, ()))]
     start = tags.get(513, (None,))[0]
     if start is None:
-        stream = _ojpeg_from_tables(data, tags, width, height, strips)
+        if len(strips) > 1 and order == ">":  # libtiff decodes the inner strips of these unlike this stream
+            raise unported("old-style JPEG TIFF of table tags over several strips in big-endian order")
+        stream = _ojpeg_from_tables(data, tags, width, height, strips, spp)
     else:
         length = tags.get(514, (0,))[0]
         stream = data[start:start + length] if length else data[start:]
@@ -343,8 +347,13 @@ def _ojpeg(data: bytes, tags: dict, width: int, height: int) -> np.ndarray:
     frame = read_jpeg(stream)[0]
     if frame.progressive or frame.arithmetic or frame.lossless:
         raise DecodeError("old-style JPEG TIFF of a frame libtiff's OJPEG does not take (SOF0 / SOF1 only)")
-    if len(frame.ids) != 3:
-        raise DecodeError("old-style JPEG TIFF of three samples whose stream is not three components")
+    if len(frame.ids) != spp:
+        raise DecodeError("old-style JPEG TIFF whose stream's components are not its samples: libtiff refuses it")
+    if spp == 1:
+        h, w = min(height, frame.height), min(width, frame.width)
+        out = np.zeros((height, width), np.uint8)
+        out[:h, :w] = np.clip(_component_plane(frame, 0), 0, 255)[:h, :w]
+        return grey_rgb(out)
     planes = []
     for c in range(3):
         p = _component_plane(frame, c)
@@ -360,16 +369,16 @@ def _ojpeg(data: bytes, tags: dict, width: int, height: int) -> np.ndarray:
     return out
 
 
-def _ojpeg_from_tables(data: bytes, tags: dict, width: int, height: int, strips: list) -> bytes:
+def _ojpeg_from_tables(data: bytes, tags: dict, width: int, height: int, strips: list, spp: int) -> bytes:
     """The JPEG stream libtiff's OJPEG builds from TIFF 6.0's table tags:
     each component's quantisation table (JPEGQTables, 64 bytes in zigzag
     order) and DC / AC Huffman tables (16 counts, then the values), a
-    baseline frame of luma at the YCbCrSubsampling factors and 1x1 chroma,
-    the restart interval, then the strip's entropy-coded data."""
+    baseline frame of luma at the YCbCrSubsampling factors and 1x1 chroma
+    (one component for one sample), the restart interval, then the strips'
+    entropy-coded data; over more than one strip each strip is a restart
+    interval of its MCUs (an RST marker between strips)."""
     if tags.get(512, (1,))[0] != 1:
         raise DecodeError("old-style JPEG TIFF of a lossless process: libtiff refuses it")
-    if len(strips) != 1:
-        raise unported("old-style JPEG TIFF of table tags in more than one strip")
 
     def seg(marker: int, body: bytes) -> bytes:
         return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + body
@@ -382,17 +391,22 @@ def _ojpeg_from_tables(data: bytes, tags: dict, width: int, height: int, strips:
         q, dc, ac = (tags[t] for t in (519, 520, 521))
     except KeyError as e:
         raise DecodeError("old-style JPEG TIFF without its tables") from e
-    hs, vs = (tuple(tags.get(530, (2, 2))) + (2, 2))[:2]
+    hs, vs = (tuple(tags.get(530, (2, 2))) + (2, 2))[:2] if spp == 3 else (1, 1)
     out = b"\xff\xd8"
-    for c in range(3):
+    for c in range(spp):
         out += seg(0xDB, bytes([c]) + data[q[c]:q[c] + 64])
         out += seg(0xC4, bytes([c]) + huff(dc[c])) + seg(0xC4, bytes([0x10 | c]) + huff(ac[c]))
-    comps = b"".join(bytes([c + 1, (hs << 4 | vs) if c == 0 else 0x11, c]) for c in range(3))
-    out += seg(0xC0, bytes([8]) + height.to_bytes(2, "big") + width.to_bytes(2, "big") + bytes([3]) + comps)
+    comps = b"".join(bytes([c + 1, (hs << 4 | vs) if c == 0 else 0x11, c]) for c in range(spp))
+    out += seg(0xC0, bytes([8]) + height.to_bytes(2, "big") + width.to_bytes(2, "big") + bytes([spp]) + comps)
     if tags.get(515, (0,))[0]:
         out += seg(0xDD, tags[515][0].to_bytes(2, "big"))
-    out += seg(0xDA, bytes([3]) + b"".join(bytes([c + 1, c << 4 | c]) for c in range(3)) + bytes([0, 63, 0]))
-    return out + strips[0] + b"\xff\xd9"
+    elif len(strips) > 1:
+        rps = min(tags.get(278, (height,))[0], height)
+        out += seg(0xDD, (-(-width // (8 * hs)) * (rps // (8 * vs))).to_bytes(2, "big"))
+    out += seg(0xDA, bytes([spp]) + b"".join(bytes([c + 1, c << 4 | c]) for c in range(spp)) + bytes([0, 63, 0]))
+    body = b"".join(strip + (bytes([0xFF, 0xD0 | i % 8]) if i + 1 < len(strips) else b"")
+                    for i, strip in enumerate(strips))
+    return out + body + b"\xff\xd9"
 
 
 _ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
@@ -472,12 +486,16 @@ def rgb8(data: bytes) -> np.ndarray:
     if fill == 2:  # the bits of each byte are reversed before decoding: the plain mode then
         raw = raw[:-1].rstrip(";")
     if compression == 6:
-        if raw != "RGBX":
-            raise unported("old-style JPEG TIFF of one sample")
-        return _orient(_ojpeg(data, tags, width, height), one(274, 1))
+        if spp == 1 and one(262, 0) in (2, 6):
+            raise DecodeError("old-style JPEG TIFF of one sample under an RGB or YCbCr photometric: libtiff "
+                              "refuses its directory (PIL: decoder error -2)")
+        if raw not in ("RGBX", "L"):
+            raise DecodeError(f"old-style JPEG TIFF of PIL's raw mode {raw}: libtiff's OJPEG fails it")
+        return _orient(_ojpeg(data, tags, width, height, 3 if raw == "RGBX" else 1, order), one(274, 1))
     ycbcr = photo == 6 and compression not in (1, 7) and raw == "RGBX"  # libtiff's RGBA reader converts it
     if photo == 6 and compression == 7 and planar != 1:
-        raise unported("YCbCr TIFF of JPEG planes")
+        raise DecodeError("YCbCr JPEG TIFF in separate planes: libtiff converts YCbCr to RGB on contiguous "
+                          "samples only (PIL: decoder error -2)")
     bps = bps_t[0]
     if fill == 2 and compression not in (1, 2, 3, 4, 32771) and 324 in tags:
         raise DecodeError("tiled, compressed TIFF with fill order 2: PIL's libtiff decoder fails it")
@@ -557,6 +575,13 @@ def rgb8(data: bytes) -> np.ndarray:
         if compression == 7:
             tile = _jpeg(tables, src, photo == 6)
             h_, w_ = min(th, height - y0, tile.shape[0]), min(tw, width - x0, tile.shape[1])
+            if planar == 2 and spp > 1:  # one stream a plane, each of one component
+                if tile.shape[-1] != 1:
+                    raise DecodeError("JPEG TIFF plane whose stream is not one component")
+                if jpeg_px is None:
+                    jpeg_px = np.zeros((height, width, spp), np.uint8)
+                jpeg_px[y0:y0 + h_, x0:x0 + w_, plane] = tile[:h_, :w_, 0]
+                continue
             if jpeg_px is None:
                 jpeg_px = np.zeros((height, width, tile.shape[-1]), np.uint8)
             if tile.shape[-1] != jpeg_px.shape[-1]:
@@ -586,10 +611,18 @@ def rgb8(data: bytes) -> np.ndarray:
         c = min(chunk_bytes, row_bytes - xb)
         raws[plane][y0:y0 + r, xb:xb + c] = arr[:r, :c]
     if compression == 7:
-        if raw not in ("RGB", "RGBX", "RGBA", "L", "LA", "CMYK"):
-            raise unported(f"JPEG TIFF of PIL's raw mode {raw}")
+        if bps != 8:
+            raise DecodeError(f"JPEG TIFF of {bps}-bit samples: libtiff's JPEG codec refuses them "
+                              "(PIL: decoder error -2)")
         if jpeg_px is None:
             raise DecodeError("JPEG TIFF without strips")
+        if raw not in ("RGB", "RGBX", "RGBA", "L", "LA", "CMYK"):  # libtiff's bytes, then PIL's unpacker (L;I, P)
+            if jpeg_px.shape[-1] != spp:
+                raise DecodeError("JPEG TIFF whose streams' components are not its samples")
+            rows = [np.ascontiguousarray(jpeg_px[..., i] if planar == 2 else jpeg_px.reshape(height, -1))
+                    for i in range(planes)]
+            return _orient(_rgb(rows, tags, raw, photo, fmt, bps, spp, planes, width, height, order, 1, 1),
+                           one(274, 1))
         if raw == "CMYK":
             if jpeg_px.shape[-1] != 4:
                 raise DecodeError("CMYK JPEG TIFF whose streams are not four components")

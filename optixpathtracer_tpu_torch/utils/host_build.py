@@ -2,8 +2,10 @@
 
 `csrc/host/accel.cpp` (the acceleration-structure builders) and
 `csrc/host/objparser.cpp` (the OBJ tokenizer) are copies of the reference's
-`native/src/` sources. On first use each is compiled with the reference's
-command, `g++ -O2 -shared -fPIC`, into `_build/` (listed in .gitignore),
+`native/src/` sources; `csrc/host/j2k_t1.cpp` (JPEG 2000 tier 1, the twin
+of `io/codecs/j2k_t1.py`) is the port's own. On first use each is compiled
+with the reference's command, `g++ -O2 -shared -fPIC`, into `_build/`
+(listed in .gitignore),
 keyed by a hash of the source and the flags, and loaded with ctypes. A build
 goes to a temporary name first and is moved into place with `os.replace`,
 so processes that build the same library at once never load a half-written
@@ -12,7 +14,8 @@ file.
 `OPTIX_TPU_NO_NATIVE=1` (read at call time) turns the libraries off and the
 callers take their numpy / Python paths, as in the reference. Otherwise a
 failed build raises: the native and numpy `treelet_order` give different
-cluster orders, so which one ran must not depend on whether a compiler
+cluster orders, and tier 1 in Python takes seconds where the native one
+takes milliseconds, so which one ran must not depend on whether a compiler
 happened to be present.
 """
 from __future__ import annotations

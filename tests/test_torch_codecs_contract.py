@@ -2,9 +2,10 @@
 io/gltf.py, io/obj.py) against PIL and the JAX package's loaders.
 
 - NotImplementedError naming ROADMAP A.1 only for bytes PIL reads: one
-  case per format PIL reads here and the port does not (JPEG 2000, AVIF);
-  the cases of the formats once unported here (BLP, IM, MSP, SPIDER, XBM,
-  ICNS, SUN, XPM, FITS) now hold the port's decode to PIL's.
+  case per format PIL reads here and the port does not (AVIF); the cases
+  of the formats once unported here (BLP, IM, MSP, SPIDER, XBM, ICNS, SUN,
+  XPM, FITS, JPEG 2000) now hold the port's decode to PIL's, and a glTF
+  that embeds AVIF raises A.1.
 - The formats PIL opens but cannot decode (EPS without Ghostscript, MPEG,
   HDF5, BUFR, GRIB, WMF) raise an OSError that is no NotImplementedError,
   and a glTF embedding one keeps the factor-only material in both
@@ -64,7 +65,7 @@ UNPORTED = {
 }
 
 
-STILL_UNPORTED = ("JPEG2000", "AVIF")
+STILL_UNPORTED = ("AVIF",)
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
@@ -177,7 +178,7 @@ def test_gltf_keeps_the_factor_only_material(tmp_path, name):
 
 
 def test_gltf_with_unported_format_raises_a1(tmp_path):
-    path = _textured_glb(tmp_path / "j2k.glb", UNPORTED["JPEG2000"]())
+    path = _textured_glb(tmp_path / "avif.glb", UNPORTED["AVIF"]())
     with pytest.raises(NotImplementedError, match="A.1"):
         from optixpathtracer_tpu_torch.io import gltf as tgltf
 

@@ -82,10 +82,8 @@ def test_icns(tmp_path):
     blocks[::7] = photo(19, 128, 5)[:19]
     assert_like_pil(enc.icns_file([(b"it32", bytes(4) + enc.icns_rle24(blocks))]))
     assert_fails_like_pil(enc.icns_file([(b"is32", enc.icns_rle24(sq)[:-40])]))
-    j2k = pil_bytes(photo(16, 16, 2), "JPEG2000")
-    with pytest.raises(NotImplementedError, match="JPEG2000.*A.1"):
-        enc_rgb = enc.icns_file([(b"icp4", j2k)])
-        assert_like_pil(enc_rgb)
+    j2k = pil_bytes(photo(16, 16, 2), "JPEG2000")  # once A.1, now decoded as PIL decodes it
+    assert_like_pil(enc.icns_file([(b"icp4", j2k)]))
 
 
 @pytest.mark.parametrize("depth", [1, 4, 8, 24, 32])
@@ -307,9 +305,10 @@ def test_pcd(tmp_path, orientation):
 
 
 def test_unported_formats_left():
-    """JPEG 2000 and AVIF, which PIL reads, still raise A.1."""
+    """AVIF, which PIL reads, still raises A.1; JPEG 2000 (once A.1 too)
+    decodes as PIL decodes it."""
     from optixpathtracer_tpu_torch.io import image as timg
 
-    for fmt in ("JPEG2000", "AVIF"):
-        with pytest.raises(NotImplementedError, match=f"{fmt}.*A.1"):
-            timg.rgb8_from_bytes(pil_bytes(photo(8, 8, 1), fmt))
+    with pytest.raises(NotImplementedError, match="AVIF.*A.1"):
+        timg.rgb8_from_bytes(pil_bytes(photo(8, 8, 1), "AVIF"))
+    assert_like_pil(pil_bytes(photo(8, 8, 1), "JPEG2000"))

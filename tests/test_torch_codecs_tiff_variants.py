@@ -14,14 +14,16 @@ them), Group 3 1-D and 2-D with and without EOL fill, Group 4, fill order
 every subsampling, PIL's raw reading of uncompressed ones). The
 compressions PIL does not know or cannot decode fail as PIL fails them;
 ZSTD (codecs/zstd.py) over PIL's own frames and a hand-made one; old-style
-JPEG (6) through JPEGInterchangeFormat and from TIFF 6.0's table tags.
+JPEG (6) through JPEGInterchangeFormat and from TIFF 6.0's table tags, over
+several strips (each a restart interval) and of one sample; JPEG (7) in
+separate planes and under PIL's raw modes L;I and P.
 """
 import numpy as np
 import pytest
 
 from optixpathtracer_tpu_torch.io import codecs
 from optixpathtracer_tpu_torch.io import image as timg
-from torch_codec_encoders import (assert_as_pil, assert_fails_like_pil, assert_like_pil, photo, pil_bytes,
+from torch_codec_encoders import (assert_as_pil, assert_fails_like_pil, assert_like_pil, photo, pil_bytes, pil_rgb,
                                   ojpeg_tables_tiff, ojpeg_tiff, tiff_file, tiff_raw_strip, ycbcr_tiff,
                                   zstd_simple_frame)
 
@@ -289,6 +291,73 @@ def test_old_style_jpeg_from_tables(tmp_path, quality, order):
         for optimize in (False, True):
             jp = pil_bytes(photo(*shape, quality), "JPEG", quality=quality, subsampling=2, optimize=optimize)
             assert_like_pil(ojpeg_tables_tiff(jp, *shape, order), tmp_path, "ojt.tif")
+
+
+@pytest.mark.parametrize("shape, rows", [((48, 40), 16), ((40, 37), 16), ((64, 24), 32)])
+def test_old_style_jpeg_from_tables_over_strips(tmp_path, shape, rows):
+    """Table tags over several strips: libtiff's OJPEG takes each strip as
+    a restart interval of its MCUs (its own RST between strips), whatever
+    JPEGRestartInterval says where it is absent, 0 or the strip's MCUs. In
+    big-endian files libtiff decodes the inner strips otherwise: A.1."""
+    img = photo(*shape, 3)
+    jp = pil_bytes(img, "JPEG", quality=80, subsampling=2, restart_marker_rows=rows // 16)
+    mcus = -(-shape[1] // 16) * (rows // 16)
+    for restart in (None, 0, mcus):
+        assert_like_pil(ojpeg_tables_tiff(jp, *shape, rows_per_strip=rows, restart=restart), tmp_path, "ojs.tif")
+    big = ojpeg_tables_tiff(jp, *shape, ">", rows_per_strip=rows)
+    assert pil_rgb(big).shape == (*shape, 3)
+    with pytest.raises(NotImplementedError, match="A.1"):
+        timg.rgb8_from_bytes(big)
+
+
+@pytest.mark.parametrize("photometric", [0, 1, 2, 3, 5, 6])
+def test_old_style_jpeg_one_sample(tmp_path, photometric):
+    """Compression 6 of one sample: PIL reads it as YCbCr's L and libtiff
+    hands on the one component, grey whatever the photometric tag says,
+    but refuses the directory under RGB or YCbCr; a three-component
+    stream under one sample fails."""
+    grey = pil_bytes(photo(16, 24, 1)[..., 0], "JPEG", "L", quality=80)
+    one = {258: (3, [8]), 277: (3, [1]), 262: (3, [photometric])}
+    data = ojpeg_tiff(grey, 16, 24, extra_tags=one)
+    if photometric in (2, 6):
+        assert_fails_like_pil(data)
+    else:
+        assert_like_pil(data, tmp_path if photometric == 1 else None, "oj1.tif")
+        assert_like_pil(ojpeg_tiff(grey, 16, 24, True, ">", extra_tags=one))
+    if photometric == 1:
+        assert_fails_like_pil(ojpeg_tiff(pil_bytes(photo(16, 24, 1), "JPEG"), 16, 24, extra_tags=one))
+
+
+@pytest.mark.parametrize("spp, photometric", [(1, 1), (2, 1), (3, 2), (4, 2), (3, 6)])
+def test_jpeg_in_planes(tmp_path, spp, photometric):
+    """JPEG (7) in separate planes: one grey stream a plane and strip,
+    put together as PIL's libtiff decoder does; YCbCr planes fail, as
+    libtiff converts YCbCr to RGB on contiguous samples only."""
+    px = photo(16, 24, 1)
+    px = np.concatenate([px, px[..., :1]], -1)[..., :spp]
+    extra = (2,) if spp in (2, 4) else ()
+    chunks = [pil_bytes(px[y:y + 8, :, i], "JPEG", "L", quality=90) for i in range(spp) for y in (0, 8)]
+    data = tiff_file(px, 8, photometric, "<", 7, planar=2, jpeg_chunks=chunks, rows_per_strip=8, extra=extra)
+    if photometric == 6:
+        assert_fails_like_pil(data)
+    else:
+        assert_like_pil(data, tmp_path if spp == 3 else None, "planes.tif")
+
+
+def test_jpeg_raw_modes():
+    """JPEG (7) under PIL's raw modes beyond RGB / L / CMYK: white-is-zero
+    grey (L;I, inverted) and a palette (P, through the colour map) decode
+    as PIL's unpackers read libtiff's bytes; 16-bit and 1-bit samples fail,
+    as libtiff's JPEG codec refuses them."""
+    px = photo(16, 24, 1)
+    grey = pil_bytes(px[..., 0], "JPEG", "L", quality=90)
+    cmap = np.random.default_rng(0).integers(0, 65536, (256, 3))
+    assert_like_pil(tiff_file(px[..., :1], 8, 0, "<", 7, jpeg_chunks=[grey], rows_per_strip=16))
+    assert_like_pil(tiff_file(px[..., :1], 8, 3, ">", 7, jpeg_chunks=[grey], rows_per_strip=16, colormap=cmap))
+    assert_like_pil(tiff_file(px[..., :1], 8, 0, "<", 7, planar=2, jpeg_chunks=[grey], rows_per_strip=16))
+    assert_fails_like_pil(tiff_file(px[..., :1].astype(np.uint16), 16, 1, "<", 7, jpeg_chunks=[grey],
+                                    rows_per_strip=16))
+    assert_fails_like_pil(tiff_file(px[..., :1] > 128, 1, 1, "<", 7, jpeg_chunks=[grey], rows_per_strip=16))
 
 
 def _zstd_images():

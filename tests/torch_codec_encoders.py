@@ -1742,26 +1742,38 @@ def jpeg_segments(jpeg: bytes) -> tuple[dict, bytes]:
         pos += 2 + length
 
 
-def ojpeg_tables_tiff(jpeg: bytes, height: int, width: int, order: str = "<") -> bytes:
+def ojpeg_tables_tiff(jpeg: bytes, height: int, width: int, order: str = "<", rows_per_strip: int | None = None,
+                      restart: int | None = None) -> bytes:
     """An old-style JPEG TIFF of the TIFF 6.0 kind: JPEGProc 1, the
     quantisation and Huffman tables at JPEGQTables / JPEGDCTables /
     JPEGACTables (one per component: luma's, then chroma's twice), one
-    strip of the scan's entropy-coded data; 4:2:0 YCbCr."""
+    strip of the scan's entropy-coded data; 4:2:0 YCbCr. With
+    `rows_per_strip`, the scan (written with a restart marker at each
+    strip's start) is cut at its RST markers into strips, the markers
+    dropped; `restart` sets JPEGRestartInterval."""
     tables, scan = jpeg_segments(jpeg)
+    strips = [scan]
+    if rows_per_strip:
+        import re
+
+        strips = re.split(rb"\xff[\xd0-\xd7]", scan)
     q = [tables["dqt"][0], tables["dqt"].get(1, tables["dqt"][0])]
     dc = [tables["dht"][(0, 0)], tables["dht"].get((0, 1), tables["dht"][(0, 0)])]
     ac = [tables["dht"][(1, 0)], tables["dht"].get((1, 1), tables["dht"][(1, 0)])]
-    blobs = [scan] + q + dc + ac
+    blobs = strips + q + dc + ac
     base = bytearray(8)
     offsets = []
     for b in blobs:
         offsets.append(len(base))
         base += b + (b"\0" if len(b) % 2 else b"")
-    so, qo, do, ao = offsets[0], offsets[1:3], offsets[3:5], offsets[5:7]
+    ns = len(strips)
+    so, qo, do, ao = offsets[:ns], offsets[ns:ns + 2], offsets[ns + 2:ns + 4], offsets[ns + 4:ns + 6]
     tags = {256: (4, [width]), 257: (4, [height]), 258: (3, [8, 8, 8]), 259: (3, [6]), 262: (3, [6]),
-            273: (4, [so]), 277: (3, [3]), 278: (4, [height]), 279: (4, [len(scan)]), 284: (3, [1]),
-            512: (3, [1]), 519: (4, [qo[0], qo[1], qo[1]]), 520: (4, [do[0], do[1], do[1]]),
+            273: (4, so), 277: (3, [3]), 278: (4, [rows_per_strip or height]), 279: (4, [len(b) for b in strips]),
+            284: (3, [1]), 512: (3, [1]), 519: (4, [qo[0], qo[1], qo[1]]), 520: (4, [do[0], do[1], do[1]]),
             521: (4, [ao[0], ao[1], ao[1]]), 530: (3, [2, 2])}
+    if restart is not None:
+        tags[515] = (3, [restart])
     fmt = {3: "H", 4: "I"}
     blob_at = {}
     for tag, (typ, vals) in tags.items():

@@ -5,11 +5,14 @@ sums and the SHA-256 of the uint8 RGB bytes.
 The loft's three textures (scenes/loft_tex*.png) in three lossless formats
 (TGA RLE, TIFF LZW, WebP lossless), in three more (DCX, an orientation-
 tagged LZMA TIFF, ICNS) and in a lossy set (WebP lossy, DDS BC1,
-arithmetic-coded JPEG); then one small image for each other variant the
-port decodes. PIL writes what it can write; tests/torch_codec_encoders.py
+arithmetic-coded JPEG) and a JPEG 2000 set (a 5/3 JP2, a tiled RPCL
+codestream with precincts and three layers, an ICNS of a JPEG 2000 entry);
+then one small image for each other variant the port decodes. PIL writes what it can write; tests/torch_codec_encoders.py
 writes the rest (arithmetic, lossless and YCCK JPEG, RLE BMP, colour-mapped
 TGA, GIF with an offset frame, PSD, RLE SGI, JPEG-in-TIFF, CUR, a WebP
-animation, BC6H, a VP8 frame with the simple filter and four partitions). chip_smoke.py's `codecs_scene` decodes every fixture on a
+animation, BC6H, a VP8 frame with the simple filter and four partitions) and
+tests/torch_j2k_encoders.py the JPEG 2000 files PIL does not write (through
+OpenJPEG's own encoder, spliced JP2 boxes, PPT / PPM). chip_smoke.py's `codecs_scene` decodes every fixture on a
 machine without PIL and holds it to the manifest; the CPU tests decode the
 committed files with PIL and hold the manifest to them.
 
@@ -35,6 +38,10 @@ LOSSY = {"loft_tex0.png": "loft_tex0_lossy.webp", "loft_tex1.png": "loft_tex1_bc
 # texture transposed under orientation 5, an ICNS with a 256x256 PNG entry
 LOSSLESS2 = {"loft_tex0.png": "loft_tex0.dcx", "loft_tex1.png": "loft_tex1_orient5_lzma.tif",
              "loft_tex2.png": "loft_tex2.icns"}
+# and in JPEG 2000: a 5/3 JP2, a tiled RPCL codestream with precincts and
+# three layers (the last lossless), an ICNS whose 256x256 entry is JPEG 2000
+LOSSLESS3 = {"loft_tex0.png": "loft_tex0_53.jp2", "loft_tex1.png": "loft_tex1_rpcl_tiles.j2k",
+             "loft_tex2.png": "loft_tex2_j2k.icns"}
 
 
 def digest(rgb: np.ndarray) -> dict:
@@ -156,6 +163,83 @@ def _fixtures() -> dict[str, bytes]:
         segments=(1, 0, [0, 12, -9, 30], [0, 6, -4, 15], [90, 160, 220]), lf_delta=([4, 0, 0, 0], [-3, 0, 0, 0]),
         quant=(30, 2, -3, 4, -5, 6), big=0.03, big_max=40))
     out.update(_fixtures_raster(enc, pil, Image))
+    out.update(_fixtures_j2k(enc, pil, Image))
+    return out
+
+
+def _fixtures_j2k(enc, pil, Image) -> dict[str, bytes]:
+    """The loft in JPEG 2000, and one small file for each JPEG 2000 variant:
+    PIL's writer for what it writes, OpenJPEG's encoder through ctypes and
+    spliced JP2 boxes / relocated packet headers (tests/torch_j2k_encoders.py)
+    for the rest."""
+    import torch_j2k_encoders as je
+
+    out = {}
+    for png, name in LOSSLESS3.items():
+        img = Image.open(os.path.join(REPO, "scenes", png)).convert("RGB")
+        if name.endswith(".jp2"):
+            out[name] = pil(img, "JPEG2000")
+        elif name.endswith(".j2k"):
+            out[name] = pil(img, "JPEG2000", no_jp2=True, tile_size=(96, 96), progression="RPCL",
+                            precinct_size=(32, 32), quality_mode="rates", quality_layers=[40, 10, 0],
+                            num_resolutions=4)
+        else:
+            out[name] = enc.icns_file([(b"ic08", pil(img, "JPEG2000", no_jp2=True))])
+    ph = Image.fromarray(enc.photo(29, 37, 21))
+    odd = Image.fromarray(enc.photo(13, 31, 22))
+    out["j2k_97_mct0_lrcp.j2k"] = pil(ph, "JPEG2000", no_jp2=True, irreversible=True, mct=0,
+                                      quality_mode="rates", quality_layers=[30, 8])
+    out["j2k_53_rlcp_tiles_offsets.j2k"] = pil(ph, "JPEG2000", no_jp2=True, progression="RLCP", tile_size=(16, 12),
+                                               tile_offset=(3, 2), offset=(5, 4), precinct_size=(16, 16),
+                                               num_resolutions=3)
+    out["j2k_97_rpcl_precincts_layers.j2k"] = pil(ph, "JPEG2000", no_jp2=True, irreversible=True,
+                                                  progression="RPCL", precinct_size=(16, 16),
+                                                  codeblock_size=(8, 8), quality_mode="dB",
+                                                  quality_layers=[28, 36, 44], num_resolutions=4)
+    out["j2k_53_pcrl_cblk16x8.jp2"] = pil(ph, "JPEG2000", progression="PCRL", codeblock_size=(16, 8),
+                                          precinct_size=(32, 32), num_resolutions=4)
+    out["j2k_97_cprl_odd.j2k"] = pil(odd, "JPEG2000", no_jp2=True, irreversible=True, progression="CPRL",
+                                     num_resolutions=3)
+    out["j2k_signed_plt.j2k"] = pil(ph, "JPEG2000", no_jp2=True, signed=True, plt=True, num_resolutions=3)
+    out["j2k_la.jp2"] = pil(Image.fromarray(enc.photo(23, 19, 23, 2), "LA"), "JPEG2000", num_resolutions=3)
+    out["j2k_rgba_97.jp2"] = pil(Image.fromarray(enc.photo(23, 19, 24, 4), "RGBA"), "JPEG2000", irreversible=True,
+                                 num_resolutions=3)
+    grey16 = (enc.photo(23, 19, 25, 1)[..., 0].astype(np.uint16) * 3 + 100)
+    out["j2k_i16.jp2"] = pil(Image.fromarray(grey16).convert("I;16"), "JPEG2000", num_resolutions=3)
+    p3 = je.planes(27, 33, 3, 26)
+    out["j2k_poc.j2k"] = je.opj_encode(p3, numresolution=4, rates=(10, 1),
+                                       pocs=[(0, 0, 1, 2, 3, 0), (2, 0, 2, 4, 2, 2), (0, 2, 2, 4, 3, 4)])
+    out["j2k_cblk_all_styles.j2k"] = je.opj_encode(p3, numresolution=3, mode=63, cblockw_init=8, cblockh_init=8,
+                                                   rates=(20, 6, 1))
+    out["j2k_bypass_reset_97.j2k"] = je.opj_encode(p3, numresolution=3, mode=3, irreversible=1, rates=(12, 3))
+    out["j2k_termall_vsc.j2k"] = je.opj_encode(p3, numresolution=3, mode=12, cblockw_init=16, cblockh_init=16)
+    out["j2k_pterm_segsym_97.j2k"] = je.opj_encode(p3, numresolution=3, mode=48, irreversible=1, rates=(8,))
+    out["j2k_sop_eph_tileparts.j2k"] = je.opj_encode(p3, numresolution=3, csty=6, tp_on=1, tp_flag=ord("R"),
+                                                     tile_size_on=1, cp_tdx=16, cp_tdy=16, rates=(10, 1))
+    out["j2k_roi.j2k"] = je.opj_encode(p3, numresolution=3, roi_compno=0, roi_shift=5, rates=(15, 1))
+    out["j2k_prec12_signed_97.j2k"] = je.opj_encode(je.planes(21, 19, 3, 27, 12, True), prec=12, sgnd=True,
+                                                    irreversible=1, numresolution=3)
+    out["j2k_odd_offsets_97.j2k"] = je.opj_encode(je.planes(13, 31, 3, 34), offset=(3, 5), irreversible=1,
+                                                  numresolution=3, prog_order=4, tile_size_on=1, cp_tx0=1,
+                                                  cp_ty0=2, cp_tdx=9, cp_tdy=7)
+    out["j2k_prec5_grey.j2k"] = je.opj_encode(je.planes(21, 19, 1, 28, 5), prec=5, numresolution=3)
+    full, half = je.planes(22, 20, 1, 29)[0], je.planes(11, 10, 2, 30)
+    out["j2k_subsampled_chroma.j2k"] = je.opj_encode([full] + half, dxy=[(1, 1), (2, 2), (2, 2)], tcp_mct=0,
+                                                     numresolution=3)
+    cs3 = je.opj_encode(p3, numresolution=3)
+    cs4 = je.opj_encode(je.planes(27, 33, 4, 31), numresolution=3, tcp_mct=0)
+    cs1 = je.opj_encode(je.planes(27, 33, 1, 32), numresolution=3)
+    rng = np.random.default_rng(33)
+    colours = rng.integers(0, 256, (256, 3))
+    colours[7] = colours[3]  # PIL keeps each colour once
+    out["j2k_cmyk.jp2"] = je.jp2_file(cs4, 27, 33, 4, 7, je.colr(12))
+    out["j2k_sycc.jp2"] = je.jp2_file(cs3, 27, 33, 3, 7, je.colr(18))
+    out["j2k_palette.jp2"] = je.jp2_file(cs1, 27, 33, 1, 7, je.colr(16), je.pclr(colours))
+    out["j2k_cdef_icc.jp2"] = je.jp2_file(cs3, 27, 33, 3, 7, je.colr_icc(bytes(64)),
+                                          je.cdef([(0, 0, 3), (1, 0, 2), (2, 0, 1)]), brand=b"jpx ")
+    tiled = je.opj_encode(p3, numresolution=3, csty=6, tile_size_on=1, cp_tdx=16, cp_tdy=16, rates=(10, 1))
+    out["j2k_ppt.j2k"] = je.to_ppt(tiled, 40)
+    out["j2k_ppm.j2k"] = je.to_ppm(tiled, 1000)
     return out
 
 
@@ -247,7 +331,8 @@ def main() -> None:
         with open(os.path.join(OUT, name), "wb") as f:
             f.write(data)
         group = "loft_lossless" if name in LOSSLESS.values() else "loft_lossy" if name in LOSSY.values() \
-            else "loft_lossless2" if name in LOSSLESS2.values() else "variant"
+            else "loft_lossless2" if name in LOSSLESS2.values() else "loft_lossless3" if name in LOSSLESS3.values() \
+            else "variant"
         manifest[name] = {"group": group, "bytes": len(data), **digest(pil_rgb(data))}
     with open(MANIFEST, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
