@@ -183,12 +183,20 @@ port's paths and checks that each went through its kernels:
      through `load_obj`, each set's texture arrays equal to the PNG loft's
      and its card frame at JPEG_RENDER equal to the PNG loft's card frame
      bit for bit, its launches the PNG loft's; the loft with WebP lossy,
-     DDS BC1 and arithmetic JPEG textures, its card frame against the
-     port's CPU frame within JPEG_RENDER_TOL; K1 / K2 / K3 launched on the
-     flat walk by every card render (`codecs_scene`,
-     `codecs_scene_lossless2` and `codecs_scene_lossless3` in the kernels
-     line's paths). The JPEG 2000 fixtures (every progression, POC, tiles
-     and tile-parts, precincts, layers, each code-block style, SOP / EPH,
+     DDS BC1 and arithmetic JPEG textures, and again with AVIF textures at
+     PIL's defaults (palette and IntraBC, each decoded by the native
+     csrc/host/av1_dec.cpp), each card frame against the port's CPU frame
+     within JPEG_RENDER_TOL, the AVIF loft's launches the PNG loft's; K1 /
+     K2 / K3 launched on the flat walk by every card render
+     (`codecs_scene`, `codecs_scene_lossless2`, `codecs_scene_lossless3`
+     and `codecs_scene_lossy2` in the kernels line's paths). The AVIF
+     fixtures (the four quantizer buckets and lossless, speeds 0 / 5 / 6 /
+     10, 2 x 2 tiles with 128 superblocks, odd sizes, both ranges, BT.601 /
+     709 / 2020, an irot orientation) are held to the manifest, and the
+     AVIF files of tests/torch_fixtures/avif_raises (4:4:4, alpha, loop
+     restoration, and what PIL refuses) raise what its expected.json
+     says. The JPEG 2000 fixtures (every progression, POC, tiles and
+     tile-parts, precincts, layers, each code-block style, SOP / EPH,
      ROI, PPT / PPM, precisions, subsampling, L / LA / RGBA / I;16 / CMYK /
      P / sYCC) are among the fixtures held to the manifest.
 
@@ -240,6 +248,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -3053,7 +3062,12 @@ CODEC_LOSSLESS2 = {"loft_tex0.png": "loft_tex0.dcx", "loft_tex1.png": "loft_tex1
                    "loft_tex2.png": "loft_tex2.icns"}  # DCX, an LZMA TIFF stored transposed, ICNS
 CODEC_LOSSLESS3 = {"loft_tex0.png": "loft_tex0_53.jp2", "loft_tex1.png": "loft_tex1_rpcl_tiles.j2k",
                    "loft_tex2.png": "loft_tex2_j2k.icns"}  # JPEG 2000: 5/3 JP2, tiled RPCL, an ICNS entry
+CODEC_LOSSY2 = {"loft_tex0.png": "loft_tex0.avif", "loft_tex1.png": "loft_tex1.avif",
+                "loft_tex2.png": "loft_tex2.avif"}  # AVIF at PIL's defaults: palette, IntraBC
 CODEC_LOSSLESS_SETS = ("lossless", "lossless2", "lossless3")
+# AVIF files the port refuses (step-2 variants, and what PIL refuses):
+# name -> the exception class name and message pattern
+CODEC_AVIF_RAISES = os.path.join(REPO, "tests", "torch_fixtures", "avif_raises")
 
 
 def _loft_textured(tmp, names: dict):
@@ -3106,9 +3120,12 @@ def codecs_scene(dev, card, counts):
     timed on the host; the loft with three lossless sets of formats (each
     set's texture arrays equal to the PNG loft's, its card frame equal to
     the PNG loft's card frame bit for bit, its launches the PNG loft's) and
-    a lossy set (the card frame against the CPU frame within
-    JPEG_RENDER_TOL); K1 / K2 / K3 on the flat walk in every card render.
-    Returns the three lossless loft renders' launches."""
+    two lossy sets (WebP / DDS / arithmetic JPEG, and AVIF at PIL's
+    defaults: each card frame against its CPU frame within JPEG_RENDER_TOL,
+    the AVIF set's launches the PNG loft's); K1 / K2 / K3 on the flat walk
+    in every card render; the AVIF files the port refuses raise what
+    tests/torch_fixtures/avif_raises/expected.json says. Returns the three
+    lossless loft renders' launches and the AVIF loft's."""
     import hashlib
 
     import torch
@@ -3130,9 +3147,23 @@ def codecs_scene(dev, card, counts):
                hashlib.sha256(np.ascontiguousarray(rgb).tobytes()).hexdigest()]
         if got != [entry["shape"], entry["sums"], entry["sha256"]]:
             bad.append(name)
+    with open(os.path.join(CODEC_AVIF_RAISES, "expected.json")) as f:
+        avif_raises = json.load(f)
+    refused_wrongly = []
+    for name, want in sorted(avif_raises.items()):
+        with open(os.path.join(CODEC_AVIF_RAISES, name), "rb") as f:
+            data = f.read()
+        try:
+            rgb8_from_bytes(data)
+            refused_wrongly.append(f"{name}: decoded")
+        except Exception as e:  # noqa: BLE001 -- the refusal is what is checked
+            if type(e).__name__ != want["raises"] or not re.search(want["match"], str(e)):
+                refused_wrongly.append(f"{name}: {type(e).__name__}: {e}")
+    avif_ms = {n: ms for n, ms in decode_ms.items() if n.endswith(".avif")}
     scenes_by_kind, t_load = {}, {}
     for kind, names in (("png", {png: png for png in CODEC_LOSSLESS}), ("lossless", CODEC_LOSSLESS),
-                        ("lossless2", CODEC_LOSSLESS2), ("lossless3", CODEC_LOSSLESS3), ("lossy", CODEC_LOSSY)):
+                        ("lossless2", CODEC_LOSSLESS2), ("lossless3", CODEC_LOSSLESS3), ("lossy", CODEC_LOSSY),
+                        ("lossy2", CODEC_LOSSY2)):
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
             scenes_by_kind[kind] = _loft_textured(tmp, names)
@@ -3142,18 +3173,26 @@ def codecs_scene(dev, card, counts):
         np.array_equal(a, b) for a, b in zip(scenes_by_kind[kind].textures, png_tex))
         for kind in CODEC_LOSSLESS_SETS}
     frames, launches, frame_s = {}, {}, {}
-    for kind in ("lossless", "png", "lossless2", "lossless3", "lossy"):
+    for kind in ("lossless", "png", "lossless2", "lossless3", "lossy", "lossy2"):
         frames[kind], launches[kind], frame_s[kind] = _loft_frame(scenes_by_kind[kind], dev, counts)
         check_walk(f"codecs_scene ({kind})", launches[kind], "flat")
     cpu, _, frame_s["lossy_cpu"] = _loft_frame(scenes_by_kind["lossy"], torch.device("cpu"))
+    cpu2, _, frame_s["lossy2_cpu"] = _loft_frame(scenes_by_kind["lossy2"], torch.device("cpu"))
     card_eq = {kind: bool(np.array_equal(frames[kind], frames["png"])) for kind in CODEC_LOSSLESS_SETS}
     rmse = scenes.golden_rmse(frames["lossy"], cpu)
+    rmse2 = scenes.golden_rmse(frames["lossy2"], cpu2)
     emit("codecs_scene", fixtures=len(manifest), mismatched=bad, decode_ms=decode_ms,
-         decode_ms_total=sum(decode_ms.values()), load_obj_s=t_load, loft_textures_equal_png=equal_textures,
-         lossless_frame_equals_png_frame=card_eq, lossy_rmse_card_vs_cpu=rmse, tol=JPEG_RENDER_TOL,
-         **JPEG_RENDER, frame_s=frame_s, launches=launches, seconds=time.perf_counter() - t_all, card=card)
+         decode_ms_total=sum(decode_ms.values()), avif_fixtures=len(avif_ms),
+         avif_decode_ms_total=sum(avif_ms.values()), avif_decode_ms_max=max(avif_ms.values(), default=0.0),
+         avif_refused=len(avif_raises),
+         avif_refused_wrongly=refused_wrongly, load_obj_s=t_load, loft_textures_equal_png=equal_textures,
+         lossless_frame_equals_png_frame=card_eq, lossy_rmse_card_vs_cpu=rmse, lossy2_rmse_card_vs_cpu=rmse2,
+         tol=JPEG_RENDER_TOL, **JPEG_RENDER, frame_s=frame_s, launches=launches,
+         seconds=time.perf_counter() - t_all, card=card)
     if bad:
         raise AssertionError(f"codecs_scene: fixtures decoded unlike PIL: {bad}")
+    if refused_wrongly:
+        raise AssertionError(f"codecs_scene: AVIF files not refused as expected: {refused_wrongly}")
     for kind in CODEC_LOSSLESS_SETS:
         if not equal_textures[kind]:
             raise AssertionError(f"codecs_scene: the {kind} loft's textures differ from the PNG loft's")
@@ -3164,7 +3203,12 @@ def codecs_scene(dev, card, counts):
                                  f"loft's {launches['png']}")
     if not rmse <= JPEG_RENDER_TOL:
         raise AssertionError(f"codecs_scene: lossy loft card against CPU RMSE {rmse} (limit {JPEG_RENDER_TOL})")
-    return tuple(launches[kind] for kind in CODEC_LOSSLESS_SETS)
+    if not rmse2 <= JPEG_RENDER_TOL:
+        raise AssertionError(f"codecs_scene: AVIF loft card against CPU RMSE {rmse2} (limit {JPEG_RENDER_TOL})")
+    if launches["lossy2"] != launches["png"]:
+        raise AssertionError(f"codecs_scene: the AVIF loft's launches {launches['lossy2']} are not the PNG "
+                             f"loft's {launches['png']}")
+    return tuple(launches[kind] for kind in CODEC_LOSSLESS_SETS + ("lossy2",))
 
 
 # ---- the scripts beside the package, as modules of the port ---------------
@@ -3801,8 +3845,9 @@ def main(argv=None) -> int:
     # started together ------------------------------------------------------
     t0 = time.perf_counter()
     names = sorted({os.path.splitext(os.path.basename(src))[0] for src in SOURCES.values()})
-    # csrc/host: the native builders, the OBJ tokenizer, JPEG 2000's tier 1
-    host_libs = ("accel", "objparser", "j2k_t1")
+    # csrc/host: the native builders, the OBJ tokenizer, JPEG 2000's tier 1,
+    # AVIF's AV1 tile decoder
+    host_libs = ("accel", "objparser", "j2k_t1", "av1_dec")
     with concurrent.futures.ThreadPoolExecutor(len(names) + len(host_libs)) as pool:
         list(pool.map(lambda f: f[0](f[1]), [(cuda_build.load, n) for n in names]
                       + [(host_build.load, n) for n in host_libs]))
@@ -3836,9 +3881,9 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
 
     if args.only == "codecs":
         t1 = time.perf_counter()
-        launches, launches2, launches3 = codecs_scene(dev, card, tc.launch_counts)
+        launches, launches2, launches3, launches_avif = codecs_scene(dev, card, tc.launch_counts)
         emit("codecs_phase", seconds=time.perf_counter() - t1, launches=launches, launches_lossless2=launches2,
-             launches_lossless3=launches3, card=card)
+             launches_lossless3=launches3, launches_lossy2=launches_avif, card=card)
         print(smi, flush=True)
         return 0
 
@@ -4045,7 +4090,8 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
     cornell_launches = cornell_slice(dev, card, tc.launch_counts)
     file_goldens(dev)
     jpeg_launches = jpeg_scene(dev, card, tc.launch_counts)
-    codecs_launches, codecs2_launches, codecs3_launches = codecs_scene(dev, card, tc.launch_counts)
+    codecs_launches, codecs2_launches, codecs3_launches, codecs_avif_launches = codecs_scene(
+        dev, card, tc.launch_counts)
     torch.cuda.empty_cache()
 
     # ---- the instanced city (TLAS) through the CLI's renderer, and the CLI
@@ -4200,7 +4246,7 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
             "demand_loft": demand_loft_launches, "demand_big": demand_big_launches, "view": view_launches,
             **dist_runs, **bench_runs, **script_runs, "jpeg_scene": jpeg_launches, "codecs_scene": codecs_launches,
             "codecs_scene_lossless2": codecs2_launches, "codecs_scene_lossless3": codecs3_launches,
-            "big_slice": big_launches}
+            "codecs_scene_lossy2": codecs_avif_launches, "big_slice": big_launches}
     for run in runs.values():
         for name, k in run.items():
             launches[name] = launches.get(name, 0) + k

@@ -7,12 +7,14 @@ BMP, DIB, GIF, JPEG, PPM, PNG, then the rest in the order it registers
 them). A format whose `accept` takes the first bytes gets the data; a
 decoder that finds its header is not its format raises `NotThisFormat` and
 the walk goes on, as PIL goes on after a plugin's SyntaxError (TGA has no
-magic number and is told this way). A format PIL reads and the port does
-not raise NotImplementedError naming ROADMAP A.1; bytes that no format
-takes raise `UnidentifiedImageError`, an OSError as PIL's own is. The
-formats PIL opens but cannot decode here (EPS without Ghostscript, WMF off
-Windows, the BUFR / GRIB / HDF5 stubs, MPEG) raise `DecodeError` with
-PIL's reason. Every decoder is host code over `bytes` and numpy: no image
+magic number and is told this way). Every format PIL reads has a
+decoder; the variants a decoder does not port yet (AVIF beyond 8-bit 4:2:0
+stills, the corners in ROADMAP A.1) raise NotImplementedError naming the
+variant and ROADMAP A.1; bytes that no format takes raise
+`UnidentifiedImageError`, an OSError as PIL's own is. The formats PIL
+opens but cannot decode here (EPS without Ghostscript, WMF off Windows,
+the BUFR / GRIB / HDF5 stubs, MPEG) raise `DecodeError` with PIL's
+reason. Every decoder is host code over `bytes` and numpy: no image
 library."""
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import zlib
 
 import numpy as np
 
-from ._common import DecodeError, NotThisFormat, UnidentifiedImageError, unported
+from ._common import DecodeError, NotThisFormat, UnidentifiedImageError
 
 __all__ = ["DecodeError", "UnidentifiedImageError", "FORMATS", "rgb8"]
 
@@ -117,10 +119,10 @@ def _webp_accept(p: bytes) -> bool:
     return p.startswith(b"RIFF") and p[8:12] == b"WEBP" and p[12:16] in (b"VP8 ", b"VP8X", b"VP8L")
 
 
-# (PIL's format name, accept(data), decoder or None while unported), in the
-# order PIL's Image.open tries them. An unported format's accept also holds
-# the header checks its plugin makes before it takes the file, so that the
-# search goes on where PIL's does.
+# (PIL's format name, accept(data), decoder), in the order PIL's
+# Image.open tries them. An accept may hold the header checks its plugin
+# makes before it takes the file, so that the search goes on where PIL's
+# does.
 FORMATS = [
     ("BMP", _starts(b"BM"), _codec("bmp")),
     ("DIB", lambda p: _u32le(p) in (12, 40, 52, 56, 64, 108, 124), _codec("bmp", "dib_rgb8")),
@@ -128,7 +130,7 @@ FORMATS = [
     ("JPEG", _starts(b"\xff\xd8\xff"), _image("rgb8_from_jpeg")),
     ("PPM", lambda p: len(p) >= 2 and p[:1] == b"P" and p[1] in b"0123456fy", _codec("pnm")),
     ("PNG", _starts(b"\x89PNG\r\n\x1a\n"), _image("rgb8_from_png")),
-    ("AVIF", _avif, None),
+    ("AVIF", _avif, _codec("avif")),
     ("BLP", _starts(b"BLP1", b"BLP2"), _codec("blp")),
     ("BUFR", _starts(b"BUFR", b"ZCZC"), _fails("cannot find loader for this BUFR file")),
     ("CUR", _starts(b"\0\0\2\0"), _codec("ico", "cur_rgb8")),
@@ -177,8 +179,6 @@ def rgb8(data: bytes) -> np.ndarray:
     for name, accept, decode in FORMATS:
         if not accept(data):
             continue
-        if decode is None:
-            raise unported(name)
         try:
             return decode(data)
         except NotThisFormat:

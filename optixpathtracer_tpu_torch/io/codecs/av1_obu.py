@@ -1,0 +1,519 @@
+"""AV1 OBUs and headers (AV1 Bitstream & Decoding Process Specification,
+section 5): the OBU headers, the sequence header (the reduced still-picture
+form and the full one), the uncompressed header of a key frame and the
+tile groups' tile offsets and sizes, then the tile decode in C++
+(`csrc/host/av1_dec.cpp`, built by utils/host_build).
+
+`decode(obus)` takes the OBUs of an AVIF item (`[TD], SEQ, FRAME` as aom
+writes them, or a frame header and tile groups) and returns the 8-bit
+Y / U / V planes of the frame and the colour description of the sequence
+header. What step 1 of the port does not decode raises NotImplementedError
+naming the tool and ROADMAP A.1: high bit depth, profiles 1 and 2,
+monochrome, 4:4:4 / 4:2:2, a frame that uses CDEF (non-zero strengths) or
+loop restoration, superres, film grain, quantizer matrices, segmentation,
+delta q / delta lf, frames that are not key or intra-only frames, and
+large-scale tiles. There is no Python tile decoder: under
+OPTIX_TPU_NO_NATIVE=1 the decode raises naming the switch."""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+
+from ...utils import host_build
+from ._common import DecodeError, unported
+
+OBU_SEQUENCE_HEADER, OBU_TEMPORAL_DELIMITER, OBU_FRAME_HEADER, OBU_TILE_GROUP = 1, 2, 3, 4
+OBU_FRAME, OBU_TILE_LIST = 6, 8  # the others (metadata, padding, ...) are skipped
+KEY_FRAME, INTRA_ONLY_FRAME = 0, 2
+SELECT = 2  # SELECT_SCREEN_CONTENT_TOOLS / SELECT_INTEGER_MV
+
+
+def unsupported(what: str) -> NotImplementedError:
+    """A variant of AVIF that step 1 does not decode ("AVIF of 10-bit AV1")."""
+    return unported(f"AVIF of {what}")
+
+
+class Bits:
+    """An MSB-first bit reader over bytes (the spec's f(n), su, ns, leb128,
+    uvlc); reading past the end raises DecodeError."""
+
+    def __init__(self, data: bytes, pos: int = 0):
+        self.data = data
+        self.bit = pos * 8
+
+    def f(self, n: int) -> int:
+        x = 0
+        for _ in range(n):
+            byte = self.bit >> 3
+            if byte >= len(self.data):
+                raise DecodeError("Failed to decode frame 0: Truncated data")
+            x = (x << 1) | (self.data[byte] >> (7 - (self.bit & 7))) & 1
+            self.bit += 1
+        return x
+
+    def su(self, n: int) -> int:
+        v = self.f(n)
+        return v - (1 << n) if v & (1 << (n - 1)) else v
+
+    def ns(self, n: int) -> int:
+        w = n.bit_length()
+        m = (1 << w) - n
+        v = self.f(w - 1)
+        return v if v < m else (v << 1) - m + self.f(1)
+
+    def uvlc(self) -> int:
+        zeros = 0
+        while not self.f(1):
+            zeros += 1
+            if zeros >= 32:
+                return (1 << 32) - 1
+        return self.f(zeros) + (1 << zeros) - 1
+
+    def byte_align(self) -> None:
+        self.bit = (self.bit + 7) & ~7
+
+    @property
+    def pos(self) -> int:
+        return self.bit >> 3
+
+
+def leb128(data: bytes, pos: int) -> tuple[int, int]:
+    value = 0
+    for i in range(8):
+        if pos >= len(data):
+            raise DecodeError("Failed to decode frame 0: Truncated data")
+        b = data[pos]
+        pos += 1
+        value |= (b & 0x7F) << (7 * i)
+        if not b & 0x80:
+            break
+    return value, pos
+
+
+def split_obus(data: bytes) -> list[tuple[int, bytes]]:
+    """(obu_type, payload) of each OBU; every OBU of an AVIF item carries
+    its size (obu_has_size_field)."""
+    out, pos = [], 0
+    while pos < len(data):
+        h = data[pos]
+        if h & 0x80:
+            raise DecodeError("Failed to decode frame 0: forbidden bit set in an OBU header")
+        kind, ext, has_size = (h >> 3) & 15, (h >> 2) & 1, (h >> 1) & 1
+        pos += 1 + ext
+        if has_size:
+            size, pos = leb128(data, pos)
+        else:
+            size = len(data) - pos
+        if pos + size > len(data):
+            raise DecodeError("Failed to decode frame 0: Truncated data")
+        out.append((kind, data[pos:pos + size]))
+        pos += size
+    return out
+
+
+def sequence_header(payload: bytes) -> dict:
+    b = Bits(payload)
+    s = {"profile": b.f(3), "still_picture": b.f(1), "reduced": b.f(1)}
+    s["decoder_model_info_present"] = 0
+    s["equal_picture_interval"] = 0
+    s["operating_point_idc"] = [0]
+    s["decoder_model_present_for_op"] = [0]
+    if s["reduced"]:
+        b.f(5)  # seq_level_idx[0]
+    else:
+        if b.f(1):  # timing_info_present_flag
+            b.f(32)
+            b.f(32)
+            s["equal_picture_interval"] = b.f(1)
+            if s["equal_picture_interval"]:
+                b.uvlc()
+            s["decoder_model_info_present"] = b.f(1)
+            if s["decoder_model_info_present"]:
+                s["buffer_delay_length"] = b.f(5) + 1
+                b.f(32)
+                s["buffer_removal_time_length"] = b.f(5) + 1
+                s["frame_presentation_time_length"] = b.f(5) + 1
+        initial_display_delay_present = b.f(1)
+        count = b.f(5) + 1
+        s["operating_point_idc"], s["decoder_model_present_for_op"] = [], []
+        for _ in range(count):
+            s["operating_point_idc"].append(b.f(12))
+            level = b.f(5)
+            if level > 7:
+                b.f(1)
+            present = 0
+            if s["decoder_model_info_present"]:
+                present = b.f(1)
+                if present:
+                    n = s["buffer_delay_length"]
+                    b.f(n)
+                    b.f(n)
+                    b.f(1)
+            s["decoder_model_present_for_op"].append(present)
+            if initial_display_delay_present and b.f(1):
+                b.f(4)
+    wbits, hbits = b.f(4) + 1, b.f(4) + 1
+    s["max_width"], s["max_height"] = b.f(wbits) + 1, b.f(hbits) + 1
+    s["frame_width_bits"], s["frame_height_bits"] = wbits, hbits
+    s["frame_id_numbers_present"] = 0 if s["reduced"] else b.f(1)
+    if s["frame_id_numbers_present"]:
+        s["delta_frame_id_length"] = b.f(4) + 2
+        s["frame_id_length"] = b.f(3) + 1 + s["delta_frame_id_length"]
+    s["use_128"] = b.f(1)
+    s["enable_filter_intra"] = b.f(1)
+    s["enable_intra_edge_filter"] = b.f(1)
+    s["order_hint_bits"] = 0
+    if s["reduced"]:
+        s["force_screen_content_tools"] = SELECT
+        s["force_integer_mv"] = SELECT
+    else:
+        b.f(1)  # enable_interintra_compound
+        b.f(1)  # enable_masked_compound
+        b.f(1)  # enable_warped_motion
+        b.f(1)  # enable_dual_filter
+        enable_order_hint = b.f(1)
+        if enable_order_hint:
+            b.f(1)
+            b.f(1)
+        s["force_screen_content_tools"] = SELECT if b.f(1) else b.f(1)
+        if s["force_screen_content_tools"] > 0:
+            s["force_integer_mv"] = SELECT if b.f(1) else b.f(1)
+        else:
+            s["force_integer_mv"] = SELECT
+        if enable_order_hint:
+            s["order_hint_bits"] = b.f(3) + 1
+    s["enable_superres"], s["enable_cdef"], s["enable_restoration"] = b.f(1), b.f(1), b.f(1)
+    # color_config
+    high = b.f(1)
+    bit_depth = 8
+    if s["profile"] == 2 and high:
+        bit_depth = 12 if b.f(1) else 10
+    elif s["profile"] <= 2:
+        bit_depth = 10 if high else 8
+    s["bit_depth"] = bit_depth
+    s["mono"] = 0 if s["profile"] == 1 else b.f(1)
+    cp = tc = mc = 2
+    if b.f(1):
+        cp, tc, mc = b.f(8), b.f(8), b.f(8)
+    s["color"] = (cp, tc, mc)
+    if s["mono"]:
+        s["color_range"] = b.f(1)
+        s["ss"] = (1, 1)
+        s["separate_uv_delta_q"] = 0
+    elif cp == 1 and tc == 13 and mc == 0:
+        s["color_range"] = 1
+        s["ss"] = (0, 0)
+        s["separate_uv_delta_q"] = b.f(1)
+    else:
+        s["color_range"] = b.f(1)
+        if s["profile"] == 0:
+            s["ss"] = (1, 1)
+        elif s["profile"] == 1:
+            s["ss"] = (0, 0)
+        elif bit_depth == 12:
+            sx = b.f(1)
+            s["ss"] = (sx, b.f(1) if sx else 0)
+        else:
+            s["ss"] = (1, 0)
+        if s["ss"] == (1, 1):
+            s["chroma_sample_position"] = b.f(2)
+        s["separate_uv_delta_q"] = b.f(1)
+    s["film_grain_params_present"] = b.f(1)
+    return s
+
+
+def check_sequence(s: dict) -> None:
+    """Raise A.1 for what step 1 does not decode."""
+    if s["bit_depth"] != 8:
+        raise unsupported(f"{s['bit_depth']}-bit AV1")
+    if s["mono"]:
+        raise unsupported("monochrome AV1")
+    if s["ss"] != (1, 1):
+        raise unsupported("4:4:4 AV1" if s["ss"] == (0, 0) else "4:2:2 AV1")
+    if s["profile"] != 0:
+        raise unsupported(f"AV1 profile {s['profile']}")
+    if s["film_grain_params_present"]:
+        raise unsupported("AV1 film grain")
+
+
+def _tile_log2(blk: int, target: int) -> int:
+    k = 0
+    while (blk << k) < target:
+        k += 1
+    return k
+
+
+def frame_header(b: Bits, s: dict) -> dict:
+    """The uncompressed header of a key or intra-only frame; b stops at its
+    last bit."""
+    h = {}
+    if s["reduced"]:
+        frame_type, show_frame, showable = KEY_FRAME, 1, 0
+        error_resilient = 1
+    else:
+        if b.f(1):
+            raise unsupported("AV1 show_existing_frame")
+        frame_type = b.f(2)
+        if frame_type not in (KEY_FRAME, INTRA_ONLY_FRAME):
+            raise unsupported("inter-coded AV1 frames")
+        show_frame = b.f(1)
+        if show_frame and s["decoder_model_info_present"] and not s["equal_picture_interval"]:
+            b.f(s["frame_presentation_time_length"])
+        showable = frame_type != KEY_FRAME if show_frame else b.f(1)
+        error_resilient = 1 if frame_type == KEY_FRAME and show_frame else b.f(1)
+    h["frame_type"], h["show_frame"], h["showable"] = frame_type, show_frame, showable
+    h["disable_cdf_update"] = b.f(1)
+    sct = b.f(1) if s["force_screen_content_tools"] == SELECT else s["force_screen_content_tools"]
+    h["allow_screen_content_tools"] = sct
+    if sct and s["force_integer_mv"] == SELECT:
+        b.f(1)  # force_integer_mv, 1 for intra frames whatever it says
+    if s["frame_id_numbers_present"]:
+        b.f(s["frame_id_length"])
+    frame_size_override = 0 if s["reduced"] else b.f(1)
+    b.f(s["order_hint_bits"])
+    if s["decoder_model_info_present"]:
+        if b.f(1):  # buffer_removal_time_present_flag
+            for op, present in enumerate(s["decoder_model_present_for_op"]):
+                if present:
+                    idc = s["operating_point_idc"][op]
+                    if idc == 0 or (idc & 1 and idc >> 8 & 1):
+                        b.f(s["buffer_removal_time_length"])
+    refresh = 0xFF if frame_type == KEY_FRAME and show_frame else b.f(8)
+    if frame_type == INTRA_ONLY_FRAME and refresh == 0xFF:
+        raise DecodeError("Failed to decode frame 0: intra-only frame refreshing every slot")
+    if refresh != 0xFF and error_resilient and s["order_hint_bits"]:
+        for _ in range(8):
+            b.f(s["order_hint_bits"])
+    # frame_size, superres_params, render_size
+    if frame_size_override:
+        h["width"] = b.f(s["frame_width_bits"]) + 1
+        h["height"] = b.f(s["frame_height_bits"]) + 1
+    else:
+        h["width"], h["height"] = s["max_width"], s["max_height"]
+    if s["enable_superres"] and b.f(1):
+        raise unsupported("AV1 superres")
+    if b.f(1):  # render_and_frame_size_different
+        b.f(16)
+        b.f(16)
+    h["allow_intrabc"] = b.f(1) if sct else 0
+    # disable_frame_end_update_cdf
+    if not (s["reduced"] or h["disable_cdf_update"]):
+        b.f(1)
+    mi_cols, mi_rows = 2 * ((h["width"] + 7) >> 3), 2 * ((h["height"] + 7) >> 3)
+    h["mi_cols"], h["mi_rows"] = mi_cols, mi_rows
+    _tile_info(b, s, h)
+    # quantization_params
+    h["base_q_idx"] = b.f(8)
+
+    def delta_q():
+        return b.su(7) if b.f(1) else 0
+    h["dq_y_dc"] = delta_q()
+    diff_uv = b.f(1) if s["separate_uv_delta_q"] else 0
+    h["dq_u_dc"], h["dq_u_ac"] = delta_q(), delta_q()
+    h["dq_v_dc"], h["dq_v_ac"] = (delta_q(), delta_q()) if diff_uv else (h["dq_u_dc"], h["dq_u_ac"])
+    if b.f(1):
+        raise unsupported("AV1 quantizer matrices")
+    if b.f(1):
+        raise unsupported("AV1 segmentation")
+    if h["base_q_idx"] > 0 and b.f(1):
+        raise unsupported("AV1 delta q / delta lf")
+    coded_lossless = h["base_q_idx"] == 0 and not any(
+        h[k] for k in ("dq_y_dc", "dq_u_dc", "dq_u_ac", "dq_v_dc", "dq_v_ac"))
+    # loop_filter_params
+    h["lf_level"] = [0, 0, 0, 0]
+    h["lf_sharpness"], h["lf_delta_enabled"] = 0, 1
+    h["lf_ref_deltas"] = [1, 0, 0, 0, -1, 0, -1, -1]
+    h["lf_mode_deltas"] = [0, 0]
+    if not (coded_lossless or h["allow_intrabc"]):
+        h["lf_level"][0], h["lf_level"][1] = b.f(6), b.f(6)
+        if h["lf_level"][0] or h["lf_level"][1]:
+            h["lf_level"][2], h["lf_level"][3] = b.f(6), b.f(6)
+        h["lf_sharpness"] = b.f(3)
+        h["lf_delta_enabled"] = b.f(1)
+        if h["lf_delta_enabled"] and b.f(1):
+            for i in range(8):
+                if b.f(1):
+                    h["lf_ref_deltas"][i] = b.su(7)
+            for i in range(2):
+                if b.f(1):
+                    h["lf_mode_deltas"][i] = b.su(7)
+    # cdef_params
+    h["cdef_bits"] = 0
+    h["enable_cdef"] = 0
+    if not (coded_lossless or h["allow_intrabc"]) and s["enable_cdef"]:
+        h["enable_cdef"] = 1
+        b.f(2)  # cdef_damping_minus_3
+        h["cdef_bits"] = b.f(2)
+        strengths = [b.f(6) for _ in range(2 << h["cdef_bits"])]  # y pri+sec, uv pri+sec
+        if any(strengths):
+            raise unsupported("AV1 CDEF")
+    # lr_params
+    if not (coded_lossless or h["allow_intrabc"]) and s["enable_restoration"]:
+        types = [b.f(2) for _ in range(3)]
+        if any(types):
+            raise unsupported("AV1 loop restoration")
+    # read_tx_mode
+    h["tx_mode"] = 0 if coded_lossless else (2 if b.f(1) else 1)
+    h["reduced_tx_set"] = b.f(1)
+    return h
+
+
+def _tile_info(b: Bits, s: dict, h: dict) -> None:
+    sb_shift = 5 if s["use_128"] else 4
+    sb_cols = (h["mi_cols"] + (1 << sb_shift) - 1) >> sb_shift
+    sb_rows = (h["mi_rows"] + (1 << sb_shift) - 1) >> sb_shift
+    sb_size = sb_shift + 2
+    max_tile_width_sb = 4096 >> sb_size
+    max_tile_area_sb = (4096 * 2304) >> (2 * sb_size)
+    min_log2_cols = _tile_log2(max_tile_width_sb, sb_cols)
+    max_log2_cols = _tile_log2(1, min(sb_cols, 64))
+    max_log2_rows = _tile_log2(1, min(sb_rows, 64))
+    min_log2_tiles = max(min_log2_cols, _tile_log2(max_tile_area_sb, sb_rows * sb_cols))
+    cols, rows = [], []
+    if b.f(1):  # uniform_tile_spacing_flag
+        cols_log2 = min_log2_cols
+        while cols_log2 < max_log2_cols and b.f(1):
+            cols_log2 += 1
+        w = (sb_cols + (1 << cols_log2) - 1) >> cols_log2
+        cols = [i << sb_shift for i in range(0, sb_cols, w)]
+        rows_log2 = max(min_log2_tiles - cols_log2, 0)
+        while rows_log2 < max_log2_rows and b.f(1):
+            rows_log2 += 1
+        hh = (sb_rows + (1 << rows_log2) - 1) >> rows_log2
+        rows = [i << sb_shift for i in range(0, sb_rows, hh)]
+    else:
+        widest, start = 0, 0
+        while start < sb_cols:
+            cols.append(start << sb_shift)
+            size = b.ns(min(sb_cols - start, max_tile_width_sb)) + 1
+            widest = max(widest, size)
+            start += size
+        cols_log2 = _tile_log2(1, len(cols))
+        area = (sb_rows * sb_cols) >> (min_log2_tiles + 1) if min_log2_tiles > 0 else sb_rows * sb_cols
+        max_h = max(area // widest, 1)
+        start = 0
+        while start < sb_rows:
+            rows.append(start << sb_shift)
+            start += b.ns(min(sb_rows - start, max_h)) + 1
+        rows_log2 = _tile_log2(1, len(rows))
+    h["mi_col_starts"] = cols + [h["mi_cols"]]
+    h["mi_row_starts"] = rows + [h["mi_rows"]]
+    h["tile_cols_log2"], h["tile_rows_log2"] = cols_log2, rows_log2
+    h["tile_size_bytes"] = 4
+    if cols_log2 or rows_log2:
+        b.f(cols_log2 + rows_log2)  # context_update_tile_id
+        h["tile_size_bytes"] = b.f(2) + 1
+
+
+def tile_group(payload: bytes, pos: int, h: dict, tiles: list) -> None:
+    """Append (offset, size) of each tile of a tile group OBU (its tile data
+    starting at byte `pos` of `payload`) to `tiles`, in tile order."""
+    num_tiles = (len(h["mi_col_starts"]) - 1) * (len(h["mi_row_starts"]) - 1)
+    b = Bits(payload, pos)
+    start, end = 0, num_tiles - 1
+    if num_tiles > 1 and b.f(1):
+        bits = h["tile_cols_log2"] + h["tile_rows_log2"]
+        start, end = b.f(bits), b.f(bits)
+    b.byte_align()
+    at = b.pos
+    if start != len(tiles):
+        raise DecodeError("Failed to decode frame 0: tile groups out of order")
+    for t in range(start, end + 1):
+        if t == end:
+            size = len(payload) - at
+        else:
+            n = h["tile_size_bytes"]
+            if at + n > len(payload):
+                raise DecodeError("Failed to decode frame 0: Truncated data")
+            size = int.from_bytes(payload[at:at + n], "little") + 1
+            at += n
+        if size <= 0 or at + size > len(payload):
+            raise DecodeError("Failed to decode frame 0: Truncated data")
+        tiles.append((payload, at, size))
+        at += size
+
+
+_SIG = None
+
+
+def _native():
+    global _SIG
+    if not host_build.native_enabled():
+        raise NotImplementedError("AVIF decoding needs the native AV1 tile decoder (csrc/host/av1_dec.cpp), "
+                                  "which OPTIX_TPU_NO_NATIVE=1 turns off; there is no Python tile decoder")
+    lib = host_build.load("av1_dec")
+    if _SIG is None:
+        f = lib.av1_decode_frame
+        f.argtypes = [ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
+                      ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
+                      ctypes.c_char_p, ctypes.c_int]
+        f.restype = ctypes.c_int
+        lib.av1_param_count.restype = ctypes.c_int
+        _SIG = (f, lib.av1_param_count())
+    return _SIG
+
+
+def _params(s: dict, h: dict) -> np.ndarray:
+    cols, rows = h["mi_col_starts"], h["mi_row_starts"]
+    vals = [h["width"], h["height"], s["use_128"], s["enable_filter_intra"], s["enable_intra_edge_filter"],
+            h["allow_screen_content_tools"], h["allow_intrabc"], h["base_q_idx"], h["dq_y_dc"], h["dq_u_dc"],
+            h["dq_u_ac"], h["dq_v_dc"], h["dq_v_ac"], h["tx_mode"], h["reduced_tx_set"], h["disable_cdf_update"],
+            *h["lf_level"], h["lf_sharpness"], h["lf_delta_enabled"], *h["lf_ref_deltas"], *h["lf_mode_deltas"],
+            h["enable_cdef"], h["cdef_bits"], len(cols) - 1, len(rows) - 1]
+    vals += cols + [0] * (65 - len(cols)) + rows + [0] * (65 - len(rows))
+    return np.array(vals, np.int32)
+
+
+def decode(data: bytes) -> tuple[np.ndarray, np.ndarray, np.ndarray, dict]:
+    """The OBUs of one AV1 still -> (Y (H, W), U, V ((H + 1) // 2,
+    (W + 1) // 2), uint8; the sequence header)."""
+    seq, hdr, tiles = None, None, []
+    for kind, payload in split_obus(data):
+        if kind == OBU_SEQUENCE_HEADER:
+            seq = sequence_header(payload)
+            check_sequence(seq)
+        elif kind in (OBU_FRAME_HEADER, OBU_FRAME):
+            if hdr is not None:
+                if kind == OBU_FRAME:
+                    raise unsupported("AV1 image sequences")
+                continue  # a copy of the frame header
+            if seq is None:
+                raise DecodeError("Failed to decode frame 0: frame before a sequence header")
+            b = Bits(payload)
+            hdr = frame_header(b, seq)
+            if kind == OBU_FRAME:
+                b.byte_align()
+                tile_group(payload, b.pos, hdr, tiles)
+        elif kind == OBU_TILE_GROUP:
+            if hdr is None:
+                raise DecodeError("Failed to decode frame 0: tile group before a frame header")
+            tile_group(payload, 0, hdr, tiles)
+        elif kind == OBU_TILE_LIST:
+            raise unsupported("AV1 large-scale tiles")
+    if seq is None or hdr is None:
+        raise DecodeError("Failed to decode frame 0: no frame")
+    n_tiles = (len(hdr["mi_col_starts"]) - 1) * (len(hdr["mi_row_starts"]) - 1)
+    if len(tiles) != n_tiles:
+        raise DecodeError("Failed to decode frame 0: Truncated data")
+    fn, n_params = _native()
+    params = _params(seq, hdr)
+    assert len(params) == n_params, (len(params), n_params)
+    blob = b"".join(p[at:at + size] for p, at, size in tiles)
+    offsets, at = [], 0
+    for _, _, size in tiles:
+        offsets += [at, size]
+        at += size
+    offs = np.array(offsets, np.int64)
+    w, h = hdr["width"], hdr["height"]
+    y = np.zeros((h, w), np.uint8)
+    u = np.zeros(((h + 1) // 2, (w + 1) // 2), np.uint8)
+    v = np.zeros_like(u)
+    err = ctypes.create_string_buffer(256)
+    ptr = ctypes.POINTER(ctypes.c_uint8)
+    rc = fn(params.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), blob,
+            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(tiles), y.ctypes.data_as(ptr),
+            u.ctypes.data_as(ptr), v.ctypes.data_as(ptr), err, 256)
+    if rc:
+        raise DecodeError(f"Failed to decode frame 0: {err.value.decode()}")
+    return y, u, v, seq

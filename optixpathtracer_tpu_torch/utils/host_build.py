@@ -3,7 +3,8 @@
 `csrc/host/accel.cpp` (the acceleration-structure builders) and
 `csrc/host/objparser.cpp` (the OBJ tokenizer) are copies of the reference's
 `native/src/` sources; `csrc/host/j2k_t1.cpp` (JPEG 2000 tier 1, the twin
-of `io/codecs/j2k_t1.py`) is the port's own. On first use each is compiled
+of `io/codecs/j2k_t1.py`) and `csrc/host/av1_dec.cpp` (the AV1 tile
+decoder of AVIF, with its tables in `av1_tables.h`) are the port's own. On first use each is compiled
 with the reference's command, `g++ -O2 -shared -fPIC`, into `_build/`
 (listed in .gitignore),
 keyed by a hash of the source and the flags, and loaded with ctypes. A build
@@ -49,7 +50,9 @@ def load(name: str) -> ctypes.CDLL:
         if name in _libs:
             return _libs[name]
         src = SRC_DIR / f"{name}.cpp"
-        digest = hashlib.sha256(src.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
+        # the headers beside the sources (av1_tables.h) are part of the key
+        headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.h")))
+        digest = hashlib.sha256(src.read_bytes() + headers + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
         so = BUILD_DIR / f"lib{name}-{digest}.so"
         build_seconds[name] = 0.0
         if not so.exists():

@@ -1,0 +1,63 @@
+"""Port parity, AVIF step 1 end to end: every AVIF fixture decoded by the
+port equal to PIL's `convert("RGB")` and to the JAX package's `load_image`
+bit for bit; and io/codecs/avif_yuv.py (libavif 1.3 through libyuv: the
+bilinear 2x chroma upsampling, the fixed-point YuvConstants) equal to
+libavif's own `avifImageYUVToRGB` with PIL's settings, on seeded planes of
+odd and even sizes, for BT.601 (matrix 6, 5 and unspecified), BT.709 and
+BT.2020 in full and limited range. The oracle is PIL's bundled libavif
+through ctypes (tests/torch_avif_oracle.py); those cases skip where PIL
+ships none.
+"""
+import json
+import os
+
+import numpy as np
+import pytest
+
+import torch_avif_oracle as oracle
+from optixpathtracer_tpu.io import image as jimg
+from optixpathtracer_tpu_torch.io import image as timg
+from optixpathtracer_tpu_torch.io.codecs import avif_yuv
+from torch_codec_encoders import pil_rgb
+from torch_fixtures.make_textures import MANIFEST, OUT
+
+with open(MANIFEST) as f:
+    AVIF_FIXTURES = sorted(n for n in json.load(f) if n.endswith(".avif"))
+
+
+@pytest.mark.parametrize("name", AVIF_FIXTURES)
+def test_fixture_equals_pil_and_jax(name):
+    path = os.path.join(OUT, name)
+    with open(path, "rb") as f:
+        data = f.read()
+    got = timg.rgb8_from_bytes(data)
+    np.testing.assert_array_equal(got, pil_rgb(data))
+    np.testing.assert_array_equal(timg.load_image(path), jimg.load_image(path))
+
+
+# a template of each size, for libavif to own the planes
+SIZES = {"37x23": "avif_37x23.avif", "128x128": "avif_q75.avif", "17x1": "avif_17x1.avif", "1x1": "avif_1x1.avif",
+         "64x64": "avif_lossless.avif"}
+
+
+@pytest.mark.skipif(not oracle.available(), reason="PIL ships no libavif here")
+@pytest.mark.parametrize("size", list(SIZES))
+@pytest.mark.parametrize("matrix", [1, 2, 5, 6, 9])
+@pytest.mark.parametrize("full", [0, 1])
+def test_yuv_to_rgb_equals_libavif(size, matrix, full):
+    with open(os.path.join(OUT, SIZES[size]), "rb") as f:
+        template = f.read()
+    (w, h, _, _, _), _ = oracle.planes(template)
+    rng = np.random.default_rng(matrix * 10 + full + w)
+    y = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    u, v = (rng.integers(0, 256, ((h + 1) // 2, (w + 1) // 2), dtype=np.uint8) for _ in range(2))
+    want = oracle.yuv_to_rgb(template, y, u, v, matrix, full)
+    np.testing.assert_array_equal(avif_yuv.yuv420_to_rgb(y, u, v, matrix, full), want)
+
+
+def test_other_matrices_raise_a1():
+    y = np.zeros((2, 2), np.uint8)
+    c = np.zeros((1, 1), np.uint8)
+    for matrix in (0, 4, 10, 12, 14):
+        with pytest.raises(NotImplementedError, match=f"matrix coefficients {matrix}.*ROADMAP A.1"):
+            avif_yuv.yuv420_to_rgb(y, c, c, matrix, 1)

@@ -1,0 +1,107 @@
+"""Port parity, the AV1 tables of the native decoder
+(optixpathtracer_tpu_torch/csrc/host/av1_tables.h): the header equals what
+tests/torch_fixtures/gen_av1_tables.py reads out of the read-only data of
+PIL's bundled libavif (libaom's and dav1d's default CDFs, quantizer
+lookups, directional derivatives, smooth weights, filter-intra taps and
+the DCT / ADST constants), and the first row of each table, with a few
+more rows, equals the values the AV1 specification prints. The comparison
+with the library skips where PIL ships no libavif.
+"""
+import re
+
+import pytest
+
+import torch_avif_oracle as oracle
+from torch_fixtures import gen_av1_tables as gen
+
+
+def _table(text: str, name: str) -> list:
+    body = re.search(rf"{name}(?:\[\d+\])+ = {{(.*?)}};", text, re.S).group(1)
+    return [int(v) for v in body.replace("\n", " ").split(",") if v.strip()]
+
+
+# the first row of each table as the AV1 specification prints it (a CDF row
+# without its trailing 32768, 0), typed here: the derived tables (the
+# partition CDFs of 32 and 64 samples, the MV sign and bit CDFs) too, so
+# that an offset gen_av1_tables.py took from the memory layout fails here,
+# whatever the library holds
+FIRST_ROWS = {
+    "Default_Angle_Delta_Cdf": [2180, 5032, 7567, 22776, 26989, 30217],
+    "Default_Uv_Mode_Cfl_Not_Allowed_Cdf": [22631, 24152, 25378, 25661, 25986, 26520, 27055, 27923, 28244, 30059,
+                                            30941, 31961],
+    "Default_Uv_Mode_Cfl_Allowed_Cdf": [10407, 11208, 12900, 13181, 13823, 14175, 14899, 15656, 15986, 20086, 20995,
+                                        22455, 24212],
+    "Default_Partition_W8_Cdf": [19132, 25510, 30392],
+    "Default_Partition_W16_Cdf": [15597, 20929, 24571, 26706, 27664, 28821, 29601, 30571, 31902],
+    "Default_Partition_W32_Cdf": [18462, 20920, 23124, 27647, 28227, 29049, 29519, 30178, 31544],
+    "Default_Partition_W64_Cdf": [20137, 21547, 23078, 29566, 29837, 30261, 30524, 30892, 31724],
+    "Default_Partition_W128_Cdf": [27899, 28219, 28529, 32484, 32539, 32619, 32639],
+    "Default_Intra_Tx_Type_Set1_Cdf": [1535, 8035, 9461, 12751, 23467, 27825],
+    "Default_Cfl_Sign_Cdf": [1418, 2123, 13340, 18405, 26972, 28343, 32294],
+    "Default_Cfl_Alpha_Cdf": [7637, 20719, 31401, 32481, 32657, 32688, 32692, 32696, 32700, 32704, 32708, 32712,
+                              32716, 32720, 32724],
+    "Default_Filter_Intra_Cdf": [4621],
+    "Default_Filter_Intra_Mode_Cdf": [8949, 12776, 17211, 29558],
+    "Default_Palette_Y_Mode_Cdf": [31676],
+    "Default_Palette_Uv_Mode_Cdf": [32461],
+    "Default_Palette_Y_Size_Cdf": [7952, 13000, 18149, 21478, 25527, 29241],
+    "Default_Palette_Uv_Size_Cdf": [8713, 19979, 27128, 29609, 31331, 32272],
+    "Default_Palette_Y_Color_Cdf": [28710],
+    "Default_Palette_Uv_Color_Cdf": [29089],
+    "Default_Tx_8x8_Cdf": [19968],
+    "Default_Tx_16x16_Cdf": [12272, 30172],
+    "Default_Tx_32x32_Cdf": [12986, 15180],
+    "Default_Tx_64x64_Cdf": [5782, 11475],
+    "Default_Txfm_Split_Cdf": [28581],
+    "Default_Intrabc_Cdf": [30531],
+    "Default_Mv_Joint_Cdf": [4096, 11264, 19328],
+    "Default_Mv_Class_Cdf": [28672, 30976, 31858, 32320, 32551, 32656, 32740, 32757, 32762, 32767],
+    "Default_Mv_Sign_Cdf": [16384],
+    "Default_Mv_Class0_Bit_Cdf": [27648],
+    "Default_Mv_Bit_Cdf": [17408],
+    "Default_Txb_Skip_Cdf": [31849],
+    "Default_Eob_Pt_16_Cdf": [840, 1039, 1980, 4895],
+    "Default_Eob_Pt_32_Cdf": [400, 520, 977, 2102, 6542],
+    "Default_Eob_Pt_64_Cdf": [329, 498, 1101, 1784, 3265, 7758],
+    "Default_Eob_Pt_128_Cdf": [219, 482, 1140, 2091, 3680, 6028, 12586],
+    "Default_Eob_Pt_256_Cdf": [310, 584, 1887, 3589, 6168, 8611, 11352, 15652],
+    "Default_Eob_Pt_512_Cdf": [641, 983, 3707, 5430, 10234, 14958, 18788, 23412, 26061],
+    "Default_Eob_Pt_1024_Cdf": [393, 421, 751, 1623, 3160, 6352, 13345, 18047, 22571, 25830],
+    "Default_Eob_Extra_Cdf": [16961],
+    "Default_Dc_Sign_Cdf": [16000],
+    "Default_Coeff_Base_Eob_Cdf": [17837, 29055],
+    "Default_Coeff_Base_Cdf": [4034, 8930, 12727],
+    "Default_Coeff_Br_Cdf": [14298, 20718, 24174],
+    "Dr_Intra_Derivative": [0, 0, 0, 1023, 0, 0, 547, 0, 0, 372, 0, 0, 0, 0, 273, 0, 0, 215],
+    "Filter_Intra_Taps": [-6, 10, 0, 0, 0, 12, 0],
+}
+
+
+@pytest.mark.parametrize("name", list(FIRST_ROWS))
+def test_first_row_the_specification_prints(name):
+    with open(gen.OUT) as f:
+        text = f.read()
+    want = FIRST_ROWS[name]
+    got = _table(text, name)
+    if name.startswith("Default_"):
+        assert got[:len(want) + 2] == want + [32768, 0]
+    else:
+        assert got[:len(want)] == want
+
+
+@pytest.mark.skipif(not oracle.available(), reason="PIL ships no libavif here")
+def test_header_is_the_librarys_tables():
+    with open(gen.OUT) as f:
+        committed = f.read()
+    assert gen.header(gen.rodata(gen.library_path())) == committed
+
+
+def test_rows_the_specification_prints():
+    with open(gen.OUT) as f:
+        text = f.read()
+    assert _table(text, "Default_Intra_Frame_Y_Mode_Cdf")[:4] == [15588, 17027, 19338, 20218]
+    assert _table(text, "Default_Skip_Cdf") == [31671, 32768, 0, 16515, 32768, 0, 4576, 32768, 0]
+    assert _table(text, "Dc_Qlookup")[:4] == [4, 8, 8, 9] and _table(text, "Dc_Qlookup")[-1] == 1336
+    assert _table(text, "Ac_Qlookup")[-1] == 1828
+    assert _table(text, "Sm_Weights")[:4] == [255, 149, 85, 64]
+    assert _table(text, "Cos128_Lookup")[32] == 2896 and _table(text, "Sinpi_Lookup")[1:] == [1321, 2482, 3344, 3803]

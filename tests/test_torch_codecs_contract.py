@@ -2,10 +2,11 @@
 io/gltf.py, io/obj.py) against PIL and the JAX package's loaders.
 
 - NotImplementedError naming ROADMAP A.1 only for bytes PIL reads: one
-  case per format PIL reads here and the port does not (AVIF); the cases
-  of the formats once unported here (BLP, IM, MSP, SPIDER, XBM, ICNS, SUN,
-  XPM, FITS, JPEG 2000) now hold the port's decode to PIL's, and a glTF
-  that embeds AVIF raises A.1.
+  case per variant PIL reads here and the port does not (AVIF of 4:4:4
+  AV1, AVIF step 2); the cases of the formats once unported here (BLP, IM,
+  MSP, SPIDER, XBM, ICNS, SUN, XPM, FITS, JPEG 2000, AVIF at PIL's
+  defaults) now hold the port's decode to PIL's, and a glTF that embeds a
+  4:4:4 AVIF raises A.1.
 - The formats PIL opens but cannot decode (EPS without Ghostscript, MPEG,
   HDF5, BUFR, GRIB, WMF) raise an OSError that is no NotImplementedError,
   and a glTF embedding one keeps the factor-only material in both
@@ -58,6 +59,7 @@ UNPORTED = {
     "XBM": lambda: pil_bytes(photo(8, 8, 1), "XBM", "1"),
     "JPEG2000": lambda: pil_bytes(photo(8, 8, 1), "JPEG2000"),
     "AVIF": lambda: pil_bytes(photo(8, 8, 1), "AVIF"),
+    "AVIF_444": lambda: pil_bytes(photo(8, 8, 1), "AVIF", subsampling="4:4:4"),
     "ICNS": lambda: pil_bytes(photo(16, 16, 1, 4), "ICNS", "RGBA", sizes=[(16, 16)]),
     "SUN": lambda: _sun(photo(3, 5, 1)),
     "XPM": _xpm,
@@ -65,7 +67,8 @@ UNPORTED = {
 }
 
 
-STILL_UNPORTED = ("AVIF",)
+# what each still-unported case's NotImplementedError names
+STILL_UNPORTED = {"AVIF_444": "AVIF of 4:4:4 AV1"}
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
@@ -77,7 +80,7 @@ def test_unported_format_pil_reads_raises_a1(tmp_path, name):
     if name not in STILL_UNPORTED:
         assert_like_pil(data, tmp_path, "x.img")
         return
-    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP A.1"):
+    with pytest.raises(NotImplementedError, match=f"{STILL_UNPORTED[name]}.*ROADMAP A.1"):
         timg.rgb8_from_bytes(data)
     path = tmp_path / "x.img"
     path.write_bytes(data)
@@ -178,7 +181,7 @@ def test_gltf_keeps_the_factor_only_material(tmp_path, name):
 
 
 def test_gltf_with_unported_format_raises_a1(tmp_path):
-    path = _textured_glb(tmp_path / "avif.glb", UNPORTED["AVIF"]())
+    path = _textured_glb(tmp_path / "avif.glb", UNPORTED["AVIF_444"]())
     with pytest.raises(NotImplementedError, match="A.1"):
         from optixpathtracer_tpu_torch.io import gltf as tgltf
 

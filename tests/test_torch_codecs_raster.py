@@ -305,10 +305,12 @@ def test_pcd(tmp_path, orientation):
 
 
 def test_unported_formats_left():
-    """AVIF, which PIL reads, still raises A.1; JPEG 2000 (once A.1 too)
-    decodes as PIL decodes it."""
+    """AVIF at PIL's defaults and JPEG 2000 (both once A.1) decode as PIL
+    decodes them; a 4:4:4 AVIF, which PIL reads, still raises A.1 (AVIF
+    step 2)."""
     from optixpathtracer_tpu_torch.io import image as timg
 
-    with pytest.raises(NotImplementedError, match="AVIF.*A.1"):
-        timg.rgb8_from_bytes(pil_bytes(photo(8, 8, 1), "AVIF"))
+    assert_like_pil(pil_bytes(photo(8, 8, 1), "AVIF"))
+    with pytest.raises(NotImplementedError, match="AVIF of 4:4:4 AV1.*A.1"):
+        timg.rgb8_from_bytes(pil_bytes(photo(8, 8, 1), "AVIF", subsampling="4:4:4"))
     assert_like_pil(pil_bytes(photo(8, 8, 1), "JPEG2000"))

@@ -6,8 +6,9 @@
   package blocked decodes every fixture to the manifest.
 - The loft (scenes/loft.obj) with its textures as TGA RLE, TIFF LZW and
   WebP lossless, as DCX, an orientation-tagged LZMA TIFF and ICNS, as a
-  5/3 JP2, a tiled RPCL codestream and an ICNS of a JPEG 2000 entry, and as
-  WebP lossy, DDS BC1 and arithmetic JPEG: `load_obj` equal to the JAX
+  5/3 JP2, a tiled RPCL codestream and an ICNS of a JPEG 2000 entry, as
+  WebP lossy, DDS BC1 and arithmetic JPEG, and in AVIF at PIL's defaults
+  (palette and IntraBC inside): `load_obj` equal to the JAX
   loader's array for array, the lossless sets' textures equal to the PNG
   decodes.
 - A glTF with an embedded WebP (lossy and lossless) equal to the JAX
@@ -26,7 +27,7 @@ from optixpathtracer_tpu.io import obj as jobj
 from optixpathtracer_tpu_torch.io import obj as tobj
 from test_torch_obj_gltf import _assert_same_gltf, _assert_same_scene, _textured_glb
 from torch_codec_encoders import photo, pil_bytes, pil_rgb
-from torch_fixtures.make_textures import LOSSLESS, LOSSLESS2, LOSSLESS3, LOSSY, MANIFEST, OUT, digest
+from torch_fixtures.make_textures import LOSSLESS, LOSSLESS2, LOSSLESS3, LOSSY, LOSSY2, MANIFEST, OUT, digest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(MANIFEST) as f:
@@ -49,6 +50,7 @@ def test_fixtures_fit_their_budget():
     assert [FIXTURES[n]["group"] for n in LOSSY.values()] == ["loft_lossy"] * 3
     assert [FIXTURES[n]["group"] for n in LOSSLESS2.values()] == ["loft_lossless2"] * 3
     assert [FIXTURES[n]["group"] for n in LOSSLESS3.values()] == ["loft_lossless3"] * 3
+    assert [FIXTURES[n]["group"] for n in LOSSY2.values()] == ["loft_lossy2"] * 3
 
 
 _CHILD = """import hashlib, importlib.abc, json, os, sys
@@ -89,14 +91,15 @@ def _loft_with(tmp_path, names: dict) -> str:
     return str(tmp_path / "loft.obj")
 
 
-@pytest.mark.parametrize("kind", ["lossless", "lossy", "lossless2", "lossless3"])
+@pytest.mark.parametrize("kind", ["lossless", "lossy", "lossless2", "lossless3", "lossy2"])
 def test_loft_textures_load_as_the_jax_loader_loads_them(tmp_path, kind):
-    names = {"lossless": LOSSLESS, "lossy": LOSSY, "lossless2": LOSSLESS2, "lossless3": LOSSLESS3}[kind]
+    names = {"lossless": LOSSLESS, "lossy": LOSSY, "lossless2": LOSSLESS2, "lossless3": LOSSLESS3,
+             "lossy2": LOSSY2}[kind]
     path = _loft_with(tmp_path, names)
     got = tobj.load_obj(path)
     _assert_same_scene(got, jobj.load_obj(path, prefer_native=False))
     assert len(got.textures) == 3
-    if kind != "lossy":  # the same texels as the PNG loft's
+    if not kind.startswith("lossy"):  # the same texels as the PNG loft's
         for tex, png in zip(got.textures, tobj.load_obj(os.path.join(REPO, "scenes", "loft.obj")).textures):
             np.testing.assert_array_equal(tex, png)
 

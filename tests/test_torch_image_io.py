@@ -180,9 +180,10 @@ def test_pfm_round_trip(tmp_path):
 def test_unported_formats_raise(tmp_path):
     """The formats this test once held unported now decode as PIL does
     (tests/test_torch_image_decode.py and tests/test_torch_codecs_*.py
-    cover them case by case), an arithmetic-coded JPEG and XBM too; a
-    format PIL reads and the port does not (AVIF here; JPEG 2000, once
-    here, now decodes as PIL does) raises NotImplementedError naming A.1."""
+    cover them case by case), an arithmetic-coded JPEG and XBM too, JPEG
+    2000 and AVIF at PIL's defaults (once here) as well; a variant PIL
+    reads and the port does not (an AVIF with alpha) raises
+    NotImplementedError naming A.1."""
     rng = np.random.default_rng(5)
     px = rng.integers(0, 256, (6, 8, 3), dtype=np.uint8)
     buf16, jpg = io.BytesIO(), io.BytesIO()
@@ -215,8 +216,12 @@ def test_unported_formats_raise(tmp_path):
     np.testing.assert_array_equal(timg.rgb8_from_bytes(j2k.getvalue()), _pil_rgb(j2k.getvalue()))
     avif = io.BytesIO()
     Image.fromarray(px).save(avif, format="AVIF")
+    assert _pil_rgb(avif.getvalue()).shape == (6, 8, 3)  # PIL reads it, and so does the port
+    np.testing.assert_array_equal(timg.rgb8_from_bytes(avif.getvalue()), _pil_rgb(avif.getvalue()))
+    avif = io.BytesIO()
+    Image.fromarray(np.dstack([px, px[..., :1]]), "RGBA").save(avif, format="AVIF")
     assert _pil_rgb(avif.getvalue()).shape == (6, 8, 3)  # PIL reads it
-    with pytest.raises(NotImplementedError, match="AVIF.*A.1"):
+    with pytest.raises(NotImplementedError, match="AVIF of alpha.*A.1"):
         timg.rgb8_from_bytes(avif.getvalue())
     with pytest.raises(ValueError, match="not a PNG"):
         timg.rgb8_from_png(b"GIF89a" + bytes(40))

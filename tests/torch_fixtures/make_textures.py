@@ -6,13 +6,16 @@ The loft's three textures (scenes/loft_tex*.png) in three lossless formats
 (TGA RLE, TIFF LZW, WebP lossless), in three more (DCX, an orientation-
 tagged LZMA TIFF, ICNS) and in a lossy set (WebP lossy, DDS BC1,
 arithmetic-coded JPEG) and a JPEG 2000 set (a 5/3 JP2, a tiled RPCL
-codestream with precincts and three layers, an ICNS of a JPEG 2000 entry);
+codestream with precincts and three layers, an ICNS of a JPEG 2000 entry)
+and in AVIF at PIL's defaults (a fifth set, lossy);
 then one small image for each other variant the port decodes. PIL writes what it can write; tests/torch_codec_encoders.py
 writes the rest (arithmetic, lossless and YCCK JPEG, RLE BMP, colour-mapped
 TGA, GIF with an offset frame, PSD, RLE SGI, JPEG-in-TIFF, CUR, a WebP
 animation, BC6H, a VP8 frame with the simple filter and four partitions) and
 tests/torch_j2k_encoders.py the JPEG 2000 files PIL does not write (through
-OpenJPEG's own encoder, spliced JP2 boxes, PPT / PPM). chip_smoke.py's `codecs_scene` decodes every fixture on a
+OpenJPEG's own encoder, spliced JP2 boxes, PPT / PPM). The AVIF files the
+port refuses (step-2 variants, and those PIL refuses) go to avif_raises/
+with expected.json. chip_smoke.py's `codecs_scene` decodes every fixture on a
 machine without PIL and holds it to the manifest; the CPU tests decode the
 committed files with PIL and hold the manifest to them.
 
@@ -42,6 +45,13 @@ LOSSLESS2 = {"loft_tex0.png": "loft_tex0.dcx", "loft_tex1.png": "loft_tex1_orien
 # three layers (the last lossless), an ICNS whose 256x256 entry is JPEG 2000
 LOSSLESS3 = {"loft_tex0.png": "loft_tex0_53.jp2", "loft_tex1.png": "loft_tex1_rpcl_tiles.j2k",
              "loft_tex2.png": "loft_tex2_j2k.icns"}
+# and in AVIF at PIL's defaults (aom, quality 75, speed 6), where the screen-
+# content tools appear: palette in all three, IntraBC in loft_tex1
+LOSSY2 = {"loft_tex0.png": "loft_tex0.avif", "loft_tex1.png": "loft_tex1.avif", "loft_tex2.png": "loft_tex2.avif"}
+# AVIF files the port must refuse as PIL does or raise A.1 for (AVIF step
+# 2), beside the textures: name -> (exception class name, message pattern)
+AVIF_RAISES = os.path.join(HERE, "avif_raises")
+AVIF_RAISES_EXPECTED = os.path.join(AVIF_RAISES, "expected.json")
 
 
 def digest(rgb: np.ndarray) -> dict:
@@ -164,6 +174,7 @@ def _fixtures() -> dict[str, bytes]:
         quant=(30, 2, -3, 4, -5, 6), big=0.03, big_max=40))
     out.update(_fixtures_raster(enc, pil, Image))
     out.update(_fixtures_j2k(enc, pil, Image))
+    out.update(_fixtures_avif(enc, pil, Image))
     return out
 
 
@@ -241,6 +252,82 @@ def _fixtures_j2k(enc, pil, Image) -> dict[str, bytes]:
     out["j2k_ppt.j2k"] = je.to_ppt(tiled, 40)
     out["j2k_ppm.j2k"] = je.to_ppm(tiled, 1000)
     return out
+
+
+def avif_colr(data: bytes, primaries: int, transfer: int, matrix: int, full: int) -> bytes:
+    """An AVIF whose nclx colr box says other colour coefficients."""
+    i = data.index(b"colrnclx") + 8
+    nclx = primaries.to_bytes(2, "big") + transfer.to_bytes(2, "big") + matrix.to_bytes(2, "big") + bytes([full << 7])
+    return data[:i] + nclx + data[i + 7:]
+
+
+def _smooth(h: int, w: int, seed: int) -> np.ndarray:
+    """Slow colour waves with a little noise: a large image in few bytes."""
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.stack([128 + 100 * np.sin(x / 37.0 + y / 53.0), 128 + 90 * np.cos(x / 29.0 - y / 41.0),
+                    (x + y) / 8 % 256], -1) + np.random.default_rng(seed).normal(0, 2, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _fixtures_avif(enc, pil, Image) -> dict[str, bytes]:
+    """The loft at PIL's defaults, and the AVIF stills PIL's encoder (aom)
+    writes that step 1 of the port decodes: the four coefficient-CDF
+    quantizer buckets (quality 95 / 90 / 75 / 40: base_q_idx 12 / 24 / 64 /
+    152) and lossless (quality 100), speeds 5, 10 and 0 (64 x 64: 128 x 128
+    superblocks, loop restoration enabled and unused), 1024 x 1024 (2 x 2
+    tiles, 128 superblocks), odd sizes, limited range, the colr box edited
+    to BT.709 and BT.2020 in both ranges, and an EXIF orientation (irot)."""
+    out = {}
+    for png, name in LOSSY2.items():
+        out[name] = pil(Image.open(os.path.join(REPO, "scenes", png)).convert("RGB"), "AVIF")
+    ph = enc.photo(128, 128, 1)
+    for q in (95, 90, 75, 40):
+        out[f"avif_q{q}.avif"] = pil(ph, "AVIF", quality=q)
+    out["avif_lossless.avif"] = pil(enc.photo(64, 64, 2), "AVIF", quality=100)
+    for speed in (5, 10):
+        out[f"avif_speed{speed}.avif"] = pil(ph, "AVIF", speed=speed)
+    out["avif_speed0_sb128.avif"] = pil(enc.photo(64, 64, 3), "AVIF", speed=0)
+    out["avif_1024_tiles.avif"] = pil(_smooth(1024, 1024, 4), "AVIF", quality=50)
+    small = enc.photo(23, 37, 5)
+    out["avif_37x23.avif"] = pil(small, "AVIF")
+    out["avif_1x1.avif"] = pil(enc.photo(1, 1, 6), "AVIF")
+    out["avif_17x1.avif"] = pil(enc.photo(1, 17, 7), "AVIF")
+    limited = pil(small, "AVIF", range="limited")
+    out["avif_limited.avif"] = limited
+    out["avif_bt709.avif"] = avif_colr(out["avif_37x23.avif"], 1, 1, 1, 1)
+    out["avif_bt709_limited.avif"] = avif_colr(limited, 1, 1, 1, 0)
+    out["avif_bt2020.avif"] = avif_colr(out["avif_37x23.avif"], 9, 16, 9, 1)
+    out["avif_bt2020_limited.avif"] = avif_colr(limited, 9, 16, 9, 0)
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    out["avif_orient6.avif"] = pil(small, "AVIF", exif=exif.tobytes())
+    return out
+
+
+def avif_raises(enc, pil, Image) -> dict[str, tuple[bytes, str, str]]:
+    """AVIF files the port refuses: the step-2 variants PIL reads (4:4:4,
+    RGBA, a frame that uses loop restoration) raise NotImplementedError
+    naming A.1; the files PIL refuses (ROADMAP C.14: a HEIF brand without
+    avif, a primary item of type hvc1, a file cut 40 bytes short) fail as
+    PIL's do. -> name -> (bytes, exception class name, message pattern)."""
+    base = pil(enc.photo(16, 16, 8), "AVIF")
+    i = base.index(b"ftyp")
+    size = int.from_bytes(base[i - 4:i], "big")
+    body = b"mif1" + bytes(4) + b"heicmif1miafMA1B"
+    heic = (8 + len(body)).to_bytes(4, "big") + b"ftyp" + body + base[i - 4 + size:]
+    j = base.index(b"av01")
+    return {
+        "avif_444.avif": (pil(enc.photo(32, 32, 9), "AVIF", subsampling="4:4:4"), "NotImplementedError",
+                          "AVIF of 4:4:4 AV1.*ROADMAP A.1"),
+        "avif_rgba.avif": (pil(Image.fromarray(enc.photo(32, 32, 10, 4), "RGBA"), "AVIF"), "NotImplementedError",
+                           "AVIF of alpha.*ROADMAP A.1"),
+        "avif_speed0_restoration.avif": (pil(enc.photo(128, 128, 1), "AVIF", speed=0), "NotImplementedError",
+                                         "AVIF of AV1 loop restoration.*ROADMAP A.1"),
+        "avif_heic_brand.avif": (heic, "UnidentifiedImageError", "cannot identify image file"),
+        "avif_hvc1_item.avif": (base[:j] + b"hvc1" + base[j + 4:], "DecodeError",
+                                "Failed to decode image: Missing or empty image item"),
+        "avif_truncated.avif": (base[:-40], "DecodeError", "Failed to decode frame 0: Truncated data"),
+    }
 
 
 def _fixtures_raster(enc, pil, Image) -> dict[str, bytes]:
@@ -332,12 +419,24 @@ def main() -> None:
             f.write(data)
         group = "loft_lossless" if name in LOSSLESS.values() else "loft_lossy" if name in LOSSY.values() \
             else "loft_lossless2" if name in LOSSLESS2.values() else "loft_lossless3" if name in LOSSLESS3.values() \
-            else "variant"
+            else "loft_lossy2" if name in LOSSY2.values() else "variant"
         manifest[name] = {"group": group, "bytes": len(data), **digest(pil_rgb(data))}
     with open(MANIFEST, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
     print(f"{len(manifest)} fixtures, {sum(m['bytes'] for m in manifest.values())} bytes")
+    import torch_codec_encoders as enc
+    from PIL import Image
+
+    os.makedirs(AVIF_RAISES, exist_ok=True)
+    expected = {}
+    for name, (data, exc, pattern) in avif_raises(enc, enc.pil_bytes, Image).items():
+        with open(os.path.join(AVIF_RAISES, name), "wb") as f:
+            f.write(data)
+        expected[name] = {"raises": exc, "match": pattern, "bytes": len(data)}
+    with open(AVIF_RAISES_EXPECTED, "w") as f:
+        json.dump(expected, f, indent=1, sort_keys=True)
+        f.write("\n")
 
 
 if __name__ == "__main__":
