@@ -183,19 +183,25 @@ port's paths and checks that each went through its kernels:
      through `load_obj`, each set's texture arrays equal to the PNG loft's
      and its card frame at JPEG_RENDER equal to the PNG loft's card frame
      bit for bit, its launches the PNG loft's; the loft with WebP lossy,
-     DDS BC1 and arithmetic JPEG textures, and again with AVIF textures at
+     DDS BC1 and arithmetic JPEG textures, again with AVIF textures at
      PIL's defaults (palette and IntraBC, each decoded by the native
-     csrc/host/av1_dec.cpp), each card frame against the port's CPU frame
-     within JPEG_RENDER_TOL, the AVIF loft's launches the PNG loft's; K1 /
-     K2 / K3 launched on the flat walk by every card render
-     (`codecs_scene`, `codecs_scene_lossless2`, `codecs_scene_lossless3`
-     and `codecs_scene_lossy2` in the kernels line's paths). The AVIF
-     fixtures (the four quantizer buckets and lossless, speeds 0 / 5 / 6 /
-     10, 2 x 2 tiles with 128 superblocks, odd sizes, both ranges, BT.601 /
-     709 / 2020, an irot orientation) are held to the manifest, and the
-     AVIF files of tests/torch_fixtures/avif_raises (4:4:4, alpha, loop
-     restoration, and what PIL refuses) raise what its expected.json
-     says. The JPEG 2000 fixtures (every progression, POC, tiles and
+     csrc/host/av1_dec.cpp), and again with AVIF textures written with
+     PIL's options (`lossy3`: 4:4:4 with CDEF at speed 4, a premultiplied
+     RGBA at speed 2 with loop restoration, 4:2:2), each card frame
+     against the port's CPU frame within JPEG_RENDER_TOL, the AVIF lofts'
+     launches the PNG loft's; K1 / K2 / K3 launched on the flat walk by
+     every card render (`codecs_scene`, `codecs_scene_lossless2`,
+     `codecs_scene_lossless3`, `codecs_scene_lossy2` and
+     `codecs_scene_lossy3` in the kernels line's paths). The AVIF fixtures
+     (the four quantizer buckets and lossless, speeds 0 / 5 / 6 / 10, 2 x 2
+     tiles with 128 superblocks, odd sizes, both ranges, BT.601 / 709 /
+     2020, an irot orientation; AVIF step 2's 4:4:4 / 4:2:2 / 4:0:0,
+     straight and premultiplied alpha, loop restoration at speeds 0 / 2 /
+     4, CDEF in three layouts, both filters on 128 superblocks, a
+     two-frame sequence's still) are held to the manifest, each decode
+     timed, and the AVIF files of tests/torch_fixtures/avif_raises (film
+     grain, quantizer matrices, a grid, and what PIL refuses) raise what
+     its expected.json says. The JPEG 2000 fixtures (every progression, POC, tiles and
      tile-parts, precincts, layers, each code-block style, SOP / EPH,
      ROI, PPT / PPM, precisions, subsampling, L / LA / RGBA / I;16 / CMYK /
      P / sYCC) are among the fixtures held to the manifest.
@@ -3064,8 +3070,13 @@ CODEC_LOSSLESS3 = {"loft_tex0.png": "loft_tex0_53.jp2", "loft_tex1.png": "loft_t
                    "loft_tex2.png": "loft_tex2_j2k.icns"}  # JPEG 2000: 5/3 JP2, tiled RPCL, an ICNS entry
 CODEC_LOSSY2 = {"loft_tex0.png": "loft_tex0.avif", "loft_tex1.png": "loft_tex1.avif",
                 "loft_tex2.png": "loft_tex2.avif"}  # AVIF at PIL's defaults: palette, IntraBC
+# AVIF with PIL's save options: 4:4:4 with CDEF at speed 4, a premultiplied
+# RGBA at speed 2 with loop restoration, 4:2:2
+CODEC_LOSSY3 = {"loft_tex0.png": "loft_tex0_444_cdef.avif", "loft_tex1.png": "loft_tex1_rgba_prem_lr.avif",
+                "loft_tex2.png": "loft_tex2_422.avif"}
+CODEC_LOSSY_SETS = ("lossy", "lossy2", "lossy3")  # each card frame against its CPU frame
 CODEC_LOSSLESS_SETS = ("lossless", "lossless2", "lossless3")
-# AVIF files the port refuses (step-2 variants, and what PIL refuses):
+# AVIF files the port refuses (step-3 variants, and what PIL refuses):
 # name -> the exception class name and message pattern
 CODEC_AVIF_RAISES = os.path.join(REPO, "tests", "torch_fixtures", "avif_raises")
 
@@ -3120,12 +3131,13 @@ def codecs_scene(dev, card, counts):
     timed on the host; the loft with three lossless sets of formats (each
     set's texture arrays equal to the PNG loft's, its card frame equal to
     the PNG loft's card frame bit for bit, its launches the PNG loft's) and
-    two lossy sets (WebP / DDS / arithmetic JPEG, and AVIF at PIL's
-    defaults: each card frame against its CPU frame within JPEG_RENDER_TOL,
-    the AVIF set's launches the PNG loft's); K1 / K2 / K3 on the flat walk
-    in every card render; the AVIF files the port refuses raise what
-    tests/torch_fixtures/avif_raises/expected.json says. Returns the three
-    lossless loft renders' launches and the AVIF loft's."""
+    three lossy sets (WebP / DDS / arithmetic JPEG, AVIF at PIL's defaults,
+    and AVIF with PIL's options: each card frame against its CPU frame
+    within JPEG_RENDER_TOL, the AVIF sets' launches the PNG loft's); K1 /
+    K2 / K3 on the flat walk in every card render; the AVIF files the port
+    refuses raise what tests/torch_fixtures/avif_raises/expected.json says.
+    Returns the three lossless loft renders' launches and the two AVIF
+    lofts'."""
     import hashlib
 
     import torch
@@ -3163,7 +3175,7 @@ def codecs_scene(dev, card, counts):
     scenes_by_kind, t_load = {}, {}
     for kind, names in (("png", {png: png for png in CODEC_LOSSLESS}), ("lossless", CODEC_LOSSLESS),
                         ("lossless2", CODEC_LOSSLESS2), ("lossless3", CODEC_LOSSLESS3), ("lossy", CODEC_LOSSY),
-                        ("lossy2", CODEC_LOSSY2)):
+                        ("lossy2", CODEC_LOSSY2), ("lossy3", CODEC_LOSSY3)):
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
             scenes_by_kind[kind] = _loft_textured(tmp, names)
@@ -3173,20 +3185,21 @@ def codecs_scene(dev, card, counts):
         np.array_equal(a, b) for a, b in zip(scenes_by_kind[kind].textures, png_tex))
         for kind in CODEC_LOSSLESS_SETS}
     frames, launches, frame_s = {}, {}, {}
-    for kind in ("lossless", "png", "lossless2", "lossless3", "lossy", "lossy2"):
+    for kind in ("lossless", "png", "lossless2", "lossless3") + CODEC_LOSSY_SETS:
         frames[kind], launches[kind], frame_s[kind] = _loft_frame(scenes_by_kind[kind], dev, counts)
         check_walk(f"codecs_scene ({kind})", launches[kind], "flat")
-    cpu, _, frame_s["lossy_cpu"] = _loft_frame(scenes_by_kind["lossy"], torch.device("cpu"))
-    cpu2, _, frame_s["lossy2_cpu"] = _loft_frame(scenes_by_kind["lossy2"], torch.device("cpu"))
+    rmse = {}
+    for kind in CODEC_LOSSY_SETS:
+        cpu, _, frame_s[f"{kind}_cpu"] = _loft_frame(scenes_by_kind[kind], torch.device("cpu"))
+        rmse[kind] = scenes.golden_rmse(frames[kind], cpu)
     card_eq = {kind: bool(np.array_equal(frames[kind], frames["png"])) for kind in CODEC_LOSSLESS_SETS}
-    rmse = scenes.golden_rmse(frames["lossy"], cpu)
-    rmse2 = scenes.golden_rmse(frames["lossy2"], cpu2)
     emit("codecs_scene", fixtures=len(manifest), mismatched=bad, decode_ms=decode_ms,
          decode_ms_total=sum(decode_ms.values()), avif_fixtures=len(avif_ms),
          avif_decode_ms_total=sum(avif_ms.values()), avif_decode_ms_max=max(avif_ms.values(), default=0.0),
          avif_refused=len(avif_raises),
          avif_refused_wrongly=refused_wrongly, load_obj_s=t_load, loft_textures_equal_png=equal_textures,
-         lossless_frame_equals_png_frame=card_eq, lossy_rmse_card_vs_cpu=rmse, lossy2_rmse_card_vs_cpu=rmse2,
+         lossless_frame_equals_png_frame=card_eq, lossy_rmse_card_vs_cpu=rmse["lossy"],
+         lossy2_rmse_card_vs_cpu=rmse["lossy2"], lossy3_rmse_card_vs_cpu=rmse["lossy3"],
          tol=JPEG_RENDER_TOL, **JPEG_RENDER, frame_s=frame_s, launches=launches,
          seconds=time.perf_counter() - t_all, card=card)
     if bad:
@@ -3201,14 +3214,15 @@ def codecs_scene(dev, card, counts):
         if launches[kind] != launches["png"]:
             raise AssertionError(f"codecs_scene: the {kind} loft's launches {launches[kind]} are not the PNG "
                                  f"loft's {launches['png']}")
-    if not rmse <= JPEG_RENDER_TOL:
-        raise AssertionError(f"codecs_scene: lossy loft card against CPU RMSE {rmse} (limit {JPEG_RENDER_TOL})")
-    if not rmse2 <= JPEG_RENDER_TOL:
-        raise AssertionError(f"codecs_scene: AVIF loft card against CPU RMSE {rmse2} (limit {JPEG_RENDER_TOL})")
-    if launches["lossy2"] != launches["png"]:
-        raise AssertionError(f"codecs_scene: the AVIF loft's launches {launches['lossy2']} are not the PNG "
-                             f"loft's {launches['png']}")
-    return tuple(launches[kind] for kind in CODEC_LOSSLESS_SETS + ("lossy2",))
+    for kind in CODEC_LOSSY_SETS:
+        if not rmse[kind] <= JPEG_RENDER_TOL:
+            raise AssertionError(f"codecs_scene: the {kind} loft's card frame against its CPU frame RMSE "
+                                 f"{rmse[kind]} (limit {JPEG_RENDER_TOL})")
+    for kind in ("lossy2", "lossy3"):
+        if launches[kind] != launches["png"]:
+            raise AssertionError(f"codecs_scene: the {kind} (AVIF) loft's launches {launches[kind]} are not the "
+                                 f"PNG loft's {launches['png']}")
+    return tuple(launches[kind] for kind in CODEC_LOSSLESS_SETS + ("lossy2", "lossy3"))
 
 
 # ---- the scripts beside the package, as modules of the port ---------------
@@ -3881,9 +3895,10 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
 
     if args.only == "codecs":
         t1 = time.perf_counter()
-        launches, launches2, launches3, launches_avif = codecs_scene(dev, card, tc.launch_counts)
+        launches, launches2, launches3, launches_avif, launches_avif3 = codecs_scene(dev, card, tc.launch_counts)
         emit("codecs_phase", seconds=time.perf_counter() - t1, launches=launches, launches_lossless2=launches2,
-             launches_lossless3=launches3, launches_lossy2=launches_avif, card=card)
+             launches_lossless3=launches3, launches_lossy2=launches_avif, launches_lossy3=launches_avif3,
+             card=card)
         print(smi, flush=True)
         return 0
 
@@ -4090,7 +4105,7 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
     cornell_launches = cornell_slice(dev, card, tc.launch_counts)
     file_goldens(dev)
     jpeg_launches = jpeg_scene(dev, card, tc.launch_counts)
-    codecs_launches, codecs2_launches, codecs3_launches, codecs_avif_launches = codecs_scene(
+    codecs_launches, codecs2_launches, codecs3_launches, codecs_avif_launches, codecs_avif3_launches = codecs_scene(
         dev, card, tc.launch_counts)
     torch.cuda.empty_cache()
 
@@ -4246,7 +4261,8 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
             "demand_loft": demand_loft_launches, "demand_big": demand_big_launches, "view": view_launches,
             **dist_runs, **bench_runs, **script_runs, "jpeg_scene": jpeg_launches, "codecs_scene": codecs_launches,
             "codecs_scene_lossless2": codecs2_launches, "codecs_scene_lossless3": codecs3_launches,
-            "codecs_scene_lossy2": codecs_avif_launches, "big_slice": big_launches}
+            "codecs_scene_lossy2": codecs_avif_launches, "codecs_scene_lossy3": codecs_avif3_launches,
+            "big_slice": big_launches}
     for run in runs.values():
         for name, k in run.items():
             launches[name] = launches.get(name, 0) + k

@@ -1,21 +1,22 @@
 // AV1 key-frame tile decoder: the decoding process of the AV1 Bitstream &
-// Decoding Process Specification for one 8-bit 4:2:0 intra frame, as libaom
-// writes AVIF stills. io/codecs/av1_obu.py parses the OBUs and the frame
-// header and hands the frame parameters and each tile's bytes here; this file
-// decodes the tiles (symbol decoder and CDF adaptation, partitions, intra
-// modes with the edge filter and upsampling, filter intra, CfL, palette,
-// IntraBC, transform sizes and types, coefficients, the inverse transforms
-// and the lossless WHT), runs the deblocking filter over the frame, and
-// returns the Y / U / V planes cropped to the frame size.
+// Decoding Process Specification for one 8-bit intra frame in 4:2:0, 4:2:2,
+// 4:4:4 or monochrome, as libaom writes AVIF stills and their alpha items.
+// io/codecs/av1_obu.py parses the OBUs and the frame header and hands the
+// frame parameters and each tile's bytes here; this file decodes the tiles
+// (symbol decoder and CDF adaptation, partitions, intra modes with the edge
+// filter and upsampling, filter intra, CfL, palette, IntraBC, transform sizes
+// and types, coefficients, the inverse transforms and the lossless WHT, the
+// loop-restoration coefficients), then runs the frame's filters in the
+// specification's order: deblocking (7.14), CDEF (7.15) and loop restoration
+// (7.17), and returns each plane cropped to its size.
 //
-// Names follow the specification (section 5.11 syntax, 7.10-7.14 decoding
+// Names follow the specification (section 5.11 syntax, 7.10-7.17 decoding
 // processes); the inverse DCT / ADST are the butterfly networks the
 // specification defines, with the intermediate add / subtract results
 // clamped to the stage range (16 bits at 8-bit depth) as libaom and dav1d
 // clamp them. Not handled here (the Python side raises before calling):
-// segmentation, delta q / delta lf, CDEF with non-zero strengths, loop
-// restoration, superres, film grain, quantizer matrices, 4:4:4 / 4:2:2 /
-// monochrome and high bit depth.
+// segmentation, delta q / delta lf, superres, film grain, quantizer
+// matrices and high bit depth.
 //
 // Build: g++ -O2 -shared -fPIC (utils/host_build.py).
 #include <stdint.h>
@@ -46,6 +47,7 @@ enum { PARTITION_NONE, PARTITION_HORZ, PARTITION_VERT, PARTITION_SPLIT, PARTITIO
 enum { TX_MODE_ONLY_4X4, TX_MODE_LARGEST, TX_MODE_SELECT };
 enum { TX_SET_DCTONLY, TX_SET_INTRA_1, TX_SET_INTRA_2, TX_SET_INTER_1 = 1, TX_SET_INTER_2, TX_SET_INTER_3 };
 enum { TX_CLASS_2D, TX_CLASS_HORIZ, TX_CLASS_VERT };
+enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
 
 const int Mi_Width_Log2[22] = {0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4, 4, 5, 5, 0, 2, 1, 3, 2, 4};
 const int Mi_Height_Log2[22] = {0, 1, 0, 1, 2, 1, 2, 3, 2, 3, 4, 3, 4, 5, 4, 5, 2, 0, 3, 1, 4, 2};
@@ -121,10 +123,12 @@ int split_tx_size(int t) {
 int adjusted_tx_size(int t) {
   return find_tx_size(imin(32, tx_w(t)), imin(32, tx_h(t)));
 }
-int subsampled_size(int b, int ss) {  // 4:2:0 chroma block size
-  if (!ss) return b;
+// Subsampled_Size: a block's size in a plane subsampled by (ssx, ssy); a
+// block taller than wide has no 4:2:2 chroma size (BLOCK_INVALID)
+int subsampled_size(int b, int ssx, int ssy) {
   int wl = Mi_Width_Log2[b], hl = Mi_Height_Log2[b];
-  return block_size(imax(0, wl - 1), imax(0, hl - 1));
+  if (ssx && !ssy && hl > wl) return BLOCK_INVALID;
+  return block_size(imax(0, wl - ssx), imax(0, hl - ssy));
 }
 int partition_subsize(int p, int b) {
   int l = Mi_Width_Log2[b];  // square
@@ -177,6 +181,7 @@ struct Cdfs {
   uint16_t coeff_base_eob[5][2][4][4];
   uint16_t coeff_base[5][2][42][5];
   uint16_t coeff_br[5][2][21][5];
+  uint16_t restoration_type[4], use_wiener[3], use_sgrproj[3];
 
   void init(int base_q_idx) {
     COPY(y_mode, Default_Intra_Frame_Y_Mode_Cdf);
@@ -233,6 +238,9 @@ struct Cdfs {
     COPY(coeff_base_eob, Default_Coeff_Base_Eob_Cdf[q]);
     COPY(coeff_base, Default_Coeff_Base_Cdf[q]);
     COPY(coeff_br, Default_Coeff_Br_Cdf[q]);
+    COPY(restoration_type, Default_Restoration_Type_Cdf);
+    COPY(use_wiener, Default_Use_Wiener_Cdf);
+    COPY(use_sgrproj, Default_Use_Sgrproj_Cdf);
   }
 };
 
@@ -561,6 +569,9 @@ struct Params {
       DeltaQVAc, TxMode, reduced_tx_set, disable_cdf_update, lf_level[4], lf_sharpness, lf_delta_enabled,
       lf_ref_deltas[8], lf_mode_deltas[2], enable_cdef, cdef_bits, TileCols, TileRows;
   int MiColStarts[65], MiRowStarts[65];
+  int subsampling_x, subsampling_y, NumPlanes;
+  int CdefDamping, cdef_y_pri[8], cdef_y_sec[8], cdef_uv_pri[8], cdef_uv_sec[8];
+  int FrameRestorationType[3], LoopRestorationSize[3];
 };
 
 struct Decoder {
@@ -582,6 +593,13 @@ struct Decoder {
   std::vector<uint8_t> LfTxSizes[3];  // per 4x4 of each plane
   int lfStride[3];
   std::vector<int8_t> CdefIdx;
+  // loop restoration, per plane and unit: type, Wiener taps [pass][3], the
+  // self-guided set and its two projection weights
+  int LrUnitRows[3], LrUnitCols[3];
+  std::vector<uint8_t> LrType[3], LrSgrSet[3];
+  std::vector<int8_t> LrWiener[3];
+  std::vector<int16_t> LrSgrXqd[3];
+  int RefLrWiener[3][2][3], RefSgrXqd[3][2];
 
   // tile
   int MiRowStart, MiRowEnd, MiColStart, MiColEnd;
@@ -602,6 +620,9 @@ struct Decoder {
   int32_t Residual[64][64];
 
   size_t mi(int r, int c) const { return (size_t)r * MiStride + c; }
+  int ssx(int plane) const { return plane ? P.subsampling_x : 0; }
+  int ssy(int plane) const { return plane ? P.subsampling_y : 0; }
+  int plane_size(int plane) const { return subsampled_size(MiSize, ssx(plane), ssy(plane)); }
   void fail(const char* msg) {
     if (!failed) snprintf(err, sizeof err, "%s", msg);
     failed = true;
@@ -656,6 +677,10 @@ struct Decoder {
     }
     int subSize = partition_subsize(partition, bSize);
     int splitSize = partition_subsize(PARTITION_SPLIT, bSize);
+    if (P.NumPlanes > 1 && subsampled_size(subSize, P.subsampling_x, P.subsampling_y) == BLOCK_INVALID) {
+      fail("block size invalid with this subsampling");
+      return;
+    }
     switch (partition) {
       case PARTITION_NONE: decode_block(r, c, subSize); break;
       case PARTITION_HORZ:
@@ -708,16 +733,18 @@ struct Decoder {
     if (failed) return;
     MiRow = r; MiCol = c; MiSize = subSize;
     int w4 = bw4(subSize), h4 = bh4(subSize);
-    if (h4 == 1 && (MiRow & 1) == 0) HasChroma = 0;
-    else if (w4 == 1 && (MiCol & 1) == 0) HasChroma = 0;
+    int sx = P.subsampling_x, sy = P.subsampling_y;
+    if (P.NumPlanes == 1) HasChroma = 0;
+    else if (sy && h4 == 1 && (MiRow & 1) == 0) HasChroma = 0;
+    else if (sx && w4 == 1 && (MiCol & 1) == 0) HasChroma = 0;
     else HasChroma = 1;
     AvailU = is_inside(r - 1, c);
     AvailL = is_inside(r, c - 1);
     AvailUChroma = AvailU;
     AvailLChroma = AvailL;
     if (HasChroma) {
-      if (h4 == 1) AvailUChroma = is_inside(r - 2, c);
-      if (w4 == 1) AvailLChroma = is_inside(r, c - 2);
+      if (sy && h4 == 1) AvailUChroma = is_inside(r - 2, c);
+      if (sx && w4 == 1) AvailLChroma = is_inside(r, c - 2);
     } else {
       AvailUChroma = AvailLChroma = 0;
     }
@@ -776,7 +803,7 @@ struct Decoder {
         AngleDeltaY = sd.symbol(cdf.angle_delta[YMode - V_PRED], 7) - 3;
       if (HasChroma) {
         int cflAllowed;
-        if (Lossless && subsampled_size(MiSize, 1) == BLOCK_4X4) cflAllowed = 1;
+        if (Lossless && plane_size(1) == BLOCK_4X4) cflAllowed = 1;
         else if (!Lossless && imax(block_width(MiSize), block_height(MiSize)) <= 32) cflAllowed = 1;
         else cflAllowed = 0;
         if (cflAllowed) UVMode = sd.symbol(cdf.uv_mode_cfl_allowed[YMode], 14);
@@ -961,9 +988,8 @@ struct Decoder {
     int onH = imin(bh, (MiRows - MiRow) * 4), onW = imin(bw, (MiCols - MiCol) * 4);
     if (PaletteSizeY) read_color_map(ColorMapY, PaletteSizeY, bw, bh, onW, onH, true);
     if (PaletteSizeUV) {
-      bh >>= 1; bw >>= 1;
-      onH = imin(bh, ((MiRows - MiRow) * 4) >> 1);
-      onW = imin(bw, ((MiCols - MiCol) * 4) >> 1);
+      bh >>= P.subsampling_y; bw >>= P.subsampling_x;
+      onH >>= P.subsampling_y; onW >>= P.subsampling_x;
       if (bw < 4) { bw += 2; onW += 2; }
       if (bh < 4) { bh += 2; onH += 2; }
       read_color_map(ColorMapUV, PaletteSizeUV, bw, bh, onW, onH, false);
@@ -1053,12 +1079,12 @@ struct Decoder {
 
   void reset_block_context(int w4, int h4) {
     for (int plane = 0; plane < 1 + 2 * HasChroma; plane++) {
-      int ss = plane > 0;
-      for (int i = MiCol >> ss; i < ((MiCol + w4) >> ss); i++) {
+      int sx = ssx(plane), sy = ssy(plane);
+      for (int i = MiCol >> sx; i < ((MiCol + w4) >> sx); i++) {
         AboveLevelContext[plane][i] = 0;
         AboveDcContext[plane][i] = 0;
       }
-      for (int i = MiRow >> ss; i < ((MiRow + h4) >> ss); i++) {
+      for (int i = MiRow >> sy; i < ((MiRow + h4) >> sy); i++) {
         LeftLevelContext[plane][i] = 0;
         LeftDcContext[plane][i] = 0;
       }
@@ -1209,23 +1235,22 @@ struct Decoder {
   void compute_prediction() {
     if (!is_inter) return;  // intra prediction runs per transform block
     for (int plane = 0; plane < 1 + HasChroma * 2; plane++) {
-      int planeSz = subsampled_size(MiSize, plane > 0);
+      int planeSz = plane_size(plane);
       int w = bw4(planeSz) * 4, h = bh4(planeSz) * 4;
-      int ss = plane > 0;
-      int baseX = (MiCol >> ss) * 4, baseY = (MiRow >> ss) * 4;
+      int baseX = (MiCol >> ssx(plane)) * 4, baseY = (MiRow >> ssy(plane)) * 4;
       // someUseIntra holds for IntraBC: one prediction from this block's vector
       predict_intrabc(plane, baseX, baseY, w, h);
     }
   }
 
   void predict_intrabc(int plane, int x, int y, int w, int h) {
-    int ss = plane > 0;
+    int sx = ssx(plane), sy = ssy(plane);
     // motion vector scaling with xScale = yScale = 1 << 14
-    int startX = ((x << 4) + ((2 * Mv[1]) >> ss)) * 64 + 32;
-    int startY = ((y << 4) + ((2 * Mv[0]) >> ss)) * 64 + 32;
+    int startX = ((x << 4) + ((2 * Mv[1]) >> sx)) * 64 + 32;
+    int startY = ((y << 4) + ((2 * Mv[0]) >> sy)) * 64 + 32;
     // the reference is the current frame: its edge is the decoded, 8-aligned
     // MiCols x MiRows area, not the frame size (as dav1d bounds it)
-    int lastX = ((MiCols * 4) >> ss) - 1, lastY = ((MiRows * 4) >> ss) - 1;
+    int lastX = ((MiCols * 4) >> sx) - 1, lastY = ((MiRows * 4) >> sy) - 1;
     int interH = (((h - 1) * 1024 + 1023) >> 10) + 8;
     static int32_t inter[(128 + 8) * 128];
     for (int r = 0; r < interH; r++)
@@ -1269,16 +1294,16 @@ struct Decoder {
     if (plane == 0 ? AvailU : AvailUChroma) {
       int r = MiRow - 1, c = MiCol;
       if (plane > 0) {
-        if (!(MiCol & 1)) c++;
-        if (MiRow & 1) r--;
+        if (P.subsampling_x && !(MiCol & 1)) c++;
+        if (P.subsampling_y && (MiRow & 1)) r--;
       }
       aboveSmooth = is_smooth(r, c, plane);
     }
     if (plane == 0 ? AvailL : AvailLChroma) {
       int r = MiRow, c = MiCol - 1;
       if (plane > 0) {
-        if (MiCol & 1) c--;
-        if (!(MiRow & 1)) r++;
+        if (P.subsampling_x && (MiCol & 1)) c--;
+        if (P.subsampling_y && !(MiRow & 1)) r++;
       }
       leftSmooth = is_smooth(r, c, plane);
     }
@@ -1337,8 +1362,7 @@ struct Decoder {
   void predict_intra(int plane, int x, int y, int haveLeft, int haveAbove, int haveAboveRight,
                      int haveBelowLeft, int mode, int log2W, int log2H) {
     int w = 1 << log2W, h = 1 << log2H;
-    int ss = plane > 0;
-    int maxX = ((MiCols * 4) >> ss) - 1, maxY = ((MiRows * 4) >> ss) - 1;
+    int maxX = ((MiCols * 4) >> ssx(plane)) - 1, maxY = ((MiRows * 4) >> ssy(plane)) - 1;
     int aboveBuf[320], leftBuf[320];
     int* AboveRow = aboveBuf + 16;
     int* LeftCol = leftBuf + 16;
@@ -1520,15 +1544,16 @@ struct Decoder {
     int w = tx_w(txSz), h = tx_h(txSz);
     int alpha = plane == 1 ? CflAlphaU : CflAlphaV;
     static int L[32][32];
+    int subX = P.subsampling_x, subY = P.subsampling_y;
     int64_t lumaAvg = 0;
     for (int i = 0; i < h; i++) {
-      int lumaY = imin(startY + i, (MaxLumaH >> 1) - 1);
+      int lumaY = imin(startY + i, (MaxLumaH >> subY) - 1) << subY;
       for (int j = 0; j < w; j++) {
-        int lumaX = imin(startX + j, (MaxLumaW >> 1) - 1);
+        int lumaX = imin(startX + j, (MaxLumaW >> subX) - 1) << subX;
         int t = 0;
-        for (int dy = 0; dy <= 1; dy++)
-          for (int dx = 0; dx <= 1; dx++) t += *F.at(0, (lumaY << 1) + dy, (lumaX << 1) + dx);
-        int v = t << 1;
+        for (int dy = 0; dy <= subY; dy++)
+          for (int dx = 0; dx <= subX; dx++) t += *F.at(0, lumaY + dy, lumaX + dx);
+        int v = t << (3 - subX - subY);
         L[i][j] = v;
         lumaAvg += v;
       }
@@ -1553,7 +1578,7 @@ struct Decoder {
   // ------------------------------------------------------------ residual
   int get_tx_size(int plane, int txSz) {
     if (plane == 0) return txSz;
-    int uvTx = max_tx_size_rect(subsampled_size(MiSize, 1));
+    int uvTx = max_tx_size_rect(plane_size(plane));
     if (tx_w(uvTx) == 64 || tx_h(uvTx) == 64) {
       if (tx_w(uvTx) == 16) return TX_16X32;
       if (tx_h(uvTx) == 16) return TX_32X16;
@@ -1570,10 +1595,10 @@ struct Decoder {
         for (int plane = 0; plane < 1 + HasChroma * 2; plane++) {
           int txSz = Lossless ? TX_4X4 : get_tx_size(plane, TxSize);
           int stepX = tx_w(txSz) >> 2, stepY = tx_h(txSz) >> 2;
-          int planeSz = subsampled_size(MiSize, plane > 0);
+          int planeSz = plane_size(plane);
           int num4x4W = bw4(planeSz), num4x4H = bh4(planeSz);
-          int ss = plane > 0;
-          int baseX = (miColChunk >> ss) * 4, baseY = (miRowChunk >> ss) * 4;
+          int sx = ssx(plane), sy = ssy(plane);
+          int baseX = (miColChunk >> sx) * 4, baseY = (miRowChunk >> sy) * 4;
           if (is_inter && !Lossless && !plane) {
             int maxTx = max_tx_size_rect(MiSize);
             int tw = tx_w(maxTx), th = tx_h(maxTx);
@@ -1581,11 +1606,11 @@ struct Decoder {
             for (int yy = 0; yy < ch; yy += th)
               for (int xx = 0; xx < cw; xx += tw) transform_tree(baseX + xx, baseY + yy, tw, th);
           } else {
-            int baseXBlock = (MiCol >> ss) * 4, baseYBlock = (MiRow >> ss) * 4;
-            for (int y = 0; y < imin(num4x4H, 16 >> ss); y += stepY)
-              for (int x = 0; x < imin(num4x4W, 16 >> ss); x += stepX)
-                transform_block(plane, baseXBlock, baseYBlock, txSz, x + ((chunkX << 4) >> ss),
-                                y + ((chunkY << 4) >> ss));
+            int baseXBlock = (MiCol >> sx) * 4, baseYBlock = (MiRow >> sy) * 4;
+            for (int y = 0; y < imin(num4x4H, 16 >> sy); y += stepY)
+              for (int x = 0; x < imin(num4x4W, 16 >> sx); x += stepX)
+                transform_block(plane, baseXBlock, baseYBlock, txSz, x + ((chunkX << 4) >> sx),
+                                y + ((chunkY << 4) >> sy));
           }
         }
       }
@@ -1614,12 +1639,12 @@ struct Decoder {
 
   void transform_block(int plane, int baseX, int baseY, int txSz, int x, int y) {
     int startX = baseX + 4 * x, startY = baseY + 4 * y;
-    int ss = plane > 0;
-    int row = (startY << ss) >> 2, col = (startX << ss) >> 2;
+    int sx = ssx(plane), sy = ssy(plane);
+    int row = (startY << sy) >> 2, col = (startX << sx) >> 2;
     int sbMask = P.use_128 ? 31 : 15;
     int subBlockMiRow = row & sbMask, subBlockMiCol = col & sbMask;
     int stepX = tx_w(txSz) >> 2, stepY = tx_h(txSz) >> 2;
-    int maxX = (MiCols * 4) >> ss, maxY = (MiRows * 4) >> ss;
+    int maxX = (MiCols * 4) >> sx, maxY = (MiRows * 4) >> sy;
     if (startX >= maxX || startY >= maxY) return;
     if (!is_inter) {
       if ((plane == 0 && PaletteSizeY) || (plane != 0 && PaletteSizeUV)) {
@@ -1628,7 +1653,7 @@ struct Decoder {
         int isCfl = plane > 0 && UVMode == UV_CFL_PRED;
         int mode = plane == 0 ? YMode : (isCfl ? DC_PRED : UVMode);
         int log2W = Tx_Width_Log2[txSz], log2H = Tx_Height_Log2[txSz];
-        int by = (subBlockMiRow >> ss), bx = (subBlockMiCol >> ss);
+        int by = (subBlockMiRow >> sy), bx = (subBlockMiCol >> sx);
         predict_intra(plane, startX, startY, (plane == 0 ? AvailL : AvailLChroma) || x > 0,
                       (plane == 0 ? AvailU : AvailUChroma) || y > 0,
                       BlockDecoded[plane][by - 1 + 1][bx + stepX + 1], BlockDecoded[plane][by + stepY + 1][bx - 1 + 1],
@@ -1646,9 +1671,9 @@ struct Decoder {
     }
     for (int i = 0; i < stepY; i++)
       for (int j = 0; j < stepX; j++) {
-        int ly = (row >> ss) + i, lx = (col >> ss) + j;
+        int ly = (row >> sy) + i, lx = (col >> sx) + j;
         LfTxSizes[plane][(size_t)ly * lfStride[plane] + lx] = txSz;
-        int by = (subBlockMiRow >> ss) + i, bx = (subBlockMiCol >> ss) + j;
+        int by = (subBlockMiRow >> sy) + i, bx = (subBlockMiCol >> sx) + j;
         if (by < 33 && bx < 33) BlockDecoded[plane][by + 1][bx + 1] = 1;
       }
   }
@@ -1707,7 +1732,7 @@ struct Decoder {
     if (plane == 0) return TxTypes[mi(blockY, blockX)];
     int t;
     if (is_inter) {
-      int x4 = imax(MiCol, blockX << 1), y4 = imax(MiRow, blockY << 1);
+      int x4 = imax(MiCol, blockX << P.subsampling_x), y4 = imax(MiRow, blockY << P.subsampling_y);
       t = TxTypes[mi(y4, x4)];
     } else {
       t = Mode_To_Txfm[UVMode];
@@ -1813,12 +1838,11 @@ struct Decoder {
     int segEob = (txSz == TX_16X64 || txSz == TX_64X16) ? 512 : imin(1024, tx_w(txSz) * tx_h(txSz));
     for (int c = 0; c < segEob; c++) Quant[c] = 0;
     int eob = 0, culLevel = 0, dcCategory = 0;
-    int ss = plane > 0;
-    int maxX4 = MiCols >> ss, maxY4 = MiRows >> ss;
+    int maxX4 = MiCols >> ssx(plane), maxY4 = MiRows >> ssy(plane);
     // all_zero context
     int ctx;
     int w = tx_w(txSz), h = tx_h(txSz);
-    int bsize = subsampled_size(MiSize, ss);
+    int bsize = plane_size(plane);
     if (plane == 0) {
       int top = 0, left = 0;
       for (int k = 0; k < w4; k++)
@@ -2028,12 +2052,12 @@ struct Decoder {
   // ------------------------------------------------------ loop filter
   void loop_filter() {
     if (P.lf_level[0] == 0 && P.lf_level[1] == 0) return;
-    for (int plane = 0; plane < 3; plane++) {
+    for (int plane = 0; plane < P.NumPlanes; plane++) {
       if (plane > 0 && !P.lf_level[1 + plane]) continue;
       for (int pass = 0; pass < 2; pass++) {
-        int step = plane == 0 ? 1 : 2;
-        for (int row = 0; row < MiRows; row += step)
-          for (int col = 0; col < MiCols; col += step) edge_loop_filter(plane, pass, row, col);
+        int rowStep = 1 << ssy(plane), colStep = 1 << ssx(plane);
+        for (int row = 0; row < MiRows; row += rowStep)
+          for (int col = 0; col < MiCols; col += colStep) edge_loop_filter(plane, pass, row, col);
       }
     }
   }
@@ -2056,11 +2080,11 @@ struct Decoder {
     *thresh = lvlSeg >> 4;
   }
   void edge_loop_filter(int plane, int pass, int row, int col) {
-    int ss = plane > 0;
+    int sx = ssx(plane), sy = ssy(plane);
     int dx = pass == 0 ? 1 : 0, dy = pass == 1 ? 1 : 0;
     int x = col * 4, y = row * 4;
-    row |= ss;
-    col |= ss;
+    row |= sy;
+    col |= sx;
     int onScreen;
     if (x >= P.FrameWidth) onScreen = 0;
     else if (y >= P.FrameHeight) onScreen = 0;
@@ -2068,14 +2092,14 @@ struct Decoder {
     else if (pass == 1 && y == 0) onScreen = 0;
     else onScreen = 1;
     if (!onScreen) return;
-    int xP = x >> ss, yP = y >> ss;
-    int prevRow = row - (dy << ss), prevCol = col - (dx << ss);
+    int xP = x >> sx, yP = y >> sy;
+    int prevRow = row - (dy << sy), prevCol = col - (dx << sx);
     int miSize = MiSizes[mi(row, col)];
-    int txSz = LfTxSizes[plane][(size_t)(row >> ss) * lfStride[plane] + (col >> ss)];
-    int planeSize = subsampled_size(miSize, ss);
+    int txSz = LfTxSizes[plane][(size_t)(row >> sy) * lfStride[plane] + (col >> sx)];
+    int planeSize = subsampled_size(miSize, sx, sy);
     int sk = Skips[mi(row, col)];
     int isIntra = RefFrame0[mi(row, col)] <= 0;
-    int prevTxSz = LfTxSizes[plane][(size_t)(prevRow >> ss) * lfStride[plane] + (prevCol >> ss)];
+    int prevTxSz = LfTxSizes[plane][(size_t)(prevRow >> sy) * lfStride[plane] + (prevCol >> sx)];
     int isBlockEdge = pass == 0 ? (xP % block_width(planeSize) == 0) : (yP % block_height(planeSize) == 0);
     int isTxEdge = pass == 0 ? (xP % tx_w(txSz) == 0) : (yP % tx_h(txSz) == 0);
     int applyFilter = !isTxEdge ? 0 : (isBlockEdge || !sk || !isIntra) ? 1 : 0;
@@ -2154,20 +2178,362 @@ struct Decoder {
     for (int i = -n; i < n; i++) *S(i) = F2[i + 8];
   }
 
+  // -------------------------------------------------- loop restoration syntax
+  static int count_units_in_frame(int unitSize, int frameSize) {
+    return imax((frameSize + (unitSize >> 1)) / unitSize, 1);
+  }
+  static int inverse_recenter(int r, int v) {
+    if (v > 2 * r) return v;
+    if (v & 1) return r - ((v + 1) >> 1);
+    return r + (v >> 1);
+  }
+  int decode_subexp_bool(int numSyms, int k) {
+    int i = 0, mk = 0;
+    while (true) {
+      int b2 = i ? k + i - 1 : k;
+      int a = 1 << b2;
+      if (numSyms <= mk + 3 * a) return sd.ns(numSyms - mk) + mk;
+      if (!sd.literal(1)) return sd.literal(b2) + mk;
+      i++;
+      mk += a;
+    }
+  }
+  int decode_signed_subexp_with_ref_bool(int low, int high, int k, int r) {
+    int mx = high - low;
+    r -= low;
+    int v = decode_subexp_bool(mx, k);
+    int x = (r << 1) <= mx ? inverse_recenter(r, v) : mx - 1 - inverse_recenter(mx - 1 - r, v);
+    return x + low;
+  }
+
+  void read_lr(int r, int c, int bSize) {
+    if (P.allow_intrabc) return;
+    int w = bw4(bSize), h = bh4(bSize);
+    for (int plane = 0; plane < P.NumPlanes; plane++) {
+      if (P.FrameRestorationType[plane] == RESTORE_NONE) continue;
+      int sx = ssx(plane), sy = ssy(plane);
+      int unitSize = P.LoopRestorationSize[plane];
+      int unitRows = LrUnitRows[plane], unitCols = LrUnitCols[plane];
+      int unitRowStart = (r * (4 >> sy) + unitSize - 1) / unitSize;
+      int unitRowEnd = imin(unitRows, ((r + h) * (4 >> sy) + unitSize - 1) / unitSize);
+      int unitColStart = (c * (4 >> sx) + unitSize - 1) / unitSize;
+      int unitColEnd = imin(unitCols, ((c + w) * (4 >> sx) + unitSize - 1) / unitSize);
+      for (int unitRow = unitRowStart; unitRow < unitRowEnd; unitRow++)
+        for (int unitCol = unitColStart; unitCol < unitColEnd; unitCol++) read_lr_unit(plane, unitRow, unitCol);
+    }
+  }
+
+  void read_lr_unit(int plane, int unitRow, int unitCol) {
+    int type;
+    int frameType = P.FrameRestorationType[plane];
+    if (frameType == RESTORE_WIENER) type = sd.symbol(cdf.use_wiener, 2) ? RESTORE_WIENER : RESTORE_NONE;
+    else if (frameType == RESTORE_SGRPROJ) type = sd.symbol(cdf.use_sgrproj, 2) ? RESTORE_SGRPROJ : RESTORE_NONE;
+    else type = sd.symbol(cdf.restoration_type, 3);
+    size_t u = (size_t)unitRow * LrUnitCols[plane] + unitCol;
+    LrType[plane][u] = type;
+    if (type == RESTORE_WIENER) {
+      for (int pass = 0; pass < 2; pass++) {
+        int firstCoeff = 0;
+        if (plane) {
+          firstCoeff = 1;
+          LrWiener[plane][u * 6 + pass * 3] = 0;
+        }
+        for (int j = firstCoeff; j < 3; j++) {
+          int v = decode_signed_subexp_with_ref_bool(Wiener_Taps_Min[j], Wiener_Taps_Max[j] + 1, Wiener_Taps_K[j],
+                                                     RefLrWiener[plane][pass][j]);
+          LrWiener[plane][u * 6 + pass * 3 + j] = v;
+          RefLrWiener[plane][pass][j] = v;
+        }
+      }
+    } else if (type == RESTORE_SGRPROJ) {
+      int set = sd.literal(4);
+      LrSgrSet[plane][u] = set;
+      for (int i = 0; i < 2; i++) {
+        int radius = Sgr_Params[set][i * 2], mn = Sgrproj_Xqd_Min[i], mx = Sgrproj_Xqd_Max[i];
+        int v = 0;
+        if (radius) v = decode_signed_subexp_with_ref_bool(mn, mx + 1, 4, RefSgrXqd[plane][i]);
+        else if (i == 1) v = clip3(mn, mx, (1 << 7) - RefSgrXqd[plane][0]);
+        LrSgrXqd[plane][u * 2 + i] = v;
+        RefSgrXqd[plane][i] = v;
+      }
+    }
+  }
+
+  // ----------------------------------------------------------------- CDEF
+  // 7.15: each 8x8 luma block (and its chroma) of a 64x64 with a cdef_idx,
+  // not all skipped, filtered along its direction; reads the deblocked
+  // frame, writes F
+  Frame deblocked;
+  int CdefAvailable;
+
+  void cdef() {
+    bool any = false;  // zero strengths leave every sample as it is
+    for (int i = 0; i < (1 << P.cdef_bits); i++)
+      any |= P.cdef_y_pri[i] || P.cdef_y_sec[i] || P.cdef_uv_pri[i] || P.cdef_uv_sec[i];
+    if (!P.enable_cdef || !any) return;
+    for (int r = 0; r < MiRows; r += 2)
+      for (int c = 0; c < MiCols; c += 2) {
+        int idx = CdefIdx[mi(r & ~15, c & ~15)];
+        if (idx == -1) continue;
+        cdef_block(r, c, idx);
+      }
+  }
+
+  void cdef_block(int r, int c, int idx) {
+    int skipAll = Skips[mi(r, c)] && Skips[mi(r + 1, c)] && Skips[mi(r, c + 1)] && Skips[mi(r + 1, c + 1)];
+    if (skipAll) return;
+    int var;
+    int yDir = cdef_direction(r, c, &var);
+    int priStr = P.cdef_y_pri[idx], secStr = P.cdef_y_sec[idx];
+    int dir = priStr == 0 ? 0 : yDir;
+    int varStr = (var >> 6) ? imin(floor_log2(var >> 6), 12) : 0;
+    priStr = var ? (priStr * (4 + varStr) + 8) >> 4 : 0;
+    cdef_filter(0, r, c, priStr, secStr, P.CdefDamping, dir);
+    if (P.NumPlanes == 1) return;
+    priStr = P.cdef_uv_pri[idx];
+    secStr = P.cdef_uv_sec[idx];
+    dir = priStr == 0 ? 0 : Cdef_Uv_Dir[P.subsampling_x][P.subsampling_y][yDir];
+    cdef_filter(1, r, c, priStr, secStr, P.CdefDamping - 1, dir);
+    cdef_filter(2, r, c, priStr, secStr, P.CdefDamping - 1, dir);
+  }
+
+  int cdef_direction(int r, int c, int* var) {
+    int cost[8] = {0}, partial[8][15] = {{0}};
+    int x0 = c << 2, y0 = r << 2;
+    for (int i = 0; i < 8; i++)
+      for (int j = 0; j < 8; j++) {
+        int x = *deblocked.at(0, y0 + i, x0 + j) - 128;
+        partial[0][i + j] += x;
+        partial[1][i + j / 2] += x;
+        partial[2][i] += x;
+        partial[3][3 + i - j / 2] += x;
+        partial[4][7 + i - j] += x;
+        partial[5][3 - i / 2 + j] += x;
+        partial[6][j] += x;
+        partial[7][i / 2 + j] += x;
+      }
+    for (int i = 0; i < 8; i++) {
+      cost[2] += partial[2][i] * partial[2][i];
+      cost[6] += partial[6][i] * partial[6][i];
+    }
+    cost[2] *= Div_Table[8];
+    cost[6] *= Div_Table[8];
+    for (int i = 0; i < 7; i++) {
+      cost[0] += (partial[0][i] * partial[0][i] + partial[0][14 - i] * partial[0][14 - i]) * Div_Table[i + 1];
+      cost[4] += (partial[4][i] * partial[4][i] + partial[4][14 - i] * partial[4][14 - i]) * Div_Table[i + 1];
+    }
+    cost[0] += partial[0][7] * partial[0][7] * Div_Table[8];
+    cost[4] += partial[4][7] * partial[4][7] * Div_Table[8];
+    for (int i = 1; i < 8; i += 2) {
+      for (int j = 0; j < 5; j++) cost[i] += partial[i][3 + j] * partial[i][3 + j];
+      cost[i] *= Div_Table[8];
+      for (int j = 0; j < 3; j++)
+        cost[i] += (partial[i][j] * partial[i][j] + partial[i][10 - j] * partial[i][10 - j]) * Div_Table[2 * j + 2];
+    }
+    int bestCost = 0, yDir = 0;
+    for (int i = 0; i < 8; i++)
+      if (cost[i] > bestCost) { bestCost = cost[i]; yDir = i; }
+    *var = (bestCost - cost[(yDir + 4) & 7]) >> 10;
+    return yDir;
+  }
+
+  static int constrain(int diff, int threshold, int damping) {
+    if (!threshold) return 0;
+    int dampingAdj = imax(0, damping - floor_log2(threshold));
+    int val = imin(abs(diff), imax(0, threshold - (abs(diff) >> dampingAdj)));
+    return diff < 0 ? -val : val;
+  }
+
+  int cdef_get_at(int plane, int x0, int y0, int i, int j, int subX, int subY) {
+    int y = y0 + i, x = x0 + j;
+    int candR = (y << subY) >> 2, candC = (x << subX) >> 2;
+    if (candC >= 0 && candC < MiCols && candR >= 0 && candR < MiRows) {  // is_inside_filter_region
+      CdefAvailable = 1;
+      return *deblocked.at(plane, y, x);
+    }
+    CdefAvailable = 0;
+    return 0;
+  }
+
+  void cdef_filter(int plane, int r, int c, int priStr, int secStr, int damping, int dir) {
+    int subX = ssx(plane), subY = ssy(plane);
+    int x0 = (c * 4) >> subX, y0 = (r * 4) >> subY;
+    int w = 8 >> subX, h = 8 >> subY;
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++) {
+        int x = *deblocked.at(plane, y0 + i, x0 + j);
+        int sum = 0, mx = x, mn = x;
+        for (int k = 0; k < 2; k++)
+          for (int sign = -1; sign <= 1; sign += 2) {
+            int p = cdef_get_at(plane, x0, y0, i + sign * Cdef_Directions[dir][k][0],
+                                j + sign * Cdef_Directions[dir][k][1], subX, subY);
+            if (CdefAvailable) {
+              sum += Cdef_Pri_Taps[priStr & 1][k] * constrain(p - x, priStr, damping);
+              mx = imax(p, mx);
+              mn = imin(p, mn);
+            }
+            for (int dirOff = -2; dirOff <= 2; dirOff += 4) {
+              int d2 = (dir + dirOff) & 7;
+              int s = cdef_get_at(plane, x0, y0, i + sign * Cdef_Directions[d2][k][0],
+                                  j + sign * Cdef_Directions[d2][k][1], subX, subY);
+              if (CdefAvailable) {
+                sum += Cdef_Sec_Taps[priStr & 1][k] * constrain(s - x, secStr, damping);
+                mx = imax(s, mx);
+                mn = imin(s, mn);
+              }
+            }
+          }
+        *F.at(plane, y0 + i, x0 + j) = clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4));
+      }
+  }
+
+  // ------------------------------------------------------ loop restoration
+  // 7.17: each 4x4 (luma) unit of the frame through its restoration unit's
+  // Wiener or self-guided filter; the input is the CDEF output (F), but rows
+  // outside the 64-row stripe (offset 8 up) come from the deblocked frame
+  // before CDEF (`deblocked`); writes `lr`
+  Frame lr;
+  int StripeStartY, StripeEndY, PlaneEndX, PlaneEndY;
+
+  void loop_restoration() {
+    bool any = false;
+    for (int p = 0; p < P.NumPlanes; p++) any |= P.FrameRestorationType[p] != RESTORE_NONE;
+    if (!any) return;
+    lr = F;
+    for (int y = 0; y < P.FrameHeight; y += 4)
+      for (int x = 0; x < P.FrameWidth; x += 4)
+        for (int plane = 0; plane < P.NumPlanes; plane++)
+          if (P.FrameRestorationType[plane] != RESTORE_NONE) loop_restore_block(plane, y >> 2, x >> 2);
+    std::swap(F, lr);
+  }
+
+  void loop_restore_block(int plane, int row, int col) {
+    int lumaY = row * 4;
+    int stripeNum = (lumaY + 8) / 64;
+    int subX = ssx(plane), subY = ssy(plane);
+    StripeStartY = (-8 + stripeNum * 64) >> subY;
+    StripeEndY = StripeStartY + (64 >> subY) - 1;
+    int unitSize = P.LoopRestorationSize[plane];
+    int unitRow = imin(LrUnitRows[plane] - 1, ((row * 4 + 8) >> subY) / unitSize);
+    int unitCol = imin(LrUnitCols[plane] - 1, ((col * 4) >> subX) / unitSize);
+    PlaneEndX = round2(P.FrameWidth, subX) - 1;
+    PlaneEndY = round2(P.FrameHeight, subY) - 1;
+    int x = (col * 4) >> subX, y = (row * 4) >> subY;
+    int w = imin(4 >> subX, PlaneEndX - x + 1), h = imin(4 >> subY, PlaneEndY - y + 1);
+    size_t u = (size_t)unitRow * LrUnitCols[plane] + unitCol;
+    int type = LrType[plane][u];
+    if (type == RESTORE_WIENER) wiener_filter(plane, u, x, y, w, h);
+    else if (type == RESTORE_SGRPROJ) self_guided_filter(plane, u, x, y, w, h);
+  }
+
+  int get_source_sample(int plane, int x, int y) {
+    x = imax(0, imin(PlaneEndX, x));
+    y = imax(0, imin(PlaneEndY, y));
+    if (y < StripeStartY) return *deblocked.at(plane, imax(StripeStartY - 2, y), x);
+    if (y > StripeEndY) return *deblocked.at(plane, imin(StripeEndY + 2, y), x);
+    return *F.at(plane, y, x);
+  }
+
+  void wiener_filter(int plane, size_t u, int x, int y, int w, int h) {
+    const int round0 = 3, round1 = 11;  // InterRound0 / 1 at 8 bits, not compound
+    int vfilter[7], hfilter[7];
+    for (int pass = 0; pass < 2; pass++) {
+      int* f = pass == 0 ? vfilter : hfilter;
+      f[3] = 128;
+      for (int i = 0; i < 3; i++) {
+        int c = LrWiener[plane][u * 6 + pass * 3 + i];
+        f[i] = f[6 - i] = c;
+        f[3] -= 2 * c;
+      }
+    }
+    int offset = 1 << (8 + 7 - round0 - 1), limit = (1 << (8 + 1 + 7 - round0)) - 1;
+    int inter[10][4];
+    for (int r = 0; r < h + 6; r++)
+      for (int c = 0; c < w; c++) {
+        int s = 0;
+        for (int t = 0; t < 7; t++) s += hfilter[t] * get_source_sample(plane, x + c + t - 3, y + r - 3);
+        inter[r][c] = clip3(-offset, limit - offset, round2(s, round0));
+      }
+    for (int r = 0; r < h; r++)
+      for (int c = 0; c < w; c++) {
+        int s = 0;
+        for (int t = 0; t < 7; t++) s += vfilter[t] * inter[r + t][c];
+        *lr.at(plane, y + r, x + c) = clip1(round2(s, round1));
+      }
+  }
+
+  void box_filter(int plane, int x, int y, int w, int h, int set, int pass, int flt[4][4]) {
+    int r = Sgr_Params[set][pass * 2], s = Sgr_Params[set][pass * 2 + 1];  // the scale, from eps
+    int n = (2 * r + 1) * (2 * r + 1);
+    int oneOverN = ((1 << 12) + (n / 2)) / n;
+    int A[6][6], B[6][6];
+    for (int i = -1; i < h + 1; i++)
+      for (int j = -1; j < w + 1; j++) {
+        int64_t a = 0;
+        int b = 0;
+        for (int dy = -r; dy <= r; dy++)
+          for (int dx = -r; dx <= r; dx++) {
+            int c = get_source_sample(plane, x + j + dx, y + i + dy);
+            a += c * c;
+            b += c;
+          }
+        int64_t p = std::max<int64_t>(0, a * n - (int64_t)b * b);
+        int z = round2(p * s, 20);
+        int a2 = z >= 255 ? 256 : z == 0 ? 1 : ((z << 8) + (z / 2)) / (z + 1);
+        int64_t b2 = (int64_t)((1 << 8) - a2) * b * oneOverN;
+        A[i + 1][j + 1] = a2;
+        B[i + 1][j + 1] = round2(b2, 12);
+      }
+    for (int i = 0; i < h; i++) {
+      int shift = (pass == 0 && (i & 1)) ? 4 : 5;
+      for (int j = 0; j < w; j++) {
+        int a = 0, b = 0;
+        for (int dy = -1; dy <= 1; dy++)
+          for (int dx = -1; dx <= 1; dx++) {
+            int weight;
+            if (pass == 0) weight = ((i + dy) & 1) ? (dx == 0 ? 6 : 5) : 0;
+            else weight = (dx == 0 || dy == 0) ? 4 : 3;
+            a += weight * A[i + dy + 1][j + dx + 1];
+            b += weight * B[i + dy + 1][j + dx + 1];
+          }
+        int v = a * *F.at(plane, y + i, x + j) + b;
+        flt[i][j] = round2(v, 8 + shift - 4);
+      }
+    }
+  }
+
+  void self_guided_filter(int plane, size_t u, int x, int y, int w, int h) {
+    int set = LrSgrSet[plane][u];
+    int flt0[4][4], flt1[4][4];
+    int r0 = Sgr_Params[set][0], r1 = Sgr_Params[set][2];
+    if (r0) box_filter(plane, x, y, w, h, set, 0, flt0);
+    if (r1) box_filter(plane, x, y, w, h, set, 1, flt1);
+    int w0 = LrSgrXqd[plane][u * 2], w1 = LrSgrXqd[plane][u * 2 + 1];
+    int w2 = (1 << 7) - w0 - w1;
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++) {
+        int uu = *F.at(plane, y + i, x + j) << 4;
+        int v = w1 * uu;
+        v += w0 * (r0 ? flt0[i][j] : uu);
+        v += w2 * (r1 ? flt1[i][j] : uu);
+        *lr.at(plane, y + i, x + j) = clip1(round2(v, 4 + 7));
+      }
+  }
+
   // --------------------------------------------------------------- tile
   void clear_block_decoded_flags(int r, int c, int sbSize4) {
-    for (int plane = 0; plane < 3; plane++) {
-      int ss = plane > 0;
-      int sbWidth4 = (MiColEnd - c) >> ss, sbHeight4 = (MiRowEnd - r) >> ss;
-      for (int y = -1; y <= (sbSize4 >> ss); y++)
-        for (int x = -1; x <= (sbSize4 >> ss); x++) {
+    for (int plane = 0; plane < P.NumPlanes; plane++) {
+      int sx = ssx(plane), sy = ssy(plane);
+      int sbWidth4 = (MiColEnd - c) >> sx, sbHeight4 = (MiRowEnd - r) >> sy;
+      for (int y = -1; y <= (sbSize4 >> sy); y++)
+        for (int x = -1; x <= (sbSize4 >> sx); x++) {
           uint8_t v;
           if (y < 0 && x < sbWidth4) v = 1;
           else if (x < 0 && y < sbHeight4) v = 1;
           else v = 0;
           BlockDecoded[plane][y + 1][x + 1] = v;
         }
-      BlockDecoded[plane][(sbSize4 >> ss) + 1][0] = 0;
+      BlockDecoded[plane][(sbSize4 >> sy) + 1][0] = 0;
     }
   }
 
@@ -2177,6 +2543,10 @@ struct Decoder {
     for (int p = 0; p < 3; p++) {
       std::fill(AboveLevelContext[p].begin(), AboveLevelContext[p].end(), 0);
       std::fill(AboveDcContext[p].begin(), AboveDcContext[p].end(), 0);
+      for (int pass = 0; pass < 2; pass++) {
+        RefSgrXqd[p][pass] = Sgrproj_Xqd_Mid[pass];
+        for (int i = 0; i < 3; i++) RefLrWiener[p][pass][i] = Wiener_Taps_Mid[i];
+      }
     }
     int sbSize = P.use_128 ? BLOCK_128X128 : BLOCK_64X64;
     int sbSize4 = bw4(sbSize);
@@ -2189,6 +2559,7 @@ struct Decoder {
         for (int y = r; y < r + sbSize4; y += 16)
           for (int x = c; x < c + sbSize4; x += 16) CdefIdx[mi(y, x)] = -1;
         clear_block_decoded_flags(r, c, sbSize4);
+        read_lr(r, c, sbSize);
         decode_partition(r, c, sbSize);
         if (failed) return;
       }
@@ -2216,20 +2587,29 @@ struct Decoder {
     MvCol.assign(nmi, 0);
     CdefIdx.assign(nmi, -1);
     for (int p = 0; p < 3; p++) {
-      int ss = p > 0;
-      lfStride[p] = (MiStride >> ss) + 40;
-      LfTxSizes[p].assign((size_t)((MiRows + 40) >> ss) * lfStride[p] + 64, 0);
+      lfStride[p] = (MiStride >> ssx(p)) + 40;
+      LfTxSizes[p].assign((size_t)((MiRows + 40) >> ssy(p)) * lfStride[p] + 64, 0);
       AboveLevelContext[p].assign(MiStride + 64, 0);
       AboveDcContext[p].assign(MiStride + 64, 0);
       LeftLevelContext[p].assign(MiRows + 104, 0);
       LeftDcContext[p].assign(MiRows + 104, 0);
     }
     int padW = (MiCols * 4 + 255) & ~127, padH = (MiRows * 4 + 255) & ~127;
-    for (int p = 0; p < 3; p++) {
-      int ss = p > 0;
-      F.stride[p] = padW >> ss;
-      F.ph[p] = padH >> ss;
+    for (int p = 0; p < P.NumPlanes; p++) {
+      F.stride[p] = padW >> ssx(p);
+      F.ph[p] = padH >> ssy(p);
       F.p[p].assign((size_t)F.stride[p] * F.ph[p], 0);
+    }
+    for (int p = 0; p < P.NumPlanes; p++) {
+      if (P.FrameRestorationType[p] == RESTORE_NONE) continue;
+      int unitSize = P.LoopRestorationSize[p];
+      LrUnitRows[p] = count_units_in_frame(unitSize, round2(P.FrameHeight, ssy(p)));
+      LrUnitCols[p] = count_units_in_frame(unitSize, round2(P.FrameWidth, ssx(p)));
+      size_t n = (size_t)LrUnitRows[p] * LrUnitCols[p];
+      LrType[p].assign(n, RESTORE_NONE);
+      LrSgrSet[p].assign(n, 0);
+      LrWiener[p].assign(n * 6, 0);
+      LrSgrXqd[p].assign(n * 2, 0);
     }
     build_scans();
     if (ntiles != P.TileCols * P.TileRows) { fail("tile count mismatch"); return 1; }
@@ -2242,13 +2622,16 @@ struct Decoder {
       decode_tile(data + tiles[2 * t], tiles[2 * t + 1]);
     }
     if (failed) return 1;
-    if (!P.allow_intrabc && !Lossless) loop_filter();
-    int W = P.FrameWidth, H = P.FrameHeight;
-    for (int y = 0; y < H; y++) memcpy(oy + (size_t)y * W, F.at(0, y, 0), W);
-    int cw = (W + 1) >> 1, ch = (H + 1) >> 1;
-    for (int y = 0; y < ch; y++) {
-      memcpy(ou + (size_t)y * cw, F.at(1, y, 0), cw);
-      memcpy(ov + (size_t)y * cw, F.at(2, y, 0), cw);
+    if (!P.allow_intrabc && !Lossless) {
+      loop_filter();
+      deblocked = F;  // CDEF's input, and loop restoration's outside its stripe
+      cdef();
+      loop_restoration();
+    }
+    uint8_t* out[3] = {oy, ou, ov};
+    for (int p = 0; p < P.NumPlanes; p++) {
+      int pw = (P.FrameWidth + ssx(p)) >> ssx(p), ph = (P.FrameHeight + ssy(p)) >> ssy(p);
+      for (int y = 0; y < ph; y++) memcpy(out[p] + (size_t)y * pw, F.at(p, y, 0), pw);
     }
     return 0;
   }
@@ -2262,8 +2645,9 @@ extern "C" {
 int av1_param_count(void) { return (int)(sizeof(Params) / sizeof(int32_t)); }
 
 // Decode one frame: `params` (Params, in order), the tiles' bytes in `data`
-// at (offset, size) pairs `tiles`, into Y (H x W) and U, V ((H + 1) / 2 x
-// (W + 1) / 2). Returns 0, or 1 with the reason in `err`.
+// at (offset, size) pairs `tiles`, into Y (H x W) and U, V ((H + ssy) >> ssy
+// x (W + ssx) >> ssx each; not written for a monochrome frame, where they
+// may be null). Returns 0, or 1 with the reason in `err`.
 int av1_decode_frame(const int32_t* params, const uint8_t* data, const int64_t* tiles, int ntiles, uint8_t* y,
                      uint8_t* u, uint8_t* v, char* err, int errlen) {
   Decoder* d = new Decoder();

@@ -6,14 +6,14 @@ tile groups' tile offsets and sizes, then the tile decode in C++
 
 `decode(obus)` takes the OBUs of an AVIF item (`[TD], SEQ, FRAME` as aom
 writes them, or a frame header and tile groups) and returns the 8-bit
-Y / U / V planes of the frame and the colour description of the sequence
-header. What step 1 of the port does not decode raises NotImplementedError
-naming the tool and ROADMAP A.1: high bit depth, profiles 1 and 2,
-monochrome, 4:4:4 / 4:2:2, a frame that uses CDEF (non-zero strengths) or
-loop restoration, superres, film grain, quantizer matrices, segmentation,
-delta q / delta lf, frames that are not key or intra-only frames, and
-large-scale tiles. There is no Python tile decoder: under
-OPTIX_TPU_NO_NATIVE=1 the decode raises naming the switch."""
+Y / U / V planes of the frame (4:2:0, 4:2:2, 4:4:4; U and V None for a
+monochrome frame) and the sequence header; the frame's CDEF and loop
+restoration parameters go to the native decoder with the rest. What the
+port does not decode yet raises NotImplementedError naming the tool and
+ROADMAP A.1 (AVIF step 3): high bit depth, superres, film grain,
+quantizer matrices, segmentation, delta q / delta lf, frames that are not
+key or intra-only frames, and large-scale tiles. There is no Python tile
+decoder: under OPTIX_TPU_NO_NATIVE=1 the decode raises naming the switch."""
 from __future__ import annotations
 
 import ctypes
@@ -26,11 +26,13 @@ from ._common import DecodeError, unported
 OBU_SEQUENCE_HEADER, OBU_TEMPORAL_DELIMITER, OBU_FRAME_HEADER, OBU_TILE_GROUP = 1, 2, 3, 4
 OBU_FRAME, OBU_TILE_LIST = 6, 8  # the others (metadata, padding, ...) are skipped
 KEY_FRAME, INTRA_ONLY_FRAME = 0, 2
+RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE = 0, 1, 2, 3
+REMAP_LR_TYPE = (RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER, RESTORE_SGRPROJ)
 SELECT = 2  # SELECT_SCREEN_CONTENT_TOOLS / SELECT_INTEGER_MV
 
 
 def unsupported(what: str) -> NotImplementedError:
-    """A variant of AVIF that step 1 does not decode ("AVIF of 10-bit AV1")."""
+    """A variant of AVIF that the port does not decode ("AVIF of 10-bit AV1")."""
     return unported(f"AVIF of {what}")
 
 
@@ -224,15 +226,12 @@ def sequence_header(payload: bytes) -> dict:
 
 
 def check_sequence(s: dict) -> None:
-    """Raise A.1 for what step 1 does not decode."""
+    """Raise A.1 for what the port does not decode: high bit depth, a
+    profile above 2 (reserved) and film grain."""
     if s["bit_depth"] != 8:
         raise unsupported(f"{s['bit_depth']}-bit AV1")
-    if s["mono"]:
-        raise unsupported("monochrome AV1")
-    if s["ss"] != (1, 1):
-        raise unsupported("4:4:4 AV1" if s["ss"] == (0, 0) else "4:2:2 AV1")
-    if s["profile"] != 0:
-        raise unsupported(f"AV1 profile {s['profile']}")
+    if s["profile"] > 2:
+        raise DecodeError(f"Failed to decode frame 0: AV1 profile {s['profile']}")
     if s["film_grain_params_present"]:
         raise unsupported("AV1 film grain")
 
@@ -309,9 +308,11 @@ def frame_header(b: Bits, s: dict) -> dict:
     def delta_q():
         return b.su(7) if b.f(1) else 0
     h["dq_y_dc"] = delta_q()
-    diff_uv = b.f(1) if s["separate_uv_delta_q"] else 0
-    h["dq_u_dc"], h["dq_u_ac"] = delta_q(), delta_q()
-    h["dq_v_dc"], h["dq_v_ac"] = (delta_q(), delta_q()) if diff_uv else (h["dq_u_dc"], h["dq_u_ac"])
+    h["dq_u_dc"] = h["dq_u_ac"] = h["dq_v_dc"] = h["dq_v_ac"] = 0
+    if not s["mono"]:
+        diff_uv = b.f(1) if s["separate_uv_delta_q"] else 0
+        h["dq_u_dc"], h["dq_u_ac"] = delta_q(), delta_q()
+        h["dq_v_dc"], h["dq_v_ac"] = (delta_q(), delta_q()) if diff_uv else (h["dq_u_dc"], h["dq_u_ac"])
     if b.f(1):
         raise unsupported("AV1 quantizer matrices")
     if b.f(1):
@@ -327,7 +328,7 @@ def frame_header(b: Bits, s: dict) -> dict:
     h["lf_mode_deltas"] = [0, 0]
     if not (coded_lossless or h["allow_intrabc"]):
         h["lf_level"][0], h["lf_level"][1] = b.f(6), b.f(6)
-        if h["lf_level"][0] or h["lf_level"][1]:
+        if not s["mono"] and (h["lf_level"][0] or h["lf_level"][1]):
             h["lf_level"][2], h["lf_level"][3] = b.f(6), b.f(6)
         h["lf_sharpness"] = b.f(3)
         h["lf_delta_enabled"] = b.f(1)
@@ -338,21 +339,31 @@ def frame_header(b: Bits, s: dict) -> dict:
             for i in range(2):
                 if b.f(1):
                     h["lf_mode_deltas"][i] = b.su(7)
-    # cdef_params
-    h["cdef_bits"] = 0
-    h["enable_cdef"] = 0
+    # cdef_params: strengths per index, a secondary strength of 3 meaning 4
+    h["cdef_bits"], h["enable_cdef"], h["cdef_damping"] = 0, 0, 3
+    h["cdef_strengths"] = [[0] * 8 for _ in range(4)]  # y pri, y sec, uv pri, uv sec
     if not (coded_lossless or h["allow_intrabc"]) and s["enable_cdef"]:
         h["enable_cdef"] = 1
-        b.f(2)  # cdef_damping_minus_3
+        h["cdef_damping"] = b.f(2) + 3
         h["cdef_bits"] = b.f(2)
-        strengths = [b.f(6) for _ in range(2 << h["cdef_bits"])]  # y pri+sec, uv pri+sec
-        if any(strengths):
-            raise unsupported("AV1 CDEF")
+        for i in range(1 << h["cdef_bits"]):
+            for k in range(2 if s["mono"] else 4):
+                v = b.f(4 if k % 2 == 0 else 2)
+                h["cdef_strengths"][k][i] = 4 if k % 2 and v == 3 else v
     # lr_params
+    h["lr_type"], h["lr_size"] = [RESTORE_NONE] * 3, [0] * 3
     if not (coded_lossless or h["allow_intrabc"]) and s["enable_restoration"]:
-        types = [b.f(2) for _ in range(3)]
-        if any(types):
-            raise unsupported("AV1 loop restoration")
+        planes = 1 if s["mono"] else 3
+        h["lr_type"][:planes] = [REMAP_LR_TYPE[b.f(2)] for _ in range(planes)]
+        if any(h["lr_type"]):
+            shift = b.f(1)
+            if s["use_128"]:
+                shift += 1
+            elif shift:
+                shift += b.f(1)
+            size = 256 >> (2 - shift)
+            uv_shift = b.f(1) if s["ss"] == (1, 1) and any(h["lr_type"][1:]) else 0
+            h["lr_size"] = [size, size >> uv_shift, size >> uv_shift]
     # read_tx_mode
     h["tx_mode"] = 0 if coded_lossless else (2 if b.f(1) else 1)
     h["reduced_tx_set"] = b.f(1)
@@ -462,12 +473,15 @@ def _params(s: dict, h: dict) -> np.ndarray:
             *h["lf_level"], h["lf_sharpness"], h["lf_delta_enabled"], *h["lf_ref_deltas"], *h["lf_mode_deltas"],
             h["enable_cdef"], h["cdef_bits"], len(cols) - 1, len(rows) - 1]
     vals += cols + [0] * (65 - len(cols)) + rows + [0] * (65 - len(rows))
+    vals += [*s["ss"], 1 if s["mono"] else 3, h["cdef_damping"], *sum(h["cdef_strengths"], []), *h["lr_type"],
+             *h["lr_size"]]
     return np.array(vals, np.int32)
 
 
-def decode(data: bytes) -> tuple[np.ndarray, np.ndarray, np.ndarray, dict]:
-    """The OBUs of one AV1 still -> (Y (H, W), U, V ((H + 1) // 2,
-    (W + 1) // 2), uint8; the sequence header)."""
+def decode(data: bytes):
+    """The OBUs of one AV1 still -> (Y (H, W), U, V ((H + ssy) >> ssy,
+    (W + ssx) >> ssx), uint8, or None for a monochrome frame; the sequence
+    header)."""
     seq, hdr, tiles = None, None, []
     for kind, payload in split_obus(data):
         if kind == OBU_SEQUENCE_HEADER:
@@ -506,14 +520,18 @@ def decode(data: bytes) -> tuple[np.ndarray, np.ndarray, np.ndarray, dict]:
         at += size
     offs = np.array(offsets, np.int64)
     w, h = hdr["width"], hdr["height"]
+    sx, sy = seq["ss"]
     y = np.zeros((h, w), np.uint8)
-    u = np.zeros(((h + 1) // 2, (w + 1) // 2), np.uint8)
-    v = np.zeros_like(u)
-    err = ctypes.create_string_buffer(256)
+    u = v = None
     ptr = ctypes.POINTER(ctypes.c_uint8)
+    uv = [None, None]
+    if not seq["mono"]:
+        u = np.zeros(((h + sy) >> sy, (w + sx) >> sx), np.uint8)
+        v = np.zeros_like(u)
+        uv = [u.ctypes.data_as(ptr), v.ctypes.data_as(ptr)]
+    err = ctypes.create_string_buffer(256)
     rc = fn(params.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), blob,
-            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(tiles), y.ctypes.data_as(ptr),
-            u.ctypes.data_as(ptr), v.ctypes.data_as(ptr), err, 256)
+            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(tiles), y.ctypes.data_as(ptr), *uv, err, 256)
     if rc:
         raise DecodeError(f"Failed to decode frame 0: {err.value.decode()}")
     return y, u, v, seq

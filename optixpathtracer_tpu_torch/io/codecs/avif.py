@@ -1,6 +1,7 @@
 """AVIF, as PIL 12 reads it through libavif 1.3: the HEIF / ISOBMFF
-container, the primary item's AV1 still through codecs/av1_obu.py and the
-native tile decoder, then libavif's YUV -> RGB (codecs/avif_yuv.py).
+container, the primary item's AV1 still (4:2:0, 4:2:2, 4:4:4 or 4:0:0)
+through codecs/av1_obu.py and the native tile decoder, then libavif's
+YUV -> RGB (codecs/avif_yuv.py).
 
 The container: `ftyp` (libavif's brand rules: the file is AVIF when the
 major or a compatible brand is `avif` or `avis`; otherwise PIL's plugin
@@ -23,19 +24,34 @@ UnidentifiedImageError); a primary item that is missing or not `av01` ->
 "Failed to decode image: Missing or empty image item"; cut or corrupt data
 -> "Failed to decode frame 0: ...". The port keeps its own
 `DecodeError` (ValueError + OSError) for the last two where PIL raises
-RuntimeError and SyntaxError (ROADMAP C.14). An alpha auxiliary item,
-a `grid` item and image sequences raise NotImplementedError naming the
-variant and ROADMAP A.1 (AVIF step 2)."""
+RuntimeError and SyntaxError (ROADMAP C.14). A `grid` item and image
+sequences raise NotImplementedError naming the variant and ROADMAP A.1
+(AVIF step 3).
+
+Alpha: an av01 item with an `auxl` reference to the primary item and the
+alpha URN in its `auxC` is decoded with the same decoder (libaom writes it
+as a full-range monochrome still) and its Y plane is the alpha. PIL's
+`convert("RGB")` drops alpha, so straight alpha leaves the colour as it
+decodes; with a `prem` reference from the colour item to the alpha item
+(PIL's `alpha_premultiplied=True`) libavif un-premultiplies the colour by
+the alpha before PIL sees it, and so does the port (avif_yuv.unpremultiply).
+libavif ignores an alpha item without data (but fails on one cut short),
+as the port does, and scales
+an alpha plane of another size than the colour's to it: with straight
+alpha that changes nothing PIL returns; premultiplied, it raises A.1, as
+does a premultiplied alpha in limited range."""
 from __future__ import annotations
 
 import numpy as np
 
 from . import av1_obu
 from ._common import DecodeError, NotThisFormat, u16be, u32be
-from .avif_yuv import yuv420_to_rgb
+from .avif_yuv import to_rgb, unpremultiply
 
 MISSING_ITEM = "Failed to decode image: Missing or empty image item"
 TRUNCATED = "Failed to decode frame 0: Truncated data"
+ALPHA_FAILED = "Failed to decode frame 0: Decoding of alpha plane failed"
+BMFF_FAILED = "Failed to decode frame 0: BMFF parsing failed"
 TRANSFORMS = (b"clap", b"irot", b"imir")
 MUST_BE_ESSENTIAL = TRANSFORMS + (b"a1op", b"lsel")
 # the properties libavif 1.3 parses; any other marked essential makes it skip the item
@@ -191,9 +207,9 @@ def _item_data(data: bytes, m: _Meta, item_id: int) -> bytes:
         raise DecodeError(MISSING_ITEM)
     out = bytearray()
     for off, ln in extents:
-        start = lo + base + off
-        if ln == 0:  # to the end of the file (or idat)
-            ln = hi - start
+        start = lo + base + off  # an extent of length 0 is empty, as libavif reads it
+        if start > hi:
+            raise DecodeError(BMFF_FAILED)
         if start + ln > hi:
             raise DecodeError(TRUNCATED)
         out += src[start:start + ln]
@@ -216,6 +232,25 @@ def _nclx(data: bytes, m: _Meta, item_id: int):
 def parse(data: bytes):
     """An AVIF file -> (the primary item's AV1 OBUs, (matrix, full range) of
     its nclx colr or None)."""
+    obus, colour, _, _ = _parse(data)
+    return obus, colour
+
+
+def _alpha_item(meta: _Meta, data: bytes):
+    """The id of the primary item's alpha item, or None."""
+    for rk, frm, to in meta.refs:
+        if rk == b"auxl" and meta.primary in to and meta.items.get(frm) == b"av01":
+            for i, _ in meta.assoc.get(frm, []):
+                if 1 <= i <= len(meta.props):
+                    pk, ps, pe = meta.props[i - 1]
+                    if pk == b"auxC" and data[ps + 4:pe].rstrip(b"\0") in ALPHA_URNS:
+                        return frm
+    return None
+
+
+def _parse(data: bytes):
+    """-> (primary OBUs, its nclx colour or None, the alpha item's OBUs or
+    None, premultiplied)."""
     major, compat = brands(data)
     if b"avif" not in [major] + compat and b"avis" not in [major] + compat:
         raise NotThisFormat("no avif / avis brand")
@@ -253,26 +288,58 @@ def parse(data: bytes):
     for i, essential in meta.assoc.get(meta.primary, []):
         if essential and 1 <= i <= len(meta.props) and meta.props[i - 1][0] not in KNOWN_PROPERTIES:
             raise DecodeError(MISSING_ITEM)  # libavif skips an item whose essential property it does not know
-    for rk, frm, to in meta.refs:
-        if rk == b"auxl" and meta.primary in to and meta.items.get(frm) == b"av01":
-            for i, _ in meta.assoc.get(frm, []):
-                if 1 <= i <= len(meta.props):
-                    pk, ps, pe = meta.props[i - 1]
-                    if pk == b"auxC" and data[ps + 4:pe].rstrip(b"\0") in ALPHA_URNS:
-                        raise av1_obu.unsupported("alpha (RGBA)")
-    return _item_data(data, meta, meta.primary), _nclx(data, meta, meta.primary)
+    obus = _item_data(data, meta, meta.primary)
+    alpha, premultiplied = _alpha_item(meta, data), False
+    if alpha is not None:
+        try:
+            alpha_obus = _item_data(data, meta, alpha)
+        except DecodeError as e:
+            if str(e) != MISSING_ITEM:
+                raise
+            alpha_obus = None  # libavif decodes the colour alone
+        premultiplied = any(rk == b"prem" and frm == meta.primary and alpha in to for rk, frm, to in meta.refs)
+        alpha = alpha_obus
+    return obus, _nclx(data, meta, meta.primary), alpha, premultiplied
+
+
+def _decode(obus: bytes, colour):
+    """-> (Y, U, V, the sequence header, (matrix, full range)): the colour
+    of the nclx colr, else of the sequence header."""
+    y, u, v, seq = av1_obu.decode(obus)
+    return y, u, v, seq, colour if colour is not None else (seq["color"][2], seq["color_range"])
+
+
+def _decode_alpha(obus: bytes):
+    """The alpha item's OBUs -> (its Y plane, its sequence header)."""
+    try:
+        alpha, _, _, seq = av1_obu.decode(obus)
+    except DecodeError as e:
+        raise DecodeError(ALPHA_FAILED) from e
+    return alpha, seq
 
 
 def planes(data: bytes):
-    """An AVIF file -> (Y, U, V, the sequence header, (matrix, full range)):
-    the colour of the nclx colr, else of the sequence header."""
-    obus, colour = parse(data)
-    y, u, v, seq = av1_obu.decode(obus)
-    if colour is None:
-        colour = (seq["color"][2], seq["color_range"])
-    return y, u, v, seq, colour
+    """An AVIF file -> (Y, U, V (None for 4:0:0), the sequence header,
+    (matrix, full range))."""
+    return _decode(*parse(data))
+
+
+def alpha_plane(data: bytes):
+    """An AVIF file -> (its alpha plane or None, premultiplied)."""
+    _, _, obus, premultiplied = _parse(data)
+    return (None, False) if obus is None else (_decode_alpha(obus)[0], premultiplied)
 
 
 def rgb8(data: bytes) -> np.ndarray:
-    y, u, v, seq, (matrix, full) = planes(data)
-    return yuv420_to_rgb(y, u, v, matrix, full)
+    obus, colour, alpha_obus, premultiplied = _parse(data)
+    y, u, v, seq, (matrix, full) = _decode(obus, colour)
+    rgb = to_rgb(y, u, v, seq["ss"], matrix, full, rgba=alpha_obus is not None)
+    if alpha_obus is not None:
+        alpha, aseq = _decode_alpha(alpha_obus)  # decoded also when straight: it fails as libavif fails
+        if premultiplied:
+            if alpha.shape != y.shape:
+                raise av1_obu.unsupported("premultiplied alpha of another size than the colour (libavif scales it)")
+            if not aseq["color_range"]:
+                raise av1_obu.unsupported("limited-range premultiplied alpha")
+            rgb = unpremultiply(rgb, alpha)
+    return rgb

@@ -815,13 +815,15 @@ def sweep_work_hier(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullRe
     with the kernels' gates. Each node a block visits re-culls its rays still
     open (t_min < t) against 64 boxes; a ray runs a cluster its re-cull bit
     names (K4b: while not occluded), with pairs counted as in `sweep_work`.
-    A block stages a member when one of its rays runs it."""
+    A block stages a member when one of its rays runs it. The counts stay on
+    the rays' device until the walk ends (no host read a visit)."""
     best = cr.rays8[:, 7].clone()
     occ = torch.zeros(best.shape, dtype=torch.bool, device=best.device)
     tm_all, tM_all = cr.rays8[:, 6], cr.rays8[:, 7]
     dlen = _dlen(cr.rays8)
     work = [0, 0, 0, 0, 0, 0]  # pairs, visits, slab tests, lane pairs, nodes, staged
-    last = [(-1, -1)]  # the last (block, cluster) counted as staged
+    # the last (block, cluster) counted as staged, as block << 32 | cluster
+    last = [torch.full((), -1, dtype=torch.int64, device=best.device)]
 
     def bound():
         if any_hit:
@@ -836,13 +838,14 @@ def sweep_work_hier(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullRe
         go = gate & ~occ[ray_idx] if any_hit else gate
         # the pairs of one cluster column come sorted by block, and a block
         # meets a cluster once in a walk: count each (block, cluster) once,
-        # also across the chunks of one column
+        # also across the chunks of one column: a running pair is new where
+        # it differs from the running pair before it (`last` before the first)
         run = go.any(dim=1)
-        pairs = torch.stack([ray_idx[run, 0] // BLOCK, cid[run].to(torch.int64)], dim=1)
-        if pairs.shape[0]:
-            uniq = torch.unique_consecutive(pairs, dim=0)
-            work[5] += uniq.shape[0] - (tuple(uniq[0].tolist()) == last[0])
-            last[0] = tuple(uniq[-1].tolist())
+        key = (ray_idx[:, 0] // BLOCK) << 32 | cid.to(torch.int64)
+        at = torch.where(run, torch.arange(run.shape[0], device=run.device), -1).cummax(dim=0).values
+        before = torch.cat([last[0].reshape(1), torch.where(at[:-1] >= 0, key[at[:-1].clamp(min=0)], last[0])])
+        work[5] = work[5] + (run & (key != before)).sum()
+        last[0] = torch.where(at[-1] >= 0, key[at[-1].clamp(min=0)], last[0])
         _run_visit(work, go, *_mt_t(det, up, vp, tp), tm, tM, ray_idx, best, occ, c, any_hit)
 
     tcur_of = (lambda: torch.where(occ, tm_all, tM_all)) if any_hit else (lambda: best)

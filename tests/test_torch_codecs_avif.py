@@ -1,4 +1,4 @@
-"""Port parity, AVIF step 1 (io/codecs/avif.py, av1_obu.py, avif_yuv.py and
+"""Port parity, AVIF (io/codecs/avif.py, av1_obu.py, avif_yuv.py and
 csrc/host/av1_dec.cpp): the container, the headers, what PIL refuses, the
 variants that raise A.1, and the native switch.
 
@@ -13,9 +13,11 @@ variants that raise A.1, and the native switch.
   UnidentifiedImageError); a primary item of type hvc1 and a file cut 40
   bytes short fail with PIL's reason (the port's DecodeError, where PIL
   raises RuntimeError and SyntaxError).
-- A.1 for the step-2 variants, naming the variant: 4:4:4, alpha, loop
-  restoration (tests/torch_fixtures/avif_raises/), and 10-bit, monochrome
-  and film grain by flipping their bits in a sequence header.
+- A.1 for the step-3 variants, naming the variant: film grain, quantizer
+  matrices and a `grid` item (tests/torch_fixtures/avif_raises/), and
+  10-bit and film grain by flipping their bits in a sequence header; the
+  monochrome bit, which once raised here too, now names a layout the port
+  decodes (a PIL 4:0:0 still decodes as PIL decodes it).
 - OPTIX_TPU_NO_NATIVE=1 raises naming the switch (there is no Python tile
   decoder); a failed build raises.
 - The native inverse DCT (4-64 points, one generic butterfly network) and
@@ -232,7 +234,7 @@ def test_headers(name, use_128, tiles, q):
 
 @pytest.mark.parametrize("name", sorted(RAISES))
 def test_refused_files_fail_as_expected(name):
-    """The step-2 variants (PIL reads them) raise A.1 naming the variant;
+    """The step-3 variants (PIL reads them) raise A.1 naming the variant;
     the C.14 files fail as PIL fails: no format, or PIL's reason."""
     with open(os.path.join(AVIF_RAISES, name), "rb") as f:
         data = f.read()
@@ -281,8 +283,19 @@ def _flip_sequence_bit(data: bytes, offset_from_color_config: int) -> bytes:
 
 @pytest.mark.parametrize("offset,variant", [(0, "10-bit AV1"), (1, "monochrome AV1")])
 def test_step2_sequence_variants_raise_a1(offset, variant):
-    with pytest.raises(NotImplementedError, match=f"AVIF of {variant}.*ROADMAP A.1"):
-        codecs.rgb8(_flip_sequence_bit(_fixture("avif_37x23.avif"), offset))
+    """10-bit still raises A.1 (AVIF step 3). Monochrome, once a step-2 gap
+    here, is decoded now: the flipped bit gives a monochrome header that
+    the port parses (no A.1), and a 4:0:0 still PIL writes decodes as PIL
+    decodes it."""
+    flipped = _flip_sequence_bit(_fixture("avif_37x23.avif"), offset)
+    if variant == "10-bit AV1":
+        with pytest.raises(NotImplementedError, match=f"AVIF of {variant}.*ROADMAP A.1"):
+            codecs.rgb8(flipped)
+        return
+    obus, _ = avif.parse(flipped)
+    assert av1_obu.sequence_header(av1_obu.split_obus(obus)[1][1])["mono"] == 1
+    grey = pil_bytes(photo(23, 37, 5), "AVIF", subsampling="4:0:0")
+    np.testing.assert_array_equal(codecs.rgb8(grey), pil_rgb(grey))
 
 
 def test_film_grain_raises_a1():
@@ -302,6 +315,29 @@ def test_film_grain_raises_a1():
     start = data.index(payload)
     with pytest.raises(NotImplementedError, match="AVIF of AV1 film grain.*ROADMAP A.1"):
         codecs.rgb8(data[:start] + bytes(edited) + data[start + len(payload):])
+
+
+@pytest.mark.parametrize("where", ["starts_past_the_end", "runs_past_the_end", "empty"])
+def test_item_extent_off_the_file_fails_as_libavif(where):
+    """The primary item's iloc extent starting past the end of the file, or
+    running past it, or of length 0 (empty, not "to the end"): each fails
+    with libavif's reason, as PIL fails (ROADMAP C.14: the port's
+    DecodeError where PIL raises SyntaxError / RuntimeError)."""
+    data = _fixture("avif_37x23.avif")
+    i = data.index(b"iloc") + 4
+    assert data[i] == 0 and data[i + 4:i + 6] == b"\x44\x00" and data[i + 6:i + 8] == b"\x00\x01"
+    at = i + 8  # the one item's entry: id, data reference, extent count, offset, length
+    offset, length = int.from_bytes(data[at + 6:at + 10], "big"), int.from_bytes(data[at + 10:at + 14], "big")
+    value = {"starts_past_the_end": (at + 6, len(data) + 5), "runs_past_the_end": (at + 10, length + 10),
+             "empty": (at + 10, 0)}[where]
+    data = data[:value[0]] + value[1].to_bytes(4, "big") + data[value[0] + 4:]
+    with pytest.raises(Exception) as pil_error:
+        pil_rgb(data)
+    with pytest.raises(codecs.DecodeError) as got:
+        codecs.rgb8(data)
+    assert str(got.value) == str(pil_error.value) == {
+        "starts_past_the_end": avif.BMFF_FAILED, "runs_past_the_end": avif.TRUNCATED, "empty": avif.MISSING_ITEM}[where]
+    assert offset + length <= len(data)
 
 
 def test_unsupported_matrix_raises_a1():

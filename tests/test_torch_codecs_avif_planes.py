@@ -1,14 +1,19 @@
-"""Port parity, the AV1 decode of AVIF step 1 before any colour conversion:
-the Y / U / V planes of the port's native tile decoder
-(csrc/host/av1_dec.cpp through io/codecs/av1_obu.py) equal to dav1d's, as
-PIL's bundled libavif returns them (`avifDecoderReadMemory` through ctypes,
-tests/torch_avif_oracle.py), plane for plane and sample for sample.
+"""Port parity, the AV1 decode of AVIF before any colour conversion: the
+Y / U / V planes of the port's native tile decoder (csrc/host/av1_dec.cpp
+through io/codecs/av1_obu.py) equal to dav1d's, as PIL's bundled libavif
+returns them (`avifDecoderReadMemory` through ctypes,
+tests/torch_avif_oracle.py), plane for plane and sample for sample, in
+every chroma layout (4:2:0, 4:2:2, 4:4:4; Y alone for 4:0:0), and the
+alpha item's plane equal to libavif's alpha plane.
 
 Every AVIF fixture (the four quantizer buckets and lossless, speeds 0 / 5 /
 6 / 10, one and 2 x 2 tiles, 64 and 128 superblocks, odd sizes, both
-ranges, the loft with palette and IntraBC), and seeded stills of aom's
-screen-content paths (palette, IntraBC over repeated tiles, odd sizes at
-the frame edge) written here. Skips where PIL ships no libavif.
+ranges, the loft with palette and IntraBC; AVIF step 2's layouts, straight
+and premultiplied alpha, loop restoration at speeds 0 / 2 / 4, CDEF in
+three layouts, both filters on 128 superblocks, the loft's sixth set), and
+seeded stills of aom's screen-content paths (palette, IntraBC over repeated
+tiles, odd sizes at the frame edge) written here. Skips where PIL ships no
+libavif.
 """
 import io
 import json
@@ -28,13 +33,24 @@ with open(MANIFEST) as f:
     AVIF_FIXTURES = sorted(n for n in json.load(f) if n.endswith(".avif"))
 
 
+# libavif's yuvFormat of each sequence header layout: 4:4:4, 4:2:2, 4:2:0
+LAYOUT = {(0, 0): 1, (1, 0): 2, (1, 1): 3}
+
+
 def _assert_planes_equal(data: bytes) -> None:
     (w, h, depth, fmt, full), want = oracle.planes(data)
     y, u, v, seq, colour = avif.planes(data)
-    assert (depth, fmt) == (8, 3) and y.shape == (h, w)
+    assert depth == 8 and fmt == (4 if seq["mono"] else LAYOUT[seq["ss"]]) and y.shape == (h, w)
     assert colour[1] == full
-    for got, ref in zip((y, u, v), want):
-        np.testing.assert_array_equal(got, ref)
+    got = [y] if seq["mono"] else [y, u, v]
+    assert len(got) == len(want)
+    for g, ref in zip(got, want):
+        np.testing.assert_array_equal(g, ref)
+    want_alpha, want_premultiplied = oracle.alpha(data)
+    alpha, premultiplied = avif.alpha_plane(data)
+    assert (alpha is None) == (want_alpha is None) and premultiplied == bool(want_premultiplied)
+    if alpha is not None:
+        np.testing.assert_array_equal(alpha, want_alpha)
 
 
 @pytest.mark.parametrize("name", AVIF_FIXTURES)

@@ -1,10 +1,12 @@
-"""Port parity, AVIF step 1 end to end: every AVIF fixture decoded by the
-port equal to PIL's `convert("RGB")` and to the JAX package's `load_image`
-bit for bit; and io/codecs/avif_yuv.py (libavif 1.3 through libyuv: the
+"""Port parity, AVIF end to end: every AVIF fixture (steps 1 and 2: every
+layout, alpha, CDEF, loop restoration) decoded by the port equal to PIL's
+`convert("RGB")` and to the JAX package's `load_image` bit for bit; and
+io/codecs/avif_yuv.py's 4:2:0 path (libavif 1.3 through libyuv: the
 bilinear 2x chroma upsampling, the fixed-point YuvConstants) equal to
 libavif's own `avifImageYUVToRGB` with PIL's settings, on seeded planes of
 odd and even sizes, for BT.601 (matrix 6, 5 and unspecified), BT.709 and
-BT.2020 in full and limited range. The oracle is PIL's bundled libavif
+BT.2020 in full and limited range (the other layouts:
+test_torch_codecs_avif_options.py). The oracle is PIL's bundled libavif
 through ctypes (tests/torch_avif_oracle.py); those cases skip where PIL
 ships none.
 """

@@ -3,8 +3,9 @@
 tests/torch_fixtures/gen_av1_tables.py reads out of the read-only data of
 PIL's bundled libavif (libaom's and dav1d's default CDFs, quantizer
 lookups, directional derivatives, smooth weights, filter-intra taps and
-the DCT / ADST constants), and the first row of each table, with a few
-more rows, equals the values the AV1 specification prints. The comparison
+the DCT / ADST constants, CDEF's and loop restoration's tables), and the
+first row of each table, with a few more rows, equals the values the AV1
+specification prints. The comparison
 with the library skips where PIL ships no libavif.
 """
 import re
@@ -74,6 +75,23 @@ FIRST_ROWS = {
     "Default_Coeff_Br_Cdf": [14298, 20718, 24174],
     "Dr_Intra_Derivative": [0, 0, 0, 1023, 0, 0, 547, 0, 0, 372, 0, 0, 0, 0, 273, 0, 0, 215],
     "Filter_Intra_Taps": [-6, 10, 0, 0, 0, 12, 0],
+    # loop restoration and CDEF (7.15, 7.17)
+    "Default_Restoration_Type_Cdf": [9413, 22581],
+    "Default_Use_Wiener_Cdf": [11570],
+    "Default_Use_Sgrproj_Cdf": [16855],
+    "Sgr_Params": [2, 140, 1, 3236, 2, 112, 1, 2158],
+    "Div_Table": [0, 840, 420, 280, 210, 168, 140, 120, 105],
+    "Cdef_Uv_Dir": [0, 1, 2, 3, 4, 5, 6, 7, 1, 2, 2, 2, 3, 4, 6, 0, 7, 0, 2, 4, 5, 6, 6, 6],
+    "Cdef_Directions": [-1, 1, -2, 2, 0, 1, -1, 2],
+    "Cdef_Pri_Taps": [4, 2, 3, 3],
+    "Cdef_Sec_Taps": [2, 1, 2, 1],
+    "Wiener_Taps_Min": [-5, -23, -17],
+    "Wiener_Taps_Max": [10, 8, 46],
+    "Wiener_Taps_K": [1, 2, 3],
+    "Wiener_Taps_Mid": [3, -7, 15],
+    "Sgrproj_Xqd_Min": [-96, -32],
+    "Sgrproj_Xqd_Max": [31, 95],
+    "Sgrproj_Xqd_Mid": [-32, 31],
 }
 
 
@@ -105,3 +123,7 @@ def test_rows_the_specification_prints():
     assert _table(text, "Ac_Qlookup")[-1] == 1828
     assert _table(text, "Sm_Weights")[:4] == [255, 149, 85, 64]
     assert _table(text, "Cos128_Lookup")[32] == 2896 and _table(text, "Sinpi_Lookup")[1:] == [1321, 2482, 3344, 3803]
+    # the last rows of the self-guided parameters and CDEF's directions
+    assert _table(text, "Sgr_Params")[-8:] == [2, 56, 0, -1, 2, 22, 0, -1]
+    assert _table(text, "Sgr_Params")[40:44] == [0, -1, 1, 2589]
+    assert _table(text, "Cdef_Directions")[-4:] == [1, 0, 2, -1]

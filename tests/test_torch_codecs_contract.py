@@ -2,11 +2,13 @@
 io/gltf.py, io/obj.py) against PIL and the JAX package's loaders.
 
 - NotImplementedError naming ROADMAP A.1 only for bytes PIL reads: one
-  case per variant PIL reads here and the port does not (AVIF of 4:4:4
-  AV1, AVIF step 2); the cases of the formats once unported here (BLP, IM,
-  MSP, SPIDER, XBM, ICNS, SUN, XPM, FITS, JPEG 2000, AVIF at PIL's
-  defaults) now hold the port's decode to PIL's, and a glTF that embeds a
-  4:4:4 AVIF raises A.1.
+  case per variant PIL reads here and the port does not (AVIF with
+  quantizer matrices, AVIF step 3); the cases of the formats once
+  unported here (BLP, IM, MSP, SPIDER, XBM, ICNS, SUN, XPM, FITS, JPEG
+  2000, AVIF at PIL's defaults, 4:4:4 AVIF) now hold the port's decode to
+  PIL's, and a glTF that embeds an AVIF with quantizer matrices raises
+  A.1 (one with a 4:4:4 AVIF, once the example here, loads as the JAX
+  loader loads it).
 - The formats PIL opens but cannot decode (EPS without Ghostscript, MPEG,
   HDF5, BUFR, GRIB, WMF) raise an OSError that is no NotImplementedError,
   and a glTF embedding one keeps the factor-only material in both
@@ -60,6 +62,7 @@ UNPORTED = {
     "JPEG2000": lambda: pil_bytes(photo(8, 8, 1), "JPEG2000"),
     "AVIF": lambda: pil_bytes(photo(8, 8, 1), "AVIF"),
     "AVIF_444": lambda: pil_bytes(photo(8, 8, 1), "AVIF", subsampling="4:4:4"),
+    "AVIF_QM": lambda: pil_bytes(photo(8, 8, 1), "AVIF", advanced={"enable-qm": "1"}),
     "ICNS": lambda: pil_bytes(photo(16, 16, 1, 4), "ICNS", "RGBA", sizes=[(16, 16)]),
     "SUN": lambda: _sun(photo(3, 5, 1)),
     "XPM": _xpm,
@@ -68,7 +71,7 @@ UNPORTED = {
 
 
 # what each still-unported case's NotImplementedError names
-STILL_UNPORTED = {"AVIF_444": "AVIF of 4:4:4 AV1"}
+STILL_UNPORTED = {"AVIF_QM": "AVIF of AV1 quantizer matrices"}
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
@@ -181,11 +184,13 @@ def test_gltf_keeps_the_factor_only_material(tmp_path, name):
 
 
 def test_gltf_with_unported_format_raises_a1(tmp_path):
-    path = _textured_glb(tmp_path / "avif.glb", UNPORTED["AVIF_444"]())
-    with pytest.raises(NotImplementedError, match="A.1"):
-        from optixpathtracer_tpu_torch.io import gltf as tgltf
+    from optixpathtracer_tpu_torch.io import gltf as tgltf
 
+    path = _textured_glb(tmp_path / "avif.glb", UNPORTED["AVIF_QM"]())
+    with pytest.raises(NotImplementedError, match="AVIF of AV1 quantizer matrices.*A.1"):
         tgltf.load_gltf(path)
+    got, _ = _assert_same_gltf(_textured_glb(tmp_path / "avif444.glb", UNPORTED["AVIF_444"]()))
+    assert len(got.textures) == 1  # the 4:4:4 AVIF once raised here
 
 
 @pytest.mark.parametrize("native", [True, False])

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 
 import torch_codec_encoders as enc
-from torch_codec_encoders import assert_as_pil, assert_fails_like_pil, assert_like_pil, photo, pil_bytes
+from torch_codec_encoders import assert_as_pil, assert_fails_like_pil, assert_like_pil, photo, pil_bytes, pil_rgb
 
 
 def _blp_cases():
@@ -305,12 +305,15 @@ def test_pcd(tmp_path, orientation):
 
 
 def test_unported_formats_left():
-    """AVIF at PIL's defaults and JPEG 2000 (both once A.1) decode as PIL
-    decodes them; a 4:4:4 AVIF, which PIL reads, still raises A.1 (AVIF
-    step 2)."""
+    """AVIF at PIL's defaults, a 4:4:4 AVIF and JPEG 2000 (each once A.1)
+    decode as PIL decodes them; an AVIF with quantizer matrices, which PIL
+    reads, still raises A.1 (AVIF step 3)."""
     from optixpathtracer_tpu_torch.io import image as timg
 
     assert_like_pil(pil_bytes(photo(8, 8, 1), "AVIF"))
-    with pytest.raises(NotImplementedError, match="AVIF of 4:4:4 AV1.*A.1"):
-        timg.rgb8_from_bytes(pil_bytes(photo(8, 8, 1), "AVIF", subsampling="4:4:4"))
+    assert_like_pil(pil_bytes(photo(8, 8, 1), "AVIF", subsampling="4:4:4"))
+    qm = pil_bytes(photo(8, 8, 1), "AVIF", advanced={"enable-qm": "1"})
+    assert pil_rgb(qm).shape == (8, 8, 3)
+    with pytest.raises(NotImplementedError, match="AVIF of AV1 quantizer matrices.*A.1"):
+        timg.rgb8_from_bytes(qm)
     assert_like_pil(pil_bytes(photo(8, 8, 1), "JPEG2000"))

@@ -151,9 +151,9 @@ def test_jpeg_sampling_factors(hy, vy, size):
 def test_unported_formats_raise_naming_a1():
     """What this test once held unported now decodes as PIL does (arithmetic
     and CMYK JPEG, BMP, GIF, TIFF, WebP, MSP, JPEG 2000;
-    tests/test_torch_codecs_*.py case by case) and AVIF at PIL's defaults;
-    a variant PIL reads and the port does not (a 4:4:4 AVIF) still raises
-    A.1;
+    tests/test_torch_codecs_*.py case by case) and AVIF at PIL's defaults
+    and in 4:4:4; a variant PIL reads and the port does not (an AVIF with
+    quantizer matrices) still raises A.1;
     what PIL cannot read (a 12-bit JPEG, bytes of no format) raises an
     OSError as PIL's UnidentifiedImageError is one."""
     base = _pil_jpeg(_photo(16, 16, 7), quality=75)
@@ -184,8 +184,12 @@ def test_unported_formats_raise_naming_a1():
     _assert_decodes_like_pil(buf.getvalue())
     buf = io.BytesIO()
     Image.fromarray(_photo(8, 8, 9)).save(buf, format="AVIF", subsampling="4:4:4")
+    assert _pil(buf.getvalue()).shape == (8, 8, 3)  # once unported here, now decoded as PIL decodes it
+    _assert_decodes_like_pil(buf.getvalue())
+    buf = io.BytesIO()
+    Image.fromarray(_photo(8, 8, 9)).save(buf, format="AVIF", advanced={"enable-qm": "1"})
     assert _pil(buf.getvalue()).shape == (8, 8, 3)
-    with pytest.raises(NotImplementedError, match="AVIF of 4:4:4 AV1.*A.1"):
+    with pytest.raises(NotImplementedError, match="AVIF of AV1 quantizer matrices.*A.1"):
         timg.rgb8_from_bytes(buf.getvalue())
     for data in (twelve_bit, b"no image format" + bytes(20)):
         with pytest.raises(OSError, match="cannot identify"):

@@ -220,8 +220,12 @@ def test_unported_formats_raise(tmp_path):
     np.testing.assert_array_equal(timg.rgb8_from_bytes(avif.getvalue()), _pil_rgb(avif.getvalue()))
     avif = io.BytesIO()
     Image.fromarray(np.dstack([px, px[..., :1]]), "RGBA").save(avif, format="AVIF")
+    assert _pil_rgb(avif.getvalue()).shape == (6, 8, 3)  # PIL reads it, and so does the port (once A.1)
+    np.testing.assert_array_equal(timg.rgb8_from_bytes(avif.getvalue()), _pil_rgb(avif.getvalue()))
+    avif = io.BytesIO()
+    Image.fromarray(px).save(avif, format="AVIF", advanced={"enable-qm": "1"})
     assert _pil_rgb(avif.getvalue()).shape == (6, 8, 3)  # PIL reads it
-    with pytest.raises(NotImplementedError, match="AVIF of alpha.*A.1"):
+    with pytest.raises(NotImplementedError, match="AVIF of AV1 quantizer matrices.*A.1"):
         timg.rgb8_from_bytes(avif.getvalue())
     with pytest.raises(ValueError, match="not a PNG"):
         timg.rgb8_from_png(b"GIF89a" + bytes(40))

@@ -297,8 +297,9 @@ def test_gltf_tlas_raises(tmp_path):
     """The instanced loader shares the baked loader's image decoding: a JPEG
     texture loads there too, an arithmetic-coded one as well (once a port
     gap, now decoded as PIL decodes it), an MSP, a JPEG 2000 and an AVIF at
-    PIL's defaults too (ported since), and a variant PIL reads and the port
-    does not (a 4:4:4 AVIF) is still a gap (ROADMAP A.1). (load_gltf_tlas itself is held against the JAX loader
+    PIL's defaults and in 4:4:4 too (ported since), and a variant PIL reads
+    and the port does not (an AVIF with quantizer matrices) is still a gap
+    (ROADMAP A.1). (load_gltf_tlas itself is held against the JAX loader
     in tests/test_torch_gltf_tlas.py.)"""
     px = np.random.default_rng(3).integers(0, 256, (8, 8, 3), dtype=np.uint8)
     jpeg = _png_bytes(px, format="JPEG")
@@ -314,7 +315,9 @@ def test_gltf_tlas_raises(tmp_path):
     path = _textured_glb(tmp_path / "avif.glb", _png_bytes(px, format="AVIF"))
     np.testing.assert_array_equal(tgltf.load_gltf_tlas(path)[0].textures[0], jgltf.load_gltf(path)[0].textures[0])
     path = _textured_glb(tmp_path / "avif444.glb", _png_bytes(px, format="AVIF", subsampling="4:4:4"))
-    with pytest.raises(NotImplementedError, match="AVIF of 4:4:4 AV1.*A.1"):
+    np.testing.assert_array_equal(tgltf.load_gltf_tlas(path)[0].textures[0], jgltf.load_gltf(path)[0].textures[0])
+    path = _textured_glb(tmp_path / "avif_qm.glb", _png_bytes(px, format="AVIF", advanced={"enable-qm": "1"}))
+    with pytest.raises(NotImplementedError, match="AVIF of AV1 quantizer matrices.*A.1"):
         tgltf.load_gltf_tlas(path)
 
 

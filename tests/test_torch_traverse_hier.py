@@ -245,6 +245,55 @@ def test_sweep_work_hier_stages_within_the_re_cull(soup, any_hit):
     assert work.staged <= work.nodes * tc.NODE * tc.SUPER
 
 
+def _sweep_work_hier_host_reads(rows, xf_inv, nt, cr, c, any_hit=False):
+    """`tc.sweep_work_hier` as it was before its staging count moved to the
+    device: the running (block, cluster) pairs of each visit read back to
+    the host and made unique there."""
+    best = cr.rays8[:, 7].clone()
+    occ = torch.zeros(best.shape, dtype=torch.bool, device=best.device)
+    tm_all, tM_all = cr.rays8[:, 6], cr.rays8[:, 7]
+    dlen = tc._dlen(cr.rays8)
+    work = [0, 0, 0, 0, 0, 0]
+    last = [(-1, -1)]
+
+    def bound():
+        if any_hit:
+            return torch.where(occ, 0.0, torch.clamp(tM_all * dlen, max=tc._BIG)).reshape(-1, tc.BLOCK).amax(dim=1)
+        return torch.clamp(best * dlen, max=tc._BIG).reshape(-1, tc.BLOCK).amax(dim=1)
+
+    def on_recull(rays, tcur):
+        work[2] = work[2] + (tcur > rays[:, :, 6]).sum() * (tc.NODE * tc.SUPER)
+        work[4] += rays.shape[0]
+
+    def visit(ray_idx, gate, tm, tM, det, up, vp, tp, cid):
+        go = gate & ~occ[ray_idx] if any_hit else gate
+        run = go.any(dim=1)
+        pairs = torch.stack([ray_idx[run, 0] // tc.BLOCK, cid[run].to(torch.int64)], dim=1)
+        if pairs.shape[0]:
+            uniq = torch.unique_consecutive(pairs, dim=0)
+            work[5] += uniq.shape[0] - (tuple(uniq[0].tolist()) == last[0])
+            last[0] = tuple(uniq[-1].tolist())
+        tc._run_visit(work, go, *tc._mt_t(det, up, vp, tp), tm, tM, ray_idx, best, occ, c, any_hit)
+
+    tcur_of = (lambda: torch.where(occ, tm_all, tM_all)) if any_hit else (lambda: best)
+    tc._walk_hier(rows, xf_inv, nt, cr, c, tcur_of, bound, visit, on_recull)
+    return tc.SweepWork(*(int(w) for w in work))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("seed,t_max", [(11, 14.0), (5, 1e16), (9, 4.0)])
+def test_sweep_work_hier_counts_equal_the_host_read_walk(soup, any_hit, seed, t_max):
+    """The device-side staging count equals the host-read one it replaced,
+    every count of SweepWork bit for bit."""
+    _, pcs = soup
+    _, _, to, td = _rays(N_RAYS, seed)
+    cr = tc.block_cull_nodes(pcs, to, td, 1e-2, t_max)
+    args = (pcs.rows, pcs.xf_inv, pcs.node_tables, cr, pcs.cluster_size)
+    want = _sweep_work_hier_host_reads(*args, any_hit=any_hit)
+    assert want.staged > 0
+    assert tc.sweep_work_hier(*args, any_hit=any_hit) == want
+
+
 def _hier_sweep_args(pcs, c):
     _, _, to, td = _rays(64, 7)
     cr = tc.block_cull_nodes(pcs, to, td, 1e-3, 1e16)

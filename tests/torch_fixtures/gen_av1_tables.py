@@ -1,8 +1,9 @@
 """Write optixpathtracer_tpu_torch/csrc/host/av1_tables.h: the AV1 default
 CDFs a key frame reads, the 8-bit quantizer lookups, the directional
-derivatives, the smooth weights, the filter-intra taps and the transform
-rotation constants (AV1 Bitstream & Decoding Process Specification, section
-9.3 and the tables of 7.11-7.13).
+derivatives, the smooth weights, the filter-intra taps, the transform
+rotation constants, and the tables of CDEF and loop restoration (AV1
+Bitstream & Decoding Process Specification, section 9.3 and the tables of
+7.11-7.17).
 
 The values are those of the specification. They are read here from the
 read-only data of the libavif that PIL bundles, which links libaom (each
@@ -11,8 +12,14 @@ count, a counter slot after each row) and dav1d (rows of `32768 - v`
 without the final 32768); each table is found at the offset of its first
 row and read with its published shape, and the header keeps the spec's
 own form: increasing values ending in 32768, then the adaptation counter
-(0). tests/test_torch_codecs_avif_tables.py finds every row of the header
-in the same library again.
+(0). CDEF's directions (libaom's offsets into its 144-wide buffer), its
+chroma direction remap for 4:2:2 and 4:4:0, its primary taps and
+divisors, and the self-guided filter's parameters (libaom's {r0, r1},
+{e0, e1}) are read from the library too; the few rows too short to find
+there (CDEF's secondary taps, the Wiener and self-guided coefficient
+ranges) are typed as the specification prints them.
+tests/test_torch_codecs_avif_tables.py finds every row of the header in the
+same library again, and holds the first rows to the specification.
 
 Run from the repository root: python tests/torch_fixtures/gen_av1_tables.py
 """
@@ -101,7 +108,22 @@ CDFS = [
     ("Default_Coeff_Base_Eob_Cdf", (4, 5, 2, 4), 3, (17837, 29055), 4, "aom"),
     ("Default_Coeff_Base_Cdf", (4, 5, 2, 42), 4, (4034, 8930, 12727), 5, "aom"),
     ("Default_Coeff_Br_Cdf", (4, 5, 2, 21), 4, (14298, 20718, 24174), 5, "aom"),
+    ("Default_Restoration_Type_Cdf", (), 3, (9413, 22581), 4, "dav1d"),
+    ("Default_Use_Wiener_Cdf", (), 2, None, 2, "dav1d", ("Default_Restoration_Type_Cdf", 4, "raw")),
+    ("Default_Use_Sgrproj_Cdf", (), 2, None, 2, "dav1d", ("Default_Restoration_Type_Cdf", 6, "raw")),
 ]
+# too short to locate in the library: typed from the specification
+SPEC = {
+    "Cdef_Sec_Taps": [[2, 1], [2, 1]],
+    "Wiener_Taps_Min": [-5, -23, -17],
+    "Wiener_Taps_Max": [10, 8, 46],
+    "Wiener_Taps_K": [1, 2, 3],
+    "Sgrproj_Xqd_Min": [-96, -32],
+    "Sgrproj_Xqd_Max": [31, 95],
+    "Sgrproj_Xqd_Mid": [-32, 31],
+}
+SHAPES = {"Filter_Intra_Taps": "[5][8][7]", "Sgr_Params": "[16][4]", "Cdef_Uv_Dir": "[2][2][8]",
+          "Cdef_Directions": "[8][2][2]", "Cdef_Pri_Taps": "[2][2]", "Cdef_Sec_Taps": "[2][2]"}
 
 
 def find(ro: bytes, words: np.ndarray, start: int = 0) -> int:
@@ -192,8 +214,23 @@ def scalars(ro: bytes) -> dict:
     taps = taps.reshape(5, 8, 8)[:, :, :7].tolist()
     cos = grab([4096, 4095, 4091, 4085, 4076, 4065], "<i4", 64) + [0]
     sinpi = grab([0, 1321, 2482, 3344, 3803], "<i4", 5)
+    # libaom's sgr_params: {r0, r1}, {e0, e1}; the spec's rows are r0, e0, r1, e1
+    sgr = np.array(grab([2, 1, 140, 3236], "<i4", 64)).reshape(16, 2, 2).transpose(0, 2, 1).reshape(16, 4)
+    div = grab([0, 840, 420, 280, 210, 168, 140, 120, 105], "<i4", 9)
+    conv440 = grab([1, 2, 2, 2, 3, 4, 6, 0], "<i4", 8)
+    conv422 = grab([7, 0, 2, 4, 5, 6, 6, 6], "<i4", 8)
+    ident = list(range(8))
+    # libaom's cdef_directions_padded: directions 6, 7, 0-7, 0, 1 as offsets
+    # row * 144 + column into its filter buffer
+    padded = np.array(grab([144, 288, 144, 287, -143, -286], "<i4", 24)).reshape(12, 2)[2:10]
+    rows = np.rint(padded / 144).astype(int)
+    dirs = np.stack([rows, padded - 144 * rows], -1)
+    pri = grab([4, 2, 3, 3], "<i4", 4)
+    mid = grab([3, -7, 15, 106], "<i4", 3)
     return {"Dc_Qlookup": dc, "Ac_Qlookup": ac, "Dr_Intra_Derivative": drd, "Sm_Weights": sm,
-            "Filter_Intra_Taps": taps, "Cos128_Lookup": cos, "Sinpi_Lookup": sinpi}
+            "Filter_Intra_Taps": taps, "Cos128_Lookup": cos, "Sinpi_Lookup": sinpi, "Sgr_Params": sgr.tolist(),
+            "Div_Table": div, "Cdef_Uv_Dir": [[ident, conv440], [conv422, ident]], "Cdef_Directions": dirs.tolist(),
+            "Cdef_Pri_Taps": [pri[:2], pri[2:]], "Wiener_Taps_Mid": mid, **SPEC}
 
 
 def _fmt(rows, width=12) -> str:
@@ -203,12 +240,14 @@ def _fmt(rows, width=12) -> str:
 
 def header(ro: bytes) -> str:
     lines = ["// AV1 default CDFs and constant tables (AV1 Bitstream & Decoding Process",
-             "// Specification, 9.3 and 7.11-7.13). Generated by",
+             "// Specification, 9.3 and 7.11-7.17). Generated by",
              "// tests/torch_fixtures/gen_av1_tables.py; do not edit by hand.",
              "// Each CDF row is the spec's: increasing values ending in 32768, then the",
              "// adaptation counter; a row of fewer symbols than its table's widest is",
              "// padded with zeros after its counter.",
              "#pragma once", "#include <stdint.h>", ""]
+    lines += ["// CDEF's secondary taps and the Wiener and self-guided coefficient ranges",
+              "// are typed from the specification; every other table is the library's.", ""]
     for name, (dims, rows) in tables(ro).items():
         width = max(len(r) for r in rows)
         flat = []
@@ -220,7 +259,7 @@ def header(ro: bytes) -> str:
         flat = np.ravel(vals).tolist()
         typ = "int8_t" if name == "Filter_Intra_Taps" else "int16_t" if name in (
             "Dc_Qlookup", "Ac_Qlookup", "Dr_Intra_Derivative") else "uint8_t" if name == "Sm_Weights" else "int32_t"
-        shape = "[5][8][7]" if name == "Filter_Intra_Taps" else f"[{len(flat)}]"
+        shape = SHAPES.get(name, f"[{len(flat)}]")
         lines.append(f"static const {typ} {name}{shape} = {{\n{_fmt(flat, 16)}\n}};\n")
     return "\n".join(lines)
 

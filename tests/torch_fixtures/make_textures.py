@@ -7,14 +7,16 @@ The loft's three textures (scenes/loft_tex*.png) in three lossless formats
 tagged LZMA TIFF, ICNS) and in a lossy set (WebP lossy, DDS BC1,
 arithmetic-coded JPEG) and a JPEG 2000 set (a 5/3 JP2, a tiled RPCL
 codestream with precincts and three layers, an ICNS of a JPEG 2000 entry)
-and in AVIF at PIL's defaults (a fifth set, lossy);
+and in AVIF at PIL's defaults (a fifth set, lossy) and with PIL's own
+AVIF options (a sixth: 4:4:4 with CDEF, a premultiplied RGBA with loop
+restoration, 4:2:2);
 then one small image for each other variant the port decodes. PIL writes what it can write; tests/torch_codec_encoders.py
 writes the rest (arithmetic, lossless and YCCK JPEG, RLE BMP, colour-mapped
 TGA, GIF with an offset frame, PSD, RLE SGI, JPEG-in-TIFF, CUR, a WebP
 animation, BC6H, a VP8 frame with the simple filter and four partitions) and
 tests/torch_j2k_encoders.py the JPEG 2000 files PIL does not write (through
 OpenJPEG's own encoder, spliced JP2 boxes, PPT / PPM). The AVIF files the
-port refuses (step-2 variants, and those PIL refuses) go to avif_raises/
+port refuses (step-3 variants, and those PIL refuses) go to avif_raises/
 with expected.json. chip_smoke.py's `codecs_scene` decodes every fixture on a
 machine without PIL and holds it to the manifest; the CPU tests decode the
 committed files with PIL and hold the manifest to them.
@@ -48,8 +50,12 @@ LOSSLESS3 = {"loft_tex0.png": "loft_tex0_53.jp2", "loft_tex1.png": "loft_tex1_rp
 # and in AVIF at PIL's defaults (aom, quality 75, speed 6), where the screen-
 # content tools appear: palette in all three, IntraBC in loft_tex1
 LOSSY2 = {"loft_tex0.png": "loft_tex0.avif", "loft_tex1.png": "loft_tex1.avif", "loft_tex2.png": "loft_tex2.avif"}
+# and in AVIF with PIL's save options: 4:4:4 with CDEF at speed 4, an RGBA
+# (an alpha ramp) premultiplied at speed 2 with loop restoration, 4:2:2
+LOSSY3 = {"loft_tex0.png": "loft_tex0_444_cdef.avif", "loft_tex1.png": "loft_tex1_rgba_prem_lr.avif",
+          "loft_tex2.png": "loft_tex2_422.avif"}
 # AVIF files the port must refuse as PIL does or raise A.1 for (AVIF step
-# 2), beside the textures: name -> (exception class name, message pattern)
+# 3), beside the textures: name -> (exception class name, message pattern)
 AVIF_RAISES = os.path.join(HERE, "avif_raises")
 AVIF_RAISES_EXPECTED = os.path.join(AVIF_RAISES, "expected.json")
 
@@ -301,15 +307,71 @@ def _fixtures_avif(enc, pil, Image) -> dict[str, bytes]:
     exif = Image.Exif()
     exif[0x0112] = 6
     out["avif_orient6.avif"] = pil(small, "AVIF", exif=exif.tobytes())
+    out.update(_fixtures_avif_options(enc, pil, Image))
+    return out
+
+
+def _loft_rgba(png: str):
+    """A loft texture with an alpha ramp (255 at the left edge, 1 at the
+    right), as the premultiplied loft texture is written."""
+    from PIL import Image
+
+    rgb = np.asarray(Image.open(os.path.join(REPO, "scenes", png)).convert("RGB"))
+    h, w, _ = rgb.shape
+    a = np.broadcast_to(np.linspace(255, 1, w).round().astype(np.uint8), (h, w))
+    return Image.fromarray(np.dstack([rgb, a]), "RGBA")
+
+
+def _fixtures_avif_options(enc, pil, Image) -> dict[str, bytes]:
+    """The AVIF stills PIL writes with its own save options (AVIF step 2):
+    each chroma layout (4:4:4, 4:2:2, 4:0:0), straight and premultiplied
+    RGBA (an alpha item; 4:4:4 and an odd size too), loop restoration at
+    speeds 0 / 2 / 4 on 256 x 256 and on 197 x 131 in 2 x 2 tiles, CDEF
+    (enable-cdef) on 4:2:0, 4:2:2 and 4:4:4, 128 x 128 superblocks at speed
+    0 with both filters, a 32 x 32 two-frame sequence whose still uses CDEF,
+    and the loft's sixth set."""
+    out = {}
+    for png, name in LOSSY3.items():
+        if "rgba" in name:
+            out[name] = pil(_loft_rgba(png), "AVIF", speed=2, alpha_premultiplied=True)
+        else:
+            img = Image.open(os.path.join(REPO, "scenes", png)).convert("RGB")
+            kw = dict(subsampling="4:4:4", speed=4, quality=50, advanced={"enable-cdef": "1"}) if "444" in name \
+                else dict(subsampling="4:2:2")
+            out[name] = pil(img, "AVIF", **kw)
+    out["avif_444.avif"] = pil(enc.photo(32, 32, 9), "AVIF", subsampling="4:4:4")
+    out["avif_422.avif"] = pil(enc.photo(37, 29, 11), "AVIF", subsampling="4:2:2")
+    out["avif_400.avif"] = pil(enc.photo(29, 37, 12), "AVIF", subsampling="4:0:0")
+    out["avif_rgba.avif"] = pil(Image.fromarray(enc.photo(32, 32, 10, 4), "RGBA"), "AVIF")
+    out["avif_rgba_premultiplied.avif"] = pil(Image.fromarray(enc.photo(32, 32, 10, 4), "RGBA"), "AVIF",
+                                              alpha_premultiplied=True)
+    out["avif_rgba_444_premultiplied_odd.avif"] = pil(Image.fromarray(enc.photo(23, 41, 13, 4), "RGBA"), "AVIF",
+                                                      subsampling="4:4:4", alpha_premultiplied=True)
+    out["avif_speed0_restoration.avif"] = pil(enc.photo(128, 128, 1), "AVIF", speed=0)
+    ph = enc.photo(256, 256, 1)
+    for speed in (0, 2, 4):
+        out[f"avif_lr_speed{speed}_256.avif"] = pil(ph, "AVIF", quality=60, speed=speed)
+    out["avif_lr_197x131_tiles.avif"] = pil(enc.photo(131, 197, 14), "AVIF", quality=60, speed=0, tile_rows=1,
+                                            tile_cols=1)
+    cdef = enc.photo(128, 128, 2)
+    for ss in ("4:2:0", "4:2:2", "4:4:4"):
+        out[f"avif_cdef_{ss.replace(':', '')}.avif"] = pil(cdef, "AVIF", quality=30, subsampling=ss,
+                                                          advanced={"enable-cdef": "1"})
+    out["avif_sb128_cdef_lr.avif"] = pil(ph, "AVIF", quality=60, speed=0, advanced={"enable-cdef": "1"})
+    out["avif_sequence_32.avif"] = pil(Image.fromarray(enc.photo(32, 32, 6)), "AVIF", save_all=True,
+                                       append_images=[Image.fromarray(enc.photo(32, 32, 7))])
     return out
 
 
 def avif_raises(enc, pil, Image) -> dict[str, tuple[bytes, str, str]]:
-    """AVIF files the port refuses: the step-2 variants PIL reads (4:4:4,
-    RGBA, a frame that uses loop restoration) raise NotImplementedError
-    naming A.1; the files PIL refuses (ROADMAP C.14: a HEIF brand without
-    avif, a primary item of type hvc1, a file cut 40 bytes short) fail as
-    PIL's do. -> name -> (bytes, exception class name, message pattern)."""
+    """AVIF files the port refuses: the step-3 variants PIL reads (film
+    grain, quantizer matrices, a 2 x 2 grid from libavif's own encoder)
+    raise NotImplementedError naming A.1; the files PIL refuses (ROADMAP
+    C.14: a HEIF brand without avif, a primary item of type hvc1, a file
+    cut 40 bytes short) fail as PIL's do. -> name -> (bytes, exception
+    class name, message pattern)."""
+    import torch_avif_oracle as oracle
+
     base = pil(enc.photo(16, 16, 8), "AVIF")
     i = base.index(b"ftyp")
     size = int.from_bytes(base[i - 4:i], "big")
@@ -317,12 +379,12 @@ def avif_raises(enc, pil, Image) -> dict[str, tuple[bytes, str, str]]:
     heic = (8 + len(body)).to_bytes(4, "big") + b"ftyp" + body + base[i - 4 + size:]
     j = base.index(b"av01")
     return {
-        "avif_444.avif": (pil(enc.photo(32, 32, 9), "AVIF", subsampling="4:4:4"), "NotImplementedError",
-                          "AVIF of 4:4:4 AV1.*ROADMAP A.1"),
-        "avif_rgba.avif": (pil(Image.fromarray(enc.photo(32, 32, 10, 4), "RGBA"), "AVIF"), "NotImplementedError",
-                           "AVIF of alpha.*ROADMAP A.1"),
-        "avif_speed0_restoration.avif": (pil(enc.photo(128, 128, 1), "AVIF", speed=0), "NotImplementedError",
-                                         "AVIF of AV1 loop restoration.*ROADMAP A.1"),
+        "avif_film_grain.avif": (pil(enc.photo(16, 16, 9), "AVIF", advanced={"denoise-noise-level": "20"}),
+                                 "NotImplementedError", "AVIF of AV1 film grain.*ROADMAP A.1"),
+        "avif_qm.avif": (pil(enc.photo(16, 16, 10), "AVIF", advanced={"enable-qm": "1"}), "NotImplementedError",
+                         "AVIF of AV1 quantizer matrices.*ROADMAP A.1"),
+        "avif_grid.avif": (oracle.encode(enc.photo(64, 64, 11)[..., 0], (2, 2)), "NotImplementedError",
+                           "AVIF of grid images.*ROADMAP A.1"),
         "avif_heic_brand.avif": (heic, "UnidentifiedImageError", "cannot identify image file"),
         "avif_hvc1_item.avif": (base[:j] + b"hvc1" + base[j + 4:], "DecodeError",
                                 "Failed to decode image: Missing or empty image item"),
@@ -419,7 +481,8 @@ def main() -> None:
             f.write(data)
         group = "loft_lossless" if name in LOSSLESS.values() else "loft_lossy" if name in LOSSY.values() \
             else "loft_lossless2" if name in LOSSLESS2.values() else "loft_lossless3" if name in LOSSLESS3.values() \
-            else "loft_lossy2" if name in LOSSY2.values() else "variant"
+            else "loft_lossy2" if name in LOSSY2.values() else "loft_lossy3" if name in LOSSY3.values() \
+            else "variant"
         manifest[name] = {"group": group, "bytes": len(data), **digest(pil_rgb(data))}
     with open(MANIFEST, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
@@ -429,6 +492,8 @@ def main() -> None:
     from PIL import Image
 
     os.makedirs(AVIF_RAISES, exist_ok=True)
+    for name in os.listdir(AVIF_RAISES):
+        os.remove(os.path.join(AVIF_RAISES, name))
     expected = {}
     for name, (data, exc, pattern) in avif_raises(enc, enc.pil_bytes, Image).items():
         with open(os.path.join(AVIF_RAISES, name), "wb") as f:
