@@ -198,8 +198,12 @@ port's paths and checks that each went through its kernels:
      2020, an irot orientation; AVIF step 2's 4:4:4 / 4:2:2 / 4:0:0,
      straight and premultiplied alpha, loop restoration at speeds 0 / 2 /
      4, CDEF in three layouts, both filters on 128 superblocks, a
-     two-frame sequence's still) are held to the manifest, each decode
-     timed, and the AVIF files of tests/torch_fixtures/avif_raises (film
+     two-frame sequence's still; AVIF step 3's 10- and 12-bit stills in
+     every layout, with alpha, CDEF, loop restoration, palette and
+     IntraBC, decoded by the uint16 build of av1_dec.cpp, their count and
+     host ms reported with the 8-bit 1024 x 1024 one's) are held to the
+     manifest, each decode timed, and the AVIF files of
+     tests/torch_fixtures/avif_raises (film
      grain, quantizer matrices, a grid, and what PIL refuses) raise what
      its expected.json says. The JPEG 2000 fixtures (every progression, POC, tiles and
      tile-parts, precincts, layers, each code-block style, SOP / EPH,
@@ -3136,22 +3140,28 @@ def codecs_scene(dev, card, counts):
     within JPEG_RENDER_TOL, the AVIF sets' launches the PNG loft's); K1 /
     K2 / K3 on the flat walk in every card render; the AVIF files the port
     refuses raise what tests/torch_fixtures/avif_raises/expected.json says.
-    Returns the three lossless loft renders' launches and the two AVIF
-    lofts'."""
+    Reports the 10- and 12-bit AVIF fixtures' count and host decode ms
+    (total, largest) and the 8-bit 1024 x 1024 one's. Returns the three
+    lossless loft renders' launches and the two AVIF lofts'."""
     import hashlib
 
     import torch
 
     from optixpathtracer_tpu_torch import scenes
+    from optixpathtracer_tpu_torch.io.codecs import av1_obu, avif
     from optixpathtracer_tpu_torch.io.image import rgb8_from_bytes
 
     t_all = time.perf_counter()
     with open(os.path.join(CODEC_FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
-    decode_ms, bad = {}, []
+    decode_ms, bad, avif_depth = {}, [], {}
     for name, entry in sorted(manifest.items()):
         with open(os.path.join(CODEC_FIXTURES, name), "rb") as f:
             data = f.read()
+        if name.endswith(".avif"):
+            obus, _ = avif.parse(data)
+            avif_depth[name] = next(av1_obu.sequence_header(p)["bit_depth"] for k, p in av1_obu.split_obus(obus)
+                                    if k == av1_obu.OBU_SEQUENCE_HEADER)
         t0 = time.perf_counter()
         rgb = rgb8_from_bytes(data)
         decode_ms[name] = (time.perf_counter() - t0) * 1e3
@@ -3172,6 +3182,7 @@ def codecs_scene(dev, card, counts):
             if type(e).__name__ != want["raises"] or not re.search(want["match"], str(e)):
                 refused_wrongly.append(f"{name}: {type(e).__name__}: {e}")
     avif_ms = {n: ms for n, ms in decode_ms.items() if n.endswith(".avif")}
+    hbd_ms = {n: ms for n, ms in avif_ms.items() if avif_depth[n] > 8}
     scenes_by_kind, t_load = {}, {}
     for kind, names in (("png", {png: png for png in CODEC_LOSSLESS}), ("lossless", CODEC_LOSSLESS),
                         ("lossless2", CODEC_LOSSLESS2), ("lossless3", CODEC_LOSSLESS3), ("lossy", CODEC_LOSSY),
@@ -3196,7 +3207,9 @@ def codecs_scene(dev, card, counts):
     emit("codecs_scene", fixtures=len(manifest), mismatched=bad, decode_ms=decode_ms,
          decode_ms_total=sum(decode_ms.values()), avif_fixtures=len(avif_ms),
          avif_decode_ms_total=sum(avif_ms.values()), avif_decode_ms_max=max(avif_ms.values(), default=0.0),
-         avif_refused=len(avif_raises),
+         avif_hbd_fixtures=len(hbd_ms), avif_hbd_decode_ms_total=sum(hbd_ms.values()),
+         avif_hbd_decode_ms_max=max(hbd_ms.values(), default=0.0),
+         avif_1024_decode_ms=decode_ms.get("avif_1024_tiles.avif"), avif_refused=len(avif_raises),
          avif_refused_wrongly=refused_wrongly, load_obj_s=t_load, loft_textures_equal_png=equal_textures,
          lossless_frame_equals_png_frame=card_eq, lossy_rmse_card_vs_cpu=rmse["lossy"],
          lossy2_rmse_card_vs_cpu=rmse["lossy2"], lossy3_rmse_card_vs_cpu=rmse["lossy3"],

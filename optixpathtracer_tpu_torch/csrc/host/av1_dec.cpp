@@ -1,6 +1,7 @@
 // AV1 key-frame tile decoder: the decoding process of the AV1 Bitstream &
-// Decoding Process Specification for one 8-bit intra frame in 4:2:0, 4:2:2,
-// 4:4:4 or monochrome, as libaom writes AVIF stills and their alpha items.
+// Decoding Process Specification for one 8-, 10- or 12-bit intra frame in
+// 4:2:0, 4:2:2, 4:4:4 or monochrome, as libaom writes AVIF stills and their
+// alpha items.
 // io/codecs/av1_obu.py parses the OBUs and the frame header and hands the
 // frame parameters and each tile's bytes here; this file decodes the tiles
 // (symbol decoder and CDF adaptation, partitions, intra modes with the edge
@@ -13,10 +14,14 @@
 // Names follow the specification (section 5.11 syntax, 7.10-7.17 decoding
 // processes); the inverse DCT / ADST are the butterfly networks the
 // specification defines, with the intermediate add / subtract results
-// clamped to the stage range (16 bits at 8-bit depth) as libaom and dav1d
-// clamp them. Not handled here (the Python side raises before calling):
-// segmentation, delta q / delta lf, superres, film grain, quantizer
-// matrices and high bit depth.
+// clamped to the stage range (BitDepth + 8 bits for the rows, Max(BitDepth +
+// 6, 16) for the columns) as libaom and dav1d clamp them. The decoder is a
+// template on its sample type, as dav1d builds 8bpc and 16bpc: uint8_t
+// planes at 8 bits (BitDepth fixed at 8, so the 8-bit path compiles as it
+// did), uint16_t planes at 10 and 12 bits with BitDepth read from the
+// parameters. Not handled here (the Python side raises before calling):
+// segmentation, delta q / delta lf, superres, film grain and quantizer
+// matrices.
 //
 // Build: g++ -O2 -shared -fPIC (utils/host_build.py).
 #include <stdint.h>
@@ -87,7 +92,6 @@ const int Intra_Edge_Kernel[3][5] = {{0, 4, 8, 4, 0}, {0, 5, 6, 5, 0}, {2, 4, 4,
 inline int imin(int a, int b) { return a < b ? a : b; }
 inline int imax(int a, int b) { return a > b ? a : b; }
 inline int clip3(int lo, int hi, int v) { return v < lo ? lo : v > hi ? hi : v; }
-inline int clip1(int v) { return clip3(0, 255, v); }
 inline int round2(int64_t x, int n) { return n == 0 ? (int)x : (int)((x + ((int64_t)1 << (n - 1))) >> n); }
 inline int round2signed(int64_t x, int n) { return x >= 0 ? round2(x, n) : -round2(-x, n); }
 inline int floor_log2(unsigned x) { int s = 0; while (x > 1) { x >>= 1; s++; } return s; }
@@ -557,10 +561,11 @@ void inverse_1d(int32_t* T, int n, int type, int r) {
 }
 
 // ------------------------------------------------------------------ frame
+template <typename pixel>
 struct Frame {
   int stride[3], ph[3];
-  std::vector<uint8_t> p[3];
-  uint8_t* at(int plane, int y, int x) { return &p[plane][(size_t)y * stride[plane] + x]; }
+  std::vector<pixel> p[3];
+  pixel* at(int plane, int y, int x) { return &p[plane][(size_t)y * stride[plane] + x]; }
 };
 
 struct Params {
@@ -572,13 +577,18 @@ struct Params {
   int subsampling_x, subsampling_y, NumPlanes;
   int CdefDamping, cdef_y_pri[8], cdef_y_sec[8], cdef_uv_pri[8], cdef_uv_sec[8];
   int FrameRestorationType[3], LoopRestorationSize[3];
+  int BitDepth;
 };
 
+template <typename pixel>
 struct Decoder {
   Params P;
   int MiRows, MiCols, MiStride;
   bool Lossless;
-  Frame F;
+  Frame<pixel> F;
+  // BitDepth: 8 for the uint8_t decoder whatever the parameters say
+  int BitDepth, PixelMax;
+  int clip1(int v) const { return clip3(0, PixelMax, v); }
   SymbolDecoder sd;
   Cdfs cdf;
   char err[256];
@@ -588,7 +598,7 @@ struct Decoder {
   std::vector<uint8_t> MiSizes, YModes, UVModes, IsInters, Skips, InterTxSizes, PaletteSizes[2], Decoded,
       TxTypes;
   std::vector<int8_t> RefFrame0;
-  std::vector<uint8_t> PaletteColors[2];  // 8 per mi
+  std::vector<uint16_t> PaletteColors[2];  // 8 per mi
   std::vector<int16_t> MvRow, MvCol;
   std::vector<uint8_t> LfTxSizes[3];  // per 4x4 of each plane
   int lfStride[3];
@@ -855,8 +865,8 @@ struct Decoder {
     int aboveN = 0, leftN = 0;
     if (((MiRow * 4) % 64) && AvailU) aboveN = PaletteSizes[plane][mi(MiRow - 1, MiCol)];
     if (AvailL) leftN = PaletteSizes[plane][mi(MiRow, MiCol - 1)];
-    const uint8_t* ac = &PaletteColors[plane][mi(MiRow - 1, MiCol) * 8];
-    const uint8_t* lc = &PaletteColors[plane][mi(MiRow, MiCol - 1) * 8];
+    const uint16_t* ac = &PaletteColors[plane][mi(MiRow - 1, MiCol) * 8];
+    const uint16_t* lc = &PaletteColors[plane][mi(MiRow, MiCol - 1) * 8];
     int ai = 0, li = 0, n = 0;
     while (ai < aboveN && li < leftN) {
       int aboveC = ac[ai], leftC = lc[li];
@@ -893,13 +903,13 @@ struct Decoder {
         int idx = 0;
         for (int i = 0; i < cacheN && idx < PaletteSizeY; i++)
           if (sd.literal(1)) palette_colors_y[idx++] = cache[i];
-        if (idx < PaletteSizeY) palette_colors_y[idx++] = sd.literal(8);
+        if (idx < PaletteSizeY) palette_colors_y[idx++] = sd.literal(BitDepth);
         int paletteBits = 0;
-        if (idx < PaletteSizeY) paletteBits = 8 - 3 + sd.literal(2);
+        if (idx < PaletteSizeY) paletteBits = BitDepth - 3 + sd.literal(2);
         while (idx < PaletteSizeY) {
           int delta = sd.literal(paletteBits) + 1;
           palette_colors_y[idx] = clip1(palette_colors_y[idx - 1] + delta);
-          int range = 256 - palette_colors_y[idx] - 1;
+          int range = (1 << BitDepth) - palette_colors_y[idx] - 1;
           paletteBits = imin(paletteBits, ceil_log2(range));
           idx++;
         }
@@ -914,21 +924,21 @@ struct Decoder {
         int idx = 0;
         for (int i = 0; i < cacheN && idx < PaletteSizeUV; i++)
           if (sd.literal(1)) palette_colors_u[idx++] = cache[i];
-        if (idx < PaletteSizeUV) palette_colors_u[idx++] = sd.literal(8);
+        if (idx < PaletteSizeUV) palette_colors_u[idx++] = sd.literal(BitDepth);
         int paletteBits = 0;
-        if (idx < PaletteSizeUV) paletteBits = 8 - 3 + sd.literal(2);
+        if (idx < PaletteSizeUV) paletteBits = BitDepth - 3 + sd.literal(2);
         while (idx < PaletteSizeUV) {
           int delta = sd.literal(paletteBits);
           palette_colors_u[idx] = clip1(palette_colors_u[idx - 1] + delta);
-          int range = 256 - palette_colors_u[idx];
+          int range = (1 << BitDepth) - palette_colors_u[idx];
           paletteBits = imin(paletteBits, ceil_log2(range));
           idx++;
         }
         std::sort(palette_colors_u, palette_colors_u + PaletteSizeUV);
         if (sd.literal(1)) {  // delta_encode_palette_colors_v
-          int minBits = 8 - 4, maxVal = 256;
+          int minBits = BitDepth - 4, maxVal = 1 << BitDepth;
           int bits = minBits + sd.literal(2);
-          palette_colors_v[0] = sd.literal(8);
+          palette_colors_v[0] = sd.literal(BitDepth);
           for (idx = 1; idx < PaletteSizeUV; idx++) {
             int delta = sd.literal(bits);
             if (delta && sd.literal(1)) delta = -delta;
@@ -938,7 +948,7 @@ struct Decoder {
             palette_colors_v[idx] = clip1(val);
           }
         } else {
-          for (idx = 0; idx < PaletteSizeUV; idx++) palette_colors_v[idx] = sd.literal(8);
+          for (idx = 0; idx < PaletteSizeUV; idx++) palette_colors_v[idx] = sd.literal(BitDepth);
         }
       }
     }
@@ -1252,6 +1262,7 @@ struct Decoder {
     // MiCols x MiRows area, not the frame size (as dav1d bounds it)
     int lastX = ((MiCols * 4) >> sx) - 1, lastY = ((MiRows * 4) >> sy) - 1;
     int interH = (((h - 1) * 1024 + 1023) >> 10) + 8;
+    int round0 = BitDepth == 12 ? 5 : 3, round1 = BitDepth == 12 ? 9 : 11;  // InterRound0 / 1, not compound
     static int32_t inter[(128 + 8) * 128];
     for (int r = 0; r < interH; r++)
       for (int c = 0; c < w; c++) {
@@ -1264,7 +1275,7 @@ struct Decoder {
           int yy = clip3(0, lastY, (startY >> 10) + r - 3), xx = clip3(0, lastX, (p >> 10) + t - 3);
           s += tap * *F.at(plane, yy, xx);
         }
-        inter[r * w + c] = round2(s, 3);
+        inter[r * w + c] = round2(s, round0);
       }
     for (int r = 0; r < h; r++)
       for (int c = 0; c < w; c++) {
@@ -1276,7 +1287,7 @@ struct Decoder {
           if (!tap) continue;
           s += tap * inter[((p >> 10) + t) * w + c];
         }
-        *F.at(plane, y + r, x + c) = clip1(round2(s, 11));
+        *F.at(plane, y + r, x + c) = clip1(round2(s, round1));
       }
   }
 
@@ -1345,7 +1356,7 @@ struct Decoder {
       buf[i - 1] = (s + 8) >> 4;
     }
   }
-  static void upsample(int* buf, int numPx) {
+  void upsample(int* buf, int numPx) {
     int dup[300];
     dup[0] = buf[-1];
     for (int i = -1; i < numPx; i++) dup[i + 2] = buf[i];
@@ -1371,7 +1382,7 @@ struct Decoder {
       int v = *F.at(plane, y, x - 1);
       for (int i = 0; i < n; i++) AboveRow[i] = v;
     } else if (!haveAbove && !haveLeft) {
-      for (int i = 0; i < n; i++) AboveRow[i] = 127;
+      for (int i = 0; i < n; i++) AboveRow[i] = (1 << (BitDepth - 1)) - 1;
     } else {
       int aboveLimit = imin(maxX, x + (haveAboveRight ? 2 * w : w) - 1);
       for (int i = 0; i < n; i++) AboveRow[i] = *F.at(plane, y - 1, imin(aboveLimit, x + i));
@@ -1380,7 +1391,7 @@ struct Decoder {
       int v = *F.at(plane, y - 1, x);
       for (int i = 0; i < n; i++) LeftCol[i] = v;
     } else if (!haveLeft && !haveAbove) {
-      for (int i = 0; i < n; i++) LeftCol[i] = 129;
+      for (int i = 0; i < n; i++) LeftCol[i] = (1 << (BitDepth - 1)) + 1;
     } else {
       int leftLimit = imin(maxY, y + (haveBelowLeft ? 2 * h : h) - 1);
       for (int i = 0; i < n; i++) LeftCol[i] = *F.at(plane, imin(leftLimit, y + i), x - 1);
@@ -1388,7 +1399,7 @@ struct Decoder {
     if (haveAbove && haveLeft) AboveRow[-1] = *F.at(plane, y - 1, x - 1);
     else if (haveAbove) AboveRow[-1] = *F.at(plane, y - 1, x);
     else if (haveLeft) AboveRow[-1] = *F.at(plane, y, x - 1);
-    else AboveRow[-1] = 128;
+    else AboveRow[-1] = 1 << (BitDepth - 1);
     LeftCol[-1] = AboveRow[-1];
 
     static int pred[64][64];
@@ -1522,7 +1533,7 @@ struct Decoder {
         for (int k = 0; k < h; k++) sum += LeftCol[k];
         avg = (sum + (h >> 1)) >> log2H;
       } else {
-        avg = 128;
+        avg = 1 << (BitDepth - 1);
       }
       for (int i = 0; i < h; i++)
         for (int j = 0; j < w; j++) pred[i][j] = avg;
@@ -1537,7 +1548,7 @@ struct Decoder {
         }
     }
     for (int i = 0; i < h; i++)
-      for (int j = 0; j < w; j++) *F.at(plane, y + i, x + j) = (uint8_t)pred[i][j];
+      for (int j = 0; j < w; j++) *F.at(plane, y + i, x + j) = (pixel)pred[i][j];
   }
 
   void predict_cfl(int plane, int startX, int startY, int txSz) {
@@ -1561,7 +1572,7 @@ struct Decoder {
     int avg = round2(lumaAvg, Tx_Width_Log2[txSz] + Tx_Height_Log2[txSz]);
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) {
-        uint8_t* px = F.at(plane, startY + i, startX + j);
+        pixel* px = F.at(plane, startY + i, startX + j);
         int scaled = round2signed((int64_t)alpha * (L[i][j] - avg), 6);
         *px = clip1(*px + scaled);
       }
@@ -1967,11 +1978,11 @@ struct Decoder {
 
   int dc_q(int plane) {
     int d = plane == 0 ? P.DeltaQYDc : plane == 1 ? P.DeltaQUDc : P.DeltaQVDc;
-    return Dc_Qlookup[clip3(0, 255, P.base_q_idx + d)];
+    return Dc_Qlookup[(BitDepth - 8) >> 1][clip3(0, 255, P.base_q_idx + d)];
   }
   int ac_q(int plane) {
     int d = plane == 0 ? 0 : plane == 1 ? P.DeltaQUAc : P.DeltaQVAc;
-    return Ac_Qlookup[clip3(0, 255, P.base_q_idx + d)];
+    return Ac_Qlookup[(BitDepth - 8) >> 1][clip3(0, 255, P.base_q_idx + d)];
   }
 
   void reconstruct(int plane, int x, int y, int txSz) {
@@ -1995,13 +2006,13 @@ struct Decoder {
         int64_t dq = ((int64_t)abs(qv) * q) & 0xFFFFFF;
         dq = dq >> dqShift;
         if (qv < 0) dq = -dq;
-        Dequant[i][j] = clip3(-(1 << 15), (1 << 15) - 1, (int)dq);
+        Dequant[i][j] = clip3(-(1 << (7 + BitDepth)), (1 << (7 + BitDepth)) - 1, (int)dq);
       }
     inverse_transform_2d(txSz, log2W, log2H);
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) {
         int xx = flipLR ? (w - j - 1) : j, yy = flipUD ? (h - i - 1) : i;
-        uint8_t* px = F.at(plane, y + yy, x + xx);
+        pixel* px = F.at(plane, y + yy, x + xx);
         *px = clip1(*px + Residual[i][j]);
       }
   }
@@ -2010,7 +2021,7 @@ struct Decoder {
     int w = 1 << log2W, h = 1 << log2H;
     int rowShift = Lossless ? 0 : Transform_Row_Shift[txSz];
     int colShift = Lossless ? 0 : 4;
-    int rowR = 16, colR = 16;  // BitDepth + 8, Max(BitDepth + 6, 16)
+    int rowR = BitDepth + 8, colR = imax(BitDepth + 6, 16);
     int vt, ht;
     tx_types_1d(PlaneTxType, &vt, &ht);
     int32_t T[64];
@@ -2111,8 +2122,12 @@ struct Decoder {
       if (applyFilter && lvl > 0) sample_filter(xP + dy * i, yP + dx * i, plane, limit, blimit, thresh, dx, dy, filterSize);
   }
   void sample_filter(int x, int y, int plane, int limit, int blimit, int thresh, int dx, int dy, int filterSize) {
-    auto S = [&](int k) -> uint8_t* { return F.at(plane, y + dy * k, x + dx * k); };
+    auto S = [&](int k) -> pixel* { return F.at(plane, y + dy * k, x + dx * k); };
     int q0 = *S(0), q1 = *S(1), q2 = *S(2), q3 = *S(3), p0 = *S(-1), p1 = *S(-2), p2 = *S(-3), p3 = *S(-4);
+    int shift = BitDepth - 8, one = 1 << shift;  // the flatness threshold
+    limit <<= shift;
+    blimit <<= shift;
+    thresh <<= shift;
     int hevMask = (abs(p1 - p0) > thresh) | (abs(q1 - q0) > thresh);
     int filterLen = filterSize == 4 ? 4 : plane != 0 ? 6 : filterSize == 8 ? 8 : 16;
     int mask = 0;
@@ -2125,15 +2140,15 @@ struct Decoder {
     int flatMask = 0, flatMask2 = 0;
     if (filterSize >= 8) {
       int f = 0;
-      f |= abs(p1 - p0) > 1; f |= abs(q1 - q0) > 1; f |= abs(p2 - p0) > 1; f |= abs(q2 - q0) > 1;
-      if (filterLen >= 8) { f |= abs(p3 - p0) > 1; f |= abs(q3 - q0) > 1; }
+      f |= abs(p1 - p0) > one; f |= abs(q1 - q0) > one; f |= abs(p2 - p0) > one; f |= abs(q2 - q0) > one;
+      if (filterLen >= 8) { f |= abs(p3 - p0) > one; f |= abs(q3 - q0) > one; }
       flatMask = !f;
     }
     if (filterSize >= 16) {
       int q4 = *S(4), q5 = *S(5), q6 = *S(6), p4 = *S(-5), p5 = *S(-6), p6 = *S(-7);
       int f = 0;
-      f |= abs(p6 - p0) > 1; f |= abs(p5 - p0) > 1; f |= abs(p4 - p0) > 1;
-      f |= abs(q4 - q0) > 1; f |= abs(q5 - q0) > 1; f |= abs(q6 - q0) > 1;
+      f |= abs(p6 - p0) > one; f |= abs(p5 - p0) > one; f |= abs(p4 - p0) > one;
+      f |= abs(q4 - q0) > one; f |= abs(q5 - q0) > one; f |= abs(q6 - q0) > one;
       flatMask2 = !f;
     }
     if (filterSize == 4 || !flatMask) {
@@ -2146,18 +2161,19 @@ struct Decoder {
   }
   template <class Fn>
   void narrow_filter(int hevMask, Fn S) {
-    auto c4 = [](int v) { return clip3(-128, 127, v); };
+    int half = 1 << (BitDepth - 1);
+    auto c4 = [half](int v) { return clip3(-half, half - 1, v); };
     int q0 = *S(0), q1 = *S(1), p0 = *S(-1), p1 = *S(-2);
-    int ps1 = p1 - 128, ps0 = p0 - 128, qs0 = q0 - 128, qs1 = q1 - 128;
+    int ps1 = p1 - half, ps0 = p0 - half, qs0 = q0 - half, qs1 = q1 - half;
     int filter = hevMask ? c4(ps1 - qs1) : 0;
     filter = c4(filter + 3 * (qs0 - ps0));
     int filter1 = c4(filter + 4) >> 3, filter2 = c4(filter + 3) >> 3;
-    *S(0) = c4(qs0 - filter1) + 128;
-    *S(-1) = c4(ps0 + filter2) + 128;
+    *S(0) = c4(qs0 - filter1) + half;
+    *S(-1) = c4(ps0 + filter2) + half;
     if (!hevMask) {
       filter = round2(filter1, 1);
-      *S(1) = c4(qs1 - filter) + 128;
-      *S(-2) = c4(ps1 + filter) + 128;
+      *S(1) = c4(qs1 - filter) + half;
+      *S(-2) = c4(ps1 + filter) + half;
     }
   }
   template <class Fn>
@@ -2263,7 +2279,7 @@ struct Decoder {
   // 7.15: each 8x8 luma block (and its chroma) of a 64x64 with a cdef_idx,
   // not all skipped, filtered along its direction; reads the deblocked
   // frame, writes F
-  Frame deblocked;
+  Frame<pixel> deblocked;
   int CdefAvailable;
 
   void cdef() {
@@ -2284,17 +2300,18 @@ struct Decoder {
     if (skipAll) return;
     int var;
     int yDir = cdef_direction(r, c, &var);
-    int priStr = P.cdef_y_pri[idx], secStr = P.cdef_y_sec[idx];
+    int coeffShift = BitDepth - 8;
+    int priStr = P.cdef_y_pri[idx] << coeffShift, secStr = P.cdef_y_sec[idx] << coeffShift;
     int dir = priStr == 0 ? 0 : yDir;
     int varStr = (var >> 6) ? imin(floor_log2(var >> 6), 12) : 0;
     priStr = var ? (priStr * (4 + varStr) + 8) >> 4 : 0;
-    cdef_filter(0, r, c, priStr, secStr, P.CdefDamping, dir);
+    cdef_filter(0, r, c, priStr, secStr, P.CdefDamping + coeffShift, dir);
     if (P.NumPlanes == 1) return;
-    priStr = P.cdef_uv_pri[idx];
-    secStr = P.cdef_uv_sec[idx];
+    priStr = P.cdef_uv_pri[idx] << coeffShift;
+    secStr = P.cdef_uv_sec[idx] << coeffShift;
     dir = priStr == 0 ? 0 : Cdef_Uv_Dir[P.subsampling_x][P.subsampling_y][yDir];
-    cdef_filter(1, r, c, priStr, secStr, P.CdefDamping - 1, dir);
-    cdef_filter(2, r, c, priStr, secStr, P.CdefDamping - 1, dir);
+    cdef_filter(1, r, c, priStr, secStr, P.CdefDamping + coeffShift - 1, dir);
+    cdef_filter(2, r, c, priStr, secStr, P.CdefDamping + coeffShift - 1, dir);
   }
 
   int cdef_direction(int r, int c, int* var) {
@@ -2302,7 +2319,7 @@ struct Decoder {
     int x0 = c << 2, y0 = r << 2;
     for (int i = 0; i < 8; i++)
       for (int j = 0; j < 8; j++) {
-        int x = *deblocked.at(0, y0 + i, x0 + j) - 128;
+        int x = (*deblocked.at(0, y0 + i, x0 + j) >> (BitDepth - 8)) - 128;
         partial[0][i + j] += x;
         partial[1][i + j / 2] += x;
         partial[2][i] += x;
@@ -2359,6 +2376,7 @@ struct Decoder {
     int subX = ssx(plane), subY = ssy(plane);
     int x0 = (c * 4) >> subX, y0 = (r * 4) >> subY;
     int w = 8 >> subX, h = 8 >> subY;
+    int tapSet = (priStr >> (BitDepth - 8)) & 1;
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) {
         int x = *deblocked.at(plane, y0 + i, x0 + j);
@@ -2368,7 +2386,7 @@ struct Decoder {
             int p = cdef_get_at(plane, x0, y0, i + sign * Cdef_Directions[dir][k][0],
                                 j + sign * Cdef_Directions[dir][k][1], subX, subY);
             if (CdefAvailable) {
-              sum += Cdef_Pri_Taps[priStr & 1][k] * constrain(p - x, priStr, damping);
+              sum += Cdef_Pri_Taps[tapSet][k] * constrain(p - x, priStr, damping);
               mx = imax(p, mx);
               mn = imin(p, mn);
             }
@@ -2377,7 +2395,7 @@ struct Decoder {
               int s = cdef_get_at(plane, x0, y0, i + sign * Cdef_Directions[d2][k][0],
                                   j + sign * Cdef_Directions[d2][k][1], subX, subY);
               if (CdefAvailable) {
-                sum += Cdef_Sec_Taps[priStr & 1][k] * constrain(s - x, secStr, damping);
+                sum += Cdef_Sec_Taps[tapSet][k] * constrain(s - x, secStr, damping);
                 mx = imax(s, mx);
                 mn = imin(s, mn);
               }
@@ -2392,7 +2410,7 @@ struct Decoder {
   // Wiener or self-guided filter; the input is the CDEF output (F), but rows
   // outside the 64-row stripe (offset 8 up) come from the deblocked frame
   // before CDEF (`deblocked`); writes `lr`
-  Frame lr;
+  Frame<pixel> lr;
   int StripeStartY, StripeEndY, PlaneEndX, PlaneEndY;
 
   void loop_restoration() {
@@ -2435,7 +2453,7 @@ struct Decoder {
   }
 
   void wiener_filter(int plane, size_t u, int x, int y, int w, int h) {
-    const int round0 = 3, round1 = 11;  // InterRound0 / 1 at 8 bits, not compound
+    int round0 = BitDepth == 12 ? 5 : 3, round1 = BitDepth == 12 ? 9 : 11;  // InterRound0 / 1, not compound
     int vfilter[7], hfilter[7];
     for (int pass = 0; pass < 2; pass++) {
       int* f = pass == 0 ? vfilter : hfilter;
@@ -2446,7 +2464,7 @@ struct Decoder {
         f[3] -= 2 * c;
       }
     }
-    int offset = 1 << (8 + 7 - round0 - 1), limit = (1 << (8 + 1 + 7 - round0)) - 1;
+    int offset = 1 << (BitDepth + 7 - round0 - 1), limit = (1 << (BitDepth + 1 + 7 - round0)) - 1;
     int inter[10][4];
     for (int r = 0; r < h + 6; r++)
       for (int c = 0; c < w; c++) {
@@ -2477,7 +2495,9 @@ struct Decoder {
             a += c * c;
             b += c;
           }
-        int64_t p = std::max<int64_t>(0, a * n - (int64_t)b * b);
+        a = round2(a, 2 * (BitDepth - 8));
+        int64_t d = round2(b, BitDepth - 8);
+        int64_t p = std::max<int64_t>(0, a * n - d * d);
         int z = round2(p * s, 20);
         int a2 = z >= 255 ? 256 : z == 0 ? 1 : ((z << 8) + (z / 2)) / (z + 1);
         int64_t b2 = (int64_t)((1 << 8) - a2) * b * oneOverN;
@@ -2566,11 +2586,13 @@ struct Decoder {
     }
   }
 
-  int run(const int32_t* prm, const uint8_t* data, const int64_t* tiles, int ntiles, uint8_t* oy, uint8_t* ou,
-          uint8_t* ov) {
+  int run(const int32_t* prm, const uint8_t* data, const int64_t* tiles, int ntiles, pixel* oy, pixel* ou,
+          pixel* ov) {
     failed = false;
     err[0] = 0;
     memcpy(&P, prm, sizeof P);
+    BitDepth = sizeof(pixel) == 1 ? 8 : P.BitDepth;
+    PixelMax = (1 << BitDepth) - 1;
     MiCols = 2 * ((P.FrameWidth + 7) >> 3);
     MiRows = 2 * ((P.FrameHeight + 7) >> 3);
     Lossless = P.base_q_idx == 0 && P.DeltaQYDc == 0 && P.DeltaQUAc == 0 && P.DeltaQUDc == 0 &&
@@ -2628,14 +2650,24 @@ struct Decoder {
       cdef();
       loop_restoration();
     }
-    uint8_t* out[3] = {oy, ou, ov};
+    pixel* out[3] = {oy, ou, ov};
     for (int p = 0; p < P.NumPlanes; p++) {
       int pw = (P.FrameWidth + ssx(p)) >> ssx(p), ph = (P.FrameHeight + ssy(p)) >> ssy(p);
-      for (int y = 0; y < ph; y++) memcpy(out[p] + (size_t)y * pw, F.at(p, y, 0), pw);
+      for (int y = 0; y < ph; y++) memcpy(out[p] + (size_t)y * pw, F.at(p, y, 0), pw * sizeof(pixel));
     }
     return 0;
   }
 };
+
+template <typename pixel>
+int decode_as(const int32_t* params, const uint8_t* data, const int64_t* tiles, int ntiles, void* y, void* u,
+              void* v, char* err, int errlen) {
+  Decoder<pixel>* d = new Decoder<pixel>();
+  int rc = d->run(params, data, tiles, ntiles, (pixel*)y, (pixel*)u, (pixel*)v);
+  if (rc && err && errlen > 0) snprintf(err, errlen, "%s", d->err);
+  delete d;
+  return rc;
+}
 
 }  // namespace
 
@@ -2647,14 +2679,15 @@ int av1_param_count(void) { return (int)(sizeof(Params) / sizeof(int32_t)); }
 // Decode one frame: `params` (Params, in order), the tiles' bytes in `data`
 // at (offset, size) pairs `tiles`, into Y (H x W) and U, V ((H + ssy) >> ssy
 // x (W + ssx) >> ssx each; not written for a monochrome frame, where they
-// may be null). Returns 0, or 1 with the reason in `err`.
-int av1_decode_frame(const int32_t* params, const uint8_t* data, const int64_t* tiles, int ntiles, uint8_t* y,
-                     uint8_t* u, uint8_t* v, char* err, int errlen) {
-  Decoder* d = new Decoder();
-  int rc = d->run(params, data, tiles, ntiles, y, u, v);
-  if (rc && err && errlen > 0) snprintf(err, errlen, "%s", d->err);
-  delete d;
-  return rc;
+// may be null): uint8_t samples where Params.BitDepth is 8, uint16_t at 10
+// and 12. Returns 0, or 1 with the reason in `err`.
+int av1_decode_frame(const int32_t* params, const uint8_t* data, const int64_t* tiles, int ntiles, void* y,
+                     void* u, void* v, char* err, int errlen) {
+  int depth = ((const Params*)params)->BitDepth;
+  if (depth == 8) return decode_as<uint8_t>(params, data, tiles, ntiles, y, u, v, err, errlen);
+  if (depth == 10 || depth == 12) return decode_as<uint16_t>(params, data, tiles, ntiles, y, u, v, err, errlen);
+  if (err && errlen > 0) snprintf(err, errlen, "bit depth %d is not 8, 10 or 12", depth);
+  return 1;
 }
 
 // One 1-D inverse transform (0 DCT, 1 ADST, 3 identity) of n values, for

@@ -8,9 +8,10 @@ them). A format whose `accept` takes the first bytes gets the data; a
 decoder that finds its header is not its format raises `NotThisFormat` and
 the walk goes on, as PIL goes on after a plugin's SyntaxError (TGA has no
 magic number and is told this way). Every format PIL reads has a
-decoder; the variants a decoder does not port yet (AVIF beyond 8-bit 4:2:0
-stills, the corners in ROADMAP A.1) raise NotImplementedError naming the
-variant and ROADMAP A.1; bytes that no format takes raise
+decoder; the variants a decoder does not port yet (AVIF step 4: film
+grain, quantizer matrices, grids, ...; the corners in ROADMAP A.1) raise
+NotImplementedError naming the variant and ROADMAP A.1; bytes that no
+format takes raise
 `UnidentifiedImageError`, an OSError as PIL's own is. The formats PIL
 opens but cannot decode here (EPS without Ghostscript, WMF off Windows,
 the BUFR / GRIB / HDF5 stubs, MPEG) raise `DecodeError` with PIL's

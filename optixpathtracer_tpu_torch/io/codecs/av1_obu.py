@@ -5,14 +5,14 @@ tile groups' tile offsets and sizes, then the tile decode in C++
 (`csrc/host/av1_dec.cpp`, built by utils/host_build).
 
 `decode(obus)` takes the OBUs of an AVIF item (`[TD], SEQ, FRAME` as aom
-writes them, or a frame header and tile groups) and returns the 8-bit
-Y / U / V planes of the frame (4:2:0, 4:2:2, 4:4:4; U and V None for a
-monochrome frame) and the sequence header; the frame's CDEF and loop
-restoration parameters go to the native decoder with the rest. What the
-port does not decode yet raises NotImplementedError naming the tool and
-ROADMAP A.1 (AVIF step 3): high bit depth, superres, film grain,
-quantizer matrices, segmentation, delta q / delta lf, frames that are not
-key or intra-only frames, and large-scale tiles. There is no Python tile
+writes them, or a frame header and tile groups) and returns the Y / U / V
+planes of the frame (4:2:0, 4:2:2, 4:4:4; U and V None for a monochrome
+frame; uint8 at 8 bits, uint16 at 10 and 12: profiles 0-2) and the
+sequence header; the frame's CDEF and loop restoration parameters go to
+the native decoder with the rest. What the port does not decode yet
+raises NotImplementedError naming the tool and ROADMAP A.1 (AVIF step 4):
+superres, film grain, quantizer matrices, segmentation, delta q / delta
+lf, frames that are not key or intra-only frames, and large-scale tiles. There is no Python tile
 decoder: under OPTIX_TPU_NO_NATIVE=1 the decode raises naming the switch."""
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ SELECT = 2  # SELECT_SCREEN_CONTENT_TOOLS / SELECT_INTEGER_MV
 
 
 def unsupported(what: str) -> NotImplementedError:
-    """A variant of AVIF that the port does not decode ("AVIF of 10-bit AV1")."""
+    """A variant of AVIF that the port does not decode ("AVIF of AV1 film grain")."""
     return unported(f"AVIF of {what}")
 
 
@@ -226,10 +226,8 @@ def sequence_header(payload: bytes) -> dict:
 
 
 def check_sequence(s: dict) -> None:
-    """Raise A.1 for what the port does not decode: high bit depth, a
-    profile above 2 (reserved) and film grain."""
-    if s["bit_depth"] != 8:
-        raise unsupported(f"{s['bit_depth']}-bit AV1")
+    """Raise for what the port does not decode: a profile above 2
+    (reserved) and film grain (A.1)."""
     if s["profile"] > 2:
         raise DecodeError(f"Failed to decode frame 0: AV1 profile {s['profile']}")
     if s["film_grain_params_present"]:
@@ -457,8 +455,7 @@ def _native():
     if _SIG is None:
         f = lib.av1_decode_frame
         f.argtypes = [ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
-                      ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
-                      ctypes.c_char_p, ctypes.c_int]
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
         f.restype = ctypes.c_int
         lib.av1_param_count.restype = ctypes.c_int
         _SIG = (f, lib.av1_param_count())
@@ -474,14 +471,14 @@ def _params(s: dict, h: dict) -> np.ndarray:
             h["enable_cdef"], h["cdef_bits"], len(cols) - 1, len(rows) - 1]
     vals += cols + [0] * (65 - len(cols)) + rows + [0] * (65 - len(rows))
     vals += [*s["ss"], 1 if s["mono"] else 3, h["cdef_damping"], *sum(h["cdef_strengths"], []), *h["lr_type"],
-             *h["lr_size"]]
+             *h["lr_size"], s["bit_depth"]]
     return np.array(vals, np.int32)
 
 
 def decode(data: bytes):
     """The OBUs of one AV1 still -> (Y (H, W), U, V ((H + ssy) >> ssy,
-    (W + ssx) >> ssx), uint8, or None for a monochrome frame; the sequence
-    header)."""
+    (W + ssx) >> ssx), uint8 at 8 bits and uint16 at 10 and 12, or None for
+    a monochrome frame; the sequence header)."""
     seq, hdr, tiles = None, None, []
     for kind, payload in split_obus(data):
         if kind == OBU_SEQUENCE_HEADER:
@@ -521,17 +518,17 @@ def decode(data: bytes):
     offs = np.array(offsets, np.int64)
     w, h = hdr["width"], hdr["height"]
     sx, sy = seq["ss"]
-    y = np.zeros((h, w), np.uint8)
+    dtype = np.uint8 if seq["bit_depth"] == 8 else np.uint16
+    y = np.zeros((h, w), dtype)
     u = v = None
-    ptr = ctypes.POINTER(ctypes.c_uint8)
     uv = [None, None]
     if not seq["mono"]:
-        u = np.zeros(((h + sy) >> sy, (w + sx) >> sx), np.uint8)
+        u = np.zeros(((h + sy) >> sy, (w + sx) >> sx), dtype)
         v = np.zeros_like(u)
-        uv = [u.ctypes.data_as(ptr), v.ctypes.data_as(ptr)]
+        uv = [u.ctypes.data, v.ctypes.data]
     err = ctypes.create_string_buffer(256)
     rc = fn(params.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), blob,
-            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(tiles), y.ctypes.data_as(ptr), *uv, err, 256)
+            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(tiles), y.ctypes.data, *uv, err, 256)
     if rc:
         raise DecodeError(f"Failed to decode frame 0: {err.value.decode()}")
     return y, u, v, seq

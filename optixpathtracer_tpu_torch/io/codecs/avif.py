@@ -1,7 +1,7 @@
 """AVIF, as PIL 12 reads it through libavif 1.3: the HEIF / ISOBMFF
-container, the primary item's AV1 still (4:2:0, 4:2:2, 4:4:4 or 4:0:0)
-through codecs/av1_obu.py and the native tile decoder, then libavif's
-YUV -> RGB (codecs/avif_yuv.py).
+container, the primary item's AV1 still (4:2:0, 4:2:2, 4:4:4 or 4:0:0; 8,
+10 or 12 bits) through codecs/av1_obu.py and the native tile decoder, then
+libavif's YUV -> RGB (codecs/avif_yuv.py).
 
 The container: `ftyp` (libavif's brand rules: the file is AVIF when the
 major or a compatible brand is `avif` or `avis`; otherwise PIL's plugin
@@ -26,7 +26,7 @@ UnidentifiedImageError); a primary item that is missing or not `av01` ->
 `DecodeError` (ValueError + OSError) for the last two where PIL raises
 RuntimeError and SyntaxError (ROADMAP C.14). A `grid` item and image
 sequences raise NotImplementedError naming the variant and ROADMAP A.1
-(AVIF step 3).
+(AVIF step 4).
 
 Alpha: an av01 item with an `auxl` reference to the primary item and the
 alpha URN in its `auxC` is decoded with the same decoder (libaom writes it
@@ -36,7 +36,10 @@ decodes; with a `prem` reference from the colour item to the alpha item
 (PIL's `alpha_premultiplied=True`) libavif un-premultiplies the colour by
 the alpha before PIL sees it, and so does the port (avif_yuv.unpremultiply).
 libavif ignores an alpha item without data (but fails on one cut short),
-as the port does, and scales
+as the port does, fails on an alpha item of another bit depth than the
+colour's ("Decoding of alpha plane failed"), as the port does, brings a
+10- or 12-bit alpha to 8 bits before it un-premultiplies
+(avif_yuv.alpha8), and scales
 an alpha plane of another size than the colour's to it: with straight
 alpha that changes nothing PIL returns; premultiplied, it raises A.1, as
 does a premultiplied alpha in limited range."""
@@ -46,7 +49,7 @@ import numpy as np
 
 from . import av1_obu
 from ._common import DecodeError, NotThisFormat, u16be, u32be
-from .avif_yuv import to_rgb, unpremultiply
+from .avif_yuv import alpha8, to_rgb, unpremultiply
 
 MISSING_ITEM = "Failed to decode image: Missing or empty image item"
 TRUNCATED = "Failed to decode frame 0: Truncated data"
@@ -333,13 +336,16 @@ def alpha_plane(data: bytes):
 def rgb8(data: bytes) -> np.ndarray:
     obus, colour, alpha_obus, premultiplied = _parse(data)
     y, u, v, seq, (matrix, full) = _decode(obus, colour)
-    rgb = to_rgb(y, u, v, seq["ss"], matrix, full, rgba=alpha_obus is not None)
+    depth, ss = seq["bit_depth"], None if u is None else seq["ss"]
+    rgb = to_rgb(y, u, v, ss, matrix, full, rgba=alpha_obus is not None, depth=depth)
     if alpha_obus is not None:
         alpha, aseq = _decode_alpha(alpha_obus)  # decoded also when straight: it fails as libavif fails
+        if aseq["bit_depth"] != depth:
+            raise DecodeError(ALPHA_FAILED)
         if premultiplied:
             if alpha.shape != y.shape:
                 raise av1_obu.unsupported("premultiplied alpha of another size than the colour (libavif scales it)")
             if not aseq["color_range"]:
                 raise av1_obu.unsupported("limited-range premultiplied alpha")
-            rgb = unpremultiply(rgb, alpha)
+            rgb = unpremultiply(rgb, alpha8(alpha, aseq["bit_depth"], ss))
     return rgb

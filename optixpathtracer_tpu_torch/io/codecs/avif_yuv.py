@@ -1,5 +1,6 @@
-"""libavif 1.3's YUV -> RGB for 8-bit stills, as PIL asks for it (RGB or
-RGBA, depth 8, AVIF_CHROMA_UPSAMPLING_AUTOMATIC), and its un-premultiply.
+"""libavif 1.3's YUV -> RGB for 8-, 10- and 12-bit stills, as PIL asks for
+it (RGB or RGBA, depth 8, AVIF_CHROMA_UPSAMPLING_AUTOMATIC), and its
+un-premultiply.
 
 - 4:2:0 (`yuv420_to_rgb`): libavif hands the planes to libyuv's
   I420ToRGB24MatrixFilter with the bilinear filter, so the chroma is
@@ -28,7 +29,30 @@ NotImplementedError naming ROADMAP A.1.
   reference) and PIL asks for straight alpha: a 16-bit reciprocal
   (0x10000 / a; 0xFFFF for a = 1), c * 257 times it >> 16, saturated as
   the SIMD lanes saturate (above 32767 -> 0, above 255 -> 255); a = 255
-  leaves the colour, a = 0 makes it 0."""
+  leaves the colour, a = 0 makes it 0.
+
+10- and 12-bit planes (`to_rgb(..., depth=)`) take one of three routes,
+as libavif 1.3 picks them for an 8-bit RGB(A) result:
+
+- RGB (no alpha item) in 4:4:4, 4:2:2 and 4:2:0, and RGBA in 4:4:4 and
+  4:2:2 at 12 bits, and in 4:0:0 at either depth: the planes brought to
+  8 bits first (libyuv's Convert16To8Plane: Y >> (depth - 8)), then the
+  8-bit route above;
+- RGB in 4:0:0: the grey path at the depth ((Y - (16 << (depth - 8))) /
+  (219 << (depth - 8)) limited, Y / (2^depth - 1) full, in float32);
+- RGBA at 10 bits (I410 / I210ToARGBMatrix(Filter), I010ToARGBMatrixFilter:
+  the chroma upsampled at 10 bits with the kernels above) and 4:2:0 at 12
+  bits (I012ToARGBMatrix: each chroma sample repeated over its 2 x 2
+  pixels): libyuv's YuvPixel10 / YuvPixel12, the luma widened to 16 bits
+  ((Y << 6) | (Y >> 4), (Y << 4) | (Y >> 8)) and the chroma cut to 8
+  (U >> 2, U >> 4) before the same constants.
+
+`alpha8(alpha, depth, layout)` brings an alpha plane of that depth to 8
+bits as libavif does beside each route: Y >> (depth - 8) where libyuv
+converts the alpha with the colour (10-bit 4:4:4 / 4:2:2 / 4:2:0, 12-bit
+4:4:4 / 4:2:2), libavif's float rounding (a / (2^depth - 1) * 255 + 0.5,
+truncated) where it does not (4:0:0, 12-bit 4:2:0). The un-premultiply
+then runs on the 8-bit RGBA."""
 from __future__ import annotations
 
 import numpy as np
@@ -94,57 +118,103 @@ def upsample(c: np.ndarray, width: int, height: int) -> np.ndarray:
     return np.stack(rows[:height])
 
 
-def yuv444_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray, matrix: int, full: int) -> np.ndarray:
-    """libyuv YuvPixel over whole planes -> (H, W, 3) uint8."""
+def yuv444_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray, matrix: int, full: int,
+                  depth: int = 8) -> np.ndarray:
+    """libyuv YuvPixel (YuvPixel10 / YuvPixel12 at `depth` 10 / 12) over
+    whole planes -> (H, W, 3) uint8."""
     if matrix not in _FAMILY:
         raise NotImplementedError(f"AVIF of matrix coefficients {matrix} is not ported (ROADMAP A.1)")
     yg, yb, ub, ug, vg, vr = _CONSTANTS[(_FAMILY[matrix], int(bool(full)))]
     bb, bg, br = ub * 128 - yb, ug * 128 + vg * 128 + yb, vr * 128 - yb
-    y1 = ((y.astype(np.int64) * 0x0101 * yg) & 0xFFFFFFFF) >> 16
+    y = y.astype(np.int64)
     u = u.astype(np.int64)
     v = v.astype(np.int64)
+    if depth == 8:
+        y32 = y * 0x0101
+    else:  # the luma widened to 16 bits, the chroma cut to 8
+        y32 = (y << (16 - depth)) | (y >> (2 * depth - 16))
+        u = np.minimum(u >> (depth - 8), 255)
+        v = np.minimum(v >> (depth - 8), 255)
+    y1 = ((y32 * yg) & 0xFFFFFFFF) >> 16
     b = y1 + u * ub - bb
     g = y1 + bg - (u * ug + v * vg)
     r = y1 + v * vr - br
     return np.clip(np.stack([r, g, b], -1) >> 6, 0, 255).astype(np.uint8)
 
 
-def yuv420_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray, matrix: int, full: int) -> np.ndarray:
+def yuv420_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray, matrix: int, full: int,
+                  depth: int = 8) -> np.ndarray:
     h, w = y.shape
-    return yuv444_to_rgb(y, upsample(u, w, h), upsample(v, w, h), matrix, full)
+    return yuv444_to_rgb(y, upsample(u, w, h), upsample(v, w, h), matrix, full, depth)
 
 
-def yuv422_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray, matrix: int, full: int) -> np.ndarray:
+def yuv422_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray, matrix: int, full: int,
+                  depth: int = 8) -> np.ndarray:
     w = y.shape[1]
     return yuv444_to_rgb(y, np.stack([_up_linear(r, w) for r in u]), np.stack([_up_linear(r, w) for r in v]),
-                         matrix, full)
+                         matrix, full, depth)
 
 
-def _grey_table(full: int) -> np.ndarray:
+def _grey_table(full: int, depth: int) -> np.ndarray:
     f = np.float32
-    y = np.arange(256, dtype=f)
-    unorm = y / f(255) if full else (y - f(16)) / f(219)
+    y = np.arange(1 << depth, dtype=f)
+    scale = 1 << (depth - 8)
+    unorm = y / f((1 << depth) - 1) if full else (y - f(16 * scale)) / f(219 * scale)
     return (f(0.5) + np.clip(unorm, f(0), f(1)) * f(255)).astype(np.uint8)
 
 
-_GREY = {0: _grey_table(0), 1: _grey_table(1)}
+_GREY = {(full, depth): _grey_table(full, depth) for full in (0, 1) for depth in (8, 10, 12)}
 
 
-def yuv400_to_rgb(y: np.ndarray, full: int) -> np.ndarray:
-    return np.repeat(_GREY[int(bool(full))][y][..., None], 3, -1)
+def yuv400_to_rgb(y: np.ndarray, full: int, depth: int = 8) -> np.ndarray:
+    return np.repeat(_GREY[(int(bool(full)), depth)][y][..., None], 3, -1)
 
 
-def to_rgb(y: np.ndarray, u, v, ss, matrix: int, full: int, rgba: bool = False) -> np.ndarray:
+def downshift(plane, depth: int):
+    """libyuv's Convert16To8Plane at libavif's scale: a plane of `depth`
+    bits -> uint8 (None stays None)."""
+    return None if plane is None else (plane >> (depth - 8)).astype(np.uint8)
+
+
+def _alpha_table(depth: int) -> np.ndarray:
+    f = np.float32
+    a = np.arange(1 << depth, dtype=f)
+    return (f(0.5) + a / f((1 << depth) - 1) * f(255)).astype(np.uint8)
+
+
+_ALPHA = {depth: _alpha_table(depth) for depth in (10, 12)}
+
+
+def alpha8(alpha: np.ndarray, depth: int, ss) -> np.ndarray:
+    """An alpha plane of `depth` bits -> uint8, as libavif brings it beside
+    the colour of layout `ss` (None for 4:0:0): shifted where libyuv
+    converts it, rounded in float where libavif does."""
+    if depth == 8:
+        return alpha
+    if ss is None or (depth == 12 and tuple(ss) == (1, 1)):
+        return _ALPHA[depth][alpha]
+    return downshift(alpha, depth)
+
+
+def to_rgb(y: np.ndarray, u, v, ss, matrix: int, full: int, rgba: bool = False, depth: int = 8) -> np.ndarray:
     """Planes of any layout (`ss` the subsampling, u / v None for 4:0:0)
-    -> (H, W, 3) uint8; `rgba` where the image has alpha (PIL asks
-    libavif for RGBA)."""
+    and depth (8, 10, 12) -> (H, W, 3) uint8; `rgba` where the image has
+    alpha (PIL asks libavif for RGBA)."""
+    if depth > 8 and u is None and not rgba:
+        return yuv400_to_rgb(y, full, depth)
+    if depth == 12 and rgba and u is not None and tuple(ss) == (1, 1):  # I012ToARGBMatrix: nearest chroma
+        h, w = y.shape
+        u, v = (np.repeat(np.repeat(c, 2, 0), 2, 1)[:h, :w] for c in (u, v))
+        return yuv444_to_rgb(y, u, v, matrix, full, depth)
+    if depth > 8 and not (depth == 10 and rgba and u is not None):  # every other route but libyuv's 10-bit
+        y, u, v, depth = downshift(y, depth), downshift(u, depth), downshift(v, depth), 8
     if u is None:
         if not rgba:
             return yuv400_to_rgb(y, full)
         u = v = np.full_like(y, 128)
         return yuv444_to_rgb(y, u, v, matrix, full)
     convert = {(1, 1): yuv420_to_rgb, (1, 0): yuv422_to_rgb, (0, 0): yuv444_to_rgb}[tuple(ss)]
-    return convert(y, u, v, matrix, full)
+    return convert(y, u, v, matrix, full, depth)
 
 
 _RECIP = np.array([0, 0xFFFF] + [0x10000 // a for a in range(2, 256)], np.int64)

@@ -13,11 +13,12 @@ variants that raise A.1, and the native switch.
   UnidentifiedImageError); a primary item of type hvc1 and a file cut 40
   bytes short fail with PIL's reason (the port's DecodeError, where PIL
   raises RuntimeError and SyntaxError).
-- A.1 for the step-3 variants, naming the variant: film grain, quantizer
+- A.1 for the step-4 variants, naming the variant: film grain, quantizer
   matrices and a `grid` item (tests/torch_fixtures/avif_raises/), and
-  10-bit and film grain by flipping their bits in a sequence header; the
-  monochrome bit, which once raised here too, now names a layout the port
-  decodes (a PIL 4:0:0 still decodes as PIL decodes it).
+  film grain by flipping its bit in a sequence header; the monochrome and
+  high_bitdepth bits, which once raised here too, now name a layout and a
+  depth the port decodes (a PIL 4:0:0 still decodes as PIL decodes it; the
+  8-bit still read as 10-bit decodes as PIL decodes it).
 - OPTIX_TPU_NO_NATIVE=1 raises naming the switch (there is no Python tile
   decoder); a failed build raises.
 - The native inverse DCT (4-64 points, one generic butterfly network) and
@@ -30,6 +31,7 @@ import re
 import numpy as np
 import pytest
 
+import torch_avif_oracle as oracle
 from optixpathtracer_tpu_torch.io import codecs
 from optixpathtracer_tpu_torch.io.codecs import av1_obu, avif
 from optixpathtracer_tpu_torch.utils import host_build
@@ -283,14 +285,23 @@ def _flip_sequence_bit(data: bytes, offset_from_color_config: int) -> bytes:
 
 @pytest.mark.parametrize("offset,variant", [(0, "10-bit AV1"), (1, "monochrome AV1")])
 def test_step2_sequence_variants_raise_a1(offset, variant):
-    """10-bit still raises A.1 (AVIF step 3). Monochrome, once a step-2 gap
-    here, is decoded now: the flipped bit gives a monochrome header that
-    the port parses (no A.1), and a 4:0:0 still PIL writes decodes as PIL
-    decodes it."""
+    """10-bit, once a step-3 gap here, is decoded now: the flipped
+    high_bitdepth bit gives a 10-bit header, and the file (its tiles coded
+    for 8 bits, read at 10) decodes as PIL decodes it, planes as dav1d's.
+    Monochrome, once a step-2 gap, is decoded too: the flipped bit gives a
+    monochrome header that the port parses (no A.1), and a 4:0:0 still PIL
+    writes decodes as PIL decodes it."""
     flipped = _flip_sequence_bit(_fixture("avif_37x23.avif"), offset)
     if variant == "10-bit AV1":
-        with pytest.raises(NotImplementedError, match=f"AVIF of {variant}.*ROADMAP A.1"):
-            codecs.rgb8(flipped)
+        obus, _ = avif.parse(flipped)
+        assert av1_obu.sequence_header(av1_obu.split_obus(obus)[1][1])["bit_depth"] == 10
+        y, u, v, seq, _ = avif.planes(flipped)
+        assert y.dtype == np.uint16 and seq["bit_depth"] == 10
+        np.testing.assert_array_equal(codecs.rgb8(flipped), pil_rgb(flipped))
+        if oracle.available():
+            _, want = oracle.planes(flipped)
+            for got, ref in zip((y, u, v), want):
+                np.testing.assert_array_equal(got, ref)
         return
     obus, _ = avif.parse(flipped)
     assert av1_obu.sequence_header(av1_obu.split_obus(obus)[1][1])["mono"] == 1

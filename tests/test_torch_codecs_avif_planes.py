@@ -3,14 +3,16 @@ Y / U / V planes of the port's native tile decoder (csrc/host/av1_dec.cpp
 through io/codecs/av1_obu.py) equal to dav1d's, as PIL's bundled libavif
 returns them (`avifDecoderReadMemory` through ctypes,
 tests/torch_avif_oracle.py), plane for plane and sample for sample, in
-every chroma layout (4:2:0, 4:2:2, 4:4:4; Y alone for 4:0:0), and the
-alpha item's plane equal to libavif's alpha plane.
+every chroma layout (4:2:0, 4:2:2, 4:4:4; Y alone for 4:0:0) and depth
+(uint8 at 8 bits, uint16 at 10 and 12), and the alpha item's plane equal
+to libavif's alpha plane.
 
 Every AVIF fixture (the four quantizer buckets and lossless, speeds 0 / 5 /
 6 / 10, one and 2 x 2 tiles, 64 and 128 superblocks, odd sizes, both
 ranges, the loft with palette and IntraBC; AVIF step 2's layouts, straight
 and premultiplied alpha, loop restoration at speeds 0 / 2 / 4, CDEF in
-three layouts, both filters on 128 superblocks, the loft's sixth set), and
+three layouts, both filters on 128 superblocks, the loft's sixth set; AVIF
+step 3's 10- and 12-bit stills), and
 seeded stills of aom's screen-content paths (palette, IntraBC over repeated
 tiles, odd sizes at the frame edge) written here. Skips where PIL ships no
 libavif.
@@ -40,7 +42,8 @@ LAYOUT = {(0, 0): 1, (1, 0): 2, (1, 1): 3}
 def _assert_planes_equal(data: bytes) -> None:
     (w, h, depth, fmt, full), want = oracle.planes(data)
     y, u, v, seq, colour = avif.planes(data)
-    assert depth == 8 and fmt == (4 if seq["mono"] else LAYOUT[seq["ss"]]) and y.shape == (h, w)
+    assert depth == seq["bit_depth"] and fmt == (4 if seq["mono"] else LAYOUT[seq["ss"]]) and y.shape == (h, w)
+    assert y.dtype == (np.uint8 if depth == 8 else np.uint16)
     assert colour[1] == full
     got = [y] if seq["mono"] else [y, u, v]
     assert len(got) == len(want)

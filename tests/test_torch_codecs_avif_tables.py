@@ -2,7 +2,7 @@
 (optixpathtracer_tpu_torch/csrc/host/av1_tables.h): the header equals what
 tests/torch_fixtures/gen_av1_tables.py reads out of the read-only data of
 PIL's bundled libavif (libaom's and dav1d's default CDFs, quantizer
-lookups, directional derivatives, smooth weights, filter-intra taps and
+lookups at 8, 10 and 12 bits, directional derivatives, smooth weights, filter-intra taps and
 the DCT / ADST constants, CDEF's and loop restoration's tables), and the
 first row of each table, with a few more rows, equals the values the AV1
 specification prints. The comparison
@@ -119,8 +119,14 @@ def test_rows_the_specification_prints():
         text = f.read()
     assert _table(text, "Default_Intra_Frame_Y_Mode_Cdf")[:4] == [15588, 17027, 19338, 20218]
     assert _table(text, "Default_Skip_Cdf") == [31671, 32768, 0, 16515, 32768, 0, 4576, 32768, 0]
-    assert _table(text, "Dc_Qlookup")[:4] == [4, 8, 8, 9] and _table(text, "Dc_Qlookup")[-1] == 1336
-    assert _table(text, "Ac_Qlookup")[-1] == 1828
+    # Dc_Qlookup / Ac_Qlookup hold the rows of 8, 10 and 12 bits: the first
+    # and last values of each as the specification prints them
+    dc, ac = _table(text, "Dc_Qlookup"), _table(text, "Ac_Qlookup")
+    assert len(dc) == len(ac) == 3 * 256
+    assert [dc[256 * k:256 * k + 4] for k in range(3)] == [[4, 8, 8, 9], [4, 9, 10, 13], [4, 12, 18, 25]]
+    assert [dc[256 * k + 255] for k in range(3)] == [1336, 5347, 21387]
+    assert [ac[256 * k:256 * k + 4] for k in range(3)] == [[4, 8, 9, 10], [4, 9, 11, 13], [4, 13, 19, 27]]
+    assert [ac[256 * k + 255] for k in range(3)] == [1828, 7312, 29247]
     assert _table(text, "Sm_Weights")[:4] == [255, 149, 85, 64]
     assert _table(text, "Cos128_Lookup")[32] == 2896 and _table(text, "Sinpi_Lookup")[1:] == [1321, 2482, 3344, 3803]
     # the last rows of the self-guided parameters and CDEF's directions

@@ -1,29 +1,41 @@
 """The AVIF reference of the tests: PIL's bundled libavif (dav1d inside)
-through ctypes, where PIL ships it.
+through ctypes, where PIL ships it, and OpenCV's bundled libavif (aom
+inside, built for high bit depth) as the writer of 10- and 12-bit stills.
 
 - `planes(data)`: `avifDecoderReadMemory`'s Y / U / V planes (each of
-  its own size: 4:2:0, 4:2:2, 4:4:4; Y alone for 4:0:0) and
-  (width, height, depth, yuvFormat, yuvRange) - dav1d's decode before any
-  colour conversion; `alpha(data)` the alpha plane (None without one) and
-  whether libavif marks it premultiplied.
+  its own size: 4:2:0, 4:2:2, 4:4:4; Y alone for 4:0:0; uint8 at depth 8,
+  uint16 above) and (width, height, depth, yuvFormat, yuvRange) - dav1d's
+  decode before any colour conversion; `alpha(data)` the alpha plane (None
+  without one) and whether libavif marks it premultiplied.
 - `yuv_to_rgb(template, y, u, v, matrix, full, alpha=None, premultiplied=0)`:
   `avifImageYUVToRGB` with PIL's settings (RGB, or RGBA where an alpha
   plane is given, as PIL asks for an image with alpha; depth 8, automatic
   chroma upsampling) on planes of our own, written into an image decoded
   from `template` (an AVIF of the same size and layout, so that libavif
-  owns the buffers) -> the RGB channels.
+  owns the buffers) or made by `avifImageCreate` where `template` is
+  (width, height, depth, yuvFormat) -> the RGB channels (and alpha, with
+  `rgba=True`).
 - `unpremultiply(rgba)`: `avifRGBImageUnpremultiplyAlpha` on 8-bit RGBA.
 - `encode(y, grid)`: libavif's own encoder, for the `grid` stills PIL's
   save does not write.
+- `encode_hbd(planes, depth, yuv_format, ...)`: OpenCV's libavif 1.4
+  encoder (aom 3.14 inside) on planes of our own at any depth and layout,
+  with alpha straight or premultiplied, either range, aom's speed and
+  quality, tiles and codec-specific options (`enable-cdef`, ...): the 10-
+  and 12-bit stills PIL's aom does not write. `hbd_available()` is False
+  where OpenCV ships no libavif.
 
-The offsets are those of libavif 1.3's `avifImage` (width, height, depth,
-yuvFormat (1 4:4:4, 2 4:2:2, 3 4:2:0, 4 4:0:0), yuvRange, chroma position;
-yuvPlanes at 24, yuvRowBytes at 48; alphaPlane at 64, alphaRowBytes at 72,
-alphaPremultiplied at 80; colorPrimaries / transferCharacteristics /
-matrixCoefficients as uint16 at 104 / 106 / 108) and `avifRGBImage`
-(depth at 8, format at 12 (0 RGB, 1 RGBA), alphaPremultiplied at 32,
-pixels at 48, rowBytes at 56). `available()` is False where PIL ships no
-libavif.
+The offsets are those of libavif's `avifImage`, the same in 1.3 and 1.4
+(soname 16; width, height, depth, yuvFormat (1 4:4:4, 2 4:2:2, 3 4:2:0,
+4 4:0:0), yuvRange, chroma position; yuvPlanes at 24, yuvRowBytes at 48;
+alphaPlane at 64, alphaRowBytes at 72, alphaPremultiplied at 80;
+colorPrimaries / transferCharacteristics / matrixCoefficients as uint16 at
+104 / 106 / 108), `avifRGBImage` (depth at 8, format at 12 (0 RGB, 1
+RGBA), alphaPremultiplied at 32, pixels at 48, rowBytes at 56) and 1.4's
+`avifEncoder` (speed at 8, quality and qualityAlpha at 32 and 36,
+tileRowsLog2 and tileColsLog2 at 56 and 60; a new encoder reads maxThreads
+1, speed -1, timescale 1, quality -1, maxQuantizer 63 there, which
+`encode_hbd` checks). `available()` is False where PIL ships no libavif.
 """
 from __future__ import annotations
 
@@ -84,9 +96,11 @@ def _read(data: bytes):
 SUBSAMPLING = {1: (0, 0), 2: (1, 0), 3: (1, 1), 4: None}
 
 
-def _view(ptr: int, stride: int, h: int, w: int) -> np.ndarray:
+def _view(ptr: int, stride: int, h: int, w: int, depth: int = 8) -> np.ndarray:
+    """A plane of `stride` bytes a row: uint8 samples at depth 8, uint16 above."""
+    dtype = np.uint8 if depth <= 8 else np.uint16
     buf = (ctypes.c_uint8 * (stride * h)).from_address(ptr)
-    return np.frombuffer(buf, np.uint8).reshape(h, stride)[:, :w]
+    return np.frombuffer(buf, dtype).reshape(h, stride // dtype().itemsize)[:, :w]
 
 
 def _plane_views(im):
@@ -97,16 +111,16 @@ def _plane_views(im):
     if SUBSAMPLING[fmt] is not None:
         sx, sy = SUBSAMPLING[fmt]
         dims += [((h + sy) >> sy, (w + sx) >> sx)] * 2
-    views = [_view(ptrs[p], strides[p], *dims[p]) for p in range(len(dims))]
+    views = [_view(ptrs[p], strides[p], *dims[p], depth) for p in range(len(dims))]
     return (w, h, depth, fmt, rng), views
 
 
 def _alpha_view(im):
-    w, h = (ctypes.c_uint32 * 2).from_address(im)
+    w, h, depth = (ctypes.c_uint32 * 3).from_address(im)
     ptr = ctypes.c_void_p.from_address(im + 64).value
     if not ptr:
         return None
-    return _view(ptr, ctypes.c_uint32.from_address(im + 72).value, h, w)
+    return _view(ptr, ctypes.c_uint32.from_address(im + 72).value, h, w, depth)
 
 
 def planes(data: bytes):
@@ -143,10 +157,22 @@ def unpremultiply(rgba: np.ndarray) -> np.ndarray:
     return px
 
 
-def yuv_to_rgb(template: bytes, y: np.ndarray, u, v, matrix: int, full: int, alpha=None,
-               premultiplied: int = 0) -> np.ndarray:
+def _create(lib, w: int, h: int, depth: int, fmt: int, with_alpha: bool):
+    """A new avifImage of that size, depth and layout with its planes."""
+    lib.avifImageCreate.restype = ctypes.c_void_p
+    lib.avifImageCreate.argtypes = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int]
+    lib.avifImageAllocatePlanes.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    im = lib.avifImageCreate(w, h, depth, fmt)
+    if lib.avifImageAllocatePlanes(im, 3 if with_alpha else 1) != 0:  # AVIF_PLANES_YUV (| AVIF_PLANES_A)
+        lib.avifImageDestroy(im)
+        raise RuntimeError("avifImageAllocatePlanes failed")
+    return im
+
+
+def yuv_to_rgb(template, y: np.ndarray, u, v, matrix: int, full: int, alpha=None,
+               premultiplied: int = 0, rgba: bool = False) -> np.ndarray:
     lib = _lib()
-    im = _read(template)
+    im = _read(template) if isinstance(template, bytes) else _create(lib, *template, alpha is not None)
     try:
         (w, h, _, _, _), views = _plane_views(im)
         for view, plane in zip(views, (y, u, v)):
@@ -159,7 +185,7 @@ def yuv_to_rgb(template: bytes, y: np.ndarray, u, v, matrix: int, full: int, alp
         rgb = (ctypes.c_uint8 * 256)()
         lib.avifRGBImageSetDefaults(ctypes.addressof(rgb), im)
         channels = 3 if alpha is None else 4
-        struct.pack_into("<I", rgb, 12, channels - 3)  # AVIF_RGB_FORMAT_RGB / RGBA
+        struct.pack_into("<II", rgb, 8, 8, channels - 3)  # depth 8, as PIL asks; AVIF_RGB_FORMAT_RGB / RGBA
         if lib.avifRGBImageAllocatePixels(ctypes.addressof(rgb)) != 0:
             raise RuntimeError("avifRGBImageAllocatePixels failed")
         try:
@@ -168,7 +194,8 @@ def yuv_to_rgb(template: bytes, y: np.ndarray, u, v, matrix: int, full: int, alp
             ptr, = struct.unpack_from("<Q", rgb, 48)
             row_bytes, = struct.unpack_from("<I", rgb, 56)
             px = np.frombuffer((ctypes.c_uint8 * (row_bytes * h)).from_address(ptr), np.uint8)
-            return px.reshape(h, row_bytes)[:, :w * channels].reshape(h, w, channels)[..., :3].copy()
+            out = px.reshape(h, row_bytes)[:, :w * channels].reshape(h, w, channels)
+            return (out if rgba else out[..., :3]).copy()
         finally:
             lib.avifRGBImageFreePixels(ctypes.addressof(rgb))
     finally:
@@ -182,11 +209,8 @@ def encode(y: np.ndarray, grid: tuple[int, int] = (1, 1)) -> bytes:
     mid grey, as a `grid` of rows x cols cells of y's size (each cell y
     rolled by its index; cells of 64 x 64 and more, as libavif wants),
     through `avifEncoderAddImageGrid`: what PIL's save cannot write. (The
-    bundled aom writes no 10 / 12-bit AV1.)"""
+    bundled aom writes no 10 / 12-bit AV1: `encode_hbd` does.)"""
     lib = _lib()
-    lib.avifImageCreate.restype = ctypes.c_void_p
-    lib.avifImageCreate.argtypes = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int]
-    lib.avifImageAllocatePlanes.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.avifEncoderCreate.restype = ctypes.c_void_p
     lib.avifEncoderDestroy.argtypes = [ctypes.c_void_p]
     lib.avifEncoderAddImage.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int]
@@ -198,10 +222,8 @@ def encode(y: np.ndarray, grid: tuple[int, int] = (1, 1)) -> bytes:
     rows, cols = grid
     cells = []
     for k in range(rows * cols):
-        im = lib.avifImageCreate(w, h, 8, 3)  # AVIF_PIXEL_FORMAT_YUV420
+        im = _create(lib, w, h, 8, 3, False)  # AVIF_PIXEL_FORMAT_YUV420
         cells.append(im)
-        if lib.avifImageAllocatePlanes(im, 1) != 0:  # AVIF_PLANES_YUV
-            raise RuntimeError("avifImageAllocatePlanes failed")
         _, views = _plane_views(im)
         for p, view in enumerate(views):
             view[...] = np.roll(y, k, 1) if p == 0 else 128
@@ -222,3 +244,86 @@ def encode(y: np.ndarray, grid: tuple[int, int] = (1, 1)) -> bytes:
         lib.avifEncoderDestroy(enc)
         for im in cells:
             lib.avifImageDestroy(im)
+
+
+_HBD = None
+
+
+def hbd_library_path() -> str | None:
+    """OpenCV's bundled libavif, or None."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    libs = sorted(glob.glob(os.path.join(os.path.dirname(os.path.dirname(cv2.__file__)), "opencv_python.libs",
+                                         "libavif*.so*")))
+    return libs[0] if libs else None
+
+
+def hbd_available() -> bool:
+    return hbd_library_path() is not None
+
+
+def _hbd_lib():
+    global _HBD
+    if _HBD is None:
+        lib = ctypes.CDLL(hbd_library_path())
+        lib.avifImageCreate.restype = ctypes.c_void_p
+        lib.avifImageCreate.argtypes = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int]
+        lib.avifImageAllocatePlanes.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.avifImageDestroy.argtypes = [ctypes.c_void_p]
+        lib.avifEncoderCreate.restype = ctypes.c_void_p
+        lib.avifEncoderDestroy.argtypes = [ctypes.c_void_p]
+        lib.avifEncoderAddImage.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int]
+        lib.avifEncoderFinish.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.avifEncoderSetCodecSpecificOption.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p]
+        lib.avifRWDataFree.argtypes = [ctypes.c_void_p]
+        _HBD = lib
+    return _HBD
+
+
+def encode_hbd(planes, depth: int, yuv_format: int, full: int = 1, alpha=None, premultiplied: bool = False,
+               speed: int = 6, quality: int = 60, options: dict | None = None, matrix: int = 6,
+               tiles_log2: tuple[int, int] = (0, 0)) -> bytes:
+    """A still AVIF from our own planes through OpenCV's libavif 1.4 (aom
+    3.14): `planes` [Y] or [Y, U, V] of the layout's sizes (uint16 at depth
+    10 / 12), `yuv_format` 1-4 (4:4:4, 4:2:2, 4:2:0, 4:0:0), `full` range,
+    an `alpha` plane of the depth (stored premultiplied where asked: a
+    `prem` reference), aom's `speed` and `quality` (colour and alpha),
+    (rows, cols) tiles as log2, codec-specific `options` and the nclx
+    matrix (primaries BT.709, transfer sRGB). Quantizer matrices and delta
+    q, which libavif 1.4 turns on for aom, stay off unless `options` asks
+    for them (`enable-qm`, `deltaq-mode`)."""
+    lib = _hbd_lib()
+    h, w = planes[0].shape
+    im = _create(lib, w, h, depth, yuv_format, alpha is not None)
+    enc = lib.avifEncoderCreate()
+    out = (ctypes.c_uint8 * 16)()  # avifRWData: data, size
+    try:
+        struct.pack_into("<I", (ctypes.c_uint8 * 4).from_address(im + 16), 0, int(bool(full)))
+        struct.pack_into("<3H", (ctypes.c_uint8 * 6).from_address(im + 104), 0, 1, 13, matrix)
+        _, views = _plane_views(im)
+        for view, plane in zip(views, planes):
+            view[...] = plane
+        if alpha is not None:
+            _alpha_view(im)[...] = alpha
+            struct.pack_into("<I", (ctypes.c_uint8 * 4).from_address(im + 80), 0, int(premultiplied))
+        fields = (ctypes.c_uint8 * 64).from_address(enc)
+        defaults = struct.unpack_from("<iiiiQiIiiii", fields)
+        assert defaults[1:4] == (1, -1, 0) and defaults[4] == 1 and defaults[7] == -1 and defaults[10] == 63, defaults
+        struct.pack_into("<i", fields, 8, speed)
+        struct.pack_into("<ii", fields, 32, quality, quality)
+        struct.pack_into("<ii", fields, 56, *tiles_log2)
+        for key, value in {"enable-qm": 0, "deltaq-mode": 0, **(options or {})}.items():
+            if lib.avifEncoderSetCodecSpecificOption(enc, key.encode(), str(value).encode()) != 0:
+                raise RuntimeError(f"avifEncoderSetCodecSpecificOption {key} failed")
+        rc = lib.avifEncoderAddImage(enc, im, 1, 2)  # AVIF_ADD_IMAGE_FLAG_SINGLE
+        if rc != 0 or lib.avifEncoderFinish(enc, ctypes.addressof(out)) != 0:
+            raise RuntimeError(f"avifEncoder failed: {rc}")
+        ptr, size = struct.unpack_from("<QQ", out)
+        data = bytes((ctypes.c_uint8 * size).from_address(ptr))
+        lib.avifRWDataFree(ctypes.addressof(out))
+        return data
+    finally:
+        lib.avifEncoderDestroy(enc)
+        lib.avifImageDestroy(im)

@@ -1791,3 +1791,41 @@ def ojpeg_tables_tiff(jpeg: bytes, height: int, width: int, order: str = "<", ro
     base += struct.pack(order + "H", len(tags)) + entries + bytes(4)
     base[:8] = (b"II" if order == "<" else b"MM") + struct.pack(order + "HI", 42, ifd)
     return bytes(base)
+
+
+# ---- high-depth AVIF planes -----------------------------------------------------
+
+
+def yuv_planes(rgb: np.ndarray, depth: int, yuv_format: int, full: int = 1, seed: int | None = None):
+    """An (H, W, 3) uint8 image as BT.601 Y / U / V planes of `depth` bits
+    (uint16) in a libavif yuvFormat (1 4:4:4, 2 4:2:2, 3 4:2:0, 4 4:0:0: Y
+    alone; the chroma averaged over its block), in full or limited range,
+    with noise below the eighth bit where `seed` is given."""
+    h, w, _ = rgb.shape
+    rgb = rgb.astype(np.float64) / 255
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb, cr = (b - y) / 1.772 + 0.5, (r - y) / 1.402 + 0.5
+    top, scale = (1 << depth) - 1, 1 << (depth - 8)
+    rng = None if seed is None else np.random.default_rng(seed + 1000)
+
+    def code(p, lo, span):
+        v = lo + p * span
+        if rng is not None:
+            v = v + rng.normal(0, scale, p.shape)
+        return np.clip(np.rint(v), 0, top).astype(np.uint16)
+    out = [code(y, 0, top) if full else code(y, 16 * scale, 219 * scale)]
+    if yuv_format == 4:
+        return out
+    sx, sy = {1: (0, 0), 2: (1, 0), 3: (1, 1)}[yuv_format]
+    hc, wc = (h + sy) >> sy, (w + sx) >> sx
+    for c in (cb, cr):
+        c = np.pad(c, ((0, hc * (1 + sy) - h), (0, wc * (1 + sx) - w)), mode="edge")
+        c = c.reshape(hc, 1 + sy, wc, 1 + sx).mean((1, 3))
+        out.append(code(c, 0, top) if full else code(c, 16 * scale, 224 * scale))
+    return out
+
+
+def yuv_photo(h: int, w: int, seed: int, depth: int, yuv_format: int, full: int = 1) -> list[np.ndarray]:
+    """`photo` as `yuv_planes`, with noise in the bits below the eighth."""
+    return yuv_planes(photo(h, w, seed), depth, yuv_format, full, seed)

@@ -1,5 +1,5 @@
 """Write optixpathtracer_tpu_torch/csrc/host/av1_tables.h: the AV1 default
-CDFs a key frame reads, the 8-bit quantizer lookups, the directional
+CDFs a key frame reads, the quantizer lookups at 8, 10 and 12 bits, the directional
 derivatives, the smooth weights, the filter-intra taps, the transform
 rotation constants, and the tables of CDEF and loop restoration (AV1
 Bitstream & Decoding Process Specification, section 9.3 and the tables of
@@ -122,7 +122,7 @@ SPEC = {
     "Sgrproj_Xqd_Max": [31, 95],
     "Sgrproj_Xqd_Mid": [-32, 31],
 }
-SHAPES = {"Filter_Intra_Taps": "[5][8][7]", "Sgr_Params": "[16][4]", "Cdef_Uv_Dir": "[2][2][8]",
+SHAPES = {"Dc_Qlookup": "[3][256]", "Ac_Qlookup": "[3][256]", "Filter_Intra_Taps": "[5][8][7]", "Sgr_Params": "[16][4]", "Cdef_Uv_Dir": "[2][2][8]",
           "Cdef_Directions": "[8][2][2]", "Cdef_Pri_Taps": "[2][2]", "Cdef_Sec_Taps": "[2][2]"}
 
 
@@ -204,9 +204,12 @@ def scalars(ro: bytes) -> dict:
         at = find(ro, np.array(first)) if dtype == "<u2" else ro.find(np.array(first, dtype).tobytes())
         assert at >= 0, first
         return np.frombuffer(ro, dtype, count=count, offset=at).astype(int).tolist()
-    dc = grab([4, 8, 8, 9, 10, 11, 12, 12, 13, 14], "<i2", 256)
-    ac = grab([4, 8, 9, 10, 11, 12, 13, 14, 15, 16], "<i2", 256)
-    assert dc[-1] == 1336 and ac[-1] == 1828, (dc[-1], ac[-1])
+    # libaom's dc_qlookup_QTX / ac_qlookup_QTX and their _10_ and _12_ twins
+    dc = [grab([4, 8, 8, 9, 10, 11, 12, 12, 13, 14], "<i2", 256), grab([4, 9, 10, 13, 15, 17, 20, 22], "<i2", 256),
+          grab([4, 12, 18, 25, 33, 41, 50, 60], "<i2", 256)]
+    ac = [grab([4, 8, 9, 10, 11, 12, 13, 14, 15, 16], "<i2", 256), grab([4, 9, 11, 13, 16, 18, 21, 24], "<i2", 256),
+          grab([4, 13, 19, 27, 35, 44, 54, 64], "<i2", 256)]
+    assert [r[-1] for r in dc] == [1336, 5347, 21387] and [r[-1] for r in ac] == [1828, 7312, 29247], (dc, ac)
     drd = grab([0, 0, 0, 1023, 0, 0, 547, 0, 0, 372], "<i2", 90)
     sm = grab([255, 149, 85, 64, 255, 197, 146, 105], "u1", 4 + 8 + 16 + 32 + 64)
     taps = np.frombuffer(ro, "i1", count=5 * 8 * 8,

@@ -10,7 +10,10 @@ codestream with precincts and three layers, an ICNS of a JPEG 2000 entry)
 and in AVIF at PIL's defaults (a fifth set, lossy) and with PIL's own
 AVIF options (a sixth: 4:4:4 with CDEF, a premultiplied RGBA with loop
 restoration, 4:2:2);
-then one small image for each other variant the port decodes. PIL writes what it can write; tests/torch_codec_encoders.py
+then one small image for each other variant the port decodes. PIL writes what it can write; the 10- and
+12-bit AVIF stills PIL's aom does not write come from OpenCV's libavif
+(tests/torch_avif_oracle.py `encode_hbd`, so this script needs cv2 too);
+tests/torch_codec_encoders.py
 writes the rest (arithmetic, lossless and YCCK JPEG, RLE BMP, colour-mapped
 TGA, GIF with an offset frame, PSD, RLE SGI, JPEG-in-TIFF, CUR, a WebP
 animation, BC6H, a VP8 frame with the simple filter and four partitions) and
@@ -267,6 +270,41 @@ def avif_colr(data: bytes, primaries: int, transfer: int, matrix: int, full: int
     return data[:i] + nclx + data[i + 7:]
 
 
+def avif_as_12bit(data: bytes) -> bytes:
+    """A 10-bit AVIF of profile 0 (4:2:0) or 2 (4:2:2) without alpha, as
+    libavif writes it (a temporal delimiter, then a reduced still-picture
+    sequence header), relabelled as 12-bit profile 2: the sequence header
+    rewritten (seq_profile 2, twelve_bit 1, subsampling_x / _y after
+    color_range), the tiles left as coded, so that a decoder reads the same
+    symbols at 12 bits; aom writes no loop restoration at 12 bits, and this
+    is how a 12-bit restored frame is had. The header grows by at most two
+    bytes, taken from the dropped temporal delimiter."""
+    at = data.index(b"\x12\x00\x0a")
+    assert data.count(b"\x12\x00\x0a") == 1, "one item (no alpha)"
+    n = data[at + 3]
+    payload = data[at + 4:at + 4 + n]
+    bits = [(payload[i >> 3] >> (7 - (i & 7))) & 1 for i in range(8 * n)]
+
+    def read(pos: int, k: int) -> int:
+        return int("".join(map(str, bits[pos:pos + k])), 2)
+    profile = read(0, 3)
+    assert read(4, 1) == 1, "reduced still-picture header"
+    wbits, hbits = read(10, 4) + 1, read(14, 4) + 1
+    high = 18 + wbits + hbits + 6  # after the six tool flags: color_config
+    assert profile in (0, 2) and bits[high] == 1 and (profile == 0 or bits[high + 1] == 0), "10-bit, profile 0 / 2"
+    mono = high + 1 + (profile == 2)
+    assert bits[mono] == 0, "not monochrome"
+    color_range = mono + 2 + 24 * bits[mono + 1]
+    sy = 1 if profile == 0 else 0  # 4:2:0, or 4:2:2
+    end = color_range + 1 + 2 * sy + 2  # chroma_sample_position, separate_uv_delta_q, film grain
+    new = [0, 1, 0] + bits[3:high] + [1, 1] + bits[mono:color_range + 1] + [1, sy] + bits[color_range + 1:end] + [1]
+    new += [0] * (-len(new) % 8)
+    out = bytes(int("".join(map(str, new[i:i + 8])), 2) for i in range(0, len(new), 8))
+    assert len(out) <= n + 2
+    out += bytes(n + 2 - len(out))  # zero bytes after the trailing bits
+    return data[:at] + bytes([0x0A, len(out)]) + out + data[at + 4 + n:]
+
+
 def _smooth(h: int, w: int, seed: int) -> np.ndarray:
     """Slow colour waves with a little noise: a large image in few bytes."""
     y, x = np.mgrid[0:h, 0:w]
@@ -308,6 +346,7 @@ def _fixtures_avif(enc, pil, Image) -> dict[str, bytes]:
     exif[0x0112] = 6
     out["avif_orient6.avif"] = pil(small, "AVIF", exif=exif.tobytes())
     out.update(_fixtures_avif_options(enc, pil, Image))
+    out.update(_fixtures_avif_hbd(enc, Image))
     return out
 
 
@@ -360,6 +399,59 @@ def _fixtures_avif_options(enc, pil, Image) -> dict[str, bytes]:
     out["avif_sb128_cdef_lr.avif"] = pil(ph, "AVIF", quality=60, speed=0, advanced={"enable-cdef": "1"})
     out["avif_sequence_32.avif"] = pil(Image.fromarray(enc.photo(32, 32, 6)), "AVIF", save_all=True,
                                        append_images=[Image.fromarray(enc.photo(32, 32, 7))])
+    return out
+
+
+def _fixtures_avif_hbd(enc, Image) -> dict[str, bytes]:
+    """AVIF step 3: 10- and 12-bit stills from OpenCV's libavif 1.4 (aom
+    3.14; oracle.encode_hbd) on BT.601 planes of our own: each layout at
+    both depths (profile 0 4:2:0 / 4:0:0, profile 1 4:4:4 at 10 bits,
+    profile 2 4:2:2 and 12 bits), straight and premultiplied alpha of the
+    colour's depth (4:2:0, 4:4:4, 4:0:0: each of libavif's alpha routes),
+    limited range with BT.709 and BT.2020, CDEF (enable-cdef) and loop
+    restoration at speeds 0 / 2 / 4 (aom writes no restoration at 12 bits:
+    a 10-bit still relabelled 12-bit, `avif_as_12bit`, stands for it),
+    128 x 128 superblocks, odd sizes and a row of one, 2 x 2 tiles, and
+    the loft's tex1 at 10 bits and a few-colour still at 12 (screen-content
+    tools: palette, and IntraBC in the loft)."""
+    import torch_avif_oracle as oracle
+
+    out = {}
+    hbd = oracle.encode_hbd
+    for depth in (10, 12):
+        for k, (fmt, tag) in enumerate(((3, "420"), (1, "444"), (2, "422"), (4, "400"))):
+            out[f"avif{depth}_{tag}.avif"] = hbd(enc.yuv_photo(40, 48, 40 + k, depth, fmt), depth, fmt)
+    alpha = enc.yuv_photo(32, 40, 50, 10, 4)[0]
+    out["avif10_rgba.avif"] = hbd(enc.yuv_photo(32, 40, 51, 10, 3), 10, 3, alpha=alpha)
+    out["avif10_rgba_444_premultiplied.avif"] = hbd(enc.yuv_photo(32, 40, 52, 10, 1), 10, 1, alpha=alpha,
+                                                    premultiplied=True)
+    out["avif10_400_rgba_premultiplied.avif"] = hbd(enc.yuv_photo(32, 40, 53, 10, 4), 10, 4, alpha=alpha,
+                                                    premultiplied=True)
+    alpha12 = enc.yuv_photo(29, 35, 54, 12, 4)[0]
+    out["avif12_rgba_422.avif"] = hbd(enc.yuv_photo(29, 35, 55, 12, 2), 12, 2, alpha=alpha12)
+    out["avif12_rgba_premultiplied.avif"] = hbd(enc.yuv_photo(29, 35, 56, 12, 3), 12, 3, alpha=alpha12,
+                                                premultiplied=True)
+    out["avif10_limited_37x23.avif"] = hbd(enc.yuv_photo(23, 37, 57, 10, 3, 0), 10, 3, full=0)
+    out["avif10_bt709_limited_444.avif"] = hbd(enc.yuv_photo(23, 37, 58, 10, 1, 0), 10, 1, full=0, matrix=1)
+    out["avif12_bt2020_limited_422.avif"] = hbd(enc.yuv_photo(23, 37, 59, 12, 2, 0), 12, 2, full=0, matrix=9)
+    out["avif12_bt709.avif"] = hbd(enc.yuv_photo(23, 37, 60, 12, 3), 12, 3, matrix=1)
+    for speed, fmt in ((0, 3), (2, 1), (4, 2)):
+        out[f"avif10_cdef_lr_speed{speed}_128.avif"] = hbd(enc.yuv_photo(128, 128, 61 + speed, 10, fmt), 10, fmt,
+                                                           speed=speed, quality=50, options={"enable-cdef": 1})
+    out["avif12_cdef_sb128.avif"] = hbd(enc.yuv_photo(96, 96, 65, 12, 3), 12, 3, speed=0, quality=40,
+                                        options={"enable-cdef": 1})
+    out["avif12_lr_relabelled_420.avif"] = avif_as_12bit(hbd(enc.yuv_photo(102, 113, 5, 10, 3), 10, 3, speed=2,
+                                                             quality=70, options={"enable-cdef": 1}))
+    out["avif12_17x1.avif"] = hbd(enc.yuv_photo(1, 17, 66, 12, 3), 12, 3)
+    out["avif10_1x9_444.avif"] = hbd(enc.yuv_photo(9, 1, 67, 10, 1), 10, 1)
+    out["avif12_tiles_197x131.avif"] = hbd(enc.yuv_photo(131, 197, 68, 12, 3), 12, 3, quality=50,
+                                           tiles_log2=(1, 1))
+    loft = np.asarray(Image.open(os.path.join(REPO, "scenes", "loft_tex1.png")).convert("RGB"))
+    out["avif10_loft_tex1_intrabc.avif"] = hbd(enc.yuv_planes(loft, 10, 3), 10, 3, speed=4, quality=75)
+    rng = np.random.default_rng(69)
+    pal = rng.integers(0, 256, (5, 3))
+    few = pal[rng.integers(0, 5, (12, 16)).repeat(8, 0).repeat(8, 1)].astype(np.uint8)
+    out["avif12_palette.avif"] = hbd(enc.yuv_planes(few, 12, 1), 12, 1, speed=4, quality=75)
     return out
 
 
