@@ -201,11 +201,12 @@ port's paths and checks that each went through its kernels:
      two-frame sequence's still; AVIF step 3's 10- and 12-bit stills in
      every layout, with alpha, CDEF, loop restoration, palette and
      IntraBC, decoded by the uint16 build of av1_dec.cpp, their count and
-     host ms reported with the 8-bit 1024 x 1024 one's) are held to the
+     host ms reported with the 8-bit 1024 x 1024 one's; AVIF step 4's
+     film grain, quantizer matrices, delta q and delta lf at 8, 10 and 12
+     bits, each tool's count and host ms reported) are held to the
      manifest, each decode timed, and the AVIF files of
-     tests/torch_fixtures/avif_raises (film
-     grain, quantizer matrices, a grid, and what PIL refuses) raise what
-     its expected.json says. The JPEG 2000 fixtures (every progression, POC, tiles and
+     tests/torch_fixtures/avif_raises (a grid, AVIF step 5, and what PIL
+     refuses) raise what its expected.json says. The JPEG 2000 fixtures (every progression, POC, tiles and
      tile-parts, precincts, layers, each code-block style, SOP / EPH,
      ROI, PPT / PPM, precisions, subsampling, L / LA / RGBA / I;16 / CMYK /
      P / sYCC) are among the fixtures held to the manifest.
@@ -3141,8 +3142,11 @@ def codecs_scene(dev, card, counts):
     K2 / K3 on the flat walk in every card render; the AVIF files the port
     refuses raise what tests/torch_fixtures/avif_raises/expected.json says.
     Reports the 10- and 12-bit AVIF fixtures' count and host decode ms
-    (total, largest) and the 8-bit 1024 x 1024 one's. Returns the three
-    lossless loft renders' launches and the two AVIF lofts'."""
+    (total, largest), the count and host decode ms (total, largest) of the
+    AVIF fixtures using each AVIF step-4 tool (film grain applied,
+    quantizer matrices, delta q, delta lf; read from their frame headers),
+    and the 8-bit 1024 x 1024 one's. Returns the three lossless loft
+    renders' launches and the two AVIF lofts'."""
     import hashlib
 
     import torch
@@ -3154,14 +3158,22 @@ def codecs_scene(dev, card, counts):
     t_all = time.perf_counter()
     with open(os.path.join(CODEC_FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
-    decode_ms, bad, avif_depth = {}, [], {}
+    decode_ms, bad, avif_depth, avif_tools = {}, [], {}, {}
     for name, entry in sorted(manifest.items()):
         with open(os.path.join(CODEC_FIXTURES, name), "rb") as f:
             data = f.read()
         if name.endswith(".avif"):
             obus, _ = avif.parse(data)
-            avif_depth[name] = next(av1_obu.sequence_header(p)["bit_depth"] for k, p in av1_obu.split_obus(obus)
-                                    if k == av1_obu.OBU_SEQUENCE_HEADER)
+            seq = None
+            for k, p in av1_obu.split_obus(obus):
+                if k == av1_obu.OBU_SEQUENCE_HEADER:
+                    seq = av1_obu.sequence_header(p)
+                elif k in (av1_obu.OBU_FRAME, av1_obu.OBU_FRAME_HEADER):
+                    h = av1_obu.frame_header(av1_obu.Bits(p), seq)
+                    break
+            avif_depth[name] = seq["bit_depth"]
+            avif_tools[name] = {"grain": h["grain"]["apply_grain"], "qm": h["using_qmatrix"],
+                                "delta_q": h["delta_q_present"], "delta_lf": h["delta_lf_present"]}
         t0 = time.perf_counter()
         rgb = rgb8_from_bytes(data)
         decode_ms[name] = (time.perf_counter() - t0) * 1e3
@@ -3183,6 +3195,8 @@ def codecs_scene(dev, card, counts):
                 refused_wrongly.append(f"{name}: {type(e).__name__}: {e}")
     avif_ms = {n: ms for n, ms in decode_ms.items() if n.endswith(".avif")}
     hbd_ms = {n: ms for n, ms in avif_ms.items() if avif_depth[n] > 8}
+    tool_ms = {tool: [ms for n, ms in avif_ms.items() if avif_tools[n][tool]]
+               for tool in ("grain", "qm", "delta_q", "delta_lf")}
     scenes_by_kind, t_load = {}, {}
     for kind, names in (("png", {png: png for png in CODEC_LOSSLESS}), ("lossless", CODEC_LOSSLESS),
                         ("lossless2", CODEC_LOSSLESS2), ("lossless3", CODEC_LOSSLESS3), ("lossy", CODEC_LOSSY),
@@ -3209,6 +3223,9 @@ def codecs_scene(dev, card, counts):
          avif_decode_ms_total=sum(avif_ms.values()), avif_decode_ms_max=max(avif_ms.values(), default=0.0),
          avif_hbd_fixtures=len(hbd_ms), avif_hbd_decode_ms_total=sum(hbd_ms.values()),
          avif_hbd_decode_ms_max=max(hbd_ms.values(), default=0.0),
+         avif_tool_fixtures={t: len(v) for t, v in tool_ms.items()},
+         avif_tool_decode_ms_total={t: sum(v) for t, v in tool_ms.items()},
+         avif_tool_decode_ms_max={t: max(v, default=0.0) for t, v in tool_ms.items()},
          avif_1024_decode_ms=decode_ms.get("avif_1024_tiles.avif"), avif_refused=len(avif_raises),
          avif_refused_wrongly=refused_wrongly, load_obj_s=t_load, loft_textures_equal_png=equal_textures,
          lossless_frame_equals_png_frame=card_eq, lossy_rmse_card_vs_cpu=rmse["lossy"],

@@ -6,12 +6,15 @@
 // frame parameters and each tile's bytes here; this file decodes the tiles
 // (symbol decoder and CDF adaptation, partitions, intra modes with the edge
 // filter and upsampling, filter intra, CfL, palette, IntraBC, transform sizes
-// and types, coefficients, the inverse transforms and the lossless WHT, the
+// and types, coefficients, delta q and delta lf, the dequantiser with its
+// quantizer matrices, the inverse transforms and the lossless WHT, the
 // loop-restoration coefficients), then runs the frame's filters in the
-// specification's order: deblocking (7.14), CDEF (7.15) and loop restoration
-// (7.17), and returns each plane cropped to its size.
+// specification's order: deblocking (7.14, each block at its own level with
+// delta lf), CDEF (7.15) and loop restoration (7.17), adds film grain
+// (7.18.3) where the frame applies it, and returns each plane cropped to its
+// size.
 //
-// Names follow the specification (section 5.11 syntax, 7.10-7.17 decoding
+// Names follow the specification (section 5.11 syntax, 7.10-7.18 decoding
 // processes); the inverse DCT / ADST are the butterfly networks the
 // specification defines, with the intermediate add / subtract results
 // clamped to the stage range (BitDepth + 8 bits for the rows, Max(BitDepth +
@@ -20,8 +23,7 @@
 // planes at 8 bits (BitDepth fixed at 8, so the 8-bit path compiles as it
 // did), uint16_t planes at 10 and 12 bits with BitDepth read from the
 // parameters. Not handled here (the Python side raises before calling):
-// segmentation, delta q / delta lf, superres, film grain and quantizer
-// matrices.
+// segmentation and superres.
 //
 // Build: g++ -O2 -shared -fPIC (utils/host_build.py).
 #include <stdint.h>
@@ -186,6 +188,7 @@ struct Cdfs {
   uint16_t coeff_base[5][2][42][5];
   uint16_t coeff_br[5][2][21][5];
   uint16_t restoration_type[4], use_wiener[3], use_sgrproj[3];
+  uint16_t delta_q[5], delta_lf[5], delta_lf_multi[4][5];
 
   void init(int base_q_idx) {
     COPY(y_mode, Default_Intra_Frame_Y_Mode_Cdf);
@@ -245,6 +248,9 @@ struct Cdfs {
     COPY(restoration_type, Default_Restoration_Type_Cdf);
     COPY(use_wiener, Default_Use_Wiener_Cdf);
     COPY(use_sgrproj, Default_Use_Sgrproj_Cdf);
+    COPY(delta_q, Default_Delta_Q_Cdf);
+    COPY(delta_lf, Default_Delta_Lf_Cdf);
+    COPY(delta_lf_multi, Default_Delta_Lf_Multi_Cdf);
   }
 };
 
@@ -578,6 +584,17 @@ struct Params {
   int CdefDamping, cdef_y_pri[8], cdef_y_sec[8], cdef_uv_pri[8], cdef_uv_sec[8];
   int FrameRestorationType[3], LoopRestorationSize[3];
   int BitDepth;
+  // quantizer matrices (qm levels 15 where using_qmatrix is 0), delta q / lf
+  int using_qmatrix, qm_y, qm_u, qm_v;
+  int delta_q_present, delta_q_res, delta_lf_present, delta_lf_res, delta_lf_multi;
+  // film_grain_params (5.9.30; apply_grain 0: none) and the sequence's
+  // matrix_coefficients, which set film grain's chroma clip
+  int matrix_coefficients;
+  int apply_grain, grain_seed, num_y_points, point_y_value[14], point_y_scaling[14], chroma_scaling_from_luma,
+      num_cb_points, point_cb_value[10], point_cb_scaling[10], num_cr_points, point_cr_value[10],
+      point_cr_scaling[10], grain_scaling_minus_8, ar_coeff_lag, ar_coeffs_y_plus_128[24],
+      ar_coeffs_cb_plus_128[25], ar_coeffs_cr_plus_128[25], ar_coeff_shift_minus_6, grain_scale_shift, cb_mult,
+      cb_luma_mult, cb_offset, cr_mult, cr_luma_mult, cr_offset, overlap_flag, clip_to_restricted_range;
 };
 
 template <typename pixel>
@@ -603,6 +620,10 @@ struct Decoder {
   std::vector<uint8_t> LfTxSizes[3];  // per 4x4 of each plane
   int lfStride[3];
   std::vector<int8_t> CdefIdx;
+  // delta q / delta lf (5.11.5): the tile's running qindex and loop filter
+  // deltas, read at a superblock's first block, and each mi's deltas
+  int CurrentQIndex, DeltaLF[4], ReadDeltas;
+  std::vector<int8_t> DeltaLFs;  // 4 per mi
   // loop restoration, per plane and unit: type, Wiener taps [pass][3], the
   // self-guided set and its two projection weights
   int LrUnitRows[3], LrUnitCols[3];
@@ -779,6 +800,7 @@ struct Decoder {
         }
         MvRow[k] = is_inter ? Mv[0] : 0;
         MvCol[k] = is_inter ? Mv[1] : 0;
+        for (int i = 0; i < 4; i++) DeltaLFs[k * 4 + i] = DeltaLF[i];
         Decoded[k] = 1;
       }
     compute_prediction();
@@ -793,6 +815,9 @@ struct Decoder {
     if (AvailL) ctx += Skips[mi(MiRow, MiCol - 1)];
     skip = sd.symbol(cdf.skip[ctx], 2);
     read_cdef();
+    read_delta_qindex();
+    read_delta_lf();
+    ReadDeltas = 0;
     use_intrabc = 0;
     if (P.allow_intrabc) use_intrabc = sd.symbol(cdf.intrabc, 2);
     AngleDeltaY = AngleDeltaUV = 0;
@@ -845,6 +870,32 @@ struct Decoder {
       int w4 = bw4(MiSize), h4 = bh4(MiSize);
       for (int y = r; y < r + h4; y += cdefSize4)
         for (int x = c; x < c + w4; x += cdefSize4) CdefIdx[mi(y, x)] = CdefIdx[k];
+    }
+  }
+
+  // delta_q_abs / delta_lf_abs: 0-2, or 3 (DELTA_Q_SMALL / DELTA_LF_SMALL)
+  // and the rest in bits
+  int read_delta(uint16_t* cdf) {
+    int a = sd.symbol(cdf, 4);
+    if (a == 3) {
+      int n = sd.literal(3) + 1;
+      a = sd.literal(n) + (1 << n) + 1;
+    }
+    return a && sd.literal(1) ? -a : a;
+  }
+  void read_delta_qindex() {
+    int sbSize = P.use_128 ? BLOCK_128X128 : BLOCK_64X64;
+    if ((MiSize == sbSize && skip) || !ReadDeltas) return;
+    int d = read_delta(cdf.delta_q);
+    if (d) CurrentQIndex = clip3(1, 255, CurrentQIndex + d * (1 << P.delta_q_res));
+  }
+  void read_delta_lf() {
+    int sbSize = P.use_128 ? BLOCK_128X128 : BLOCK_64X64;
+    if ((MiSize == sbSize && skip) || !ReadDeltas || !P.delta_lf_present) return;
+    int count = P.delta_lf_multi ? (P.NumPlanes > 1 ? 4 : 2) : 1;  // FRAME_LF_COUNT
+    for (int i = 0; i < count; i++) {
+      int d = read_delta(P.delta_lf_multi ? cdf.delta_lf_multi[i] : cdf.delta_lf);
+      if (d) DeltaLF[i] = clip3(-63, 63, DeltaLF[i] + d * (1 << P.delta_lf_res));  // MAX_LOOP_FILTER
     }
   }
 
@@ -1976,13 +2027,15 @@ struct Decoder {
     return eob;
   }
 
+  // get_qidx: the block's qindex with delta q, else the frame's
+  int qidx() const { return P.delta_q_present ? CurrentQIndex : P.base_q_idx; }
   int dc_q(int plane) {
     int d = plane == 0 ? P.DeltaQYDc : plane == 1 ? P.DeltaQUDc : P.DeltaQVDc;
-    return Dc_Qlookup[(BitDepth - 8) >> 1][clip3(0, 255, P.base_q_idx + d)];
+    return Dc_Qlookup[(BitDepth - 8) >> 1][clip3(0, 255, qidx() + d)];
   }
   int ac_q(int plane) {
     int d = plane == 0 ? 0 : plane == 1 ? P.DeltaQUAc : P.DeltaQVAc;
-    return Ac_Qlookup[(BitDepth - 8) >> 1][clip3(0, 255, P.base_q_idx + d)];
+    return Ac_Qlookup[(BitDepth - 8) >> 1][clip3(0, 255, qidx() + d)];
   }
 
   void reconstruct(int plane, int x, int y, int txSz) {
@@ -1996,6 +2049,12 @@ struct Decoder {
     int flipLR = PlaneTxType == DCT_FLIPADST || PlaneTxType == ADST_FLIPADST || PlaneTxType == H_FLIPADST ||
                  PlaneTxType == FLIPADST_FLIPADST;
     int dcq = dc_q(plane), acq = ac_q(plane);
+    // the quantizer matrix of the plane's level (15, flat, where the frame
+    // is lossless or has none) scales a 2-D transform's steps; a 64-point
+    // size takes its 32-point matrix
+    int qmLevel = (Lossless || !P.using_qmatrix) ? 15 : plane == 0 ? P.qm_y : plane == 1 ? P.qm_u : P.qm_v;
+    const uint8_t* qm = qmLevel < 15 && PlaneTxType < IDTX ? Quantizer_Matrix[qmLevel][plane > 0] + Qm_Offset[txSz]
+                                                            : nullptr;
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) Dequant[i][j] = 0;
     for (int i = 0; i < th; i++)
@@ -2003,6 +2062,7 @@ struct Decoder {
         int32_t qv = Quant[i * tw + j];
         if (!qv) continue;
         int q = (i == 0 && j == 0) ? dcq : acq;
+        if (qm) q = round2((int64_t)q * qm[j * th + i], 5);  // AOM_QM_BITS; the matrix runs column by column
         int64_t dq = ((int64_t)abs(qv) * q) & 0xFFFFFF;
         dq = dq >> dqShift;
         if (qv < 0) dq = -dq;
@@ -2072,19 +2132,21 @@ struct Decoder {
       }
     }
   }
-  // the level of every edge of a plane and direction: without segmentation
-  // or delta lf it does not vary by block, so the spec's fall-back to the
-  // previous block's level changes nothing
-  void filter_strength(int plane, int pass, int* lvl, int* limit, int* blimit, int* thresh) {
+  // 7.14.4: the level of the block at (row, col) for a plane and direction,
+  // from the frame's level and the block's delta lf (one, or one per edge
+  // direction and plane with delta_lf_multi); segmentation is off
+  int filter_level(int row, int col, int plane, int pass) {
     int i = plane == 0 ? pass : plane + 1;
-    int base = clip3(0, 63, P.lf_level[i]);
-    int lvlSeg = base;
+    int deltaLF = DeltaLFs[mi(row, col) * 4 + (P.delta_lf_multi ? i : 0)];
+    int lvlSeg = clip3(0, 63, deltaLF + P.lf_level[i]);
     if (P.lf_delta_enabled) {
       int nShift = lvlSeg >> 5;
       lvlSeg += P.lf_ref_deltas[0] * (1 << nShift);  // intra reference
       lvlSeg = clip3(0, 63, lvlSeg);
     }
-    *lvl = lvlSeg;
+    return lvlSeg;
+  }
+  void filter_strength(int lvlSeg, int* limit, int* blimit, int* thresh) {
     int shift = P.lf_sharpness > 4 ? 2 : P.lf_sharpness > 0 ? 1 : 0;
     *limit = P.lf_sharpness > 0 ? clip3(1, 9 - P.lf_sharpness, lvlSeg >> shift) : imax(1, lvlSeg >> shift);
     *blimit = 2 * (lvlSeg + 2) + *limit;
@@ -2113,13 +2175,21 @@ struct Decoder {
     int prevTxSz = LfTxSizes[plane][(size_t)(prevRow >> sy) * lfStride[plane] + (prevCol >> sx)];
     int isBlockEdge = pass == 0 ? (xP % block_width(planeSize) == 0) : (yP % block_height(planeSize) == 0);
     int isTxEdge = pass == 0 ? (xP % tx_w(txSz) == 0) : (yP % tx_h(txSz) == 0);
-    int applyFilter = !isTxEdge ? 0 : (isBlockEdge || !sk || !isIntra) ? 1 : 0;
+    // a transform edge inside a block is filtered unless the block is a
+    // skipped inter block (7.14.2; libaom and dav1d filter it in every
+    // intra block, skipped or not)
+    if (!isTxEdge || !(isBlockEdge || !sk || isIntra)) return;  // applyFilter
     int baseSize = pass == 0 ? imin(tx_w(prevTxSz), tx_w(txSz)) : imin(tx_h(prevTxSz), tx_h(txSz));
     int filterSize = plane == 0 ? imin(16, baseSize) : imin(8, baseSize);
-    int lvl, limit, blimit, thresh;
-    filter_strength(plane, pass, &lvl, &limit, &blimit, &thresh);
+    // a block of level 0 takes the previous block's (7.14.2), which differs
+    // from it only with delta lf
+    int lvl = filter_level(row, col, plane, pass);
+    if (lvl == 0) lvl = filter_level(prevRow, prevCol, plane, pass);
+    if (lvl == 0) return;
+    int limit, blimit, thresh;
+    filter_strength(lvl, &limit, &blimit, &thresh);
     for (int i = 0; i < 4; i++)
-      if (applyFilter && lvl > 0) sample_filter(xP + dy * i, yP + dx * i, plane, limit, blimit, thresh, dx, dy, filterSize);
+      sample_filter(xP + dy * i, yP + dx * i, plane, limit, blimit, thresh, dx, dy, filterSize);
   }
   void sample_filter(int x, int y, int plane, int limit, int blimit, int thresh, int dx, int dy, int filterSize) {
     auto S = [&](int k) -> pixel* { return F.at(plane, y + dy * k, x + dx * k); };
@@ -2540,6 +2610,217 @@ struct Decoder {
       }
   }
 
+  // ---------------------------------------------------- film grain (7.18.3)
+  // Synthesised noise added to the output planes after loop restoration:
+  // grain templates of Gaussian_Sequence through an auto-regressive
+  // filter, cut at random offsets into 32 x 32 luma blocks in 32-row
+  // stripes, blended where blocks and stripes overlap, scaled by a
+  // piecewise-linear function of the sample (chroma: of the luma beside it
+  // or a mix of both) and clipped.
+  int RandomRegister;
+  int LumaGrain[73][82], CbGrain[73][82], CrGrain[73][82];
+  int ScalingLut[3][256];
+
+  int get_random_number(int bits) {
+    int r = RandomRegister;
+    int bit = (r ^ (r >> 1) ^ (r >> 3) ^ (r >> 12)) & 1;
+    r = (r >> 1) | (bit << 15);
+    RandomRegister = r;
+    return (r >> (16 - bits)) & ((1 << bits) - 1);
+  }
+  int scale_lut(int plane, int index) const {
+    int shift = BitDepth - 8, x = index >> shift, rem = index - (x << shift);
+    if (BitDepth == 8 || x == 255) return ScalingLut[plane][x];
+    int start = ScalingLut[plane][x], end = ScalingLut[plane][x + 1];
+    return start + round2((int64_t)(end - start) * rem, shift);
+  }
+
+  void generate_grain(int grainMin, int grainMax) {
+    int shift = 12 - BitDepth + P.grain_scale_shift, lag = P.ar_coeff_lag, arShift = P.ar_coeff_shift_minus_6 + 6;
+    int subX = P.subsampling_x, subY = P.subsampling_y;
+    RandomRegister = P.grain_seed;
+    for (int y = 0; y < 73; y++)
+      for (int x = 0; x < 82; x++)
+        LumaGrain[y][x] = P.num_y_points ? round2(Gaussian_Sequence[get_random_number(11)], shift) : 0;
+    for (int y = 3; y < 73; y++)
+      for (int x = 3; x < 82 - 3; x++) {
+        int sum = 0, pos = 0;
+        for (int dr = -lag; dr <= 0; dr++)
+          for (int dc = -lag; dc <= lag; dc++) {
+            if (dr == 0 && dc == 0) break;
+            sum += LumaGrain[y + dr][x + dc] * (P.ar_coeffs_y_plus_128[pos++] - 128);
+          }
+        LumaGrain[y][x] = clip3(grainMin, grainMax, LumaGrain[y][x] + round2(sum, arShift));
+      }
+    if (P.NumPlanes == 1) return;
+    int chromaW = subX ? 44 : 82, chromaH = subY ? 38 : 73;
+    bool cb = P.num_cb_points || P.chroma_scaling_from_luma, cr = P.num_cr_points || P.chroma_scaling_from_luma;
+    RandomRegister = P.grain_seed ^ 0xb524;
+    for (int y = 0; y < chromaH; y++)
+      for (int x = 0; x < chromaW; x++) CbGrain[y][x] = cb ? round2(Gaussian_Sequence[get_random_number(11)], shift) : 0;
+    RandomRegister = P.grain_seed ^ 0x49d8;
+    for (int y = 0; y < chromaH; y++)
+      for (int x = 0; x < chromaW; x++) CrGrain[y][x] = cr ? round2(Gaussian_Sequence[get_random_number(11)], shift) : 0;
+    for (int y = 3; y < chromaH; y++)
+      for (int x = 3; x < chromaW - 3; x++) {
+        int sum0 = 0, sum1 = 0, pos = 0;
+        for (int dr = -lag; dr <= 0; dr++)
+          for (int dc = -lag; dc <= lag; dc++) {
+            int c0 = P.ar_coeffs_cb_plus_128[pos] - 128, c1 = P.ar_coeffs_cr_plus_128[pos] - 128;
+            if (dr == 0 && dc == 0) {
+              if (P.num_y_points) {  // the luma grain under this sample, averaged
+                int luma = 0, lumaX = ((x - 3) << subX) + 3, lumaY = ((y - 3) << subY) + 3;
+                for (int i = 0; i <= subY; i++)
+                  for (int j = 0; j <= subX; j++) luma += LumaGrain[lumaY + i][lumaX + j];
+                luma = round2(luma, subX + subY);
+                sum0 += luma * c0;
+                sum1 += luma * c1;
+              }
+              break;
+            }
+            sum0 += c0 * CbGrain[y + dr][x + dc];
+            sum1 += c1 * CrGrain[y + dr][x + dc];
+            pos++;
+          }
+        if (cb) CbGrain[y][x] = clip3(grainMin, grainMax, CbGrain[y][x] + round2(sum0, arShift));
+        if (cr) CrGrain[y][x] = clip3(grainMin, grainMax, CrGrain[y][x] + round2(sum1, arShift));
+      }
+  }
+
+  void scaling_lookup_init() {
+    for (int plane = 0; plane < P.NumPlanes; plane++) {
+      const int *value, *scaling;
+      int n;
+      if (plane == 0 || P.chroma_scaling_from_luma) { n = P.num_y_points; value = P.point_y_value; scaling = P.point_y_scaling; }
+      else if (plane == 1) { n = P.num_cb_points; value = P.point_cb_value; scaling = P.point_cb_scaling; }
+      else { n = P.num_cr_points; value = P.point_cr_value; scaling = P.point_cr_scaling; }
+      int* lut = ScalingLut[plane];
+      if (n == 0) {
+        for (int i = 0; i < 256; i++) lut[i] = 0;
+        continue;
+      }
+      for (int i = 0; i < value[0]; i++) lut[i] = scaling[0];
+      for (int i = 0; i < n - 1; i++) {
+        int deltaY = scaling[i + 1] - scaling[i], deltaX = value[i + 1] - value[i];
+        int delta = deltaY * ((65536 + (deltaX >> 1)) / deltaX);
+        for (int x = 0; x < deltaX; x++) lut[value[i] + x] = scaling[i] + ((x * delta + 32768) >> 16);
+      }
+      for (int i = value[n - 1]; i < 256; i++) lut[i] = scaling[n - 1];
+    }
+  }
+
+  void film_grain() {
+    if (!P.apply_grain) return;
+    int w = P.FrameWidth, h = P.FrameHeight, subX = P.subsampling_x, subY = P.subsampling_y;
+    int grainCenter = 128 << (BitDepth - 8), grainMin = -grainCenter;
+    int grainMax = (256 << (BitDepth - 8)) - 1 - grainCenter;
+    generate_grain(grainMin, grainMax);
+    scaling_lookup_init();
+    // add_noise (7.18.3.5): each 32-row stripe's noise, 34 rows and a
+    // 34-column block every 32 columns, each block at its own offset
+    int stripes = (((h + 1) / 2) + 15) / 16, stripeW = w + 68;
+    std::vector<int> noiseStripe((size_t)stripes * 3 * 34 * stripeW, 0);
+    auto NS = [&](int n, int plane, int i, int x) -> int& {
+      return noiseStripe[(((size_t)n * 3 + plane) * 34 + i) * stripeW + x];
+    };
+    int lumaNum = 0;
+    for (int y = 0; y < (h + 1) / 2; y += 16, lumaNum++) {
+      RandomRegister = P.grain_seed;
+      RandomRegister ^= ((lumaNum * 37 + 178) & 255) << 8;
+      RandomRegister ^= (lumaNum * 173 + 105) & 255;
+      for (int x = 0; x < (w + 1) / 2; x += 16) {
+        int rand = get_random_number(8), offsetX = rand >> 4, offsetY = rand & 15;
+        for (int plane = 0; plane < P.NumPlanes; plane++) {
+          int psx = ssx(plane), psy = ssy(plane);
+          int planeOffsetX = psx ? 6 + offsetX : 9 + offsetX * 2, planeOffsetY = psy ? 6 + offsetY : 9 + offsetY * 2;
+          int (*grain)[82] = plane == 0 ? LumaGrain : plane == 1 ? CbGrain : CrGrain;
+          for (int i = 0; i < (34 >> psy); i++)
+            for (int j = 0; j < (34 >> psx); j++) {
+              int g = grain[planeOffsetY + i][planeOffsetX + j];
+              if (psx == 0) {
+                if (j < 2 && P.overlap_flag && x > 0) {
+                  int old = NS(lumaNum, plane, i, x * 2 + j);
+                  g = j == 0 ? old * 27 + g * 17 : old * 17 + g * 27;
+                  g = clip3(grainMin, grainMax, round2(g, 5));
+                }
+                NS(lumaNum, plane, i, x * 2 + j) = g;
+              } else {
+                if (j == 0 && P.overlap_flag && x > 0) {
+                  int old = NS(lumaNum, plane, i, x + j);
+                  g = clip3(grainMin, grainMax, round2(old * 23 + g * 22, 5));
+                }
+                NS(lumaNum, plane, i, x + j) = g;
+              }
+            }
+        }
+      }
+    }
+    // the noise image: each stripe's rows, the first (two, or one
+    // subsampled) blended with the stripe above
+    std::vector<int> noise[3];
+    for (int plane = 0; plane < P.NumPlanes; plane++) {
+      int psx = ssx(plane), psy = ssy(plane), pw = (w + psx) >> psx, ph = (h + psy) >> psy;
+      noise[plane].assign((size_t)pw * ph, 0);
+      for (int y = 0; y < ph; y++) {
+        int n = y >> (5 - psy), i = y - (n << (5 - psy));
+        for (int x = 0; x < pw; x++) {
+          int g = NS(n, plane, i, x);
+          if (psy == 0) {
+            if (i < 2 && n > 0 && P.overlap_flag) {
+              int old = NS(n - 1, plane, i + 32, x);
+              g = i == 0 ? old * 27 + g * 17 : old * 17 + g * 27;
+              g = clip3(grainMin, grainMax, round2(g, 5));
+            }
+          } else if (i < 1 && n > 0 && P.overlap_flag) {
+            int old = NS(n - 1, plane, i + 16, x);
+            g = clip3(grainMin, grainMax, round2(old * 23 + g * 22, 5));
+          }
+          noise[plane][(size_t)y * pw + x] = g;
+        }
+      }
+    }
+    // blend: chroma first, from the luma before its noise
+    int minValue = 0, maxLuma = PixelMax, maxChroma = PixelMax;
+    if (P.clip_to_restricted_range) {
+      minValue = 16 << (BitDepth - 8);
+      maxLuma = 235 << (BitDepth - 8);
+      maxChroma = P.matrix_coefficients == 0 ? maxLuma : 240 << (BitDepth - 8);  // MC_IDENTITY
+    }
+    int scalingShift = P.grain_scaling_minus_8 + 8;
+    if (P.NumPlanes > 1) {
+      int pw = (w + subX) >> subX, ph = (h + subY) >> subY;
+      const int mult[2][3] = {{P.cb_mult, P.cb_luma_mult, P.cb_offset}, {P.cr_mult, P.cr_luma_mult, P.cr_offset}};
+      for (int y = 0; y < ph; y++)
+        for (int x = 0; x < pw; x++) {
+          int lumaX = x << subX, lumaY = y << subY, lumaNextX = imin(lumaX + 1, w - 1);
+          int averageLuma = subX ? round2(*F.at(0, lumaY, lumaX) + *F.at(0, lumaY, lumaNextX), 1)
+                                 : *F.at(0, lumaY, lumaX);
+          for (int plane = 1; plane < 3; plane++) {
+            int points = plane == 1 ? P.num_cb_points : P.num_cr_points;
+            if (!points && !P.chroma_scaling_from_luma) continue;
+            pixel* px = F.at(plane, y, x);
+            int orig = *px, merged;
+            if (P.chroma_scaling_from_luma) {
+              merged = averageLuma;
+            } else {
+              const int* m = mult[plane - 1];
+              int combined = averageLuma * (m[1] - 128) + orig * (m[0] - 128);
+              merged = clip1((combined >> 6) + (m[2] - 256) * (1 << (BitDepth - 8)));
+            }
+            int n = round2((int64_t)scale_lut(plane, merged) * noise[plane][(size_t)y * pw + x], scalingShift);
+            *px = clip3(minValue, maxChroma, orig + n);
+          }
+        }
+    }
+    if (P.num_y_points)
+      for (int y = 0; y < h; y++)
+        for (int x = 0; x < w; x++) {
+          pixel* px = F.at(0, y, x);
+          int n = round2((int64_t)scale_lut(0, *px) * noise[0][(size_t)y * w + x], scalingShift);
+          *px = clip3(minValue, maxLuma, *px + n);
+        }
+  }
+
   // --------------------------------------------------------------- tile
   void clear_block_decoded_flags(int r, int c, int sbSize4) {
     for (int plane = 0; plane < P.NumPlanes; plane++) {
@@ -2558,8 +2839,10 @@ struct Decoder {
   }
 
   void decode_tile(const uint8_t* data, int64_t size) {
-    cdf.init(P.base_q_idx);
+    cdf.init(P.base_q_idx);  // the coefficient CDFs' set stays on base_q_idx with delta q
     sd.init(data, size, P.disable_cdf_update);
+    CurrentQIndex = P.base_q_idx;  // each tile starts from the frame's qindex and no lf deltas
+    for (int i = 0; i < 4; i++) DeltaLF[i] = 0;
     for (int p = 0; p < 3; p++) {
       std::fill(AboveLevelContext[p].begin(), AboveLevelContext[p].end(), 0);
       std::fill(AboveDcContext[p].begin(), AboveDcContext[p].end(), 0);
@@ -2576,6 +2859,7 @@ struct Decoder {
         std::fill(LeftDcContext[p].begin(), LeftDcContext[p].end(), 0);
       }
       for (int c = MiColStart; c < MiColEnd; c += sbSize4) {
+        ReadDeltas = P.delta_q_present;
         for (int y = r; y < r + sbSize4; y += 16)
           for (int x = c; x < c + sbSize4; x += 16) CdefIdx[mi(y, x)] = -1;
         clear_block_decoded_flags(r, c, sbSize4);
@@ -2608,6 +2892,7 @@ struct Decoder {
     MvRow.assign(nmi, 0);
     MvCol.assign(nmi, 0);
     CdefIdx.assign(nmi, -1);
+    DeltaLFs.assign(nmi * 4, 0);
     for (int p = 0; p < 3; p++) {
       lfStride[p] = (MiStride >> ssx(p)) + 40;
       LfTxSizes[p].assign((size_t)((MiRows + 40) >> ssy(p)) * lfStride[p] + 64, 0);
@@ -2650,6 +2935,7 @@ struct Decoder {
       cdef();
       loop_restoration();
     }
+    film_grain();
     pixel* out[3] = {oy, ou, ov};
     for (int p = 0; p < P.NumPlanes; p++) {
       int pw = (P.FrameWidth + ssx(p)) >> ssx(p), ph = (P.FrameHeight + ssy(p)) >> ssy(p);

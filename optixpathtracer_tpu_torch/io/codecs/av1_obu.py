@@ -8,12 +8,14 @@ tile groups' tile offsets and sizes, then the tile decode in C++
 writes them, or a frame header and tile groups) and returns the Y / U / V
 planes of the frame (4:2:0, 4:2:2, 4:4:4; U and V None for a monochrome
 frame; uint8 at 8 bits, uint16 at 10 and 12: profiles 0-2) and the
-sequence header; the frame's CDEF and loop restoration parameters go to
-the native decoder with the rest. What the port does not decode yet
-raises NotImplementedError naming the tool and ROADMAP A.1 (AVIF step 4):
-superres, film grain, quantizer matrices, segmentation, delta q / delta
-lf, frames that are not key or intra-only frames, and large-scale tiles. There is no Python tile
-decoder: under OPTIX_TPU_NO_NATIVE=1 the decode raises naming the switch."""
+sequence header; the frame's quantizer matrix levels, delta q / delta lf,
+CDEF, loop restoration and film grain parameters go to the native decoder
+with the rest (film grain is applied there, after loop restoration, as
+dav1d applies it). What the port does not decode yet raises
+NotImplementedError naming the tool and ROADMAP A.1 (AVIF step 5):
+segmentation, superres, show_existing_frame, frames that are not key or
+intra-only frames, and large-scale tiles. There is no Python tile decoder:
+under OPTIX_TPU_NO_NATIVE=1 the decode raises naming the switch."""
 from __future__ import annotations
 
 import ctypes
@@ -226,12 +228,9 @@ def sequence_header(payload: bytes) -> dict:
 
 
 def check_sequence(s: dict) -> None:
-    """Raise for what the port does not decode: a profile above 2
-    (reserved) and film grain (A.1)."""
+    """Raise for a profile above 2 (reserved), as dav1d fails it."""
     if s["profile"] > 2:
         raise DecodeError(f"Failed to decode frame 0: AV1 profile {s['profile']}")
-    if s["film_grain_params_present"]:
-        raise unsupported("AV1 film grain")
 
 
 def _tile_log2(blk: int, target: int) -> int:
@@ -311,12 +310,23 @@ def frame_header(b: Bits, s: dict) -> dict:
         diff_uv = b.f(1) if s["separate_uv_delta_q"] else 0
         h["dq_u_dc"], h["dq_u_ac"] = delta_q(), delta_q()
         h["dq_v_dc"], h["dq_v_ac"] = (delta_q(), delta_q()) if diff_uv else (h["dq_u_dc"], h["dq_u_ac"])
-    if b.f(1):
-        raise unsupported("AV1 quantizer matrices")
+    # quantizer matrices (5.9.12): a level per plane, 15 (flat) where off
+    h["using_qmatrix"] = b.f(1)
+    h["qm_y"] = h["qm_u"] = h["qm_v"] = 15
+    if h["using_qmatrix"]:
+        h["qm_y"], h["qm_u"] = b.f(4), b.f(4)
+        h["qm_v"] = b.f(4) if s["separate_uv_delta_q"] else h["qm_u"]
     if b.f(1):
         raise unsupported("AV1 segmentation")
-    if h["base_q_idx"] > 0 and b.f(1):
-        raise unsupported("AV1 delta q / delta lf")
+    # delta_q_params / delta_lf_params (5.9.17-5.9.18)
+    h["delta_q_present"] = b.f(1) if h["base_q_idx"] > 0 else 0
+    h["delta_q_res"] = b.f(2) if h["delta_q_present"] else 0
+    h["delta_lf_present"] = h["delta_lf_res"] = h["delta_lf_multi"] = 0
+    if h["delta_q_present"]:
+        if not h["allow_intrabc"]:
+            h["delta_lf_present"] = b.f(1)
+        if h["delta_lf_present"]:
+            h["delta_lf_res"], h["delta_lf_multi"] = b.f(2), b.f(1)
     coded_lossless = h["base_q_idx"] == 0 and not any(
         h[k] for k in ("dq_y_dc", "dq_u_dc", "dq_u_ac", "dq_v_dc", "dq_v_ac"))
     # loop_filter_params
@@ -365,7 +375,63 @@ def frame_header(b: Bits, s: dict) -> dict:
     # read_tx_mode
     h["tx_mode"] = 0 if coded_lossless else (2 if b.f(1) else 1)
     h["reduced_tx_set"] = b.f(1)
+    # global_motion_params reads nothing in an intra frame
+    h["grain"] = film_grain_params(b, s, h)
     return h
+
+
+# dav1d refuses the frame header; libavif's message, as PIL reports it
+GRAIN_POINTS = "Failed to decode frame 0: Decoding of color planes failed"
+
+
+def film_grain_params(b: Bits, s: dict, h: dict) -> dict:
+    """5.9.30: the grain of a shown or showable frame of a sequence with
+    film grain; {"apply_grain": 0} where there is none. update_grain is
+    read only in an inter frame (which the port refuses): a key or
+    intra-only frame always carries its own parameters. Scaling points that
+    break the spec's rules (more than 14 luma or 10 chroma points, values
+    not increasing, one chroma plane of 4:2:0 with points and the other
+    without) fail the frame, as dav1d fails it (PIL: RuntimeError)."""
+    g = {"apply_grain": 0}
+    if not s["film_grain_params_present"] or not (h["show_frame"] or h["showable"]):
+        return g
+    g["apply_grain"] = b.f(1)
+    if not g["apply_grain"]:
+        return g
+    g["grain_seed"] = b.f(16)
+
+    def points(most: int):
+        pts = [(b.f(8), b.f(8)) for _ in range(b.f(4))]
+        if len(pts) > most or any(q[0] <= p[0] for p, q in zip(pts, pts[1:])):
+            raise DecodeError(GRAIN_POINTS)
+        return pts
+    g["y_points"] = points(14)
+    g["chroma_scaling_from_luma"] = 0 if s["mono"] else b.f(1)
+    g["cb_points"] = g["cr_points"] = []
+    if not (s["mono"] or g["chroma_scaling_from_luma"] or (s["ss"] == (1, 1) and not g["y_points"])):
+        g["cb_points"] = points(10)
+        g["cr_points"] = points(10)
+        if s["ss"] == (1, 1) and bool(g["cb_points"]) != bool(g["cr_points"]):
+            raise DecodeError(GRAIN_POINTS)
+    g["grain_scaling_minus_8"] = b.f(2)
+    lag = g["ar_coeff_lag"] = b.f(2)
+    n_luma = 2 * lag * (lag + 1)
+    n_chroma = n_luma + 1 if g["y_points"] else n_luma
+    g["ar_coeffs_y_plus_128"] = [b.f(8) for _ in range(n_luma)] if g["y_points"] else []
+    g["ar_coeffs_cb_plus_128"] = [b.f(8) for _ in range(n_chroma)] \
+        if g["chroma_scaling_from_luma"] or g["cb_points"] else []
+    g["ar_coeffs_cr_plus_128"] = [b.f(8) for _ in range(n_chroma)] \
+        if g["chroma_scaling_from_luma"] or g["cr_points"] else []
+    g["ar_coeff_shift_minus_6"] = b.f(2)
+    g["grain_scale_shift"] = b.f(2)
+    g["cb_mult"] = g["cb_luma_mult"] = g["cb_offset"] = g["cr_mult"] = g["cr_luma_mult"] = g["cr_offset"] = 0
+    if g["cb_points"]:
+        g["cb_mult"], g["cb_luma_mult"], g["cb_offset"] = b.f(8), b.f(8), b.f(9)
+    if g["cr_points"]:
+        g["cr_mult"], g["cr_luma_mult"], g["cr_offset"] = b.f(8), b.f(8), b.f(9)
+    g["overlap_flag"] = b.f(1)
+    g["clip_to_restricted_range"] = b.f(1)
+    return g
 
 
 def _tile_info(b: Bits, s: dict, h: dict) -> None:
@@ -472,7 +538,35 @@ def _params(s: dict, h: dict) -> np.ndarray:
     vals += cols + [0] * (65 - len(cols)) + rows + [0] * (65 - len(rows))
     vals += [*s["ss"], 1 if s["mono"] else 3, h["cdef_damping"], *sum(h["cdef_strengths"], []), *h["lr_type"],
              *h["lr_size"], s["bit_depth"]]
+    vals += [h[k] for k in ("using_qmatrix", "qm_y", "qm_u", "qm_v", "delta_q_present", "delta_q_res",
+                            "delta_lf_present", "delta_lf_res", "delta_lf_multi")]
+    vals += [s["color"][2]] + _grain_params(h["grain"])
     return np.array(vals, np.int32)
+
+
+def _padded(values: list, n: int) -> list:
+    return list(values) + [0] * (n - len(values))
+
+
+GRAIN_SLOTS = 160  # av1_dec.cpp's Params from apply_grain to clip_to_restricted_range
+
+
+def _grain_params(g: dict) -> list:
+    """film_grain_params in av1_dec.cpp's order (zeros without grain)."""
+    if not g["apply_grain"]:
+        return [0] * GRAIN_SLOTS
+    out = [1, g["grain_seed"]]
+    for key, most in (("y_points", 14), ("cb_points", 10), ("cr_points", 10)):
+        pts = g[key]
+        out += [len(pts), *_padded([v for v, _ in pts], most), *_padded([sc for _, sc in pts], most)]
+        if key == "y_points":
+            out.append(g["chroma_scaling_from_luma"])
+    out += [g["grain_scaling_minus_8"], g["ar_coeff_lag"], *_padded(g["ar_coeffs_y_plus_128"], 24),
+            *_padded(g["ar_coeffs_cb_plus_128"], 25), *_padded(g["ar_coeffs_cr_plus_128"], 25),
+            g["ar_coeff_shift_minus_6"], g["grain_scale_shift"]]
+    out += [g[k] for k in ("cb_mult", "cb_luma_mult", "cb_offset", "cr_mult", "cr_luma_mult", "cr_offset",
+                           "overlap_flag", "clip_to_restricted_range")]
+    return out
 
 
 def decode(data: bytes):

@@ -26,11 +26,13 @@ UnidentifiedImageError); a primary item that is missing or not `av01` ->
 `DecodeError` (ValueError + OSError) for the last two where PIL raises
 RuntimeError and SyntaxError (ROADMAP C.14). A `grid` item and image
 sequences raise NotImplementedError naming the variant and ROADMAP A.1
-(AVIF step 4).
+(AVIF step 5).
 
 Alpha: an av01 item with an `auxl` reference to the primary item and the
 alpha URN in its `auxC` is decoded with the same decoder (libaom writes it
-as a full-range monochrome still) and its Y plane is the alpha. PIL's
+as a full-range monochrome still, with the colour's coding tools: libavif
+hands aom's film grain, quantizer matrix and delta q options to both items,
+and dav1d applies the alpha's grain) and its Y plane is the alpha. PIL's
 `convert("RGB")` drops alpha, so straight alpha leaves the colour as it
 decodes; with a `prem` reference from the colour item to the alpha item
 (PIL's `alpha_premultiplied=True`) libavif un-premultiplies the colour by

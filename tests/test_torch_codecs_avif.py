@@ -13,12 +13,13 @@ variants that raise A.1, and the native switch.
   UnidentifiedImageError); a primary item of type hvc1 and a file cut 40
   bytes short fail with PIL's reason (the port's DecodeError, where PIL
   raises RuntimeError and SyntaxError).
-- A.1 for the step-4 variants, naming the variant: film grain, quantizer
-  matrices and a `grid` item (tests/torch_fixtures/avif_raises/), and
-  film grain by flipping its bit in a sequence header; the monochrome and
-  high_bitdepth bits, which once raised here too, now name a layout and a
-  depth the port decodes (a PIL 4:0:0 still decodes as PIL decodes it; the
-  8-bit still read as 10-bit decodes as PIL decodes it).
+- A.1 for a step-5 variant, naming it: a `grid` item
+  (tests/torch_fixtures/avif_raises/); film grain and quantizer matrices,
+  once refused there too, are fixtures of textures/ now (AVIF step 4). The
+  film grain bit flipped in a sequence header, the monochrome and the
+  high_bitdepth bits, which once raised here, now name a tool, a layout
+  and a depth the port decodes (each flipped file decodes as PIL decodes
+  it; a PIL 4:0:0 still too).
 - OPTIX_TPU_NO_NATIVE=1 raises naming the switch (there is no Python tile
   decoder); a failed build raises.
 - The native inverse DCT (4-64 points, one generic butterfly network) and
@@ -236,7 +237,7 @@ def test_headers(name, use_128, tiles, q):
 
 @pytest.mark.parametrize("name", sorted(RAISES))
 def test_refused_files_fail_as_expected(name):
-    """The step-3 variants (PIL reads them) raise A.1 naming the variant;
+    """The step-5 variant (PIL reads it) raises A.1 naming the variant;
     the C.14 files fail as PIL fails: no format, or PIL's reason."""
     with open(os.path.join(AVIF_RAISES, name), "rb") as f:
         data = f.read()
@@ -311,21 +312,30 @@ def test_step2_sequence_variants_raise_a1(offset, variant):
 
 def test_film_grain_raises_a1():
     """film_grain_params_present is the sequence header's last bit before
-    its trailing bits."""
+    its trailing bits. Once A.1 (AVIF step 4), the flipped header now has
+    the frame header read film_grain_params after reduced_tx_set: its
+    apply_grain is the first of the zero bits that byte-aligned the header,
+    so the tiles start where they did and the file decodes as PIL decodes
+    it, as the unflipped file does."""
     data = _fixture("avif_37x23.avif")
     obus, _ = avif.parse(data)
     payload = av1_obu.split_obus(obus)[1][1]
-    b = av1_obu.Bits(payload)
     seq = av1_obu.sequence_header(payload)
     assert not seq["film_grain_params_present"]
     # the last set bit is the trailing one; film grain sits just before it
     last = max(i for i in range(len(payload) * 8) if payload[i >> 3] & (0x80 >> (i & 7)))
-    del b
     edited = bytearray(payload)
     edited[(last - 1) >> 3] |= 0x80 >> ((last - 1) & 7)
     start = data.index(payload)
-    with pytest.raises(NotImplementedError, match="AVIF of AV1 film grain.*ROADMAP A.1"):
-        codecs.rgb8(data[:start] + bytes(edited) + data[start + len(payload):])
+    flipped = data[:start] + bytes(edited) + data[start + len(payload):]
+    obus, _ = avif.parse(flipped)
+    seq = av1_obu.sequence_header(av1_obu.split_obus(obus)[1][1])
+    assert seq["film_grain_params_present"]
+    h = av1_obu.frame_header(av1_obu.Bits(av1_obu.split_obus(obus)[2][1]), seq)
+    assert h["grain"] == {"apply_grain": 0}
+    got = codecs.rgb8(flipped)
+    np.testing.assert_array_equal(got, pil_rgb(flipped))
+    np.testing.assert_array_equal(got, codecs.rgb8(data))
 
 
 @pytest.mark.parametrize("where", ["starts_past_the_end", "runs_past_the_end", "empty"])

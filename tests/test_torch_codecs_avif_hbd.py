@@ -21,9 +21,10 @@ csrc/host/av1_dec.cpp) as PIL decodes them.
   the alpha brought to 8 bits beside each layout, and the un-premultiply
   after it, each equal to libavif's `avifImageYUVToRGB`.
 - An alpha item of another depth than the colour's fails as PIL fails;
-  high-depth stills with the step-4 tools (quantizer matrices, delta q)
-  still raise A.1; under OPTIX_TPU_NO_NATIVE=1 a 10-bit still raises
-  naming the switch.
+  high-depth stills with the step-4 tools (quantizer matrices, delta q),
+  which once raised A.1, decode as PIL decodes them (the rest of step 4 is
+  test_torch_codecs_avif_tools.py); under OPTIX_TPU_NO_NATIVE=1 a 10-bit
+  still raises naming the switch.
 - A glTF and an OBJ textured with a 10-bit AVIF load to the JAX loaders'
   scenes, texture for texture.
 
@@ -277,11 +278,18 @@ def test_alpha_of_another_depth_fails_as_pil(name):
     (10, 64, {"enable-qm": 1}, "AV1 quantizer matrices"), (12, 64, {"enable-qm": 1}, "AV1 quantizer matrices"),
     (10, 128, {"deltaq-mode": 3}, "AV1 delta q / delta lf")])
 def test_step4_tools_at_high_depth_raise_a1(depth, size, options, variant):
-    """(aom writes delta q on 128 x 128 with deltaq-mode 3, not on 64 x 64.)"""
+    """Once A.1 here (AVIF step 4), now decoded: the high-depth still with
+    quantizer matrices or delta q (aom writes delta q on 128 x 128 with
+    deltaq-mode 3, not on 64 x 64) carries its tool, its planes equal
+    dav1d's and its RGB PIL's."""
     data = oracle.encode_hbd(yuv_photo(size, size, 3, depth, 3), depth, 3, options=options)
-    assert pil_rgb(data).shape == (size, size, 3)  # PIL reads it
-    with pytest.raises(NotImplementedError, match=f"AVIF of {variant}.*ROADMAP A.1"):
-        codecs.rgb8(data)
+    obus, _ = avif.parse(data)
+    seq = av1_obu.sequence_header(av1_obu.split_obus(obus)[1][1])
+    h = av1_obu.frame_header(av1_obu.Bits(av1_obu.split_obus(obus)[2][1]), seq)
+    assert seq["bit_depth"] == depth
+    assert h["using_qmatrix"] if variant == "AV1 quantizer matrices" else h["delta_q_present"]
+    _assert_planes_equal(data)
+    np.testing.assert_array_equal(codecs.rgb8(data), pil_rgb(data))
 
 
 def test_no_native_raises_naming_the_switch(monkeypatch):

@@ -3,7 +3,9 @@
 tests/torch_fixtures/gen_av1_tables.py reads out of the read-only data of
 PIL's bundled libavif (libaom's and dav1d's default CDFs, quantizer
 lookups at 8, 10 and 12 bits, directional derivatives, smooth weights, filter-intra taps and
-the DCT / ADST constants, CDEF's and loop restoration's tables), and the
+the DCT / ADST constants, CDEF's and loop restoration's tables; the delta q
+and delta lf CDFs, libaom's quantizer matrices and dav1d's Gaussian
+sequence of film grain), and the
 first row of each table, with a few more rows, equals the values the AV1
 specification prints. The comparison
 with the library skips where PIL ships no libavif.
@@ -73,6 +75,16 @@ FIRST_ROWS = {
     "Default_Coeff_Base_Eob_Cdf": [17837, 29055],
     "Default_Coeff_Base_Cdf": [4034, 8930, 12727],
     "Default_Coeff_Br_Cdf": [14298, 20718, 24174],
+    # delta q and delta lf (AVIF step 4): the same row for all six
+    "Default_Delta_Q_Cdf": [28160, 32120, 32677],
+    "Default_Delta_Lf_Cdf": [28160, 32120, 32677],
+    "Default_Delta_Lf_Multi_Cdf": [28160, 32120, 32677],
+    # the quantizer matrices (level 0, luma, 4 x 4), each transform size's
+    # offset into a level's row, and film grain's Gaussian sequence
+    "Quantizer_Matrix": [32, 43, 73, 97, 43, 67, 94, 110, 73, 94, 137, 150, 97, 110, 150, 200],
+    "Qm_Offset": [0, 16, 80, 336, 336, 1360, 1392, 1424, 1552, 1680, 2192, 336, 336, 2704, 2768, 2832, 3088, 1680,
+                  2192],
+    "Gaussian_Sequence": [56, 568, -180, 172, 124, -84, 172, -64, -900, 24, 820, 224, 1248],
     "Dr_Intra_Derivative": [0, 0, 0, 1023, 0, 0, 547, 0, 0, 372, 0, 0, 0, 0, 273, 0, 0, 215],
     "Filter_Intra_Taps": [-6, 10, 0, 0, 0, 12, 0],
     # loop restoration and CDEF (7.15, 7.17)
@@ -133,3 +145,22 @@ def test_rows_the_specification_prints():
     assert _table(text, "Sgr_Params")[-8:] == [2, 56, 0, -1, 2, 22, 0, -1]
     assert _table(text, "Sgr_Params")[40:44] == [0, -1, 1, 2589]
     assert _table(text, "Cdef_Directions")[-4:] == [1, 0, 2, -1]
+
+
+def test_step4_tables_the_specification_prints():
+    """Quantizer_Matrix[15][2][3344]: 15 levels of luma and chroma inverse
+    weights, the last level nearly flat (30-32) and ending in 32; Qm_Offset
+    lays the 14 matrices of up to 32 x 32 end to end (3344 entries), a
+    64-point size at its 32-point matrix; Gaussian_Sequence[2048] ends
+    428, -484."""
+    with open(gen.OUT) as f:
+        text = f.read()
+    qm = _table(text, "Quantizer_Matrix")
+    assert len(qm) == 15 * 2 * 3344 and qm[-1] == 32
+    assert set(qm[14 * 2 * 3344:]) <= {30, 31, 32}
+    offset = dict(zip(gen.TX_SIZES, _table(text, "Qm_Offset")))
+    assert offset[(64, 64)] == offset[(32, 64)] == offset[(64, 32)] == offset[(32, 32)]
+    assert offset[(16, 64)] == offset[(16, 32)] and offset[(64, 16)] == offset[(32, 16)]
+    assert offset[(32, 8)] + 32 * 8 == 3344
+    gauss = _table(text, "Gaussian_Sequence")
+    assert len(gauss) == 2048 and gauss[-2:] == [428, -484]

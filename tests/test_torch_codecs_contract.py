@@ -2,13 +2,13 @@
 io/gltf.py, io/obj.py) against PIL and the JAX package's loaders.
 
 - NotImplementedError naming ROADMAP A.1 only for bytes PIL reads: one
-  case per variant PIL reads here and the port does not (AVIF with
-  quantizer matrices, AVIF step 3); the cases of the formats once
-  unported here (BLP, IM, MSP, SPIDER, XBM, ICNS, SUN, XPM, FITS, JPEG
-  2000, AVIF at PIL's defaults, 4:4:4 AVIF) now hold the port's decode to
-  PIL's, and a glTF that embeds an AVIF with quantizer matrices raises
-  A.1 (one with a 4:4:4 AVIF, once the example here, loads as the JAX
-  loader loads it).
+  case per variant PIL reads here and the port does not (an AVIF grid,
+  AVIF step 5); the cases of the formats once unported here (BLP, IM,
+  MSP, SPIDER, XBM, ICNS, SUN, XPM, FITS, JPEG 2000, AVIF at PIL's
+  defaults, 4:4:4 AVIF, AVIF with quantizer matrices) now hold the port's
+  decode to PIL's, and a glTF that embeds an AVIF grid raises A.1 (one
+  with a 4:4:4 AVIF and one with quantizer matrices, each once the
+  example here, load as the JAX loader loads them).
 - The formats PIL opens but cannot decode (EPS without Ghostscript, MPEG,
   HDF5, BUFR, GRIB, WMF) raise an OSError that is no NotImplementedError,
   and a glTF embedding one keeps the factor-only material in both
@@ -20,6 +20,7 @@ io/gltf.py, io/obj.py) against PIL and the JAX package's loaders.
 - Formats are told apart in PIL's order: bytes that a later format owns
   but an earlier one's magic takes resolve as PIL resolves them.
 """
+import os
 import struct
 import warnings
 
@@ -33,6 +34,7 @@ from optixpathtracer_tpu_torch.io import image as timg
 from optixpathtracer_tpu_torch.io import obj as tobj
 from test_torch_obj_gltf import _assert_same_gltf, _textured_glb
 from torch_codec_encoders import assert_fails_like_pil, assert_like_pil, photo, pil_bytes, pil_rgb
+from torch_fixtures.make_textures import AVIF_RAISES
 
 
 def _sun(img: np.ndarray) -> bytes:
@@ -44,6 +46,13 @@ def _sun(img: np.ndarray) -> bytes:
 
 def _xpm() -> bytes:
     return b'/* XPM */\nstatic char *x[] = {\n"4 2 2 1",\n"a c #FF0000",\n"b c #00FF00",\n"abab",\n"baba"\n};\n'
+
+
+def _committed_avif(name: str) -> bytes:
+    """An AVIF of tests/torch_fixtures/avif_raises (a grid from libavif's
+    own encoder, which PIL's save does not write)."""
+    with open(os.path.join(AVIF_RAISES, name), "rb") as f:
+        return f.read()
 
 
 def _fits() -> bytes:
@@ -63,6 +72,7 @@ UNPORTED = {
     "AVIF": lambda: pil_bytes(photo(8, 8, 1), "AVIF"),
     "AVIF_444": lambda: pil_bytes(photo(8, 8, 1), "AVIF", subsampling="4:4:4"),
     "AVIF_QM": lambda: pil_bytes(photo(8, 8, 1), "AVIF", advanced={"enable-qm": "1"}),
+    "AVIF_GRID": lambda: _committed_avif("avif_grid.avif"),
     "ICNS": lambda: pil_bytes(photo(16, 16, 1, 4), "ICNS", "RGBA", sizes=[(16, 16)]),
     "SUN": lambda: _sun(photo(3, 5, 1)),
     "XPM": _xpm,
@@ -71,7 +81,7 @@ UNPORTED = {
 
 
 # what each still-unported case's NotImplementedError names
-STILL_UNPORTED = {"AVIF_QM": "AVIF of AV1 quantizer matrices"}
+STILL_UNPORTED = {"AVIF_GRID": "AVIF of grid images"}
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
@@ -186,11 +196,12 @@ def test_gltf_keeps_the_factor_only_material(tmp_path, name):
 def test_gltf_with_unported_format_raises_a1(tmp_path):
     from optixpathtracer_tpu_torch.io import gltf as tgltf
 
-    path = _textured_glb(tmp_path / "avif.glb", UNPORTED["AVIF_QM"]())
-    with pytest.raises(NotImplementedError, match="AVIF of AV1 quantizer matrices.*A.1"):
+    path = _textured_glb(tmp_path / "avif.glb", UNPORTED["AVIF_GRID"]())
+    with pytest.raises(NotImplementedError, match="AVIF of grid images.*A.1"):
         tgltf.load_gltf(path)
-    got, _ = _assert_same_gltf(_textured_glb(tmp_path / "avif444.glb", UNPORTED["AVIF_444"]()))
-    assert len(got.textures) == 1  # the 4:4:4 AVIF once raised here
+    for name in ("AVIF_444", "AVIF_QM"):  # each once raised here
+        got, _ = _assert_same_gltf(_textured_glb(tmp_path / f"{name}.glb", UNPORTED[name]()))
+        assert len(got.textures) == 1
 
 
 @pytest.mark.parametrize("native", [True, False])

@@ -305,15 +305,20 @@ def test_pcd(tmp_path, orientation):
 
 
 def test_unported_formats_left():
-    """AVIF at PIL's defaults, a 4:4:4 AVIF and JPEG 2000 (each once A.1)
-    decode as PIL decodes them; an AVIF with quantizer matrices, which PIL
-    reads, still raises A.1 (AVIF step 3)."""
+    """AVIF at PIL's defaults, a 4:4:4 AVIF, an AVIF with quantizer
+    matrices and JPEG 2000 (each once A.1) decode as PIL decodes them; an
+    AVIF grid, which PIL reads, still raises A.1 (AVIF step 5)."""
+    import os
+
     from optixpathtracer_tpu_torch.io import image as timg
+    from torch_fixtures.make_textures import AVIF_RAISES
 
     assert_like_pil(pil_bytes(photo(8, 8, 1), "AVIF"))
     assert_like_pil(pil_bytes(photo(8, 8, 1), "AVIF", subsampling="4:4:4"))
-    qm = pil_bytes(photo(8, 8, 1), "AVIF", advanced={"enable-qm": "1"})
-    assert pil_rgb(qm).shape == (8, 8, 3)
-    with pytest.raises(NotImplementedError, match="AVIF of AV1 quantizer matrices.*A.1"):
-        timg.rgb8_from_bytes(qm)
+    assert_like_pil(pil_bytes(photo(8, 8, 1), "AVIF", advanced={"enable-qm": "1"}))
+    with open(os.path.join(AVIF_RAISES, "avif_grid.avif"), "rb") as f:
+        grid = f.read()
+    assert pil_rgb(grid).shape == (128, 128, 3)
+    with pytest.raises(NotImplementedError, match="AVIF of grid images.*A.1"):
+        timg.rgb8_from_bytes(grid)
     assert_like_pil(pil_bytes(photo(8, 8, 1), "JPEG2000"))

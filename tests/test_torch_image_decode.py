@@ -15,6 +15,7 @@ to host scenes equal to the JAX loaders' array for array, and what stays
 unported raises NotImplementedError naming A.1.
 """
 import io
+import os
 import struct
 import zlib
 
@@ -29,6 +30,7 @@ from optixpathtracer_tpu_torch.io import gltf as tgltf
 from optixpathtracer_tpu_torch.io import image as timg
 from optixpathtracer_tpu_torch.io import obj as tobj
 from test_torch_obj_gltf import _assert_same_gltf, _assert_same_scene, _textured_glb
+from torch_fixtures.make_textures import AVIF_RAISES
 
 
 def _pil(data: bytes) -> np.ndarray:
@@ -152,8 +154,8 @@ def test_unported_formats_raise_naming_a1():
     """What this test once held unported now decodes as PIL does (arithmetic
     and CMYK JPEG, BMP, GIF, TIFF, WebP, MSP, JPEG 2000;
     tests/test_torch_codecs_*.py case by case) and AVIF at PIL's defaults
-    and in 4:4:4; a variant PIL reads and the port does not (an AVIF with
-    quantizer matrices) still raises A.1;
+    and in 4:4:4, and an AVIF with quantizer matrices; a variant PIL reads
+    and the port does not (an AVIF grid, AVIF step 5) still raises A.1;
     what PIL cannot read (a 12-bit JPEG, bytes of no format) raises an
     OSError as PIL's UnidentifiedImageError is one."""
     base = _pil_jpeg(_photo(16, 16, 7), quality=75)
@@ -188,9 +190,13 @@ def test_unported_formats_raise_naming_a1():
     _assert_decodes_like_pil(buf.getvalue())
     buf = io.BytesIO()
     Image.fromarray(_photo(8, 8, 9)).save(buf, format="AVIF", advanced={"enable-qm": "1"})
-    assert _pil(buf.getvalue()).shape == (8, 8, 3)
-    with pytest.raises(NotImplementedError, match="AVIF of AV1 quantizer matrices.*A.1"):
-        timg.rgb8_from_bytes(buf.getvalue())
+    assert _pil(buf.getvalue()).shape == (8, 8, 3)  # once unported here, now decoded as PIL decodes it
+    _assert_decodes_like_pil(buf.getvalue())
+    with open(os.path.join(AVIF_RAISES, "avif_grid.avif"), "rb") as f:
+        grid = f.read()
+    assert _pil(grid).shape == (128, 128, 3)
+    with pytest.raises(NotImplementedError, match="AVIF of grid images.*A.1"):
+        timg.rgb8_from_bytes(grid)
     for data in (twelve_bit, b"no image format" + bytes(20)):
         with pytest.raises(OSError, match="cannot identify"):
             _pil(data)

@@ -31,6 +31,7 @@ from optixpathtracer_tpu_torch.core.scene import HostScene, Mesh
 from optixpathtracer_tpu_torch.io import gltf as tgltf
 from optixpathtracer_tpu_torch.io import obj as tobj
 from tests.test_gltf import _reuse_gltf, _tri_gltf
+from torch_fixtures.make_textures import AVIF_RAISES
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -297,10 +298,10 @@ def test_gltf_tlas_raises(tmp_path):
     """The instanced loader shares the baked loader's image decoding: a JPEG
     texture loads there too, an arithmetic-coded one as well (once a port
     gap, now decoded as PIL decodes it), an MSP, a JPEG 2000 and an AVIF at
-    PIL's defaults and in 4:4:4 too (ported since), and a variant PIL reads
-    and the port does not (an AVIF with quantizer matrices) is still a gap
-    (ROADMAP A.1). (load_gltf_tlas itself is held against the JAX loader
-    in tests/test_torch_gltf_tlas.py.)"""
+    PIL's defaults, in 4:4:4 and with quantizer matrices too (ported
+    since), and a variant PIL reads and the port does not (an AVIF grid,
+    AVIF step 5) is still a gap (ROADMAP A.1). (load_gltf_tlas itself is
+    held against the JAX loader in tests/test_torch_gltf_tlas.py.)"""
     px = np.random.default_rng(3).integers(0, 256, (8, 8, 3), dtype=np.uint8)
     jpeg = _png_bytes(px, format="JPEG")
     hs = tgltf.load_gltf_tlas(_textured_glb(tmp_path / "jpeg.glb", jpeg))[0]
@@ -317,7 +318,10 @@ def test_gltf_tlas_raises(tmp_path):
     path = _textured_glb(tmp_path / "avif444.glb", _png_bytes(px, format="AVIF", subsampling="4:4:4"))
     np.testing.assert_array_equal(tgltf.load_gltf_tlas(path)[0].textures[0], jgltf.load_gltf(path)[0].textures[0])
     path = _textured_glb(tmp_path / "avif_qm.glb", _png_bytes(px, format="AVIF", advanced={"enable-qm": "1"}))
-    with pytest.raises(NotImplementedError, match="AVIF of AV1 quantizer matrices.*A.1"):
+    np.testing.assert_array_equal(tgltf.load_gltf_tlas(path)[0].textures[0], jgltf.load_gltf(path)[0].textures[0])
+    with open(os.path.join(AVIF_RAISES, "avif_grid.avif"), "rb") as f:
+        path = _textured_glb(tmp_path / "avif_grid.glb", f.read())
+    with pytest.raises(NotImplementedError, match="AVIF of grid images.*A.1"):
         tgltf.load_gltf_tlas(path)
 
 

@@ -1,9 +1,10 @@
 """Write optixpathtracer_tpu_torch/csrc/host/av1_tables.h: the AV1 default
-CDFs a key frame reads, the quantizer lookups at 8, 10 and 12 bits, the directional
-derivatives, the smooth weights, the filter-intra taps, the transform
-rotation constants, and the tables of CDEF and loop restoration (AV1
-Bitstream & Decoding Process Specification, section 9.3 and the tables of
-7.11-7.17).
+CDFs a key frame reads (the delta q and delta lf ones too), the quantizer
+lookups at 8, 10 and 12 bits, the quantizer matrices and each transform
+size's offset into them, the directional derivatives, the smooth weights,
+the filter-intra taps, the transform rotation constants, the tables of CDEF
+and loop restoration, and film grain's Gaussian sequence (AV1 Bitstream &
+Decoding Process Specification, section 9.3 and the tables of 7.11-7.18).
 
 The values are those of the specification. They are read here from the
 read-only data of the libavif that PIL bundles, which links libaom (each
@@ -17,7 +18,12 @@ chroma direction remap for 4:2:2 and 4:4:0, its primary taps and
 divisors, and the self-guided filter's parameters (libaom's {r0, r1},
 {e0, e1}) are read from the library too; the few rows too short to find
 there (CDEF's secondary taps, the Wiener and self-guided coefficient
-ranges) are typed as the specification prints them.
+ranges) are typed as the specification prints them. The quantizer matrices
+are libaom's inverse weights (iwt_matrix_ref, the spec's Quantizer_Matrix);
+Qm_Offset is where each transform size's matrix starts in a level's row,
+computed here as libaom lays the matrices out (in transform-size order, a
+64-point size sharing its 32-point matrix). The Gaussian sequence is
+dav1d's.
 tests/test_torch_codecs_avif_tables.py finds every row of the header in the
 same library again, and holds the first rows to the specification.
 
@@ -122,8 +128,12 @@ SPEC = {
     "Sgrproj_Xqd_Max": [31, 95],
     "Sgrproj_Xqd_Mid": [-32, 31],
 }
-SHAPES = {"Dc_Qlookup": "[3][256]", "Ac_Qlookup": "[3][256]", "Filter_Intra_Taps": "[5][8][7]", "Sgr_Params": "[16][4]", "Cdef_Uv_Dir": "[2][2][8]",
+SHAPES = {"Quantizer_Matrix": "[15][2][3344]", "Dc_Qlookup": "[3][256]", "Ac_Qlookup": "[3][256]", "Filter_Intra_Taps": "[5][8][7]", "Sgr_Params": "[16][4]", "Cdef_Uv_Dir": "[2][2][8]",
           "Cdef_Directions": "[8][2][2]", "Cdef_Pri_Taps": "[2][2]", "Cdef_Sec_Taps": "[2][2]"}
+
+# (width, height) of TX_4X4 .. TX_64X16, the specification's order
+TX_SIZES = [(4, 4), (8, 8), (16, 16), (32, 32), (64, 64), (4, 8), (8, 4), (8, 16), (16, 8), (16, 32), (32, 16),
+            (32, 64), (64, 32), (4, 16), (16, 4), (8, 32), (32, 8), (16, 64), (64, 16)]
 
 
 def find(ro: bytes, words: np.ndarray, start: int = 0) -> int:
@@ -198,6 +208,20 @@ def tables(ro: bytes) -> dict:
     return out
 
 
+def delta_cdfs(ro: bytes) -> dict:
+    """The delta q and delta lf CDFs (4 symbols each, all six rows
+    28160, 32120, 32677): dav1d's block of delta_q, then delta_lf[5], the
+    single one first and the FRAME_LF_COUNT of delta_lf_multi after it,
+    each row three values and a counter."""
+    row = [32768 - v for v in (28160, 32120, 32677)] + [0]
+    at = find(ro, np.array(row * 6))
+    assert at >= 0, "delta CDFs not found"
+    rows = [list(32768 - w[:3]) + [32768, 0]
+            for w in np.frombuffer(ro, "<u2", count=24, offset=at).astype(np.int64).reshape(6, 4)]
+    return {"Default_Delta_Q_Cdf": ((), rows[:1]), "Default_Delta_Lf_Cdf": ((), rows[1:2]),
+            "Default_Delta_Lf_Multi_Cdf": ((4,), rows[2:])}
+
+
 def scalars(ro: bytes) -> dict:
     """The tables that are not CDFs, located by their first values."""
     def grab(first, dtype, count):
@@ -230,7 +254,22 @@ def scalars(ro: bytes) -> dict:
     dirs = np.stack([rows, padded - 144 * rows], -1)
     pri = grab([4, 2, 3, 3], "<i4", 4)
     mid = grab([3, -7, 15, 106], "<i4", 3)
-    return {"Dc_Qlookup": dc, "Ac_Qlookup": ac, "Dr_Intra_Derivative": drd, "Sm_Weights": sm,
+    # libaom's iwt_matrix_ref: the spec's Quantizer_Matrix, levels 0-14 of
+    # inverse weights for luma and chroma, each level's matrices laid out in
+    # transform-size order, a 64-point size sharing its 32-point matrix
+    qm = grab([32, 43, 73, 97, 43, 67, 94, 110, 73, 94, 137, 150, 97, 110, 150, 200], "u1", 15 * 2 * 3344)
+    offset, start, total = [], {}, 0
+    for w, h in TX_SIZES:
+        adj = (min(w, 32), min(h, 32))
+        if adj not in start:
+            start[adj] = total
+            total += adj[0] * adj[1]
+        offset.append(start[adj])
+    assert total == 3344, total  # QM_TOTAL_SIZE
+    # dav1d's gaussian_sequence, the film grain's white noise (7.18.3.3)
+    gauss = grab([56, 568, -180, 172, 124, -84, 172, -64, -900, 24, 820, 224, 1248], "<i2", 2048)
+    return {"Quantizer_Matrix": qm, "Qm_Offset": offset, "Gaussian_Sequence": gauss,
+            "Dc_Qlookup": dc, "Ac_Qlookup": ac, "Dr_Intra_Derivative": drd, "Sm_Weights": sm,
             "Filter_Intra_Taps": taps, "Cos128_Lookup": cos, "Sinpi_Lookup": sinpi, "Sgr_Params": sgr.tolist(),
             "Div_Table": div, "Cdef_Uv_Dir": [[ident, conv440], [conv422, ident]], "Cdef_Directions": dirs.tolist(),
             "Cdef_Pri_Taps": [pri[:2], pri[2:]], "Wiener_Taps_Mid": mid, **SPEC}
@@ -243,7 +282,7 @@ def _fmt(rows, width=12) -> str:
 
 def header(ro: bytes) -> str:
     lines = ["// AV1 default CDFs and constant tables (AV1 Bitstream & Decoding Process",
-             "// Specification, 9.3 and 7.11-7.17). Generated by",
+             "// Specification, 9.3 and 7.11-7.18). Generated by",
              "// tests/torch_fixtures/gen_av1_tables.py; do not edit by hand.",
              "// Each CDF row is the spec's: increasing values ending in 32768, then the",
              "// adaptation counter; a row of fewer symbols than its table's widest is",
@@ -251,7 +290,7 @@ def header(ro: bytes) -> str:
              "#pragma once", "#include <stdint.h>", ""]
     lines += ["// CDEF's secondary taps and the Wiener and self-guided coefficient ranges",
               "// are typed from the specification; every other table is the library's.", ""]
-    for name, (dims, rows) in tables(ro).items():
+    for name, (dims, rows) in {**tables(ro), **delta_cdfs(ro)}.items():
         width = max(len(r) for r in rows)
         flat = []
         for r in rows:
@@ -261,9 +300,10 @@ def header(ro: bytes) -> str:
     for name, vals in scalars(ro).items():
         flat = np.ravel(vals).tolist()
         typ = "int8_t" if name == "Filter_Intra_Taps" else "int16_t" if name in (
-            "Dc_Qlookup", "Ac_Qlookup", "Dr_Intra_Derivative") else "uint8_t" if name == "Sm_Weights" else "int32_t"
+            "Dc_Qlookup", "Ac_Qlookup", "Dr_Intra_Derivative", "Gaussian_Sequence") else "uint8_t" if name in (
+            "Sm_Weights", "Quantizer_Matrix") else "int32_t"
         shape = SHAPES.get(name, f"[{len(flat)}]")
-        lines.append(f"static const {typ} {name}{shape} = {{\n{_fmt(flat, 16)}\n}};\n")
+        lines.append(f"static const {typ} {name}{shape} = {{\n{_fmt(flat, 32 if len(flat) > 4096 else 16)}\n}};\n")
     return "\n".join(lines)
 
 

@@ -13,13 +13,16 @@ restoration, 4:2:2);
 then one small image for each other variant the port decodes. PIL writes what it can write; the 10- and
 12-bit AVIF stills PIL's aom does not write come from OpenCV's libavif
 (tests/torch_avif_oracle.py `encode_hbd`, so this script needs cv2 too);
+AVIF step 4's grain comes from aom's test vectors and its grain tables
+(`film-grain-table`), one still's clip_to_restricted_range from a header
+edit;
 tests/torch_codec_encoders.py
 writes the rest (arithmetic, lossless and YCCK JPEG, RLE BMP, colour-mapped
 TGA, GIF with an offset frame, PSD, RLE SGI, JPEG-in-TIFF, CUR, a WebP
 animation, BC6H, a VP8 frame with the simple filter and four partitions) and
 tests/torch_j2k_encoders.py the JPEG 2000 files PIL does not write (through
 OpenJPEG's own encoder, spliced JP2 boxes, PPT / PPM). The AVIF files the
-port refuses (step-3 variants, and those PIL refuses) go to avif_raises/
+port refuses (a step-5 variant, and those PIL refuses) go to avif_raises/
 with expected.json. chip_smoke.py's `codecs_scene` decodes every fixture on a
 machine without PIL and holds it to the manifest; the CPU tests decode the
 committed files with PIL and hold the manifest to them.
@@ -347,6 +350,7 @@ def _fixtures_avif(enc, pil, Image) -> dict[str, bytes]:
     out["avif_orient6.avif"] = pil(small, "AVIF", exif=exif.tobytes())
     out.update(_fixtures_avif_options(enc, pil, Image))
     out.update(_fixtures_avif_hbd(enc, Image))
+    out.update(_fixtures_avif_tools(enc, pil, Image))
     return out
 
 
@@ -455,10 +459,139 @@ def _fixtures_avif_hbd(enc, Image) -> dict[str, bytes]:
     return out
 
 
+def aom_grain_table(lag: int, y_points, cb_points, cr_points, seed: int = 4321, shifts=(7, 1, 9),
+                    chroma_from_luma: int = 0, overlap: int = 1, cb=(128, 192, 256), cr=(128, 192, 256),
+                    coeff_seed: int = 0) -> str:
+    """A film grain table in aom's text format (`film-grain-table`, read by
+    aom_film_grain_table_read): one entry for all time with its seed, the
+    AR lag, shifts (ar_coeff_shift, grain_scale_shift, scaling_shift),
+    chroma-from-luma, overlap, the Cb / Cr multipliers and offsets, the
+    scaling points, and seeded AR coefficients in [-24, 24) (aom reads the
+    luma ones whatever the points)."""
+    n = 2 * lag * (lag + 1)
+    rng = np.random.default_rng(coeff_seed)
+
+    def row(v):
+        return " ".join(str(int(x)) for x in v)
+    points = [f"{len(p)} " + row(np.ravel(p)) if p else "0" for p in (y_points, cb_points, cr_points)]
+    return (f"filmgrn1\nE 0 9223372036854775807 1 {seed} 1\n"
+            f"\tp {lag} {shifts[0]} {shifts[1]} {shifts[2]} {chroma_from_luma} {overlap} {row(cb)} {row(cr)}\n"
+            f"\tsY {points[0]}\n\tsCb {points[1]}\n\tsCr {points[2]}\n"
+            f"\tcY {row(rng.integers(-24, 24, n))}\n\tcCb {row(rng.integers(-24, 24, n + 1))}\n"
+            f"\tcCr {row(rng.integers(-24, 24, n + 1))}\n")
+
+
+def with_grain_table(encode, table: str) -> bytes:
+    """encode(options) with aom's film-grain-table option on `table`
+    written to a temporary file."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "grain.tbl")
+        with open(path, "w") as f:
+            f.write(table)
+        return encode({"film-grain-table": path})
+
+
+def avif_grain_clipped(data: bytes) -> bytes:
+    """An AVIF with film grain whose frame header is edited to set
+    clip_to_restricted_range: the header's last bit, so nothing moves
+    (no encoder here sets it: aom's 16 test vectors and its grain tables
+    leave it 0)."""
+    sys.path.insert(0, REPO)
+    from optixpathtracer_tpu_torch.io.codecs import av1_obu, avif
+
+    obus, _ = avif.parse(data)
+    seq = None
+    for kind, payload in av1_obu.split_obus(obus):
+        if kind == av1_obu.OBU_SEQUENCE_HEADER:
+            seq = av1_obu.sequence_header(payload)
+        elif kind == av1_obu.OBU_FRAME:
+            b = av1_obu.Bits(payload)
+            h = av1_obu.frame_header(b, seq)
+            assert h["grain"]["apply_grain"] and not h["grain"]["clip_to_restricted_range"]
+            edited = bytearray(payload)
+            edited[(b.bit - 1) >> 3] |= 0x80 >> ((b.bit - 1) & 7)
+            at = data.index(payload)
+            return data[:at] + bytes(edited) + data[at + len(payload):]
+    raise ValueError("no frame OBU")
+
+
+# which tool each of aom's 16 film-grain-test vectors exercises, read from
+# their headers: ar_coeff_lag 2 (1, 9, 10, 12-15) or 3, overlap off in 1
+# and 12, no chroma points in 6, 13 and 14, chroma from luma in 15,
+# grain_scale_shift 1 in 3 and 2 in 16; none has lag 0 or 1, no luma
+# points or clip_to_restricted_range (aom's grain tables and a header edit
+# give those)
+GRAIN_TEST_VECTORS = {1: "lag 2, overlap off", 6: "no chroma points", 15: "chroma from luma",
+                      16: "grain_scale_shift 2"}
+
+
+def _fixtures_avif_tools(enc, pil, Image) -> dict[str, bytes]:
+    """AVIF step 4: the coding tools aom writes into stills. At 8 bits
+    through PIL: film grain from four of aom's test vectors
+    (`film-grain-test`, GRAIN_TEST_VECTORS), from grain tables
+    (`film-grain-table`: AR lags 0 and 1, no luma points in 4:4:4), with
+    clip_to_restricted_range set by a header edit, in the four layouts at
+    37 x 23 and estimated from a smooth noisy image (`denoise-noise-level`);
+    quantizer matrices at levels 0 and 13; delta q (`deltaq-mode` 2) and
+    delta q with delta lf (`delta-lf-mode` 1) on 128 x 128; all of them
+    together in RGBA. At 10 and 12 bits through OpenCV's libavif
+    (oracle.encode_hbd): grain, quantizer matrices and delta q
+    (`deltaq-mode` 3, 128 x 128 at quality 70: aom writes none at 50), two
+    layouts each."""
+    import torch_avif_oracle as oracle
+
+    out = {}  # the two step-3 refusals, which decode now: grain signalled and not applied (too few flat
+    # blocks in 16 x 16 to estimate it), and quantizer matrices at aom's default levels
+    out["avif_film_grain.avif"] = pil(enc.photo(16, 16, 9), "AVIF", advanced={"denoise-noise-level": "20"})
+    out["avif_qm.avif"] = pil(enc.photo(16, 16, 10), "AVIF", advanced={"enable-qm": "1"})
+    ph = enc.photo(64, 64, 80)
+    for n in GRAIN_TEST_VECTORS:
+        out[f"avif_grain_test{n}.avif"] = pil(ph, "AVIF", advanced={"film-grain-test": str(n)})
+    y, c = [(0, 20), (90, 60), (255, 40)], [(0, 30), (128, 70), (255, 30)]
+    for name, ss, table in (
+            ("avif_grain_lag0.avif", "4:2:0", aom_grain_table(0, y, c, c, shifts=(7, 1, 9), cb=(120, 200, 300))),
+            ("avif_grain_lag1_422.avif", "4:2:2", aom_grain_table(1, y, c, [(10, 50)], shifts=(6, 0, 10),
+                                                                    overlap=0, cr=(140, 180, 200), coeff_seed=1)),
+            ("avif_grain_no_luma_444.avif", "4:4:4", aom_grain_table(2, [], c, c, shifts=(7, 1, 9), coeff_seed=2))):
+        out[name] = with_grain_table(lambda o, ss=ss: pil(ph, "AVIF", subsampling=ss, advanced=o), table)
+    out["avif_grain_clipped.avif"] = avif_grain_clipped(pil(enc.photo(64, 64, 81), "AVIF",
+                                                            advanced={"film-grain-test": "5"}))
+    small = enc.photo(23, 37, 82)
+    for ss in ("4:4:4", "4:2:2", "4:2:0", "4:0:0"):
+        out[f"avif_grain_37x23_{ss.replace(':', '')}.avif"] = pil(small, "AVIF", subsampling=ss,
+                                                                  advanced={"film-grain-test": "10"})
+    noisy = _smooth(128, 128, 83).astype(int) + np.random.default_rng(83).normal(0, 6, (128, 128, 3)).round()
+    out["avif_grain_estimated_128.avif"] = pil(np.clip(noisy, 0, 255).astype(np.uint8), "AVIF",
+                                               advanced={"denoise-noise-level": "10"})
+    for level in (0, 13):
+        out[f"avif_qm{level}.avif"] = pil(enc.photo(48, 80, 84 + level), "AVIF", subsampling="4:4:4" if level else "4:2:0",
+                                          advanced={"enable-qm": "1", "qm-min": str(level), "qm-max": str(level)})
+    big = enc.photo(128, 128, 86)
+    out["avif_deltaq_128.avif"] = pil(big, "AVIF", advanced={"deltaq-mode": "2"})
+    out["avif_deltaq_deltalf_128.avif"] = pil(big, "AVIF", advanced={"deltaq-mode": "2", "delta-lf-mode": "1"})
+    rgba = Image.fromarray(enc.photo(128, 128, 87, 4), "RGBA")
+    out["avif_tools_rgba_128.avif"] = pil(rgba, "AVIF", advanced={
+        "deltaq-mode": "2", "delta-lf-mode": "1", "enable-qm": "1", "qm-min": "5", "qm-max": "9",
+        "film-grain-test": "2"})
+    hbd = oracle.encode_hbd
+    for depth, fmt, tag in ((10, 2, "422"), (12, 1, "444")):
+        out[f"avif{depth}_grain_{tag}.avif"] = hbd(enc.yuv_photo(40, 56, 88 + fmt, depth, fmt), depth, fmt,
+                                                   options={"film-grain-test": "16" if depth == 12 else "5"})
+    for depth, fmt, tag in ((10, 3, "420"), (12, 4, "400")):
+        out[f"avif{depth}_qm_{tag}.avif"] = hbd(enc.yuv_photo(40, 56, 90 + fmt, depth, fmt), depth, fmt,
+                                                options={"enable-qm": 1, "qm-min": 3, "qm-max": 11})
+    for depth, fmt, tag in ((10, 1, "444"), (12, 3, "420")):
+        out[f"avif{depth}_deltaq_{tag}_128.avif"] = hbd(enc.yuv_photo(128, 128, 92 + fmt, depth, fmt), depth, fmt,
+                                                        quality=70, options={"deltaq-mode": 3})
+    return out
+
+
 def avif_raises(enc, pil, Image) -> dict[str, tuple[bytes, str, str]]:
-    """AVIF files the port refuses: the step-3 variants PIL reads (film
-    grain, quantizer matrices, a 2 x 2 grid from libavif's own encoder)
-    raise NotImplementedError naming A.1; the files PIL refuses (ROADMAP
+    """AVIF files the port refuses: a step-5 variant PIL reads (a 2 x 2
+    grid from libavif's own encoder) raises NotImplementedError naming A.1;
+    the files PIL refuses (ROADMAP
     C.14: a HEIF brand without avif, a primary item of type hvc1, a file
     cut 40 bytes short) fail as PIL's do. -> name -> (bytes, exception
     class name, message pattern)."""
@@ -471,10 +604,6 @@ def avif_raises(enc, pil, Image) -> dict[str, tuple[bytes, str, str]]:
     heic = (8 + len(body)).to_bytes(4, "big") + b"ftyp" + body + base[i - 4 + size:]
     j = base.index(b"av01")
     return {
-        "avif_film_grain.avif": (pil(enc.photo(16, 16, 9), "AVIF", advanced={"denoise-noise-level": "20"}),
-                                 "NotImplementedError", "AVIF of AV1 film grain.*ROADMAP A.1"),
-        "avif_qm.avif": (pil(enc.photo(16, 16, 10), "AVIF", advanced={"enable-qm": "1"}), "NotImplementedError",
-                         "AVIF of AV1 quantizer matrices.*ROADMAP A.1"),
         "avif_grid.avif": (oracle.encode(enc.photo(64, 64, 11)[..., 0], (2, 2)), "NotImplementedError",
                            "AVIF of grid images.*ROADMAP A.1"),
         "avif_heic_brand.avif": (heic, "UnidentifiedImageError", "cannot identify image file"),
