@@ -80,7 +80,9 @@ port's paths and checks that each went through its kernels:
      baked gate (`instanced_exactness_gate`), a transform update against a
      fresh build (`tlas_update`), and `python -m optixpathtracer_tpu_torch
      render` in two child processes (`cli_render`: the instanced city and
-     the loft with --denoise; no jax, JAX package or PIL imported);
+     the loft with --denoise; no jax, JAX package or PIL imported), started
+     together with the other CLI children below and the scripts of 16 that
+     measure nothing;
  10. the other presets (after the city's quality pipeline): `route_ties`
      (ROADMAP C.7: the flat and the node walk on the city's engine
      first-bounce rays and on hello's primary rays, t gated equal, the
@@ -123,10 +125,11 @@ port's paths and checks that each went through its kernels:
      equal rays, lane balance within 10 %) and bench.py's loft row from a
      128-tile demand pool per rank (`dist_demand`: `pages_loaded` equal to
      one device's, the frame equal to the resident render within 1e-5);
-     then the city slice with NCCL at world size 1 (`dist_nccl`) and
+     then the city slice with NCCL at world size 1 (`dist_nccl`), and
      `python -m optixpathtracer_tpu_torch.parallel.dryrun --ranks 2
-     --device cuda:0` in a child process (`dryrun`); a rank that fails,
-     hangs or exits non-zero fails the run;
+     --device cuda:0` in a child process started before them and run
+     beside them (`dryrun`); a rank that fails, hangs or exits non-zero
+     fails the run;
  13. the loft with its textures re-encoded by the port's `encode_jpeg` and
      loaded through the new JPEG decoder (`jpeg_scene`, after the file
      goldens): texture fetch card == CPU bit for bit, a 160x100 render on
@@ -136,7 +139,8 @@ port's paths and checks that each went through its kernels:
      (`backend_phases`, after `engine_options`; `--only backends` runs the
      build, the city and these alone): `native_build` (the city's native
      builds against numpy), `lockstep_city` (bench.py's CPU headline on the
-     card), `bfs_city`, `dense_loft`, `oracle_loft` and `lockstep_goldens`
+     card), `bfs_city`, `dense_loft`, `oracle_loft`, and later, beside the
+     CLI's children, `lockstep_goldens`
      (the 14 goldens through the lockstep walk on the card against the
      port's CPU renders, which three worker processes started after the
      build compute beside the card's phases; both walks card against CPU
@@ -153,13 +157,16 @@ port's paths and checks that each went through its kernels:
      `closest_hit_cluster`'s, the executed pairs from the kernels' vis equal
      to `SweepWork.lane_pairs`, to the child's and, on 2048 rays, to the
      CPU's).
- 16. the scripts beside the package as the port's modules (`scripts`, after
-     the bench; `--only scripts` runs the build and this alone), each as
-     `python -m` runs it in one child process (no jax, JAX package or PIL
-     imported; each run's launches counted from 0): `tools.fps_harness` at
-     1200x800 (10 foveated, 3 uniform frames: both TSVs' columns and rows,
-     foveated frames tracing fewer rays than uniform ones, both fps and
-     their ratio), `tools.interactive_session --frames 16`,
+ 16. the scripts beside the package as the port's modules (`scripts`;
+     `--only scripts` runs the build and these alone), each as `python -m`
+     runs it (no jax, JAX package or PIL imported; each run's launches
+     counted from 0): after the bench, in a child process alone, the two
+     whose frame rates are measured, `tools.fps_harness` at 1200x800 (10
+     foveated frames, 1 uniform: both TSVs' columns and rows, foveated
+     frames tracing fewer rays than uniform ones, both fps and their ratio)
+     and `tools.interactive_session --frames 16`; the other six in two
+     child processes (references, examples) started with `cli_render`'s,
+     beside them:
      `tools.make_reference` at 600x400 with 8 and 64 spp (RMSE against
      scenes/ref_city_600x400.npz falling with spp, seconds per spp),
      `tools.make_reference_4k --disc-spp 16 --skip-q` (the disc's pixels
@@ -203,10 +210,14 @@ port's paths and checks that each went through its kernels:
      IntraBC, decoded by the uint16 build of av1_dec.cpp, their count and
      host ms reported with the 8-bit 1024 x 1024 one's; AVIF step 4's
      film grain, quantizer matrices, delta q and delta lf at 8, 10 and 12
-     bits, each tool's count and host ms reported) are held to the
-     manifest, each decode timed, and the AVIF files of
-     tests/torch_fixtures/avif_raises (a grid, AVIF step 5, and what PIL
-     refuses) raise what its expected.json says. The JPEG 2000 fixtures (every progression, POC, tiles and
+     bits, each tool's count and host ms reported; AVIF step 5's AV1
+     segmentation, grids (cropped, with alpha, at 10 bits) and the
+     matrices libavif converts without libyuv, each variant's count and
+     host ms reported) are held to the manifest, each decode timed, and
+     the AVIF files of tests/torch_fixtures/avif_raises (a premultiplied
+     alpha of another size, AVIF step 6, and what PIL refuses: C.14, the
+     matrices of C.16, the first frames of C.17, a grid missing a cell)
+     raise what its expected.json says, their count reported. The JPEG 2000 fixtures (every progression, POC, tiles and
      tile-parts, precincts, layers, each code-block style, SOP / EPH,
      ROI, PPT / PPM, precisions, subsampling, L / LA / RGBA / I;16 / CMYK /
      P / sYCC) are among the fixtures held to the manifest.
@@ -280,6 +291,10 @@ GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
 RMSE_TOL = 2e-3  # tests/test_goldens.py
 PLAIN_BUDGET_S = 60.0  # time a plain version at the slice shape within this
 HIER_PLAIN_BUDGET_S = 30.0  # the same for the node walk's plain versions
+# the same for every other wavefront (the engine's second bounces, the presets,
+# demand_big, the big scene and its mixed rays): the bit-equality and plain_ms
+# on the blocks that fit, plain_rays beside them
+SIDE_PLAIN_BUDGET_S = 4.0
 SLICE_FRAMES = 3  # timed frames of a slice, after one warm-up
 TURN_CALLS = 200  # calls of a worklist kernel, its library call and the launch floor per measure
 WIDTH, HEIGHT, SPP, DEPTH = 1200, 800, 2, 4
@@ -316,6 +331,35 @@ FILE_GOLDENS = ("loft_s", "loft", "disney_cornell_s", "disney_cornell", "gltf")
 CITY_BUILD = dict(leaf_size=8, cluster_size=256, build_wide_bvh=False)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 _last_emit = [time.perf_counter()]
+
+
+_CHILDREN = []  # the child processes started to run beside this one, stopped on exit
+
+
+def _popen(cmd):
+    """Start cmd in the repository as a child process whose output is read
+    by `_wait`."""
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    _CHILDREN.append(proc)
+    return proc
+
+
+def _wait(proc, timeout_s):
+    """(stdout, stderr) of a `_popen` child once it has exited; killed after
+    timeout_s."""
+    try:
+        return proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+
+
+def _stop_children():
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
 
 
 def emit(phase: str, **fields) -> None:
@@ -517,7 +561,7 @@ def device_per_call(fn, calls):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -800,7 +844,9 @@ def profile_frame(phase, renderer, run=None, **fields):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone: the host ops' events would repeat their
+    # kernels' device time, and reading them back took seconds a frame
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         if run is None:
             renderer.render(download=False)
@@ -808,8 +854,6 @@ def profile_frame(phase, renderer, run=None, **fields):
             run()
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device-side entries only: the CPU-side op entries repeat their kernels'
-    # device time
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
     busy = sum(_device_us(e) for e in events) / 1e6
@@ -1780,7 +1824,7 @@ def demand_big(dev, peak, card, counts):
                 times[label] = time_flat(cl, tc._pack_rays8(cl, o, d, t_min, t_max),
                                          tc.block_cull(cl, o, d, t_min, t_max), tc.block_cull(cl, p, w, s_min, s_max),
                                          peak, f"demand_big {label}, 1200x800x2spp", card,
-                                         budget_s=PRESET_PLAIN_BUDGET_S)
+                                         budget_s=SIDE_PLAIN_BUDGET_S)
         del r, mgr
         torch.cuda.empty_cache()
     emit("demand_big_kernels", **{label: {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
@@ -1967,11 +2011,11 @@ def view_slice(cs, probe, dev, card, counts):
 
 def cli_demand_view(tmp, card):
     """`render --scene scenes/loft.obj --demand-textures 128` and `view
-    --max-frames 2 --port 0` in two child processes started together, at
-    320x200 (the render at 1 spp): each exits 0 and imports none of jax,
-    the JAX package or PIL; the render prints the pool's page line (117
-    pages: the loft's three 256x256 textures over 4 levels) and the viewer
-    its address."""
+    --max-frames 2 --port 0` in two child processes started now, at 320x200
+    (the render at 1 spp); the returned function waits for them: each exits
+    0 and imports none of jax, the JAX package or PIL; the render prints the
+    pool's page line (117 pages: the loft's three 256x256 textures over 4
+    levels) and the viewer its address."""
     from optixpathtracer_tpu_torch import scenes
 
     small = ["--width", "320", "--height", "200"]  # the command's path, not its frame size
@@ -1981,19 +2025,21 @@ def cli_demand_view(tmp, card):
     expect = {"cli_render": "demand textures: 117 pages, pool capacity 128",
               "cli_view": "viewer at http://127.0.0.1:"}
     t0 = time.perf_counter()
-    procs = {name: subprocess.Popen([sys.executable, "-c", _CHILD, json.dumps(argv)], cwd=REPO,
-                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for name, argv in runs.items()}
-    for name, proc in procs.items():
-        stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
-        imported = [json.loads(ln.split(" ", 1)[1]) for ln in stdout.splitlines() if ln.startswith("IMPORTED ")]
-        emit(name, run="demand_textures" if name == "cli_render" else "view", argv=runs[name],
-             returncode=proc.returncode, wall_s=time.perf_counter() - t0, imported=imported,
-             stdout_tail=stdout[-400:], stderr_tail=stderr[-600:], card=card)
-        if proc.returncode != 0 or expect[name] not in stdout:
-            raise AssertionError(f"{name}: exit {proc.returncode}: {stdout[-800:]} {stderr[-2000:]}")
-        if imported != [[]]:
-            raise AssertionError(f"{name}: the child imported {imported}")
+    procs = {name: _start(argv) for name, argv in runs.items()}
+
+    def finish():
+        for name, proc in procs.items():
+            stdout, stderr = _wait(proc, CLI_TIMEOUT_S)
+            imported = [json.loads(ln.split(" ", 1)[1]) for ln in stdout.splitlines() if ln.startswith("IMPORTED ")]
+            emit(name, run="demand_textures" if name == "cli_render" else "view", argv=runs[name],
+                 returncode=proc.returncode, wall_s=time.perf_counter() - t0, imported=imported,
+                 stdout_tail=stdout[-400:], stderr_tail=stderr[-600:], card=card)
+            if proc.returncode != 0 or expect[name] not in stdout:
+                raise AssertionError(f"{name}: exit {proc.returncode}: {stdout[-800:]} {stderr[-2000:]}")
+            if imported != [[]]:
+                raise AssertionError(f"{name}: the child imported {imported}")
+
+    return finish
 
 
 INST_GRID = 4  # `scenes.instanced_city_glb` tiles per side: 144 instances, ~2.4M world triangles
@@ -2154,8 +2200,8 @@ def instanced_phases(tmp, dev, peak, card, counts):
 
     # the rays the engine hands to its sweeps at the first and the second
     # bounce of the first launch of a frame (one of dispatch_tiles pixel
-    # chunks, sample 0); the flat walk's bounds at the first bounce only
-    # (its counting walks over 2416 entries take tens of seconds)
+    # chunks, sample 0); the sweeps' bounds at the first bounce only (the
+    # counting walks over 2416 entries take tens of seconds)
     calls = frame_calls(renderer, ("closest_hit_cluster", "any_hit_cluster"))
     waves = {label: tuple(tuple(calls[name][depth][0][1:5]) for name in ("closest_hit_cluster", "any_hit_cluster"))
              for depth, label in enumerate(("instanced first bounce (the engine's)",
@@ -2169,7 +2215,7 @@ def instanced_phases(tmp, dev, peak, card, counts):
                                             label, card)}
         node_t[label].update(time_hier(cl, tc.block_cull_nodes(cl, o, d, t_min, t_max),
                                        tc.block_cull_nodes(cl, p, w, s_min, s_max), peak, label, card,
-                                       budget_s=INST_PLAIN_BUDGET_S))
+                                       budget_s=INST_PLAIN_BUDGET_S, bound=i == 0))
         flat_t[label] = time_flat(cl, tc._pack_rays8(cl, o, d, t_min, t_max),
                                   tc.block_cull(cl, o, d, t_min, t_max), tc.block_cull(cl, p, w, s_min, s_max),
                                   peak, label + ", flat walk", card, budget_s=INST_PLAIN_BUDGET_S,
@@ -2277,13 +2323,19 @@ sys.exit(rc)
 """
 
 
+def _start(argv):
+    """A child process running `_CHILD` on argv (the package's CLI arguments)."""
+    return _popen([sys.executable, "-c", _CHILD, json.dumps(argv)])
+
+
 def cli_render(glb, tmp, card):
     """`python -m optixpathtracer_tpu_torch render` as a user types it, in a
-    child process each: the instanced city (the tentpole command, 2 frames,
-    --metrics) and the loft with --denoise. Each must exit 0 and write a
-    finite, not black PNG of its size that the port's decoder reads; the
-    metrics file one row per frame with the reference's keys; and neither
-    child may import jax, the JAX package or PIL."""
+    child process each, both started now: the instanced city (the tentpole
+    command, 2 frames, --metrics) and the loft with --denoise. The returned
+    function waits for them: each must exit 0 and write a finite, not black
+    PNG of its size that the port's decoder reads; the metrics file one row
+    per frame with the reference's keys; and neither child may import jax,
+    the JAX package or PIL."""
     from optixpathtracer_tpu_torch import scenes
     from optixpathtracer_tpu_torch.io.image import read_rgb8
 
@@ -2295,31 +2347,34 @@ def cli_render(glb, tmp, card):
         "loft_denoise": (["render", "--scene", scenes.LOFT_OBJ, "--emission-all-bounces", "--spp", "2",
                           "--denoise", "--out", os.path.join(tmp, "l.png")], None),
     }
-    for name, (argv, frames) in runs.items():
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", _CHILD, json.dumps(argv)], cwd=REPO,
-                              capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
-        wall = time.perf_counter() - t0
-        imported = [json.loads(ln.split(" ", 1)[1]) for ln in proc.stdout.splitlines()
-                    if ln.startswith("IMPORTED ")]
-        out = argv[argv.index("--out") + 1]
-        img = read_rgb8(out) if proc.returncode == 0 and os.path.exists(out) else None
-        rows = []
-        if frames:
-            with open(metrics) as f:
-                rows = [json.loads(ln) for ln in f if ln.strip()]
-        emit("cli_render", run=name, argv=argv, returncode=proc.returncode, wall_s=wall,
-             shape=None if img is None else list(img.shape), image_mean=None if img is None else float(img.mean()),
-             metrics_rows=len(rows), imported=imported, stdout_tail=proc.stdout[-400:],
-             stderr_tail=proc.stderr[-800:], card=card)
-        if proc.returncode != 0 or img is None:
-            raise AssertionError(f"cli_render {name}: exit {proc.returncode}: {proc.stderr[-2000:]}")
-        if img.shape != (HEIGHT, WIDTH, 3) or not img.max() > 0:
-            raise AssertionError(f"cli_render {name}: image {img.shape}, max {img.max()}")
-        if imported != [[]]:
-            raise AssertionError(f"cli_render {name}: the child imported {imported}")
-        if frames and (len(rows) != frames or any(set(r) != METRIC_KEYS for r in rows)):
-            raise AssertionError(f"cli_render {name}: metrics rows {rows}")
+    t0 = time.perf_counter()
+    procs = {name: _start(argv) for name, (argv, _) in runs.items()}
+
+    def finish():
+        for name, (argv, frames) in runs.items():
+            stdout, stderr = _wait(procs[name], CLI_TIMEOUT_S)
+            rc = procs[name].returncode
+            imported = [json.loads(ln.split(" ", 1)[1]) for ln in stdout.splitlines() if ln.startswith("IMPORTED ")]
+            out = argv[argv.index("--out") + 1]
+            img = read_rgb8(out) if rc == 0 and os.path.exists(out) else None
+            rows = []
+            if frames:
+                with open(metrics) as f:
+                    rows = [json.loads(ln) for ln in f if ln.strip()]
+            emit("cli_render", run=name, argv=argv, returncode=rc, wall_s=time.perf_counter() - t0,
+                 shape=None if img is None else list(img.shape),
+                 image_mean=None if img is None else float(img.mean()), metrics_rows=len(rows),
+                 imported=imported, stdout_tail=stdout[-400:], stderr_tail=stderr[-800:], card=card)
+            if rc != 0 or img is None:
+                raise AssertionError(f"cli_render {name}: exit {rc}: {stderr[-2000:]}")
+            if img.shape != (HEIGHT, WIDTH, 3) or not img.max() > 0:
+                raise AssertionError(f"cli_render {name}: image {img.shape}, max {img.max()}")
+            if imported != [[]]:
+                raise AssertionError(f"cli_render {name}: the child imported {imported}")
+            if frames and (len(rows) != frames or any(set(r) != METRIC_KEYS for r in rows)):
+                raise AssertionError(f"cli_render {name}: metrics rows {rows}")
+
+    return finish
 
 
 # ---- the port's bench: its --small run and its hostile scene -------------
@@ -2448,7 +2503,6 @@ def bench_hostile(dev, card):
 
 # ---- the other presets: hello_raytracing, whitted, spectral -------------
 
-PRESET_PLAIN_BUDGET_S = 4.0  # plain-version budget per kernel and wavefront of the preset slices
 WHITTED_SIZE = dict(width=768, height=576, max_depth=3)  # bench.py:1151
 SPECTRAL_SPP, SPECTRAL_FRAMES = 2, 2  # bench.py:1156-1160 (frames=2)
 CLI_PRESETS = ("hello_raytracing", "whitted", "spectral")
@@ -2575,11 +2629,11 @@ def hello_slice(cs, dev, peak, card, counts):
     nt = cl.node_tables
     wf = "hello primary rays"
     out = {"cull": cull_phase("cull (node table)", tc._pack_rays8(cl, o, d, t_min, t_max), nt.node_sph_t,
-                              nt.node_box_t, peak, PRESET_PLAIN_BUDGET_S, wf, card)}
+                              nt.node_box_t, peak, SIDE_PLAIN_BUDGET_S, wf, card)}
     shadow = cull_phase("cull (node table)", tc._pack_rays8(cl, p, l, s_min, s_max), nt.node_sph_t, nt.node_box_t,
-                        peak, PRESET_PLAIN_BUDGET_S, "hello shadow rays (unnormalised, t in (0, 1))", card)
+                        peak, SIDE_PLAIN_BUDGET_S, "hello shadow rays (unnormalised, t in (0, 1))", card)
     out.update(time_hier(cl, tc.block_cull_nodes(cl, o, d, t_min, t_max), tc.block_cull_nodes(cl, p, l, s_min, s_max),
-                         peak, "hello primary / shadow rays", card, budget_s=PRESET_PLAIN_BUDGET_S))
+                         peak, "hello primary / shadow rays", card, budget_s=SIDE_PLAIN_BUDGET_S))
     dlen = float((l.x * l.x + l.y * l.y + l.z * l.z).sqrt().median())
     emit("hello_kernels", median_shadow_dir_length=dlen, bit_equal=True,
          kernels={k: {f: v[f] for f in ("ms", "plain_ms", "rays", "plain_rays", "max_abs_err", "bound_ms",
@@ -2620,7 +2674,7 @@ def whitted_slice(dev, peak, card, counts):
     out = time_flat(cl, tc._pack_rays8(cl, o, d, t_min, t_max), tc.block_cull(cl, o, d, t_min, t_max),
                     tc.block_cull(cl, p, l, s_min, s_max), peak,
                     f"whitted deepest level ({o.x.shape[0]} reflected + refracted rays)", card,
-                    budget_s=PRESET_PLAIN_BUDGET_S)
+                    budget_s=SIDE_PLAIN_BUDGET_S)
     errs = {k: v["max_abs_err"] for k, v in out.items()}
     del r, o, d, p, l
     torch.cuda.empty_cache()
@@ -2654,9 +2708,9 @@ def spectral_slice(cs, probe, peak, card, counts):
     cl = cs.clusters
     nt = cl.node_tables
     out = {"cull": cull_phase("cull (node table)", tc._pack_rays8(cl, o, d, t_min, t_max), nt.node_sph_t,
-                              nt.node_box_t, peak, PRESET_PLAIN_BUDGET_S, "spectral first bounce", card)}
+                              nt.node_box_t, peak, SIDE_PLAIN_BUDGET_S, "spectral first bounce", card)}
     out.update(time_hier(cl, tc.block_cull_nodes(cl, o, d, t_min, t_max), tc.block_cull_nodes(cl, p, l, s_min, s_max),
-                         peak, "spectral first bounce / its shadow rays", card, budget_s=PRESET_PLAIN_BUDGET_S))
+                         peak, "spectral first bounce / its shadow rays", card, budget_s=SIDE_PLAIN_BUDGET_S))
     return launches, out, {k: v["max_abs_err"] for k, v in out.items()}
 
 
@@ -2720,8 +2774,9 @@ def preset_goldens(dev, card):
 def cli_presets(tmp, card):
     """`python -m optixpathtracer_tpu_torch render --model hello_raytracing |
     whitted | spectral` at 96x64, as a user types them, in three child
-    processes started together: each must exit 0, write a lit PNG of its
-    size, and import none of jax, the JAX package or PIL."""
+    processes started now; the returned function waits for them: each must
+    exit 0, write a lit PNG of its size, and import none of jax, the JAX
+    package or PIL."""
     from optixpathtracer_tpu_torch.io.image import read_rgb8
 
     procs = {}
@@ -2730,20 +2785,23 @@ def cli_presets(tmp, card):
         out = os.path.join(tmp, f"{model}.png")
         argv = ["render", "--model", model, "--width", "96", "--height", "64", "--spp", "1",
                 "--max-depth", "2", "--out", out]
-        procs[model] = (argv, out, subprocess.Popen([sys.executable, "-c", _CHILD, json.dumps(argv)], cwd=REPO,
-                                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    for model, (argv, out, proc) in procs.items():
-        stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
-        imported = [json.loads(ln.split(" ", 1)[1]) for ln in stdout.splitlines() if ln.startswith("IMPORTED ")]
-        img = read_rgb8(out) if proc.returncode == 0 and os.path.exists(out) else None
-        emit("cli_preset", model=model, argv=argv, returncode=proc.returncode,
-             wall_s=time.perf_counter() - t0, shape=None if img is None else list(img.shape),
-             image_mean=None if img is None else float(img.mean()), imported=imported,
-             stdout_tail=stdout[-300:], stderr_tail=stderr[-600:], card=card)
-        if proc.returncode != 0 or img is None or img.shape != (64, 96, 3) or not img.max() > 0:
-            raise AssertionError(f"cli_preset {model}: exit {proc.returncode}: {stderr[-2000:]}")
-        if imported != [[]]:
-            raise AssertionError(f"cli_preset {model}: the child imported {imported}")
+        procs[model] = (argv, out, _start(argv))
+
+    def finish():
+        for model, (argv, out, proc) in procs.items():
+            stdout, stderr = _wait(proc, CLI_TIMEOUT_S)
+            imported = [json.loads(ln.split(" ", 1)[1]) for ln in stdout.splitlines() if ln.startswith("IMPORTED ")]
+            img = read_rgb8(out) if proc.returncode == 0 and os.path.exists(out) else None
+            emit("cli_preset", model=model, argv=argv, returncode=proc.returncode,
+                 wall_s=time.perf_counter() - t0, shape=None if img is None else list(img.shape),
+                 image_mean=None if img is None else float(img.mean()), imported=imported,
+                 stdout_tail=stdout[-300:], stderr_tail=stderr[-600:], card=card)
+            if proc.returncode != 0 or img is None or img.shape != (64, 96, 3) or not img.max() > 0:
+                raise AssertionError(f"cli_preset {model}: exit {proc.returncode}: {stderr[-2000:]}")
+            if imported != [[]]:
+                raise AssertionError(f"cli_preset {model}: the child imported {imported}")
+
+    return finish
 
 
 DIST_RANKS = 2  # gloo ranks sharing cuda:0: NCCL cannot put two ranks on one card
@@ -2836,7 +2894,9 @@ def dist_phases(cs, probe, dev, card):
       the settled frame equal to the resident render within DEMAND_TOL;
     - `dist_nccl`: the city slice over NCCL at world size 1;
     - `dryrun`: `python -m optixpathtracer_tpu_torch.parallel.dryrun
-      --ranks 2 --device cuda:0` in a child process (gloo).
+      --ranks 2 --device cuda:0` in a child process (gloo), started first
+      and run beside the rest (its checks are of rays and images; the
+      ranks' frame times above are read beside it).
 
     Launch counts are each rank's, cleared just before its distributed
     frames and read just after. Returns ({path: launches summed over
@@ -2853,6 +2913,8 @@ def dist_phases(cs, probe, dev, card):
     from optixpathtracer_tpu_torch.parallel.dryrun import foveated_program, imbalance, strip_program
 
     t_all = time.perf_counter()
+    dryrun = _popen([sys.executable, "-m", "optixpathtracer_tpu_torch.parallel.dryrun", "--ranks", "2",
+                     "--device", "cuda:0", "--timeout", str(DIST_TIMEOUT_S)])
     # ---- the single-device references on this card
     city = make_disney_pt_renderer(cs, probe, scenes.city_camera(WIDTH, HEIGHT), width=WIDTH, height=HEIGHT,
                                    spp=SPP, max_depth=DEPTH, **BENCH_FLAGS)
@@ -2943,19 +3005,16 @@ def dist_phases(cs, probe, dev, card):
                  spawn_s=nccl_s)
     launches["dist_nccl"] = dict(nccl["launch_counts"])
 
-    # ---- the dry run, as a user runs it, on this card
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "optixpathtracer_tpu_torch.parallel.dryrun", "--ranks", "2",
-                           "--device", "cuda:0", "--timeout", str(DIST_TIMEOUT_S)], cwd=REPO,
-                          capture_output=True, text=True, timeout=DIST_TIMEOUT_S + 60)
-    lines = proc.stdout.strip().splitlines()
-    ok = proc.returncode == 0 and len(lines) >= 2 and lines[-2].startswith("dryrun_multichip(2): ok")
+    # ---- the dry run, as a user runs it, on this card (started above)
+    stdout, stderr = _wait(dryrun, DIST_TIMEOUT_S + 60)
+    lines = stdout.strip().splitlines()
+    ok = dryrun.returncode == 0 and len(lines) >= 2 and lines[-2].startswith("dryrun_multichip(2): ok")
     info = json.loads(lines[-1]) if ok else {}
-    emit("dryrun", returncode=proc.returncode, summary=lines[-2] if ok else None,
-         launches_per_rank=info.get("launches_per_rank"), seconds=time.perf_counter() - t0,
-         stderr_tail=None if ok else proc.stderr[-2000:], card=card)
+    emit("dryrun", returncode=dryrun.returncode, summary=lines[-2] if ok else None,
+         launches_per_rank=info.get("launches_per_rank"), seconds_since_dist_start=time.perf_counter() - t_all,
+         stderr_tail=None if ok else stderr[-2000:], card=card)
     if not ok:
-        raise AssertionError(f"the dry run failed (exit {proc.returncode}): {proc.stdout[-500:]} {proc.stderr[-2000:]}")
+        raise AssertionError(f"the dry run failed (exit {dryrun.returncode}): {stdout[-500:]} {stderr[-2000:]}")
     per_rank = {"dist_city": [r["launch_counts"] for r in city_res],
                  "dist_fov4k": [r["launch_counts"] for r in fov_res],
                  "dist_demand": [r["launch_counts"] for r in loft_res],
@@ -3145,14 +3204,17 @@ def codecs_scene(dev, card, counts):
     (total, largest), the count and host decode ms (total, largest) of the
     AVIF fixtures using each AVIF step-4 tool (film grain applied,
     quantizer matrices, delta q, delta lf; read from their frame headers),
-    and the 8-bit 1024 x 1024 one's. Returns the three lossless loft
+    the same of the fixtures using each AVIF step-5 variant (AV1
+    segmentation, a grid item, a matrix libavif converts without libyuv;
+    read from their headers), the refusals' count, and the 8-bit 1024 x
+    1024 one's. Returns the three lossless loft
     renders' launches and the two AVIF lofts'."""
     import hashlib
 
     import torch
 
     from optixpathtracer_tpu_torch import scenes
-    from optixpathtracer_tpu_torch.io.codecs import av1_obu, avif
+    from optixpathtracer_tpu_torch.io.codecs import av1_obu, avif, avif_yuv
     from optixpathtracer_tpu_torch.io.image import rgb8_from_bytes
 
     t_all = time.perf_counter()
@@ -3163,7 +3225,7 @@ def codecs_scene(dev, card, counts):
         with open(os.path.join(CODEC_FIXTURES, name), "rb") as f:
             data = f.read()
         if name.endswith(".avif"):
-            obus, _ = avif.parse(data)
+            obus, colour = avif.parse(data)
             seq = None
             for k, p in av1_obu.split_obus(obus):
                 if k == av1_obu.OBU_SEQUENCE_HEADER:
@@ -3172,8 +3234,11 @@ def codecs_scene(dev, card, counts):
                     h = av1_obu.frame_header(av1_obu.Bits(p), seq)
                     break
             avif_depth[name] = seq["bit_depth"]
+            matrix, _, primaries = avif._colour(colour, seq)
             avif_tools[name] = {"grain": h["grain"]["apply_grain"], "qm": h["using_qmatrix"],
-                                "delta_q": h["delta_q_present"], "delta_lf": h["delta_lf_present"]}
+                                "delta_q": h["delta_q_present"], "delta_lf": h["delta_lf_present"],
+                                "segmentation": h["segmentation_enabled"], "grid": avif._read(data)[0].grid is not None,
+                                "own_matrix": avif_yuv.libyuv_matrix(matrix, primaries, seq["mono"]) is None}
         t0 = time.perf_counter()
         rgb = rgb8_from_bytes(data)
         decode_ms[name] = (time.perf_counter() - t0) * 1e3
@@ -3197,6 +3262,8 @@ def codecs_scene(dev, card, counts):
     hbd_ms = {n: ms for n, ms in avif_ms.items() if avif_depth[n] > 8}
     tool_ms = {tool: [ms for n, ms in avif_ms.items() if avif_tools[n][tool]]
                for tool in ("grain", "qm", "delta_q", "delta_lf")}
+    step5_ms = {variant: [ms for n, ms in avif_ms.items() if avif_tools[n][variant]]
+                for variant in ("segmentation", "grid", "own_matrix")}
     scenes_by_kind, t_load = {}, {}
     for kind, names in (("png", {png: png for png in CODEC_LOSSLESS}), ("lossless", CODEC_LOSSLESS),
                         ("lossless2", CODEC_LOSSLESS2), ("lossless3", CODEC_LOSSLESS3), ("lossy", CODEC_LOSSY),
@@ -3226,6 +3293,9 @@ def codecs_scene(dev, card, counts):
          avif_tool_fixtures={t: len(v) for t, v in tool_ms.items()},
          avif_tool_decode_ms_total={t: sum(v) for t, v in tool_ms.items()},
          avif_tool_decode_ms_max={t: max(v, default=0.0) for t, v in tool_ms.items()},
+         avif_step5_fixtures={t: len(v) for t, v in step5_ms.items()},
+         avif_step5_decode_ms_total={t: sum(v) for t, v in step5_ms.items()},
+         avif_step5_decode_ms_max={t: max(v, default=0.0) for t, v in step5_ms.items()},
          avif_1024_decode_ms=decode_ms.get("avif_1024_tiles.avif"), avif_refused=len(avif_raises),
          avif_refused_wrongly=refused_wrongly, load_obj_s=t_load, loft_textures_equal_png=equal_textures,
          lossless_frame_equals_png_frame=card_eq, lossy_rmse_card_vs_cpu=rmse["lossy"],
@@ -3272,7 +3342,8 @@ for module, argv in json.loads(sys.argv[1]):
 print("IMPORTED " + json.dumps([m for m in ("jax", "optixpathtracer_tpu", "PIL") if m in sys.modules]))
 sys.exit(rc)
 """
-FPS_FRAMES, FPS_UNI_FRAMES = 10, 3  # tools/fps_harness.py's defaults (1200x800, depth 4)
+FPS_FRAMES, FPS_UNI_FRAMES = 10, 1  # tools/fps_harness.py's --frames (its default) and --uni-frames
+#   (its default 3: a uniform frame at 1200x800, 8 spp, depth 4 takes some 6 s)
 SESSION_FRAMES = 16
 REF_SPP = (8, 64)  # make_reference at 600x400: its RMSE must fall from the first to the second
 DISC_SPP = 16  # make_reference_4k's fovea disc
@@ -3311,52 +3382,64 @@ def _seconds_per_spp(lines, prefix):
     raise AssertionError(f"no '{prefix}' timing line in {lines[-5:]}")
 
 
-def scripts_phase(card):
+SCRIPT_GROUPS = {  # a child process each; only "measured" reads frame rates, and runs alone
+    "measured": ("fps_harness", "interactive_session"),
+    "references": ("make_reference", "make_reference_4k"),
+    "examples": tuple(EXAMPLE_SHAPES),
+}
+
+
+def scripts_phase(card, tmp, group):
     """The eight scripts beside the package as the port's modules, each as
-    `python -m` runs it, in one child process on the card (its launches
+    `python -m` runs it, in a child process on the card (its launches
     counted from 0 before each run and read after it; no jax, JAX package or
-    PIL imported): `tools.fps_harness` at its defaults (1200x800, 10
-    foveated and 3 uniform frames: the TSVs' columns and rows, every frame's
-    rays above 0, each foveated frame tracing fewer rays than each uniform
-    one, both modes' fps and their ratio), `tools.interactive_session
-    --frames 16`, `tools.make_reference` at 600x400 with --spp 8 and --spp 64
-    (the committed npz's keys; sqrt-space RMSE against
+    PIL imported), one group of SCRIPT_GROUPS, started now. "measured", the
+    two whose frame rates are measured, to run alone: `tools.fps_harness` at
+    1200x800 (10 foveated and 1 uniform frame: the TSVs' columns and rows,
+    every frame's rays above 0, each foveated frame tracing fewer rays than
+    each uniform one, both modes' fps and their ratio) and
+    `tools.interactive_session --frames 16`. The others may run beside
+    other children: "references", `tools.make_reference` at 600x400 with
+    --spp 8 and --spp 64 (the committed npz's keys; sqrt-space RMSE against
     scenes/ref_city_600x400.npz, which must fall from 8 to 64 spp; seconds
-    per spp), `tools.make_reference_4k --disc-spp 16 --skip-q` (the disc's
-    pixels and RMSE against scenes/ref_city_4k_fovea.npz; its box downsample
-    checked here on a small array), and the four examples at their own
-    sizes (a PNG of its size, not black, read by the port's decoder; the
-    demand demo's resident pages below the texture's). Returns {path:
-    launches}."""
+    per spp) and `tools.make_reference_4k --disc-spp 16 --skip-q` (the
+    disc's pixels and RMSE against scenes/ref_city_4k_fovea.npz; its box
+    downsample checked here on a small array); "examples", the four
+    examples at their own sizes (a PNG of its size, not black, read by the
+    port's decoder; the demand demo's resident pages below the texture's).
+    Outputs go under tmp. Returns a function that waits for the child,
+    checks its runs and returns {path: launches}."""
     from optixpathtracer_tpu_torch.io.image import read_rgb8
     from optixpathtracer_tpu_torch.tools.make_reference_4k import box_downsample
 
-    with tempfile.TemporaryDirectory() as tmp:
-        def j(*parts):
-            return os.path.join(tmp, *parts)
+    def j(*parts):
+        return os.path.join(tmp, *parts)
 
-        plan = [
-            ("optixpathtracer_tpu_torch.tools.fps_harness", ["--out", j("fps")]),
-            ("optixpathtracer_tpu_torch.tools.interactive_session",
-             ["--frames", str(SESSION_FRAMES), "--out", j("session.tsv")]),
-            *[("optixpathtracer_tpu_torch.tools.make_reference", ["--spp", str(n), "--out-dir", j(f"ref{n}")])
-              for n in REF_SPP],
-            ("optixpathtracer_tpu_torch.tools.make_reference_4k",
-             ["--disc-spp", str(DISC_SPP), "--skip-q", "--out-dir", j("ref4k")]),
-            *[(f"optixpathtracer_tpu_torch.examples.{name}", [j(f"{name}.png")]) for name in EXAMPLE_SHAPES],
-        ]
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", _SCRIPT_CHILD, json.dumps(plan)], cwd=REPO,
-                              capture_output=True, text=True, timeout=SCRIPTS_TIMEOUT_S)
+    plan = [
+        ("optixpathtracer_tpu_torch.tools.fps_harness",
+         ["--uni-frames", str(FPS_UNI_FRAMES), "--out", j("fps")]),
+        ("optixpathtracer_tpu_torch.tools.interactive_session",
+         ["--frames", str(SESSION_FRAMES), "--out", j("session.tsv")]),
+        *[("optixpathtracer_tpu_torch.tools.make_reference", ["--spp", str(n), "--out-dir", j(f"ref{n}")])
+          for n in REF_SPP],
+        ("optixpathtracer_tpu_torch.tools.make_reference_4k",
+         ["--disc-spp", str(DISC_SPP), "--skip-q", "--out-dir", j("ref4k")]),
+        *[(f"optixpathtracer_tpu_torch.examples.{name}", [j(f"{name}.png")]) for name in EXAMPLE_SHAPES],
+    ]
+    plan = [(m, a) for m, a in plan if m.rsplit(".", 1)[1] in SCRIPT_GROUPS[group]]
+    t0 = time.perf_counter()
+    proc = _popen([sys.executable, "-c", _SCRIPT_CHILD, json.dumps(plan)])
+
+    def finish():
+        stdout, stderr = _wait(proc, SCRIPTS_TIMEOUT_S)
         wall = time.perf_counter() - t0
-        runs = _tool_outputs(proc.stdout)
-        imported = [json.loads(ln.split(" ", 1)[1]) for ln in proc.stdout.splitlines()
-                    if ln.startswith("IMPORTED ")]
+        runs = _tool_outputs(stdout)
+        imported = [json.loads(ln.split(" ", 1)[1]) for ln in stdout.splitlines() if ln.startswith("IMPORTED ")]
         if proc.returncode != 0 or len(runs) != len(plan) or imported != [[]]:
-            emit("scripts", returncode=proc.returncode, imported=imported, stdout_tail=proc.stdout[-3000:],
-                 stderr_tail=proc.stderr[-3000:], card=card)
+            emit("scripts", returncode=proc.returncode, imported=imported, stdout_tail=stdout[-3000:],
+                 stderr_tail=stderr[-3000:], card=card)
             raise AssertionError(f"scripts: exit {proc.returncode}, {len(runs)} of {len(plan)} runs, "
-                                 f"imported {imported}: {proc.stderr[-2000:]}")
+                                 f"imported {imported}: {stderr[-2000:]}")
         out, launches, lines_of = {}, {}, {}
         for module, argv, lines, counts in runs:
             name = module.rsplit(".", 1)[1]
@@ -3365,86 +3448,103 @@ def scripts_phase(card):
             if counts.get("cull", 0) <= 0 or counts.get("closest", 0) + counts.get("closest_hier", 0) <= 0:
                 raise AssertionError(f"scripts: {key} launched {counts}")
             out[key] = dict(stdout_tail=lines[-3:])
+        if group == "measured":
+            _check_measured_scripts(out, lines_of, j)
+        elif group == "references":
+            _check_reference_scripts(out, lines_of, j, box_downsample)
+        else:
+            _check_examples(out, lines_of, j, read_rgb8)
+        emit("scripts", wall_s=wall, group=group, runs=out, launches=launches, imported=imported, card=card)
+        return launches
 
-        # fps_harness: the reference's two files
-        with open(j("fps", "fps_frames.tsv")) as f:
-            frames = [ln.rstrip("\n").split("\t") for ln in f]
-        with open(j("fps", "fps_summary.tsv")) as f:
-            summary = [ln.rstrip("\n").split("\t") for ln in f]
-        fov = [r for r in frames[1:] if r[1] == "fov"]
-        uni = [r for r in frames[1:] if r[1] == "uni"]
-        fov_rays, uni_rays = [float(r[7]) for r in fov], [float(r[7]) for r in uni]
-        fov_fps = [1.0 / float(r[3]) for r in fov]
-        uni_fps = [1.0 / float(r[3]) for r in uni]
-        out["fps_harness"].update(
-            fov_fps_mean=float(np.mean(fov_fps)), uni_fps_mean=float(np.mean(uni_fps)),
-            fov_over_uni=float(np.mean(fov_fps) / np.mean(uni_fps)), fov_fps=fov_fps, uni_fps=uni_fps,
-            fov_rays=fov_rays, uni_rays=uni_rays, width=1200, height=800)
-        if (frames[0] != ["i", "mode", "state_s", "render_s", "display_s", "cursorX", "cursorY", "rays"]
-                or len(fov) != FPS_FRAMES or len(uni) != FPS_UNI_FRAMES
-                or summary[0] != ["city_fov", "city_uni"] or len(summary) != 1 + FPS_FRAMES
-                or min(fov_rays + uni_rays) <= 0 or max(fov_rays) >= min(uni_rays)):
-            raise AssertionError(f"scripts: fps_harness files {frames[:2]}, {summary[:2]}, "
-                                 f"rays {fov_rays} / {uni_rays}")
+    return finish
 
-        # interactive_session: the committed session's columns, one row a frame
-        with open(j("session.tsv")) as f:
-            session = [ln.rstrip("\n").split("\t") for ln in f]
-        with open(os.path.join(REPO, "docs", "sessions", "interactive_640x480.tsv")) as f:
-            header = f.readline().rstrip("\n").split("\t")
-        rec = next(json.loads(ln) for ln in lines_of["interactive_session"] if ln.startswith('{"metric"'))
-        out["interactive_session"].update(fps=rec["value"], render_ms_mean=rec["render_ms_mean"],
-                                          display_ms_mean=rec["display_ms_mean"])
-        if session[0] != header or len(session) != 1 + SESSION_FRAMES or min(float(r[6]) for r in session[1:]) <= 0:
-            raise AssertionError(f"scripts: interactive_session rows {session[:2]} ({len(session)})")
 
-        # make_reference: RMSE against the committed reference falls with spp
-        ref = os.path.join(REPO, "scenes", "ref_city_600x400.npz")
-        rmse = {}
-        for n in REF_SPP:
-            d = np.load(j(f"ref{n}", "ref_city_600x400.npz"))
-            rmse[n], keys = _npz_rmse(d["image"], ref)
-            key = f"make_reference_{n}spp"
-            out[key].update(rmse_vs_committed=rmse[n], spp=int(d["spp"]),
-                            s_per_spp=_seconds_per_spp(lines_of[key], "rendered"))
-            if set(d.files) != keys or int(d["spp"]) != n:
-                raise AssertionError(f"scripts: {key} keys {d.files} (want {sorted(keys)}), spp {d['spp']}")
-        if not rmse[REF_SPP[1]] < rmse[REF_SPP[0]]:
-            raise AssertionError(f"scripts: make_reference RMSE {rmse} does not fall with spp")
+def _check_measured_scripts(out, lines_of, j):
+    """`scripts_phase`'s checks of fps_harness and interactive_session."""
+    # fps_harness: the reference's two files
+    with open(j("fps", "fps_frames.tsv")) as f:
+        frames = [ln.rstrip("\n").split("\t") for ln in f]
+    with open(j("fps", "fps_summary.tsv")) as f:
+        summary = [ln.rstrip("\n").split("\t") for ln in f]
+    fov = [r for r in frames[1:] if r[1] == "fov"]
+    uni = [r for r in frames[1:] if r[1] == "uni"]
+    fov_rays, uni_rays = [float(r[7]) for r in fov], [float(r[7]) for r in uni]
+    fov_fps = [1.0 / float(r[3]) for r in fov]
+    uni_fps = [1.0 / float(r[3]) for r in uni]
+    out["fps_harness"].update(
+        fov_fps_mean=float(np.mean(fov_fps)), uni_fps_mean=float(np.mean(uni_fps)),
+        fov_over_uni=float(np.mean(fov_fps) / np.mean(uni_fps)), fov_fps=fov_fps, uni_fps=uni_fps,
+        fov_rays=fov_rays, uni_rays=uni_rays, width=1200, height=800)
+    if (frames[0] != ["i", "mode", "state_s", "render_s", "display_s", "cursorX", "cursorY", "rays"]
+            or len(fov) != FPS_FRAMES or len(uni) != FPS_UNI_FRAMES
+            or summary[0] != ["city_fov", "city_uni"] or len(summary) != 1 + FPS_FRAMES
+            or min(fov_rays + uni_rays) <= 0 or max(fov_rays) >= min(uni_rays)):
+        raise AssertionError(f"scripts: fps_harness files {frames[:2]}, {summary[:2]}, "
+                             f"rays {fov_rays} / {uni_rays}")
 
-        # make_reference_4k: the disc against the committed one
-        d = np.load(j("ref4k", "ref_city_4k_fovea.npz"))
-        want = np.load(os.path.join(REPO, "scenes", "ref_city_4k_fovea.npz"))
-        disc_rmse, keys = _npz_rmse(d["image"], os.path.join(REPO, "scenes", "ref_city_4k_fovea.npz"))
-        # the 4x4 box downsample on a small array, against loops
-        small = np.arange(8 * 12 * 3, dtype=np.float64).reshape(8, 12, 3) ** 1.5
-        loops = np.array([[[small[4 * y:4 * y + 4, 4 * x:4 * x + 4, c].mean() for c in range(3)]
-                           for x in range(3)] for y in range(2)])
-        out["make_reference_4k"].update(disc_rmse_vs_committed=disc_rmse, disc_pixels=int(len(d["idx"])),
-                                        s_per_spp=_seconds_per_spp(lines_of["make_reference_4k"], "disc:"),
-                                        downsample_max_err=float(np.abs(box_downsample(small) - loops).max()))
-        # equal idx: disc_pixels' selection and 16x8 tile order as the committed disc's
-        if (set(d.files) != keys or not np.array_equal(d["idx"], want["idx"])
-                or not np.allclose(box_downsample(small), loops, rtol=1e-12, atol=0)
-                or not np.isfinite(disc_rmse)):
-            raise AssertionError(f"scripts: make_reference_4k keys {d.files}, idx equal "
-                                 f"{np.array_equal(d['idx'], want['idx'])}, RMSE {disc_rmse}")
+    # interactive_session: the committed session's columns, one row a frame
+    with open(j("session.tsv")) as f:
+        session = [ln.rstrip("\n").split("\t") for ln in f]
+    with open(os.path.join(REPO, "docs", "sessions", "interactive_640x480.tsv")) as f:
+        header = f.readline().rstrip("\n").split("\t")
+    rec = next(json.loads(ln) for ln in lines_of["interactive_session"] if ln.startswith('{"metric"'))
+    out["interactive_session"].update(fps=rec["value"], render_ms_mean=rec["render_ms_mean"],
+                                      display_ms_mean=rec["display_ms_mean"])
+    if session[0] != header or len(session) != 1 + SESSION_FRAMES or min(float(r[6]) for r in session[1:]) <= 0:
+        raise AssertionError(f"scripts: interactive_session rows {session[:2]} ({len(session)})")
 
-        # the examples: a PNG of its size, not black, read without PIL
-        for name, shape in EXAMPLE_SHAPES.items():
-            pngs = [j(f"{name}.png")] + ([j(f"{name}_denoised.png")] if name == "render_loft" else [])
-            for png in pngs:
-                img = read_rgb8(png)
-                out[name].setdefault("png", []).append(dict(shape=list(img.shape), mean=float(img.mean())))
-                if img.shape != (*shape, 3) or not img.mean() > 1.0:
-                    raise AssertionError(f"scripts: {png} {img.shape}, mean {img.mean()}")
-        res = next(ln for ln in lines_of["demand_textures_demo"] if ln.startswith("resident "))
-        resident, total = (int(x) for x in res.split()[1:4:2])
-        out["demand_textures_demo"].update(resident_pages=resident, total_pages=total)
-        if not 0 < resident < total:
-            raise AssertionError(f"scripts: demand demo {res}")
-    emit("scripts", wall_s=wall, runs=out, launches=launches, imported=imported, card=card)
-    return launches
+
+def _check_reference_scripts(out, lines_of, j, box_downsample):
+    """`scripts_phase`'s checks of make_reference and make_reference_4k."""
+    # make_reference: RMSE against the committed reference falls with spp
+    ref = os.path.join(REPO, "scenes", "ref_city_600x400.npz")
+    rmse = {}
+    for n in REF_SPP:
+        d = np.load(j(f"ref{n}", "ref_city_600x400.npz"))
+        rmse[n], keys = _npz_rmse(d["image"], ref)
+        key = f"make_reference_{n}spp"
+        out[key].update(rmse_vs_committed=rmse[n], spp=int(d["spp"]),
+                        s_per_spp=_seconds_per_spp(lines_of[key], "rendered"))
+        if set(d.files) != keys or int(d["spp"]) != n:
+            raise AssertionError(f"scripts: {key} keys {d.files} (want {sorted(keys)}), spp {d['spp']}")
+    if not rmse[REF_SPP[1]] < rmse[REF_SPP[0]]:
+        raise AssertionError(f"scripts: make_reference RMSE {rmse} does not fall with spp")
+
+    # make_reference_4k: the disc against the committed one
+    d = np.load(j("ref4k", "ref_city_4k_fovea.npz"))
+    want = np.load(os.path.join(REPO, "scenes", "ref_city_4k_fovea.npz"))
+    disc_rmse, keys = _npz_rmse(d["image"], os.path.join(REPO, "scenes", "ref_city_4k_fovea.npz"))
+    # the 4x4 box downsample on a small array, against loops
+    small = np.arange(8 * 12 * 3, dtype=np.float64).reshape(8, 12, 3) ** 1.5
+    loops = np.array([[[small[4 * y:4 * y + 4, 4 * x:4 * x + 4, c].mean() for c in range(3)]
+                       for x in range(3)] for y in range(2)])
+    out["make_reference_4k"].update(disc_rmse_vs_committed=disc_rmse, disc_pixels=int(len(d["idx"])),
+                                    s_per_spp=_seconds_per_spp(lines_of["make_reference_4k"], "disc:"),
+                                    downsample_max_err=float(np.abs(box_downsample(small) - loops).max()))
+    # equal idx: disc_pixels' selection and 16x8 tile order as the committed disc's
+    if (set(d.files) != keys or not np.array_equal(d["idx"], want["idx"])
+            or not np.allclose(box_downsample(small), loops, rtol=1e-12, atol=0)
+            or not np.isfinite(disc_rmse)):
+        raise AssertionError(f"scripts: make_reference_4k keys {d.files}, idx equal "
+                             f"{np.array_equal(d['idx'], want['idx'])}, RMSE {disc_rmse}")
+
+
+def _check_examples(out, lines_of, j, read_rgb8):
+    """`scripts_phase`'s checks of the examples: a PNG of its size, not
+    black, read without PIL."""
+    for name, shape in EXAMPLE_SHAPES.items():
+        pngs = [j(f"{name}.png")] + ([j(f"{name}_denoised.png")] if name == "render_loft" else [])
+        for png in pngs:
+            img = read_rgb8(png)
+            out[name].setdefault("png", []).append(dict(shape=list(img.shape), mean=float(img.mean())))
+            if img.shape != (*shape, 3) or not img.mean() > 1.0:
+                raise AssertionError(f"scripts: {png} {img.shape}, mean {img.mean()}")
+    res = next(ln for ln in lines_of["demand_textures_demo"] if ln.startswith("resident "))
+    resident, total = (int(x) for x in res.split()[1:4:2])
+    out["demand_textures_demo"].update(resident_pages=resident, total_pages=total)
+    if not 0 < resident < total:
+        raise AssertionError(f"scripts: demand demo {res}")
 
 
 # ---- the traversal backends without a kernel, and the native builders -----
@@ -3657,14 +3757,14 @@ def backend_slices(hs, dev, card):
     peak = torch.cuda.max_memory_allocated()
     img_lock = r.accum_image()
     # the loop condition read every CHECK_EVERY iterations against every
-    # one, on the frame's primary rays, in turns: the same records
+    # one, on the frame's primary rays, once each: the same records
     from optixpathtracer_tpu_torch.engine import wavefront
 
     o1, d1 = wavefront.first_bounce_rays(r.config, wavefront.CameraParams.from_camera(cam, dev), *r.pixels)
     sync = {}
     every = traverse.CHECK_EVERY
     try:
-        for k in (every, 1, 1, every):
+        for k in (every, 1):
             traverse.CHECK_EVERY = k
             ms, rec = timed(lambda: traverse.closest_hit(cs.bvh, cs.scene, o1, d1, 1e-3, 1e16))
             sync.setdefault(k, []).append(ms)
@@ -3837,15 +3937,17 @@ def lockstep_goldens(dev, futures, card):
         raise AssertionError(f"lockstep_goldens: card against CPU above the C.9 limits: {over}")
 
 
-def backend_phases(hs, dev, card, cpu_goldens):
+def backend_phases(hs, dev, card, cpu_goldens=None):
     """The phases of the backends without a kernel and the native builders,
     in order: native_build, lockstep_city, bfs_city, dense_loft,
-    oracle_loft, lockstep_goldens. Returns their seconds."""
+    oracle_loft, and with cpu_goldens lockstep_goldens. Returns their
+    seconds."""
     t0 = time.perf_counter()
     native_build(hs, card)
     backend_slices(hs, dev, card)
     backend_loft(dev, card)
-    lockstep_goldens(dev, cpu_goldens, card)
+    if cpu_goldens is not None:
+        lockstep_goldens(dev, cpu_goldens, card)
     return time.perf_counter() - t0
 
 
@@ -3904,12 +4006,16 @@ def main(argv=None) -> int:
     emit("build", seconds=time.perf_counter() - t0, sources=builds,
          host_libraries={n: dict(gxx_seconds=host_build.build_seconds[n]) for n in host_libs})
     if args.only in ("bench", "scripts", "codecs"):  # no golden is rendered
-        return _phases(args, dev, card, smi, None)
+        try:
+            return _phases(args, dev, card, smi, None)
+        finally:
+            _stop_children()
     # the goldens' CPU lockstep renders run beside the card's phases
     cpu_pool, cpu_goldens = start_cpu_goldens()
     try:
         return _phases(args, dev, card, smi, cpu_goldens)
     finally:
+        _stop_children()
         cpu_pool.shutdown(wait=True, cancel_futures=True)
 
 
@@ -3947,8 +4053,12 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
         return 0
     if args.only == "scripts":
         t1 = time.perf_counter()
-        runs = scripts_phase(card)
-        emit("scripts_phase", seconds=time.perf_counter() - t1, card=card)
+        with tempfile.TemporaryDirectory() as tmp:
+            runs = scripts_phase(card, tmp, "measured")()
+            finishes = [scripts_phase(card, tmp, group) for group in ("references", "examples")]
+            for finish in finishes:
+                runs.update(finish())
+        emit("scripts_phase", seconds=time.perf_counter() - t1, launches=runs, card=card)
         print(smi, flush=True)
         return 0
     cs = compile_scene(hs, dev, **CITY_BUILD)
@@ -3993,7 +4103,7 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
     (o2, d2, tm2, tM2), (p2, wi2, tms2, tMs2) = engine_bounce(renderer, 1)
     wf2 = "second bounce (the engine's), 1200x800x2spp"
     second_cull = cull_phase("cull", tc._pack_rays8(cl, o2, d2, tm2, tM2), sph_t, grp_t, peak,
-                             PLAIN_BUDGET_S, wf2, card)
+                             SIDE_PLAIN_BUDGET_S, wf2, card)
     block_cull_parts("block_cull", tc.block_cull, cl, (o2, d2, tm2, tM2), (sph_t, grp_t), wf2, card)
     block_cull_parts("block_cull", tc.block_cull, cl, (p2, wi2, tms2, tMs2), (sph_t, grp_t),
                      wf2 + ", shadow rays", card)
@@ -4007,9 +4117,10 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
     city_t.update(time_hier(cl, tc.block_cull_nodes(cl, o1, d1, cfg.t_min, cfg.t_max),
                             tc.block_cull_nodes(cl, p_hit, wi, cfg.shadow_t_min, t_sh), peak, wf, card))
     second_node_cull = cull_phase("cull (node table)", tc._pack_rays8(cl, o2, d2, tm2, tM2), *node_tables,
-                                  peak, HIER_PLAIN_BUDGET_S, wf2, card)
+                                  peak, SIDE_PLAIN_BUDGET_S, wf2, card)
     second_hier = time_hier(cl, tc.block_cull_nodes(cl, o2, d2, tm2, tM2),
-                            tc.block_cull_nodes(cl, p2, wi2, tms2, tMs2), peak, wf2, card)
+                            tc.block_cull_nodes(cl, p2, wi2, tms2, tMs2), peak, wf2, card,
+                            budget_s=SIDE_PLAIN_BUDGET_S)
     del o2, d2, tM2, p2, wi2, tMs2
     for name in ("closest", "any"):
         errs[name] = max(errs[name], flat_t[name]["max_abs_err"])
@@ -4055,7 +4166,8 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
     torch.cuda.empty_cache()
     # ---- the scripts beside the package (tools/, examples/) as the port's
     # modules, in a child process
-    script_runs = scripts_phase(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        script_runs = scripts_phase(card, tmp, "measured")()
     del renderer, o, d, cr, cr_s
     torch.cuda.empty_cache()
     # ---- the engine's last options: fused shadows on the city, env_via_bsdf
@@ -4063,8 +4175,8 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
     fused_launches = engine_options(cs, probe, dev, card, tc.launch_counts)
     torch.cuda.empty_cache()
     # ---- the backends without a kernel (lockstep, BFS, dense, oracle) and
-    # the native builders
-    emit("backend_phases", seconds=backend_phases(hs, dev, card, cpu_goldens), card=card)
+    # the native builders; the lockstep goldens run beside the CLI's children
+    emit("backend_phases", seconds=backend_phases(hs, dev, card), card=card)
     torch.cuda.empty_cache()
 
     # ---- sv4 on the city: 3840x2160 in three launches (PERF.md §4's
@@ -4145,9 +4257,16 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
         for name, e in inst_errs.items():
             errs[name] = max(errs[name], e)
         torch.cuda.empty_cache()
-        cli_render(glb, tmp, card)
-        cli_presets(tmp, card)
-        cli_demand_view(tmp, card)
+        # the other scripts and the CLI's seven children, started together,
+        # and the lockstep goldens beside them: checks whose times nothing
+        # holds to a limit
+        scripts = [scripts_phase(card, tmp, group) for group in ("references", "examples")]
+        cli = [cli_render(glb, tmp, card), cli_presets(tmp, card), cli_demand_view(tmp, card)]
+        lockstep_goldens(dev, cpu_goldens, card)
+        for finish in scripts:
+            script_runs.update(finish())
+        for finish in cli:
+            finish()
 
     # ---- the gather probe (K6) -------------------------------------------
     g_launches, g_timing = gather_probe_phase(dev, card)
@@ -4190,7 +4309,7 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
         ("any_hier", lambda nr: (tc.any_hier_sweep(cl.rows, cl.xf_inv, nt, sub_cull(cr_s, nr), c),),
          lambda nr: (tc._any_hier_torch(cl.rows, cl.xf_inv, nt, sub_cull(cr_s, nr), c),), cr_s),
     ):
-        plain_ms, nr, err = check_vs_plain(name, kern, plain, nr_mixed, HIER_PLAIN_BUDGET_S)
+        plain_ms, nr, err = check_vs_plain(name, kern, plain, nr_mixed, SIDE_PLAIN_BUDGET_S)
         errs[name] = max(errs[name], err)
         checks[name] = dict(rays=nr * tc.BLOCK, plain_ms=plain_ms, max_abs_err=err,
                             max_nodes_per_block=int(crx.count.max()))
@@ -4205,24 +4324,27 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
     nr_full = cr1.ids.shape[0]
     wf = "big scene first bounce, 1200x800x2spp"
     node_tables = (nt.node_sph_t, nt.node_box_t)
-    big_t["cull"] = cull_phase("cull (node table)", rays8_1, *node_tables, peak, HIER_PLAIN_BUDGET_S, wf, card)
+    big_t["cull"] = cull_phase("cull (node table)", rays8_1, *node_tables, peak, SIDE_PLAIN_BUDGET_S, wf, card)
     block_cull_parts("block_cull_nodes", tc.block_cull_nodes, cl, (o1, d1, cfg.t_min, cfg.t_max),
                      node_tables, wf, card)
 
-    first = time_hier(cl, cr1, cr_sh, peak, wf, card)
+    first = time_hier(cl, cr1, cr_sh, peak, wf, card, budget_s=SIDE_PLAIN_BUDGET_S)
     big_t.update(first)
     # the second bounce is the engine's own: the rays `trace_wavefront` hands
     # to its sweeps at depth 1 of a frame of this renderer
     (o2, d2, tm2, tM2), (p2, wi2, tms2, tMs2) = engine_bounce(renderer, 1)
     wf2 = "big scene second bounce (the engine's), 1200x800x2spp"
     second_cull = cull_phase("cull (node table)", tc._pack_rays8(cl, o2, d2, tm2, tM2), *node_tables,
-                             peak, HIER_PLAIN_BUDGET_S, wf2, card)
+                             peak, SIDE_PLAIN_BUDGET_S, wf2, card)
     errs["cull"] = max(errs["cull"], big_t["cull"]["max_abs_err"], second_cull["max_abs_err"])
     block_cull_parts("block_cull_nodes", tc.block_cull_nodes, cl, (o2, d2, tm2, tM2), node_tables, wf2, card)
     block_cull_parts("block_cull_nodes", tc.block_cull_nodes, cl, (p2, wi2, tms2, tMs2), node_tables,
                      wf2 + ", shadow rays", card)
+    # held against the plain versions, without bounds: the counting walks
+    # over the big scene's 530 nodes take tens of seconds
     second = time_hier(cl, tc.block_cull_nodes(cl, o2, d2, tm2, tM2),
-                       tc.block_cull_nodes(cl, p2, wi2, tms2, tMs2), peak, wf2, card)
+                       tc.block_cull_nodes(cl, p2, wi2, tms2, tMs2), peak, wf2, card,
+                       budget_s=SIDE_PLAIN_BUDGET_S, bound=False)
     del o2, d2, tM2, p2, wi2, tMs2
     for name in first:
         errs[name] = max(errs[name], first[name]["max_abs_err"], second[name]["max_abs_err"])
@@ -4312,7 +4434,7 @@ def _phases(args, dev, card, smi, cpu_goldens) -> int:
          "paths": {path: {"launches": run.get(name, 0),
                           **({"launches_per_rank": [r.get(name, 0) for r in dist_per_rank[path]]}
                              if path in dist_per_rank else {}),
-                          **({k: timed_at[path][name][k] for k in ("ms", "plain_ms", "bound_ms")
+                          **({k: timed_at[path][name][k] for k in ("ms", "rays", "plain_ms", "plain_rays", "bound_ms")
                               if k in timed_at[path][name]} if name in timed_at.get(path, {}) else {})}
                    for path, run in runs.items() if run.get(name, 0)}}
         for name in KERNELS

@@ -6,13 +6,13 @@
 // frame parameters and each tile's bytes here; this file decodes the tiles
 // (symbol decoder and CDF adaptation, partitions, intra modes with the edge
 // filter and upsampling, filter intra, CfL, palette, IntraBC, transform sizes
-// and types, coefficients, delta q and delta lf, the dequantiser with its
-// quantizer matrices, the inverse transforms and the lossless WHT, the
-// loop-restoration coefficients), then runs the frame's filters in the
-// specification's order: deblocking (7.14, each block at its own level with
-// delta lf), CDEF (7.15) and loop restoration (7.17), adds film grain
-// (7.18.3) where the frame applies it, and returns each plane cropped to its
-// size.
+// and types, coefficients, delta q and delta lf, segment ids and their
+// features, the dequantiser with its quantizer matrices, the inverse
+// transforms and the lossless WHT, the loop-restoration coefficients), then
+// runs the frame's filters in the specification's order: deblocking (7.14,
+// each block at its own level with delta lf and its segment's), CDEF (7.15)
+// and loop restoration (7.17), adds film grain (7.18.3) where the frame
+// applies it, and returns each plane cropped to its size.
 //
 // Names follow the specification (section 5.11 syntax, 7.10-7.18 decoding
 // processes); the inverse DCT / ADST are the butterfly networks the
@@ -22,8 +22,10 @@
 // template on its sample type, as dav1d builds 8bpc and 16bpc: uint8_t
 // planes at 8 bits (BitDepth fixed at 8, so the 8-bit path compiles as it
 // did), uint16_t planes at 10 and 12 bits with BitDepth read from the
-// parameters. Not handled here (the Python side raises before calling):
-// segmentation and superres.
+// parameters. Where the specification and dav1d part (segment ids past
+// the last active segment), this file follows dav1d, which PIL's libavif
+// decodes with. Not handled here (the Python side raises before calling):
+// superres.
 //
 // Build: g++ -O2 -shared -fPIC (utils/host_build.py).
 #include <stdint.h>
@@ -55,6 +57,8 @@ enum { TX_MODE_ONLY_4X4, TX_MODE_LARGEST, TX_MODE_SELECT };
 enum { TX_SET_DCTONLY, TX_SET_INTRA_1, TX_SET_INTRA_2, TX_SET_INTER_1 = 1, TX_SET_INTER_2, TX_SET_INTER_3 };
 enum { TX_CLASS_2D, TX_CLASS_HORIZ, TX_CLASS_VERT };
 enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
+enum { SEG_LVL_ALT_Q, SEG_LVL_ALT_LF_Y_V, SEG_LVL_REF_FRAME = 5, SEG_LVL_SKIP, SEG_LVL_GLOBALMV, SEG_LVL_MAX };
+const int MAX_SEGMENTS = 8;
 
 const int Mi_Width_Log2[22] = {0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4, 4, 5, 5, 0, 2, 1, 3, 2, 4};
 const int Mi_Height_Log2[22] = {0, 1, 0, 1, 2, 1, 2, 3, 2, 3, 4, 3, 4, 5, 4, 5, 2, 0, 3, 1, 4, 2};
@@ -189,6 +193,7 @@ struct Cdfs {
   uint16_t coeff_br[5][2][21][5];
   uint16_t restoration_type[4], use_wiener[3], use_sgrproj[3];
   uint16_t delta_q[5], delta_lf[5], delta_lf_multi[4][5];
+  uint16_t segment_id[3][9];
 
   void init(int base_q_idx) {
     COPY(y_mode, Default_Intra_Frame_Y_Mode_Cdf);
@@ -251,6 +256,7 @@ struct Cdfs {
     COPY(delta_q, Default_Delta_Q_Cdf);
     COPY(delta_lf, Default_Delta_Lf_Cdf);
     COPY(delta_lf_multi, Default_Delta_Lf_Multi_Cdf);
+    COPY(segment_id, Default_Segment_Id_Cdf);
   }
 };
 
@@ -595,13 +601,20 @@ struct Params {
       point_cr_scaling[10], grain_scaling_minus_8, ar_coeff_lag, ar_coeffs_y_plus_128[24],
       ar_coeffs_cb_plus_128[25], ar_coeffs_cr_plus_128[25], ar_coeff_shift_minus_6, grain_scale_shift, cb_mult,
       cb_luma_mult, cb_offset, cr_mult, cr_luma_mult, cr_offset, overlap_flag, clip_to_restricted_range;
+  // segmentation_params (5.9.14): each segment's features and their
+  // (clipped) values; LastActiveSegId as dav1d keeps it, -1 where no
+  // feature is enabled (the specification's 0)
+  int segmentation_enabled, SegIdPreSkip, LastActiveSegId, FeatureEnabled[MAX_SEGMENTS][SEG_LVL_MAX],
+      FeatureData[MAX_SEGMENTS][SEG_LVL_MAX];
 };
 
 template <typename pixel>
 struct Decoder {
   Params P;
   int MiRows, MiCols, MiStride;
-  bool Lossless;
+  // Lossless: the block's segment's (LosslessArray); CodedLossless: every
+  // segment's
+  bool Lossless, CodedLossless, LosslessArray[MAX_SEGMENTS];
   Frame<pixel> F;
   // BitDepth: 8 for the uint8_t decoder whatever the parameters say
   int BitDepth, PixelMax;
@@ -615,6 +628,7 @@ struct Decoder {
   std::vector<uint8_t> MiSizes, YModes, UVModes, IsInters, Skips, InterTxSizes, PaletteSizes[2], Decoded,
       TxTypes;
   std::vector<int8_t> RefFrame0;
+  std::vector<uint8_t> SegmentIds;
   std::vector<uint16_t> PaletteColors[2];  // 8 per mi
   std::vector<int16_t> MvRow, MvCol;
   std::vector<uint8_t> LfTxSizes[3];  // per 4x4 of each plane
@@ -639,7 +653,7 @@ struct Decoder {
 
   // block
   int MiRow, MiCol, MiSize, HasChroma, AvailU, AvailL, AvailUChroma, AvailLChroma;
-  int skip, is_inter, use_intrabc, YMode, UVMode, AngleDeltaY, AngleDeltaUV, CflAlphaU, CflAlphaV;
+  int segment_id, skip, is_inter, use_intrabc, YMode, UVMode, AngleDeltaY, AngleDeltaUV, CflAlphaU, CflAlphaV;
   int use_filter_intra, filter_intra_mode, PaletteSizeY, PaletteSizeUV, TxSize;
   int palette_colors_y[8], palette_colors_u[8], palette_colors_v[8];
   uint8_t ColorMapY[64][64], ColorMapUV[64][64];
@@ -791,6 +805,7 @@ struct Decoder {
         RefFrame0[k] = 0;  // INTRA_FRAME, IntraBC included
         IsInters[k] = is_inter;
         Skips[k] = skip;
+        SegmentIds[k] = segment_id;
         MiSizes[k] = MiSize;
         PaletteSizes[0][k] = PaletteSizeY;
         PaletteSizes[1][k] = PaletteSizeUV;
@@ -809,11 +824,17 @@ struct Decoder {
 
 
   void intra_frame_mode_info() {
-    // segmentation is off: no segment id
-    int ctx = 0;
-    if (AvailU) ctx += Skips[mi(MiRow - 1, MiCol)];
-    if (AvailL) ctx += Skips[mi(MiRow, MiCol - 1)];
-    skip = sd.symbol(cdf.skip[ctx], 2);
+    skip = 0;
+    if (P.SegIdPreSkip) intra_segment_id();
+    if (P.SegIdPreSkip && seg_feature_active(SEG_LVL_SKIP)) {
+      skip = 1;
+    } else {
+      int ctx = 0;
+      if (AvailU) ctx += Skips[mi(MiRow - 1, MiCol)];
+      if (AvailL) ctx += Skips[mi(MiRow, MiCol - 1)];
+      skip = sd.symbol(cdf.skip[ctx], 2);
+    }
+    if (!P.SegIdPreSkip) intra_segment_id();
     read_cdef();
     read_delta_qindex();
     read_delta_lf();
@@ -860,8 +881,50 @@ struct Decoder {
     }
   }
 
+  bool seg_feature_active(int feature) const {
+    return P.segmentation_enabled && P.FeatureEnabled[segment_id][feature];
+  }
+  // 5.11.8-5.11.9: the block's segment id, predicted from the above,
+  // left and above-left ids (skipped blocks take the prediction), then its
+  // Lossless
+  void intra_segment_id() {
+    segment_id = 0;
+    if (P.segmentation_enabled) read_segment_id();
+    Lossless = LosslessArray[segment_id];
+  }
+  static int neg_deinterleave(int diff, int ref, int max) {
+    if (!ref) return diff;
+    if (ref >= max - 1) return max - diff - 1;
+    if (2 * ref < max) {
+      if (diff <= 2 * ref) return diff & 1 ? ref + ((diff + 1) >> 1) : ref - (diff >> 1);
+      return diff;
+    }
+    if (diff <= 2 * (max - ref - 1)) return diff & 1 ? ref + ((diff + 1) >> 1) : ref - (diff >> 1);
+    return max - (diff + 1);
+  }
+  void read_segment_id() {
+    int prevUL = AvailU && AvailL ? SegmentIds[mi(MiRow - 1, MiCol - 1)] : -1;
+    int prevU = AvailU ? SegmentIds[mi(MiRow - 1, MiCol)] : -1;
+    int prevL = AvailL ? SegmentIds[mi(MiRow, MiCol - 1)] : -1;
+    int pred = prevU == -1 ? (prevL == -1 ? 0 : prevL) : prevL == -1 ? prevU : prevUL == prevU ? prevU : prevL;
+    if (skip) {
+      segment_id = pred;
+      return;
+    }
+    int ctx = prevUL < 0 ? 0  // prevUL is -1 unless the block has both neighbours
+              : prevUL == prevU && prevUL == prevL ? 2 : prevUL == prevU || prevUL == prevL || prevU == prevL;
+    int diff = sd.symbol(cdf.segment_id[ctx], MAX_SEGMENTS);
+    // dav1d keeps the id in 8 bits and takes 0 for one past the last
+    // active segment (the specification clips it to that segment) or past
+    // 7; with no feature enabled (LastActiveSegId -1) it keeps what it read
+    uint8_t id = (uint8_t)neg_deinterleave(diff, pred, P.LastActiveSegId + 1);
+    if ((unsigned)id > (unsigned)P.LastActiveSegId) id = 0;
+    if (id >= MAX_SEGMENTS) id = 0;
+    segment_id = id;
+  }
+
   void read_cdef() {
-    if (skip || Lossless || !P.enable_cdef || P.allow_intrabc) return;
+    if (skip || CodedLossless || !P.enable_cdef || P.allow_intrabc) return;
     int cdefSize4 = 16, cdefMask4 = ~(cdefSize4 - 1);
     int r = MiRow & cdefMask4, c = MiCol & cdefMask4;
     size_t k = mi(r, c);
@@ -1772,7 +1835,8 @@ struct Decoder {
   void transform_type(int x4, int y4, int txSz) {
     int set = get_tx_set(txSz);
     int TxType = DCT_DCT;
-    if (set > 0 && P.base_q_idx > 0) {
+    // 5.11.47: the frame's qindex, its segment's with segmentation
+    if (set > 0 && (P.segmentation_enabled ? get_qidx(1) : P.base_q_idx) > 0) {
       int sqr = tx_sqr(txSz);
       if (is_inter) {
         if (set == TX_SET_INTER_1) TxType = Tx_Type_Inter_Inv_Set1[sd.symbol(cdf.inter_tx_set1[sqr], 16)];
@@ -2027,15 +2091,20 @@ struct Decoder {
     return eob;
   }
 
-  // get_qidx: the block's qindex with delta q, else the frame's
-  int qidx() const { return P.delta_q_present ? CurrentQIndex : P.base_q_idx; }
+  // get_qidx(ignoreDeltaQ, segment_id) (7.12.2): the block's qindex with
+  // delta q, else the frame's, and its segment's SEG_LVL_ALT_Q on top
+  int get_qidx(int ignoreDeltaQ) const {
+    int q = !ignoreDeltaQ && P.delta_q_present ? CurrentQIndex : P.base_q_idx;
+    if (seg_feature_active(SEG_LVL_ALT_Q)) return clip3(0, 255, q + P.FeatureData[segment_id][SEG_LVL_ALT_Q]);
+    return q;
+  }
   int dc_q(int plane) {
     int d = plane == 0 ? P.DeltaQYDc : plane == 1 ? P.DeltaQUDc : P.DeltaQVDc;
-    return Dc_Qlookup[(BitDepth - 8) >> 1][clip3(0, 255, qidx() + d)];
+    return Dc_Qlookup[(BitDepth - 8) >> 1][clip3(0, 255, get_qidx(0) + d)];
   }
   int ac_q(int plane) {
     int d = plane == 0 ? 0 : plane == 1 ? P.DeltaQUAc : P.DeltaQVAc;
-    return Ac_Qlookup[(BitDepth - 8) >> 1][clip3(0, 255, qidx() + d)];
+    return Ac_Qlookup[(BitDepth - 8) >> 1][clip3(0, 255, get_qidx(0) + d)];
   }
 
   void reconstruct(int plane, int x, int y, int txSz) {
@@ -2133,12 +2202,16 @@ struct Decoder {
     }
   }
   // 7.14.4: the level of the block at (row, col) for a plane and direction,
-  // from the frame's level and the block's delta lf (one, or one per edge
-  // direction and plane with delta_lf_multi); segmentation is off
+  // from the frame's level, the block's delta lf (one, or one per edge
+  // direction and plane with delta_lf_multi) and its segment's
+  // SEG_LVL_ALT_LF_Y_V + i
   int filter_level(int row, int col, int plane, int pass) {
     int i = plane == 0 ? pass : plane + 1;
     int deltaLF = DeltaLFs[mi(row, col) * 4 + (P.delta_lf_multi ? i : 0)];
     int lvlSeg = clip3(0, 63, deltaLF + P.lf_level[i]);
+    int segment = SegmentIds[mi(row, col)], feature = SEG_LVL_ALT_LF_Y_V + i;
+    if (P.segmentation_enabled && P.FeatureEnabled[segment][feature])
+      lvlSeg = clip3(0, 63, lvlSeg + P.FeatureData[segment][feature]);
     if (P.lf_delta_enabled) {
       int nShift = lvlSeg >> 5;
       lvlSeg += P.lf_ref_deltas[0] * (1 << nShift);  // intra reference
@@ -2879,14 +2952,20 @@ struct Decoder {
     PixelMax = (1 << BitDepth) - 1;
     MiCols = 2 * ((P.FrameWidth + 7) >> 3);
     MiRows = 2 * ((P.FrameHeight + 7) >> 3);
-    Lossless = P.base_q_idx == 0 && P.DeltaQYDc == 0 && P.DeltaQUAc == 0 && P.DeltaQUDc == 0 &&
-               P.DeltaQVAc == 0 && P.DeltaQVDc == 0;
+    CodedLossless = true;
+    for (segment_id = 0; segment_id < MAX_SEGMENTS; segment_id++) {
+      LosslessArray[segment_id] = get_qidx(1) == 0 && P.DeltaQYDc == 0 && P.DeltaQUAc == 0 && P.DeltaQUDc == 0 &&
+                                  P.DeltaQVAc == 0 && P.DeltaQVDc == 0;
+      if (!LosslessArray[segment_id]) CodedLossless = false;
+    }
+    segment_id = 0;
     MiStride = MiCols + 40;
     size_t nmi = (size_t)(MiRows + 40) * MiStride;
     for (auto* v : {&MiSizes, &YModes, &UVModes, &IsInters, &Skips, &InterTxSizes, &PaletteSizes[0],
                     &PaletteSizes[1], &Decoded, &TxTypes})
       v->assign(nmi, 0);
     RefFrame0.assign(nmi, 0);
+    SegmentIds.assign(nmi, 0);
     PaletteColors[0].assign(nmi * 8, 0);
     PaletteColors[1].assign(nmi * 8, 0);
     MvRow.assign(nmi, 0);
@@ -2929,7 +3008,7 @@ struct Decoder {
       decode_tile(data + tiles[2 * t], tiles[2 * t + 1]);
     }
     if (failed) return 1;
-    if (!P.allow_intrabc && !Lossless) {
+    if (!P.allow_intrabc && !CodedLossless) {
       loop_filter();
       deblocked = F;  // CDEF's input, and loop restoration's outside its stripe
       cdef();

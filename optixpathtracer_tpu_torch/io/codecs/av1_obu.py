@@ -9,13 +9,17 @@ writes them, or a frame header and tile groups) and returns the Y / U / V
 planes of the frame (4:2:0, 4:2:2, 4:4:4; U and V None for a monochrome
 frame; uint8 at 8 bits, uint16 at 10 and 12: profiles 0-2) and the
 sequence header; the frame's quantizer matrix levels, delta q / delta lf,
-CDEF, loop restoration and film grain parameters go to the native decoder
-with the rest (film grain is applied there, after loop restoration, as
-dav1d applies it). What the port does not decode yet raises
-NotImplementedError naming the tool and ROADMAP A.1 (AVIF step 5):
-segmentation, superres, show_existing_frame, frames that are not key or
-intra-only frames, and large-scale tiles. There is no Python tile decoder:
-under OPTIX_TPU_NO_NATIVE=1 the decode raises naming the switch."""
+segmentation, CDEF, loop restoration and film grain parameters go to the
+native decoder with the rest (film grain is applied there, after loop
+restoration, as dav1d applies it). An item's first frame that is a
+show_existing_frame or an inter frame has nothing before it to refer to:
+dav1d fails it, and so does the port, with PIL's message (ROADMAP C.17).
+Tile list OBUs are skipped, as dav1d skips them. What the port does not
+decode yet raises NotImplementedError naming the tool and ROADMAP A.1
+(AVIF step 6): superres, and a second frame in an item (a valid
+show_existing_frame or inter frame after a key frame). There is no Python
+tile decoder: under OPTIX_TPU_NO_NATIVE=1 the decode raises naming the
+switch."""
 from __future__ import annotations
 
 import ctypes
@@ -26,11 +30,17 @@ from ...utils import host_build
 from ._common import DecodeError, unported
 
 OBU_SEQUENCE_HEADER, OBU_TEMPORAL_DELIMITER, OBU_FRAME_HEADER, OBU_TILE_GROUP = 1, 2, 3, 4
-OBU_FRAME, OBU_TILE_LIST = 6, 8  # the others (metadata, padding, ...) are skipped
+OBU_FRAME = 6  # the others (metadata, padding, tile lists, ...) are skipped, as dav1d skips them
 KEY_FRAME, INTRA_ONLY_FRAME = 0, 2
 RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE = 0, 1, 2, 3
 REMAP_LR_TYPE = (RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER, RESTORE_SGRPROJ)
 SELECT = 2  # SELECT_SCREEN_CONTENT_TOOLS / SELECT_INTEGER_MV
+MAX_SEGMENTS, SEG_LVL_ALT_Q, SEG_LVL_REF_FRAME = 8, 0, 5
+# Segmentation_Feature_Bits / _Signed / _Max (5.9.14): alt Q, alt LF in four
+# slots, reference frame, skip, global MV
+SEG_FEATURE_BITS = (8, 6, 6, 6, 6, 3, 0, 0)
+SEG_FEATURE_SIGNED = (1, 1, 1, 1, 1, 0, 0, 0)
+SEG_FEATURE_MAX = (255, 63, 63, 63, 63, 7, 0, 0)
 
 
 def unsupported(what: str) -> NotImplementedError:
@@ -249,10 +259,12 @@ def frame_header(b: Bits, s: dict) -> dict:
         error_resilient = 1
     else:
         if b.f(1):
-            raise unsupported("AV1 show_existing_frame")
+            # a valid one shows a frame decoded before it; this is an
+            # item's first frame, so its slot is empty and dav1d fails it
+            raise DecodeError(GRAIN_POINTS)
         frame_type = b.f(2)
         if frame_type not in (KEY_FRAME, INTRA_ONLY_FRAME):
-            raise unsupported("inter-coded AV1 frames")
+            raise DecodeError(GRAIN_POINTS)  # an inter frame with no key frame before it in the item
         show_frame = b.f(1)
         if show_frame and s["decoder_model_info_present"] and not s["equal_picture_interval"]:
             b.f(s["frame_presentation_time_length"])
@@ -316,8 +328,7 @@ def frame_header(b: Bits, s: dict) -> dict:
     if h["using_qmatrix"]:
         h["qm_y"], h["qm_u"] = b.f(4), b.f(4)
         h["qm_v"] = b.f(4) if s["separate_uv_delta_q"] else h["qm_u"]
-    if b.f(1):
-        raise unsupported("AV1 segmentation")
+    segmentation_params(b, h)
     # delta_q_params / delta_lf_params (5.9.17-5.9.18)
     h["delta_q_present"] = b.f(1) if h["base_q_idx"] > 0 else 0
     h["delta_q_res"] = b.f(2) if h["delta_q_present"] else 0
@@ -327,8 +338,9 @@ def frame_header(b: Bits, s: dict) -> dict:
             h["delta_lf_present"] = b.f(1)
         if h["delta_lf_present"]:
             h["delta_lf_res"], h["delta_lf_multi"] = b.f(2), b.f(1)
-    coded_lossless = h["base_q_idx"] == 0 and not any(
-        h[k] for k in ("dq_y_dc", "dq_u_dc", "dq_u_ac", "dq_v_dc", "dq_v_ac"))
+    # CodedLossless: every segment's qindex 0 and no DC / AC deltas
+    deltas = any(h[k] for k in ("dq_y_dc", "dq_u_dc", "dq_u_ac", "dq_v_dc", "dq_v_ac"))
+    h["coded_lossless"] = coded_lossless = not deltas and not any(get_qidx(h, i) for i in range(MAX_SEGMENTS))
     # loop_filter_params
     h["lf_level"] = [0, 0, 0, 0]
     h["lf_sharpness"], h["lf_delta_enabled"] = 0, 1
@@ -432,6 +444,38 @@ def film_grain_params(b: Bits, s: dict, h: dict) -> dict:
     g["overlap_flag"] = b.f(1)
     g["clip_to_restricted_range"] = b.f(1)
     return g
+
+
+def segmentation_params(b: Bits, h: dict) -> None:
+    """5.9.14 in an intra frame (primary_ref_frame none: the map and the
+    data are always updated): each segment's enabled features and their
+    clipped values, SegIdPreSkip, and LastActiveSegId (-1 where no feature
+    is enabled: dav1d's, where the specification has 0)."""
+    h["segmentation_enabled"] = b.f(1)
+    enabled = [[0] * 8 for _ in range(MAX_SEGMENTS)]
+    data = [[0] * 8 for _ in range(MAX_SEGMENTS)]
+    if h["segmentation_enabled"]:
+        for i in range(MAX_SEGMENTS):
+            for j in range(8):
+                enabled[i][j] = b.f(1)
+                if enabled[i][j]:
+                    bits, limit = SEG_FEATURE_BITS[j], SEG_FEATURE_MAX[j]
+                    if SEG_FEATURE_SIGNED[j]:
+                        data[i][j] = min(max(b.su(1 + bits), -limit), limit)
+                    else:
+                        data[i][j] = min(b.f(bits), limit)
+    h["seg_feature_enabled"], h["seg_feature_data"] = enabled, data
+    active = [i for i in range(MAX_SEGMENTS) if any(enabled[i])]
+    h["last_active_seg_id"] = active[-1] if active else -1
+    h["seg_id_pre_skip"] = int(any(enabled[i][j] for i in range(MAX_SEGMENTS) for j in range(SEG_LVL_REF_FRAME, 8)))
+
+
+def get_qidx(h: dict, segment: int) -> int:
+    """get_qidx(1, segment) (7.12.2): the frame's qindex with the segment's
+    SEG_LVL_ALT_Q."""
+    if h["segmentation_enabled"] and h["seg_feature_enabled"][segment][SEG_LVL_ALT_Q]:
+        return min(max(h["base_q_idx"] + h["seg_feature_data"][segment][SEG_LVL_ALT_Q], 0), 255)
+    return h["base_q_idx"]
 
 
 def _tile_info(b: Bits, s: dict, h: dict) -> None:
@@ -541,6 +585,8 @@ def _params(s: dict, h: dict) -> np.ndarray:
     vals += [h[k] for k in ("using_qmatrix", "qm_y", "qm_u", "qm_v", "delta_q_present", "delta_q_res",
                             "delta_lf_present", "delta_lf_res", "delta_lf_multi")]
     vals += [s["color"][2]] + _grain_params(h["grain"])
+    vals += [h["segmentation_enabled"], h["seg_id_pre_skip"], h["last_active_seg_id"],
+             *sum(h["seg_feature_enabled"], []), *sum(h["seg_feature_data"], [])]
     return np.array(vals, np.int32)
 
 
@@ -573,18 +619,19 @@ def decode(data: bytes):
     """The OBUs of one AV1 still -> (Y (H, W), U, V ((H + ssy) >> ssy,
     (W + ssx) >> ssx), uint8 at 8 bits and uint16 at 10 and 12, or None for
     a monochrome frame; the sequence header)."""
-    seq, hdr, tiles = None, None, []
+    seq, hdr, first, tiles = None, None, None, []
     for kind, payload in split_obus(data):
         if kind == OBU_SEQUENCE_HEADER:
             seq = sequence_header(payload)
             check_sequence(seq)
         elif kind in (OBU_FRAME_HEADER, OBU_FRAME):
             if hdr is not None:
-                if kind == OBU_FRAME:
-                    raise unsupported("AV1 image sequences")
+                if kind == OBU_FRAME or payload != first:
+                    raise unsupported("a second AV1 frame in an item (show_existing_frame or an inter frame)")
                 continue  # a copy of the frame header
             if seq is None:
                 raise DecodeError("Failed to decode frame 0: frame before a sequence header")
+            first = payload
             b = Bits(payload)
             hdr = frame_header(b, seq)
             if kind == OBU_FRAME:
@@ -594,8 +641,6 @@ def decode(data: bytes):
             if hdr is None:
                 raise DecodeError("Failed to decode frame 0: tile group before a frame header")
             tile_group(payload, 0, hdr, tiles)
-        elif kind == OBU_TILE_LIST:
-            raise unsupported("AV1 large-scale tiles")
     if seq is None or hdr is None:
         raise DecodeError("Failed to decode frame 0: no frame")
     n_tiles = (len(hdr["mi_col_starts"]) - 1) * (len(hdr["mi_row_starts"]) - 1)

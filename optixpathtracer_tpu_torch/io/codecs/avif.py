@@ -1,59 +1,85 @@
 """AVIF, as PIL 12 reads it through libavif 1.3: the HEIF / ISOBMFF
 container, the primary item's AV1 still (4:2:0, 4:2:2, 4:4:4 or 4:0:0; 8,
-10 or 12 bits) through codecs/av1_obu.py and the native tile decoder, then
-libavif's YUV -> RGB (codecs/avif_yuv.py).
+10 or 12 bits) or grid of such stills through codecs/av1_obu.py and the
+native tile decoder, then libavif's YUV -> RGB (codecs/avif_yuv.py, which
+hands the matrices libyuv does not take to codecs/avif_reformat.py).
 
 The container: `ftyp` (libavif's brand rules: the file is AVIF when the
 major or a compatible brand is `avif` or `avis`; otherwise PIL's plugin
 refuses it and the search goes on), `meta` with `hdlr` (pict), `pitm`,
 `iinf` / `infe` (versions 2 and 3), `iloc` (versions 0-2, construction
 methods 0 and 1 through `idat`, several extents), `iref` (auxl / thmb /
-dimg), `iprp` / `ipco` / `ipma` (the essential bits: libavif skips an
-item with an essential property it does not parse, so the port fails a
-primary item with one as PIL does), `ispe`, `pixi`,
-`av1C`, `colr` (nclx gives the matrix and range; an ICC profile is kept
-out of the pixels, as PIL keeps it), and `irot` / `imir` / `clap`, which
-PIL leaves to the EXIF orientation it reports: the pixels stay as coded
+dimg / prem), `iprp` / `ipco` / `ipma` (the essential bits: libavif skips
+an item with an essential property it does not parse, so the port fails a
+primary item with one as PIL does), `ispe`, `pixi`, `av1C`, `colr` (nclx
+gives the matrix, range and colour primaries; an ICC profile is kept out
+of the pixels, as PIL keeps it), and `irot` / `imir` / `clap`, which PIL
+leaves to the EXIF orientation it reports: the pixels stay as coded
 (libavif refuses them, and `a1op` / `lsel`, unless marked essential, and
 `a1lx` marked so; so does the port, as no format, and so it does a `meta`
-whose handler is not `pict` and an av01 item without `ispe` or `av1C`).
+whose handler is not `pict` and an image item without `ispe`, or an av01
+one without `av1C`). An AV1 frame of another size than its item's `ispe`
+(libavif scales it) raises A.1.
+
+Grids: a `grid` primary item's ImageGrid (version 0, rows and columns,
+16- or 32-bit output size) lays its `dimg` cells (av01 items, in the
+reference's order) out row-major; the planes are cropped to the output
+size and converted once, so that the chroma upsampling crosses the cells'
+edges as libavif's does; the colour is the grid item's nclx, else the
+first cell's sequence header. libavif's refusals are kept, with PIL's
+messages: at parse ("Failed to decode image: Invalid image grid") a cell
+count other than rows x columns, a repeated or dangling reference, a cell
+that is not av01 or has an essential property libavif does not know, a
+first cell without av1C, another ImageGrid version, trailing bytes, an
+output size of 0, above 32768 or above 16384 x 16384; once the cells are
+decoded ("Failed to decode frame 0: Invalid image grid") cells of another
+size, depth, layout, range or colour than the first's, cells that do not
+cover the output or leave a row or column of it out, cells under 64 x 64
+or of an odd size (or an odd output size) where chroma is subsampled. PIL
+sizes the image by the grid's `ispe` and reads libavif's buffer at that
+size, which the port does too.
 
 PIL's failures are kept: no `avif` / `avis` brand -> NotThisFormat (PIL's
 plugin raises SyntaxError and `Image.open` goes on to
-UnidentifiedImageError); a primary item that is missing or not `av01` ->
-"Failed to decode image: Missing or empty image item"; cut or corrupt data
--> "Failed to decode frame 0: ...". The port keeps its own
+UnidentifiedImageError); a primary item that is missing or neither `av01`
+nor `grid` -> "Failed to decode image: Missing or empty image item"; cut
+or corrupt data -> "Failed to decode frame 0: ...". The port keeps its own
 `DecodeError` (ValueError + OSError) for the last two where PIL raises
-RuntimeError and SyntaxError (ROADMAP C.14). A `grid` item and image
-sequences raise NotImplementedError naming the variant and ROADMAP A.1
-(AVIF step 5).
+RuntimeError and SyntaxError (ROADMAP C.14). Image sequences without a
+still raise NotImplementedError naming the variant and ROADMAP A.1 (AVIF
+step 6).
 
-Alpha: an av01 item with an `auxl` reference to the primary item and the
-alpha URN in its `auxC` is decoded with the same decoder (libaom writes it
-as a full-range monochrome still, with the colour's coding tools: libavif
-hands aom's film grain, quantizer matrix and delta q options to both items,
-and dav1d applies the alpha's grain) and its Y plane is the alpha. PIL's
+Alpha: an av01 (or grid) item with an `auxl` reference to the primary item
+and the alpha URN in its `auxC` is decoded with the same decoder (libaom
+writes it as a full-range monochrome still, with the colour's coding
+tools: libavif hands aom's film grain, quantizer matrix and delta q
+options to both items, and dav1d applies the alpha's grain) and its Y
+plane is the alpha; an alpha grid is laid out as the colour's, of its own
+geometry, and must come to the colour's output size. PIL's
 `convert("RGB")` drops alpha, so straight alpha leaves the colour as it
 decodes; with a `prem` reference from the colour item to the alpha item
 (PIL's `alpha_premultiplied=True`) libavif un-premultiplies the colour by
-the alpha before PIL sees it, and so does the port (avif_yuv.unpremultiply).
+the alpha before PIL sees it, and so does the port (avif_yuv.to_rgb).
 libavif ignores an alpha item without data (but fails on one cut short),
 as the port does, fails on an alpha item of another bit depth than the
 colour's ("Decoding of alpha plane failed"), as the port does, brings a
 10- or 12-bit alpha to 8 bits before it un-premultiplies
-(avif_yuv.alpha8), and scales
-an alpha plane of another size than the colour's to it: with straight
-alpha that changes nothing PIL returns; premultiplied, it raises A.1, as
-does a premultiplied alpha in limited range."""
+(avif_yuv.alpha_bytes), and scales an alpha plane of another size than
+the colour's to it: with straight alpha that changes nothing PIL returns;
+premultiplied, it raises A.1, as does a premultiplied alpha in limited
+range (AVIF step 6)."""
 from __future__ import annotations
 
 import numpy as np
 
 from . import av1_obu
 from ._common import DecodeError, NotThisFormat, u16be, u32be
-from .avif_yuv import alpha8, to_rgb, unpremultiply
+from .avif_yuv import alpha_bytes, to_rgb
 
 MISSING_ITEM = "Failed to decode image: Missing or empty image item"
+INVALID_GRID = "Failed to decode image: Invalid image grid"  # libavif's parse refuses the grid
+GRID_FAILED = "Failed to decode frame 0: Invalid image grid"  # its cells cannot be laid out
+DIMENSION_LIMIT, SIZE_LIMIT = 32768, 16384 * 16384  # libavif's default limits on a grid's output
 TRUNCATED = "Failed to decode frame 0: Truncated data"
 ALPHA_FAILED = "Failed to decode frame 0: Decoding of alpha plane failed"
 BMFF_FAILED = "Failed to decode frame 0: BMFF parsing failed"
@@ -224,27 +250,88 @@ def _item_data(data: bytes, m: _Meta, item_id: int) -> bytes:
 
 
 def _nclx(data: bytes, m: _Meta, item_id: int):
-    """(matrix_coefficients, full range) of the item's nclx colr, which
-    libavif takes over the AV1 sequence header's; None without one."""
+    """(matrix_coefficients, full range, colour primaries) of the item's
+    nclx colr, which libavif takes over the AV1 sequence header's; None
+    without one."""
     for i, _ in m.assoc.get(item_id, []):
         if 1 <= i <= len(m.props):
             kind, s, e = m.props[i - 1]
             if kind == b"colr" and data[s:s + 4] == b"nclx" and e - s >= 11:
-                return u16be(data, s + 8), data[s + 10] >> 7
+                return u16be(data, s + 8), data[s + 10] >> 7, u16be(data, s + 4)
     return None
 
 
+def _props_of(meta: _Meta, item_id: int) -> list:
+    """(type, start, end, essential) of each property of the item."""
+    return [(*meta.props[i - 1], essential) for i, essential in meta.assoc.get(item_id, [])
+            if 1 <= i <= len(meta.props)]
+
+
+def _ispe(data: bytes, meta: _Meta, item_id: int):
+    """(width, height) of the item's ispe, or None."""
+    for kind, s, e, _ in _props_of(meta, item_id):
+        if kind == b"ispe" and e - s >= 12:
+            return u32be(data, s + 4), u32be(data, s + 8)
+    return None
+
+
+class _Image:
+    """An image item: one av01 item (`cells` its OBUs alone), or a grid of
+    rows x cols av01 cells laid out row-major and cropped to the output
+    (width, height); `ispe` the item's own (width, height) and `cell_ispe`
+    each cell's."""
+
+    def __init__(self, cells: list, ispe, cell_ispe: list, grid=None):
+        self.cells, self.ispe, self.cell_ispe, self.grid = cells, ispe, cell_ispe, grid
+
+
+def _image_grid(payload: bytes):
+    """An ImageGrid payload (HEIF 6.6.2.3) -> (rows, cols, width, height),
+    as libavif 1.3 parses and bounds it."""
+    if len(payload) < 4 or payload[0] != 0:
+        raise DecodeError(INVALID_GRID)
+    rows, cols, n = payload[2] + 1, payload[3] + 1, 4 if payload[1] & 1 else 2
+    if len(payload) != 4 + 2 * n:
+        raise DecodeError(INVALID_GRID)
+    width, height = _uint(payload, 4, n), _uint(payload, 4 + n, n)
+    if not width or not height or width > DIMENSION_LIMIT or height > DIMENSION_LIMIT or width * height > SIZE_LIMIT:
+        raise DecodeError(INVALID_GRID)
+    return rows, cols, width, height
+
+
+def _image_item(data: bytes, meta: _Meta, item_id: int) -> _Image:
+    """The item's OBUs, and for a grid its cells' in their `dimg` order,
+    with libavif's refusals of a grid it cannot lay out."""
+    if meta.items.get(item_id) != b"grid":
+        return _Image([_item_data(data, meta, item_id)], _ispe(data, meta, item_id), [_ispe(data, meta, item_id)])
+    geometry = _image_grid(_item_data(data, meta, item_id))
+    cells = [c for rk, frm, to in meta.refs if rk == b"dimg" and frm == item_id for c in to]
+    rows, cols = geometry[:2]
+    if len(cells) != rows * cols or len(set(cells)) != len(cells) or any(meta.items.get(c) != b"av01" for c in cells):
+        raise DecodeError(INVALID_GRID)
+    for c in cells:
+        props = _props_of(meta, c)
+        if any(essential and kind not in KNOWN_PROPERTIES for kind, _, _, essential in props):
+            raise DecodeError(INVALID_GRID)  # libavif decodes no grid with a cell it cannot
+        if not any(kind == b"ispe" for kind, _, _, _ in props):
+            raise NotThisFormat("av01 item without ispe")
+    if not any(kind == b"av1C" for kind, _, _, _ in _props_of(meta, cells[0])):
+        raise DecodeError(INVALID_GRID)  # the grid adopts its first cell's av1C
+    return _Image([_item_data(data, meta, c) for c in cells], _ispe(data, meta, item_id),
+                  [_ispe(data, meta, c) for c in cells], geometry)
+
+
 def parse(data: bytes):
-    """An AVIF file -> (the primary item's AV1 OBUs, (matrix, full range) of
-    its nclx colr or None)."""
-    obus, colour, _, _ = _parse(data)
-    return obus, colour
+    """An AVIF file -> (the primary item's AV1 OBUs (a grid's first cell's),
+    (matrix, full range, colour primaries) of its nclx colr or None)."""
+    image, colour, _, _ = _read(data)
+    return image.cells[0], colour
 
 
 def _alpha_item(meta: _Meta, data: bytes):
     """The id of the primary item's alpha item, or None."""
     for rk, frm, to in meta.refs:
-        if rk == b"auxl" and meta.primary in to and meta.items.get(frm) == b"av01":
+        if rk == b"auxl" and meta.primary in to and meta.items.get(frm) in (b"av01", b"grid"):
             for i, _ in meta.assoc.get(frm, []):
                 if 1 <= i <= len(meta.props):
                     pk, ps, pe = meta.props[i - 1]
@@ -254,7 +341,14 @@ def _alpha_item(meta: _Meta, data: bytes):
 
 
 def _parse(data: bytes):
-    """-> (primary OBUs, its nclx colour or None, the alpha item's OBUs or
+    """-> (primary OBUs (a grid's first cell's), its nclx colour or None,
+    the alpha item's OBUs (its first cell's) or None, premultiplied)."""
+    image, colour, alpha, premultiplied = _read(data)
+    return image.cells[0], colour, None if alpha is None else alpha.cells[0], premultiplied
+
+
+def _read(data: bytes):
+    """-> (the primary _Image, its nclx colour or None, the alpha _Image or
     None, premultiplied)."""
     major, compat = brands(data)
     if b"avif" not in [major] + compat and b"avis" not in [major] + compat:
@@ -273,15 +367,13 @@ def _parse(data: bytes):
     if meta.primary is None or meta.primary not in meta.items:
         raise DecodeError(MISSING_ITEM)
     kind = meta.items[meta.primary]
-    if kind == b"grid":
-        raise av1_obu.unsupported("grid images")
-    if kind != b"av01":
+    if kind not in (b"av01", b"grid"):
         raise DecodeError(MISSING_ITEM)
     if meta.handler != b"pict":
         raise NotThisFormat("no pict handler")  # libavif's parse fails, PIL identifies no image
-    props = [meta.props[i - 1][0] for i, _ in meta.assoc.get(meta.primary, []) if 1 <= i <= len(meta.props)]
-    if b"ispe" not in props or b"av1C" not in props:
-        raise NotThisFormat("av01 item without ispe / av1C")  # as libavif's parse
+    props = [p[0] for p in _props_of(meta, meta.primary)]
+    if b"ispe" not in props or (kind == b"av01" and b"av1C" not in props):
+        raise NotThisFormat("image item without ispe / av1C")  # as libavif's parse
     for i, essential in (a for assoc in meta.assoc.values() for a in assoc):
         kind = meta.props[i - 1][0] if 1 <= i <= len(meta.props) else None
         # libavif's parse refuses these unless marked essential, and a1lx
@@ -290,64 +382,133 @@ def _parse(data: bytes):
             raise NotThisFormat(f"non-essential {kind!r} property")
         if kind == b"a1lx" and essential:
             raise NotThisFormat("essential a1lx property")
-    for i, essential in meta.assoc.get(meta.primary, []):
-        if essential and 1 <= i <= len(meta.props) and meta.props[i - 1][0] not in KNOWN_PROPERTIES:
-            raise DecodeError(MISSING_ITEM)  # libavif skips an item whose essential property it does not know
-    obus = _item_data(data, meta, meta.primary)
+    if any(essential and kind not in KNOWN_PROPERTIES for kind, _, _, essential in _props_of(meta, meta.primary)):
+        raise DecodeError(MISSING_ITEM)  # libavif skips an item whose essential property it does not know
+    image = _image_item(data, meta, meta.primary)
     alpha, premultiplied = _alpha_item(meta, data), False
     if alpha is not None:
+        premultiplied = any(rk == b"prem" and frm == meta.primary and alpha in to for rk, frm, to in meta.refs)
         try:
-            alpha_obus = _item_data(data, meta, alpha)
+            alpha = _image_item(data, meta, alpha)
         except DecodeError as e:
             if str(e) != MISSING_ITEM:
                 raise
-            alpha_obus = None  # libavif decodes the colour alone
-        premultiplied = any(rk == b"prem" and frm == meta.primary and alpha in to for rk, frm, to in meta.refs)
-        alpha = alpha_obus
-    return obus, _nclx(data, meta, meta.primary), alpha, premultiplied
+            alpha = None  # libavif decodes the colour alone
+    return image, _nclx(data, meta, meta.primary), alpha, premultiplied
 
 
-def _decode(obus: bytes, colour):
-    """-> (Y, U, V, the sequence header, (matrix, full range)): the colour
-    of the nclx colr, else of the sequence header."""
+def _frame(obus: bytes, ispe):
+    """One av01 item's planes and sequence header; a frame of another size
+    than the item's ispe raises A.1 (libavif scales it to the ispe)."""
     y, u, v, seq = av1_obu.decode(obus)
-    return y, u, v, seq, colour if colour is not None else (seq["color"][2], seq["color_range"])
+    if ispe is not None and (y.shape[1], y.shape[0]) != tuple(ispe):
+        raise av1_obu.unsupported("an AV1 frame of another size than its item's ispe (libavif scales it)")
+    return y, u, v, seq
 
 
-def _decode_alpha(obus: bytes):
-    """The alpha item's OBUs -> (its Y plane, its sequence header)."""
+def _layout(seq: dict):
+    return "mono" if seq["mono"] else tuple(seq["ss"])
+
+
+def _assemble(image: _Image, frames: list):
+    """A grid's cells' planes laid out row-major and cropped to the output
+    size, with libavif's refusals of cells it cannot lay out."""
+    rows, cols, width, height = image.grid
+    y0, _, _, seq = frames[0]
+    ch, cw = y0.shape
+    same = (cw, ch, seq["bit_depth"], _layout(seq), seq["color_range"], seq["color"])
+    if any((y.shape[1], y.shape[0], s["bit_depth"], _layout(s), s["color_range"], s["color"]) != same
+           for y, _, _, s in frames):
+        raise DecodeError(GRID_FAILED)  # mismatched cells
+    if cw * cols < width or ch * rows < height or cw * (cols - 1) >= width or ch * (rows - 1) >= height:
+        raise DecodeError(GRID_FAILED)  # cells that do not cover the output, or a row or column left out
+    sx, sy = (0, 0) if seq["mono"] else seq["ss"]
+    if cw < 64 or ch < 64 or (sx and (width | cw) & 1) or (sy and (height | ch) & 1):
+        raise DecodeError(GRID_FAILED)  # MIAF 7.3.11.4.2: cells of 64 and more, even where chroma is subsampled
+
+    def tile(k: int, shrink: tuple):
+        planes = [f[k] for f in frames]
+        if planes[0] is None:
+            return None
+        full = np.concatenate([np.concatenate(planes[r * cols:(r + 1) * cols], 1) for r in range(rows)], 0)
+        return full[:(height + shrink[1]) >> shrink[1], :(width + shrink[0]) >> shrink[0]]
+    return tile(0, (0, 0)), tile(1, (sx, sy)), tile(2, (sx, sy)), seq
+
+
+def _decode_image(image: _Image):
+    """An _Image -> (Y, U, V (None for 4:0:0), the (first cell's) sequence
+    header)."""
+    frames = [_frame(obus, ispe) for obus, ispe in zip(image.cells, image.cell_ispe)]
+    return frames[0] if image.grid is None else _assemble(image, frames)
+
+
+def _colour(colour, seq: dict):
+    """(matrix, full range, colour primaries): the nclx colr's, else the
+    sequence header's."""
+    return colour if colour is not None else (seq["color"][2], seq["color_range"], seq["color"][0])
+
+
+def _decode_alpha(image: _Image):
+    """The alpha _Image -> (its Y plane as coded (a grid's assembled), its
+    sequence header). A single alpha item of another size than its ispe is
+    left as coded: libavif scales it, which changes nothing PIL returns
+    unless the colour is premultiplied (rgb8 raises A.1 there)."""
+    ispes = image.cell_ispe if image.grid is not None else [None]
     try:
-        alpha, _, _, seq = av1_obu.decode(obus)
+        frames = [_frame(obus, ispe) for obus, ispe in zip(image.cells, ispes)]
     except DecodeError as e:
         raise DecodeError(ALPHA_FAILED) from e
+    alpha, _, _, seq = frames[0] if image.grid is None else _assemble(image, frames)
     return alpha, seq
 
 
 def planes(data: bytes):
     """An AVIF file -> (Y, U, V (None for 4:0:0), the sequence header,
-    (matrix, full range))."""
-    return _decode(*parse(data))
+    (matrix, full range, colour primaries)); a grid's planes assembled."""
+    image, colour, _, _ = _read(data)
+    y, u, v, seq = _decode_image(image)
+    return y, u, v, seq, _colour(colour, seq)
 
 
 def alpha_plane(data: bytes):
     """An AVIF file -> (its alpha plane or None, premultiplied)."""
-    _, _, obus, premultiplied = _parse(data)
-    return (None, False) if obus is None else (_decode_alpha(obus)[0], premultiplied)
+    _, _, alpha, premultiplied = _read(data)
+    return (None, False) if alpha is None else (_decode_alpha(alpha)[0], premultiplied)
 
 
 def rgb8(data: bytes) -> np.ndarray:
-    obus, colour, alpha_obus, premultiplied = _parse(data)
-    y, u, v, seq, (matrix, full) = _decode(obus, colour)
+    image, colour, alpha_image, premultiplied = _read(data)
+    y, u, v, seq = _decode_image(image)
+    matrix, full, primaries = _colour(colour, seq)
     depth, ss = seq["bit_depth"], None if u is None else seq["ss"]
-    rgb = to_rgb(y, u, v, ss, matrix, full, rgba=alpha_obus is not None, depth=depth)
-    if alpha_obus is not None:
-        alpha, aseq = _decode_alpha(alpha_obus)  # decoded also when straight: it fails as libavif fails
+    alpha = None
+    if alpha_image is not None:
+        alpha, aseq = _decode_alpha(alpha_image)  # decoded also when straight: it fails as libavif fails
         if aseq["bit_depth"] != depth:
             raise DecodeError(ALPHA_FAILED)
+        if alpha_image.grid is not None and alpha.shape != y.shape:
+            raise DecodeError(GRID_FAILED)
         if premultiplied:
-            if alpha.shape != y.shape:
+            if alpha.shape != y.shape or alpha_image.ispe not in (None, (alpha.shape[1], alpha.shape[0])):
                 raise av1_obu.unsupported("premultiplied alpha of another size than the colour (libavif scales it)")
             if not aseq["color_range"]:
                 raise av1_obu.unsupported("limited-range premultiplied alpha")
-            rgb = unpremultiply(rgb, alpha8(alpha, aseq["bit_depth"], ss))
+    rgb = to_rgb(y, u, v, ss, matrix, full, rgba=alpha is not None, depth=depth, primaries=primaries,
+                 alpha=alpha if premultiplied else None)
+    if image.grid is not None and image.ispe != (rgb.shape[1], rgb.shape[0]):
+        rgb = _as_pil_sized(rgb, None if alpha is None else alpha_bytes(alpha, depth, ss, matrix, primaries),
+                            image.ispe)
     return rgb
+
+
+def _as_pil_sized(rgb: np.ndarray, alpha, size) -> np.ndarray:
+    """PIL sizes the image by the grid's ispe and reads libavif's RGB(A)
+    buffer, of the grid's output size, at that size: rows of another width
+    run on into the next; a buffer too short for it is cut data."""
+    width, height = size
+    px = rgb if alpha is None else np.concatenate([rgb, alpha[..., None]], -1)
+    flat = px.reshape(-1)
+    n = width * height * px.shape[-1]
+    if n > flat.size:
+        raise DecodeError("image file is truncated")
+    return flat[:n].reshape(height, width, px.shape[-1])[..., :3]

@@ -14,16 +14,21 @@ each pixel then converted with libyuv's fixed-point YuvConstants (6-bit
 chroma coefficients, a 16.16 luma gain, >> 6 and a clamp). The constants
 are libyuv's for the matrices libavif maps onto it: BT.601 (matrix 5, 6
 and unspecified 2; "I601" limited, "JPEG" full range), BT.709 (1; "H709" /
-"F709") and BT.2020 non-constant luminance (9; "2020" / "V2020"). Any
-other matrix goes to libavif's own converter and raises
-NotImplementedError naming ROADMAP A.1.
+"F709"), BT.2020 non-constant luminance (9; "2020" / "V2020"), and
+chroma-derived NCL (12) where the colour primaries are BT.709 or
+unspecified (1, 2), BT.601 (5, 6) or BT.2020 (9). Any other matrix goes
+to libavif's own converter (codecs/avif_reformat.py) at the planes' own
+depth, and the matrices libavif refuses for the layout, range and depth
+raise DecodeError with PIL's "Conversion from YUV failed: Reformat
+failed" (ROADMAP C.16).
 
-- 4:0:0 (`yuv400_to_rgb`): libavif's own grey path, whatever the matrix:
-  Y scaled to [0, 1] in float32 ((Y - 16) / 219 in limited range, Y / 255
-  in full), clamped, times 255 plus 0.5, truncated; R = G = B. With an
-  alpha item PIL asks for RGBA, and libavif takes libyuv's
+- 4:0:0 (`yuv400_to_rgb`): libavif's own grey path, whatever matrix it
+  takes: Y scaled to [0, 1] in float32 ((Y - 16) / 219 in limited range,
+  Y / 255 in full), clamped, times 255 plus 0.5, truncated; R = G = B.
+  With an alpha item PIL asks for RGBA, and libavif takes libyuv's
   I400ToARGBMatrix instead (the 4:4:4 conversion at mid-grey chroma), for
-  the matrices above only.
+  the libyuv matrices above and identity (0, which libavif hands libyuv
+  as BT.601 in 4:0:0); the others keep the grey path.
 - `unpremultiply(rgb, alpha)`: libyuv's ARGBUnattenuate, which libavif
   runs when the item says its colour is premultiplied (a `prem`
   reference) and PIL asks for straight alpha: a 16-bit reciprocal
@@ -57,6 +62,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import avif_reformat
+
 # (YG, YB, UB, UG, VG, VR) by (matrix family, full range)
 _CONSTANTS = {
     ("601", 0): (18997, -1160, 128, 25, 52, 102),
@@ -67,6 +74,18 @@ _CONSTANTS = {
     ("2020", 1): (16320, 32, 120, 11, 37, 94),
 }
 _FAMILY = {1: "709", 2: "601", 5: "601", 6: "601", 9: "2020"}
+# chroma-derived NCL (12) by colour primaries, as libavif hands it to libyuv
+_DERIVED = {1: 1, 2: 1, 5: 6, 6: 6, 9: 9}
+
+
+def libyuv_matrix(matrix: int, primaries: int, mono: bool):
+    """The matrix whose libyuv constants libavif takes for the image, or
+    None where it converts on its own."""
+    if matrix == avif_reformat.CHROMA_DERIVED_NCL:
+        return _DERIVED.get(primaries)
+    if matrix == avif_reformat.IDENTITY and mono:
+        return 6
+    return matrix if matrix in _FAMILY else None
 
 
 def _up_linear(row: np.ndarray, width: int) -> np.ndarray:
@@ -123,7 +142,7 @@ def yuv444_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray, matrix: int, full
     """libyuv YuvPixel (YuvPixel10 / YuvPixel12 at `depth` 10 / 12) over
     whole planes -> (H, W, 3) uint8."""
     if matrix not in _FAMILY:
-        raise NotImplementedError(f"AVIF of matrix coefficients {matrix} is not ported (ROADMAP A.1)")
+        raise ValueError(f"libyuv has no constants for matrix coefficients {matrix}")
     yg, yb, ub, ug, vg, vr = _CONSTANTS[(_FAMILY[matrix], int(bool(full)))]
     bb, bg, br = ub * 128 - yb, ug * 128 + vg * 128 + yb, vr * 128 - yb
     y = y.astype(np.int64)
@@ -196,12 +215,39 @@ def alpha8(alpha: np.ndarray, depth: int, ss) -> np.ndarray:
     return downshift(alpha, depth)
 
 
-def to_rgb(y: np.ndarray, u, v, ss, matrix: int, full: int, rgba: bool = False, depth: int = 8) -> np.ndarray:
+def alpha_bytes(alpha: np.ndarray, depth: int, ss, matrix: int, primaries: int = 2) -> np.ndarray:
+    """The alpha channel of the 8-bit RGBA libavif writes for an image of
+    that layout (`ss` None for 4:0:0) and matrix: alpha8 beside libyuv's
+    routes, avifReformatAlpha's float rounding beside libavif's own."""
+    if depth == 8 or libyuv_matrix(matrix, primaries, ss is None) is not None:
+        return alpha8(alpha, depth, ss)
+    return _ALPHA[depth][alpha]
+
+
+def to_rgb(y: np.ndarray, u, v, ss, matrix: int, full: int, rgba: bool = False, depth: int = 8,
+           primaries: int = 2, alpha=None) -> np.ndarray:
     """Planes of any layout (`ss` the subsampling, u / v None for 4:0:0)
     and depth (8, 10, 12) -> (H, W, 3) uint8; `rgba` where the image has
-    alpha (PIL asks libavif for RGBA)."""
-    if depth > 8 and u is None and not rgba:
+    alpha (PIL asks libavif for RGBA); `primaries` the nclx colour
+    primaries (they pick matrix 12's coefficients); `alpha` the alpha
+    plane at the depth where the colour is premultiplied, which the result
+    is un-premultiplied by. A matrix libavif refuses raises DecodeError."""
+    layout = None if u is None else ss
+    avif_reformat.check(matrix, layout, depth, full)
+    if u is None and not rgba:
         return yuv400_to_rgb(y, full, depth)
+    lib = libyuv_matrix(matrix, primaries, u is None)
+    if lib is None and alpha is not None and avif_reformat.uses_slow_path(matrix, layout, depth, full):
+        return avif_reformat.to_rgb(y, u, v, layout, matrix, full, depth, primaries, alpha)  # un-premultiplied there
+    if lib is None:
+        rgb = avif_reformat.to_rgb(y, u, v, layout, matrix, full, depth, primaries)
+    else:
+        rgb = _libyuv_rgb(y, u, v, ss, lib, full, rgba, depth)
+    return rgb if alpha is None else unpremultiply(rgb, alpha_bytes(alpha, depth, layout, matrix, primaries))
+
+
+def _libyuv_rgb(y: np.ndarray, u, v, ss, matrix: int, full: int, rgba: bool, depth: int) -> np.ndarray:
+    """libavif's libyuv routes for a matrix libyuv takes."""
     if depth == 12 and rgba and u is not None and tuple(ss) == (1, 1):  # I012ToARGBMatrix: nearest chroma
         h, w = y.shape
         u, v = (np.repeat(np.repeat(c, 2, 0), 2, 1)[:h, :w] for c in (u, v))
@@ -209,8 +255,6 @@ def to_rgb(y: np.ndarray, u, v, ss, matrix: int, full: int, rgba: bool = False, 
     if depth > 8 and not (depth == 10 and rgba and u is not None):  # every other route but libyuv's 10-bit
         y, u, v, depth = downshift(y, depth), downshift(u, depth), downshift(v, depth), 8
     if u is None:
-        if not rgba:
-            return yuv400_to_rgb(y, full)
         u = v = np.full_like(y, 128)
         return yuv444_to_rgb(y, u, v, matrix, full)
     convert = {(1, 1): yuv420_to_rgb, (1, 0): yuv422_to_rgb, (0, 0): yuv444_to_rgb}[tuple(ss)]

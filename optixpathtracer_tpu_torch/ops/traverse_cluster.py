@@ -67,8 +67,15 @@ HIER_MIN_ENTRIES = 8  # hier=None takes the node walk from this many entries
 #   reference's 3072 is a TPU-compiler limit.
 _BIG = 3.0e37
 _MT_ELEMS = 1 << 21  # ray-triangle pairs per plain-sweep chunk (memory bound)
-_ORACLE_ELEMS_CUDA = 1 << 24  # the same for `reference_closest` on a card: 64 MiB a
-#   temporary, 8x fewer launches (a ray's result does not depend on its chunk)
+_MT_ELEMS_CUDA = 1 << 24  # the same on a card: 64 MiB a temporary, 8x fewer
+#   launches (no ray appears twice in one chunk's pass, so a ray's result and
+#   the counted work do not depend on the chunking)
+
+
+def _mt_elems(dev: torch.device) -> int:
+    """Ray-triangle pairs per chunk of the plain walks and the oracle on dev."""
+    return _MT_ELEMS_CUDA if dev.type == "cuda" else _MT_ELEMS
+
 
 # kernel name -> launches since the last clear()
 launch_counts: collections.Counter = collections.Counter()
@@ -425,7 +432,7 @@ def _walk(rows: Tensor, xf_inv: Tensor, cr: CullResult, c: int, visit):
     dev = cr.rays8.device
     cnt = cr.count[:, 0]
     lane = torch.arange(sb, device=dev)
-    pair_chunk = max(1, _MT_ELEMS // (sb * c))
+    pair_chunk = max(1, _mt_elems(dev) // (sb * c))
     for i in range(cr.ids.shape[1]):
         live = torch.nonzero(cnt > i)[:, 0]
         if live.numel() == 0:
@@ -715,7 +722,7 @@ def _walk_hier(rows: Tensor, xf_inv: Tensor, nt: NodeTables, cr: NodeCullResult,
     dev = cr.rays8.device
     rays = cr.rays8.reshape(nr, BLOCK, 8)
     lane = torch.arange(sb, device=dev)
-    pair_chunk = max(1, _MT_ELEMS // (sb * c))
+    pair_chunk = max(1, _mt_elems(dev) // (sb * c))
     recull_chunk = max(1, (1 << 22) // (BLOCK * NODE * SUPER))  # blocks per re-cull
     walking = torch.ones(nr, dtype=torch.bool, device=dev)
     for i in range(n2):
@@ -1041,7 +1048,7 @@ def reference_closest(cs: ClusterSet, o: Vec3, d: Vec3, t_min=0.001, t_max=1e16)
     bv = torch.zeros_like(bu)
     btri = torch.full((n,), -1, dtype=torch.int32, device=dev)
     iota = torch.arange(ce, device=dev, dtype=torch.int32)
-    chunk = max(1, (_ORACLE_ELEMS_CUDA if dev.type == "cuda" else _MT_ELEMS) // ce)
+    chunk = max(1, _mt_elems(dev) // ce)
     for e in range(cs.entry_row.shape[0]):
         tri9 = cs.rows[cs.entry_row[e], :9][None]  # (1, 9, ce)
         xf = cs.xf_inv[cs.entry_xf[e]][None]

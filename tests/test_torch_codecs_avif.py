@@ -13,9 +13,12 @@ variants that raise A.1, and the native switch.
   UnidentifiedImageError); a primary item of type hvc1 and a file cut 40
   bytes short fail with PIL's reason (the port's DecodeError, where PIL
   raises RuntimeError and SyntaxError).
-- A.1 for a step-5 variant, naming it: a `grid` item
-  (tests/torch_fixtures/avif_raises/); film grain and quantizer matrices,
-  once refused there too, are fixtures of textures/ now (AVIF step 4). The
+- A.1 for a step-6 variant, naming it: a premultiplied alpha item of
+  another size (tests/torch_fixtures/avif_raises/); film grain and
+  quantizer matrices, and a `grid` item, once refused there too, are
+  fixtures of textures/ now (AVIF steps 4 and 5). ROADMAP C.16 and C.17:
+  identity on 4:2:0 and matrix 10, and a show_existing_frame or inter
+  frame with no frame before it, fail with PIL's reason. The
   film grain bit flipped in a sequence header, the monochrome and the
   high_bitdepth bits, which once raised here, now name a tool, a layout
   and a depth the port decodes (each flipped file decodes as PIL decodes
@@ -237,8 +240,9 @@ def test_headers(name, use_128, tiles, q):
 
 @pytest.mark.parametrize("name", sorted(RAISES))
 def test_refused_files_fail_as_expected(name):
-    """The step-5 variant (PIL reads it) raises A.1 naming the variant;
-    the C.14 files fail as PIL fails: no format, or PIL's reason."""
+    """The step-6 variant (PIL reads it) raises A.1 naming the variant;
+    the C.14, C.16 and C.17 files and the grid missing a cell fail as PIL
+    fails: no format, or PIL's reason."""
     with open(os.path.join(AVIF_RAISES, name), "rb") as f:
         data = f.read()
     want = RAISES[name]
@@ -252,7 +256,9 @@ def test_refused_files_fail_as_expected(name):
         pil_rgb(data)
     assert isinstance(got.value, OSError) and not isinstance(got.value, NotImplementedError)
     pil_class = {"avif_heic_brand.avif": "UnidentifiedImageError", "avif_hvc1_item.avif": "RuntimeError",
-                 "avif_truncated.avif": "SyntaxError"}[name]
+                 "avif_truncated.avif": "SyntaxError", "avif_identity_420.avif": "RuntimeError",
+                 "avif_matrix10.avif": "RuntimeError", "avif_show_existing_frame.avif": "RuntimeError",
+                 "avif_inter_frame.avif": "RuntimeError", "avif_grid_missing_cell.avif": "RuntimeError"}[name]
     assert type(pil_error.value).__name__ == pil_class
     if pil_class != "UnidentifiedImageError":  # the same reason as PIL's
         assert str(pil_error.value) == str(got.value)
@@ -362,9 +368,16 @@ def test_item_extent_off_the_file_fails_as_libavif(where):
 
 
 def test_unsupported_matrix_raises_a1():
+    """Identity (matrix 0) on a 4:2:0 still: libavif refuses to convert it,
+    and PIL raises its reason; the port raises the same reason (its
+    DecodeError, as for C.14), no A.1 (ROADMAP C.16)."""
     data = _fixture("avif_37x23.avif")
-    with pytest.raises(NotImplementedError, match="AVIF of matrix coefficients 0.*ROADMAP A.1"):
-        codecs.rgb8(data.replace(b"colrnclx\x00\x01\x00\x0d\x00\x06", b"colrnclx\x00\x01\x00\x0d\x00\x00"))
+    data = data.replace(b"colrnclx\x00\x01\x00\x0d\x00\x06", b"colrnclx\x00\x01\x00\x0d\x00\x00")
+    with pytest.raises(RuntimeError) as pil_error:
+        pil_rgb(data)
+    with pytest.raises(codecs.DecodeError) as got:
+        codecs.rgb8(data)
+    assert str(got.value) == str(pil_error.value) == "Conversion from YUV failed: Reformat failed"
 
 
 def test_no_native_raises_naming_the_switch(monkeypatch):

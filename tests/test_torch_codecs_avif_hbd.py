@@ -211,7 +211,8 @@ def test_conversion_every_code_equals_libavif(depth, fmt, rgba):
 @pytest.mark.parametrize("full", [0, 1])
 def test_grey_every_code_equals_libavif(depth, full):
     """4:0:0 on every Y code: RGB through libavif's grey path at the depth,
-    whatever the matrix; RGBA through I400ToARGBMatrix on the 8-bit Y."""
+    whatever matrix it takes; RGBA through I400ToARGBMatrix on the 8-bit Y,
+    identity (0) as BT.601 there."""
     y, _, _ = _every_code(depth, 4, depth + full)
     h, w = y.shape
     for matrix in (0, 1, 6, 9):
@@ -222,8 +223,8 @@ def test_grey_every_code_equals_libavif(depth, full):
         want = oracle.yuv_to_rgb((w, h, depth, 4), y, None, None, matrix, full, alpha=alpha)
         np.testing.assert_array_equal(avif_yuv.to_rgb(y, None, None, None, matrix, full, rgba=True, depth=depth),
                                       want)
-    with pytest.raises(NotImplementedError, match="matrix coefficients 0.*ROADMAP A.1"):
-        avif_yuv.to_rgb(y, None, None, None, 0, full, rgba=True, depth=depth)
+    want = oracle.yuv_to_rgb((w, h, depth, 4), y, None, None, 0, full, alpha=alpha)
+    np.testing.assert_array_equal(avif_yuv.to_rgb(y, None, None, None, 0, full, rgba=True, depth=depth), want)
 
 
 @needs_oracle

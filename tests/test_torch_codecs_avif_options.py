@@ -39,7 +39,8 @@ from optixpathtracer_tpu_torch.io.codecs import DecodeError, av1_obu, avif, avif
 from test_torch_codecs_avif_planes import _assert_planes_equal
 from test_torch_obj_gltf import _assert_same_gltf, _assert_same_scene, _textured_glb
 from torch_codec_encoders import photo, pil_rgb
-from torch_fixtures.make_textures import OUT
+from torch_fixtures.make_textures import OUT, _iloc
+from torch_fixtures.make_textures import avif_with_alpha_of as _with_alpha_of
 
 needs_oracle = pytest.mark.skipif(not oracle.available(), reason="PIL ships no libavif here")
 
@@ -167,7 +168,7 @@ def test_grey_path_every_code_equals_libavif(full):
 def test_grey_path_with_alpha_every_code_equals_libavif(full):
     """An image with alpha is asked for in RGBA, and libavif converts 4:0:0
     through libyuv's I400ToARGBMatrix then (it parts from the grey path in
-    limited range); a matrix libyuv does not take raises A.1."""
+    limited range), identity (0) among them as BT.601."""
     buf = io.BytesIO()
     Image.fromarray(photo(16, 16, 2, 4), "RGBA").save(buf, "AVIF", subsampling="4:0:0")
     y = np.arange(256, dtype=np.uint8).reshape(16, 16)
@@ -175,8 +176,8 @@ def test_grey_path_with_alpha_every_code_equals_libavif(full):
     for matrix in (1, 2, 5, 6, 9):
         want = oracle.yuv_to_rgb(buf.getvalue(), y, None, None, matrix, full, alpha=alpha)
         np.testing.assert_array_equal(avif_yuv.to_rgb(y, None, None, None, matrix, full, rgba=True), want)
-    with pytest.raises(NotImplementedError, match="matrix coefficients 0.*ROADMAP A.1"):
-        avif_yuv.to_rgb(y, None, None, None, 0, full, rgba=True)
+    want = oracle.yuv_to_rgb(buf.getvalue(), y, None, None, 0, full, alpha=alpha)
+    np.testing.assert_array_equal(avif_yuv.to_rgb(y, None, None, None, 0, full, rgba=True), want)
 
 
 @needs_oracle
@@ -191,33 +192,6 @@ def _rgba_avif(h: int, w: int, seed: int, **kw) -> bytes:
     buf = io.BytesIO()
     Image.fromarray(photo(h, w, seed, 4), "RGBA").save(buf, "AVIF", **kw)
     return buf.getvalue()
-
-
-def _iloc(data: bytes) -> dict:
-    """item id -> (entry offset, data offset, length) of a PIL-written iloc
-    (version 0, 4-byte offsets and lengths, one extent each)."""
-    i = data.index(b"iloc") + 4
-    assert data[i] == 0 and data[i + 4:i + 6] == b"\x44\x00"
-    out, at = {}, i + 8
-    for _ in range(int.from_bytes(data[i + 6:i + 8], "big")):
-        out[int.from_bytes(data[at:at + 2], "big")] = (at, int.from_bytes(data[at + 6:at + 10], "big"),
-                                                       int.from_bytes(data[at + 10:at + 14], "big"))
-        at += 14
-    return out
-
-
-def _with_alpha_of(data: bytes, other: bytes) -> bytes:
-    """`data` with its alpha item's OBUs (item 2, stored before the colour
-    item's) replaced by `other`'s."""
-    (at2, off2, len2), (at1, off1, _) = _iloc(data)[2], _iloc(data)[1]
-    _, off, ln = _iloc(other)[2]
-    new = other[off:off + ln]
-    out = bytearray(data[:off2] + new + data[off2 + len2:])
-    out[at2 + 10:at2 + 14] = len(new).to_bytes(4, "big")
-    out[at1 + 6:at1 + 10] = (off1 + len(new) - len2).to_bytes(4, "big")
-    mdat = data.index(b"mdat") - 4
-    out[mdat:mdat + 4] = (int.from_bytes(data[mdat:mdat + 4], "big") + len(new) - len2).to_bytes(4, "big")
-    return bytes(out)
 
 
 def _edit(data: bytes, at: int, value: bytes) -> bytes:

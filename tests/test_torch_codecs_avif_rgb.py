@@ -19,7 +19,7 @@ import pytest
 import torch_avif_oracle as oracle
 from optixpathtracer_tpu.io import image as jimg
 from optixpathtracer_tpu_torch.io import image as timg
-from optixpathtracer_tpu_torch.io.codecs import avif_yuv
+from optixpathtracer_tpu_torch.io.codecs import DecodeError, avif_yuv
 from torch_codec_encoders import pil_rgb
 from torch_fixtures.make_textures import MANIFEST, OUT
 
@@ -57,9 +57,23 @@ def test_yuv_to_rgb_equals_libavif(size, matrix, full):
     np.testing.assert_array_equal(avif_yuv.yuv420_to_rgb(y, u, v, matrix, full), want)
 
 
+@pytest.mark.skipif(not oracle.available(), reason="PIL ships no libavif here")
 def test_other_matrices_raise_a1():
-    y = np.zeros((2, 2), np.uint8)
-    c = np.zeros((1, 1), np.uint8)
+    """The 4:2:0 matrices libyuv has no constants for: libyuv's kernel
+    refuses them, and libavif converts them on its own (4, 12) or refuses
+    them, PIL raising "Conversion from YUV failed: Reformat failed" (0, 10,
+    14; ROADMAP C.16): `to_rgb` does each as libavif does."""
+    rng = np.random.default_rng(5)
+    y = rng.integers(0, 256, (6, 10), dtype=np.uint8)
+    u, v = (rng.integers(0, 256, (3, 5), dtype=np.uint8) for _ in range(2))
     for matrix in (0, 4, 10, 12, 14):
-        with pytest.raises(NotImplementedError, match=f"matrix coefficients {matrix}.*ROADMAP A.1"):
-            avif_yuv.yuv420_to_rgb(y, c, c, matrix, 1)
+        with pytest.raises(ValueError, match=f"libyuv has no constants for matrix coefficients {matrix}"):
+            avif_yuv.yuv420_to_rgb(y, u, v, matrix, 1)
+        if matrix in (4, 12):
+            np.testing.assert_array_equal(avif_yuv.to_rgb(y, u, v, (1, 1), matrix, 1),
+                                          oracle.yuv_to_rgb((10, 6, 8, 3), y, u, v, matrix, 1))
+        else:
+            with pytest.raises(RuntimeError, match="avifImageYUVToRGB failed"):
+                oracle.yuv_to_rgb((10, 6, 8, 3), y, u, v, matrix, 1)
+            with pytest.raises(DecodeError, match="^Conversion from YUV failed: Reformat failed$"):
+                avif_yuv.to_rgb(y, u, v, (1, 1), matrix, 1)

@@ -20,7 +20,7 @@ and film grain of csrc/host/av1_dec.cpp) as PIL decodes them.
 - Header edits, each decoded as PIL decodes it: clip_to_restricted_range
   set (no encoder sets it), and at 10 and 12 bits on an identity-matrix
   4:4:4 still, whose chroma clips at 235 like its luma (planes against
-  dav1d; its RGB, of matrix 0, is AVIF step 5 and raises A.1);
+  dav1d, its RGB, of matrix 0, equal to PIL's);
   delta_lf_multi set (no encoder writes it); and the loop filter's deltas
   turned off with the frame's level lowered, so that blocks of level 0
   take the previous block's level (7.14.2), which no aom still needs (its
@@ -263,17 +263,15 @@ def test_clip_to_restricted_range(vector):
 @pytest.mark.parametrize("depth", [10, 12])
 def test_clip_with_the_identity_matrix(depth):
     """On an identity-matrix (sRGB 4:4:4) still the clip takes chroma to
-    235, as luma: planes equal to dav1d's; its RGB, of matrix 0, is AVIF
-    step 5 and raises A.1."""
+    235, as luma: planes equal to dav1d's, and its RGB (matrix 0, libavif's
+    own conversion) equal to PIL's."""
     y, u, v = yuv_photo(45, 67, 9, depth, 1)
     top = (1 << depth) - 1
     u, v = np.maximum(u, top - (u >> 3)), np.maximum(v, top - (v >> 4))  # chroma near the top, where 235 and 240 differ
     data = avif_grain_clipped(oracle.encode_hbd([y, u, v], depth, 1, matrix=0, options={"film-grain-test": "1"}))
     seq, h = _headers(data)
     assert seq["color"][2] == 0 and seq["ss"] == (0, 0) and h["grain"]["clip_to_restricted_range"]
-    _assert_planes_equal(data)
-    with pytest.raises(NotImplementedError, match="matrix coefficients 0.*ROADMAP A.1"):
-        codecs.rgb8(data)
+    _check(data)
 
 
 def _frame_payload_edit(data: bytes, edit) -> bytes:

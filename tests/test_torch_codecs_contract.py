@@ -34,7 +34,7 @@ from optixpathtracer_tpu_torch.io import image as timg
 from optixpathtracer_tpu_torch.io import obj as tobj
 from test_torch_obj_gltf import _assert_same_gltf, _textured_glb
 from torch_codec_encoders import assert_fails_like_pil, assert_like_pil, photo, pil_bytes, pil_rgb
-from torch_fixtures.make_textures import AVIF_RAISES
+from torch_fixtures.make_textures import AVIF_RAISES, OUT
 
 
 def _sun(img: np.ndarray) -> bytes:
@@ -49,9 +49,12 @@ def _xpm() -> bytes:
 
 
 def _committed_avif(name: str) -> bytes:
-    """An AVIF of tests/torch_fixtures/avif_raises (a grid from libavif's
-    own encoder, which PIL's save does not write)."""
-    with open(os.path.join(AVIF_RAISES, name), "rb") as f:
+    """An AVIF of tests/torch_fixtures/textures (a grid from libavif's own
+    encoder, which PIL's save does not write) or, where the port raises A.1
+    for it, of tests/torch_fixtures/avif_raises (a premultiplied alpha item
+    of another size than the colour, which libavif scales)."""
+    path = os.path.join(OUT, name)
+    with open(path if os.path.exists(path) else os.path.join(AVIF_RAISES, name), "rb") as f:
         return f.read()
 
 
@@ -73,6 +76,7 @@ UNPORTED = {
     "AVIF_444": lambda: pil_bytes(photo(8, 8, 1), "AVIF", subsampling="4:4:4"),
     "AVIF_QM": lambda: pil_bytes(photo(8, 8, 1), "AVIF", advanced={"enable-qm": "1"}),
     "AVIF_GRID": lambda: _committed_avif("avif_grid.avif"),
+    "AVIF_PREM_ALPHA_OTHER_SIZE": lambda: _committed_avif("avif_prem_alpha_other_size.avif"),
     "ICNS": lambda: pil_bytes(photo(16, 16, 1, 4), "ICNS", "RGBA", sizes=[(16, 16)]),
     "SUN": lambda: _sun(photo(3, 5, 1)),
     "XPM": _xpm,
@@ -81,7 +85,7 @@ UNPORTED = {
 
 
 # what each still-unported case's NotImplementedError names
-STILL_UNPORTED = {"AVIF_GRID": "AVIF of grid images"}
+STILL_UNPORTED = {"AVIF_PREM_ALPHA_OTHER_SIZE": "AVIF of premultiplied alpha of another size"}
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
@@ -196,10 +200,10 @@ def test_gltf_keeps_the_factor_only_material(tmp_path, name):
 def test_gltf_with_unported_format_raises_a1(tmp_path):
     from optixpathtracer_tpu_torch.io import gltf as tgltf
 
-    path = _textured_glb(tmp_path / "avif.glb", UNPORTED["AVIF_GRID"]())
-    with pytest.raises(NotImplementedError, match="AVIF of grid images.*A.1"):
+    path = _textured_glb(tmp_path / "avif.glb", UNPORTED["AVIF_PREM_ALPHA_OTHER_SIZE"]())
+    with pytest.raises(NotImplementedError, match="AVIF of premultiplied alpha of another size.*A.1"):
         tgltf.load_gltf(path)
-    for name in ("AVIF_444", "AVIF_QM"):  # each once raised here
+    for name in ("AVIF_444", "AVIF_QM", "AVIF_GRID"):  # each once raised here
         got, _ = _assert_same_gltf(_textured_glb(tmp_path / f"{name}.glb", UNPORTED[name]()))
         assert len(got.textures) == 1
 

@@ -306,19 +306,22 @@ def test_pcd(tmp_path, orientation):
 
 def test_unported_formats_left():
     """AVIF at PIL's defaults, a 4:4:4 AVIF, an AVIF with quantizer
-    matrices and JPEG 2000 (each once A.1) decode as PIL decodes them; an
-    AVIF grid, which PIL reads, still raises A.1 (AVIF step 5)."""
+    matrices, JPEG 2000 and an AVIF grid (each once A.1) decode as PIL
+    decodes them; a premultiplied AVIF alpha of another size than its
+    colour, which PIL reads, still raises A.1 (AVIF step 6)."""
     import os
 
     from optixpathtracer_tpu_torch.io import image as timg
-    from torch_fixtures.make_textures import AVIF_RAISES
+    from torch_fixtures.make_textures import AVIF_RAISES, OUT
 
     assert_like_pil(pil_bytes(photo(8, 8, 1), "AVIF"))
     assert_like_pil(pil_bytes(photo(8, 8, 1), "AVIF", subsampling="4:4:4"))
     assert_like_pil(pil_bytes(photo(8, 8, 1), "AVIF", advanced={"enable-qm": "1"}))
-    with open(os.path.join(AVIF_RAISES, "avif_grid.avif"), "rb") as f:
-        grid = f.read()
-    assert pil_rgb(grid).shape == (128, 128, 3)
-    with pytest.raises(NotImplementedError, match="AVIF of grid images.*A.1"):
-        timg.rgb8_from_bytes(grid)
+    with open(os.path.join(OUT, "avif_grid.avif"), "rb") as f:
+        assert assert_like_pil(f.read()).shape == (128, 128, 3)
+    with open(os.path.join(AVIF_RAISES, "avif_prem_alpha_other_size.avif"), "rb") as f:
+        step6 = f.read()
+    assert pil_rgb(step6).shape == (40, 48, 3)
+    with pytest.raises(NotImplementedError, match="AVIF of premultiplied alpha of another size.*A.1"):
+        timg.rgb8_from_bytes(step6)
     assert_like_pil(pil_bytes(photo(8, 8, 1), "JPEG2000"))

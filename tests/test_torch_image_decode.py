@@ -30,7 +30,7 @@ from optixpathtracer_tpu_torch.io import gltf as tgltf
 from optixpathtracer_tpu_torch.io import image as timg
 from optixpathtracer_tpu_torch.io import obj as tobj
 from test_torch_obj_gltf import _assert_same_gltf, _assert_same_scene, _textured_glb
-from torch_fixtures.make_textures import AVIF_RAISES
+from torch_fixtures.make_textures import AVIF_RAISES, OUT
 
 
 def _pil(data: bytes) -> np.ndarray:
@@ -154,8 +154,9 @@ def test_unported_formats_raise_naming_a1():
     """What this test once held unported now decodes as PIL does (arithmetic
     and CMYK JPEG, BMP, GIF, TIFF, WebP, MSP, JPEG 2000;
     tests/test_torch_codecs_*.py case by case) and AVIF at PIL's defaults
-    and in 4:4:4, and an AVIF with quantizer matrices; a variant PIL reads
-    and the port does not (an AVIF grid, AVIF step 5) still raises A.1;
+    and in 4:4:4, an AVIF with quantizer matrices and an AVIF grid; a
+    variant PIL reads and the port does not (a premultiplied AVIF alpha of
+    another size than the colour, AVIF step 6) still raises A.1;
     what PIL cannot read (a 12-bit JPEG, bytes of no format) raises an
     OSError as PIL's UnidentifiedImageError is one."""
     base = _pil_jpeg(_photo(16, 16, 7), quality=75)
@@ -192,11 +193,15 @@ def test_unported_formats_raise_naming_a1():
     Image.fromarray(_photo(8, 8, 9)).save(buf, format="AVIF", advanced={"enable-qm": "1"})
     assert _pil(buf.getvalue()).shape == (8, 8, 3)  # once unported here, now decoded as PIL decodes it
     _assert_decodes_like_pil(buf.getvalue())
-    with open(os.path.join(AVIF_RAISES, "avif_grid.avif"), "rb") as f:
+    with open(os.path.join(OUT, "avif_grid.avif"), "rb") as f:
         grid = f.read()
-    assert _pil(grid).shape == (128, 128, 3)
-    with pytest.raises(NotImplementedError, match="AVIF of grid images.*A.1"):
-        timg.rgb8_from_bytes(grid)
+    assert _pil(grid).shape == (128, 128, 3)  # once unported here, now decoded as PIL decodes it
+    _assert_decodes_like_pil(grid)
+    with open(os.path.join(AVIF_RAISES, "avif_prem_alpha_other_size.avif"), "rb") as f:
+        step6 = f.read()
+    assert _pil(step6).shape == (40, 48, 3)
+    with pytest.raises(NotImplementedError, match="AVIF of premultiplied alpha of another size.*A.1"):
+        timg.rgb8_from_bytes(step6)
     for data in (twelve_bit, b"no image format" + bytes(20)):
         with pytest.raises(OSError, match="cannot identify"):
             _pil(data)

@@ -182,10 +182,10 @@ def test_unported_formats_raise(tmp_path):
     (tests/test_torch_image_decode.py and tests/test_torch_codecs_*.py
     cover them case by case), an arithmetic-coded JPEG and XBM too, JPEG
     2000 and AVIF at PIL's defaults (once here) as well, and AVIF with
-    alpha and with quantizer matrices (each once the example here); a
-    variant PIL reads and the port does not (an AVIF whose nclx names
-    matrix coefficients 0, which libavif converts without libyuv: AVIF
-    step 5) raises NotImplementedError naming A.1."""
+    alpha and with quantizer matrices (each once the example here), and an
+    AVIF whose nclx names matrix coefficients 0 (identity, which libavif
+    converts without libyuv: AVIF step 5), once the example of a variant
+    raising A.1 here."""
     rng = np.random.default_rng(5)
     px = rng.integers(0, 256, (6, 8, 3), dtype=np.uint8)
     buf16, jpg = io.BytesIO(), io.BytesIO()
@@ -231,8 +231,7 @@ def test_unported_formats_raise(tmp_path):
     avif = io.BytesIO()  # libavif converts matrix 0 (identity) only from 4:4:4
     Image.fromarray(px).save(avif, format="AVIF", subsampling="4:4:4")
     identity = avif.getvalue().replace(b"colrnclx\x00\x01\x00\x0d\x00\x06", b"colrnclx\x00\x01\x00\x0d\x00\x00")
-    assert identity != avif.getvalue() and _pil_rgb(identity).shape == (6, 8, 3)  # PIL reads it
-    with pytest.raises(NotImplementedError, match="AVIF of matrix coefficients 0.*A.1"):
-        timg.rgb8_from_bytes(identity)
+    assert identity != avif.getvalue() and _pil_rgb(identity).shape == (6, 8, 3)  # PIL reads it, and so does the port
+    np.testing.assert_array_equal(timg.rgb8_from_bytes(identity), _pil_rgb(identity))
     with pytest.raises(ValueError, match="not a PNG"):
         timg.rgb8_from_png(b"GIF89a" + bytes(40))

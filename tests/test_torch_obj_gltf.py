@@ -31,7 +31,7 @@ from optixpathtracer_tpu_torch.core.scene import HostScene, Mesh
 from optixpathtracer_tpu_torch.io import gltf as tgltf
 from optixpathtracer_tpu_torch.io import obj as tobj
 from tests.test_gltf import _reuse_gltf, _tri_gltf
-from torch_fixtures.make_textures import AVIF_RAISES
+from torch_fixtures.make_textures import AVIF_RAISES, OUT
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -298,9 +298,10 @@ def test_gltf_tlas_raises(tmp_path):
     """The instanced loader shares the baked loader's image decoding: a JPEG
     texture loads there too, an arithmetic-coded one as well (once a port
     gap, now decoded as PIL decodes it), an MSP, a JPEG 2000 and an AVIF at
-    PIL's defaults, in 4:4:4 and with quantizer matrices too (ported
-    since), and a variant PIL reads and the port does not (an AVIF grid,
-    AVIF step 5) is still a gap (ROADMAP A.1). (load_gltf_tlas itself is
+    PIL's defaults, in 4:4:4, with quantizer matrices and as a grid too
+    (ported since), and a variant PIL reads and the port does not (a
+    premultiplied AVIF alpha of another size than the colour, AVIF step 6)
+    is still a gap (ROADMAP A.1). (load_gltf_tlas itself is
     held against the JAX loader in tests/test_torch_gltf_tlas.py.)"""
     px = np.random.default_rng(3).integers(0, 256, (8, 8, 3), dtype=np.uint8)
     jpeg = _png_bytes(px, format="JPEG")
@@ -319,9 +320,12 @@ def test_gltf_tlas_raises(tmp_path):
     np.testing.assert_array_equal(tgltf.load_gltf_tlas(path)[0].textures[0], jgltf.load_gltf(path)[0].textures[0])
     path = _textured_glb(tmp_path / "avif_qm.glb", _png_bytes(px, format="AVIF", advanced={"enable-qm": "1"}))
     np.testing.assert_array_equal(tgltf.load_gltf_tlas(path)[0].textures[0], jgltf.load_gltf(path)[0].textures[0])
-    with open(os.path.join(AVIF_RAISES, "avif_grid.avif"), "rb") as f:
+    with open(os.path.join(OUT, "avif_grid.avif"), "rb") as f:
         path = _textured_glb(tmp_path / "avif_grid.glb", f.read())
-    with pytest.raises(NotImplementedError, match="AVIF of grid images.*A.1"):
+    np.testing.assert_array_equal(tgltf.load_gltf_tlas(path)[0].textures[0], jgltf.load_gltf(path)[0].textures[0])
+    with open(os.path.join(AVIF_RAISES, "avif_prem_alpha_other_size.avif"), "rb") as f:
+        path = _textured_glb(tmp_path / "avif_prem_alpha_other_size.glb", f.read())
+    with pytest.raises(NotImplementedError, match="AVIF of premultiplied alpha of another size.*A.1"):
         tgltf.load_gltf_tlas(path)
 
 

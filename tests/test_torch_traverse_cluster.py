@@ -305,6 +305,31 @@ def test_sweep_work_hier_within_the_node_walk(random_scene, any_hit):
     assert work.ops == work.pairs * tc.MT_OPS + work.slab_tests * tc.SLAB_OPS
 
 
+@pytest.mark.parametrize("walk", ["flat", "node"])
+def test_plain_walks_do_not_depend_on_their_chunk(random_scene, monkeypatch, walk):
+    """One (block, sub-block) visit a chunk gives the plain sweeps' results
+    and the counted work of the card's chunk (`_MT_ELEMS_CUDA`)."""
+    _, pcs = random_scene
+    _, _, to, td = _random_rays(np.random.default_rng(10), 512)
+    c, nt = pcs.cluster_size, pcs.node_tables
+    if walk == "flat":
+        cr, cr_s = tc.block_cull(pcs, to, td, 1e-3, 6.0), tc.block_cull(pcs, to, td, 1e-2, 6.0)
+        run = lambda: (*tc._closest_torch(pcs.rows, pcs.xf_inv, cr, c), tc._any_torch(pcs.rows, pcs.xf_inv, cr_s, c),
+                       *(tc.sweep_work(pcs.rows, pcs.xf_inv, x, c, any_hit=a) for x, a in ((cr, False), (cr_s, True))))
+    else:
+        cr, cr_s = tc.block_cull_nodes(pcs, to, td, 1e-3, 6.0), tc.block_cull_nodes(pcs, to, td, 1e-2, 6.0)
+        run = lambda: (*tc._closest_hier_torch(pcs.rows, pcs.xf_inv, nt, cr, c),
+                       tc._any_hier_torch(pcs.rows, pcs.xf_inv, nt, cr_s, c),
+                       *(tc.sweep_work_hier(pcs.rows, pcs.xf_inv, nt, x, c, any_hit=a)
+                         for x, a in ((cr, False), (cr_s, True))))
+    monkeypatch.setattr(tc, "_MT_ELEMS", tc._MT_ELEMS_CUDA)
+    t, tri, occ, work, work_s = run()
+    monkeypatch.setattr(tc, "_MT_ELEMS", (tc.BLOCK // 8) * c)
+    t1, tri1, occ1, work1, work1_s = run()
+    assert torch.equal(t, t1) and torch.equal(tri, tri1) and torch.equal(occ, occ1)
+    assert (work, work_s) == (work1, work1_s) and work.visits > 1 and work_s.visits > 1
+
+
 def test_kernel_dispatch_has_no_fallback(random_scene):
     _, pcs = random_scene
     _, _, to, td = _random_rays(np.random.default_rng(7), 64)

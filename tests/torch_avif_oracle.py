@@ -7,10 +7,11 @@ inside, built for high bit depth) as the writer of 10- and 12-bit stills.
   uint16 above) and (width, height, depth, yuvFormat, yuvRange) - dav1d's
   decode before any colour conversion; `alpha(data)` the alpha plane (None
   without one) and whether libavif marks it premultiplied.
-- `yuv_to_rgb(template, y, u, v, matrix, full, alpha=None, premultiplied=0)`:
-  `avifImageYUVToRGB` with PIL's settings (RGB, or RGBA where an alpha
-  plane is given, as PIL asks for an image with alpha; depth 8, automatic
-  chroma upsampling) on planes of our own, written into an image decoded
+- `yuv_to_rgb(template, y, u, v, matrix, full, alpha=None, premultiplied=0,
+  primaries=None)`: `avifImageYUVToRGB` with PIL's settings (RGB, or RGBA
+  where an alpha plane is given, as PIL asks for an image with alpha;
+  depth 8, automatic chroma upsampling) on planes of our own, under the
+  given nclx colour primaries (which matrix 12 derives from), written into an image decoded
   from `template` (an AVIF of the same size and layout, so that libavif
   owns the buffers) or made by `avifImageCreate` where `template` is
   (width, height, depth, yuvFormat) -> the RGB channels (and alpha, with
@@ -21,9 +22,12 @@ inside, built for high bit depth) as the writer of 10- and 12-bit stills.
 - `encode_hbd(planes, depth, yuv_format, ...)`: OpenCV's libavif 1.4
   encoder (aom 3.14 inside) on planes of our own at any depth and layout,
   with alpha straight or premultiplied, either range, aom's speed and
-  quality, tiles and codec-specific options (`enable-cdef`, ...): the 10-
-  and 12-bit stills PIL's aom does not write. `hbd_available()` is False
-  where OpenCV ships no libavif.
+  quality, tiles and codec-specific options (`enable-cdef`, `aq-mode`,
+  ...): the 10- and 12-bit stills PIL's aom does not write; with
+  `single=False` aom's good-quality usage (AV1 segmentation under
+  `aq-mode` 1), with `grid=(rows, cols)` a grid image (the switches'
+  effects: its docstring). `hbd_available()` is False where OpenCV ships
+  no libavif.
 
 The offsets are those of libavif's `avifImage`, the same in 1.3 and 1.4
 (soname 16; width, height, depth, yuvFormat (1 4:4:4, 2 4:2:2, 3 4:2:0,
@@ -170,7 +174,7 @@ def _create(lib, w: int, h: int, depth: int, fmt: int, with_alpha: bool):
 
 
 def yuv_to_rgb(template, y: np.ndarray, u, v, matrix: int, full: int, alpha=None,
-               premultiplied: int = 0, rgba: bool = False) -> np.ndarray:
+               premultiplied: int = 0, rgba: bool = False, primaries: int | None = None) -> np.ndarray:
     lib = _lib()
     im = _read(template) if isinstance(template, bytes) else _create(lib, *template, alpha is not None)
     try:
@@ -182,6 +186,8 @@ def yuv_to_rgb(template, y: np.ndarray, u, v, matrix: int, full: int, alpha=None
             struct.pack_into("<I", (ctypes.c_uint8 * 4).from_address(im + 80), 0, premultiplied)
         struct.pack_into("<I", (ctypes.c_uint8 * 4).from_address(im + 16), 0, int(bool(full)))
         struct.pack_into("<H", (ctypes.c_uint8 * 2).from_address(im + 108), 0, matrix)
+        if primaries is not None:
+            struct.pack_into("<H", (ctypes.c_uint8 * 2).from_address(im + 104), 0, primaries)
         rgb = (ctypes.c_uint8 * 256)()
         lib.avifRGBImageSetDefaults(ctypes.addressof(rgb), im)
         channels = 3 if alpha is None else 4
@@ -275,6 +281,8 @@ def _hbd_lib():
         lib.avifEncoderCreate.restype = ctypes.c_void_p
         lib.avifEncoderDestroy.argtypes = [ctypes.c_void_p]
         lib.avifEncoderAddImage.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int]
+        lib.avifEncoderAddImageGrid.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32,
+                                                ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
         lib.avifEncoderFinish.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.avifEncoderSetCodecSpecificOption.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p]
         lib.avifRWDataFree.argtypes = [ctypes.c_void_p]
@@ -284,7 +292,7 @@ def _hbd_lib():
 
 def encode_hbd(planes, depth: int, yuv_format: int, full: int = 1, alpha=None, premultiplied: bool = False,
                speed: int = 6, quality: int = 60, options: dict | None = None, matrix: int = 6,
-               tiles_log2: tuple[int, int] = (0, 0)) -> bytes:
+               tiles_log2: tuple[int, int] = (0, 0), single: bool = True, grid: tuple[int, int] = (1, 1)) -> bytes:
     """A still AVIF from our own planes through OpenCV's libavif 1.4 (aom
     3.14): `planes` [Y] or [Y, U, V] of the layout's sizes (uint16 at depth
     10 / 12), `yuv_format` 1-4 (4:4:4, 4:2:2, 4:2:0, 4:0:0), `full` range,
@@ -293,21 +301,42 @@ def encode_hbd(planes, depth: int, yuv_format: int, full: int = 1, alpha=None, p
     (rows, cols) tiles as log2, codec-specific `options` and the nclx
     matrix (primaries BT.709, transfer sRGB). Quantizer matrices and delta
     q, which libavif 1.4 turns on for aom, stay off unless `options` asks
-    for them (`enable-qm`, `deltaq-mode`)."""
+    for them (`enable-qm`, `deltaq-mode`).
+
+    `single` keeps AVIF_ADD_IMAGE_FLAG_SINGLE, with which libavif runs aom
+    in its all-intra usage; `single=False` adds the image without it, and
+    aom runs in its good-quality usage, which writes a full sequence header
+    (not the reduced still-picture one) and, with `options={"aq-mode": 1}`
+    (variance AQ), AV1 segmentation: SEG_LVL_ALT_Q on a few segments (at
+    speeds up to 6; none at 8). `grid` = (rows, cols) cuts the planes (and
+    alpha) into that many equal cells, each at least 64 x 64 and even where
+    chroma is subsampled, and writes them through
+    `avifEncoderAddImageGrid`: a `grid` item of av01 cells (an alpha grid
+    beside it), whose output size is the planes'."""
     lib = _hbd_lib()
     h, w = planes[0].shape
-    im = _create(lib, w, h, depth, yuv_format, alpha is not None)
+    rows, cols = grid
+    assert h % rows == 0 and w % cols == 0, "the planes split into equal cells"
+    ch, cw = h // rows, w // cols
+    sx, sy = SUBSAMPLING[yuv_format] or (0, 0)
+    cells = []
     enc = lib.avifEncoderCreate()
     out = (ctypes.c_uint8 * 16)()  # avifRWData: data, size
     try:
-        struct.pack_into("<I", (ctypes.c_uint8 * 4).from_address(im + 16), 0, int(bool(full)))
-        struct.pack_into("<3H", (ctypes.c_uint8 * 6).from_address(im + 104), 0, 1, 13, matrix)
-        _, views = _plane_views(im)
-        for view, plane in zip(views, planes):
-            view[...] = plane
-        if alpha is not None:
-            _alpha_view(im)[...] = alpha
-            struct.pack_into("<I", (ctypes.c_uint8 * 4).from_address(im + 80), 0, int(premultiplied))
+        for r in range(rows):
+            for c in range(cols):
+                im = _create(lib, cw, ch, depth, yuv_format, alpha is not None)
+                cells.append(im)
+                struct.pack_into("<I", (ctypes.c_uint8 * 4).from_address(im + 16), 0, int(bool(full)))
+                struct.pack_into("<3H", (ctypes.c_uint8 * 6).from_address(im + 104), 0, 1, 13, matrix)
+                _, views = _plane_views(im)
+                for p, (view, plane) in enumerate(zip(views, planes)):
+                    ssx, ssy = (sx, sy) if p else (0, 0)
+                    view[...] = plane[(r * ch + ssy) >> ssy:((r + 1) * ch + ssy) >> ssy,
+                                      (c * cw + ssx) >> ssx:((c + 1) * cw + ssx) >> ssx]
+                if alpha is not None:
+                    _alpha_view(im)[...] = alpha[r * ch:(r + 1) * ch, c * cw:(c + 1) * cw]
+                    struct.pack_into("<I", (ctypes.c_uint8 * 4).from_address(im + 80), 0, int(premultiplied))
         fields = (ctypes.c_uint8 * 64).from_address(enc)
         defaults = struct.unpack_from("<iiiiQiIiiii", fields)
         assert defaults[1:4] == (1, -1, 0) and defaults[4] == 1 and defaults[7] == -1 and defaults[10] == 63, defaults
@@ -317,7 +346,11 @@ def encode_hbd(planes, depth: int, yuv_format: int, full: int = 1, alpha=None, p
         for key, value in {"enable-qm": 0, "deltaq-mode": 0, **(options or {})}.items():
             if lib.avifEncoderSetCodecSpecificOption(enc, key.encode(), str(value).encode()) != 0:
                 raise RuntimeError(f"avifEncoderSetCodecSpecificOption {key} failed")
-        rc = lib.avifEncoderAddImage(enc, im, 1, 2)  # AVIF_ADD_IMAGE_FLAG_SINGLE
+        flags = 2 if single else 0  # AVIF_ADD_IMAGE_FLAG_SINGLE, or none
+        if len(cells) == 1:
+            rc = lib.avifEncoderAddImage(enc, cells[0], 1, flags)
+        else:
+            rc = lib.avifEncoderAddImageGrid(enc, cols, rows, (ctypes.c_void_p * len(cells))(*cells), flags)
         if rc != 0 or lib.avifEncoderFinish(enc, ctypes.addressof(out)) != 0:
             raise RuntimeError(f"avifEncoder failed: {rc}")
         ptr, size = struct.unpack_from("<QQ", out)
@@ -326,4 +359,5 @@ def encode_hbd(planes, depth: int, yuv_format: int, full: int = 1, alpha=None, p
         return data
     finally:
         lib.avifEncoderDestroy(enc)
-        lib.avifImageDestroy(im)
+        for im in cells:
+            lib.avifImageDestroy(im)

@@ -1829,3 +1829,123 @@ def yuv_planes(rgb: np.ndarray, depth: int, yuv_format: int, full: int = 1, seed
 def yuv_photo(h: int, w: int, seed: int, depth: int, yuv_format: int, full: int = 1) -> list[np.ndarray]:
     """`photo` as `yuv_planes`, with noise in the bits below the eighth."""
     return yuv_planes(photo(h, w, seed), depth, yuv_format, full, seed)
+
+
+# ---- AVIF grid images -----------------------------------------------------------
+
+
+def _box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def _full_box(kind: bytes, version: int, body: bytes, flags: int = 0) -> bytes:
+    return _box(kind, bytes([version]) + flags.to_bytes(3, "big") + body)
+
+
+def image_grid(rows: int, cols: int, width: int, height: int, version: int = 0) -> bytes:
+    """An ImageGrid payload (HEIF 6.6.2.3): 16-bit output sizes where they
+    fit, 32-bit ones (flags & 1) otherwise."""
+    wide = width > 0xFFFF or height > 0xFFFF
+    size = struct.pack(">II" if wide else ">HH", width, height)
+    return bytes([version, int(wide), rows - 1, cols - 1]) + size
+
+
+def avif_grid(cells: list, rows: int, cols: int, width: int, height: int, cell_size: tuple, av1c: bytes,
+              depth: int = 8, channels: int = 3, colr: bytes | None = None, alpha=None, premultiplied: bool = False,
+              grid: bytes | None = None, dimg: list | None = None, cell_types=None) -> bytes:
+    """A grid AVIF (MIAF 7.3.11.4) written box by box: a `grid` primary item
+    whose payload is `grid` (image_grid(rows, cols, width, height) by
+    default) and whose `dimg` references are the cell items in `dimg` order
+    (the cells in row-major order by default; indices into `cells`, an
+    index past the end naming no item), each cell an `av01` item (or its
+    `cell_types` entry) holding that cell's OBUs, of `cell_size` (width,
+    height; or a list of one per cell) in `ispe`, sharing the `av1C` box `av1c`; `colr` (a whole
+    colr box) on the grid item. `alpha` = (cells, av1C box, grid payload
+    or None for a single av01 alpha item): an auxiliary item with the alpha
+    URN referencing the grid (`auxl`), its cells referenced likewise (of
+    the colour cells' size, or of a fourth entry's (width, height)), and a
+    `prem` reference from the colour to it where `premultiplied`."""
+    grid = image_grid(rows, cols, width, height) if grid is None else grid
+    types = [b"av01"] * len(cells) if cell_types is None else cell_types
+    refs = [(b"dimg", [len(cells) if i >= len(cells) else i for i in (range(len(cells)) if dimg is None else dimg)])]
+    sizes = cell_size if isinstance(cell_size, list) else [cell_size] * len(cells)
+    return _avif_file((b"grid", grid, (width, height)), [(t, c, z, av1c) for t, c, z in zip(types, cells, sizes)],
+                      refs, depth, channels, colr, alpha, premultiplied)
+
+
+def avif_still(obus: bytes, size: tuple, av1c: bytes, depth: int = 8, channels: int = 3,
+               colr: bytes | None = None, alpha=None, premultiplied: bool = False) -> bytes:
+    """A still AVIF of one av01 item holding `obus`, of `size` (width,
+    height) in `ispe`, with its `av1C` box and `colr`; `alpha` = (OBUs, av1C
+    box) an alpha item of the same size (`prem` where `premultiplied`)."""
+    if alpha is not None:
+        alpha = ([alpha[0]], alpha[1], None)
+    return _avif_file((b"av01", obus, size, av1c), [], [], depth, channels, colr, alpha, premultiplied)
+
+
+def _avif_file(primary: tuple, cells: list, cell_refs: list, depth: int, channels: int, colr, alpha,
+               premultiplied: bool) -> bytes:
+    """The boxes of a still AVIF: the primary item (type, payload, (width,
+    height)[, av1C box]) as item 1, then `cells` (type, payload, (width,
+    height), av1C box) as items 2.., `cell_refs` (type, [cell indices; one
+    past the end naming no item]) from the primary, and the alpha item(s)."""
+    props, assoc = [], {}
+
+    def prop(box: bytes) -> int:
+        if box not in props:
+            props.append(box)
+        return props.index(box) + 1
+
+    def ispe(size) -> bytes:
+        return _full_box(b"ispe", 0, struct.pack(">II", *size))
+    pixi = _full_box(b"pixi", 0, bytes([channels]) + bytes([depth] * channels))
+    pixi1 = _full_box(b"pixi", 0, bytes([1, depth]))
+    auxc = _full_box(b"auxC", 0, b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha\0")
+    items = [(primary[0], primary[1])]
+    assoc[1] = [prop(ispe(primary[2])), prop(pixi)] + ([0x80 | prop(primary[3])] if len(primary) > 3 else [])
+    assoc[1] += [prop(colr)] if colr else []
+    for kind, payload, size, av1c in cells:
+        items.append((kind, payload))
+        assoc[len(items)] = [prop(ispe(size)), prop(pixi), 0x80 | prop(av1c)]
+    refs = [(k, 1, [2 + i for i in to]) for k, to in cell_refs]
+    if alpha is not None:
+        a_cells, a_av1c, a_grid = alpha[:3]
+        first = len(items) + 1
+        if a_grid is None:
+            items.append((b"av01", a_cells[0]))
+            assoc[first] = [prop(ispe(primary[2])), prop(pixi1), 0x80 | prop(a_av1c), prop(auxc)]
+        else:
+            items.append((b"grid", a_grid))
+            assoc[first] = [prop(ispe(primary[2])), prop(pixi1), prop(auxc)]
+            size = alpha[3] if len(alpha) > 3 else cells[0][2]
+            for c in a_cells:
+                items.append((b"av01", c))
+                assoc[len(items)] = [prop(ispe(size)), prop(pixi1), 0x80 | prop(a_av1c)]
+            refs.append((b"dimg", first, list(range(first + 1, len(items) + 1))))
+        refs.append((b"auxl", first, [1]))
+        if premultiplied:
+            refs.append((b"prem", 1, [first]))
+    ftyp = _box(b"ftyp", b"avif" + bytes(4) + b"avifmif1miaf")
+    hdlr = _full_box(b"hdlr", 0, bytes(4) + b"pict" + bytes(12) + b"\0")
+    pitm = _full_box(b"pitm", 0, struct.pack(">H", 1))
+    infes = b"".join(_full_box(b"infe", 2, struct.pack(">HH", i + 1, 0) + kind + b"\0")
+                     for i, (kind, _) in enumerate(items))
+    iinf = _full_box(b"iinf", 0, struct.pack(">H", len(items)) + infes)
+    iref = _full_box(b"iref", 0, b"".join(_box(k, struct.pack(">HH", f, len(t)) + b"".join(struct.pack(">H", x)
+                                                                                        for x in t))
+                                          for k, f, t in refs)) if refs else b""
+    ipma = _full_box(b"ipma", 0, struct.pack(">I", len(assoc)) + b"".join(
+        struct.pack(">HB", i, len(a)) + bytes(a) for i, a in sorted(assoc.items())))
+    iprp = _box(b"iprp", _box(b"ipco", b"".join(props)) + ipma)
+
+    def meta(base: int) -> bytes:
+        body, at = b"", base
+        for i, (_, payload) in enumerate(items):
+            body += struct.pack(">HHHII", i + 1, 0, 1, at, len(payload))
+            at += len(payload)
+        iloc = _full_box(b"iloc", 0, bytes([0x44, 0x00]) + struct.pack(">H", len(items)) + body)
+        return _full_box(b"meta", 0, hdlr + pitm + iloc + iinf + iref + iprp)
+
+    head = ftyp + meta(0)
+    head = ftyp + meta(len(head) + 8)
+    return head + _box(b"mdat", b"".join(p for _, p in items))

@@ -1,5 +1,5 @@
 """Write optixpathtracer_tpu_torch/csrc/host/av1_tables.h: the AV1 default
-CDFs a key frame reads (the delta q and delta lf ones too), the quantizer
+CDFs a key frame reads (the delta q, delta lf and segment id ones too), the quantizer
 lookups at 8, 10 and 12 bits, the quantizer matrices and each transform
 size's offset into them, the directional derivatives, the smooth weights,
 the filter-intra taps, the transform rotation constants, the tables of CDEF
@@ -117,6 +117,7 @@ CDFS = [
     ("Default_Restoration_Type_Cdf", (), 3, (9413, 22581), 4, "dav1d"),
     ("Default_Use_Wiener_Cdf", (), 2, None, 2, "dav1d", ("Default_Restoration_Type_Cdf", 4, "raw")),
     ("Default_Use_Sgrproj_Cdf", (), 2, None, 2, "dav1d", ("Default_Restoration_Type_Cdf", 6, "raw")),
+    ("Default_Segment_Id_Cdf", (3,), 8, (5622, 7893, 16093, 18233), 8, "dav1d"),
 ]
 # too short to locate in the library: typed from the specification
 SPEC = {

@@ -15,14 +15,16 @@ then one small image for each other variant the port decodes. PIL writes what it
 (tests/torch_avif_oracle.py `encode_hbd`, so this script needs cv2 too);
 AVIF step 4's grain comes from aom's test vectors and its grain tables
 (`film-grain-table`), one still's clip_to_restricted_range from a header
-edit;
+edit; AVIF step 5's segmented stills, grids and matrices from OpenCV's
+libavif and libavif's own encoder, a grid muxed from cells and one
+cropped by an ImageGrid edit;
 tests/torch_codec_encoders.py
 writes the rest (arithmetic, lossless and YCCK JPEG, RLE BMP, colour-mapped
 TGA, GIF with an offset frame, PSD, RLE SGI, JPEG-in-TIFF, CUR, a WebP
 animation, BC6H, a VP8 frame with the simple filter and four partitions) and
 tests/torch_j2k_encoders.py the JPEG 2000 files PIL does not write (through
 OpenJPEG's own encoder, spliced JP2 boxes, PPT / PPM). The AVIF files the
-port refuses (a step-5 variant, and those PIL refuses) go to avif_raises/
+port refuses (a step-6 variant, and those PIL refuses) go to avif_raises/
 with expected.json. chip_smoke.py's `codecs_scene` decodes every fixture on a
 machine without PIL and holds it to the manifest; the CPU tests decode the
 committed files with PIL and hold the manifest to them.
@@ -61,7 +63,7 @@ LOSSY2 = {"loft_tex0.png": "loft_tex0.avif", "loft_tex1.png": "loft_tex1.avif", 
 LOSSY3 = {"loft_tex0.png": "loft_tex0_444_cdef.avif", "loft_tex1.png": "loft_tex1_rgba_prem_lr.avif",
           "loft_tex2.png": "loft_tex2_422.avif"}
 # AVIF files the port must refuse as PIL does or raise A.1 for (AVIF step
-# 3), beside the textures: name -> (exception class name, message pattern)
+# 6), beside the textures: name -> (exception class name, message pattern)
 AVIF_RAISES = os.path.join(HERE, "avif_raises")
 AVIF_RAISES_EXPECTED = os.path.join(AVIF_RAISES, "expected.json")
 
@@ -351,6 +353,7 @@ def _fixtures_avif(enc, pil, Image) -> dict[str, bytes]:
     out.update(_fixtures_avif_options(enc, pil, Image))
     out.update(_fixtures_avif_hbd(enc, Image))
     out.update(_fixtures_avif_tools(enc, pil, Image))
+    out.update(_fixtures_avif_step5(enc, pil, Image))
     return out
 
 
@@ -588,13 +591,150 @@ def _fixtures_avif_tools(enc, pil, Image) -> dict[str, bytes]:
     return out
 
 
+def _iloc(data: bytes) -> dict:
+    """item id -> (entry offset, data offset, length) of a PIL-written iloc
+    (version 0, 4-byte offsets and lengths, one extent each)."""
+    i = data.index(b"iloc") + 4
+    assert data[i] == 0 and data[i + 4:i + 6] == b"\x44\x00"
+    out, at = {}, i + 8
+    for _ in range(int.from_bytes(data[i + 6:i + 8], "big")):
+        out[int.from_bytes(data[at:at + 2], "big")] = (at, int.from_bytes(data[at + 6:at + 10], "big"),
+                                                       int.from_bytes(data[at + 10:at + 14], "big"))
+        at += 14
+    return out
+
+
+def avif_with_alpha_of(data: bytes, other: bytes) -> bytes:
+    """A PIL-written RGBA AVIF `data` with its alpha item's OBUs (item 2,
+    stored before the colour item's) replaced by `other`'s."""
+    (at2, off2, len2), (at1, off1, _) = _iloc(data)[2], _iloc(data)[1]
+    _, off, ln = _iloc(other)[2]
+    new = other[off:off + ln]
+    out = bytearray(data[:off2] + new + data[off2 + len2:])
+    out[at2 + 10:at2 + 14] = len(new).to_bytes(4, "big")
+    out[at1 + 6:at1 + 10] = (off1 + len(new) - len2).to_bytes(4, "big")
+    mdat = data.index(b"mdat") - 4
+    out[mdat:mdat + 4] = (int.from_bytes(data[mdat:mdat + 4], "big") + len(new) - len2).to_bytes(4, "big")
+    return bytes(out)
+
+
+def avif_frame_bit_flipped(data: bytes, bit: int) -> bytes:
+    """An AVIF with one bit of its (first) frame OBU's payload flipped, bit
+    0 the payload's first (show_existing_frame in a full frame header; bits
+    1-2 frame_type)."""
+    sys.path.insert(0, REPO)
+    from optixpathtracer_tpu_torch.io.codecs import av1_obu, avif
+
+    obus, _ = avif.parse(data)
+    for kind, payload in av1_obu.split_obus(obus):
+        if kind == av1_obu.OBU_FRAME:
+            at = data.index(payload)
+            edited = bytearray(payload)
+            edited[bit >> 3] ^= 0x80 >> (bit & 7)
+            return data[:at] + bytes(edited) + data[at + len(payload):]
+    raise ValueError("no frame OBU")
+
+
+def avif_parts(data: bytes):
+    """(the primary item's OBUs, its av1C box, its colr box or None) of a
+    one-item still."""
+    sys.path.insert(0, REPO)
+    from optixpathtracer_tpu_torch.io.codecs import avif
+
+    start = data.index(b"ipco") + 4
+    end = start - 8 + int.from_bytes(data[start - 8:start - 4], "big")
+    boxes = {kind: data[s - 8:e] for kind, s, e in avif._boxes(data, start, end)}
+    return avif.parse(data)[0], boxes[b"av1C"], boxes.get(b"colr")
+
+
+def avif_grid_edited(data: bytes, width: int, height: int) -> bytes:
+    """A grid AVIF from libavif's encoder (16-bit output sizes) with its
+    ImageGrid output size and the grid item's ispe both set to width x
+    height: the cells cropped."""
+    sys.path.insert(0, REPO)
+    from optixpathtracer_tpu_torch.io.codecs import avif
+
+    for kind, s, e in avif._boxes(data, 0, len(data)):
+        if kind == b"meta":
+            meta = avif._parse_meta(data, s, e)
+    assert meta.items[meta.primary] == b"grid"
+    (off, ln), = meta.locs[meta.primary][2]
+    assert ln == 8 and data[off + 1] & 1 == 0, "16-bit output sizes"
+    data = data[:off + 4] + width.to_bytes(2, "big") + height.to_bytes(2, "big") + data[off + 8:]
+    for i, _ in meta.assoc[meta.primary]:
+        kind, s, e = meta.props[i - 1]
+        if kind == b"ispe":
+            data = data[:s + 4] + width.to_bytes(4, "big") + height.to_bytes(4, "big") + data[s + 12:]
+    return data
+
+
+# PIL's messages for what libavif refuses
+REFORMAT_FAILED = "Conversion from YUV failed: Reformat failed"
+COLOR_FAILED = "Failed to decode frame 0: Decoding of color planes failed"
+INVALID_GRID = "Failed to decode image: Invalid image grid"
+
+
+def _fixtures_avif_step5(enc, pil, Image) -> dict[str, bytes]:
+    """AVIF step 5. Segmentation from aom's good-quality usage with variance
+    AQ (oracle.encode_hbd(single=False, options={"aq-mode": 1})): 8, 10 and
+    12 bits in 4:2:0, 4:4:4 and 4:0:0, with quantizer matrices and with
+    delta q on top, and an RGBA still whose colour and alpha items were each
+    encoded so (libavif writes no segmentation beside an alpha item or in a
+    grid: the two are muxed, tests/torch_codec_encoders.avif_still). Grids:
+    2 x 2 (the one avif_raises/ held as unported) and 1 x 3 from libavif's
+    own encoder (oracle.encode), a 10-bit 4:4:4 RGBA 2 x 2 from OpenCV's
+    (encode_hbd(grid=...)), and the 2 x 2 with its output size cropped to
+    120 x 100 by an ImageGrid edit. The matrices libavif converts without
+    libyuv: identity (0) in 4:4:4 at 8 and 12 bits, FCC (4), SMPTE 240 (7),
+    YCgCo (8) and chroma-derived NCL (12, on Display P3 primaries by a colr
+    edit, and on BT.2020's, which libavif hands to libyuv) in 4:2:0 and
+    4:2:2, two of them in limited range, and YCgCo-Re (16) at 10 bits."""
+    import torch_avif_oracle as oracle
+
+    hbd = oracle.encode_hbd
+    out = {}
+    aq = {"aq-mode": 1}
+    out["avif_seg_420.avif"] = hbd(enc.yuv_photo(96, 96, 100, 8, 3), 8, 3, quality=50, single=False, options=aq)
+    out["avif10_seg_444.avif"] = hbd(enc.yuv_photo(64, 80, 101, 10, 1), 10, 1, speed=4, quality=50, single=False,
+                                     options=aq)
+    out["avif12_seg_400.avif"] = hbd(enc.yuv_photo(80, 64, 102, 12, 4), 12, 4, quality=40, single=False, options=aq)
+    out["avif10_seg_qm_420.avif"] = hbd(enc.yuv_photo(96, 96, 103, 10, 3), 10, 3, quality=50, single=False,
+                                        options={**aq, "enable-qm": 1, "qm-min": 4, "qm-max": 10})
+    out["avif_seg_deltaq_128.avif"] = hbd(enc.yuv_photo(128, 128, 104, 8, 3), 8, 3, quality=70, single=False,
+                                          options={**aq, "deltaq-mode": 3})
+    colour = avif_parts(hbd(enc.yuv_photo(96, 96, 105, 8, 3), 8, 3, quality=50, single=False, options=aq))
+    alpha = avif_parts(hbd(enc.yuv_photo(96, 96, 106, 8, 4), 8, 4, quality=50, single=False, options=aq))
+    out["avif_seg_rgba.avif"] = enc.avif_still(colour[0], (96, 96), colour[1], colr=colour[2], channels=3,
+                                               alpha=alpha[:2])
+    grid = oracle.encode(enc.photo(64, 64, 11)[..., 0], (2, 2))
+    out["avif_grid.avif"] = grid
+    out["avif_grid_1x3.avif"] = oracle.encode(enc.photo(64, 64, 107)[..., 1], (1, 3))
+    out["avif10_grid_rgba_444.avif"] = hbd(enc.yuv_photo(128, 128, 108, 10, 1), 10, 1,
+                                           alpha=enc.yuv_photo(128, 128, 109, 10, 4)[0], grid=(2, 2))
+    out["avif_grid_cropped.avif"] = avif_grid_edited(grid, 120, 100)
+    out["avif_matrix0_444.avif"] = hbd(enc.yuv_photo(40, 48, 110, 8, 1), 8, 1, matrix=0)
+    out["avif12_matrix0_444.avif"] = hbd(enc.yuv_photo(40, 48, 111, 12, 1), 12, 1, matrix=0)
+    for matrix in (4, 7, 8, 12):
+        for fmt, tag in ((3, "420"), (2, "422")):
+            full = 0 if (matrix, fmt) in ((7, 2), (12, 2)) else 1
+            data = hbd(enc.yuv_photo(40, 48, 112 + matrix + fmt, 8, fmt, full), 8, fmt, matrix=matrix, full=full)
+            if matrix == 12:  # Display P3 (libavif derives kr / kb), BT.2020 (libyuv's constants)
+                data = avif_colr(data, 12 if fmt == 3 else 9, 13, 12, full)
+            out[f"avif_matrix{matrix}_{tag}{'' if full else '_limited'}.avif"] = data
+    out["avif10_matrix16_444.avif"] = hbd(enc.yuv_photo(40, 48, 130, 10, 1), 10, 1, matrix=16)
+    return out
+
+
 def avif_raises(enc, pil, Image) -> dict[str, tuple[bytes, str, str]]:
-    """AVIF files the port refuses: a step-5 variant PIL reads (a 2 x 2
-    grid from libavif's own encoder) raises NotImplementedError naming A.1;
-    the files PIL refuses (ROADMAP
-    C.14: a HEIF brand without avif, a primary item of type hvc1, a file
-    cut 40 bytes short) fail as PIL's do. -> name -> (bytes, exception
-    class name, message pattern)."""
+    """AVIF files the port refuses: a step-6 variant PIL reads (a
+    premultiplied alpha item of another size than the colour, which libavif
+    scales) raises NotImplementedError naming A.1; the files PIL refuses
+    fail as PIL's do (ROADMAP C.14: a HEIF brand without avif, a primary
+    item of type hvc1, a file cut 40 bytes short; C.16: identity on 4:2:0
+    and matrix 10, which libavif does not convert; C.17: a good-quality
+    still with show_existing_frame or an inter frame_type flipped in, no
+    frame before it; and a 2 x 2 grid with a cell missing). -> name ->
+    (bytes, exception class name, message pattern)."""
     import torch_avif_oracle as oracle
 
     base = pil(enc.photo(16, 16, 8), "AVIF")
@@ -603,13 +743,25 @@ def avif_raises(enc, pil, Image) -> dict[str, tuple[bytes, str, str]]:
     body = b"mif1" + bytes(4) + b"heicmif1miafMA1B"
     heic = (8 + len(body)).to_bytes(4, "big") + b"ftyp" + body + base[i - 4 + size:]
     j = base.index(b"av01")
+    rgba = Image.fromarray(enc.photo(40, 48, 10, 4), "RGBA")
+    other = pil(Image.fromarray(enc.photo(40, 32, 11, 4), "RGBA"), "AVIF", alpha_premultiplied=True)
+    good = oracle.encode_hbd(enc.yuv_photo(48, 64, 12, 8, 3), 8, 3, single=False)
+    cells = [avif_parts(pil(enc.photo(64, 64, 13 + k), "AVIF")) for k in range(3)]
     return {
-        "avif_grid.avif": (oracle.encode(enc.photo(64, 64, 11)[..., 0], (2, 2)), "NotImplementedError",
-                           "AVIF of grid images.*ROADMAP A.1"),
+        "avif_prem_alpha_other_size.avif": (
+            avif_with_alpha_of(pil(rgba, "AVIF", alpha_premultiplied=True), other), "NotImplementedError",
+            "AVIF of premultiplied alpha of another size.*ROADMAP A.1"),
         "avif_heic_brand.avif": (heic, "UnidentifiedImageError", "cannot identify image file"),
         "avif_hvc1_item.avif": (base[:j] + b"hvc1" + base[j + 4:], "DecodeError",
                                 "Failed to decode image: Missing or empty image item"),
         "avif_truncated.avif": (base[:-40], "DecodeError", "Failed to decode frame 0: Truncated data"),
+        "avif_identity_420.avif": (avif_colr(base, 1, 13, 0, 1), "DecodeError", REFORMAT_FAILED),
+        "avif_matrix10.avif": (avif_colr(pil(enc.photo(16, 16, 9), "AVIF", subsampling="4:4:4"), 9, 16, 10, 1),
+                               "DecodeError", REFORMAT_FAILED),
+        "avif_show_existing_frame.avif": (avif_frame_bit_flipped(good, 0), "DecodeError", COLOR_FAILED),
+        "avif_inter_frame.avif": (avif_frame_bit_flipped(good, 2), "DecodeError", COLOR_FAILED),
+        "avif_grid_missing_cell.avif": (enc.avif_grid([c[0] for c in cells], 2, 2, 128, 128, (64, 64), cells[0][1]),
+                                        "DecodeError", INVALID_GRID),
     }
 
 
