@@ -3188,6 +3188,35 @@ def _loft_frame(hs, device, counts=None):
     return img, (dict(counts) if counts is not None else {}), seconds
 
 
+def _avif_step6(data: bytes) -> dict:
+    """The AVIF step-6 variants an AVIF fixture uses, read from its boxes
+    and headers: superres, more than one frame in the item, a frame or an
+    alpha item of another size than its ispe (tkhd), limited-range
+    premultiplied alpha, and the track as its source."""
+    from optixpathtracer_tpu_torch.io.codecs import av1_obu, avif
+
+    image, _, alpha, premultiplied = avif._read(data)
+
+    def headers(obus):
+        seq, frames = None, []
+        for k, p in av1_obu.split_obus(obus):
+            if k == av1_obu.OBU_SEQUENCE_HEADER:
+                seq = av1_obu.sequence_header(p)
+            elif k in (av1_obu.OBU_FRAME, av1_obu.OBU_FRAME_HEADER):
+                frames.append(p)
+        return seq, av1_obu.frame_header(av1_obu.Bits(frames[0]), seq), len(frames)
+    seq, h, n = headers(image.cells[0])
+    scaled = image.grid is None and (h["upscaled_width"], h["height"]) != tuple(image.ispe)
+    limited = False
+    if alpha is not None and alpha.grid is None:
+        aseq, ah, _ = headers(alpha.cells[0])
+        scaled |= (ah["upscaled_width"], ah["height"]) != tuple(alpha.ispe)
+        limited = premultiplied and not aseq["color_range"]
+    tracks = avif.brands(data)[0] == b"avis" or all(k != b"meta" for k, _, _ in avif._boxes(data, 0, len(data)))
+    return {"superres": h["upscaled_width"] != h["width"], "frames": n > 1, "scaled": scaled,
+            "limited_alpha": limited, "tracks": tracks}
+
+
 def codecs_scene(dev, card, counts):
     """The port's own decoders of the texture formats beyond PNG and JPEG,
     on a machine without PIL: every fixture against tests/torch_fixtures/
@@ -3206,8 +3235,11 @@ def codecs_scene(dev, card, counts):
     quantizer matrices, delta q, delta lf; read from their frame headers),
     the same of the fixtures using each AVIF step-5 variant (AV1
     segmentation, a grid item, a matrix libavif converts without libyuv;
-    read from their headers), the refusals' count, and the 8-bit 1024 x
-    1024 one's. Returns the three lossless loft
+    read from their headers), the same of the fixtures using each AVIF
+    step-6 variant (superres, more than one frame in the item, a frame or
+    alpha scaled to its ispe, limited-range premultiplied alpha, a track
+    read as libavif reads it; _avif_step6), the refusals' count, and the
+    8-bit 1024 x 1024 one's. Returns the three lossless loft
     renders' launches and the two AVIF lofts'."""
     import hashlib
 
@@ -3220,7 +3252,7 @@ def codecs_scene(dev, card, counts):
     t_all = time.perf_counter()
     with open(os.path.join(CODEC_FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
-    decode_ms, bad, avif_depth, avif_tools = {}, [], {}, {}
+    decode_ms, bad, avif_depth, avif_tools, avif_step6 = {}, [], {}, {}, {}
     for name, entry in sorted(manifest.items()):
         with open(os.path.join(CODEC_FIXTURES, name), "rb") as f:
             data = f.read()
@@ -3239,6 +3271,7 @@ def codecs_scene(dev, card, counts):
                                 "delta_q": h["delta_q_present"], "delta_lf": h["delta_lf_present"],
                                 "segmentation": h["segmentation_enabled"], "grid": avif._read(data)[0].grid is not None,
                                 "own_matrix": avif_yuv.libyuv_matrix(matrix, primaries, seq["mono"]) is None}
+            avif_step6[name] = _avif_step6(data)
         t0 = time.perf_counter()
         rgb = rgb8_from_bytes(data)
         decode_ms[name] = (time.perf_counter() - t0) * 1e3
@@ -3264,6 +3297,8 @@ def codecs_scene(dev, card, counts):
                for tool in ("grain", "qm", "delta_q", "delta_lf")}
     step5_ms = {variant: [ms for n, ms in avif_ms.items() if avif_tools[n][variant]]
                 for variant in ("segmentation", "grid", "own_matrix")}
+    step6_ms = {variant: [ms for n, ms in avif_ms.items() if avif_step6[n][variant]]
+                for variant in ("superres", "frames", "scaled", "limited_alpha", "tracks")}
     scenes_by_kind, t_load = {}, {}
     for kind, names in (("png", {png: png for png in CODEC_LOSSLESS}), ("lossless", CODEC_LOSSLESS),
                         ("lossless2", CODEC_LOSSLESS2), ("lossless3", CODEC_LOSSLESS3), ("lossy", CODEC_LOSSY),
@@ -3296,6 +3331,9 @@ def codecs_scene(dev, card, counts):
          avif_step5_fixtures={t: len(v) for t, v in step5_ms.items()},
          avif_step5_decode_ms_total={t: sum(v) for t, v in step5_ms.items()},
          avif_step5_decode_ms_max={t: max(v, default=0.0) for t, v in step5_ms.items()},
+         avif_step6_fixtures={t: len(v) for t, v in step6_ms.items()},
+         avif_step6_decode_ms_total={t: sum(v) for t, v in step6_ms.items()},
+         avif_step6_decode_ms_max={t: max(v, default=0.0) for t, v in step6_ms.items()},
          avif_1024_decode_ms=decode_ms.get("avif_1024_tiles.avif"), avif_refused=len(avif_raises),
          avif_refused_wrongly=refused_wrongly, load_obj_s=t_load, loft_textures_equal_png=equal_textures,
          lossless_frame_equals_png_frame=card_eq, lossy_rmse_card_vs_cpu=rmse["lossy"],

@@ -10,9 +10,12 @@
 // features, the dequantiser with its quantizer matrices, the inverse
 // transforms and the lossless WHT, the loop-restoration coefficients), then
 // runs the frame's filters in the specification's order: deblocking (7.14,
-// each block at its own level with delta lf and its segment's), CDEF (7.15)
-// and loop restoration (7.17), adds film grain (7.18.3) where the frame
-// applies it, and returns each plane cropped to its size.
+// each block at its own level with delta lf and its segment's), CDEF (7.15),
+// superres upscaling (7.16) where the frame is downscaled, and loop
+// restoration (7.17) on the upscaled frame, adds film grain (7.18.3) where
+// the frame applies it, and returns each plane cropped to its size. A
+// tile whose symbol decoder reads too far past its data fails the frame,
+// as dav1d's overread check fails it.
 //
 // Names follow the specification (section 5.11 syntax, 7.10-7.18 decoding
 // processes); the inverse DCT / ADST are the butterfly networks the
@@ -25,7 +28,7 @@
 // parameters. Where the specification and dav1d part (segment ids past
 // the last active segment), this file follows dav1d, which PIL's libavif
 // decodes with. Not handled here (the Python side raises before calling):
-// superres.
+// inter frames (AVIF step 7).
 //
 // Build: g++ -O2 -shared -fPIC (utils/host_build.py).
 #include <stdint.h>
@@ -59,6 +62,7 @@ enum { TX_CLASS_2D, TX_CLASS_HORIZ, TX_CLASS_VERT };
 enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
 enum { SEG_LVL_ALT_Q, SEG_LVL_ALT_LF_Y_V, SEG_LVL_REF_FRAME = 5, SEG_LVL_SKIP, SEG_LVL_GLOBALMV, SEG_LVL_MAX };
 const int MAX_SEGMENTS = 8;
+const int OVERREAD_BITS = 15;
 
 const int Mi_Width_Log2[22] = {0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4, 4, 5, 5, 0, 2, 1, 3, 2, 4};
 const int Mi_Height_Log2[22] = {0, 1, 0, 1, 2, 1, 2, 3, 2, 3, 4, 3, 4, 5, 4, 5, 2, 0, 3, 1, 4, 2};
@@ -606,6 +610,9 @@ struct Params {
   // feature is enabled (the specification's 0)
   int segmentation_enabled, SegIdPreSkip, LastActiveSegId, FeatureEnabled[MAX_SEGMENTS][SEG_LVL_MAX],
       FeatureData[MAX_SEGMENTS][SEG_LVL_MAX];
+  // superres_params (5.9.8): FrameWidth above is the downscaled width;
+  // SuperresDenom 8 where superres is off (UpscaledWidth == FrameWidth)
+  int UpscaledWidth, SuperresDenom;
 };
 
 template <typename pixel>
@@ -2375,8 +2382,10 @@ struct Decoder {
       int unitRows = LrUnitRows[plane], unitCols = LrUnitCols[plane];
       int unitRowStart = (r * (4 >> sy) + unitSize - 1) / unitSize;
       int unitRowEnd = imin(unitRows, ((r + h) * (4 >> sy) + unitSize - 1) / unitSize);
-      int unitColStart = (c * (4 >> sx) + unitSize - 1) / unitSize;
-      int unitColEnd = imin(unitCols, ((c + w) * (4 >> sx) + unitSize - 1) / unitSize);
+      // columns map through the upscaling: units lie on the upscaled width
+      int numerator = (4 >> sx) * P.SuperresDenom, denominator = unitSize * 8;
+      int unitColStart = (c * numerator + denominator - 1) / denominator;
+      int unitColEnd = imin(unitCols, ((c + w) * numerator + denominator - 1) / denominator);
       for (int unitRow = unitRowStart; unitRow < unitRowEnd; unitRow++)
         for (int unitCol = unitColStart; unitCol < unitColEnd; unitCol++) read_lr_unit(plane, unitRow, unitCol);
     }
@@ -2548,6 +2557,39 @@ struct Decoder {
       }
   }
 
+  // -------------------------------------------------------------- superres
+  // 7.16: each row of each plane upscaled from the downscaled width to the
+  // upscaled one by 8-tap filters at 1/64 phases, stepping in 1/16384
+  // units; the source is read up to the padded width (MiCols * 4 luma
+  // samples), clamped there and at 0
+  Frame<pixel> upscaled(Frame<pixel>& src) {
+    Frame<pixel> dst;
+    int padW = ((P.UpscaledWidth + 7) & ~7) + 256;
+    for (int p = 0; p < P.NumPlanes; p++) {
+      int sx = ssx(p);
+      int downW = round2(P.FrameWidth, sx), upW = round2(P.UpscaledWidth, sx);
+      int stepX = ((downW << 14) + (upW / 2)) / upW;
+      int err = upW * stepX - (downW << 14);
+      int x0 = (-((upW - downW) << 13) + upW / 2) / upW + (1 << 7) - err / 2;
+      x0 &= (1 << 14) - 1;
+      int maxX = ((MiCols >> sx) << 2) - 1;
+      dst.stride[p] = padW >> sx;
+      dst.ph[p] = src.ph[p];
+      dst.p[p].assign((size_t)dst.stride[p] * dst.ph[p], 0);
+      for (int y = 0; y < src.ph[p]; y++) {
+        pixel* row = src.at(p, y, 0);
+        for (int x = 0; x < upW; x++) {
+          int xPos = x0 + x * stepX;
+          const int16_t* f = Upscale_Filter[(xPos & ((1 << 14) - 1)) >> 8];
+          int sum = 0;
+          for (int k = 0; k < 8; k++) sum += f[k] * row[clip3(0, maxX, (xPos >> 14) + k - 4)];
+          *dst.at(p, y, x) = clip1(round2(sum, 7));
+        }
+      }
+    }
+    return dst;
+  }
+
   // ------------------------------------------------------ loop restoration
   // 7.17: each 4x4 (luma) unit of the frame through its restoration unit's
   // Wiener or self-guided filter; the input is the CDEF output (F), but rows
@@ -2562,7 +2604,7 @@ struct Decoder {
     if (!any) return;
     lr = F;
     for (int y = 0; y < P.FrameHeight; y += 4)
-      for (int x = 0; x < P.FrameWidth; x += 4)
+      for (int x = 0; x < P.UpscaledWidth; x += 4)
         for (int plane = 0; plane < P.NumPlanes; plane++)
           if (P.FrameRestorationType[plane] != RESTORE_NONE) loop_restore_block(plane, y >> 2, x >> 2);
     std::swap(F, lr);
@@ -2577,7 +2619,7 @@ struct Decoder {
     int unitSize = P.LoopRestorationSize[plane];
     int unitRow = imin(LrUnitRows[plane] - 1, ((row * 4 + 8) >> subY) / unitSize);
     int unitCol = imin(LrUnitCols[plane] - 1, ((col * 4) >> subX) / unitSize);
-    PlaneEndX = round2(P.FrameWidth, subX) - 1;
+    PlaneEndX = round2(P.UpscaledWidth, subX) - 1;
     PlaneEndY = round2(P.FrameHeight, subY) - 1;
     int x = (col * 4) >> subX, y = (row * 4) >> subY;
     int w = imin(4 >> subX, PlaneEndX - x + 1), h = imin(4 >> subY, PlaneEndY - y + 1);
@@ -2784,7 +2826,7 @@ struct Decoder {
 
   void film_grain() {
     if (!P.apply_grain) return;
-    int w = P.FrameWidth, h = P.FrameHeight, subX = P.subsampling_x, subY = P.subsampling_y;
+    int w = P.UpscaledWidth, h = P.FrameHeight, subX = P.subsampling_x, subY = P.subsampling_y;
     int grainCenter = 128 << (BitDepth - 8), grainMin = -grainCenter;
     int grainMax = (256 << (BitDepth - 8)) - 1 - grainCenter;
     generate_grain(grainMin, grainMax);
@@ -2940,6 +2982,13 @@ struct Decoder {
         decode_partition(r, c, sbSize);
         if (failed) return;
       }
+      // dav1d fails the frame once its symbol decoder has read too far past
+      // the tile's data at the end of a superblock row: 15 bits or more in
+      // SymbolMaxBits, pinned on tiles cut a byte at a time against PIL
+      if (sd.max_bits <= -OVERREAD_BITS) {
+        fail("symbol decoder overread");
+        return;
+      }
     }
   }
 
@@ -2990,7 +3039,7 @@ struct Decoder {
       if (P.FrameRestorationType[p] == RESTORE_NONE) continue;
       int unitSize = P.LoopRestorationSize[p];
       LrUnitRows[p] = count_units_in_frame(unitSize, round2(P.FrameHeight, ssy(p)));
-      LrUnitCols[p] = count_units_in_frame(unitSize, round2(P.FrameWidth, ssx(p)));
+      LrUnitCols[p] = count_units_in_frame(unitSize, round2(P.UpscaledWidth, ssx(p)));
       size_t n = (size_t)LrUnitRows[p] * LrUnitCols[p];
       LrType[p].assign(n, RESTORE_NONE);
       LrSgrSet[p].assign(n, 0);
@@ -3008,16 +3057,18 @@ struct Decoder {
       decode_tile(data + tiles[2 * t], tiles[2 * t + 1]);
     }
     if (failed) return 1;
-    if (!P.allow_intrabc && !CodedLossless) {
-      loop_filter();
-      deblocked = F;  // CDEF's input, and loop restoration's outside its stripe
-      cdef();
-      loop_restoration();
+    if (!P.allow_intrabc && !CodedLossless) loop_filter();
+    deblocked = F;  // CDEF's input, and loop restoration's outside its stripe
+    if (!P.allow_intrabc && !CodedLossless) cdef();
+    if (P.UpscaledWidth != P.FrameWidth) {
+      F = upscaled(F);
+      deblocked = upscaled(deblocked);
     }
+    if (!P.allow_intrabc) loop_restoration();  // none where the header read AllLossless
     film_grain();
     pixel* out[3] = {oy, ou, ov};
     for (int p = 0; p < P.NumPlanes; p++) {
-      int pw = (P.FrameWidth + ssx(p)) >> ssx(p), ph = (P.FrameHeight + ssy(p)) >> ssy(p);
+      int pw = (P.UpscaledWidth + ssx(p)) >> ssx(p), ph = (P.FrameHeight + ssy(p)) >> ssy(p);
       for (int y = 0; y < ph; y++) memcpy(out[p] + (size_t)y * pw, F.at(p, y, 0), pw * sizeof(pixel));
     }
     return 0;

@@ -6,19 +6,32 @@ tile groups' tile offsets and sizes, then the tile decode in C++
 
 `decode(obus)` takes the OBUs of an AVIF item (`[TD], SEQ, FRAME` as aom
 writes them, or a frame header and tile groups) and returns the Y / U / V
-planes of the frame (4:2:0, 4:2:2, 4:4:4; U and V None for a monochrome
-frame; uint8 at 8 bits, uint16 at 10 and 12: profiles 0-2) and the
-sequence header; the frame's quantizer matrix levels, delta q / delta lf,
-segmentation, CDEF, loop restoration and film grain parameters go to the
-native decoder with the rest (film grain is applied there, after loop
-restoration, as dav1d applies it). An item's first frame that is a
-show_existing_frame or an inter frame has nothing before it to refer to:
-dav1d fails it, and so does the port, with PIL's message (ROADMAP C.17).
-Tile list OBUs are skipped, as dav1d skips them. What the port does not
-decode yet raises NotImplementedError naming the tool and ROADMAP A.1
-(AVIF step 6): superres, and a second frame in an item (a valid
-show_existing_frame or inter frame after a key frame). There is no Python
-tile decoder: under OPTIX_TPU_NO_NATIVE=1 the decode raises naming the
+planes of the first frame it shows (4:2:0, 4:2:2, 4:4:4; U and V None for
+a monochrome frame; uint8 at 8 bits, uint16 at 10 and 12: profiles 0-2)
+and the sequence header; the frame's quantizer matrix levels, delta q /
+delta lf, segmentation, CDEF, superres, loop restoration and film grain
+parameters go to the native decoder with the rest (superres upscales after
+CDEF, film grain is applied after loop restoration, as dav1d applies it).
+
+libavif hands the item to dav1d and keeps the first picture dav1d outputs,
+and dav1d parses the OBUs one at a time and stops at that picture: so does
+the port, and what follows the first shown frame is never read. Frames
+before it that are not shown (a hidden key frame, an intra-only frame) are
+decoded into the reference slots their refresh_frame_flags name; a
+show_existing_frame outputs its slot's frame, with the grain that frame
+carries (load_grain_params), and fails where the slot is empty (ROADMAP
+C.17), as does an inter frame that refers to an empty slot. Tile list OBUs
+are skipped, as dav1d skips them.
+
+Every failure inside the AV1 stream (an OBU or header read past its data,
+a tile size past its tile group, tile groups out of order, the symbol
+decoder's overread that dav1d checks at the end of each superblock row,
+no frame shown) is dav1d's, and libavif reports each as "Decoding of color
+planes failed" (ROADMAP C.19); avif.py turns it into its alpha message for
+the alpha item. What the port does not decode yet raises
+NotImplementedError naming ROADMAP A.1 (AVIF step 7): an AV1 inter frame
+shown first, which needs inter prediction. There is no Python tile
+decoder: under OPTIX_TPU_NO_NATIVE=1 the decode raises naming the
 switch."""
 from __future__ import annotations
 
@@ -31,7 +44,10 @@ from ._common import DecodeError, unported
 
 OBU_SEQUENCE_HEADER, OBU_TEMPORAL_DELIMITER, OBU_FRAME_HEADER, OBU_TILE_GROUP = 1, 2, 3, 4
 OBU_FRAME = 6  # the others (metadata, padding, tile lists, ...) are skipped, as dav1d skips them
-KEY_FRAME, INTRA_ONLY_FRAME = 0, 2
+KEY_FRAME, INTER_FRAME, INTRA_ONLY_FRAME, SWITCH_FRAME = 0, 1, 2, 3
+NUM_REF_FRAMES, REFS_PER_FRAME = 8, 7
+# libavif's message for every failure dav1d reports, as PIL raises it
+COLOR_FAILED = "Failed to decode frame 0: Decoding of color planes failed"
 RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE = 0, 1, 2, 3
 REMAP_LR_TYPE = (RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER, RESTORE_SGRPROJ)
 SELECT = 2  # SELECT_SCREEN_CONTENT_TOOLS / SELECT_INTEGER_MV
@@ -50,7 +66,7 @@ def unsupported(what: str) -> NotImplementedError:
 
 class Bits:
     """An MSB-first bit reader over bytes (the spec's f(n), su, ns, leb128,
-    uvlc); reading past the end raises DecodeError."""
+    uvlc); reading past the end fails as dav1d fails it."""
 
     def __init__(self, data: bytes, pos: int = 0):
         self.data = data
@@ -61,7 +77,7 @@ class Bits:
         for _ in range(n):
             byte = self.bit >> 3
             if byte >= len(self.data):
-                raise DecodeError("Failed to decode frame 0: Truncated data")
+                raise DecodeError(COLOR_FAILED)
             x = (x << 1) | (self.data[byte] >> (7 - (self.bit & 7))) & 1
             self.bit += 1
         return x
@@ -96,7 +112,7 @@ def leb128(data: bytes, pos: int) -> tuple[int, int]:
     value = 0
     for i in range(8):
         if pos >= len(data):
-            raise DecodeError("Failed to decode frame 0: Truncated data")
+            raise DecodeError(COLOR_FAILED)
         b = data[pos]
         pos += 1
         value |= (b & 0x7F) << (7 * i)
@@ -105,14 +121,14 @@ def leb128(data: bytes, pos: int) -> tuple[int, int]:
     return value, pos
 
 
-def split_obus(data: bytes) -> list[tuple[int, bytes]]:
-    """(obu_type, payload) of each OBU; every OBU of an AVIF item carries
-    its size (obu_has_size_field)."""
-    out, pos = [], 0
+def obus(data: bytes):
+    """(obu_type, payload) of each OBU, read one at a time as dav1d reads
+    them (an OBU without obu_has_size_field runs to the end)."""
+    pos = 0
     while pos < len(data):
         h = data[pos]
-        if h & 0x80:
-            raise DecodeError("Failed to decode frame 0: forbidden bit set in an OBU header")
+        if h & 0x80:  # obu_forbidden_bit
+            raise DecodeError(COLOR_FAILED)
         kind, ext, has_size = (h >> 3) & 15, (h >> 2) & 1, (h >> 1) & 1
         pos += 1 + ext
         if has_size:
@@ -120,14 +136,19 @@ def split_obus(data: bytes) -> list[tuple[int, bytes]]:
         else:
             size = len(data) - pos
         if pos + size > len(data):
-            raise DecodeError("Failed to decode frame 0: Truncated data")
-        out.append((kind, data[pos:pos + size]))
+            raise DecodeError(COLOR_FAILED)
+        yield kind, data[pos:pos + size]
         pos += size
-    return out
 
 
-def sequence_header(payload: bytes) -> dict:
-    b = Bits(payload)
+def split_obus(data: bytes) -> list[tuple[int, bytes]]:
+    """(obu_type, payload) of every OBU."""
+    return list(obus(data))
+
+
+def sequence_header(payload) -> dict:
+    """A sequence header OBU's payload (bytes, or a Bits at its start)."""
+    b = payload if isinstance(payload, Bits) else Bits(payload)
     s = {"profile": b.f(3), "still_picture": b.f(1), "reduced": b.f(1)}
     s["decoder_model_info_present"] = 0
     s["equal_picture_interval"] = 0
@@ -240,7 +261,7 @@ def sequence_header(payload: bytes) -> dict:
 def check_sequence(s: dict) -> None:
     """Raise for a profile above 2 (reserved), as dav1d fails it."""
     if s["profile"] > 2:
-        raise DecodeError(f"Failed to decode frame 0: AV1 profile {s['profile']}")
+        raise DecodeError(COLOR_FAILED)
 
 
 def _tile_log2(blk: int, target: int) -> int:
@@ -250,26 +271,36 @@ def _tile_log2(blk: int, target: int) -> int:
     return k
 
 
-def frame_header(b: Bits, s: dict) -> dict:
+def frame_header(b: Bits, s: dict, slots: list | None = None) -> dict:
     """The uncompressed header of a key or intra-only frame; b stops at its
-    last bit."""
-    h = {}
+    last bit. `slots` are the reference slots filled so far in the item
+    (None where empty): a show_existing_frame returns only
+    {"show_existing_frame": 1, "frame_to_show": slot}, and fails on an
+    empty slot; an inter or switch frame fails where a slot it refers to is
+    empty, and its header is read no further (decode raises A.1 for it:
+    AVIF step 7)."""
+    slots = [None] * NUM_REF_FRAMES if slots is None else slots
+    h = {"show_existing_frame": 0}
     if s["reduced"]:
         frame_type, show_frame, showable = KEY_FRAME, 1, 0
         error_resilient = 1
     else:
-        if b.f(1):
-            # a valid one shows a frame decoded before it; this is an
-            # item's first frame, so its slot is empty and dav1d fails it
-            raise DecodeError(GRAIN_POINTS)
+        if b.f(1):  # show_existing_frame
+            slot = b.f(3)
+            if s["decoder_model_info_present"] and not s["equal_picture_interval"]:
+                b.f(s["frame_presentation_time_length"])
+            if slots[slot] is None:
+                raise DecodeError(COLOR_FAILED)  # no frame fills the slot: dav1d fails it (C.17)
+            return {"show_existing_frame": 1, "frame_to_show": slot}
         frame_type = b.f(2)
-        if frame_type not in (KEY_FRAME, INTRA_ONLY_FRAME):
-            raise DecodeError(GRAIN_POINTS)  # an inter frame with no key frame before it in the item
         show_frame = b.f(1)
         if show_frame and s["decoder_model_info_present"] and not s["equal_picture_interval"]:
             b.f(s["frame_presentation_time_length"])
         showable = frame_type != KEY_FRAME if show_frame else b.f(1)
-        error_resilient = 1 if frame_type == KEY_FRAME and show_frame else b.f(1)
+        error_resilient = 1 if frame_type == SWITCH_FRAME or (frame_type == KEY_FRAME and show_frame) else b.f(1)
+    intra = frame_type in (KEY_FRAME, INTRA_ONLY_FRAME)
+    if not intra and all(slot is None for slot in slots):
+        raise DecodeError(COLOR_FAILED)  # an inter frame with no frame before it in the item (C.17)
     h["frame_type"], h["show_frame"], h["showable"] = frame_type, show_frame, showable
     h["disable_cdf_update"] = b.f(1)
     sct = b.f(1) if s["force_screen_content_tools"] == SELECT else s["force_screen_content_tools"]
@@ -278,8 +309,10 @@ def frame_header(b: Bits, s: dict) -> dict:
         b.f(1)  # force_integer_mv, 1 for intra frames whatever it says
     if s["frame_id_numbers_present"]:
         b.f(s["frame_id_length"])
-    frame_size_override = 0 if s["reduced"] else b.f(1)
+    frame_size_override = 0 if s["reduced"] else 1 if frame_type == SWITCH_FRAME else b.f(1)
     b.f(s["order_hint_bits"])
+    if not (intra or error_resilient):
+        b.f(3)  # primary_ref_frame
     if s["decoder_model_info_present"]:
         if b.f(1):  # buffer_removal_time_present_flag
             for op, present in enumerate(s["decoder_model_present_for_op"]):
@@ -287,24 +320,28 @@ def frame_header(b: Bits, s: dict) -> dict:
                     idc = s["operating_point_idc"][op]
                     if idc == 0 or (idc & 1 and idc >> 8 & 1):
                         b.f(s["buffer_removal_time_length"])
-    refresh = 0xFF if frame_type == KEY_FRAME and show_frame else b.f(8)
-    if frame_type == INTRA_ONLY_FRAME and refresh == 0xFF:
-        raise DecodeError("Failed to decode frame 0: intra-only frame refreshing every slot")
-    if refresh != 0xFF and error_resilient and s["order_hint_bits"]:
-        for _ in range(8):
+    refresh = 0xFF if frame_type == SWITCH_FRAME or (frame_type == KEY_FRAME and show_frame) else b.f(8)
+    h["refresh_frame_flags"] = refresh
+    if (not intra or refresh != 0xFF) and error_resilient and s["order_hint_bits"]:
+        for _ in range(NUM_REF_FRAMES):
             b.f(s["order_hint_bits"])
+    if not intra:
+        _inter_refs(b, s, slots)
+        return h
     # frame_size, superres_params, render_size
     if frame_size_override:
         h["width"] = b.f(s["frame_width_bits"]) + 1
         h["height"] = b.f(s["frame_height_bits"]) + 1
     else:
         h["width"], h["height"] = s["max_width"], s["max_height"]
-    if s["enable_superres"] and b.f(1):
-        raise unsupported("AV1 superres")
+    h["upscaled_width"], h["superres_denom"] = h["width"], 8
+    if s["enable_superres"] and b.f(1):  # use_superres
+        denom = h["superres_denom"] = b.f(3) + 9
+        h["width"] = max((h["upscaled_width"] * 8 + denom // 2) // denom, min(16, h["upscaled_width"]))
     if b.f(1):  # render_and_frame_size_different
         b.f(16)
         b.f(16)
-    h["allow_intrabc"] = b.f(1) if sct else 0
+    h["allow_intrabc"] = b.f(1) if sct and h["upscaled_width"] == h["width"] else 0
     # disable_frame_end_update_cdf
     if not (s["reduced"] or h["disable_cdf_update"]):
         b.f(1)
@@ -372,7 +409,8 @@ def frame_header(b: Bits, s: dict) -> dict:
                 h["cdef_strengths"][k][i] = 4 if k % 2 and v == 3 else v
     # lr_params
     h["lr_type"], h["lr_size"] = [RESTORE_NONE] * 3, [0] * 3
-    if not (coded_lossless or h["allow_intrabc"]) and s["enable_restoration"]:
+    all_lossless = coded_lossless and h["upscaled_width"] == h["width"]
+    if not (all_lossless or h["allow_intrabc"]) and s["enable_restoration"]:
         planes = 1 if s["mono"] else 3
         h["lr_type"][:planes] = [REMAP_LR_TYPE[b.f(2)] for _ in range(planes)]
         if any(h["lr_type"]):
@@ -392,8 +430,22 @@ def frame_header(b: Bits, s: dict) -> dict:
     return h
 
 
-# dav1d refuses the frame header; libavif's message, as PIL reports it
-GRAIN_POINTS = "Failed to decode frame 0: Decoding of color planes failed"
+GRAIN_POINTS = COLOR_FAILED  # scaling points dav1d refuses
+
+
+def _inter_refs(b: Bits, s: dict, slots: list) -> None:
+    """The reference slots of an inter or switch frame (5.9.2, up to
+    ref_frame_idx): an empty one fails the frame as dav1d fails it."""
+    if s["order_hint_bits"] and b.f(1):  # frame_refs_short_signaling: LAST and GOLDEN named
+        refs = [b.f(3), b.f(3)]
+    else:
+        refs = []
+        for _ in range(REFS_PER_FRAME):
+            refs.append(b.f(3))
+            if s["frame_id_numbers_present"]:
+                b.f(s["delta_frame_id_length"])
+    if any(slots[i] is None for i in refs):
+        raise DecodeError(COLOR_FAILED)
 
 
 def film_grain_params(b: Bits, s: dict, h: dict) -> dict:
@@ -536,19 +588,19 @@ def tile_group(payload: bytes, pos: int, h: dict, tiles: list) -> None:
         start, end = b.f(bits), b.f(bits)
     b.byte_align()
     at = b.pos
-    if start != len(tiles):
-        raise DecodeError("Failed to decode frame 0: tile groups out of order")
+    if start != len(tiles) or end < start or end >= num_tiles:
+        raise DecodeError(COLOR_FAILED)  # tile groups out of order
     for t in range(start, end + 1):
         if t == end:
             size = len(payload) - at
         else:
             n = h["tile_size_bytes"]
             if at + n > len(payload):
-                raise DecodeError("Failed to decode frame 0: Truncated data")
+                raise DecodeError(COLOR_FAILED)
             size = int.from_bytes(payload[at:at + n], "little") + 1
             at += n
         if size <= 0 or at + size > len(payload):
-            raise DecodeError("Failed to decode frame 0: Truncated data")
+            raise DecodeError(COLOR_FAILED)  # a tile past its tile group
         tiles.append((payload, at, size))
         at += size
 
@@ -587,6 +639,7 @@ def _params(s: dict, h: dict) -> np.ndarray:
     vals += [s["color"][2]] + _grain_params(h["grain"])
     vals += [h["segmentation_enabled"], h["seg_id_pre_skip"], h["last_active_seg_id"],
              *sum(h["seg_feature_enabled"], []), *sum(h["seg_feature_data"], [])]
+    vals += [h["upscaled_width"], h["superres_denom"]]
     return np.array(vals, np.int32)
 
 
@@ -616,36 +669,61 @@ def _grain_params(g: dict) -> list:
 
 
 def decode(data: bytes):
-    """The OBUs of one AV1 still -> (Y (H, W), U, V ((H + ssy) >> ssy,
-    (W + ssx) >> ssx), uint8 at 8 bits and uint16 at 10 and 12, or None for
-    a monochrome frame; the sequence header)."""
-    seq, hdr, first, tiles = None, None, None, []
-    for kind, payload in split_obus(data):
+    """The OBUs of an AV1 item -> the first frame dav1d shows: (Y (H, W),
+    U, V ((H + ssy) >> ssy, (W + ssx) >> ssx), uint8 at 8 bits and uint16
+    at 10 and 12, or None for a monochrome frame; the sequence header). W
+    is the upscaled width under superres. Every frame of the item is
+    decoded, as dav1d decodes them, so that a failure after the shown
+    frame fails the item too."""
+    seq, cur, shown, slots = None, None, None, [None] * NUM_REF_FRAMES
+    for kind, payload in obus(data):
         if kind == OBU_SEQUENCE_HEADER:
             seq = sequence_header(payload)
             check_sequence(seq)
         elif kind in (OBU_FRAME_HEADER, OBU_FRAME):
-            if hdr is not None:
-                if kind == OBU_FRAME or payload != first:
-                    raise unsupported("a second AV1 frame in an item (show_existing_frame or an inter frame)")
-                continue  # a copy of the frame header
+            if cur is not None:
+                if kind == OBU_FRAME_HEADER and payload == cur[0]:
+                    continue  # a copy of the frame header
+                raise DecodeError(COLOR_FAILED)  # a new frame before the last one's tiles
             if seq is None:
-                raise DecodeError("Failed to decode frame 0: frame before a sequence header")
-            first = payload
+                raise DecodeError(COLOR_FAILED)  # a frame before a sequence header
             b = Bits(payload)
-            hdr = frame_header(b, seq)
+            hdr = frame_header(b, seq, slots)
+            if hdr["show_existing_frame"]:
+                frame = slots[hdr["frame_to_show"]]
+                shown = frame if shown is None else shown
+                if frame[3] == KEY_FRAME:  # showing a key frame refreshes every slot
+                    slots = [frame] * NUM_REF_FRAMES
+                continue
+            if hdr["frame_type"] not in (KEY_FRAME, INTRA_ONLY_FRAME):
+                raise unsupported("an AV1 inter frame shown first" if shown is None
+                                  else "an AV1 inter frame after the frame shown")
+            cur = (payload, hdr, [])
             if kind == OBU_FRAME:
                 b.byte_align()
-                tile_group(payload, b.pos, hdr, tiles)
+                tile_group(payload, b.pos, hdr, cur[2])
         elif kind == OBU_TILE_GROUP:
-            if hdr is None:
-                raise DecodeError("Failed to decode frame 0: tile group before a frame header")
-            tile_group(payload, 0, hdr, tiles)
-    if seq is None or hdr is None:
-        raise DecodeError("Failed to decode frame 0: no frame")
-    n_tiles = (len(hdr["mi_col_starts"]) - 1) * (len(hdr["mi_row_starts"]) - 1)
-    if len(tiles) != n_tiles:
-        raise DecodeError("Failed to decode frame 0: Truncated data")
+            if cur is None:
+                raise DecodeError(COLOR_FAILED)  # a tile group before a frame header
+            tile_group(payload, 0, cur[1], cur[2])
+        if cur is not None and len(cur[2]) == (len(cur[1]["mi_col_starts"]) - 1) * (len(cur[1]["mi_row_starts"]) - 1):
+            _, hdr, tiles = cur
+            y, u, v = _decode_frame(seq, hdr, tiles)
+            frame = (y, u, v, hdr["frame_type"], seq)
+            if hdr["show_frame"] and shown is None:
+                shown = frame
+            for i in range(NUM_REF_FRAMES):
+                if hdr["refresh_frame_flags"] >> i & 1:
+                    slots[i] = frame
+            cur = None
+    if shown is None:
+        raise DecodeError(COLOR_FAILED)  # no frame shown
+    y, u, v, _, seq = shown
+    return y, u, v, seq
+
+
+def _decode_frame(seq: dict, hdr: dict, tiles: list):
+    """One frame's tiles through the native decoder -> (Y, U, V)."""
     fn, n_params = _native()
     params = _params(seq, hdr)
     assert len(params) == n_params, (len(params), n_params)
@@ -655,7 +733,7 @@ def decode(data: bytes):
         offsets += [at, size]
         at += size
     offs = np.array(offsets, np.int64)
-    w, h = hdr["width"], hdr["height"]
+    w, h = hdr["upscaled_width"], hdr["height"]
     sx, sy = seq["ss"]
     dtype = np.uint8 if seq["bit_depth"] == 8 else np.uint16
     y = np.zeros((h, w), dtype)
@@ -669,5 +747,5 @@ def decode(data: bytes):
     rc = fn(params.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), blob,
             offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(tiles), y.ctypes.data, *uv, err, 256)
     if rc:
-        raise DecodeError(f"Failed to decode frame 0: {err.value.decode()}")
-    return y, u, v, seq
+        raise DecodeError(COLOR_FAILED)  # the tiles fail in dav1d as here (err.value says why)
+    return y, u, v

@@ -1,8 +1,10 @@
 """AVIF, as PIL 12 reads it through libavif 1.3: the HEIF / ISOBMFF
 container, the primary item's AV1 still (4:2:0, 4:2:2, 4:4:4 or 4:0:0; 8,
-10 or 12 bits) or grid of such stills through codecs/av1_obu.py and the
-native tile decoder, then libavif's YUV -> RGB (codecs/avif_yuv.py, which
-hands the matrices libyuv does not take to codecs/avif_reformat.py).
+10 or 12 bits) or grid of such stills, or an image sequence's first AV1
+track's first sample, through codecs/av1_obu.py and the native tile
+decoder, scaled to its item's size where libavif scales it
+(codecs/avif_scale.py), then libavif's YUV -> RGB (codecs/avif_yuv.py,
+which hands the matrices libyuv does not take to codecs/avif_reformat.py).
 
 The container: `ftyp` (libavif's brand rules: the file is AVIF when the
 major or a compatible brand is `avif` or `avis`; otherwise PIL's plugin
@@ -19,7 +21,18 @@ leaves to the EXIF orientation it reports: the pixels stay as coded
 `a1lx` marked so; so does the port, as no format, and so it does a `meta`
 whose handler is not `pict` and an image item without `ispe`, or an av01
 one without `av1C`). An AV1 frame of another size than its item's `ispe`
-(libavif scales it) raises A.1.
+is scaled to it, as libavif scales it (each grid cell to its own).
+
+Sources, as libavif's AVIF_DECODER_SOURCE_AUTO picks them: an `avis`
+major brand reads the tracks, an `avif` one the primary item, any other
+the tracks where the `moov` has some; a brand `avif` wants a `meta` and
+`avis` a `moov` (else libavif's parse fails and PIL identifies no image).
+The track is the first with an id, a chunk and an `av01` sample
+description that is no other's auxiliary (none: no image to PIL either);
+its sample 0 (`stsz`, `stco` / `co64`) is decoded as a still of its
+`tkhd` size, with the sample entry's nclx `colr`; an alpha track is the
+one auxiliary (`auxl`) to it, premultiplied where the colour track's
+`tref` has `prem`.
 
 Grids: a `grid` primary item's ImageGrid (version 0, rows and columns,
 16- or 32-bit output size) lays its `dimg` cells (av01 items, in the
@@ -45,9 +58,9 @@ UnidentifiedImageError); a primary item that is missing or neither `av01`
 nor `grid` -> "Failed to decode image: Missing or empty image item"; cut
 or corrupt data -> "Failed to decode frame 0: ...". The port keeps its own
 `DecodeError` (ValueError + OSError) for the last two where PIL raises
-RuntimeError and SyntaxError (ROADMAP C.14). Image sequences without a
-still raise NotImplementedError naming the variant and ROADMAP A.1 (AVIF
-step 6).
+RuntimeError and SyntaxError (ROADMAP C.14). What the port does not
+decode yet, an AV1 inter frame shown first, raises NotImplementedError
+naming it and ROADMAP A.1 (AVIF step 7, codecs/av1_obu.py).
 
 Alpha: an av01 (or grid) item with an `auxl` reference to the primary item
 and the alpha URN in its `auxC` is decoded with the same decoder (libaom
@@ -63,17 +76,18 @@ the alpha before PIL sees it, and so does the port (avif_yuv.to_rgb).
 libavif ignores an alpha item without data (but fails on one cut short),
 as the port does, fails on an alpha item of another bit depth than the
 colour's ("Decoding of alpha plane failed"), as the port does, brings a
-10- or 12-bit alpha to 8 bits before it un-premultiplies
-(avif_yuv.alpha_bytes), and scales an alpha plane of another size than
-the colour's to it: with straight alpha that changes nothing PIL returns;
-premultiplied, it raises A.1, as does a premultiplied alpha in limited
-range (AVIF step 6)."""
+limited-range alpha to full range and a 10- or 12-bit alpha to 8 bits
+before it un-premultiplies (avif_yuv.alpha_bytes), scales an alpha frame
+of another size than its ispe to it, and fails an alpha whose ispe is not
+the colour's ("Decoding of alpha plane failed"; a grid's "Invalid image
+grid"), straight or premultiplied, as the port does."""
 from __future__ import annotations
 
 import numpy as np
 
 from . import av1_obu
 from ._common import DecodeError, NotThisFormat, u16be, u32be
+from .avif_scale import scale
 from .avif_yuv import alpha_bytes, to_rgb
 
 MISSING_ITEM = "Failed to decode image: Missing or empty image item"
@@ -349,20 +363,26 @@ def _parse(data: bytes):
 
 def _read(data: bytes):
     """-> (the primary _Image, its nclx colour or None, the alpha _Image or
-    None, premultiplied)."""
+    None, premultiplied): the primary item's, or the first AV1 track's
+    first sample where libavif reads the tracks."""
     major, compat = brands(data)
     if b"avif" not in [major] + compat and b"avis" not in [major] + compat:
         raise NotThisFormat("no avif / avis brand")
-    meta = None
-    has_moov = False
+    meta, moov = None, None
     for kind, s, e in _boxes(data, 0, len(data)):
         if kind == b"meta":
             meta = _parse_meta(data, s, e)
         elif kind == b"moov":
-            has_moov = True
+            moov = (s, e)
+    # libavif's parse wants a meta where a brand says avif and a moov where
+    # one says avis (PIL then identifies no image)
+    if (meta is None and b"avif" in [major] + compat) or (moov is None and b"avis" in [major] + compat):
+        raise NotThisFormat("no meta / moov box for the brands")
+    tracks = [] if moov is None else _tracks(data, *moov)
+    # AVIF_DECODER_SOURCE_AUTO: the major brand decides, else any track
+    if major == b"avis" or (major != b"avif" and tracks):
+        return _from_tracks(data, tracks)
     if meta is None:
-        if has_moov:
-            raise av1_obu.unsupported("image sequences")
         raise DecodeError(MISSING_ITEM)
     if meta.primary is None or meta.primary not in meta.items:
         raise DecodeError(MISSING_ITEM)
@@ -397,13 +417,98 @@ def _read(data: bytes):
     return image, _nclx(data, meta, meta.primary), alpha, premultiplied
 
 
-def _frame(obus: bytes, ispe):
-    """One av01 item's planes and sequence header; a frame of another size
-    than the item's ispe raises A.1 (libavif scales it to the ispe)."""
+class _Track:
+    def __init__(self):
+        self.id, self.size, self.refs, self.handler = 0, (0, 0), {}, None
+        self.entry = None     # (type, the sample entry's child boxes) of the first sample description
+        self.first = None     # (offset, size) of sample 0, or None without a chunk
+
+
+def _tracks(data: bytes, s: int, e: int) -> list:
+    """The `trak` boxes of a `moov`, as far as libavif reads them for sample
+    0: tkhd (id, width, height), tref, the media handler, the first sample
+    description, and sample 0's place from stsz, stsc and stco / co64."""
+    out = []
+    for kind, ts, te in _boxes(data, s, e):
+        if kind != b"trak":
+            continue
+        t, sizes, chunks = _Track(), None, []
+        stack = [(ts, te)]
+        while stack:
+            for bk, bs, be in _boxes(data, *stack.pop()):
+                if bk in (b"mdia", b"minf", b"stbl"):
+                    stack.append((bs, be))
+                elif bk == b"tkhd":
+                    at = bs + (20 if data[bs] == 1 else 12)
+                    t.id = _uint(data, at, 4)
+                    at += 68 if data[bs] == 1 else 64  # to width
+                    t.size = (_uint(data, at, 4) >> 16, _uint(data, at + 4, 4) >> 16)
+                elif bk == b"tref":
+                    for rk, rs, re_ in _boxes(data, bs, be):
+                        t.refs[rk] = [_uint(data, i, 4) for i in range(rs, re_ - 3, 4)]
+                elif bk == b"hdlr":
+                    t.handler = data[bs + 8:bs + 12]
+                elif bk == b"stsd" and t.entry is None:
+                    for ek, es, ee in _boxes(data, bs + 8, be):
+                        t.entry = (ek, list(_boxes(data, es + 78, ee)) if ee - es >= 78 else [])
+                        break
+                elif bk == b"stsz":
+                    fixed, count = _uint(data, bs + 4, 4), _uint(data, bs + 8, 4)
+                    sizes = fixed if fixed or not count else _uint(data, bs + 12, 4)
+                elif bk in (b"stco", b"co64"):
+                    width = 4 if bk == b"stco" else 8
+                    chunks = [_uint(data, bs + 8 + i * width, width) for i in range(min(_uint(data, bs + 4, 4), 1))]
+        if chunks and sizes is not None:
+            t.first = (chunks[0], sizes)
+        out.append(t)
+    return out
+
+
+def _from_tracks(data: bytes, tracks: list):
+    """libavif's track source: the first track with an id, a chunk and an
+    av01 sample description that is no other track's auxiliary, and the
+    alpha track auxiliary to it; each one's sample 0 decoded as a still,
+    sized by its tkhd."""
+    colour = next((t for t in tracks if t.id and t.first and t.entry and t.entry[0] == b"av01"
+                   and not t.refs.get(b"auxl")), None)
+    if colour is None:
+        raise NotThisFormat("no AV1 colour track")  # libavif's parse fails, PIL identifies no image
+    alpha = next((t for t in tracks if t.id and t.first and t.entry and t.entry[0] == b"av01"
+                  and colour.id in t.refs.get(b"auxl", [])), None)
+
+    def sample(t: _Track) -> _Image:
+        offset, size = t.first
+        if offset + size > len(data):
+            raise DecodeError(TRUNCATED)
+        return _Image([data[offset:offset + size]], t.size, [t.size])
+    nclx = None
+    for kind, s, e in colour.entry[1]:
+        if kind == b"colr" and data[s:s + 4] == b"nclx" and e - s >= 11:
+            nclx = u16be(data, s + 8), data[s + 10] >> 7, u16be(data, s + 4)
+    premultiplied = alpha is not None and alpha.id in colour.refs.get(b"prem", [])  # a prem tref to the alpha
+    return sample(colour), nclx, None if alpha is None else sample(alpha), premultiplied
+
+
+def _frame(obus: bytes, ispe, alpha: bool = False):
+    """One av01 item's planes and sequence header, a frame of another size
+    than the item's ispe (or track's tkhd) scaled to it as libavif scales
+    it (avif_scale); an alpha item's limited range brought to full first,
+    as libavif brings it."""
     y, u, v, seq = av1_obu.decode(obus)
+    if alpha and not seq["color_range"]:
+        y = _alpha_limited_to_full(y, seq["bit_depth"])
     if ispe is not None and (y.shape[1], y.shape[0]) != tuple(ispe):
-        raise av1_obu.unsupported("an AV1 frame of another size than its item's ispe (libavif scales it)")
+        y, u, v = scale(y, u, v, None if u is None else seq["ss"], *ispe)
     return y, u, v, seq
+
+
+def _alpha_limited_to_full(a: np.ndarray, depth: int) -> np.ndarray:
+    """libavif's avifLimitedToFullY on each alpha sample: ((v - 16) * 255 +
+    109) / 219 at 8 bits (64 / 940 at 10, 256 / 3760 at 12), clamped (C's
+    truncation and a floor part only below 0, which the clamp takes)."""
+    lo, span, top = 16 << (depth - 8), 219 << (depth - 8), (1 << depth) - 1
+    v = ((a.astype(np.int64) - lo) * top + span // 2) // span
+    return np.clip(v, 0, top).astype(a.dtype)
 
 
 def _layout(seq: dict):
@@ -449,13 +554,10 @@ def _colour(colour, seq: dict):
 
 
 def _decode_alpha(image: _Image):
-    """The alpha _Image -> (its Y plane as coded (a grid's assembled), its
-    sequence header). A single alpha item of another size than its ispe is
-    left as coded: libavif scales it, which changes nothing PIL returns
-    unless the colour is premultiplied (rgb8 raises A.1 there)."""
-    ispes = image.cell_ispe if image.grid is not None else [None]
+    """The alpha _Image -> (its Y plane (a grid's assembled), scaled to its
+    ispe and in full range, its sequence header)."""
     try:
-        frames = [_frame(obus, ispe) for obus, ispe in zip(image.cells, ispes)]
+        frames = [_frame(obus, ispe, alpha=True) for obus, ispe in zip(image.cells, image.cell_ispe)]
     except DecodeError as e:
         raise DecodeError(ALPHA_FAILED) from e
     alpha, _, _, seq = frames[0] if image.grid is None else _assemble(image, frames)
@@ -486,13 +588,8 @@ def rgb8(data: bytes) -> np.ndarray:
         alpha, aseq = _decode_alpha(alpha_image)  # decoded also when straight: it fails as libavif fails
         if aseq["bit_depth"] != depth:
             raise DecodeError(ALPHA_FAILED)
-        if alpha_image.grid is not None and alpha.shape != y.shape:
-            raise DecodeError(GRID_FAILED)
-        if premultiplied:
-            if alpha.shape != y.shape or alpha_image.ispe not in (None, (alpha.shape[1], alpha.shape[0])):
-                raise av1_obu.unsupported("premultiplied alpha of another size than the colour (libavif scales it)")
-            if not aseq["color_range"]:
-                raise av1_obu.unsupported("limited-range premultiplied alpha")
+        if alpha.shape != y.shape:  # each scaled to its own ispe, which must then agree
+            raise DecodeError(GRID_FAILED if alpha_image.grid is not None else ALPHA_FAILED)
     rgb = to_rgb(y, u, v, ss, matrix, full, rgba=alpha is not None, depth=depth, primaries=primaries,
                  alpha=alpha if premultiplied else None)
     if image.grid is not None and image.ispe != (rgb.shape[1], rgb.shape[0]):

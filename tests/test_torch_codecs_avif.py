@@ -240,9 +240,10 @@ def test_headers(name, use_128, tiles, q):
 
 @pytest.mark.parametrize("name", sorted(RAISES))
 def test_refused_files_fail_as_expected(name):
-    """The step-6 variant (PIL reads it) raises A.1 naming the variant;
-    the C.14, C.16 and C.17 files and the grid missing a cell fail as PIL
-    fails: no format, or PIL's reason."""
+    """The step-7 variant (PIL reads it) raises A.1 naming the variant;
+    the C.14, C.16, C.17, C.18 and C.19 files, the grid missing a cell and
+    the sequence stripped of its meta fail as PIL fails: no format, or
+    PIL's reason."""
     with open(os.path.join(AVIF_RAISES, name), "rb") as f:
         data = f.read()
     want = RAISES[name]
@@ -258,7 +259,10 @@ def test_refused_files_fail_as_expected(name):
     pil_class = {"avif_heic_brand.avif": "UnidentifiedImageError", "avif_hvc1_item.avif": "RuntimeError",
                  "avif_truncated.avif": "SyntaxError", "avif_identity_420.avif": "RuntimeError",
                  "avif_matrix10.avif": "RuntimeError", "avif_show_existing_frame.avif": "RuntimeError",
-                 "avif_inter_frame.avif": "RuntimeError", "avif_grid_missing_cell.avif": "RuntimeError"}[name]
+                 "avif_inter_frame.avif": "RuntimeError", "avif_grid_missing_cell.avif": "RuntimeError",
+                 "avif12_overread_444.avif": "RuntimeError", "avif12_overread_420.avif": "RuntimeError",
+                 "avif_tile_groups_flipped.avif": "RuntimeError", "avif_tile_cut.avif": "RuntimeError",
+                 "avif_sequence_meta_stripped.avif": "UnidentifiedImageError"}[name]
     assert type(pil_error.value).__name__ == pil_class
     if pil_class != "UnidentifiedImageError":  # the same reason as PIL's
         assert str(pil_error.value) == str(got.value)

@@ -50,9 +50,10 @@ def _xpm() -> bytes:
 
 def _committed_avif(name: str) -> bytes:
     """An AVIF of tests/torch_fixtures/textures (a grid from libavif's own
-    encoder, which PIL's save does not write) or, where the port raises A.1
-    for it, of tests/torch_fixtures/avif_raises (a premultiplied alpha item
-    of another size than the colour, which libavif scales)."""
+    encoder, which PIL's save does not write; a premultiplied alpha item of
+    another size than the colour, which libavif scales) or, where the port
+    raises A.1 for it, of tests/torch_fixtures/avif_raises (an inter frame
+    shown first, after a hidden key frame)."""
     path = os.path.join(OUT, name)
     with open(path if os.path.exists(path) else os.path.join(AVIF_RAISES, name), "rb") as f:
         return f.read()
@@ -77,6 +78,7 @@ UNPORTED = {
     "AVIF_QM": lambda: pil_bytes(photo(8, 8, 1), "AVIF", advanced={"enable-qm": "1"}),
     "AVIF_GRID": lambda: _committed_avif("avif_grid.avif"),
     "AVIF_PREM_ALPHA_OTHER_SIZE": lambda: _committed_avif("avif_prem_alpha_other_size.avif"),
+    "AVIF_INTER_SHOWN_FIRST": lambda: _committed_avif("avif_inter_shown_first.avif"),
     "ICNS": lambda: pil_bytes(photo(16, 16, 1, 4), "ICNS", "RGBA", sizes=[(16, 16)]),
     "SUN": lambda: _sun(photo(3, 5, 1)),
     "XPM": _xpm,
@@ -85,7 +87,7 @@ UNPORTED = {
 
 
 # what each still-unported case's NotImplementedError names
-STILL_UNPORTED = {"AVIF_PREM_ALPHA_OTHER_SIZE": "AVIF of premultiplied alpha of another size"}
+STILL_UNPORTED = {"AVIF_INTER_SHOWN_FIRST": "AVIF of an AV1 inter frame shown first"}
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
@@ -200,10 +202,10 @@ def test_gltf_keeps_the_factor_only_material(tmp_path, name):
 def test_gltf_with_unported_format_raises_a1(tmp_path):
     from optixpathtracer_tpu_torch.io import gltf as tgltf
 
-    path = _textured_glb(tmp_path / "avif.glb", UNPORTED["AVIF_PREM_ALPHA_OTHER_SIZE"]())
-    with pytest.raises(NotImplementedError, match="AVIF of premultiplied alpha of another size.*A.1"):
+    path = _textured_glb(tmp_path / "avif.glb", UNPORTED["AVIF_INTER_SHOWN_FIRST"]())
+    with pytest.raises(NotImplementedError, match="AVIF of an AV1 inter frame shown first.*A.1"):
         tgltf.load_gltf(path)
-    for name in ("AVIF_444", "AVIF_QM", "AVIF_GRID"):  # each once raised here
+    for name in ("AVIF_444", "AVIF_QM", "AVIF_GRID", "AVIF_PREM_ALPHA_OTHER_SIZE"):  # each once raised here
         got, _ = _assert_same_gltf(_textured_glb(tmp_path / f"{name}.glb", UNPORTED[name]()))
         assert len(got.textures) == 1
 

@@ -306,9 +306,10 @@ def test_pcd(tmp_path, orientation):
 
 def test_unported_formats_left():
     """AVIF at PIL's defaults, a 4:4:4 AVIF, an AVIF with quantizer
-    matrices, JPEG 2000 and an AVIF grid (each once A.1) decode as PIL
-    decodes them; a premultiplied AVIF alpha of another size than its
-    colour, which PIL reads, still raises A.1 (AVIF step 6)."""
+    matrices, JPEG 2000, an AVIF grid and a premultiplied AVIF alpha of
+    another size than its colour (each once A.1) decode as PIL decodes
+    them; an AVIF whose item shows an inter frame first, which PIL reads,
+    still raises A.1 (AVIF step 7)."""
     import os
 
     from optixpathtracer_tpu_torch.io import image as timg
@@ -319,9 +320,11 @@ def test_unported_formats_left():
     assert_like_pil(pil_bytes(photo(8, 8, 1), "AVIF", advanced={"enable-qm": "1"}))
     with open(os.path.join(OUT, "avif_grid.avif"), "rb") as f:
         assert assert_like_pil(f.read()).shape == (128, 128, 3)
-    with open(os.path.join(AVIF_RAISES, "avif_prem_alpha_other_size.avif"), "rb") as f:
-        step6 = f.read()
-    assert pil_rgb(step6).shape == (40, 48, 3)
-    with pytest.raises(NotImplementedError, match="AVIF of premultiplied alpha of another size.*A.1"):
-        timg.rgb8_from_bytes(step6)
+    with open(os.path.join(OUT, "avif_prem_alpha_other_size.avif"), "rb") as f:
+        assert assert_like_pil(f.read()).shape == (40, 48, 3)
+    with open(os.path.join(AVIF_RAISES, "avif_inter_shown_first.avif"), "rb") as f:
+        step7 = f.read()
+    assert pil_rgb(step7).shape == (32, 48, 3)
+    with pytest.raises(NotImplementedError, match="AVIF of an AV1 inter frame shown first.*A.1"):
+        timg.rgb8_from_bytes(step7)
     assert_like_pil(pil_bytes(photo(8, 8, 1), "JPEG2000"))

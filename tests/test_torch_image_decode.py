@@ -197,11 +197,15 @@ def test_unported_formats_raise_naming_a1():
         grid = f.read()
     assert _pil(grid).shape == (128, 128, 3)  # once unported here, now decoded as PIL decodes it
     _assert_decodes_like_pil(grid)
-    with open(os.path.join(AVIF_RAISES, "avif_prem_alpha_other_size.avif"), "rb") as f:
-        step6 = f.read()
-    assert _pil(step6).shape == (40, 48, 3)
-    with pytest.raises(NotImplementedError, match="AVIF of premultiplied alpha of another size.*A.1"):
-        timg.rgb8_from_bytes(step6)
+    with open(os.path.join(OUT, "avif_prem_alpha_other_size.avif"), "rb") as f:
+        prem = f.read()
+    assert _pil(prem).shape == (40, 48, 3)  # once unported here, now decoded as PIL decodes it
+    _assert_decodes_like_pil(prem)
+    with open(os.path.join(AVIF_RAISES, "avif_inter_shown_first.avif"), "rb") as f:
+        step7 = f.read()
+    assert _pil(step7).shape == (32, 48, 3)
+    with pytest.raises(NotImplementedError, match="AVIF of an AV1 inter frame shown first.*A.1"):
+        timg.rgb8_from_bytes(step7)
     for data in (twelve_bit, b"no image format" + bytes(20)):
         with pytest.raises(OSError, match="cannot identify"):
             _pil(data)

@@ -185,7 +185,9 @@ def test_unported_formats_raise(tmp_path):
     alpha and with quantizer matrices (each once the example here), and an
     AVIF whose nclx names matrix coefficients 0 (identity, which libavif
     converts without libyuv: AVIF step 5), once the example of a variant
-    raising A.1 here."""
+    raising A.1 here, and a premultiplied alpha of another size (AVIF step
+    6); an AVIF whose item shows an inter frame first, which PIL reads,
+    raises A.1 naming it (AVIF step 7)."""
     rng = np.random.default_rng(5)
     px = rng.integers(0, 256, (6, 8, 3), dtype=np.uint8)
     buf16, jpg = io.BytesIO(), io.BytesIO()
@@ -233,5 +235,15 @@ def test_unported_formats_raise(tmp_path):
     identity = avif.getvalue().replace(b"colrnclx\x00\x01\x00\x0d\x00\x06", b"colrnclx\x00\x01\x00\x0d\x00\x00")
     assert identity != avif.getvalue() and _pil_rgb(identity).shape == (6, 8, 3)  # PIL reads it, and so does the port
     np.testing.assert_array_equal(timg.rgb8_from_bytes(identity), _pil_rgb(identity))
+    from torch_fixtures.make_textures import AVIF_RAISES, OUT
+
+    with open(os.path.join(OUT, "avif_prem_alpha_other_size.avif"), "rb") as f:
+        prem = f.read()
+    np.testing.assert_array_equal(timg.rgb8_from_bytes(prem), _pil_rgb(prem))
+    with open(os.path.join(AVIF_RAISES, "avif_inter_shown_first.avif"), "rb") as f:
+        step7 = f.read()
+    assert _pil_rgb(step7).shape == (32, 48, 3)  # PIL reads it; the port raises A.1 naming it
+    with pytest.raises(NotImplementedError, match="AVIF of an AV1 inter frame shown first.*ROADMAP A.1"):
+        timg.rgb8_from_bytes(step7)
     with pytest.raises(ValueError, match="not a PNG"):
         timg.rgb8_from_png(b"GIF89a" + bytes(40))

@@ -323,9 +323,12 @@ def test_gltf_tlas_raises(tmp_path):
     with open(os.path.join(OUT, "avif_grid.avif"), "rb") as f:
         path = _textured_glb(tmp_path / "avif_grid.glb", f.read())
     np.testing.assert_array_equal(tgltf.load_gltf_tlas(path)[0].textures[0], jgltf.load_gltf(path)[0].textures[0])
-    with open(os.path.join(AVIF_RAISES, "avif_prem_alpha_other_size.avif"), "rb") as f:
+    with open(os.path.join(OUT, "avif_prem_alpha_other_size.avif"), "rb") as f:
         path = _textured_glb(tmp_path / "avif_prem_alpha_other_size.glb", f.read())
-    with pytest.raises(NotImplementedError, match="AVIF of premultiplied alpha of another size.*A.1"):
+    np.testing.assert_array_equal(tgltf.load_gltf_tlas(path)[0].textures[0], jgltf.load_gltf(path)[0].textures[0])
+    with open(os.path.join(AVIF_RAISES, "avif_inter_shown_first.avif"), "rb") as f:
+        path = _textured_glb(tmp_path / "avif_inter_shown_first.glb", f.read())
+    with pytest.raises(NotImplementedError, match="AVIF of an AV1 inter frame shown first.*A.1"):
         tgltf.load_gltf_tlas(path)
 
 

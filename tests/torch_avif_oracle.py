@@ -361,3 +361,28 @@ def encode_hbd(planes, depth: int, yuv_format: int, full: int = 1, alpha=None, p
         lib.avifEncoderDestroy(enc)
         for im in cells:
             lib.avifImageDestroy(im)
+
+
+def scale(planes, depth: int, yuv_format: int, width: int, height: int, alpha=None):
+    """`avifImageScale` (libyuv's ScalePlane / ScalePlane_12 in box filter
+    mode, as libavif scales a frame to its item's size) on our own planes
+    [Y] or [Y, U, V] (uint16 above depth 8) and an optional alpha plane ->
+    (the scaled planes, the scaled alpha or None)."""
+    lib = _lib()
+    lib.avifImageScale.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
+    h, w = planes[0].shape
+    im = _create(lib, w, h, depth, yuv_format, alpha is not None)
+    try:
+        _, views = _plane_views(im)
+        for view, plane in zip(views, planes):
+            view[...] = plane
+        if alpha is not None:
+            _alpha_view(im)[...] = alpha
+        diag = (ctypes.c_char * 256)()
+        if lib.avifImageScale(im, width, height, diag) != 0:
+            raise RuntimeError(f"avifImageScale failed: {diag.value.decode()}")
+        _, views = _plane_views(im)
+        scaled = _alpha_view(im)
+        return [v.copy() for v in views], None if scaled is None else scaled.copy()
+    finally:
+        lib.avifImageDestroy(im)

@@ -1877,9 +1877,10 @@ def avif_still(obus: bytes, size: tuple, av1c: bytes, depth: int = 8, channels: 
                colr: bytes | None = None, alpha=None, premultiplied: bool = False) -> bytes:
     """A still AVIF of one av01 item holding `obus`, of `size` (width,
     height) in `ispe`, with its `av1C` box and `colr`; `alpha` = (OBUs, av1C
-    box) an alpha item of the same size (`prem` where `premultiplied`)."""
+    box[, its ispe (width, height)]) an alpha item, of the same size unless
+    given (`prem` where `premultiplied`)."""
     if alpha is not None:
-        alpha = ([alpha[0]], alpha[1], None)
+        alpha = ([alpha[0]], alpha[1], None) + tuple(alpha[2:])
     return _avif_file((b"av01", obus, size, av1c), [], [], depth, channels, colr, alpha, premultiplied)
 
 
@@ -1913,7 +1914,8 @@ def _avif_file(primary: tuple, cells: list, cell_refs: list, depth: int, channel
         first = len(items) + 1
         if a_grid is None:
             items.append((b"av01", a_cells[0]))
-            assoc[first] = [prop(ispe(primary[2])), prop(pixi1), 0x80 | prop(a_av1c), prop(auxc)]
+            assoc[first] = [prop(ispe(alpha[3] if len(alpha) > 3 else primary[2])), prop(pixi1), 0x80 | prop(a_av1c),
+                            prop(auxc)]
         else:
             items.append((b"grid", a_grid))
             assoc[first] = [prop(ispe(primary[2])), prop(pixi1), prop(auxc)]

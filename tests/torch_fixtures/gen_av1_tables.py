@@ -2,8 +2,8 @@
 CDFs a key frame reads (the delta q, delta lf and segment id ones too), the quantizer
 lookups at 8, 10 and 12 bits, the quantizer matrices and each transform
 size's offset into them, the directional derivatives, the smooth weights,
-the filter-intra taps, the transform rotation constants, the tables of CDEF
-and loop restoration, and film grain's Gaussian sequence (AV1 Bitstream &
+the filter-intra taps, the transform rotation constants, the tables of CDEF,
+superres and loop restoration, and film grain's Gaussian sequence (AV1 Bitstream &
 Decoding Process Specification, section 9.3 and the tables of 7.11-7.18).
 
 The values are those of the specification. They are read here from the
@@ -15,7 +15,7 @@ row and read with its published shape, and the header keeps the spec's
 own form: increasing values ending in 32768, then the adaptation counter
 (0). CDEF's directions (libaom's offsets into its 144-wide buffer), its
 chroma direction remap for 4:2:2 and 4:4:0, its primary taps and
-divisors, and the self-guided filter's parameters (libaom's {r0, r1},
+divisors, superres's upscaling filter (libaom's), and the self-guided filter's parameters (libaom's {r0, r1},
 {e0, e1}) are read from the library too; the few rows too short to find
 there (CDEF's secondary taps, the Wiener and self-guided coefficient
 ranges) are typed as the specification prints them. The quantizer matrices
@@ -130,7 +130,8 @@ SPEC = {
     "Sgrproj_Xqd_Mid": [-32, 31],
 }
 SHAPES = {"Quantizer_Matrix": "[15][2][3344]", "Dc_Qlookup": "[3][256]", "Ac_Qlookup": "[3][256]", "Filter_Intra_Taps": "[5][8][7]", "Sgr_Params": "[16][4]", "Cdef_Uv_Dir": "[2][2][8]",
-          "Cdef_Directions": "[8][2][2]", "Cdef_Pri_Taps": "[2][2]", "Cdef_Sec_Taps": "[2][2]"}
+          "Cdef_Directions": "[8][2][2]", "Cdef_Pri_Taps": "[2][2]", "Cdef_Sec_Taps": "[2][2]",
+          "Upscale_Filter": "[64][8]"}
 
 # (width, height) of TX_4X4 .. TX_64X16, the specification's order
 TX_SIZES = [(4, 4), (8, 8), (16, 16), (32, 32), (64, 64), (4, 8), (8, 4), (8, 16), (16, 8), (16, 32), (32, 16),
@@ -269,7 +270,10 @@ def scalars(ro: bytes) -> dict:
     assert total == 3344, total  # QM_TOTAL_SIZE
     # dav1d's gaussian_sequence, the film grain's white noise (7.18.3.3)
     gauss = grab([56, 568, -180, 172, 124, -84, 172, -64, -900, 24, 820, 224, 1248], "<i2", 2048)
-    return {"Quantizer_Matrix": qm, "Qm_Offset": offset, "Gaussian_Sequence": gauss,
+    # libaom's av1_resize_filter_normative: superres's 8-tap filters, 64
+    # phases (7.16), found by its first two rows
+    upscale = grab([0, 0, 0, 128, 0, 0, 0, 0, 0, 0, -1, 128, 2, -1, 0, 0], "<i2", 64 * 8)
+    return {"Upscale_Filter": upscale, "Quantizer_Matrix": qm, "Qm_Offset": offset, "Gaussian_Sequence": gauss,
             "Dc_Qlookup": dc, "Ac_Qlookup": ac, "Dr_Intra_Derivative": drd, "Sm_Weights": sm,
             "Filter_Intra_Taps": taps, "Cos128_Lookup": cos, "Sinpi_Lookup": sinpi, "Sgr_Params": sgr.tolist(),
             "Div_Table": div, "Cdef_Uv_Dir": [[ident, conv440], [conv422, ident]], "Cdef_Directions": dirs.tolist(),
@@ -301,7 +305,8 @@ def header(ro: bytes) -> str:
     for name, vals in scalars(ro).items():
         flat = np.ravel(vals).tolist()
         typ = "int8_t" if name == "Filter_Intra_Taps" else "int16_t" if name in (
-            "Dc_Qlookup", "Ac_Qlookup", "Dr_Intra_Derivative", "Gaussian_Sequence") else "uint8_t" if name in (
+            "Dc_Qlookup", "Ac_Qlookup", "Dr_Intra_Derivative", "Gaussian_Sequence",
+            "Upscale_Filter") else "uint8_t" if name in (
             "Sm_Weights", "Quantizer_Matrix") else "int32_t"
         shape = SHAPES.get(name, f"[{len(flat)}]")
         lines.append(f"static const {typ} {name}{shape} = {{\n{_fmt(flat, 32 if len(flat) > 4096 else 16)}\n}};\n")

@@ -354,6 +354,7 @@ def _fixtures_avif(enc, pil, Image) -> dict[str, bytes]:
     out.update(_fixtures_avif_hbd(enc, Image))
     out.update(_fixtures_avif_tools(enc, pil, Image))
     out.update(_fixtures_avif_step5(enc, pil, Image))
+    out.update(_fixtures_avif_step6(enc, pil, Image))
     return out
 
 
@@ -668,6 +669,368 @@ def avif_grid_edited(data: bytes, width: int, height: int) -> bytes:
     return data
 
 
+def _bits(data: bytes, n: int | None = None) -> list:
+    n = len(data) * 8 if n is None else n
+    return [(data[k >> 3] >> (7 - (k & 7))) & 1 for k in range(n)]
+
+
+def _bytes(bits: list) -> bytes:
+    bits = bits + [0] * (-len(bits) % 8)
+    return bytes(int("".join(map(str, bits[k:k + 8])), 2) for k in range(0, len(bits), 8))
+
+
+def _uint_bits(value: int, n: int) -> list:
+    return [(value >> (n - 1 - k)) & 1 for k in range(n)]
+
+
+def leb128(n: int) -> bytes:
+    out = b""
+    while True:
+        b, n = n & 0x7F, n >> 7
+        out += bytes([b | (0x80 if n else 0)])
+        if not n:
+            return out
+
+
+def obu(kind: int, payload: bytes) -> bytes:
+    """An OBU with its size field and no extension."""
+    return bytes([kind << 3 | 2]) + leb128(len(payload)) + payload
+
+
+def _logged_reads(parse, payload: bytes, *args):
+    """Run parse(Bits, *args) over payload -> (its result, the reads as
+    (bit position, width, value, the av1_obu source line that read them),
+    the bit where it stopped)."""
+    sys.path.insert(0, REPO)
+    from optixpathtracer_tpu_torch.io.codecs import av1_obu
+
+    class Logged(av1_obu.Bits):
+        def f(self, n):
+            at, caller = self.bit, sys._getframe(1)
+            if caller.f_code.co_name in ("su", "ns", "uvlc"):
+                caller = caller.f_back
+            value = super().f(n)
+            log.append((at, n, value, caller.f_lineno))
+            return value
+    log = []
+    b = Logged(payload)
+    return parse(b, *args), log, b.bit
+
+
+def _line(func, text: str) -> int:
+    """The source line of func that holds text."""
+    import inspect
+
+    lines, first = inspect.getsourcelines(func)
+    return first + next(i for i, line in enumerate(lines) if text in line)
+
+
+def _reads_at(log: list, line: int) -> list:
+    return [r for r in log if r[3] == line]
+
+
+def _edited(bits: list, edits: list) -> list:
+    """bits with each (position, old width, new bits) edit applied."""
+    for at, width, new in sorted(edits, key=lambda e: -e[0]):
+        bits = bits[:at] + list(new) + bits[at + width:]
+    return bits
+
+
+def _seq_superres(payload: bytes, width: int):
+    """A full sequence header with enable_superres set and its maximum
+    frame width made `width` (more width bits where it needs them) -> (the
+    new payload, its parse)."""
+    from optixpathtracer_tpu_torch.io.codecs import av1_obu
+
+    seq, log, end = _logged_reads(av1_obu.sequence_header, payload)
+    (bits_at, _, wbits1, _), _ = _reads_at(log, _line(av1_obu.sequence_header, "wbits, hbits = "))
+    (max_at, old_wbits, _, _), _ = _reads_at(log, _line(av1_obu.sequence_header, 's["max_width"], s["max_height"]'))
+    superres_at = _reads_at(log, _line(av1_obu.sequence_header, 's["enable_superres"], s["enable_cdef"]'))[0][0]
+    wbits = max(wbits1 + 1, (width - 1).bit_length())
+    bits = _edited(_bits(payload, end), [(bits_at, 4, _uint_bits(wbits - 1, 4)),
+                                         (max_at, old_wbits, _uint_bits(width - 1, wbits)),
+                                         (superres_at, 1, [1])])
+    new = _bytes(bits + [1])  # trailing_bits
+    return new, av1_obu.sequence_header(new)
+
+
+def avif_superres(data: bytes, width: int, denom: int) -> bytes:
+    """A still of width W' = (8 width + denom / 2) / denom, or 16 where
+    that is less (written with a full sequence header, `single=False`),
+    made a superres still of `width`:
+    enable_superres and the maximum width in its sequence header (and its
+    av1C's copy), use_superres and coded_denom = denom - 9 in its frame
+    header, `width` in its ispe; the tile data as coded."""
+    sys.path.insert(0, REPO)
+    from optixpathtracer_tpu_torch.io.codecs import av1_obu, avif
+    from torch_codec_encoders import avif_still
+
+    obus, av1c, colr = avif_parts(data)
+    out, seq, new_seq = b"", None, None
+    for kind, payload in av1_obu.split_obus(obus):
+        if kind == av1_obu.OBU_SEQUENCE_HEADER:
+            seq = av1_obu.sequence_header(payload)
+            payload, new_seq = _seq_superres(payload, width)
+            av1c = av1c[:12] + (obu(kind, payload) if len(av1c) > 12 else b"")
+            av1c = (len(av1c)).to_bytes(4, "big") + av1c[4:]
+        elif kind in (av1_obu.OBU_FRAME, av1_obu.OBU_FRAME_HEADER):
+            h, log, end = _logged_reads(av1_obu.frame_header, payload, seq)
+            # dav1d's downscaled width: (8 W + d / 2) / d, but not under 16 (or W)
+            assert h["width"] == max((8 * width + denom // 2) // denom, min(16, width)), (h["width"], width, denom)
+            fh = av1_obu.frame_header
+            render_at = _reads_at(log, _line(fh, "# render_and_frame_size_different"))[0][0]
+            edits = [(render_at, 0, [1] + _uint_bits(denom - 9, 3))]
+            for at, n, value, _ in _reads_at(log, _line(fh, 'h["width"] = b.f(s["frame_width_bits"]) + 1')):
+                edits.append((at, n, _uint_bits(width - 1, new_seq["frame_width_bits"])))
+            for at, n, value, _ in _reads_at(log, _line(fh, 'h["allow_intrabc"] = b.f(1)')):
+                assert value == 0, "IntraBC is off under superres"
+                edits.append((at, n, []))
+            head = _bytes(_edited(_bits(payload, end), edits))
+            payload = head + payload[(end + 7) // 8:] if kind == av1_obu.OBU_FRAME else _bytes(
+                _edited(_bits(payload, end), edits) + [1])
+        out += obu(kind, payload)
+    return avif_still(out, (width, avif._ispe(data, *_primary(data))[1]), av1c, depth=seq["bit_depth"], colr=colr)
+
+
+def key_frame_as(payload: bytes, seq: dict, frame_type: int = 0, show_frame: int = 1, refresh: int = 0xFF,
+                 showable: int = 1) -> bytes:
+    """A shown key frame's OBU_FRAME payload (full header) with its header
+    rewritten: frame_type (0 key, 2 intra-only), show_frame, showable_frame
+    and refresh_frame_flags, read where the frame is not a shown key frame,
+    and error_resilient_mode 0 (film grain parameters dropped from a frame
+    neither shown nor showable); the tile data as coded."""
+    sys.path.insert(0, REPO)
+    from optixpathtracer_tpu_torch.io.codecs import av1_obu
+
+    fh = av1_obu.frame_header
+    h, log, end = _logged_reads(fh, payload, seq)
+    assert h["frame_type"] == av1_obu.KEY_FRAME and h["show_frame"] and not seq["decoder_model_info_present"]
+    ft_at = _reads_at(log, _line(fh, "frame_type = b.f(2)"))[0][0]
+    shown_at = _reads_at(log, _line(fh, "show_frame = b.f(1)"))[0][0]
+    edits = [(ft_at, 2, _uint_bits(frame_type, 2)), (shown_at, 1, [show_frame])]
+    extra = ([] if show_frame else [showable]) + [0]  # showable_frame, error_resilient_mode
+    edits.append((shown_at + 1, 0, extra))
+    if frame_type != av1_obu.KEY_FRAME or not show_frame:
+        assert frame_type == av1_obu.KEY_FRAME or refresh != 0xFF
+        size_line = _line(fh, "# frame_size, superres_params, render_size")
+        at = min(r[0] for r in log if r[3] > size_line)
+        edits.append((at, 0, _uint_bits(refresh, 8)))
+    if not (show_frame or showable) and h["grain"]["apply_grain"]:  # film_grain_params no longer read
+        import inspect
+
+        lines, first = inspect.getsourcelines(av1_obu.film_grain_params)
+        grain_at = min(r[0] for r in log if first <= r[3] < first + len(lines))
+        edits.append((grain_at, end - grain_at, []))
+    return _bytes(_edited(_bits(payload, end), edits)) + payload[(end + 7) // 8:]
+
+
+def show_existing_frame(slot: int) -> bytes:
+    """An OBU_FRAME_HEADER OBU showing the frame of reference slot `slot`."""
+    sys.path.insert(0, REPO)
+    from optixpathtracer_tpu_torch.io.codecs import av1_obu
+
+    return obu(av1_obu.OBU_FRAME_HEADER, _bytes([1] + _uint_bits(slot, 3) + [1]))
+
+
+def avif_frames(data: bytes, frames: list, tail: bytes = b"") -> bytes:
+    """A still of `data`'s sequence header followed by `frames`, each an
+    OBU_FRAME payload or a whole OBU (bytes starting with an OBU header:
+    wrapped in a tuple), then `tail` bytes, muxed as `data`'s item."""
+    sys.path.insert(0, REPO)
+    from optixpathtracer_tpu_torch.io.codecs import av1_obu, avif
+    from torch_codec_encoders import avif_still
+
+    obus, av1c, colr = avif_parts(data)
+    seq = next(p for k, p in av1_obu.split_obus(obus) if k == av1_obu.OBU_SEQUENCE_HEADER)
+    out = obu(av1_obu.OBU_SEQUENCE_HEADER, seq)
+    for f in frames:
+        out += f[0] if isinstance(f, tuple) else obu(av1_obu.OBU_FRAME, f)
+    return avif_still(out + tail, avif._ispe(data, *_primary(data)), av1c,
+                      depth=av1_obu.sequence_header(seq)["bit_depth"], colr=colr)
+
+
+def frame_payload(data: bytes):
+    """(the sequence header, the frame OBU's payload) of a one-frame still."""
+    sys.path.insert(0, REPO)
+    from optixpathtracer_tpu_torch.io.codecs import av1_obu, avif
+
+    seq = None
+    for kind, payload in av1_obu.split_obus(avif.parse(data)[0]):
+        if kind == av1_obu.OBU_SEQUENCE_HEADER:
+            seq = av1_obu.sequence_header(payload)
+        elif kind == av1_obu.OBU_FRAME:
+            return seq, payload
+    raise ValueError("no frame OBU")
+
+
+def _box_spans(data: bytes, start: int, end: int):
+    """(type, box start, payload start, box end) of each box in data[start:end]."""
+    sys.path.insert(0, REPO)
+    from optixpathtracer_tpu_torch.io.codecs import avif
+
+    for kind, s, e in avif._boxes(data, start, end):
+        head = 16 if int.from_bytes(data[s - 8:s - 4], "big") == 1 and s - 16 >= start else 8
+        yield kind, s - head, s, e
+
+
+def _chunk_offsets(data: bytes):
+    """(position, width) of each stco / co64 chunk offset of every track."""
+    out = []
+
+    def walk(start, end):
+        for kind, _, s, e in _box_spans(data, start, end):
+            if kind in (b"moov", b"trak", b"mdia", b"minf", b"stbl"):
+                walk(s, e)
+            elif kind in (b"stco", b"co64"):
+                n, width = int.from_bytes(data[s + 4:s + 8], "big"), 4 if kind == b"stco" else 8
+                out.extend((s + 8 + i * width, width) for i in range(n))
+    walk(0, len(data))
+    return out
+
+
+def avif_meta_stripped(data: bytes) -> bytes:
+    """An image sequence (PIL's `save_all`) without its `meta` box: its
+    tracks alone, the chunk offsets moved with the data, the ftyp kept."""
+    (_, start, _, end), = [b for b in _box_spans(data, 0, len(data)) if b[0] == b"meta"]
+    out = bytearray(data)
+    for at, width in _chunk_offsets(data):
+        value = int.from_bytes(data[at:at + width], "big")
+        out[at:at + width] = (value - (end - start) if value >= end else value).to_bytes(width, "big")
+    return bytes(out[:start] + out[end:])
+
+
+def avif_item_replaced(data: bytes, obus: bytes, major: bytes | None = None) -> bytes:
+    """An image sequence (PIL's `save_all`) whose primary item (item 1)
+    holds `obus` instead, appended to the last box (mdat); the major brand
+    made `major` where given."""
+    (at, _, _), = _iloc(data).values()
+    mdat = [b for b in _box_spans(data, 0, len(data)) if b[0] == b"mdat"][-1]
+    assert mdat[3] == len(data) and mdat[2] - mdat[1] == 8
+    out = bytearray(data + obus)
+    out[at + 6:at + 14] = len(data).to_bytes(4, "big") + len(obus).to_bytes(4, "big")
+    out[mdat[1]:mdat[1] + 4] = (len(out) - mdat[1]).to_bytes(4, "big")
+    if major is not None:
+        i = data.index(b"ftyp") + 4
+        out[i:i + 4] = major
+    return bytes(out)
+
+
+def avif_track_samples(data: bytes) -> list:
+    """The samples of the first track of an image sequence, in order (from
+    stsz, stsc and stco / co64)."""
+    boxes = {}
+
+    def walk(start, end):
+        for kind, _, s, e in _box_spans(data, start, end):
+            if kind in (b"moov", b"trak", b"mdia", b"minf", b"stbl") and b"stco" not in boxes:
+                walk(s, e)
+            elif kind in (b"stsz", b"stsc", b"stco", b"co64"):
+                boxes.setdefault(kind, (s, e))
+    walk(0, len(data))
+
+    def u32(at):
+        return int.from_bytes(data[at:at + 4], "big")
+    s = boxes[b"stsz"][0]
+    fixed, count = u32(s + 4), u32(s + 8)
+    sizes = [fixed] * count if fixed else [u32(s + 12 + 4 * i) for i in range(count)]
+    s = boxes[b"stsc"][0]
+    runs = [(u32(s + 8 + 12 * i), u32(s + 12 + 12 * i)) for i in range(u32(s + 4))]
+    kind = b"stco" if b"stco" in boxes else b"co64"
+    s, width = boxes[kind][0], 4 if kind == b"stco" else 8
+    chunks = [int.from_bytes(data[s + 8 + width * i:s + 8 + width * (i + 1)], "big") for i in range(u32(s + 4))]
+    out = []
+    for c, offset in enumerate(chunks):
+        per = [n for first, n in runs if first <= c + 1][-1]
+        for _ in range(per):
+            if len(out) < count:
+                out.append(data[offset:offset + sizes[len(out)]])
+                offset += sizes[len(out) - 1]
+    return out
+
+
+def avif_inter_shown_first(enc, pil) -> bytes:
+    """AVIF step 7's example: a still whose item holds PIL's two-frame
+    sequence's key frame made hidden (refreshing every slot), then the
+    sequence's second sample, an inter frame, shown first."""
+    from PIL import Image
+
+    frames = [Image.fromarray(enc.photo(32, 48, s)) for s in (40, 41)]
+    import io
+    buf = io.BytesIO()
+    frames[0].save(buf, "AVIF", save_all=True, append_images=frames[1:])
+    seq_file = buf.getvalue()
+    seq, key = frame_payload(seq_file)
+    second = avif_track_samples(seq_file)[1]
+    return avif_frames(seq_file, [key_frame_as(key, seq, show_frame=0, refresh=0xFF), (second,)])
+
+
+def avif_alpha_limited(data: bytes) -> bytes:
+    """A PIL-written RGBA AVIF (alpha item 2) with its alpha item's sequence
+    header (and its av1C's copy) saying limited range: color_range 0."""
+    sys.path.insert(0, REPO)
+    from optixpathtracer_tpu_torch.io.codecs import av1_obu
+
+    _, off, ln = _iloc(data)[2]
+    pos = off
+    while pos < off + ln:
+        kind = data[pos] >> 3 & 15
+        size, start = av1_obu.leb128(data, pos + 1 + (data[pos] >> 2 & 1))
+        if kind == av1_obu.OBU_SEQUENCE_HEADER:
+            payload = data[start:start + size]
+            seq, log, _ = _logged_reads(av1_obu.sequence_header, payload)
+            assert seq["mono"] and seq["color_range"]
+            at = _reads_at(log, _line(av1_obu.sequence_header, 's["color_range"] = b.f(1)'))[0][0]
+            out = bytearray(data)
+            for copy in (start, data.index(payload, off + ln) if payload in data[off + ln:] else None):
+                if copy is not None:
+                    out[copy + (at >> 3)] ^= 0x80 >> (at & 7)
+            return bytes(out)
+        pos = start + size
+    raise ValueError("no sequence header in the alpha item")
+
+
+def avif_lr_edited(data: bytes, lr_types: list, unit_shift: int | None = None) -> bytes:
+    """A still with a full sequence header and loop restoration on in some
+    plane, its lr_params' coded restoration types (2 bits a plane: 0 none,
+    1 switchable, 2 Wiener, 3 self-guided) set to lr_types, and its luma
+    unit size to 64 << unit_shift where given (64-superblock stills); the
+    tile data as coded, the item muxed again."""
+    sys.path.insert(0, REPO)
+    from optixpathtracer_tpu_torch.io.codecs import av1_obu, avif
+    from torch_codec_encoders import avif_still
+
+    obus, av1c, colr = avif_parts(data)
+    out, seq = b"", None
+    for kind, payload in av1_obu.split_obus(obus):
+        if kind == av1_obu.OBU_SEQUENCE_HEADER:
+            seq = av1_obu.sequence_header(payload)
+        elif kind == av1_obu.OBU_FRAME:
+            fh = av1_obu.frame_header
+            h, log, end = _logged_reads(fh, payload, seq)
+            assert any(h["lr_type"]), "the unit size bits are read only with some plane restored"
+            reads = _reads_at(log, _line(fh, 'h["lr_type"][:planes] = [REMAP_LR_TYPE[b.f(2)]'))
+            edits = [(at, 2, _uint_bits(t, 2)) for (at, _, _, _), t in zip(reads, lr_types)]
+            if unit_shift is not None:
+                assert not seq["use_128"]
+                shifts = _reads_at(log, _line(fh, "shift = b.f(1)")) + _reads_at(log, _line(fh, "shift += b.f(1)"))
+                edits.append((shifts[0][0], len(shifts), [1, unit_shift - 1] if unit_shift else [0]))
+            payload = _bytes(_edited(_bits(payload, end), edits)) + payload[(end + 7) // 8:]
+        out += obu(kind, payload)
+    return avif_still(out, avif._ispe(data, *_primary(data)), av1c, depth=seq["bit_depth"], colr=colr)
+
+
+def _primary(data: bytes):
+    """(the parsed meta, the primary item's id) of an AVIF."""
+    sys.path.insert(0, REPO)
+    from optixpathtracer_tpu_torch.io.codecs import avif
+
+    for kind, s, e in avif._boxes(data, 0, len(data)):
+        if kind == b"meta":
+            meta = avif._parse_meta(data, s, e)
+            return meta, meta.primary
+    raise ValueError("no meta")
+
+
 # PIL's messages for what libavif refuses
 REFORMAT_FAILED = "Conversion from YUV failed: Reformat failed"
 COLOR_FAILED = "Failed to decode frame 0: Decoding of color planes failed"
@@ -725,16 +1088,135 @@ def _fixtures_avif_step5(enc, pil, Image) -> dict[str, bytes]:
     return out
 
 
+def superres_still(enc, width: int, height: int, denom: int, depth: int, fmt: int, seed: int, **kw) -> bytes:
+    """A superres still of width x height: encoded at the downscaled width
+    by OpenCV's libavif (a full sequence header), then avif_superres."""
+    import torch_avif_oracle as oracle
+
+    down = (8 * width + denom // 2) // denom
+    data = oracle.encode_hbd(enc.yuv_photo(height, down, seed, depth, fmt), depth, fmt, single=False, **kw)
+    return avif_superres(data, width, denom)
+
+
+def avif_tile_cut(data: bytes, cut: int, tile: int = -1) -> bytes:
+    """A still (one frame OBU) with `cut` bytes taken off the end of one
+    tile's data (the last by default), the tile size fields, the OBU size
+    and the item's extent rewritten: its symbol decoder reads 8 more bits
+    past the data for each byte."""
+    sys.path.insert(0, REPO)
+    from optixpathtracer_tpu_torch.io.codecs import av1_obu, avif
+    from torch_codec_encoders import avif_still
+
+    obus, av1c, colr = avif_parts(data)
+    out, seq = b"", None
+    for kind, payload in av1_obu.split_obus(obus):
+        if kind == av1_obu.OBU_SEQUENCE_HEADER:
+            seq = av1_obu.sequence_header(payload)
+        if kind == av1_obu.OBU_FRAME:
+            b = av1_obu.Bits(payload)
+            h = av1_obu.frame_header(b, seq)
+            b.byte_align()
+            tiles = []
+            av1_obu.tile_group(payload, b.pos, h, tiles)
+            n, size_bytes = len(tiles), h["tile_size_bytes"]
+            first = tiles[0][1] - (size_bytes if n > 1 else 0)
+            body = payload[:first]
+            for i, (_, at, size) in enumerate(tiles):
+                part = payload[at:at + size - (cut if i == tile % n else 0)]
+                body += ((len(part) - 1).to_bytes(size_bytes, "little") if i < n - 1 else b"") + part
+            payload = body
+        out += obu(kind, payload)
+    return avif_still(out, avif._ispe(data, *_primary(data)), av1c, depth=seq["bit_depth"], colr=colr)
+
+
+def _sequence(enc, seeds, size=(32, 48), **kw) -> bytes:
+    """PIL's image sequence (`save_all`) of photos of those seeds."""
+    import io
+
+    from PIL import Image
+
+    frames = [Image.fromarray(enc.photo(*size, s)) for s in seeds]
+    buf = io.BytesIO()
+    frames[0].save(buf, "AVIF", save_all=True, append_images=frames[1:], **kw)
+    return buf.getvalue()
+
+
+def _brands_without_avif(data: bytes) -> bytes:
+    """The ftyp's compatible brand `avif` replaced by `mif1` (a brand
+    libavif does not read as wanting a meta box)."""
+    i = data.index(b"ftyp") + 4
+    size = int.from_bytes(data[i - 8:i - 4], "big")
+    head = data[i:i + size - 8]
+    return data[:i] + head[:8] + head[8:].replace(b"avif", b"mif1") + data[i + size - 8:]
+
+
+def _fixtures_avif_step6(enc, pil, Image) -> dict[str, bytes]:
+    """AVIF step 6. Superres by header edits of OpenCV's stills encoded at
+    the downscaled width (avif_superres): 8-bit 4:2:0 at an odd downscaled
+    width with CDEF, 10-bit 4:4:4 with film grain, 12-bit 4:0:0, 10-bit
+    4:2:0 with loop restoration (its units read on the upscaled geometry).
+    The first shown frame of an item (avif_frames, key_frame_as): a hidden
+    key frame with film grain shown by show_existing_frame; a hidden key
+    frame then a shown intra-only frame; a shown frame followed by a second
+    frame and a padding OBU. Sizes libavif scales: frames of another size
+    than their ispe, up at 8 bits in 4:2:0 and down at 12 bits in 4:4:4;
+    the premultiplied alpha of another size (moved from avif_raises/, its
+    bytes unchanged); a limited-range premultiplied alpha
+    (avif_alpha_limited). Image sequences: a track-only file (PIL's
+    `save_all` with its meta stripped and no `avif` brand left), and an
+    `avis` file whose primary item and first track sample differ (libavif
+    reads the track)."""
+    import torch_avif_oracle as oracle
+
+    out = {}
+    grain = {"film-grain-test": 1}
+    out["avif_superres_420.avif"] = superres_still(enc, 77, 40, 12, 8, 3, 140)
+    out["avif10_superres_444_grain.avif"] = superres_still(enc, 93, 64, 9, 10, 1, 141, options=grain)
+    out["avif12_superres_400.avif"] = superres_still(enc, 96, 48, 16, 12, 4, 142)
+    out["avif10_superres_420_lr.avif"] = superres_still(enc, 96, 96, 13, 10, 3, 40 + 13 + 10,
+                                                        options={"enable-restoration": 1}, quality=30, speed=4)
+    a = oracle.encode_hbd(enc.yuv_photo(48, 64, 143, 8, 3), 8, 3, single=False, options=grain)
+    b = oracle.encode_hbd(enc.yuv_photo(48, 64, 144, 8, 3), 8, 3, single=False, options={"film-grain-test": 2})
+    seq, key_a = frame_payload(a)
+    key_b = frame_payload(b)[1]
+    out["avif_hidden_key_shown.avif"] = avif_frames(a, [key_frame_as(key_a, seq, show_frame=0, refresh=0x04),
+                                                        (show_existing_frame(2),)])
+    c = oracle.encode_hbd(enc.yuv_photo(40, 48, 145, 10, 3), 10, 3, single=False)
+    d = oracle.encode_hbd(enc.yuv_photo(40, 48, 146, 10, 3), 10, 3, single=False)
+    seq10, key_c = frame_payload(c)
+    out["avif10_hidden_key_intra_only.avif"] = avif_frames(c, [key_frame_as(key_c, seq10, show_frame=0, refresh=0x01),
+                                                               key_frame_as(frame_payload(d)[1], seq10, frame_type=2,
+                                                                            refresh=0x02)])
+    out["avif_shown_then_more.avif"] = avif_frames(a, [key_a, key_b, (obu(15, bytes(5)),)])
+    up = avif_parts(oracle.encode_hbd(enc.yuv_photo(40, 48, 147, 8, 3), 8, 3))
+    out["avif_scaled_up_420.avif"] = enc.avif_still(up[0], (61, 37), up[1], colr=up[2])
+    down = avif_parts(oracle.encode_hbd(enc.yuv_photo(64, 80, 148, 12, 1), 12, 1))
+    out["avif12_scaled_down_444.avif"] = enc.avif_still(down[0], (57, 29), down[1], depth=12, colr=down[2])
+    moved = "avif_prem_alpha_other_size.avif"  # from avif_raises/ (step 5), its bytes kept
+    with open(os.path.join(OUT if os.path.exists(os.path.join(OUT, moved)) else AVIF_RAISES, moved), "rb") as f:
+        out[moved] = f.read()
+    rgba = Image.fromarray(enc.photo(40, 48, 149, 4), "RGBA")
+    out["avif_prem_alpha_limited.avif"] = avif_alpha_limited(pil(rgba, "AVIF", alpha_premultiplied=True))
+    out["avif_sequence_tracks_only.avif"] = _brands_without_avif(avif_meta_stripped(_sequence(enc, (150, 151))))
+    item = avif_parts(pil(enc.photo(32, 48, 152), "AVIF"))[0]
+    out["avif_sequence_item_differs.avif"] = avif_item_replaced(_sequence(enc, (153, 154)), item)
+    return out
+
+
 def avif_raises(enc, pil, Image) -> dict[str, tuple[bytes, str, str]]:
-    """AVIF files the port refuses: a step-6 variant PIL reads (a
-    premultiplied alpha item of another size than the colour, which libavif
-    scales) raises NotImplementedError naming A.1; the files PIL refuses
-    fail as PIL's do (ROADMAP C.14: a HEIF brand without avif, a primary
-    item of type hvc1, a file cut 40 bytes short; C.16: identity on 4:2:0
-    and matrix 10, which libavif does not convert; C.17: a good-quality
-    still with show_existing_frame or an inter frame_type flipped in, no
-    frame before it; and a 2 x 2 grid with a cell missing). -> name ->
-    (bytes, exception class name, message pattern)."""
+    """AVIF files the port refuses: the step-7 variant PIL reads (an inter
+    frame shown first, after a hidden key frame) raises NotImplementedError
+    naming A.1; the files PIL refuses fail as PIL's do (ROADMAP C.14: a HEIF
+    brand without avif, a primary item of type hvc1, a file cut 40 bytes
+    short; C.16: identity on 4:2:0 and matrix 10, which libavif does not
+    convert; C.17: a good-quality still with show_existing_frame or an
+    inter frame_type flipped in, no frame before it; a 2 x 2 grid with a
+    cell missing; C.18: frame_type flipped to intra-only in 12-bit stills,
+    whose symbol decoder then reads far past its tile, and a still cut a
+    byte short in its tile; C.19: the same flip in an 8-bit still, which
+    then reads its tile groups out of order; the sequence whose meta is
+    stripped while its brands still say avif). -> name -> (bytes,
+    exception class name, message pattern)."""
     import torch_avif_oracle as oracle
 
     base = pil(enc.photo(16, 16, 8), "AVIF")
@@ -743,14 +1225,16 @@ def avif_raises(enc, pil, Image) -> dict[str, tuple[bytes, str, str]]:
     body = b"mif1" + bytes(4) + b"heicmif1miafMA1B"
     heic = (8 + len(body)).to_bytes(4, "big") + b"ftyp" + body + base[i - 4 + size:]
     j = base.index(b"av01")
-    rgba = Image.fromarray(enc.photo(40, 48, 10, 4), "RGBA")
-    other = pil(Image.fromarray(enc.photo(40, 32, 11, 4), "RGBA"), "AVIF", alpha_premultiplied=True)
     good = oracle.encode_hbd(enc.yuv_photo(48, 64, 12, 8, 3), 8, 3, single=False)
     cells = [avif_parts(pil(enc.photo(64, 64, 13 + k), "AVIF")) for k in range(3)]
+    flip = {depth_size: avif_frame_bit_flipped(oracle.encode_hbd(enc.yuv_photo(*depth_size[1], 20 + depth_size[0],
+                                                                               depth_size[0], depth_size[2]),
+                                                                depth_size[0], depth_size[2], single=False), 1)
+            for depth_size in ((12, (96, 96), 1), (12, (128, 160), 3), (8, (128, 160), 3))}
+    cut = oracle.encode_hbd(enc.yuv_photo(64, 64, 38, 8, 3), 8, 3, single=False)
     return {
-        "avif_prem_alpha_other_size.avif": (
-            avif_with_alpha_of(pil(rgba, "AVIF", alpha_premultiplied=True), other), "NotImplementedError",
-            "AVIF of premultiplied alpha of another size.*ROADMAP A.1"),
+        "avif_inter_shown_first.avif": (avif_inter_shown_first(enc, pil), "NotImplementedError",
+                                        "AVIF of an AV1 inter frame shown first.*ROADMAP A.1"),
         "avif_heic_brand.avif": (heic, "UnidentifiedImageError", "cannot identify image file"),
         "avif_hvc1_item.avif": (base[:j] + b"hvc1" + base[j + 4:], "DecodeError",
                                 "Failed to decode image: Missing or empty image item"),
@@ -762,6 +1246,13 @@ def avif_raises(enc, pil, Image) -> dict[str, tuple[bytes, str, str]]:
         "avif_inter_frame.avif": (avif_frame_bit_flipped(good, 2), "DecodeError", COLOR_FAILED),
         "avif_grid_missing_cell.avif": (enc.avif_grid([c[0] for c in cells], 2, 2, 128, 128, (64, 64), cells[0][1]),
                                         "DecodeError", INVALID_GRID),
+        "avif12_overread_444.avif": (flip[(12, (96, 96), 1)], "DecodeError", COLOR_FAILED),
+        "avif12_overread_420.avif": (flip[(12, (128, 160), 3)], "DecodeError", COLOR_FAILED),
+        "avif_tile_groups_flipped.avif": (flip[(8, (128, 160), 3)], "DecodeError", COLOR_FAILED),
+        "avif_tile_cut.avif": (avif_tile_cut(cut, 1), "DecodeError", COLOR_FAILED),
+        "avif_sequence_meta_stripped.avif": (avif_meta_stripped(open(os.path.join(OUT, "avif_sequence_32.avif"),
+                                                                     "rb").read()),
+                                             "UnidentifiedImageError", "cannot identify image file"),
     }
 
 
