@@ -213,11 +213,17 @@ port's paths and checks that each went through its kernels:
      bits, each tool's count and host ms reported; AVIF step 5's AV1
      segmentation, grids (cropped, with alpha, at 10 bits) and the
      matrices libavif converts without libyuv, each variant's count and
-     host ms reported) are held to the manifest, each decode timed, and
-     the AVIF files of tests/torch_fixtures/avif_raises (a premultiplied
-     alpha of another size, AVIF step 6, and what PIL refuses: C.14, the
-     matrices of C.16, the first frames of C.17, a grid missing a cell)
-     raise what its expected.json says, their count reported. The JPEG 2000 fixtures (every progression, POC, tiles and
+     host ms reported; AVIF step 7's items holding AV1 inter frames
+     (single references, translational motion, a fixed or per-block
+     filter, at 8, 10 and 12 bits in every layout, with film grain, a
+     hidden ALTREF frame, a frame after the shown one; _avif_step7), their
+     count and host ms (total, largest, the 1024 x 1024 one's) reported)
+     are held to the manifest, each decode timed, and the AVIF files of
+     tests/torch_fixtures/avif_raises (a premultiplied alpha of another
+     size, AVIF step 6; the inter tools of AVIF steps 8 and 9, each raising
+     A.1 naming it; and what PIL refuses: C.14, the matrices of C.16, the
+     first frames of C.17, a grid missing a cell) raise what its
+     expected.json says, their count reported. The JPEG 2000 fixtures (every progression, POC, tiles and
      tile-parts, precincts, layers, each code-block style, SOP / EPH,
      ROI, PPT / PPM, precisions, subsampling, L / LA / RGBA / I;16 / CMYK /
      P / sYCC) are among the fixtures held to the manifest.
@@ -3217,6 +3223,16 @@ def _avif_step6(data: bytes) -> dict:
             "limited_alpha": limited, "tracks": tracks}
 
 
+def _avif_step7(data: bytes) -> bool:
+    """Whether an AVIF fixture's item holds an AV1 inter frame (AVIF step
+    7), read from its frame headers as the decoder reads them."""
+    from optixpathtracer_tpu_torch.io.codecs import av1_obu, avif
+
+    image = avif._read(data)[0]
+    return any(h.get("frame_type") == av1_obu.INTER_FRAME for cell in image.cells
+               for h in av1_obu.frame_headers(cell))
+
+
 def codecs_scene(dev, card, counts):
     """The port's own decoders of the texture formats beyond PNG and JPEG,
     on a machine without PIL: every fixture against tests/torch_fixtures/
@@ -3238,8 +3254,9 @@ def codecs_scene(dev, card, counts):
     read from their headers), the same of the fixtures using each AVIF
     step-6 variant (superres, more than one frame in the item, a frame or
     alpha scaled to its ispe, limited-range premultiplied alpha, a track
-    read as libavif reads it; _avif_step6), the refusals' count, and the
-    8-bit 1024 x 1024 one's. Returns the three lossless loft
+    read as libavif reads it; _avif_step6), the same of the fixtures
+    holding an AV1 inter frame (AVIF step 7; _avif_step7) with the 1024 x
+    1024 one's, the refusals' count, and the 8-bit 1024 x 1024 one's. Returns the three lossless loft
     renders' launches and the two AVIF lofts'."""
     import hashlib
 
@@ -3252,7 +3269,7 @@ def codecs_scene(dev, card, counts):
     t_all = time.perf_counter()
     with open(os.path.join(CODEC_FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
-    decode_ms, bad, avif_depth, avif_tools, avif_step6 = {}, [], {}, {}, {}
+    decode_ms, bad, avif_depth, avif_tools, avif_step6, avif_step7 = {}, [], {}, {}, {}, {}
     for name, entry in sorted(manifest.items()):
         with open(os.path.join(CODEC_FIXTURES, name), "rb") as f:
             data = f.read()
@@ -3272,6 +3289,7 @@ def codecs_scene(dev, card, counts):
                                 "segmentation": h["segmentation_enabled"], "grid": avif._read(data)[0].grid is not None,
                                 "own_matrix": avif_yuv.libyuv_matrix(matrix, primaries, seq["mono"]) is None}
             avif_step6[name] = _avif_step6(data)
+            avif_step7[name] = _avif_step7(data)
         t0 = time.perf_counter()
         rgb = rgb8_from_bytes(data)
         decode_ms[name] = (time.perf_counter() - t0) * 1e3
@@ -3299,6 +3317,7 @@ def codecs_scene(dev, card, counts):
                 for variant in ("segmentation", "grid", "own_matrix")}
     step6_ms = {variant: [ms for n, ms in avif_ms.items() if avif_step6[n][variant]]
                 for variant in ("superres", "frames", "scaled", "limited_alpha", "tracks")}
+    step7_ms = [ms for n, ms in avif_ms.items() if avif_step7[n]]
     scenes_by_kind, t_load = {}, {}
     for kind, names in (("png", {png: png for png in CODEC_LOSSLESS}), ("lossless", CODEC_LOSSLESS),
                         ("lossless2", CODEC_LOSSLESS2), ("lossless3", CODEC_LOSSLESS3), ("lossy", CODEC_LOSSY),
@@ -3334,6 +3353,9 @@ def codecs_scene(dev, card, counts):
          avif_step6_fixtures={t: len(v) for t, v in step6_ms.items()},
          avif_step6_decode_ms_total={t: sum(v) for t, v in step6_ms.items()},
          avif_step6_decode_ms_max={t: max(v, default=0.0) for t, v in step6_ms.items()},
+         avif_step7_fixtures=len(step7_ms), avif_step7_decode_ms_total=sum(step7_ms),
+         avif_step7_decode_ms_max=max(step7_ms, default=0.0),
+         avif_step7_1024_decode_ms=decode_ms.get("avif_inter_1024.avif"),
          avif_1024_decode_ms=decode_ms.get("avif_1024_tiles.avif"), avif_refused=len(avif_raises),
          avif_refused_wrongly=refused_wrongly, load_obj_s=t_load, loft_textures_equal_png=equal_textures,
          lossless_frame_equals_png_frame=card_eq, lossy_rmse_card_vs_cpu=rmse["lossy"],
@@ -3344,6 +3366,8 @@ def codecs_scene(dev, card, counts):
         raise AssertionError(f"codecs_scene: fixtures decoded unlike PIL: {bad}")
     if refused_wrongly:
         raise AssertionError(f"codecs_scene: AVIF files not refused as expected: {refused_wrongly}")
+    if not step7_ms:
+        raise AssertionError("codecs_scene: no AVIF fixture holds an AV1 inter frame")
     for kind in CODEC_LOSSLESS_SETS:
         if not equal_textures[kind]:
             raise AssertionError(f"codecs_scene: the {kind} loft's textures differ from the PNG loft's")

@@ -1,21 +1,26 @@
-// AV1 key-frame tile decoder: the decoding process of the AV1 Bitstream &
-// Decoding Process Specification for one 8-, 10- or 12-bit intra frame in
-// 4:2:0, 4:2:2, 4:4:4 or monochrome, as libaom writes AVIF stills and their
-// alpha items.
+// AV1 tile decoder: the decoding process of the AV1 Bitstream & Decoding
+// Process Specification for one 8-, 10- or 12-bit frame in 4:2:0, 4:2:2,
+// 4:4:4 or monochrome, as libaom writes AVIF stills, their alpha items and
+// the frames of image sequences.
 // io/codecs/av1_obu.py parses the OBUs and the frame header and hands the
-// frame parameters and each tile's bytes here; this file decodes the tiles
-// (symbol decoder and CDF adaptation, partitions, intra modes with the edge
-// filter and upsampling, filter intra, CfL, palette, IntraBC, transform sizes
-// and types, coefficients, delta q and delta lf, segment ids and their
-// features, the dequantiser with its quantizer matrices, the inverse
-// transforms and the lossless WHT, the loop-restoration coefficients), then
-// runs the frame's filters in the specification's order: deblocking (7.14,
-// each block at its own level with delta lf and its segment's), CDEF (7.15),
-// superres upscaling (7.16) where the frame is downscaled, and loop
-// restoration (7.17) on the upscaled frame, adds film grain (7.18.3) where
-// the frame applies it, and returns each plane cropped to its size. A
-// tile whose symbol decoder reads too far past its data fails the frame,
-// as dav1d's overread check fails it.
+// frame parameters, each tile's bytes and an inter frame's reference planes
+// here; this file decodes the tiles (symbol decoder and CDF adaptation,
+// partitions, intra modes with the edge filter and upsampling, filter
+// intra, CfL, palette, IntraBC, transform sizes and types, coefficients,
+// delta q and delta lf, segment ids and their features, the dequantiser
+// with its quantizer matrices, the inverse transforms and the lossless WHT,
+// the loop-restoration coefficients; in an inter frame, is_inter, single
+// references, the inter modes and the DRL index, the MV stack of 7.10.2,
+// vectors at every precision, the per-block interpolation filter, var-tx
+// and the prediction of 7.11.3 by the regular, smooth, sharp, bilinear and
+// 4-tap sub-pixel filters), then runs the frame's filters in the
+// specification's order: deblocking (7.14, each block at its own level with
+// delta lf, its segment's and its reference's and mode's deltas), CDEF
+// (7.15), superres upscaling (7.16) where the frame is downscaled, and loop
+// restoration (7.17) on the upscaled frame, and returns each plane cropped
+// to its size, before film grain; av1_film_grain adds the grain (7.18.3)
+// to the frame shown. A tile whose symbol decoder reads too far past its
+// data fails the frame, as dav1d's overread check fails it.
 //
 // Names follow the specification (section 5.11 syntax, 7.10-7.18 decoding
 // processes); the inverse DCT / ADST are the butterfly networks the
@@ -28,7 +33,9 @@
 // parameters. Where the specification and dav1d part (segment ids past
 // the last active segment), this file follows dav1d, which PIL's libavif
 // decodes with. Not handled here (the Python side raises before calling):
-// inter frames (AVIF step 7).
+// the inter tools of AVIF steps 8 and 9 (temporal MV candidates, OBMC and
+// warped motion, global motion, the dual filter, compound prediction, skip
+// mode, inter-intra, CDFs loaded from a reference, scaled references).
 //
 // Build: g++ -O2 -shared -fPIC (utils/host_build.py).
 #include <stdint.h>
@@ -46,6 +53,12 @@ namespace {
 // ---------------------------------------------------------------- constants
 enum { DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED, D203_PRED, D67_PRED,
        SMOOTH_PRED, SMOOTH_V_PRED, SMOOTH_H_PRED, PAETH_PRED, UV_CFL_PRED };
+// inter modes (YMode of an inter block) and the compound ones after them
+enum { NEARESTMV = 13, NEARMV, GLOBALMV, NEWMV, NEAREST_NEARESTMV, NEAR_NEARMV, NEAREST_NEWMV, NEW_NEARESTMV,
+       NEAR_NEWMV, NEW_NEARMV, GLOBAL_GLOBALMV, NEW_NEWMV };
+enum { NONE = -1, INTRA_FRAME, LAST_FRAME, LAST2_FRAME, LAST3_FRAME, GOLDEN_FRAME, BWDREF_FRAME, ALTREF2_FRAME,
+       ALTREF_FRAME };
+enum { EIGHTTAP, EIGHTTAP_SMOOTH, EIGHTTAP_SHARP, BILINEAR, SWITCHABLE };
 enum { DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, FLIPADST_DCT, DCT_FLIPADST, FLIPADST_FLIPADST,
        ADST_FLIPADST, FLIPADST_ADST, IDTX, V_DCT, H_DCT, V_ADST, H_ADST, V_FLIPADST, H_FLIPADST };
 enum { TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_64X64, TX_4X8, TX_8X4, TX_8X16, TX_16X8, TX_16X32,
@@ -98,6 +111,9 @@ const int Coeff_Base_Ctx_Offset[3][5][5] = {
     {{0, 11, 11, 11, 11}, {11, 11, 11, 11, 11}, {6, 6, 21, 21, 21}, {6, 21, 21, 21, 21}, {21, 21, 21, 21, 21}}};
 const int Coeff_Base_Pos_Ctx_Offset[3] = {26, 31, 36};
 const int Intra_Edge_Kernel[3][5] = {{0, 4, 8, 4, 0}, {0, 5, 6, 5, 0}, {2, 4, 4, 4, 2}};
+const int Size_Group[22] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 3, 3, 3, 3, 0, 0, 1, 1, 2, 2};
+const int REF_CAT_LEVEL = 640, MV_BORDER = 128;
+const int MODE_INFO_FIELDS = 7;  // what av1_decode_frame's mode_info keeps of each 4x4
 
 inline int imin(int a, int b) { return a < b ? a : b; }
 inline int imax(int a, int b) { return a > b ? a : b; }
@@ -186,7 +202,13 @@ struct Cdfs {
   uint16_t txfm_split[21][3];
   uint16_t skip[3][3];
   uint16_t intrabc[3];
-  uint16_t mv_joint[5], mv_class[2][12], mv_sign[2][3], mv_class0_bit[2][3], mv_bit[2][10][3];
+  // the MV CDFs of MvCtx 0 (inter blocks) and MV_INTRABC_CONTEXT (1), per
+  // component where the specification has one
+  uint16_t mv_joint[2][5], mv_class[2][2][12], mv_sign[2][2][3], mv_class0_bit[2][2][3], mv_bit[2][2][10][3],
+      mv_class0_fr[2][2][2][5], mv_fr[2][2][5], mv_class0_hp[2][2][3], mv_hp[2][2][3];
+  // what an inter frame reads besides (5.11.18-5.11.33)
+  uint16_t y_mode_inter[4][14], is_inter[4][3], single_ref[3][6][3], new_mv[6][3], zero_mv[2][3], ref_mv[6][3],
+      drl_mode[3][3], interp_filter[16][4], segment_id_predicted[3][3];
   uint16_t txb_skip[5][13][3];
   uint16_t eob_pt16[2][2][6], eob_pt32[2][2][7], eob_pt64[2][2][8], eob_pt128[2][2][9], eob_pt256[2][2][10],
       eob_pt512[2][11], eob_pt1024[2][12];
@@ -231,13 +253,28 @@ struct Cdfs {
     COPY(txfm_split, Default_Txfm_Split_Cdf);
     COPY(skip, Default_Skip_Cdf);
     COPY(intrabc, Default_Intrabc_Cdf);
-    COPY(mv_joint, Default_Mv_Joint_Cdf);
-    for (int c = 0; c < 2; c++) {
-      COPY(mv_class[c], Default_Mv_Class_Cdf);
-      COPY(mv_sign[c], Default_Mv_Sign_Cdf);
-      COPY(mv_class0_bit[c], Default_Mv_Class0_Bit_Cdf);
-      COPY(mv_bit[c], Default_Mv_Bit_Cdf);
+    for (int ctx = 0; ctx < 2; ctx++) {
+      COPY(mv_joint[ctx], Default_Mv_Joint_Cdf);
+      for (int c = 0; c < 2; c++) {
+        COPY(mv_class[ctx][c], Default_Mv_Class_Cdf);
+        COPY(mv_sign[ctx][c], Default_Mv_Sign_Cdf);
+        COPY(mv_class0_bit[ctx][c], Default_Mv_Class0_Bit_Cdf);
+        COPY(mv_bit[ctx][c], Default_Mv_Bit_Cdf);
+        COPY(mv_class0_fr[ctx][c], Default_Mv_Class0_Fr_Cdf);
+        COPY(mv_fr[ctx][c], Default_Mv_Fr_Cdf);
+        COPY(mv_class0_hp[ctx][c], Default_Mv_Class0_Hp_Cdf);
+        COPY(mv_hp[ctx][c], Default_Mv_Hp_Cdf);
+      }
     }
+    COPY(y_mode_inter, Default_Y_Mode_Cdf);
+    COPY(is_inter, Default_Is_Inter_Cdf);
+    COPY(single_ref, Default_Single_Ref_Cdf);
+    COPY(new_mv, Default_New_Mv_Cdf);
+    COPY(zero_mv, Default_Zero_Mv_Cdf);
+    COPY(ref_mv, Default_Ref_Mv_Cdf);
+    COPY(drl_mode, Default_Drl_Mode_Cdf);
+    COPY(interp_filter, Default_Interp_Filter_Cdf);
+    COPY(segment_id_predicted, Default_Segment_Id_Predicted_Cdf);
     int q = base_q_idx <= 20 ? 0 : base_q_idx <= 60 ? 1 : base_q_idx <= 120 ? 2 : 3;
     COPY(txb_skip, Default_Txb_Skip_Cdf[q]);
     COPY(eob_pt16, Default_Eob_Pt_16_Cdf[q]);
@@ -613,6 +650,12 @@ struct Params {
   // superres_params (5.9.8): FrameWidth above is the downscaled width;
   // SuperresDenom 8 where superres is off (UpscaledWidth == FrameWidth)
   int UpscaledWidth, SuperresDenom;
+  // the inter frame (5.9.2; FrameIsIntra 1 for key and intra-only frames):
+  // interpolation_filter (4 SWITCHABLE), the MV precision, each reference
+  // frame's sign bias (LAST_FRAME .. ALTREF_FRAME at 1-7), and the tile whose
+  // CDFs the frame keeps (5.9.15) unless disable_frame_end_update_cdf
+  int FrameIsIntra, interpolation_filter, allow_high_precision_mv, force_integer_mv, RefFrameSignBias[8];
+  int context_update_tile_id, disable_frame_end_update_cdf;
 };
 
 template <typename pixel>
@@ -638,6 +681,7 @@ struct Decoder {
   std::vector<uint8_t> SegmentIds;
   std::vector<uint16_t> PaletteColors[2];  // 8 per mi
   std::vector<int16_t> MvRow, MvCol;
+  std::vector<uint8_t> InterpFilters;  // one filter for both directions: the dual filter raises before the tiles
   std::vector<uint8_t> LfTxSizes[3];  // per 4x4 of each plane
   int lfStride[3];
   std::vector<int8_t> CdefIdx;
@@ -665,6 +709,14 @@ struct Decoder {
   int palette_colors_y[8], palette_colors_u[8], palette_colors_v[8];
   uint8_t ColorMapY[64][64], ColorMapUV[64][64];
   int Mv[2];
+  // the block's references (RefFrame[1] NONE: compound prediction raises
+  // before the tiles), its neighbours' first references, its DRL index and
+  // interpolation filter
+  int RefFrame[2], LeftRefFrame, AboveRefFrame, RefMvIdx, interp_filter;
+  // the reference frames' planes (before film grain), LAST_FRAME ..
+  // ALTREF_FRAME at 1-7, each of the frame's own size
+  const pixel* RefPlanes[8][3];
+  int32_t InterBuf[(128 + 8) * 128];
   int MaxLumaW, MaxLumaH;
   int PlaneTxType;
   int32_t Quant[1024];
@@ -800,7 +852,8 @@ struct Decoder {
     } else {
       AvailUChroma = AvailLChroma = 0;
     }
-    intra_frame_mode_info();
+    if (P.FrameIsIntra) intra_frame_mode_info();
+    else inter_frame_mode_info();
     palette_tokens();
     read_block_tx_size();
     if (skip) reset_block_context(w4, h4);
@@ -809,7 +862,8 @@ struct Decoder {
         size_t k = mi(r + y, c + x);
         YModes[k] = YMode;
         if (HasChroma) UVModes[k] = UVMode;
-        RefFrame0[k] = 0;  // INTRA_FRAME, IntraBC included
+        RefFrame0[k] = is_inter && !use_intrabc ? RefFrame[0] : INTRA_FRAME;  // IntraBC's is INTRA_FRAME
+        InterpFilters[k] = interp_filter;
         IsInters[k] = is_inter;
         Skips[k] = skip;
         SegmentIds[k] = segment_id;
@@ -830,7 +884,150 @@ struct Decoder {
   }
 
 
+  // 5.11.18: an inter frame's block: segment id, skip, cdef and deltas,
+  // is_inter, then the inter or intra modes (skip_mode_present raises
+  // before the tiles)
+  void inter_frame_mode_info() {
+    use_intrabc = 0;
+    interp_filter = EIGHTTAP;
+    LeftRefFrame = AvailL ? RefFrame0[mi(MiRow, MiCol - 1)] : INTRA_FRAME;
+    AboveRefFrame = AvailU ? RefFrame0[mi(MiRow - 1, MiCol)] : INTRA_FRAME;
+    int leftIntra = LeftRefFrame <= INTRA_FRAME, aboveIntra = AboveRefFrame <= INTRA_FRAME;
+    skip = 0;
+    inter_segment_id(1);
+    if (P.SegIdPreSkip && seg_feature_active(SEG_LVL_SKIP)) {
+      skip = 1;
+    } else {
+      int ctx = 0;
+      if (AvailU) ctx += Skips[mi(MiRow - 1, MiCol)];
+      if (AvailL) ctx += Skips[mi(MiRow, MiCol - 1)];
+      skip = sd.symbol(cdf.skip[ctx], 2);
+    }
+    if (!P.SegIdPreSkip) inter_segment_id(0);
+    Lossless = LosslessArray[segment_id];
+    read_cdef();
+    read_delta_qindex();
+    read_delta_lf();
+    ReadDeltas = 0;
+    if (seg_feature_active(SEG_LVL_REF_FRAME)) {
+      is_inter = P.FeatureData[segment_id][SEG_LVL_REF_FRAME] != INTRA_FRAME;
+    } else if (seg_feature_active(SEG_LVL_GLOBALMV)) {
+      is_inter = 1;
+    } else {
+      int ctx;
+      if (AvailU && AvailL) ctx = (leftIntra && aboveIntra) ? 3 : (leftIntra || aboveIntra);
+      else if (AvailU || AvailL) ctx = 2 * (AvailU ? aboveIntra : leftIntra);
+      else ctx = 0;
+      is_inter = sd.symbol(cdf.is_inter[ctx], 2);
+    }
+    AngleDeltaY = AngleDeltaUV = 0;
+    use_filter_intra = 0;
+    PaletteSizeY = PaletteSizeUV = 0;
+    CflAlphaU = CflAlphaV = 0;
+    if (is_inter) {
+      inter_block_mode_info();
+    } else {
+      RefFrame[0] = INTRA_FRAME;
+      RefFrame[1] = NONE;
+      YMode = sd.symbol(cdf.y_mode_inter[Size_Group[MiSize]], 13);
+      intra_modes_after_y();
+    }
+  }
+
+  // 5.11.19-5.11.20: segmentation_update_map is 1 and
+  // segmentation_temporal_update 0 (no primary reference frame: one raises
+  // before the tiles), so each id is read as an intra frame reads it, or
+  // predicted from the neighbours in a skipped block
+  void inter_segment_id(int preSkip) {
+    segment_id = 0;
+    if (!P.segmentation_enabled || (preSkip && !P.SegIdPreSkip)) return;
+    read_segment_id();
+  }
+
+  // 5.11.25: a single reference, from the neighbours' counts of each
+  void read_ref_frames() {
+    RefFrame[1] = NONE;
+    if (seg_feature_active(SEG_LVL_REF_FRAME)) {
+      RefFrame[0] = P.FeatureData[segment_id][SEG_LVL_REF_FRAME];
+      return;
+    }
+    if (seg_feature_active(SEG_LVL_SKIP) || seg_feature_active(SEG_LVL_GLOBALMV)) {
+      RefFrame[0] = LAST_FRAME;
+      return;
+    }
+    int n[8] = {0};
+    if (AvailU && AboveRefFrame > INTRA_FRAME) n[AboveRefFrame]++;
+    if (AvailL && LeftRefFrame > INTRA_FRAME) n[LeftRefFrame]++;
+    auto ctx = [](int a, int b) { return a < b ? 0 : a == b ? 1 : 2; };  // ref_count_ctx
+    auto bit = [&](int a, int b, int p) { return sd.symbol(cdf.single_ref[ctx(a, b)][p - 1], 2); };
+    if (bit(n[LAST_FRAME] + n[LAST2_FRAME] + n[LAST3_FRAME] + n[GOLDEN_FRAME],
+            n[BWDREF_FRAME] + n[ALTREF2_FRAME] + n[ALTREF_FRAME], 1)) {
+      if (bit(n[BWDREF_FRAME] + n[ALTREF2_FRAME], n[ALTREF_FRAME], 2)) RefFrame[0] = ALTREF_FRAME;
+      else RefFrame[0] = bit(n[BWDREF_FRAME], n[ALTREF2_FRAME], 6) ? ALTREF2_FRAME : BWDREF_FRAME;
+    } else if (bit(n[LAST_FRAME] + n[LAST2_FRAME], n[LAST3_FRAME] + n[GOLDEN_FRAME], 3)) {
+      RefFrame[0] = bit(n[LAST3_FRAME], n[GOLDEN_FRAME], 5) ? GOLDEN_FRAME : LAST3_FRAME;
+    } else {
+      RefFrame[0] = bit(n[LAST_FRAME], n[LAST2_FRAME], 4) ? LAST2_FRAME : LAST_FRAME;
+    }
+  }
+
+  // 5.11.23: the inter mode, the DRL index, the vector (assign_mv) and the
+  // interpolation filter; motion_mode is SIMPLE (is_motion_mode_switchable
+  // raises before the tiles) and no block is inter-intra (nor is its
+  // sequence's enable_interintra_compound)
+  void inter_block_mode_info() {
+    UVMode = DC_PRED;
+    read_ref_frames();
+    find_mv_stack();
+    if (seg_feature_active(SEG_LVL_SKIP) || seg_feature_active(SEG_LVL_GLOBALMV)) YMode = GLOBALMV;
+    else if (!sd.symbol(cdf.new_mv[NewMvContext], 2)) YMode = NEWMV;
+    else if (!sd.symbol(cdf.zero_mv[ZeroMvContext], 2)) YMode = GLOBALMV;
+    else YMode = sd.symbol(cdf.ref_mv[RefMvContext], 2) ? NEARMV : NEARESTMV;
+    RefMvIdx = 0;
+    if (YMode == NEWMV || YMode == NEARMV) {
+      int first = YMode == NEARMV;
+      RefMvIdx = first;
+      for (int idx = first; idx < first + 2; idx++) {
+        if (NumMvFound > idx + 1) {
+          if (!sd.symbol(cdf.drl_mode[DrlCtxStack[idx]], 2)) {
+            RefMvIdx = idx;
+            break;
+          }
+          RefMvIdx = idx + 1;
+        }
+      }
+    }
+    // assign_mv (5.11.26): GlobalMvs are zero (global motion raises
+    // before the tiles)
+    if (YMode == GLOBALMV) {
+      Mv[0] = Mv[1] = 0;
+    } else {
+      int pos = YMode == NEARESTMV ? 0 : RefMvIdx;
+      if (YMode == NEWMV && NumMvFound <= 1) pos = 0;
+      Mv[0] = RefStackMv[pos][0];
+      Mv[1] = RefStackMv[pos][1];
+      if (YMode == NEWMV) read_mv(0);
+    }
+    if (P.interpolation_filter == SWITCHABLE) {
+      int large = imin(block_width(MiSize), block_height(MiSize)) >= 8;
+      interp_filter = EIGHTTAP;
+      if (!(large && YMode == GLOBALMV)) {  // needs_interp_filter: GmType is IDENTITY
+        int ctx = (RefFrame[1] > INTRA_FRAME) * 4, leftType = 3, aboveType = 3;
+        if (AvailL && LeftRefFrame == RefFrame[0]) leftType = InterpFilters[mi(MiRow, MiCol - 1)];
+        if (AvailU && AboveRefFrame == RefFrame[0]) aboveType = InterpFilters[mi(MiRow - 1, MiCol)];
+        if (leftType == aboveType) ctx += leftType;
+        else if (leftType == 3) ctx += aboveType;
+        else if (aboveType == 3) ctx += leftType;
+        else ctx += 3;
+        interp_filter = sd.symbol(cdf.interp_filter[ctx], 3);
+      }
+    } else {
+      interp_filter = P.interpolation_filter;
+    }
+  }
+
   void intra_frame_mode_info() {
+    interp_filter = EIGHTTAP;
     skip = 0;
     if (P.SegIdPreSkip) intra_segment_id();
     if (P.SegIdPreSkip && seg_feature_active(SEG_LVL_SKIP)) {
@@ -862,29 +1059,35 @@ struct Decoder {
       int abovemode = Intra_Mode_Context[AvailU ? (int)YModes[mi(MiRow - 1, MiCol)] : (int)DC_PRED];
       int leftmode = Intra_Mode_Context[AvailL ? (int)YModes[mi(MiRow, MiCol - 1)] : (int)DC_PRED];
       YMode = sd.symbol(cdf.y_mode[abovemode][leftmode], 13);
-      if (MiSize >= BLOCK_8X8 && YMode >= V_PRED && YMode <= D67_PRED)
-        AngleDeltaY = sd.symbol(cdf.angle_delta[YMode - V_PRED], 7) - 3;
-      if (HasChroma) {
-        int cflAllowed;
-        if (Lossless && plane_size(1) == BLOCK_4X4) cflAllowed = 1;
-        else if (!Lossless && imax(block_width(MiSize), block_height(MiSize)) <= 32) cflAllowed = 1;
-        else cflAllowed = 0;
-        if (cflAllowed) UVMode = sd.symbol(cdf.uv_mode_cfl_allowed[YMode], 14);
-        else UVMode = sd.symbol(cdf.uv_mode_cfl_not_allowed[YMode], 13);
-        if (UVMode == UV_CFL_PRED) read_cfl_alphas();
-        if (MiSize >= BLOCK_8X8 && UVMode >= V_PRED && UVMode <= D67_PRED)
-          AngleDeltaUV = sd.symbol(cdf.angle_delta[UVMode - V_PRED], 7) - 3;
-      } else {
-        UVMode = DC_PRED;
-      }
-      if (MiSize >= BLOCK_8X8 && block_width(MiSize) <= 64 && block_height(MiSize) <= 64 &&
-          P.allow_screen_content_tools)
-        palette_mode_info();
-      if (P.enable_filter_intra && YMode == DC_PRED && PaletteSizeY == 0 &&
-          imax(block_width(MiSize), block_height(MiSize)) <= 32) {
-        use_filter_intra = sd.symbol(cdf.filter_intra[MiSize], 2);
-        if (use_filter_intra) filter_intra_mode = sd.symbol(cdf.filter_intra_mode, 5);
-      }
+      intra_modes_after_y();
+    }
+  }
+
+  // the rest of an intra block's modes once YMode is read: angle deltas,
+  // the chroma mode and CfL, palette, filter intra
+  void intra_modes_after_y() {
+    if (MiSize >= BLOCK_8X8 && YMode >= V_PRED && YMode <= D67_PRED)
+      AngleDeltaY = sd.symbol(cdf.angle_delta[YMode - V_PRED], 7) - 3;
+    if (HasChroma) {
+      int cflAllowed;
+      if (Lossless && plane_size(1) == BLOCK_4X4) cflAllowed = 1;
+      else if (!Lossless && imax(block_width(MiSize), block_height(MiSize)) <= 32) cflAllowed = 1;
+      else cflAllowed = 0;
+      if (cflAllowed) UVMode = sd.symbol(cdf.uv_mode_cfl_allowed[YMode], 14);
+      else UVMode = sd.symbol(cdf.uv_mode_cfl_not_allowed[YMode], 13);
+      if (UVMode == UV_CFL_PRED) read_cfl_alphas();
+      if (MiSize >= BLOCK_8X8 && UVMode >= V_PRED && UVMode <= D67_PRED)
+        AngleDeltaUV = sd.symbol(cdf.angle_delta[UVMode - V_PRED], 7) - 3;
+    } else {
+      UVMode = DC_PRED;
+    }
+    if (MiSize >= BLOCK_8X8 && block_width(MiSize) <= 64 && block_height(MiSize) <= 64 &&
+        P.allow_screen_content_tools)
+      palette_mode_info();
+    if (P.enable_filter_intra && YMode == DC_PRED && PaletteSizeY == 0 &&
+        imax(block_width(MiSize), block_height(MiSize)) <= 32) {
+      use_filter_intra = sd.symbol(cdf.filter_intra[MiSize], 2);
+      if (use_filter_intra) filter_intra_mode = sd.symbol(cdf.filter_intra_mode, 5);
     }
   }
 
@@ -1222,19 +1425,40 @@ struct Decoder {
     }
   }
 
-  // ------------------------------------------------------------- IntraBC
-  int NumMvFound;
-  int RefStackMv[8][2], WeightStack[8];
+  // ------------------------------------------------ MV prediction (7.10.2)
+  // The stack of candidate vectors for RefFrame[0] (INTRA_FRAME for
+  // IntraBC): the neighbours' vectors weighted by the length they share with
+  // the block, the nearest rows and columns first, sorted; extra search of
+  // other references (their vectors negated where the sign bias differs);
+  // then the contexts of the mode symbols and the clamping. Single
+  // references only; no temporal candidates (use_ref_frame_mvs raises
+  // before the tiles) and no global motion (every GlobalMvs is zero).
+  int NumMvFound, NewMvCount, FoundMatch, CloseMatches, TotalMatches;
+  int NewMvContext, RefMvContext, ZeroMvContext;
+  int RefStackMv[9][2], WeightStack[9], DrlCtxStack[9];
 
+  void lower_mv_precision(int* mv) const {
+    if (P.allow_high_precision_mv) return;
+    for (int i = 0; i < 2; i++) {
+      if (P.force_integer_mv) {
+        int a = abs(mv[i]), aInt = (a + 3) >> 3;
+        mv[i] = mv[i] > 0 ? (aInt << 3) : -(aInt << 3);
+      } else if (mv[i] & 1) {
+        mv[i] += mv[i] > 0 ? -1 : 1;
+      }
+    }
+  }
+  static bool has_newmv(int mode) {
+    return mode == NEWMV || mode == NEW_NEWMV || mode == NEAREST_NEWMV || mode == NEW_NEARESTMV ||
+           mode == NEAR_NEWMV || mode == NEW_NEARMV;
+  }
   void add_ref_mv_candidate(int r, int c, int weight) {
     size_t k = mi(r, c);
-    if (!IsInters[k]) return;
-    // RefFrames[r][c][0] == INTRA_FRAME == RefFrame[0]; list 1 is NONE
+    if (!IsInters[k] || RefFrame0[k] != RefFrame[0]) return;  // list 1 is NONE
     int cand[2] = {MvRow[k], MvCol[k]};
-    for (int i = 0; i < 2; i++) {  // lower_mv_precision, integer
-      int a = abs(cand[i]), aInt = (a + 3) >> 3;
-      cand[i] = cand[i] > 0 ? (aInt << 3) : -(aInt << 3);
-    }
+    lower_mv_precision(cand);
+    if (has_newmv(YModes[k])) NewMvCount++;
+    FoundMatch = 1;
     int idx;
     for (idx = 0; idx < NumMvFound; idx++)
       if (cand[0] == RefStackMv[idx][0] && cand[1] == RefStackMv[idx][1]) break;
@@ -1298,33 +1522,110 @@ struct Decoder {
       end = newEnd;
     }
   }
-
-  void find_mv_stack_and_assign() {
+  void add_extra_mv_candidate(int r, int c) {
+    size_t k = mi(r, c);
+    int candRef = RefFrame0[k];
+    if (candRef <= INTRA_FRAME) return;
+    int cand[2] = {MvRow[k], MvCol[k]};
+    if (P.RefFrameSignBias[candRef] != P.RefFrameSignBias[RefFrame[0]]) {
+      cand[0] *= -1;
+      cand[1] *= -1;
+    }
+    int idx;
+    for (idx = 0; idx < NumMvFound; idx++)
+      if (cand[0] == RefStackMv[idx][0] && cand[1] == RefStackMv[idx][1]) break;
+    if (idx == NumMvFound) {
+      RefStackMv[idx][0] = cand[0];
+      RefStackMv[idx][1] = cand[1];
+      WeightStack[idx] = 2;
+      NumMvFound++;
+    }
+  }
+  void extra_search() {
+    int w4 = imin(imin(16, bw4(MiSize)), MiCols - MiCol), h4 = imin(imin(16, bh4(MiSize)), MiRows - MiRow);
+    int num4x4 = imin(w4, h4);
+    for (int pass = 0; pass < 2 && NumMvFound < 2; pass++) {
+      int idx = 0;
+      while (idx < num4x4 && NumMvFound < 2) {
+        int r = pass == 0 ? MiRow - 1 : MiRow + idx, c = pass == 0 ? MiCol + idx : MiCol - 1;
+        if (!is_inside(r, c)) break;
+        add_extra_mv_candidate(r, c);
+        idx += pass == 0 ? bw4(MiSizes[mi(r, c)]) : bh4(MiSizes[mi(r, c)]);
+      }
+    }
+    for (int idx = NumMvFound; idx < 2; idx++) RefStackMv[idx][0] = RefStackMv[idx][1] = 0;  // GlobalMvs[0]
+  }
+  void find_mv_stack() {
     int w4 = bw4(MiSize), h4 = bh4(MiSize);
-    NumMvFound = 0;
+    NumMvFound = NewMvCount = 0;
+    FoundMatch = 0;
     scan_row(-1);
+    int foundAboveMatch = FoundMatch;
+    FoundMatch = 0;
     scan_col(-1);
+    int foundLeftMatch = FoundMatch;
+    FoundMatch = 0;
     if (imax(w4, h4) <= 16) scan_point(-1, w4);
-    int numNearest = NumMvFound;
-    for (int i = 0; i < numNearest; i++) WeightStack[i] += 640;
+    if (FoundMatch) foundAboveMatch = 1;
+    CloseMatches = foundAboveMatch + foundLeftMatch;
+    int numNearest = NumMvFound, numNew = NewMvCount;
+    for (int i = 0; i < numNearest; i++) WeightStack[i] += REF_CAT_LEVEL;
+    ZeroMvContext = 0;
+    FoundMatch = 0;
     scan_point(-1, -1);
+    if (FoundMatch) foundAboveMatch = 1;
+    FoundMatch = 0;
     scan_row(-3);
+    if (FoundMatch) foundAboveMatch = 1;
+    FoundMatch = 0;
     scan_col(-3);
+    if (FoundMatch) foundLeftMatch = 1;
+    FoundMatch = 0;
     if (h4 > 1) scan_row(-5);
+    if (FoundMatch) foundAboveMatch = 1;
+    FoundMatch = 0;
     if (w4 > 1) scan_col(-5);
+    if (FoundMatch) foundLeftMatch = 1;
+    TotalMatches = foundAboveMatch + foundLeftMatch;
     sort_stack(0, numNearest);
     sort_stack(numNearest, NumMvFound);
-    // extra search adds nothing for an intra reference; the rest are zero
-    for (int idx = NumMvFound; idx < 2; idx++) RefStackMv[idx][0] = RefStackMv[idx][1] = 0;
-    for (int idx = 0; idx < NumMvFound; idx++) {  // clamping
-      int bh = bh4(MiSize), bw = bw4(MiSize);
-      int border = 128 + bh * 4 * 8;
-      int toTop = -((MiRow * 4) * 8), toBottom = ((MiRows - bh - MiRow) * 4) * 8;
+    if (NumMvFound < 2) extra_search();
+    // context_and_clamping (7.10.2.14)
+    for (int idx = 0; idx < NumMvFound; idx++) {
+      int z = 0;
+      if (idx + 1 < NumMvFound) {
+        int w0 = WeightStack[idx], w1 = WeightStack[idx + 1];
+        if (w0 >= REF_CAT_LEVEL) z = w1 < REF_CAT_LEVEL;
+        else z = 2;
+      }
+      DrlCtxStack[idx] = z;
+    }
+    for (int idx = 0; idx < NumMvFound; idx++) {
+      int border = MV_BORDER + h4 * 4 * 8;
+      int toTop = -((MiRow * 4) * 8), toBottom = ((MiRows - h4 - MiRow) * 4) * 8;
       RefStackMv[idx][0] = clip3(toTop - border, toBottom + border, RefStackMv[idx][0]);
-      border = 128 + bw * 4 * 8;
-      int toLeft = -((MiCol * 4) * 8), toRight = ((MiCols - bw - MiCol) * 4) * 8;
+      border = MV_BORDER + w4 * 4 * 8;
+      int toLeft = -((MiCol * 4) * 8), toRight = ((MiCols - w4 - MiCol) * 4) * 8;
       RefStackMv[idx][1] = clip3(toLeft - border, toRight + border, RefStackMv[idx][1]);
     }
+    if (CloseMatches == 0) {
+      NewMvContext = imin(TotalMatches, 1);
+      RefMvContext = TotalMatches;
+    } else if (CloseMatches == 1) {
+      NewMvContext = 3 - imin(numNew, 1);
+      RefMvContext = 2 + TotalMatches;
+    } else {
+      NewMvContext = 5 - imin(numNew, 1);
+      RefMvContext = 5;
+    }
+  }
+
+  // IntraBC (5.11.26 with use_intrabc): the stack's first nonzero vector,
+  // or a superblock up or left, plus a whole-pel difference
+  void find_mv_stack_and_assign() {
+    RefFrame[0] = INTRA_FRAME;
+    RefFrame[1] = NONE;
+    find_mv_stack();
     int pred[2] = {RefStackMv[0][0], RefStackMv[0][1]};
     if (pred[0] == 0 && pred[1] == 0) { pred[0] = RefStackMv[1][0]; pred[1] = RefStackMv[1][1]; }
     if (pred[0] == 0 && pred[1] == 0) {
@@ -1337,79 +1638,120 @@ struct Decoder {
         pred[1] = 0;
       }
     }
-    // read_mv with MvCtx = MV_INTRABC_CONTEXT, integer precision
-    int diff[2] = {0, 0};
-    int joint = sd.symbol(cdf.mv_joint, 4);
-    if (joint == 2 || joint == 3) diff[0] = read_mv_component(0);
-    if (joint == 1 || joint == 3) diff[1] = read_mv_component(1);
-    Mv[0] = pred[0] + diff[0];
-    Mv[1] = pred[1] + diff[1];
+    Mv[0] = pred[0];
+    Mv[1] = pred[1];
+    read_mv(1);  // MV_INTRABC_CONTEXT, integer precision
     if ((Mv[0] & 7) || (Mv[1] & 7)) fail("IntraBC vector is not whole-pel");
   }
-  int read_mv_component(int comp) {
-    int sign = sd.symbol(cdf.mv_sign[comp], 2);
-    int cls = sd.symbol(cdf.mv_class[comp], 11);
+  // read_mv (5.11.32): Mv += the coded difference, at the frame's
+  // precision (force_integer_mv, allow_high_precision_mv); MvCtx 0, or 1
+  // for IntraBC
+  void read_mv(int ctx) {
+    int joint = sd.symbol(cdf.mv_joint[ctx], 4);
+    if (joint == 2 || joint == 3) Mv[0] += read_mv_component(ctx, 0);
+    if (joint == 1 || joint == 3) Mv[1] += read_mv_component(ctx, 1);
+  }
+  int read_mv_component(int ctx, int comp) {
+    int sign = sd.symbol(cdf.mv_sign[ctx][comp], 2);
+    int cls = sd.symbol(cdf.mv_class[ctx][comp], 11);
     int mag;
     if (cls == 0) {
-      int bit = sd.symbol(cdf.mv_class0_bit[comp], 2);
-      mag = ((bit << 3) | (3 << 1) | 1) + 1;
+      int bit = sd.symbol(cdf.mv_class0_bit[ctx][comp], 2);
+      int fr = P.force_integer_mv ? 3 : sd.symbol(cdf.mv_class0_fr[ctx][comp][bit], 4);
+      int hp = P.allow_high_precision_mv ? sd.symbol(cdf.mv_class0_hp[ctx][comp], 2) : 1;
+      mag = ((bit << 3) | (fr << 1) | hp) + 1;
     } else {
       int d = 0;
-      for (int i = 0; i < cls; i++) d |= sd.symbol(cdf.mv_bit[comp][i], 2) << i;
+      for (int i = 0; i < cls; i++) d |= sd.symbol(cdf.mv_bit[ctx][comp][i], 2) << i;
       mag = 2 << (cls + 2);
-      mag += ((d << 3) | (3 << 1) | 1) + 1;
+      int fr = P.force_integer_mv ? 3 : sd.symbol(cdf.mv_fr[ctx][comp], 4);
+      int hp = P.allow_high_precision_mv ? sd.symbol(cdf.mv_hp[ctx][comp], 2) : 1;
+      mag += ((d << 3) | (fr << 1) | hp) + 1;
     }
     return sign ? -mag : mag;
   }
 
   // ---------------------------------------------------------- prediction
+  // 7.11.3: an inter block's prediction, per plane: one from the block's
+  // own vector, or, for chroma of a block under 8x8 whose neighbours in its
+  // 8x8 are all inter, one from each of those luma blocks' vectors and
+  // filters (candRow / candCol); IntraBC predicts from the current frame
   void compute_prediction() {
     if (!is_inter) return;  // intra prediction runs per transform block
     for (int plane = 0; plane < 1 + HasChroma * 2; plane++) {
       int planeSz = plane_size(plane);
-      int w = bw4(planeSz) * 4, h = bh4(planeSz) * 4;
-      int baseX = (MiCol >> ssx(plane)) * 4, baseY = (MiRow >> ssy(plane)) * 4;
-      // someUseIntra holds for IntraBC: one prediction from this block's vector
-      predict_intrabc(plane, baseX, baseY, w, h);
+      int num4x4W = bw4(planeSz), num4x4H = bh4(planeSz);
+      int subX = ssx(plane), subY = ssy(plane);
+      int baseX = (MiCol >> subX) * 4, baseY = (MiRow >> subY) * 4;
+      if (use_intrabc) {
+        // the reference is the current frame: its edge is the decoded,
+        // 8-aligned MiCols x MiRows area, not the frame size (as dav1d
+        // bounds it); the filter is BILINEAR
+        predict(F.at(plane, 0, 0), F.stride[plane], ((MiCols * 4) >> subX) - 1, ((MiRows * 4) >> subY) - 1, plane,
+                baseX, baseY, num4x4W * 4, num4x4H * 4, Mv, BILINEAR);
+        continue;
+      }
+      int candRow = (MiRow >> subY) << subY, candCol = (MiCol >> subX) << subX;
+      int predW = block_width(MiSize) >> subX, predH = block_height(MiSize) >> subY;
+      bool someUseIntra = false;
+      for (int r = 0; r < (num4x4H << subY); r++)
+        for (int c = 0; c < (num4x4W << subX); c++)
+          if (RefFrame0[mi(candRow + r, candCol + c)] == INTRA_FRAME) someUseIntra = true;
+      if (someUseIntra) {
+        predW = num4x4W * 4;
+        predH = num4x4H * 4;
+        candRow = MiRow;
+        candCol = MiCol;
+      }
+      // references of the frame's own size (others raise before the tiles)
+      int refW = (P.UpscaledWidth + subX) >> subX, refH = (P.FrameHeight + subY) >> subY;
+      for (int y = 0, r = 0; y < num4x4H * 4; y += predH, r++)
+        for (int x = 0, c = 0; x < num4x4W * 4; x += predW, c++) {
+          size_t k = mi(candRow + r, candCol + c);
+          int mv[2] = {MvRow[k], MvCol[k]};
+          predict(RefPlanes[RefFrame0[k]][plane], refW, refW - 1, refH - 1, plane, baseX + x, baseY + y, predW, predH,
+                  mv, InterpFilters[k]);
+        }
     }
   }
 
-  void predict_intrabc(int plane, int x, int y, int w, int h) {
+  // motion_vector_scaling (7.11.3.3) for a reference of the frame's size
+  // (xScale = yScale = 1 << 14: positions in 1/1024 samples, steps of 1024)
+  // and block_inter_prediction (7.11.3.4): the 8-tap filter across, rounded
+  // by InterRound0, then down, rounded by InterRound1 to a sample (not
+  // compound), reading the reference clamped at (lastX, lastY); a block 4
+  // samples wide or high takes the 4-tap filters in that direction
+  void predict(const pixel* ref, int refStride, int lastX, int lastY, int plane, int x, int y, int w, int h,
+               const int* mv, int filter) {
     int sx = ssx(plane), sy = ssy(plane);
-    // motion vector scaling with xScale = yScale = 1 << 14
-    int startX = ((x << 4) + ((2 * Mv[1]) >> sx)) * 64 + 32;
-    int startY = ((y << 4) + ((2 * Mv[0]) >> sy)) * 64 + 32;
-    // the reference is the current frame: its edge is the decoded, 8-aligned
-    // MiCols x MiRows area, not the frame size (as dav1d bounds it)
-    int lastX = ((MiCols * 4) >> sx) - 1, lastY = ((MiRows * 4) >> sy) - 1;
+    int startX = ((x << 4) + ((2 * mv[1]) >> sx)) * 64 + 32;
+    int startY = ((y << 4) + ((2 * mv[0]) >> sy)) * 64 + 32;
+    auto small = [filter](int n) {
+      if (n > 4) return filter;
+      return filter == EIGHTTAP || filter == EIGHTTAP_SHARP ? 4 : filter == EIGHTTAP_SMOOTH ? 5 : filter;
+    };
+    int filterX = small(w), filterY = small(h);
     int interH = (((h - 1) * 1024 + 1023) >> 10) + 8;
     int round0 = BitDepth == 12 ? 5 : 3, round1 = BitDepth == 12 ? 9 : 11;  // InterRound0 / 1, not compound
-    static int32_t inter[(128 + 8) * 128];
-    for (int r = 0; r < interH; r++)
+    for (int r = 0; r < interH; r++) {
+      const pixel* row = ref + (size_t)clip3(0, lastY, (startY >> 10) + r - 3) * refStride;
       for (int c = 0; c < w; c++) {
         int p = startX + 1024 * c;
-        int ph = (p & 1023) >> 6;
+        const int16_t* f = Subpel_Filters[filterX][(p >> 6) & 15];
         int s = 0;
-        for (int t = 0; t < 8; t++) {
-          int tap = t == 3 ? 128 - 8 * ph : t == 4 ? 8 * ph : 0;
-          if (!tap) continue;
-          int yy = clip3(0, lastY, (startY >> 10) + r - 3), xx = clip3(0, lastX, (p >> 10) + t - 3);
-          s += tap * *F.at(plane, yy, xx);
-        }
-        inter[r * w + c] = round2(s, round0);
+        for (int t = 0; t < 8; t++) s += f[t] * row[clip3(0, lastX, (p >> 10) + t - 3)];
+        InterBuf[r * w + c] = round2(s, round0);
       }
-    for (int r = 0; r < h; r++)
+    }
+    for (int r = 0; r < h; r++) {
+      int p = (startY & 1023) + 1024 * r;
+      const int16_t* f = Subpel_Filters[filterY][(p >> 6) & 15];
       for (int c = 0; c < w; c++) {
-        int p = (startY & 1023) + 1024 * r;
-        int ph = (p & 1023) >> 6;
         int s = 0;
-        for (int t = 0; t < 8; t++) {
-          int tap = t == 3 ? 128 - 8 * ph : t == 4 ? 8 * ph : 0;
-          if (!tap) continue;
-          s += tap * inter[((p >> 10) + t) * w + c];
-        }
+        for (int t = 0; t < 8; t++) s += f[t] * InterBuf[((p >> 10) + t) * w + c];
         *F.at(plane, y + r, x + c) = clip1(round2(s, round1));
       }
+    }
   }
 
   int get_filter_type(int plane) {
@@ -2210,8 +2552,9 @@ struct Decoder {
   }
   // 7.14.4: the level of the block at (row, col) for a plane and direction,
   // from the frame's level, the block's delta lf (one, or one per edge
-  // direction and plane with delta_lf_multi) and its segment's
-  // SEG_LVL_ALT_LF_Y_V + i
+  // direction and plane with delta_lf_multi), its segment's
+  // SEG_LVL_ALT_LF_Y_V + i, and the deltas of its reference frame and of
+  // its inter mode
   int filter_level(int row, int col, int plane, int pass) {
     int i = plane == 0 ? pass : plane + 1;
     int deltaLF = DeltaLFs[mi(row, col) * 4 + (P.delta_lf_multi ? i : 0)];
@@ -2221,7 +2564,12 @@ struct Decoder {
       lvlSeg = clip3(0, 63, lvlSeg + P.FeatureData[segment][feature]);
     if (P.lf_delta_enabled) {
       int nShift = lvlSeg >> 5;
-      lvlSeg += P.lf_ref_deltas[0] * (1 << nShift);  // intra reference
+      int ref = RefFrame0[mi(row, col)];
+      lvlSeg += P.lf_ref_deltas[ref] * (1 << nShift);
+      if (ref > INTRA_FRAME) {  // modeType 1 but for GLOBALMV
+        int mode = YModes[mi(row, col)];
+        lvlSeg += P.lf_mode_deltas[mode >= NEARESTMV && mode != GLOBALMV && mode != GLOBAL_GLOBALMV] * (1 << nShift);
+      }
       lvlSeg = clip3(0, 63, lvlSeg);
     }
     return lvlSeg;
@@ -2992,13 +3340,52 @@ struct Decoder {
     }
   }
 
-  int run(const int32_t* prm, const uint8_t* data, const int64_t* tiles, int ntiles, pixel* oy, pixel* ou,
-          pixel* ov) {
+  void setup(const int32_t* prm) {
     failed = false;
     err[0] = 0;
     memcpy(&P, prm, sizeof P);
     BitDepth = sizeof(pixel) == 1 ? 8 : P.BitDepth;
     PixelMax = (1 << BitDepth) - 1;
+  }
+
+  // film grain (7.18.3) added to a frame's planes, in place: a decoded
+  // frame's output, or a slot's frame shown again with its grain
+  void grain(const int32_t* prm, pixel* oy, pixel* ou, pixel* ov) {
+    setup(prm);
+    pixel* planes[3] = {oy, ou, ov};
+    int padW = (P.UpscaledWidth + 255) & ~127, padH = (P.FrameHeight + 255) & ~127;
+    for (int p = 0; p < P.NumPlanes; p++) {
+      F.stride[p] = padW >> ssx(p);
+      F.ph[p] = padH >> ssy(p);
+      F.p[p].assign((size_t)F.stride[p] * F.ph[p], 0);
+    }
+    copy_planes(planes, false);
+    film_grain();
+    copy_planes(planes, true);
+  }
+  void copy_planes(pixel* const* planes, bool out) {
+    for (int p = 0; p < P.NumPlanes; p++) {
+      int pw = (P.UpscaledWidth + ssx(p)) >> ssx(p), ph = (P.FrameHeight + ssy(p)) >> ssy(p);
+      for (int y = 0; y < ph; y++) {
+        pixel* a = planes[p] + (size_t)y * pw;
+        if (out) memcpy(a, F.at(p, y, 0), pw * sizeof(pixel));
+        else memcpy(F.at(p, y, 0), a, pw * sizeof(pixel));
+      }
+    }
+  }
+
+  // decode one frame into oy / ou / ov before film grain; an inter frame
+  // predicts from `refs` (7 x 3 planes, LAST_FRAME first, each of the
+  // frame's size); where given, mode_info receives each 4x4's RefFrame[0],
+  // vector, YMode, transform size, block size and interpolation filter
+  // (MODE_INFO_FIELDS int16 a 4x4, row-major over MiRows x MiCols), segments
+  // its segment id, and cdfs the frame's end-of-frame CDFs (7.20)
+  int run(const int32_t* prm, const uint8_t* data, const int64_t* tiles, int ntiles, pixel* oy, pixel* ou,
+          pixel* ov, const void* const* refs, int16_t* mode_info, uint8_t* segments, Cdfs* cdfs) {
+    setup(prm);
+    for (int r = 0; r < 8; r++)
+      for (int p = 0; p < 3; p++)
+        RefPlanes[r][p] = r > 0 && refs ? (const pixel*)refs[3 * (r - 1) + p] : nullptr;
     MiCols = 2 * ((P.FrameWidth + 7) >> 3);
     MiRows = 2 * ((P.FrameHeight + 7) >> 3);
     CodedLossless = true;
@@ -3011,7 +3398,7 @@ struct Decoder {
     MiStride = MiCols + 40;
     size_t nmi = (size_t)(MiRows + 40) * MiStride;
     for (auto* v : {&MiSizes, &YModes, &UVModes, &IsInters, &Skips, &InterTxSizes, &PaletteSizes[0],
-                    &PaletteSizes[1], &Decoded, &TxTypes})
+                    &PaletteSizes[1], &Decoded, &TxTypes, &InterpFilters})
       v->assign(nmi, 0);
     RefFrame0.assign(nmi, 0);
     SegmentIds.assign(nmi, 0);
@@ -3048,6 +3435,7 @@ struct Decoder {
     }
     build_scans();
     if (ntiles != P.TileCols * P.TileRows) { fail("tile count mismatch"); return 1; }
+    if (cdfs) cdfs->init(P.base_q_idx);  // what the frame keeps under disable_frame_end_update_cdf
     for (int t = 0; t < ntiles && !failed; t++) {
       int tileRow = t / P.TileCols, tileCol = t % P.TileCols;
       MiRowStart = P.MiRowStarts[tileRow];
@@ -3055,8 +3443,24 @@ struct Decoder {
       MiColStart = P.MiColStarts[tileCol];
       MiColEnd = P.MiColStarts[tileCol + 1];
       decode_tile(data + tiles[2 * t], tiles[2 * t + 1]);
+      if (cdfs && t == P.context_update_tile_id && !P.disable_frame_end_update_cdf) *cdfs = cdf;
     }
     if (failed) return 1;
+    for (int r = 0; r < MiRows; r++)
+      for (int c = 0; c < MiCols; c++) {
+        size_t k = mi(r, c), o = (size_t)r * MiCols + c;
+        if (mode_info) {
+          int16_t* m = mode_info + MODE_INFO_FIELDS * o;
+          m[0] = RefFrame0[k];
+          m[1] = MvRow[k];
+          m[2] = MvCol[k];
+          m[3] = YModes[k];
+          m[4] = InterTxSizes[k];
+          m[5] = MiSizes[k];
+          m[6] = InterpFilters[k];
+        }
+        if (segments) segments[o] = SegmentIds[k];
+      }
     if (!P.allow_intrabc && !CodedLossless) loop_filter();
     deblocked = F;  // CDEF's input, and loop restoration's outside its stripe
     if (!P.allow_intrabc && !CodedLossless) cdef();
@@ -3065,21 +3469,19 @@ struct Decoder {
       deblocked = upscaled(deblocked);
     }
     if (!P.allow_intrabc) loop_restoration();  // none where the header read AllLossless
-    film_grain();
     pixel* out[3] = {oy, ou, ov};
-    for (int p = 0; p < P.NumPlanes; p++) {
-      int pw = (P.UpscaledWidth + ssx(p)) >> ssx(p), ph = (P.FrameHeight + ssy(p)) >> ssy(p);
-      for (int y = 0; y < ph; y++) memcpy(out[p] + (size_t)y * pw, F.at(p, y, 0), pw * sizeof(pixel));
-    }
+    copy_planes(out, true);
     return 0;
   }
 };
 
 template <typename pixel>
 int decode_as(const int32_t* params, const uint8_t* data, const int64_t* tiles, int ntiles, void* y, void* u,
-              void* v, char* err, int errlen) {
+              void* v, const void* const* refs, int16_t* mode_info, uint8_t* segments, void* cdfs, char* err,
+              int errlen) {
   Decoder<pixel>* d = new Decoder<pixel>();
-  int rc = d->run(params, data, tiles, ntiles, (pixel*)y, (pixel*)u, (pixel*)v);
+  int rc = d->run(params, data, tiles, ntiles, (pixel*)y, (pixel*)u, (pixel*)v, refs, mode_info, segments,
+                  (Cdfs*)cdfs);
   if (rc && err && errlen > 0) snprintf(err, errlen, "%s", d->err);
   delete d;
   return rc;
@@ -3092,18 +3494,46 @@ extern "C" {
 // The number of int32 frame parameters av1_decode_frame reads.
 int av1_param_count(void) { return (int)(sizeof(Params) / sizeof(int32_t)); }
 
+// The bytes of the CDFs av1_decode_frame keeps for a frame.
+int av1_cdf_bytes(void) { return (int)sizeof(Cdfs); }
+
 // Decode one frame: `params` (Params, in order), the tiles' bytes in `data`
 // at (offset, size) pairs `tiles`, into Y (H x W) and U, V ((H + ssy) >> ssy
 // x (W + ssx) >> ssx each; not written for a monochrome frame, where they
 // may be null): uint8_t samples where Params.BitDepth is 8, uint16_t at 10
-// and 12. Returns 0, or 1 with the reason in `err`.
+// and 12, the frame before film grain (av1_film_grain adds it). An inter
+// frame reads `refs`, 21 planes of the same layout (LAST_FRAME's Y, U, V,
+// then LAST2_FRAME's, .. ALTREF_FRAME's; null in an intra frame). Where not
+// null, `mode_info` (MiRows x MiCols x 7 int16: RefFrame[0], the vector's
+// row and column, YMode, the transform size, MiSize, the interpolation
+// filter), `segments` (MiRows x MiCols) and `cdfs`
+// (av1_cdf_bytes()) receive what the frame leaves for later frames.
+// Returns 0, or 1 with the reason in `err`.
 int av1_decode_frame(const int32_t* params, const uint8_t* data, const int64_t* tiles, int ntiles, void* y,
-                     void* u, void* v, char* err, int errlen) {
+                     void* u, void* v, const void* const* refs, int16_t* mode_info, uint8_t* segments, void* cdfs,
+                     char* err, int errlen) {
   int depth = ((const Params*)params)->BitDepth;
-  if (depth == 8) return decode_as<uint8_t>(params, data, tiles, ntiles, y, u, v, err, errlen);
-  if (depth == 10 || depth == 12) return decode_as<uint16_t>(params, data, tiles, ntiles, y, u, v, err, errlen);
+  if (depth == 8)
+    return decode_as<uint8_t>(params, data, tiles, ntiles, y, u, v, refs, mode_info, segments, cdfs, err, errlen);
+  if (depth == 10 || depth == 12)
+    return decode_as<uint16_t>(params, data, tiles, ntiles, y, u, v, refs, mode_info, segments, cdfs, err, errlen);
   if (err && errlen > 0) snprintf(err, errlen, "bit depth %d is not 8, 10 or 12", depth);
   return 1;
+}
+
+// Add the film grain of `params` (apply_grain set) to a frame's Y, U, V in
+// place, laid out as av1_decode_frame writes them.
+void av1_film_grain(const int32_t* params, void* y, void* u, void* v) {
+  int depth = ((const Params*)params)->BitDepth;
+  if (depth == 8) {
+    Decoder<uint8_t>* d = new Decoder<uint8_t>();
+    d->grain(params, (uint8_t*)y, (uint8_t*)u, (uint8_t*)v);
+    delete d;
+  } else {
+    Decoder<uint16_t>* d = new Decoder<uint16_t>();
+    d->grain(params, (uint16_t*)y, (uint16_t*)u, (uint16_t*)v);
+    delete d;
+  }
 }
 
 // One 1-D inverse transform (0 DCT, 1 ADST, 3 identity) of n values, for

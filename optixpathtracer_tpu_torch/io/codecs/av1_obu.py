@@ -1,36 +1,47 @@
 """AV1 OBUs and headers (AV1 Bitstream & Decoding Process Specification,
 section 5): the OBU headers, the sequence header (the reduced still-picture
-form and the full one), the uncompressed header of a key frame and the
-tile groups' tile offsets and sizes, then the tile decode in C++
-(`csrc/host/av1_dec.cpp`, built by utils/host_build).
+form and the full one), the uncompressed header of every frame type (the
+inter frame's references, size, interpolation filter, order hints,
+segmentation, loop filter deltas, reference mode, skip mode, global motion
+and film grain against its references) and the tile groups' tile offsets
+and sizes, then the tile decode in C++ (`csrc/host/av1_dec.cpp`, built by
+utils/host_build).
 
 `decode(obus)` takes the OBUs of an AVIF item (`[TD], SEQ, FRAME` as aom
 writes them, or a frame header and tile groups) and returns the Y / U / V
 planes of the first frame it shows (4:2:0, 4:2:2, 4:4:4; U and V None for
 a monochrome frame; uint8 at 8 bits, uint16 at 10 and 12: profiles 0-2)
 and the sequence header; the frame's quantizer matrix levels, delta q /
-delta lf, segmentation, CDEF, superres, loop restoration and film grain
+delta lf, segmentation, CDEF, superres, loop restoration and inter
 parameters go to the native decoder with the rest (superres upscales after
-CDEF, film grain is applied after loop restoration, as dav1d applies it).
+CDEF), and film grain is added to the frame shown after loop restoration,
+as dav1d adds it.
 
-libavif hands the item to dav1d and keeps the first picture dav1d outputs,
-and dav1d parses the OBUs one at a time and stops at that picture: so does
-the port, and what follows the first shown frame is never read. Frames
-before it that are not shown (a hidden key frame, an intra-only frame) are
-decoded into the reference slots their refresh_frame_flags name; a
-show_existing_frame outputs its slot's frame, with the grain that frame
-carries (load_grain_params), and fails where the slot is empty (ROADMAP
-C.17), as does an inter frame that refers to an empty slot. Tile list OBUs
-are skipped, as dav1d skips them.
+libavif hands the item to dav1d and keeps the first picture dav1d outputs;
+dav1d decodes every frame of the item, and so does the port. Frames are
+decoded into the reference slots their refresh_frame_flags name (spec 7.20:
+each slot keeps the frame before film grain and what later frames read of
+it); a show_existing_frame outputs its slot's frame with the grain that
+frame carries (load_grain_params), and fails where the slot is empty
+(ROADMAP C.17), as does an inter frame that refers to an empty slot. Tile
+list OBUs are skipped, as dav1d skips them.
+
+Inter frames (AVIF step 7) decode with single references of the frame's
+own size, translational motion (NEWMV, NEARESTMV, NEARMV, GLOBALMV of an
+identity model), a fixed or per-block interpolation filter, intra blocks
+among them, and CDFs from the defaults (primary_ref_frame none). What the
+port does not decode yet raises NotImplementedError naming ROADMAP A.1
+and the tool, and no tile of that frame is decoded: motion-field
+projection, OBMC and local warped motion, global motion and the dual filter
+(AVIF step 8); compound prediction, skip mode, inter-intra prediction, CDFs
+loaded from a reference and scaled references (AVIF step 9).
 
 Every failure inside the AV1 stream (an OBU or header read past its data,
 a tile size past its tile group, tile groups out of order, the symbol
 decoder's overread that dav1d checks at the end of each superblock row,
-no frame shown) is dav1d's, and libavif reports each as "Decoding of color
-planes failed" (ROADMAP C.19); avif.py turns it into its alpha message for
-the alpha item. What the port does not decode yet raises
-NotImplementedError naming ROADMAP A.1 (AVIF step 7): an AV1 inter frame
-shown first, which needs inter prediction. There is no Python tile
+no frame shown, a reference dav1d refuses) is dav1d's, and libavif reports
+each as "Decoding of color planes failed" (ROADMAP C.19); avif.py turns it
+into its alpha message for the alpha item. There is no Python tile
 decoder: under OPTIX_TPU_NO_NATIVE=1 the decode raises naming the
 switch."""
 from __future__ import annotations
@@ -199,18 +210,21 @@ def sequence_header(payload) -> dict:
     s["enable_filter_intra"] = b.f(1)
     s["enable_intra_edge_filter"] = b.f(1)
     s["order_hint_bits"] = 0
+    for key in ("enable_interintra_compound", "enable_masked_compound", "enable_warped_motion", "enable_dual_filter",
+                "enable_jnt_comp", "enable_ref_frame_mvs"):
+        s[key] = 0
     if s["reduced"]:
         s["force_screen_content_tools"] = SELECT
         s["force_integer_mv"] = SELECT
     else:
-        b.f(1)  # enable_interintra_compound
-        b.f(1)  # enable_masked_compound
-        b.f(1)  # enable_warped_motion
-        b.f(1)  # enable_dual_filter
+        s["enable_interintra_compound"] = b.f(1)
+        s["enable_masked_compound"] = b.f(1)
+        s["enable_warped_motion"] = b.f(1)
+        s["enable_dual_filter"] = b.f(1)
         enable_order_hint = b.f(1)
         if enable_order_hint:
-            b.f(1)
-            b.f(1)
+            s["enable_jnt_comp"] = b.f(1)
+            s["enable_ref_frame_mvs"] = b.f(1)
         s["force_screen_content_tools"] = SELECT if b.f(1) else b.f(1)
         if s["force_screen_content_tools"] > 0:
             s["force_integer_mv"] = SELECT if b.f(1) else b.f(1)
@@ -272,13 +286,15 @@ def _tile_log2(blk: int, target: int) -> int:
 
 
 def frame_header(b: Bits, s: dict, slots: list | None = None) -> dict:
-    """The uncompressed header of a key or intra-only frame; b stops at its
+    """The uncompressed header of a frame (5.9.2-5.9.30); b stops at its
     last bit. `slots` are the reference slots filled so far in the item
-    (None where empty): a show_existing_frame returns only
-    {"show_existing_frame": 1, "frame_to_show": slot}, and fails on an
-    empty slot; an inter or switch frame fails where a slot it refers to is
-    empty, and its header is read no further (decode raises A.1 for it:
-    AVIF step 7)."""
+    (None where empty; each a dict of what the frame in it left, see
+    `decode`): a show_existing_frame returns only {"show_existing_frame":
+    1, "frame_to_show": slot}, and fails on an empty slot; an inter or
+    switch frame fails where a slot it refers to is empty, as dav1d fails
+    it, and reads its size, order hints, loop filter deltas, segmentation,
+    global motion and film grain against its references (the defaults
+    where primary_ref_frame is none)."""
     slots = [None] * NUM_REF_FRAMES if slots is None else slots
     h = {"show_existing_frame": 0}
     if s["reduced"]:
@@ -302,17 +318,21 @@ def frame_header(b: Bits, s: dict, slots: list | None = None) -> dict:
     if not intra and all(slot is None for slot in slots):
         raise DecodeError(COLOR_FAILED)  # an inter frame with no frame before it in the item (C.17)
     h["frame_type"], h["show_frame"], h["showable"] = frame_type, show_frame, showable
+    h["error_resilient_mode"] = error_resilient
     h["disable_cdf_update"] = b.f(1)
     sct = b.f(1) if s["force_screen_content_tools"] == SELECT else s["force_screen_content_tools"]
     h["allow_screen_content_tools"] = sct
-    if sct and s["force_integer_mv"] == SELECT:
-        b.f(1)  # force_integer_mv, 1 for intra frames whatever it says
+    fim = 0
+    if sct:
+        fim = b.f(1) if s["force_integer_mv"] == SELECT else s["force_integer_mv"]
+    h["force_integer_mv"] = 1 if intra else fim  # 1 for intra frames whatever it says
     if s["frame_id_numbers_present"]:
         b.f(s["frame_id_length"])
     frame_size_override = 0 if s["reduced"] else 1 if frame_type == SWITCH_FRAME else b.f(1)
-    b.f(s["order_hint_bits"])
+    h["order_hint"] = b.f(s["order_hint_bits"])
+    h["primary_ref_frame"] = PRIMARY_REF_NONE
     if not (intra or error_resilient):
-        b.f(3)  # primary_ref_frame
+        h["primary_ref_frame"] = b.f(3)
     if s["decoder_model_info_present"]:
         if b.f(1):  # buffer_removal_time_present_flag
             for op, present in enumerate(s["decoder_model_present_for_op"]):
@@ -324,12 +344,16 @@ def frame_header(b: Bits, s: dict, slots: list | None = None) -> dict:
     h["refresh_frame_flags"] = refresh
     if (not intra or refresh != 0xFF) and error_resilient and s["order_hint_bits"]:
         for _ in range(NUM_REF_FRAMES):
-            b.f(s["order_hint_bits"])
+            b.f(s["order_hint_bits"])  # ref_order_hint, which dav1d reads and ignores
+    found = False
     if not intra:
-        _inter_refs(b, s, slots)
-        return h
+        h["ref_frame_idx"] = _inter_refs(b, s, slots, h["order_hint"])
+        if frame_size_override and not error_resilient:
+            found = _found_ref(b, h, slots)
     # frame_size, superres_params, render_size
-    if frame_size_override:
+    if found:
+        pass
+    elif frame_size_override:
         h["width"] = b.f(s["frame_width_bits"]) + 1
         h["height"] = b.f(s["frame_height_bits"]) + 1
     else:
@@ -338,13 +362,17 @@ def frame_header(b: Bits, s: dict, slots: list | None = None) -> dict:
     if s["enable_superres"] and b.f(1):  # use_superres
         denom = h["superres_denom"] = b.f(3) + 9
         h["width"] = max((h["upscaled_width"] * 8 + denom // 2) // denom, min(16, h["upscaled_width"]))
-    if b.f(1):  # render_and_frame_size_different
+    if not found and b.f(1):  # render_and_frame_size_different
         b.f(16)
         b.f(16)
-    h["allow_intrabc"] = b.f(1) if sct and h["upscaled_width"] == h["width"] else 0
+    h["allow_intrabc"] = b.f(1) if intra and sct and h["upscaled_width"] == h["width"] else 0
+    if not intra:
+        _inter_fields(b, s, h, slots)
     # disable_frame_end_update_cdf
+    h["disable_frame_end_update_cdf"] = 1
     if not (s["reduced"] or h["disable_cdf_update"]):
-        b.f(1)
+        h["disable_frame_end_update_cdf"] = b.f(1)
+    prev = None if h["primary_ref_frame"] == PRIMARY_REF_NONE else slots[h["ref_frame_idx"][h["primary_ref_frame"]]]
     mi_cols, mi_rows = 2 * ((h["width"] + 7) >> 3), 2 * ((h["height"] + 7) >> 3)
     h["mi_cols"], h["mi_rows"] = mi_cols, mi_rows
     _tile_info(b, s, h)
@@ -365,7 +393,10 @@ def frame_header(b: Bits, s: dict, slots: list | None = None) -> dict:
     if h["using_qmatrix"]:
         h["qm_y"], h["qm_u"] = b.f(4), b.f(4)
         h["qm_v"] = b.f(4) if s["separate_uv_delta_q"] else h["qm_u"]
-    segmentation_params(b, h)
+    if prev is None:
+        segmentation_params(b, h)
+    else:
+        segmentation_params(b, h, prev)
     # delta_q_params / delta_lf_params (5.9.17-5.9.18)
     h["delta_q_present"] = b.f(1) if h["base_q_idx"] > 0 else 0
     h["delta_q_res"] = b.f(2) if h["delta_q_present"] else 0
@@ -378,11 +409,12 @@ def frame_header(b: Bits, s: dict, slots: list | None = None) -> dict:
     # CodedLossless: every segment's qindex 0 and no DC / AC deltas
     deltas = any(h[k] for k in ("dq_y_dc", "dq_u_dc", "dq_u_ac", "dq_v_dc", "dq_v_ac"))
     h["coded_lossless"] = coded_lossless = not deltas and not any(get_qidx(h, i) for i in range(MAX_SEGMENTS))
-    # loop_filter_params
+    # loop_filter_params: the deltas start from the primary reference's
+    # (setup_past_independence's defaults without one)
     h["lf_level"] = [0, 0, 0, 0]
     h["lf_sharpness"], h["lf_delta_enabled"] = 0, 1
-    h["lf_ref_deltas"] = [1, 0, 0, 0, -1, 0, -1, -1]
-    h["lf_mode_deltas"] = [0, 0]
+    h["lf_ref_deltas"] = list(prev["lf_ref_deltas"]) if prev else [1, 0, 0, 0, -1, 0, -1, -1]
+    h["lf_mode_deltas"] = list(prev["lf_mode_deltas"]) if prev else [0, 0]
     if not (coded_lossless or h["allow_intrabc"]):
         h["lf_level"][0], h["lf_level"][1] = b.f(6), b.f(6)
         if not s["mono"] and (h["lf_level"][0] or h["lf_level"][1]):
@@ -424,20 +456,52 @@ def frame_header(b: Bits, s: dict, slots: list | None = None) -> dict:
             h["lr_size"] = [size, size >> uv_shift, size >> uv_shift]
     # read_tx_mode
     h["tx_mode"] = 0 if coded_lossless else (2 if b.f(1) else 1)
+    # frame_reference_mode, skip_mode_params, allow_warped_motion (5.9.23,
+    # 5.9.22): nothing read in an intra frame
+    h["reference_select"] = h["skip_mode_present"] = h["allow_warped_motion"] = 0
+    if not intra:
+        h["reference_select"] = b.f(1)
+        if _skip_mode_allowed(s, h, slots):
+            h["skip_mode_present"] = b.f(1)
+        if not error_resilient and s["enable_warped_motion"]:
+            h["allow_warped_motion"] = b.f(1)
     h["reduced_tx_set"] = b.f(1)
-    # global_motion_params reads nothing in an intra frame
-    h["grain"] = film_grain_params(b, s, h)
+    global_motion_params(b, h, prev)
+    h["grain"] = film_grain_params(b, s, h, slots)
     return h
 
 
-GRAIN_POINTS = COLOR_FAILED  # scaling points dav1d refuses
+PRIMARY_REF_NONE = 7
+# av1_dec.cpp's mode_info of each 4x4: RefFrame[0], the vector's row and
+# column, YMode, the transform size, MiSize, the interpolation filter
+MODE_INFO_FIELDS = 7
+SWITCHABLE = 4  # interpolation_filter: EIGHTTAP, SMOOTH, SHARP, BILINEAR, SWITCHABLE
+LAST_FRAME, GOLDEN_FRAME, BWDREF_FRAME, ALTREF2_FRAME, ALTREF_FRAME = 1, 4, 5, 6, 7
+IDENTITY, TRANSLATION, ROTZOOM, AFFINE = 0, 1, 2, 3
+WARPEDMODEL_PREC_BITS = 16
+DEFAULT_GM_PARAMS = (0, 0, 1 << WARPEDMODEL_PREC_BITS, 0, 0, 1 << WARPEDMODEL_PREC_BITS)
 
 
-def _inter_refs(b: Bits, s: dict, slots: list) -> None:
-    """The reference slots of an inter or switch frame (5.9.2, up to
-    ref_frame_idx): an empty one fails the frame as dav1d fails it."""
+def relative_dist(s: dict, a: int, b: int) -> int:
+    """get_relative_dist (7.12.3): a - b in order hints, wrapped."""
+    if not s["order_hint_bits"]:
+        return 0
+    diff, m = a - b, 1 << (s["order_hint_bits"] - 1)
+    return (diff & (m - 1)) - (diff & m)
+
+
+def _inter_refs(b: Bits, s: dict, slots: list, order_hint: int) -> list:
+    """ref_frame_idx of an inter or switch frame (5.9.2), set_frame_refs
+    (7.8) under frame_refs_short_signaling: an empty slot fails the frame
+    as dav1d fails it."""
     if s["order_hint_bits"] and b.f(1):  # frame_refs_short_signaling: LAST and GOLDEN named
-        refs = [b.f(3), b.f(3)]
+        last, gold = b.f(3), b.f(3)
+        if slots[last] is None or slots[gold] is None:
+            raise DecodeError(COLOR_FAILED)
+        refs = _set_frame_refs(s, slots, order_hint, last, gold)
+        if s["frame_id_numbers_present"]:
+            for _ in range(REFS_PER_FRAME):
+                b.f(s["delta_frame_id_length"])
     else:
         refs = []
         for _ in range(REFS_PER_FRAME):
@@ -446,13 +510,167 @@ def _inter_refs(b: Bits, s: dict, slots: list) -> None:
                 b.f(s["delta_frame_id_length"])
     if any(slots[i] is None for i in refs):
         raise DecodeError(COLOR_FAILED)
+    return refs
 
 
-def film_grain_params(b: Bits, s: dict, h: dict) -> dict:
+def _set_frame_refs(s: dict, slots: list, order_hint: int, last: int, gold: int) -> list:
+    """set_frame_refs (7.8): the five references short signaling leaves
+    out, chosen by their slots' order hints."""
+    refs = [-1] * REFS_PER_FRAME
+    refs[0], refs[GOLDEN_FRAME - LAST_FRAME] = last, gold
+    used = [0] * NUM_REF_FRAMES
+    used[last] = used[gold] = 1
+    cur = 1 << (s["order_hint_bits"] - 1)
+    hints = [cur + relative_dist(s, slot["order_hint"] if slot else 0, order_hint) for slot in slots]
+
+    def pick(backward: bool, latest: bool) -> int:
+        ref, best = -1, 0
+        for i in range(NUM_REF_FRAMES):
+            hint = hints[i]
+            if not used[i] and (hint >= cur) == backward and (
+                    ref < 0 or (hint >= best if latest else hint < best)):
+                ref, best = i, hint
+        if ref >= 0:
+            used[ref] = 1
+        return ref
+    for frame, backward, latest in ((ALTREF_FRAME, True, True), (BWDREF_FRAME, True, False),
+                                    (ALTREF2_FRAME, True, False)):
+        ref = pick(backward, latest)
+        if ref >= 0:
+            refs[frame - LAST_FRAME] = ref
+    for frame in (2, 3, BWDREF_FRAME, ALTREF2_FRAME, ALTREF_FRAME):  # Ref_Frame_List
+        if refs[frame - LAST_FRAME] < 0:
+            ref = pick(False, True)
+            if ref >= 0:
+                refs[frame - LAST_FRAME] = ref
+    earliest = min(range(NUM_REF_FRAMES), key=lambda i: (hints[i], i))
+    return [earliest if r < 0 else r for r in refs]
+
+
+def _found_ref(b: Bits, h: dict, slots: list) -> bool:
+    """frame_size_with_refs (5.9.7): found_ref takes a reference's
+    (upscaled) width and height; False where none is found."""
+    for i in range(REFS_PER_FRAME):
+        if b.f(1):  # found_ref
+            slot = slots[h["ref_frame_idx"][i]]
+            h["width"], h["height"] = slot["upscaled_width"], slot["height"]
+            return True
+    return False
+
+
+def _inter_fields(b: Bits, s: dict, h: dict, slots: list) -> None:
+    """The inter frame's fields after its size (5.9.2): the MV precision,
+    the interpolation filter (5.9.10), is_motion_mode_switchable,
+    use_ref_frame_mvs, and each reference's order hint and sign bias."""
+    h["allow_high_precision_mv"] = 0 if h["force_integer_mv"] else b.f(1)
+    h["interpolation_filter"] = SWITCHABLE if b.f(1) else b.f(2)
+    h["is_motion_mode_switchable"] = b.f(1)
+    h["use_ref_frame_mvs"] = 0
+    if not h["error_resilient_mode"] and s["enable_ref_frame_mvs"]:
+        h["use_ref_frame_mvs"] = b.f(1)
+    h["order_hints"] = [h["order_hint"]] + [slots[i]["order_hint"] for i in h["ref_frame_idx"]]
+    h["ref_frame_sign_bias"] = [0] + [int(relative_dist(s, hint, h["order_hint"]) > 0) for hint in h["order_hints"][1:]]
+
+
+def _skip_mode_allowed(s: dict, h: dict, slots: list) -> bool:
+    """skipModeAllowed (5.9.22), and SkipModeFrame where it holds: the
+    nearest forward and backward references, or the two nearest forward."""
+    if not (h["reference_select"] and s["order_hint_bits"]):
+        return False
+    hints = h["order_hints"][1:]
+    fwd = bwd = -1
+    for i, hint in enumerate(hints):
+        d = relative_dist(s, hint, h["order_hint"])
+        if d < 0 and (fwd < 0 or relative_dist(s, hint, hints[fwd]) > 0):
+            fwd = i
+        elif d > 0 and (bwd < 0 or relative_dist(s, hint, hints[bwd]) < 0):
+            bwd = i
+    if fwd < 0:
+        return False
+    if bwd < 0:
+        for i, hint in enumerate(hints):
+            if relative_dist(s, hint, hints[fwd]) < 0 and (bwd < 0 or relative_dist(s, hint, hints[bwd]) > 0):
+                bwd = i
+        if bwd < 0:
+            return False
+    h["skip_mode_frame"] = [LAST_FRAME + min(fwd, bwd), LAST_FRAME + max(fwd, bwd)]
+    return True
+
+
+def _inverse_recenter(r: int, v: int) -> int:
+    if v > 2 * r:
+        return v
+    return r - ((v + 1) >> 1) if v & 1 else r + (v >> 1)
+
+
+def _signed_subexp_with_ref(b: Bits, low: int, high: int, r: int) -> int:
+    """decode_signed_subexp_with_ref (5.9.26-5.9.28), k = 3."""
+    mx, r = high - low, r - low
+    i = mk = 0
+    while True:
+        b2 = 3 + i - 1 if i else 3
+        a = 1 << b2
+        if mx <= mk + 3 * a:
+            v = b.ns(mx - mk) + mk
+            break
+        if not b.f(1):  # subexp_more_bits
+            v = b.f(b2) + mk
+            break
+        i += 1
+        mk += a
+    x = _inverse_recenter(r, v) if (r << 1) <= mx else mx - 1 - _inverse_recenter(mx - 1 - r, v)
+    return x + low
+
+
+def global_motion_params(b: Bits, h: dict, prev: dict | None) -> None:
+    """5.9.24: each reference's warp model type and parameters, coded
+    against the primary reference's (PrevGmParams; the defaults without
+    one). Nothing is read in an intra frame."""
+    h["gm_type"] = [IDENTITY] * 8
+    h["gm_params"] = [list(DEFAULT_GM_PARAMS) for _ in range(8)]
+    if h["frame_type"] in (KEY_FRAME, INTRA_ONLY_FRAME):
+        return
+    prev_params = prev["gm_params"] if prev else h["gm_params"]
+    for ref in range(LAST_FRAME, ALTREF_FRAME + 1):
+        typ = IDENTITY
+        if b.f(1):  # is_global
+            typ = ROTZOOM if b.f(1) else TRANSLATION if b.f(1) else AFFINE
+        h["gm_type"][ref] = typ
+        params = h["gm_params"][ref]
+
+        def read(idx):
+            abs_bits, prec_bits = 12, 15  # GM_ABS_ALPHA_BITS, GM_ALPHA_PREC_BITS
+            if idx < 2:
+                hp = 1 - h["allow_high_precision_mv"]
+                abs_bits, prec_bits = (9 - hp, 3 - hp) if typ == TRANSLATION else (12, 6)
+            diff = WARPEDMODEL_PREC_BITS - prec_bits
+            rnd = (1 << WARPEDMODEL_PREC_BITS) if idx % 3 == 2 else 0
+            sub = (1 << prec_bits) if idx % 3 == 2 else 0
+            mx = 1 << abs_bits
+            r = (prev_params[ref][idx] >> diff) - sub
+            params[idx] = (_signed_subexp_with_ref(b, -mx, mx + 1, r) << diff) + rnd
+        if typ >= ROTZOOM:
+            read(2)
+            read(3)
+            if typ == AFFINE:
+                read(4)
+                read(5)
+            else:
+                params[4], params[5] = -params[3], params[2]
+        if typ >= TRANSLATION:
+            read(0)
+            read(1)
+
+
+GRAIN_POINTS = COLOR_FAILED  # scaling points dav1d refuses
+
+
+def film_grain_params(b: Bits, s: dict, h: dict, slots: list | None = None) -> dict:
     """5.9.30: the grain of a shown or showable frame of a sequence with
-    film grain; {"apply_grain": 0} where there is none. update_grain is
-    read only in an inter frame (which the port refuses): a key or
-    intra-only frame always carries its own parameters. Scaling points that
+    film grain; {"apply_grain": 0} where there is none. An inter frame
+    may take a reference's parameters (update_grain 0,
+    load_grain_params) with a seed of its own; the slot must be one of
+    its references, as dav1d requires. Scaling points that
     break the spec's rules (more than 14 luma or 10 chroma points, values
     not increasing, one chroma plane of 4:2:0 with points and the other
     without) fail the frame, as dav1d fails it (PIL: RuntimeError)."""
@@ -463,6 +681,17 @@ def film_grain_params(b: Bits, s: dict, h: dict) -> dict:
     if not g["apply_grain"]:
         return g
     g["grain_seed"] = b.f(16)
+    if h["frame_type"] == INTER_FRAME and not b.f(1):  # update_grain
+        idx = b.f(3)  # film_grain_params_ref_idx
+        if idx not in h["ref_frame_idx"] or slots[idx] is None:
+            raise DecodeError(COLOR_FAILED)
+        g = dict(slots[idx]["grain"], apply_grain=1, grain_seed=g["grain_seed"])
+        if "y_points" not in g:  # a reference without grain: dav1d's zeroed parameters
+            g.update(y_points=[], chroma_scaling_from_luma=0, cb_points=[], cr_points=[], grain_scaling_minus_8=0,
+                     ar_coeff_lag=0, ar_coeffs_y_plus_128=[], ar_coeffs_cb_plus_128=[], ar_coeffs_cr_plus_128=[],
+                     ar_coeff_shift_minus_6=0, grain_scale_shift=0, cb_mult=0, cb_luma_mult=0, cb_offset=0,
+                     cr_mult=0, cr_luma_mult=0, cr_offset=0, overlap_flag=0, clip_to_restricted_range=0)
+        return g
 
     def points(most: int):
         pts = [(b.f(8), b.f(8)) for _ in range(b.f(4))]
@@ -498,24 +727,38 @@ def film_grain_params(b: Bits, s: dict, h: dict) -> dict:
     return g
 
 
-def segmentation_params(b: Bits, h: dict) -> None:
-    """5.9.14 in an intra frame (primary_ref_frame none: the map and the
-    data are always updated): each segment's enabled features and their
-    clipped values, SegIdPreSkip, and LastActiveSegId (-1 where no feature
-    is enabled: dav1d's, where the specification has 0)."""
+def segmentation_params(b: Bits, h: dict, prev: dict | None = None) -> None:
+    """5.9.14: each segment's enabled features and their clipped values,
+    SegIdPreSkip, and LastActiveSegId (-1 where no feature is enabled:
+    dav1d's, where the specification has 0). Without a primary reference
+    the map and the data are always updated; with one,
+    segmentation_update_map, segmentation_temporal_update and
+    segmentation_update_data are read, and data not updated is the primary
+    reference's."""
     h["segmentation_enabled"] = b.f(1)
+    h["segmentation_update_map"], h["segmentation_temporal_update"] = 1, 0
     enabled = [[0] * 8 for _ in range(MAX_SEGMENTS)]
     data = [[0] * 8 for _ in range(MAX_SEGMENTS)]
     if h["segmentation_enabled"]:
-        for i in range(MAX_SEGMENTS):
-            for j in range(8):
-                enabled[i][j] = b.f(1)
-                if enabled[i][j]:
-                    bits, limit = SEG_FEATURE_BITS[j], SEG_FEATURE_MAX[j]
-                    if SEG_FEATURE_SIGNED[j]:
-                        data[i][j] = min(max(b.su(1 + bits), -limit), limit)
-                    else:
-                        data[i][j] = min(b.f(bits), limit)
+        update_data = 1
+        if prev is not None:
+            h["segmentation_update_map"] = b.f(1)
+            if h["segmentation_update_map"]:
+                h["segmentation_temporal_update"] = b.f(1)
+            update_data = b.f(1)
+        if update_data:
+            for i in range(MAX_SEGMENTS):
+                for j in range(8):
+                    enabled[i][j] = b.f(1)
+                    if enabled[i][j]:
+                        bits, limit = SEG_FEATURE_BITS[j], SEG_FEATURE_MAX[j]
+                        if SEG_FEATURE_SIGNED[j]:
+                            data[i][j] = min(max(b.su(1 + bits), -limit), limit)
+                        else:
+                            data[i][j] = min(b.f(bits), limit)
+        else:
+            enabled = [list(r) for r in prev["seg_feature_enabled"]]
+            data = [list(r) for r in prev["seg_feature_data"]]
     h["seg_feature_enabled"], h["seg_feature_data"] = enabled, data
     active = [i for i in range(MAX_SEGMENTS) if any(enabled[i])]
     h["last_active_seg_id"] = active[-1] if active else -1
@@ -572,8 +815,9 @@ def _tile_info(b: Bits, s: dict, h: dict) -> None:
     h["mi_row_starts"] = rows + [h["mi_rows"]]
     h["tile_cols_log2"], h["tile_rows_log2"] = cols_log2, rows_log2
     h["tile_size_bytes"] = 4
+    h["context_update_tile_id"] = 0
     if cols_log2 or rows_log2:
-        b.f(cols_log2 + rows_log2)  # context_update_tile_id
+        h["context_update_tile_id"] = b.f(cols_log2 + rows_log2)
         h["tile_size_bytes"] = b.f(2) + 1
 
 
@@ -617,11 +861,19 @@ def _native():
     if _SIG is None:
         f = lib.av1_decode_frame
         f.argtypes = [ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
-                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
         f.restype = ctypes.c_int
         lib.av1_param_count.restype = ctypes.c_int
         _SIG = (f, lib.av1_param_count())
     return _SIG
+
+
+def _lib_fn(name: str, argtypes: list, restype):
+    """A function of the (loaded) native decoder with its signature."""
+    f = getattr(host_build.load("av1_dec"), name)
+    f.argtypes, f.restype = argtypes, restype
+    return f
 
 
 def _params(s: dict, h: dict) -> np.ndarray:
@@ -640,6 +892,10 @@ def _params(s: dict, h: dict) -> np.ndarray:
     vals += [h["segmentation_enabled"], h["seg_id_pre_skip"], h["last_active_seg_id"],
              *sum(h["seg_feature_enabled"], []), *sum(h["seg_feature_data"], [])]
     vals += [h["upscaled_width"], h["superres_denom"]]
+    intra = h["frame_type"] in (KEY_FRAME, INTRA_ONLY_FRAME)
+    vals += [int(intra), h.get("interpolation_filter", 0), h.get("allow_high_precision_mv", 0),
+             h["force_integer_mv"], *h.get("ref_frame_sign_bias", [0] * 8), h["context_update_tile_id"],
+             h["disable_frame_end_update_cdf"]]
     return np.array(vals, np.int32)
 
 
@@ -668,14 +924,67 @@ def _grain_params(g: dict) -> list:
     return out
 
 
-def decode(data: bytes):
+def inter_unported(s: dict, h: dict, slots: list) -> str | None:
+    """The inter tool of a frame that AVIF steps 8 and 9 will decode (ROADMAP
+    A.1.1), or None: what AVIF step 7 decodes is an inter frame of single
+    references of its own size, translational motion with a fixed or
+    per-block filter, and CDFs from the defaults. A reference that dav1d
+    refuses (a size more than twice or under a sixteenth of the frame's,
+    another depth or layout) fails the frame as it fails in dav1d."""
+    if h["frame_type"] in (KEY_FRAME, INTRA_ONLY_FRAME):
+        return None
+    for i in h["ref_frame_idx"]:
+        slot = slots[i]
+        if (2 * h["width"] < slot["upscaled_width"] or 2 * h["height"] < slot["height"]
+                or h["width"] > 16 * slot["upscaled_width"] or h["height"] > 16 * slot["height"]
+                or slot["seq"]["bit_depth"] != s["bit_depth"] or slot["seq"]["ss"] != s["ss"]
+                or slot["seq"]["mono"] != s["mono"]):
+            raise DecodeError(COLOR_FAILED)
+    if h["use_ref_frame_mvs"]:
+        return "AV1 motion-field projection (use_ref_frame_mvs; AVIF step 8)"
+    if h["is_motion_mode_switchable"]:
+        return "AV1 OBMC / local warped motion (is_motion_mode_switchable; AVIF step 8)"
+    if any(h["gm_type"][1:]):
+        return "AV1 global motion (is_global; AVIF step 8)"
+    if s["enable_dual_filter"] and h["interpolation_filter"] == SWITCHABLE:
+        return "AV1 dual filter (enable_dual_filter with a switchable filter; AVIF step 8)"
+    if h["reference_select"]:
+        return "AV1 compound prediction (reference_select; AVIF step 9)"
+    if h["skip_mode_present"]:
+        return "AV1 skip mode (skip_mode_present; AVIF step 9)"
+    if s["enable_interintra_compound"]:
+        return "AV1 inter-intra prediction (enable_interintra_compound; AVIF step 9)"
+    if h["primary_ref_frame"] != PRIMARY_REF_NONE:
+        return "AV1 CDFs loaded from a reference (primary_ref_frame; AVIF step 9)"
+    if any(slots[i]["upscaled_width"] != h["width"] or slots[i]["height"] != h["height"] for i in h["ref_frame_idx"]):
+        return "AV1 scaled references (a reference of another size; AVIF step 9)"
+    return None
+
+
+def decode(data: bytes, frames: list | None = None):
     """The OBUs of an AV1 item -> the first frame dav1d shows: (Y (H, W),
     U, V ((H + ssy) >> ssy, (W + ssx) >> ssx), uint8 at 8 bits and uint16
     at 10 and 12, or None for a monochrome frame; the sequence header). W
     is the upscaled width under superres. Every frame of the item is
     decoded, as dav1d decodes them, so that a failure after the shown
-    frame fails the item too."""
+    frame fails the item too.
+
+    The reference store (7.20, 7.21): each slot a refreshed frame fills
+    keeps its planes before film grain, its header (size, order hint,
+    frame type, the OrderHints of its own references, loop filter deltas,
+    segmentation, global motion and film grain parameters), its segment
+    map, its per-4x4 references and vectors and its end-of-frame CDFs; a
+    shown frame, or a slot shown again by show_existing_frame, gets the
+    grain its header carries. Each decoded frame's slot record is appended
+    to `frames` where given.
+
+    A frame whose inter tools the port does not decode (`inter_unported`)
+    raises A.1 naming the tool once the item's OBUs are read: that frame
+    and the ones after it are parsed (headers and tile groups) but not
+    decoded, so that a failure of the stream after it fails as dav1d
+    fails it."""
     seq, cur, shown, slots = None, None, None, [None] * NUM_REF_FRAMES
+    pending = None  # the tool of the first frame the port does not decode
     for kind, payload in obus(data):
         if kind == OBU_SEQUENCE_HEADER:
             seq = sequence_header(payload)
@@ -690,14 +999,13 @@ def decode(data: bytes):
             b = Bits(payload)
             hdr = frame_header(b, seq, slots)
             if hdr["show_existing_frame"]:
-                frame = slots[hdr["frame_to_show"]]
-                shown = frame if shown is None else shown
-                if frame[3] == KEY_FRAME:  # showing a key frame refreshes every slot
-                    slots = [frame] * NUM_REF_FRAMES
+                slot = slots[hdr["frame_to_show"]]
+                if shown is None and pending is None:
+                    shown = _with_grain(slot)
+                if slot["frame_type"] == KEY_FRAME:  # showing a key frame refreshes every slot
+                    slots = [slot] * NUM_REF_FRAMES
                 continue
-            if hdr["frame_type"] not in (KEY_FRAME, INTRA_ONLY_FRAME):
-                raise unsupported("an AV1 inter frame shown first" if shown is None
-                                  else "an AV1 inter frame after the frame shown")
+            pending = pending or inter_unported(seq, hdr, slots)
             cur = (payload, hdr, [])
             if kind == OBU_FRAME:
                 b.byte_align()
@@ -708,22 +1016,41 @@ def decode(data: bytes):
             tile_group(payload, 0, cur[1], cur[2])
         if cur is not None and len(cur[2]) == (len(cur[1]["mi_col_starts"]) - 1) * (len(cur[1]["mi_row_starts"]) - 1):
             _, hdr, tiles = cur
-            y, u, v = _decode_frame(seq, hdr, tiles)
-            frame = (y, u, v, hdr["frame_type"], seq)
-            if hdr["show_frame"] and shown is None:
-                shown = frame
-            for i in range(NUM_REF_FRAMES):
-                if hdr["refresh_frame_flags"] >> i & 1:
-                    slots[i] = frame
+            if pending is None:
+                frame = _decode_frame(seq, hdr, tiles, slots)
+                if frames is not None:
+                    frames.append(frame)
+                if hdr["show_frame"] and shown is None:
+                    shown = _with_grain(frame)
+            else:  # from the first frame not decoded on, headers alone: a later failure is still dav1d's
+                frame = _slot(seq, hdr)
+            refresh(slots, hdr, frame)
             cur = None
+    if pending is not None:
+        raise unsupported(pending)
     if shown is None:
         raise DecodeError(COLOR_FAILED)  # no frame shown
-    y, u, v, _, seq = shown
+    y, u, v, seq = shown
     return y, u, v, seq
 
 
-def _decode_frame(seq: dict, hdr: dict, tiles: list):
-    """One frame's tiles through the native decoder -> (Y, U, V)."""
+def _with_grain(frame: dict):
+    """(Y, U, V, sequence header) of a decoded frame as shown: its planes
+    with the film grain of its header added (load_grain_params for a
+    show_existing_frame)."""
+    y, u, v = frame["planes"]
+    if frame["hdr"]["grain"]["apply_grain"]:
+        y, u, v = y.copy(), None if u is None else u.copy(), None if v is None else v.copy()
+        grain = _lib_fn("av1_film_grain", [ctypes.POINTER(ctypes.c_int32)] + [ctypes.c_void_p] * 3, None)
+        grain(_params(frame["seq"], frame["hdr"]).ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), y.ctypes.data,
+              None if u is None else u.ctypes.data, None if v is None else v.ctypes.data)
+    return y, u, v, frame["seq"]
+
+
+def _decode_frame(seq: dict, hdr: dict, tiles: list, slots: list) -> dict:
+    """One frame's tiles through the native decoder -> the reference slot
+    it leaves: its planes before film grain and what later frames read of
+    it (see `decode`)."""
     fn, n_params = _native()
     params = _params(seq, hdr)
     assert len(params) == n_params, (len(params), n_params)
@@ -743,9 +1070,55 @@ def _decode_frame(seq: dict, hdr: dict, tiles: list):
         u = np.zeros(((h + sy) >> sy, (w + sx) >> sx), dtype)
         v = np.zeros_like(u)
         uv = [u.ctypes.data, v.ctypes.data]
+    refs = None
+    if "ref_frame_idx" in hdr:
+        planes = [p for i in hdr["ref_frame_idx"] for p in slots[i]["planes"]]
+        refs = (ctypes.c_void_p * 21)(*[None if p is None else p.ctypes.data for p in planes])
+    mode_info = np.zeros((hdr["mi_rows"], hdr["mi_cols"], MODE_INFO_FIELDS), np.int16)
+    segments = np.zeros((hdr["mi_rows"], hdr["mi_cols"]), np.uint8)
+    cdfs = ctypes.create_string_buffer(_lib_fn("av1_cdf_bytes", [], ctypes.c_int)())
     err = ctypes.create_string_buffer(256)
     rc = fn(params.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), blob,
-            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(tiles), y.ctypes.data, *uv, err, 256)
+            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(tiles), y.ctypes.data, *uv, refs,
+            mode_info.ctypes.data, segments.ctypes.data, cdfs, err, 256)
     if rc:
         raise DecodeError(COLOR_FAILED)  # the tiles fail in dav1d as here (err.value says why)
-    return y, u, v
+    return dict(_slot(seq, hdr), planes=(y, u, v), segment_ids=segments, mode_info=mode_info, cdfs=cdfs.raw)
+
+
+def _slot(seq: dict, hdr: dict) -> dict:
+    """What a reference slot keeps of a frame's headers (7.20)."""
+    return {"seq": seq, "hdr": hdr, "frame_type": hdr["frame_type"], "order_hint": hdr["order_hint"],
+            "upscaled_width": hdr["upscaled_width"], "height": hdr["height"],
+            "order_hints": hdr.get("order_hints", [hdr["order_hint"]] * NUM_REF_FRAMES), "grain": hdr["grain"],
+            "lf_ref_deltas": hdr["lf_ref_deltas"], "lf_mode_deltas": hdr["lf_mode_deltas"],
+            "seg_feature_enabled": hdr["seg_feature_enabled"], "seg_feature_data": hdr["seg_feature_data"],
+            "gm_params": hdr["gm_params"]}
+
+
+def frame_headers(data: bytes) -> list:
+    """The frame headers of an AV1 item in order (a show_existing_frame's
+    too), each read against the slots the frames before it fill: what
+    `decode` reads before each frame's tiles, with no tile decoded."""
+    seq, out, slots = None, [], [None] * NUM_REF_FRAMES
+    for kind, payload in obus(data):
+        if kind == OBU_SEQUENCE_HEADER:
+            seq = sequence_header(payload)
+        elif kind in (OBU_FRAME_HEADER, OBU_FRAME) and not (out and kind == OBU_FRAME_HEADER and
+                                                             payload == out[-1][1]):
+            hdr = frame_header(Bits(payload), seq, slots)
+            out.append((hdr, payload))
+            if hdr["show_existing_frame"]:
+                if slots[hdr["frame_to_show"]]["frame_type"] == KEY_FRAME:
+                    slots = [slots[hdr["frame_to_show"]]] * NUM_REF_FRAMES
+                continue
+            refresh(slots, hdr, _slot(seq, hdr))
+    return [hdr for hdr, _ in out]
+
+
+def refresh(slots: list, hdr: dict, frame: dict) -> None:
+    """The reference update (7.20): `frame` into each slot of the header's
+    refresh_frame_flags."""
+    for i in range(NUM_REF_FRAMES):
+        if hdr["refresh_frame_flags"] >> i & 1:
+            slots[i] = frame

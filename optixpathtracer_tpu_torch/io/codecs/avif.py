@@ -59,8 +59,8 @@ nor `grid` -> "Failed to decode image: Missing or empty image item"; cut
 or corrupt data -> "Failed to decode frame 0: ...". The port keeps its own
 `DecodeError` (ValueError + OSError) for the last two where PIL raises
 RuntimeError and SyntaxError (ROADMAP C.14). What the port does not
-decode yet, an AV1 inter frame shown first, raises NotImplementedError
-naming it and ROADMAP A.1 (AVIF step 7, codecs/av1_obu.py).
+decode yet, the inter tools of AVIF steps 8 and 9, raises
+NotImplementedError naming the tool and ROADMAP A.1 (codecs/av1_obu.py).
 
 Alpha: an av01 (or grid) item with an `auxl` reference to the primary item
 and the alpha URN in its `auxC` is decoded with the same decoder (libaom

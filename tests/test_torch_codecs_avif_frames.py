@@ -22,7 +22,8 @@ csrc/host/av1_dec.cpp's overread check).
   all and keeps the first picture; a failure in them fails the item), a
   show_existing_frame of an empty slot. Planes equal to dav1d's, RGB to
   PIL's; each failure PIL's message.
-- An inter frame shown first (AVIF step 7) raises A.1 naming it.
+- An inter frame shown first that uses AVIF step 8's motion-field
+  projection raises A.1 naming it.
 
 The oracle cases skip where PIL ships no libavif, the encodes where OpenCV
 ships none.
@@ -361,19 +362,21 @@ def test_frame_fixtures(name):
 
 @pytest.mark.skipif(not oracle.available(), reason="PIL ships no libavif here")
 def test_inter_frame_shown_first_raises_a1():
-    """AVIF step 7: a hidden key frame then PIL's sequence's inter frame,
-    shown first. PIL reads it; the port raises A.1 naming the inter frame,
-    and the same inter frame after a shown frame raises it too."""
+    """A hidden key frame then PIL's sequence's inter frame, shown first,
+    which aom at PIL's settings writes with AVIF step 8's motion-field
+    projection. PIL reads it; the port raises A.1 naming that tool, and the
+    same inter frame after a shown frame raises it too (AVIF step 7 decodes
+    the inter frames without it: test_torch_codecs_avif_inter.py)."""
     from torch_fixtures.make_textures import AVIF_RAISES
 
     with open(f"{AVIF_RAISES}/avif_inter_shown_first.avif", "rb") as f:
         data = f.read()
     assert pil_rgb(data).shape == (32, 48, 3)
-    with pytest.raises(NotImplementedError, match="AVIF of an AV1 inter frame shown first.*ROADMAP A.1"):
+    with pytest.raises(NotImplementedError, match="AVIF of AV1 motion-field projection.*step 8.*ROADMAP A.1"):
         codecs.rgb8(data)
     seq_file = mt._sequence(enc, (40, 41))
     seq, key = mt.frame_payload(seq_file)
     after = mt.avif_frames(seq_file, [key, (mt.avif_track_samples(seq_file)[1],)])
     assert pil_rgb(after).shape == (32, 48, 3)
-    with pytest.raises(NotImplementedError, match="AVIF of an AV1 inter frame after the frame shown.*A.1"):
+    with pytest.raises(NotImplementedError, match="AVIF of AV1 motion-field projection.*A.1"):
         codecs.rgb8(after)

@@ -5,7 +5,8 @@ PIL's bundled libavif (libaom's and dav1d's default CDFs, quantizer
 lookups at 8, 10 and 12 bits, directional derivatives, smooth weights, filter-intra taps and
 the DCT / ADST constants, CDEF's and loop restoration's tables; the delta q
 and delta lf CDFs, libaom's quantizer matrices and dav1d's Gaussian
-sequence of film grain), and the
+sequence of film grain; the inter frame's CDFs and the sub-pixel filters
+of AVIF step 7), and the
 first row of each table, with a few more rows, equals the values the AV1
 specification prints. The comparison
 with the library skips where PIL ships no libavif.
@@ -104,6 +105,22 @@ FIRST_ROWS = {
     "Sgrproj_Xqd_Min": [-96, -32],
     "Sgrproj_Xqd_Max": [31, 95],
     "Sgrproj_Xqd_Mid": [-32, 31],
+    # what an inter frame reads (AVIF step 7)
+    "Default_Y_Mode_Cdf": [22801, 23489, 24293, 24756, 25601, 26123, 26606, 27418, 27945, 29228, 29685, 30349],
+    "Default_Is_Inter_Cdf": [806],
+    "Default_Single_Ref_Cdf": [4897],
+    "Default_New_Mv_Cdf": [24035],
+    "Default_Zero_Mv_Cdf": [2175],
+    "Default_Ref_Mv_Cdf": [23974],
+    "Default_Drl_Mode_Cdf": [13104],
+    "Default_Interp_Filter_Cdf": [31935, 32720],
+    "Default_Mv_Class0_Fr_Cdf": [16384, 24576, 26624],
+    "Default_Mv_Fr_Cdf": [8192, 17408, 21248],
+    "Default_Mv_Class0_Hp_Cdf": [20480],
+    "Default_Mv_Hp_Cdf": [16384],
+    "Default_Segment_Id_Predicted_Cdf": [16384],
+    # the sub-pixel filters' first two phases of the regular 8-tap filter
+    "Subpel_Filters": [0, 0, 0, 128, 0, 0, 0, 0, 0, 2, -6, 126, 8, -2, 0, 0],
 }
 
 
@@ -145,6 +162,28 @@ def test_rows_the_specification_prints():
     assert _table(text, "Sgr_Params")[-8:] == [2, 56, 0, -1, 2, 22, 0, -1]
     assert _table(text, "Sgr_Params")[40:44] == [0, -1, 1, 2589]
     assert _table(text, "Cdef_Directions")[-4:] == [1, 0, 2, -1]
+
+
+def test_step7_tables_the_specification_prints():
+    """Default_Single_Ref_Cdf holds single_ref_p1 .. p6 for each of three
+    contexts, its last row 30304; the interpolation filter's 16 contexts
+    end 14969, 21398; the other inter CDFs' rows as printed; the six
+    sub-pixel filters sum to 128 at every phase, phase 8 of the regular,
+    smooth, sharp, bilinear, 4-tap regular and 4-tap smooth as printed."""
+    with open(gen.OUT) as f:
+        text = f.read()
+    assert _table(text, "Default_Single_Ref_Cdf")[-3:] == [30304, 32768, 0]
+    assert _table(text, "Default_Interp_Filter_Cdf")[-4:] == [14969, 21398, 32768, 0]
+    assert _table(text, "Default_New_Mv_Cdf")[::3] == [24035, 16630, 15339, 8386, 12222, 4676]
+    assert _table(text, "Default_Ref_Mv_Cdf")[::3] == [23974, 24188, 17848, 28622, 24312, 19923]
+    assert _table(text, "Default_Is_Inter_Cdf")[::3] == [806, 16662, 20186, 26538]
+    assert _table(text, "Default_Zero_Mv_Cdf")[::3] == [2175, 1054]
+    assert _table(text, "Default_Drl_Mode_Cdf")[::3] == [13104, 24560, 18945]
+    filters = [_table(text, "Subpel_Filters")[128 * f:128 * (f + 1)] for f in range(6)]
+    assert all(sum(f[8 * p:8 * p + 8]) == 128 for f in filters for p in range(16))
+    assert [f[64:72] for f in filters] == [[0, 2, -14, 76, 76, -14, 2, 0], [0, -2, 14, 52, 52, 14, -2, 0],
+                                           [-4, 12, -24, 80, 80, -24, 12, -4], [0, 0, 0, 64, 64, 0, 0, 0],
+                                           [0, 0, -12, 76, 76, -12, 0, 0], [0, 0, 12, 52, 52, 12, 0, 0]]
 
 
 def test_step4_tables_the_specification_prints():

@@ -53,7 +53,8 @@ def _committed_avif(name: str) -> bytes:
     encoder, which PIL's save does not write; a premultiplied alpha item of
     another size than the colour, which libavif scales) or, where the port
     raises A.1 for it, of tests/torch_fixtures/avif_raises (an inter frame
-    shown first, after a hidden key frame)."""
+    shown first, after a hidden key frame, with the motion-field projection
+    of AVIF step 8)."""
     path = os.path.join(OUT, name)
     with open(path if os.path.exists(path) else os.path.join(AVIF_RAISES, name), "rb") as f:
         return f.read()
@@ -79,6 +80,7 @@ UNPORTED = {
     "AVIF_GRID": lambda: _committed_avif("avif_grid.avif"),
     "AVIF_PREM_ALPHA_OTHER_SIZE": lambda: _committed_avif("avif_prem_alpha_other_size.avif"),
     "AVIF_INTER_SHOWN_FIRST": lambda: _committed_avif("avif_inter_shown_first.avif"),
+    "AVIF_INTER": lambda: _committed_avif("avif_inter_420.avif"),
     "ICNS": lambda: pil_bytes(photo(16, 16, 1, 4), "ICNS", "RGBA", sizes=[(16, 16)]),
     "SUN": lambda: _sun(photo(3, 5, 1)),
     "XPM": _xpm,
@@ -87,7 +89,7 @@ UNPORTED = {
 
 
 # what each still-unported case's NotImplementedError names
-STILL_UNPORTED = {"AVIF_INTER_SHOWN_FIRST": "AVIF of an AV1 inter frame shown first"}
+STILL_UNPORTED = {"AVIF_INTER_SHOWN_FIRST": "AVIF of AV1 motion-field projection"}
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
@@ -203,9 +205,9 @@ def test_gltf_with_unported_format_raises_a1(tmp_path):
     from optixpathtracer_tpu_torch.io import gltf as tgltf
 
     path = _textured_glb(tmp_path / "avif.glb", UNPORTED["AVIF_INTER_SHOWN_FIRST"]())
-    with pytest.raises(NotImplementedError, match="AVIF of an AV1 inter frame shown first.*A.1"):
+    with pytest.raises(NotImplementedError, match="AVIF of AV1 motion-field projection.*A.1"):
         tgltf.load_gltf(path)
-    for name in ("AVIF_444", "AVIF_QM", "AVIF_GRID", "AVIF_PREM_ALPHA_OTHER_SIZE"):  # each once raised here
+    for name in ("AVIF_444", "AVIF_QM", "AVIF_GRID", "AVIF_PREM_ALPHA_OTHER_SIZE", "AVIF_INTER"):  # each once raised here
         got, _ = _assert_same_gltf(_textured_glb(tmp_path / f"{name}.glb", UNPORTED[name]()))
         assert len(got.textures) == 1
 

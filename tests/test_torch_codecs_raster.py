@@ -325,6 +325,6 @@ def test_unported_formats_left():
     with open(os.path.join(AVIF_RAISES, "avif_inter_shown_first.avif"), "rb") as f:
         step7 = f.read()
     assert pil_rgb(step7).shape == (32, 48, 3)
-    with pytest.raises(NotImplementedError, match="AVIF of an AV1 inter frame shown first.*A.1"):
+    with pytest.raises(NotImplementedError, match="AVIF of AV1 motion-field projection.*A.1"):
         timg.rgb8_from_bytes(step7)
     assert_like_pil(pil_bytes(photo(8, 8, 1), "JPEG2000"))

@@ -154,9 +154,10 @@ def test_unported_formats_raise_naming_a1():
     """What this test once held unported now decodes as PIL does (arithmetic
     and CMYK JPEG, BMP, GIF, TIFF, WebP, MSP, JPEG 2000;
     tests/test_torch_codecs_*.py case by case) and AVIF at PIL's defaults
-    and in 4:4:4, an AVIF with quantizer matrices and an AVIF grid; a
-    variant PIL reads and the port does not (a premultiplied AVIF alpha of
-    another size than the colour, AVIF step 6) still raises A.1;
+    and in 4:4:4, an AVIF with quantizer matrices, an AVIF grid, a
+    premultiplied AVIF alpha of another size than the colour and an AVIF
+    inter frame; a variant PIL reads and the port does not (an inter frame
+    with AVIF step 8's motion-field projection) still raises A.1;
     what PIL cannot read (a 12-bit JPEG, bytes of no format) raises an
     OSError as PIL's UnidentifiedImageError is one."""
     base = _pil_jpeg(_photo(16, 16, 7), quality=75)
@@ -201,11 +202,15 @@ def test_unported_formats_raise_naming_a1():
         prem = f.read()
     assert _pil(prem).shape == (40, 48, 3)  # once unported here, now decoded as PIL decodes it
     _assert_decodes_like_pil(prem)
+    with open(os.path.join(OUT, "avif_inter_420.avif"), "rb") as f:
+        inter = f.read()
+    assert _pil(inter).shape == (96, 64, 3)  # once unported here, now decoded as PIL decodes it
+    _assert_decodes_like_pil(inter)
     with open(os.path.join(AVIF_RAISES, "avif_inter_shown_first.avif"), "rb") as f:
-        step7 = f.read()
-    assert _pil(step7).shape == (32, 48, 3)
-    with pytest.raises(NotImplementedError, match="AVIF of an AV1 inter frame shown first.*A.1"):
-        timg.rgb8_from_bytes(step7)
+        step8 = f.read()
+    assert _pil(step8).shape == (32, 48, 3)
+    with pytest.raises(NotImplementedError, match="AVIF of AV1 motion-field projection.*A.1"):
+        timg.rgb8_from_bytes(step8)
     for data in (twelve_bit, b"no image format" + bytes(20)):
         with pytest.raises(OSError, match="cannot identify"):
             _pil(data)

@@ -243,7 +243,7 @@ def test_unported_formats_raise(tmp_path):
     with open(os.path.join(AVIF_RAISES, "avif_inter_shown_first.avif"), "rb") as f:
         step7 = f.read()
     assert _pil_rgb(step7).shape == (32, 48, 3)  # PIL reads it; the port raises A.1 naming it
-    with pytest.raises(NotImplementedError, match="AVIF of an AV1 inter frame shown first.*ROADMAP A.1"):
+    with pytest.raises(NotImplementedError, match="AVIF of AV1 motion-field projection.*ROADMAP A.1"):
         timg.rgb8_from_bytes(step7)
     with pytest.raises(ValueError, match="not a PNG"):
         timg.rgb8_from_png(b"GIF89a" + bytes(40))

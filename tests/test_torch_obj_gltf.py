@@ -328,7 +328,7 @@ def test_gltf_tlas_raises(tmp_path):
     np.testing.assert_array_equal(tgltf.load_gltf_tlas(path)[0].textures[0], jgltf.load_gltf(path)[0].textures[0])
     with open(os.path.join(AVIF_RAISES, "avif_inter_shown_first.avif"), "rb") as f:
         path = _textured_glb(tmp_path / "avif_inter_shown_first.glb", f.read())
-    with pytest.raises(NotImplementedError, match="AVIF of an AV1 inter frame shown first.*A.1"):
+    with pytest.raises(NotImplementedError, match="AVIF of AV1 motion-field projection.*A.1"):
         tgltf.load_gltf_tlas(path)
 
 

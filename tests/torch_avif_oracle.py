@@ -19,6 +19,11 @@ inside, built for high bit depth) as the writer of 10- and 12-bit stills.
 - `unpremultiply(rgba)`: `avifRGBImageUnpremultiplyAlpha` on 8-bit RGBA.
 - `encode(y, grid)`: libavif's own encoder, for the `grid` stills PIL's
   save does not write.
+- `encode_seq(frames, depth, yuv_format, speed, quality, options)`: an
+  image sequence of those frames through the same encoder (aom's
+  good-quality usage, inter frames after the first); `INTER_TOOLS_OFF`
+  the codec-specific options that keep aom's inter frames to single
+  references and translational motion.
 - `encode_hbd(planes, depth, yuv_format, ...)`: OpenCV's libavif 1.4
   encoder (aom 3.14 inside) on planes of our own at any depth and layout,
   with alpha straight or premultiplied, either range, aom's speed and
@@ -386,3 +391,54 @@ def scale(planes, depth: int, yuv_format: int, width: int, height: int, alpha=No
         return [v.copy() for v in views], None if scaled is None else scaled.copy()
     finally:
         lib.avifImageDestroy(im)
+
+
+# aom's inter tools that AVIF step 7 leaves for later steps, switched off:
+# OBMC, warped and global motion, temporal MV candidates, the compound
+# tools and the dual filter
+INTER_TOOLS_OFF = {"enable-obmc": 0, "enable-warped-motion": 0, "enable-global-motion": 0, "enable-ref-frame-mvs": 0,
+                   "enable-onesided-comp": 0, "enable-masked-comp": 0, "enable-interintra-comp": 0,
+                   "enable-dist-wtd-comp": 0, "enable-dual-filter": 0}
+
+
+def encode_seq(frames, depth: int, yuv_format: int, speed: int = 6, quality: int = 60,
+               options: dict | None = None) -> bytes:
+    """An image sequence through OpenCV's libavif 1.4 (aom 3.14): each of
+    `frames` ([Y] or [Y, U, V] planes of the layout's sizes, uint16 above
+    depth 8) added with no flag (aom's good-quality usage, one temporal unit
+    a frame, inter frames after the first), at aom's `speed` and `quality`,
+    full range, matrix BT.601, and codec-specific `options` (quantizer
+    matrices and delta q off unless asked for, as in `encode_hbd`). The
+    track's samples: tests/torch_fixtures/make_textures.avif_track_samples."""
+    lib = _hbd_lib()
+    h, w = frames[0][0].shape
+    images = []
+    enc = lib.avifEncoderCreate()
+    out = (ctypes.c_uint8 * 16)()  # avifRWData: data, size
+    try:
+        fields = (ctypes.c_uint8 * 64).from_address(enc)
+        struct.pack_into("<i", fields, 8, speed)
+        struct.pack_into("<ii", fields, 32, quality, quality)
+        for key, value in {"enable-qm": 0, "deltaq-mode": 0, **(options or {})}.items():
+            if lib.avifEncoderSetCodecSpecificOption(enc, key.encode(), str(value).encode()) != 0:
+                raise RuntimeError(f"avifEncoderSetCodecSpecificOption {key} failed")
+        for planes in frames:
+            im = _create(lib, w, h, depth, yuv_format, False)
+            images.append(im)
+            struct.pack_into("<I", (ctypes.c_uint8 * 4).from_address(im + 16), 0, 1)
+            struct.pack_into("<3H", (ctypes.c_uint8 * 6).from_address(im + 104), 0, 1, 13, 6)
+            _, views = _plane_views(im)
+            for view, plane in zip(views, planes):
+                view[...] = plane
+            if lib.avifEncoderAddImage(enc, im, 1, 0) != 0:
+                raise RuntimeError("avifEncoderAddImage failed")
+        if lib.avifEncoderFinish(enc, ctypes.addressof(out)) != 0:
+            raise RuntimeError("avifEncoderFinish failed")
+        ptr, size = struct.unpack_from("<QQ", out)
+        data = bytes((ctypes.c_uint8 * size).from_address(ptr))
+        lib.avifRWDataFree(ctypes.addressof(out))
+        return data
+    finally:
+        lib.avifEncoderDestroy(enc)
+        for im in images:
+            lib.avifImageDestroy(im)

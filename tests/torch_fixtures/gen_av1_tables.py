@@ -118,7 +118,27 @@ CDFS = [
     ("Default_Use_Wiener_Cdf", (), 2, None, 2, "dav1d", ("Default_Restoration_Type_Cdf", 4, "raw")),
     ("Default_Use_Sgrproj_Cdf", (), 2, None, 2, "dav1d", ("Default_Restoration_Type_Cdf", 6, "raw")),
     ("Default_Segment_Id_Cdf", (3,), 8, (5622, 7893, 16093, 18233), 8, "dav1d"),
+    # what an inter frame reads (AVIF step 7): the intra Y mode by size
+    # group, is_inter, the single references, the inter modes and the DRL
+    # index, the interpolation filter, the fractional and high-precision
+    # MV parts (in libaom's nmv_component after the class CDF)
+    ("Default_Y_Mode_Cdf", (4,), 13, (22801, 23489, 24293, 24756), 14, "aom"),
+    ("Default_Is_Inter_Cdf", (4,), 2, (806, 16662, 20186, 26538), 2, "dav1d"),
+    ("Default_Single_Ref_Cdf", (3, 6), 2, (4897, 1555, 4236, 8650), 3, "aom"),
+    ("Default_New_Mv_Cdf", (6,), 2, (24035, 16630, 15339, 8386), 3, "aom"),
+    ("Default_Zero_Mv_Cdf", (2,), 2, (2175, 1054), 2, "dav1d"),
+    ("Default_Ref_Mv_Cdf", (6,), 2, (23974, 24188, 17848, 28622), 3, "aom"),
+    ("Default_Drl_Mode_Cdf", (3,), 2, (13104, 24560, 18945), 2, "dav1d"),
+    ("Default_Interp_Filter_Cdf", (16,), 3, (31935, 32720), 4, "aom"),
+    ("Default_Mv_Class0_Fr_Cdf", (2,), 4, None, 5, "aom", ("Default_Mv_Class_Cdf", 12, "raw")),
+    ("Default_Mv_Fr_Cdf", (), 4, None, 5, "aom", ("Default_Mv_Class_Cdf", 12 + 10, "raw")),
+    ("Default_Mv_Class0_Hp_Cdf", (), 2, None, 3, "aom", ("Default_Mv_Class_Cdf", 12 + 15 + 3, "raw")),
+    ("Default_Mv_Hp_Cdf", (), 2, None, 3, "aom", ("Default_Mv_Class_Cdf", 12 + 15 + 6, "raw")),
 ]
+# the predicted segment id's CDF (three rows of 16384) cannot be told
+# apart in the library: typed from the specification, as the short rows
+# below
+SPEC_CDFS = {"Default_Segment_Id_Predicted_Cdf": ((3,), [[16384, 32768, 0]] * 3)}
 # too short to locate in the library: typed from the specification
 SPEC = {
     "Cdef_Sec_Taps": [[2, 1], [2, 1]],
@@ -129,7 +149,7 @@ SPEC = {
     "Sgrproj_Xqd_Max": [31, 95],
     "Sgrproj_Xqd_Mid": [-32, 31],
 }
-SHAPES = {"Quantizer_Matrix": "[15][2][3344]", "Dc_Qlookup": "[3][256]", "Ac_Qlookup": "[3][256]", "Filter_Intra_Taps": "[5][8][7]", "Sgr_Params": "[16][4]", "Cdef_Uv_Dir": "[2][2][8]",
+SHAPES = {"Subpel_Filters": "[6][16][8]", "Quantizer_Matrix": "[15][2][3344]", "Dc_Qlookup": "[3][256]", "Ac_Qlookup": "[3][256]", "Filter_Intra_Taps": "[5][8][7]", "Sgr_Params": "[16][4]", "Cdef_Uv_Dir": "[2][2][8]",
           "Cdef_Directions": "[8][2][2]", "Cdef_Pri_Taps": "[2][2]", "Cdef_Sec_Taps": "[2][2]",
           "Upscale_Filter": "[64][8]"}
 
@@ -273,7 +293,16 @@ def scalars(ro: bytes) -> dict:
     # libaom's av1_resize_filter_normative: superres's 8-tap filters, 64
     # phases (7.16), found by its first two rows
     upscale = grab([0, 0, 0, 128, 0, 0, 0, 0, 0, 0, -1, 128, 2, -1, 0, 0], "<i2", 64 * 8)
-    return {"Upscale_Filter": upscale, "Quantizer_Matrix": qm, "Qm_Offset": offset, "Gaussian_Sequence": gauss,
+    # libaom's sub-pixel filters (7.11.3.4), 16 phases of 8 taps each, in
+    # the specification's order: regular, smooth, sharp, bilinear, then the
+    # 4-tap regular and smooth of blocks 4 samples wide or high; each found
+    # by its second row
+    subpel = [grab(row, "<i2", 16 * 8) for row in (
+        [0, 0, 0, 128, 0, 0, 0, 0, 0, 2, -6, 126, 8, -2, 0, 0], [0, 0, 0, 128, 0, 0, 0, 0, 0, 2, 28, 62, 34, 2, 0, 0],
+        [0, 0, 0, 128, 0, 0, 0, 0, -2, 2, -6, 126, 8, -2, 2, 0], [0, 0, 0, 128, 0, 0, 0, 0, 0, 0, 0, 120, 8, 0, 0, 0],
+        [0, 0, 0, 128, 0, 0, 0, 0, 0, 0, -4, 126, 8, -2, 0, 0], [0, 0, 0, 128, 0, 0, 0, 0, 0, 0, 30, 62, 34, 2, 0, 0])]
+    assert all(sum(r[8 * k:8 * k + 8]) == 128 for r in subpel for k in range(16)), subpel
+    return {"Subpel_Filters": subpel, "Upscale_Filter": upscale, "Quantizer_Matrix": qm, "Qm_Offset": offset, "Gaussian_Sequence": gauss,
             "Dc_Qlookup": dc, "Ac_Qlookup": ac, "Dr_Intra_Derivative": drd, "Sm_Weights": sm,
             "Filter_Intra_Taps": taps, "Cos128_Lookup": cos, "Sinpi_Lookup": sinpi, "Sgr_Params": sgr.tolist(),
             "Div_Table": div, "Cdef_Uv_Dir": [[ident, conv440], [conv422, ident]], "Cdef_Directions": dirs.tolist(),
@@ -295,7 +324,7 @@ def header(ro: bytes) -> str:
              "#pragma once", "#include <stdint.h>", ""]
     lines += ["// CDEF's secondary taps and the Wiener and self-guided coefficient ranges",
               "// are typed from the specification; every other table is the library's.", ""]
-    for name, (dims, rows) in {**tables(ro), **delta_cdfs(ro)}.items():
+    for name, (dims, rows) in {**tables(ro), **delta_cdfs(ro), **SPEC_CDFS}.items():
         width = max(len(r) for r in rows)
         flat = []
         for r in rows:
@@ -306,7 +335,7 @@ def header(ro: bytes) -> str:
         flat = np.ravel(vals).tolist()
         typ = "int8_t" if name == "Filter_Intra_Taps" else "int16_t" if name in (
             "Dc_Qlookup", "Ac_Qlookup", "Dr_Intra_Derivative", "Gaussian_Sequence",
-            "Upscale_Filter") else "uint8_t" if name in (
+            "Upscale_Filter", "Subpel_Filters") else "uint8_t" if name in (
             "Sm_Weights", "Quantizer_Matrix") else "int32_t"
         shape = SHAPES.get(name, f"[{len(flat)}]")
         lines.append(f"static const {typ} {name}{shape} = {{\n{_fmt(flat, 32 if len(flat) > 4096 else 16)}\n}};\n")

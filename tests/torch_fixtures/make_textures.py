@@ -23,11 +23,13 @@ writes the rest (arithmetic, lossless and YCCK JPEG, RLE BMP, colour-mapped
 TGA, GIF with an offset frame, PSD, RLE SGI, JPEG-in-TIFF, CUR, a WebP
 animation, BC6H, a VP8 frame with the simple filter and four partitions) and
 tests/torch_j2k_encoders.py the JPEG 2000 files PIL does not write (through
-OpenJPEG's own encoder, spliced JP2 boxes, PPT / PPM). The AVIF files the
-port refuses (a step-6 variant, and those PIL refuses) go to avif_raises/
-with expected.json. chip_smoke.py's `codecs_scene` decodes every fixture on a
-machine without PIL and holds it to the manifest; the CPU tests decode the
-committed files with PIL and hold the manifest to them.
+OpenJPEG's own encoder, spliced JP2 boxes, PPT / PPM). AVIF step 7's inter
+frames come from image sequences of OpenCV's libavif (`encode_seq`) behind a
+hidden key frame. The AVIF files the port refuses (the inter tools of steps
+8 and 9, and those PIL refuses) go to avif_raises/ with expected.json.
+chip_smoke.py's `codecs_scene` decodes every fixture on a machine without
+PIL and holds it to the manifest; the CPU tests decode the committed files
+with PIL and hold the manifest to them.
 
 Run from the repository root: python tests/torch_fixtures/make_textures.py
 """
@@ -355,6 +357,7 @@ def _fixtures_avif(enc, pil, Image) -> dict[str, bytes]:
     out.update(_fixtures_avif_tools(enc, pil, Image))
     out.update(_fixtures_avif_step5(enc, pil, Image))
     out.update(_fixtures_avif_step6(enc, pil, Image))
+    out.update(_fixtures_avif_step7(enc, pil, Image))
     return out
 
 
@@ -949,9 +952,11 @@ def avif_track_samples(data: bytes) -> list:
 
 
 def avif_inter_shown_first(enc, pil) -> bytes:
-    """AVIF step 7's example: a still whose item holds PIL's two-frame
+    """AVIF step 8's example: a still whose item holds PIL's two-frame
     sequence's key frame made hidden (refreshing every slot), then the
-    sequence's second sample, an inter frame, shown first."""
+    sequence's second sample, an inter frame shown first, which aom at
+    PIL's settings writes with motion-field projection, OBMC and global
+    motion."""
     from PIL import Image
 
     frames = [Image.fromarray(enc.photo(32, 48, s)) for s in (40, 41)]
@@ -1203,10 +1208,119 @@ def _fixtures_avif_step6(enc, pil, Image) -> dict[str, bytes]:
     return out
 
 
+def panning(rgb: np.ndarray, h: int, w: int, n: int, step=(0.6, 1.3)) -> list:
+    """n frames of h x w cut from `rgb` at (i * step) rows and columns for
+    frame i, sampled bilinearly: sub-pixel motion on both axes."""
+    a = rgb.astype(np.float64)
+    out = []
+    for i in range(n):
+        y0, x0 = i * step[0], i * step[1]
+        iy, ix = int(y0), int(x0)
+        fy, fx = y0 - iy, x0 - ix
+        img = (a[iy:iy + h, ix:ix + w] * (1 - fy) * (1 - fx) + a[iy + 1:iy + 1 + h, ix:ix + w] * fy * (1 - fx)
+               + a[iy:iy + h, ix + 1:ix + 1 + w] * (1 - fy) * fx + a[iy + 1:iy + 1 + h, ix + 1:ix + 1 + w] * fy * fx)
+        out.append(np.clip(np.rint(img), 0, 255).astype(np.uint8))
+    return out
+
+
+def avif_inter_item(seq_file: bytes, samples: int = 1, shown_key: bool = False) -> bytes:
+    """An AVIF step-7 item from an image sequence (torch_avif_oracle.
+    encode_seq): the sequence's key frame made hidden and refreshing every
+    slot (key_frame_as, as avif_inter_shown_first builds it), or kept shown
+    with `shown_key`, then the track's next `samples` samples as coded."""
+    seq, key = frame_payload(seq_file)
+    first = key if shown_key else key_frame_as(key, seq, show_frame=0, refresh=0xFF)
+    return avif_frames(seq_file, [first] + [(s,) for s in avif_track_samples(seq_file)[1:1 + samples]])
+
+
+def inter_sequence(enc, w: int, h: int, depth: int, fmt: int, seed: int, n: int = 2, smooth: bool = False,
+                   **kw) -> bytes:
+    """An image sequence of n panning frames (`panning` over a photo, or
+    slow colour waves where `smooth`) through OpenCV's libavif with the
+    inter tools of AVIF steps 8 and 9 off (torch_avif_oracle.
+    INTER_TOOLS_OFF, updated by `options`)."""
+    import torch_avif_oracle as oracle
+
+    src = (_smooth if smooth else enc.photo)(h + 2 * n + 2, w + 2 * n + 2, seed)
+    frames = [enc.yuv_planes(f, depth, fmt, 1, seed) for f in panning(src, h, w, n)]
+    options = {**oracle.INTER_TOOLS_OFF, **kw.pop("options", {})}
+    return oracle.encode_seq(frames, depth, fmt, options=options, **kw)
+
+
+# AVIF step 7's items: name -> (width, height, depth, layout, seed, frames,
+# samples after the key frame, encode_seq's keywords)
+STEP7 = {
+    "avif_inter_420.avif": (64, 96, 8, 3, 700, 2, 1, {}),
+    "avif_inter_444.avif": (64, 96, 8, 1, 701, 2, 1, {}),
+    "avif_inter_422.avif": (64, 96, 8, 2, 702, 2, 1, {}),
+    "avif_inter_400.avif": (64, 96, 8, 4, 703, 2, 1, {}),
+    "avif10_inter_420.avif": (64, 96, 10, 3, 704, 2, 1, {}),
+    "avif10_inter_444.avif": (64, 96, 10, 1, 705, 2, 1, {}),
+    "avif12_inter_420.avif": (64, 96, 12, 3, 706, 2, 1, {}),
+    "avif12_inter_444.avif": (64, 96, 12, 1, 707, 2, 1, {}),
+    "avif_inter_128x160.avif": (128, 160, 8, 3, 708, 2, 1, {}),
+    "avif_inter_50x70.avif": (50, 70, 8, 3, 709, 2, 1, {}),
+    "avif10_inter_50x70_444.avif": (50, 70, 10, 1, 710, 2, 1, {}),
+    "avif_inter_1024.avif": (1024, 1024, 8, 3, 711, 2, 1, {"quality": 40}),
+    "avif_inter_speed0_420.avif": (64, 96, 8, 3, 712, 2, 1, {"speed": 0}),
+    "avif12_inter_speed0_444.avif": (64, 96, 12, 1, 713, 2, 1, {"speed": 0}),
+    "avif_inter_speed0_small_420.avif": (64, 96, 8, 3, 800, 2, 1, {"quality": 90, "speed": 0}),
+    "avif10_inter_small_422.avif": (64, 96, 10, 2, 801, 2, 1, {"quality": 95, "speed": 2}),
+    "avif_inter_arf_420.avif": (64, 96, 8, 3, 714, 4, 1, {}),
+    "avif10_inter_arf_444.avif": (64, 96, 10, 1, 724, 4, 1, {}),
+    "avif_inter_grain_420.avif": (64, 96, 8, 3, 716, 2, 1, {"options": {"film-grain-test": 1}}),
+    "avif_inter_denoise_420.avif": (64, 96, 8, 3, 717, 2, 1, {"options": {"denoise-noise-level": 20}}),
+}
+
+
+def _fixtures_avif_step7(enc, pil, Image) -> dict[str, bytes]:
+    """AVIF step 7: items of a hidden key frame and the inter frames of an
+    image sequence after it (avif_inter_item over inter_sequence, STEP7):
+    2 frames at speed 6 in every layout at 8 bits and in 4:2:0 and 4:4:4 at
+    10 and 12, at 128 x 160, at an odd size (50 x 70: vectors past the
+    frame's edge) and 1024 x 1024 (slow waves, quality 40); speed 0 (a
+    per-block filter); inter blocks under 8 x 8, whose 4:2:0 and 4:2:2
+    chroma predicts from each luma block's vector (quality 90 and 95);
+    4 frames, the second sample (a hidden ALTREF frame,
+    then the shown frame predicting from it and from the key frame); film
+    grain (aom's test vector 1, and its denoiser's); and a shown key frame
+    followed by an inter frame, which dav1d decodes and does not show."""
+    out = {}
+    for name, (w, h, depth, fmt, seed, n, samples, kw) in STEP7.items():
+        out[name] = avif_inter_item(inter_sequence(enc, w, h, depth, fmt, seed, n, smooth=w >= 1024, **kw), samples)
+    out["avif_inter_after_shown.avif"] = avif_inter_item(inter_sequence(enc, 64, 96, 8, 3, 718), shown_key=True)
+    return out
+
+
+def avif_raises_step7(enc) -> dict[str, tuple[bytes, str, str]]:
+    """The inter tools AVIF steps 8 and 9 will decode, each in an item of
+    aom's writing that PIL reads (the OBMC and global motion switches on
+    in turn; a 4-frame sequence's third sample, whose frame is compound;
+    a 4-frame sequence without ALTREF frames, whose fourth frame loads its
+    CDFs from a reference), each after the frame shown -> name -> (bytes,
+    exception class name, message pattern)."""
+    unported = "NotImplementedError"
+    four = inter_sequence(enc, 64, 96, 8, 3, 720, 4)
+    no_arf = inter_sequence(enc, 64, 96, 8, 3, 723, 4, options={"auto-alt-ref": 0})
+    return {
+        "avif_inter_obmc.avif": (avif_inter_item(inter_sequence(enc, 64, 96, 8, 3, 721, options={"enable-obmc": 1})),
+                                 unported, r"AV1 OBMC / local warped motion.*AVIF step 8.*ROADMAP A\.1"),
+        "avif_inter_global_motion.avif": (
+            avif_inter_item(inter_sequence(enc, 64, 96, 8, 3, 722, options={"enable-global-motion": 1})),
+            unported, r"AV1 global motion.*AVIF step 8.*ROADMAP A\.1"),
+        "avif_inter_compound.avif": (avif_inter_item(four, 2), unported,
+                                     r"AV1 compound prediction.*AVIF step 9.*ROADMAP A\.1"),
+        "avif_inter_loaded_cdfs.avif": (avif_inter_item(no_arf, 3), unported,
+                                        r"AV1 CDFs loaded from a reference.*AVIF step 9.*ROADMAP A\.1"),
+    }
+
+
 def avif_raises(enc, pil, Image) -> dict[str, tuple[bytes, str, str]]:
-    """AVIF files the port refuses: the step-7 variant PIL reads (an inter
-    frame shown first, after a hidden key frame) raises NotImplementedError
-    naming A.1; the files PIL refuses fail as PIL's do (ROADMAP C.14: a HEIF
+    """AVIF files the port refuses: the inter tools of AVIF steps 8 and 9
+    PIL reads (PIL's own sequence, its inter frame shown first after a
+    hidden key frame, with motion-field projection; avif_raises_step7)
+    raise NotImplementedError naming A.1 and the tool; the files PIL
+    refuses fail as PIL's do (ROADMAP C.14: a HEIF
     brand without avif, a primary item of type hvc1, a file cut 40 bytes
     short; C.16: identity on 4:2:0 and matrix 10, which libavif does not
     convert; C.17: a good-quality still with show_existing_frame or an
@@ -1234,7 +1348,7 @@ def avif_raises(enc, pil, Image) -> dict[str, tuple[bytes, str, str]]:
     cut = oracle.encode_hbd(enc.yuv_photo(64, 64, 38, 8, 3), 8, 3, single=False)
     return {
         "avif_inter_shown_first.avif": (avif_inter_shown_first(enc, pil), "NotImplementedError",
-                                        "AVIF of an AV1 inter frame shown first.*ROADMAP A.1"),
+                                        "AVIF of AV1 motion-field projection.*AVIF step 8.*ROADMAP A.1"),
         "avif_heic_brand.avif": (heic, "UnidentifiedImageError", "cannot identify image file"),
         "avif_hvc1_item.avif": (base[:j] + b"hvc1" + base[j + 4:], "DecodeError",
                                 "Failed to decode image: Missing or empty image item"),
@@ -1253,6 +1367,7 @@ def avif_raises(enc, pil, Image) -> dict[str, tuple[bytes, str, str]]:
         "avif_sequence_meta_stripped.avif": (avif_meta_stripped(open(os.path.join(OUT, "avif_sequence_32.avif"),
                                                                      "rb").read()),
                                              "UnidentifiedImageError", "cannot identify image file"),
+        **avif_raises_step7(enc),
     }
 
 
